@@ -1,0 +1,31 @@
+"""Carry the JAX package's state across to the port.
+
+The engine's "weights" are a grid spec and a log-density field. Both
+cross as numpy arrays, so this module needs neither package's arrays to
+be of any particular type: anything ``np.asarray`` reads will do.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.grids import Grid3D
+
+
+def grid_from_numpy(origin, spacing=None, shape=None, device=None) -> Grid3D:
+    """A port ``Grid3D`` from (origin, spacing, shape), or from any object
+    with ``origin``/``spacing``/``shape`` attributes (the JAX package's
+    ``Grid3D`` among them) passed as the first argument."""
+    if spacing is None and shape is None and hasattr(origin, "spacing"):
+        origin, spacing, shape = origin.origin, origin.spacing, origin.shape
+    if spacing is None or shape is None:
+        raise TypeError("grid_from_numpy needs origin, spacing and shape, "
+                        "or one object that has all three")
+    return Grid3D.create(np.asarray(origin, np.float32),
+                         np.asarray(spacing, np.float32), shape,
+                         device=device)
+
+
+def field_from_numpy(m, device=None) -> torch.Tensor:
+    """A field (e.g. the log-density m) as a contiguous float32 tensor."""
+    return torch.tensor(np.asarray(m, np.float32), device=device)

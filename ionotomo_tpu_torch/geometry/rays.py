@@ -1,0 +1,100 @@
+"""Straight-line ray sampling and ray batches (port of the parts of
+``ionotomo_tpu.geometry.rays`` the bent-ray slice uses).
+
+A ``RayBundle`` — a flat batch of rays plus quadrature geometry — is the
+currency of the forward operators. Tensors keep the inputs' device.
+
+Not ported yet (ROADMAP.md Queue 1 item 5): ``inner_bundle`` and
+``calc_rays``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .. import constants
+
+
+@dataclasses.dataclass(frozen=True)
+class RayBundle:
+    """A flat batch of sampled rays.
+
+    points:  (R, N, 3) sample positions [km]
+    ds:      (R,) arc-length spacing between consecutive samples [km]
+             (uniform per ray; bent rays are reparametrised to uniform s)
+    """
+
+    points: torch.Tensor
+    ds: torch.Tensor
+
+    @property
+    def num_rays(self) -> int:
+        return self.points.shape[0]
+
+    @property
+    def num_samples(self) -> int:
+        return self.points.shape[1]
+
+
+def sample_straight_rays(origins, directions,
+                         max_length_km=constants.DEFAULT_MAX_LENGTH_KM,
+                         n_samples=constants.DEFAULT_N_SAMPLES) -> RayBundle:
+    """Sample straight rays: origins (R,3), unit directions (R,3) → RayBundle.
+
+    ``n_samples`` should be odd so composite Simpson quadrature applies
+    exactly (constants.DEFAULT_N_SAMPLES = 129).
+    """
+    origins = torch.as_tensor(origins, dtype=torch.float32)
+    directions = torch.as_tensor(directions, dtype=torch.float32,
+                                 device=origins.device)
+    s = torch.linspace(0.0, max_length_km, n_samples, dtype=torch.float32,
+                       device=origins.device)
+    pts = origins[:, None, :] + s[None, :, None] * directions[:, None, :]
+    ds = torch.full((origins.shape[0],), max_length_km / (n_samples - 1),
+                    dtype=torch.float32, device=origins.device)
+    return RayBundle(points=pts, ds=ds)
+
+
+def make_ray_batch(antennas_enu, directions_enu):
+    """Cartesian product (Na,3)×(Nd,3) → flat (Na*Nd, 3) origin/dir arrays.
+
+    Row-major over (antenna, direction): ray r = i*Nd + k, matching the
+    dTEC referencing convention in forward.tec.
+    """
+    ants = torch.as_tensor(antennas_enu, dtype=torch.float32)
+    dirs = torch.as_tensor(directions_enu, dtype=torch.float32,
+                           device=ants.device)
+    na, nd = ants.shape[0], dirs.shape[0]
+    origins = torch.repeat_interleave(ants, nd, dim=0)
+    directions = dirs.repeat(na, 1)
+    return origins, directions
+
+
+def trapezoid_weights(n_samples: int, dtype=torch.float32, device=None):
+    """Composite trapezoid weights [1/2, 1, ..., 1, 1/2] — the basis of
+    the Hermite TEC quadrature (forward.tec.tec_hermite)."""
+    if n_samples < 2:
+        raise ValueError("need >= 2 samples")
+    w = torch.ones((n_samples,), dtype=dtype, device=device)
+    w[0] = 0.5
+    w[-1] = 0.5
+    return w
+
+
+def simpson_weights(n_samples: int, dtype=torch.float32, device=None):
+    """Composite Simpson weights [1,4,2,...,4,1]/3 for odd n; trapezoid
+    fallback on the last interval for even n.
+    """
+    if n_samples < 2:
+        raise ValueError("need >= 2 samples")
+    if n_samples % 2 == 1:
+        w = torch.ones((n_samples,), dtype=dtype, device=device)
+        w[1:-1:2] = 4.0
+        w[2:-1:2] = 2.0
+        return w / 3.0
+    # even: Simpson on first n-1 points + trapezoid on final interval
+    w = simpson_weights(n_samples - 1, dtype, device)
+    w = torch.cat([w, torch.zeros((1,), dtype=dtype, device=device)])
+    w[-2:] += 0.5
+    return w

@@ -1,0 +1,112 @@
+"""Build and load the CUDA kernels of ``kernels/csrc`` at first use.
+
+All ``.cu`` files are compiled by one ``nvcc`` call into a shared library
+with a plain C interface for ``sm_90a`` (Hopper), which ``ctypes`` loads.
+No PyTorch header is included, so a build takes seconds. The library goes
+to ``build/ionotomo_tpu_torch/`` at the root of the checkout, named by a
+hash of the sources and flags, so a changed source is rebuilt and an
+unchanged one is loaded as it is. ``--use_fast_math`` is deliberately
+absent: ``expf``/``sqrtf`` and division must stay IEEE for parity with the
+plain PyTorch versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ionotomo_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the library's entry points (restype, argtypes).
+_SIGNATURES = {
+    "ionotomo_zp_value_grad": (_I, [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P,
+                                    _P]),
+    "ionotomo_rows_value_fwd": (_I, [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
+                                     _I, _P, _P]),
+    "ionotomo_trace_leapfrog_zp": (_I, [_P, _P, _P, _I, _I, _I, _P, _P, _I,
+                                        _I, _F, _F, _F, _F, _F, _F, _P, _P,
+                                        _P, _P]),
+    "ionotomo_cuda_error_string": (ctypes.c_char_p, [_I]),
+}
+
+_loaded = {}
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    """nvcc on PATH, else under CUDA_HOME (default /usr/local/cuda)."""
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+        if (home / "bin" / "nvcc").exists():
+            nvcc = str(home / "bin" / "nvcc")
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (nvcc on PATH or under CUDA_HOME)")
+    return nvcc
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libionotomo_kernels_{_digest()}.so"
+
+
+def build() -> dict:
+    """Compile the library unless this exact build exists.
+
+    Returns ``{"path", "seconds", "built", "log"}``; ``log`` is nvcc's
+    output (with ``-Xptxas -v``: registers, shared memory and spills per
+    kernel), also kept beside the library.
+    """
+    lib = library_path()
+    log_path = lib.with_suffix(".log")
+    if lib.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        return {"path": lib, "seconds": 0.0, "built": False, "log": log}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, lib)
+    return {"path": lib, "seconds": seconds, "built": True, "log": log}
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built first if needed; loaded once per process."""
+    if "lib" not in _loaded:
+        path = build()["path"]
+        cdll = ctypes.CDLL(str(path))
+        for name, (restype, argtypes) in _SIGNATURES.items():
+            fn = getattr(cdll, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+        _loaded["lib"] = cdll
+    return _loaded["lib"]

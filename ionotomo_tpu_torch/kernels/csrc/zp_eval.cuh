@@ -1,0 +1,149 @@
+// Zwart-Powell box spline (x, y) x quadratic B-spline (z): value and
+// physical gradient of the interpolated log-density at one point.
+//
+// Shared by K1 (trace_leapfrog_zp.cu) and K1e (zp_value_grad.cu). It is
+// the per-point body of ionotomo_tpu/core/boxspline.py:
+// _neighborhood -> _xy_weights -> _row_index -> interp_rows_with_grad,
+// contracted xy-first as the reference does, and must stay in step with
+// the plain PyTorch version in ionotomo_tpu_torch/core/boxspline.py.
+//
+// Drift traps this code keeps as the reference has them:
+// - rintf (round half to even, like jnp.round/torch.round), never roundf;
+// - clamps in order: t to [0, n-1], base to [1, n-2], rows to [0, n-1];
+//   at the boundary the fraction reaches +-1, so |u| <= 1/2 is not assumed;
+// - the piece is chosen by strict "> 0" tests on u+v and u-v;
+// - the 8th translate of the canonical piece has weight 0 and is skipped.
+#pragma once
+
+#include <cuda_runtime.h>
+
+// Canonical piece 3 (u+v > 0, u-v > 0) of boxspline._ZP_CW, as the
+// reference's _CW3 (6 monomials x 8 translates), _CU3 and _CV3 (d/du and
+// d/dv over the monomials 1, u, v), _DX3 and _DY3. Exact rationals /16.
+// tests/test_torch_slice.py checks these against the port's numpy tables.
+static __constant__ float kZpCW3[6][8] = {
+    {0.125f, 0.125f, 0.5f, 0.125f, 0.0f, 0.125f, 0.0f, 0.0f},
+    {-0.5f, 0.0f, 0.0f, 0.0f, 0.0f, 0.5f, 0.0f, 0.0f},
+    {0.0f, -0.5f, 0.0f, 0.5f, 0.0f, 0.0f, 0.0f, 0.0f},
+    {0.5f, -0.25f, -0.5f, -0.25f, 0.25f, 0.0f, 0.25f, 0.0f},
+    {0.0f, 0.5f, 0.0f, -0.5f, -0.5f, 0.0f, 0.5f, 0.0f},
+    {0.0f, 0.25f, -0.5f, 0.25f, 0.25f, -0.5f, 0.25f, 0.0f},
+};
+static __constant__ float kZpCU3[3][8] = {
+    {-0.5f, 0.0f, 0.0f, 0.0f, 0.0f, 0.5f, 0.0f, 0.0f},
+    {1.0f, -0.5f, -1.0f, -0.5f, 0.5f, 0.0f, 0.5f, 0.0f},
+    {0.0f, 0.5f, 0.0f, -0.5f, -0.5f, 0.0f, 0.5f, 0.0f},
+};
+static __constant__ float kZpCV3[3][8] = {
+    {0.0f, -0.5f, 0.0f, 0.5f, 0.0f, 0.0f, 0.0f, 0.0f},
+    {0.0f, 0.5f, 0.0f, -0.5f, -0.5f, 0.0f, 0.5f, 0.0f},
+    {0.0f, 0.5f, -1.0f, 0.5f, 0.5f, -1.0f, 0.5f, 0.0f},
+};
+static __constant__ float kZpDX3[8] = {-1.f, 0.f, 0.f, 0.f, 1.f, 1.f, 1.f, 0.f};
+static __constant__ float kZpDY3[8] = {0.f, -1.f, 0.f, 1.f, -1.f, 0.f, 1.f, 0.f};
+
+// The zp coefficient table (nx*ny, nz) and the grid it lives on.
+struct ZpGrid {
+  const float* __restrict__ coef;
+  float ox, oy, oz;  // origin [km]
+  float sx, sy, sz;  // spacing [km]
+  int nx, ny, nz;
+};
+
+// Reads origin and spacing from two (3,) device vectors.
+static __device__ __forceinline__ ZpGrid zp_grid(const float* coef,
+                                                 const float* origin,
+                                                 const float* spacing,
+                                                 int nx, int ny, int nz) {
+  ZpGrid g;
+  g.coef = coef;
+  g.ox = __ldg(origin + 0);
+  g.oy = __ldg(origin + 1);
+  g.oz = __ldg(origin + 2);
+  g.sx = __ldg(spacing + 0);
+  g.sy = __ldg(spacing + 1);
+  g.sz = __ldg(spacing + 2);
+  g.nx = nx;
+  g.ny = ny;
+  g.nz = nz;
+  return g;
+}
+
+// boxspline._neighborhood on one axis: clamped nearest-lattice base and
+// signed offset.
+static __device__ __forceinline__ void zp_axis(float p, float o, float s,
+                                               int n, int& b, float& frac) {
+  float t = (p - o) / s;
+  t = fminf(fmaxf(t, 0.0f), (float)(n - 1));
+  float base = fminf(fmaxf(rintf(t), 1.0f), (float)(n - 2));
+  frac = t - base;
+  b = (int)base;
+}
+
+// Value m and physical gradient dm/dx [1/km] at (px, py, pz).
+static __device__ __forceinline__ void zp_value_grad_at(
+    const ZpGrid& g, float px, float py, float pz, float& val, float& gx,
+    float& gy, float& gz) {
+  int bx, by, bz;
+  float u, v, w;
+  zp_axis(px, g.ox, g.sx, g.nx, bx, u);
+  zp_axis(py, g.oy, g.sy, g.ny, by, v);
+  zp_axis(pz, g.oz, g.sz, g.nz, bz, w);
+
+  // _xy_weights: map (u, v) onto the canonical piece by T = [[a11, a12],
+  // [a21, a11]] with entries in {-1, 0, 1}.
+  const float s1 = (u + v > 0.0f) ? 1.0f : 0.0f;
+  const float s2 = (u - v > 0.0f) ? 1.0f : 0.0f;
+  const float ne = fabsf(s1 - s2);
+  const float sg = 2.0f * s1 - 1.0f;
+  const float a11 = (1.0f - ne) * sg;
+  const float a12 = ne * sg;
+  const float a21 = -a12;
+  const float uc = a11 * u + a12 * v;
+  const float vc = a21 * u + a11 * v;
+  const float mon[6] = {1.0f, uc, vc, uc * uc, uc * vc, vc * vc};
+
+  // quadratic B-spline z taps at bz-1, bz, bz+1 and their d/dw
+  const float wz[3] = {0.5f * ((0.5f - w) * (0.5f - w)), 0.75f - w * w,
+                       0.5f * ((0.5f + w) * (0.5f + w))};
+  const float dwz[3] = {w - 0.5f, -2.0f * w, w + 0.5f};
+
+  float s[3] = {0.0f, 0.0f, 0.0f};
+  float su[3] = {0.0f, 0.0f, 0.0f};
+  float sv[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < 7; ++k) {
+    float wk = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) wk += mon[c] * kZpCW3[c][k];
+    float wuc = 0.0f, wvc = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      wuc += mon[c] * kZpCU3[c][k];
+      wvc += mon[c] * kZpCV3[c][k];
+    }
+    const float wu = a11 * wuc + a21 * wvc;
+    const float wv = a12 * wuc + a11 * wvc;
+    const int dx = (int)(a11 * kZpDX3[k] + a21 * kZpDY3[k]);
+    const int dy = (int)(a12 * kZpDX3[k] + a11 * kZpDY3[k]);
+    const int ix = min(max(bx + dx, 0), g.nx - 1);
+    const int iy = min(max(by + dy, 0), g.ny - 1);
+    const float* row =
+        g.coef + ((size_t)ix * (size_t)g.ny + (size_t)iy) * (size_t)g.nz +
+        (size_t)(bz - 1);
+#pragma unroll
+    for (int l = 0; l < 3; ++l) {
+      const float c = __ldg(row + l);
+      s[l] += wk * c;
+      su[l] += wu * c;
+      sv[l] += wv * c;
+    }
+  }
+  val = wz[0] * s[0] + wz[1] * s[1] + wz[2] * s[2];
+  const float du = wz[0] * su[0] + wz[1] * su[1] + wz[2] * su[2];
+  const float dv = wz[0] * sv[0] + wz[1] * sv[1] + wz[2] * sv[2];
+  const float dw = dwz[0] * s[0] + dwz[1] * s[1] + dwz[2] * s[2];
+  gx = du / g.sx;
+  gy = dv / g.sy;
+  gz = dw / g.sz;
+}
