@@ -1,8 +1,11 @@
-"""Drive the PyTorch/CUDA port's bent-ray forward path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's bent-ray forward path and its MAP
+inversion path on one NVIDIA GPU.
 
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # also: device time by kernel of
-                                       # one serving epoch (torch.profiler)
+                                       # one serving epoch and of one
+                                       # Gauss-Newton step, and the step's
+                                       # host time by op (torch.profiler)
 
 Phases (any failed check raises, and the run exits non-zero):
 
@@ -20,7 +23,27 @@ Phases (any failed check raises, and the run exits non-zero):
    → ``dtec_paired_q``, 62 antennas × 10 directions, 4 epochs on a 128³
    perturbed Chapman world. The kernel path runs twice and must agree
    bitwise; it must match the plain path (CPU tensors) to 1e-4·max|dTEC|;
-   every kernel must have launched.
+   K1, K1e and K2 must have launched.
+5. The adjoint kernels against their plain versions on the card: K3 (the
+   transpose of K2) at 2^20 zp points of a random 128³ table, edge cases
+   included, and at the cubic shape (K=16, L=4); K1eᵀ (the transpose of
+   K1e) at 2^20 points. Each within 1e-4·max|out| and bitwise equal
+   across two calls; kernel and plain ms.
+6. The config-3b solve (``bench/config3b.py``) at full width: a 128³ grid
+   enclosing 100 × 100 rays, truth = Chapman + a von Kármán perturbation
+   (σ 0.3, outer scale 120 km), data from K1 at 256 steps and 150 MHz with
+   1 % noise, ``map_gauss_newton`` with a von Kármán prior at 80 km over
+   65-sample Hermite straight rays on zp, gn=2, cg=20. The linearised
+   operator on the kernels against the same operator on the plain
+   versions (1e-4·max|·|, adjoint identity 1e-4); K2, K3 and K1eᵀ alone at
+   the solve's shapes against their plain versions (1e-4·max|out|, bitwise
+   equal across two calls, kernel and plain ms); the solve twice, bitwise
+   equal, and within 1 % of the plain-version solve in final residual and
+   held-out dTEC rms (20 × 50 rays, seed 99), beating the prior there; K2,
+   K3, K1e and K1eᵀ must have launched in the solve.
+7. The gather probe (``ionotomo_tpu_torch.probes.gather``): KG against
+   ``torch.gather`` at (16384, 128) and (8, 128), bitwise; KG must have
+   launched.
 
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
@@ -80,27 +103,10 @@ def bench_rays(n, seed=0):
     return o, d
 
 
-def edge_case_points(shape, origin, spacing, n, rng):
-    """n points in index space mapped to world coordinates: uniform in and
-    around the grid, exactly on lattice and half-lattice points, on the
-    piece boundaries u+v = 0 and u−v = 0, and in the boundary cells."""
-    nn = np.asarray(shape, np.float64)
-    k = n // 8
-    parts = [rng.uniform(-4.0, nn + 3.0, (n - 7 * k, 3)),
-             rng.integers(0, nn, (k, 3)).astype(np.float64),
-             rng.integers(0, nn - 1, (k, 3)) + 0.5]
-    for sign in (1.0, -1.0):
-        a = rng.choice([0.125, 0.25, 0.375, -0.25, 0.5], (k, 1))
-        base = rng.integers(1, nn - 1, (k, 3)).astype(np.float64)
-        parts.append(base + a * np.array([1.0, sign, 0.5]))
-    parts.append(rng.uniform(-0.5, 1.5, (k, 3)))
-    parts.append(nn - 1 - rng.uniform(-0.5, 1.5, (k, 3)))
-    t = np.concatenate(parts, 0)
-    return (np.asarray(origin) + t * np.asarray(spacing)).astype(np.float32)
-
-
 def phase2_kernels_vs_plain(dev, boxspline, tricubic, fermat, kernels,
                             Grid3D, chapman, results):
+    from ionotomo_tpu_torch.testing import edge_case_points
+
     print("phase 2: kernels against their plain versions on the card")
     rng = np.random.default_rng(2)
     shape = (N_GRID,) * 3
@@ -342,6 +348,8 @@ def profile_epoch(m, grid, ants, dirs, boxspline, fermat, rays, tec,
 
 def phase4_serving(dev, boxspline, fermat, rays, tec, kernels, Grid3D,
                    chapman, results, profile=False):
+    from ionotomo_tpu_torch.testing import SERVING_KERNELS
+
     print("phase 4: serving slice (predict --bent, zp, hermite)")
     grid_cpu = Grid3D.from_bounds(*BOUNDS, (N_GRID,) * 3)
     grid = grid_cpu.to(dev)
@@ -361,9 +369,10 @@ def phase4_serving(dev, boxspline, fermat, rays, tec, kernels, Grid3D,
         torch.cuda.synchronize()
         runs.append((out, (time.perf_counter() - t0) / len(on_dev)))
     launches = dict(kernels.launches)
-    print(f"  launches on the main path: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} launched on the main path ({n} times)")
+    print(f"  launches on the serving path: {launches}")
+    for name in SERVING_KERNELS:
+        check(launches[name] > 0,
+              f"{name} launched on the serving path ({launches[name]} times)")
 
     for e, ((m, a, dd), k1, k2) in enumerate(zip(worlds, runs[0][0],
                                                  runs[1][0])):
@@ -389,6 +398,421 @@ def phase4_serving(dev, boxspline, fermat, rays, tec, kernels, Grid3D,
     results["ms_per_epoch"] = runs[1][1] * 1e3
 
 
+def _same_twice(fn):
+    """Two calls of fn on the card; (first result, bitwise equal)."""
+    a = fn()
+    b = fn()
+    torch.cuda.synchronize()
+    return a, bool(torch.equal(a, b))
+
+
+def phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
+                           results, n_grid=N_GRID, n_points=1 << 20):
+    from ionotomo_tpu_torch.testing import edge_case_points
+
+    print("phase 5: adjoint kernels against their plain versions")
+    rng = np.random.default_rng(5)
+    shape = (n_grid,) * 3
+    n_rows = n_grid * n_grid
+    origin, spacing = (-64.0, -32.0, 0.0), (1.0, 0.5, 8.0)
+    grid = Grid3D.create(origin, spacing, shape, device=dev)
+    pts = torch.from_numpy(edge_case_points(shape, origin, spacing, n_points,
+                                            rng)).to(dev)
+    n = pts.shape[0]
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # K3 at the zp shape, inputs as interp_rows makes them
+    bx, by, bz, u, v, w = boxspline._neighborhood(grid, pts)
+    dx, dy, wxy = boxspline._xy_weights(u, v, with_grad=False)
+    ri = boxspline._row_index(bx, by, dx, dy, grid).contiguous()
+    zi = (bz[:, None] + torch.arange(-1, 2, dtype=torch.int32, device=dev)
+          [None, :]).contiguous()
+    wz = boxspline._qb_weights(w).contiguous()
+    wxy = wxy.contiguous()
+    ct = t(rng.normal(size=(n,)).astype(np.float32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = tricubic.build_row_plan(ri, n_rows)
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+
+    def k3():
+        return kernels.rows_value_bwd(ct, plan.order, plan.offsets, wxy, zi,
+                                      wz, n_rows, n_grid)
+
+    def k3_plain():
+        return tricubic.rows_value_transpose_ref(ct, ri, wxy, zi, wz,
+                                                 (n_rows, n_grid))
+
+    got, same = _same_twice(k3)
+    want = k3_plain()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), "K3 output finite")
+    check(same, "K3 bitwise equal across two calls")
+    check(err <= 1e-4 * scale, f"K3 zp max|err| {err:.3e} <= 1e-4*max|out| "
+                               f"{1e-4 * scale:.3e}")
+    ms = cuda_ms(k3, 20)
+    plain = cuda_ms(k3_plain, 3)
+    pairs = torch.diff(plan.offsets)
+    print(f"  K3 zp at {n} points: kernel {ms:.4f} ms, plain {plain:.4f} ms; "
+          f"plan {plan_ms:.3f} ms (host clock); pairs per row max "
+          f"{int(pairs.max())}, mean {float(pairs.float().mean()):.1f}")
+    results["rows_value_bwd"] = {"max_abs_err": err, "ms_2^20": ms,
+                                 "plain_ms_2^20": plain}
+
+    # K3 at the cubic shape (K=16, L=4) on random rows
+    ri_c = t(rng.integers(0, n_rows, (n, 16)).astype(np.int32))
+    zi_c = t((rng.integers(0, n_grid - 3, (n, 1))
+              + np.arange(4)).astype(np.int32))
+    wxy_c = t(rng.uniform(0, 1, (n, 16)).astype(np.float32))
+    wz_c = t(rng.uniform(0, 1, (n, 4)).astype(np.float32))
+    plan_c = tricubic.build_row_plan(ri_c, n_rows)
+
+    def k3_cubic():
+        return kernels.rows_value_bwd(ct, plan_c.order, plan_c.offsets,
+                                      wxy_c, zi_c, wz_c, n_rows, n_grid)
+
+    def k3_cubic_plain():
+        return tricubic.rows_value_transpose_ref(ct, ri_c, wxy_c, zi_c, wz_c,
+                                                 (n_rows, n_grid))
+
+    got, same = _same_twice(k3_cubic)
+    want = k3_cubic_plain()
+    err_c = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(same, "K3 cubic shape bitwise equal across two calls")
+    check(err_c <= 1e-4 * scale, f"K3 cubic-shape max|err| {err_c:.3e} <= "
+                                 f"1e-4*max|out| {1e-4 * scale:.3e}")
+    ms = cuda_ms(k3_cubic, 20)
+    plain = cuda_ms(k3_cubic_plain, 3)
+    print(f"  K3 cubic shape (K=16, L=4) at {n} points: kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms")
+    results["rows_value_bwd"].update(err_cubic=err_c, ms_cubic=ms,
+                                     plain_ms_cubic=plain)
+
+    # K1eᵀ at the same 2^20 points
+    cv = ct
+    cg = t(rng.normal(size=(n, 3)).astype(np.float32))
+    eplan = boxspline.endpoint_plan(grid, pts)
+
+    def k1et():
+        return kernels.zp_value_grad_bwd(grid, pts, cv, cg, eplan.order,
+                                         eplan.offsets,
+                                         boxspline.ZP_LIVE_TRANSLATES)
+
+    def k1et_plain():
+        return boxspline.interp_rows_with_grad_transpose_ref(grid, pts, cv,
+                                                             cg)
+
+    got, same = _same_twice(k1et)
+    want = k1et_plain()
+    err_e = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(bool(torch.isfinite(got).all()), "K1eT output finite")
+    check(same, "K1eT bitwise equal across two calls")
+    check(err_e <= 1e-4 * scale, f"K1eT max|err| {err_e:.3e} <= "
+                                 f"1e-4*max|out| {1e-4 * scale:.3e}")
+    ms = cuda_ms(k1et, 20)
+    plain = cuda_ms(k1et_plain, 3)
+    print(f"  K1eT at {n} points: kernel {ms:.4f} ms, plain {plain:.4f} ms")
+    results["zp_value_grad_bwd"] = {"max_abs_err": err_e, "ms_2^20": ms,
+                                    "plain_ms_2^20": plain}
+
+
+def make_rays(n_ants, n_dirs, seed=0, spread_km=150.0, zen_max=0.6):
+    """Antenna ENU positions and near-zenith unit directions, drawn as
+    ``bench/common.make_rays`` draws them."""
+    rng = np.random.default_rng(seed)
+    ants = np.concatenate([rng.uniform(-spread_km, spread_km, (n_ants, 2)),
+                           np.zeros((n_ants, 1))], -1).astype(np.float32)
+    zen = rng.uniform(0.05, zen_max, n_dirs)
+    az = rng.uniform(0, 2 * np.pi, n_dirs)
+    dirs = np.stack([np.sin(zen) * np.sin(az), np.sin(zen) * np.cos(az),
+                     np.cos(zen)], -1).astype(np.float32)
+    return ants, dirs
+
+
+def bent_dtec(m_true, grid, ants, dirs, fermat, rays, noise_frac, seed=0):
+    """Paired dTEC observations as ``bench/common.bent_dtec_data`` makes
+    them, traced through the zp model (K1, leapfrog@256, 150 MHz, 1000 km;
+    the bench traces the cubic model, which the port does not have yet),
+    plus numpy Gaussian noise of noise_frac·std. Returns (d (Na, Nd) on the
+    grid's device, noise std)."""
+    dev = grid.device
+    o, d = rays.make_ray_batch(torch.from_numpy(ants).to(dev),
+                               torch.from_numpy(dirs).to(dev))
+    _, tau = fermat.trace_rays(m_true, grid, o, d, FREQ_HZ, LENGTH_KM,
+                               n_steps=256, keep_path=False,
+                               method="leapfrog", interp="zp")
+    tau = tau.reshape(-1, dirs.shape[0]).cpu().numpy()
+    dt = tau - tau[0:1]
+    noise = float(noise_frac * np.std(dt))
+    dt = dt + noise * np.random.default_rng(seed).standard_normal(
+        dt.shape).astype(np.float32)
+    return torch.from_numpy(dt.astype(np.float32)).to(dev), noise
+
+
+def profile_gn_step(solve):
+    """Device time by kernel over one Gauss-Newton step (torch.profiler),
+    and its share of the same step's wall time run without the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    wall_us = solve(1)[1] * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solve(1)
+    rows = sorted(((e.key, e.self_device_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    print(f"  profiled GN step (cg=20): kernels {busy:.1f} us in "
+          f"{sum(r[2] for r in rows)} launches; the step without the "
+          f"profiler {wall_us:.1f} us, device busy {100 * busy / wall_us:.1f} "
+          f"%")
+    for key, us, count in rows[:16]:
+        print(f"    {us:10.1f} us {count:5d}x  {key[:100]}")
+    host = sorted(((e.key, e.self_cpu_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0), key=lambda r: -r[1])
+    print(f"  host time by op (profiler on, {sum(r[1] for r in host):.1f} us "
+          f"in all):")
+    for key, us, count in host[:10]:
+        print(f"    {us:10.1f} us {count:5d}x  {key[:100]}")
+
+
+def phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
+                 chapman, priors, solvers, results, profile=False,
+                 n_grid=N_GRID, n_ants=100, n_dirs=100):
+    from ionotomo_tpu_torch.testing import SOLVE_KERNELS
+
+    print(f"phase 6: the config-3b solve ({n_grid}^3, {n_ants}x{n_dirs} "
+          f"rays, hermite@65, zp, gn=2, cg=20)")
+    t0 = time.perf_counter()
+    ants, dirs = make_rays(n_ants, n_dirs)
+    nd = dirs.shape[0]
+    grid = chapman.grid_enclosing_rays(ants, dirs, shape=(n_grid,) * 3,
+                                       h_min_km=0.0, device=dev)
+    m_prior = chapman.log_parametrize(chapman.chapman_field(grid))
+    truth = priors.GPCovariance.create(grid, sigma=0.3, length_scale=120.0,
+                                       kind="von_karman")
+    white = np.random.default_rng(7).standard_normal(grid.shape)
+    m_true = m_prior + truth.sample(torch.from_numpy(
+        white.astype(np.float32)).to(dev))
+    d_obs, noise = bent_dtec(m_true, grid, ants, dirs, fermat, rays, 0.01)
+    ants_h, dirs_h = make_rays(20, 50, seed=99)
+    d_h, _ = bent_dtec(m_true, grid, ants_h, dirs_h, fermat, rays, 0.0)
+    o, dv = rays.make_ray_batch(torch.from_numpy(ants).to(dev),
+                                torch.from_numpy(dirs).to(dev))
+    rb = rays.sample_straight_rays(o, dv, n_samples=65)
+    o_h, dv_h = rays.make_ray_batch(torch.from_numpy(ants_h).to(dev),
+                                    torch.from_numpy(dirs_h).to(dev))
+    rb_h = rays.sample_straight_rays(o_h, dv_h, n_samples=129)
+    cov = priors.GPCovariance.create(grid, sigma=0.3, length_scale=80.0,
+                                     kind="von_karman")
+    torch.cuda.synchronize()
+    print(f"  world: grid {grid.shape} spacing "
+          f"{[round(float(x), 3) for x in grid.spacing]} km, "
+          f"{rb.num_rays} rays x {rb.num_samples} samples, noise "
+          f"{noise:.4f}, set-up {time.perf_counter() - t0:.2f} s")
+
+    def heldout(m):
+        g = tec.dtec_paired(m, grid, rb_h, dirs_h.shape[0], 0, "zp")
+        return float(torch.sqrt(torch.mean((g - d_h) ** 2)))
+
+    # the operator on the kernels against the same operator on the plain
+    # versions, both on the card
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=grid.shape).astype(np.float32)
+                         ).to(dev)
+    y = torch.from_numpy(rng.normal(size=(rb.num_rays,)).astype(np.float32)
+                         ).to(dev)
+    op = tec.dtec_paired_linear(m_prior, grid, rb, nd, 0, "hermite", "zp")
+    ref = tec.dtec_paired_linear_ref(m_prior, grid, rb, nd, 0, "hermite",
+                                     "zp")
+    jx, jty = op.apply(x), op.apply_t(y)
+    rx, rty = ref.apply(x), ref.apply_t(y)
+    torch.cuda.synchronize()
+    for name, a, b in (("J", jx, rx), ("J^T", jty, rty)):
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        check(bool(torch.isfinite(a).all()), f"{name} finite")
+        check(err <= 1e-4 * scale, f"{name} kernels vs plain max|err| "
+                                   f"{err:.3e} <= 1e-4*max {1e-4 * scale:.3e}")
+    lhs = float(torch.dot(jx.double(), y.double()))
+    rhs = float(torch.sum(x.double() * jty.double()))
+    rel = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+    check(rel <= 1e-4, f"adjoint identity <Jx,y> {lhs:.6e} vs <x,J^T y> "
+                       f"{rhs:.6e}: rel {rel:.3e} <= 1e-4")
+    timings = {
+        "J": cuda_ms(lambda: op.apply(x), 10),
+        "J^T": cuda_ms(lambda: op.apply_t(y), 10),
+        "J plain": cuda_ms(lambda: ref.apply(x), 3),
+        "J^T plain": cuda_ms(lambda: ref.apply_t(y), 3),
+        "apply_sqrt": cuda_ms(lambda: cov.apply_sqrt(x), 20),
+        "prefilter": cuda_ms(lambda: boxspline.prefilter(x), 20),
+        "prefilter_transpose": cuda_ms(
+            lambda: boxspline.prefilter_transpose(x), 20),
+    }
+    for name, ms in timings.items():
+        print(f"  {name}: {ms:.4f} ms")
+
+    # K2, K3 and K1eᵀ alone at the solve's shapes (the 650,000 quadrature
+    # points, the 20,000 endpoints), each against its plain version
+    n_pts, n_ends = op.ri.shape[0], op.ends.shape[0]
+    ct = torch.from_numpy(rng.normal(size=(n_pts,)).astype(np.float32)
+                          ).to(dev)
+    cv = ct[:n_ends].contiguous()
+    cg = torch.from_numpy(rng.normal(size=(n_ends, 3)).astype(np.float32)
+                          ).to(dev)
+    table = x.reshape(op.table_shape)
+    plan = tricubic.build_row_plan(op.ri, op.table_shape[0])
+    at_solve_shape = {
+        "rows_value_fwd": (
+            lambda: tricubic.rows_value(table, op.ri, op.wxy, op.zi, op.wz,
+                                        True),
+            lambda: tricubic.rows_value_ref(table, op.ri, op.wxy, op.zi,
+                                            op.wz, True)),
+        "rows_value_bwd": (
+            lambda: tricubic.rows_value_transpose(ct, op.ri, op.wxy, op.zi,
+                                                  op.wz, op.table_shape,
+                                                  plan),
+            lambda: tricubic.rows_value_transpose_ref(ct, op.ri, op.wxy,
+                                                      op.zi, op.wz,
+                                                      op.table_shape)),
+        "zp_value_grad_bwd": (
+            lambda: boxspline.interp_rows_with_grad_transpose(
+                grid, op.ends, cv, cg, op.end_plan),
+            lambda: boxspline.interp_rows_with_grad_transpose_ref(
+                grid, op.ends, cv, cg)),
+    }
+    for name, (kern, plain) in at_solve_shape.items():
+        got, same = _same_twice(kern)
+        want = plain()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        check(same, f"{name} at the solve's shape bitwise equal across two "
+                    f"calls")
+        check(err <= 1e-4 * scale, f"{name} at the solve's shape max|err| "
+                                   f"{err:.3e} <= 1e-4*max {1e-4 * scale:.3e}")
+        ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 5)
+        print(f"  {name} at the solve's shape: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms")
+        results.setdefault(name, {}).update(err_solve=err, ms_solve=ms,
+                                            plain_ms_solve=plain_ms)
+    pairs = torch.diff(plan.offsets)
+    print(f"  K3 plan at the solve: pairs per row max {int(pairs.max())}, "
+          f"mean {float(pairs.float().mean()):.1f}, rows with none "
+          f"{int((pairs == 0).sum())} of {pairs.numel()}")
+    del op, ref
+
+    kw = dict(num_directions=nd, gn_iters=2, cg_iters=20,
+              quadrature="hermite", interp="zp")
+
+    def solve(linearize=None, gn_iters=2):
+        t0 = time.perf_counter()
+        res = solvers.map_gauss_newton(grid, rb, d_obs, noise, m_prior, cov,
+                                       **{**kw, "gn_iters": gn_iters},
+                                       linearize=linearize)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    solve()                                  # warm-up: allocator, cuFFT plans
+    kernels.reset_launches()
+    res1, secs1 = solve()
+    launches = dict(kernels.launches)
+    print(f"  launches in the solve: {launches}")
+    for name in SOLVE_KERNELS:
+        check(launches[name] > 0,
+              f"{name} launched in the solve ({launches[name]} times)")
+    res2, secs2 = solve()
+    resp, secs_p = solve(tec.dtec_paired_linear_ref)
+    res3, secs3 = solve()
+    check(bool(torch.isfinite(res1.m).all()), "solved field finite")
+    check(bool(torch.equal(res1.m, res2.m) and torch.equal(res1.m, res3.m)),
+          "the solve is bitwise equal across three runs")
+    r_k, r_p = float(res1.residual_norm), float(resp.residual_norm)
+    h_k, h_p, h_0 = heldout(res1.m), heldout(resp.m), heldout(m_prior)
+    check(abs(r_k - r_p) <= 1e-2 * r_p,
+          f"final whitened residual {r_k:.4f} within 1% of the plain "
+          f"solve's {r_p:.4f}")
+    check(abs(h_k - h_p) <= 1e-2 * h_p,
+          f"held-out dTEC rms {h_k:.4f} within 1% of the plain solve's "
+          f"{h_p:.4f}")
+    check(h_k < h_0, f"held-out dTEC rms {h_k:.4f} below the prior's "
+                     f"{h_0:.4f}")
+    cg_its = [int(i) for i in res1.info[1]]
+    print(f"  residual per GN step {[round(float(r), 4) for r in res1.info[0]]}"
+          f", CG iterations {cg_its}")
+    secs = [secs1, secs2, secs3]
+    print(f"  kernel solve: {', '.join(f'{s:.4f}' for s in secs)} s; plain "
+          f"solve {secs_p:.4f} s; CG iterations/s (kernel) "
+          f"{sum(cg_its) / min(secs):.1f}")
+    if profile:
+        profile_gn_step(lambda g: solve(gn_iters=g))
+    results["solve_launches"] = launches
+    results["solve"] = {"seconds": secs, "plain_seconds": secs_p,
+                        "residual": r_k, "plain_residual": r_p,
+                        "heldout": h_k, "plain_heldout": h_p,
+                        "prior_heldout": h_0, "timings_ms": timings}
+
+
+def phase7_probe(dev, gather, kernels, results):
+    print("phase 7: the gather probe")
+    kernels.reset_launches()
+    rec = gather.run(dev)
+    n = kernels.launches["vector_gather"]
+    print(f"  probe: {json.dumps(rec)}")
+    check(n > 0, f"vector_gather launched in the probe ({n} times)")
+    check(rec["vector_gather_supported"],
+          "KG bitwise equal to torch.gather at (16384, 128)")
+    check(rec["one_vreg_control_ok"],
+          "KG bitwise equal to torch.gather at (8, 128)")
+    results["vector_gather"] = {"launches": n,
+                                "max_abs_err": rec["max_abs_err"],
+                                "ms": rec["kernel_ms"],
+                                "plain_ms": rec["plain_ms"]}
+
+
+def kernels_line(results) -> dict:
+    """The per-kernel JSON object of a run from the phases' results."""
+    src = "ionotomo_tpu_torch/kernels/csrc/"
+    # launches: K1, K1e and K2 in the serving run (phase 4), K3 and K1eᵀ in
+    # the solve (phase 6), KG in the probe (phase 7). Error and ms: K1 at
+    # the bench shape (262144 rays); K1e and K2 at 2^20 points; K3 and K1eᵀ
+    # at the solve's shapes (650,000 points, 20,000 endpoints); KG at
+    # (16384, 128)
+    launches = {**results["launches"],
+                **{k: results["solve_launches"][k]
+                   for k in ("rows_value_bwd", "zp_value_grad_bwd")},
+                "vector_gather": results["vector_gather"]["launches"]}
+    plain_keys = ("max_abs_err", "ms", "plain_ms")
+    keys_2p20 = ("max_abs_err", "ms_2^20", "plain_ms_2^20")
+    keys_solve = ("err_solve", "ms_solve", "plain_ms_solve")
+    entries = [
+        ("trace_leapfrog_zp", "trace_leapfrog_zp.cu",
+         "ionotomo_tpu/geometry/fermat.py:204", plain_keys),
+        ("zp_value_grad", "zp_value_grad.cu",
+         "ionotomo_tpu/core/boxspline.py:253", keys_2p20),
+        ("rows_value_fwd", "rows_value_fwd.cu",
+         "ionotomo_tpu/core/tricubic.py:284", keys_2p20),
+        ("rows_value_bwd", "rows_value_bwd.cu",
+         "ionotomo_tpu/core/tricubic.py:377", keys_solve),
+        ("zp_value_grad_bwd", "zp_value_grad_bwd.cu",
+         "ionotomo_tpu/core/boxspline.py:253", keys_solve),
+        ("vector_gather", "vector_gather.cu", "bench/probe_gather.py:21",
+         plain_keys),
+    ]
+    return {"kernels": [
+        {"name": name, "route": "cuda", "source": src + f,
+         "replaces": rep, "launches": launches[name],
+         "max_abs_err": results[name][err], "ms": results[name][ms],
+         "plain_ms": results[name][pms]}
+        for name, f, rep, (err, ms, pms) in entries]}
+
+
 def main() -> int:
     profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -401,8 +825,10 @@ def main() -> int:
     from ionotomo_tpu_torch.core.grids import Grid3D
     from ionotomo_tpu_torch.forward import tec
     from ionotomo_tpu_torch.geometry import fermat, rays
+    from ionotomo_tpu_torch.inversion import priors, solvers
     from ionotomo_tpu_torch.kernels import build
     from ionotomo_tpu_torch.models import chapman
+    from ionotomo_tpu_torch.probes import gather
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -426,27 +852,19 @@ def main() -> int:
                       results, card)
     phase4_serving(dev, boxspline, fermat, rays, tec, kernels, Grid3D, chapman,
                    results, profile)
+    phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
+                           results)
+    phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
+                 chapman, priors, solvers, results, profile)
+    phase7_probe(dev, gather, kernels, results)
 
-    src = "ionotomo_tpu_torch/kernels/csrc/"
-    # per-kernel ms: K1 at the bench shape (262144 rays); K1e and K2 at
-    # 2^20 points
-    entries = [
-        ("trace_leapfrog_zp", "trace_leapfrog_zp.cu",
-         "ionotomo_tpu/geometry/fermat.py:204", "ms", "plain_ms"),
-        ("zp_value_grad", "zp_value_grad.cu",
-         "ionotomo_tpu/core/boxspline.py:253", "ms_2^20", "plain_ms_2^20"),
-        ("rows_value_fwd", "rows_value_fwd.cu",
-         "ionotomo_tpu/core/tricubic.py:284", "ms_2^20", "plain_ms_2^20"),
-    ]
-    line = {"kernels": [
-        {"name": name, "route": "cuda", "source": src + f,
-         "replaces": rep, "launches": results["launches"][name],
-         "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name][ms], "plain_ms": results[name][pms]}
-        for name, f, rep, ms, pms in entries]}
+    line = kernels_line(results)
+    solve = results["solve"]
     print(f"rays/s: kernel {results['rays_per_s']['kernel']:.1f}, plain "
           f"{results['rays_per_s']['plain']:.1f}; serving "
-          f"{results['ms_per_epoch']:.3f} ms/epoch")
+          f"{results['ms_per_epoch']:.3f} ms/epoch; config-3b solve "
+          f"{min(solve['seconds']):.4f} s (plain {solve['plain_seconds']:.4f} "
+          f"s)")
     print(json.dumps(line))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Carry the JAX package's state across to the port.
 
-The engine's "weights" are a grid spec and a log-density field. Both
-cross as numpy arrays, so this module needs neither package's arrays to
-be of any particular type: anything ``np.asarray`` reads will do.
+The engine's "weights" are a grid spec, a log-density field and a prior
+covariance. They cross as numpy arrays, so this module needs neither
+package's arrays to be of any particular type: anything ``np.asarray``
+reads will do.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import numpy as np
 import torch
 
 from .core.grids import Grid3D
+from .inversion.priors import GPCovariance
 
 
 def grid_from_numpy(origin, spacing=None, shape=None, device=None) -> Grid3D:
@@ -29,3 +31,17 @@ def grid_from_numpy(origin, spacing=None, shape=None, device=None) -> Grid3D:
 def field_from_numpy(m, device=None) -> torch.Tensor:
     """A field (e.g. the log-density m) as a contiguous float32 tensor."""
     return torch.tensor(np.asarray(m, np.float32), device=device)
+
+
+def gp_covariance_from_numpy(cov, device=None) -> GPCovariance:
+    """A port ``GPCovariance`` from any object with its ``spectrum`` (read
+    as numpy) and meta fields ``shape``, ``sigma``, ``length_scale`` and
+    ``kind`` (the JAX package's ``GPCovariance`` among them)."""
+    ls = cov.length_scale
+    return GPCovariance(
+        spectrum=torch.tensor(np.asarray(cov.spectrum, np.float32),
+                              device=device),
+        shape=tuple(int(s) for s in cov.shape), sigma=float(cov.sigma),
+        length_scale=(tuple(float(v) for v in ls)
+                      if isinstance(ls, (tuple, list)) else float(ls)),
+        kind=str(cov.kind))

@@ -10,11 +10,19 @@ inverse along z, a truncated Neumann series of the ZP sample mask in
 (x, y)); the evaluators take it reshaped to (nx*ny, nz).
 
 On CUDA tensors the evaluators run the hand-written kernels: the value
-path's gather-and-contract is K2 (``core.tricubic.rows_value``), value +
-gradient is K1e. On CPU tensors they run the plain versions in this
+path's gather-and-contract is K2 (``core.tricubic.rows_value``, with K3
+as its transpose), value + gradient is K1e and its transpose with respect
+to the table K1eᵀ. On CPU tensors they run the plain versions in this
 module, ports of the reference's jnp code.
+
+The transposes the linearised dTEC operator needs are written out:
+``prefilter_transpose`` (the reference gets it from AD; autograd's would
+scatter with atomics on the card) and
+``interp_rows_with_grad_transpose`` (XLA derives it from the gather).
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -62,6 +70,13 @@ def _apply_a_xy(f: torch.Tensor) -> torch.Tensor:
     return 0.5 * f + 0.125 * (xm + xp + ym + yp)
 
 
+@lru_cache(maxsize=16)
+def _z_matrix(nz: int, device: torch.device) -> torch.Tensor:
+    """The exact quadratic-B-spline inverse along z on ``device``, kept
+    so that a solve's repeated prefilters copy nothing from the host."""
+    return torch.as_tensor(_prefilter_matrix(nz), device=device)
+
+
 def prefilter(field: torch.Tensor, order: int = 2) -> torch.Tensor:
     """Field samples (nx, ny, nz) → box-spline coefficient grid.
 
@@ -71,8 +86,7 @@ def prefilter(field: torch.Tensor, order: int = 2) -> torch.Tensor:
     reproduction and is the default; see the reference's docstring for
     the forward/inversion trade-off of higher orders)."""
     check_full_f32()
-    nz = field.shape[2]
-    pz = torch.as_tensor(_prefilter_matrix(nz), device=field.device)
+    pz = _z_matrix(field.shape[2], field.device)
     c = torch.einsum("ck,abk->abc", pz, field)
     acc = c
     d = c
@@ -80,6 +94,27 @@ def prefilter(field: torch.Tensor, order: int = 2) -> torch.Tensor:
         d = d - _apply_a_xy(d)
         acc = acc + d
     return acc
+
+
+def prefilter_transpose(coef: torch.Tensor, order: int = 2) -> torch.Tensor:
+    """Pᵀ, the transpose of ``prefilter``: a coefficient-grid cotangent
+    (nx, ny, nz) → field cotangent. Σ_{j≤order} (I − Aᵀ)ʲ over (x, y),
+    then the transposed z matmul. Written out rather than left to
+    autograd: the backward of ``_apply_a_xy``'s clamped gathers is an
+    ``index_put_`` with accumulation, which uses atomics on CUDA and is
+    not bitwise reproducible, and truncated CG amplifies last-ulp
+    differences."""
+    check_full_f32()
+    acc = coef
+    d = coef
+    for _ in range(order):
+        # Aᵀ = A: the transposes of the clamped gathers f[max(i−1, 0)] and
+        # f[min(i+1, n−1)] sum to the same replicate-edge pair. A forward
+        # call of _apply_a_xy is a plain gather, with no atomics.
+        d = d - _apply_a_xy(d)
+        acc = acc + d
+    pz = _z_matrix(coef.shape[2], coef.device)
+    return torch.einsum("ck,abc->abk", pz, acc)
 
 
 def zp_order(interp: str) -> int:
@@ -233,6 +268,66 @@ def interp_rows_with_grad(coef2d: torch.Tensor, grid: Grid3D,
     if points.is_cuda:
         return kernels.zp_value_grad(coef2d, grid, points)
     return interp_rows_with_grad_ref(coef2d, grid, points)
+
+
+def interp_rows_with_grad_transpose_ref(grid: Grid3D, points: torch.Tensor,
+                                        ct_value: torch.Tensor,
+                                        ct_grad: torch.Tensor
+                                        ) -> torch.Tensor:
+    """Plain PyTorch version of K1eᵀ: the (nx*ny, nz) table cotangent of
+    ``interp_rows_with_grad`` for a value cotangent (N,) and a gradient
+    cotangent (N, 3). Per point the 8 rows × 3 z taps receive
+    wxy⊗(c_v·qb + c_gz/s_z·dqb) + wu⊗(c_gx/s_x·qb) + wv⊗(c_gy/s_y·qb),
+    added by ``index_add_`` (atomics on CUDA: not bitwise reproducible
+    there)."""
+    nx, ny, nz = grid.shape
+    bx, by, bz, u, v, w = _neighborhood(grid, points)
+    dx, dy, wxy, wu, wv = _xy_weights(u, v, with_grad=True)
+    ri = _row_index(bx, by, dx, dy, grid).long()
+    cg = ct_grad / grid.spacing[None, :]
+    qb, dqb = _qb_weights(w), _qb_dweights(w)
+    s_ct = ct_value[:, None] * qb + cg[:, 2:3] * dqb        # (N, 3)
+    contrib = (wxy[:, :, None] * s_ct[:, None, :]
+               + wu[:, :, None] * (cg[:, 0:1] * qb)[:, None, :]
+               + wv[:, :, None] * (cg[:, 1:2] * qb)[:, None, :])
+    zi = bz.long()[:, None] + torch.arange(-1, 2, device=points.device)
+    flat = (ri[:, :, None] * nz + zi[:, None, :]).reshape(-1)
+    out = torch.zeros(nx * ny * nz, dtype=ct_value.dtype,
+                      device=ct_value.device)
+    return out.index_add_(0, flat, contrib.reshape(-1)).reshape(nx * ny, nz)
+
+
+#: zp translates a K1eᵀ plan holds: the 8th has weight 0 and is skipped.
+ZP_LIVE_TRANSLATES = 7
+
+
+def endpoint_plan(grid: Grid3D, points: torch.Tensor):
+    """The K1eᵀ plan of fixed points: their live (point, translate) pairs
+    sorted by table row (``core.tricubic.build_row_plan``)."""
+    from .tricubic import build_row_plan
+
+    bx, by, _, u, v, _ = _neighborhood(grid, points)
+    dx, dy, _ = _xy_weights(u, v, with_grad=False)
+    ri = _row_index(bx, by, dx, dy, grid)[:, :ZP_LIVE_TRANSLATES]
+    return build_row_plan(ri.contiguous(), grid.shape[0] * grid.shape[1])
+
+
+def interp_rows_with_grad_transpose(grid: Grid3D, points: torch.Tensor,
+                                    ct_value: torch.Tensor,
+                                    ct_grad: torch.Tensor, plan=None
+                                    ) -> torch.Tensor:
+    """Transpose of ``interp_rows_with_grad`` with respect to the table:
+    kernel K1eᵀ on CUDA (over ``plan`` from ``endpoint_plan``, built here
+    if not given), ``interp_rows_with_grad_transpose_ref`` on the CPU."""
+    if not points.is_cuda:
+        return interp_rows_with_grad_transpose_ref(grid, points, ct_value,
+                                                   ct_grad)
+    if plan is None:
+        plan = endpoint_plan(grid, points)
+    return kernels.zp_value_grad_bwd(grid, points.contiguous(),
+                                     ct_value.contiguous(),
+                                     ct_grad.contiguous(), plan.order,
+                                     plan.offsets, ZP_LIVE_TRANSLATES)
 
 
 def interp(coef: torch.Tensor, grid: Grid3D, points: torch.Tensor

@@ -1,6 +1,6 @@
-"""TEC path integrals and the paired differential-TEC forward equation
-(port of the parts of ``ionotomo_tpu.forward.tec`` the bent-ray slice
-uses).
+"""TEC path integrals, the paired differential-TEC forward equation and
+its linearisation (port of the parts of ``ionotomo_tpu.forward.tec`` the
+bent-ray and inversion slices use).
 
 Units: ray geometry in km, n_e in m^-3; TEC returned in working units of
 ``constants.TEC_SCALE`` m^-2 (1e13 = 1 mTECU).
@@ -11,8 +11,16 @@ on CUDA) and the Hermite endpoint derivatives through
 the reference's chunking of large batches bounds a gathered pencil block
 that the kernels never build, so it is not ported.
 
-Not ported yet (ROADMAP.md Queue 1 item 7): ``dtec``, ``log_ne_at``,
-``tec_linear``, ``tec_linear_adjoint``, ``vtec_map``, ``ray_coverage``,
+``PairedDtecLinear`` is the linearised paired-dTEC operator J about a
+field m0 and its transpose, written out where the reference takes
+``jax.linearize`` and ``jax.linear_transpose`` of ``dtec_paired_q``:
+J δm = Q(n_e(m0) ⊙ R P δm) + the Hermite endpoint terms, Jᵀ y =
+Pᵀ Rᵀ(n_e ⊙ Qᵀ y) + Pᵀ K1eᵀ(endpoint cotangents), with P the prefilter,
+R ``rows_value`` (K2, and K3 through its autograd backward) and Q the
+paired quadrature.
+
+Not ported yet (ROADMAP.md Queue 1 item 7): ``dtec``, ``tec_linear``,
+``tec_linear_adjoint``, ``vtec_map``, ``ray_coverage``,
 ``dtec_noise_from_beam``, and the cubic/zpc field models.
 """
 from __future__ import annotations
@@ -20,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from .. import constants
-from ..core import boxspline
+from ..core import boxspline, tricubic
 from ..core.grids import Grid3D
 from ..core.precision import check_full_f32
 from ..geometry.fermat import _not_ported, _zp_table
@@ -67,6 +75,15 @@ def ne_at(field_m: torch.Tensor, grid: Grid3D, points: torch.Tensor,
     return constants.K_NE * torch.exp(m).reshape(shape)
 
 
+def log_ne_at(field_m: torch.Tensor, grid: Grid3D, points: torch.Tensor,
+              interp: str = "cubic") -> torch.Tensor:
+    """Log-density m = log(n_e/K_NE) at points (..., 3): the forward
+    operator of point-density observations, exactly linear in m."""
+    shape = points.shape[:-1]
+    m = _interp_fast(field_m, grid, points.reshape(-1, 3), interp)
+    return m.reshape(shape)
+
+
 def tec_from_log_values(m_values: torch.Tensor, rays: RayBundle
                         ) -> torch.Tensor:
     """Simpson TEC quadrature from log-density samples m (R·N,) or (R, N)
@@ -79,21 +96,47 @@ def tec_from_log_values(m_values: torch.Tensor, rays: RayBundle
     return integral / constants.TEC_SCALE
 
 
+def _paired_simpson_ne(ne: torch.Tensor, w: torch.Tensor, rays: RayBundle,
+                       i0: int) -> torch.Tensor:
+    """Paired Simpson dTEC (Na, Nd) from densities ne (Na, Nd, N) [m⁻³]
+    (or their tangents: the map is linear in ne) and the Simpson weights
+    w (N,)."""
+    check_full_f32()
+    na, nd, _ = ne.shape
+    dne = ne - _ref_row(ne, i0)[None, :, :]
+    ds = rays.ds.reshape(na, nd)
+    out = torch.einsum("akn,n->ak", dne, w) * ds * constants.KM_TO_M
+    return out / constants.TEC_SCALE
+
+
+def _paired_simpson_ne_t(y: torch.Tensor, w: torch.Tensor, rays: RayBundle,
+                         i0: int) -> torch.Tensor:
+    """Transpose of ``_paired_simpson_ne``: (Na, Nd) → (Na, Nd, N)."""
+    na, nd = y.shape
+    ds = rays.ds.reshape(na, nd)
+    s = (y / constants.TEC_SCALE) * constants.KM_TO_M * ds
+    ct = s[:, :, None] * w[None, None, :]
+    return _ref_row_t(ct, i0)
+
+
+def _ref_row_t(ct: torch.Tensor, i0: int) -> torch.Tensor:
+    """Transpose of x ↦ x − x[i0] over the leading (antenna) axis."""
+    out = ct.clone()
+    out[i0] -= ct.sum(0)
+    return out
+
+
 def dtec_paired_from_log_values(m_values: torch.Tensor, rays: RayBundle,
                                 num_directions: int, i0: int = 0
                                 ) -> torch.Tensor:
     """Cancellation-free paired-dTEC Simpson quadrature from log-density
     samples: the reference antenna's samples are subtracted sample-wise
     before the reduction."""
-    check_full_f32()
     r, n = rays.points.shape[:2]
     na = r // num_directions
     ne = constants.K_NE * torch.exp(m_values).reshape(na, num_directions, n)
-    dne = ne - _ref_row(ne, i0)[None, :, :]
-    w = simpson_weights(n, ne.dtype, ne.device)
-    ds = rays.ds.reshape(na, num_directions)
-    out = torch.einsum("akn,n->ak", dne, w) * ds * constants.KM_TO_M
-    return out / constants.TEC_SCALE
+    return _paired_simpson_ne(ne, simpson_weights(n, ne.dtype, ne.device),
+                              rays, i0)
 
 
 def tec(field_m: torch.Tensor, grid: Grid3D, rays: RayBundle,
@@ -153,23 +196,46 @@ def tec_hermite_from_values(m_values: torch.Tensor, d0: torch.Tensor,
     return integral * (constants.KM_TO_M / constants.TEC_SCALE)
 
 
+def _paired_hermite_ne(ne: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor,
+                       w: torch.Tensor, rays: RayBundle, i0: int
+                       ) -> torch.Tensor:
+    """Paired Hermite dTEC (Na, Nd) from densities ne (Na, Nd, N), the
+    endpoint path derivatives d0, d1 (R,) (or their tangents: linear) and
+    the trapezoid weights w (N,)."""
+    check_full_f32()
+    na, nd, _ = ne.shape
+    dne = ne - _ref_row(ne, i0)[None, :, :]
+    corr = (d0 - d1).reshape(na, nd)
+    corr = corr - _ref_row(corr, i0)[None, :]
+    ds = rays.ds.reshape(na, nd)
+    out = (torch.einsum("akn,n->ak", dne, w) * ds + corr * ds * ds / 12.0)
+    return out * (constants.KM_TO_M / constants.TEC_SCALE)
+
+
+def _paired_hermite_ne_t(y: torch.Tensor, w: torch.Tensor, rays: RayBundle,
+                         i0: int):
+    """Transpose of ``_paired_hermite_ne``: (Na, Nd) → (ct_ne (Na, Nd, N),
+    ct_d0 (R,)); the cotangent of d1 is −ct_d0."""
+    na, nd = y.shape
+    ds = rays.ds.reshape(na, nd)
+    s = y * (constants.KM_TO_M / constants.TEC_SCALE)
+    ct_ne = _ref_row_t((s * ds)[:, :, None] * w[None, None, :], i0)
+    ct_corr = _ref_row_t(s * ds * ds / 12.0, i0)
+    return ct_ne, ct_corr.reshape(-1)
+
+
 def dtec_paired_hermite_from_values(m_values: torch.Tensor,
                                     d0: torch.Tensor, d1: torch.Tensor,
                                     rays: RayBundle, num_directions: int,
                                     i0: int = 0) -> torch.Tensor:
     """Paired-dTEC twin of ``tec_hermite_from_values`` (sample-wise
     reference-antenna subtraction of values AND endpoint derivatives)."""
-    check_full_f32()
     r, n = rays.points.shape[:2]
     na = r // num_directions
     ne = constants.K_NE * torch.exp(m_values).reshape(na, num_directions, n)
-    dne = ne - _ref_row(ne, i0)[None, :, :]
-    w = trapezoid_weights(n, ne.dtype, ne.device)
-    corr = (d0 - d1).reshape(na, num_directions)
-    corr = corr - _ref_row(corr, i0)[None, :]
-    ds = rays.ds.reshape(na, num_directions)
-    out = (torch.einsum("akn,n->ak", dne, w) * ds + corr * ds * ds / 12.0)
-    return out * (constants.KM_TO_M / constants.TEC_SCALE)
+    return _paired_hermite_ne(ne, d0, d1,
+                              trapezoid_weights(n, ne.dtype, ne.device),
+                              rays, i0)
 
 
 def _endpoint_dne_ds(field_m: torch.Tensor, grid: Grid3D, rays: RayBundle,
@@ -221,3 +287,178 @@ def tec_q(field_m, grid, rays, quadrature: str = "simpson",
     if quadrature != "simpson":
         raise ValueError(f"unknown quadrature: {quadrature!r}")
     return tec(field_m, grid, rays, interp)
+
+
+class PairedDtecLinear:
+    """The paired-dTEC forward ``dtec_paired_q`` linearised about a field
+    m0 on the zp model, with its exact transpose, over fixed ray samples.
+
+    ``apply(δm)`` (grid.shape) → (Na·Nd,) and ``apply_t(y)`` (Na·Nd,) →
+    grid.shape; ``g0`` (Na·Nd,) is the forward at m0. With t = P δm the
+    tangent coefficient table:
+
+        J δm = Q(n_e ⊙ R t, δd₀, δd₁),
+        δd = n_e·δm_e·(∇m0·t̂) + n_e·(∇δm_e·t̂)     (Hermite endpoints)
+        Jᵀ y = Pᵀ[Rᵀ(n_e ⊙ Q_neᵀ y) + K1eᵀ(c·n_e·(∇m0·t̂), c·n_e·t̂)],
+        c = Q_dᵀ y,
+
+    n_e at m0 on the samples and endpoints, δm_e and ∇δm_e the tangent's
+    value and gradient there (K1e on t). Everything that depends only on
+    m0 and the samples (point setup, weights, n_e, the K3 and K1eᵀ plans)
+    is built once here; an application is a prefilter, one gather or
+    scatter and the quadrature.
+
+    On CUDA tensors R is ``rows_value`` (K2) and Rᵀ its autograd
+    backward (K3), the endpoint terms K1e and K1eᵀ.
+    ``dtec_paired_linear_ref`` builds the same operator from the plain
+    versions (``*_ref``) of those four, on any device.
+    """
+
+    def __init__(self, field_m0: torch.Tensor, grid: Grid3D,
+                 rays: RayBundle, num_directions: int, i0: int = 0,
+                 quadrature: str = "hermite", interp: str = "cubic"):
+        check_full_f32()
+        if quadrature not in ("hermite", "simpson"):
+            raise ValueError(f"unknown quadrature: {quadrature!r}")
+        _rows_of(interp)                      # raises for unported models
+        self.grid, self.rays, self.i0 = grid, rays, i0
+        self.order = boxspline.zp_order(interp)
+        self.hermite = quadrature == "hermite"
+        r, self.n = rays.points.shape[:2]
+        self.na, self.nd = r // num_directions, num_directions
+        nx, ny, nz = grid.shape
+        self.table_shape = (nx * ny, nz)
+        weights = trapezoid_weights if self.hermite else simpson_weights
+        self.w = weights(self.n, torch.float32, rays.points.device)
+
+        pts = rays.points.reshape(-1, 3)
+        bx, by, bz, u, v, w = boxspline._neighborhood(grid, pts)
+        dx, dy, wxy = boxspline._xy_weights(u, v, with_grad=False)
+        self.ri = boxspline._row_index(bx, by, dx, dy, grid).contiguous()
+        self.zi = (bz[:, None] + torch.arange(
+            -1, 2, dtype=torch.int32, device=bz.device)[None, :]).contiguous()
+        self.wxy = wxy.contiguous()
+        self.wz = boxspline._qb_weights(w).contiguous()
+        if self.hermite:
+            self.ends, self.t_hat = _endpoint_tangents(rays.points)
+        table0 = boxspline.prefilter(field_m0, self.order).reshape(
+            self.table_shape)
+        m_values = self._setup(table0)
+        self.ne = constants.K_NE * torch.exp(m_values)
+        ne3 = self.ne.reshape(self.na, self.nd, self.n)
+        if not self.hermite:
+            self.g0 = _paired_simpson_ne(ne3, self.w, rays, i0).reshape(-1)
+            return
+        m_e, gm_e = self._value_grad(table0)
+        self.ne_e = constants.K_NE * torch.exp(m_e)
+        self.slope = torch.einsum("pd,pd->p", gm_e, self.t_hat)
+        d0, d1 = endpoint_dne_ds_from(m_e, gm_e, self.t_hat)
+        self.g0 = _paired_hermite_ne(ne3, d0, d1, self.w, rays,
+                                     i0).reshape(-1)
+
+    def _setup(self, table0: torch.Tensor) -> torch.Tensor:
+        """Build what every application reuses, and return R table0: on
+        CUDA the K3 and K1eᵀ plans; R's transpose is rows_value's autograd
+        backward (K3), taken through one retained graph of R over a zero
+        table."""
+        cuda = self.ri.is_cuda
+        plan = (tricubic.build_row_plan(self.ri, self.table_shape[0])
+                if cuda else None)
+        self.end_plan = (boxspline.endpoint_plan(self.grid, self.ends)
+                         if cuda and self.hermite else None)
+        self._leaf = torch.zeros(self.table_shape, device=self.ri.device,
+                                 requires_grad=True)
+        with torch.enable_grad():
+            self._graph = tricubic.rows_value(self._leaf, self.ri, self.wxy,
+                                              self.zi, self.wz, True, plan)
+        return tricubic.rows_value(table0, self.ri, self.wxy, self.zi,
+                                   self.wz, True, plan)
+
+    def _rows(self, table: torch.Tensor) -> torch.Tensor:
+        return tricubic.rows_value(table, self.ri, self.wxy, self.zi,
+                                   self.wz, True)
+
+    def _rows_t(self, ct: torch.Tensor) -> torch.Tensor:
+        (table_ct,) = torch.autograd.grad(self._graph, self._leaf, ct,
+                                          retain_graph=True)
+        return table_ct
+
+    def _value_grad(self, table: torch.Tensor):
+        return boxspline.interp_rows_with_grad(table, self.grid, self.ends)
+
+    def _value_grad_t(self, ct_value, ct_grad) -> torch.Tensor:
+        return boxspline.interp_rows_with_grad_transpose(
+            self.grid, self.ends, ct_value, ct_grad, self.end_plan)
+
+    def apply(self, dm: torch.Tensor) -> torch.Tensor:
+        """J δm: field tangent (grid.shape) → dTEC tangent (Na·Nd,)."""
+        check_full_f32()
+        t = boxspline.prefilter(dm, self.order).reshape(self.table_shape)
+        dne = (self.ne * self._rows(t)).reshape(self.na, self.nd, self.n)
+        if not self.hermite:
+            return _paired_simpson_ne(dne, self.w, self.rays,
+                                      self.i0).reshape(-1)
+        dm_e, dgm_e = self._value_grad(t)
+        dd = ((self.ne_e * dm_e) * self.slope
+              + self.ne_e * torch.einsum("pd,pd->p", dgm_e, self.t_hat))
+        r = dd.shape[0] // 2
+        return _paired_hermite_ne(dne, dd[:r], dd[r:], self.w, self.rays,
+                                  self.i0).reshape(-1)
+
+    def apply_t(self, y: torch.Tensor) -> torch.Tensor:
+        """Jᵀ y: dTEC cotangent (Na·Nd,) → field cotangent (grid.shape)."""
+        y = y.reshape(self.na, self.nd)
+        if not self.hermite:
+            ct_ne = _paired_simpson_ne_t(y, self.w, self.rays, self.i0)
+        else:
+            ct_ne, ct_d0 = _paired_hermite_ne_t(y, self.w, self.rays,
+                                                self.i0)
+        table_ct = self._rows_t(self.ne * ct_ne.reshape(-1))
+        if self.hermite:
+            ct_d = torch.cat([ct_d0, -ct_d0]) * self.ne_e
+            table_ct = table_ct + self._value_grad_t(
+                ct_d * self.slope, ct_d[:, None] * self.t_hat)
+        return boxspline.prefilter_transpose(
+            table_ct.reshape(self.grid.shape), self.order)
+
+
+def dtec_paired_linear(field_m0, grid, rays, num_directions, i0=0,
+                       quadrature: str = "hermite", interp: str = "cubic"
+                       ) -> PairedDtecLinear:
+    """``dtec_paired_q`` linearised about ``field_m0`` (kernels K2, K3,
+    K1e and K1eᵀ on CUDA)."""
+    return PairedDtecLinear(field_m0, grid, rays, num_directions, i0,
+                            quadrature, interp)
+
+
+class _PlainPairedDtecLinear(PairedDtecLinear):
+    """``PairedDtecLinear`` with R, Rᵀ, K1e and K1eᵀ replaced by their
+    plain versions."""
+
+    def _setup(self, table0: torch.Tensor) -> torch.Tensor:
+        return self._rows(table0)
+
+    def _rows(self, table: torch.Tensor) -> torch.Tensor:
+        return tricubic.rows_value_ref(table, self.ri, self.wxy, self.zi,
+                                       self.wz, True)
+
+    def _rows_t(self, ct: torch.Tensor) -> torch.Tensor:
+        return tricubic.rows_value_transpose_ref(
+            ct, self.ri, self.wxy, self.zi, self.wz, self.table_shape)
+
+    def _value_grad(self, table: torch.Tensor):
+        return boxspline.interp_rows_with_grad_ref(table, self.grid,
+                                                   self.ends)
+
+    def _value_grad_t(self, ct_value, ct_grad) -> torch.Tensor:
+        return boxspline.interp_rows_with_grad_transpose_ref(
+            self.grid, self.ends, ct_value, ct_grad)
+
+
+def dtec_paired_linear_ref(field_m0, grid, rays, num_directions, i0=0,
+                           quadrature: str = "hermite", interp: str = "cubic"
+                           ) -> PairedDtecLinear:
+    """Plain PyTorch version of ``dtec_paired_linear``: the same operator
+    built from the ``*_ref`` primitives, on any device."""
+    return _PlainPairedDtecLinear(field_m0, grid, rays, num_directions, i0,
+                                  quadrature, interp)

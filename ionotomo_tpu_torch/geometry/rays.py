@@ -76,25 +76,27 @@ def trapezoid_weights(n_samples: int, dtype=torch.float32, device=None):
     the Hermite TEC quadrature (forward.tec.tec_hermite)."""
     if n_samples < 2:
         raise ValueError("need >= 2 samples")
-    w = torch.ones((n_samples,), dtype=dtype, device=device)
-    w[0] = 0.5
-    w[-1] = 0.5
-    return w
+    i = torch.arange(n_samples, device=device)
+    w = torch.where((i == 0) | (i == n_samples - 1), 0.5, 1.0)
+    return w.to(dtype)
 
 
 def simpson_weights(n_samples: int, dtype=torch.float32, device=None):
     """Composite Simpson weights [1,4,2,...,4,1]/3 for odd n; trapezoid
     fallback on the last interval for even n.
-    """
+
+    Built by ``torch.where`` over the sample index, as the trapezoid
+    weights are: assigning a Python scalar into a CUDA tensor copies it
+    from the host and waits for the card, and the linearised operator
+    builds these weights in every application."""
     if n_samples < 2:
         raise ValueError("need >= 2 samples")
+    i = torch.arange(n_samples, device=device)
     if n_samples % 2 == 1:
-        w = torch.ones((n_samples,), dtype=dtype, device=device)
-        w[1:-1:2] = 4.0
-        w[2:-1:2] = 2.0
-        return w / 3.0
+        w = torch.where(i % 2 == 1, 4.0, 2.0)
+        w = torch.where((i == 0) | (i == n_samples - 1), 1.0, w)
+        return w.to(dtype) / 3.0
     # even: Simpson on first n-1 points + trapezoid on final interval
     w = simpson_weights(n_samples - 1, dtype, device)
     w = torch.cat([w, torch.zeros((1,), dtype=dtype, device=device)])
-    w[-2:] += 0.5
-    return w
+    return w + torch.where(i >= n_samples - 2, 0.5, 0.0).to(dtype)

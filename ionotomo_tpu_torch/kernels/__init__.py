@@ -4,7 +4,13 @@
   (csrc/trace_leapfrog_zp.cu);
 - K1e ``zp_value_grad``: zp value + physical gradient at points
   (csrc/zp_value_grad.cu);
-- K2  ``rows_value_fwd``: the row-gather value map (csrc/rows_value_fwd.cu).
+- K2  ``rows_value_fwd``: the row-gather value map (csrc/rows_value_fwd.cu);
+- K3  ``rows_value_bwd``: its transpose, a deterministic per-row reduction
+  over a plan of the points sorted by row (csrc/rows_value_bwd.cu);
+- K1eᵀ ``zp_value_grad_bwd``: the transpose of K1e with respect to the
+  table, by the same plan-and-reduce scheme (csrc/zp_value_grad_bwd.cu);
+- KG  ``vector_gather``: out[i, j] = table[idx[i, j], j], the gather of the
+  JAX package's Pallas probe (csrc/vector_gather.cu).
 
 Each wrapper checks dtype, shape, contiguity and device and raises on
 anything else (a CPU tensor included: the plain PyTorch versions live in
@@ -22,7 +28,12 @@ import torch
 from . import build
 
 #: Kernel launches per wrapper since the last ``reset_launches()``.
-launches = {"trace_leapfrog_zp": 0, "zp_value_grad": 0, "rows_value_fwd": 0}
+launches = {"trace_leapfrog_zp": 0, "zp_value_grad": 0, "rows_value_fwd": 0,
+            "rows_value_bwd": 0, "zp_value_grad_bwd": 0, "vector_gather": 0}
+
+#: Widest table row the reduce kernels (K3, K1eᵀ) take: one row per warp
+#: in shared memory, 8 warps a block, within the 48 KB static limit.
+MAX_NZ_REDUCE = 1024
 
 
 def reset_launches() -> None:
@@ -161,3 +172,94 @@ def trace_leapfrog_zp(coef2d: torch.Tensor, grid, origins: torch.Tensor,
                 w_n, w_rhs, k_ne, tec_unit, _ptr(x_end), _ptr(tau),
                 _ptr(path))
     return x_end, tau, path
+
+
+def _plan_specs(order, offsets, n_pairs, n_rows):
+    return [("order", order, torch.int32, (n_pairs,)),
+            ("offsets", offsets, torch.int32, (n_rows + 1,))]
+
+
+def rows_value_bwd(ct: torch.Tensor, order: torch.Tensor,
+                   offsets: torch.Tensor, wxy: torch.Tensor, zi: torch.Tensor,
+                   wz: torch.Tensor, n_rows: int, nz: int) -> torch.Tensor:
+    """K3: table_ct (n_rows, nz) with table_ct[ri[n,k], zi[n,l]] +=
+    ct[n]·wxy[n,k]·wz[n,l], reduced per row in the order of the plan
+    (``order``: the N·K flat pair ids n·K + k sorted by row; ``offsets``:
+    each row's start in ``order``; ``core.tricubic.build_row_plan``).
+    ct (N,) f32; wxy (N, K) f32 with K ≤ 16; zi (N, L) int32, wz (N, L)
+    f32 with L ≤ 4. Deterministic: no float atomics."""
+    name = "rows_value_bwd"
+    if wxy.dim() != 2 or zi.dim() != 2:
+        raise ValueError(f"{name}: wxy and zi must be 2-D, got {wxy.dim()}, "
+                         f"{zi.dim()}")
+    n, k = wxy.shape
+    l = zi.shape[1]
+    if not (1 <= k <= 16 and 1 <= l <= 4):
+        raise ValueError(f"{name}: needs 1 <= K <= 16 and 1 <= L <= 4, got "
+                         f"K={k}, L={l}")
+    if not (1 <= nz <= MAX_NZ_REDUCE and n_rows >= 1):
+        raise ValueError(f"{name}: needs n_rows >= 1 and 1 <= nz <= "
+                         f"{MAX_NZ_REDUCE}, got {n_rows}, {nz}")
+    dev = _check(name, [("ct", ct, torch.float32, (n,)),
+                        ("wxy", wxy, torch.float32, (n, k)),
+                        ("zi", zi, torch.int32, (n, l)),
+                        ("wz", wz, torch.float32, (n, l))]
+                 + _plan_specs(order, offsets, n * k, n_rows))
+    out = torch.empty((n_rows, nz), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(name, "ionotomo_rows_value_bwd", _ptr(ct), _ptr(order),
+                _ptr(offsets), _ptr(wxy), k, _ptr(zi), _ptr(wz), l, n_rows,
+                nz, _ptr(out))
+    return out
+
+
+def zp_value_grad_bwd(grid, points: torch.Tensor, ct_value: torch.Tensor,
+                      ct_grad: torch.Tensor, order: torch.Tensor,
+                      offsets: torch.Tensor, k: int) -> torch.Tensor:
+    """K1eᵀ: the (nx*ny, nz) table cotangent of K1e for a value cotangent
+    (N,) and a physical-gradient cotangent (N, 3) at points (N, 3). The
+    plan lists the flat (point, translate) pair ids n·k + t, t < k ≤ 8,
+    sorted by row (``core.tricubic.build_row_plan`` over the first k
+    zp translates). Deterministic: no float atomics."""
+    name = "zp_value_grad_bwd"
+    nx, ny, nz = grid.shape
+    n = points.shape[0]
+    if not 1 <= k <= 8:
+        raise ValueError(f"{name}: needs 1 <= k <= 8, got {k}")
+    if min(grid.shape) < 3 or nz > MAX_NZ_REDUCE:
+        raise ValueError(f"{name}: every grid axis needs >= 3 samples and "
+                         f"nz <= {MAX_NZ_REDUCE}, got {grid.shape}")
+    dev = _check(name, [("points", points, torch.float32, (n, 3)),
+                        ("ct_value", ct_value, torch.float32, (n,)),
+                        ("ct_grad", ct_grad, torch.float32, (n, 3)),
+                        ("grid.origin", grid.origin, torch.float32, (3,)),
+                        ("grid.spacing", grid.spacing, torch.float32, (3,))]
+                 + _plan_specs(order, offsets, n * k, nx * ny))
+    out = torch.empty((nx * ny, nz), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(name, "ionotomo_zp_value_grad_bwd", _ptr(grid.origin),
+                _ptr(grid.spacing), nx, ny, nz, _ptr(points), _ptr(ct_value),
+                _ptr(ct_grad), _ptr(order), _ptr(offsets), k, _ptr(out))
+    return out
+
+
+def vector_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """KG: out[i, j] = table[idx[i, j], j]; table (R, W) f32, idx (M, W)
+    int32 → (M, W) f32."""
+    name = "vector_gather"
+    if table.dim() != 2 or idx.dim() != 2:
+        raise ValueError(f"{name}: table and idx must be 2-D, got "
+                         f"{table.dim()}, {idx.dim()}")
+    r, w = table.shape
+    m = idx.shape[0]
+    if r < 1 or w < 1:
+        raise ValueError(f"{name}: empty table {tuple(table.shape)}")
+    dev = _check(name, [("table", table, torch.float32, (r, w)),
+                        ("idx", idx, torch.int32, (m, w))])
+    out = torch.empty((m, w), dtype=torch.float32, device=dev)
+    if m == 0:
+        return out
+    with torch.cuda.device(dev):
+        _launch(name, "ionotomo_vector_gather", _ptr(table), r, w, _ptr(idx),
+                m, _ptr(out))
+    return out

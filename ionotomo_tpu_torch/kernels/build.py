@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``kernels/csrc`` at first use.
 
-All ``.cu`` files are compiled by one ``nvcc`` call into a shared library
-with a plain C interface for ``sm_90a`` (Hopper), which ``ctypes`` loads.
-No PyTorch header is included, so a build takes seconds. The library goes
+Each ``.cu`` file is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain
+C interface for ``sm_90a`` (Hopper), which ``ctypes`` loads. No PyTorch
+header is included, so a build takes seconds. The library goes
 to ``build/ionotomo_tpu_torch/`` at the root of the checkout, named by a
 hash of the sources and flags, so a changed source is rebuilt and an
 unchanged one is loaded as it is. ``--use_fast_math`` is deliberately
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ionotomo_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +37,11 @@ _SIGNATURES = {
     "ionotomo_trace_leapfrog_zp": (_I, [_P, _P, _P, _I, _I, _I, _P, _P, _I,
                                         _I, _F, _F, _F, _F, _F, _F, _P, _P,
                                         _P, _P]),
+    "ionotomo_rows_value_bwd": (_I, [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                                     _P, _P]),
+    "ionotomo_zp_value_grad_bwd": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _P,
+                                        _P, _I, _P, _P]),
+    "ionotomo_vector_gather": (_I, [_P, _I, _I, _P, _I, _P, _P]),
     "ionotomo_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -84,16 +90,37 @@ def build() -> dict:
         log = log_path.read_text() if log_path.exists() else ""
         return {"path": lib, "seconds": 0.0, "built": False, "log": log}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    tag = f"{lib.stem}.{os.getpid()}"
+    tmp = lib.with_name(f"{tag}.tmp.so")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = "", []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log += out
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    if not failed:
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     log_path.write_text(log)
     os.replace(tmp, lib)
     return {"path": lib, "seconds": seconds, "built": True, "log": log}

@@ -1,8 +1,9 @@
 // Zwart-Powell box spline (x, y) x quadratic B-spline (z): value and
 // physical gradient of the interpolated log-density at one point.
 //
-// Shared by K1 (trace_leapfrog_zp.cu) and K1e (zp_value_grad.cu). It is
-// the per-point body of ionotomo_tpu/core/boxspline.py:
+// Shared by K1 (trace_leapfrog_zp.cu), K1e (zp_value_grad.cu) and K1e^T
+// (zp_value_grad_bwd.cu). It is the per-point body of
+// ionotomo_tpu/core/boxspline.py:
 // _neighborhood -> _xy_weights -> _row_index -> interp_rows_with_grad,
 // contracted xy-first as the reference does, and must stay in step with
 // the plain PyTorch version in ionotomo_tpu_torch/core/boxspline.py.
@@ -80,15 +81,23 @@ static __device__ __forceinline__ void zp_axis(float p, float o, float s,
   b = (int)base;
 }
 
-// Value m and physical gradient dm/dx [1/km] at (px, py, pz).
-static __device__ __forceinline__ void zp_value_grad_at(
-    const ZpGrid& g, float px, float py, float pz, float& val, float& gx,
-    float& gy, float& gz) {
+// The per-point part of a zp evaluation: lattice base, the map T onto the
+// canonical piece, the canonical monomials and the quadratic z taps.
+struct ZpPoint {
   int bx, by, bz;
+  float a11, a12, a21;
+  float mon[6];  // 1, uc, vc, uc^2, uc*vc, vc^2
+  float wz[3];   // quadratic B-spline z taps at bz-1, bz, bz+1
+  float dwz[3];  // their d/dw
+};
+
+static __device__ __forceinline__ void zp_setup(const ZpGrid& g, float px,
+                                                float py, float pz,
+                                                ZpPoint& q) {
   float u, v, w;
-  zp_axis(px, g.ox, g.sx, g.nx, bx, u);
-  zp_axis(py, g.oy, g.sy, g.ny, by, v);
-  zp_axis(pz, g.oz, g.sz, g.nz, bz, w);
+  zp_axis(px, g.ox, g.sx, g.nx, q.bx, u);
+  zp_axis(py, g.oy, g.sy, g.ny, q.by, v);
+  zp_axis(pz, g.oz, g.sz, g.nz, q.bz, w);
 
   // _xy_weights: map (u, v) onto the canonical piece by T = [[a11, a12],
   // [a21, a11]] with entries in {-1, 0, 1}.
@@ -96,41 +105,64 @@ static __device__ __forceinline__ void zp_value_grad_at(
   const float s2 = (u - v > 0.0f) ? 1.0f : 0.0f;
   const float ne = fabsf(s1 - s2);
   const float sg = 2.0f * s1 - 1.0f;
-  const float a11 = (1.0f - ne) * sg;
-  const float a12 = ne * sg;
-  const float a21 = -a12;
-  const float uc = a11 * u + a12 * v;
-  const float vc = a21 * u + a11 * v;
-  const float mon[6] = {1.0f, uc, vc, uc * uc, uc * vc, vc * vc};
+  q.a11 = (1.0f - ne) * sg;
+  q.a12 = ne * sg;
+  q.a21 = -q.a12;
+  const float uc = q.a11 * u + q.a12 * v;
+  const float vc = q.a21 * u + q.a11 * v;
+  q.mon[0] = 1.0f;
+  q.mon[1] = uc;
+  q.mon[2] = vc;
+  q.mon[3] = uc * uc;
+  q.mon[4] = uc * vc;
+  q.mon[5] = vc * vc;
+  q.wz[0] = 0.5f * ((0.5f - w) * (0.5f - w));
+  q.wz[1] = 0.75f - w * w;
+  q.wz[2] = 0.5f * ((0.5f + w) * (0.5f + w));
+  q.dwz[0] = w - 0.5f;
+  q.dwz[1] = -2.0f * w;
+  q.dwz[2] = w + 0.5f;
+}
 
-  // quadratic B-spline z taps at bz-1, bz, bz+1 and their d/dw
-  const float wz[3] = {0.5f * ((0.5f - w) * (0.5f - w)), 0.75f - w * w,
-                       0.5f * ((0.5f + w) * (0.5f + w))};
-  const float dwz[3] = {w - 0.5f, -2.0f * w, w + 0.5f};
+// Translate k (0..6; 7 is the zero-weight pad) of a set-up point: its
+// table row and its weight, d/du weight and d/dv weight.
+static __device__ __forceinline__ void zp_translate(const ZpGrid& g,
+                                                    const ZpPoint& q, int k,
+                                                    int& row, float& wk,
+                                                    float& wu, float& wv) {
+  wk = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) wk += q.mon[c] * kZpCW3[c][k];
+  float wuc = 0.0f, wvc = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    wuc += q.mon[c] * kZpCU3[c][k];
+    wvc += q.mon[c] * kZpCV3[c][k];
+  }
+  wu = q.a11 * wuc + q.a21 * wvc;
+  wv = q.a12 * wuc + q.a11 * wvc;
+  const int dx = (int)(q.a11 * kZpDX3[k] + q.a21 * kZpDY3[k]);
+  const int dy = (int)(q.a12 * kZpDX3[k] + q.a11 * kZpDY3[k]);
+  const int ix = min(max(q.bx + dx, 0), g.nx - 1);
+  const int iy = min(max(q.by + dy, 0), g.ny - 1);
+  row = ix * g.ny + iy;
+}
 
+// Value m and physical gradient dm/dx [1/km] at (px, py, pz).
+static __device__ __forceinline__ void zp_value_grad_at(
+    const ZpGrid& g, float px, float py, float pz, float& val, float& gx,
+    float& gy, float& gz) {
+  ZpPoint q;
+  zp_setup(g, px, py, pz, q);
   float s[3] = {0.0f, 0.0f, 0.0f};
   float su[3] = {0.0f, 0.0f, 0.0f};
   float sv[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int k = 0; k < 7; ++k) {
-    float wk = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 6; ++c) wk += mon[c] * kZpCW3[c][k];
-    float wuc = 0.0f, wvc = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      wuc += mon[c] * kZpCU3[c][k];
-      wvc += mon[c] * kZpCV3[c][k];
-    }
-    const float wu = a11 * wuc + a21 * wvc;
-    const float wv = a12 * wuc + a11 * wvc;
-    const int dx = (int)(a11 * kZpDX3[k] + a21 * kZpDY3[k]);
-    const int dy = (int)(a12 * kZpDX3[k] + a11 * kZpDY3[k]);
-    const int ix = min(max(bx + dx, 0), g.nx - 1);
-    const int iy = min(max(by + dy, 0), g.ny - 1);
-    const float* row =
-        g.coef + ((size_t)ix * (size_t)g.ny + (size_t)iy) * (size_t)g.nz +
-        (size_t)(bz - 1);
+    int r;
+    float wk, wu, wv;
+    zp_translate(g, q, k, r, wk, wu, wv);
+    const float* row = g.coef + (size_t)r * (size_t)g.nz + (size_t)(q.bz - 1);
 #pragma unroll
     for (int l = 0; l < 3; ++l) {
       const float c = __ldg(row + l);
@@ -139,10 +171,10 @@ static __device__ __forceinline__ void zp_value_grad_at(
       sv[l] += wv * c;
     }
   }
-  val = wz[0] * s[0] + wz[1] * s[1] + wz[2] * s[2];
-  const float du = wz[0] * su[0] + wz[1] * su[1] + wz[2] * su[2];
-  const float dv = wz[0] * sv[0] + wz[1] * sv[1] + wz[2] * sv[2];
-  const float dw = dwz[0] * s[0] + dwz[1] * s[1] + dwz[2] * s[2];
+  val = q.wz[0] * s[0] + q.wz[1] * s[1] + q.wz[2] * s[2];
+  const float du = q.wz[0] * su[0] + q.wz[1] * su[1] + q.wz[2] * su[2];
+  const float dv = q.wz[0] * sv[0] + q.wz[1] * sv[1] + q.wz[2] * sv[2];
+  const float dw = q.dwz[0] * s[0] + q.dwz[1] * s[1] + q.dwz[2] * s[2];
   gx = du / g.sx;
   gy = dv / g.sy;
   gz = dw / g.sz;

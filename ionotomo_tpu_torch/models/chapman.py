@@ -6,7 +6,7 @@
 on the grid's device.
 
 Not ported yet (ROADMAP.md Queue 1 item 1): ``terminator_cos_chi``, the
-multi-layer stack, ``background_ne_fn`` and ``grid_enclosing_rays``.
+multi-layer stack and ``background_ne_fn``.
 """
 from __future__ import annotations
 
@@ -86,3 +86,21 @@ def log_parametrize(n_e):
 def ne_from_log(m):
     """n_e = K_NE * exp(m)."""
     return constants.K_NE * torch.exp(m)
+
+
+def grid_enclosing_rays(antennas_enu, directions_enu,
+                        max_length_km=constants.DEFAULT_MAX_LENGTH_KM,
+                        shape=(64, 64, 64), pad_km=25.0, h_min_km=None,
+                        device=None) -> Grid3D:
+    """A Grid3D that encloses every (antenna, direction) ray plus padding
+    (host-side: numpy in, the grid on ``device``)."""
+    ants = np.atleast_2d(np.asarray(antennas_enu, np.float64))
+    dirs = np.asarray(directions_enu, np.float64).reshape(-1, 3)
+    ends = ants[:, None, :] + max_length_km * dirs[None, :, :]
+    pts = np.concatenate([np.broadcast_to(ants[:, None, :], ends.shape)
+                          .reshape(-1, 3), ends.reshape(-1, 3)], axis=0)
+    lo = pts.min(axis=0) - pad_km
+    hi = pts.max(axis=0) + pad_km
+    if h_min_km is not None:
+        lo[2] = min(lo[2], h_min_km)
+    return Grid3D.from_bounds(lo, hi, shape, device=device)
