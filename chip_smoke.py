@@ -6,6 +6,12 @@ inversion path on one NVIDIA GPU.
                                        # one serving epoch and of one
                                        # Gauss-Newton step, and the step's
                                        # host time by op (torch.profiler)
+    python3 chip_smoke.py --parent DIR # also: phases 5 and 6 time the K3
+                                       # and K1eᵀ of the checkout at DIR
+                                       # (the sort-by-row kernels before
+                                       # the segmented plan; any other
+                                       # sources are refused) on the same
+                                       # inputs, in turns
 
 Phases (any failed check raises, and the run exits non-zero):
 
@@ -26,9 +32,12 @@ Phases (any failed check raises, and the run exits non-zero):
    K1, K1e and K2 must have launched.
 5. The adjoint kernels against their plain versions on the card: K3 (the
    transpose of K2) at 2^20 zp points of a random 128³ table, edge cases
-   included, and at the cubic shape (K=16, L=4); K1eᵀ (the transpose of
-   K1e) at 2^20 points. Each within 1e-4·max|out| and bitwise equal
-   across two calls; kernel and plain ms.
+   included (917,504 points: a corner row gets 131,640 of the 7 live
+   translates' pairs), and at
+   the cubic shape (K=16, L=4); K1eᵀ (the transpose of K1e) at the same
+   points. Each within 1e-4·max|out| and bitwise equal across two calls;
+   the plan's segment count and busiest segment and row; kernel, plain,
+   ``index_add_`` and bound ms (and the parent's ms with ``--parent``).
 6. The config-3b solve (``bench/config3b.py``) at full width: a 128³ grid
    enclosing 100 × 100 rays, truth = Chapman + a von Kármán perturbation
    (σ 0.3, outer scale 120 km), data from K1 at 256 steps and 150 MHz with
@@ -37,7 +46,9 @@ Phases (any failed check raises, and the run exits non-zero):
    operator on the kernels against the same operator on the plain
    versions (1e-4·max|·|, adjoint identity 1e-4); K2, K3 and K1eᵀ alone at
    the solve's shapes against their plain versions (1e-4·max|out|, bitwise
-   equal across two calls, kernel and plain ms); the solve twice, bitwise
+   equal across two calls, kernel, plain, ``index_add_`` and bound ms, the
+   plans' segments, and the parent's ms with ``--parent``); the solve three
+   times, bitwise
    equal, and within 1 % of the plain-version solve in final residual and
    held-out dTEC rms (20 × 50 rays, seed 99), beating the prior there; K2,
    K3, K1e and K1eᵀ must have launched in the solve.
@@ -45,14 +56,19 @@ Phases (any failed check raises, and the run exits non-zero):
    ``torch.gather`` at (16384, 128) and (8, 128), bitwise; KG must have
    launched.
 
-The last two lines are a JSON object of per-kernel results and
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits
-non-zero at once, before any build.
+The last lines are a JSON object of per-kernel results (each kernel's
+bound: the larger of the bytes it must move over 3.35 TB/s and its f32
+operations over 67 TFLOP/s, from this run's inputs), the card's name and
+power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device
+it exits non-zero at once, before any build.
 """
+import ctypes
+import hashlib
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -89,6 +105,200 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` in ms: the summed durations of the
+    kernels (and copies) it runs on the card, from torch.profiler's CUPTI
+    trace over ``reps`` calls after a warm-up. Unlike ``cuda_ms`` it does
+    not count the card waiting for the host between launches, which is
+    most of a small kernel's wall time here. A trace that recorded no
+    device time (seen once in a run of many traces) is taken again, and
+    a third empty one raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    raise RuntimeError("torch.profiler recorded no device time in three "
+                       "traces")
+
+
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, f32 FLOP/s outside
+# the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# f32 operations per unit of work, counted from the kernels' sources:
+# one leapfrog step of K1 (zp weights and contraction, exp, sqrt, the
+# kick-drift-kick update), one K1e point (zp weights and the 7x3
+# contraction of value and gradient), one K2 zp point (8x3 gather
+# contraction), one K1eᵀ point's zp set-up and one (point, translate)
+# pair's weights and contributions.
+FLOPS_K1_STEP = 470
+FLOPS_K1E_POINT = 150
+FLOPS_K2_POINT = 50
+FLOPS_K1ET_POINT = 51
+FLOPS_K1ET_PAIR = 78
+
+
+def bound(n_bytes, n_flops):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of n_bytes over the memory rate and n_flops over the f32
+    rate."""
+    ms_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    ms_flops = n_flops / F32_FLOPS_PER_S * 1e3
+    if ms_bytes >= ms_flops:
+        return ms_bytes, "bytes"
+    return ms_flops, "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def plan_stats(plan):
+    """Live pairs, segments used, busiest segment and busiest row of a
+    row plan (host reads, outside any timing)."""
+    counts = torch.diff(plan.offsets)
+    busiest_row = int(counts.max())
+    return {"pairs": int(plan.offsets[-1] - plan.offsets[0]),
+            "segments": int(plan.row_seg[-1]), "n_seg_max": plan.n_seg_max,
+            "busiest_segment": min(plan.chunk, busiest_row),
+            "busiest_row": busiest_row,
+            "empty_rows": int((counts == 0).sum())}
+
+
+def k3_bound(ct, ri, wxy, zi, wz, plan, nz):
+    """The scatter's own inputs read once (ct, zi, wz and the live
+    translates' columns of ri and wxy) and the table written once; per
+    live pair 1 + 2L operations. The plan is this implementation's data,
+    not an input of the function, and is not counted."""
+    live = plan.live
+    n_bytes = (nbytes(ct, zi, wz, ri[:, :live], wxy[:, :live])
+               + 4 * plan.n_rows * nz)
+    return bound(n_bytes, plan_stats(plan)["pairs"] * (1 + 2 * zi.shape[1]))
+
+
+def k1et_bound(points, cv, cg, plan, nz):
+    """K1eᵀ reads the points and both cotangents once and writes the
+    table once (the plan is not counted)."""
+    n_bytes = nbytes(points, cv, cg) + 4 * plan.n_rows * nz
+    return bound(n_bytes, points.shape[0] * FLOPS_K1ET_POINT
+                 + plan_stats(plan)["pairs"] * FLOPS_K1ET_PAIR)
+
+
+def index_add_call(flat, contrib, size):
+    """One PyTorch call computing the same scatter from the precomputed
+    contributions: ``index_add_`` into a preallocated table (its zeroing
+    not counted; atomics, so not reproducible)."""
+    buf = torch.zeros(size, dtype=torch.float32, device=flat.device)
+    return lambda: buf.index_add_(0, flat, contrib)
+
+
+class Parent:
+    """K3 and K1eᵀ as they were before the segmented plan, from the
+    checkout at ``root``: built from its sources with this checkout's nvcc
+    flags, called through their C interface over the plan they took (the
+    pairs sorted by row, CSR offsets; K3 over all K translates, K1eᵀ over
+    7 with ids n*7 + t).
+
+    ctypes cannot check a C interface, so this one is declared by the
+    SHA-256 of the two sources that define it, and any other checkout is
+    refused rather than handed arguments it does not take."""
+
+    SOURCES = {
+        "rows_value_bwd.cu":
+            "5004056392af64a7eab114c9b2d0b7956ef4586c809dc6d994d0da6eae2aeef1",
+        "zp_value_grad_bwd.cu":
+            "7cc96be0e1d4cba2b45b2c08db56db8b07a9857ea819a282a84773468782ed48",
+    }
+
+    def __init__(self, root):
+        from ionotomo_tpu_torch.kernels import build
+
+        csrc = Path(root) / "ionotomo_tpu_torch" / "kernels" / "csrc"
+        for name, want in self.SOURCES.items():
+            got = hashlib.sha256((csrc / name).read_bytes()).hexdigest()
+            if got != want:
+                raise ValueError(
+                    f"--parent {root}: {name} is not the sort-by-row kernel "
+                    f"whose C interface this script binds (sha256 "
+                    f"{got[:16]}, expected {want[:16]})")
+        info = build.build(csrc, build.BUILD_DIR / "parent")
+        self.lib = ctypes.CDLL(str(info["path"]))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        self.lib.ionotomo_rows_value_bwd.argtypes = [p, p, p, p, i, p, p, i,
+                                                     i, i, p, p]
+        self.lib.ionotomo_zp_value_grad_bwd.argtypes = [p, p, i, i, i, p, p,
+                                                        p, p, p, i, p, p]
+        self.lib.ionotomo_rows_value_bwd.restype = i
+        self.lib.ionotomo_zp_value_grad_bwd.restype = i
+        print(f"  parent kernels from {csrc} (built={info['built']} in "
+              f"{info['seconds']:.2f} s)")
+
+    @staticmethod
+    def plan(ri, n_rows):
+        rows = ri.reshape(-1)
+        sorted_rows, order = torch.sort(rows, stable=True)
+        offsets = torch.searchsorted(
+            sorted_rows, torch.arange(n_rows + 1, dtype=sorted_rows.dtype,
+                                      device=rows.device), out_int32=True)
+        return order.to(torch.int32), offsets
+
+    @staticmethod
+    def _p(t):
+        return ctypes.c_void_p(t.data_ptr())
+
+    def _stream(self):
+        return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def k3(self, ct, plan, wxy, zi, wz, n_rows, nz):
+        order, offsets = plan
+        out = torch.empty((n_rows, nz), dtype=torch.float32, device=ct.device)
+        rc = self.lib.ionotomo_rows_value_bwd(
+            self._p(ct), self._p(order), self._p(offsets), self._p(wxy),
+            wxy.shape[1], self._p(zi), self._p(wz), zi.shape[1], n_rows, nz,
+            self._p(out), self._stream())
+        if rc:
+            raise RuntimeError(f"parent K3 launch failed ({rc})")
+        return out
+
+    def k1et(self, grid, points, cv, cg, plan):
+        order, offsets = plan
+        nx, ny, nz = grid.shape
+        out = torch.empty((nx * ny, nz), dtype=torch.float32,
+                          device=points.device)
+        rc = self.lib.ionotomo_zp_value_grad_bwd(
+            self._p(grid.origin), self._p(grid.spacing), nx, ny, nz,
+            self._p(points), self._p(cv), self._p(cg), self._p(order),
+            self._p(offsets), 7, self._p(out), self._stream())
+        if rc:
+            raise RuntimeError(f"parent K1eT launch failed ({rc})")
+        return out
+
+
+def compare_parent(name, parent_fn, new_fn, reps):
+    """The parent's and this checkout's kernel on the same inputs, device
+    time in turns (parent, new, new, parent); both outputs agree to
+    1e-4·max|out|."""
+    a, b = parent_fn(), new_fn()
+    torch.cuda.synchronize()
+    err = float((a - b).abs().max())
+    check(err <= 1e-4 * float(b.abs().max()),
+          f"{name}: parent and new agree ({err:.3e})")
+    t = [device_ms(f, reps) for f in (parent_fn, new_fn, new_fn, parent_fn)]
+    print(f"  {name}: parent {t[0]:.4f}, {t[3]:.4f} ms; new {t[1]:.4f}, "
+          f"{t[2]:.4f} ms")
 
 
 def bench_rays(n, seed=0):
@@ -132,13 +342,18 @@ def phase2_kernels_vs_plain(dev, boxspline, tricubic, fermat, kernels,
     gtol = 1e-5 * tmax / min(spacing)
     check(err_g <= gtol,
           f"K1e gradient max|err| {err_g:.3e} <= {gtol:.3e}")
-    ms_big = cuda_ms(lambda: kernels.zp_value_grad(table, grid, pts), 20)
+    ms_ev = cuda_ms(lambda: kernels.zp_value_grad(table, grid, pts), 20)
+    ms_big = device_ms(lambda: kernels.zp_value_grad(table, grid, pts), 20)
     plain_big = cuda_ms(
         lambda: boxspline.interp_rows_with_grad_ref(table, grid, pts), 3)
-    print(f"  K1e at 2^20 points: kernel {ms_big:.4f} ms, plain "
-          f"{plain_big:.4f} ms")
-    results["zp_value_grad"] = {"max_abs_err": err_v, "err_grad": err_g,
-                                "ms_2^20": ms_big, "plain_ms_2^20": plain_big}
+    b_ms, b_by = bound(nbytes(table, pts, v_k, g_k),
+                       pts.shape[0] * FLOPS_K1E_POINT)
+    print(f"  K1e at {pts.shape[0]} points: kernel {ms_big:.4f} ms (events "
+          f"{ms_ev:.4f}), plain "
+          f"{plain_big:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    results["zp_value_grad"] = {"err_grad": err_g, "line": dict(
+        max_abs_err=err_v, ms=ms_big, plain_ms=plain_big, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)}
 
     # K2: the zp value gather (K=8, L=3, xy-first), inputs as interp_rows
     # makes them
@@ -178,10 +393,10 @@ def phase2_kernels_vs_plain(dev, boxspline, tricubic, fermat, kernels,
         lambda: kernels.rows_value_fwd(table, ri, wxy, zi, wz, True), 20)
     plain_big = cuda_ms(
         lambda: tricubic.rows_value_ref(table, ri, wxy, zi, wz, True), 3)
-    print(f"  K2 zp at 2^20 points: kernel {ms_big:.4f} ms, plain "
-          f"{plain_big:.4f} ms")
-    results["rows_value_fwd"] = {"max_abs_err": err_r, "ms_2^20": ms_big,
-                                 "plain_ms_2^20": plain_big}
+    b_ms, b_by = bound(nbytes(table, ri, wxy, zi, wz, o_k),
+                       ri.shape[0] * FLOPS_K2_POINT)
+    print(f"  K2 zp at {ri.shape[0]} points: kernel {ms_big:.4f} ms, plain "
+          f"{plain_big:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
     # K1: the leapfrog zp tracer on 8192 rays of the phase-3 world
     grid3 = Grid3D.from_bounds(*BOUNDS, shape, device=dev)
@@ -205,7 +420,8 @@ def phase2_kernels_vs_plain(dev, boxspline, tricubic, fermat, kernels,
         check(err_t <= 1e-5, f"K1 keep_path={keep_path} tau max rel err "
                              f"{err_t:.3e} <= 1e-5")
         check(bool(torch.equal(b_k.ds, b_p.ds)), "K1 ds equal")
-    results["trace_leapfrog_zp"] = {"max_abs_err": err_x, "tau_rel": err_t}
+    results["trace_leapfrog_zp"] = {"tau_rel": err_t,
+                                    "line": dict(max_abs_err=err_x)}
 
 
 def phase3_throughput(dev, boxspline, fermat, kernels, Grid3D, chapman,
@@ -238,15 +454,19 @@ def phase3_throughput(dev, boxspline, fermat, kernels, Grid3D, chapman,
     # the kernel alone against the plain integrator on the same table
     coef2d = boxspline.prefilter(m).reshape(N_GRID * N_GRID, N_GRID)
     kw = fermat._step_constants(FREQ_HZ, LENGTH_KM, N_STEPS)
-    ms = cuda_ms(lambda: kernels.trace_leapfrog_zp(
+    ms = device_ms(lambda: kernels.trace_leapfrog_zp(
         coef2d, grid, o, d, N_STEPS, False, **kw), 3)
     ne_vg = fermat.log_field_ne_vg(
         lambda x: boxspline.interp_rows_with_grad_ref(coef2d, grid, x))
     plain_ms = cuda_ms(lambda: fermat._trace_impl(
         ne_vg, o, d, FREQ_HZ, LENGTH_KM, N_STEPS, False, "leapfrog"), 1)
-    print(f"  K1 alone at 262144 rays: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
-    results["trace_leapfrog_zp"].update(ms=ms, plain_ms=plain_ms)
+    n_bytes = nbytes(coef2d, o, d) + 16 * n_rays      # x_end and tau out
+    b_ms, b_by = bound(n_bytes, n_rays * N_STEPS * FLOPS_K1_STEP)
+    print(f"  K1 alone at {n_rays} rays: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    results["trace_leapfrog_zp"]["line"].update(
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
     results["rays_per_s"] = rates
 
 
@@ -351,7 +571,7 @@ def phase4_serving(dev, boxspline, fermat, rays, tec, kernels, Grid3D,
     from ionotomo_tpu_torch.testing import SERVING_KERNELS
 
     print("phase 4: serving slice (predict --bent, zp, hermite)")
-    grid_cpu = Grid3D.from_bounds(*BOUNDS, (N_GRID,) * 3)
+    grid_cpu = Grid3D.from_bounds(*BOUNDS, (N_GRID,) * 3, device="cpu")
     grid = grid_cpu.to(dev)
     worlds = []
     for r, ants, dirs in serving_epochs():
@@ -406,8 +626,26 @@ def _same_twice(fn):
     return a, bool(torch.equal(a, b))
 
 
+def zp_rows(boxspline, grid, pts):
+    """The 8 zp table rows of each point (N, 8), as interp_rows makes
+    them."""
+    bx, by, _, u, v, _ = boxspline._neighborhood(grid, pts)
+    dx, dy, _ = boxspline._xy_weights(u, v, with_grad=False)
+    return boxspline._row_index(bx, by, dx, dy, grid).contiguous()
+
+
+def print_plan(name, plan):
+    st = plan_stats(plan)
+    print(f"  {name} plan: {st['pairs']} live pairs in {st['segments']} "
+          f"segments of <= {plan.chunk} (static bound {st['n_seg_max']}); "
+          f"busiest segment {st['busiest_segment']} pairs, busiest row "
+          f"{st['busiest_row']}, empty rows {st['empty_rows']} of "
+          f"{plan.n_rows}")
+
+
 def phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
-                           results, n_grid=N_GRID, n_points=1 << 20):
+                           results, parent=None, n_grid=N_GRID,
+                           n_points=1 << 20):
     from ionotomo_tpu_torch.testing import edge_case_points
 
     print("phase 5: adjoint kernels against their plain versions")
@@ -434,13 +672,14 @@ def phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
     ct = t(rng.normal(size=(n,)).astype(np.float32))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plan = tricubic.build_row_plan(ri, n_rows)
+    plan = tricubic.build_row_plan(ri, n_rows, zi[:, 0],
+                                   boxspline.ZP_LIVE_TRANSLATES)
     torch.cuda.synchronize()
     plan_ms = (time.perf_counter() - t0) * 1e3
+    print_plan("K3 zp", plan)
 
     def k3():
-        return kernels.rows_value_bwd(ct, plan.order, plan.offsets, wxy, zi,
-                                      wz, n_rows, n_grid)
+        return kernels.rows_value_bwd(ct, plan, wxy, zi, wz, n_grid)
 
     def k3_plain():
         return tricubic.rows_value_transpose_ref(ct, ri, wxy, zi, wz,
@@ -452,16 +691,23 @@ def phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
     err = float((got - want).abs().max())
     check(bool(torch.isfinite(got).all()), "K3 output finite")
     check(same, "K3 bitwise equal across two calls")
+    check(not bool(plan.counters.any()), "K3 plan counters back at zero")
     check(err <= 1e-4 * scale, f"K3 zp max|err| {err:.3e} <= 1e-4*max|out| "
                                f"{1e-4 * scale:.3e}")
-    ms = cuda_ms(k3, 20)
-    plain = cuda_ms(k3_plain, 3)
-    pairs = torch.diff(plan.offsets)
-    print(f"  K3 zp at {n} points: kernel {ms:.4f} ms, plain {plain:.4f} ms; "
-          f"plan {plan_ms:.3f} ms (host clock); pairs per row max "
-          f"{int(pairs.max())}, mean {float(pairs.float().mean()):.1f}")
-    results["rows_value_bwd"] = {"max_abs_err": err, "ms_2^20": ms,
-                                 "plain_ms_2^20": plain}
+    ms = device_ms(k3, 20)
+    plain = device_ms(k3_plain, 3)
+    lib_ms = device_ms(index_add_call(*tricubic.transpose_terms(
+        ct, ri, wxy, zi, wz, (n_rows, n_grid)), n_rows * n_grid), 20)
+    b_ms, b_by = k3_bound(ct, ri, wxy, zi, wz, plan, n_grid)
+    print(f"  K3 zp at {n} points: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"index_add_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); plan "
+          f"{plan_ms:.3f} ms (host clock)")
+    if parent is not None:
+        pplan = parent.plan(ri, n_rows)
+        compare_parent(
+            "K3 zp at the edge-case points",
+            lambda: parent.k3(ct, pplan, wxy, zi, wz, n_rows, n_grid),
+            k3, 5)
 
     # K3 at the cubic shape (K=16, L=4) on random rows
     ri_c = t(rng.integers(0, n_rows, (n, 16)).astype(np.int32))
@@ -469,11 +715,11 @@ def phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
               + np.arange(4)).astype(np.int32))
     wxy_c = t(rng.uniform(0, 1, (n, 16)).astype(np.float32))
     wz_c = t(rng.uniform(0, 1, (n, 4)).astype(np.float32))
-    plan_c = tricubic.build_row_plan(ri_c, n_rows)
+    plan_c = tricubic.build_row_plan(ri_c, n_rows, zi_c[:, 0])
+    print_plan("K3 cubic", plan_c)
 
     def k3_cubic():
-        return kernels.rows_value_bwd(ct, plan_c.order, plan_c.offsets,
-                                      wxy_c, zi_c, wz_c, n_rows, n_grid)
+        return kernels.rows_value_bwd(ct, plan_c, wxy_c, zi_c, wz_c, n_grid)
 
     def k3_cubic_plain():
         return tricubic.rows_value_transpose_ref(ct, ri_c, wxy_c, zi_c, wz_c,
@@ -486,22 +732,30 @@ def phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
     check(same, "K3 cubic shape bitwise equal across two calls")
     check(err_c <= 1e-4 * scale, f"K3 cubic-shape max|err| {err_c:.3e} <= "
                                  f"1e-4*max|out| {1e-4 * scale:.3e}")
-    ms = cuda_ms(k3_cubic, 20)
-    plain = cuda_ms(k3_cubic_plain, 3)
+    ms = device_ms(k3_cubic, 20)
+    plain = device_ms(k3_cubic_plain, 3)
+    lib_ms = device_ms(index_add_call(*tricubic.transpose_terms(
+        ct, ri_c, wxy_c, zi_c, wz_c, (n_rows, n_grid)), n_rows * n_grid), 20)
+    b_ms, b_by = k3_bound(ct, ri_c, wxy_c, zi_c, wz_c, plan_c,
+                           n_grid)
     print(f"  K3 cubic shape (K=16, L=4) at {n} points: kernel {ms:.4f} ms, "
-          f"plain {plain:.4f} ms")
-    results["rows_value_bwd"].update(err_cubic=err_c, ms_cubic=ms,
-                                     plain_ms_cubic=plain)
+          f"plain {plain:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    if parent is not None:
+        pplan = parent.plan(ri_c, n_rows)
+        compare_parent(
+            "K3 cubic shape",
+            lambda: parent.k3(ct, pplan, wxy_c, zi_c, wz_c, n_rows, n_grid),
+            k3_cubic, 5)
 
-    # K1eᵀ at the same 2^20 points
+    # K1eᵀ at the same edge-case points
     cv = ct
     cg = t(rng.normal(size=(n, 3)).astype(np.float32))
     eplan = boxspline.endpoint_plan(grid, pts)
+    print_plan("K1eT", eplan)
 
     def k1et():
-        return kernels.zp_value_grad_bwd(grid, pts, cv, cg, eplan.order,
-                                         eplan.offsets,
-                                         boxspline.ZP_LIVE_TRANSLATES)
+        return kernels.zp_value_grad_bwd(grid, pts, cv, cg, eplan)
 
     def k1et_plain():
         return boxspline.interp_rows_with_grad_transpose_ref(grid, pts, cv,
@@ -513,13 +767,21 @@ def phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
     scale = float(want.abs().max())
     check(bool(torch.isfinite(got).all()), "K1eT output finite")
     check(same, "K1eT bitwise equal across two calls")
+    check(not bool(eplan.counters.any()), "K1eT plan counters back at zero")
     check(err_e <= 1e-4 * scale, f"K1eT max|err| {err_e:.3e} <= "
                                  f"1e-4*max|out| {1e-4 * scale:.3e}")
-    ms = cuda_ms(k1et, 20)
-    plain = cuda_ms(k1et_plain, 3)
-    print(f"  K1eT at {n} points: kernel {ms:.4f} ms, plain {plain:.4f} ms")
-    results["zp_value_grad_bwd"] = {"max_abs_err": err_e, "ms_2^20": ms,
-                                    "plain_ms_2^20": plain}
+    ms = device_ms(k1et, 20)
+    plain = device_ms(k1et_plain, 3)
+    lib_ms = device_ms(index_add_call(*boxspline.transpose_terms(
+        grid, pts, cv, cg), n_rows * n_grid), 20)
+    b_ms, b_by = k1et_bound(pts, cv, cg, eplan, n_grid)
+    print(f"  K1eT at {n} points: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"index_add_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    if parent is not None:
+        pplan = parent.plan(ri[:, :boxspline.ZP_LIVE_TRANSLATES]
+                            .contiguous(), n_rows)
+        compare_parent("K1eT at the edge-case points",
+                       lambda: parent.k1et(grid, pts, cv, cg, pplan), k1et, 5)
 
 
 def make_rays(n_ants, n_dirs, seed=0, spread_km=150.0, zen_max=0.6):
@@ -587,7 +849,7 @@ def profile_gn_step(solve):
 
 def phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
                  chapman, priors, solvers, results, profile=False,
-                 n_grid=N_GRID, n_ants=100, n_dirs=100):
+                 parent=None, n_grid=N_GRID, n_ants=100, n_dirs=100):
     from ionotomo_tpu_torch.testing import SOLVE_KERNELS
 
     print(f"phase 6: the config-3b solve ({n_grid}^3, {n_ants}x{n_dirs} "
@@ -669,27 +931,41 @@ def phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
     cg = torch.from_numpy(rng.normal(size=(n_ends, 3)).astype(np.float32)
                           ).to(dev)
     table = x.reshape(op.table_shape)
-    plan = tricubic.build_row_plan(op.ri, op.table_shape[0])
+    n_rows, nz = op.table_shape
+    plan, eplan = op.row_plan, op.end_plan
+    print_plan("K3 at the solve", plan)
+    print_plan("K1eT at the solve", eplan)
+    fwd_out = tricubic.rows_value(table, op.ri, op.wxy, op.zi, op.wz, True)
     at_solve_shape = {
         "rows_value_fwd": (
             lambda: tricubic.rows_value(table, op.ri, op.wxy, op.zi, op.wz,
                                         True),
             lambda: tricubic.rows_value_ref(table, op.ri, op.wxy, op.zi,
-                                            op.wz, True)),
+                                            op.wz, True),
+            None,
+            bound(nbytes(table, op.ri, op.wxy, op.zi, op.wz, fwd_out),
+                  n_pts * FLOPS_K2_POINT)),
         "rows_value_bwd": (
             lambda: tricubic.rows_value_transpose(ct, op.ri, op.wxy, op.zi,
                                                   op.wz, op.table_shape,
                                                   plan),
             lambda: tricubic.rows_value_transpose_ref(ct, op.ri, op.wxy,
                                                       op.zi, op.wz,
-                                                      op.table_shape)),
+                                                      op.table_shape),
+            index_add_call(*tricubic.transpose_terms(
+                ct, op.ri, op.wxy, op.zi, op.wz, op.table_shape),
+                n_rows * nz),
+            k3_bound(ct, op.ri, op.wxy, op.zi, op.wz, plan, nz)),
         "zp_value_grad_bwd": (
             lambda: boxspline.interp_rows_with_grad_transpose(
-                grid, op.ends, cv, cg, op.end_plan),
+                grid, op.ends, cv, cg, eplan),
             lambda: boxspline.interp_rows_with_grad_transpose_ref(
-                grid, op.ends, cv, cg)),
+                grid, op.ends, cv, cg),
+            index_add_call(*boxspline.transpose_terms(grid, op.ends, cv, cg),
+                           n_rows * nz),
+            k1et_bound(op.ends, cv, cg, eplan, nz)),
     }
-    for name, (kern, plain) in at_solve_shape.items():
+    for name, (kern, plain, library, (b_ms, b_by)) in at_solve_shape.items():
         got, same = _same_twice(kern)
         want = plain()
         err, scale = float((got - want).abs().max()), float(want.abs().max())
@@ -697,15 +973,32 @@ def phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
                     f"calls")
         check(err <= 1e-4 * scale, f"{name} at the solve's shape max|err| "
                                    f"{err:.3e} <= 1e-4*max {1e-4 * scale:.3e}")
-        ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 5)
-        print(f"  {name} at the solve's shape: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms")
-        results.setdefault(name, {}).update(err_solve=err, ms_solve=ms,
-                                            plain_ms_solve=plain_ms)
-    pairs = torch.diff(plan.offsets)
-    print(f"  K3 plan at the solve: pairs per row max {int(pairs.max())}, "
-          f"mean {float(pairs.float().mean()):.1f}, rows with none "
-          f"{int((pairs == 0).sum())} of {pairs.numel()}")
+        ms, plain_ms = device_ms(kern, 20), device_ms(plain, 5)
+        ms_ev = cuda_ms(kern, 20)
+        lib_ms = device_ms(library, 20) if library is not None else None
+        lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+        print(f"  {name} at the solve's shape: kernel {ms:.4f} ms (events "
+              f"{ms_ev:.4f}), plain "
+              f"{plain_ms:.4f} ms, one PyTorch call {lib}, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        results.setdefault(name, {})["line"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms)
+    check(not bool(plan.counters.any() or eplan.counters.any()),
+          "the solve's plan counters back at zero")
+    if parent is not None:
+        pplan = parent.plan(op.ri, n_rows)
+        eplan_p = parent.plan(zp_rows(boxspline, grid, op.ends)
+                              [:, :boxspline.ZP_LIVE_TRANSLATES]
+                              .contiguous(), n_rows)
+        compare_parent(
+            "K3 at the solve's shape",
+            lambda: parent.k3(ct, pplan, op.wxy, op.zi, op.wz, n_rows, nz),
+            at_solve_shape["rows_value_bwd"][0], 20)
+        compare_parent(
+            "K1eT at the solve's shape",
+            lambda: parent.k1et(grid, op.ends, cv, cg, eplan_p),
+            at_solve_shape["zp_value_grad_bwd"][0], 20)
     del op, ref
 
     kw = dict(num_directions=nd, gn_iters=2, cg_iters=20,
@@ -770,51 +1063,58 @@ def phase7_probe(dev, gather, kernels, results):
           "KG bitwise equal to torch.gather at (16384, 128)")
     check(rec["one_vreg_control_ok"],
           "KG bitwise equal to torch.gather at (8, 128)")
-    results["vector_gather"] = {"launches": n,
-                                "max_abs_err": rec["max_abs_err"],
-                                "ms": rec["kernel_ms"],
-                                "plain_ms": rec["plain_ms"]}
+    rows, width = 16384, 128
+    table, idx = gather.probe_inputs(rows, width, dev)
+    ms = device_ms(lambda: gather.vector_gather(table, idx), 50)
+    plain_ms = device_ms(lambda: gather.vector_gather_ref(table, idx), 50)
+    b_ms, b_by = bound(3 * 4 * rows * width, 0)     # table, idx, out
+    print(f"  KG at ({rows}, {width}): kernel {ms:.4f} ms, torch.gather "
+          f"{plain_ms:.4f} ms (device time), bound {b_ms:.4f} ms ({b_by})")
+    results["vector_gather"] = {"launches": n, "line": dict(
+        max_abs_err=rec["max_abs_err"], ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=plain_ms)}
 
 
 def kernels_line(results) -> dict:
     """The per-kernel JSON object of a run from the phases' results."""
     src = "ionotomo_tpu_torch/kernels/csrc/"
     # launches: K1, K1e and K2 in the serving run (phase 4), K3 and K1eᵀ in
-    # the solve (phase 6), KG in the probe (phase 7). Error and ms: K1 at
-    # the bench shape (262144 rays); K1e and K2 at 2^20 points; K3 and K1eᵀ
-    # at the solve's shapes (650,000 points, 20,000 endpoints); KG at
-    # (16384, 128)
+    # the solve (phase 6), KG in the probe (phase 7). Error, ms and bound:
+    # K1 at the bench shape (262144 rays); K1e at 2^20 points (phase 2); K2,
+    # K3 and K1eᵀ at the solve's shapes (650,000 points, 20,000 endpoints);
+    # KG at (16384, 128). library_ms: index_add_ of the precomputed
+    # contributions for K3 and K1eᵀ, torch.gather for KG
     launches = {**results["launches"],
                 **{k: results["solve_launches"][k]
                    for k in ("rows_value_bwd", "zp_value_grad_bwd")},
                 "vector_gather": results["vector_gather"]["launches"]}
-    plain_keys = ("max_abs_err", "ms", "plain_ms")
-    keys_2p20 = ("max_abs_err", "ms_2^20", "plain_ms_2^20")
-    keys_solve = ("err_solve", "ms_solve", "plain_ms_solve")
     entries = [
         ("trace_leapfrog_zp", "trace_leapfrog_zp.cu",
-         "ionotomo_tpu/geometry/fermat.py:204", plain_keys),
+         "ionotomo_tpu/geometry/fermat.py:204"),
         ("zp_value_grad", "zp_value_grad.cu",
-         "ionotomo_tpu/core/boxspline.py:253", keys_2p20),
+         "ionotomo_tpu/core/boxspline.py:253"),
         ("rows_value_fwd", "rows_value_fwd.cu",
-         "ionotomo_tpu/core/tricubic.py:284", keys_2p20),
+         "ionotomo_tpu/core/tricubic.py:284"),
         ("rows_value_bwd", "rows_value_bwd.cu",
-         "ionotomo_tpu/core/tricubic.py:377", keys_solve),
+         "ionotomo_tpu/core/tricubic.py:377"),
         ("zp_value_grad_bwd", "zp_value_grad_bwd.cu",
-         "ionotomo_tpu/core/boxspline.py:253", keys_solve),
-        ("vector_gather", "vector_gather.cu", "bench/probe_gather.py:21",
-         plain_keys),
+         "ionotomo_tpu/core/boxspline.py:253"),
+        ("vector_gather", "vector_gather.cu", "bench/probe_gather.py:21"),
     ]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     return {"kernels": [
-        {"name": name, "route": "cuda", "source": src + f,
-         "replaces": rep, "launches": launches[name],
-         "max_abs_err": results[name][err], "ms": results[name][ms],
-         "plain_ms": results[name][pms]}
-        for name, f, rep, (err, ms, pms) in entries]}
+        {"name": name, "route": "cuda", "source": src + f, "replaces": rep,
+         "launches": launches[name],
+         **{k: results[name]["line"][k] for k in keys}}
+        for name, f, rep in entries]}
 
 
 def main() -> int:
-    profile = "--profile" in sys.argv[1:]
+    args = sys.argv[1:]
+    profile = "--profile" in args
+    parent_dir = args[args.index("--parent") + 1] if "--parent" in args \
+        else None
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -845,6 +1145,10 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
     build.load()
 
+    parent = Parent(parent_dir) if parent_dir else None
+    if parent is None:
+        print("  no --parent DIR: phases 5 and 6 time this checkout's K3 and "
+              "K1eT alone")
     results = {}
     phase2_kernels_vs_plain(dev, boxspline, tricubic, fermat, kernels,
                             Grid3D, chapman, results)
@@ -853,9 +1157,9 @@ def main() -> int:
     phase4_serving(dev, boxspline, fermat, rays, tec, kernels, Grid3D, chapman,
                    results, profile)
     phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
-                           results)
+                           results, parent)
     phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
-                 chapman, priors, solvers, results, profile)
+                 chapman, priors, solvers, results, profile, parent)
     phase7_probe(dev, gather, kernels, results)
 
     line = kernels_line(results)

@@ -3,7 +3,8 @@
 The engine's "weights" are a grid spec, a log-density field and a prior
 covariance. They cross as numpy arrays, so this module needs neither
 package's arrays to be of any particular type: anything ``np.asarray``
-reads will do.
+reads will do. They land on the card unless ``device`` names another
+(``device.resolve``).
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from .core.grids import Grid3D
+from .device import resolve
 from .inversion.priors import GPCovariance
 
 
@@ -30,7 +32,7 @@ def grid_from_numpy(origin, spacing=None, shape=None, device=None) -> Grid3D:
 
 def field_from_numpy(m, device=None) -> torch.Tensor:
     """A field (e.g. the log-density m) as a contiguous float32 tensor."""
-    return torch.tensor(np.asarray(m, np.float32), device=device)
+    return torch.tensor(np.asarray(m, np.float32), device=resolve(device))
 
 
 def gp_covariance_from_numpy(cov, device=None) -> GPCovariance:
@@ -40,7 +42,7 @@ def gp_covariance_from_numpy(cov, device=None) -> GPCovariance:
     ls = cov.length_scale
     return GPCovariance(
         spectrum=torch.tensor(np.asarray(cov.spectrum, np.float32),
-                              device=device),
+                              device=resolve(device)),
         shape=tuple(int(s) for s in cov.shape), sigma=float(cov.sigma),
         length_scale=(tuple(float(v) for v in ls)
                       if isinstance(ls, (tuple, list)) else float(ls)),

@@ -281,6 +281,17 @@ def interp_rows_with_grad_transpose_ref(grid: Grid3D, points: torch.Tensor,
     added by ``index_add_`` (atomics on CUDA: not bitwise reproducible
     there)."""
     nx, ny, nz = grid.shape
+    flat, contrib = transpose_terms(grid, points, ct_value, ct_grad)
+    out = torch.zeros(nx * ny * nz, dtype=ct_value.dtype,
+                      device=ct_value.device)
+    return out.index_add_(0, flat, contrib).reshape(nx * ny, nz)
+
+
+def transpose_terms(grid: Grid3D, points: torch.Tensor,
+                    ct_value: torch.Tensor, ct_grad: torch.Tensor):
+    """The 8·3 scalar contributions per point of K1eᵀ and their flat table
+    indices, (N·8·3,) each."""
+    nz = grid.shape[2]
     bx, by, bz, u, v, w = _neighborhood(grid, points)
     dx, dy, wxy, wu, wv = _xy_weights(u, v, with_grad=True)
     ri = _row_index(bx, by, dx, dy, grid).long()
@@ -292,24 +303,25 @@ def interp_rows_with_grad_transpose_ref(grid: Grid3D, points: torch.Tensor,
                + wv[:, :, None] * (cg[:, 1:2] * qb)[:, None, :])
     zi = bz.long()[:, None] + torch.arange(-1, 2, device=points.device)
     flat = (ri[:, :, None] * nz + zi[:, None, :]).reshape(-1)
-    out = torch.zeros(nx * ny * nz, dtype=ct_value.dtype,
-                      device=ct_value.device)
-    return out.index_add_(0, flat, contrib.reshape(-1)).reshape(nx * ny, nz)
+    return flat, contrib.reshape(-1)
 
 
-#: zp translates a K1eᵀ plan holds: the 8th has weight 0 and is skipped.
+#: zp translates a K3 or K1eᵀ plan holds: the 8th has weight 0 and is
+#: skipped.
 ZP_LIVE_TRANSLATES = 7
 
 
 def endpoint_plan(grid: Grid3D, points: torch.Tensor):
-    """The K1eᵀ plan of fixed points: their live (point, translate) pairs
-    sorted by table row (``core.tricubic.build_row_plan``)."""
+    """The K1eᵀ plan of fixed points: their live (point, translate) pairs,
+    ids n·8 + t, sorted by table row and first z tap and cut into
+    segments (``core.tricubic.build_row_plan``)."""
     from .tricubic import build_row_plan
 
-    bx, by, _, u, v, _ = _neighborhood(grid, points)
+    bx, by, bz, u, v, _ = _neighborhood(grid, points)
     dx, dy, _ = _xy_weights(u, v, with_grad=False)
-    ri = _row_index(bx, by, dx, dy, grid)[:, :ZP_LIVE_TRANSLATES]
-    return build_row_plan(ri.contiguous(), grid.shape[0] * grid.shape[1])
+    ri = _row_index(bx, by, dx, dy, grid)
+    return build_row_plan(ri, grid.shape[0] * grid.shape[1], bz - 1,
+                          live=ZP_LIVE_TRANSLATES)
 
 
 def interp_rows_with_grad_transpose(grid: Grid3D, points: torch.Tensor,
@@ -326,8 +338,7 @@ def interp_rows_with_grad_transpose(grid: Grid3D, points: torch.Tensor,
         plan = endpoint_plan(grid, points)
     return kernels.zp_value_grad_bwd(grid, points.contiguous(),
                                      ct_value.contiguous(),
-                                     ct_grad.contiguous(), plan.order,
-                                     plan.offsets, ZP_LIVE_TRANSLATES)
+                                     ct_grad.contiguous(), plan)
 
 
 def interp(coef: torch.Tensor, grid: Grid3D, points: torch.Tensor

@@ -2,7 +2,9 @@
 
 The grid is a frozen dataclass of tensors with a static ``shape``; fields
 are plain tensors of shape ``grid.shape`` passed alongside the spec. The
-device of ``origin``/``spacing`` is the device of the grid.
+device of ``origin``/``spacing`` is the device of the grid: the card unless
+the caller names another (``device.resolve``); a tensor origin keeps its
+device.
 """
 from __future__ import annotations
 
@@ -12,13 +14,16 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import resolve
+
 
 def _vec3(x, device) -> torch.Tensor:
-    """A (3,) float32 tensor (a copy) on ``device`` from a tensor or any
-    array-like."""
+    """A (3,) float32 tensor (a copy) from a tensor (on ``device`` if
+    given, else on its own) or any array-like (on ``resolve(device)``)."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32).clone()
-    return torch.tensor(np.asarray(x, np.float32), device=device)
+        return x.to(device=x.device if device is None else device,
+                    dtype=torch.float32).clone()
+    return torch.tensor(np.asarray(x, np.float32), device=resolve(device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +47,10 @@ class Grid3D:
     @staticmethod
     def from_bounds(lo, hi, shape, device=None) -> "Grid3D":
         lo = _vec3(lo, device)
-        hi = _vec3(hi, device)
+        hi = _vec3(hi, lo.device)
         shape = tuple(int(s) for s in shape)
         n = torch.tensor([max(s - 1, 1) for s in shape], dtype=torch.float32,
-                         device=device)
+                         device=lo.device)
         return Grid3D(origin=lo, spacing=(hi - lo) / n, shape=shape)
 
     @property
@@ -100,13 +105,14 @@ def save_field(path, grid: Grid3D, field, name="field", attrs=None):
             f.attrs[k] = v
 
 
-def load_field(path):
-    """Returns (Grid3D, field ndarray, attrs dict)."""
+def load_field(path, device=None):
+    """Returns (Grid3D on ``device``, field ndarray, attrs dict)."""
     import h5py
 
     with h5py.File(path, "r") as f:
         grid = Grid3D.create(f["grid/origin"][:], f["grid/spacing"][:],
-                             tuple(int(s) for s in f["grid/shape"][:]))
+                             tuple(int(s) for s in f["grid/shape"][:]),
+                             device=device)
         name = f.attrs.get("field_name", "field")
         field = f[name][:]
         attrs = {k: f.attrs[k] for k in f.attrs if k != "field_name"}

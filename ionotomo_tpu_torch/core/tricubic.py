@@ -11,8 +11,9 @@ backward kernel K3; on CPU tensors they are ``rows_value_ref`` and
 
 K3 reduces each table row over the (point, row) pairs that land on it, in
 a fixed order, so the transpose is bitwise reproducible. The order is a
-plan (``build_row_plan``): the pairs sorted by row once for a point set,
-and reused while the points stay fixed (a whole straight-ray solve).
+plan (``build_row_plan``): the pairs sorted by row and z once for a point
+set and cut into segments of at most ``SEGMENT_PAIRS``, reused while the
+points stay fixed (a whole straight-ray solve).
 
 Not ported yet: the member-axis batching rule and the batched transpose
 (ROADMAP.md Queue 2, K3 batched; the EnKF), gradients with respect to the
@@ -53,30 +54,92 @@ def rows_value_ref(table, ri, wxy, zi, wz, xy_first: bool) -> torch.Tensor:
     return torch.sum(pencil * wxy, dim=-1)
 
 
+#: Pairs one K3 / K1eᵀ segment holds at most: one warp reduces one
+#: segment, so no warp's work depends on how many pairs share a row.
+SEGMENT_PAIRS = 256
+
+
 @dataclasses.dataclass(frozen=True)
 class RowPlan:
-    """The (point, translate) pairs of a point set grouped by table row.
+    """The (point, translate) pairs of a point set grouped by table row,
+    cut into segments of at most ``chunk`` pairs.
 
-    order:   (N·K,) int32 flat pair ids n·K + k, sorted by row (stable, so
-             ascending within a row);
-    offsets: (n_rows + 1,) int32, row r's pairs are order[offsets[r]:
-             offsets[r+1]]. Pairs whose row lies outside [0, n_rows) are
-             in no group and so dropped.
+    order:    (N·live,) int32 flat pair ids n·stride + k, k < live, sorted
+              by (row, z0[n]) (stable, so by id within a tie);
+    offsets:  (n_rows + 1,) int32, row r's pairs are order[offsets[r]:
+              offsets[r+1]]. Pairs whose row lies outside [0, n_rows) are
+              in no group and so dropped;
+    row_seg:  (n_rows + 1,) int32, row r's segments are row_seg[r] ..
+              row_seg[r+1] − 1; segment j of row r holds its pairs
+              offsets[r] + j·chunk onwards, and every row (an empty one
+              too) has at least one;
+    seg_row:  (n_seg_max,) int32, the row of each segment; n_rows past
+              the last one. n_seg_max = ⌈N·live / chunk⌉ + n_rows bounds
+              the count, so building the plan reads nothing back to the
+              host;
+    counters: (n_rows,) int32 zeros, the kernels' per-row tickets; each
+              call leaves them at zero again (only a kernel that faults
+              midway leaves them set, and a fault leaves the CUDA context
+              unusable, so no later call reads them);
+    stream:   the CUDA stream the plan was built on (its handle; None on
+              the CPU). The kernels take the plan only on that stream, so
+              no two calls share its counters at once.
     """
 
     order: torch.Tensor
     offsets: torch.Tensor
+    row_seg: torch.Tensor
+    seg_row: torch.Tensor
+    counters: torch.Tensor
+    stride: int
+    live: int
+    chunk: int
+    stream: int | None
+
+    @property
+    def n_rows(self) -> int:
+        return self.offsets.shape[0] - 1
+
+    @property
+    def n_seg_max(self) -> int:
+        return self.seg_row.shape[0]
 
 
-def build_row_plan(ri: torch.Tensor, n_rows: int) -> RowPlan:
-    """Sort the flat pairs of row indices ri (N, K) by row: one stable
-    sort and one search, on ri's device."""
-    rows = ri.reshape(-1)
-    sorted_rows, order = torch.sort(rows, stable=True)
-    bounds = torch.arange(n_rows + 1, dtype=sorted_rows.dtype,
-                          device=rows.device)
-    offsets = torch.searchsorted(sorted_rows, bounds, out_int32=True)
-    return RowPlan(order=order.to(torch.int32), offsets=offsets)
+def build_row_plan(ri: torch.Tensor, n_rows: int, z0: torch.Tensor = None,
+                   live: int = None, chunk: int = SEGMENT_PAIRS) -> RowPlan:
+    """The plan of the pairs of row indices ri (N, K): the first ``live``
+    (default K) translates of each point, sorted by row and, within a
+    row, by the point's first z tap ``z0`` (N,) (so the pairs that add
+    into one z element are neighbours), then cut into segments of at most
+    ``chunk`` pairs. One sort and two searches on ri's device, no host
+    read."""
+    n, stride = ri.shape
+    live = stride if live is None else live
+    dev = ri.device
+    ids = (torch.arange(n, dtype=torch.int64, device=dev)[:, None] * stride
+           + torch.arange(live, dtype=torch.int64, device=dev)[None, :])
+    key = ri[:, :live].to(torch.int64) << 32
+    if z0 is not None:
+        key = key + (z0.to(torch.int64)[:, None] + 2 ** 31)
+    sorted_key, perm = torch.sort(key.reshape(-1), stable=True)
+    bounds = torch.arange(n_rows + 1, dtype=torch.int64, device=dev) << 32
+    offsets = torch.searchsorted(sorted_key, bounds, out_int32=True)
+    counts = offsets[1:] - offsets[:-1]
+    n_seg = torch.clamp_min((counts + (chunk - 1)) // chunk, 1)
+    seg_end = torch.cumsum(n_seg, 0, dtype=torch.int32)
+    row_seg = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                         seg_end])
+    n_seg_max = -(-n * live // chunk) + n_rows
+    seg_row = torch.searchsorted(
+        seg_end, torch.arange(n_seg_max, dtype=torch.int32, device=dev),
+        right=True, out_int32=True)
+    return RowPlan(order=ids.reshape(-1)[perm].to(torch.int32),
+                   offsets=offsets, row_seg=row_seg, seg_row=seg_row,
+                   counters=torch.zeros(n_rows, dtype=torch.int32,
+                                        device=dev),
+                   stride=stride, live=live, chunk=chunk,
+                   stream=(torch.cuda.current_stream(dev).cuda_stream
+                           if dev.type == "cuda" else None))
 
 
 def rows_value_transpose_ref(ct, ri, wxy, zi, wz, table_shape
@@ -87,14 +150,22 @@ def rows_value_transpose_ref(ct, ri, wxy, zi, wz, table_shape
     version is not bitwise reproducible there). Contributions at rows or
     z outside the table are dropped, as in the reference."""
     n_rows, nz = table_shape
+    flat, contrib = transpose_terms(ct, ri, wxy, zi, wz, table_shape)
+    out = torch.zeros(n_rows * nz, dtype=ct.dtype, device=ct.device)
+    return out.index_add_(0, flat, contrib).reshape(n_rows, nz)
+
+
+def transpose_terms(ct, ri, wxy, zi, wz, table_shape):
+    """The K·L scalar contributions per point of the transpose and their
+    flat table indices, (N·K·L,) each; those outside the table are 0 at
+    index 0."""
+    n_rows, nz = table_shape
     contrib = (ct[:, None, None] * wxy[:, :, None]) * wz[:, None, :]
     r = ri.long()[:, :, None]
     z = zi.long()[:, None, :]
     inside = (r >= 0) & (r < n_rows) & (z >= 0) & (z < nz)
     flat = torch.where(inside, r * nz + z, 0).reshape(-1)
-    contrib = torch.where(inside, contrib, 0.0).reshape(-1)
-    out = torch.zeros(n_rows * nz, dtype=ct.dtype, device=ct.device)
-    return out.index_add_(0, flat, contrib).reshape(n_rows, nz)
+    return flat, torch.where(inside, contrib, 0.0).reshape(-1)
 
 
 def rows_value_transpose(ct, ri, wxy, zi, wz, table_shape,
@@ -105,10 +176,10 @@ def rows_value_transpose(ct, ri, wxy, zi, wz, table_shape,
     if not ct.is_cuda:
         return rows_value_transpose_ref(ct, ri, wxy, zi, wz, table_shape)
     if plan is None:
-        plan = build_row_plan(ri, table_shape[0])
-    return kernels.rows_value_bwd(ct.contiguous(), plan.order, plan.offsets,
-                                  wxy.contiguous(), zi.contiguous(),
-                                  wz.contiguous(), *table_shape)
+        plan = build_row_plan(ri, table_shape[0], zi[:, 0])
+    return kernels.rows_value_bwd(ct.contiguous(), plan, wxy.contiguous(),
+                                  zi.contiguous(), wz.contiguous(),
+                                  table_shape[1])
 
 
 class _RowsValue(torch.autograd.Function):

@@ -362,8 +362,11 @@ class PairedDtecLinear:
         backward (K3), taken through one retained graph of R over a zero
         table."""
         cuda = self.ri.is_cuda
-        plan = (tricubic.build_row_plan(self.ri, self.table_shape[0])
+        plan = (tricubic.build_row_plan(self.ri, self.table_shape[0],
+                                        self.zi[:, 0],
+                                        boxspline.ZP_LIVE_TRANSLATES)
                 if cuda else None)
+        self.row_plan = plan
         self.end_plan = (boxspline.endpoint_plan(self.grid, self.ends)
                          if cuda and self.hermite else None)
         self._leaf = torch.zeros(self.table_shape, device=self.ri.device,

@@ -25,6 +25,7 @@ import torch
 from .. import constants, kernels
 from ..core import boxspline
 from ..core.grids import Grid3D
+from ..device import as_tensor
 from .rays import RayBundle
 
 
@@ -123,7 +124,8 @@ def trace_rays(field_m: torch.Tensor, grid: Grid3D, origins: torch.Tensor,
                method: str = "rk4", interp: str = "cubic"):
     """Trace all rays at once; returns (RayBundle, tec).
 
-    origins, directions: (R, 3), directions unit-norm. The bundle holds
+    origins, directions: (R, 3), directions unit-norm; numpy inputs go
+    to the grid's device, tensors keep theirs. The bundle holds
     n_steps+1 uniformly-spaced (in arc length) sample positions per ray;
     ``tec`` is the path integral of n_e in TEC_SCALE working units. With
     ``keep_path=False`` only the endpoints are kept.
@@ -133,9 +135,8 @@ def trace_rays(field_m: torch.Tensor, grid: Grid3D, origins: torch.Tensor,
     step, Hermite 4th-order TEC; leapfrog@64 is the production
     configuration). On CUDA, leapfrog over zp is kernel K1.
     """
-    origins = torch.as_tensor(origins, dtype=torch.float32)
-    directions = torch.as_tensor(directions, dtype=torch.float32,
-                                 device=origins.device)
+    origins = as_tensor(origins, device=grid.device)
+    directions = as_tensor(directions, device=grid.device)
     if origins.is_cuda and method == "leapfrog":
         coef2d = _zp_table(field_m, grid, interp)
         c = _step_constants(frequency_hz, max_length_km, n_steps)

@@ -2,7 +2,9 @@
 ``ionotomo_tpu.geometry.rays`` the bent-ray slice uses).
 
 A ``RayBundle`` — a flat batch of rays plus quadrature geometry — is the
-currency of the forward operators. Tensors keep the inputs' device.
+currency of the forward operators. Tensors keep their device; numpy inputs
+go to the device of the tensor beside them, or to the card when there is
+none (``device.as_tensor``).
 
 Not ported yet (ROADMAP.md Queue 1 item 5): ``inner_bundle`` and
 ``calc_rays``.
@@ -14,6 +16,7 @@ import dataclasses
 import torch
 
 from .. import constants
+from ..device import as_tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +40,14 @@ class RayBundle:
         return self.points.shape[1]
 
 
+def _pair(a, b):
+    """Two float32 tensors on one device: the first tensor's, else the
+    card."""
+    dev = next((x.device for x in (a, b) if isinstance(x, torch.Tensor)),
+               None)
+    return as_tensor(a, device=dev), as_tensor(b, device=dev)
+
+
 def sample_straight_rays(origins, directions,
                          max_length_km=constants.DEFAULT_MAX_LENGTH_KM,
                          n_samples=constants.DEFAULT_N_SAMPLES) -> RayBundle:
@@ -45,9 +56,7 @@ def sample_straight_rays(origins, directions,
     ``n_samples`` should be odd so composite Simpson quadrature applies
     exactly (constants.DEFAULT_N_SAMPLES = 129).
     """
-    origins = torch.as_tensor(origins, dtype=torch.float32)
-    directions = torch.as_tensor(directions, dtype=torch.float32,
-                                 device=origins.device)
+    origins, directions = _pair(origins, directions)
     s = torch.linspace(0.0, max_length_km, n_samples, dtype=torch.float32,
                        device=origins.device)
     pts = origins[:, None, :] + s[None, :, None] * directions[:, None, :]
@@ -62,9 +71,7 @@ def make_ray_batch(antennas_enu, directions_enu):
     Row-major over (antenna, direction): ray r = i*Nd + k, matching the
     dTEC referencing convention in forward.tec.
     """
-    ants = torch.as_tensor(antennas_enu, dtype=torch.float32)
-    dirs = torch.as_tensor(directions_enu, dtype=torch.float32,
-                           device=ants.device)
+    ants, dirs = _pair(antennas_enu, directions_enu)
     na, nd = ants.shape[0], dirs.shape[0]
     origins = torch.repeat_interleave(ants, nd, dim=0)
     directions = dirs.repeat(na, 1)

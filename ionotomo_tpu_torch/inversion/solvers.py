@@ -28,6 +28,7 @@ import torch
 
 from ..core import linalg
 from ..core.grids import Grid3D
+from ..device import as_tensor
 from ..forward import tec as tec_mod
 from ..geometry.rays import RayBundle
 from .priors import GPCovariance, laplacian
@@ -152,7 +153,7 @@ def map_gauss_newton(grid: Grid3D, rays: RayBundle, d_obs, noise_std,
     (residual per step, CG iterations per step, CG residual per step).
     """
     _extra_rows_not_ported(anchors, probes)
-    m_prior = torch.as_tensor(m_prior, dtype=torch.float32)
+    m_prior = as_tensor(m_prior, device=grid.device)
     d_obs = torch.as_tensor(d_obs, dtype=torch.float32,
                             device=m_prior.device)
     d = d_obs.reshape(-1)
@@ -161,9 +162,9 @@ def map_gauss_newton(grid: Grid3D, rays: RayBundle, d_obs, noise_std,
     inner_model = interp_inner or interp
     shape = grid.shape
 
-    m_k = m_prior if m0 is None else torch.as_tensor(m0, dtype=torch.float32)
+    m_k = m_prior if m0 is None else as_tensor(m0, device=grid.device)
     u = (torch.zeros(m_k.numel(), dtype=torch.float32, device=m_k.device)
-         if u0 is None else torch.as_tensor(u0).reshape(-1))
+         if u0 is None else as_tensor(u0, device=grid.device).reshape(-1))
     res_hist, it_hist, cg_hist = [], [], []
     for _ in range(gn_iters):
         apply_j, apply_jt, g0 = _dtec_operator(

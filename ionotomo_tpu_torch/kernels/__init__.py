@@ -5,8 +5,9 @@
 - K1e ``zp_value_grad``: zp value + physical gradient at points
   (csrc/zp_value_grad.cu);
 - K2  ``rows_value_fwd``: the row-gather value map (csrc/rows_value_fwd.cu);
-- K3  ``rows_value_bwd``: its transpose, a deterministic per-row reduction
-  over a plan of the points sorted by row (csrc/rows_value_bwd.cu);
+- K3  ``rows_value_bwd``: its transpose, a deterministic segmented
+  reduction over a plan of the pairs sorted by row (csrc/rows_value_bwd.cu,
+  csrc/row_reduce.cuh);
 - K1eᵀ ``zp_value_grad_bwd``: the transpose of K1e with respect to the
   table, by the same plan-and-reduce scheme (csrc/zp_value_grad_bwd.cu);
 - KG  ``vector_gather``: out[i, j] = table[idx[i, j], j], the gather of the
@@ -32,7 +33,8 @@ launches = {"trace_leapfrog_zp": 0, "zp_value_grad": 0, "rows_value_fwd": 0,
             "rows_value_bwd": 0, "zp_value_grad_bwd": 0, "vector_gather": 0}
 
 #: Widest table row the reduce kernels (K3, K1eᵀ) take: one row per warp
-#: in shared memory, 8 warps a block, within the 48 KB static limit.
+#: in shared memory, 8 warps a block, within the 48 KB a block gets
+#: without opting in to more.
 MAX_NZ_REDUCE = 1024
 
 
@@ -174,20 +176,42 @@ def trace_leapfrog_zp(coef2d: torch.Tensor, grid, origins: torch.Tensor,
     return x_end, tau, path
 
 
-def _plan_specs(order, offsets, n_pairs, n_rows):
-    return [("order", order, torch.int32, (n_pairs,)),
-            ("offsets", offsets, torch.int32, (n_rows + 1,))]
+def _plan_specs(name: str, plan, n_points):
+    """Specs of a ``core.tricubic.RowPlan`` over n_points points; raises
+    unless the current stream is the one the plan was built on (calls on
+    two streams would share its counters)."""
+    if plan.counters.is_cuda and (torch.cuda.current_stream(
+            plan.counters.device).cuda_stream != plan.stream):
+        raise ValueError(f"{name}: the plan was built on another CUDA "
+                         f"stream; build one on the stream of this call")
+    n_rows = plan.n_rows
+    return [("plan.order", plan.order, torch.int32,
+             (n_points * plan.live,)),
+            ("plan.offsets", plan.offsets, torch.int32, (n_rows + 1,)),
+            ("plan.seg_row", plan.seg_row, torch.int32, (plan.n_seg_max,)),
+            ("plan.row_seg", plan.row_seg, torch.int32, (n_rows + 1,)),
+            ("plan.counters", plan.counters, torch.int32, (n_rows,))]
 
 
-def rows_value_bwd(ct: torch.Tensor, order: torch.Tensor,
-                   offsets: torch.Tensor, wxy: torch.Tensor, zi: torch.Tensor,
-                   wz: torch.Tensor, n_rows: int, nz: int) -> torch.Tensor:
-    """K3: table_ct (n_rows, nz) with table_ct[ri[n,k], zi[n,l]] +=
-    ct[n]·wxy[n,k]·wz[n,l], reduced per row in the order of the plan
-    (``order``: the N·K flat pair ids n·K + k sorted by row; ``offsets``:
-    each row's start in ``order``; ``core.tricubic.build_row_plan``).
-    ct (N,) f32; wxy (N, K) f32 with K ≤ 16; zi (N, L) int32, wz (N, L)
-    f32 with L ≤ 4. Deterministic: no float atomics."""
+def _plan_args(plan, nz, dev):
+    """The plan's pointers and sizes as the reduce kernels take them, and
+    the call's scratch for partial rows."""
+    partials = torch.empty((plan.n_seg_max, nz), dtype=torch.float32,
+                           device=dev)
+    return (_ptr(plan.order), _ptr(plan.offsets), _ptr(plan.seg_row),
+            _ptr(plan.row_seg), _ptr(plan.counters)), partials
+
+
+def rows_value_bwd(ct: torch.Tensor, plan, wxy: torch.Tensor,
+                   zi: torch.Tensor, wz: torch.Tensor, nz: int
+                   ) -> torch.Tensor:
+    """K3: table_ct (plan.n_rows, nz) with table_ct[ri[n,k], zi[n,l]] +=
+    ct[n]·wxy[n,k]·wz[n,l], reduced per row in the order of ``plan``
+    (``core.tricubic.build_row_plan`` of ri: the flat pair ids n·K + k,
+    k < plan.live, sorted by row and z and cut into segments). ct (N,)
+    f32; wxy (N, K) f32 with K ≤ 16; zi (N, L) int32, wz (N, L) f32 with
+    L ≤ 4. Deterministic: no float atomics. Runs on the stream the plan
+    was built on and raises on another (the plan's counters are shared)."""
     name = "rows_value_bwd"
     if wxy.dim() != 2 or zi.dim() != 2:
         raise ValueError(f"{name}: wxy and zi must be 2-D, got {wxy.dim()}, "
@@ -197,6 +221,10 @@ def rows_value_bwd(ct: torch.Tensor, order: torch.Tensor,
     if not (1 <= k <= 16 and 1 <= l <= 4):
         raise ValueError(f"{name}: needs 1 <= K <= 16 and 1 <= L <= 4, got "
                          f"K={k}, L={l}")
+    if plan.stride != k:
+        raise ValueError(f"{name}: the plan's pair ids step by "
+                         f"{plan.stride} per point, wxy has K={k}")
+    n_rows = plan.n_rows
     if not (1 <= nz <= MAX_NZ_REDUCE and n_rows >= 1):
         raise ValueError(f"{name}: needs n_rows >= 1 and 1 <= nz <= "
                          f"{MAX_NZ_REDUCE}, got {n_rows}, {nz}")
@@ -204,42 +232,47 @@ def rows_value_bwd(ct: torch.Tensor, order: torch.Tensor,
                         ("wxy", wxy, torch.float32, (n, k)),
                         ("zi", zi, torch.int32, (n, l)),
                         ("wz", wz, torch.float32, (n, l))]
-                 + _plan_specs(order, offsets, n * k, n_rows))
+                 + _plan_specs(name, plan, n))
     out = torch.empty((n_rows, nz), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _launch(name, "ionotomo_rows_value_bwd", _ptr(ct), _ptr(order),
-                _ptr(offsets), _ptr(wxy), k, _ptr(zi), _ptr(wz), l, n_rows,
-                nz, _ptr(out))
+        ptrs, partials = _plan_args(plan, nz, dev)
+        _launch(name, "ionotomo_rows_value_bwd", _ptr(ct), _ptr(wxy), k,
+                _ptr(zi), _ptr(wz), l, nz, *ptrs, n_rows, plan.n_seg_max,
+                plan.chunk, _ptr(partials), _ptr(out))
     return out
 
 
 def zp_value_grad_bwd(grid, points: torch.Tensor, ct_value: torch.Tensor,
-                      ct_grad: torch.Tensor, order: torch.Tensor,
-                      offsets: torch.Tensor, k: int) -> torch.Tensor:
+                      ct_grad: torch.Tensor, plan) -> torch.Tensor:
     """K1eᵀ: the (nx*ny, nz) table cotangent of K1e for a value cotangent
     (N,) and a physical-gradient cotangent (N, 3) at points (N, 3). The
-    plan lists the flat (point, translate) pair ids n·k + t, t < k ≤ 8,
-    sorted by row (``core.tricubic.build_row_plan`` over the first k
-    zp translates). Deterministic: no float atomics."""
+    plan lists the flat (point, translate) pair ids n·stride + t, t <
+    plan.live ≤ stride ≤ 8, sorted by row and z and cut into segments
+    (``core.boxspline.endpoint_plan``). Deterministic: no float atomics.
+    Runs on the stream the plan was built on and raises on another."""
     name = "zp_value_grad_bwd"
     nx, ny, nz = grid.shape
     n = points.shape[0]
-    if not 1 <= k <= 8:
-        raise ValueError(f"{name}: needs 1 <= k <= 8, got {k}")
-    if min(grid.shape) < 3 or nz > MAX_NZ_REDUCE:
-        raise ValueError(f"{name}: every grid axis needs >= 3 samples and "
-                         f"nz <= {MAX_NZ_REDUCE}, got {grid.shape}")
+    if not 1 <= plan.live <= plan.stride <= 8:
+        raise ValueError(f"{name}: needs 1 <= live <= stride <= 8, got "
+                         f"{plan.live}, {plan.stride}")
+    if min(grid.shape) < 3 or nz > MAX_NZ_REDUCE or plan.n_rows != nx * ny:
+        raise ValueError(f"{name}: every grid axis needs >= 3 samples, nz "
+                         f"<= {MAX_NZ_REDUCE} and a plan over nx*ny rows, "
+                         f"got {grid.shape} and {plan.n_rows} rows")
     dev = _check(name, [("points", points, torch.float32, (n, 3)),
                         ("ct_value", ct_value, torch.float32, (n,)),
                         ("ct_grad", ct_grad, torch.float32, (n, 3)),
                         ("grid.origin", grid.origin, torch.float32, (3,)),
                         ("grid.spacing", grid.spacing, torch.float32, (3,))]
-                 + _plan_specs(order, offsets, n * k, nx * ny))
+                 + _plan_specs(name, plan, n))
     out = torch.empty((nx * ny, nz), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        ptrs, partials = _plan_args(plan, nz, dev)
         _launch(name, "ionotomo_zp_value_grad_bwd", _ptr(grid.origin),
                 _ptr(grid.spacing), nx, ny, nz, _ptr(points), _ptr(ct_value),
-                _ptr(ct_grad), _ptr(order), _ptr(offsets), k, _ptr(out))
+                _ptr(ct_grad), plan.stride, *ptrs, plan.n_seg_max,
+                plan.chunk, _ptr(partials), _ptr(out))
     return out
 
 

@@ -37,10 +37,11 @@ _SIGNATURES = {
     "ionotomo_trace_leapfrog_zp": (_I, [_P, _P, _P, _I, _I, _I, _P, _P, _I,
                                         _I, _F, _F, _F, _F, _F, _F, _P, _P,
                                         _P, _P]),
-    "ionotomo_rows_value_bwd": (_I, [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                                     _P, _P]),
-    "ionotomo_zp_value_grad_bwd": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _P,
-                                        _P, _I, _P, _P]),
+    "ionotomo_rows_value_bwd": (_I, [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P,
+                                     _P, _P, _I, _I, _I, _P, _P, _P]),
+    "ionotomo_zp_value_grad_bwd": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _I,
+                                        _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                                        _P]),
     "ionotomo_vector_gather": (_I, [_P, _I, _I, _P, _I, _P, _P]),
     "ionotomo_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
@@ -48,13 +49,13 @@ _SIGNATURES = {
 _loaded = {}
 
 
-def sources():
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC):
+    return sorted(csrc.glob("*.cu"))
 
 
-def _digest() -> str:
+def _digest(csrc: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.glob("*.cu*")):
+    for f in sorted(csrc.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
@@ -73,30 +74,32 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libionotomo_kernels_{_digest()}.so"
+def library_path(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    return build_dir / f"libionotomo_kernels_{_digest(csrc)}.so"
 
 
-def build() -> dict:
-    """Compile the library unless this exact build exists.
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> dict:
+    """Compile the library of the sources in ``csrc`` (the package's own
+    by default; ``chip_smoke.py --parent`` builds another checkout's) into
+    ``build_dir`` unless this exact build exists.
 
     Returns ``{"path", "seconds", "built", "log"}``; ``log`` is nvcc's
     output (with ``-Xptxas -v``: registers, shared memory and spills per
     kernel), also kept beside the library.
     """
-    lib = library_path()
+    lib = library_path(csrc, build_dir)
     log_path = lib.with_suffix(".log")
     if lib.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return {"path": lib, "seconds": 0.0, "built": False, "log": log}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tag = f"{lib.stem}.{os.getpid()}"
     tmp = lib.with_name(f"{tag}.tmp.so")
     nvcc = _nvcc()
     t0 = time.perf_counter()
     objs, procs = [], []
-    for src in sources():
-        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+    for src in sources(csrc):
+        obj = build_dir / f"{tag}.{src.stem}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         objs.append(obj)
         procs.append((cmd, subprocess.Popen(

@@ -93,7 +93,7 @@ def grid_enclosing_rays(antennas_enu, directions_enu,
                         shape=(64, 64, 64), pad_km=25.0, h_min_km=None,
                         device=None) -> Grid3D:
     """A Grid3D that encloses every (antenna, direction) ray plus padding
-    (host-side: numpy in, the grid on ``device``)."""
+    (host-side: numpy in, the grid on ``device``, the card by default)."""
     ants = np.atleast_2d(np.asarray(antennas_enu, np.float64))
     dirs = np.asarray(directions_enu, np.float64).reshape(-1, 3)
     ends = ants[:, None, :] + max_length_km * dirs[None, :, :]

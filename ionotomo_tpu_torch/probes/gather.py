@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..device import resolve
 
 
 def vector_gather_ref(table: torch.Tensor, idx: torch.Tensor
@@ -41,10 +42,12 @@ def vector_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def probe_inputs(rows: int, width: int, device=None):
     """The JAX probe's inputs: a normal (rows, width) f32 table and
-    uniform int32 row indices of the same shape, from seed 0."""
+    uniform int32 row indices of the same shape, from seed 0, on
+    ``device`` (the card by default)."""
     rng = np.random.default_rng(0)
     table = rng.normal(size=(rows, width)).astype(np.float32)
     idx = rng.integers(0, rows, (rows, width)).astype(np.int32)
+    device = resolve(device)
     return (torch.from_numpy(table).to(device),
             torch.from_numpy(idx).to(device))
 

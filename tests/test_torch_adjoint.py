@@ -123,7 +123,7 @@ def _zp_grid_points(n=800, seed=0):
     rng = np.random.default_rng(seed)
     pts = edge_case_points(jg.shape, np.asarray(jg.origin),
                            np.asarray(jg.spacing), n, rng)
-    return jg, convert.grid_from_numpy(jg), pts, rng
+    return jg, convert.grid_from_numpy(jg, device="cpu"), pts, rng
 
 
 def test_zp_value_grad_transpose_matches_jax_vjp():
@@ -142,7 +142,7 @@ def test_zp_value_grad_transpose_matches_jax_vjp():
 
 
 def test_endpoint_plan_reduces_to_the_transpose():
-    """The K1eᵀ plan: pair p = n·7 + t is translate t of point n, and
+    """The K1eᵀ plan: pair p = n·8 + t is translate t < 7 of point n, and
     reducing its contributions per row gives the transpose."""
     _, tg, pts, rng = _zp_grid_points(n=200, seed=1)
     n = pts.shape[0]
@@ -158,7 +158,7 @@ def test_endpoint_plan_reduces_to_the_transpose():
     wxy, wu, wv, bz = wxy.numpy(), wu.numpy(), wv.numpy(), bz.numpy()
 
     def contributions(p):
-        i, t = divmod(p, tbox.ZP_LIVE_TRANSLATES)
+        i, t = divmod(p, plan.stride)
         gx, gy, gz = cg[i] / sp
         return [(bz[i] - 1 + l,
                  wxy[i, t] * (cv[i] * qb[i, l] + gz * dqb[i, l])
@@ -203,7 +203,7 @@ def _operator_world(seed=0):
     jb = jrays.sample_straight_rays(o, d, max_length_km=900.0, n_samples=33)
     tb = trays.RayBundle(torch.from_numpy(np.array(jb.points)),
                          torch.from_numpy(np.array(jb.ds)))
-    return jg, convert.grid_from_numpy(jg), jb, tb, m0, rng
+    return jg, convert.grid_from_numpy(jg, device="cpu"), jb, tb, m0, rng
 
 
 @pytest.mark.parametrize("quadrature", ["hermite", "simpson"])
@@ -261,7 +261,7 @@ def test_log_ne_at_matches_jax():
 def test_vector_gather_plain_matches_take_along_axis(rows):
     """The probe's gather on the CPU against what the JAX probe's Pallas
     kernel computes (``jnp.take_along_axis(axis=0)``): bitwise."""
-    table, idx = tgather.probe_inputs(rows, 128)
+    table, idx = tgather.probe_inputs(rows, 128, "cpu")
     want = np.asarray(jnp.take_along_axis(jnp.asarray(table.numpy()),
                                           jnp.asarray(idx.numpy()), axis=0))
     np.testing.assert_array_equal(tgather.vector_gather(table, idx).numpy(),

@@ -27,7 +27,7 @@ SPACING = (0.5, 0.25, 0.125)
 
 def _grids():
     jg = JGrid.create(ORIGIN, SPACING, SHAPE)
-    return jg, convert.grid_from_numpy(jg)
+    return jg, convert.grid_from_numpy(jg, device="cpu")
 
 
 def edge_case_points(n_random=200, seed=0):

@@ -196,6 +196,126 @@ def test_zp_value_grad_transpose_matches_plain(dev):
     assert float((a - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
+def _segment_case(case, k, l, n_rows=60, nz=20, seed=8):
+    """rows_value inputs (numpy) whose plan stresses the segments:
+    "one_row": every pair on row 0 (points clamped onto a corner row);
+    "boundaries": rows holding 0, C−1, C, C+1, 2C and 3C+5 pairs of the
+    default chunk C, the rest of the pairs outside the table;
+    "scattered_z": z taps that are not consecutive, so a batch's z are not
+    sorted and the kernel adds lane by lane."""
+    rng = np.random.default_rng(seed)
+    c = tricubic.SEGMENT_PAIRS
+    if case == "boundaries":
+        flat = np.repeat([1, 2, 3, 4, 5, 6], [c - 1, c, c + 1, 2 * c,
+                                               3 * c + 5, 1])
+        flat = np.concatenate([flat, np.full(-flat.size % k, n_rows)])
+        rng.shuffle(flat)
+        ri = flat.reshape(-1, k).astype(np.int32)
+    else:
+        ri = rng.integers(0, n_rows, (3000, k)).astype(np.int32)
+        if case == "one_row":
+            ri[:] = 0
+    n = ri.shape[0]
+    zi = (rng.integers(0, nz - l + 1, (n, 1)) + np.arange(l)).astype(np.int32)
+    if case == "scattered_z":
+        zi = rng.integers(0, nz, (n, l)).astype(np.int32)
+    wxy = rng.normal(size=(n, k)).astype(np.float32)
+    wz = rng.normal(size=(n, l)).astype(np.float32)
+    ct = rng.normal(size=(n,)).astype(np.float32)
+    return ct, ri, wxy, zi, wz, (n_rows, nz)
+
+
+@pytest.mark.parametrize("case", ["one_row", "boundaries", "scattered_z"])
+@pytest.mark.parametrize("k,l", [(8, 3), (16, 4)])
+def test_rows_value_bwd_segments_match_plain(dev, case, k, l):
+    """K3 over segmented plans: within 1e-4·max|out| of the plain version,
+    bitwise equal across two calls, its counters back at zero after each
+    call, and a second plan of the same pairs gives the same bits."""
+    ct, ri, wxy, zi, wz, shape = (
+        torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+        for a in _segment_case(case, k, l))
+    plan = tricubic.build_row_plan(ri, shape[0], zi[:, 0])
+
+    def k3(p):
+        return kernels.rows_value_bwd(ct, p, wxy, zi, wz, shape[1])
+
+    a = k3(plan)
+    assert not plan.counters.any()
+    b = k3(plan)
+    assert not plan.counters.any()
+    assert torch.equal(a, b)
+    assert torch.equal(a, k3(tricubic.build_row_plan(ri, shape[0],
+                                                     zi[:, 0])))
+    want = tricubic.rows_value_transpose_ref(ct, ri, wxy, zi, wz, shape)
+    assert float((a - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_reduce_kernels_refuse_a_plan_of_another_stream(dev):
+    """K3 and K1eᵀ take a plan only on the stream it was built on (two
+    streams would share its counters): another stream raises, and the
+    plan's own stream still gives the same bits."""
+    ct, ri, wxy, zi, wz, shape = (
+        torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+        for a in _segment_case("one_row", 8, 3))
+    plan = tricubic.build_row_plan(ri, shape[0], zi[:, 0])
+    grid, _ = _world(dev)
+    pts = torch.from_numpy(edge_case_points(
+        grid.shape, grid.origin.cpu().numpy(), grid.spacing.cpu().numpy(),
+        2000, np.random.default_rng(10))).to(dev)
+    cv, cg = pts[:, 0].contiguous(), pts.flip(1).contiguous()
+    eplan = boxspline.endpoint_plan(grid, pts)
+
+    def calls():
+        return (kernels.rows_value_bwd(ct, plan, wxy, zi, wz, shape[1]),
+                kernels.zp_value_grad_bwd(grid, pts, cv, cg, eplan))
+
+    a = calls()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        with pytest.raises(ValueError, match="another CUDA stream"):
+            kernels.rows_value_bwd(ct, plan, wxy, zi, wz, shape[1])
+        with pytest.raises(ValueError, match="another CUDA stream"):
+            kernels.zp_value_grad_bwd(grid, pts, cv, cg, eplan)
+    b = calls()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("chunk", [tricubic.SEGMENT_PAIRS, 7, 1])
+def test_zp_value_grad_bwd_segments_match_plain(dev, chunk):
+    """K1eᵀ at points clamped onto a grid corner (a few rows hold every
+    pair) beside edge-case points, over plans cut into segments of 256,
+    7 and 1 pairs: within 1e-4·max|out| of the plain version, bitwise
+    equal across calls and plans, counters back at zero."""
+    grid, _ = _world(dev)
+    rng = np.random.default_rng(9)
+    origin, spacing = grid.origin.cpu().numpy(), grid.spacing.cpu().numpy()
+    pts = edge_case_points(grid.shape, origin, spacing, 8000, rng)
+    corner = pts.copy()
+    corner[:, :2] = origin[:2] - 50.0 - np.abs(corner[:, :2])
+    pts = torch.from_numpy(np.concatenate([corner, pts])).to(dev)
+    n = pts.shape[0]
+    cv = torch.from_numpy(rng.normal(size=(n,)).astype(np.float32)).to(dev)
+    cg = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
+    bx, by, bz, u, v, _ = boxspline._neighborhood(grid, pts)
+    dx, dy, _ = boxspline._xy_weights(u, v, with_grad=False)
+    ri = boxspline._row_index(bx, by, dx, dy, grid)
+    n_rows = grid.shape[0] * grid.shape[1]
+
+    def plan():
+        return tricubic.build_row_plan(ri, n_rows, bz - 1,
+                                       boxspline.ZP_LIVE_TRANSLATES, chunk)
+
+    p = plan()
+    a = boxspline.interp_rows_with_grad_transpose(grid, pts, cv, cg, p)
+    assert not p.counters.any()
+    b = boxspline.interp_rows_with_grad_transpose(grid, pts, cv, cg, p)
+    c = boxspline.interp_rows_with_grad_transpose(grid, pts, cv, cg, plan())
+    assert torch.equal(a, b) and torch.equal(a, c)
+    want = boxspline.interp_rows_with_grad_transpose_ref(grid, pts, cv, cg)
+    assert float((a - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
 @pytest.mark.parametrize("rows,m", [(8, 8), (300, 300), (300, 77)])
 def test_vector_gather_matches_torch_gather(dev, rows, m):
     """KG: bitwise equal to torch.gather."""

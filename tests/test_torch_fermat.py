@@ -50,7 +50,7 @@ def _both(freq, method, keep_path, n_rays=96, n_steps=32):
                                 jnp.asarray(d), freq, 1000.0,
                                 n_steps=n_steps, keep_path=keep_path,
                                 method=method, interp="zp")
-    tg = convert.grid_from_numpy(jg)
+    tg = convert.grid_from_numpy(jg, device="cpu")
     tb, tt = tfermat.trace_rays(torch.from_numpy(m), tg, torch.from_numpy(o),
                                 torch.from_numpy(d), freq, 1000.0,
                                 n_steps=n_steps, keep_path=keep_path,
@@ -90,7 +90,7 @@ def test_trace_rays_over_dense_clip_matches_jax(method):
 
 def test_trace_rays_ref_is_the_cpu_path():
     jg, m = perturbed_world()
-    tg = convert.grid_from_numpy(jg)
+    tg = convert.grid_from_numpy(jg, device="cpu")
     o, d = (torch.from_numpy(a) for a in ray_fan(16))
     args = (torch.from_numpy(m), tg, o, d, 150e6, 1000.0)
     kw = dict(n_steps=8, keep_path=True, method="leapfrog", interp="zp")
@@ -131,7 +131,7 @@ def test_refractive_index_matches_jax():
 @pytest.mark.parametrize("interp", ["cubic", "quadratic", "zpc", "zpc3"])
 def test_unported_field_models_raise(interp):
     jg, m = perturbed_world(n=8)
-    tg = convert.grid_from_numpy(jg)
+    tg = convert.grid_from_numpy(jg, device="cpu")
     o, d = (torch.from_numpy(a) for a in ray_fan(4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfermat.trace_rays(torch.from_numpy(m), tg, o, d, 150e6,

@@ -124,7 +124,7 @@ def test_krylov_loops_never_read_a_tensor_on_the_host(solver, monkeypatch):
 def _grids():
     jg = JGrid.from_bounds((-120.0, -90.0, 0.0), (110.0, 100.0, 700.0),
                            (10, 12, 9))
-    return jg, convert.grid_from_numpy(jg)
+    return jg, convert.grid_from_numpy(jg, device="cpu")
 
 
 KINDS = [("exponential", 50.0), ("sqexp", 80.0), ("matern32", 60.0),
@@ -144,7 +144,7 @@ def test_gp_spectrum_is_bitwise_the_reference(kind, length_scale):
                                   np.asarray(jc.spectrum))
     assert (tc.shape, tc.sigma, tc.length_scale, tc.kind) == \
         (jc.shape, jc.sigma, jc.length_scale, jc.kind)
-    carried = convert.gp_covariance_from_numpy(jc)
+    carried = convert.gp_covariance_from_numpy(jc, device="cpu")
     np.testing.assert_array_equal(carried.spectrum.numpy(),
                                   tc.spectrum.numpy())
     assert (carried.shape, carried.sigma, carried.length_scale,
@@ -194,7 +194,7 @@ def test_grid_enclosing_rays_is_bitwise_the_reference(h_min_km):
     jg = jchapman.grid_enclosing_rays(ants, dirs, shape=(16, 12, 20),
                                       h_min_km=h_min_km)
     tg = tchapman.grid_enclosing_rays(ants, dirs, shape=(16, 12, 20),
-                                      h_min_km=h_min_km)
+                                      h_min_km=h_min_km, device="cpu")
     assert tg.shape == jg.shape
     np.testing.assert_array_equal(tg.origin.numpy(), np.asarray(jg.origin))
     np.testing.assert_array_equal(tg.spacing.numpy(), np.asarray(jg.spacing))

@@ -61,7 +61,7 @@ def test_serving_slice_matches_jax():
     ~3e-7): the operator's own bound; the traced paths agree to ~1e-4 km
     and move the dTEC far less than that."""
     jg, epochs = _slice_epochs()
-    tg = convert.grid_from_numpy(jg)
+    tg = convert.grid_from_numpy(jg, device="cpu")
     i0 = 1
     for m, ants, dirs in epochs:
         jo, jd = jrays.make_ray_batch(ants, dirs)
@@ -70,7 +70,7 @@ def test_serving_slice_matches_jax():
                                     method="leapfrog", interp="zp")
         want = np.asarray(jtec.dtec_paired_q(jnp.asarray(m), jg, jb,
                                              len(dirs), i0, "hermite", "zp"))
-        tm = convert.field_from_numpy(m)
+        tm = convert.field_from_numpy(m, device="cpu")
         to, td = trays.make_ray_batch(torch.from_numpy(ants),
                                       torch.from_numpy(dirs))
         tb, _ = tfermat.trace_rays(tm, tg, to, td, 150e6, 1000.0,
@@ -109,9 +109,10 @@ def test_convert_round_trips_grid_and_field():
     jg = JGrid.from_bounds((-400, -300, 0.0), (400, 300, 1100.0),
                            (9, 7, 11))
     m = np.asarray(jchapman.log_parametrize(jchapman.chapman_field(jg)))
-    tg = convert.grid_from_numpy(jg)
+    tg = convert.grid_from_numpy(jg, device="cpu")
     tg2 = convert.grid_from_numpy(np.asarray(jg.origin),
-                                  np.asarray(jg.spacing), jg.shape)
+                                  np.asarray(jg.spacing), jg.shape,
+                                  device="cpu")
     for g in (tg, tg2):
         assert g.shape == jg.shape
         np.testing.assert_array_equal(g.origin.numpy(), np.asarray(jg.origin))
@@ -122,14 +123,14 @@ def test_convert_round_trips_grid_and_field():
                                   np.asarray(jg.origin))
     np.testing.assert_array_equal(np.asarray(back.spacing),
                                   np.asarray(jg.spacing))
-    tm = convert.field_from_numpy(m)
+    tm = convert.field_from_numpy(m, device="cpu")
     assert tm.dtype == torch.float32 and tm.is_contiguous()
     np.testing.assert_array_equal(tm.numpy(), m)
     # the port builds the same grid and Chapman field itself
     from ionotomo_tpu_torch.core.grids import Grid3D
     from ionotomo_tpu_torch.models import chapman as tchapman
     own = Grid3D.from_bounds((-400, -300, 0.0), (400, 300, 1100.0),
-                             (9, 7, 11))
+                             (9, 7, 11), device="cpu")
     np.testing.assert_array_equal(own.spacing.numpy(),
                                   np.asarray(jg.spacing))
     np.testing.assert_allclose(
@@ -140,7 +141,8 @@ def test_convert_round_trips_grid_and_field():
 def _wrapper_calls():
     """(name, call(**overrides)) for each kernel wrapper with valid CPU
     inputs."""
-    g = convert.grid_from_numpy((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (4, 5, 6))
+    g = convert.grid_from_numpy((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (4, 5, 6),
+                                device="cpu")
     coef = torch.zeros((20, 6))
     pts = torch.zeros((7, 3))
 

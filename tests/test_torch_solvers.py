@@ -37,7 +37,7 @@ def _rms(a):
 def _port(w):
     """The world's inputs as the port takes them."""
     rb = w["rays"]
-    return dict(grid=convert.grid_from_numpy(w["grid"]),
+    return dict(grid=convert.grid_from_numpy(w["grid"], device="cpu"),
                 rays=trays.RayBundle(torch.from_numpy(np.array(rb.points)),
                                      torch.from_numpy(np.array(rb.ds))),
                 d_obs=torch.from_numpy(np.array(w["d_obs"])),
@@ -88,7 +88,7 @@ def test_map_gauss_newton_zp_matches_jax(variant):
                                      w["noise_std"], w["m_prior"], cov, **jkw)
     tres = tsolvers.map_gauss_newton(
         p["grid"], p["rays"], p["d_obs"], p["noise_std"], p["m_prior"],
-        convert.gp_covariance_from_numpy(cov), **tkw)
+        convert.gp_covariance_from_numpy(cov, device="cpu"), **tkw)
     err_prior, err_post = _compare(jres, tres, w)
     assert err_post < BEATS_PRIOR[variant] * err_prior
     np.testing.assert_array_equal(tres.info[1].numpy(),
@@ -96,7 +96,7 @@ def test_map_gauss_newton_zp_matches_jax(variant):
     assert (tres.u_final is not None) == (variant == "warm_start")
     if variant == "warm_start":
         # the substitution invariant m = m_prior + C^{1/2} u_final
-        tcov = convert.gp_covariance_from_numpy(cov)
+        tcov = convert.gp_covariance_from_numpy(cov, device="cpu")
         recon = p["m_prior"] + tcov.apply_sqrt(
             tres.u_final.reshape(p["grid"].shape))
         np.testing.assert_allclose(recon.numpy(), tres.m.numpy(), rtol=0,
@@ -150,7 +150,8 @@ def test_anchor_and_probe_rows_are_not_ported(which):
         tsolvers.anchored_forward(p["grid"], p["rays"], 2, 0,
                                   **{which: object()}, interp="zp")
     cov = convert.gp_covariance_from_numpy(
-        JGPCovariance.create(w["grid"], sigma=0.3, length_scale=90.0))
+        JGPCovariance.create(w["grid"], sigma=0.3, length_scale=90.0),
+        device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsolvers.map_gauss_newton(p["grid"], p["rays"], p["d_obs"],
                                   p["noise_std"], p["m_prior"], cov, 2,

@@ -49,7 +49,7 @@ def _bundles(kind):
                                    method="leapfrog", interp="zp")
     tb = trays.RayBundle(points=torch.from_numpy(np.array(jb.points)),
                          ds=torch.from_numpy(np.array(jb.ds)))
-    return jg, m, jb, convert.grid_from_numpy(jg), tb
+    return jg, m, jb, convert.grid_from_numpy(jg, device="cpu"), tb
 
 
 def test_make_ray_batch_and_straight_sampler_match_jax():
