@@ -1,5 +1,6 @@
-"""Drive the PyTorch/CUDA port's bent-ray forward path and its MAP
-inversion path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's bent-ray forward paths and its MAP
+inversion paths, on the zp and the tricubic field model, on one NVIDIA
+GPU.
 
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # also: device time by kernel of
@@ -54,7 +55,40 @@ Phases (any failed check raises, and the run exits non-zero):
    K3, K1e and K1eᵀ must have launched in the solve.
 7. The gather probe (``ionotomo_tpu_torch.probes.gather``): KG against
    ``torch.gather`` at (16384, 128) and (8, 128), bitwise; KG must have
-   launched.
+   launched; its row-gather baseline (chained K5 evaluations) must run.
+
+8. The tricubic kernels against their plain versions on the card: K5
+   (value + gradient) and K5ᵀ (its transpose) at the edge-case points of a
+   random 128³ table and at 2^20 random points of a random 256³ table
+   (64 MiB, past the L2); K1c (the leapfrog tracer over cubic) against
+   the plain tracer on 8192 rays of the phase-3 world, path on and off;
+   K4 (``tec_linear_adjoint`` on cubic, which is K3 over the cubic row
+   plan) against ``index_add_`` of the 64 stencil weights per sample. Each
+   within 1e-4·max|out| (K5 1e-5·max|table|, the tracer 1e-3 km and 1e-5
+   relative TEC), the scatters bitwise equal across two calls.
+9. Config 2 on cubic at full width through ``configs.config2``: 62 × 100
+   rays and 262144 rays at leapfrog@128 on a 128³ Chapman cube, then
+   262144 rays at leapfrog@64 beside phase 3's zp number; K1c must have
+   launched; K1c against the plain tracer on config 2's own two ray
+   arrays at 128 steps (endpoints 1e-3 km, TEC 1e-5 relative), its time
+   alone and its bound.
+10. Config 4 at full width through ``configs.config4``: a 256³ grid
+   enclosing 100 × 100 rays, the analytic world (512 Fourier modes,
+   amplitude 0.25, 120 km, seed 11) traced by ``trace_rays_callable`` at
+   256 steps + 1 % noise, a von Kármán prior (σ 0.3, 80 km), Hermite@65
+   with the @33 bundle, progressive, warm start, cg 20 then 10, cubic. The
+   linearised operator on the kernels against the plain-version operator
+   (1e-4·max, adjoint identity 1e-4); K2 and K3 at the solve's two shapes
+   (650,000 and 330,000 points, a (65536, 256) table), K5 and K5ᵀ at its
+   20,000 endpoints, K4 at 650,000 points; the solve twice, bitwise
+   equal, within 1 % of the plain-version solve in final residual and
+   held-out dTEC rms (20 × 50 rays, seed 99) and better than the prior
+   (the plain solve gathers whole rows, 10.6 GB at 650,000 points: if the
+   card's free memory does not hold it, it runs one Gauss-Newton step on
+   the @33 bundle and the printed line says so); K2, K3, K5 and K5ᵀ must
+   have launched; then the same solve with ``interp_inner="zp"`` twice: a
+   printed finding (bitwise equal or not, held-out rms, seconds), not a
+   check.
 
 The last lines are a JSON object of per-kernel results (each kernel's
 bound: the larger of the bytes it must move over 3.35 TB/s and its f32
@@ -149,6 +183,18 @@ FLOPS_K1E_POINT = 150
 FLOPS_K2_POINT = 50
 FLOPS_K1ET_POINT = 51
 FLOPS_K1ET_PAIR = 78
+# The tricubic evaluator (cubic_eval.cuh): per axis 44 (index, clamps, four
+# weights and four derivative weights), so 132 a point; the contraction of
+# 64 taps against wz and dwz 256, over y 96, over x 32, three divisions.
+# K5ᵀ needs a point's set-up once (the three axes and the cotangent's three
+# divisions, 135) and 24 for the four contributions of each (point, row)
+# pair; that the kernel repeats the set-up in every pair is its own cost
+# and no part of the bound. One K1c step is a K1 step with K5 in place of
+# K1e.
+FLOPS_K5_POINT = 519
+FLOPS_K5T_POINT = 135
+FLOPS_K5T_PAIR = 24
+FLOPS_K1C_STEP = FLOPS_K1_STEP - FLOPS_K1E_POINT + FLOPS_K5_POINT
 
 
 def bound(n_bytes, n_flops):
@@ -195,6 +241,35 @@ def k1et_bound(points, cv, cg, plan, nz):
     n_bytes = nbytes(points, cv, cg) + 4 * plan.n_rows * nz
     return bound(n_bytes, points.shape[0] * FLOPS_K1ET_POINT
                  + plan_stats(plan)["pairs"] * FLOPS_K1ET_PAIR)
+
+
+def distinct_taps(tricubic, grid, points) -> int:
+    """How many distinct table values the 64-tap stencils of ``points``
+    touch: points that share a cell, neighbouring cells and taps repeated
+    by the edge clamp are counted once (host read, outside any timing)."""
+    touched = torch.zeros(grid.num_voxels, dtype=torch.bool,
+                          device=points.device)
+    for chunk in points.split(1 << 18):
+        flat, _ = tricubic.interp_weights(grid, chunk)
+        touched[flat.reshape(-1).long()] = True
+    return int(touched.sum())
+
+
+def k5_bound(tricubic, grid, points):
+    """K5 reads each point once and each distinct table value its points
+    touch once, and writes a value and a gradient per point."""
+    n = points.shape[0]
+    return bound(4 * distinct_taps(tricubic, grid, points) + nbytes(points)
+                 + 16 * n, n * FLOPS_K5_POINT)
+
+
+def k5t_bound(points, cv, cg, plan, nz):
+    """K5ᵀ: the same bytes as K1eᵀ (points and cotangents read once, the
+    table written once; the plan is not counted); a set-up per point and
+    four contributions per pair."""
+    n_bytes = nbytes(points, cv, cg) + 4 * plan.n_rows * nz
+    return bound(n_bytes, points.shape[0] * FLOPS_K5T_POINT
+                 + plan_stats(plan)["pairs"] * FLOPS_K5T_PAIR)
 
 
 def index_add_call(flat, contrib, size):
@@ -784,39 +859,6 @@ def phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
                        lambda: parent.k1et(grid, pts, cv, cg, pplan), k1et, 5)
 
 
-def make_rays(n_ants, n_dirs, seed=0, spread_km=150.0, zen_max=0.6):
-    """Antenna ENU positions and near-zenith unit directions, drawn as
-    ``bench/common.make_rays`` draws them."""
-    rng = np.random.default_rng(seed)
-    ants = np.concatenate([rng.uniform(-spread_km, spread_km, (n_ants, 2)),
-                           np.zeros((n_ants, 1))], -1).astype(np.float32)
-    zen = rng.uniform(0.05, zen_max, n_dirs)
-    az = rng.uniform(0, 2 * np.pi, n_dirs)
-    dirs = np.stack([np.sin(zen) * np.sin(az), np.sin(zen) * np.cos(az),
-                     np.cos(zen)], -1).astype(np.float32)
-    return ants, dirs
-
-
-def bent_dtec(m_true, grid, ants, dirs, fermat, rays, noise_frac, seed=0):
-    """Paired dTEC observations as ``bench/common.bent_dtec_data`` makes
-    them, traced through the zp model (K1, leapfrog@256, 150 MHz, 1000 km;
-    the bench traces the cubic model, which the port does not have yet),
-    plus numpy Gaussian noise of noise_frac·std. Returns (d (Na, Nd) on the
-    grid's device, noise std)."""
-    dev = grid.device
-    o, d = rays.make_ray_batch(torch.from_numpy(ants).to(dev),
-                               torch.from_numpy(dirs).to(dev))
-    _, tau = fermat.trace_rays(m_true, grid, o, d, FREQ_HZ, LENGTH_KM,
-                               n_steps=256, keep_path=False,
-                               method="leapfrog", interp="zp")
-    tau = tau.reshape(-1, dirs.shape[0]).cpu().numpy()
-    dt = tau - tau[0:1]
-    noise = float(noise_frac * np.std(dt))
-    dt = dt + noise * np.random.default_rng(seed).standard_normal(
-        dt.shape).astype(np.float32)
-    return torch.from_numpy(dt.astype(np.float32)).to(dev), noise
-
-
 def profile_gn_step(solve):
     """Device time by kernel over one Gauss-Newton step (torch.profiler),
     and its share of the same step's wall time run without the profiler."""
@@ -850,7 +892,14 @@ def profile_gn_step(solve):
 def phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
                  chapman, priors, solvers, results, profile=False,
                  parent=None, n_grid=N_GRID, n_ants=100, n_dirs=100):
+    from ionotomo_tpu_torch.configs import bent_dtec_data, make_rays
     from ionotomo_tpu_torch.testing import SOLVE_KERNELS
+
+    def bent_dtec(m, grid, ants, dirs, noise_frac):
+        # the bench traces the cubic model; this configuration keeps the
+        # zp tracer (K1) it was first measured with
+        return bent_dtec_data(m, grid, ants, dirs, FREQ_HZ, 256, noise_frac,
+                              max_length_km=LENGTH_KM, interp="zp")
 
     print(f"phase 6: the config-3b solve ({n_grid}^3, {n_ants}x{n_dirs} "
           f"rays, hermite@65, zp, gn=2, cg=20)")
@@ -865,9 +914,9 @@ def phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
     white = np.random.default_rng(7).standard_normal(grid.shape)
     m_true = m_prior + truth.sample(torch.from_numpy(
         white.astype(np.float32)).to(dev))
-    d_obs, noise = bent_dtec(m_true, grid, ants, dirs, fermat, rays, 0.01)
+    d_obs, noise = bent_dtec(m_true, grid, ants, dirs, 0.01)
     ants_h, dirs_h = make_rays(20, 50, seed=99)
-    d_h, _ = bent_dtec(m_true, grid, ants_h, dirs_h, fermat, rays, 0.0)
+    d_h, _ = bent_dtec(m_true, grid, ants_h, dirs_h, 0.0)
     o, dv = rays.make_ray_batch(torch.from_numpy(ants).to(dev),
                                 torch.from_numpy(dirs).to(dev))
     rb = rays.sample_straight_rays(o, dv, n_samples=65)
@@ -1063,6 +1112,11 @@ def phase7_probe(dev, gather, kernels, results):
           "KG bitwise equal to torch.gather at (16384, 128)")
     check(rec["one_vreg_control_ok"],
           "KG bitwise equal to torch.gather at (8, 128)")
+    check(rec["rowgather_baseline_Mpt_evals_per_sec"] > 0
+          and kernels.launches["cubic_value_grad"] > 0,
+          f"the probe's row-gather baseline ran on K5 "
+          f"({rec['rowgather_baseline_Mpt_evals_per_sec']:.1f} M point "
+          f"evaluations/s)")
     rows, width = 16384, 128
     table, idx = gather.probe_inputs(rows, width, dev)
     ms = device_ms(lambda: gather.vector_gather(table, idx), 50)
@@ -1075,19 +1129,542 @@ def phase7_probe(dev, gather, kernels, results):
         bound_ms=b_ms, bound_by=b_by, library_ms=plain_ms)}
 
 
+def check_and_time(label, kern, plain, library, bnd, scatter, reps=20,
+                   plain_reps=3):
+    """One kernel at one shape against its plain version: within
+    1e-4·max|out|, finite, and for a scatter bitwise equal across two
+    calls; device ms of the kernel, the plain version and the one-call
+    library form (None: there is none). Returns the kernel's ``line``."""
+    if scatter:
+        got, same = _same_twice(kern)
+        check(same, f"{label} bitwise equal across two calls")
+    else:
+        got = kern()
+    want = plain()
+    torch.cuda.synchronize()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    del want
+    check(bool(torch.isfinite(got).all()), f"{label} output finite")
+    check(err <= 1e-4 * scale, f"{label} max|err| {err:.3e} <= 1e-4*max|out| "
+                               f"{1e-4 * scale:.3e}")
+    del got
+    ms, plain_ms = device_ms(kern, reps), device_ms(plain, plain_reps)
+    lib_ms = device_ms(library, reps) if library is not None else None
+    lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+    b_ms, b_by = bnd
+    print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, one "
+          f"PyTorch call {lib}, bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def stencil_scatter_terms(tricubic, rays, grid, rb, y):
+    """``tec_linear_adjoint``'s cubic branch as the reference writes it:
+    the per-sample cotangent y_r·w_n·ds_r·1e3/TEC_SCALE (R·N,), and the
+    flat voxel indices and contributions through the 64 stencil weights
+    of every sample, (R·N·64,) each."""
+    from ionotomo_tpu_torch import constants
+
+    idx, w64 = tricubic.interp_weights(grid, rb.points.reshape(-1, 3))
+    wq = rays.simpson_weights(rb.num_samples, torch.float32, y.device)
+    coef = (y[:, None] * wq[None, :] * rb.ds[:, None]
+            * (constants.KM_TO_M / constants.TEC_SCALE)).reshape(-1)
+    return coef, idx.reshape(-1).long(), (w64 * coef[:, None]).reshape(-1)
+
+
+def check_k4(label, tricubic, rays, tec, grid, rb, y):
+    """K4: ``tec_linear_adjoint`` on cubic is K3 over the cubic row plan.
+    The entry point against ``index_add_`` of the 64-weight contributions
+    (the two round the weight products in another order: 1e-4·max, not
+    bitwise), and bitwise equal to K3 called on the same plan; the times
+    are K3's alone, the plan built once as a solve builds it."""
+    nx, ny, nz = grid.shape
+    ri, wxy, zi, wz = tricubic.row_setup(grid, rb.points.reshape(-1, 3))
+    plan = tricubic.row_plan(ri, zi, nx * ny)
+    print_plan(f"{label} (K3 on the cubic plan)", plan)
+    coef, flat, contrib = stencil_scatter_terms(tricubic, rays, grid, rb, y)
+
+    def k3():
+        return tricubic.rows_value_transpose(coef, ri, wxy, zi, wz,
+                                             (nx * ny, nz), plan)
+
+    def plain():
+        _, f, c = stencil_scatter_terms(tricubic, rays, grid, rb, y)
+        return torch.zeros(grid.num_voxels, device=y.device).index_add_(
+            0, f, c).reshape(nx * ny, nz)
+
+    check(bool(torch.equal(tec.tec_linear_adjoint(y, grid, rb, "cubic"),
+                           k3().reshape(grid.shape))),
+          f"{label}: tec_linear_adjoint is K3 on the cubic plan, bitwise")
+    return check_and_time(label, k3, plain,
+                          index_add_call(flat, contrib, grid.num_voxels),
+                          k3_bound(coef, ri, wxy, zi, wz, plan, nz),
+                          scatter=True, reps=5, plain_reps=2)
+
+
+def phase8_cubic_kernels(dev, tricubic, fermat, rays, tec, kernels, Grid3D,
+                         chapman, results):
+    from ionotomo_tpu_torch.testing import edge_case_points
+
+    print("phase 8: the tricubic kernels against their plain versions")
+    rng = np.random.default_rng(8)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    origin, spacing = (-64.0, -32.0, 0.0), (1.0, 0.5, 8.0)   # dyadic: exact
+    for n_grid, where in ((128, "edge-case"), (256, "random")):
+        shape = (n_grid,) * 3
+        n_rows = n_grid * n_grid
+        grid = Grid3D.create(origin, spacing, shape, device=dev)
+        table = t(rng.normal(size=(n_rows, n_grid)).astype(np.float32))
+        tmax = float(table.abs().max())
+        if where == "edge-case":
+            pts = t(edge_case_points(shape, origin, spacing, 1 << 20, rng))
+        else:
+            hi = np.asarray(spacing) * (n_grid - 1)
+            pts = t((np.asarray(origin) + rng.uniform(0, 1, (1 << 20, 3))
+                     * hi).astype(np.float32))
+        n = pts.shape[0]
+        tag = f"at {n} {where} points of a {n_grid}^3 table"
+
+        # K5: value + physical gradient
+        v_k, g_k = kernels.cubic_value_grad(table, grid, pts)
+        v_p, g_p = tricubic.interp_rows_with_grad_ref(table, grid, pts)
+        torch.cuda.synchronize()
+        err_v = float((v_k - v_p).abs().max())
+        err_g = float((g_k - g_p).abs().max())
+        del v_p, g_p
+        check(bool(torch.isfinite(v_k).all() and torch.isfinite(g_k).all()),
+              f"K5 {tag}: output finite")
+        check(err_v <= 1e-5 * tmax, f"K5 {tag}: value max|err| {err_v:.3e} "
+                                    f"<= 1e-5*max|table| {1e-5 * tmax:.3e}")
+        gtol = 1e-5 * tmax / min(spacing)
+        check(err_g <= gtol, f"K5 {tag}: gradient max|err| {err_g:.3e} <= "
+                             f"{gtol:.3e}")
+        ms = device_ms(lambda: kernels.cubic_value_grad(table, grid, pts), 20)
+        plain_ms = device_ms(
+            lambda: tricubic.interp_rows_with_grad_ref(table, grid, pts), 2)
+        b_ms, b_by = k5_bound(tricubic, grid, pts)
+        print(f"  K5 {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        del v_k, g_k
+
+        # K5ᵀ: its transpose with respect to the table
+        cv = t(rng.normal(size=(n,)).astype(np.float32))
+        cg = t(rng.normal(size=(n, 3)).astype(np.float32))
+        plan = tricubic.endpoint_plan(grid, pts)
+        print_plan(f"K5T {tag}", plan)
+        check_and_time(
+            f"K5T {tag}",
+            lambda: kernels.cubic_value_grad_bwd(grid, pts, cv, cg, plan),
+            lambda: tricubic.interp_rows_with_grad_transpose_ref(grid, pts,
+                                                                 cv, cg),
+            index_add_call(*tricubic.value_grad_transpose_terms(
+                grid, pts, cv, cg), n_rows * n_grid),
+            k5t_bound(pts, cv, cg, plan, n_grid), scatter=True, reps=5,
+            plain_reps=2)
+        check(not bool(plan.counters.any()), "K5T plan counters back at zero")
+        del table, pts, cv, cg, plan
+        torch.cuda.empty_cache()
+
+    # K1c: the leapfrog tracer over cubic on 8192 rays of the phase-3 world
+    grid3 = Grid3D.from_bounds(*BOUNDS, (N_GRID,) * 3, device=dev)
+    m = chapman.log_parametrize(chapman.chapman_field(grid3)).contiguous()
+    o, d = (torch.from_numpy(a).to(dev) for a in bench_rays(8192, seed=1))
+    for keep_path in (False, True):
+        kw = dict(n_steps=N_STEPS, keep_path=keep_path, method="leapfrog",
+                  interp="cubic")
+        b_k, t_k = fermat.trace_rays(m, grid3, o, d, FREQ_HZ, LENGTH_KM, **kw)
+        b_p, t_p = fermat.trace_rays_ref(m, grid3, o, d, FREQ_HZ, LENGTH_KM,
+                                         **kw)
+        torch.cuda.synchronize()
+        check(b_k.points.shape == b_p.points.shape,
+              f"K1c keep_path={keep_path} shape {tuple(b_k.points.shape)}")
+        err_x = float((b_k.points - b_p.points).abs().max())
+        err_t = float(((t_k - t_p).abs() / t_p.abs()).max())
+        check(err_x <= 1e-3, f"K1c keep_path={keep_path} path max|dx| "
+                             f"{err_x:.3e} km <= 1e-3 km")
+        check(err_t <= 1e-5, f"K1c keep_path={keep_path} tau max rel err "
+                             f"{err_t:.3e} <= 1e-5")
+        check(bool(torch.equal(b_k.ds, b_p.ds)), "K1c ds equal")
+    results["trace_leapfrog_cubic"] = {"tau_rel": err_t,
+                                       "line": dict(max_abs_err=err_x)}
+
+    # K4 through K3: 8192 straight rays x 65 samples on the same grid
+    rb = rays.sample_straight_rays(o, d, LENGTH_KM, 65)
+    y = t(rng.normal(size=(rb.num_rays,)).astype(np.float32))
+    check_k4(f"K4 at {rb.num_rays * 65} points of a 128^3 grid", tricubic,
+             rays, tec, grid3, rb, y)
+
+
+def phase9_config2(dev, fermat, rays, kernels, Grid3D, chapman, configs,
+                   results, card, n_rays=262144):
+    print("phase 9: config 2 on the tricubic model (configs.config2)")
+    kernels.reset_launches()
+    rec = configs.config2(n_saturated=n_rays, device=dev)
+    launches = dict(kernels.launches)
+    print(f"  config2: {json.dumps(rec)}")
+    print(f"  launches in config 2: {launches}")
+    check(launches["trace_leapfrog_cubic"] > 0,
+          f"trace_leapfrog_cubic launched in config 2 "
+          f"({launches['trace_leapfrog_cubic']} times)")
+    check(launches["trace_leapfrog_zp"] == 0, "config 2 launched no zp tracer")
+    check(rec["finite_6200"] and rec["finite_saturated"],
+          "config 2: finite endpoints and TEC")
+    print(f"  cubic, leapfrog@128: {rec['bent_rays_per_sec_6200']:.1f} rays/s "
+          f"at {rec['rays_6200']} rays, "
+          f"{rec['bent_rays_per_sec_saturated']:.1f} rays/s at "
+          f"{rec['rays_saturated']} rays on {card}")
+
+    # the phase-3 configuration on cubic: 262144 rays, leapfrog@64
+    grid = Grid3D.from_bounds(*BOUNDS, (N_GRID,) * 3, device=dev)
+    m = chapman.log_parametrize(chapman.chapman_field(grid)).contiguous()
+    o, d = (torch.from_numpy(a).to(dev) for a in bench_rays(n_rays))
+
+    def run():
+        return fermat.trace_rays(m, grid, o, d, FREQ_HZ, LENGTH_KM,
+                                 n_steps=N_STEPS, keep_path=False,
+                                 method="leapfrog", interp="cubic")
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 3
+    rate64 = n_rays / dt
+    print(f"  cubic, leapfrog@64: {rate64:.1f} rays/s ({dt * 1e3:.3f} ms per "
+          f"call; zp in phase 3: {results['rays_per_s']['kernel']:.1f} "
+          f"rays/s, prefilter included)")
+
+    # K1c held against the plain tracer at the main path's own inputs:
+    # config 2's two ray arrays at its 128 steps, through the entry points.
+    # The saturated batch's two runs are also the ones that are timed.
+    kw128 = dict(n_steps=128, keep_path=False, method="leapfrog",
+                 interp="cubic")
+    errs = {}
+    for n_a, n_d in ((62, 100), (512, n_rays // 512)):
+        ants, dirs = configs.make_rays(n_a, n_d)
+        o2, d2 = rays.make_ray_batch(torch.from_numpy(ants).to(dev),
+                                     torch.from_numpy(dirs).to(dev))
+        out = {}
+
+        def plain():
+            out["p"] = fermat.trace_rays_ref(m, grid, o2, d2, FREQ_HZ,
+                                             LENGTH_KM, **kw128)
+        b_k, t_k = fermat.trace_rays(m, grid, o2, d2, FREQ_HZ, LENGTH_KM,
+                                     **kw128)
+        plain_ms = cuda_ms(plain, 1)
+        b_p, t_p = out["p"]
+        n2 = o2.shape[0]
+        tag = f"K1c at {n2} rays x 128 steps"
+        check(b_k.points.shape == b_p.points.shape == (n2, 2, 3),
+              f"{tag}: endpoints {tuple(b_k.points.shape)}")
+        check(bool(torch.isfinite(b_k.points).all()
+                   and torch.isfinite(t_k).all()), f"{tag}: finite")
+        err_x = float((b_k.points - b_p.points).abs().max())
+        err_t = float(((t_k - t_p).abs() / t_p.abs()).max())
+        check(err_x <= 1e-3, f"{tag}: endpoint max|dx| {err_x:.3e} km <= "
+                             f"1e-3 km against the plain tracer")
+        check(err_t <= 1e-5, f"{tag}: tau max rel err {err_t:.3e} <= 1e-5")
+        check(bool(torch.equal(b_k.ds, b_p.ds)), f"{tag}: ds equal")
+        errs[n2] = (err_x, err_t)
+        del out, b_k, b_p, t_k, t_p
+    # the last case is the saturated batch: its times, its error and its
+    # bound (operations per step counted from the kernel) go to the line
+    table = m.reshape(N_GRID * N_GRID, N_GRID)
+    k64 = fermat._step_constants(FREQ_HZ, LENGTH_KM, N_STEPS)
+    k128 = fermat._step_constants(FREQ_HZ, LENGTH_KM, 128)
+    ms64 = device_ms(lambda: kernels.trace_leapfrog_cubic(
+        table, grid, o, d, N_STEPS, False, **k64), 3)
+    ms128 = device_ms(lambda: kernels.trace_leapfrog_cubic(
+        table, grid, o2, d2, 128, False, **k128), 3)
+    n_bytes = nbytes(table, o2, d2) + 16 * n_rays
+    b_ms, b_by = bound(n_bytes, n_rays * 128 * FLOPS_K1C_STEP)
+    b64 = bound(n_bytes, n_rays * N_STEPS * FLOPS_K1C_STEP)[0]
+    print(f"  K1c alone at {n_rays} rays: {ms64:.4f} ms at 64 steps "
+          f"(bound {b64:.4f}), {ms128:.4f} ms at 128 steps, plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    results["trace_leapfrog_cubic"]["line"].update(
+        max_abs_err=errs[n_rays][0], ms=ms128, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    results["trace_leapfrog_cubic"]["tau_rel"] = errs[n_rays][1]
+    results["trace_leapfrog_cubic"]["launches"] = \
+        launches["trace_leapfrog_cubic"]
+    results["config2"] = {**rec, "rays_per_s_leapfrog64": rate64,
+                          "k1c_ms_64": ms64}
+
+
+def profile_solve(solve):
+    """Device time by kernel over one whole config-4 solve (both
+    Gauss-Newton steps), and its share of the same solve's wall time
+    without the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    wall_us = solve()[1] * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solve()
+    rows = sorted(((e.key, e.self_device_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    print(f"  profiled config-4 solve: kernels {busy:.1f} us in "
+          f"{sum(r[2] for r in rows)} launches; the solve without the "
+          f"profiler {wall_us:.1f} us, device busy {100 * busy / wall_us:.1f} "
+          f"%")
+    for key, us, count in rows[:18]:
+        print(f"    {us:10.1f} us {count:5d}x  {key[:100]}")
+
+
+def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
+                    profile=False, **world_kw):
+    from ionotomo_tpu_torch.testing import CUBIC_SOLVE_KERNELS
+
+    t0 = time.perf_counter()
+    w = configs.config4_world(device=dev, **world_kw)
+    torch.cuda.synchronize()
+    grid, nd = w.grid, w.n_dirs
+    n_rows, nz = grid.shape[0] * grid.shape[1], grid.shape[2]
+    print(f"phase 10: config 4 on the tricubic model (configs.config4): grid "
+          f"{grid.shape} spacing {[round(float(x), 3) for x in grid.spacing]}"
+          f" km, {w.rays.num_rays} rays x {w.rays.num_samples} (inner "
+          f"{w.rays_inner.num_samples}) samples, noise {w.noise:.4f}, set-up "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(bool(torch.isfinite(w.d_obs).all() and torch.isfinite(w.m_true)
+               .all()), "world: finite data and truth")
+
+    # the plain versions gather whole table rows: (points, 16, nz) f32
+    block = w.rays.num_rays * w.rays.num_samples * 16 * nz * 4
+    free = torch.cuda.mem_get_info(dev)[0]
+    plain_full = free > 2.5 * block
+    print(f"  plain versions' gathered block {block / 1e9:.2f} GB, free "
+          f"memory {free / 1e9:.2f} GB: the plain operator and solve run "
+          + ("at full size" if plain_full else
+             "on the @33 bundle, one Gauss-Newton step"))
+    rb_check = w.rays if plain_full else w.rays_inner
+
+    # the operator on the kernels against the plain-version operator
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.normal(size=grid.shape).astype(np.float32)
+                         ).to(dev)
+    y = torch.from_numpy(rng.normal(size=(w.rays.num_rays,))
+                         .astype(np.float32)).to(dev)
+    op = tec.dtec_paired_linear(w.m_prior, grid, rb_check, nd, 0, "hermite",
+                                "cubic")
+    ref = tec.dtec_paired_linear_ref(w.m_prior, grid, rb_check, nd, 0,
+                                     "hermite", "cubic")
+    jx, jty = op.apply(x), op.apply_t(y)
+    rx, rty = ref.apply(x), ref.apply_t(y)
+    torch.cuda.synchronize()
+    for name, a, b in (("J", jx, rx), ("J^T", jty, rty)):
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        check(bool(torch.isfinite(a).all()), f"{name} finite")
+        check(err <= 1e-4 * scale, f"{name} kernels vs plain max|err| "
+                                   f"{err:.3e} <= 1e-4*max {1e-4 * scale:.3e}")
+    lhs = float(torch.dot(jx.double(), y.double()))
+    rhs = float(torch.sum(x.double() * jty.double()))
+    rel = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+    check(rel <= 1e-4, f"adjoint identity <Jx,y> {lhs:.6e} vs <x,J^T y> "
+                       f"{rhs:.6e}: rel {rel:.3e} <= 1e-4")
+    del rx, rty, jx, jty
+    timings = {
+        "J": cuda_ms(lambda: op.apply(x), 10),
+        "J^T": cuda_ms(lambda: op.apply_t(y), 10),
+        "J plain": cuda_ms(lambda: ref.apply(x), 2),
+        "J^T plain": cuda_ms(lambda: ref.apply_t(y), 2),
+        "apply_sqrt": cuda_ms(lambda: w.cov.apply_sqrt(x), 20),
+    }
+    for name, ms in timings.items():
+        print(f"  {name} ({rb_check.num_samples} samples): {ms:.4f} ms")
+    del ref
+
+    # K2 and K3 alone at the solve's two shapes, K5 and K5ᵀ at its
+    # endpoints, each against its plain version
+    table = x.reshape(n_rows, nz)
+    ops = {rb_check.num_samples: op}
+    for rb in (w.rays, w.rays_inner):
+        if rb.num_samples not in ops:
+            ops[rb.num_samples] = tec.dtec_paired_linear(
+                w.m_prior, grid, rb, nd, 0, "hermite", "cubic")
+    at_config4 = {}
+    for n_s, o_ in sorted(ops.items(), reverse=True):
+        n_pts = o_.ri.shape[0]
+        ct = torch.from_numpy(rng.normal(size=(n_pts,)).astype(np.float32)
+                              ).to(dev)
+        print_plan(f"K3 at {n_pts} points", o_.row_plan)
+        fwd_out = tricubic.rows_value(table, o_.ri, o_.wxy, o_.zi, o_.wz,
+                                      False)
+        at_config4[f"rows_value_fwd@{n_pts}"] = check_and_time(
+            f"K2 at {n_pts} points (K=16, L=4)",
+            lambda: tricubic.rows_value(table, o_.ri, o_.wxy, o_.zi, o_.wz,
+                                        False),
+            lambda: tricubic.rows_value_ref(table, o_.ri, o_.wxy, o_.zi,
+                                            o_.wz, False),
+            None, bound(nbytes(table, o_.ri, o_.wxy, o_.zi, o_.wz, fwd_out),
+                        n_pts * 16 * 4 * 2 + n_pts * 32),
+            scatter=False, plain_reps=2)
+        at_config4[f"rows_value_bwd@{n_pts}"] = check_and_time(
+            f"K3 at {n_pts} points (K=16, L=4)",
+            lambda: tricubic.rows_value_transpose(
+                ct, o_.ri, o_.wxy, o_.zi, o_.wz, o_.table_shape, o_.row_plan),
+            lambda: tricubic.rows_value_transpose_ref(
+                ct, o_.ri, o_.wxy, o_.zi, o_.wz, o_.table_shape),
+            index_add_call(*tricubic.transpose_terms(
+                ct, o_.ri, o_.wxy, o_.zi, o_.wz, o_.table_shape),
+                n_rows * nz),
+            k3_bound(ct, o_.ri, o_.wxy, o_.zi, o_.wz, o_.row_plan, nz),
+            scatter=True, plain_reps=2)
+        del ct, fwd_out
+    ends, eplan = op.ends, op.end_plan
+    n_ends = ends.shape[0]
+    cv = torch.from_numpy(rng.normal(size=(n_ends,)).astype(np.float32)
+                          ).to(dev)
+    cg = torch.from_numpy(rng.normal(size=(n_ends, 3)).astype(np.float32)
+                          ).to(dev)
+    print_plan(f"K5T at the solve's {n_ends} endpoints", eplan)
+    v_k, g_k = kernels.cubic_value_grad(table, grid, ends)
+    v_p, g_p = tricubic.interp_rows_with_grad_ref(table, grid, ends)
+    err_v = float((v_k - v_p).abs().max())
+    check(err_v <= 1e-5 * float(table.abs().max()),
+          f"K5 at the solve's endpoints: value max|err| {err_v:.3e} <= "
+          f"1e-5*max|table|")
+    check(float((g_k - g_p).abs().max())
+          <= 1e-5 * float(table.abs().max()) / float(grid.spacing.min()),
+          "K5 at the solve's endpoints: gradient within 1e-5*max|table|/h")
+    k5_ms = device_ms(lambda: kernels.cubic_value_grad(table, grid, ends), 50)
+    k5_plain = device_ms(
+        lambda: tricubic.interp_rows_with_grad_ref(table, grid, ends), 5)
+    b_ms, b_by = k5_bound(tricubic, grid, ends)
+    print(f"  K5 at the solve's {n_ends} endpoints: kernel {k5_ms:.4f} ms, "
+          f"plain {k5_plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    results["cubic_value_grad"] = {"line": dict(
+        max_abs_err=err_v, ms=k5_ms, plain_ms=k5_plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)}
+    results["cubic_value_grad_bwd"] = {"line": check_and_time(
+        f"K5T at the solve's {n_ends} endpoints",
+        lambda: tricubic.interp_rows_with_grad_transpose(grid, ends, cv, cg,
+                                                         eplan),
+        lambda: tricubic.interp_rows_with_grad_transpose_ref(grid, ends, cv,
+                                                             cg),
+        index_add_call(*tricubic.value_grad_transpose_terms(grid, ends, cv,
+                                                            cg), n_rows * nz),
+        k5t_bound(ends, cv, cg, eplan, nz), scatter=True, reps=50)}
+    check(not bool(op.row_plan.counters.any() or eplan.counters.any()),
+          "the solve's plan counters back at zero")
+    del op, ops, o_, v_k, g_k, v_p, g_p, table
+
+    # K4 (ray_coverage's scatter) at the solve's 650,000 points
+    at_config4["tec_linear_adjoint"] = check_k4(
+        f"K4 at {w.rays.num_rays * w.rays.num_samples} points of the solve's "
+        f"grid", tricubic, rays, tec, grid, w.rays, y)
+    torch.cuda.empty_cache()
+
+    # the solve through the entry point: configs.config4 runs it twice (an
+    # untimed one first), the counters read around it
+    kernels.reset_launches()
+    rec = configs.config4(world=w)
+    launches = dict(kernels.launches)
+    print(f"  config4: {json.dumps(rec)}")
+    print(f"  launches in config 4 (two solves and the metrics): {launches}")
+    for name in CUBIC_SOLVE_KERNELS:
+        check(launches[name] > 0,
+              f"{name} launched in config 4 ({launches[name]} times)")
+    check(launches["zp_value_grad"] == 0 and launches["zp_value_grad_bwd"]
+          == 0, "config 4 on cubic launched no zp kernel")
+
+    def solve(**kw):
+        t0 = time.perf_counter()
+        res = configs.config4_solve(w, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def heldout(m):
+        return configs.heldout_dtec_rms(m, grid, *w.heldout)
+
+    res1, secs1 = solve()
+    res2, secs2 = solve()
+    check(bool(torch.isfinite(res1.m).all()), "solved field finite")
+    check(bool(torch.equal(res1.m, res2.m)),
+          "the config-4 solve is bitwise equal across two runs")
+    if plain_full:
+        plain_kw, what = {}, "the same schedule"
+        res_k = res1
+    else:
+        plain_kw = dict(progressive=False, gn_iters=1)
+        what = "one Gauss-Newton step on the @33 bundle"
+        w = w._replace(rays=w.rays_inner, rays_inner=None)
+        res_k, _ = solve(**plain_kw)
+    resp, secs_p = solve(linearize=tec.dtec_paired_linear_ref, **plain_kw)
+    r_k, r_p = float(res_k.residual_norm), float(resp.residual_norm)
+    h_k, h_p, h_0 = heldout(res_k.m), heldout(resp.m), heldout(w.m_prior)
+    print(f"  the plain-version solve ran {what}: {secs_p:.4f} s")
+    check(abs(r_k - r_p) <= 1e-2 * r_p,
+          f"final whitened residual {r_k:.4f} within 1% of the plain "
+          f"solve's {r_p:.4f}")
+    check(abs(h_k - h_p) <= 1e-2 * h_p,
+          f"held-out dTEC rms {h_k:.4f} within 1% of the plain solve's "
+          f"{h_p:.4f}")
+    h_1 = heldout(res1.m)
+    check(h_1 < h_0, f"held-out dTEC rms {h_1:.4f} below the prior's "
+                     f"{h_0:.4f}")
+    del resp
+    print(f"  kernel solve: {secs1:.4f}, {secs2:.4f} s (configs.config4: "
+          f"{rec['value']:.4f} s); residual {float(res1.residual_norm):.4f}; "
+          f"covered rmse {rec['covered_rmse_prior']:.4f} -> "
+          f"{rec['covered_rmse_post']:.4f}")
+
+    # the open question of the 256^3 zp inner Jacobian: a finding, no check
+    if plain_full:
+        za, zsecs_a = solve(interp_inner="zp")
+        zb, zsecs_b = solve(interp_inner="zp")
+        print(f"  interp_inner='zp' twice: bitwise equal "
+              f"{bool(torch.equal(za.m, zb.m))}; held-out dTEC rms "
+              f"{heldout(za.m):.4f} (all cubic {h_1:.4f}, prior {h_0:.4f}); "
+              f"residual {float(za.residual_norm):.4f}; {zsecs_a:.4f}, "
+              f"{zsecs_b:.4f} s (all cubic {secs1:.4f}, {secs2:.4f} s)")
+        results["config4_zp_inner"] = {
+            "bitwise_equal": bool(torch.equal(za.m, zb.m)),
+            "heldout": heldout(za.m), "seconds": [zsecs_a, zsecs_b]}
+        del za, zb
+    if profile:
+        profile_solve(solve)
+    results["config4"] = {**rec, "seconds": [secs1, secs2],
+                          "plain_seconds": secs_p, "residual": r_k,
+                          "plain_residual": r_p, "heldout": h_k,
+                          "plain_heldout": h_p, "prior_heldout": h_0,
+                          "timings_ms": timings}
+    results["config4_launches"] = launches
+    results["at_config4"] = at_config4
+
+
 def kernels_line(results) -> dict:
     """The per-kernel JSON object of a run from the phases' results."""
     src = "ionotomo_tpu_torch/kernels/csrc/"
     # launches: K1, K1e and K2 in the serving run (phase 4), K3 and K1eᵀ in
-    # the solve (phase 6), KG in the probe (phase 7). Error, ms and bound:
-    # K1 at the bench shape (262144 rays); K1e at 2^20 points (phase 2); K2,
-    # K3 and K1eᵀ at the solve's shapes (650,000 points, 20,000 endpoints);
-    # KG at (16384, 128). library_ms: index_add_ of the precomputed
-    # contributions for K3 and K1eᵀ, torch.gather for KG
+    # the config-3b solve (phase 6), KG in the probe (phase 7), K1c in
+    # config 2 (phase 9), K5 and K5ᵀ in config 4 (phase 10). Error, ms and
+    # bound: K1 at the bench shape (262144 rays x 64 steps); K1e at 2^20
+    # points (phase 2); K2, K3 and K1eᵀ at the config-3b solve's shapes
+    # (650,000 points, 20,000 endpoints); KG at (16384, 128); K1c at
+    # config 2's saturated batch (262144 rays x 128 steps); K5 and K5ᵀ at
+    # config 4's 20,000 endpoints. library_ms: index_add_ of the
+    # precomputed contributions for the scatters, torch.gather for KG.
+    # "kernels_at_config4" holds K2 and K3 again at config 4's two cubic
+    # shapes, and K4, which is K3 on the cubic row plan, with the launches
+    # of config 4's run.
+    c4 = results["config4_launches"]
     launches = {**results["launches"],
                 **{k: results["solve_launches"][k]
                    for k in ("rows_value_bwd", "zp_value_grad_bwd")},
-                "vector_gather": results["vector_gather"]["launches"]}
+                "vector_gather": results["vector_gather"]["launches"],
+                "trace_leapfrog_cubic":
+                    results["trace_leapfrog_cubic"]["launches"],
+                "cubic_value_grad": c4["cubic_value_grad"],
+                "cubic_value_grad_bwd": c4["cubic_value_grad_bwd"]}
     entries = [
         ("trace_leapfrog_zp", "trace_leapfrog_zp.cu",
          "ionotomo_tpu/geometry/fermat.py:204"),
@@ -1100,14 +1677,37 @@ def kernels_line(results) -> dict:
         ("zp_value_grad_bwd", "zp_value_grad_bwd.cu",
          "ionotomo_tpu/core/boxspline.py:253"),
         ("vector_gather", "vector_gather.cu", "bench/probe_gather.py:21"),
+        ("trace_leapfrog_cubic", "trace_leapfrog_cubic.cu",
+         "ionotomo_tpu/geometry/fermat.py:204"),
+        ("cubic_value_grad", "cubic_value_grad.cu",
+         "ionotomo_tpu/core/tricubic.py:529"),
+        ("cubic_value_grad_bwd", "cubic_value_grad_bwd.cu",
+         "ionotomo_tpu/core/tricubic.py:529"),
     ]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    return {"kernels": [
-        {"name": name, "route": "cuda", "source": src + f, "replaces": rep,
-         "launches": launches[name],
-         **{k: results[name]["line"][k] for k in keys}}
-        for name, f, rep in entries]}
+
+    def entry(name, f, rep, n, line):
+        return {"name": name, "route": "cuda", "source": src + f,
+                "replaces": rep, "launches": n, **{k: line[k] for k in keys}}
+
+    at4 = []
+    for label, line in results["at_config4"].items():
+        name = label.split("@")[0]
+        if name == "tec_linear_adjoint":
+            at4.append({**entry(name, "rows_value_bwd.cu",
+                                "ionotomo_tpu/forward/tec.py:379",
+                                c4["rows_value_bwd"], line),
+                        "through": "rows_value_bwd"})
+        else:
+            rep = {"rows_value_fwd": "ionotomo_tpu/core/tricubic.py:284",
+                   "rows_value_bwd": "ionotomo_tpu/core/tricubic.py:377"}
+            at4.append({**entry(name, name + ".cu", rep[name], c4[name],
+                                line), "shape": label})
+    return {"kernels": [entry(name, f, rep, launches[name],
+                              results[name]["line"])
+                        for name, f, rep in entries],
+            "kernels_at_config4": at4}
 
 
 def main() -> int:
@@ -1120,7 +1720,7 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
 
-    from ionotomo_tpu_torch import kernels
+    from ionotomo_tpu_torch import configs, kernels
     from ionotomo_tpu_torch.core import boxspline, tricubic
     from ionotomo_tpu_torch.core.grids import Grid3D
     from ionotomo_tpu_torch.forward import tec
@@ -1161,14 +1761,27 @@ def main() -> int:
     phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
                  chapman, priors, solvers, results, profile, parent)
     phase7_probe(dev, gather, kernels, results)
+    phase8_cubic_kernels(dev, tricubic, fermat, rays, tec, kernels, Grid3D,
+                         chapman, results)
+    phase9_config2(dev, fermat, rays, kernels, Grid3D, chapman, configs,
+                   results, card)
+    phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
+                    profile)
 
     line = kernels_line(results)
-    solve = results["solve"]
+    solve, c2, c4 = results["solve"], results["config2"], results["config4"]
     print(f"rays/s: kernel {results['rays_per_s']['kernel']:.1f}, plain "
           f"{results['rays_per_s']['plain']:.1f}; serving "
           f"{results['ms_per_epoch']:.3f} ms/epoch; config-3b solve "
           f"{min(solve['seconds']):.4f} s (plain {solve['plain_seconds']:.4f} "
           f"s)")
+    print(f"cubic: config 2 {c2['bent_rays_per_sec_saturated']:.1f} rays/s "
+          f"saturated, {c2['bent_rays_per_sec_6200']:.1f} at "
+          f"{c2['rays_6200']} rays (leapfrog@128), "
+          f"{c2['rays_per_s_leapfrog64']:.1f} at leapfrog@64; config 4 solve "
+          f"{min(c4['seconds']):.4f} s (plain {c4['plain_seconds']:.4f} s), "
+          f"held-out dTEC rms {c4['prior_heldout']:.4f} -> "
+          f"{c4['heldout']:.4f}")
     print(json.dumps(line))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,7 @@ import torch
 from .core.grids import Grid3D
 from .device import resolve
 from .inversion.priors import GPCovariance
+from .models.turbulence import FourierModes
 
 
 def grid_from_numpy(origin, spacing=None, shape=None, device=None) -> Grid3D:
@@ -47,3 +48,11 @@ def gp_covariance_from_numpy(cov, device=None) -> GPCovariance:
         length_scale=(tuple(float(v) for v in ls)
                       if isinstance(ls, (tuple, list)) else float(ls)),
         kind=str(cov.kind))
+
+
+def fourier_modes_from_numpy(ks, phases, amp, device=None) -> FourierModes:
+    """A port ``FourierModes`` from its arrays: ks (K, 3), phases (K,) and
+    the amplitude."""
+    return FourierModes.from_arrays(field_from_numpy(ks, device),
+                                    field_from_numpy(phases, device),
+                                    float(amp))

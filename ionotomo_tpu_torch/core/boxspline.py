@@ -56,6 +56,11 @@ _ZP_CW = np.asarray([
 ], np.float32) / 16.0
 
 
+#: zp translates a K3 or K1eᵀ plan holds: the 8th has weight 0 and is
+#: skipped.
+ZP_LIVE_TRANSLATES = 7
+
+
 def _apply_a_xy(f: torch.Tensor) -> torch.Tensor:
     """The ZP integer-sample mask A over (x, y): centre 1/2, 4-neighbours
     1/8, edge-clamped (replicate) so constants are preserved at the
@@ -222,6 +227,27 @@ def _row_index(bx, by, dx, dy, grid: Grid3D):
     return ix * ny + iy                                   # (N,8) int32
 
 
+def row_setup(grid: Grid3D, points: torch.Tensor):
+    """What ``rows_value`` takes for the zp value at points (N, 3):
+    (ri (N, 8) int32, wxy (N, 8), zi (N, 3) int32, wz (N, 3)),
+    contiguous."""
+    bx, by, bz, u, v, w = _neighborhood(grid, points)
+    dx, dy, wxy = _xy_weights(u, v, with_grad=False)
+    ri = _row_index(bx, by, dx, dy, grid)
+    zi = bz[:, None] + torch.arange(-1, 2, dtype=torch.int32,
+                                    device=bz.device)[None, :]
+    return (ri.contiguous(), wxy.contiguous(), zi.contiguous(),
+            _qb_weights(w).contiguous())
+
+
+def row_plan(ri: torch.Tensor, zi: torch.Tensor, n_rows: int):
+    """The K3 plan of ``row_setup``'s pairs: the 7 live translates of each
+    point, sorted within a row by the first z tap."""
+    from .tricubic import build_row_plan
+
+    return build_row_plan(ri, n_rows, zi[:, 0], live=ZP_LIVE_TRANSLATES)
+
+
 def interp_rows(coef2d: torch.Tensor, grid: Grid3D, points: torch.Tensor
                 ) -> torch.Tensor:
     """Row-gather box-spline interpolation — one 8-row gather group per
@@ -230,12 +256,7 @@ def interp_rows(coef2d: torch.Tensor, grid: Grid3D, points: torch.Tensor
     ``core.tricubic.rows_value`` (kernel K2 on CUDA), xy-first."""
     from .tricubic import rows_value
 
-    bx, by, bz, u, v, w = _neighborhood(grid, points)
-    dx, dy, wxy = _xy_weights(u, v, with_grad=False)
-    ri = _row_index(bx, by, dx, dy, grid)
-    zi = bz[:, None] + torch.arange(-1, 2, dtype=torch.int32,
-                                    device=bz.device)[None, :]
-    return rows_value(coef2d, ri, wxy, zi, _qb_weights(w), xy_first=True)
+    return rows_value(coef2d, *row_setup(grid, points), xy_first=True)
 
 
 def interp_rows_with_grad_ref(coef2d: torch.Tensor, grid: Grid3D,
@@ -306,22 +327,12 @@ def transpose_terms(grid: Grid3D, points: torch.Tensor,
     return flat, contrib.reshape(-1)
 
 
-#: zp translates a K3 or K1eᵀ plan holds: the 8th has weight 0 and is
-#: skipped.
-ZP_LIVE_TRANSLATES = 7
-
-
 def endpoint_plan(grid: Grid3D, points: torch.Tensor):
     """The K1eᵀ plan of fixed points: their live (point, translate) pairs,
     ids n·8 + t, sorted by table row and first z tap and cut into
     segments (``core.tricubic.build_row_plan``)."""
-    from .tricubic import build_row_plan
-
-    bx, by, bz, u, v, _ = _neighborhood(grid, points)
-    dx, dy, _ = _xy_weights(u, v, with_grad=False)
-    ri = _row_index(bx, by, dx, dy, grid)
-    return build_row_plan(ri, grid.shape[0] * grid.shape[1], bz - 1,
-                          live=ZP_LIVE_TRANSLATES)
+    ri, _, zi, _ = row_setup(grid, points)
+    return row_plan(ri, zi, grid.shape[0] * grid.shape[1])
 
 
 def interp_rows_with_grad_transpose(grid: Grid3D, points: torch.Tensor,

@@ -1,4 +1,5 @@
-"""The row-gather value map and its transpose (port of ``rows_value`` from
+"""The row-gather value map ``rows_value`` with its transpose, and the
+Catmull-Rom tricubic field model built on it (port of
 ``ionotomo_tpu.core.tricubic``).
 
 ``rows_value`` is the JAX package's custom primitive ``rows_value_p``:
@@ -15,9 +16,18 @@ plan (``build_row_plan``): the pairs sorted by row and z once for a point
 set and cut into segments of at most ``SEGMENT_PAIRS``, reused while the
 points stay fixed (a whole straight-ray solve).
 
+The tricubic model (separable cubic convolution over a 4×4×4
+neighbourhood, edge-clamped, no prefilter: the table is the field
+reshaped to (nx*ny, nz)): ``interp_rows`` is ``rows_value`` at K=16, L=4,
+z first; ``interp_rows_with_grad`` is kernel K5 on CUDA and
+``interp_rows_with_grad_transpose`` kernel K5ᵀ (XLA derives that
+transpose from the gather in the reference), each beside its plain
+version; ``interp``/``interp_with_grad``/``interp_weights`` are the
+64-neighbour block forms, plain on every device.
+
 Not ported yet: the member-axis batching rule and the batched transpose
 (ROADMAP.md Queue 2, K3 batched; the EnKF), gradients with respect to the
-weights, and the tricubic field model itself (Queue 1 item 6; K5).
+weights, and the reference's sharded-gather plumbing.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ import dataclasses
 import torch
 
 from .. import kernels
+from .grids import Grid3D
 from .precision import check_full_f32
 
 
@@ -215,3 +226,241 @@ def rows_value(table, ri, wxy, zi, wz, xy_first: bool,
     ``ri`` sorted by row, built at the first backward if not given);
     ``rows_value_ref`` and ``rows_value_transpose_ref`` on the CPU."""
     return _RowsValue.apply(table, ri, wxy, zi, wz, xy_first, plan)
+
+
+# --- the Catmull-Rom tricubic field model ---------------------------------
+
+
+def _catmull_rom_weights(u: torch.Tensor) -> torch.Tensor:
+    """Cubic-convolution weights (a = -0.5) for offsets (-1, 0, 1, 2);
+    (...,) → (..., 4)."""
+    u2 = u * u
+    u3 = u2 * u
+    w0 = 0.5 * (-u3 + 2.0 * u2 - u)
+    w1 = 0.5 * (3.0 * u3 - 5.0 * u2 + 2.0)
+    w2 = 0.5 * (-3.0 * u3 + 4.0 * u2 + u)
+    w3 = 0.5 * (u3 - u2)
+    return torch.stack([w0, w1, w2, w3], dim=-1)
+
+
+def _catmull_rom_dweights(u: torch.Tensor) -> torch.Tensor:
+    """d/du of the cubic-convolution weights; (..., 4)."""
+    u2 = u * u
+    w0 = 0.5 * (-3.0 * u2 + 4.0 * u - 1.0)
+    w1 = 0.5 * (9.0 * u2 - 10.0 * u)
+    w2 = 0.5 * (-9.0 * u2 + 8.0 * u + 1.0)
+    w3 = 0.5 * (3.0 * u2 - 2.0 * u)
+    return torch.stack([w0, w1, w2, w3], dim=-1)
+
+
+def _neighborhood(grid: Grid3D, points: torch.Tensor):
+    """Per-axis neighbour indices and fractional offsets of points (N, 3):
+    idx (N, 3, 4) int32 clamped voxel indices, frac (N, 3) in [0, 1]. The
+    query is clamped into the grid (constant extrapolation outside) and
+    the base to [0, n−2], so edge points repeat rows and taps."""
+    t = grid.world_to_index(points)
+    shape = torch.tensor(grid.shape, dtype=torch.float32, device=t.device)
+    t = torch.minimum(torch.maximum(t, torch.zeros_like(shape)), shape - 1.0)
+    base = torch.minimum(torch.maximum(torch.floor(t),
+                                       torch.zeros_like(shape)), shape - 2.0)
+    frac = t - base
+    offsets = torch.arange(-1, 3, dtype=torch.int32, device=t.device)
+    idx = base.to(torch.int32)[..., None] + offsets            # (N, 3, 4)
+    ns = torch.tensor(grid.shape, dtype=torch.int32, device=t.device)
+    idx = torch.minimum(torch.clamp_min(idx, 0), ns[None, :, None] - 1)
+    return idx, frac
+
+
+def _row_neighborhood(grid: Grid3D, points: torch.Tensor):
+    """``_neighborhood`` plus the 16 (x, y) pencil rows of each point,
+    (N, 16) int32, x-major."""
+    idx, frac = _neighborhood(grid, points)
+    ny = grid.shape[1]
+    row_idx = idx[:, 0, :, None] * ny + idx[:, 1, None, :]     # (N, 4, 4)
+    return idx, frac, row_idx.reshape(points.shape[0], 16)
+
+
+def row_setup(grid: Grid3D, points: torch.Tensor):
+    """What ``rows_value`` takes for the tricubic value at points (N, 3):
+    (ri (N, 16) int32, wxy (N, 16), zi (N, 4) int32, wz (N, 4)),
+    contiguous."""
+    idx, frac, ri = _row_neighborhood(grid, points)
+    wx = _catmull_rom_weights(frac[:, 0])
+    wy = _catmull_rom_weights(frac[:, 1])
+    wxy = (wx[:, :, None] * wy[:, None, :]).reshape(-1, 16)
+    return (ri.contiguous(), wxy.contiguous(), idx[:, 2].contiguous(),
+            _catmull_rom_weights(frac[:, 2]).contiguous())
+
+
+def row_plan(ri: torch.Tensor, zi: torch.Tensor, n_rows: int) -> RowPlan:
+    """The K3 plan of ``row_setup``'s pairs: all 16 rows are live, and
+    within a row the pairs are sorted by the second z tap, which is the
+    unclamped cell base (the first tap is clamped at the bottom edge, so
+    two bases share it)."""
+    return build_row_plan(ri, n_rows, zi[:, 1])
+
+
+def interp_rows(field2d: torch.Tensor, grid: Grid3D, points: torch.Tensor
+                ) -> torch.Tensor:
+    """Row-gather tricubic interpolation of the (nx*ny, nz) table at
+    points (N, 3): ``rows_value`` over 16 pencils × 4 taps, z first
+    (kernel K2 on CUDA, K3 as its transpose)."""
+    return rows_value(field2d, *row_setup(grid, points), xy_first=False)
+
+
+def _contract_yx(cz: torch.Tensor, cz_d: torch.Tensor, frac: torch.Tensor,
+                 grid: Grid3D):
+    """The z-contracted pencils cz, cz_d (N, 4, 4) (against the z weights
+    and their derivatives) contracted over y, then x: value (N,) and
+    physical gradient (N, 3)."""
+    wx = _catmull_rom_weights(frac[:, 0])
+    wy = _catmull_rom_weights(frac[:, 1])
+    dwx = _catmull_rom_dweights(frac[:, 0])
+    dwy = _catmull_rom_dweights(frac[:, 1])
+    czy = torch.einsum("nxy,ny->nx", cz, wy)
+    czy_dy = torch.einsum("nxy,ny->nx", cz, dwy)
+    czy_dz = torch.einsum("nxy,ny->nx", cz_d, wy)
+    value = torch.einsum("nx,nx->n", czy, wx)
+    du = torch.stack([
+        torch.einsum("nx,nx->n", czy, dwx),
+        torch.einsum("nx,nx->n", czy_dy, wx),
+        torch.einsum("nx,nx->n", czy_dz, wx),
+    ], dim=-1)
+    return value, du / grid.spacing[None, :]
+
+
+def interp_rows_with_grad_ref(field2d: torch.Tensor, grid: Grid3D,
+                              points: torch.Tensor):
+    """Plain PyTorch version of K5: value + physical gradient from the 16
+    gathered pencils, z contracted first against the dense weight and
+    derivative-weight bands, then y, then x, as the reference does."""
+    check_full_f32()
+    idx, frac, row_idx = _row_neighborhood(grid, points)
+    nz = grid.shape[2]
+    rows = field2d[row_idx.long()]                           # (N, 16, nz)
+    wz_band = _z_band(idx[:, 2], _catmull_rom_weights(frac[:, 2]), nz)
+    dwz_band = _z_band(idx[:, 2], _catmull_rom_dweights(frac[:, 2]), nz)
+    cz = torch.einsum("nkz,nz->nk", rows, wz_band).reshape(-1, 4, 4)
+    cz_d = torch.einsum("nkz,nz->nk", rows, dwz_band).reshape(-1, 4, 4)
+    return _contract_yx(cz, cz_d, frac, grid)
+
+
+def interp_rows_with_grad(field2d: torch.Tensor, grid: Grid3D,
+                          points: torch.Tensor):
+    """Value (N,) + physical gradient (N, 3) at points (N, 3): kernel K5
+    on CUDA, ``interp_rows_with_grad_ref`` on the CPU."""
+    if points.is_cuda:
+        return kernels.cubic_value_grad(field2d, grid, points)
+    return interp_rows_with_grad_ref(field2d, grid, points)
+
+
+def value_grad_transpose_terms(grid: Grid3D, points: torch.Tensor,
+                               ct_value: torch.Tensor,
+                               ct_grad: torch.Tensor):
+    """The 16·4 scalar contributions per point of K5ᵀ and their flat
+    table indices, (N·64,) each: row (a, b), tap l receives
+    c_v·wx·wy·wz + c_gx/h_x·dwx·wy·wz + c_gy/h_y·wx·dwy·wz
+    + c_gz/h_z·wx·wy·dwz."""
+    nz = grid.shape[2]
+    idx, frac, ri = _row_neighborhood(grid, points)
+    wx, wy, wz = (_catmull_rom_weights(frac[:, d]) for d in range(3))
+    dwx, dwy, dwz = (_catmull_rom_dweights(frac[:, d]) for d in range(3))
+    cg = ct_grad / grid.spacing[None, :]
+
+    def outer(a, b, c):
+        return a[:, :, None, None] * b[:, None, :, None] * c[:, None, None, :]
+
+    contrib = (ct_value[:, None, None, None] * outer(wx, wy, wz)
+               + cg[:, 0, None, None, None] * outer(dwx, wy, wz)
+               + cg[:, 1, None, None, None] * outer(wx, dwy, wz)
+               + cg[:, 2, None, None, None] * outer(wx, wy, dwz))
+    flat = ri.long()[:, :, None] * nz + idx[:, 2].long()[:, None, :]
+    return flat.reshape(-1), contrib.reshape(-1)
+
+
+def interp_rows_with_grad_transpose_ref(grid: Grid3D, points: torch.Tensor,
+                                        ct_value: torch.Tensor,
+                                        ct_grad: torch.Tensor
+                                        ) -> torch.Tensor:
+    """Plain PyTorch version of K5ᵀ: the (nx*ny, nz) table cotangent of
+    ``interp_rows_with_grad`` for a value cotangent (N,) and a gradient
+    cotangent (N, 3), added by ``index_add_`` (atomics on CUDA: not
+    bitwise reproducible there)."""
+    nx, ny, nz = grid.shape
+    flat, contrib = value_grad_transpose_terms(grid, points, ct_value,
+                                               ct_grad)
+    out = torch.zeros(nx * ny * nz, dtype=ct_value.dtype,
+                      device=ct_value.device)
+    return out.index_add_(0, flat, contrib).reshape(nx * ny, nz)
+
+
+def endpoint_plan(grid: Grid3D, points: torch.Tensor) -> RowPlan:
+    """The K5ᵀ plan of fixed points: their 16 (point, pencil) pairs, ids
+    n·16 + k, sorted by table row and cell base and cut into segments."""
+    idx, _, ri = _row_neighborhood(grid, points)
+    return row_plan(ri, idx[:, 2], grid.shape[0] * grid.shape[1])
+
+
+def interp_rows_with_grad_transpose(grid: Grid3D, points: torch.Tensor,
+                                    ct_value: torch.Tensor,
+                                    ct_grad: torch.Tensor, plan=None
+                                    ) -> torch.Tensor:
+    """Transpose of ``interp_rows_with_grad`` with respect to the table:
+    kernel K5ᵀ on CUDA (over ``plan`` from ``endpoint_plan``, built here
+    if not given), ``interp_rows_with_grad_transpose_ref`` on the CPU."""
+    if not points.is_cuda:
+        return interp_rows_with_grad_transpose_ref(grid, points, ct_value,
+                                                   ct_grad)
+    if plan is None:
+        plan = endpoint_plan(grid, points)
+    return kernels.cubic_value_grad_bwd(grid, points.contiguous(),
+                                        ct_value.contiguous(),
+                                        ct_grad.contiguous(), plan)
+
+
+def _block_setup(grid: Grid3D, points: torch.Tensor):
+    """Flat voxel indices (N, 4, 4, 4) int32 of each point's stencil, and
+    frac (N, 3)."""
+    idx, frac = _neighborhood(grid, points)
+    _, ny, nz = grid.shape
+    flat = ((idx[:, 0, :, None, None] * ny + idx[:, 1, None, :, None]) * nz
+            + idx[:, 2, None, None, :])
+    return flat, frac
+
+
+def _block_weights(frac: torch.Tensor) -> torch.Tensor:
+    wx, wy, wz = (_catmull_rom_weights(frac[:, d]) for d in range(3))
+    return wx[:, :, None, None] * wy[:, None, :, None] * wz[:, None, None, :]
+
+
+def interp_weights(grid: Grid3D, points: torch.Tensor):
+    """(flat voxel indices (N, 64) int32, weights (N, 64)) of the
+    interpolation stencil: ``interp(field, grid, points) ==
+    (field.reshape(-1)[flat] * w).sum(-1)``."""
+    flat, frac = _block_setup(grid, points)
+    n = points.shape[0]
+    return flat.reshape(n, 64), _block_weights(frac).reshape(n, 64)
+
+
+def interp(field: torch.Tensor, grid: Grid3D, points: torch.Tensor
+           ) -> torch.Tensor:
+    """Tricubic interpolation of a 3-D ``field`` at points (N, 3) by the
+    64-neighbour block gather (plain PyTorch on every device; the hot
+    paths use ``interp_rows``)."""
+    flat, frac = _block_setup(grid, points)
+    blocks = field.reshape(-1)[flat.long()]                  # (N, 4, 4, 4)
+    return torch.sum(blocks * _block_weights(frac), dim=(1, 2, 3))
+
+
+def interp_with_grad(field: torch.Tensor, grid: Grid3D,
+                     points: torch.Tensor):
+    """Value and physical gradient by the block gather (plain PyTorch on
+    every device; the hot paths use ``interp_rows_with_grad``)."""
+    check_full_f32()
+    flat, frac = _block_setup(grid, points)
+    blocks = field.reshape(-1)[flat.long()]
+    cz = torch.einsum("nxyz,nz->nxy", blocks,
+                      _catmull_rom_weights(frac[:, 2]))
+    cz_d = torch.einsum("nxyz,nz->nxy", blocks,
+                        _catmull_rom_dweights(frac[:, 2]))
+    return _contract_yx(cz, cz_d, frac, grid)

@@ -1,37 +1,40 @@
-"""TEC path integrals, the paired differential-TEC forward equation and
-its linearisation (port of the parts of ``ionotomo_tpu.forward.tec`` the
-bent-ray and inversion slices use).
+"""TEC path integrals, the paired differential-TEC forward equation, its
+linearisation and the linear ray–voxel projection with its transpose
+(port of ``ionotomo_tpu.forward.tec``).
 
 Units: ray geometry in km, n_e in m^-3; TEC returned in working units of
 ``constants.TEC_SCALE`` m^-2 (1e13 = 1 mTECU).
 
-The value gathers run through ``core.boxspline.interp_rows`` (kernel K2
-on CUDA) and the Hermite endpoint derivatives through
-``interp_rows_with_grad`` (kernel K1e on CUDA). The gather is monolithic:
-the reference's chunking of large batches bounds a gathered pencil block
-that the kernels never build, so it is not ported.
+Every function takes ``interp``, the field model (``core.field_models``:
+"cubic", the default, or "zp"/"zp<order>"). The value gathers run
+through the model's ``interp_rows`` (kernel K2 on CUDA) and the Hermite
+endpoint derivatives through its ``interp_rows_with_grad`` (kernel K5 on
+cubic, K1e on zp). The gather is monolithic: the reference's chunking of
+large batches bounds a gathered pencil block that the kernels never
+build, so it is not ported.
 
 ``PairedDtecLinear`` is the linearised paired-dTEC operator J about a
 field m0 and its transpose, written out where the reference takes
 ``jax.linearize`` and ``jax.linear_transpose`` of ``dtec_paired_q``:
 J δm = Q(n_e(m0) ⊙ R P δm) + the Hermite endpoint terms, Jᵀ y =
-Pᵀ Rᵀ(n_e ⊙ Qᵀ y) + Pᵀ K1eᵀ(endpoint cotangents), with P the prefilter,
-R ``rows_value`` (K2, and K3 through its autograd backward) and Q the
-paired quadrature.
+Pᵀ Rᵀ(n_e ⊙ Qᵀ y) + Pᵀ Eᵀ(endpoint cotangents), with P the model's
+table map (the prefilter on zp, the identity on cubic), R ``rows_value``
+(K2, and K3 through its autograd backward), E the model's value +
+gradient (K5ᵀ or K1eᵀ as its transpose) and Q the paired quadrature.
 
-Not ported yet (ROADMAP.md Queue 1 item 7): ``dtec``, ``tec_linear``,
-``tec_linear_adjoint``, ``vtec_map``, ``ray_coverage``,
-``dtec_noise_from_beam``, and the cubic/zpc field models.
+``tec_linear_adjoint`` (and so ``ray_coverage``) is Pᵀ of
+``rows_value_transpose``: kernel K3 over the model's row plan, where the
+reference scatters 64 stencil weights per sample on cubic.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import constants
-from ..core import boxspline, tricubic
+from ..core import tricubic
+from ..core.field_models import field_model
 from ..core.grids import Grid3D
 from ..core.precision import check_full_f32
-from ..geometry.fermat import _not_ported, _zp_table
 from ..geometry.rays import RayBundle, simpson_weights, trapezoid_weights
 
 
@@ -42,29 +45,23 @@ def _ref_row(arr: torch.Tensor, i0: int) -> torch.Tensor:
 
 def _coef2d(field_m: torch.Tensor, grid: Grid3D, interp: str
             ) -> torch.Tensor:
-    """The (nx*ny, nz) row-gather table of the zp model: the prefiltered
-    box-spline coefficient grid (one matmul + ``order`` 5-point stencil
-    passes). Other field models raise NotImplementedError."""
-    return _zp_table(field_m, grid, interp)
+    """The (nx*ny, nz) row-gather table of the chosen field model: a free
+    view of the field for "cubic", the prefiltered box-spline coefficient
+    grid for "zp"."""
+    return field_model(interp).table(field_m, grid)
 
 
 def _rows_of(interp: str):
-    if interp.startswith("zpc"):
-        raise _not_ported(interp, "Queue 1 item 12, kernel K6")
-    if interp.startswith("zp"):
-        return boxspline
-    if interp == "cubic":
-        raise _not_ported(interp, "Queue 1 item 6, kernel K5")
-    raise KeyError(interp)
+    """The module of the field model's row-gather evaluators."""
+    return field_model(interp).rows
 
 
 def _interp_fast(field_m: torch.Tensor, grid: Grid3D, pts2d: torch.Tensor,
                  interp: str = "cubic") -> torch.Tensor:
-    """Row-gather interpolation of the log-density at points (N, 3) under
-    the selected field model, in one pass over all points."""
-    mod = _rows_of(interp)
-    table = _coef2d(field_m, grid, interp)
-    return mod.interp_rows(table, grid, pts2d)
+    """Row-gather interpolation of the field at points (N, 3) under the
+    selected field model, in one pass over all points."""
+    model = field_model(interp)
+    return model.rows.interp_rows(model.table(field_m, grid), grid, pts2d)
 
 
 def ne_at(field_m: torch.Tensor, grid: Grid3D, points: torch.Tensor,
@@ -144,6 +141,17 @@ def tec(field_m: torch.Tensor, grid: Grid3D, rays: RayBundle,
     """TEC per ray, (R,), in TEC_SCALE working units (Simpson)."""
     m = _interp_fast(field_m, grid, rays.points.reshape(-1, 3), interp)
     return tec_from_log_values(m, rays)
+
+
+def dtec(field_m: torch.Tensor, grid: Grid3D, rays: RayBundle,
+         num_directions: int, i0: int = 0,
+         interp: str = "cubic") -> torch.Tensor:
+    """Differential TEC w.r.t. reference antenna ``i0``, (Na, Nd), as the
+    difference of two TEC integrals (for bundles with per-antenna ds;
+    ``dtec_paired`` is the cancellation-free form). ``rays`` is the
+    row-major (antenna × direction) flat batch: ray r = i*Nd + k."""
+    t = tec(field_m, grid, rays, interp).reshape(-1, num_directions)
+    return t - _ref_row(t, i0)[None, :]
 
 
 def dtec_paired(field_m: torch.Tensor, grid: Grid3D, rays: RayBundle,
@@ -291,25 +299,27 @@ def tec_q(field_m, grid, rays, quadrature: str = "simpson",
 
 class PairedDtecLinear:
     """The paired-dTEC forward ``dtec_paired_q`` linearised about a field
-    m0 on the zp model, with its exact transpose, over fixed ray samples.
+    m0 under the field model ``interp``, with its exact transpose, over
+    fixed ray samples.
 
     ``apply(δm)`` (grid.shape) → (Na·Nd,) and ``apply_t(y)`` (Na·Nd,) →
     grid.shape; ``g0`` (Na·Nd,) is the forward at m0. With t = P δm the
-    tangent coefficient table:
+    tangent table:
 
         J δm = Q(n_e ⊙ R t, δd₀, δd₁),
         δd = n_e·δm_e·(∇m0·t̂) + n_e·(∇δm_e·t̂)     (Hermite endpoints)
-        Jᵀ y = Pᵀ[Rᵀ(n_e ⊙ Q_neᵀ y) + K1eᵀ(c·n_e·(∇m0·t̂), c·n_e·t̂)],
+        Jᵀ y = Pᵀ[Rᵀ(n_e ⊙ Q_neᵀ y) + Eᵀ(c·n_e·(∇m0·t̂), c·n_e·t̂)],
         c = Q_dᵀ y,
 
     n_e at m0 on the samples and endpoints, δm_e and ∇δm_e the tangent's
-    value and gradient there (K1e on t). Everything that depends only on
-    m0 and the samples (point setup, weights, n_e, the K3 and K1eᵀ plans)
-    is built once here; an application is a prefilter, one gather or
-    scatter and the quadrature.
+    value and gradient there (E on t). Everything that depends only on
+    m0 and the samples (point setup, weights, n_e, the two scatter plans)
+    is built once here; an application is P, one gather or scatter and
+    the quadrature. P, the point setup, E and the plans are the field
+    model's (``core.field_models``).
 
     On CUDA tensors R is ``rows_value`` (K2) and Rᵀ its autograd
-    backward (K3), the endpoint terms K1e and K1eᵀ.
+    backward (K3); E and Eᵀ are K5 and K5ᵀ on cubic, K1e and K1eᵀ on zp.
     ``dtec_paired_linear_ref`` builds the same operator from the plain
     versions (``*_ref``) of those four, on any device.
     """
@@ -320,9 +330,8 @@ class PairedDtecLinear:
         check_full_f32()
         if quadrature not in ("hermite", "simpson"):
             raise ValueError(f"unknown quadrature: {quadrature!r}")
-        _rows_of(interp)                      # raises for unported models
+        self.model = field_model(interp)      # raises for unported models
         self.grid, self.rays, self.i0 = grid, rays, i0
-        self.order = boxspline.zp_order(interp)
         self.hermite = quadrature == "hermite"
         r, self.n = rays.points.shape[:2]
         self.na, self.nd = r // num_directions, num_directions
@@ -331,18 +340,11 @@ class PairedDtecLinear:
         weights = trapezoid_weights if self.hermite else simpson_weights
         self.w = weights(self.n, torch.float32, rays.points.device)
 
-        pts = rays.points.reshape(-1, 3)
-        bx, by, bz, u, v, w = boxspline._neighborhood(grid, pts)
-        dx, dy, wxy = boxspline._xy_weights(u, v, with_grad=False)
-        self.ri = boxspline._row_index(bx, by, dx, dy, grid).contiguous()
-        self.zi = (bz[:, None] + torch.arange(
-            -1, 2, dtype=torch.int32, device=bz.device)[None, :]).contiguous()
-        self.wxy = wxy.contiguous()
-        self.wz = boxspline._qb_weights(w).contiguous()
+        self.ri, self.wxy, self.zi, self.wz = self.model.rows.row_setup(
+            grid, rays.points.reshape(-1, 3))
         if self.hermite:
             self.ends, self.t_hat = _endpoint_tangents(rays.points)
-        table0 = boxspline.prefilter(field_m0, self.order).reshape(
-            self.table_shape)
+        table0 = self.model.table(field_m0, grid)
         m_values = self._setup(table0)
         self.ne = constants.K_NE * torch.exp(m_values)
         ne3 = self.ne.reshape(self.na, self.nd, self.n)
@@ -358,28 +360,27 @@ class PairedDtecLinear:
 
     def _setup(self, table0: torch.Tensor) -> torch.Tensor:
         """Build what every application reuses, and return R table0: on
-        CUDA the K3 and K1eᵀ plans; R's transpose is rows_value's autograd
+        CUDA the two scatter plans; R's transpose is rows_value's autograd
         backward (K3), taken through one retained graph of R over a zero
         table."""
         cuda = self.ri.is_cuda
-        plan = (tricubic.build_row_plan(self.ri, self.table_shape[0],
-                                        self.zi[:, 0],
-                                        boxspline.ZP_LIVE_TRANSLATES)
+        rows = self.model.rows
+        plan = (rows.row_plan(self.ri, self.zi, self.table_shape[0])
                 if cuda else None)
         self.row_plan = plan
-        self.end_plan = (boxspline.endpoint_plan(self.grid, self.ends)
+        self.end_plan = (rows.endpoint_plan(self.grid, self.ends)
                          if cuda and self.hermite else None)
         self._leaf = torch.zeros(self.table_shape, device=self.ri.device,
                                  requires_grad=True)
         with torch.enable_grad():
-            self._graph = tricubic.rows_value(self._leaf, self.ri, self.wxy,
-                                              self.zi, self.wz, True, plan)
-        return tricubic.rows_value(table0, self.ri, self.wxy, self.zi,
-                                   self.wz, True, plan)
+            self._graph = tricubic.rows_value(
+                self._leaf, self.ri, self.wxy, self.zi, self.wz,
+                self.model.xy_first, plan)
+        return self._rows(table0)
 
     def _rows(self, table: torch.Tensor) -> torch.Tensor:
         return tricubic.rows_value(table, self.ri, self.wxy, self.zi,
-                                   self.wz, True)
+                                   self.wz, self.model.xy_first)
 
     def _rows_t(self, ct: torch.Tensor) -> torch.Tensor:
         (table_ct,) = torch.autograd.grad(self._graph, self._leaf, ct,
@@ -387,16 +388,17 @@ class PairedDtecLinear:
         return table_ct
 
     def _value_grad(self, table: torch.Tensor):
-        return boxspline.interp_rows_with_grad(table, self.grid, self.ends)
+        return self.model.rows.interp_rows_with_grad(table, self.grid,
+                                                     self.ends)
 
     def _value_grad_t(self, ct_value, ct_grad) -> torch.Tensor:
-        return boxspline.interp_rows_with_grad_transpose(
+        return self.model.rows.interp_rows_with_grad_transpose(
             self.grid, self.ends, ct_value, ct_grad, self.end_plan)
 
     def apply(self, dm: torch.Tensor) -> torch.Tensor:
         """J δm: field tangent (grid.shape) → dTEC tangent (Na·Nd,)."""
         check_full_f32()
-        t = boxspline.prefilter(dm, self.order).reshape(self.table_shape)
+        t = self.model.table(dm, self.grid).contiguous()
         dne = (self.ne * self._rows(t)).reshape(self.na, self.nd, self.n)
         if not self.hermite:
             return _paired_simpson_ne(dne, self.w, self.rays,
@@ -421,40 +423,39 @@ class PairedDtecLinear:
             ct_d = torch.cat([ct_d0, -ct_d0]) * self.ne_e
             table_ct = table_ct + self._value_grad_t(
                 ct_d * self.slope, ct_d[:, None] * self.t_hat)
-        return boxspline.prefilter_transpose(
-            table_ct.reshape(self.grid.shape), self.order)
+        return self.model.table_t(table_ct, self.grid)
 
 
 def dtec_paired_linear(field_m0, grid, rays, num_directions, i0=0,
                        quadrature: str = "hermite", interp: str = "cubic"
                        ) -> PairedDtecLinear:
-    """``dtec_paired_q`` linearised about ``field_m0`` (kernels K2, K3,
-    K1e and K1eᵀ on CUDA)."""
+    """``dtec_paired_q`` linearised about ``field_m0`` (on CUDA kernels
+    K2 and K3, with K5 and K5ᵀ on cubic or K1e and K1eᵀ on zp)."""
     return PairedDtecLinear(field_m0, grid, rays, num_directions, i0,
                             quadrature, interp)
 
 
 class _PlainPairedDtecLinear(PairedDtecLinear):
-    """``PairedDtecLinear`` with R, Rᵀ, K1e and K1eᵀ replaced by their
-    plain versions."""
+    """``PairedDtecLinear`` with R, Rᵀ, E and Eᵀ replaced by their plain
+    versions."""
 
     def _setup(self, table0: torch.Tensor) -> torch.Tensor:
         return self._rows(table0)
 
     def _rows(self, table: torch.Tensor) -> torch.Tensor:
         return tricubic.rows_value_ref(table, self.ri, self.wxy, self.zi,
-                                       self.wz, True)
+                                       self.wz, self.model.xy_first)
 
     def _rows_t(self, ct: torch.Tensor) -> torch.Tensor:
         return tricubic.rows_value_transpose_ref(
             ct, self.ri, self.wxy, self.zi, self.wz, self.table_shape)
 
     def _value_grad(self, table: torch.Tensor):
-        return boxspline.interp_rows_with_grad_ref(table, self.grid,
-                                                   self.ends)
+        return self.model.rows.interp_rows_with_grad_ref(table, self.grid,
+                                                         self.ends)
 
     def _value_grad_t(self, ct_value, ct_grad) -> torch.Tensor:
-        return boxspline.interp_rows_with_grad_transpose_ref(
+        return self.model.rows.interp_rows_with_grad_transpose_ref(
             self.grid, self.ends, ct_value, ct_grad)
 
 
@@ -465,3 +466,69 @@ def dtec_paired_linear_ref(field_m0, grid, rays, num_directions, i0=0,
     built from the ``*_ref`` primitives, on any device."""
     return _PlainPairedDtecLinear(field_m0, grid, rays, num_directions, i0,
                                   quadrature, interp)
+
+
+def tec_linear(ne_field: torch.Tensor, grid: Grid3D, rays: RayBundle,
+               interp: str = "cubic") -> torch.Tensor:
+    """TEC as a *linear* operator of the n_e field itself (m^-3 in,
+    working units out): the ray–voxel projection applied matrix-free."""
+    check_full_f32()
+    r, n = rays.points.shape[:2]
+    v = _interp_fast(ne_field, grid, rays.points.reshape(-1, 3), interp)
+    w = simpson_weights(n, v.dtype, v.device)
+    return (torch.einsum("rn,n->r", v.reshape(r, n), w) * rays.ds
+            * constants.KM_TO_M / constants.TEC_SCALE)
+
+
+def tec_linear_adjoint(y: torch.Tensor, grid: Grid3D, rays: RayBundle,
+                       interp: str = "cubic") -> torch.Tensor:
+    """Exact transpose of ``tec_linear``: data space (R,) → voxel grid.
+
+    Pᵀ Rᵀ of y_r·w_n·ds_r·1e3/TEC_SCALE per sample, Rᵀ being
+    ``rows_value_transpose`` on the field model's rows: kernel K3 over
+    the model's row plan on CUDA (deterministic), ``index_add_`` of the
+    scalar contributions on the CPU. On cubic the reference writes the
+    same scatter through the 64 stencil weights of ``interp_weights``; on
+    zp it takes ``jax.linear_transpose``, which includes Pᵀ."""
+    model = field_model(interp)
+    r, n = rays.points.shape[:2]
+    nx, ny, nz = grid.shape
+    ri, wxy, zi, wz = model.rows.row_setup(grid, rays.points.reshape(-1, 3))
+    wq = simpson_weights(n, y.dtype, y.device)
+    coef = (y[:, None] * wq[None, :] * rays.ds[:, None]
+            * (constants.KM_TO_M / constants.TEC_SCALE)).reshape(-1)
+    plan = model.rows.row_plan(ri, zi, nx * ny) if coef.is_cuda else None
+    table_ct = tricubic.rows_value_transpose(coef.contiguous(), ri, wxy, zi,
+                                             wz, (nx * ny, nz), plan)
+    return model.table_t(table_ct, grid)
+
+
+def ray_coverage(grid: Grid3D, rays: RayBundle,
+                 interp: str = "cubic") -> torch.Tensor:
+    """Per-voxel sampling weight: the adjoint of the path integral applied
+    to ones, i.e. how much ray path (in quadrature-weight units) touches
+    each voxel. A diagnostic, and the mask of the constrained region."""
+    ones = torch.ones((rays.num_rays,), dtype=torch.float32,
+                      device=rays.points.device)
+    return tec_linear_adjoint(ones, grid, rays, interp)
+
+
+def vtec_map(field_m: torch.Tensor, grid: Grid3D) -> torch.Tensor:
+    """Vertical TEC map: ∫ n_e dz per (x, y) column, (nx, ny) in
+    TEC_SCALE working units; Simpson over the grid's own z axis."""
+    check_full_f32()
+    ne = constants.K_NE * torch.exp(field_m)               # (nx, ny, nz)
+    w = simpson_weights(grid.shape[2], ne.dtype, ne.device)
+    dz = grid.spacing[2] * constants.KM_TO_M
+    return torch.einsum("xyz,z->xy", ne, w) * dz / constants.TEC_SCALE
+
+
+def dtec_noise_from_beam(tec_std: torch.Tensor, num_directions: int,
+                         i0: int = 0) -> torch.Tensor:
+    """Per-(antenna, direction) dTEC observation-noise contribution from
+    per-ray TEC spreads: σ_dTEC = sqrt(σ_ad² + σ_{i0,d}²), the reference
+    antenna's own row exactly 0."""
+    sd = torch.as_tensor(tec_std).reshape(-1, num_directions)
+    out = torch.sqrt(sd ** 2 + sd[i0][None, :] ** 2)
+    is_ref = torch.arange(sd.shape[0], device=sd.device)[:, None] == i0
+    return torch.where(is_ref, 0.0, out)

@@ -6,16 +6,19 @@ dp/ds = ∇n(x), n = sqrt(1 − KAPPA·n_e/f²) the cold-plasma
 Appleton–Hartree index, n_e = K_NE·exp(m(x)) from the interpolated
 log-density field. The TEC path integral rides along as extra state.
 
-``trace_rays`` with ``method="leapfrog"`` and a zp field model runs
-kernel K1 on CUDA tensors: all steps of a ray in one thread, one launch.
-Every other combination, and every CPU tensor, runs ``_trace_impl``, the
-port of the reference's integrator loop (a Python loop in place of
-``lax.scan``); on CUDA its zp field evaluations are kernel K1e.
-``trace_rays_ref`` is the plain PyTorch version of the whole tracer.
+``trace_rays`` with ``method="leapfrog"`` runs one kernel on CUDA
+tensors, all steps of a ray in one thread, one launch: K1 over the zp
+field model, K1c over the tricubic model (``interp="cubic"``, the
+default). Every other combination, and every CPU tensor, runs
+``_trace_impl``, the port of the reference's integrator loop (a Python
+loop in place of ``lax.scan``); on CUDA its field evaluations are kernel
+K1e (zp) or K5 (cubic). ``trace_rays_ref`` is the plain PyTorch version
+of the whole tracer. ``trace_rays_callable`` runs the same loop over a
+closed-form field.
 
-Not ported yet (ROADMAP.md Queue 1 item 12): ``trace_rays_split``,
-``trace_rays_callable``, ``straight_line_limit_error``, the stochastic
-beam trace and ``beam_noise_for_epoch``.
+Not ported yet (ROADMAP.md Queue 1 item 12): ``trace_rays_split``, the
+stochastic beam trace and ``beam_noise_for_epoch``, and the ``zpc*`` and
+``quadratic`` field models.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ import numpy as np
 import torch
 
 from .. import constants, kernels
-from ..core import boxspline
+from ..core import tricubic
+from ..core.field_models import field_model
 from ..core.grids import Grid3D
 from ..device import as_tensor
 from .rays import RayBundle
@@ -66,37 +70,16 @@ def _rhs(ne_vg, x: torch.Tensor, p: torch.Tensor, inv_f2: torch.Tensor):
     return tangent, grad_n, ne, dne_ds
 
 
-def _not_ported(interp: str, item: str):
-    return NotImplementedError(
-        f"interp={interp!r} is not ported to ionotomo_tpu_torch yet "
-        f"(ROADMAP.md {item}); the port has the zp model ('zp', "
-        f"'zp<order>')")
-
-
-def _zp_table(field_m: torch.Tensor, grid: Grid3D, interp: str):
-    """The prefiltered (nx*ny, nz) zp coefficient table, or raise for the
-    field models the port does not have yet."""
-    if interp == "cubic":
-        raise _not_ported(interp, "Queue 1 item 6, kernel K5")
-    if interp.startswith("zpc"):     # before "zp": shared prefix
-        raise _not_ported(interp, "Queue 1 item 12, kernel K6")
-    if interp.startswith("zp"):
-        nx, ny, nz = grid.shape
-        order = boxspline.zp_order(interp)
-        return boxspline.prefilter(field_m, order).reshape(nx * ny, nz)
-    if interp == "quadratic":
-        raise _not_ported(interp, "Queue 1 item 12, kernel K6")
-    raise ValueError(f"unknown interp: {interp!r}")
-
-
 def field_evaluator(field_m: torch.Tensor, grid: Grid3D,
                     interp: str = "cubic"):
     """Build the log-density ``(m, ∇m)`` evaluator for a C¹ field model,
-    paying the prefilter once. Only the zp model (``zp``/``zp<order>``:
-    Zwart-Powell box spline ⊗ quadratic-z, 8 row gathers) is ported;
-    ``cubic``, ``zpc*`` and ``quadratic`` raise NotImplementedError."""
-    coef2d = _zp_table(field_m, grid, interp)
-    return lambda x: boxspline.interp_rows_with_grad(coef2d, grid, x)
+    paying any prefilter once: ``cubic`` (Catmull-Rom tricubic, 16 row
+    gathers, kernel K5 on CUDA) or ``zp``/``zp<order>`` (Zwart-Powell box
+    spline ⊗ quadratic-z, 8 row gathers, kernel K1e). ``zpc*`` and
+    ``quadratic`` raise NotImplementedError."""
+    model = field_model(interp)
+    table = model.table(field_m, grid)
+    return lambda x: model.rows.interp_rows_with_grad(table, grid, x)
 
 
 def _step_constants(frequency_hz, max_length_km, n_steps):
@@ -133,16 +116,20 @@ def trace_rays(field_m: torch.Tensor, grid: Grid3D, origins: torch.Tensor,
     Integrators: ``rk4`` (4 field evaluations per step, the accuracy
     reference) and ``leapfrog`` (velocity Verlet, one field evaluation per
     step, Hermite 4th-order TEC; leapfrog@64 is the production
-    configuration). On CUDA, leapfrog over zp is kernel K1.
+    configuration). On CUDA, leapfrog is one kernel: K1 over zp, K1c over
+    cubic.
     """
     origins = as_tensor(origins, device=grid.device)
     directions = as_tensor(directions, device=grid.device)
     if origins.is_cuda and method == "leapfrog":
-        coef2d = _zp_table(field_m, grid, interp)
+        model = field_model(interp)
+        table = model.table(field_m, grid).contiguous()
         c = _step_constants(frequency_hz, max_length_km, n_steps)
-        x_end, tau, path = kernels.trace_leapfrog_zp(
-            coef2d, grid, origins.contiguous(), directions.contiguous(),
-            n_steps, keep_path, **c)
+        kernel = (kernels.trace_leapfrog_cubic if model.rows is tricubic
+                  else kernels.trace_leapfrog_zp)
+        x_end, tau, path = kernel(table, grid, origins.contiguous(),
+                                  directions.contiguous(), n_steps,
+                                  keep_path, **c)
         pts = path if keep_path else torch.stack([origins, x_end], dim=1)
         ds = torch.full((origins.shape[0],), c["h"], dtype=torch.float32,
                         device=origins.device)
@@ -159,12 +146,14 @@ def trace_rays_ref(field_m: torch.Tensor, grid: Grid3D,
                    max_length_km=constants.DEFAULT_MAX_LENGTH_KM,
                    n_steps: int = 128, keep_path: bool = True,
                    method: str = "rk4", interp: str = "cubic"):
-    """Plain PyTorch version of ``trace_rays`` (and so of K1): the
-    ``_trace_impl`` loop over the plain zp evaluator, on any device."""
-    coef2d = _zp_table(field_m, grid, interp)
+    """Plain PyTorch version of ``trace_rays`` (and so of K1 and K1c):
+    the ``_trace_impl`` loop over the field model's plain evaluator, on
+    any device."""
+    model = field_model(interp)
+    table = model.table(field_m, grid)
     return _trace_impl(
-        log_field_ne_vg(lambda x: boxspline.interp_rows_with_grad_ref(
-            coef2d, grid, x)),
+        log_field_ne_vg(lambda x: model.rows.interp_rows_with_grad_ref(
+            table, grid, x)),
         origins, directions, frequency_hz, max_length_km, n_steps,
         keep_path, method)
 
@@ -235,3 +224,31 @@ def _trace_impl(ne_vg, origins, directions, frequency_hz,
     ds = torch.full((origins.shape[0],), float(h32), dtype=torch.float32,
                     device=dev)
     return RayBundle(points=pts, ds=ds), tau
+
+
+def trace_rays_callable(ne_and_grad, origins, directions, frequency_hz,
+                        max_length_km=constants.DEFAULT_MAX_LENGTH_KM,
+                        n_steps: int = 128, keep_path: bool = True,
+                        method: str = "rk4"):
+    """Bent trace over a closed-form field evaluator ``ne_and_grad(x (R,
+    3)) → (n_e (R,), ∇n_e (R, 3) [m⁻³/km])``: no grid, no interpolant.
+    For analytic worlds such as ``models.turbulence.analytic_ne_fn``, so
+    that no solver's interpolation model defines the truth. Origins and
+    directions are tensors (they keep their device) or go to the card."""
+    origins = as_tensor(origins)
+    directions = as_tensor(directions, device=origins.device)
+    return _trace_impl(ne_and_grad, origins, directions, frequency_hz,
+                       max_length_km, n_steps, keep_path, method)
+
+
+def straight_line_limit_error(field_m, grid, origins, directions,
+                              frequency_hz, max_length_km, n_steps=128):
+    """Max endpoint deviation [km] from the straight path: a diagnostic,
+    and the n→1 invariant (a bent ray becomes straight at zero density or
+    high frequency)."""
+    bundle, _ = trace_rays(field_m, grid, origins, directions, frequency_hz,
+                           max_length_km, n_steps)
+    origins = as_tensor(origins, device=grid.device)
+    directions = as_tensor(directions, device=grid.device)
+    straight_end = origins + max_length_km * directions
+    return torch.linalg.norm(bundle.points[:, -1] - straight_end, dim=-1)

@@ -4,7 +4,8 @@
 Both are matrix-free over the frozen-path ray operator: the ray samples
 stay fixed during a solve and only the field varies. The linearised
 operator is ``forward.tec.PairedDtecLinear`` (J and Jᵀ written out; on
-CUDA kernels K2, K3, K1e and K1eᵀ), the Krylov loops are
+CUDA kernels K2 and K3 with K5 and K5ᵀ on the default tricubic model, or
+K1e and K1eᵀ on zp), the Krylov loops are
 ``core.linalg.cg``/``lsqr`` with fixed trip counts and no host sync, and
 the prior is ``priors.GPCovariance`` (cuFFT through ``torch.fft``). The
 reference's ``jax.lax.scan`` over Gauss-Newton steps is a Python loop.
@@ -145,9 +146,9 @@ def map_gauss_newton(grid: Grid3D, rays: RayBundle, d_obs, noise_std,
 
     ``m0``: warm-start iterate (default m_prior; the prior pull stays at
     m_prior). ``rays_inner`` / ``interp_inner``: the linear solve's
-    Jacobian (rhs and matvec) from a coarser bundle and/or another zp
-    order while residuals stay on ``rays``/``interp`` (mixed-fidelity
-    inexact Gauss-Newton). ``warm_start``: carry the whitened CG solution
+    Jacobian (rhs and matvec) from a coarser bundle and/or another field
+    model (e.g. ``interp="cubic", interp_inner="zp"``) while residuals
+    stay on ``rays``/``interp`` (mixed-fidelity inexact Gauss-Newton). ``warm_start``: carry the whitened CG solution
     u across Gauss-Newton steps (rescaled, ``linalg.cg`` ``scale_x0``);
     ``u0`` carries it between calls over the same data. info is
     (residual per step, CG iterations per step, CG residual per step).

@@ -11,7 +11,14 @@
 - K1eᵀ ``zp_value_grad_bwd``: the transpose of K1e with respect to the
   table, by the same plan-and-reduce scheme (csrc/zp_value_grad_bwd.cu);
 - KG  ``vector_gather``: out[i, j] = table[idx[i, j], j], the gather of the
-  JAX package's Pallas probe (csrc/vector_gather.cu).
+  JAX package's Pallas probe (csrc/vector_gather.cu);
+- K5  ``cubic_value_grad``: tricubic value + physical gradient at points
+  (csrc/cubic_value_grad.cu, csrc/cubic_eval.cuh);
+- K5ᵀ ``cubic_value_grad_bwd``: its transpose with respect to the table, by
+  the plan-and-reduce scheme (csrc/cubic_value_grad_bwd.cu);
+- K1c ``trace_leapfrog_cubic``: the leapfrog tracer over the tricubic model
+  (csrc/trace_leapfrog_cubic.cu; csrc/trace_leapfrog.cuh is the integrator
+  it shares with K1).
 
 Each wrapper checks dtype, shape, contiguity and device and raises on
 anything else (a CPU tensor included: the plain PyTorch versions live in
@@ -30,7 +37,9 @@ from . import build
 
 #: Kernel launches per wrapper since the last ``reset_launches()``.
 launches = {"trace_leapfrog_zp": 0, "zp_value_grad": 0, "rows_value_fwd": 0,
-            "rows_value_bwd": 0, "zp_value_grad_bwd": 0, "vector_gather": 0}
+            "rows_value_bwd": 0, "zp_value_grad_bwd": 0, "vector_gather": 0,
+            "cubic_value_grad": 0, "cubic_value_grad_bwd": 0,
+            "trace_leapfrog_cubic": 0}
 
 #: Widest table row the reduce kernels (K3, K1eᵀ) take: one row per warp
 #: in shared memory, 8 warps a block, within the 48 KB a block gets
@@ -69,11 +78,13 @@ def _check(name: str, specs) -> torch.device:
     return device
 
 
-def _grid_specs(name: str, coef2d, grid):
+def _grid_specs(name: str, coef2d, grid, min_axis: int = 3):
+    """Specs of a field model's table and grid; the zp model needs 3
+    samples an axis, the tricubic model 2."""
     nx, ny, nz = grid.shape
-    if min(grid.shape) < 3:
-        raise ValueError(f"{name}: every grid axis needs >= 3 samples, got "
-                         f"{grid.shape}")
+    if min(grid.shape) < min_axis:
+        raise ValueError(f"{name}: every grid axis needs >= {min_axis} "
+                         f"samples, got {grid.shape}")
     return [("coef2d", coef2d, torch.float32, (nx * ny, nz)),
             ("grid.origin", grid.origin, torch.float32, (3,)),
             ("grid.spacing", grid.spacing, torch.float32, (3,))]
@@ -95,23 +106,32 @@ def _launch(name: str, fn, *args):
     launches[name] += 1
 
 
-def zp_value_grad(coef2d: torch.Tensor, grid, points: torch.Tensor):
-    """K1e: zp value (N,) and physical gradient (N, 3) [1/km] at points
-    (N, 3) of the (nx*ny, nz) coefficient table ``coef2d``."""
-    name = "zp_value_grad"
+def _value_grad(name: str, min_axis: int, coef2d, grid, points):
     n = points.shape[0]
     dev = _check(name, [("points", points, torch.float32, (n, 3))]
-                 + _grid_specs(name, coef2d, grid))
+                 + _grid_specs(name, coef2d, grid, min_axis))
     value = torch.empty((n,), dtype=torch.float32, device=dev)
     grad = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n == 0:
         return value, grad
     nx, ny, nz = grid.shape
     with torch.cuda.device(dev):
-        _launch(name, "ionotomo_zp_value_grad", _ptr(coef2d),
-                _ptr(grid.origin), _ptr(grid.spacing), nx, ny, nz,
-                _ptr(points), n, _ptr(value), _ptr(grad))
+        _launch(name, "ionotomo_" + name, _ptr(coef2d), _ptr(grid.origin),
+                _ptr(grid.spacing), nx, ny, nz, _ptr(points), n, _ptr(value),
+                _ptr(grad))
     return value, grad
+
+
+def zp_value_grad(coef2d: torch.Tensor, grid, points: torch.Tensor):
+    """K1e: zp value (N,) and physical gradient (N, 3) [1/km] at points
+    (N, 3) of the (nx*ny, nz) coefficient table ``coef2d``."""
+    return _value_grad("zp_value_grad", 3, coef2d, grid, points)
+
+
+def cubic_value_grad(field2d: torch.Tensor, grid, points: torch.Tensor):
+    """K5: tricubic value (N,) and physical gradient (N, 3) [1/km] at
+    points (N, 3) of the field reshaped to (nx*ny, nz)."""
+    return _value_grad("cubic_value_grad", 2, field2d, grid, points)
 
 
 def rows_value_fwd(table: torch.Tensor, ri: torch.Tensor, wxy: torch.Tensor,
@@ -145,19 +165,14 @@ def rows_value_fwd(table: torch.Tensor, ri: torch.Tensor, wxy: torch.Tensor,
     return out
 
 
-def trace_leapfrog_zp(coef2d: torch.Tensor, grid, origins: torch.Tensor,
-                      directions: torch.Tensor, n_steps: int, keep_path: bool,
-                      *, h: float, hh12: float, w_n: float, w_rhs: float,
-                      k_ne: float, tec_unit: float):
-    """K1: leapfrog-trace R rays through the zp table for ``n_steps``
-    steps of ``h`` km. Returns (x_end (R, 3), tau (R,), path (R,
-    n_steps+1, 3) with the origins first, or None without keep_path).
-    The f32 constants are computed by the caller (geometry.fermat)."""
-    name = "trace_leapfrog_zp"
+def _trace_leapfrog(name: str, min_axis: int, table, grid, origins,
+                    directions, n_steps: int, keep_path: bool, *, h: float,
+                    hh12: float, w_n: float, w_rhs: float, k_ne: float,
+                    tec_unit: float):
     r = origins.shape[0]
     dev = _check(name, [("origins", origins, torch.float32, (r, 3)),
                         ("directions", directions, torch.float32, (r, 3))]
-                 + _grid_specs(name, coef2d, grid))
+                 + _grid_specs(name, table, grid, min_axis))
     if n_steps < 1:
         raise ValueError(f"{name}: n_steps must be >= 1, got {n_steps}")
     x_end = torch.empty((r, 3), dtype=torch.float32, device=dev)
@@ -168,12 +183,32 @@ def trace_leapfrog_zp(coef2d: torch.Tensor, grid, origins: torch.Tensor,
         return x_end, tau, path
     nx, ny, nz = grid.shape
     with torch.cuda.device(dev):
-        _launch(name, "ionotomo_trace_leapfrog_zp", _ptr(coef2d),
-                _ptr(grid.origin), _ptr(grid.spacing), nx, ny, nz,
-                _ptr(origins), _ptr(directions), r, int(n_steps), h, hh12,
-                w_n, w_rhs, k_ne, tec_unit, _ptr(x_end), _ptr(tau),
-                _ptr(path))
+        _launch(name, "ionotomo_" + name, _ptr(table), _ptr(grid.origin),
+                _ptr(grid.spacing), nx, ny, nz, _ptr(origins),
+                _ptr(directions), r, int(n_steps), h, hh12, w_n, w_rhs, k_ne,
+                tec_unit, _ptr(x_end), _ptr(tau), _ptr(path))
     return x_end, tau, path
+
+
+def trace_leapfrog_zp(coef2d: torch.Tensor, grid, origins: torch.Tensor,
+                      directions: torch.Tensor, n_steps: int, keep_path: bool,
+                      **consts):
+    """K1: leapfrog-trace R rays through the zp table for ``n_steps``
+    steps of ``h`` km. Returns (x_end (R, 3), tau (R,), path (R,
+    n_steps+1, 3) with the origins first, or None without keep_path).
+    The f32 constants h, hh12, w_n, w_rhs, k_ne and tec_unit are computed
+    by the caller (``geometry.fermat._step_constants``)."""
+    return _trace_leapfrog("trace_leapfrog_zp", 3, coef2d, grid, origins,
+                           directions, n_steps, keep_path, **consts)
+
+
+def trace_leapfrog_cubic(field2d: torch.Tensor, grid, origins: torch.Tensor,
+                         directions: torch.Tensor, n_steps: int,
+                         keep_path: bool, **consts):
+    """K1c: as ``trace_leapfrog_zp`` through the tricubic model of the
+    field reshaped to (nx*ny, nz)."""
+    return _trace_leapfrog("trace_leapfrog_cubic", 2, field2d, grid, origins,
+                           directions, n_steps, keep_path, **consts)
 
 
 def _plan_specs(name: str, plan, n_points):
@@ -242,24 +277,16 @@ def rows_value_bwd(ct: torch.Tensor, plan, wxy: torch.Tensor,
     return out
 
 
-def zp_value_grad_bwd(grid, points: torch.Tensor, ct_value: torch.Tensor,
-                      ct_grad: torch.Tensor, plan) -> torch.Tensor:
-    """K1eᵀ: the (nx*ny, nz) table cotangent of K1e for a value cotangent
-    (N,) and a physical-gradient cotangent (N, 3) at points (N, 3). The
-    plan lists the flat (point, translate) pair ids n·stride + t, t <
-    plan.live ≤ stride ≤ 8, sorted by row and z and cut into segments
-    (``core.boxspline.endpoint_plan``). Deterministic: no float atomics.
-    Runs on the stream the plan was built on and raises on another."""
-    name = "zp_value_grad_bwd"
+def _value_grad_bwd(name: str, min_axis: int, grid, points, ct_value,
+                    ct_grad, plan, extra=()):
     nx, ny, nz = grid.shape
     n = points.shape[0]
-    if not 1 <= plan.live <= plan.stride <= 8:
-        raise ValueError(f"{name}: needs 1 <= live <= stride <= 8, got "
-                         f"{plan.live}, {plan.stride}")
-    if min(grid.shape) < 3 or nz > MAX_NZ_REDUCE or plan.n_rows != nx * ny:
-        raise ValueError(f"{name}: every grid axis needs >= 3 samples, nz "
-                         f"<= {MAX_NZ_REDUCE} and a plan over nx*ny rows, "
-                         f"got {grid.shape} and {plan.n_rows} rows")
+    if (min(grid.shape) < min_axis or nz > MAX_NZ_REDUCE
+            or plan.n_rows != nx * ny):
+        raise ValueError(f"{name}: every grid axis needs >= {min_axis} "
+                         f"samples, nz <= {MAX_NZ_REDUCE} and a plan over "
+                         f"nx*ny rows, got {grid.shape} and {plan.n_rows} "
+                         f"rows")
     dev = _check(name, [("points", points, torch.float32, (n, 3)),
                         ("ct_value", ct_value, torch.float32, (n,)),
                         ("ct_grad", ct_grad, torch.float32, (n, 3)),
@@ -269,11 +296,42 @@ def zp_value_grad_bwd(grid, points: torch.Tensor, ct_value: torch.Tensor,
     out = torch.empty((nx * ny, nz), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         ptrs, partials = _plan_args(plan, nz, dev)
-        _launch(name, "ionotomo_zp_value_grad_bwd", _ptr(grid.origin),
+        _launch(name, "ionotomo_" + name, _ptr(grid.origin),
                 _ptr(grid.spacing), nx, ny, nz, _ptr(points), _ptr(ct_value),
-                _ptr(ct_grad), plan.stride, *ptrs, plan.n_seg_max,
-                plan.chunk, _ptr(partials), _ptr(out))
+                _ptr(ct_grad), *extra, *ptrs, plan.n_seg_max, plan.chunk,
+                _ptr(partials), _ptr(out))
     return out
+
+
+def zp_value_grad_bwd(grid, points: torch.Tensor, ct_value: torch.Tensor,
+                      ct_grad: torch.Tensor, plan) -> torch.Tensor:
+    """K1eᵀ: the (nx*ny, nz) table cotangent of K1e for a value cotangent
+    (N,) and a physical-gradient cotangent (N, 3) at points (N, 3). The
+    plan lists the flat (point, translate) pair ids n·stride + t, t <
+    plan.live ≤ stride ≤ 8, sorted by row and z and cut into segments
+    (``core.boxspline.endpoint_plan``). Deterministic: no float atomics.
+    Runs on the stream the plan was built on and raises on another."""
+    name = "zp_value_grad_bwd"
+    if not 1 <= plan.live <= plan.stride <= 8:
+        raise ValueError(f"{name}: needs 1 <= live <= stride <= 8, got "
+                         f"{plan.live}, {plan.stride}")
+    return _value_grad_bwd(name, 3, grid, points, ct_value, ct_grad, plan,
+                           (plan.stride,))
+
+
+def cubic_value_grad_bwd(grid, points: torch.Tensor, ct_value: torch.Tensor,
+                         ct_grad: torch.Tensor, plan) -> torch.Tensor:
+    """K5ᵀ: the (nx*ny, nz) table cotangent of K5 for a value cotangent
+    (N,) and a physical-gradient cotangent (N, 3) at points (N, 3). The
+    plan lists the flat (point, pencil) pair ids n·16 + k, all 16 live,
+    sorted by row and cell base and cut into segments
+    (``core.tricubic.endpoint_plan``). Deterministic: no float atomics.
+    Runs on the stream the plan was built on and raises on another."""
+    name = "cubic_value_grad_bwd"
+    if plan.live != 16 or plan.stride != 16:
+        raise ValueError(f"{name}: needs a plan of 16 live pairs a point, "
+                         f"got live {plan.live}, stride {plan.stride}")
+    return _value_grad_bwd(name, 2, grid, points, ct_value, ct_grad, plan)
 
 
 def vector_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

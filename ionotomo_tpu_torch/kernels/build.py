@@ -43,6 +43,14 @@ _SIGNATURES = {
                                         _P, _P, _P, _P, _P, _I, _I, _P, _P,
                                         _P]),
     "ionotomo_vector_gather": (_I, [_P, _I, _I, _P, _I, _P, _P]),
+    "ionotomo_cubic_value_grad": (_I, [_P, _P, _P, _I, _I, _I, _P, _I, _P,
+                                       _P, _P]),
+    "ionotomo_cubic_value_grad_bwd": (_I, [_P, _P, _I, _I, _I, _P, _P, _P,
+                                           _P, _P, _P, _P, _P, _I, _I, _P,
+                                           _P, _P]),
+    "ionotomo_trace_leapfrog_cubic": (_I, [_P, _P, _P, _I, _I, _I, _P, _P,
+                                           _I, _I, _F, _F, _F, _F, _F, _F,
+                                           _P, _P, _P, _P]),
     "ionotomo_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

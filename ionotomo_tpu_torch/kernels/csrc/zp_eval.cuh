@@ -18,6 +18,8 @@
 
 #include <cuda_runtime.h>
 
+#include "table_grid.cuh"
+
 // Canonical piece 3 (u+v > 0, u-v > 0) of boxspline._ZP_CW, as the
 // reference's _CW3 (6 monomials x 8 translates), _CU3 and _CV3 (d/du and
 // d/dv over the monomials 1, u, v), _DX3 and _DY3. Exact rationals /16.
@@ -43,33 +45,6 @@ static __constant__ float kZpCV3[3][8] = {
 static __constant__ float kZpDX3[8] = {-1.f, 0.f, 0.f, 0.f, 1.f, 1.f, 1.f, 0.f};
 static __constant__ float kZpDY3[8] = {0.f, -1.f, 0.f, 1.f, -1.f, 0.f, 1.f, 0.f};
 
-// The zp coefficient table (nx*ny, nz) and the grid it lives on.
-struct ZpGrid {
-  const float* __restrict__ coef;
-  float ox, oy, oz;  // origin [km]
-  float sx, sy, sz;  // spacing [km]
-  int nx, ny, nz;
-};
-
-// Reads origin and spacing from two (3,) device vectors.
-static __device__ __forceinline__ ZpGrid zp_grid(const float* coef,
-                                                 const float* origin,
-                                                 const float* spacing,
-                                                 int nx, int ny, int nz) {
-  ZpGrid g;
-  g.coef = coef;
-  g.ox = __ldg(origin + 0);
-  g.oy = __ldg(origin + 1);
-  g.oz = __ldg(origin + 2);
-  g.sx = __ldg(spacing + 0);
-  g.sy = __ldg(spacing + 1);
-  g.sz = __ldg(spacing + 2);
-  g.nx = nx;
-  g.ny = ny;
-  g.nz = nz;
-  return g;
-}
-
 // boxspline._neighborhood on one axis: clamped nearest-lattice base and
 // signed offset.
 static __device__ __forceinline__ void zp_axis(float p, float o, float s,
@@ -91,7 +66,7 @@ struct ZpPoint {
   float dwz[3];  // their d/dw
 };
 
-static __device__ __forceinline__ void zp_setup(const ZpGrid& g, float px,
+static __device__ __forceinline__ void zp_setup(const TableGrid& g, float px,
                                                 float py, float pz,
                                                 ZpPoint& q) {
   float u, v, w;
@@ -126,7 +101,7 @@ static __device__ __forceinline__ void zp_setup(const ZpGrid& g, float px,
 
 // Translate k (0..6; 7 is the zero-weight pad) of a set-up point: its
 // table row and its weight, d/du weight and d/dv weight.
-static __device__ __forceinline__ void zp_translate(const ZpGrid& g,
+static __device__ __forceinline__ void zp_translate(const TableGrid& g,
                                                     const ZpPoint& q, int k,
                                                     int& row, float& wk,
                                                     float& wu, float& wv) {
@@ -150,7 +125,7 @@ static __device__ __forceinline__ void zp_translate(const ZpGrid& g,
 
 // Value m and physical gradient dm/dx [1/km] at (px, py, pz).
 static __device__ __forceinline__ void zp_value_grad_at(
-    const ZpGrid& g, float px, float py, float pz, float& val, float& gx,
+    const TableGrid& g, float px, float py, float pz, float& val, float& gx,
     float& gy, float& gz) {
   ZpPoint q;
   zp_setup(g, px, py, pz, q);

@@ -32,7 +32,7 @@ __global__ void zp_value_grad_kernel(const float* __restrict__ coef,
                                      float* __restrict__ grad) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const ZpGrid g = zp_grid(coef, origin, spacing, nx, ny, nz);
+  const TableGrid g = table_grid(coef, origin, spacing, nx, ny, nz);
   float m, gx, gy, gz;
   zp_value_grad_at(g, points[3 * i + 0], points[3 * i + 1], points[3 * i + 2],
                    m, gx, gy, gz);

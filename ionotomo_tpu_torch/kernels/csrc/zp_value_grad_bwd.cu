@@ -31,7 +31,7 @@
 namespace {
 
 struct ZpPair {
-  ZpGrid g;
+  TableGrid g;
   const float* __restrict__ points;
   const float* __restrict__ cv;
   const float* __restrict__ cg;
@@ -94,7 +94,7 @@ __global__ void zp_value_grad_bwd_kernel(const float* __restrict__ origin,
                                          row_reduce::Plan plan,
                                          float* __restrict__ out) {
   extern __shared__ float smem[];
-  const ZpPair pair{zp_grid(nullptr, origin, spacing, nx, ny, nz), points,
+  const ZpPair pair{table_grid(nullptr, origin, spacing, nx, ny, nz), points,
                     cv, cg, K};
   row_reduce::reduce_segment<3>(plan, nz, smem + (threadIdx.x >> 5) * nz,
                                 out, pair);

@@ -1,12 +1,12 @@
-"""Chapman-layer a-priori electron density model (port of the parts of
-``ionotomo_tpu.models.chapman`` the bent-ray slice uses).
+"""Chapman-layer a-priori electron density model (port of
+``ionotomo_tpu.models.chapman``).
 
 ``n_e(h) = N_peak * exp(0.5 * (1 - z - exp(-z)))`` with
 ``z = (h - h_peak)/H``; optional solar-zenith modulation. Fields come out
 on the grid's device.
 
-Not ported yet (ROADMAP.md Queue 1 item 1): ``terminator_cos_chi``, the
-multi-layer stack and ``background_ne_fn``.
+Not ported yet (ROADMAP.md Queue 1 item 1): ``terminator_cos_chi``, which
+waits for ``geometry/frames.py``.
 """
 from __future__ import annotations
 
@@ -68,6 +68,109 @@ def chapman_field(grid: Grid3D, n_peak=1.0e12, h_peak_km=350.0,
                                   device=grid.device)
         field = field * solar_zenith_factor(cos_chi)
     return field
+
+
+#: Canonical daytime mid-latitude layer stack: (name, N_peak m^-3,
+#: h_peak km, scale height km, solar_sensitivity), the exponent with which
+#: the layer follows the solar-zenith factor (E and F1 track the sun; the
+#: transport-dominated F2 only partially fades at night).
+DEFAULT_LAYERS = (
+    ("E",  1.2e11, 110.0, 10.0, 1.0),
+    ("F1", 2.5e11, 180.0, 40.0, 1.0),
+    ("F2", 1.0e12, 350.0, 80.0, 0.5),
+)
+
+
+def multi_chapman_ne(h_km, layers=DEFAULT_LAYERS, cos_chi=None,
+                     plasmasphere_n0=0.0, plasmasphere_scale_km=1200.0):
+    """Multi-layer profile: the sum of Chapman layers (E/F1/F2 by default)
+    plus an optional exponential plasmasphere tail above the topmost peak.
+
+    ``layers``: iterable of (name, n_peak, h_peak_km, scale_km,
+    solar_sensitivity). ``cos_chi``: solar zenith cosine (scalar or
+    broadcastable to h_km); each layer is modulated by sqrt(cos χ) raised
+    to its sensitivity. ``plasmasphere_n0``: density of the
+    exp(−(h−h_top)/H_p) tail at the topmost peak (0 disables), switched on
+    by a logistic ramp over ~60 km so that it adds no gradient sheet.
+    """
+    h_km = torch.as_tensor(h_km, dtype=torch.float32)
+    total = torch.zeros_like(h_km)
+    h_top = 0.0
+    for (_, n_peak, h_peak, scale, sens) in layers:
+        ne = chapman_ne(h_km, n_peak, h_peak, scale)
+        if cos_chi is not None:
+            factor = solar_zenith_factor(torch.as_tensor(
+                cos_chi, dtype=torch.float32, device=h_km.device))
+            ne = ne * factor ** sens
+        total = total + ne
+        h_top = max(h_top, h_peak)
+    if plasmasphere_n0:
+        dh = h_km - h_top
+        tail = plasmasphere_n0 * torch.exp(
+            -torch.clamp_min(dh, 0.0) / plasmasphere_scale_km)
+        total = total + tail * torch.sigmoid(dh / 60.0)
+    return total
+
+
+def multi_chapman_field(grid: Grid3D, layers=DEFAULT_LAYERS, cos_chi=None,
+                        plasmasphere_n0=0.0, plasmasphere_scale_km=1200.0,
+                        curved=False, earth_radius_km=None):
+    """Sample the multi-layer profile onto a Grid3D (z axis = plane
+    height). ``cos_chi`` may be per-voxel (any shape broadcastable to
+    ``grid.shape``); ``curved=True`` evaluates each voxel at its true
+    altitude above the curved Earth."""
+    if curved:
+        h = altitude_field(grid, earth_radius_km)
+    elif cos_chi is None or torch.as_tensor(cos_chi).dim() == 0:
+        prof = multi_chapman_ne(_axis(grid, 2), layers, cos_chi,
+                                plasmasphere_n0, plasmasphere_scale_km)
+        return prof[None, None, :].expand(grid.shape)
+    else:
+        h = _axis(grid, 2)[None, None, :].expand(grid.shape)
+    return multi_chapman_ne(h, layers, cos_chi, plasmasphere_n0,
+                            plasmasphere_scale_km)
+
+
+def background_ne_fn(n_peak=1.0e12, h_peak_km=350.0, scale_km=80.0,
+                     cos_chi=None, curved=False, earth_radius_km=None,
+                     site_height_km=0.0, layers=None,
+                     plasmasphere_n0=0.0, plasmasphere_scale_km=1200.0):
+    """Closed-form background field evaluator: ``fn(points (R, 3) ENU km)
+    -> (n_e (R,) [m⁻³], ∇n_e (R, 3) [m⁻³/km])``, the gradient by autograd
+    of the analytic profile (the points are independent, so the gradient
+    of the summed profile is the per-point gradient the reference takes
+    with ``jax.value_and_grad`` under ``vmap``). Single Chapman layer by
+    default, a multi-Chapman stack with ``layers``, scalar solar-zenith
+    modulation, and the curved-Earth altitude model. Per-column cos_chi
+    maps are grid products and are refused."""
+    if cos_chi is not None and torch.as_tensor(cos_chi).dim() != 0:
+        raise ValueError("background_ne_fn needs scalar cos_chi; "
+                         "per-column terminator maps are grid products")
+    cc = None if cos_chi is None else float(cos_chi)
+    factor = 1.0 if cc is None else float(solar_zenith_factor(cc))
+    r_earth = (constants.EARTH_RADIUS_KM if earth_radius_km is None
+               else float(earth_radius_km))
+
+    def ne_of(x):
+        if curved:
+            zc = r_earth + site_height_km + x[:, 2]
+            h = torch.sqrt(x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1]
+                           + zc * zc) - r_earth
+        else:
+            h = x[:, 2]
+        if layers is not None:
+            return multi_chapman_ne(h, layers, cc, plasmasphere_n0,
+                                    plasmasphere_scale_km)
+        return factor * chapman_ne(h, n_peak, h_peak_km, scale_km)
+
+    def fn(points):
+        with torch.enable_grad():
+            x = points.detach().requires_grad_(True)
+            ne = ne_of(x)
+            (grad,) = torch.autograd.grad(ne.sum(), x)
+        return ne.detach(), grad
+
+    return fn
 
 
 #: Vacuum floor of the log-parametrization m = log(n_e/K_NE) ≈ -85.2

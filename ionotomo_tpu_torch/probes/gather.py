@@ -10,20 +10,25 @@ times both with CUDA events:
 
     python -m ionotomo_tpu_torch.probes.gather
 
-It needs a CUDA device and fails without one. Not ported yet: the
-row-gather baseline ``rowgather_baseline``, which runs the cubic
-value-and-gradient evaluator (ROADMAP.md Queue 2, K5).
+It needs a CUDA device and fails without one. ``rowgather_baseline`` is
+the reference probe's baseline beside it: chained tricubic value + gradient
+evaluations (kernel K5), the tracer's access pattern, in million point
+evaluations per second.
 """
 from __future__ import annotations
 
 import json
 import sys
+import time
 
 import numpy as np
 import torch
 
 from .. import kernels
+from ..core import tricubic
+from ..core.grids import Grid3D
 from ..device import resolve
+from ..models import chapman
 
 
 def vector_gather_ref(table: torch.Tensor, idx: torch.Tensor
@@ -85,6 +90,43 @@ def probe(device, rows: int = 16384, width: int = 128,
     }
 
 
+def rowgather_chain(f2d: torch.Tensor, grid: Grid3D, pts: torch.Tensor,
+                    n_steps: int) -> torch.Tensor:
+    """``n_steps`` chained value + gradient evaluations through the
+    tricubic row gather, each moving the points half a kilometre along
+    the normalised gradient: the tracer's dependent access pattern."""
+    for _ in range(n_steps):
+        v, g = tricubic.interp_rows_with_grad(f2d, grid, pts)
+        gn = g / (torch.linalg.norm(g, dim=-1, keepdim=True) + 1e-12)
+        pts = pts + 0.5 * gn + 1e-6 * v[:, None]
+    return pts
+
+
+def rowgather_baseline(nx: int = 128, n_pts: int = 1 << 17,
+                       n_steps: int = 64, device=None) -> float:
+    """Million point evaluations per second of ``rowgather_chain`` on an
+    nx³ Chapman grid (one untimed run first)."""
+    device = resolve(device)
+    grid = Grid3D.from_bounds((-400.0, -400.0, 0.0), (400.0, 400.0, 1100.0),
+                              (nx, nx, nx), device=device)
+    m = chapman.log_parametrize(chapman.chapman_field(grid))
+    f2d = m.reshape(nx * nx, nx).contiguous()
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(np.stack(
+        [rng.uniform(-300, 300, n_pts), rng.uniform(-300, 300, n_pts),
+         rng.uniform(100, 900, n_pts)], -1).astype(np.float32)).to(device)
+
+    def timed():
+        t0 = time.perf_counter()
+        rowgather_chain(f2d, grid, pts, n_steps)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter() - t0
+
+    timed()
+    return n_pts * n_steps / timed() / 1e6
+
+
 def run(device) -> dict:
     """The probe's JSON record on a CUDA device: the (16384, 128) table
     and the (8, 128) one-vreg control."""
@@ -100,7 +142,8 @@ def run(device) -> dict:
         "max_abs_err": max(full["max_abs_err"], control["max_abs_err"]),
         "device": torch.cuda.get_device_name(device),
         "torch_version": torch.__version__,
-        "rowgather_baseline": "not ported (needs the cubic evaluator, K5)",
+        "rowgather_baseline_Mpt_evals_per_sec": rowgather_baseline(
+            device=device),
     }
 
 

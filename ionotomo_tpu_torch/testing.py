@@ -8,6 +8,14 @@ SERVING_KERNELS = ("trace_leapfrog_zp", "zp_value_grad", "rows_value_fwd")
 #: kernels ``map_gauss_newton`` on zp with Hermite quadrature launches
 SOLVE_KERNELS = ("rows_value_fwd", "rows_value_bwd", "zp_value_grad",
                  "zp_value_grad_bwd")
+#: kernels the tricubic model adds: ``trace_rays(method="leapfrog")`` on
+#: cubic launches the first, ``map_gauss_newton`` on cubic with Hermite
+#: quadrature the other two beside ``rows_value_fwd``/``rows_value_bwd``
+CUBIC_KERNELS = ("trace_leapfrog_cubic", "cubic_value_grad",
+                 "cubic_value_grad_bwd")
+#: kernels ``map_gauss_newton`` on cubic with Hermite quadrature launches
+CUBIC_SOLVE_KERNELS = ("rows_value_fwd", "rows_value_bwd", "cubic_value_grad",
+                       "cubic_value_grad_bwd")
 
 
 def edge_case_points(shape, origin, spacing, n, rng):

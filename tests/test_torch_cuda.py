@@ -21,7 +21,8 @@ from ionotomo_tpu_torch.inversion import priors, solvers
 from ionotomo_tpu_torch.models import chapman
 from ionotomo_tpu_torch.probes import gather
 
-from ionotomo_tpu_torch.testing import (SERVING_KERNELS, SOLVE_KERNELS,
+from ionotomo_tpu_torch.testing import (CUBIC_SOLVE_KERNELS,
+                                        SERVING_KERNELS, SOLVE_KERNELS,
                                         edge_case_points)
 
 pytestmark = pytest.mark.cuda
@@ -412,3 +413,174 @@ def test_cg_over_the_kernel_operator_waits_for_no_sync(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(got, want)
+
+
+# --- the tricubic field model: K5, K5ᵀ, K1c and K4 through K3 -------------
+
+
+def _edge_points(dev, grid, n, seed):
+    rng = np.random.default_rng(seed)
+    pts = edge_case_points(grid.shape, grid.origin.cpu().numpy(),
+                           grid.spacing.cpu().numpy(), n, rng)
+    return torch.from_numpy(pts).to(dev), rng
+
+
+def test_cubic_value_grad_matches_plain(dev):
+    """K5 at points in, on and outside the grid. Tolerance 1e-5·max|table|
+    (value), over min spacing (gradient)."""
+    grid, m = _world(dev)
+    table = m.reshape(-1, grid.shape[2])
+    pts, _ = _edge_points(dev, grid, 20000, 20)
+    before = kernels.launches["cubic_value_grad"]
+    v, g = tricubic.interp_rows_with_grad(table, grid, pts)
+    assert kernels.launches["cubic_value_grad"] == before + 1
+    vr, gr = tricubic.interp_rows_with_grad_ref(table, grid, pts)
+    tol = 1e-5 * float(table.abs().max())
+    assert float((v - vr).abs().max()) <= tol
+    assert float((g - gr).abs().max()) <= tol / float(grid.spacing.min())
+    # K2 at the cubic shape through interp_rows gives the same value
+    assert float((tricubic.interp_rows(table, grid, pts) - vr).abs().max()) \
+        <= tol
+
+
+@pytest.mark.parametrize("chunk", [tricubic.SEGMENT_PAIRS, 7])
+def test_cubic_value_grad_transpose_matches_plain(dev, chunk):
+    """K5ᵀ at edge-case points and points clamped onto a grid corner (a
+    few rows hold every pair; rows and taps repeat there), over plans cut
+    into segments of 256 and 7 pairs: within 1e-4·max|out| of the plain
+    version, bitwise equal across calls and plans, counters back at zero,
+    and the adjoint identity with K5 to 1e-4."""
+    grid, m = _world(dev)
+    pts, rng = _edge_points(dev, grid, 8000, 21)
+    corner = pts.clone()
+    corner[:, :2] = grid.origin[:2] - 50.0 - corner[:, :2].abs()
+    pts = torch.cat([corner, pts]).contiguous()
+    n = pts.shape[0]
+    cv = torch.from_numpy(rng.normal(size=(n,)).astype(np.float32)).to(dev)
+    cg = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
+    idx, _, ri = tricubic._row_neighborhood(grid, pts)
+    n_rows = grid.shape[0] * grid.shape[1]
+
+    def plan():
+        return tricubic.build_row_plan(ri, n_rows, idx[:, 2, 1], chunk=chunk)
+
+    p = plan()
+    before = kernels.launches["cubic_value_grad_bwd"]
+    a = tricubic.interp_rows_with_grad_transpose(grid, pts, cv, cg, p)
+    assert kernels.launches["cubic_value_grad_bwd"] == before + 1
+    assert not p.counters.any()
+    b = tricubic.interp_rows_with_grad_transpose(grid, pts, cv, cg, p)
+    c = tricubic.interp_rows_with_grad_transpose(grid, pts, cv, cg, plan())
+    assert torch.equal(a, b) and torch.equal(a, c)
+    want = tricubic.interp_rows_with_grad_transpose_ref(grid, pts, cv, cg)
+    assert float((a - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    table = m.reshape(n_rows, -1)
+    v, g = tricubic.interp_rows_with_grad(table, grid, pts)
+    lhs = float((v.double() * cv.double()).sum()
+                + (g.double() * cg.double()).sum())
+    rhs = float((a.double() * table.double()).sum())
+    assert abs(lhs - rhs) <= 1e-4 * max(abs(lhs), abs(rhs))
+
+
+@pytest.mark.parametrize("keep_path", [True, False])
+def test_trace_leapfrog_cubic_matches_plain(dev, keep_path):
+    """K1c against the plain tracer, the default field model: 1e-3 km on
+    the path, 1e-5 relative on the TEC; bitwise equal across two calls."""
+    grid, m = _world(dev)
+    o, d = _rays(dev, 500)
+    kw = dict(n_steps=64, keep_path=keep_path, method="leapfrog")
+    before = kernels.launches["trace_leapfrog_cubic"]
+    b, t = fermat.trace_rays(m, grid, o, d, 150e6, 1000.0, **kw)
+    b2, t2 = fermat.trace_rays(m, grid, o, d, 150e6, 1000.0, **kw)
+    assert kernels.launches["trace_leapfrog_cubic"] == before + 2
+    assert torch.equal(b.points, b2.points) and torch.equal(t, t2)
+    br, tr = fermat.trace_rays_ref(m, grid, o, d, 150e6, 1000.0, **kw)
+    assert b.points.shape == br.points.shape
+    assert float((b.points - br.points).abs().max()) <= 1e-3
+    assert float(((t - tr).abs() / tr.abs()).max()) <= 1e-5
+
+
+def test_trace_cubic_over_dense_clip_matches_plain(dev):
+    """K1c at 8 MHz, where rays reflect and the over-dense clip zeroes
+    ∇n: 5e-2 km on the path and 2e-5 relative on the TEC, the bounds the
+    plain tracer is held to against the reference there."""
+    grid, m = _world(dev)
+    o, d = _rays(dev, 300)
+    kw = dict(n_steps=32, keep_path=True, method="leapfrog", interp="cubic")
+    b, t = fermat.trace_rays(m, grid, o, d, 8e6, 1000.0, **kw)
+    br, tr = fermat.trace_rays_ref(m, grid, o, d, 8e6, 1000.0, **kw)
+    assert float((b.points - br.points).abs().max()) <= 5e-2
+    assert float(((t - tr).abs() / tr.abs()).max()) <= 2e-5
+
+
+def test_trace_rk4_cubic_runs_k5(dev):
+    """rk4 on cubic runs the integrator loop with K5 as the field
+    evaluator (4 launches per step and one for p0)."""
+    grid, m = _world(dev)
+    o, d = _rays(dev, 200)
+    kw = dict(n_steps=16, keep_path=True, method="rk4", interp="cubic")
+    before = kernels.launches["cubic_value_grad"]
+    b, t = fermat.trace_rays(m, grid, o, d, 150e6, 1000.0, **kw)
+    assert kernels.launches["cubic_value_grad"] == before + 1 + 4 * 16
+    br, tr = fermat.trace_rays_ref(m, grid, o, d, 150e6, 1000.0, **kw)
+    assert float((b.points - br.points).abs().max()) <= 1e-3
+    assert float(((t - tr).abs() / tr.abs()).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("interp", ["cubic", "zp"])
+def test_tec_linear_adjoint_runs_k3_and_matches_index_add(dev, interp):
+    """K4 as K3: ``tec_linear_adjoint`` launches K3 over the model's row
+    plan, is bitwise equal across calls, satisfies the adjoint identity
+    with ``tec_linear`` (1e-4) and, on cubic, matches ``index_add_`` of
+    the 64 stencil weights per sample (1e-4·max)."""
+    grid, m = _world(dev)
+    o, d = _rays(dev, 300)
+    rb = rays.sample_straight_rays(o, d, 1000.0, 33)
+    rng = np.random.default_rng(22)
+    y = torch.from_numpy(rng.normal(size=(300,)).astype(np.float32)).to(dev)
+    before = kernels.launches["rows_value_bwd"]
+    a = tec.tec_linear_adjoint(y, grid, rb, interp)
+    b = tec.tec_linear_adjoint(y, grid, rb, interp)
+    assert kernels.launches["rows_value_bwd"] == before + 2
+    assert torch.equal(a, b)
+    x = torch.exp(m)
+    lhs = float(torch.dot(tec.tec_linear(x, grid, rb, interp).double(),
+                          y.double()))
+    rhs = float((x.double() * a.double()).sum())
+    assert abs(lhs - rhs) <= 1e-4 * max(abs(lhs), abs(rhs))
+    if interp == "cubic":
+        idx, w64 = tricubic.interp_weights(grid, rb.points.reshape(-1, 3))
+        wq = rays.simpson_weights(33, torch.float32, dev)
+        coef = (y[:, None] * wq[None, :] * rb.ds[:, None]
+                * (1e3 / 1e13)).reshape(-1)
+        want = torch.zeros(grid.num_voxels, device=dev).index_add_(
+            0, idx.reshape(-1).long(), (w64 * coef[:, None]).reshape(-1))
+        assert float((a.reshape(-1) - want).abs().max()) \
+            <= 1e-4 * float(want.abs().max())
+
+
+def test_cubic_solve_is_bitwise_reproducible(dev):
+    """map_gauss_newton on the default model, all cubic and with the zp
+    inner Jacobian, each twice: bitwise equal m, every kernel of the path
+    launched, and close to the plain-version solve."""
+    grid, rb, d_obs, m_prior, cov, nd = _solve_world(dev)
+    noise = 0.01 * float(d_obs.std())
+    # with the zp inner Jacobian the cubic operator gives only g0 and J
+    for inner, names in ((None, CUBIC_SOLVE_KERNELS),
+                         ("zp", ("cubic_value_grad",) + SOLVE_KERNELS)):
+        kw = dict(num_directions=nd, gn_iters=2, cg_iters=8,
+                  interp_inner=inner)
+        kernels.reset_launches()
+        a = solvers.map_gauss_newton(grid, rb, d_obs, noise, m_prior, cov,
+                                     **kw)
+        b = solvers.map_gauss_newton(grid, rb, d_obs, noise, m_prior, cov,
+                                     **kw)
+        for name in names:
+            assert kernels.launches[name] > 0, name
+        assert torch.equal(a.m, b.m)
+        assert bool(torch.isfinite(a.m).all())
+        plain = solvers.map_gauss_newton(
+            grid, rb, d_obs, noise, m_prior, cov,
+            linearize=tec.dtec_paired_linear_ref, **kw)
+        assert abs(float(a.residual_norm) - float(plain.residual_norm)) \
+            <= 1e-2 * float(plain.residual_norm)

@@ -219,7 +219,9 @@ def test_build_flags_target_hopper_with_ieee_math():
     assert "fast_math" not in flags and "fast-math" not in flags
     assert {p.name for p in build.sources()} == {
         "trace_leapfrog_zp.cu", "zp_value_grad.cu", "rows_value_fwd.cu",
-        "rows_value_bwd.cu", "zp_value_grad_bwd.cu", "vector_gather.cu"}
+        "rows_value_bwd.cu", "zp_value_grad_bwd.cu", "vector_gather.cu",
+        "cubic_value_grad.cu", "cubic_value_grad_bwd.cu",
+        "trace_leapfrog_cubic.cu"}
     assert build.BUILD_DIR.relative_to(REPO).parts[0] == "build"
 
 

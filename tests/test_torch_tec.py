@@ -130,7 +130,7 @@ def test_ne_at_matches_jax():
     np.testing.assert_allclose(got, want, rtol=5e-7 * np.abs(m).max())
 
 
-@pytest.mark.parametrize("interp", ["cubic", "zpc"])
+@pytest.mark.parametrize("interp", ["zpc3", "zpc"])
 def test_unported_field_models_raise(interp):
     _, m, _, tg, tb = _bundles("straight")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
