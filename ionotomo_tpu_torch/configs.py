@@ -14,6 +14,15 @@ progressive warm-started Gauss-Newton schedule (step 1 on the 33-sample
 bundle at cg 20, step 2 on the 65-sample bundle at cg 10, continuing step
 1's whitened Krylov solution).
 
+``config5``: the frozen-flow Kalman filter over 30 epochs of 100 × 100
+rays on a 128³ grid, zp, Hermite@65 with the @33 inner bundle, cg 10, in 5
+chunks of 6 steps chained through ``advect_first``/``m_clim``: the
+analytic world of config 4 drifting with the wind by an exact phase shift
+(so the filter's periodic spectral advection carries its true model
+error), data by ``trace_rays_callable`` at 128 steps per epoch plus 1 %
+noise. ``config5_enkf`` runs the 8-member ensemble filter on the same
+world.
+
 Sizes are arguments defaulting to the benches'; each function returns a
 dict of what its bench emits. Everything runs on the card unless
 ``device`` says otherwise. The observation noise is drawn by numpy from
@@ -33,7 +42,7 @@ from .core.grids import Grid3D
 from .device import resolve
 from .forward import tec as tec_mod
 from .geometry import fermat, rays as rays_mod
-from .inversion import solvers
+from .inversion import kalman, solvers
 from .inversion.priors import GPCovariance
 from .models import chapman
 from .models.turbulence import FourierModes, analytic_ne_fn
@@ -301,3 +310,231 @@ def config4(world: Config4World = None, warmup=True, **solve_kw) -> dict:
                 w.m_prior, w.grid, ants_h, dirs_h, d_h, interp=interp),
             "heldout_dtec_rms_post": heldout_dtec_rms(
                 res.m, w.grid, ants_h, dirs_h, d_h, interp=interp)}
+
+
+class Config5World(NamedTuple):
+    """What a config-5 filter run takes, and what its skill is measured
+    on."""
+    grid: Grid3D
+    m_bg: torch.Tensor           # the Chapman prior mean (log density)
+    m_true_last: torch.Tensor    # the truth's samples at the last epoch
+    cov: GPCovariance
+    wind: tuple                  # km/s
+    dt_s: float
+    d_seq: torch.Tensor          # (Nt, Na, Nd) observed dTEC per epoch
+    noise: float
+    rays: rays_mod.RayBundle     # the full-fidelity straight bundle
+    rays_inner: rays_mod.RayBundle | None
+    n_dirs: int
+    heldout: tuple               # (ants_h, dirs_h, d_h) at the last epoch
+    heldout_at: object           # epoch t -> d_h (Nh, Ndh) there, noise-free
+
+
+def config5_world(shape=(128, 128, 128), n_ants=100, n_dirs=100, nt=30,
+                  n_samples=65, inner_samples=33, n_modes=512,
+                  amplitude=0.25, outer_scale_km=120.0, world_seed=13,
+                  trace_steps=128, wind=(0.3, 0.1, 0.0), dt_s=30.0,
+                  noise_frac=0.01, seed=0, heldout=(20, 50, 99),
+                  frequency_hz=150e6, device=None) -> Config5World:
+    """The world of config 5: grid enclosing the rays, Chapman prior mean,
+    a closed-form Chapman × Fourier-mode von Kármán truth whose frozen-flow
+    evolution is an exact phase shift by wind·t·Δt (no grid, no
+    interpolant, and not the filter's own periodic advection), ``nt``
+    epochs of bent-ray dTEC through it (``trace_rays_callable``, leapfrog)
+    plus Gaussian noise of ``noise_frac``·std over all epochs drawn by
+    numpy from ``seed``, a von Kármán prior (σ 0.3, 80 km: off the truth's
+    120 km), the straight bundles, and noise-free held-out data at the
+    last epoch on ``heldout`` = (antennas, directions, seed) new rays."""
+    dev = resolve(device)
+    ants, dirs = make_rays(n_ants, n_dirs)
+    grid = chapman.grid_enclosing_rays(ants, dirs, shape=shape, h_min_km=0.0,
+                                       device=dev)
+    m_bg = chapman.log_parametrize(chapman.chapman_field(grid)).contiguous()
+    cov = GPCovariance.create(grid, sigma=0.3, length_scale=80.0,
+                              kind="von_karman")
+    kmax = float(np.pi / float(grid.spacing.max()))
+    modes = FourierModes(n_modes, amplitude, outer_scale_km, kmax,
+                         seed=world_seed, device=dev)
+    bg = chapman.background_ne_fn()
+    wind_np = np.asarray(wind, np.float64)
+
+    def tau(t, ants_, dirs_):
+        ne = analytic_ne_fn(modes.shifted(wind_np * (t * dt_s)), bg)
+        o, dv = rays_mod.make_ray_batch(torch.from_numpy(ants_).to(dev),
+                                        torch.from_numpy(dirs_).to(dev))
+        return fermat.trace_rays_callable(
+            ne, o, dv, frequency_hz, 1000.0, n_steps=trace_steps,
+            keep_path=False, method="leapfrog")[1]
+
+    def paired(tau_, nd):
+        tau_ = tau_.reshape(-1, nd)
+        return tau_ - tau_[0:1]
+
+    d_seq = torch.stack([paired(tau(t, ants, dirs), n_dirs)
+                         for t in range(nt)]).cpu().numpy()
+    noise = float(noise_frac * np.std(d_seq))
+    d_seq = d_seq + noise * np.random.default_rng(seed).standard_normal(
+        d_seq.shape).astype(np.float32)
+    ants_h, dirs_h = make_rays(heldout[0], heldout[1], seed=heldout[2])
+
+    def heldout_at(t):
+        return paired(tau(t, ants_h, dirs_h), heldout[1])
+
+    pts = torch.stack(torch.meshgrid(*grid.axes(), indexing="ij"),
+                      dim=-1).reshape(-1, 3)
+    m_true_last = m_bg + modes.shifted(
+        wind_np * ((nt - 1) * dt_s)).value(pts).reshape(grid.shape)
+    rb = straight_bundle(ants, dirs, n_samples, dev)
+    rb_inner = (straight_bundle(ants, dirs, inner_samples, dev)
+                if inner_samples else None)
+    return Config5World(grid, m_bg, m_true_last, cov,
+                        tuple(float(x) for x in wind), float(dt_s),
+                        torch.from_numpy(d_seq.astype(np.float32)).to(dev),
+                        noise, rb, rb_inner, n_dirs,
+                        (ants_h, dirs_h, heldout_at(nt - 1)), heldout_at)
+
+
+def _expand_steps(rb, n):
+    """The bundle with a leading time axis of n steps, expanded (stride
+    0): the filters set such a bundle up once."""
+    if rb is None:
+        return None
+    return rays_mod.RayBundle(points=rb.points.expand(n, *rb.points.shape),
+                              ds=rb.ds.expand(n, *rb.ds.shape))
+
+
+def config5_filter(world: Config5World, interp="zp", cg_iters=10, chunk=6,
+                   n_steps=None, quadrature="hermite", linearize=None,
+                   geometry_cache=None):
+    """The config-5 filter in production form: ``n_steps`` epochs (all by
+    default) in chunks of ``chunk`` steps (None: one call), each chunk
+    continuing the last through ``advect_first=True, m_clim=m_bg``.
+    Returns (the final state, pre-update and post-update whitened
+    residuals per step)."""
+    w = world
+    nt = w.d_seq.shape[0] if n_steps is None else n_steps
+    chunk = nt if chunk is None else chunk
+    cache = {} if geometry_cache is None else geometry_cache
+    m_cur, pre, post = w.m_bg, [], []
+    for c0 in range(0, nt, chunk):
+        n = min(chunk, nt - c0)
+        res = kalman.kalman_filter(
+            w.grid, _expand_steps(w.rays, n), w.d_seq[c0:c0 + n], w.noise,
+            m_cur, w.cov, w.wind, w.dt_s, num_directions=w.n_dirs,
+            cg_iters=cg_iters, advect_first=(c0 > 0), m_clim=w.m_bg,
+            rays_inner_seq=_expand_steps(w.rays_inner, n), interp=interp,
+            quadrature=quadrature, linearize=linearize,
+            geometry_cache=cache)
+        m_cur = res.m_seq[-1]
+        pre.append(res.residuals)
+        post.append(res.post_residuals)
+    return m_cur, torch.cat(pre), torch.cat(post)
+
+
+def config5_heldout_rms(m, w, interp="zp", epoch=None):
+    """Held-out dTEC rms of m on the world's held-out rays, against their
+    data at ``epoch`` (None: the last)."""
+    ants_h, dirs_h, d_h = w.heldout
+    if epoch is not None:
+        d_h = w.heldout_at(epoch)
+    return heldout_dtec_rms(m, w.grid, ants_h, dirs_h, d_h, n_samples=65,
+                            interp=interp)
+
+
+def config5(world: Config5World = None, warmup=True, **filter_kw) -> dict:
+    """Config 5: wall seconds for the whole filter run and timesteps per
+    second, and its skill: mean pre/post residual ratio, covered-voxel
+    RMSE against the truth at the last epoch and held-out dTEC rms there,
+    prior and posterior. ``world`` comes from ``config5_world`` (the
+    bench's when none is given), ``filter_kw`` go to ``config5_filter``.
+    ``warmup`` runs one untimed filter first (kernel build, allocator,
+    FFT plans, the bundles' set-up when a ``geometry_cache`` is given)."""
+    w = world if world is not None else config5_world()
+    interp = filter_kw.get("interp", "zp")
+    (m_f, pre, post), secs = _timed(lambda: config5_filter(w, **filter_kw),
+                                    w.grid.device, 1, warmup)
+    nt = pre.shape[0]
+    return {"config": "config5", "metric": "kalman_30steps_seconds",
+            "value": secs, "unit": "s", "steps": nt,
+            "timesteps_per_sec": nt / secs, "interp": interp,
+            "cg_iters": filter_kw.get("cg_iters", 10),
+            "n_samples": w.rays.num_samples,
+            "inner_samples": (w.rays_inner.num_samples
+                              if w.rays_inner is not None else 0),
+            "shape": list(w.grid.shape), "noise": w.noise,
+            "mean_residual_reduction": float(
+                (pre / torch.clamp_min(post, 1e-9)).mean()),
+            "covered_rmse_prior": covered_rmse(w.m_bg, w.m_true_last, w.grid,
+                                               w.rays),
+            "covered_rmse_post": covered_rmse(m_f, w.m_true_last, w.grid,
+                                              w.rays),
+            "heldout_dtec_rms_prior": config5_heldout_rms(w.m_bg, w, interp),
+            "heldout_dtec_rms_post": config5_heldout_rms(m_f, w, interp)}
+
+
+def enkf_noise(world: Config5World, n_members=8, n_steps=6, seed=0):
+    """The ensemble filter's unit-normal draws from a numpy seed:
+    (init_noise (B, *grid.shape), obs_noise (n_steps, B, Na·Nd)) on the
+    world's device."""
+    rng = np.random.default_rng(seed)
+    dev = world.grid.device
+    init = rng.standard_normal((n_members,) + tuple(world.grid.shape),
+                               dtype=np.float32)
+    obs = rng.standard_normal((n_steps, n_members,
+                               world.d_seq[0].numel()), dtype=np.float32)
+    return torch.from_numpy(init).to(dev), torch.from_numpy(obs).to(dev)
+
+
+def config5_enkf_filter(world: Config5World, noise, n_steps=6, chunk=None,
+                        interp="zp", cg_iters=10, quadrature="hermite",
+                        linearize=None, geometry_cache=None, **enkf_kw):
+    """The ensemble filter on config 5's world over its first ``n_steps``
+    epochs, in chunks of ``chunk`` steps (None: one call) chained through
+    ``ens0``/``step_offset``. ``noise`` = (init_noise, obs_noise) as
+    ``enkf_noise`` makes them. Returns the per-chunk
+    ``EnsembleKalmanResult`` list."""
+    w = world
+    init_noise, obs_noise = noise
+    chunk = n_steps if chunk is None else chunk
+    cache = {} if geometry_cache is None else geometry_cache
+    ens, out = None, []
+    for c0 in range(0, n_steps, chunk):
+        n = min(chunk, n_steps - c0)
+        res = kalman.ensemble_kalman_filter(
+            w.grid, _expand_steps(w.rays, n), w.d_seq[c0:c0 + n], w.noise,
+            w.m_bg, w.cov, w.wind, w.dt_s, w.n_dirs, obs_noise,
+            n_members=init_noise.shape[0], cg_iters=cg_iters,
+            advect_first=(c0 > 0), m_clim=w.m_bg, ens0=ens,
+            init_noise=init_noise, step_offset=c0,
+            rays_inner_seq=_expand_steps(w.rays_inner, n), interp=interp,
+            quadrature=quadrature, linearize=linearize,
+            geometry_cache=cache, **enkf_kw)
+        ens = res.ensemble
+        out.append(res)
+    return out
+
+
+def config5_enkf(world: Config5World = None, n_members=8, n_steps=6, seed=0,
+                 warmup=True, **filter_kw) -> dict:
+    """The 8-member ensemble filter on config 5's world: seconds per step
+    over its first ``n_steps`` epochs (one call), the mean's residuals,
+    the final spread, and the held-out dTEC rms of the final mean and of
+    the prior against the held-out rays' data at the run's last epoch."""
+    w = world if world is not None else config5_world()
+    interp = filter_kw.get("interp", "zp")
+    noise = enkf_noise(w, n_members, n_steps, seed)
+    (res,), secs = _timed(
+        lambda: config5_enkf_filter(w, noise, n_steps, **filter_kw),
+        w.grid.device, 1, warmup)
+    mean_f = res.mean_seq[-1]
+    return {"config": "config5_enkf", "metric": "enkf_seconds_per_step",
+            "value": secs / n_steps, "unit": "s", "steps": n_steps,
+            "members": n_members, "interp": interp,
+            "residual_first": float(res.residuals[0]),
+            "residual_last": float(res.residuals[-1]),
+            "spread_mean": float(res.std_seq[-1].mean()),
+            "spread_min": float(res.std_seq[-1].min()),
+            "heldout_dtec_rms_prior": config5_heldout_rms(w.m_bg, w, interp,
+                                                     n_steps - 1),
+            "heldout_dtec_rms_mean": config5_heldout_rms(mean_f, w, interp,
+                                                    n_steps - 1)}

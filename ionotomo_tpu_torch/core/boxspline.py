@@ -64,14 +64,15 @@ ZP_LIVE_TRANSLATES = 7
 def _apply_a_xy(f: torch.Tensor) -> torch.Tensor:
     """The ZP integer-sample mask A over (x, y): centre 1/2, 4-neighbours
     1/8, edge-clamped (replicate) so constants are preserved at the
-    boundary exactly like the interpolator's index clamp."""
-    nx, ny, _ = f.shape
+    boundary exactly like the interpolator's index clamp. f is
+    (..., nx, ny, nz): leading axes ride along."""
+    nx, ny, _ = f.shape[-3:]
     ix = torch.arange(nx, device=f.device)
     iy = torch.arange(ny, device=f.device)
-    xm = f[(ix - 1).clamp(min=0)]
-    xp = f[(ix + 1).clamp(max=nx - 1)]
-    ym = f[:, (iy - 1).clamp(min=0)]
-    yp = f[:, (iy + 1).clamp(max=ny - 1)]
+    xm = f.index_select(-3, (ix - 1).clamp(min=0))
+    xp = f.index_select(-3, (ix + 1).clamp(max=nx - 1))
+    ym = f.index_select(-2, (iy - 1).clamp(min=0))
+    yp = f.index_select(-2, (iy + 1).clamp(max=ny - 1))
     return 0.5 * f + 0.125 * (xm + xp + ym + yp)
 
 
@@ -83,7 +84,8 @@ def _z_matrix(nz: int, device: torch.device) -> torch.Tensor:
 
 
 def prefilter(field: torch.Tensor, order: int = 2) -> torch.Tensor:
-    """Field samples (nx, ny, nz) → box-spline coefficient grid.
+    """Field samples (..., nx, ny, nz) → box-spline coefficient grid
+    (leading axes, an ensemble's members, ride along).
 
     z axis: exact quadratic-B-spline inverse (one dense nz×nz matmul).
     (x, y) plane: quasi-interpolation by the truncated Neumann series
@@ -91,8 +93,8 @@ def prefilter(field: torch.Tensor, order: int = 2) -> torch.Tensor:
     reproduction and is the default; see the reference's docstring for
     the forward/inversion trade-off of higher orders)."""
     check_full_f32()
-    pz = _z_matrix(field.shape[2], field.device)
-    c = torch.einsum("ck,abk->abc", pz, field)
+    pz = _z_matrix(field.shape[-1], field.device)
+    c = torch.einsum("ck,...k->...c", pz, field)
     acc = c
     d = c
     for _ in range(order):
@@ -103,7 +105,7 @@ def prefilter(field: torch.Tensor, order: int = 2) -> torch.Tensor:
 
 def prefilter_transpose(coef: torch.Tensor, order: int = 2) -> torch.Tensor:
     """Pᵀ, the transpose of ``prefilter``: a coefficient-grid cotangent
-    (nx, ny, nz) → field cotangent. Σ_{j≤order} (I − Aᵀ)ʲ over (x, y),
+    (..., nx, ny, nz) → field cotangent. Σ_{j≤order} (I − Aᵀ)ʲ over (x, y),
     then the transposed z matmul. Written out rather than left to
     autograd: the backward of ``_apply_a_xy``'s clamped gathers is an
     ``index_put_`` with accumulation, which uses atomics on CUDA and is
@@ -118,8 +120,8 @@ def prefilter_transpose(coef: torch.Tensor, order: int = 2) -> torch.Tensor:
         # call of _apply_a_xy is a plain gather, with no atomics.
         d = d - _apply_a_xy(d)
         acc = acc + d
-    pz = _z_matrix(coef.shape[2], coef.device)
-    return torch.einsum("ck,abc->abk", pz, acc)
+    pz = _z_matrix(coef.shape[-1], coef.device)
+    return torch.einsum("ck,...c->...k", pz, acc)
 
 
 def zp_order(interp: str) -> int:

@@ -35,15 +35,17 @@ class FieldModel:
     order: int | None       # zp xy-prefilter Neumann order; None: no filter
 
     def table(self, field_m: torch.Tensor, grid: Grid3D) -> torch.Tensor:
-        """P: field samples (nx, ny, nz) → the (nx*ny, nz) table."""
+        """P: field samples (..., nx, ny, nz) → the (..., nx*ny, nz)
+        table (leading axes, an ensemble's members, ride along)."""
         nx, ny, nz = grid.shape
+        shape = field_m.shape[:-3] + (nx * ny, nz)
         if self.order is None:
-            return field_m.reshape(nx * ny, nz)
-        return boxspline.prefilter(field_m, self.order).reshape(nx * ny, nz)
+            return field_m.reshape(shape)
+        return boxspline.prefilter(field_m, self.order).reshape(shape)
 
     def table_t(self, table_ct: torch.Tensor, grid: Grid3D) -> torch.Tensor:
-        """Pᵀ: a table cotangent (nx*ny, nz) → field cotangent."""
-        ct = table_ct.reshape(grid.shape)
+        """Pᵀ: a table cotangent (..., nx*ny, nz) → field cotangent."""
+        ct = table_ct.reshape(table_ct.shape[:-2] + tuple(grid.shape))
         if self.order is None:
             return ct
         return boxspline.prefilter_transpose(ct, self.order)

@@ -24,8 +24,14 @@ class SolveInfo(NamedTuple):
     converged: torch.Tensor      # bool
 
 
-def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.sum(a * b)
+def _vdot(a: torch.Tensor, b: torch.Tensor, batch_dims: int = 0
+          ) -> torch.Tensor:
+    """⟨a, b⟩; with ``batch_dims`` leading system axes, one product per
+    system, kept broadcastable against a and b."""
+    if batch_dims == 0:
+        return torch.sum(a * b)
+    return torch.sum(a * b, dim=tuple(range(batch_dims, a.dim())),
+                     keepdim=True)
 
 
 def _safe(den: torch.Tensor) -> torch.Tensor:
@@ -35,8 +41,16 @@ def _safe(den: torch.Tensor) -> torch.Tensor:
 
 def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
        max_iters: int = 100, tol: float = 1e-6,
-       preconditioner: Callable | None = None, scale_x0: bool = False):
+       preconditioner: Callable | None = None, scale_x0: bool = False,
+       batch_dims: int = 0):
     """Conjugate gradients for an SPD ``matvec``.
+
+    ``batch_dims``: the number of leading axes of ``b`` that index
+    independent systems solved at once (an ensemble's member axis);
+    ``matvec`` then maps the whole batch. Every scalar of the iteration
+    (α, β, the convergence mask, the iteration count) is per system, masked
+    per system, which is what ``jax.vmap`` of the reference's ``cg`` does;
+    ``SolveInfo``'s fields then have the batch's shape.
 
     Stops updating (masked) once ‖r‖ ≤ tol·‖b‖. Returns (x, SolveInfo).
     ``scale_x0``: rescale the warm start to α·x0 with α = ⟨b, A x0⟩/
@@ -46,10 +60,14 @@ def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
     """
     x0 = torch.zeros_like(b) if x0 is None else x0
     M = preconditioner or (lambda v: v)
+
+    def dot(u, v):
+        return _vdot(u, v, batch_dims)
+
     if scale_x0:
         ax0 = matvec(x0)
-        denom = _vdot(ax0, ax0)
-        alpha0 = torch.where(denom > 0, _vdot(b, ax0) / _safe(denom),
+        denom = dot(ax0, ax0)
+        alpha0 = torch.where(denom > 0, dot(b, ax0) / _safe(denom),
                              torch.zeros_like(denom))
         x0 = alpha0 * x0
         r0 = b - alpha0 * ax0
@@ -57,29 +75,32 @@ def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
         r0 = b - matvec(x0)
     z = M(r0)
     p = z
-    tol2 = (tol * torch.sqrt(_vdot(b, b))) ** 2
-    rz = _vdot(r0, z)
+    tol2 = (tol * torch.sqrt(dot(b, b))) ** 2
+    rz = dot(r0, z)
     x, r = x0, r0
-    it = torch.zeros((), dtype=torch.int32, device=b.device)
     done = rz <= tol2
+    it = torch.zeros_like(done, dtype=torch.int32)
     for _ in range(max_iters):
         ap = matvec(p)
-        pap = _vdot(p, ap)
+        pap = dot(p, ap)
         alpha = torch.where(done | (pap == 0), torch.zeros_like(pap),
                             rz / _safe(pap))
         x = x + alpha * p
         r = r - alpha * ap
         z = M(r)
-        rz_new = _vdot(r, z)
-        rr = _vdot(r, r)
+        rz_new = dot(r, z)
+        rr = dot(r, r)
         new_done = done | (rr <= tol2)
         beta = torch.where(new_done | (rz == 0), torch.zeros_like(rz),
                            rz_new / _safe(rz))
         p = z + beta * p
         it = it + (~new_done).to(torch.int32)
         rz, done = rz_new, new_done
-    rnorm = torch.sqrt(_vdot(r, r))
-    return x, SolveInfo(iterations=it, residual_norm=rnorm, converged=done)
+    rnorm = torch.sqrt(dot(r, r))
+    lead = b.shape[:batch_dims]
+    return x, SolveInfo(iterations=it.reshape(lead),
+                        residual_norm=rnorm.reshape(lead),
+                        converged=done.reshape(lead))
 
 
 def lsqr(aop: Callable, atop: Callable, b: torch.Tensor,

@@ -25,9 +25,18 @@ transpose from the gather in the reference), each beside its plain
 version; ``interp``/``interp_with_grad``/``interp_weights`` are the
 64-neighbour block forms, plain on every device.
 
-Not ported yet: the member-axis batching rule and the batched transpose
-(ROADMAP.md Queue 2, K3 batched; the EnKF), gradients with respect to the
-weights, and the reference's sharded-gather plumbing.
+A table with a leading member axis, (B, R, nz) over shared indices and
+weights, is what ``jax.vmap`` over the field makes of ``rows_value_p`` in
+the reference (the ensemble Kalman filter's member axis): kernel K2b
+forward and K3b backward on CUDA, over the one plan of the point set, and
+the same plain versions with a member axis on the CPU. Member b of either
+is bitwise the unbatched kernel on member b. Batched indices loop the
+unbatched call, as the reference falls back to its vmapped plain
+implementation there; batched weights over an unbatched table (the
+reference: "rare; not a production path") raise NotImplementedError.
+
+Not ported yet: gradients with respect to the weights, and the
+reference's sharded-gather plumbing.
 """
 from __future__ import annotations
 
@@ -53,8 +62,12 @@ def _z_band(idx_z: torch.Tensor, w: torch.Tensor, nz: int) -> torch.Tensor:
 def rows_value_ref(table, ri, wxy, zi, wz, xy_first: bool) -> torch.Tensor:
     """Plain PyTorch version of K2: the unbatched branch of the
     reference's ``_rows_value_impl`` (whole rows gathered, contracted
-    against a dense z band)."""
+    against a dense z band). A (B, R, nz) table gives (B, N), member by
+    member (the plain version of K2b)."""
     check_full_f32()
+    if table.dim() == 3:
+        return torch.stack([rows_value_ref(t, ri, wxy, zi, wz, xy_first)
+                            for t in table])
     nz = table.shape[-1]
     rows = table[ri.long()]                              # (N,K,nz)
     band = _z_band(zi, wz, nz)                           # (N,nz)
@@ -116,6 +129,11 @@ class RowPlan:
         return self.seg_row.shape[0]
 
 
+#: Row plans built since the process started (a solve's set-up cost: each
+#: is a radix sort of its pairs); callers read the difference around a run.
+plans_built = [0]
+
+
 def build_row_plan(ri: torch.Tensor, n_rows: int, z0: torch.Tensor = None,
                    live: int = None, chunk: int = SEGMENT_PAIRS) -> RowPlan:
     """The plan of the pairs of row indices ri (N, K): the first ``live``
@@ -127,6 +145,7 @@ def build_row_plan(ri: torch.Tensor, n_rows: int, z0: torch.Tensor = None,
     n, stride = ri.shape
     live = stride if live is None else live
     dev = ri.device
+    plans_built[0] += 1
     ids = (torch.arange(n, dtype=torch.int64, device=dev)[:, None] * stride
            + torch.arange(live, dtype=torch.int64, device=dev)[None, :])
     key = ri[:, :live].to(torch.int64) << 32
@@ -159,38 +178,45 @@ def rows_value_transpose_ref(ct, ri, wxy, zi, wz, table_shape
     ct[n]·wxy[n,k]·wz[n,l] by ``index_add_`` of the K·L scalar
     contributions per point (on CUDA ``index_add_`` uses atomics, so this
     version is not bitwise reproducible there). Contributions at rows or
-    z outside the table are dropped, as in the reference."""
+    z outside the table are dropped, as in the reference. ct (B, N) gives
+    (B, n_rows, nz) by one ``index_add_`` along the flat table axis (the
+    plain version of K3b)."""
     n_rows, nz = table_shape
     flat, contrib = transpose_terms(ct, ri, wxy, zi, wz, table_shape)
-    out = torch.zeros(n_rows * nz, dtype=ct.dtype, device=ct.device)
-    return out.index_add_(0, flat, contrib).reshape(n_rows, nz)
+    out = torch.zeros(ct.shape[:-1] + (n_rows * nz,), dtype=ct.dtype,
+                      device=ct.device)
+    return out.index_add_(-1, flat, contrib).reshape(
+        ct.shape[:-1] + (n_rows, nz))
 
 
 def transpose_terms(ct, ri, wxy, zi, wz, table_shape):
-    """The K·L scalar contributions per point of the transpose and their
-    flat table indices, (N·K·L,) each; those outside the table are 0 at
-    index 0."""
+    """The K·L scalar contributions per point of the transpose, (N·K·L,)
+    (or (B, N·K·L) for ct (B, N)), and their flat table indices
+    (N·K·L,); those outside the table are 0 at index 0."""
     n_rows, nz = table_shape
-    contrib = (ct[:, None, None] * wxy[:, :, None]) * wz[:, None, :]
+    contrib = (ct[..., None, None] * wxy[:, :, None]) * wz[:, None, :]
     r = ri.long()[:, :, None]
     z = zi.long()[:, None, :]
     inside = (r >= 0) & (r < n_rows) & (z >= 0) & (z < nz)
     flat = torch.where(inside, r * nz + z, 0).reshape(-1)
-    return flat, torch.where(inside, contrib, 0.0).reshape(-1)
+    return flat, torch.where(inside, contrib, 0.0).reshape(
+        ct.shape[:-1] + (-1,))
 
 
 def rows_value_transpose(ct, ri, wxy, zi, wz, table_shape,
                          plan: RowPlan | None = None) -> torch.Tensor:
     """Transpose of ``rows_value`` with respect to the table: kernel K3
     on CUDA (over ``plan``, built here if not given), the plain version
-    on the CPU."""
+    on the CPU. ct (B, N) → (B, n_rows, nz): kernel K3b over the same one
+    plan."""
     if not ct.is_cuda:
         return rows_value_transpose_ref(ct, ri, wxy, zi, wz, table_shape)
     if plan is None:
         plan = build_row_plan(ri, table_shape[0], zi[:, 0])
-    return kernels.rows_value_bwd(ct.contiguous(), plan, wxy.contiguous(),
-                                  zi.contiguous(), wz.contiguous(),
-                                  table_shape[1])
+    bwd = (kernels.rows_value_bwd_batched if ct.dim() == 2
+           else kernels.rows_value_bwd)
+    return bwd(ct.contiguous(), plan, wxy.contiguous(), zi.contiguous(),
+               wz.contiguous(), table_shape[1])
 
 
 class _RowsValue(torch.autograd.Function):
@@ -204,11 +230,13 @@ class _RowsValue(torch.autograd.Function):
                 "rows_value: gradients with respect to the weights are not "
                 "ported (the reference falls back to its derived AD there)")
         ctx.save_for_backward(ri, wxy, zi, wz)
-        ctx.table_shape = tuple(table.shape)
+        ctx.table_shape = tuple(table.shape[-2:])
         ctx.plan = plan
-        if table.is_cuda:
-            return kernels.rows_value_fwd(table, ri, wxy, zi, wz, xy_first)
-        return rows_value_ref(table, ri, wxy, zi, wz, xy_first)
+        if not table.is_cuda:
+            return rows_value_ref(table, ri, wxy, zi, wz, xy_first)
+        fwd = (kernels.rows_value_fwd_batched if table.dim() == 3
+               else kernels.rows_value_fwd)
+        return fwd(table, ri, wxy, zi, wz, xy_first)
 
     @staticmethod
     def backward(ctx, ct):
@@ -224,7 +252,22 @@ def rows_value(table, ri, wxy, zi, wz, xy_first: bool,
     ri (N, K) int32; wxy (N, K); zi (N, L) int32; wz (N, L) → (N,).
     Kernel K2 forward and K3 backward on CUDA (``plan``: the pairs of
     ``ri`` sorted by row, built at the first backward if not given);
-    ``rows_value_ref`` and ``rows_value_transpose_ref`` on the CPU."""
+    ``rows_value_ref`` and ``rows_value_transpose_ref`` on the CPU.
+
+    A member axis: table (B, R, nz) over shared indices and weights →
+    (B, N), kernels K2b and K3b. Indices and weights with a leading axis
+    too (each (B, N, ·)) loop the unbatched call over it, with table[b] or
+    the one shared table. Batched weights over shared indices raise."""
+    if ri.dim() == 3 and zi.dim() == 3:
+        return torch.stack([
+            rows_value(table[b] if table.dim() == 3 else table, ri[b],
+                       wxy[b], zi[b], wz[b], xy_first)
+            for b in range(ri.shape[0])])
+    if not (ri.dim() == zi.dim() == wxy.dim() == wz.dim() == 2):
+        raise NotImplementedError(
+            "rows_value: a member axis on the weights alone, or on only some "
+            "of ri, wxy, zi, wz, is not ported (ROADMAP.md Queue 2, the "
+            "batching rule's rare cases); batch the table, or all four")
     return _RowsValue.apply(table, ri, wxy, zi, wz, xy_first, plan)
 
 

@@ -19,8 +19,13 @@ field m0 and its transpose, written out where the reference takes
 J δm = Q(n_e(m0) ⊙ R P δm) + the Hermite endpoint terms, Jᵀ y =
 Pᵀ Rᵀ(n_e ⊙ Qᵀ y) + Pᵀ Eᵀ(endpoint cotangents), with P the model's
 table map (the prefilter on zp, the identity on cubic), R ``rows_value``
-(K2, and K3 through its autograd backward), E the model's value +
-gradient (K5ᵀ or K1eᵀ as its transpose) and Q the paired quadrature.
+(K2) and Rᵀ ``rows_value_transpose`` (K3), E the model's value +
+gradient (K5ᵀ or K1eᵀ as its transpose) and Q the paired quadrature. What
+depends only on the ray samples is a ``DtecGeometry``, built once per
+bundle and shared by every linearisation over it; fields, tangents and
+cotangents may carry a leading member axis (K2b, K3b). ``tec_linear_op``
+is the same operator without the antenna pairing (absolute-TEC anchor
+rows) and ``LogNeLinear`` the linear map of ``log_ne_at`` (probe rows).
 
 ``tec_linear_adjoint`` (and so ``ray_coverage``) is Pᵀ of
 ``rows_value_transpose``: kernel K3 over the model's row plan, where the
@@ -41,6 +46,23 @@ from ..geometry.rays import RayBundle, simpson_weights, trapezoid_weights
 def _ref_row(arr: torch.Tensor, i0: int) -> torch.Tensor:
     """arr[i0], the reference antenna's row (unsharded)."""
     return arr[i0]
+
+
+def _sub_ref(x: torch.Tensor, i0, axis: int) -> torch.Tensor:
+    """x − x[i0] along the antenna axis ``axis`` (negative: leading member
+    axes ride along); ``i0`` None leaves x as it is (absolute TEC)."""
+    if i0 is None:
+        return x
+    return x - x.select(axis, i0).unsqueeze(axis)
+
+
+def _sub_ref_t(ct: torch.Tensor, i0, axis: int) -> torch.Tensor:
+    """Transpose of ``_sub_ref``."""
+    if i0 is None:
+        return ct
+    out = ct.clone()
+    out.select(axis, i0).sub_(ct.sum(axis))
+    return out
 
 
 def _coef2d(field_m: torch.Tensor, grid: Grid3D, interp: str
@@ -94,33 +116,26 @@ def tec_from_log_values(m_values: torch.Tensor, rays: RayBundle
 
 
 def _paired_simpson_ne(ne: torch.Tensor, w: torch.Tensor, rays: RayBundle,
-                       i0: int) -> torch.Tensor:
-    """Paired Simpson dTEC (Na, Nd) from densities ne (Na, Nd, N) [m⁻³]
-    (or their tangents: the map is linear in ne) and the Simpson weights
-    w (N,)."""
+                       i0) -> torch.Tensor:
+    """Paired Simpson dTEC (..., Na, Nd) from densities ne (..., Na, Nd, N)
+    [m⁻³] (or their tangents: the map is linear in ne) and the Simpson
+    weights w (N,). ``i0`` None: no pairing, the TEC per ray."""
     check_full_f32()
-    na, nd, _ = ne.shape
-    dne = ne - _ref_row(ne, i0)[None, :, :]
+    na, nd = ne.shape[-3:-1]
+    dne = _sub_ref(ne, i0, -3)
     ds = rays.ds.reshape(na, nd)
-    out = torch.einsum("akn,n->ak", dne, w) * ds * constants.KM_TO_M
+    out = torch.einsum("...n,n->...", dne, w) * ds * constants.KM_TO_M
     return out / constants.TEC_SCALE
 
 
 def _paired_simpson_ne_t(y: torch.Tensor, w: torch.Tensor, rays: RayBundle,
-                         i0: int) -> torch.Tensor:
-    """Transpose of ``_paired_simpson_ne``: (Na, Nd) → (Na, Nd, N)."""
-    na, nd = y.shape
+                         i0) -> torch.Tensor:
+    """Transpose of ``_paired_simpson_ne``: (..., Na, Nd) → (..., Na, Nd,
+    N)."""
+    na, nd = y.shape[-2:]
     ds = rays.ds.reshape(na, nd)
     s = (y / constants.TEC_SCALE) * constants.KM_TO_M * ds
-    ct = s[:, :, None] * w[None, None, :]
-    return _ref_row_t(ct, i0)
-
-
-def _ref_row_t(ct: torch.Tensor, i0: int) -> torch.Tensor:
-    """Transpose of x ↦ x − x[i0] over the leading (antenna) axis."""
-    out = ct.clone()
-    out[i0] -= ct.sum(0)
-    return out
+    return _sub_ref_t(s[..., None] * w, i0, -3)
 
 
 def dtec_paired_from_log_values(m_values: torch.Tensor, rays: RayBundle,
@@ -205,31 +220,30 @@ def tec_hermite_from_values(m_values: torch.Tensor, d0: torch.Tensor,
 
 
 def _paired_hermite_ne(ne: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor,
-                       w: torch.Tensor, rays: RayBundle, i0: int
+                       w: torch.Tensor, rays: RayBundle, i0
                        ) -> torch.Tensor:
-    """Paired Hermite dTEC (Na, Nd) from densities ne (Na, Nd, N), the
-    endpoint path derivatives d0, d1 (R,) (or their tangents: linear) and
-    the trapezoid weights w (N,)."""
+    """Paired Hermite dTEC (..., Na, Nd) from densities ne (..., Na, Nd,
+    N), the endpoint path derivatives d0, d1 (..., R) (or their tangents:
+    linear) and the trapezoid weights w (N,). ``i0`` None: no pairing."""
     check_full_f32()
-    na, nd, _ = ne.shape
-    dne = ne - _ref_row(ne, i0)[None, :, :]
-    corr = (d0 - d1).reshape(na, nd)
-    corr = corr - _ref_row(corr, i0)[None, :]
+    na, nd = ne.shape[-3:-1]
+    dne = _sub_ref(ne, i0, -3)
+    corr = _sub_ref((d0 - d1).reshape(d0.shape[:-1] + (na, nd)), i0, -2)
     ds = rays.ds.reshape(na, nd)
-    out = (torch.einsum("akn,n->ak", dne, w) * ds + corr * ds * ds / 12.0)
+    out = (torch.einsum("...n,n->...", dne, w) * ds + corr * ds * ds / 12.0)
     return out * (constants.KM_TO_M / constants.TEC_SCALE)
 
 
 def _paired_hermite_ne_t(y: torch.Tensor, w: torch.Tensor, rays: RayBundle,
-                         i0: int):
-    """Transpose of ``_paired_hermite_ne``: (Na, Nd) → (ct_ne (Na, Nd, N),
-    ct_d0 (R,)); the cotangent of d1 is −ct_d0."""
-    na, nd = y.shape
+                         i0):
+    """Transpose of ``_paired_hermite_ne``: (..., Na, Nd) → (ct_ne (...,
+    Na, Nd, N), ct_d0 (..., R)); the cotangent of d1 is −ct_d0."""
+    na, nd = y.shape[-2:]
     ds = rays.ds.reshape(na, nd)
     s = y * (constants.KM_TO_M / constants.TEC_SCALE)
-    ct_ne = _ref_row_t((s * ds)[:, :, None] * w[None, None, :], i0)
-    ct_corr = _ref_row_t(s * ds * ds / 12.0, i0)
-    return ct_ne, ct_corr.reshape(-1)
+    ct_ne = _sub_ref_t((s * ds)[..., None] * w, i0, -3)
+    ct_corr = _sub_ref_t(s * ds * ds / 12.0, i0, -2)
+    return ct_ne, ct_corr.reshape(y.shape[:-2] + (-1,))
 
 
 def dtec_paired_hermite_from_values(m_values: torch.Tensor,
@@ -297,6 +311,52 @@ def tec_q(field_m, grid, rays, quadrature: str = "simpson",
     return tec(field_m, grid, rays, interp)
 
 
+class DtecGeometry:
+    """What the linearised operators reuse while the ray samples stay
+    fixed, whatever field they are linearised about: the field model's
+    point set-up on the samples (``ri``, ``wxy``, ``zi``, ``wz``), the
+    quadrature weights, the Hermite endpoints with their unit tangents,
+    and on CUDA the two scatter plans (``row_plan`` for K3/K3b,
+    ``end_plan`` for K1eᵀ or K5ᵀ), each a sort of its pairs. A filter
+    that linearises about a new field every step over the same bundle
+    builds this once and passes it to every ``PairedDtecLinear``.
+
+    ``num_directions`` None: no antenna pairing, every ray its own row
+    (the absolute-TEC operator ``TecLinear``). ``plans=False`` builds no
+    plan (the plain-version operators take none)."""
+
+    def __init__(self, grid: Grid3D, rays: RayBundle, num_directions,
+                 i0=0, quadrature: str = "hermite", interp: str = "cubic",
+                 plans: bool = True):
+        check_full_f32()
+        if quadrature not in ("hermite", "simpson"):
+            raise ValueError(f"unknown quadrature: {quadrature!r}")
+        self.model = field_model(interp)      # raises for unported models
+        self.grid, self.rays = grid, rays
+        self.quadrature, self.interp = quadrature, interp
+        self.hermite = quadrature == "hermite"
+        r, self.n = rays.points.shape[:2]
+        if num_directions is None:
+            self.na, self.nd, self.i0 = r, 1, None
+        else:
+            self.na, self.nd, self.i0 = r // num_directions, num_directions, i0
+        nx, ny, nz = grid.shape
+        self.table_shape = (nx * ny, nz)
+        weights = trapezoid_weights if self.hermite else simpson_weights
+        self.w = weights(self.n, torch.float32, rays.points.device)
+        rows = self.model.rows
+        self.ri, self.wxy, self.zi, self.wz = rows.row_setup(
+            grid, rays.points.reshape(-1, 3))
+        self.ends = self.t_hat = None
+        if self.hermite:
+            self.ends, self.t_hat = _endpoint_tangents(rays.points)
+        cuda = plans and self.ri.is_cuda
+        self.row_plan = (rows.row_plan(self.ri, self.zi, self.table_shape[0])
+                         if cuda else None)
+        self.end_plan = (rows.endpoint_plan(grid, self.ends)
+                         if cuda and self.hermite else None)
+
+
 class PairedDtecLinear:
     """The paired-dTEC forward ``dtec_paired_q`` linearised about a field
     m0 under the field model ``interp``, with its exact transpose, over
@@ -312,160 +372,222 @@ class PairedDtecLinear:
         c = Q_dᵀ y,
 
     n_e at m0 on the samples and endpoints, δm_e and ∇δm_e the tangent's
-    value and gradient there (E on t). Everything that depends only on
-    m0 and the samples (point setup, weights, n_e, the two scatter plans)
-    is built once here; an application is P, one gather or scatter and
-    the quadrature. P, the point setup, E and the plans are the field
-    model's (``core.field_models``).
+    value and gradient there (E on t). What depends only on the samples
+    is a ``DtecGeometry`` (built here unless given: ``geometry=``); what
+    depends on m0 (n_e, the endpoint slopes, g0) is built here. An
+    application is P, one gather or scatter and the quadrature.
 
-    On CUDA tensors R is ``rows_value`` (K2) and Rᵀ its autograd
-    backward (K3); E and Eᵀ are K5 and K5ᵀ on cubic, K1e and K1eᵀ on zp.
+    **Member axis.** m0, δm and y may carry one leading axis (B, ...): the
+    members of an ensemble over the shared geometry. Then R is kernel K2b
+    and Rᵀ kernel K3b, one launch for all members; the endpoint terms E
+    and Eᵀ (20,000 points a bundle) launch their unbatched kernels once
+    per member. An operator linearised about one field also takes batched
+    δm and y (the square-root anchor update applies one K to all
+    anomalies).
+
+    On CUDA tensors R is ``rows_value`` (K2, K2b) and Rᵀ
+    ``rows_value_transpose`` (K3, K3b) over the geometry's plan; E and Eᵀ
+    are K5 and K5ᵀ on cubic, K1e and K1eᵀ on zp.
     ``dtec_paired_linear_ref`` builds the same operator from the plain
-    versions (``*_ref``) of those four, on any device.
+    versions (``*_ref``) of those, on any device.
     """
 
-    def __init__(self, field_m0: torch.Tensor, grid: Grid3D,
-                 rays: RayBundle, num_directions: int, i0: int = 0,
-                 quadrature: str = "hermite", interp: str = "cubic"):
-        check_full_f32()
-        if quadrature not in ("hermite", "simpson"):
-            raise ValueError(f"unknown quadrature: {quadrature!r}")
-        self.model = field_model(interp)      # raises for unported models
-        self.grid, self.rays, self.i0 = grid, rays, i0
-        self.hermite = quadrature == "hermite"
-        r, self.n = rays.points.shape[:2]
-        self.na, self.nd = r // num_directions, num_directions
-        nx, ny, nz = grid.shape
-        self.table_shape = (nx * ny, nz)
-        weights = trapezoid_weights if self.hermite else simpson_weights
-        self.w = weights(self.n, torch.float32, rays.points.device)
+    _plans = True
 
-        self.ri, self.wxy, self.zi, self.wz = self.model.rows.row_setup(
-            grid, rays.points.reshape(-1, 3))
-        if self.hermite:
-            self.ends, self.t_hat = _endpoint_tangents(rays.points)
-        table0 = self.model.table(field_m0, grid)
-        m_values = self._setup(table0)
-        self.ne = constants.K_NE * torch.exp(m_values)
-        ne3 = self.ne.reshape(self.na, self.nd, self.n)
-        if not self.hermite:
-            self.g0 = _paired_simpson_ne(ne3, self.w, rays, i0).reshape(-1)
+    def __init__(self, field_m0: torch.Tensor, grid: Grid3D,
+                 rays: RayBundle, num_directions, i0=0,
+                 quadrature: str = "hermite", interp: str = "cubic",
+                 geometry: DtecGeometry = None):
+        geo = geometry or DtecGeometry(grid, rays, num_directions, i0,
+                                       quadrature, interp, self._plans)
+        self.geometry = geo
+        table0 = geo.model.table(field_m0, grid).contiguous()
+        lead = table0.shape[:-2]
+        self.ne = constants.K_NE * torch.exp(self._rows(table0))
+        ne3 = self.ne.reshape(lead + (geo.na, geo.nd, geo.n))
+        if not geo.hermite:
+            self.g0 = _paired_simpson_ne(ne3, geo.w, rays, geo.i0).reshape(
+                lead + (-1,))
             return
         m_e, gm_e = self._value_grad(table0)
         self.ne_e = constants.K_NE * torch.exp(m_e)
-        self.slope = torch.einsum("pd,pd->p", gm_e, self.t_hat)
-        d0, d1 = endpoint_dne_ds_from(m_e, gm_e, self.t_hat)
-        self.g0 = _paired_hermite_ne(ne3, d0, d1, self.w, rays,
-                                     i0).reshape(-1)
+        self.slope = torch.einsum("...pd,pd->...p", gm_e, geo.t_hat)
+        dnds = self.ne_e * self.slope
+        r = geo.ends.shape[0] // 2
+        self.g0 = _paired_hermite_ne(ne3, dnds[..., :r], dnds[..., r:], geo.w,
+                                     rays, geo.i0).reshape(lead + (-1,))
 
-    def _setup(self, table0: torch.Tensor) -> torch.Tensor:
-        """Build what every application reuses, and return R table0: on
-        CUDA the two scatter plans; R's transpose is rows_value's autograd
-        backward (K3), taken through one retained graph of R over a zero
-        table."""
-        cuda = self.ri.is_cuda
-        rows = self.model.rows
-        plan = (rows.row_plan(self.ri, self.zi, self.table_shape[0])
-                if cuda else None)
-        self.row_plan = plan
-        self.end_plan = (rows.endpoint_plan(self.grid, self.ends)
-                         if cuda and self.hermite else None)
-        self._leaf = torch.zeros(self.table_shape, device=self.ri.device,
-                                 requires_grad=True)
-        with torch.enable_grad():
-            self._graph = tricubic.rows_value(
-                self._leaf, self.ri, self.wxy, self.zi, self.wz,
-                self.model.xy_first, plan)
-        return self._rows(table0)
+    def __getattr__(self, name):
+        # the geometry's fields (ri, row_plan, ends, na, ...) read as the
+        # operator's own
+        if name == "geometry":
+            raise AttributeError(name)
+        return getattr(self.geometry, name)
 
     def _rows(self, table: torch.Tensor) -> torch.Tensor:
-        return tricubic.rows_value(table, self.ri, self.wxy, self.zi,
-                                   self.wz, self.model.xy_first)
+        geo = self.geometry
+        return tricubic.rows_value(table, geo.ri, geo.wxy, geo.zi, geo.wz,
+                                   geo.model.xy_first)
 
     def _rows_t(self, ct: torch.Tensor) -> torch.Tensor:
-        (table_ct,) = torch.autograd.grad(self._graph, self._leaf, ct,
-                                          retain_graph=True)
-        return table_ct
+        geo = self.geometry
+        return tricubic.rows_value_transpose(
+            ct.contiguous(), geo.ri, geo.wxy, geo.zi, geo.wz,
+            geo.table_shape, geo.row_plan)
+
+    def _value_grad_1(self, table: torch.Tensor):
+        geo = self.geometry
+        return geo.model.rows.interp_rows_with_grad(table, geo.grid,
+                                                    geo.ends)
+
+    def _value_grad_t_1(self, ct_value, ct_grad) -> torch.Tensor:
+        geo = self.geometry
+        return geo.model.rows.interp_rows_with_grad_transpose(
+            geo.grid, geo.ends, ct_value, ct_grad, geo.end_plan)
 
     def _value_grad(self, table: torch.Tensor):
-        return self.model.rows.interp_rows_with_grad(table, self.grid,
-                                                     self.ends)
+        """E: value and gradient at the endpoints; member by member for a
+        (B, R, nz) table."""
+        if table.dim() == 2:
+            return self._value_grad_1(table)
+        vals, grads = zip(*(self._value_grad_1(t) for t in table))
+        return torch.stack(vals), torch.stack(grads)
 
     def _value_grad_t(self, ct_value, ct_grad) -> torch.Tensor:
-        return self.model.rows.interp_rows_with_grad_transpose(
-            self.grid, self.ends, ct_value, ct_grad, self.end_plan)
+        """Eᵀ; member by member for (B, P) and (B, P, 3) cotangents."""
+        if ct_value.dim() == 1:
+            return self._value_grad_t_1(ct_value, ct_grad)
+        return torch.stack([self._value_grad_t_1(cv, cg)
+                            for cv, cg in zip(ct_value, ct_grad)])
 
     def apply(self, dm: torch.Tensor) -> torch.Tensor:
-        """J δm: field tangent (grid.shape) → dTEC tangent (Na·Nd,)."""
+        """J δm: field tangent (..., *grid.shape) → dTEC tangent (...,
+        Na·Nd)."""
         check_full_f32()
-        t = self.model.table(dm, self.grid).contiguous()
-        dne = (self.ne * self._rows(t)).reshape(self.na, self.nd, self.n)
-        if not self.hermite:
-            return _paired_simpson_ne(dne, self.w, self.rays,
-                                      self.i0).reshape(-1)
+        geo = self.geometry
+        t = geo.model.table(dm, geo.grid).contiguous()
+        dne = self.ne * self._rows(t)
+        lead = dne.shape[:-1]
+        dne = dne.reshape(lead + (geo.na, geo.nd, geo.n))
+        if not geo.hermite:
+            return _paired_simpson_ne(dne, geo.w, geo.rays, geo.i0).reshape(
+                lead + (-1,))
         dm_e, dgm_e = self._value_grad(t)
         dd = ((self.ne_e * dm_e) * self.slope
-              + self.ne_e * torch.einsum("pd,pd->p", dgm_e, self.t_hat))
-        r = dd.shape[0] // 2
-        return _paired_hermite_ne(dne, dd[:r], dd[r:], self.w, self.rays,
-                                  self.i0).reshape(-1)
+              + self.ne_e * torch.einsum("...pd,pd->...p", dgm_e, geo.t_hat))
+        r = dd.shape[-1] // 2
+        return _paired_hermite_ne(dne, dd[..., :r], dd[..., r:], geo.w,
+                                  geo.rays, geo.i0).reshape(lead + (-1,))
 
     def apply_t(self, y: torch.Tensor) -> torch.Tensor:
-        """Jᵀ y: dTEC cotangent (Na·Nd,) → field cotangent (grid.shape)."""
-        y = y.reshape(self.na, self.nd)
-        if not self.hermite:
-            ct_ne = _paired_simpson_ne_t(y, self.w, self.rays, self.i0)
+        """Jᵀ y: dTEC cotangent (..., Na·Nd) → field cotangent (...,
+        *grid.shape)."""
+        geo = self.geometry
+        lead = y.shape[:-1]
+        y = y.reshape(lead + (geo.na, geo.nd))
+        if not geo.hermite:
+            ct_ne = _paired_simpson_ne_t(y, geo.w, geo.rays, geo.i0)
         else:
-            ct_ne, ct_d0 = _paired_hermite_ne_t(y, self.w, self.rays,
-                                                self.i0)
-        table_ct = self._rows_t(self.ne * ct_ne.reshape(-1))
-        if self.hermite:
-            ct_d = torch.cat([ct_d0, -ct_d0]) * self.ne_e
+            ct_ne, ct_d0 = _paired_hermite_ne_t(y, geo.w, geo.rays, geo.i0)
+        table_ct = self._rows_t(self.ne * ct_ne.reshape(lead + (-1,)))
+        if geo.hermite:
+            ct_d = torch.cat([ct_d0, -ct_d0], dim=-1) * self.ne_e
             table_ct = table_ct + self._value_grad_t(
-                ct_d * self.slope, ct_d[:, None] * self.t_hat)
-        return self.model.table_t(table_ct, self.grid)
+                ct_d * self.slope, ct_d[..., None] * geo.t_hat)
+        return geo.model.table_t(table_ct, geo.grid)
 
 
 def dtec_paired_linear(field_m0, grid, rays, num_directions, i0=0,
-                       quadrature: str = "hermite", interp: str = "cubic"
-                       ) -> PairedDtecLinear:
+                       quadrature: str = "hermite", interp: str = "cubic",
+                       geometry: DtecGeometry = None) -> PairedDtecLinear:
     """``dtec_paired_q`` linearised about ``field_m0`` (on CUDA kernels
-    K2 and K3, with K5 and K5ᵀ on cubic or K1e and K1eᵀ on zp)."""
+    K2 and K3, or K2b and K3b for a field with a member axis, with K5 and
+    K5ᵀ on cubic or K1e and K1eᵀ on zp)."""
     return PairedDtecLinear(field_m0, grid, rays, num_directions, i0,
-                            quadrature, interp)
+                            quadrature, interp, geometry)
 
 
 class _PlainPairedDtecLinear(PairedDtecLinear):
     """``PairedDtecLinear`` with R, Rᵀ, E and Eᵀ replaced by their plain
-    versions."""
+    versions (and no plans)."""
 
-    def _setup(self, table0: torch.Tensor) -> torch.Tensor:
-        return self._rows(table0)
+    _plans = False
 
     def _rows(self, table: torch.Tensor) -> torch.Tensor:
-        return tricubic.rows_value_ref(table, self.ri, self.wxy, self.zi,
-                                       self.wz, self.model.xy_first)
+        geo = self.geometry
+        return tricubic.rows_value_ref(table, geo.ri, geo.wxy, geo.zi,
+                                       geo.wz, geo.model.xy_first)
 
     def _rows_t(self, ct: torch.Tensor) -> torch.Tensor:
+        geo = self.geometry
         return tricubic.rows_value_transpose_ref(
-            ct, self.ri, self.wxy, self.zi, self.wz, self.table_shape)
+            ct, geo.ri, geo.wxy, geo.zi, geo.wz, geo.table_shape)
 
-    def _value_grad(self, table: torch.Tensor):
-        return self.model.rows.interp_rows_with_grad_ref(table, self.grid,
-                                                         self.ends)
+    def _value_grad_1(self, table: torch.Tensor):
+        geo = self.geometry
+        return geo.model.rows.interp_rows_with_grad_ref(table, geo.grid,
+                                                        geo.ends)
 
-    def _value_grad_t(self, ct_value, ct_grad) -> torch.Tensor:
-        return self.model.rows.interp_rows_with_grad_transpose_ref(
-            self.grid, self.ends, ct_value, ct_grad)
+    def _value_grad_t_1(self, ct_value, ct_grad) -> torch.Tensor:
+        geo = self.geometry
+        return geo.model.rows.interp_rows_with_grad_transpose_ref(
+            geo.grid, geo.ends, ct_value, ct_grad)
 
 
 def dtec_paired_linear_ref(field_m0, grid, rays, num_directions, i0=0,
-                           quadrature: str = "hermite", interp: str = "cubic"
+                           quadrature: str = "hermite", interp: str = "cubic",
+                           geometry: DtecGeometry = None
                            ) -> PairedDtecLinear:
     """Plain PyTorch version of ``dtec_paired_linear``: the same operator
     built from the ``*_ref`` primitives, on any device."""
     return _PlainPairedDtecLinear(field_m0, grid, rays, num_directions, i0,
-                                  quadrature, interp)
+                                  quadrature, interp, geometry)
+
+
+def tec_linear_op(field_m0, grid, rays, quadrature: str = "simpson",
+                  interp: str = "cubic", geometry: DtecGeometry = None,
+                  ref: bool = False) -> PairedDtecLinear:
+    """The absolute-TEC forward ``tec_q`` linearised about ``field_m0``:
+    the paired operator without the reference-antenna pairing, every ray
+    its own row, (R,) data. ``g0`` is ``tec_q(field_m0)``. The rows of the
+    absolute-TEC anchors (``inversion.anchors``). ``ref``: on the plain
+    versions."""
+    cls = _PlainPairedDtecLinear if ref else PairedDtecLinear
+    return cls(field_m0, grid, rays, None, None, quadrature, interp,
+               geometry)
+
+
+class LogNeLinear:
+    """``log_ne_at`` as a linear operator with its transpose: R P over
+    fixed points (N, 3), the rows of point-density probes. ``apply``
+    (..., *grid.shape) → (..., N) and ``apply_t`` back; ``g0`` is the
+    operator on ``field_m0`` (the map is exactly linear in m). K2 and K3
+    (K2b, K3b with a member axis) on CUDA."""
+
+    def __init__(self, field_m0, grid: Grid3D, points: torch.Tensor,
+                 interp: str = "cubic"):
+        self.model = field_model(interp)
+        self.grid = grid
+        nx, ny, nz = grid.shape
+        self.table_shape = (nx * ny, nz)
+        self.shape = tuple(points.shape[:-1])
+        self.setup = self.model.rows.row_setup(grid, points.reshape(-1, 3))
+        ri, _, zi, _ = self.setup
+        self.row_plan = (self.model.rows.row_plan(ri, zi, nx * ny)
+                         if ri.is_cuda else None)
+        self.g0 = self.apply(field_m0)
+
+    def apply(self, dm: torch.Tensor) -> torch.Tensor:
+        t = self.model.table(dm, self.grid).contiguous()
+        out = tricubic.rows_value(t, *self.setup, self.model.xy_first)
+        return out.reshape(out.shape[:-1] + self.shape)
+
+    def apply_t(self, y: torch.Tensor) -> torch.Tensor:
+        lead = y.shape[:y.dim() - len(self.shape)]
+        table_ct = tricubic.rows_value_transpose(
+            y.reshape(lead + (-1,)).contiguous(), *self.setup,
+            self.table_shape, self.row_plan)
+        return self.model.table_t(table_ct, self.grid)
 
 
 def tec_linear(ne_field: torch.Tensor, grid: Grid3D, rays: RayBundle,

@@ -15,9 +15,12 @@ operator (default ``tec.dtec_paired_linear``);
 ``tec.dtec_paired_linear_ref`` runs the same solve on the plain versions
 of the kernels.
 
-Not ported yet: anchor and probe rows (ROADMAP.md Queue 1 item 11,
-``inversion/anchors.py``, and item 13, ``data/ionosonde.py``),
-``map_gauss_newton_robust``, ``posterior_samples``,
+``map_gauss_newton`` takes absolute-TEC anchor rows
+(``inversion.anchors.TecAnchors``) and point-density probe rows (any
+object with ``points``, ``values``, ``noise_std``) appended to the data
+vector in the order [dTEC, anchors, probes].
+
+Not ported yet: ``map_gauss_newton_robust``, ``posterior_samples``,
 ``map_gauss_newton_batched`` and ``steepest_descent_map`` (Queue 1
 item 10).
 """
@@ -44,29 +47,52 @@ class InversionResult(NamedTuple):
                                   # next solve over the same data as u0)
 
 
-def _extra_rows_not_ported(anchors, probes):
-    if anchors is not None:
-        raise NotImplementedError(
-            "absolute-TEC anchor rows are not ported to ionotomo_tpu_torch "
-            "yet (ROADMAP.md Queue 1 item 11, inversion/anchors.py)")
-    if probes is not None:
-        raise NotImplementedError(
-            "point-density probe rows are not ported to ionotomo_tpu_torch "
-            "yet (ROADMAP.md Queue 1 item 13, data/ionosonde.py)")
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1)
 
 
 def anchored_forward(grid: Grid3D, rays: RayBundle, num_directions: int,
                      i0: int, anchors=None, quadrature: str = "hermite",
                      probes=None, interp: str = "cubic"):
-    """``fwd(m)`` → the flat data vector: the paired dTEC rows. Anchor
-    and probe rows raise NotImplementedError."""
-    _extra_rows_not_ported(anchors, probes)
+    """``fwd(m)`` → the stacked flat data vector: the paired dTEC rows,
+    then the absolute-TEC anchor rows (``inversion.anchors.TecAnchors``),
+    then the point-density probe rows (any object with ``points``,
+    ``values``, ``noise_std``; linear in m). Row order [dTEC, anchors,
+    probes], as ``_join_anchor_rows`` appends them."""
 
     def fwd(m):
-        return tec_mod.dtec_paired_q(m, grid, rays, num_directions, i0,
-                                     quadrature, interp).reshape(-1)
+        rows = [_flat(tec_mod.dtec_paired_q(m, grid, rays, num_directions,
+                                            i0, quadrature, interp))]
+        if anchors is not None:
+            rows.append(tec_mod.tec_q(m, grid, anchors.rays, quadrature,
+                                      interp))
+        if probes is not None:
+            rows.append(_flat(tec_mod.log_ne_at(m, grid, probes.points,
+                                                interp)))
+        return rows[0] if len(rows) == 1 else torch.cat(rows)
 
     return fwd
+
+
+class _StackedRows:
+    """Linear operators over one field stacked along the data axis:
+    ``apply`` concatenates their rows, ``apply_t`` sums their
+    transposes."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.sizes = [_flat(op.g0).shape[0] for op in ops]
+        self.g0 = torch.cat([_flat(op.g0) for op in ops])
+
+    def apply(self, dm):
+        return torch.cat([_flat(op.apply(dm)) for op in self.ops])
+
+    def apply_t(self, y):
+        parts = torch.split(y, self.sizes)
+        out = self.ops[0].apply_t(parts[0])
+        for op, part in zip(self.ops[1:], parts[1:]):
+            out = out + op.apply_t(part.reshape(op.g0.shape))
+        return out
 
 
 def _dtec_operator(grid: Grid3D, rays: RayBundle, num_directions: int,
@@ -74,11 +100,35 @@ def _dtec_operator(grid: Grid3D, rays: RayBundle, num_directions: int,
                    quadrature: str = "hermite", probes=None,
                    interp: str = "cubic", linearize=None):
     """Linearised dTEC operator about m0 and its exact transpose:
-    (apply, applyt, g0) with the data space flattened to (Na·Nd,)."""
-    _extra_rows_not_ported(anchors, probes)
-    op = (linearize or tec_mod.dtec_paired_linear)(
-        m0, grid, rays, num_directions, i0, quadrature, interp)
+    (apply, applyt, g0) with the data space flattened to (Na·Nd,), plus
+    the anchor rows (A,) and the probe rows (P,) when given."""
+    linearize = linearize or tec_mod.dtec_paired_linear
+    op = linearize(m0, grid, rays, num_directions, i0, quadrature, interp)
+    if anchors is not None or probes is not None:
+        ops = [op]
+        if anchors is not None:
+            ops.append(tec_mod.tec_linear_op(
+                m0, grid, anchors.rays, quadrature, interp,
+                ref=linearize is tec_mod.dtec_paired_linear_ref))
+        if probes is not None:
+            ops.append(tec_mod.LogNeLinear(m0, grid, probes.points, interp))
+        op = _StackedRows(ops)
     return op.apply, op.apply_t, op.g0
+
+
+def _join_anchor_rows(d, cd_diag, anchors, probes=None):
+    """Append the absolute-TEC anchor rows and the point-density probe
+    rows to a flat data vector and its noise-variance diagonal, in
+    ``anchored_forward``'s [dTEC, anchors, probes] order."""
+    for extra in (anchors, probes):
+        if extra is None:
+            continue
+        values = torch.as_tensor(extra.values, dtype=d.dtype,
+                                 device=d.device)
+        d = torch.cat([d, _flat(values)])
+        cd_diag = torch.cat([cd_diag, _noise_vector(
+            extra.noise_std, values.shape, d) ** 2])
+    return d, cd_diag
 
 
 def _noise_vector(noise_std, shape, like: torch.Tensor) -> torch.Tensor:
@@ -153,12 +203,12 @@ def map_gauss_newton(grid: Grid3D, rays: RayBundle, d_obs, noise_std,
     ``u0`` carries it between calls over the same data. info is
     (residual per step, CG iterations per step, CG residual per step).
     """
-    _extra_rows_not_ported(anchors, probes)
     m_prior = as_tensor(m_prior, device=grid.device)
     d_obs = torch.as_tensor(d_obs, dtype=torch.float32,
                             device=m_prior.device)
     d = d_obs.reshape(-1)
     cd_diag = _noise_vector(noise_std, d_obs.shape, d) ** 2
+    d, cd_diag = _join_anchor_rows(d, cd_diag, anchors, probes)
     inv_cd = 1.0 / cd_diag
     inner_model = interp_inner or interp
     shape = grid.shape
@@ -169,13 +219,14 @@ def map_gauss_newton(grid: Grid3D, rays: RayBundle, d_obs, noise_std,
     res_hist, it_hist, cg_hist = [], [], []
     for _ in range(gn_iters):
         apply_j, apply_jt, g0 = _dtec_operator(
-            grid, rays, num_directions, i0, m_k, quadrature=quadrature,
-            interp=interp, linearize=linearize)
+            grid, rays, num_directions, i0, m_k, anchors,
+            quadrature=quadrature, probes=probes, interp=interp,
+            linearize=linearize)
         if rays_inner is not None or inner_model != interp:
             apply_jc, apply_jtc, _ = _dtec_operator(
                 grid, rays_inner if rays_inner is not None else rays,
-                num_directions, i0, m_k, quadrature=quadrature,
-                interp=inner_model, linearize=linearize)
+                num_directions, i0, m_k, anchors, quadrature=quadrature,
+                probes=probes, interp=inner_model, linearize=linearize)
         else:
             apply_jc, apply_jtc = apply_j, apply_jt
         dm_prior = m_prior - m_k

@@ -18,7 +18,13 @@
   the plan-and-reduce scheme (csrc/cubic_value_grad_bwd.cu);
 - K1c ``trace_leapfrog_cubic``: the leapfrog tracer over the tricubic model
   (csrc/trace_leapfrog_cubic.cu; csrc/trace_leapfrog.cuh is the integrator
-  it shares with K1).
+  it shares with K1);
+- K2b ``rows_value_fwd_batched``: K2 over a leading member axis of the
+  table, the indices and weights shared
+  (csrc/rows_value_fwd_batched.cu);
+- K3b ``rows_value_bwd_batched``: K3 over a leading member axis of the
+  cotangent, over the one plan the members share
+  (csrc/rows_value_bwd_batched.cu).
 
 Each wrapper checks dtype, shape, contiguity and device and raises on
 anything else (a CPU tensor included: the plain PyTorch versions live in
@@ -39,7 +45,8 @@ from . import build
 launches = {"trace_leapfrog_zp": 0, "zp_value_grad": 0, "rows_value_fwd": 0,
             "rows_value_bwd": 0, "zp_value_grad_bwd": 0, "vector_gather": 0,
             "cubic_value_grad": 0, "cubic_value_grad_bwd": 0,
-            "trace_leapfrog_cubic": 0}
+            "trace_leapfrog_cubic": 0, "rows_value_fwd_batched": 0,
+            "rows_value_bwd_batched": 0}
 
 #: Widest table row the reduce kernels (K3, K1eᵀ) take: one row per warp
 #: in shared memory, 8 warps a block, within the 48 KB a block gets
@@ -165,6 +172,49 @@ def rows_value_fwd(table: torch.Tensor, ri: torch.Tensor, wxy: torch.Tensor,
     return out
 
 
+def _rows_specs(name: str, ri, wxy, zi, wz):
+    """(N, K, L, specs) of a row-gather point set: ri (N, K) int32, wxy
+    (N, K) f32 with K ≤ 16; zi (N, L) int32, wz (N, L) f32 with L ≤ 4."""
+    if ri.dim() != 2 or zi.dim() != 2:
+        raise ValueError(f"{name}: ri and zi must be 2-D, got {ri.dim()}, "
+                         f"{zi.dim()}")
+    n, k = ri.shape
+    l = zi.shape[1]
+    if not (1 <= k <= 16 and 1 <= l <= 4):
+        raise ValueError(f"{name}: needs 1 <= K <= 16 and 1 <= L <= 4, got "
+                         f"K={k}, L={l}")
+    return n, k, l, [("ri", ri, torch.int32, (n, k)),
+                     ("wxy", wxy, torch.float32, (n, k)),
+                     ("zi", zi, torch.int32, (n, l)),
+                     ("wz", wz, torch.float32, (n, l))]
+
+
+def rows_value_fwd_batched(table: torch.Tensor, ri: torch.Tensor,
+                           wxy: torch.Tensor, zi: torch.Tensor,
+                           wz: torch.Tensor, xy_first: bool) -> torch.Tensor:
+    """K2b: out[b, n] = Σ_k wxy[n,k] Σ_l wz[n,l] table[b, ri[n,k], zi[n,l]].
+
+    table (B, rows, nz) f32, member-major; ri, wxy, zi, wz as for
+    ``rows_value_fwd``, shared by the members. Returns (B, N); member b is
+    bitwise ``rows_value_fwd(table[b], ...)``."""
+    name = "rows_value_fwd_batched"
+    if table.dim() != 3:
+        raise ValueError(f"{name}: table must be (B, rows, nz), got "
+                         f"{tuple(table.shape)}")
+    n, k, l, specs = _rows_specs(name, ri, wxy, zi, wz)
+    b = table.shape[0]
+    dev = _check(name, [("table", table, torch.float32, tuple(table.shape))]
+                 + specs)
+    out = torch.empty((b, n), dtype=torch.float32, device=dev)
+    if n == 0 or b == 0:
+        return out
+    with torch.cuda.device(dev):
+        _launch(name, "ionotomo_rows_value_fwd_batched", _ptr(table), b,
+                table.shape[1], table.shape[2], _ptr(ri), _ptr(wxy), k,
+                _ptr(zi), _ptr(wz), l, n, int(bool(xy_first)), _ptr(out))
+    return out
+
+
 def _trace_leapfrog(name: str, min_axis: int, table, grid, origins,
                     directions, n_steps: int, keep_path: bool, *, h: float,
                     hh12: float, w_n: float, w_rhs: float, k_ne: float,
@@ -228,11 +278,11 @@ def _plan_specs(name: str, plan, n_points):
             ("plan.counters", plan.counters, torch.int32, (n_rows,))]
 
 
-def _plan_args(plan, nz, dev):
+def _plan_args(plan, nz, dev, members: int = 1):
     """The plan's pointers and sizes as the reduce kernels take them, and
-    the call's scratch for partial rows."""
-    partials = torch.empty((plan.n_seg_max, nz), dtype=torch.float32,
-                           device=dev)
+    the call's scratch for partial rows (one set per member)."""
+    partials = torch.empty((members * plan.n_seg_max, nz),
+                           dtype=torch.float32, device=dev)
     return (_ptr(plan.order), _ptr(plan.offsets), _ptr(plan.seg_row),
             _ptr(plan.row_seg), _ptr(plan.counters)), partials
 
@@ -274,6 +324,45 @@ def rows_value_bwd(ct: torch.Tensor, plan, wxy: torch.Tensor,
         _launch(name, "ionotomo_rows_value_bwd", _ptr(ct), _ptr(wxy), k,
                 _ptr(zi), _ptr(wz), l, nz, *ptrs, n_rows, plan.n_seg_max,
                 plan.chunk, _ptr(partials), _ptr(out))
+    return out
+
+
+def rows_value_bwd_batched(ct: torch.Tensor, plan, wxy: torch.Tensor,
+                           zi: torch.Tensor, wz: torch.Tensor, nz: int
+                           ) -> torch.Tensor:
+    """K3b: table_ct (B, plan.n_rows, nz) with table_ct[b, ri[n,k],
+    zi[n,l]] += ct[b,n]·wxy[n,k]·wz[n,l] over the one ``plan`` the members
+    share. ct (B, N) f32; wxy, zi, wz as for ``rows_value_bwd``.
+    Deterministic: no float atomics; member b is bitwise
+    ``rows_value_bwd(ct[b], plan, ...)``. Runs on the stream the plan was
+    built on and raises on another (one ticket a row serves all members)."""
+    name = "rows_value_bwd_batched"
+    if ct.dim() != 2 or wxy.dim() != 2 or zi.dim() != 2:
+        raise ValueError(f"{name}: ct, wxy and zi must be 2-D, got "
+                         f"{ct.dim()}, {wxy.dim()}, {zi.dim()}")
+    b, n = ct.shape
+    k, l = wxy.shape[1], zi.shape[1]
+    if not (1 <= k <= 16 and 1 <= l <= 4):
+        raise ValueError(f"{name}: needs 1 <= K <= 16 and 1 <= L <= 4, got "
+                         f"K={k}, L={l}")
+    if plan.stride != k:
+        raise ValueError(f"{name}: the plan's pair ids step by "
+                         f"{plan.stride} per point, wxy has K={k}")
+    n_rows = plan.n_rows
+    if not (1 <= nz <= MAX_NZ_REDUCE and n_rows >= 1 and b >= 1):
+        raise ValueError(f"{name}: needs B >= 1, n_rows >= 1 and 1 <= nz <= "
+                         f"{MAX_NZ_REDUCE}, got {b}, {n_rows}, {nz}")
+    dev = _check(name, [("ct", ct, torch.float32, (b, n)),
+                        ("wxy", wxy, torch.float32, (n, k)),
+                        ("zi", zi, torch.int32, (n, l)),
+                        ("wz", wz, torch.float32, (n, l))]
+                 + _plan_specs(name, plan, n))
+    out = torch.empty((b, n_rows, nz), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        ptrs, partials = _plan_args(plan, nz, dev, members=b)
+        _launch(name, "ionotomo_rows_value_bwd_batched", _ptr(ct), b, n,
+                _ptr(wxy), k, _ptr(zi), _ptr(wz), l, nz, *ptrs, n_rows,
+                plan.n_seg_max, plan.chunk, _ptr(partials), _ptr(out))
     return out
 
 

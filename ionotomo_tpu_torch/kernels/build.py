@@ -51,6 +51,11 @@ _SIGNATURES = {
     "ionotomo_trace_leapfrog_cubic": (_I, [_P, _P, _P, _I, _I, _I, _P, _P,
                                            _I, _I, _F, _F, _F, _F, _F, _F,
                                            _P, _P, _P, _P]),
+    "ionotomo_rows_value_fwd_batched": (_I, [_P, _I, _I, _I, _P, _P, _I, _P,
+                                             _P, _I, _I, _I, _P, _P]),
+    "ionotomo_rows_value_bwd_batched": (_I, [_P, _I, _I, _P, _I, _P, _P, _I,
+                                             _I, _P, _P, _P, _P, _P, _I, _I,
+                                             _I, _P, _P, _P]),
     "ionotomo_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

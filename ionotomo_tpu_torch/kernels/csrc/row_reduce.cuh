@@ -1,5 +1,7 @@
 // Deterministic scatter-add into the rows of an (n_rows, nz) table, shared
-// by K3 (rows_value_bwd.cu) and K1e^T (zp_value_grad_bwd.cu).
+// by K3 (rows_value_bwd.cu), K1e^T (zp_value_grad_bwd.cu), K5^T
+// (cubic_value_grad_bwd.cu) and, with a leading member axis, K3b
+// (rows_value_bwd_batched.cu).
 //
 // A scatter is a reduction over the (point, translate) pairs that land on
 // each table row. The pairs are fixed for a whole solve (straight rays),
@@ -186,6 +188,96 @@ __device__ __forceinline__ void reduce_segment(const Plan& plan, int nz,
   if (lane == 0) plan.counters[row] = 0;
 }
 
+// Members a warp reduces in one pass over its segment at most; the pass
+// holds one row of shared memory per member.
+constexpr int kMemberTile = 8;
+
+// reduce_segment with a leading member axis: the warp's segment reduced
+// into its row of every member's table, out (n_members, n_rows, nz), over
+// the one plan all members share. srow is the warp's tile * nz floats of
+// shared memory; partials is (n_members, n_seg_max, nz). The pairs' ids
+// and member-invariant inputs are loaded once per pass of `tile` members
+// and only the cotangent differs by member. Each member's sums run in the
+// order reduce_segment gives them (batches in order, the same scan tree,
+// segments in order), so member b of the result is bitwise what
+// reduce_segment makes of member b alone. One ticket a row suffices: a
+// warp takes it after the partial rows of all its members are written.
+// Pair is a functor with
+//   In load(int p, int b0, int tb) const   start the loads of flat pair p
+//                                          for members b0 .. b0+tb-1
+//                                          (p < 0: no pair);
+//   void contributions(const In&, int m, int (&z)[L], float (&c)[L]) const
+//                                          member b0+m's contributions.
+template <int L, class Pair>
+__device__ __forceinline__ void reduce_segment_members(
+    const Plan& plan, int nz, int n_members, int tile, float* srow,
+    float* __restrict__ out, const Pair& pair) {
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (s >= plan.n_seg_max) return;
+  const int row = plan.seg_row[s];
+  if (row >= plan.n_rows) return;  // past the plan's last segment
+  const int first = plan.row_seg[row];
+  const int nseg = plan.row_seg[row + 1] - first;
+  const int beg = plan.offsets[row] + (s - first) * plan.chunk;
+  const int end = min(beg + plan.chunk, plan.offsets[row + 1]);
+  const size_t out_stride = (size_t)plan.n_rows * (size_t)nz;
+  const size_t part_stride = (size_t)plan.n_seg_max * (size_t)nz;
+
+  for (int b0 = 0; b0 < n_members; b0 += tile) {
+    const int tb = min(tile, n_members - b0);
+    for (int z = lane; z < tb * nz; z += 32) srow[z] = 0.0f;
+    __syncwarp();
+    int p_next = beg + 32 + lane < end ? plan.order[beg + 32 + lane] : -1;
+    typename Pair::In in =
+        pair.load(beg + lane < end ? plan.order[beg + lane] : -1, b0, tb);
+    for (int j0 = beg; j0 < end; j0 += 32) {
+      const int p_after = j0 + 64 + lane < end ? plan.order[j0 + 64 + lane]
+                                               : -1;
+      const typename Pair::In in_next = pair.load(p_next, b0, tb);
+#pragma unroll
+      for (int m = 0; m < kMemberTile; ++m) {
+        if (m < tb) {  // uniform over the warp
+          int z[L];
+          float c[L];
+          pair.contributions(in, m, z, c);
+          add_batch<L>(z, c, nz, srow + m * nz);
+        }
+      }
+      in = in_next;
+      p_next = p_after;
+    }
+    __syncwarp();
+    for (int m = 0; m < tb; ++m) {
+      const float* src = srow + m * nz;
+      if (nseg == 1) {
+        float* dst = out + (size_t)(b0 + m) * out_stride +
+                     (size_t)row * (size_t)nz;
+        for (int z = lane; z < nz; z += 32) dst[z] = src[z];
+      } else {
+        float* part = plan.partials + (size_t)(b0 + m) * part_stride +
+                      (size_t)s * (size_t)nz;
+        for (int z = lane; z < nz; z += 32) __stcg(part + z, src[z]);
+      }
+    }
+    __syncwarp();
+  }
+  if (nseg == 1) return;
+  __threadfence();
+  __syncwarp();
+  int ticket = 0;
+  if (lane == 0) ticket = atomicAdd(plan.counters + row, 1);
+  ticket = __shfl_sync(kFullMask, ticket, 0);
+  if (ticket != nseg - 1) return;
+  __threadfence();
+  for (int b = 0; b < n_members; ++b)
+    fold_partials(plan.partials + (size_t)b * part_stride +
+                      (size_t)first * (size_t)nz,
+                  nseg, nz,
+                  out + (size_t)b * out_stride + (size_t)row * (size_t)nz);
+  if (lane == 0) plan.counters[row] = 0;
+}
+
 // Launch shape: one warp per segment, kWarpsPerBlock warps per block, nz
 // floats of dynamic shared memory per warp.
 inline int blocks_for(int n_seg_max) {
@@ -193,6 +285,12 @@ inline int blocks_for(int n_seg_max) {
 }
 inline size_t smem_bytes(int nz) {
   return (size_t)kWarpsPerBlock * (size_t)nz * sizeof(float);
+}
+// Members per pass of reduce_segment_members: as many rows per warp as the
+// 48 KB a block gets without opting in to more hold, kMemberTile at most.
+inline int member_tile(int n_members, int nz) {
+  const int fit = (48 * 1024) / (int)smem_bytes(nz);
+  return max(1, min(min(n_members, kMemberTile), fit));
 }
 
 }  // namespace row_reduce

@@ -16,6 +16,15 @@ CUBIC_KERNELS = ("trace_leapfrog_cubic", "cubic_value_grad",
 #: kernels ``map_gauss_newton`` on cubic with Hermite quadrature launches
 CUBIC_SOLVE_KERNELS = ("rows_value_fwd", "rows_value_bwd", "cubic_value_grad",
                        "cubic_value_grad_bwd")
+#: kernels ``kalman_filter`` on zp with Hermite quadrature launches (the
+#: point filter: one state, so no member-axis kernel)
+KALMAN_KERNELS = SOLVE_KERNELS
+#: kernels ``ensemble_kalman_filter`` on zp with Hermite quadrature
+#: launches: the member-axis gather and scatter, and the endpoint kernels
+#: once per member. The unbatched ``rows_value_fwd``/``rows_value_bwd`` run
+#: only outside the member update (never once per member in its place).
+ENKF_KERNELS = ("rows_value_fwd_batched", "rows_value_bwd_batched",
+                "zp_value_grad", "zp_value_grad_bwd")
 
 
 def edge_case_points(shape, origin, spacing, n, rng):

@@ -584,3 +584,209 @@ def test_cubic_solve_is_bitwise_reproducible(dev):
             linearize=tec.dtec_paired_linear_ref, **kw)
         assert abs(float(a.residual_norm) - float(plain.residual_norm)) \
             <= 1e-2 * float(plain.residual_norm)
+
+
+# --- the member axis: K2b and K3b ------------------------------------------
+
+
+@pytest.mark.parametrize("k,l,xy_first", [(8, 3, True), (16, 4, False)])
+@pytest.mark.parametrize("n_members", [1, 3, 8, 11])
+def test_rows_value_fwd_batched_is_k2_per_member(dev, k, l, xy_first,
+                                                 n_members):
+    """K2b: member b bitwise equal to K2 on table[b]; within
+    1e-5·Σ|w||T| of the plain version."""
+    rng = np.random.default_rng(40)
+    n, rows_n, nz = 4000, 300, 20
+    t = lambda a: torch.from_numpy(a).to(dev)
+    table = t(rng.normal(size=(n_members, rows_n, nz)).astype(np.float32))
+    ri = t(rng.integers(0, rows_n, (n, k)).astype(np.int32))
+    zi = t((rng.integers(0, nz - l + 1, (n, 1))
+            + np.arange(l)).astype(np.int32))
+    wxy = t(rng.normal(size=(n, k)).astype(np.float32))
+    wz = t(rng.normal(size=(n, l)).astype(np.float32))
+    before = dict(kernels.launches)
+    got = tricubic.rows_value(table, ri, wxy, zi, wz, xy_first)
+    assert kernels.launches["rows_value_fwd_batched"] == \
+        before["rows_value_fwd_batched"] + 1
+    assert kernels.launches["rows_value_fwd"] == before["rows_value_fwd"]
+    assert got.shape == (n_members, n)
+    for b in range(n_members):
+        assert torch.equal(got[b], kernels.rows_value_fwd(
+            table[b], ri, wxy, zi, wz, xy_first))
+    want = tricubic.rows_value_ref(table, ri, wxy, zi, wz, xy_first)
+    scale = (wxy.abs()[:, :, None] * wz.abs()[:, None, :]
+             * table[:, ri.long()[:, :, None], zi.long()[:, None, :]].abs()
+             ).sum((2, 3))
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("case", ["one_row", "boundaries", "scattered_z"])
+@pytest.mark.parametrize("k,l", [(8, 3), (16, 4)])
+@pytest.mark.parametrize("n_members", [1, 8, 11])
+def test_rows_value_bwd_batched_is_k3_per_member(dev, case, k, l, n_members):
+    """K3b over one shared plan (a skewed row, segment boundaries, unsorted
+    z; 11 members is two passes of the 8-member tile): member b bitwise
+    equal to K3 on ct[b] over the same plan, bitwise equal across two
+    calls, counters back at zero, within 1e-4·max|out| of the plain
+    version (``index_add_`` along the table axis)."""
+    ct1, ri, wxy, zi, wz, shape = (
+        torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+        for a in _segment_case(case, k, l))
+    rng = np.random.default_rng(41)
+    ct = torch.from_numpy(rng.normal(size=(n_members, ct1.shape[0]))
+                          .astype(np.float32)).to(dev)
+    plan = tricubic.build_row_plan(ri, shape[0], zi[:, 0])
+    before = dict(kernels.launches)
+    a = tricubic.rows_value_transpose(ct, ri, wxy, zi, wz, shape, plan)
+    assert not plan.counters.any()
+    b = tricubic.rows_value_transpose(ct, ri, wxy, zi, wz, shape, plan)
+    assert not plan.counters.any()
+    assert kernels.launches["rows_value_bwd_batched"] == \
+        before["rows_value_bwd_batched"] + 2
+    assert kernels.launches["rows_value_bwd"] == before["rows_value_bwd"]
+    assert a.shape == (n_members,) + tuple(shape)
+    assert torch.equal(a, b)
+    for m in range(n_members):
+        assert torch.equal(a[m], kernels.rows_value_bwd(
+            ct[m].contiguous(), plan, wxy, zi, wz, shape[1]))
+    want = tricubic.rows_value_transpose_ref(ct, ri, wxy, zi, wz, shape)
+    assert float((a - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_rows_value_batched_autograd_and_stream_refusal(dev):
+    """rows_value with a (B, R, nz) table: the autograd backward is K3b;
+    K3b refuses a plan built on another stream."""
+    ct1, ri, wxy, zi, wz, shape = (
+        torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+        for a in _segment_case("one_row", 8, 3))
+    rng = np.random.default_rng(42)
+    n = ct1.shape[0]
+    ct = torch.from_numpy(rng.normal(size=(4, n)).astype(np.float32)).to(dev)
+    leaf = torch.zeros((4,) + tuple(shape), device=dev, requires_grad=True)
+    out = tricubic.rows_value(leaf, ri, wxy, zi, wz, True)
+    before = kernels.launches["rows_value_bwd_batched"]
+    (g,) = torch.autograd.grad(out, leaf, ct)
+    assert kernels.launches["rows_value_bwd_batched"] == before + 1
+    want = tricubic.rows_value_transpose_ref(ct, ri, wxy, zi, wz, shape)
+    assert float((g - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    plan = tricubic.build_row_plan(ri, shape[0], zi[:, 0])
+    other = torch.cuda.Stream(dev)
+    with torch.cuda.stream(other):
+        with pytest.raises(ValueError, match="another CUDA stream"):
+            kernels.rows_value_bwd_batched(ct, plan, wxy, zi, wz, shape[1])
+    torch.cuda.synchronize()
+
+
+def _filter_world(dev, nt=2, n=16, na=5, nd=4, seed=43):
+    """A small time-evolving world on the card, every input a CUDA tensor
+    (so a filter call copies nothing from the host)."""
+    from ionotomo_tpu_torch.models.frozen_flow import advect_periodic
+
+    grid, m_bg = _world(dev, n=n, seed=seed)
+    o, d = _rays(dev, max(na, nd), seed=seed)
+    orig, dv = rays.make_ray_batch(o[:na], d[:nd])
+    rb = rays.sample_straight_rays(orig, dv, n_samples=33)
+    rb_in = rays.sample_straight_rays(orig, dv, n_samples=17)
+    wind = torch.tensor([0.3, 0.1, 0.0], device=dev)
+    rng = np.random.default_rng(seed)
+    pert = torch.from_numpy(0.2 * rng.normal(size=grid.shape)
+                            .astype(np.float32)).to(dev)
+    cov = priors.GPCovariance.create(grid, sigma=0.3, length_scale=150.0,
+                                     kind="sqexp")
+    pert = cov.apply_sqrt(pert)
+    d_seq = torch.stack([tec.dtec_paired_q(
+        m_bg + advect_periodic(pert, grid, wind * (30.0 * t)), grid, rb, nd,
+        0, "hermite", "zp") for t in range(nt)])
+    noise = 0.01 * d_seq.std()
+
+    def seq(b):
+        return rays.RayBundle(b.points.expand(nt, *b.points.shape),
+                              b.ds.expand(nt, *b.ds.shape))
+
+    return dict(grid=grid, m_bg=m_bg, cov=cov, wind=wind, d_seq=d_seq,
+                noise=noise, rays=seq(rb), inner=seq(rb_in), nd=nd)
+
+
+@pytest.mark.parametrize("adapt", [0, 1])
+def test_kalman_filter_step_waits_for_no_sync(dev, adapt):
+    """After a first call has built the geometry (its plans) and the
+    kernels, a whole ``kalman_filter`` call (mixed fidelity; with and
+    without wind adaptation, whose k×k solve must not check its status on
+    the host) runs under ``set_sync_debug_mode("error")``: the time loop
+    reads nothing back. It launches ``KALMAN_KERNELS`` and no member-axis
+    kernel (wind adaptation applies J to its 3 tangents as a batch: K2b),
+    and is bitwise equal to the first call."""
+    from ionotomo_tpu_torch.inversion.kalman import kalman_filter
+    from ionotomo_tpu_torch.testing import KALMAN_KERNELS
+
+    w = _filter_world(dev)
+    cache = {}
+
+    def run():
+        return kalman_filter(
+            w["grid"], w["rays"], w["d_seq"], w["noise"], w["m_bg"],
+            w["cov"], w["wind"], 30.0, w["nd"], cg_iters=4, fade=0.95,
+            interp="zp", rays_inner_seq=w["inner"],
+            wind_adapt_iters=adapt, geometry_cache=cache)
+
+    first = run()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(kernels.launches[k] > 0 for k in KALMAN_KERNELS)
+    assert (kernels.launches["rows_value_fwd_batched"] > 0) == bool(adapt)
+    assert kernels.launches["rows_value_bwd_batched"] == 0
+    assert torch.equal(first.m_seq, second.m_seq)
+    assert torch.isfinite(second.m_seq).all()
+    assert (second.post_residuals < second.residuals).all()
+
+
+def test_ensemble_filter_step_waits_for_no_sync_and_runs_member_kernels(dev):
+    """The ensemble filter under ``set_sync_debug_mode("error")`` after a
+    first call: it launches ``ENKF_KERNELS``, the unbatched K2 and K3 not
+    at all, the endpoint kernels a multiple of B times; bitwise equal to
+    the first call, and chunked = one call bitwise."""
+    from ionotomo_tpu_torch.inversion.kalman import ensemble_kalman_filter
+    from ionotomo_tpu_torch.testing import ENKF_KERNELS
+
+    w = _filter_world(dev)
+    b, nt = 3, w["d_seq"].shape[0]
+    rng = np.random.default_rng(44)
+    init = torch.from_numpy(rng.normal(size=(b,) + w["grid"].shape)
+                            .astype(np.float32)).to(dev)
+    obs = torch.from_numpy(rng.normal(size=(nt, b, w["d_seq"][0].numel()))
+                           .astype(np.float32)).to(dev)
+    cache = {}
+
+    def run(t0=0, t1=nt, **kw):
+        sl = lambda s: rays.RayBundle(s.points[t0:t1], s.ds[t0:t1])
+        return ensemble_kalman_filter(
+            w["grid"], sl(w["rays"]), w["d_seq"][t0:t1], w["noise"],
+            w["m_bg"], w["cov"], w["wind"], 30.0, w["nd"], obs, n_members=b,
+            cg_iters=4, interp="zp", rays_inner_seq=sl(w["inner"]),
+            inflation=1.1, geometry_cache=cache, **kw)
+
+    first = run(init_noise=init)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = run(init_noise=init)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(kernels.launches[k] > 0 for k in ENKF_KERNELS)
+    assert kernels.launches["rows_value_fwd"] == 0
+    assert kernels.launches["rows_value_bwd"] == 0
+    assert kernels.launches["zp_value_grad"] % b == 0
+    assert torch.equal(first.ensemble, second.ensemble)
+    a = run(0, 1, init_noise=init)
+    c = run(1, nt, ens0=a.ensemble, advect_first=True, m_clim=w["m_bg"],
+            step_offset=1)
+    assert torch.equal(second.ensemble, c.ensemble)
+    assert torch.isfinite(second.std_seq).all()

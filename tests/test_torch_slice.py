@@ -221,7 +221,8 @@ def test_build_flags_target_hopper_with_ieee_math():
         "trace_leapfrog_zp.cu", "zp_value_grad.cu", "rows_value_fwd.cu",
         "rows_value_bwd.cu", "zp_value_grad_bwd.cu", "vector_gather.cu",
         "cubic_value_grad.cu", "cubic_value_grad_bwd.cu",
-        "trace_leapfrog_cubic.cu"}
+        "trace_leapfrog_cubic.cu", "rows_value_fwd_batched.cu",
+        "rows_value_bwd_batched.cu"}
     assert build.BUILD_DIR.relative_to(REPO).parts[0] == "build"
 
 
@@ -240,3 +241,32 @@ def test_chip_smoke_without_cuda_exits_nonzero_before_building(tmp_path):
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and '"ok"' not in out.stdout
     assert sorted(p.name for p in tmp_path.iterdir()) == ["chip_smoke.py"]
+
+
+def test_chip_smoke_takes_a_device_time_only_from_two_agreeing_traces():
+    """``chip_smoke.agreed_reading``: a short trace (lost records) reads
+    low and must not be taken on its own."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    assert chip_smoke.agreed_reading([]) is None
+    assert chip_smoke.agreed_reading([0.87]) is None
+    assert chip_smoke.agreed_reading([0.30, 0.87]) is None
+    assert chip_smoke.agreed_reading([0.30, 0.87, 0.88]) == 0.88
+    assert chip_smoke.agreed_reading([0.86, 0.87]) == 0.87
+    # lost records are made good before two traces are compared: five
+    # calls of a fill and a scatter, of which traces kept 3, 2 and 5; 17 of
+    # 20 launches of one kernel; a stray first-use copy counts for nothing
+    full = {"fill": (5, 100.0), "scatter": (5, 1785.0)}
+    traces = [{"fill": (3, 60.0), "scatter": (3, 1071.0)},
+              {"fill": (2, 40.0), "scatter": (2, 714.0)}, full]
+    np.testing.assert_allclose(chip_smoke.whole_readings(traces, 5),
+                               [0.377, 0.377, 0.377], rtol=1e-12)
+    np.testing.assert_allclose(
+        chip_smoke.whole_readings([{"k3b": (17, 17 * 787.0)},
+                                   {"k3b": (20, 20 * 787.0),
+                                    "copy": (1, 1300.0)}], 20),
+        [0.787, 0.787], rtol=1e-12)
+    assert chip_smoke.whole_readings([{}, {"k": (1, 9.0)}], 5) == [None, None]

@@ -144,15 +144,39 @@ def test_linearised_forward_matches_the_forward():
 
 @pytest.mark.parametrize("which", ["anchors", "probes"])
 def test_anchor_and_probe_rows_are_not_ported(which):
+    """The name is from when these rows raised NotImplementedError. They
+    are ported now: ``anchored_forward`` appends the rows, and
+    ``map_gauss_newton`` takes them (``tests/test_torch_anchors.py`` holds
+    both to the JAX package)."""
+    from types import SimpleNamespace
+
+    from ionotomo_tpu_torch.inversion import anchors as tanchors
+
     w = inversion_world(nx=8, n_ants=3, n_dirs=2)
     p = _port(w)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsolvers.anchored_forward(p["grid"], p["rays"], 2, 0,
-                                  **{which: object()}, interp="zp")
+    if which == "anchors":
+        bundle = tanchors.vertical_anchor_bundle(p["grid"], 2, 2, 17)
+        extra = tanchors.anchors_from_field(p["m_prior"] + 0.1, p["grid"],
+                                            bundle, 1.0)
+        n_extra = 4
+    else:
+        pts = bundle_points = p["rays"].points[:, 20]      # (6, 3) in-grid
+        extra = SimpleNamespace(points=pts, noise_std=0.05,
+                                values=torch.full((pts.shape[0],), 25.0))
+        n_extra = bundle_points.shape[0]
+    rows = tsolvers.anchored_forward(p["grid"], p["rays"], 2, 0,
+                                     **{which: extra}, interp="zp")(
+                                         p["m_prior"])
+    assert rows.shape == (3 * 2 + n_extra,)
     cov = convert.gp_covariance_from_numpy(
         JGPCovariance.create(w["grid"], sigma=0.3, length_scale=90.0),
         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsolvers.map_gauss_newton(p["grid"], p["rays"], p["d_obs"],
-                                  p["noise_std"], p["m_prior"], cov, 2,
-                                  interp="zp", **{which: object()})
+    plain = tsolvers.map_gauss_newton(p["grid"], p["rays"], p["d_obs"],
+                                      p["noise_std"], p["m_prior"], cov, 2,
+                                      interp="zp", gn_iters=1, cg_iters=4)
+    res = tsolvers.map_gauss_newton(p["grid"], p["rays"], p["d_obs"],
+                                    p["noise_std"], p["m_prior"], cov, 2,
+                                    interp="zp", gn_iters=1, cg_iters=4,
+                                    **{which: extra})
+    assert torch.isfinite(res.m).all()
+    assert not torch.equal(res.m, plain.m)      # the rows entered the solve
