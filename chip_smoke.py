@@ -10,12 +10,28 @@ GPU.
                                        # time by op), one config-4 solve,
                                        # one filter step and one ensemble
                                        # step (torch.profiler)
-    python3 chip_smoke.py --parent DIR # also: phases 5 and 6 time the K3
-                                       # and K1eᵀ of the checkout at DIR
-                                       # (the sort-by-row kernels before
-                                       # the segmented plan; any other
-                                       # sources are refused) on the same
-                                       # inputs, in turns
+    python3 chip_smoke.py --parent DIR # also: hold the kernels to those of
+                                       # the checkout at DIR (the commit
+                                       # before K1c and K5ᵀ were
+                                       # redesigned; any other sources are
+                                       # refused): K1, K2, K3, K1eᵀ, K5,
+                                       # K3b bitwise at the phases' shapes,
+                                       # K1c's rays and K5ᵀ + the add
+                                       # bitwise, config 4's solve
+                                       # bitwise, each timed in turns
+    python3 chip_smoke.py --k1c-study  # only: what binds K1c at config 2's
+                                       # saturated batch (table layout, ray
+                                       # order, block size, steps) and its
+                                       # 6,200 rays
+    python3 chip_smoke.py --k5t-study  # only: K5ᵀ's register budget at
+                                       # config 4's endpoints and phase 8's
+                                       # shapes (a library built for each)
+    python3 chip_smoke.py --plain-solves N [--root DIR]
+                                       # only: config 4's plain-version
+                                       # solve N times for the package of
+                                       # this checkout or of the one at
+                                       # DIR, each residual and held-out
+                                       # rms to full precision
 
     python3 chip_smoke.py --serving-loop [--root DIR]
                                        # only: the serving slice's host
@@ -52,7 +68,7 @@ Phases (any failed check raises, and the run exits non-zero):
    the cubic shape (K=16, L=4); K1eᵀ (the transpose of K1e) at the same
    points. Each within 1e-4·max|out| and bitwise equal across two calls;
    the plan's segment count and busiest segment and row; kernel, plain,
-   ``index_add_`` and bound ms (and the parent's ms with ``--parent``).
+   ``index_add_`` and bound ms.
 6. The config-3b solve (``bench/config3b.py``) at full width: a 128³ grid
    enclosing 100 × 100 rays, truth = Chapman + a von Kármán perturbation
    (σ 0.3, outer scale 120 km), data from K1 at 256 steps and 150 MHz with
@@ -62,7 +78,7 @@ Phases (any failed check raises, and the run exits non-zero):
    versions (1e-4·max|·|, adjoint identity 1e-4); K2, K3 and K1eᵀ alone at
    the solve's shapes against their plain versions (1e-4·max|out|, bitwise
    equal across two calls, kernel, plain, ``index_add_`` and bound ms, the
-   plans' segments, and the parent's ms with ``--parent``); the solve three
+   plans' segments); the solve three
    times, bitwise
    equal, and within 1 % of the plain-version solve in final residual and
    held-out dTEC rms (20 × 50 rays, seed 99), beating the prior there; K2,
@@ -72,9 +88,12 @@ Phases (any failed check raises, and the run exits non-zero):
    launched; its row-gather baseline (chained K5 evaluations) must run.
 
 8. The tricubic kernels against their plain versions on the card: K5
-   (value + gradient) and K5ᵀ (its transpose) at the edge-case points of a
-   random 128³ table and at 2^20 random points of a random 256³ table
-   (64 MiB, past the L2); K1c (the leapfrog tracer over cubic) against
+   (value + gradient) and K5ᵀ (its transpose, added into a random table:
+   against the table + the plain version, bitwise the table + K5ᵀ into
+   zeros, timed into one running table beside ``index_add_`` into one) at
+   the edge-case points of a random 128³ table and at 2^20 random points
+   of a random 256³ table (64 MiB, past the L2); K1c (the leapfrog tracer
+   over cubic: ray sort, pack and trace) against
    the plain tracer on 8192 rays of the phase-3 world, path on and off;
    K4 (``tec_linear_adjoint`` on cubic, which is K3 over the cubic row
    plan) against ``index_add_`` of the 64 stencil weights per sample. Each
@@ -83,9 +102,12 @@ Phases (any failed check raises, and the run exits non-zero):
 9. Config 2 on cubic at full width through ``configs.config2``: 62 × 100
    rays and 262144 rays at leapfrog@128 on a 128³ Chapman cube, then
    262144 rays at leapfrog@64 beside phase 3's zp number; K1c must have
-   launched; K1c against the plain tracer on config 2's own two ray
-   arrays at 128 steps (endpoints 1e-3 km, TEC 1e-5 relative), its time
-   alone and its bound.
+   launched, and at the saturated batch the pack and the sort-key
+   kernels it launches first; K1c against the plain tracer on config 2's
+   own two ray arrays at 128 steps (endpoints 1e-3 km, TEC 1e-5
+   relative), its time alone read by ``device_ms`` and by ``cuda_ms``, by
+   kernel, and its bound; the pack and the keys bitwise their plain
+   versions, each timed with its bound.
 10. Config 4 at full width through ``configs.config4``: a 256³ grid
    enclosing 100 × 100 rays, the analytic world (512 Fourier modes,
    amplitude 0.25, 120 km, seed 11) traced by ``trace_rays_callable`` at
@@ -94,15 +116,17 @@ Phases (any failed check raises, and the run exits non-zero):
    linearised operator on the kernels against the plain-version operator
    (1e-4·max, adjoint identity 1e-4); K2 and K3 at the solve's two shapes
    (650,000 and 330,000 points, a (65536, 256) table), K5 and K5ᵀ at its
-   20,000 endpoints, K4 at 650,000 points; the solve twice, bitwise
-   equal, within 1 % of the plain-version solve in final residual and
-   held-out dTEC rms (20 × 50 rays, seed 99) and better than the prior
-   (the plain solve gathers whole rows, 10.6 GB at 650,000 points: if the
-   card's free memory does not hold it, it runs one Gauss-Newton step on
-   the @33 bundle and the printed line says so); K2, K3, K5 and K5ᵀ must
-   have launched; then the same solve with ``interp_inner="zp"`` twice: a
-   printed finding (bitwise equal or not, held-out rms, seconds), not a
-   check.
+   20,000 endpoints (K5ᵀ adding into a K3 table), the kernels one Jᵀ
+   launches, K4 at 650,000 points; the solve twice, bitwise
+   equal, the plain-version solve (whose scatters sum in a fixed order)
+   twice, bitwise equal, and the kernel solve within 1 % of it in final
+   residual and held-out dTEC rms (20 × 50 rays, seed 99) and better than
+   the prior (the plain solve gathers whole rows, 10.6 GB at 650,000
+   points: if the card's free memory does not hold it, it runs one
+   Gauss-Newton step on the @33 bundle and the printed line says so); K2,
+   K3, K5 and K5ᵀ must have launched; then the same solve with
+   ``interp_inner="zp"`` twice: a printed finding (bitwise equal or not,
+   held-out rms, seconds), not a check.
 
 Then config 5's world at full width (``configs.config5_world``: a 128³
 grid enclosing 100 × 100 rays, 30 epochs of bent-ray dTEC through the
@@ -282,6 +306,12 @@ FLOPS_K5_POINT = 519
 FLOPS_K5T_POINT = 135
 FLOPS_K5T_PAIR = 24
 FLOPS_K1C_STEP = FLOPS_K1_STEP - FLOPS_K1E_POINT + FLOPS_K5_POINT
+# One ray's sort key (ray_order_keys_kernel): four quantised coordinates
+# (5-6 each), four 8-bit spreads (9 each) and the combination (6).
+OPS_RAY_KEY = 64
+# What config 2's call of the cubic tracer launches at a batch that fills
+# the card: the sort keys, the pack and the tracer.
+CONFIG2_KERNELS = ("ray_order_keys", "pack_z_taps", "trace_leapfrog_cubic")
 
 
 def bound(n_bytes, n_flops):
@@ -350,13 +380,58 @@ def k5_bound(tricubic, grid, points):
                  + 16 * n, n * FLOPS_K5_POINT)
 
 
-def k5t_bound(points, cv, cg, plan, nz):
-    """K5ᵀ: the same bytes as K1eᵀ (points and cotangents read once, the
-    table written once; the plan is not counted); a set-up per point and
-    four contributions per pair."""
-    n_bytes = nbytes(points, cv, cg) + 4 * plan.n_rows * nz
+def k5t_bound(tricubic, grid, points, cv, cg, plan):
+    """K5ᵀ adds into a table: the points and cotangents read once, and
+    each distinct cell the stencils touch read and written once (the plan
+    is not counted); a set-up per point and four contributions per
+    pair."""
+    n_bytes = (nbytes(points, cv, cg)
+               + 8 * distinct_taps(tricubic, grid, points))
     return bound(n_bytes, points.shape[0] * FLOPS_K5T_POINT
                  + plan_stats(plan)["pairs"] * FLOPS_K5T_PAIR)
+
+
+def check_k5t(label, tricubic, kernels, grid, pts, cv, cg, plan, table,
+              parent=None, reps=20, plain_reps=2):
+    """The accumulating K5ᵀ, table += Eᵀ(cv, cg), at one shape: on fresh
+    copies of ``table`` against table + the plain version (1e-4·max),
+    bitwise twice, bitwise table + (K5ᵀ into zeros), counters back at
+    zero; timed into one running table beside ``index_add_`` into a
+    running table and its bound. With a parent: bitwise the parent's
+    K5ᵀ + the add, and both timed in turns."""
+    def fresh():
+        return kernels.cubic_value_grad_bwd(table.clone(), grid, pts, cv, cg,
+                                            plan)
+
+    running = table.clone()
+    alone = kernels.cubic_value_grad_bwd(torch.zeros_like(table), grid, pts,
+                                         cv, cg, plan)
+    check(bool(torch.equal(fresh(), table + alone)),
+          f"{label}: table + K5T is bitwise table + (K5T into zeros)")
+    del alone
+    line = check_and_time(
+        label, fresh,
+        lambda: table + tricubic.interp_rows_with_grad_transpose_ref(
+            grid, pts, cv, cg),
+        index_add_call(*tricubic.value_grad_transpose_terms(grid, pts, cv,
+                                                            cg),
+                       grid.num_voxels),
+        k5t_bound(tricubic, grid, pts, cv, cg, plan), scatter=True,
+        reps=reps, plain_reps=plain_reps,
+        timed=lambda: kernels.cubic_value_grad_bwd(running, grid, pts, cv,
+                                                   cg, plan))
+    check(not bool(plan.counters.any()), f"{label}: plan counters back at "
+                                         f"zero")
+    if parent is not None:
+        pplan = Parent.plan(tricubic, grid, pts)
+        p_ms, n_ms = compare_parent(
+            f"{label}: the parent's K5T + add against K5T adding",
+            lambda: table + parent.k5t(grid, pts, cv, cg, pplan), fresh,
+            reps, pairs=3, new_timed=lambda: kernels.cubic_value_grad_bwd(
+                running, grid, pts, cv, cg, plan))
+        line["parent_ms"], line["new_ms_in_turns"] = p_ms, n_ms
+        check(not bool(pplan.counters.any()), "parent plan counters at zero")
+    return line
 
 
 def index_add_call(flat, contrib, size):
@@ -368,99 +443,166 @@ def index_add_call(flat, contrib, size):
 
 
 class Parent:
-    """K3 and K1eᵀ as they were before the segmented plan, from the
-    checkout at ``root``: built from its sources with this checkout's nvcc
-    flags, called through their C interface over the plan they took (the
-    pairs sorted by row, CSR offsets; K3 over all K translates, K1eᵀ over
-    7 with ids n*7 + t).
+    """The kernels of the checkout at ``root`` (``--parent DIR``), the
+    commit before K1c and K5ᵀ were redesigned, built from its sources with
+    this checkout's nvcc flags. The entries whose C interface this
+    checkout kept (K1, K1e, K2, K3, K1eᵀ, KG, K5, K2b, K3b) run through
+    this checkout's wrappers with the parent's library in place of this
+    one (``run``); K1c and K5ᵀ run through their former interface
+    (``k1c``: the unpacked tracer in ray order; ``k5t``: a whole table
+    over a plan that gives every row a segment).
 
-    ctypes cannot check a C interface, so this one is declared by the
-    SHA-256 of the two sources that define it, and any other checkout is
-    refused rather than handed arguments it does not take."""
+    ctypes cannot check a C interface, so the parent's sources are
+    declared by their SHA-256, and any other checkout is refused rather
+    than handed arguments it does not take."""
 
     SOURCES = {
+        "cubic_value_grad.cu":
+            "a0373f7fbd6ab2413a6dc7e82208a702670d94d71ad07a9ddebc4675d93f0e9d",
+        "cubic_value_grad_bwd.cu":
+            "2cb5c8532f3bb72a66339b98181dc24f4032545983923db52ecede9f8dd89174",
         "rows_value_bwd.cu":
-            "5004056392af64a7eab114c9b2d0b7956ef4586c809dc6d994d0da6eae2aeef1",
+            "8b89433a04e2db28da6ebddbca603d78de2def71956e78422e93094e39d52d85",
+        "rows_value_bwd_batched.cu":
+            "5a90dcd8c956f8cbe7aa689a44aef9648275cbdb44f062a410e65767c9131e12",
+        "rows_value_fwd.cu":
+            "681553531e0e35a92f9284d5870a19e81d65f2173f7870eb319dad9388bd15cd",
+        "rows_value_fwd_batched.cu":
+            "b74e4e6bc85b27882b404386833a7f9276b357762811f29a4c93e2ccae582138",
+        "trace_leapfrog_cubic.cu":
+            "3d604711d578670c096116738e85797866f296a89b645aa0168a0884ec225a0d",
+        "trace_leapfrog_zp.cu":
+            "a898a7a175462d9035e1c44606da7b5f27e4193509d1b1f810fa80859e5bafaa",
+        "vector_gather.cu":
+            "5b063dbb1d5f5919831d8b77c803be933e0631505087f81e99129808358ea07b",
+        "zp_value_grad.cu":
+            "0a827772c5413496eef619e23648122e07e02c48a4603f21db51460cbd815879",
         "zp_value_grad_bwd.cu":
-            "7cc96be0e1d4cba2b45b2c08db56db8b07a9857ea819a282a84773468782ed48",
+            "eb6fb1308c6193f1a528bdeb52ae7c21be3c7e667df9382c1eb590bc5e878d90",
     }
+    KEPT = ("ionotomo_zp_value_grad", "ionotomo_rows_value_fwd",
+            "ionotomo_trace_leapfrog_zp", "ionotomo_rows_value_bwd",
+            "ionotomo_zp_value_grad_bwd", "ionotomo_vector_gather",
+            "ionotomo_cubic_value_grad", "ionotomo_rows_value_fwd_batched",
+            "ionotomo_rows_value_bwd_batched", "ionotomo_cuda_error_string")
 
     def __init__(self, root):
         from ionotomo_tpu_torch.kernels import build
 
         csrc = Path(root) / "ionotomo_tpu_torch" / "kernels" / "csrc"
-        for name, want in self.SOURCES.items():
-            got = hashlib.sha256((csrc / name).read_bytes()).hexdigest()
-            if got != want:
-                raise ValueError(
-                    f"--parent {root}: {name} is not the sort-by-row kernel "
-                    f"whose C interface this script binds (sha256 "
-                    f"{got[:16]}, expected {want[:16]})")
+        got = {f.name: hashlib.sha256(f.read_bytes()).hexdigest()
+               for f in csrc.glob("*.cu")}
+        if got != self.SOURCES:
+            raise ValueError(
+                f"--parent {root}: its kernel sources are not those of the "
+                f"commit whose C interface this script binds (differ: "
+                f"{sorted(set(got.items()) ^ set(self.SOURCES.items()))})")
         info = build.build(csrc, build.BUILD_DIR / "parent")
-        self.lib = ctypes.CDLL(str(info["path"]))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        self.lib.ionotomo_rows_value_bwd.argtypes = [p, p, p, p, i, p, p, i,
-                                                     i, i, p, p]
-        self.lib.ionotomo_zp_value_grad_bwd.argtypes = [p, p, i, i, i, p, p,
-                                                        p, p, p, i, p, p]
-        self.lib.ionotomo_rows_value_bwd.restype = i
-        self.lib.ionotomo_zp_value_grad_bwd.restype = i
+        self.build = build
+        self.lib = build.open_library(info["path"], self.KEPT)
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.lib.ionotomo_trace_leapfrog_cubic.argtypes = (
+            [p, p, p, i, i, i, p, p, i, i] + [f] * 6 + [p, p, p, p])
+        self.lib.ionotomo_cubic_value_grad_bwd.argtypes = (
+            [p, p, i, i, i] + [p] * 8 + [i, i, p, p, p])
+        self.lib.ionotomo_trace_leapfrog_cubic.restype = i
+        self.lib.ionotomo_cubic_value_grad_bwd.restype = i
         print(f"  parent kernels from {csrc} (built={info['built']} in "
               f"{info['seconds']:.2f} s)")
 
-    @staticmethod
-    def plan(ri, n_rows):
-        rows = ri.reshape(-1)
-        sorted_rows, order = torch.sort(rows, stable=True)
-        offsets = torch.searchsorted(
-            sorted_rows, torch.arange(n_rows + 1, dtype=sorted_rows.dtype,
-                                      device=rows.device), out_int32=True)
-        return order.to(torch.int32), offsets
+    def run(self, fn):
+        """fn() with the parent's library behind this checkout's
+        wrappers."""
+        saved = self.build.load()
+        self.build._loaded["lib"] = self.lib
+        try:
+            return fn()
+        finally:
+            self.build._loaded["lib"] = saved
 
     @staticmethod
     def _p(t):
-        return ctypes.c_void_p(t.data_ptr())
+        return ctypes.c_void_p(t.data_ptr()) if t is not None else None
 
     def _stream(self):
         return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
-    def k3(self, ct, plan, wxy, zi, wz, n_rows, nz):
-        order, offsets = plan
-        out = torch.empty((n_rows, nz), dtype=torch.float32, device=ct.device)
-        rc = self.lib.ionotomo_rows_value_bwd(
-            self._p(ct), self._p(order), self._p(offsets), self._p(wxy),
-            wxy.shape[1], self._p(zi), self._p(wz), zi.shape[1], n_rows, nz,
-            self._p(out), self._stream())
+    def k1c(self, table, grid, origins, directions, n_steps, consts):
+        """The parent's K1c: (x_end, tau)."""
+        r = origins.shape[0]
+        nx, ny, nz = grid.shape
+        x_end = torch.empty((r, 3), dtype=torch.float32, device=table.device)
+        tau = torch.empty((r,), dtype=torch.float32, device=table.device)
+        c = consts
+        rc = self.lib.ionotomo_trace_leapfrog_cubic(
+            self._p(table), self._p(grid.origin), self._p(grid.spacing), nx,
+            ny, nz, self._p(origins), self._p(directions), r, n_steps,
+            c["h"], c["hh12"], c["w_n"], c["w_rhs"], c["k_ne"],
+            c["tec_unit"], self._p(x_end), self._p(tau), None,
+            self._stream())
         if rc:
-            raise RuntimeError(f"parent K3 launch failed ({rc})")
-        return out
+            raise RuntimeError(f"parent K1c launch failed ({rc})")
+        return x_end, tau
 
-    def k1et(self, grid, points, cv, cg, plan):
-        order, offsets = plan
+    @staticmethod
+    def plan(tricubic, grid, points):
+        """The plan the parent's K5ᵀ takes: every row a segment."""
+        idx, _, ri = tricubic._row_neighborhood(grid, points)
+        return tricubic.build_row_plan(ri, grid.shape[0] * grid.shape[1],
+                                       idx[:, 2, 1])
+
+    def k5t(self, grid, points, cv, cg, plan):
+        """The parent's K5ᵀ: a whole (nx*ny, nz) table."""
         nx, ny, nz = grid.shape
         out = torch.empty((nx * ny, nz), dtype=torch.float32,
                           device=points.device)
-        rc = self.lib.ionotomo_zp_value_grad_bwd(
+        partials = torch.empty((plan.n_seg_max, nz), dtype=torch.float32,
+                               device=points.device)
+        rc = self.lib.ionotomo_cubic_value_grad_bwd(
             self._p(grid.origin), self._p(grid.spacing), nx, ny, nz,
-            self._p(points), self._p(cv), self._p(cg), self._p(order),
-            self._p(offsets), 7, self._p(out), self._stream())
+            self._p(points), self._p(cv), self._p(cg), self._p(plan.order),
+            self._p(plan.offsets), self._p(plan.seg_row),
+            self._p(plan.row_seg), self._p(plan.counters), plan.n_seg_max,
+            plan.chunk, self._p(partials), self._p(out), self._stream())
         if rc:
-            raise RuntimeError(f"parent K1eT launch failed ({rc})")
+            raise RuntimeError(f"parent K5T launch failed ({rc})")
         return out
 
 
-def compare_parent(name, parent_fn, new_fn, reps):
-    """The parent's and this checkout's kernel on the same inputs, device
-    time in turns (parent, new, new, parent); both outputs agree to
-    1e-4·max|out|."""
-    a, b = parent_fn(), new_fn()
+def _outputs(x):
+    return [t for t in (x if isinstance(x, (tuple, list)) else (x,))
+            if t is not None]
+
+
+def compare_parent(name, parent_fn, new_fn, reps, pairs=2, new_timed=None):
+    """The parent's and this checkout's function on the same inputs:
+    bitwise equal outputs, then device time in turns, ``pairs`` pairs
+    (parent, new, new, parent, ...), the new one as ``new_timed`` where
+    given (a kernel that adds in place, into one running table). Returns
+    (parent ms, new ms)."""
+    a, b = _outputs(parent_fn()), _outputs(new_fn())
     torch.cuda.synchronize()
-    err = float((a - b).abs().max())
-    check(err <= 1e-4 * float(b.abs().max()),
-          f"{name}: parent and new agree ({err:.3e})")
-    t = [device_ms(f, reps) for f in (parent_fn, new_fn, new_fn, parent_fn)]
-    print(f"  {name}: parent {t[0]:.4f}, {t[3]:.4f} ms; new {t[1]:.4f}, "
-          f"{t[2]:.4f} ms")
+    check(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
+          f"{name}: bitwise the parent's output")
+    del a, b
+    t = {"parent": [], "new": []}
+    for i in range(pairs):
+        turn = ("parent", "new") if i % 2 == 0 else ("new", "parent")
+        for who in turn:
+            t[who].append(device_ms(parent_fn if who == "parent"
+                                    else new_timed or new_fn, reps))
+    print(f"  {name}, in turns: parent "
+          f"{', '.join(f'{x:.4f}' for x in t['parent'])} ms; new "
+          f"{', '.join(f'{x:.4f}' for x in t['new'])} ms")
+    return t["parent"], t["new"]
+
+
+def parent_same(parent, name, fn, reps, pairs=2):
+    """A kernel whose C interface this checkout kept, through this
+    checkout's wrapper on the parent's library and on its own
+    (compare_parent)."""
+    if parent is not None:
+        compare_parent(name, lambda: parent.run(fn), fn, reps, pairs)
 
 
 def bench_rays(n, seed=0):
@@ -587,7 +729,7 @@ def phase2_kernels_vs_plain(dev, boxspline, tricubic, fermat, kernels,
 
 
 def phase3_throughput(dev, boxspline, fermat, kernels, Grid3D, chapman,
-                      results, card):
+                      results, card, parent=None):
     print("phase 3: tracer throughput, the bench.py configuration")
     grid = Grid3D.from_bounds(*BOUNDS, (N_GRID,) * 3, device=dev)
     m = chapman.log_parametrize(chapman.chapman_field(grid))
@@ -626,6 +768,10 @@ def phase3_throughput(dev, boxspline, fermat, kernels, Grid3D, chapman,
     b_ms, b_by = bound(n_bytes, n_rays * N_STEPS * FLOPS_K1_STEP)
     print(f"  K1 alone at {n_rays} rays: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # six pairs in turns: the spread of readings of one source, beside
+    # phase 9's comparison of K1c's ordered launch with this one
+    parent_same(parent, f"K1 at {n_rays} rays", lambda: kernels.trace_leapfrog_zp(
+        coef2d, grid, o, d, N_STEPS, False, **kw), 3, pairs=6)
     results["trace_leapfrog_zp"]["line"].update(
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None)
@@ -905,12 +1051,7 @@ def phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
     print(f"  K3 zp at {n} points: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
           f"index_add_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); plan "
           f"{plan_ms:.3f} ms (host clock)")
-    if parent is not None:
-        pplan = parent.plan(ri, n_rows)
-        compare_parent(
-            "K3 zp at the edge-case points",
-            lambda: parent.k3(ct, pplan, wxy, zi, wz, n_rows, n_grid),
-            k3, 5)
+    parent_same(parent, "K3 zp at the edge-case points", k3, 5)
 
     # K3 at the cubic shape (K=16, L=4) on random rows
     ri_c = t(rng.integers(0, n_rows, (n, 16)).astype(np.int32))
@@ -944,12 +1085,7 @@ def phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
     print(f"  K3 cubic shape (K=16, L=4) at {n} points: kernel {ms:.4f} ms, "
           f"plain {plain:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
           f"{b_ms:.4f} ms ({b_by})")
-    if parent is not None:
-        pplan = parent.plan(ri_c, n_rows)
-        compare_parent(
-            "K3 cubic shape",
-            lambda: parent.k3(ct, pplan, wxy_c, zi_c, wz_c, n_rows, n_grid),
-            k3_cubic, 5)
+    parent_same(parent, "K3 cubic shape", k3_cubic, 5)
 
     # K1eᵀ at the same edge-case points
     cv = ct
@@ -980,11 +1116,7 @@ def phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
     b_ms, b_by = k1et_bound(pts, cv, cg, eplan, n_grid)
     print(f"  K1eT at {n} points: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
           f"index_add_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    if parent is not None:
-        pplan = parent.plan(ri[:, :boxspline.ZP_LIVE_TRANSLATES]
-                            .contiguous(), n_rows)
-        compare_parent("K1eT at the edge-case points",
-                       lambda: parent.k1et(grid, pts, cv, cg, pplan), k1et, 5)
+    parent_same(parent, "K1eT at the edge-case points", k1et, 5)
 
 
 def profile_gn_step(solve):
@@ -1163,19 +1295,9 @@ def phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
             bound_by=b_by, library_ms=lib_ms)
     check(not bool(plan.counters.any() or eplan.counters.any()),
           "the solve's plan counters back at zero")
-    if parent is not None:
-        pplan = parent.plan(op.ri, n_rows)
-        eplan_p = parent.plan(zp_rows(boxspline, grid, op.ends)
-                              [:, :boxspline.ZP_LIVE_TRANSLATES]
-                              .contiguous(), n_rows)
-        compare_parent(
-            "K3 at the solve's shape",
-            lambda: parent.k3(ct, pplan, op.wxy, op.zi, op.wz, n_rows, nz),
-            at_solve_shape["rows_value_bwd"][0], 20)
-        compare_parent(
-            "K1eT at the solve's shape",
-            lambda: parent.k1et(grid, op.ends, cv, cg, eplan_p),
-            at_solve_shape["zp_value_grad_bwd"][0], 20)
+    for name in ("rows_value_fwd", "rows_value_bwd", "zp_value_grad_bwd"):
+        parent_same(parent, f"{name} at the solve's shape",
+                    at_solve_shape[name][0], 20)
     del op, ref
 
     kw = dict(num_directions=nd, gn_iters=2, cg_iters=20,
@@ -1258,11 +1380,13 @@ def phase7_probe(dev, gather, kernels, results):
 
 
 def check_and_time(label, kern, plain, library, bnd, scatter, reps=20,
-                   plain_reps=3):
+                   plain_reps=3, timed=None):
     """One kernel at one shape against its plain version: within
     1e-4·max|out|, finite, and for a scatter bitwise equal across two
-    calls; device ms of the kernel, the plain version and the one-call
-    library form (None: there is none). Returns the kernel's ``line``."""
+    calls; device ms of the kernel (of ``timed`` where given: a kernel
+    that adds into a table is checked on fresh copies and timed into one
+    running table), the plain version and the one-call library form
+    (None: there is none). Returns the kernel's ``line``."""
     if scatter:
         got, same = _same_twice(kern)
         check(same, f"{label} bitwise equal across two calls")
@@ -1276,7 +1400,8 @@ def check_and_time(label, kern, plain, library, bnd, scatter, reps=20,
     check(err <= 1e-4 * scale, f"{label} max|err| {err:.3e} <= 1e-4*max|out| "
                                f"{1e-4 * scale:.3e}")
     del got
-    ms, plain_ms = device_ms(kern, reps), device_ms(plain, plain_reps)
+    ms = device_ms(timed or kern, reps)
+    plain_ms = device_ms(plain, plain_reps)
     lib_ms = device_ms(library, reps) if library is not None else None
     lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
     b_ms, b_by = bnd
@@ -1331,7 +1456,7 @@ def check_k4(label, tricubic, rays, tec, grid, rb, y):
 
 
 def phase8_cubic_kernels(dev, tricubic, fermat, rays, tec, kernels, Grid3D,
-                         chapman, results):
+                         chapman, results, parent=None):
     from ionotomo_tpu_torch.testing import edge_case_points
 
     print("phase 8: the tricubic kernels against their plain versions")
@@ -1378,21 +1503,16 @@ def phase8_cubic_kernels(dev, tricubic, fermat, rays, tec, kernels, Grid3D,
               f"bound {b_ms:.4f} ms ({b_by})")
         del v_k, g_k
 
-        # K5ᵀ: its transpose with respect to the table
+        parent_same(parent, f"K5 {tag}",
+                    lambda: kernels.cubic_value_grad(table, grid, pts), 20)
+
+        # K5ᵀ: its transpose with respect to the table, added into one
         cv = t(rng.normal(size=(n,)).astype(np.float32))
         cg = t(rng.normal(size=(n, 3)).astype(np.float32))
         plan = tricubic.endpoint_plan(grid, pts)
         print_plan(f"K5T {tag}", plan)
-        check_and_time(
-            f"K5T {tag}",
-            lambda: kernels.cubic_value_grad_bwd(grid, pts, cv, cg, plan),
-            lambda: tricubic.interp_rows_with_grad_transpose_ref(grid, pts,
-                                                                 cv, cg),
-            index_add_call(*tricubic.value_grad_transpose_terms(
-                grid, pts, cv, cg), n_rows * n_grid),
-            k5t_bound(pts, cv, cg, plan, n_grid), scatter=True, reps=5,
-            plain_reps=2)
-        check(not bool(plan.counters.any()), "K5T plan counters back at zero")
+        check_k5t(f"K5T {tag}", tricubic, kernels, grid, pts, cv, cg, plan,
+                  table, parent, reps=5)
         del table, pts, cv, cg, plan
         torch.cuda.empty_cache()
 
@@ -1427,16 +1547,16 @@ def phase8_cubic_kernels(dev, tricubic, fermat, rays, tec, kernels, Grid3D,
 
 
 def phase9_config2(dev, fermat, rays, kernels, Grid3D, chapman, configs,
-                   results, card, n_rays=262144):
+                   results, card, n_rays=262144, parent=None):
     print("phase 9: config 2 on the tricubic model (configs.config2)")
     kernels.reset_launches()
     rec = configs.config2(n_saturated=n_rays, device=dev)
     launches = dict(kernels.launches)
     print(f"  config2: {json.dumps(rec)}")
     print(f"  launches in config 2: {launches}")
-    check(launches["trace_leapfrog_cubic"] > 0,
-          f"trace_leapfrog_cubic launched in config 2 "
-          f"({launches['trace_leapfrog_cubic']} times)")
+    for name in CONFIG2_KERNELS:
+        check(launches[name] > 0,
+              f"{name} launched in config 2 ({launches[name]} times)")
     check(launches["trace_leapfrog_zp"] == 0, "config 2 launched no zp tracer")
     check(rec["finite_6200"] and rec["finite_saturated"],
           "config 2: finite endpoints and TEC")
@@ -1471,6 +1591,8 @@ def phase9_config2(dev, fermat, rays, kernels, Grid3D, chapman, configs,
     # The saturated batch's two runs are also the ones that are timed.
     kw128 = dict(n_steps=128, keep_path=False, method="leapfrog",
                  interp="cubic")
+    table = m.reshape(N_GRID * N_GRID, N_GRID)
+    k128 = fermat._step_constants(FREQ_HZ, LENGTH_KM, 128)
     errs = {}
     for n_a, n_d in ((62, 100), (512, n_rays // 512)):
         ants, dirs = configs.make_rays(n_a, n_d)
@@ -1499,27 +1621,85 @@ def phase9_config2(dev, fermat, rays, kernels, Grid3D, chapman, configs,
         check(bool(torch.equal(b_k.ds, b_p.ds)), f"{tag}: ds equal")
         errs[n2] = (err_x, err_t)
         del out, b_k, b_p, t_k, t_p
+        if parent is not None:
+            compare_parent(
+                f"K1c at config 2's {n2} rays x 128 steps: per-ray x_end "
+                f"and tau",
+                lambda: parent.k1c(table, grid, o2, d2, 128, k128),
+                lambda: kernels.trace_leapfrog_cubic(
+                    table, grid, o2, d2, 128, False, **k128)[:2],
+                3, pairs=3)
     # the last case is the saturated batch: its times, its error and its
-    # bound (operations per step counted from the kernel) go to the line
-    table = m.reshape(N_GRID * N_GRID, N_GRID)
+    # bound (operations per step counted from the kernel) go to the line.
+    # The wrapper's time is the ray sort, the pack and the tracer.
     k64 = fermat._step_constants(FREQ_HZ, LENGTH_KM, N_STEPS)
-    k128 = fermat._step_constants(FREQ_HZ, LENGTH_KM, 128)
+
+    def k1c128():
+        return kernels.trace_leapfrog_cubic(table, grid, o2, d2, 128, False,
+                                            **k128)
     ms64 = device_ms(lambda: kernels.trace_leapfrog_cubic(
         table, grid, o, d, N_STEPS, False, **k64), 3)
-    ms128 = device_ms(lambda: kernels.trace_leapfrog_cubic(
-        table, grid, o2, d2, 128, False, **k128), 3)
+    ms128 = device_ms(k1c128, 3)
+    ev128 = cuda_ms(k1c128, 10)
+    by_name = kernel_ms_by_name(k1c128, 3)
+
+    def unpacked128():     # one launch of the former arithmetic and order
+        return kernels.trace_leapfrog_cubic_with(
+            table, grid, o2, d2, 128, False, packed=None, order=None,
+            threads=128, **k128)
+    u_ms, u_ev = device_ms(unpacked128, 3), cuda_ms(unpacked128, 10)
+    print(f"  one launch of the unpacked K1c in ray order (128 threads) read "
+          f"two ways: device_ms {u_ms:.4f} ms, cuda_ms {u_ev:.4f} ms "
+          f"({100 * (u_ev - u_ms) / u_ev:.2f} % apart)")
+    if parent is not None:      # the same arithmetic and launch shape
+        compare_parent(
+            f"the unpacked K1c in ray order, 128 threads, through K1c's "
+            f"ordered launch, against the parent's K1c (K1's launch) at "
+            f"{n_rays} rays",
+            lambda: parent.k1c(table, grid, o2, d2, 128, k128),
+            lambda: unpacked128()[:2], 3, pairs=4)
     n_bytes = nbytes(table, o2, d2) + 16 * n_rays
     b_ms, b_by = bound(n_bytes, n_rays * 128 * FLOPS_K1C_STEP)
     b64 = bound(n_bytes, n_rays * N_STEPS * FLOPS_K1C_STEP)[0]
     print(f"  K1c alone at {n_rays} rays: {ms64:.4f} ms at 64 steps "
           f"(bound {b64:.4f}), {ms128:.4f} ms at 128 steps, plain "
           f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    print(f"  K1c at 128 steps read two ways: device_ms {ms128:.4f} ms (the "
+          f"kernels' own durations), cuda_ms {ev128:.4f} ms (CUDA events "
+          f"around 10 calls); by kernel: "
+          + "; ".join(f"{v:.4f} ms {k[:40]}" for k, v in
+                      sorted(by_name.items(), key=lambda kv: -kv[1])))
     results["trace_leapfrog_cubic"]["line"].update(
         max_abs_err=errs[n_rays][0], ms=ms128, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    # the two kernels K1c's call launches before the tracer, at the
+    # saturated batch, against their plain versions
+    from ionotomo_tpu_torch.core import tricubic
+    for name, kern, plain, n_bytes, n_ops in (
+            ("pack_z_taps", lambda: kernels.pack_z_taps(table, grid),
+             lambda: tricubic.pack_z_taps_ref(table),
+             nbytes(table) + 16 * (N_GRID - 1) * N_GRID * N_GRID, 0),
+            ("ray_order_keys", lambda: kernels.ray_order_keys(o2, d2, grid),
+             lambda: kernels.ray_order_keys_ref(o2, d2, grid),
+             nbytes(o2, d2) + 4 * n_rays, n_rays * OPS_RAY_KEY)):
+        got, want = kern(), plain()
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want), f"{name} at {n_rays} rays: bitwise "
+                                      f"its plain version")
+        k_ms, p_ms = device_ms(kern, 20), device_ms(plain, 5)
+        nb_ms, nb_by = bound(n_bytes, n_ops)
+        print(f"  {name} at {n_rays} rays: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bound {nb_ms:.4f} ms ({nb_by})")
+        results[name] = {"line": dict(
+            max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=nb_ms,
+            bound_by=nb_by, library_ms=None), "launches": launches[name]}
+        del got, want
     results["trace_leapfrog_cubic"]["tau_rel"] = errs[n_rays][1]
     results["trace_leapfrog_cubic"]["launches"] = \
         launches["trace_leapfrog_cubic"]
+    results["trace_leapfrog_cubic"]["cuda_ms"] = ev128
+    results["trace_leapfrog_cubic"]["unpacked_ms"] = (u_ms, u_ev)
     results["config2"] = {**rec, "rays_per_s_leapfrog64": rate64,
                           "k1c_ms_64": ms64}
 
@@ -1548,8 +1728,63 @@ def profile_solve(solve, label="config-4 solve"):
         print(f"    {us:10.1f} us {count:5d}x  {key[:100]}")
 
 
+def parent_linear(parent, tec, tricubic):
+    """``linearize`` for a solve whose Jᵀ adds the parent's K5ᵀ table to
+    K3's, as the parent's operator did; all else is this checkout's (the
+    kernels it kept are bitwise the parent's, which the phases show)."""
+    class ParentPairedDtecLinear(tec.PairedDtecLinear):
+        def _value_grad_t_add_(self, table, ct_value, ct_grad):
+            geo = self.geometry
+            if not hasattr(geo, "parent_end_plan"):
+                geo.parent_end_plan = Parent.plan(tricubic, geo.grid,
+                                                  geo.ends)
+            return table + parent.k5t(geo.grid, geo.ends, ct_value, ct_grad,
+                                      geo.parent_end_plan)
+
+    def linearize(*a, **k):
+        return ParentPairedDtecLinear(*a, **k)
+    return linearize
+
+
+def jt_kernels(op, y, make_parent_op):
+    """The kernels one Jᵀ on cubic launches (one profiler trace) and, with
+    a parent, the same Jᵀ through the parent's K5ᵀ and add, bitwise equal:
+    the difference is the endpoint add that the accumulating K5ᵀ took
+    away."""
+    new = kernel_launches(lambda: op.apply_t(y))
+    print(f"  one J^T on cubic: {sum(new.values())} kernel launches: "
+          + "; ".join(f"{n} x {k[:50]}" for k, n in sorted(new.items())))
+    if make_parent_op is None:
+        return
+    pop = make_parent_op()
+    check(bool(torch.equal(pop.apply_t(y), op.apply_t(y))),
+          "J^T bitwise the parent's (K3 + the parent's K5T table)")
+    old = kernel_launches(lambda: pop.apply_t(y))
+    diff = {k: old.get(k, 0) - new.get(k, 0) for k in set(old) | set(new)
+            if old.get(k, 0) != new.get(k, 0)}
+    print(f"  one J^T through the parent's K5T and add: {sum(old.values())} "
+          f"kernel launches; parent minus new: "
+          + "; ".join(f"{n:+d} x {k[:70]}" for k, n in sorted(diff.items())))
+
+
+def kernel_launches(fn) -> dict:
+    """Kernel launches of one call of ``fn`` by name (one profiler
+    trace, after a warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count > 0}
+
+
 def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
-                    profile=False, **world_kw):
+                    profile=False, parent=None, **world_kw):
     from ionotomo_tpu_torch.testing import CUBIC_SOLVE_KERNELS
 
     t0 = time.perf_counter()
@@ -1635,6 +1870,12 @@ def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
             None, bound(nbytes(table, o_.ri, o_.wxy, o_.zi, o_.wz, fwd_out),
                         n_pts * 16 * 4 * 2 + n_pts * 32),
             scatter=False, plain_reps=2)
+        parent_same(parent, f"K2 at {n_pts} points", lambda: tricubic.rows_value(
+            table, o_.ri, o_.wxy, o_.zi, o_.wz, False), 20)
+        parent_same(parent, f"K3 at {n_pts} points", lambda:
+                    tricubic.rows_value_transpose(
+                        ct, o_.ri, o_.wxy, o_.zi, o_.wz, o_.table_shape,
+                        o_.row_plan), 20)
         at_config4[f"rows_value_bwd@{n_pts}"] = check_and_time(
             f"K3 at {n_pts} points (K=16, L=4)",
             lambda: tricubic.rows_value_transpose(
@@ -1672,15 +1913,19 @@ def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
     results["cubic_value_grad"] = {"line": dict(
         max_abs_err=err_v, ms=k5_ms, plain_ms=k5_plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)}
-    results["cubic_value_grad_bwd"] = {"line": check_and_time(
-        f"K5T at the solve's {n_ends} endpoints",
-        lambda: tricubic.interp_rows_with_grad_transpose(grid, ends, cv, cg,
-                                                         eplan),
-        lambda: tricubic.interp_rows_with_grad_transpose_ref(grid, ends, cv,
-                                                             cg),
-        index_add_call(*tricubic.value_grad_transpose_terms(grid, ends, cv,
-                                                            cg), n_rows * nz),
-        k5t_bound(ends, cv, cg, eplan, nz), scatter=True, reps=50)}
+    parent_same(parent, f"K5 at the solve's {n_ends} endpoints",
+                lambda: kernels.cubic_value_grad(table, grid, ends), 50)
+    # K5ᵀ adds into K3's output in Jᵀ: a K3 table of the solve's samples
+    k3_table = ops[w.rays.num_samples]._rows_t(torch.from_numpy(
+        rng.normal(size=(ops[w.rays.num_samples].ri.shape[0],))
+        .astype(np.float32)).to(dev))
+    results["cubic_value_grad_bwd"] = {"line": check_k5t(
+        f"K5T at the solve's {n_ends} endpoints", tricubic, kernels, grid,
+        ends, cv, cg, eplan, k3_table, parent, reps=50, plain_reps=5)}
+    del k3_table
+    jt_kernels(op, y, None if parent is None else lambda: parent_linear(
+        parent, tec, tricubic)(w.m_prior, grid, rb_check, nd, 0, "hermite",
+                               "cubic"))
     check(not bool(op.row_plan.counters.any() or eplan.counters.any()),
           "the solve's plan counters back at zero")
     del op, ops, o_, v_k, g_k, v_p, g_p, table
@@ -1718,6 +1963,19 @@ def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
     check(bool(torch.isfinite(res1.m).all()), "solved field finite")
     check(bool(torch.equal(res1.m, res2.m)),
           "the config-4 solve is bitwise equal across two runs")
+    print(f"  final whitened residual {float(res1.residual_norm)!r}, held-out "
+          f"dTEC rms {heldout(res1.m)!r} (full precision)")
+    if parent is not None:
+        res_p, secs_pp = solve(linearize=parent_linear(parent, tec, tricubic))
+        check(bool(torch.equal(res_p.m, res1.m)
+                   and float(res_p.residual_norm)
+                   == float(res1.residual_norm)
+                   and heldout(res_p.m) == heldout(res1.m)),
+              f"config 4: field, final residual "
+              f"{float(res_p.residual_norm)!r} and held-out rms "
+              f"{heldout(res_p.m)!r} bitwise the solve through the parent's "
+              f"K5T and add ({secs_pp:.4f} s)")
+        del res_p
     if plain_full:
         plain_kw, what = {}, "the same schedule"
         res_k = res1
@@ -1727,9 +1985,14 @@ def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
         w = w._replace(rays=w.rays_inner, rays_inner=None)
         res_k, _ = solve(**plain_kw)
     resp, secs_p = solve(linearize=tec.dtec_paired_linear_ref, **plain_kw)
+    resp2, _ = solve(linearize=tec.dtec_paired_linear_ref, **plain_kw)
+    check(bool(torch.equal(resp.m, resp2.m)),
+          "the plain-version solve is bitwise equal across two runs")
+    del resp2
     r_k, r_p = float(res_k.residual_norm), float(resp.residual_norm)
     h_k, h_p, h_0 = heldout(res_k.m), heldout(resp.m), heldout(w.m_prior)
-    print(f"  the plain-version solve ran {what}: {secs_p:.4f} s")
+    print(f"  the plain-version solve ran {what}: {secs_p:.4f} s, residual "
+          f"{r_p!r}")
     check(abs(r_k - r_p) <= 1e-2 * r_p,
           f"final whitened residual {r_k:.4f} within 1% of the plain "
           f"solve's {r_p:.4f}")
@@ -1784,7 +2047,7 @@ def touched_values(ri, zi, n_rows, nz) -> int:
 
 
 def member_kernels_at(label, dev, tricubic, kernels, setup, plan, n_rows, nz,
-                      xy_first, rng, live=None):
+                      xy_first, rng, parent=None):
     """K2b and K3b at one point set with B_MEMBERS members: against the
     plain versions (1e-4·max), member by member bitwise against K2 and
     K3, K3b bitwise twice; device ms of each, the plain version, the
@@ -1843,6 +2106,7 @@ def member_kernels_at(label, dev, tricubic, kernels, setup, plan, n_rows, nz,
               b * plan_stats(plan)["pairs"] * (1 + 2 * l)),
         scatter=True, plain_reps=2)
     del flat, contrib, buf
+    parent_same(parent, f"K3b at {label}", k3b, 20)
     k2_ms, k3_ms = device_ms(k2, 20), device_ms(k3, 20)
     print(f"  unbatched at {label}: K2 {k2_ms:.4f} ms, K3 {k3_ms:.4f} ms; "
           f"{b} x K2 {b * k2_ms:.4f} ms against K2b "
@@ -1857,7 +2121,7 @@ def member_kernels_at(label, dev, tricubic, kernels, setup, plan, n_rows, nz,
 
 
 def phase11_member_kernels(dev, world, boxspline, tricubic, tec, kernels,
-                           Grid3D, results):
+                           Grid3D, results, parent=None):
     from ionotomo_tpu_torch.testing import edge_case_points
 
     print(f"phase 11: the member-axis kernels K2b and K3b (B={B_MEMBERS}) "
@@ -1872,7 +2136,7 @@ def phase11_member_kernels(dev, world, boxspline, tricubic, tec, kernels,
         print_plan(f"K3b at {name}", geo.row_plan)
         at[f"zp@{geo.ri.shape[0]}"] = member_kernels_at(
             name, dev, tricubic, kernels, (geo.ri, geo.wxy, geo.zi, geo.wz),
-            geo.row_plan, nx * ny, nz, True, rng)
+            geo.row_plan, nx * ny, nz, True, rng, parent)
         del geo
     shape = (N_GRID,) * 3
     origin, spacing = (-64.0, -32.0, 0.0), (1.0, 0.5, 8.0)
@@ -1888,7 +2152,7 @@ def phase11_member_kernels(dev, world, boxspline, tricubic, tec, kernels,
         print_plan(f"K3b at {label}", plan)
         at[f"{name}@edge"] = member_kernels_at(
             label, dev, tricubic, kernels, setup, plan, n_rows, N_GRID,
-            xy_first, rng)
+            xy_first, rng, parent)
         del setup, plan
     n_outer = world.rays.num_rays * world.rays.num_samples
     for name in ("rows_value_fwd_batched", "rows_value_bwd_batched"):
@@ -2127,16 +2391,279 @@ def phase13_enkf(dev, world, cache, boxspline, tricubic, tec, kernels,
     results["enkf_launches"] = launches
 
 
+def kernel_ms_by_name(fn, reps: int) -> dict:
+    """Device ms a call of ``fn`` spends in each kernel, by name, from one
+    profiler trace over ``reps`` calls after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def k1c_study(reps=3) -> int:
+    """``--k1c-study``: what binds K1c at config 2's saturated batch
+    (262,144 rays = 512 antennas x 512 directions, 128 steps, the 128^3
+    Chapman cube). Every variant is held bitwise to the unpacked kernel
+    in ray order (the kernel before the redesign) and timed by
+    ``device_ms``: the table unpacked or z-tap-packed; the rays in their
+    own order (a warp = one antenna's 32 directions), sorted by direction
+    then origin (``kernels.ray_order``: parallel rays from neighbouring
+    antennas) or by origin then direction (one antenna's neighbouring
+    directions); 64, 128 and 256 threads a block; and the time against
+    the step count. The packed variants read one pack made before the
+    timing (the pack's own time is phase 9's). Prints ptxas's registers
+    for the tracer."""
+    from ionotomo_tpu_torch import configs, kernels
+    from ionotomo_tpu_torch.core.grids import Grid3D
+    from ionotomo_tpu_torch.geometry import fermat, rays
+    from ionotomo_tpu_torch.kernels import build
+    from ionotomo_tpu_torch.models import chapman
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(f"card: {card}")
+    info = build.build()
+    print(f"build: built={info['built']} in {info['seconds']:.2f} s")
+    for line in info["log"].splitlines():
+        if "trace_leapfrog" in line or "registers" in line:
+            print(f"  ptxas: {line.strip()}")
+    grid = Grid3D.from_bounds(*BOUNDS, (N_GRID,) * 3, device=dev)
+    m = chapman.log_parametrize(chapman.chapman_field(grid)).contiguous()
+    table = m.reshape(N_GRID * N_GRID, N_GRID)
+    ants, dirs = configs.make_rays(512, 512)
+    o, d = rays.make_ray_batch(torch.from_numpy(ants).to(dev),
+                               torch.from_numpy(dirs).to(dev))
+    n = o.shape[0]
+    packed = kernels.pack_z_taps(table, grid)
+    key = kernels.ray_order_keys_ref(o, d, grid).long() + 2 ** 31
+    orders = {
+        "own order": None,
+        "direction, then origin": kernels.ray_order(o, d, grid),
+        "origin, then direction": torch.argsort(
+            ((key & 0xFFFF) << 16) | (key >> 16)).to(torch.int32),
+    }
+    check(bool(torch.all(torch.diff(key[orders["direction, then origin"]
+                                        .long()]) >= 0)),
+          "ray_order sorts the rays by the plain version's keys")
+
+    def run(steps, pk, order, threads):
+        kw = fermat._step_constants(FREQ_HZ, LENGTH_KM, steps)
+        return kernels.trace_leapfrog_cubic_with(
+            table, grid, o, d, steps, False, packed=pk, order=order,
+            threads=threads, **kw)
+
+    want = run(128, None, None, 128)
+    rows = []
+    for layout in ("unpacked", "packed"):
+        pk = packed if layout == "packed" else None
+        for oname, order in orders.items():
+            for threads in (64, 128, 256):
+                label = f"K1c {layout:8s} {oname:24s} {threads:4d} threads"
+                got = run(128, pk, order, threads)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b)
+                          for a, b in zip(got[:2], want[:2])),
+                      f"{label}: bitwise the unpacked kernel in ray order")
+                ms = device_ms(lambda: run(128, pk, order, threads), reps)
+                rows.append((layout, oname, threads, ms))
+                print(f"  {label}: {ms:.4f} ms")
+    best = min(rows, key=lambda r: r[-1])
+    print(f"  fastest: {best}")
+    pk = packed if best[0] == "packed" else None
+    for steps in (16, 32, 64, 128):
+        a = device_ms(lambda: run(steps, None, None, 128), reps)
+        b = device_ms(lambda: run(steps, pk, orders[best[1]], best[2]),
+                      reps)
+        print(f"  {steps:4d} steps: unpacked, own order, 128 threads {a:.4f} "
+              f"ms; fastest variant {b:.4f} ms")
+    by_name = kernel_ms_by_name(lambda: kernels.trace_leapfrog_cubic(
+        table, grid, o, d, 128, False, **fermat._step_constants(
+            FREQ_HZ, LENGTH_KM, 128)), reps)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
+        print(f"  the wrapper, by kernel: {ms:.4f} ms  {name[:90]}")
+    # config 2's literal array: 6,200 rays, 24-49 blocks of 256-128
+    o6, d6 = rays.make_ray_batch(*(torch.from_numpy(a).to(dev)
+                                   for a in configs.make_rays(62, 100)))
+    k = fermat._step_constants(FREQ_HZ, LENGTH_KM, 128)
+    want6 = kernels.trace_leapfrog_cubic_with(
+        table, grid, o6, d6, 128, False, packed=None, order=None,
+        threads=128, **k)
+    order6 = kernels.ray_order(o6, d6, grid)
+    for layout, pk in (("unpacked", None), ("packed", packed)):
+        for oname, order in (("own order", None), ("sorted", order6)):
+            for threads in (32, 64, 128, 256):
+                def run6():
+                    return kernels.trace_leapfrog_cubic_with(
+                        table, grid, o6, d6, 128, False, packed=pk,
+                        order=order, threads=threads, **k)
+                got = run6()
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got[:2],
+                                                            want6[:2])),
+                      f"K1c at 6200 rays, {layout}, {oname}, {threads}: "
+                      f"bitwise")
+                print(f"  K1c at 6200 rays {layout:8s} {oname:9s} "
+                      f"{threads:4d} threads: {device_ms(run6, 5):.4f} ms")
+    print(f"  ray_order at 6200 rays "
+          f"{device_ms(lambda: kernels.ray_order(o6, d6, grid), 10):.4f} ms")
+    sort_ms = device_ms(lambda: kernels.ray_order(o, d, grid), 10)
+    k = fermat._step_constants(FREQ_HZ, LENGTH_KM, 128)
+    wrapper_ms = device_ms(lambda: kernels.trace_leapfrog_cubic(
+        table, grid, o, d, 128, False, **k), reps)
+    wrapper_ev = cuda_ms(lambda: kernels.trace_leapfrog_cubic(
+        table, grid, o, d, 128, False, **k), 10)
+    print(f"  ray_order alone {sort_ms:.4f} ms; the wrapper (sort, pack, "
+          f"trace) {wrapper_ms:.4f} ms by device_ms, {wrapper_ev:.4f} ms by "
+          f"CUDA events; {n} rays on {card}")
+    return 0
+
+
+def k5t_study(reps=20) -> int:
+    """``--k5t-study``: the accumulating K5ᵀ's register budget at config
+    4's 20,000 endpoints (a plan of ~40,700 used segments of ~8 pairs) and
+    at phase 8's dense shapes. The kernel's budget is a constant of its
+    source (``K5T_MIN_BLOCKS``, 4 blocks of 256 an SM); the study builds
+    the library again with 1 (the compiler's own choice), 3 and 6, and
+    times each build's K5ᵀ into one running table, bitwise the default
+    build's, beside ``index_add_`` into one. Prints ptxas's registers and
+    spills of each build."""
+    from ionotomo_tpu_torch import configs, kernels
+    from ionotomo_tpu_torch.core import tricubic
+    from ionotomo_tpu_torch.core.grids import Grid3D
+    from ionotomo_tpu_torch.forward import tec
+    from ionotomo_tpu_torch.kernels import build
+    from ionotomo_tpu_torch.testing import edge_case_points
+
+    dev = torch.device("cuda", 0)
+    print(f"card: {card_line()}")
+    budgets = (1, 3, 4, 6)
+    libs = {}
+    for budget in budgets:
+        info = build.build(defines=() if budget == 4 else
+                           (f"K5T_MIN_BLOCKS={budget}",))
+        libs[budget] = build.open_library(info["path"])
+        log = info["log"].splitlines()
+        for i, line in enumerate(log):
+            if "cubic_value_grad_bwd_kernel" in line:
+                print(f"  ptxas, budget {budget}: "
+                      + " | ".join(x.strip()[:90] for x in log[i:i + 4]))
+    default = build.load()
+
+    def with_lib(budget, fn):
+        build._loaded["lib"] = libs[budget]
+        try:
+            return fn()
+        finally:
+            build._loaded["lib"] = default
+
+    rng = np.random.default_rng(8)
+    w = configs.config4_world(device=dev)
+    geo = tec.DtecGeometry(w.grid, w.rays, w.n_dirs, 0, "hermite", "cubic")
+    origin, spacing = (-64.0, -32.0, 0.0), (1.0, 0.5, 8.0)
+    cases = [("config 4's endpoints", w.grid, geo.ends)]
+    for n_grid, where in ((128, "edge-case"), (256, "random")):
+        g = Grid3D.create(origin, spacing, (n_grid,) * 3, device=dev)
+        if where == "edge-case":
+            pts = edge_case_points((n_grid,) * 3, origin, spacing, 1 << 20,
+                                   rng)
+        else:
+            hi = np.asarray(spacing) * (n_grid - 1)
+            pts = (np.asarray(origin) + rng.uniform(0, 1, (1 << 20, 3)) * hi
+                   ).astype(np.float32)
+        cases.append((f"{where} points of {n_grid}^3", g,
+                      torch.from_numpy(pts).to(dev)))
+    for label, grid, pts in cases:
+        n = pts.shape[0]
+        cv = torch.from_numpy(rng.normal(size=(n,)).astype(np.float32)
+                              ).to(dev)
+        cg = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)
+                              ).to(dev)
+        plan = tricubic.endpoint_plan(grid, pts)
+        print_plan(f"K5T at {label}", plan)
+        table = torch.from_numpy(rng.normal(size=(grid.num_voxels,))
+                                 .astype(np.float32)).to(dev).reshape(
+            grid.shape[0] * grid.shape[1], grid.shape[2])
+        want = kernels.cubic_value_grad_bwd(table.clone(), grid, pts, cv, cg,
+                                            plan)
+        running = table.clone()
+        for budget in budgets:
+            got = with_lib(budget, lambda: kernels.cubic_value_grad_bwd(
+                table.clone(), grid, pts, cv, cg, plan))
+            torch.cuda.synchronize()
+            tag = (f"K5T at {label}, register budget {budget} blocks an "
+                   f"SM")
+            check(bool(torch.equal(got, want)), f"{tag}: bitwise")
+            ms = with_lib(budget, lambda: device_ms(
+                lambda: kernels.cubic_value_grad_bwd(running, grid, pts, cv,
+                                                     cg, plan), reps))
+            print(f"  {tag}: {ms:.4f} ms")
+        lib = device_ms(index_add_call(*tricubic.value_grad_transpose_terms(
+            grid, pts, cv, cg), grid.num_voxels), reps)
+        print(f"  index_add_ into a running table at {label}: {lib:.4f} ms")
+        del plan, table, running, want, got
+        torch.cuda.empty_cache()
+    return 0
+
+
+def plain_solves(n, root=None) -> int:
+    """``--plain-solves N [--root DIR]``: config 4's solve once on the
+    kernels and N times on the plain versions (``dtec_paired_linear_ref``,
+    phase 10's schedule at full size) for the package found at ``root``
+    (default: beside this script); each final residual and held-out dTEC
+    rms to full precision, and how many distinct plain results there
+    were. Run for two checkouts to see whether a plain result that strays
+    is new."""
+    if root is not None:
+        sys.path.insert(0, str(Path(root).resolve()))
+    import ionotomo_tpu_torch
+    from ionotomo_tpu_torch import configs
+    from ionotomo_tpu_torch.forward import tec
+
+    dev = torch.device("cuda", 0)
+    w = configs.config4_world(device=dev)
+
+    def solve(**kw):
+        res = configs.config4_solve(w, **kw)
+        torch.cuda.synchronize()
+        return (float(res.residual_norm),
+                configs.heldout_dtec_rms(res.m, w.grid, *w.heldout))
+
+    print(f"plain solves, package {Path(ionotomo_tpu_torch.__file__).parent}"
+          f" on {card_line()}")
+    print(f"  kernel solve: residual, held-out rms {solve()!r}")
+    got = []
+    for i in range(n):
+        got.append(solve(linearize=tec.dtec_paired_linear_ref))
+        print(f"  plain solve {i}: residual, held-out rms {got[-1]!r}")
+    res = [r for r, _ in got]
+    print(f"  {n} plain solves: {len(set(got))} distinct results; residual "
+          f"least {min(res)!r}, greatest {max(res)!r}")
+    return 0
+
+
 def kernels_line(results) -> dict:
     """The per-kernel JSON object of a run from the phases' results."""
     src = "ionotomo_tpu_torch/kernels/csrc/"
     # launches: K1, K1e and K2 in the serving run (phase 4), K3 and K1eᵀ in
-    # the config-3b solve (phase 6), KG in the probe (phase 7), K1c in
-    # config 2 (phase 9), K5 and K5ᵀ in config 4 (phase 10). Error, ms and
+    # the config-3b solve (phase 6), KG in the probe (phase 7), K1c and the
+    # pack and key kernels it launches in config 2 (phase 9), K5 and K5ᵀ in
+    # config 4 (phase 10). Error, ms and
     # bound: K1 at the bench shape (262144 rays x 64 steps); K1e at 2^20
     # points (phase 2); K2, K3 and K1eᵀ at the config-3b solve's shapes
     # (650,000 points, 20,000 endpoints); KG at (16384, 128); K1c at
-    # config 2's saturated batch (262144 rays x 128 steps); K5 and K5ᵀ at
+    # config 2's saturated batch (262144 rays x 128 steps: the call, the
+    # sort, the pack and the tracer; the pack and the keys alone beside
+    # it); K5 and K5ᵀ at
     # config 4's 20,000 endpoints. library_ms: index_add_ of the
     # precomputed contributions for the scatters, torch.gather for KG.
     # "kernels_at_config4" holds K2 and K3 again at config 4's two cubic
@@ -2151,8 +2678,7 @@ def kernels_line(results) -> dict:
                 **{k: results["solve_launches"][k]
                    for k in ("rows_value_bwd", "zp_value_grad_bwd")},
                 "vector_gather": results["vector_gather"]["launches"],
-                "trace_leapfrog_cubic":
-                    results["trace_leapfrog_cubic"]["launches"],
+                **{k: results[k]["launches"] for k in CONFIG2_KERNELS},
                 "cubic_value_grad": c4["cubic_value_grad"],
                 "cubic_value_grad_bwd": c4["cubic_value_grad_bwd"],
                 **{k: results["enkf_launches"][k]
@@ -2171,6 +2697,10 @@ def kernels_line(results) -> dict:
          "ionotomo_tpu/core/boxspline.py:253"),
         ("vector_gather", "vector_gather.cu", "bench/probe_gather.py:21"),
         ("trace_leapfrog_cubic", "trace_leapfrog_cubic.cu",
+         "ionotomo_tpu/geometry/fermat.py:204"),
+        ("pack_z_taps", "trace_leapfrog_cubic.cu",
+         "ionotomo_tpu/geometry/fermat.py:204"),
+        ("ray_order_keys", "trace_leapfrog_cubic.cu",
          "ionotomo_tpu/geometry/fermat.py:204"),
         ("cubic_value_grad", "cubic_value_grad.cu",
          "ionotomo_tpu/core/tricubic.py:529"),
@@ -2222,9 +2752,15 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    if "--k1c-study" in args:
+        return k1c_study()
+    if "--k5t-study" in args:
+        return k5t_study()
+    root = args[args.index("--root") + 1] if "--root" in args else None
     if "--serving-loop" in args:
-        return serving_loop(args[args.index("--root") + 1]
-                            if "--root" in args else None)
+        return serving_loop(root)
+    if "--plain-solves" in args:
+        return plain_solves(int(args[args.index("--plain-solves") + 1]), root)
 
     from ionotomo_tpu_torch import configs, kernels
     from ionotomo_tpu_torch.core import boxspline, tricubic
@@ -2253,13 +2789,12 @@ def main() -> int:
 
     parent = Parent(parent_dir) if parent_dir else None
     if parent is None:
-        print("  no --parent DIR: phases 5 and 6 time this checkout's K3 and "
-              "K1eT alone")
+        print("  no --parent DIR: no phase holds a kernel to the parent's")
     results = {}
     phase2_kernels_vs_plain(dev, boxspline, tricubic, fermat, kernels,
                             Grid3D, chapman, results)
     phase3_throughput(dev, boxspline, fermat, kernels, Grid3D, chapman,
-                      results, card)
+                      results, card, parent)
     phase4_serving(dev, boxspline, fermat, rays, tec, kernels, Grid3D, chapman,
                    results, profile)
     phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
@@ -2268,11 +2803,11 @@ def main() -> int:
                  chapman, priors, solvers, results, profile, parent)
     phase7_probe(dev, gather, kernels, results)
     phase8_cubic_kernels(dev, tricubic, fermat, rays, tec, kernels, Grid3D,
-                         chapman, results)
+                         chapman, results, parent)
     phase9_config2(dev, fermat, rays, kernels, Grid3D, chapman, configs,
-                   results, card)
+                   results, card, parent=parent)
     phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
-                    profile)
+                    profile, parent)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     world5 = configs.config5_world(device=dev)
@@ -2281,7 +2816,7 @@ def main() -> int:
           f"through the drifting analytic world): set-up "
           f"{time.perf_counter() - t0:.2f} s")
     phase11_member_kernels(dev, world5, boxspline, tricubic, tec, kernels,
-                           Grid3D, results)
+                           Grid3D, results, parent)
     cache5 = phase12_config5(dev, world5, boxspline, tricubic, tec, kernels,
                              configs, results, profile)
     phase13_enkf(dev, world5, cache5, boxspline, tricubic, tec, kernels,

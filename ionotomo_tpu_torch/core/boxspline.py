@@ -30,6 +30,7 @@ import torch
 from .. import kernels
 from .grids import Grid3D
 from .precision import check_full_f32
+from .tricubic import scatter_add_
 from .triquadratic import _prefilter_matrix, _qb_weights, _qb_dweights
 
 # Per-piece translate offsets (7 + zero-weight pad) and quadratic
@@ -301,13 +302,12 @@ def interp_rows_with_grad_transpose_ref(grid: Grid3D, points: torch.Tensor,
     ``interp_rows_with_grad`` for a value cotangent (N,) and a gradient
     cotangent (N, 3). Per point the 8 rows × 3 z taps receive
     wxy⊗(c_v·qb + c_gz/s_z·dqb) + wu⊗(c_gx/s_x·qb) + wv⊗(c_gy/s_y·qb),
-    added by ``index_add_`` (atomics on CUDA: not bitwise reproducible
-    there)."""
+    added by ``tricubic.scatter_add_`` (reproducible on every device)."""
     nx, ny, nz = grid.shape
     flat, contrib = transpose_terms(grid, points, ct_value, ct_grad)
     out = torch.zeros(nx * ny * nz, dtype=ct_value.dtype,
                       device=ct_value.device)
-    return out.index_add_(0, flat, contrib).reshape(nx * ny, nz)
+    return scatter_add_(out, flat, contrib).reshape(nx * ny, nz)
 
 
 def transpose_terms(grid: Grid3D, points: torch.Tensor,
@@ -352,6 +352,17 @@ def interp_rows_with_grad_transpose(grid: Grid3D, points: torch.Tensor,
     return kernels.zp_value_grad_bwd(grid, points.contiguous(),
                                      ct_value.contiguous(),
                                      ct_grad.contiguous(), plan)
+
+
+def interp_rows_with_grad_transpose_add_(table: torch.Tensor, grid: Grid3D,
+                                         points: torch.Tensor,
+                                         ct_value: torch.Tensor,
+                                         ct_grad: torch.Tensor, plan=None
+                                         ) -> torch.Tensor:
+    """table += ``interp_rows_with_grad_transpose(...)``, in place;
+    returns ``table``. K1eᵀ writes a whole table, which is then added."""
+    return table.add_(interp_rows_with_grad_transpose(grid, points, ct_value,
+                                                      ct_grad, plan))
 
 
 def interp(coef: torch.Tensor, grid: Grid3D, points: torch.Tensor

@@ -3,9 +3,10 @@ forward operators use them.
 
 A model is the module of its row-gather evaluators (``row_setup``,
 ``row_plan``, ``interp_rows``, ``interp_rows_with_grad`` with its plain
-version and its transpose, ``endpoint_plan``), the contraction order of
-its value gather, and the linear map P from field samples to its
-(nx*ny, nz) table with the transpose Pᵀ:
+version and its transpose, fresh or added into a table in place
+(``interp_rows_with_grad_transpose_add_``), ``endpoint_plan``), the
+contraction order of its value gather, and the linear map P from field
+samples to its (nx*ny, nz) table with the transpose Pᵀ:
 
 - ``"cubic"`` (the default everywhere): Catmull-Rom tricubic,
   ``core.tricubic``, 16 rows × 4 taps, z first; P is a free view of the

@@ -20,10 +20,15 @@ The tricubic model (separable cubic convolution over a 4×4×4
 neighbourhood, edge-clamped, no prefilter: the table is the field
 reshaped to (nx*ny, nz)): ``interp_rows`` is ``rows_value`` at K=16, L=4,
 z first; ``interp_rows_with_grad`` is kernel K5 on CUDA and
-``interp_rows_with_grad_transpose`` kernel K5ᵀ (XLA derives that
-transpose from the gather in the reference), each beside its plain
-version; ``interp``/``interp_with_grad``/``interp_weights`` are the
-64-neighbour block forms, plain on every device.
+``interp_rows_with_grad_transpose_add_`` kernel K5ᵀ (XLA derives that
+transpose from the gather in the reference), which adds into a given
+table in place over a plan of occupied rows (``endpoint_plan``), each
+beside its plain version; ``interp_rows_with_grad_taps_ref`` is K5's
+and K1c's evaluator summed in the kernels' order, and ``pack_z_taps_ref``
+and ``interp_rows_with_grad_packed_ref`` the plain versions of K1c's
+z-tap-packed table and its evaluator, bitwise equal to that twin;
+``interp``/``interp_with_grad``/``interp_weights`` are the 64-neighbour
+block forms, plain on every device.
 
 A table with a leading member axis, (B, R, nz) over shared indices and
 weights, is what ``jax.vmap`` over the field makes of ``rows_value_p`` in
@@ -107,7 +112,13 @@ class RowPlan:
               unusable, so no later call reads them);
     stream:   the CUDA stream the plan was built on (its handle; None on
               the CPU). The kernels take the plan only on that stream, so
-              no two calls share its counters at once.
+              no two calls share its counters at once;
+    z0_range: in a plan of occupied rows only (``occupied_rows=True``:
+              an empty row has no segment, and n_seg_max = ⌈N·live /
+              chunk⌉ + min(n_rows, N·live)), (n_rows, 2) int32, the least
+              and greatest z0 of each row's pairs (0, −1 in an empty row),
+              from which a kernel knows the z span a row's pairs touch;
+              None in a plan where every row has a segment.
     """
 
     order: torch.Tensor
@@ -119,6 +130,7 @@ class RowPlan:
     live: int
     chunk: int
     stream: int | None
+    z0_range: torch.Tensor | None = None
 
     @property
     def n_rows(self) -> int:
@@ -135,15 +147,20 @@ plans_built = [0]
 
 
 def build_row_plan(ri: torch.Tensor, n_rows: int, z0: torch.Tensor = None,
-                   live: int = None, chunk: int = SEGMENT_PAIRS) -> RowPlan:
+                   live: int = None, chunk: int = SEGMENT_PAIRS,
+                   occupied_rows: bool = False) -> RowPlan:
     """The plan of the pairs of row indices ri (N, K): the first ``live``
     (default K) translates of each point, sorted by row and, within a
     row, by the point's first z tap ``z0`` (N,) (so the pairs that add
     into one z element are neighbours), then cut into segments of at most
-    ``chunk`` pairs. One sort and two searches on ri's device, no host
-    read."""
+    ``chunk`` pairs. ``occupied_rows``: no segment for an empty row, and
+    each row's z0 range (needs ``z0``), for a kernel that adds into a
+    table only where its pairs land. One sort and a few searches on ri's
+    device, no host read."""
     n, stride = ri.shape
     live = stride if live is None else live
+    if occupied_rows and z0 is None:
+        raise ValueError("build_row_plan: occupied_rows needs z0")
     dev = ri.device
     plans_built[0] += 1
     ids = (torch.arange(n, dtype=torch.int64, device=dev)[:, None] * stride
@@ -155,11 +172,24 @@ def build_row_plan(ri: torch.Tensor, n_rows: int, z0: torch.Tensor = None,
     bounds = torch.arange(n_rows + 1, dtype=torch.int64, device=dev) << 32
     offsets = torch.searchsorted(sorted_key, bounds, out_int32=True)
     counts = offsets[1:] - offsets[:-1]
-    n_seg = torch.clamp_min((counts + (chunk - 1)) // chunk, 1)
+    n_seg = (counts + (chunk - 1)) // chunk
+    n_seg_max = -(-n * live // chunk)
+    z0_range = None
+    if occupied_rows:
+        n_seg_max += min(n_rows, n * live)
+        # each row's first and last z0 in sort order (a pad: no pairs)
+        z0s = torch.cat([(sorted_key & 0xFFFFFFFF) - 2 ** 31,
+                         torch.zeros(1, dtype=torch.int64, device=dev)])
+        has = counts > 0
+        lo = torch.where(has, z0s[offsets[:-1].long()], 0)
+        hi = torch.where(has, z0s[(offsets[1:].long() - 1).clamp_min(0)], -1)
+        z0_range = torch.stack([lo, hi], -1).to(torch.int32)
+    else:
+        n_seg = torch.clamp_min(n_seg, 1)
+        n_seg_max += n_rows
     seg_end = torch.cumsum(n_seg, 0, dtype=torch.int32)
     row_seg = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
                          seg_end])
-    n_seg_max = -(-n * live // chunk) + n_rows
     seg_row = torch.searchsorted(
         seg_end, torch.arange(n_seg_max, dtype=torch.int32, device=dev),
         right=True, out_int32=True)
@@ -169,23 +199,39 @@ def build_row_plan(ri: torch.Tensor, n_rows: int, z0: torch.Tensor = None,
                                         device=dev),
                    stride=stride, live=live, chunk=chunk,
                    stream=(torch.cuda.current_stream(dev).cuda_stream
-                           if dev.type == "cuda" else None))
+                           if dev.type == "cuda" else None),
+                   z0_range=z0_range)
+
+
+def scatter_add_(out: torch.Tensor, flat: torch.Tensor,
+                 contrib: torch.Tensor) -> torch.Tensor:
+    """out[..., flat[i]] += contrib[..., i] along the last axis, in place,
+    the same sum on every run: ``index_add_`` on the CPU (in order); on
+    CUDA, whose ``index_add_`` adds by float atomics in no fixed order,
+    ``index_put_`` with accumulation, which sorts the targets and sums
+    each one's terms in a fixed order. Returns ``out``."""
+    if not out.is_cuda:
+        return out.index_add_(-1, flat, contrib)
+    size = out.shape[-1]
+    lead = torch.arange(out[..., 0].numel(), device=out.device) * size
+    idx = (lead.reshape(out.shape[:-1] + (1,)) + flat).reshape(-1)
+    out.view(-1).index_put_((idx,), contrib.reshape(-1), accumulate=True)
+    return out
 
 
 def rows_value_transpose_ref(ct, ri, wxy, zi, wz, table_shape
                              ) -> torch.Tensor:
     """Plain PyTorch version of K3: table_ct[ri[n,k], zi[n,l]] +=
-    ct[n]·wxy[n,k]·wz[n,l] by ``index_add_`` of the K·L scalar
-    contributions per point (on CUDA ``index_add_`` uses atomics, so this
-    version is not bitwise reproducible there). Contributions at rows or
-    z outside the table are dropped, as in the reference. ct (B, N) gives
-    (B, n_rows, nz) by one ``index_add_`` along the flat table axis (the
-    plain version of K3b)."""
+    ct[n]·wxy[n,k]·wz[n,l] by ``scatter_add_`` of the K·L scalar
+    contributions per point (reproducible on every device). Contributions
+    at rows or z outside the table are dropped, as in the reference. ct
+    (B, N) gives (B, n_rows, nz) by one ``scatter_add_`` along the flat
+    table axis (the plain version of K3b)."""
     n_rows, nz = table_shape
     flat, contrib = transpose_terms(ct, ri, wxy, zi, wz, table_shape)
     out = torch.zeros(ct.shape[:-1] + (n_rows * nz,), dtype=ct.dtype,
                       device=ct.device)
-    return out.index_add_(-1, flat, contrib).reshape(
+    return scatter_add_(out, flat, contrib).reshape(
         ct.shape[:-1] + (n_rows, nz))
 
 
@@ -372,6 +418,31 @@ def _contract_yx(cz: torch.Tensor, cz_d: torch.Tensor, frac: torch.Tensor,
     return value, du / grid.spacing[None, :]
 
 
+def _contract_taps(taps: torch.Tensor, frac: torch.Tensor, grid: Grid3D):
+    """Value (N,) and physical gradient (N, 3) from the 4×4×4 taps (N, x,
+    y, z) of each point, in cubic_eval.cuh's order: each pencil's z sums
+    from zero, tap by tap, then y, then x, each a running sum, and the
+    gradient divided by the spacing last."""
+    wx, wy, wz = (_catmull_rom_weights(frac[:, d]) for d in range(3))
+    dwx, dwy, dwz = (_catmull_rom_dweights(frac[:, d]) for d in range(3))
+    cz = cz_d = 0.0
+    for l in range(4):
+        cz = cz + taps[..., l] * wz[:, None, None, l]
+        cz_d = cz_d + taps[..., l] * dwz[:, None, None, l]
+    czy = czy_dy = czy_dz = 0.0
+    for b in range(4):
+        czy = czy + cz[:, :, b] * wy[:, None, b]
+        czy_dy = czy_dy + cz[:, :, b] * dwy[:, None, b]
+        czy_dz = czy_dz + cz_d[:, :, b] * wy[:, None, b]
+    v = dx = dy = dz = 0.0
+    for a in range(4):
+        v = v + czy[:, a] * wx[:, a]
+        dx = dx + czy[:, a] * dwx[:, a]
+        dy = dy + czy_dy[:, a] * wx[:, a]
+        dz = dz + czy_dz[:, a] * wx[:, a]
+    return v, torch.stack([dx, dy, dz], dim=-1) / grid.spacing[None, :]
+
+
 def interp_rows_with_grad_ref(field2d: torch.Tensor, grid: Grid3D,
                               points: torch.Tensor):
     """Plain PyTorch version of K5: value + physical gradient from the 16
@@ -386,6 +457,40 @@ def interp_rows_with_grad_ref(field2d: torch.Tensor, grid: Grid3D,
     cz = torch.einsum("nkz,nz->nk", rows, wz_band).reshape(-1, 4, 4)
     cz_d = torch.einsum("nkz,nz->nk", rows, dwz_band).reshape(-1, 4, 4)
     return _contract_yx(cz, cz_d, frac, grid)
+
+
+def interp_rows_with_grad_taps_ref(field2d: torch.Tensor, grid: Grid3D,
+                                   points: torch.Tensor):
+    """``interp_rows_with_grad_ref`` as K5 and K1c sum it: the 16 pencils'
+    4 z taps gathered from the table and contracted in cubic_eval.cuh's
+    order (``_contract_taps``). The unpacked twin of
+    ``interp_rows_with_grad_packed_ref``."""
+    check_full_f32()
+    idx, frac, row_idx = _row_neighborhood(grid, points)
+    taps = field2d[row_idx.long()[:, :, None], idx[:, 2].long()[:, None, :]]
+    return _contract_taps(taps.reshape(-1, 4, 4, 4), frac, grid)
+
+
+def pack_z_taps_ref(field2d: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K1c's pack: the (nz−1, nx*ny, 4) table of
+    the four z taps (clamp(b−1), b, b+1, clamp(b+2)) of every row at
+    every cell base b in [0, nz−2], base-major."""
+    nz = field2d.shape[-1]
+    b = torch.arange(nz - 1, device=field2d.device)
+    z = torch.stack([(b - 1).clamp_min(0), b, b + 1,
+                     (b + 2).clamp_max(nz - 1)], -1)          # (nz-1, 4)
+    return field2d[:, z].permute(1, 0, 2).contiguous()
+
+
+def interp_rows_with_grad_packed_ref(packed: torch.Tensor, grid: Grid3D,
+                                     points: torch.Tensor):
+    """``interp_rows_with_grad_taps_ref`` reading the packed table
+    (``pack_z_taps_ref``) as K1c does: one 4-tap entry per pencil at the
+    point's cell base. Bitwise equal to it."""
+    check_full_f32()
+    idx, frac, row_idx = _row_neighborhood(grid, points)
+    taps = packed[idx[:, 2, 1].long()[:, None], row_idx.long()]
+    return _contract_taps(taps.reshape(-1, 4, 4, 4), frac, grid)
 
 
 def interp_rows_with_grad(field2d: torch.Tensor, grid: Grid3D,
@@ -427,38 +532,63 @@ def interp_rows_with_grad_transpose_ref(grid: Grid3D, points: torch.Tensor,
                                         ) -> torch.Tensor:
     """Plain PyTorch version of K5ᵀ: the (nx*ny, nz) table cotangent of
     ``interp_rows_with_grad`` for a value cotangent (N,) and a gradient
-    cotangent (N, 3), added by ``index_add_`` (atomics on CUDA: not
-    bitwise reproducible there)."""
+    cotangent (N, 3), added by ``scatter_add_`` (reproducible on every
+    device)."""
     nx, ny, nz = grid.shape
     flat, contrib = value_grad_transpose_terms(grid, points, ct_value,
                                                ct_grad)
     out = torch.zeros(nx * ny * nz, dtype=ct_value.dtype,
                       device=ct_value.device)
-    return out.index_add_(0, flat, contrib).reshape(nx * ny, nz)
+    return scatter_add_(out, flat, contrib).reshape(nx * ny, nz)
 
 
 def endpoint_plan(grid: Grid3D, points: torch.Tensor) -> RowPlan:
     """The K5ᵀ plan of fixed points: their 16 (point, pencil) pairs, ids
-    n·16 + k, sorted by table row and cell base and cut into segments."""
+    n·16 + k, sorted by table row and cell base and cut into segments,
+    occupied rows only, with each row's range of cell bases."""
     idx, _, ri = _row_neighborhood(grid, points)
-    return row_plan(ri, idx[:, 2], grid.shape[0] * grid.shape[1])
+    return build_row_plan(ri, grid.shape[0] * grid.shape[1], idx[:, 2, 1],
+                          occupied_rows=True)
+
+
+def interp_rows_with_grad_transpose_add_(table: torch.Tensor, grid: Grid3D,
+                                         points: torch.Tensor,
+                                         ct_value: torch.Tensor,
+                                         ct_grad: torch.Tensor, plan=None
+                                         ) -> torch.Tensor:
+    """table += the transpose of ``interp_rows_with_grad`` with respect to
+    the table, for a value cotangent (N,) and a gradient cotangent (N, 3):
+    ``table`` (nx*ny, nz) is updated in place and returned. Kernel K5ᵀ on
+    CUDA (over ``plan`` from ``endpoint_plan``, built here if not given),
+    which reads and writes only the cells the stencils touch; on the CPU
+    ``table.add_`` of ``interp_rows_with_grad_transpose_ref``. Either way
+    each cell is rounded as table + (the transpose alone)."""
+    if not points.is_cuda:
+        return table.add_(interp_rows_with_grad_transpose_ref(
+            grid, points, ct_value, ct_grad))
+    if plan is None:
+        plan = endpoint_plan(grid, points)
+    return kernels.cubic_value_grad_bwd(table, grid, points.contiguous(),
+                                        ct_value.contiguous(),
+                                        ct_grad.contiguous(), plan)
 
 
 def interp_rows_with_grad_transpose(grid: Grid3D, points: torch.Tensor,
                                     ct_value: torch.Tensor,
                                     ct_grad: torch.Tensor, plan=None
                                     ) -> torch.Tensor:
-    """Transpose of ``interp_rows_with_grad`` with respect to the table:
-    kernel K5ᵀ on CUDA (over ``plan`` from ``endpoint_plan``, built here
-    if not given), ``interp_rows_with_grad_transpose_ref`` on the CPU."""
+    """Transpose of ``interp_rows_with_grad`` with respect to the table, a
+    fresh (nx*ny, nz) table: ``interp_rows_with_grad_transpose_add_`` into
+    zeros (kernel K5ᵀ on CUDA, ``interp_rows_with_grad_transpose_ref`` on
+    the CPU)."""
     if not points.is_cuda:
         return interp_rows_with_grad_transpose_ref(grid, points, ct_value,
                                                    ct_grad)
-    if plan is None:
-        plan = endpoint_plan(grid, points)
-    return kernels.cubic_value_grad_bwd(grid, points.contiguous(),
-                                        ct_value.contiguous(),
-                                        ct_grad.contiguous(), plan)
+    nx, ny, nz = grid.shape
+    table = torch.zeros((nx * ny, nz), dtype=torch.float32,
+                        device=points.device)
+    return interp_rows_with_grad_transpose_add_(table, grid, points, ct_value,
+                                                ct_grad, plan)
 
 
 def _block_setup(grid: Grid3D, points: torch.Tensor):

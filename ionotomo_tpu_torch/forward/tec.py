@@ -387,8 +387,9 @@ class PairedDtecLinear:
 
     On CUDA tensors R is ``rows_value`` (K2, K2b) and Rᵀ
     ``rows_value_transpose`` (K3, K3b) over the geometry's plan; E and Eᵀ
-    are K5 and K5ᵀ on cubic, K1e and K1eᵀ on zp.
-    ``dtec_paired_linear_ref`` builds the same operator from the plain
+    are K5 and K5ᵀ on cubic, K1e and K1eᵀ on zp. Eᵀ adds into Rᵀ's fresh
+    table in place (K5ᵀ at the touched cells only; K1eᵀ's whole table is
+    added). ``dtec_paired_linear_ref`` builds the same operator from the plain
     versions (``*_ref``) of those, on any device.
     """
 
@@ -440,11 +441,6 @@ class PairedDtecLinear:
         return geo.model.rows.interp_rows_with_grad(table, geo.grid,
                                                     geo.ends)
 
-    def _value_grad_t_1(self, ct_value, ct_grad) -> torch.Tensor:
-        geo = self.geometry
-        return geo.model.rows.interp_rows_with_grad_transpose(
-            geo.grid, geo.ends, ct_value, ct_grad, geo.end_plan)
-
     def _value_grad(self, table: torch.Tensor):
         """E: value and gradient at the endpoints; member by member for a
         (B, R, nz) table."""
@@ -453,12 +449,17 @@ class PairedDtecLinear:
         vals, grads = zip(*(self._value_grad_1(t) for t in table))
         return torch.stack(vals), torch.stack(grads)
 
-    def _value_grad_t(self, ct_value, ct_grad) -> torch.Tensor:
-        """Eᵀ; member by member for (B, P) and (B, P, 3) cotangents."""
+    def _value_grad_t_add_(self, table, ct_value, ct_grad) -> torch.Tensor:
+        """table += Eᵀ(ct), in place, member by member for (B, P) and (B,
+        P, 3) cotangents into a (B, R, nz) table; returns ``table``."""
+        geo = self.geometry
+        add_ = geo.model.rows.interp_rows_with_grad_transpose_add_
         if ct_value.dim() == 1:
-            return self._value_grad_t_1(ct_value, ct_grad)
-        return torch.stack([self._value_grad_t_1(cv, cg)
-                            for cv, cg in zip(ct_value, ct_grad)])
+            return add_(table, geo.grid, geo.ends, ct_value, ct_grad,
+                        geo.end_plan)
+        for t, cv, cg in zip(table, ct_value, ct_grad):
+            add_(t, geo.grid, geo.ends, cv, cg, geo.end_plan)
+        return table
 
     def apply(self, dm: torch.Tensor) -> torch.Tensor:
         """J δm: field tangent (..., *grid.shape) → dTEC tangent (...,
@@ -491,9 +492,10 @@ class PairedDtecLinear:
             ct_ne, ct_d0 = _paired_hermite_ne_t(y, geo.w, geo.rays, geo.i0)
         table_ct = self._rows_t(self.ne * ct_ne.reshape(lead + (-1,)))
         if geo.hermite:
+            # into Rᵀ's fresh table, in place
             ct_d = torch.cat([ct_d0, -ct_d0], dim=-1) * self.ne_e
-            table_ct = table_ct + self._value_grad_t(
-                ct_d * self.slope, ct_d[..., None] * geo.t_hat)
+            table_ct = self._value_grad_t_add_(
+                table_ct, ct_d * self.slope, ct_d[..., None] * geo.t_hat)
         return geo.model.table_t(table_ct, geo.grid)
 
 
@@ -528,10 +530,13 @@ class _PlainPairedDtecLinear(PairedDtecLinear):
         return geo.model.rows.interp_rows_with_grad_ref(table, geo.grid,
                                                         geo.ends)
 
-    def _value_grad_t_1(self, ct_value, ct_grad) -> torch.Tensor:
+    def _value_grad_t_add_(self, table, ct_value, ct_grad) -> torch.Tensor:
         geo = self.geometry
-        return geo.model.rows.interp_rows_with_grad_transpose_ref(
-            geo.grid, geo.ends, ct_value, ct_grad)
+        ref = geo.model.rows.interp_rows_with_grad_transpose_ref
+        if ct_value.dim() == 1:
+            return table + ref(geo.grid, geo.ends, ct_value, ct_grad)
+        return table + torch.stack([ref(geo.grid, geo.ends, cv, cg)
+                                    for cv, cg in zip(ct_value, ct_grad)])
 
 
 def dtec_paired_linear_ref(field_m0, grid, rays, num_directions, i0=0,

@@ -14,11 +14,14 @@
   JAX package's Pallas probe (csrc/vector_gather.cu);
 - K5  ``cubic_value_grad``: tricubic value + physical gradient at points
   (csrc/cubic_value_grad.cu, csrc/cubic_eval.cuh);
-- K5ᵀ ``cubic_value_grad_bwd``: its transpose with respect to the table, by
-  the plan-and-reduce scheme (csrc/cubic_value_grad_bwd.cu);
-- K1c ``trace_leapfrog_cubic``: the leapfrog tracer over the tricubic model
-  (csrc/trace_leapfrog_cubic.cu; csrc/trace_leapfrog.cuh is the integrator
-  it shares with K1);
+- K5ᵀ ``cubic_value_grad_bwd``: its transpose with respect to the table,
+  added into a table in place, by the plan-and-reduce scheme over a plan
+  of occupied rows (csrc/cubic_value_grad_bwd.cu);
+- K1c ``trace_leapfrog_cubic``: the leapfrog tracer over the tricubic
+  model (csrc/trace_leapfrog_cubic.cu; csrc/trace_leapfrog.cuh is the
+  integrator it shares with K1), over the table's z taps packed first
+  (``pack_z_taps``) and, for a batch that fills the card, the rays sorted
+  first (``ray_order``, whose keys ``ray_order_keys`` makes; same source);
 - K2b ``rows_value_fwd_batched``: K2 over a leading member axis of the
   table, the indices and weights shared
   (csrc/rows_value_fwd_batched.cu);
@@ -45,7 +48,8 @@ from . import build
 launches = {"trace_leapfrog_zp": 0, "zp_value_grad": 0, "rows_value_fwd": 0,
             "rows_value_bwd": 0, "zp_value_grad_bwd": 0, "vector_gather": 0,
             "cubic_value_grad": 0, "cubic_value_grad_bwd": 0,
-            "trace_leapfrog_cubic": 0, "rows_value_fwd_batched": 0,
+            "trace_leapfrog_cubic": 0, "pack_z_taps": 0,
+            "ray_order_keys": 0, "rows_value_fwd_batched": 0,
             "rows_value_bwd_batched": 0}
 
 #: Widest table row the reduce kernels (K3, K1eᵀ) take: one row per warp
@@ -215,10 +219,9 @@ def rows_value_fwd_batched(table: torch.Tensor, ri: torch.Tensor,
     return out
 
 
-def _trace_leapfrog(name: str, min_axis: int, table, grid, origins,
-                    directions, n_steps: int, keep_path: bool, *, h: float,
-                    hh12: float, w_n: float, w_rhs: float, k_ne: float,
-                    tec_unit: float):
+def _trace_outputs(name: str, min_axis: int, table, grid, origins,
+                   directions, n_steps: int, keep_path: bool):
+    """Check a tracer's inputs; (device, x_end, tau, path) allocated."""
     r = origins.shape[0]
     dev = _check(name, [("origins", origins, torch.float32, (r, 3)),
                         ("directions", directions, torch.float32, (r, 3))]
@@ -229,15 +232,12 @@ def _trace_leapfrog(name: str, min_axis: int, table, grid, origins,
     tau = torch.empty((r,), dtype=torch.float32, device=dev)
     path = (torch.empty((r, n_steps + 1, 3), dtype=torch.float32, device=dev)
             if keep_path else None)
-    if r == 0:
-        return x_end, tau, path
-    nx, ny, nz = grid.shape
-    with torch.cuda.device(dev):
-        _launch(name, "ionotomo_" + name, _ptr(table), _ptr(grid.origin),
-                _ptr(grid.spacing), nx, ny, nz, _ptr(origins),
-                _ptr(directions), r, int(n_steps), h, hh12, w_n, w_rhs, k_ne,
-                tec_unit, _ptr(x_end), _ptr(tau), _ptr(path))
-    return x_end, tau, path
+    return dev, x_end, tau, path
+
+
+def _consts(h: float, hh12: float, w_n: float, w_rhs: float, k_ne: float,
+            tec_unit: float):
+    return h, hh12, w_n, w_rhs, k_ne, tec_unit
 
 
 def trace_leapfrog_zp(coef2d: torch.Tensor, grid, origins: torch.Tensor,
@@ -248,17 +248,160 @@ def trace_leapfrog_zp(coef2d: torch.Tensor, grid, origins: torch.Tensor,
     n_steps+1, 3) with the origins first, or None without keep_path).
     The f32 constants h, hh12, w_n, w_rhs, k_ne and tec_unit are computed
     by the caller (``geometry.fermat._step_constants``)."""
-    return _trace_leapfrog("trace_leapfrog_zp", 3, coef2d, grid, origins,
-                           directions, n_steps, keep_path, **consts)
+    name = "trace_leapfrog_zp"
+    dev, x_end, tau, path = _trace_outputs(name, 3, coef2d, grid, origins,
+                                           directions, n_steps, keep_path)
+    if origins.shape[0] == 0:
+        return x_end, tau, path
+    nx, ny, nz = grid.shape
+    with torch.cuda.device(dev):
+        _launch(name, "ionotomo_" + name, _ptr(coef2d), _ptr(grid.origin),
+                _ptr(grid.spacing), nx, ny, nz, _ptr(origins),
+                _ptr(directions), origins.shape[0], int(n_steps),
+                *_consts(**consts), _ptr(x_end), _ptr(tau), _ptr(path))
+    return x_end, tau, path
+
+
+#: Rays K1c holds on one SM at once (two blocks of 256 at its 96
+#: registers a thread): a batch of at least this many rays an SM fills
+#: the card. From ``chip_smoke.py --k1c-study`` (NVIDIA H100 80GB HBM3):
+#: at 262,144 rays the ray order takes the tracer from 1.54 to 1.06 ms
+#: for 0.06 ms of sorting, and 256 threads a block beat 64 and 128; at
+#: config 2's 6,200 rays the sort costs 0.04 ms and gains 0.01, and 64
+#: threads a block (97 blocks) beat 256 (25 blocks, 25 SMs busy).
+TRACE_CUBIC_RAYS_PER_SM = 512
+
+
+def pack_z_taps(field2d: torch.Tensor, grid) -> torch.Tensor:
+    """K1c's pack: the (nz−1, nx*ny, 4) f32 table whose entry [b, row] is
+    the four z taps of ``row`` at cell base b, (clamp(b−1), b, b+1,
+    clamp(b+2)), base-major (plain version:
+    ``core.tricubic.pack_z_taps_ref``)."""
+    name = "pack_z_taps"
+    nx, ny, nz = grid.shape
+    dev = _check(name, _grid_specs(name, field2d, grid, 2))
+    packed = torch.empty((nz - 1, nx * ny, 4), dtype=torch.float32,
+                         device=dev)
+    with torch.cuda.device(dev):
+        _launch(name, "ionotomo_pack_z_taps", _ptr(field2d), nx * ny, nz,
+                _ptr(packed))
+    return packed
+
+
+def ray_order_keys(origins: torch.Tensor, directions: torch.Tensor, grid
+                   ) -> torch.Tensor:
+    """The (R,) int32 sort keys of ``ray_order``, one kernel on the card
+    (plain version: ``ray_order_keys_ref``)."""
+    name = "ray_order_keys"
+    r = origins.shape[0]
+    nx, ny, _ = grid.shape
+    dev = _check(name, [("origins", origins, torch.float32, (r, 3)),
+                        ("directions", directions, torch.float32, (r, 3)),
+                        ("grid.origin", grid.origin, torch.float32, (3,)),
+                        ("grid.spacing", grid.spacing, torch.float32, (3,))])
+    keys = torch.empty((r,), dtype=torch.int32, device=dev)
+    if r == 0:
+        return keys
+    with torch.cuda.device(dev):
+        _launch(name, "ionotomo_ray_order_keys", _ptr(origins),
+                _ptr(directions), _ptr(grid.origin), _ptr(grid.spacing), nx,
+                ny, r, _ptr(keys))
+    return keys
+
+
+def ray_order_keys_ref(origins: torch.Tensor, directions: torch.Tensor,
+                       grid) -> torch.Tensor:
+    """Plain PyTorch version of the sort keys ``ray_order`` makes on the
+    card: (R,) int32, the Z-order code of each direction's (x, y) in 256
+    steps over [−1, 1] above that of its origin's (x, y) in 256 steps over
+    the grid's extent, offset by −2³¹ so that signed order is the code's
+    order."""
+    def quantize(v):
+        return (v * 256.0).clamp(0.0, 255.0).to(torch.int64)
+
+    def spread(v):          # 8 bits to the even bits of 16
+        v = (v | (v << 4)) & 0x0F0F
+        v = (v | (v << 2)) & 0x3333
+        return (v | (v << 1)) & 0x5555
+
+    def morton(q):
+        return spread(q[:, 0]) | (spread(q[:, 1]) << 1)
+
+    qd = quantize(0.5 * (directions[:, :2] + 1.0))
+    n = torch.tensor(grid.shape[:2], dtype=torch.float32,
+                     device=origins.device) - 1.0
+    qo = quantize((origins[:, :2] - grid.origin[:2])
+                  / (grid.spacing[:2] * n))
+    key = (morton(qd) << 16) | morton(qo)
+    return (key - 2 ** 31).to(torch.int32)
+
+
+def ray_order(origins: torch.Tensor, directions: torch.Tensor, grid
+              ) -> torch.Tensor:
+    """(R,) int32: the rays sorted by direction, then along the Z-order
+    curve of their origins (the keys of ``ray_order_keys_ref``, made on
+    the card by ``ray_order_keys``). Consecutive rays, a warp of K1c, are then
+    parallel rays from neighbouring origins: they keep their distances at
+    every height and reach each cell base at the same step, so they share
+    table rows and cache sectors the whole way. Ties sort in no fixed
+    order: a ray's outputs do not depend on its place. No host read."""
+    keys = (ray_order_keys(origins, directions, grid) if origins.is_cuda
+            else ray_order_keys_ref(origins, directions, grid))
+    return torch.sort(keys).indices.to(torch.int32)
 
 
 def trace_leapfrog_cubic(field2d: torch.Tensor, grid, origins: torch.Tensor,
                          directions: torch.Tensor, n_steps: int,
                          keep_path: bool, **consts):
     """K1c: as ``trace_leapfrog_zp`` through the tricubic model of the
-    field reshaped to (nx*ny, nz)."""
-    return _trace_leapfrog("trace_leapfrog_cubic", 2, field2d, grid, origins,
-                           directions, n_steps, keep_path, **consts)
+    field reshaped to (nx*ny, nz). The call packs the table's z taps
+    (``pack_z_taps``) and traces over them; a batch that fills the card
+    (``TRACE_CUBIC_RAYS_PER_SM`` rays an SM) is first sorted
+    (``ray_order``) and traced 256 rays a block, a smaller one in its own
+    order 64 rays a block, so that it spreads over more SMs. Each ray's
+    outputs are bitwise those of the unpacked evaluator in ray order."""
+    dev = _check("trace_leapfrog_cubic",
+                 _grid_specs("trace_leapfrog_cubic", field2d, grid, 2))
+    fills = origins.shape[0] >= TRACE_CUBIC_RAYS_PER_SM * \
+        torch.cuda.get_device_properties(dev).multi_processor_count
+    return trace_leapfrog_cubic_with(
+        field2d, grid, origins, directions, n_steps, keep_path,
+        packed=pack_z_taps(field2d, grid),
+        order=ray_order(origins, directions, grid) if fills else None,
+        threads=256 if fills else 64, **consts)
+
+
+def trace_leapfrog_cubic_with(field2d, grid, origins, directions,
+                              n_steps: int, keep_path: bool, *, packed,
+                              order, threads: int, **consts):
+    """K1c with its layout, ray order and block size given:
+    ``trace_leapfrog_cubic`` passes its own; the card tests and
+    ``chip_smoke.py`` pass others to hold the kernel to its unpacked
+    arithmetic and to measure what binds it. packed: the packed table of
+    ``field2d`` (``pack_z_taps``), which the tracer reads in its place, or
+    None (the unpacked evaluator); order: (R,) int32 ray of each thread,
+    or None; threads: a multiple of 32 up to 1024."""
+    name = "trace_leapfrog_cubic"
+    dev, x_end, tau, path = _trace_outputs(name, 2, field2d, grid, origins,
+                                           directions, n_steps, keep_path)
+    nx, ny, nz = grid.shape
+    r = origins.shape[0]
+    specs = []
+    if packed is not None:
+        specs.append(("packed", packed, torch.float32, (nz - 1, nx * ny, 4)))
+    if order is not None:
+        specs.append(("order", order, torch.int32, (r,)))
+    if specs and _check(name, specs) != dev:
+        raise ValueError(f"{name}: packed and order must be on {dev}")
+    if r == 0:
+        return x_end, tau, path
+    with torch.cuda.device(dev):
+        _launch(name, "ionotomo_" + name, _ptr(field2d), _ptr(packed),
+                _ptr(grid.origin), _ptr(grid.spacing), nx, ny, nz,
+                _ptr(origins), _ptr(directions), _ptr(order), r,
+                int(n_steps), *_consts(**consts), int(threads),
+                _ptr(x_end), _ptr(tau), _ptr(path))
+    return x_end, tau, path
 
 
 def _plan_specs(name: str, plan, n_points):
@@ -367,7 +510,10 @@ def rows_value_bwd_batched(ct: torch.Tensor, plan, wxy: torch.Tensor,
 
 
 def _value_grad_bwd(name: str, min_axis: int, grid, points, ct_value,
-                    ct_grad, plan, extra=()):
+                    ct_grad, plan, out, before=(), after=(), specs=()):
+    """Launch a transpose of K1e or K5 over ``plan`` into ``out`` (nx*ny,
+    nz): the kernel's own arguments ``before`` the plan's pointers and
+    ``after`` them, its own tensors' ``specs``."""
     nx, ny, nz = grid.shape
     n = points.shape[0]
     if (min(grid.shape) < min_axis or nz > MAX_NZ_REDUCE
@@ -380,15 +526,17 @@ def _value_grad_bwd(name: str, min_axis: int, grid, points, ct_value,
                         ("ct_value", ct_value, torch.float32, (n,)),
                         ("ct_grad", ct_grad, torch.float32, (n, 3)),
                         ("grid.origin", grid.origin, torch.float32, (3,)),
-                        ("grid.spacing", grid.spacing, torch.float32, (3,))]
-                 + _plan_specs(name, plan, n))
-    out = torch.empty((nx * ny, nz), dtype=torch.float32, device=dev)
+                        ("grid.spacing", grid.spacing, torch.float32, (3,)),
+                        ("out", out, torch.float32, (nx * ny, nz))]
+                 + _plan_specs(name, plan, n) + list(specs))
+    if plan.n_seg_max == 0:     # no pairs, and no row to write
+        return out
     with torch.cuda.device(dev):
         ptrs, partials = _plan_args(plan, nz, dev)
         _launch(name, "ionotomo_" + name, _ptr(grid.origin),
                 _ptr(grid.spacing), nx, ny, nz, _ptr(points), _ptr(ct_value),
-                _ptr(ct_grad), *extra, *ptrs, plan.n_seg_max, plan.chunk,
-                _ptr(partials), _ptr(out))
+                _ptr(ct_grad), *before, *ptrs, *after, plan.n_seg_max,
+                plan.chunk, _ptr(partials), _ptr(out))
     return out
 
 
@@ -404,23 +552,36 @@ def zp_value_grad_bwd(grid, points: torch.Tensor, ct_value: torch.Tensor,
     if not 1 <= plan.live <= plan.stride <= 8:
         raise ValueError(f"{name}: needs 1 <= live <= stride <= 8, got "
                          f"{plan.live}, {plan.stride}")
+    nx, ny, nz = grid.shape
+    out = torch.empty((nx * ny, nz), dtype=torch.float32,
+                      device=points.device)
     return _value_grad_bwd(name, 3, grid, points, ct_value, ct_grad, plan,
-                           (plan.stride,))
+                           out, before=(plan.stride,))
 
 
-def cubic_value_grad_bwd(grid, points: torch.Tensor, ct_value: torch.Tensor,
-                         ct_grad: torch.Tensor, plan) -> torch.Tensor:
-    """K5ᵀ: the (nx*ny, nz) table cotangent of K5 for a value cotangent
-    (N,) and a physical-gradient cotangent (N, 3) at points (N, 3). The
-    plan lists the flat (point, pencil) pair ids n·16 + k, all 16 live,
-    sorted by row and cell base and cut into segments
-    (``core.tricubic.endpoint_plan``). Deterministic: no float atomics.
-    Runs on the stream the plan was built on and raises on another."""
+def cubic_value_grad_bwd(table: torch.Tensor, grid, points: torch.Tensor,
+                         ct_value: torch.Tensor, ct_grad: torch.Tensor,
+                         plan) -> torch.Tensor:
+    """K5ᵀ, accumulating: adds into ``table`` (nx*ny, nz), in place, the
+    table cotangent of K5 for a value cotangent (N,) and a
+    physical-gradient cotangent (N, 3) at points (N, 3), and returns
+    ``table``. Only the cells the points' stencils touch are read and
+    written; each becomes table + (the sum the reduction forms), rounded
+    once. The plan lists the flat (point, pencil) pair ids n·16 + k, all
+    16 live, sorted by row and cell base and cut into segments, occupied
+    rows only (``core.tricubic.endpoint_plan``). Deterministic: no float
+    atomics. Runs on the stream the plan was built on and raises on
+    another."""
     name = "cubic_value_grad_bwd"
-    if plan.live != 16 or plan.stride != 16:
-        raise ValueError(f"{name}: needs a plan of 16 live pairs a point, "
-                         f"got live {plan.live}, stride {plan.stride}")
-    return _value_grad_bwd(name, 2, grid, points, ct_value, ct_grad, plan)
+    if plan.live != 16 or plan.stride != 16 or plan.z0_range is None:
+        raise ValueError(f"{name}: needs a plan of occupied rows with 16 "
+                         f"live pairs a point, got live {plan.live}, stride "
+                         f"{plan.stride}, z0_range {plan.z0_range is not None}")
+    nx, ny, _ = grid.shape
+    return _value_grad_bwd(
+        name, 2, grid, points, ct_value, ct_grad, plan, table,
+        after=(_ptr(plan.z0_range),),
+        specs=[("plan.z0_range", plan.z0_range, torch.int32, (nx * ny, 2))])
 
 
 def vector_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

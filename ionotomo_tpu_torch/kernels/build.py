@@ -46,11 +46,13 @@ _SIGNATURES = {
     "ionotomo_cubic_value_grad": (_I, [_P, _P, _P, _I, _I, _I, _P, _I, _P,
                                        _P, _P]),
     "ionotomo_cubic_value_grad_bwd": (_I, [_P, _P, _I, _I, _I, _P, _P, _P,
-                                           _P, _P, _P, _P, _P, _I, _I, _P,
-                                           _P, _P]),
-    "ionotomo_trace_leapfrog_cubic": (_I, [_P, _P, _P, _I, _I, _I, _P, _P,
-                                           _I, _I, _F, _F, _F, _F, _F, _F,
-                                           _P, _P, _P, _P]),
+                                           _P, _P, _P, _P, _P, _P, _I, _I,
+                                           _P, _P, _P]),
+    "ionotomo_trace_leapfrog_cubic": (_I, [_P, _P, _P, _P, _I, _I, _I, _P,
+                                           _P, _P, _I, _I, _F, _F, _F, _F,
+                                           _F, _F, _I, _P, _P, _P, _P]),
+    "ionotomo_pack_z_taps": (_I, [_P, _I, _I, _P, _P]),
+    "ionotomo_ray_order_keys": (_I, [_P, _P, _P, _P, _I, _I, _I, _P, _P]),
     "ionotomo_rows_value_fwd_batched": (_I, [_P, _I, _I, _I, _P, _P, _I, _P,
                                              _P, _I, _I, _I, _P, _P]),
     "ionotomo_rows_value_bwd_batched": (_I, [_P, _I, _I, _P, _I, _P, _P, _I,
@@ -66,8 +68,12 @@ def sources(csrc: Path = CSRC):
     return sorted(csrc.glob("*.cu"))
 
 
-def _digest(csrc: Path) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines=()) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _digest(csrc: Path, defines=()) -> str:
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for f in sorted(csrc.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -87,20 +93,23 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
-    return build_dir / f"libionotomo_kernels_{_digest(csrc)}.so"
+def library_path(csrc: Path = CSRC, build_dir: Path = BUILD_DIR,
+                 defines=()) -> Path:
+    return build_dir / f"libionotomo_kernels_{_digest(csrc, defines)}.so"
 
 
-def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> dict:
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR, defines=()) -> dict:
     """Compile the library of the sources in ``csrc`` (the package's own
     by default; ``chip_smoke.py --parent`` builds another checkout's) into
-    ``build_dir`` unless this exact build exists.
+    ``build_dir`` unless this exact build exists. ``defines``: extra
+    ``NAME=value`` macros for nvcc (``chip_smoke.py --k5t-study`` builds
+    K5ᵀ with other register budgets).
 
     Returns ``{"path", "seconds", "built", "log"}``; ``log`` is nvcc's
     output (with ``-Xptxas -v``: registers, shared memory and spills per
     kernel), also kept beside the library.
     """
-    lib = library_path(csrc, build_dir)
+    lib = library_path(csrc, build_dir, defines)
     log_path = lib.with_suffix(".log")
     if lib.exists():
         log = log_path.read_text() if log_path.exists() else ""
@@ -113,7 +122,7 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> dict:
     objs, procs = [], []
     for src in sources(csrc):
         obj = build_dir / f"{tag}.{src.stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        cmd = [nvcc, *_flags(defines), "-c", "-o", str(obj), str(src)]
         objs.append(obj)
         procs.append((cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -142,14 +151,18 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> dict:
     return {"path": lib, "seconds": seconds, "built": True, "log": log}
 
 
+def open_library(path, names=None) -> ctypes.CDLL:
+    """A built library with the C signatures of its entries ``names``
+    (default: all of ``_SIGNATURES``) declared."""
+    cdll = ctypes.CDLL(str(path))
+    for name in _SIGNATURES if names is None else names:
+        fn = getattr(cdll, name)
+        fn.restype, fn.argtypes = _SIGNATURES[name]
+    return cdll
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built first if needed; loaded once per process."""
     if "lib" not in _loaded:
-        path = build()["path"]
-        cdll = ctypes.CDLL(str(path))
-        for name, (restype, argtypes) in _SIGNATURES.items():
-            fn = getattr(cdll, name)
-            fn.restype = restype
-            fn.argtypes = argtypes
-        _loaded["lib"] = cdll
+        _loaded["lib"] = open_library(build()["path"])
     return _loaded["lib"]

@@ -114,7 +114,8 @@ static __device__ __forceinline__ void trace_leapfrog_ray(
   tau_out[r] = tau;
 }
 
-// The launch both tracers make: one thread per ray, 128 threads a block.
+// K1's launch: one thread per ray in ray order, 128 threads a block, over
+// a stateless evaluator.
 template <class ValueGrad>
 __global__ void trace_leapfrog_kernel(
     const float* __restrict__ table, const float* __restrict__ origin,
@@ -142,5 +143,47 @@ static int launch_trace_leapfrog(const float* table, const float* origin,
                                      (cudaStream_t)stream>>>(
       table, origin, spacing, nx, ny, nz, origins, directions, n_rays,
       n_steps, c, x_end, tau, path);
+  return (int)cudaGetLastError();
+}
+
+// K1c's launch: one thread per ray, `threads` a block, over an evaluator
+// that may carry its own data (the packed table). Thread t traces ray
+// order[t] (order null: ray t) and writes that ray's outputs at its own
+// index, so an order changes which rays share a warp and nothing else.
+// K1 keeps the launch above: with the same arithmetic, no order and 128
+// threads, this one read 1-2 % slower for K1 and 3 % slower for the
+// unpacked K1c, in turns on an H100 (chip_smoke.py --parent, phases 3
+// and 9).
+template <class ValueGrad>
+__global__ void trace_leapfrog_ordered_kernel(
+    ValueGrad value_grad, const float* __restrict__ table,
+    const float* __restrict__ origin, const float* __restrict__ spacing,
+    int nx, int ny, int nz, const float* __restrict__ origins,
+    const float* __restrict__ directions, const int* __restrict__ order,
+    int n_rays, int n_steps, TraceConsts c, float* __restrict__ x_end,
+    float* __restrict__ tau_out, float* __restrict__ path) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_rays) return;
+  const int r = order ? __ldg(order + t) : t;
+  const TableGrid g = table_grid(table, origin, spacing, nx, ny, nz);
+  trace_leapfrog_ray(value_grad, g, c, origins, directions, r, n_steps, x_end,
+                     tau_out, path);
+}
+
+// threads: a multiple of 32 up to 1024.
+template <class ValueGrad>
+static int launch_trace_leapfrog_ordered(
+    const ValueGrad& value_grad, const float* table, const float* origin,
+    const float* spacing, int nx, int ny, int nz, const float* origins,
+    const float* directions, const int* order, int n_rays, int n_steps,
+    const TraceConsts& c, int threads, float* x_end, float* tau_out,
+    float* path, void* stream) {
+  if (threads < 32 || threads > 1024 || threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (n_rays + threads - 1) / threads;
+  trace_leapfrog_ordered_kernel<ValueGrad><<<blocks, threads, 0,
+                                             (cudaStream_t)stream>>>(
+      value_grad, table, origin, spacing, nx, ny, nz, origins, directions,
+      order, n_rays, n_steps, c, x_end, tau_out, path);
   return (int)cudaGetLastError();
 }

@@ -12,6 +12,7 @@ the residual the update started from (5e-3 relative for the joint solve),
 the update itself within 1e-2 of its own size (relative L2 of the
 difference over the update's L2).
 """
+import functools
 from types import SimpleNamespace
 
 import numpy as np
@@ -41,7 +42,9 @@ def _tbundle(jb):
                            torch.from_numpy(np.array(jb.ds)))
 
 
+@functools.lru_cache(maxsize=None)
 def _world(nx=12, seed=0):
+    """One world per seed for the module (the tests only read it)."""
     w = inversion_world(nx=nx, n_ants=5, n_dirs=4, seed=seed)
     p = _port(w)
     return w, p, w["grid"], p["grid"]

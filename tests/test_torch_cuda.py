@@ -462,7 +462,8 @@ def test_cubic_value_grad_transpose_matches_plain(dev, chunk):
     n_rows = grid.shape[0] * grid.shape[1]
 
     def plan():
-        return tricubic.build_row_plan(ri, n_rows, idx[:, 2, 1], chunk=chunk)
+        return tricubic.build_row_plan(ri, n_rows, idx[:, 2, 1], chunk=chunk,
+                                       occupied_rows=True)
 
     p = plan()
     before = kernels.launches["cubic_value_grad_bwd"]
@@ -480,6 +481,103 @@ def test_cubic_value_grad_transpose_matches_plain(dev, chunk):
                 + (g.double() * cg.double()).sum())
     rhs = float((a.double() * table.double()).sum())
     assert abs(lhs - rhs) <= 1e-4 * max(abs(lhs), abs(rhs))
+
+
+@pytest.mark.parametrize("chunk", [tricubic.SEGMENT_PAIRS, 7])
+def test_cubic_value_grad_transpose_adds_into_a_table(dev, chunk):
+    """The accumulating K5ᵀ: table + Eᵀ at the touched cells, rounded as
+    table + (Eᵀ into zeros), bitwise; every other cell untouched, bitwise;
+    bitwise equal across calls; within 1e-4·max of table + the plain
+    version."""
+    grid, m = _world(dev)
+    pts, rng = _edge_points(dev, grid, 6000, 23)
+    corner = pts[:2000].clone()
+    corner[:, :2] = grid.origin[:2] - 50.0
+    pts = torch.cat([corner, pts]).contiguous()
+    n = pts.shape[0]
+    cv = torch.from_numpy(rng.normal(size=(n,)).astype(np.float32)).to(dev)
+    cg = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
+    idx, _, ri = tricubic._row_neighborhood(grid, pts)
+    n_rows, nz = grid.shape[0] * grid.shape[1], grid.shape[2]
+    p = tricubic.build_row_plan(ri, n_rows, idx[:, 2, 1], chunk=chunk,
+                                occupied_rows=True)
+    table = torch.from_numpy(rng.normal(size=(n_rows, nz))
+                             .astype(np.float32)).to(dev)
+    alone = kernels.cubic_value_grad_bwd(torch.zeros_like(table), grid, pts,
+                                         cv, cg, p)
+    a = kernels.cubic_value_grad_bwd(table.clone(), grid, pts, cv, cg, p)
+    b = kernels.cubic_value_grad_bwd(table.clone(), grid, pts, cv, cg, p)
+    assert not p.counters.any()
+    assert torch.equal(a, b)
+    touched = torch.zeros(grid.num_voxels, dtype=torch.bool, device=dev)
+    touched[tricubic.interp_weights(grid, pts)[0].reshape(-1).long()] = True
+    touched = touched.reshape(n_rows, nz)
+    assert torch.equal(a[touched], (table + alone)[touched])
+    assert torch.equal(a[~touched], table[~touched])
+    want = table + tricubic.interp_rows_with_grad_transpose_ref(grid, pts,
+                                                                cv, cg)
+    assert float((a - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_cubic_apply_t_adds_k5t_into_k3s_table(dev):
+    """Jᵀ on cubic is K3's table with K5ᵀ added in place: bitwise what
+    K3's table + K5ᵀ into zeros gives, with one launch of each."""
+    grid, rb, _, m_prior, _, nd = _solve_world(dev)
+    op = tec.dtec_paired_linear(m_prior, grid, rb, nd, 0, "hermite", "cubic")
+    rng = np.random.default_rng(24)
+    y = torch.from_numpy(rng.normal(size=(rb.num_rays,)).astype(np.float32)
+                         ).to(dev)
+    kernels.reset_launches()
+    got = op.apply_t(y)
+    assert kernels.launches["rows_value_bwd"] == 1
+    assert kernels.launches["cubic_value_grad_bwd"] == 1
+    y3 = y.reshape(op.na, op.nd)
+    ct_ne, ct_d0 = tec._paired_hermite_ne_t(y3, op.w, op.rays, op.i0)
+    k3 = op._rows_t(op.ne * ct_ne.reshape(-1))
+    ct_d = torch.cat([ct_d0, -ct_d0], dim=-1) * op.ne_e
+    e = tricubic.interp_rows_with_grad_transpose(
+        grid, op.ends, ct_d * op.slope, ct_d[..., None] * op.t_hat,
+        op.end_plan)
+    assert torch.equal(got, (k3 + e).reshape(grid.shape))
+
+
+@pytest.mark.parametrize("keep_path", [True, False])
+def test_trace_leapfrog_cubic_packed_and_ordered_is_unpacked(dev, keep_path):
+    """K1c as the tracer calls it (rays sorted, table packed) against the
+    unpacked evaluator in ray order: bitwise equal per ray, also under a
+    random order and other block sizes; the pack bitwise
+    ``pack_z_taps_ref`` and the sort keys bitwise ``ray_order_keys_ref``,
+    each launch counted."""
+    grid, m = _world(dev)
+    o, d = _rays(dev, 700)
+    table = m.reshape(-1, grid.shape[2])
+    kw = fermat._step_constants(150e6, 1000.0, 48)
+    want = kernels.trace_leapfrog_cubic_with(
+        table, grid, o, d, 48, keep_path, packed=None, order=None,
+        threads=128, **kw)
+    got = kernels.trace_leapfrog_cubic(table, grid, o, d, 48, keep_path,
+                                       **kw)
+    before = dict(kernels.launches)
+    packed = kernels.pack_z_taps(table, grid)
+    perm = torch.randperm(700, generator=torch.Generator().manual_seed(3)
+                          ).to(torch.int32).to(dev)
+    other = kernels.trace_leapfrog_cubic_with(
+        table, grid, o, d, 48, keep_path, packed=packed, order=perm,
+        threads=64, **kw)
+    assert torch.equal(packed, tricubic.pack_z_taps_ref(table))
+    order = kernels.ray_order(o, d, grid)
+    key = kernels.ray_order_keys_ref(o, d, grid)
+    assert torch.equal(kernels.ray_order_keys(o, d, grid), key)
+    added = {"pack_z_taps": 1, "trace_leapfrog_cubic": 1,
+             "ray_order_keys": 2}
+    for name, n in added.items():
+        assert kernels.launches[name] == before[name] + n, name
+    assert torch.equal(torch.sort(order.long()).values,
+                       torch.arange(700, device=dev))
+    assert bool((torch.diff(key[order.long()]) >= 0).all())
+    for out in (got, other):
+        for a, b in zip(out, want):
+            assert (a is None and b is None) or torch.equal(a, b)
 
 
 @pytest.mark.parametrize("keep_path", [True, False])

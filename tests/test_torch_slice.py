@@ -270,3 +270,16 @@ def test_chip_smoke_takes_a_device_time_only_from_two_agreeing_traces():
                                     "copy": (1, 1300.0)}], 20),
         [0.787, 0.787], rtol=1e-12)
     assert chip_smoke.whole_readings([{}, {"k": (1, 9.0)}], 5) == [None, None]
+
+
+def test_parent_refuses_a_checkout_of_other_sources():
+    """``chip_smoke.Parent`` binds the C interfaces of one commit's
+    kernels, declared by the SHA-256 of their sources; a checkout with
+    other sources (this one) is refused before anything is built."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    with pytest.raises(ValueError, match="not those of the commit"):
+        chip_smoke.Parent(REPO)
