@@ -12,13 +12,14 @@ GPU.
                                        # step (torch.profiler)
     python3 chip_smoke.py --parent DIR # also: hold the kernels to those of
                                        # the checkout at DIR (the commit
-                                       # before K1c and K5ᵀ were
+                                       # before K2b and K3b were
                                        # redesigned; any other sources are
-                                       # refused): K1, K2, K3, K1eᵀ, K5,
-                                       # K3b bitwise at the phases' shapes,
-                                       # K1c's rays and K5ᵀ + the add
-                                       # bitwise, config 4's solve
-                                       # bitwise, each timed in turns
+                                       # refused): every kernel bitwise at
+                                       # the phases' shapes and timed in
+                                       # turns; config 4's solve, config
+                                       # 5's first chunk and the ensemble
+                                       # filter bitwise on the parent's
+                                       # kernels
     python3 chip_smoke.py --k1c-study  # only: what binds K1c at config 2's
                                        # saturated batch (table layout, ray
                                        # order, block size, steps) and its
@@ -26,6 +27,12 @@ GPU.
     python3 chip_smoke.py --k5t-study  # only: K5ᵀ's register budget at
                                        # config 4's endpoints and phase 8's
                                        # shapes (a library built for each)
+    python3 chip_smoke.py --member-study
+                                       # only: K2b's and K3b's calls by
+                                       # kernel at config 5's bundles and
+                                       # the zp edge-case points, and both
+                                       # built with other scan, fold and
+                                       # register settings
     python3 chip_smoke.py --plain-solves N [--root DIR]
                                        # only: config 4's plain-version
                                        # solve N times for the package of
@@ -137,9 +144,12 @@ analytic world drifting with the wind, 1 % noise), and on it:
    edge-case points of a 128³ grid on zp and on cubic (one corner row
    holds 131,595 zp and 402,199 cubic pairs): within 1e-4·max|out| of
    the plain versions, every member bitwise equal to K2 or K3 on that
-   member, K3b bitwise equal across two calls; kernel, plain,
-   ``index_add_`` (along the table axis) and bound ms, beside 8 × the
-   unbatched kernel.
+   member, K3b bitwise equal across two calls; kernel (the whole call:
+   the pack, and K3b's fold, included), plain, ``index_add_`` (along the
+   table axis) and bound ms, beside 8 × the unbatched kernel, and each
+   call's time by kernel; at the outer bundle the pack of the 8 tables
+   and the fold of random partial rows alone, bitwise their plain
+   versions, with their bounds.
 12. Config 5 through ``configs.config5``: the Kalman filter over 30
    epochs, zp, Hermite@65 with the @33 inner bundle, cg 10, in 5 chunks
    of 6. K2, K3, K1e and K1eᵀ must have launched, no member-axis kernel
@@ -151,13 +161,15 @@ analytic world drifting with the wind, 1 % noise), and on it:
    the bench's metrics, row plans built.
 13. The ensemble filter on the same world (``configs.config5_enkf``): 8
    members, the first 6 epochs, cg 10, inner @33, noise from a numpy
-   seed. K2b, K3b, K1e and K1eᵀ must have launched, the unbatched K2 and
-   K3 not at all, the endpoint kernels a multiple of 8 times, no plain
-   version; two runs bitwise equal; 6 steps in one call bitwise equal to
+   seed. K2b, K3b, the pack and the fold of the member axis, K1e and
+   K1eᵀ must have launched, the unbatched K2 and K3 not at all, the
+   endpoint kernels a multiple of 8 times, no plain version; two runs bitwise equal; 6 steps in one call bitwise equal to
    3 + 3 chained through ``ens0``/``step_offset``; the mean's held-out
    rms at epoch 5 below the prior's; spread finite and positive; one step
    within 1 % of the filter on the plain versions. Seconds a step beside
-   8 × the point filter's.
+   8 × the point filter's; the SHA-256 of the final ensemble, mean_seq
+   and std_seq (with ``--parent``: equal to the same run's on the
+   parent's kernels).
 
 The last lines are a JSON object of per-kernel results (each kernel's
 bound: the larger of the bytes it must move over 3.35 TB/s and its f32
@@ -398,7 +410,7 @@ def check_k5t(label, tricubic, kernels, grid, pts, cv, cg, plan, table,
     bitwise twice, bitwise table + (K5ᵀ into zeros), counters back at
     zero; timed into one running table beside ``index_add_`` into a
     running table and its bound. With a parent: bitwise the parent's
-    K5ᵀ + the add, and both timed in turns."""
+    K5ᵀ, and both timed in turns into a running table."""
     def fresh():
         return kernels.cubic_value_grad_bwd(table.clone(), grid, pts, cv, cg,
                                             plan)
@@ -423,14 +435,14 @@ def check_k5t(label, tricubic, kernels, grid, pts, cv, cg, plan, table,
     check(not bool(plan.counters.any()), f"{label}: plan counters back at "
                                          f"zero")
     if parent is not None:
-        pplan = Parent.plan(tricubic, grid, pts)
+        def into_running():
+            return kernels.cubic_value_grad_bwd(running, grid, pts, cv, cg,
+                                                plan)
         p_ms, n_ms = compare_parent(
-            f"{label}: the parent's K5T + add against K5T adding",
-            lambda: table + parent.k5t(grid, pts, cv, cg, pplan), fresh,
-            reps, pairs=3, new_timed=lambda: kernels.cubic_value_grad_bwd(
-                running, grid, pts, cv, cg, plan))
+            f"{label}: K5T adding", lambda: parent.run(fresh), fresh, reps,
+            pairs=3, new_timed=into_running,
+            parent_timed=lambda: parent.run(into_running))
         line["parent_ms"], line["new_ms_in_turns"] = p_ms, n_ms
-        check(not bool(pplan.counters.any()), "parent plan counters at zero")
     return line
 
 
@@ -444,13 +456,14 @@ def index_add_call(flat, contrib, size):
 
 class Parent:
     """The kernels of the checkout at ``root`` (``--parent DIR``), the
-    commit before K1c and K5ᵀ were redesigned, built from its sources with
+    commit before K2b and K3b were redesigned, built from its sources with
     this checkout's nvcc flags. The entries whose C interface this
-    checkout kept (K1, K1e, K2, K3, K1eᵀ, KG, K5, K2b, K3b) run through
-    this checkout's wrappers with the parent's library in place of this
-    one (``run``); K1c and K5ᵀ run through their former interface
-    (``k1c``: the unpacked tracer in ray order; ``k5t``: a whole table
-    over a plan that gives every row a segment).
+    checkout kept (all but K2b and K3b) run through this checkout's
+    wrappers with the parent's library in place of this one (``run``);
+    K2b and K3b run through their former interface (``k2b``: a
+    member-major table; ``k3b``: a (B, N) cotangent, one ticket a row on
+    the plan's counters); ``members`` puts both behind this checkout's
+    wrappers as well, so a whole filter runs on the parent's kernels.
 
     ctypes cannot check a C interface, so the parent's sources are
     declared by their SHA-256, and any other checkout is refused rather
@@ -460,7 +473,7 @@ class Parent:
         "cubic_value_grad.cu":
             "a0373f7fbd6ab2413a6dc7e82208a702670d94d71ad07a9ddebc4675d93f0e9d",
         "cubic_value_grad_bwd.cu":
-            "2cb5c8532f3bb72a66339b98181dc24f4032545983923db52ecede9f8dd89174",
+            "f1365e6eed27d762ff3da6e783bd8dbfb59bc6d97a9672df8144124bf5a987c8",
         "rows_value_bwd.cu":
             "8b89433a04e2db28da6ebddbca603d78de2def71956e78422e93094e39d52d85",
         "rows_value_bwd_batched.cu":
@@ -470,7 +483,7 @@ class Parent:
         "rows_value_fwd_batched.cu":
             "b74e4e6bc85b27882b404386833a7f9276b357762811f29a4c93e2ccae582138",
         "trace_leapfrog_cubic.cu":
-            "3d604711d578670c096116738e85797866f296a89b645aa0168a0884ec225a0d",
+            "8b2253a0dbd13030464fac466cbeba30c8954f061a6ec84282891ddc089c45c3",
         "trace_leapfrog_zp.cu":
             "a898a7a175462d9035e1c44606da7b5f27e4193509d1b1f810fa80859e5bafaa",
         "vector_gather.cu":
@@ -483,8 +496,9 @@ class Parent:
     KEPT = ("ionotomo_zp_value_grad", "ionotomo_rows_value_fwd",
             "ionotomo_trace_leapfrog_zp", "ionotomo_rows_value_bwd",
             "ionotomo_zp_value_grad_bwd", "ionotomo_vector_gather",
-            "ionotomo_cubic_value_grad", "ionotomo_rows_value_fwd_batched",
-            "ionotomo_rows_value_bwd_batched", "ionotomo_cuda_error_string")
+            "ionotomo_cubic_value_grad", "ionotomo_cubic_value_grad_bwd",
+            "ionotomo_trace_leapfrog_cubic", "ionotomo_pack_z_taps",
+            "ionotomo_ray_order_keys", "ionotomo_cuda_error_string")
 
     def __init__(self, root):
         from ionotomo_tpu_torch.kernels import build
@@ -500,13 +514,13 @@ class Parent:
         info = build.build(csrc, build.BUILD_DIR / "parent")
         self.build = build
         self.lib = build.open_library(info["path"], self.KEPT)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        self.lib.ionotomo_trace_leapfrog_cubic.argtypes = (
-            [p, p, p, i, i, i, p, p, i, i] + [f] * 6 + [p, p, p, p])
-        self.lib.ionotomo_cubic_value_grad_bwd.argtypes = (
-            [p, p, i, i, i] + [p] * 8 + [i, i, p, p, p])
-        self.lib.ionotomo_trace_leapfrog_cubic.restype = i
-        self.lib.ionotomo_cubic_value_grad_bwd.restype = i
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fwd, bwd = (self.lib.ionotomo_rows_value_fwd_batched,
+                    self.lib.ionotomo_rows_value_bwd_batched)
+        fwd.argtypes = [p, i, i, i, p, p, i, p, p, i, i, i, p, p]
+        bwd.argtypes = ([p, i, i, p, i, p, p, i, i] + [p] * 5
+                        + [i, i, i, p, p, p])
+        fwd.restype = bwd.restype = i
         print(f"  parent kernels from {csrc} (built={info['built']} in "
               f"{info['seconds']:.2f} s)")
 
@@ -527,46 +541,52 @@ class Parent:
     def _stream(self):
         return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
-    def k1c(self, table, grid, origins, directions, n_steps, consts):
-        """The parent's K1c: (x_end, tau)."""
-        r = origins.shape[0]
-        nx, ny, nz = grid.shape
-        x_end = torch.empty((r, 3), dtype=torch.float32, device=table.device)
-        tau = torch.empty((r,), dtype=torch.float32, device=table.device)
-        c = consts
-        rc = self.lib.ionotomo_trace_leapfrog_cubic(
-            self._p(table), self._p(grid.origin), self._p(grid.spacing), nx,
-            ny, nz, self._p(origins), self._p(directions), r, n_steps,
-            c["h"], c["hh12"], c["w_n"], c["w_rhs"], c["k_ne"],
-            c["tec_unit"], self._p(x_end), self._p(tau), None,
+    def k2b(self, table, ri, wxy, zi, wz, xy_first):
+        """The parent's K2b: (B, N) from a member-major (B, R, nz)
+        table."""
+        b, rows, nz = table.shape
+        n, k = ri.shape
+        out = torch.empty((b, n), dtype=torch.float32, device=table.device)
+        rc = self.lib.ionotomo_rows_value_fwd_batched(
+            self._p(table), b, rows, nz, self._p(ri), self._p(wxy), k,
+            self._p(zi), self._p(wz), zi.shape[1], n, int(bool(xy_first)),
+            self._p(out), self._stream())
+        if rc:
+            raise RuntimeError(f"parent K2b launch failed ({rc})")
+        return out
+
+    def k3b(self, ct, plan, wxy, zi, wz, nz):
+        """The parent's K3b: (B, n_rows, nz) from a (B, N) cotangent."""
+        b, n = ct.shape
+        out = torch.empty((b, plan.n_rows, nz), dtype=torch.float32,
+                          device=ct.device)
+        partials = torch.empty((b * plan.n_seg_max, nz), dtype=torch.float32,
+                               device=ct.device)
+        rc = self.lib.ionotomo_rows_value_bwd_batched(
+            self._p(ct), b, n, self._p(wxy), wxy.shape[1], self._p(zi),
+            self._p(wz), zi.shape[1], nz, self._p(plan.order),
+            self._p(plan.offsets), self._p(plan.seg_row),
+            self._p(plan.row_seg), self._p(plan.counters), plan.n_rows,
+            plan.n_seg_max, plan.chunk, self._p(partials), self._p(out),
             self._stream())
         if rc:
-            raise RuntimeError(f"parent K1c launch failed ({rc})")
-        return x_end, tau
-
-    @staticmethod
-    def plan(tricubic, grid, points):
-        """The plan the parent's K5ᵀ takes: every row a segment."""
-        idx, _, ri = tricubic._row_neighborhood(grid, points)
-        return tricubic.build_row_plan(ri, grid.shape[0] * grid.shape[1],
-                                       idx[:, 2, 1])
-
-    def k5t(self, grid, points, cv, cg, plan):
-        """The parent's K5ᵀ: a whole (nx*ny, nz) table."""
-        nx, ny, nz = grid.shape
-        out = torch.empty((nx * ny, nz), dtype=torch.float32,
-                          device=points.device)
-        partials = torch.empty((plan.n_seg_max, nz), dtype=torch.float32,
-                               device=points.device)
-        rc = self.lib.ionotomo_cubic_value_grad_bwd(
-            self._p(grid.origin), self._p(grid.spacing), nx, ny, nz,
-            self._p(points), self._p(cv), self._p(cg), self._p(plan.order),
-            self._p(plan.offsets), self._p(plan.seg_row),
-            self._p(plan.row_seg), self._p(plan.counters), plan.n_seg_max,
-            plan.chunk, self._p(partials), self._p(out), self._stream())
-        if rc:
-            raise RuntimeError(f"parent K5T launch failed ({rc})")
+            raise RuntimeError(f"parent K3b launch failed ({rc})")
         return out
+
+    def members(self, fn):
+        """fn() with every kernel the parent's: the kept entries through
+        ``run``, K2b and K3b through ``k2b`` and ``k3b`` in place of this
+        checkout's wrappers."""
+        from ionotomo_tpu_torch import kernels
+
+        saved = kernels.rows_value_fwd_batched, kernels.rows_value_bwd_batched
+        kernels.rows_value_fwd_batched = self.k2b
+        kernels.rows_value_bwd_batched = self.k3b
+        try:
+            return self.run(fn)
+        finally:
+            kernels.rows_value_fwd_batched, \
+                kernels.rows_value_bwd_batched = saved
 
 
 def _outputs(x):
@@ -574,12 +594,13 @@ def _outputs(x):
             if t is not None]
 
 
-def compare_parent(name, parent_fn, new_fn, reps, pairs=2, new_timed=None):
+def compare_parent(name, parent_fn, new_fn, reps, pairs=2, new_timed=None,
+                   parent_timed=None):
     """The parent's and this checkout's function on the same inputs:
     bitwise equal outputs, then device time in turns, ``pairs`` pairs
-    (parent, new, new, parent, ...), the new one as ``new_timed`` where
-    given (a kernel that adds in place, into one running table). Returns
-    (parent ms, new ms)."""
+    (parent, new, new, parent, ...), each as ``*_timed`` where given (a
+    kernel that adds in place, into one running table). Returns (parent
+    ms, new ms)."""
     a, b = _outputs(parent_fn()), _outputs(new_fn())
     torch.cuda.synchronize()
     check(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
@@ -589,7 +610,8 @@ def compare_parent(name, parent_fn, new_fn, reps, pairs=2, new_timed=None):
     for i in range(pairs):
         turn = ("parent", "new") if i % 2 == 0 else ("new", "parent")
         for who in turn:
-            t[who].append(device_ms(parent_fn if who == "parent"
+            t[who].append(device_ms(parent_timed or parent_fn
+                                    if who == "parent"
                                     else new_timed or new_fn, reps))
     print(f"  {name}, in turns: parent "
           f"{', '.join(f'{x:.4f}' for x in t['parent'])} ms; new "
@@ -1621,14 +1643,12 @@ def phase9_config2(dev, fermat, rays, kernels, Grid3D, chapman, configs,
         check(bool(torch.equal(b_k.ds, b_p.ds)), f"{tag}: ds equal")
         errs[n2] = (err_x, err_t)
         del out, b_k, b_p, t_k, t_p
-        if parent is not None:
-            compare_parent(
-                f"K1c at config 2's {n2} rays x 128 steps: per-ray x_end "
-                f"and tau",
-                lambda: parent.k1c(table, grid, o2, d2, 128, k128),
-                lambda: kernels.trace_leapfrog_cubic(
-                    table, grid, o2, d2, 128, False, **k128)[:2],
-                3, pairs=3)
+        parent_same(
+            parent, f"K1c at config 2's {n2} rays x 128 steps: per-ray "
+                    f"x_end and tau",
+            lambda: kernels.trace_leapfrog_cubic(table, grid, o2, d2, 128,
+                                                 False, **k128)[:2],
+            3, pairs=3)
     # the last case is the saturated batch: its times, its error and its
     # bound (operations per step counted from the kernel) go to the line.
     # The wrapper's time is the ray sort, the pack and the tracer.
@@ -1651,13 +1671,6 @@ def phase9_config2(dev, fermat, rays, kernels, Grid3D, chapman, configs,
     print(f"  one launch of the unpacked K1c in ray order (128 threads) read "
           f"two ways: device_ms {u_ms:.4f} ms, cuda_ms {u_ev:.4f} ms "
           f"({100 * (u_ev - u_ms) / u_ev:.2f} % apart)")
-    if parent is not None:      # the same arithmetic and launch shape
-        compare_parent(
-            f"the unpacked K1c in ray order, 128 threads, through K1c's "
-            f"ordered launch, against the parent's K1c (K1's launch) at "
-            f"{n_rays} rays",
-            lambda: parent.k1c(table, grid, o2, d2, 128, k128),
-            lambda: unpacked128()[:2], 3, pairs=4)
     n_bytes = nbytes(table, o2, d2) + 16 * n_rays
     b_ms, b_by = bound(n_bytes, n_rays * 128 * FLOPS_K1C_STEP)
     b64 = bound(n_bytes, n_rays * N_STEPS * FLOPS_K1C_STEP)[0]
@@ -1728,43 +1741,16 @@ def profile_solve(solve, label="config-4 solve"):
         print(f"    {us:10.1f} us {count:5d}x  {key[:100]}")
 
 
-def parent_linear(parent, tec, tricubic):
-    """``linearize`` for a solve whose Jᵀ adds the parent's K5ᵀ table to
-    K3's, as the parent's operator did; all else is this checkout's (the
-    kernels it kept are bitwise the parent's, which the phases show)."""
-    class ParentPairedDtecLinear(tec.PairedDtecLinear):
-        def _value_grad_t_add_(self, table, ct_value, ct_grad):
-            geo = self.geometry
-            if not hasattr(geo, "parent_end_plan"):
-                geo.parent_end_plan = Parent.plan(tricubic, geo.grid,
-                                                  geo.ends)
-            return table + parent.k5t(geo.grid, geo.ends, ct_value, ct_grad,
-                                      geo.parent_end_plan)
-
-    def linearize(*a, **k):
-        return ParentPairedDtecLinear(*a, **k)
-    return linearize
-
-
-def jt_kernels(op, y, make_parent_op):
+def jt_kernels(op, y, parent):
     """The kernels one Jᵀ on cubic launches (one profiler trace) and, with
-    a parent, the same Jᵀ through the parent's K5ᵀ and add, bitwise equal:
-    the difference is the endpoint add that the accumulating K5ᵀ took
-    away."""
+    a parent, the same Jᵀ on the parent's kernels, bitwise equal."""
     new = kernel_launches(lambda: op.apply_t(y))
     print(f"  one J^T on cubic: {sum(new.values())} kernel launches: "
           + "; ".join(f"{n} x {k[:50]}" for k, n in sorted(new.items())))
-    if make_parent_op is None:
-        return
-    pop = make_parent_op()
-    check(bool(torch.equal(pop.apply_t(y), op.apply_t(y))),
-          "J^T bitwise the parent's (K3 + the parent's K5T table)")
-    old = kernel_launches(lambda: pop.apply_t(y))
-    diff = {k: old.get(k, 0) - new.get(k, 0) for k in set(old) | set(new)
-            if old.get(k, 0) != new.get(k, 0)}
-    print(f"  one J^T through the parent's K5T and add: {sum(old.values())} "
-          f"kernel launches; parent minus new: "
-          + "; ".join(f"{n:+d} x {k[:70]}" for k, n in sorted(diff.items())))
+    if parent is not None:
+        check(bool(torch.equal(parent.run(lambda: op.apply_t(y)),
+                               op.apply_t(y))),
+              "J^T bitwise the parent's")
 
 
 def kernel_launches(fn) -> dict:
@@ -1923,9 +1909,7 @@ def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
         f"K5T at the solve's {n_ends} endpoints", tricubic, kernels, grid,
         ends, cv, cg, eplan, k3_table, parent, reps=50, plain_reps=5)}
     del k3_table
-    jt_kernels(op, y, None if parent is None else lambda: parent_linear(
-        parent, tec, tricubic)(w.m_prior, grid, rb_check, nd, 0, "hermite",
-                               "cubic"))
+    jt_kernels(op, y, parent)
     check(not bool(op.row_plan.counters.any() or eplan.counters.any()),
           "the solve's plan counters back at zero")
     del op, ops, o_, v_k, g_k, v_p, g_p, table
@@ -1966,15 +1950,15 @@ def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
     print(f"  final whitened residual {float(res1.residual_norm)!r}, held-out "
           f"dTEC rms {heldout(res1.m)!r} (full precision)")
     if parent is not None:
-        res_p, secs_pp = solve(linearize=parent_linear(parent, tec, tricubic))
+        res_p, secs_pp = parent.run(solve)
         check(bool(torch.equal(res_p.m, res1.m)
                    and float(res_p.residual_norm)
                    == float(res1.residual_norm)
                    and heldout(res_p.m) == heldout(res1.m)),
               f"config 4: field, final residual "
               f"{float(res_p.residual_norm)!r} and held-out rms "
-              f"{heldout(res_p.m)!r} bitwise the solve through the parent's "
-              f"K5T and add ({secs_pp:.4f} s)")
+              f"{heldout(res_p.m)!r} bitwise the solve on the parent's "
+              f"kernels ({secs_pp:.4f} s)")
         del res_p
     if plain_full:
         plain_kw, what = {}, "the same schedule"
@@ -2047,11 +2031,14 @@ def touched_values(ri, zi, n_rows, nz) -> int:
 
 
 def member_kernels_at(label, dev, tricubic, kernels, setup, plan, n_rows, nz,
-                      xy_first, rng, parent=None):
+                      xy_first, rng, parent=None, layout=False):
     """K2b and K3b at one point set with B_MEMBERS members: against the
     plain versions (1e-4·max), member by member bitwise against K2 and
-    K3, K3b bitwise twice; device ms of each, the plain version, the
-    one-call form, the bound, and B x the unbatched kernel."""
+    K3, K3b bitwise twice; device ms of each call (its pack and fold
+    included), the plain version, the one-call form, the bound, B x the
+    unbatched kernel, and each call's time by kernel. With a parent: both
+    bitwise the parent's and timed in turns with it. ``layout``: also the
+    pack and the fold alone against their plain versions (their lines)."""
     ri, wxy, zi, wz = setup
     n, b = ri.shape[0], B_MEMBERS
     k, l = ri.shape[1], zi.shape[1]
@@ -2090,7 +2077,7 @@ def member_kernels_at(label, dev, tricubic, kernels, setup, plan, n_rows, nz,
     check(all(bool(torch.equal(got[m], k3(ct[m].contiguous())))
               for m in range(b)),
           f"K3b at {label}: every member bitwise equal to K3 on that member")
-    check(not bool(plan.counters.any()), "the plan's counters back at zero")
+    check(not bool(plan.counters.any()), "the plan's counters at zero")
     del got
     flat, contrib = tricubic.transpose_terms(ct, ri, wxy, zi, wz,
                                              (n_rows, nz))
@@ -2106,7 +2093,19 @@ def member_kernels_at(label, dev, tricubic, kernels, setup, plan, n_rows, nz,
               b * plan_stats(plan)["pairs"] * (1 + 2 * l)),
         scatter=True, plain_reps=2)
     del flat, contrib, buf
-    parent_same(parent, f"K3b at {label}", k3b, 20)
+    for name, fn in (("K2b", k2b), ("K3b", k3b)):
+        print(f"  {name}'s call at {label}, by kernel: " + "; ".join(
+            f"{v:.4f} ms {key[:48]}" for key, v in sorted(
+                kernel_ms_by_name(fn, 10).items(), key=lambda kv: -kv[1])))
+    if parent is not None:
+        for name, pfn, fn in (
+                ("rows_value_fwd_batched", lambda: parent.k2b(
+                    tables, ri, wxy, zi, wz, xy_first), k2b),
+                ("rows_value_bwd_batched", lambda: parent.k3b(
+                    ct, plan, wxy, zi, wz, nz), k3b)):
+            p_ms, n_ms = compare_parent(f"{name} at {label}", pfn, fn, 20,
+                                        pairs=3)
+            out[name]["parent_ms"], out[name]["new_ms_in_turns"] = p_ms, n_ms
     k2_ms, k3_ms = device_ms(k2, 20), device_ms(k3, 20)
     print(f"  unbatched at {label}: K2 {k2_ms:.4f} ms, K3 {k3_ms:.4f} ms; "
           f"{b} x K2 {b * k2_ms:.4f} ms against K2b "
@@ -2116,8 +2115,62 @@ def member_kernels_at(label, dev, tricubic, kernels, setup, plan, n_rows, nz,
     for name, one in (("rows_value_fwd_batched", k2_ms),
                       ("rows_value_bwd_batched", k3_ms)):
         out[name]["unbatched_ms"] = one
+    if layout:
+        out.update(member_layout_kernels(label, tricubic, kernels, tables,
+                                         plan, rng))
     torch.cuda.empty_cache()
     return out
+
+
+def member_layout_kernels(label, tricubic, kernels, tables, plan, rng):
+    """The two kernels K2b's and K3b's calls launch beside the gather and
+    the reduce, alone at the call's shapes: the pack of the tables
+    (bitwise its plain version; one call: a transposing copy) and the fold
+    of random partial rows (bitwise its plain version; no one call)."""
+    b, n_rows, nz = tables.shape
+    flat = tables.view(b, -1)
+
+    def pack():
+        return kernels.pack_members(flat)
+
+    def plain_pack():
+        return tricubic.pack_members_ref(flat)
+    check(bool(torch.equal(pack(), plain_pack())),
+          f"pack_members of {b} tables at {label}: bitwise its plain version")
+    groups = -(-b // kernels.MEMBER_GROUP)
+    lines = {"pack_members": check_and_time(
+        f"pack_members of {b} tables ({tuple(tables.shape)}) at {label}",
+        pack, plain_pack,
+        (lambda: flat.t().contiguous()) if b == kernels.MEMBER_GROUP
+        else None,
+        bound(nbytes(flat) + 4 * kernels.MEMBER_GROUP * groups * flat.shape[1],
+              0), scatter=False)}
+    parts = torch.from_numpy(rng.normal(size=(b, plan.n_seg_max, nz))
+                             .astype(np.float32)).to(tables.device)
+    base = torch.zeros_like(tables)
+    running = base.clone()
+
+    def fold():
+        return kernels.fold_member_rows(parts, plan, base.clone())
+
+    def plain_fold():
+        return tricubic.fold_member_rows_ref(parts, plan, base.clone())
+    check(bool(torch.equal(fold(), plain_fold())),
+          f"fold_member_rows at {label}: bitwise its plain version")
+    nseg = plan.row_seg[1:] - plan.row_seg[:-1]
+    multi = nseg > 1
+    folded = int(nseg[multi].sum())
+    n_multi = int(multi.sum())
+    print(f"  {n_multi} rows of several segments hold {folded} of the "
+          f"{int(plan.row_seg[-1])} segments (busiest row "
+          f"{int(nseg.max())})")
+    lines["fold_member_rows"] = check_and_time(
+        f"fold_member_rows at {label} ({n_multi} rows, {folded} segments)",
+        fold, plain_fold, None,
+        bound(4 * b * nz * (folded + n_multi), b * nz * folded),
+        scatter=False, plain_reps=2,
+        timed=lambda: kernels.fold_member_rows(parts, plan, running))
+    return lines
 
 
 def phase11_member_kernels(dev, world, boxspline, tricubic, tec, kernels,
@@ -2136,7 +2189,8 @@ def phase11_member_kernels(dev, world, boxspline, tricubic, tec, kernels,
         print_plan(f"K3b at {name}", geo.row_plan)
         at[f"zp@{geo.ri.shape[0]}"] = member_kernels_at(
             name, dev, tricubic, kernels, (geo.ri, geo.wxy, geo.zi, geo.wz),
-            geo.row_plan, nx * ny, nz, True, rng, parent)
+            geo.row_plan, nx * ny, nz, True, rng, parent,
+            layout=rb is world.rays)
         del geo
     shape = (N_GRID,) * 3
     origin, spacing = (-64.0, -32.0, 0.0), (1.0, 0.5, 8.0)
@@ -2155,8 +2209,11 @@ def phase11_member_kernels(dev, world, boxspline, tricubic, tec, kernels,
             xy_first, rng, parent)
         del setup, plan
     n_outer = world.rays.num_rays * world.rays.num_samples
-    for name in ("rows_value_fwd_batched", "rows_value_bwd_batched"):
-        results[name] = {"line": at[f"zp@{n_outer}"][name]}
+    for name in ("rows_value_fwd_batched", "rows_value_bwd_batched",
+                 "pack_members", "fold_member_rows"):
+        results[name] = {"line": at[f"zp@{n_outer}"].pop(name)
+                         if name in ("pack_members", "fold_member_rows")
+                         else at[f"zp@{n_outer}"][name]}
     results["at_member_shapes"] = at
 
 
@@ -2200,8 +2257,9 @@ def timed(fn):
 
 
 def phase12_config5(dev, world, boxspline, tricubic, tec, kernels, configs,
-                    results, profile=False, n_steps=30, chunk=6):
-    from ionotomo_tpu_torch.testing import KALMAN_KERNELS
+                    results, profile=False, n_steps=30, chunk=6,
+                    parent=None):
+    from ionotomo_tpu_torch.testing import KALMAN_KERNELS, MEMBER_KERNELS
 
     w = world
     print(f"phase 12: config 5, the frozen-flow Kalman filter "
@@ -2230,8 +2288,7 @@ def phase12_config5(dev, world, boxspline, tricubic, tec, kernels, configs,
     for name in KALMAN_KERNELS:
         check(launches[name] > 0,
               f"{name} launched in config 5 ({launches[name]} times)")
-    check(launches["rows_value_fwd_batched"] == 0
-          and launches["rows_value_bwd_batched"] == 0,
+    check(all(launches[name] == 0 for name in MEMBER_KERNELS),
           "the point filter launched no member-axis kernel")
     check(plain_calls.count == 0,
           "the kernel path called no plain version")
@@ -2261,6 +2318,12 @@ def phase12_config5(dev, world, boxspline, tricubic, tec, kernels, configs,
 
     # the first chunk on the plain versions of the kernels
     (m_k, pre_k, post_k), _ = run(n_steps=chunk)
+    if parent is not None:
+        (m_q, pre_q, post_q), _ = parent.run(lambda: run(n_steps=chunk))
+        check(bool(torch.equal(m_q, m_k) and torch.equal(pre_q, pre_k)
+                   and torch.equal(post_q, post_k)),
+              f"the first {chunk} steps bitwise on the parent's kernels")
+        del m_q, pre_q, post_q
     (m_p, pre_p, post_p), secs_p = run(
         n_steps=chunk, linearize=tec.dtec_paired_linear_ref)
     for name, a, b in (("pre-update", pre_k, pre_p),
@@ -2301,8 +2364,16 @@ def phase12_config5(dev, world, boxspline, tricubic, tec, kernels, configs,
     return cache
 
 
+def digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order (a host copy)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def phase13_enkf(dev, world, cache, boxspline, tricubic, tec, kernels,
-                 configs, results, profile=False, n_steps=6):
+                 configs, results, profile=False, n_steps=6, parent=None):
     from ionotomo_tpu_torch.testing import ENKF_KERNELS
 
     w, b = world, B_MEMBERS
@@ -2340,6 +2411,16 @@ def phase13_enkf(dev, world, cache, boxspline, tricubic, tec, kernels,
                and torch.equal(ra.mean_seq, rb_.mean_seq)
                and torch.equal(ra.std_seq, rb_.std_seq)),
           "the ensemble filter is bitwise equal across two runs")
+    sha = digest(ra.ensemble, ra.mean_seq, ra.std_seq)
+    print(f"  sha256 of the final ensemble, mean_seq and std_seq after "
+          f"{n_steps} steps: {sha}")
+    if parent is not None:
+        (rp,), _ = parent.members(lambda: run(n_steps=n_steps))
+        p_sha = digest(rp.ensemble, rp.mean_seq, rp.std_seq)
+        check(p_sha == sha, f"the ensemble filter on the parent's kernels "
+                            f"(K2b and K3b through their former interface): "
+                            f"sha256 {p_sha}, the same")
+        del rp
     res_c, _ = run(n_steps=n_steps, chunk=n_steps // 2)
     check(bool(torch.equal(ra.ensemble, res_c[-1].ensemble)
                and torch.equal(ra.mean_seq, torch.cat(
@@ -2383,11 +2464,15 @@ def phase13_enkf(dev, world, cache, boxspline, tricubic, tec, kernels,
           f"plain-version ensemble step {secs_p:.4f} s")
     if profile:
         profile_solve(lambda: run(n_steps=1), "ensemble filter step")
+        if parent is not None:
+            profile_solve(lambda: parent.members(lambda: run(n_steps=1)),
+                          "ensemble filter step on the parent's kernels")
     results["config5_enkf"] = {**rec, "seconds": [secs_a, secs_b],
                                "seconds_per_step": step,
                                "point_seconds_per_step": point_step,
                                "heldout": h_m, "prior_heldout": h_0,
-                               "plain_step_seconds": secs_p}
+                               "plain_step_seconds": secs_p,
+                               "sha256": sha}
     results["enkf_launches"] = launches
 
 
@@ -2615,6 +2700,118 @@ def k5t_study(reps=20) -> int:
     return 0
 
 
+def ptxas_lines(log, fragments):
+    """(kernel, "Used ... registers ...") of each kernel in an nvcc -Xptxas
+    -v log whose mangled name holds one of ``fragments``; the kernel named
+    by the fragment and its template arguments."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            hit = [f for f in fragments if f in mangled]
+            name = (hit[0] + mangled.split(hit[0])[1][:12]) if hit else None
+        elif name and "Used" in line and "registers" in line:
+            out.append((name, line.split(":", 1)[1].strip()))
+            name = None
+    return out
+
+
+def member_study(reps=10) -> int:
+    """``--member-study``: what K2b's and K3b's calls spend, kernel by
+    kernel, at config 5's two bundles and the zp edge-case points (8
+    members), and both built six more ways through ``build.build(defines=
+    ...)``: K3b's scan without its cut-off at the longest run
+    (``K3B_FULL_SCAN``: all five steps, as K3 takes them), its fold with 8
+    or 32 rows a block (``K3B_FOLD_ROWS``, 1 by default) or in blocks of
+    128 threads (``K3B_FOLD_THREADS``, 256 by default), its reduce's
+    registers set for 4 blocks an SM (``K3B_MIN_BLOCKS``), and K2b's
+    gather's for 3 (``K2B_MIN_BLOCKS``; the defaults leave the compiler
+    its choice); each build's K2b and K3b bitwise the default build's.
+    Prints ptxas's registers of the member kernels."""
+    from ionotomo_tpu_torch import configs, kernels
+    from ionotomo_tpu_torch.core import boxspline
+    from ionotomo_tpu_torch.core.grids import Grid3D
+    from ionotomo_tpu_torch.forward import tec
+    from ionotomo_tpu_torch.kernels import build
+    from ionotomo_tpu_torch.testing import edge_case_points
+
+    dev = torch.device("cuda", 0)
+    print(f"card: {card_line()}")
+    variants = {"default": (), "full scan": ("K3B_FULL_SCAN=1",),
+                "fold 8 rows a block": ("K3B_FOLD_ROWS=8",),
+                "fold 32 rows a block": ("K3B_FOLD_ROWS=32",),
+                "fold 128 threads": ("K3B_FOLD_THREADS=128",),
+                "reduce 4 blocks": ("K3B_MIN_BLOCKS=4",),
+                "gather 3 blocks": ("K2B_MIN_BLOCKS=3",)}
+    libs = {}
+    for label, defines in variants.items():
+        info = build.build(defines=defines)
+        libs[label] = build.open_library(info["path"])
+        for name, used in ptxas_lines(info["log"], (
+                "rows_value_bwd_batched_kernel", "fold_member_rows_kernel",
+                "rows_value_fwd_batched_kernel", "pack_members_kernel")):
+            print(f"  ptxas, {label}: {name}: {used}")
+    default = build.load()
+
+    def with_lib(label, fn):
+        build._loaded["lib"] = libs[label]
+        try:
+            return fn()
+        finally:
+            build._loaded["lib"] = default
+
+    rng = np.random.default_rng(12)
+    w = configs.config5_world(device=dev)
+    nx, ny, nz = w.grid.shape
+    cases = []
+    for name, rb in (("outer bundle", w.rays), ("inner bundle",
+                                                w.rays_inner)):
+        geo = tec.DtecGeometry(w.grid, rb, w.n_dirs, 0, "hermite", "zp")
+        cases.append((f"config 5's {name}", (geo.ri, geo.wxy, geo.zi,
+                                             geo.wz), geo.row_plan, nx * ny,
+                      nz))
+    shape = (N_GRID,) * 3
+    origin, spacing = (-64.0, -32.0, 0.0), (1.0, 0.5, 8.0)
+    grid = Grid3D.create(origin, spacing, shape, device=dev)
+    pts = torch.from_numpy(edge_case_points(shape, origin, spacing, 1 << 20,
+                                            rng)).to(dev)
+    setup = boxspline.row_setup(grid, pts)
+    cases.append(("the zp edge-case points", setup,
+                  boxspline.row_plan(setup[0], setup[2], N_GRID * N_GRID),
+                  N_GRID * N_GRID, N_GRID))
+    b = B_MEMBERS
+    for label, (ri, wxy, zi, wz), plan, n_rows, nz_ in cases:
+        print_plan(f"K3b at {label}", plan)
+        tables = torch.from_numpy(rng.normal(size=(b, n_rows, nz_))
+                                  .astype(np.float32)).to(dev)
+        ct = torch.from_numpy(rng.normal(size=(b, ri.shape[0]))
+                              .astype(np.float32)).to(dev)
+        calls = {
+            "K2b": lambda: kernels.rows_value_fwd_batched(tables, ri, wxy,
+                                                          zi, wz, True),
+            "K3b": lambda: kernels.rows_value_bwd_batched(ct, plan, wxy, zi,
+                                                          wz, nz_)}
+        for name, fn in calls.items():
+            by = kernel_ms_by_name(fn, reps)
+            print(f"  {name} at {label}: the call {device_ms(fn, reps):.4f} "
+                  f"ms; by kernel: " + "; ".join(
+                      f"{v:.4f} ms {k[:48]}" for k, v in
+                      sorted(by.items(), key=lambda kv: -kv[1])))
+            want = fn()
+            for variant in variants:
+                got = with_lib(variant, fn)
+                torch.cuda.synchronize()
+                check(bool(torch.equal(got, want)),
+                      f"{name} at {label}, {variant}: bitwise the default "
+                      f"build")
+                ms = with_lib(variant, lambda: device_ms(fn, reps))
+                print(f"  {name} at {label}, {variant}: {ms:.4f} ms")
+            del want, got
+        del tables, ct
+        torch.cuda.empty_cache()
+    return 0
+
+
 def plain_solves(n, root=None) -> int:
     """``--plain-solves N [--root DIR]``: config 4's solve once on the
     kernels and N times on the plain versions (``dtec_paired_linear_ref``,
@@ -2653,6 +2850,7 @@ def plain_solves(n, root=None) -> int:
 
 def kernels_line(results) -> dict:
     """The per-kernel JSON object of a run from the phases' results."""
+    from ionotomo_tpu_torch.testing import MEMBER_KERNELS
     src = "ionotomo_tpu_torch/kernels/csrc/"
     # launches: K1, K1e and K2 in the serving run (phase 4), K3 and K1eᵀ in
     # the config-3b solve (phase 6), KG in the probe (phase 7), K1c and the
@@ -2669,9 +2867,12 @@ def kernels_line(results) -> dict:
     # "kernels_at_config4" holds K2 and K3 again at config 4's two cubic
     # shapes, and K4, which is K3 on the cubic row plan, with the launches
     # of config 4's run. K2b and K3b: launches in one run of the ensemble
-    # filter (phase 13), error, ms and bound at config 5's outer bundle
-    # (650,000 points, 8 members; phase 11); "kernels_at_member_shapes"
-    # holds them at phase 11's other shapes, each beside the unbatched
+    # filter (phase 13), error, ms (the whole call: K2b's pack, K3b's pack
+    # and fold included) and bound at config 5's outer bundle (650,000
+    # points, 8 members; phase 11); the pack (of the 8 tables) and the fold
+    # (of random partial rows over that bundle's plan) alone there, with
+    # their launches in the same run; "kernels_at_member_shapes" holds K2b
+    # and K3b at phase 11's other shapes, each beside the unbatched
     # kernel's ms on one member.
     c4 = results["config4_launches"]
     launches = {**results["launches"],
@@ -2681,9 +2882,7 @@ def kernels_line(results) -> dict:
                 **{k: results[k]["launches"] for k in CONFIG2_KERNELS},
                 "cubic_value_grad": c4["cubic_value_grad"],
                 "cubic_value_grad_bwd": c4["cubic_value_grad_bwd"],
-                **{k: results["enkf_launches"][k]
-                   for k in ("rows_value_fwd_batched",
-                             "rows_value_bwd_batched")}}
+                **{k: results["enkf_launches"][k] for k in MEMBER_KERNELS}}
     entries = [
         ("trace_leapfrog_zp", "trace_leapfrog_zp.cu",
          "ionotomo_tpu/geometry/fermat.py:204"),
@@ -2709,6 +2908,10 @@ def kernels_line(results) -> dict:
         ("rows_value_fwd_batched", "rows_value_fwd_batched.cu",
          "ionotomo_tpu/core/tricubic.py:296"),
         ("rows_value_bwd_batched", "rows_value_bwd_batched.cu",
+         "ionotomo_tpu/core/tricubic.py:380"),
+        ("pack_members", "rows_value_fwd_batched.cu",
+         "ionotomo_tpu/core/tricubic.py:296"),
+        ("fold_member_rows", "rows_value_bwd_batched.cu",
          "ionotomo_tpu/core/tricubic.py:380"),
     ]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2756,6 +2959,8 @@ def main() -> int:
         return k1c_study()
     if "--k5t-study" in args:
         return k5t_study()
+    if "--member-study" in args:
+        return member_study()
     root = args[args.index("--root") + 1] if "--root" in args else None
     if "--serving-loop" in args:
         return serving_loop(root)
@@ -2818,9 +3023,9 @@ def main() -> int:
     phase11_member_kernels(dev, world5, boxspline, tricubic, tec, kernels,
                            Grid3D, results, parent)
     cache5 = phase12_config5(dev, world5, boxspline, tricubic, tec, kernels,
-                             configs, results, profile)
+                             configs, results, profile, parent=parent)
     phase13_enkf(dev, world5, cache5, boxspline, tricubic, tec, kernels,
-                 configs, results, profile)
+                 configs, results, profile, parent=parent)
 
     line = kernels_line(results)
     solve, c2, c4 = results["solve"], results["config2"], results["config4"]

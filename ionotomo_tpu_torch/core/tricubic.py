@@ -35,7 +35,11 @@ weights, is what ``jax.vmap`` over the field makes of ``rows_value_p`` in
 the reference (the ensemble Kalman filter's member axis): kernel K2b
 forward and K3b backward on CUDA, over the one plan of the point set, and
 the same plain versions with a member axis on the CPU. Member b of either
-is bitwise the unbatched kernel on member b. Batched indices loop the
+is bitwise the unbatched kernel on member b. Both read the member axis
+packed innermost (``kernels.pack_members``, plain version
+``pack_members_ref``, its inverse ``unpack_members_ref``; K2b's gather
+over the pack ``rows_value_packed_ref``; K3b's fold of rows of several
+segments ``fold_member_rows_ref``). Batched indices loop the
 unbatched call, as the reference falls back to its vmapped plain
 implementation there; batched weights over an unbatched table (the
 reference: "rare; not a production path") raise NotImplementedError.
@@ -81,6 +85,44 @@ def rows_value_ref(table, ri, wxy, zi, wz, xy_first: bool) -> torch.Tensor:
         return torch.einsum("nz,nz->n", s, band)
     pencil = torch.einsum("nkz,nz->nk", rows, band)     # tricubic order
     return torch.sum(pencil * wxy, dim=-1)
+
+
+def pack_members_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``kernels.pack_members``: x (B, M) → (⌈B/8⌉, M,
+    8), packed[g, j, m] = x[8g + m, j], zeros past member B − 1 (the
+    member-innermost layout K2b and K3b read)."""
+    g = kernels.MEMBER_GROUP
+    b, m = x.shape
+    pad = torch.zeros((-b % g, m), dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad]).reshape(-1, g, m).transpose(1, 2).contiguous()
+
+
+def unpack_members_ref(packed: torch.Tensor, n_members: int) -> torch.Tensor:
+    """The inverse of ``pack_members_ref``: (G, M, 8) → (n_members, M)."""
+    g, m, _ = packed.shape
+    return packed.transpose(1, 2).reshape(-1, m)[:n_members].contiguous()
+
+
+def rows_value_packed_ref(packed, n_members: int, table_shape, ri, wxy,
+                          zi, wz, xy_first: bool) -> torch.Tensor:
+    """The plain version of K2b's gather, reading the member tables from
+    their member-innermost pack (G, R·nz, 8) (``pack_members_ref`` of the
+    (B, R, nz) tables flattened; table_shape = (R, nz)): every point's K ×
+    L taps gathered for all members at once, indices clamped into the
+    table as the kernel clamps them, and contracted in the given order →
+    (n_members, N)."""
+    check_full_f32()
+    n_rows, nz = table_shape
+    taps = packed.reshape(packed.shape[0], n_rows, nz, -1)[
+        :, ri.long().clamp(0, n_rows - 1)[:, :, None],
+        zi.long().clamp(0, nz - 1)[:, None, :]]         # (G, N, K, L, 8)
+    if xy_first:
+        s = torch.einsum("gnklm,nk->gnlm", taps, wxy)
+        out = torch.einsum("gnlm,nl->gnm", s, wz)
+    else:
+        pencil = torch.einsum("gnklm,nl->gnkm", taps, wz)
+        out = torch.einsum("gnkm,nk->gnm", pencil, wxy)
+    return out.transpose(1, 2).reshape(-1, ri.shape[0])[:n_members]
 
 
 #: Pairs one K3 / K1eᵀ segment holds at most: one warp reduces one
@@ -247,6 +289,22 @@ def transpose_terms(ct, ri, wxy, zi, wz, table_shape):
     flat = torch.where(inside, r * nz + z, 0).reshape(-1)
     return flat, torch.where(inside, contrib, 0.0).reshape(
         ct.shape[:-1] + (-1,))
+
+
+def fold_member_rows_ref(partials: torch.Tensor, plan: RowPlan,
+                         out: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``kernels.fold_member_rows``, in place: for every
+    row of several segments and every member, out[b, r] = Σ partials[b,
+    s] over r's segments s, summed in segment order from 0.0; rows of one
+    segment are left as they are. Reads the busiest row's segment count
+    on the host."""
+    first = plan.row_seg[:-1].long()
+    nseg = plan.row_seg[1:].long() - first
+    acc = torch.zeros_like(out)
+    for k in range(int(nseg.max())):
+        term = partials[:, (first + k).clamp(max=plan.n_seg_max - 1)]
+        acc = torch.where((k < nseg)[None, :, None], acc + term, acc)
+    return out.copy_(torch.where((nseg > 1)[None, :, None], acc, out))
 
 
 def rows_value_transpose(ct, ri, wxy, zi, wz, table_shape,

@@ -23,11 +23,13 @@
   (``pack_z_taps``) and, for a batch that fills the card, the rays sorted
   first (``ray_order``, whose keys ``ray_order_keys`` makes; same source);
 - K2b ``rows_value_fwd_batched``: K2 over a leading member axis of the
-  table, the indices and weights shared
-  (csrc/rows_value_fwd_batched.cu);
+  table, the indices and weights shared, over the tables packed
+  member-innermost first (``pack_members``; csrc/rows_value_fwd_batched.cu,
+  both);
 - K3b ``rows_value_bwd_batched``: K3 over a leading member axis of the
-  cotangent, over the one plan the members share
-  (csrc/rows_value_bwd_batched.cu).
+  cotangent, over the one plan the members share: the cotangent packed
+  member-innermost (``pack_members``), the reduce, and the fold of rows of
+  several segments (``fold_member_rows``; csrc/rows_value_bwd_batched.cu).
 
 Each wrapper checks dtype, shape, contiguity and device and raises on
 anything else (a CPU tensor included: the plain PyTorch versions live in
@@ -50,7 +52,8 @@ launches = {"trace_leapfrog_zp": 0, "zp_value_grad": 0, "rows_value_fwd": 0,
             "cubic_value_grad": 0, "cubic_value_grad_bwd": 0,
             "trace_leapfrog_cubic": 0, "pack_z_taps": 0,
             "ray_order_keys": 0, "rows_value_fwd_batched": 0,
-            "rows_value_bwd_batched": 0}
+            "rows_value_bwd_batched": 0, "pack_members": 0,
+            "fold_member_rows": 0}
 
 #: Widest table row the reduce kernels (K3, K1eᵀ) take: one row per warp
 #: in shared memory, 8 warps a block, within the 48 KB a block gets
@@ -193,29 +196,53 @@ def _rows_specs(name: str, ri, wxy, zi, wz):
                      ("wz", wz, torch.float32, (n, l))]
 
 
+#: Members one packed value of ``pack_members`` holds: one 32-byte sector.
+MEMBER_GROUP = 8
+
+
+def pack_members(x: torch.Tensor) -> torch.Tensor:
+    """The member-innermost layout K2b and K3b read: x (B, M) f32 →
+    (⌈B/8⌉, M, 8) with packed[g, j, m] = x[8g + m, j] and zeros past
+    member B − 1, so the 8 members of one element are one aligned 32-byte
+    sector (plain version: ``core.tricubic.pack_members_ref``)."""
+    name = "pack_members"
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"{name}: x must be (B, M) with B, M >= 1, got "
+                         f"{tuple(x.shape)}")
+    b, m = x.shape
+    dev = _check(name, [("x", x, torch.float32, (b, m))])
+    packed = torch.empty((-(-b // MEMBER_GROUP), m, MEMBER_GROUP),
+                         dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(name, "ionotomo_pack_members", _ptr(x), b, m, _ptr(packed))
+    return packed
+
+
 def rows_value_fwd_batched(table: torch.Tensor, ri: torch.Tensor,
                            wxy: torch.Tensor, zi: torch.Tensor,
                            wz: torch.Tensor, xy_first: bool) -> torch.Tensor:
     """K2b: out[b, n] = Σ_k wxy[n,k] Σ_l wz[n,l] table[b, ri[n,k], zi[n,l]].
 
     table (B, rows, nz) f32, member-major; ri, wxy, zi, wz as for
-    ``rows_value_fwd``, shared by the members. Returns (B, N); member b is
-    bitwise ``rows_value_fwd(table[b], ...)``."""
+    ``rows_value_fwd``, shared by the members. The call packs the tables
+    member-innermost (``pack_members``) and gathers from the pack.
+    Returns (B, N); member b is bitwise ``rows_value_fwd(table[b], ...)``."""
     name = "rows_value_fwd_batched"
     if table.dim() != 3:
         raise ValueError(f"{name}: table must be (B, rows, nz), got "
                          f"{tuple(table.shape)}")
     n, k, l, specs = _rows_specs(name, ri, wxy, zi, wz)
-    b = table.shape[0]
-    dev = _check(name, [("table", table, torch.float32, tuple(table.shape))]
+    b, rows, nz = table.shape
+    dev = _check(name, [("table", table, torch.float32, (b, rows, nz))]
                  + specs)
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
-    if n == 0 or b == 0:
+    if n == 0 or b == 0 or rows * nz == 0:
         return out
+    packed = pack_members(table.view(b, rows * nz))
     with torch.cuda.device(dev):
-        _launch(name, "ionotomo_rows_value_fwd_batched", _ptr(table), b,
-                table.shape[1], table.shape[2], _ptr(ri), _ptr(wxy), k,
-                _ptr(zi), _ptr(wz), l, n, int(bool(xy_first)), _ptr(out))
+        _launch(name, "ionotomo_rows_value_fwd_batched", _ptr(packed), b,
+                rows, nz, _ptr(ri), _ptr(wxy), k, _ptr(zi), _ptr(wz), l, n,
+                int(bool(xy_first)), _ptr(out))
     return out
 
 
@@ -475,10 +502,14 @@ def rows_value_bwd_batched(ct: torch.Tensor, plan, wxy: torch.Tensor,
                            ) -> torch.Tensor:
     """K3b: table_ct (B, plan.n_rows, nz) with table_ct[b, ri[n,k],
     zi[n,l]] += ct[b,n]·wxy[n,k]·wz[n,l] over the one ``plan`` the members
-    share. ct (B, N) f32; wxy, zi, wz as for ``rows_value_bwd``.
-    Deterministic: no float atomics; member b is bitwise
-    ``rows_value_bwd(ct[b], plan, ...)``. Runs on the stream the plan was
-    built on and raises on another (one ticket a row serves all members)."""
+    share. ct (B, N) f32; wxy, zi, wz as for ``rows_value_bwd``. Three
+    launches: the cotangent packed member-innermost (``pack_members``), the
+    reduce (every row of one segment written), and ``fold_member_rows``
+    (the rows of several segments, each member's partial rows summed in
+    segment order). Deterministic: no float atomics; member b is bitwise
+    ``rows_value_bwd(ct[b], plan, ...)``. Leaves the plan's counters alone,
+    but runs on the stream the plan was built on and raises on another, as
+    K3 does."""
     name = "rows_value_bwd_batched"
     if ct.dim() != 2 or wxy.dim() != 2 or zi.dim() != 2:
         raise ValueError(f"{name}: ct, wxy and zi must be 2-D, got "
@@ -501,11 +532,39 @@ def rows_value_bwd_batched(ct: torch.Tensor, plan, wxy: torch.Tensor,
                         ("wz", wz, torch.float32, (n, l))]
                  + _plan_specs(name, plan, n))
     out = torch.empty((b, n_rows, nz), dtype=torch.float32, device=dev)
+    ctp = pack_members(ct) if n > 0 else ct     # no pair reads ct then
     with torch.cuda.device(dev):
         ptrs, partials = _plan_args(plan, nz, dev, members=b)
-        _launch(name, "ionotomo_rows_value_bwd_batched", _ptr(ct), b, n,
-                _ptr(wxy), k, _ptr(zi), _ptr(wz), l, nz, *ptrs, n_rows,
+        _launch(name, "ionotomo_rows_value_bwd_batched", _ptr(ctp), b, n,
+                _ptr(wxy), k, _ptr(zi), _ptr(wz), l, nz, *ptrs[:4], n_rows,
                 plan.n_seg_max, plan.chunk, _ptr(partials), _ptr(out))
+    return fold_member_rows(partials.view(b, plan.n_seg_max, nz), plan, out)
+
+
+def fold_member_rows(partials: torch.Tensor, plan, out: torch.Tensor
+                     ) -> torch.Tensor:
+    """K3b's second pass, in place: for every row r of several segments
+    in ``plan`` and every member b, out[b, r] = the partial rows
+    partials[b, s] of r's segments s summed in segment order from 0.0
+    (rows of one segment are left as they are). partials (B, n_seg_max,
+    nz), out (B, n_rows, nz) f32; returns ``out`` (plain version:
+    ``core.tricubic.fold_member_rows_ref``)."""
+    name = "fold_member_rows"
+    if partials.dim() != 3 or out.dim() != 3:
+        raise ValueError(f"{name}: partials and out must be 3-D, got "
+                         f"{partials.dim()}, {out.dim()}")
+    b, _, nz = out.shape
+    dev = _check(name, [("partials", partials, torch.float32,
+                         (b, plan.n_seg_max, nz)),
+                        ("out", out, torch.float32, (b, plan.n_rows, nz)),
+                        ("plan.row_seg", plan.row_seg, torch.int32,
+                         (plan.n_rows + 1,))])
+    if b == 0 or nz == 0:
+        return out
+    with torch.cuda.device(dev):
+        _launch(name, "ionotomo_fold_member_rows", _ptr(plan.row_seg),
+                plan.n_rows, _ptr(partials), b, plan.n_seg_max, nz,
+                _ptr(out))
     return out
 
 

@@ -56,8 +56,10 @@ _SIGNATURES = {
     "ionotomo_rows_value_fwd_batched": (_I, [_P, _I, _I, _I, _P, _P, _I, _P,
                                              _P, _I, _I, _I, _P, _P]),
     "ionotomo_rows_value_bwd_batched": (_I, [_P, _I, _I, _P, _I, _P, _P, _I,
-                                             _I, _P, _P, _P, _P, _P, _I, _I,
-                                             _I, _P, _P, _P]),
+                                             _I, _P, _P, _P, _P, _I, _I, _I,
+                                             _P, _P, _P]),
+    "ionotomo_fold_member_rows": (_I, [_P, _I, _P, _I, _I, _I, _P, _P]),
+    "ionotomo_pack_members": (_I, [_P, _I, ctypes.c_longlong, _P, _P]),
     "ionotomo_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -103,7 +105,8 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR, defines=()) -> dict:
     by default; ``chip_smoke.py --parent`` builds another checkout's) into
     ``build_dir`` unless this exact build exists. ``defines``: extra
     ``NAME=value`` macros for nvcc (``chip_smoke.py --k5t-study`` builds
-    K5ᵀ with other register budgets).
+    K5ᵀ with other register budgets, ``--member-study`` K3b with other
+    scan and fold settings).
 
     Returns ``{"path", "seconds", "built", "log"}``; ``log`` is nvcc's
     output (with ``-Xptxas -v``: registers, shared memory and spills per

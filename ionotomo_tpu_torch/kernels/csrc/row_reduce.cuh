@@ -188,32 +188,118 @@ __device__ __forceinline__ void reduce_segment(const Plan& plan, int nz,
   if (lane == 0) plan.counters[row] = 0;
 }
 
-// Members a warp reduces in one pass over its segment at most; the pass
-// holds one row of shared memory per member.
-constexpr int kMemberTile = 8;
+// Members a warp reduces in one pass over its segment: one group of the
+// member-innermost layout (rows_value_fwd_batched.cu, pack_members), whose
+// kMemberGroup values of one point are two aligned float4.
+constexpr int kMemberGroup = 8;
 
-// reduce_segment with a leading member axis: the warp's segment reduced
-// into its row of every member's table, out (n_members, n_rows, nz), over
-// the one plan all members share. srow is the warp's tile * nz floats of
-// shared memory; partials is (n_members, n_seg_max, nz). The pairs' ids
-// and member-invariant inputs are loaded once per pass of `tile` members
-// and only the cotangent differs by member. Each member's sums run in the
-// order reduce_segment gives them (batches in order, the same scan tree,
-// segments in order), so member b of the result is bitwise what
-// reduce_segment makes of member b alone. One ticket a row suffices: a
-// warp takes it after the partial rows of all its members are written.
-// Pair is a functor with
-//   In load(int p, int b0, int tb) const   start the loads of flat pair p
-//                                          for members b0 .. b0+tb-1
-//                                          (p < 0: no pair);
-//   void contributions(const In&, int m, int (&z)[L], float (&c)[L]) const
-//                                          member b0+m's contributions.
+// add_batch for every member of a group at once: lane i holds the batch's
+// pair i, its L z taps (z = INT_MAX in lanes without a pair) and its
+// contributions c[m][l] for the group's members (zeros past the last);
+// member m < tb adds into srow + m * nz. The z-run structure does not
+// depend on the member, so it is found once: the sort test, and for each
+// l each lane's place in its run (pos: the scan's lane d back is in the
+// run iff pos >= d), whether it ends the run, and the longest run (scan
+// steps past it add nothing in any lane, so they are skipped). Each
+// member's values then go through add_batch's scan tree with add_batch's
+// adds, so member m's sums are bitwise what add_batch makes of c[m]
+// alone. A step shuffles all members' values at once (8 independent
+// chains in flight); the first step is taken whatever the runs, as
+// add_batch takes it. Members' adds into their rows follow l by l, as
+// add_batch's do.
+template <int L>
+__device__ __forceinline__ void add_batch_members(
+    const int (&z)[L], const float (&c)[kMemberGroup][L], int tb, int nz,
+    float* srow) {
+  const int lane = threadIdx.x & 31;
+  bool sorted = true;
+  int prev[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    prev[l] = __shfl_up_sync(kFullMask, z[l], 1);
+    sorted = sorted && (lane == 0 || prev[l] <= z[l]);
+  }
+  if (__all_sync(kFullMask, sorted)) {
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const unsigned head =
+          __ballot_sync(kFullMask, lane == 0 || prev[l] != z[l]);
+      // the run's first lane: the highest head at or below this lane
+      const int pos =
+          lane - (31 - __clz(head & (0xffffffffu >> (31 - lane))));
+      const bool keep = (lane == 31 || ((head >> (lane + 1)) & 1u)) &&
+                        z[l] >= 0 && z[l] < nz;
+#ifdef K3B_FULL_SCAN
+      const int span = 31;
+#else
+      const int span = (int)__reduce_max_sync(kFullMask, (unsigned)pos);
+#endif
+      float v[kMemberGroup];
+#pragma unroll
+      for (int m = 0; m < kMemberGroup; ++m) {
+        v[m] = c[m][l];
+        const float vo = __shfl_up_sync(kFullMask, v[m], 1);
+        if (pos >= 1) v[m] += vo;
+      }
+#pragma unroll
+      for (int d = 2; d < 32; d <<= 1) {
+        if (d <= span) {  // uniform over the warp
+#pragma unroll
+          for (int m = 0; m < kMemberGroup; ++m) {
+            const float vo = __shfl_up_sync(kFullMask, v[m], d);
+            if (pos >= d) v[m] += vo;
+          }
+        }
+      }
+      if (keep) {
+#pragma unroll
+        for (int m = 0; m < kMemberGroup; ++m)
+          if (m < tb) srow[m * nz + z[l]] += v[m];
+      }
+      __syncwarp();
+    }
+  } else {
+    for (int s = 0; s < 32; ++s) {
+      if (lane == s) {
+#pragma unroll
+        for (int m = 0; m < kMemberGroup; ++m) {
+          if (m < tb) {
+#pragma unroll
+            for (int l = 0; l < L; ++l)
+              if (z[l] >= 0 && z[l] < nz) srow[m * nz + z[l]] += c[m][l];
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// reduce_segment with a leading member axis, over the one plan all
+// members share: the warp's segment reduced into its row of every
+// member's table, out (n_members, n_rows, nz), a group of up to
+// kMemberGroup members a pass. srow is the warp's min(n_members,
+// kMemberGroup) * nz floats of shared memory. The pairs' ids and
+// member-invariant inputs are loaded once a pass and the batch's z runs
+// found once for the group (add_batch_members). A row of one segment is
+// written here; a row of several writes every member's partial row to
+// partials (n_members, n_seg_max, nz), which fold_member_rows sums in a
+// second launch: no ticket, so no warp folds a skewed row's segments for
+// all members alone. Each member's sums run in reduce_segment's order
+// (batches in order, the same scan tree, then segments in order), so
+// member b of the result is bitwise what reduce_segment makes of member
+// b alone. Pair is a functor with
+//   In load(int p, int b0) const          start the loads of flat pair p
+//                                         for members b0 .. b0+7
+//                                         (p < 0: no pair);
+//   void contributions(const In&, int (&z)[L],
+//                      float (&c)[kMemberGroup][L]) const.
 template <int L, class Pair>
 __device__ __forceinline__ void reduce_segment_members(
-    const Plan& plan, int nz, int n_members, int tile, float* srow,
+    const Plan& plan, int nz, int n_members, float* srow,
     float* __restrict__ out, const Pair& pair) {
   const int lane = threadIdx.x & 31;
-  const int s = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int s = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (s >= plan.n_seg_max) return;
   const int row = plan.seg_row[s];
   if (row >= plan.n_rows) return;  // past the plan's last segment
@@ -221,61 +307,104 @@ __device__ __forceinline__ void reduce_segment_members(
   const int nseg = plan.row_seg[row + 1] - first;
   const int beg = plan.offsets[row] + (s - first) * plan.chunk;
   const int end = min(beg + plan.chunk, plan.offsets[row + 1]);
-  const size_t out_stride = (size_t)plan.n_rows * (size_t)nz;
-  const size_t part_stride = (size_t)plan.n_seg_max * (size_t)nz;
 
-  for (int b0 = 0; b0 < n_members; b0 += tile) {
-    const int tb = min(tile, n_members - b0);
+  for (int b0 = 0; b0 < n_members; b0 += kMemberGroup) {
+    const int tb = min(kMemberGroup, n_members - b0);
     for (int z = lane; z < tb * nz; z += 32) srow[z] = 0.0f;
     __syncwarp();
     int p_next = beg + 32 + lane < end ? plan.order[beg + 32 + lane] : -1;
     typename Pair::In in =
-        pair.load(beg + lane < end ? plan.order[beg + lane] : -1, b0, tb);
+        pair.load(beg + lane < end ? plan.order[beg + lane] : -1, b0);
     for (int j0 = beg; j0 < end; j0 += 32) {
       const int p_after = j0 + 64 + lane < end ? plan.order[j0 + 64 + lane]
                                                : -1;
-      const typename Pair::In in_next = pair.load(p_next, b0, tb);
-#pragma unroll
-      for (int m = 0; m < kMemberTile; ++m) {
-        if (m < tb) {  // uniform over the warp
-          int z[L];
-          float c[L];
-          pair.contributions(in, m, z, c);
-          add_batch<L>(z, c, nz, srow + m * nz);
-        }
-      }
+      const typename Pair::In in_next = pair.load(p_next, b0);
+      int z[L];
+      float c[kMemberGroup][L];
+      pair.contributions(in, z, c);
+      add_batch_members<L>(z, c, tb, nz, srow);
       in = in_next;
       p_next = p_after;
     }
     __syncwarp();
-    for (int m = 0; m < tb; ++m) {
-      const float* src = srow + m * nz;
-      if (nseg == 1) {
-        float* dst = out + (size_t)(b0 + m) * out_stride +
-                     (size_t)row * (size_t)nz;
-        for (int z = lane; z < nz; z += 32) dst[z] = src[z];
-      } else {
-        float* part = plan.partials + (size_t)(b0 + m) * part_stride +
-                      (size_t)s * (size_t)nz;
-        for (int z = lane; z < nz; z += 32) __stcg(part + z, src[z]);
+    float* dst = nseg == 1
+                     ? out + ((size_t)b0 * plan.n_rows + row) * (size_t)nz
+                     : plan.partials +
+                           ((size_t)b0 * plan.n_seg_max + s) * (size_t)nz;
+    const size_t stride =
+        (size_t)(nseg == 1 ? plan.n_rows : plan.n_seg_max) * (size_t)nz;
+    for (int m = 0; m < tb; ++m)
+      for (int z = lane; z < nz; z += 32) {
+        if (nseg == 1)
+          dst[m * stride + z] = srow[m * nz + z];
+        else
+          __stcg(dst + m * stride + z, srow[m * nz + z]);
       }
-    }
     __syncwarp();
   }
-  if (nseg == 1) return;
-  __threadfence();
-  __syncwarp();
-  int ticket = 0;
-  if (lane == 0) ticket = atomicAdd(plan.counters + row, 1);
-  ticket = __shfl_sync(kFullMask, ticket, 0);
-  if (ticket != nseg - 1) return;
-  __threadfence();
-  for (int b = 0; b < n_members; ++b)
-    fold_partials(plan.partials + (size_t)b * part_stride +
-                      (size_t)first * (size_t)nz,
-                  nseg, nz,
-                  out + (size_t)b * out_stride + (size_t)row * (size_t)nz);
-  if (lane == 0) plan.counters[row] = 0;
+}
+
+#ifndef K3B_FOLD_THREADS
+#define K3B_FOLD_THREADS 256
+#endif
+#ifndef K3B_FOLD_ROWS
+#define K3B_FOLD_ROWS 1
+#endif
+// Threads of one fold_member_rows block, and the consecutive rows it
+// takes.
+constexpr int kFoldThreads = K3B_FOLD_THREADS;
+constexpr int kFoldRows = K3B_FOLD_ROWS;
+static_assert(kFoldRows <= kFoldThreads, "a thread reads each row's count");
+
+// The second pass of reduce_segment_members. A block takes kFoldRows
+// consecutive rows, reads their segment counts, and folds each row of
+// several segments in turn (a row of one segment was written by the first
+// pass): for every member, the row's partial rows summed in segment order
+// into out (n_members, n_rows, nz), each element from 0.0f as
+// fold_partials sums it (so bitwise fold_partials' result). The block's
+// threads share the row's n_members * nz elements, four a thread at once,
+// so a skewed row is folded by a block and not by one warp. One row a
+// block: blocks of 8 or 32 rows fold their rows' load chains one after
+// another and read 1.5-2.6 x slower at config 5 (chip_smoke.py
+// --member-study), though most blocks then find a row of one segment.
+__device__ __forceinline__ void fold_member_rows(
+    const int* __restrict__ row_seg, int n_rows, const float* partials,
+    int n_members, int n_seg_max, int nz, float* __restrict__ out) {
+  __shared__ int s_first[kFoldRows], s_nseg[kFoldRows];
+  const int r0 = blockIdx.x * kFoldRows;
+  if (threadIdx.x < kFoldRows) {
+    const int r = r0 + threadIdx.x;
+    const int first = r < n_rows ? row_seg[r] : 0;
+    s_first[threadIdx.x] = first;
+    s_nseg[threadIdx.x] = r < n_rows ? row_seg[r + 1] - first : 0;
+  }
+  __syncthreads();
+  const int items = n_members * nz;
+  for (int j = 0; j < kFoldRows; ++j) {
+    const int nseg = s_nseg[j];
+    if (nseg < 2) continue;  // uniform over the block
+    const int row = r0 + j, first = s_first[j];
+    for (int i0 = threadIdx.x; i0 < items; i0 += 4 * kFoldThreads) {
+      size_t src[4], dst[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = min(i0 + q * kFoldThreads, items - 1);
+        const int m = i / nz, z = i - m * nz;
+        src[q] = ((size_t)m * n_seg_max + first) * (size_t)nz + z;
+        dst[q] = ((size_t)m * n_rows + row) * (size_t)nz + z;
+      }
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+      for (int k = 0; k < nseg; ++k) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          acc[q] += __ldcg(partials + src[q] + (size_t)k * (size_t)nz);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (i0 + q * kFoldThreads < items) out[dst[q]] = acc[q];
+    }
+  }
 }
 
 // Launch shape: one warp per segment, kWarpsPerBlock warps per block, nz
@@ -286,11 +415,16 @@ inline int blocks_for(int n_seg_max) {
 inline size_t smem_bytes(int nz) {
   return (size_t)kWarpsPerBlock * (size_t)nz * sizeof(float);
 }
-// Members per pass of reduce_segment_members: as many rows per warp as the
-// 48 KB a block gets without opting in to more hold, kMemberTile at most.
-inline int member_tile(int n_members, int nz) {
-  const int fit = (48 * 1024) / (int)smem_bytes(nz);
-  return max(1, min(min(n_members, kMemberTile), fit));
+// Warps a block of reduce_segment_members holds: kWarpsPerBlock where
+// their member rows fit in the 48 KB a block gets without opting in to
+// more, else as many as fit in the 227 KB it may opt in to (6 at least, at
+// nz = MAX_NZ_REDUCE = 1024 and 8 members).
+inline size_t member_smem_per_warp(int n_members, int nz) {
+  return (size_t)min(n_members, kMemberGroup) * (size_t)nz * sizeof(float);
+}
+inline int member_warps(int n_members, int nz) {
+  const size_t fit = (size_t)227 * 1024 / member_smem_per_warp(n_members, nz);
+  return (int)min((size_t)kWarpsPerBlock, fit);
 }
 
 }  // namespace row_reduce

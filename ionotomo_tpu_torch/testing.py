@@ -20,11 +20,13 @@ CUBIC_SOLVE_KERNELS = ("rows_value_fwd", "rows_value_bwd", "cubic_value_grad",
 #: point filter: one state, so no member-axis kernel)
 KALMAN_KERNELS = SOLVE_KERNELS
 #: kernels ``ensemble_kalman_filter`` on zp with Hermite quadrature
-#: launches: the member-axis gather and scatter, and the endpoint kernels
-#: once per member. The unbatched ``rows_value_fwd``/``rows_value_bwd`` run
-#: only outside the member update (never once per member in its place).
-ENKF_KERNELS = ("rows_value_fwd_batched", "rows_value_bwd_batched",
-                "zp_value_grad", "zp_value_grad_bwd")
+#: launches: the member-axis gather and scatter with the pack of their
+#: member axis and the scatter's fold, and the endpoint kernels once per
+#: member. The unbatched ``rows_value_fwd``/``rows_value_bwd`` run only
+#: outside the member update (never once per member in its place).
+MEMBER_KERNELS = ("rows_value_fwd_batched", "rows_value_bwd_batched",
+                  "pack_members", "fold_member_rows")
+ENKF_KERNELS = MEMBER_KERNELS + ("zp_value_grad", "zp_value_grad_bwd")
 
 
 def edge_case_points(shape, origin, spacing, n, rng):

@@ -691,8 +691,8 @@ def test_cubic_solve_is_bitwise_reproducible(dev):
 @pytest.mark.parametrize("n_members", [1, 3, 8, 11])
 def test_rows_value_fwd_batched_is_k2_per_member(dev, k, l, xy_first,
                                                  n_members):
-    """K2b: member b bitwise equal to K2 on table[b]; within
-    1e-5·Σ|w||T| of the plain version."""
+    """K2b (the pack of the tables, then the gather): member b bitwise
+    equal to K2 on table[b]; within 1e-5·Σ|w||T| of the plain version."""
     rng = np.random.default_rng(40)
     n, rows_n, nz = 4000, 300, 20
     t = lambda a: torch.from_numpy(a).to(dev)
@@ -706,6 +706,7 @@ def test_rows_value_fwd_batched_is_k2_per_member(dev, k, l, xy_first,
     got = tricubic.rows_value(table, ri, wxy, zi, wz, xy_first)
     assert kernels.launches["rows_value_fwd_batched"] == \
         before["rows_value_fwd_batched"] + 1
+    assert kernels.launches["pack_members"] == before["pack_members"] + 1
     assert kernels.launches["rows_value_fwd"] == before["rows_value_fwd"]
     assert got.shape == (n_members, n)
     for b in range(n_members):
@@ -720,13 +721,14 @@ def test_rows_value_fwd_batched_is_k2_per_member(dev, k, l, xy_first,
 
 @pytest.mark.parametrize("case", ["one_row", "boundaries", "scattered_z"])
 @pytest.mark.parametrize("k,l", [(8, 3), (16, 4)])
-@pytest.mark.parametrize("n_members", [1, 8, 11])
+@pytest.mark.parametrize("n_members", [1, 3, 8, 11])
 def test_rows_value_bwd_batched_is_k3_per_member(dev, case, k, l, n_members):
     """K3b over one shared plan (a skewed row, segment boundaries, unsorted
-    z; 11 members is two passes of the 8-member tile): member b bitwise
+    z; 11 members is two passes of the 8-member group): member b bitwise
     equal to K3 on ct[b] over the same plan, bitwise equal across two
-    calls, counters back at zero, within 1e-4·max|out| of the plain
-    version (``index_add_`` along the table axis)."""
+    calls, counters at zero, within 1e-4·max|out| of the plain version
+    (``index_add_`` along the table axis); each call one pack, one reduce
+    and one fold."""
     ct1, ri, wxy, zi, wz, shape = (
         torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
         for a in _segment_case(case, k, l))
@@ -739,8 +741,9 @@ def test_rows_value_bwd_batched_is_k3_per_member(dev, case, k, l, n_members):
     assert not plan.counters.any()
     b = tricubic.rows_value_transpose(ct, ri, wxy, zi, wz, shape, plan)
     assert not plan.counters.any()
-    assert kernels.launches["rows_value_bwd_batched"] == \
-        before["rows_value_bwd_batched"] + 2
+    for name in ("rows_value_bwd_batched", "pack_members",
+                 "fold_member_rows"):
+        assert kernels.launches[name] == before[name] + 2, name
     assert kernels.launches["rows_value_bwd"] == before["rows_value_bwd"]
     assert a.shape == (n_members,) + tuple(shape)
     assert torch.equal(a, b)
@@ -749,6 +752,52 @@ def test_rows_value_bwd_batched_is_k3_per_member(dev, case, k, l, n_members):
             ct[m].contiguous(), plan, wxy, zi, wz, shape[1]))
     want = tricubic.rows_value_transpose_ref(ct, ri, wxy, zi, wz, shape)
     assert float((a - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_rows_value_bwd_batched_takes_the_widest_rows(dev):
+    """K3b at nz = MAX_NZ_REDUCE with 11 members: 8 member rows of 4 KB a
+    warp are past the 48 KB a block gets by default, so the reduce opts in
+    to more shared memory with fewer warps a block; member b still bitwise
+    K3 on ct[b]."""
+    nz = kernels.MAX_NZ_REDUCE
+    ct1, ri, wxy, zi, wz, shape = (
+        torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+        for a in _segment_case("boundaries", 8, 3, nz=nz))
+    rng = np.random.default_rng(45)
+    ct = torch.from_numpy(rng.normal(size=(11, ct1.shape[0]))
+                          .astype(np.float32)).to(dev)
+    plan = tricubic.build_row_plan(ri, shape[0], zi[:, 0])
+    got = kernels.rows_value_bwd_batched(ct, plan, wxy, zi, wz, nz)
+    for m in range(11):
+        assert torch.equal(got[m], kernels.rows_value_bwd(
+            ct[m].contiguous(), plan, wxy, zi, wz, nz))
+
+
+@pytest.mark.parametrize("n_members", [1, 3, 8, 11])
+def test_pack_and_fold_are_bitwise_their_plain_versions(dev, n_members):
+    """The member-innermost pack of K2b and K3b, and K3b's fold of rows of
+    several segments (over the skewed row's plan, random partial rows):
+    bitwise their plain versions; the fold leaves rows of one segment as
+    they were."""
+    rng = np.random.default_rng(44)
+    x = torch.from_numpy(rng.normal(size=(n_members, 1000))
+                         .astype(np.float32)).to(dev)
+    packed = kernels.pack_members(x)
+    assert torch.equal(packed, tricubic.pack_members_ref(x))
+    assert torch.equal(tricubic.unpack_members_ref(packed, n_members), x)
+    _, ri, _, zi, _, shape = _segment_case("boundaries", 8, 3)
+    plan = tricubic.build_row_plan(torch.from_numpy(ri).to(dev), shape[0],
+                                   torch.from_numpy(zi[:, 0]).to(dev))
+    parts = torch.from_numpy(rng.normal(size=(n_members, plan.n_seg_max,
+                                              shape[1]))
+                             .astype(np.float32)).to(dev)
+    out = torch.from_numpy(rng.normal(size=(n_members,) + tuple(shape))
+                           .astype(np.float32)).to(dev)
+    got = kernels.fold_member_rows(parts, plan, out.clone())
+    assert torch.equal(got, tricubic.fold_member_rows_ref(parts, plan,
+                                                          out.clone()))
+    single = (plan.row_seg[1:] - plan.row_seg[:-1]) == 1
+    assert torch.equal(got[:, single], out[:, single])
 
 
 def test_rows_value_batched_autograd_and_stream_refusal(dev):
