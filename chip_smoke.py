@@ -12,14 +12,24 @@ GPU.
                                        # step (torch.profiler)
     python3 chip_smoke.py --parent DIR # also: hold the kernels to those of
                                        # the checkout at DIR (the commit
-                                       # before K2b and K3b were
-                                       # redesigned; any other sources are
-                                       # refused): every kernel bitwise at
-                                       # the phases' shapes and timed in
+                                       # before K2 and K1 were redesigned;
+                                       # any other sources are refused):
+                                       # every kernel bitwise at the
+                                       # phases' shapes and timed in
                                        # turns; config 4's solve, config
                                        # 5's first chunk and the ensemble
                                        # filter bitwise on the parent's
                                        # kernels
+    python3 chip_smoke.py --k2-study   # only: what binds K2 at config 4's
+                                       # two bundles and config 3b's zp
+                                       # points (ray or point order,
+                                       # vector or scalar loads of a
+                                       # point's inputs, the one-cell
+                                       # floor, the distinct values)
+    python3 chip_smoke.py --k1-study   # only: what binds K1 at bench.py's
+                                       # 262,144 rays and serving's 620
+                                       # (table layout, ray order, block
+                                       # size)
     python3 chip_smoke.py --k1c-study  # only: what binds K1c at config 2's
                                        # saturated batch (table layout, ray
                                        # order, block size, steps) and its
@@ -58,16 +68,24 @@ Phases (any failed check raises, and the run exits non-zero):
 2. Each kernel against its plain PyTorch version on the card: K1e
    (zp value + gradient) and K2 (row-gather value map) at 2^20 points of
    a random 128³ table, including points outside the grid, on lattice and
-   half-lattice points and on u±v = 0; K1 (the leapfrog zp tracer)
-   against the plain tracer on 8192 rays of the phase-3 world.
+   half-lattice points and on u±v = 0, K2 over the point order bitwise K2
+   in ray order; K1 (the leapfrog zp tracer) against the plain tracer on
+   8192 rays of the phase-3 world, and packed and sorted bitwise the
+   unpacked kernel in ray order, path on and off; K1's pack bitwise its
+   plain version.
 3. Throughput of the tracer in the headline configuration of ``bench.py``:
-   128³ Chapman, 262144 rays, leapfrog@64, 150 MHz, 1000 km, zp, no path.
+   128³ Chapman, 262144 rays, leapfrog@64, 150 MHz, 1000 km, zp, no path;
+   the trace launches K1, its pack and the sort keys once each; K1's call
+   (pack, sort, trace) bitwise the unpacked kernel in ray order and timed
+   by kernel.
 4. The serving slice, as ``predict --bent --interp zp --quadrature
    hermite`` runs it: ``make_ray_batch`` → ``trace_rays(keep_path=True)``
    → ``dtec_paired_q``, 62 antennas × 10 directions, 4 epochs on a 128³
    perturbed Chapman world. The kernel path runs twice and must agree
    bitwise; it must match the plain path (CPU tensors) to 1e-4·max|dTEC|;
-   K1, K1e and K2 must have launched.
+   K1, K1e and K2 must have launched. K1's call at the serving batch
+   (which packs and sorts nothing) bitwise the unpacked kernel, path on
+   and off, and timed.
 5. The adjoint kernels against their plain versions on the card: K3 (the
    transpose of K2) at 2^20 zp points of a random 128³ table, edge cases
    included (917,504 points: a corner row gets 131,640 of the 7 live
@@ -75,21 +93,24 @@ Phases (any failed check raises, and the run exits non-zero):
    the cubic shape (K=16, L=4); K1eᵀ (the transpose of K1e) at the same
    points. Each within 1e-4·max|out| and bitwise equal across two calls;
    the plan's segment count and busiest segment and row; kernel, plain,
-   ``index_add_`` and bound ms.
+   ``index_add_`` and bound ms. K2 over the point order bitwise K2 in
+   ray order at the same points, on zp and cubic.
 6. The config-3b solve (``bench/config3b.py``) at full width: a 128³ grid
    enclosing 100 × 100 rays, truth = Chapman + a von Kármán perturbation
    (σ 0.3, outer scale 120 km), data from K1 at 256 steps and 150 MHz with
    1 % noise, ``map_gauss_newton`` with a von Kármán prior at 80 km over
    65-sample Hermite straight rays on zp, gn=2, cg=20. The linearised
    operator on the kernels against the same operator on the plain
-   versions (1e-4·max|·|, adjoint identity 1e-4); K2, K3 and K1eᵀ alone at
+   versions (1e-4·max|·|, adjoint identity 1e-4); K2 (over the
+   geometry's point order, bitwise K2 in ray order), K3 and K1eᵀ alone at
    the solve's shapes against their plain versions (1e-4·max|out|, bitwise
    equal across two calls, kernel, plain, ``index_add_`` and bound ms, the
    plans' segments); the solve three
    times, bitwise
    equal, and within 1 % of the plain-version solve in final residual and
    held-out dTEC rms (20 × 50 rays, seed 99), beating the prior there; K2,
-   K3, K1e and K1eᵀ must have launched in the solve.
+   K3, K1e, K1eᵀ, the point order's keys and its permute must have
+   launched in the solve.
 7. The gather probe (``ionotomo_tpu_torch.probes.gather``): KG against
    ``torch.gather`` at (16384, 128) and (8, 128), bitwise; KG must have
    launched; its row-gather baseline (chained K5 evaluations) must run.
@@ -121,8 +142,10 @@ Phases (any failed check raises, and the run exits non-zero):
    256 steps + 1 % noise, a von Kármán prior (σ 0.3, 80 km), Hermite@65
    with the @33 bundle, progressive, warm start, cg 20 then 10, cubic. The
    linearised operator on the kernels against the plain-version operator
-   (1e-4·max, adjoint identity 1e-4); K2 and K3 at the solve's two shapes
-   (650,000 and 330,000 points, a (65536, 256) table), K5 and K5ᵀ at its
+   (1e-4·max, adjoint identity 1e-4); K2 (over the geometry's point
+   order, bitwise K2 in ray order, timed in both orders) and K3 at the
+   solve's two shapes (650,000 and 330,000 points, a (65536, 256) table),
+   the point order's keys, sort and permute at 650,000, K5 and K5ᵀ at its
    20,000 endpoints (K5ᵀ adding into a K3 table), the kernels one Jᵀ
    launches, K4 at 650,000 points; the solve twice, bitwise
    equal, the plain-version solve (whose scatters sum in a fixed order)
@@ -131,7 +154,8 @@ Phases (any failed check raises, and the run exits non-zero):
    the prior (the plain solve gathers whole rows, 10.6 GB at 650,000
    points: if the card's free memory does not hold it, it runs one
    Gauss-Newton step on the @33 bundle and the printed line says so); K2,
-   K3, K5 and K5ᵀ must have launched; then the same solve with
+   K3, K5, K5ᵀ, the point order's keys and its permute must have
+   launched; then the same solve with
    ``interp_inner="zp"`` twice: a printed finding (bitwise equal or not,
    held-out rms, seconds), not a check.
 
@@ -304,6 +328,9 @@ F32_FLOPS_PER_S = 67e12
 FLOPS_K1_STEP = 470
 FLOPS_K1E_POINT = 150
 FLOPS_K2_POINT = 50
+# One K2 cubic point: 16 rows x 4 taps, a multiply-add each, and 16
+# pencils' multiply-adds with their set-up (32).
+FLOPS_K2_CUBIC_POINT = 16 * 4 * 2 + 32
 FLOPS_K1ET_POINT = 51
 FLOPS_K1ET_PAIR = 78
 # The tricubic evaluator (cubic_eval.cuh): per axis 44 (index, clamps, four
@@ -321,6 +348,9 @@ FLOPS_K1C_STEP = FLOPS_K1_STEP - FLOPS_K1E_POINT + FLOPS_K5_POINT
 # One ray's sort key (ray_order_keys_kernel): four quantised coordinates
 # (5-6 each), four 8-bit spreads (9 each) and the combination (6).
 OPS_RAY_KEY = 64
+# One point's row-major sort key (point_order_keys_kernel): two clamps and
+# the row * nz + z (6).
+OPS_POINT_KEY = 6
 # What config 2's call of the cubic tracer launches at a batch that fills
 # the card: the sort keys, the pack and the tracer.
 CONFIG2_KERNELS = ("ray_order_keys", "pack_z_taps", "trace_leapfrog_cubic")
@@ -382,6 +412,50 @@ def distinct_taps(tricubic, grid, points) -> int:
         flat, _ = tricubic.interp_weights(grid, chunk)
         touched[flat.reshape(-1).long()] = True
     return int(touched.sum())
+
+
+def touched_values(ri, zi, n_rows, nz) -> int:
+    """How many distinct table values the K x L taps of a row-gather point
+    set touch (host read, outside any timing)."""
+    touched = torch.zeros(n_rows * nz, dtype=torch.bool, device=ri.device)
+    for r, z in zip(ri.split(1 << 18), zi.split(1 << 18)):
+        flat = (r.long().clamp(0, n_rows - 1)[:, :, None] * nz
+                + z.long().clamp(0, nz - 1)[:, None, :])
+        touched[flat.reshape(-1)] = True
+    return int(touched.sum())
+
+
+def k2_bound(ri, wxy, zi, wz, n_rows, nz, live, flops_per_point):
+    """K2 reads each point's inputs once (the live translates' columns of
+    ri and wxy: zp's 8th has weight 0) and each distinct table value the
+    live taps touch once, and writes a value a point."""
+    n = ri.shape[0]
+    return bound(nbytes(zi, wz, ri[:, :live], wxy[:, :live]) + 4 * n
+                 + 4 * touched_values(ri[:, :live], zi, n_rows, nz),
+                 n * flops_per_point)
+
+
+def k1_bound(boxspline, kernels, coef2d, grid, o, d, n_steps, keep_path,
+             consts):
+    """K1 reads its rays once and each distinct table value that its
+    evaluations touch once (the 7 live rows' 3 z taps at each of a ray's
+    n_steps + 1 path points, the path from the kernel itself; host read,
+    outside any timing), writes x_end, tau and the path if kept, and does
+    ``FLOPS_K1_STEP`` a step."""
+    _, nz = coef2d.shape
+    path = kernels.trace_leapfrog_zp(coef2d, grid, o, d, n_steps, True,
+                                     **consts)[2]
+    touched = torch.zeros(coef2d.numel(), dtype=torch.bool, device=o.device)
+    taps = torch.arange(-1, 2, device=o.device)
+    for pts in path.reshape(-1, 3).split(1 << 20):
+        ri, bz, _, _ = boxspline._live_setup(grid, pts)
+        z = (bz.long()[:, None] + taps).clamp(0, nz - 1)
+        touched[(ri.long()[:, :, None] * nz + z[:, None, :]).reshape(-1)] = \
+            True
+    r = o.shape[0]
+    out = 16 * r + (12 * r * (n_steps + 1) if keep_path else 0)
+    return bound(4 * int(touched.sum()) + nbytes(o, d) + out,
+                 r * n_steps * FLOPS_K1_STEP)
 
 
 def k5_bound(tricubic, grid, points):
@@ -456,14 +530,15 @@ def index_add_call(flat, contrib, size):
 
 class Parent:
     """The kernels of the checkout at ``root`` (``--parent DIR``), the
-    commit before K2b and K3b were redesigned, built from its sources with
-    this checkout's nvcc flags. The entries whose C interface this
-    checkout kept (all but K2b and K3b) run through this checkout's
-    wrappers with the parent's library in place of this one (``run``);
-    K2b and K3b run through their former interface (``k2b``: a
-    member-major table; ``k3b``: a (B, N) cotangent, one ticket a row on
-    the plan's counters); ``members`` puts both behind this checkout's
-    wrappers as well, so a whole filter runs on the parent's kernels.
+    commit before K2 and K1 were redesigned, built from its sources with
+    this checkout's nvcc flags. ``run(fn)`` calls fn with every kernel the
+    parent's: the entries whose C interface this checkout kept (all but
+    K2's and K1's) through this checkout's wrappers on the parent's
+    library; K2 (``k2``: no point order, one thread a point) and K1
+    (``k1``: the table unpacked, the rays in their own order, 128 threads
+    a block) through their former interface in place of this checkout's
+    wrappers; ``tricubic.rows_value`` with any point order dropped, and
+    no point order built by a geometry made meanwhile.
 
     ctypes cannot check a C interface, so the parent's sources are
     declared by their SHA-256, and any other checkout is refused rather
@@ -477,11 +552,11 @@ class Parent:
         "rows_value_bwd.cu":
             "8b89433a04e2db28da6ebddbca603d78de2def71956e78422e93094e39d52d85",
         "rows_value_bwd_batched.cu":
-            "5a90dcd8c956f8cbe7aa689a44aef9648275cbdb44f062a410e65767c9131e12",
+            "10788403e8f237c3a501e37d334331abaece27724ff3bcb704ca481eea7126b8",
         "rows_value_fwd.cu":
             "681553531e0e35a92f9284d5870a19e81d65f2173f7870eb319dad9388bd15cd",
         "rows_value_fwd_batched.cu":
-            "b74e4e6bc85b27882b404386833a7f9276b357762811f29a4c93e2ccae582138",
+            "33b0b3474550fda8a1440c6ad76f61290a168eeaf73dfd0074e71c7df6c48c3b",
         "trace_leapfrog_cubic.cu":
             "8b2253a0dbd13030464fac466cbeba30c8954f061a6ec84282891ddc089c45c3",
         "trace_leapfrog_zp.cu":
@@ -493,12 +568,13 @@ class Parent:
         "zp_value_grad_bwd.cu":
             "eb6fb1308c6193f1a528bdeb52ae7c21be3c7e667df9382c1eb590bc5e878d90",
     }
-    KEPT = ("ionotomo_zp_value_grad", "ionotomo_rows_value_fwd",
-            "ionotomo_trace_leapfrog_zp", "ionotomo_rows_value_bwd",
+    KEPT = ("ionotomo_zp_value_grad", "ionotomo_rows_value_bwd",
             "ionotomo_zp_value_grad_bwd", "ionotomo_vector_gather",
             "ionotomo_cubic_value_grad", "ionotomo_cubic_value_grad_bwd",
             "ionotomo_trace_leapfrog_cubic", "ionotomo_pack_z_taps",
-            "ionotomo_ray_order_keys", "ionotomo_cuda_error_string")
+            "ionotomo_ray_order_keys", "ionotomo_rows_value_fwd_batched",
+            "ionotomo_rows_value_bwd_batched", "ionotomo_pack_members",
+            "ionotomo_fold_member_rows", "ionotomo_cuda_error_string")
 
     def __init__(self, root):
         from ionotomo_tpu_torch.kernels import build
@@ -514,25 +590,39 @@ class Parent:
         info = build.build(csrc, build.BUILD_DIR / "parent")
         self.build = build
         self.lib = build.open_library(info["path"], self.KEPT)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fwd, bwd = (self.lib.ionotomo_rows_value_fwd_batched,
-                    self.lib.ionotomo_rows_value_bwd_batched)
-        fwd.argtypes = [p, i, i, i, p, p, i, p, p, i, i, i, p, p]
-        bwd.argtypes = ([p, i, i, p, i, p, p, i, i] + [p] * 5
-                        + [i, i, i, p, p, p])
-        fwd.restype = bwd.restype = i
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        k2, k1 = (self.lib.ionotomo_rows_value_fwd,
+                  self.lib.ionotomo_trace_leapfrog_zp)
+        k2.argtypes = [p, i, i, p, p, i, p, p, i, i, i, p, p]
+        k1.argtypes = [p, p, p, i, i, i, p, p, i, i] + [f] * 6 + [p] * 4
+        k2.restype = k1.restype = i
         print(f"  parent kernels from {csrc} (built={info['built']} in "
               f"{info['seconds']:.2f} s)")
 
     def run(self, fn):
-        """fn() with the parent's library behind this checkout's
+        """fn() with the parent's kernels behind this checkout's
         wrappers."""
+        from ionotomo_tpu_torch import kernels
+        from ionotomo_tpu_torch.core import boxspline, tricubic
+
         saved = self.build.load()
+        rows_value = tricubic.rows_value
+        swaps = [(kernels, "rows_value_fwd", self.k2),
+                 (kernels, "trace_leapfrog_zp", self.k1),
+                 (tricubic, "rows_value",
+                  lambda *a, order=None, **k: rows_value(*a, **k)),
+                 (tricubic, "point_order", lambda *a, **k: None),
+                 (boxspline, "point_order", lambda *a, **k: None)]
+        wrappers = [(mod, n, getattr(mod, n)) for mod, n, _ in swaps]
         self.build._loaded["lib"] = self.lib
+        for mod, n, f in swaps:
+            setattr(mod, n, f)
         try:
             return fn()
         finally:
             self.build._loaded["lib"] = saved
+            for mod, n, f in wrappers:
+                setattr(mod, n, f)
 
     @staticmethod
     def _p(t):
@@ -541,52 +631,45 @@ class Parent:
     def _stream(self):
         return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
-    def k2b(self, table, ri, wxy, zi, wz, xy_first):
-        """The parent's K2b: (B, N) from a member-major (B, R, nz)
-        table."""
-        b, rows, nz = table.shape
+    def k2(self, table, ri, wxy, zi, wz, xy_first, order=None):
+        """The parent's K2 over the points in their own order (a point
+        order is not its argument; ``run`` gives ``rows_value`` none and
+        lets no geometry build one)."""
+        if order is not None:
+            raise ValueError("the parent's K2 reads the points in ray order")
         n, k = ri.shape
-        out = torch.empty((b, n), dtype=torch.float32, device=table.device)
-        rc = self.lib.ionotomo_rows_value_fwd_batched(
-            self._p(table), b, rows, nz, self._p(ri), self._p(wxy), k,
-            self._p(zi), self._p(wz), zi.shape[1], n, int(bool(xy_first)),
-            self._p(out), self._stream())
+        out = torch.empty((n,), dtype=torch.float32, device=table.device)
+        if n == 0:
+            return out
+        rc = self.lib.ionotomo_rows_value_fwd(
+            self._p(table), table.shape[0], table.shape[1], self._p(ri),
+            self._p(wxy), k, self._p(zi), self._p(wz), zi.shape[1], n,
+            int(bool(xy_first)), self._p(out), self._stream())
         if rc:
-            raise RuntimeError(f"parent K2b launch failed ({rc})")
+            raise RuntimeError(f"parent K2 launch failed ({rc})")
         return out
 
-    def k3b(self, ct, plan, wxy, zi, wz, nz):
-        """The parent's K3b: (B, n_rows, nz) from a (B, N) cotangent."""
-        b, n = ct.shape
-        out = torch.empty((b, plan.n_rows, nz), dtype=torch.float32,
-                          device=ct.device)
-        partials = torch.empty((b * plan.n_seg_max, nz), dtype=torch.float32,
-                               device=ct.device)
-        rc = self.lib.ionotomo_rows_value_bwd_batched(
-            self._p(ct), b, n, self._p(wxy), wxy.shape[1], self._p(zi),
-            self._p(wz), zi.shape[1], nz, self._p(plan.order),
-            self._p(plan.offsets), self._p(plan.seg_row),
-            self._p(plan.row_seg), self._p(plan.counters), plan.n_rows,
-            plan.n_seg_max, plan.chunk, self._p(partials), self._p(out),
-            self._stream())
-        if rc:
-            raise RuntimeError(f"parent K3b launch failed ({rc})")
-        return out
-
-    def members(self, fn):
-        """fn() with every kernel the parent's: the kept entries through
-        ``run``, K2b and K3b through ``k2b`` and ``k3b`` in place of this
-        checkout's wrappers."""
+    def k1(self, coef2d, grid, origins, directions, n_steps, keep_path,
+           **consts):
+        """The parent's K1: the unpacked table, the rays in their own
+        order, 128 threads a block."""
         from ionotomo_tpu_torch import kernels
 
-        saved = kernels.rows_value_fwd_batched, kernels.rows_value_bwd_batched
-        kernels.rows_value_fwd_batched = self.k2b
-        kernels.rows_value_bwd_batched = self.k3b
-        try:
-            return self.run(fn)
-        finally:
-            kernels.rows_value_fwd_batched, \
-                kernels.rows_value_bwd_batched = saved
+        _, x_end, tau, path = kernels._trace_outputs(
+            "parent K1", 3, coef2d, grid, origins, directions, n_steps,
+            keep_path)
+        r = origins.shape[0]
+        if r == 0:
+            return x_end, tau, path
+        nx, ny, nz = grid.shape
+        rc = self.lib.ionotomo_trace_leapfrog_zp(
+            self._p(coef2d), self._p(grid.origin), self._p(grid.spacing), nx,
+            ny, nz, self._p(origins), self._p(directions), r, int(n_steps),
+            *kernels._consts(**consts), self._p(x_end), self._p(tau),
+            self._p(path), self._stream())
+        if rc:
+            raise RuntimeError(f"parent K1 launch failed ({rc})")
+        return x_end, tau, path
 
 
 def _outputs(x):
@@ -619,6 +702,17 @@ def compare_parent(name, parent_fn, new_fn, reps, pairs=2, new_timed=None,
     return t["parent"], t["new"]
 
 
+def parent_bitwise(parent, name, fn):
+    """With a parent: fn() on the parent's kernels (``Parent.run``) and on
+    this checkout's, bitwise equal outputs; untimed."""
+    if parent is None:
+        return
+    a, b = _outputs(parent.run(fn)), _outputs(fn())
+    torch.cuda.synchronize()
+    check(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
+          f"{name}: bitwise the parent's output")
+
+
 def parent_same(parent, name, fn, reps, pairs=2):
     """A kernel whose C interface this checkout kept, through this
     checkout's wrapper on the parent's library and on its own
@@ -639,8 +733,119 @@ def bench_rays(n, seed=0):
     return o, d
 
 
+def check_k1_bitwise(label, kernels, coef2d, grid, o, d, kw, n_steps,
+                     parent=None, paths=(False, True)):
+    """K1 as the tracer calls it, and packed and sorted whatever the
+    batch, each bitwise the unpacked kernel in ray order (one thread a
+    ray, 128 a block: the parent's arithmetic and order); with a parent,
+    the call bitwise the parent's K1 too."""
+    packed = kernels.pack_zp_taps(coef2d, grid)
+    order = kernels.ray_order(o, d, grid)
+    for keep_path in paths:
+        parent_bitwise(parent, f"{label}, keep_path={keep_path}: K1",
+                       lambda: kernels.trace_leapfrog_zp(
+                           coef2d, grid, o, d, n_steps, keep_path, **kw))
+        want = kernels.trace_leapfrog_zp_with(
+            coef2d, grid, o, d, n_steps, keep_path, packed=None, order=None,
+            threads=128, **kw)
+        for what, out in (
+                ("the call", kernels.trace_leapfrog_zp(
+                    coef2d, grid, o, d, n_steps, keep_path, **kw)),
+                ("packed and sorted", kernels.trace_leapfrog_zp_with(
+                    coef2d, grid, o, d, n_steps, keep_path, packed=packed,
+                    order=order, threads=256, **kw))):
+            check(all(torch.equal(a, b) for a, b in zip(out, want)
+                      if b is not None),
+                  f"{label}, keep_path={keep_path}: K1, {what}, bitwise the "
+                  f"unpacked kernel in ray order")
+        del want
+
+
+def generic_k2(kernels, table, ri, wxy, zi, wz, xy_first):
+    """K2's generic kernel (the parent's arithmetic: one scalar load a
+    value, one thread a point, in ray order), reached through inputs off
+    a 16-byte boundary (``testing.off_boundary``)."""
+    from ionotomo_tpu_torch.testing import off_boundary
+
+    return kernels.rows_value_fwd(table, *map(off_boundary, (ri, wxy, zi,
+                                                             wz)), xy_first)
+
+
+def k2_order_check(label, kernels, tricubic, model, table, grid_shape,
+                   setup, xy_first, parent=None):
+    """K2 over the model's point order (its inputs permuted into it), and
+    in ray order, each bitwise K2's generic kernel in ray order
+    (``generic_k2``); returns the order (a ``tricubic.PointOrder``). With
+    a parent, K2 over the order bitwise the parent's K2."""
+    ri, wxy, zi, wz = setup
+    order = model.point_order(ri, wxy, zi, wz, grid_shape)
+    want = generic_k2(kernels, table, ri, wxy, zi, wz, xy_first)
+    got = tricubic.rows_value(table, ri, wxy, zi, wz, xy_first, order=order)
+    in_ray_order = tricubic.rows_value(table, ri, wxy, zi, wz, xy_first)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(got, want) and torch.equal(in_ray_order, want)),
+          f"{label}: K2 over the point order and in ray order bitwise K2's "
+          f"generic kernel in ray order ({ri.shape[0]} points)")
+    parent_bitwise(parent, f"{label}: K2 over the point order",
+                   lambda: tricubic.rows_value(table, ri, wxy, zi, wz,
+                                               xy_first, order=order))
+    return order
+
+
+def point_order_line(label, kernels, model, setup, grid_shape):
+    """K2's point order at one point set: the key kernel bitwise its plain
+    version and timed beside its bound (each point's base row and z read,
+    its key written), the order (keys and ``torch.sort``), the whole
+    ``PointOrder`` (and the inputs permuted), and the permute kernel alone
+    beside its plain version, ``index_select`` and its bound (the inputs
+    read and written once, the order read). Returns the keys' and the
+    permute's lines."""
+    ri, _, zi, _ = setup
+    base = model.BASE_TRANSLATE
+    keys = kernels.point_order_keys(ri, zi, base, grid_shape)
+    check(bool(torch.equal(keys, kernels.point_order_keys_ref(
+        ri, zi, base, grid_shape))), f"{label}: the point order's keys "
+                                     f"bitwise their plain version")
+    n = ri.shape[0]
+    ms = device_ms(lambda: kernels.point_order_keys(ri, zi, base,
+                                                    grid_shape), 20)
+    plain = device_ms(lambda: kernels.point_order_keys_ref(ri, zi, base,
+                                                           grid_shape), 5)
+    sort_ms = device_ms(lambda: kernels.point_order(ri, zi, base,
+                                                   grid_shape), 20)
+    build_ms = device_ms(lambda: model.point_order(*setup, grid_shape), 20)
+    b_ms, b_by = bound(12 * n, n * OPS_POINT_KEY)
+    print(f"  point order at {label}: the keys {ms:.4f} ms (plain "
+          f"{plain:.4f} ms, bound {b_ms:.4f} ms, {b_by}); keys and sort "
+          f"{sort_ms:.4f} ms; with K2's inputs permuted into it "
+          f"{build_ms:.4f} ms, by kernel: " + "; ".join(
+              f"{v:.4f} ms {key[:40]}" for key, v in sorted(
+                  kernel_ms_by_name(lambda: model.point_order(
+                      *setup, grid_shape), 5).items(),
+                  key=lambda kv: -kv[1])))
+    # the permute kernel alone
+    order = kernels.point_order(ri, zi, base, grid_shape)
+    perm = order.long()
+    got = kernels.permute_points(order, *setup)
+    check(all(torch.equal(a, t[perm]) for a, t in zip(got, setup)),
+          f"{label}: the permuted inputs bitwise their plain version")
+    p_ms = device_ms(lambda: kernels.permute_points(order, *setup), 20)
+    p_plain = device_ms(lambda: [t[perm] for t in setup], 5)
+    p_lib = device_ms(lambda: [torch.index_select(t, 0, order)
+                               for t in setup], 5)
+    pb_ms, pb_by = bound(2 * nbytes(*setup) + nbytes(order), 0)
+    print(f"  the permute at {label}: kernel {p_ms:.4f} ms, plain "
+          f"{p_plain:.4f} ms, index_select {p_lib:.4f} ms, bound "
+          f"{pb_ms:.4f} ms ({pb_by})")
+    return (dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=None, order_ms=sort_ms,
+                 build_ms=build_ms),
+            dict(max_abs_err=0.0, ms=p_ms, plain_ms=p_plain, bound_ms=pb_ms,
+                 bound_by=pb_by, library_ms=p_lib))
+
+
 def phase2_kernels_vs_plain(dev, boxspline, tricubic, fermat, kernels,
-                            Grid3D, chapman, results):
+                            Grid3D, chapman, results, parent=None):
     from ionotomo_tpu_torch.testing import edge_case_points
 
     print("phase 2: kernels against their plain versions on the card")
@@ -715,13 +920,22 @@ def phase2_kernels_vs_plain(dev, boxspline, tricubic, fermat, kernels,
                                              False)).abs().max())
     check(err_c <= 1e-5 * tmax * 16,
           f"K2 cubic-shape max|err| {err_c:.3e} <= 1e-5*max|table|*K")
-    ms_big = cuda_ms(
+    # the point order at 2^20 edge-case points, and on the random rows
+    order = k2_order_check("phase 2, zp", kernels, tricubic, boxspline,
+                           table, shape, (ri, wxy, zi, wz), True, parent)
+    k2_order_check("phase 2, cubic shape on random rows", kernels, tricubic,
+                   tricubic, table, shape, (ri_c, wxy_c, zi_c, wz_c), False,
+                   parent)
+    ms_big = device_ms(
         lambda: kernels.rows_value_fwd(table, ri, wxy, zi, wz, True), 20)
+    ms_ord = device_ms(lambda: tricubic.rows_value(
+        table, ri, wxy, zi, wz, True, order=order), 20)
     plain_big = cuda_ms(
         lambda: tricubic.rows_value_ref(table, ri, wxy, zi, wz, True), 3)
-    b_ms, b_by = bound(nbytes(table, ri, wxy, zi, wz, o_k),
-                       ri.shape[0] * FLOPS_K2_POINT)
-    print(f"  K2 zp at {ri.shape[0]} points: kernel {ms_big:.4f} ms, plain "
+    b_ms, b_by = k2_bound(ri, wxy, zi, wz, *table.shape,
+                          boxspline.ZP_LIVE_TRANSLATES, FLOPS_K2_POINT)
+    print(f"  K2 zp at {ri.shape[0]} edge-case points: kernel {ms_big:.4f} "
+          f"ms in ray order, {ms_ord:.4f} ms over the point order; plain "
           f"{plain_big:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
     # K1: the leapfrog zp tracer on 8192 rays of the phase-3 world
@@ -748,6 +962,23 @@ def phase2_kernels_vs_plain(dev, boxspline, tricubic, fermat, kernels,
         check(bool(torch.equal(b_k.ds, b_p.ds)), "K1 ds equal")
     results["trace_leapfrog_zp"] = {"tau_rel": err_t,
                                     "line": dict(max_abs_err=err_x)}
+    coef3 = boxspline.prefilter(m).reshape(N_GRID * N_GRID, N_GRID)
+    kw = fermat._step_constants(FREQ_HZ, LENGTH_KM, N_STEPS)
+    check_k1_bitwise(f"phase 2, {o.shape[0]} rays", kernels, coef3, grid3, o,
+                     d, kw, N_STEPS, parent)
+    # K1's pack alone, bitwise its plain version
+    packed = kernels.pack_zp_taps(coef3, grid3)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(packed, boxspline.pack_z_taps_ref(coef3))),
+          "K1's pack bitwise its plain version")
+    p_ms = device_ms(lambda: kernels.pack_zp_taps(coef3, grid3), 20)
+    p_plain = device_ms(lambda: boxspline.pack_z_taps_ref(coef3), 5)
+    b_ms, b_by = bound(nbytes(coef3, packed), 0)
+    print(f"  K1's pack of the 128^3 table: kernel {p_ms:.4f} ms, plain "
+          f"{p_plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    results["pack_zp_taps"] = {"line": dict(
+        max_abs_err=0.0, ms=p_ms, plain_ms=p_plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)}
 
 
 def phase3_throughput(dev, boxspline, fermat, kernels, Grid3D, chapman,
@@ -763,8 +994,15 @@ def phase3_throughput(dev, boxspline, fermat, kernels, Grid3D, chapman,
         def run():
             return fn(m, grid, o, d, FREQ_HZ, LENGTH_KM, n_steps=N_STEPS,
                       keep_path=False, method="leapfrog", interp="zp")
+        kernels.reset_launches()
         out = run()
         torch.cuda.synchronize()
+        if name == "kernel":
+            launches = dict(kernels.launches)
+            for k in ("trace_leapfrog_zp", "pack_zp_taps", "ray_order_keys"):
+                check(launches[k] == 1, f"the bench's trace launched {k} "
+                                        f"once")
+            results["bench_launches"] = launches
         check(bool(torch.isfinite(out[1]).all()
                    and torch.isfinite(out[0].points).all()),
               f"{name} path: finite endpoints and TEC")
@@ -777,23 +1015,34 @@ def phase3_throughput(dev, boxspline, fermat, kernels, Grid3D, chapman,
         rates[name] = n_rays / dt
         print(f"  {name} path: {rates[name]:.1f} rays/s ({dt * 1e3:.3f} ms "
               f"per call, prefilter included) on {card}")
-    # the kernel alone against the plain integrator on the same table
+    # the kernel's call (the pack, the sort, the tracer) against the plain
+    # integrator on the same table
     coef2d = boxspline.prefilter(m).reshape(N_GRID * N_GRID, N_GRID)
     kw = fermat._step_constants(FREQ_HZ, LENGTH_KM, N_STEPS)
-    ms = device_ms(lambda: kernels.trace_leapfrog_zp(
-        coef2d, grid, o, d, N_STEPS, False, **kw), 3)
+    check_k1_bitwise(f"phase 3, {n_rays} rays", kernels, coef2d, grid, o, d,
+                     kw, N_STEPS, parent)
+
+    def k1():
+        return kernels.trace_leapfrog_zp(coef2d, grid, o, d, N_STEPS, False,
+                                         **kw)
+
+    ms = device_ms(k1, 3)
     ne_vg = fermat.log_field_ne_vg(
         lambda x: boxspline.interp_rows_with_grad_ref(coef2d, grid, x))
     plain_ms = cuda_ms(lambda: fermat._trace_impl(
         ne_vg, o, d, FREQ_HZ, LENGTH_KM, N_STEPS, False, "leapfrog"), 1)
-    n_bytes = nbytes(coef2d, o, d) + 16 * n_rays      # x_end and tau out
-    b_ms, b_by = bound(n_bytes, n_rays * N_STEPS * FLOPS_K1_STEP)
-    print(f"  K1 alone at {n_rays} rays: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    # six pairs in turns: the spread of readings of one source, beside
-    # phase 9's comparison of K1c's ordered launch with this one
-    parent_same(parent, f"K1 at {n_rays} rays", lambda: kernels.trace_leapfrog_zp(
-        coef2d, grid, o, d, N_STEPS, False, **kw), 3, pairs=6)
+    b_ms, b_by = k1_bound(boxspline, kernels, coef2d, grid, o, d, N_STEPS,
+                          False, kw)
+    print(f"  K1's call at {n_rays} rays (pack, sort and trace): "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}); by kernel: " + "; ".join(
+              f"{v:.4f} ms {key[:40]}" for key, v in sorted(
+                  kernel_ms_by_name(k1, 3).items(), key=lambda kv: -kv[1])))
+    if parent is not None:
+        p_ms, n_ms = compare_parent(f"K1 at {n_rays} rays",
+                                    lambda: parent.run(k1), k1, 3, pairs=3)
+        results["trace_leapfrog_zp"]["line"].update(parent_ms=p_ms,
+                                                    new_ms_in_turns=n_ms)
     results["trace_leapfrog_zp"]["line"].update(
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None)
@@ -897,7 +1146,7 @@ def profile_epoch(m, grid, ants, dirs, boxspline, fermat, rays, tec,
 
 
 def phase4_serving(dev, boxspline, fermat, rays, tec, kernels, Grid3D,
-                   chapman, results, profile=False):
+                   chapman, results, profile=False, parent=None):
     from ionotomo_tpu_torch.testing import SERVING_KERNELS
 
     print("phase 4: serving slice (predict --bent, zp, hermite)")
@@ -941,6 +1190,38 @@ def phase4_serving(dev, boxspline, fermat, rays, tec, kernels, Grid3D,
               f"1e-4*max|dTEC| {1e-4 * scale:.3e}")
     print(f"  kernel path: {runs[1][1] * 1e3:.3f} ms per epoch "
           f"(62x10 rays, 128^3, prefilter included)")
+    if parent is not None:
+        check(all(torch.equal(parent.run(lambda: predict_bent(
+            m, grid, a, dd, fermat, rays, tec)), k1)
+            for (m, a, dd), k1 in zip(on_dev, runs[0][0])),
+            "the serving epochs bitwise on the parent's kernels")
+    # K1 at the serving batch: bitwise the unpacked kernel, timed, and in
+    # turns with the parent's
+    m, a, dd = on_dev[0]
+    o, dv = rays.make_ray_batch(a, dd)
+    coef2d = boxspline.prefilter(m).reshape(N_GRID * N_GRID, N_GRID)
+    kw = fermat._step_constants(FREQ_HZ, LENGTH_KM, N_STEPS)
+    check_k1_bitwise(f"phase 4, {o.shape[0]} rays", kernels, coef2d, grid, o,
+                     dv, kw, N_STEPS, parent)
+
+    def k1():
+        return kernels.trace_leapfrog_zp(coef2d, grid, o, dv, N_STEPS, True,
+                                         **kw)
+
+    ms = device_ms(k1, 20)
+    b_ms, b_by = k1_bound(boxspline, kernels, coef2d, grid, o, dv, N_STEPS,
+                          True, kw)
+    print(f"  K1's call at the serving batch ({o.shape[0]} rays, {N_STEPS} "
+          f"steps, path): {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); by "
+          f"kernel: " + "; ".join(
+              f"{v:.4f} ms {key[:40]}" for key, v in sorted(
+                  kernel_ms_by_name(k1, 20).items(), key=lambda kv: -kv[1])))
+    results["k1_serving"] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+    if parent is not None:
+        results["k1_serving"]["parent_ms"], \
+            results["k1_serving"]["new_ms_in_turns"] = compare_parent(
+                f"K1 at the serving batch ({o.shape[0]} rays)",
+                lambda: parent.run(k1), k1, 20, pairs=3)
     if profile:
         profile_epoch(*on_dev[0][:1], grid, *on_dev[0][1:], boxspline,
                       fermat, rays, tec, kernels)
@@ -1040,6 +1321,15 @@ def phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
           [None, :]).contiguous()
     wz = boxspline._qb_weights(w).contiguous()
     wxy = wxy.contiguous()
+    # K2 over the point order at the same points, on zp and cubic
+    table = t(np.random.default_rng(55).normal(size=(n_rows, n_grid))
+              .astype(np.float32))
+    k2_order_check(f"phase 5, zp, {n} edge-case points", kernels, tricubic,
+                   boxspline, table, shape, (ri, wxy, zi, wz), True, parent)
+    k2_order_check(f"phase 5, cubic, {n} edge-case points", kernels,
+                   tricubic, tricubic, table, shape,
+                   tricubic.row_setup(grid, pts), False, parent)
+    del table
     ct = t(rng.normal(size=(n,)).astype(np.float32))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1266,16 +1556,20 @@ def phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
     plan, eplan = op.row_plan, op.end_plan
     print_plan("K3 at the solve", plan)
     print_plan("K1eT at the solve", eplan)
-    fwd_out = tricubic.rows_value(table, op.ri, op.wxy, op.zi, op.wz, True)
+    order = k2_order_check("phase 6, the solve's points", kernels,
+                           tricubic, boxspline, table, grid.shape,
+                           (op.ri, op.wxy, op.zi, op.wz), True, parent)
+    check(bool(torch.equal(order.order, op.point_order().order)),
+          "the geometry keeps the point order K2's wrapper makes")
     at_solve_shape = {
         "rows_value_fwd": (
             lambda: tricubic.rows_value(table, op.ri, op.wxy, op.zi, op.wz,
-                                        True),
+                                        True, order=order),
             lambda: tricubic.rows_value_ref(table, op.ri, op.wxy, op.zi,
                                             op.wz, True),
             None,
-            bound(nbytes(table, op.ri, op.wxy, op.zi, op.wz, fwd_out),
-                  n_pts * FLOPS_K2_POINT)),
+            k2_bound(op.ri, op.wxy, op.zi, op.wz, n_rows, nz,
+                     boxspline.ZP_LIVE_TRANSLATES, FLOPS_K2_POINT)),
         "rows_value_bwd": (
             lambda: tricubic.rows_value_transpose(ct, op.ri, op.wxy, op.zi,
                                                   op.wz, op.table_shape,
@@ -1338,7 +1632,7 @@ def phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
     res1, secs1 = solve()
     launches = dict(kernels.launches)
     print(f"  launches in the solve: {launches}")
-    for name in SOLVE_KERNELS:
+    for name in SOLVE_KERNELS + ("point_order_keys", "permute_points"):
         check(launches[name] > 0,
               f"{name} launched in the solve ({launches[name]} times)")
     res2, secs2 = solve()
@@ -1347,6 +1641,15 @@ def phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
     check(bool(torch.isfinite(res1.m).all()), "solved field finite")
     check(bool(torch.equal(res1.m, res2.m) and torch.equal(res1.m, res3.m)),
           "the solve is bitwise equal across three runs")
+    if parent is not None:
+        res_p, secs_pp = parent.run(solve)
+        check(bool(torch.equal(res_p.m, res1.m)
+                   and float(res_p.residual_norm)
+                   == float(res1.residual_norm)),
+              f"the config-3b solve: field and final residual "
+              f"{float(res_p.residual_norm)!r} bitwise the solve on the "
+              f"parent's kernels ({secs_pp:.4f} s)")
+        del res_p
     r_k, r_p = float(res1.residual_norm), float(resp.residual_norm)
     h_k, h_p, h_0 = heldout(res1.m), heldout(resp.m), heldout(m_prior)
     check(abs(r_k - r_p) <= 1e-2 * r_p,
@@ -1845,19 +2148,35 @@ def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
         ct = torch.from_numpy(rng.normal(size=(n_pts,)).astype(np.float32)
                               ).to(dev)
         print_plan(f"K3 at {n_pts} points", o_.row_plan)
-        fwd_out = tricubic.rows_value(table, o_.ri, o_.wxy, o_.zi, o_.wz,
-                                      False)
-        at_config4[f"rows_value_fwd@{n_pts}"] = check_and_time(
-            f"K2 at {n_pts} points (K=16, L=4)",
-            lambda: tricubic.rows_value(table, o_.ri, o_.wxy, o_.zi, o_.wz,
-                                        False),
-            lambda: tricubic.rows_value_ref(table, o_.ri, o_.wxy, o_.zi,
-                                            o_.wz, False),
-            None, bound(nbytes(table, o_.ri, o_.wxy, o_.zi, o_.wz, fwd_out),
-                        n_pts * 16 * 4 * 2 + n_pts * 32),
+        setup = (o_.ri, o_.wxy, o_.zi, o_.wz)
+        order = k2_order_check(f"phase 10, {n_pts} points", kernels,
+                               tricubic, tricubic, table, grid.shape, setup,
+                               False, parent)
+        check(bool(torch.equal(order.order, o_.point_order().order)),
+              "the geometry keeps the point order K2's wrapper makes")
+
+        def k2():
+            return tricubic.rows_value(table, *setup, False, order=order)
+
+        at_config4[f"rows_value_fwd@{n_pts}"] = line = check_and_time(
+            f"K2 at {n_pts} points (K=16, L=4)", k2,
+            lambda: tricubic.rows_value_ref(table, *setup, False),
+            None, k2_bound(*setup, n_rows, nz, 16, FLOPS_K2_CUBIC_POINT),
             scatter=False, plain_reps=2)
-        parent_same(parent, f"K2 at {n_pts} points", lambda: tricubic.rows_value(
-            table, o_.ri, o_.wxy, o_.zi, o_.wz, False), 20)
+        line["ray_order_ms"] = device_ms(
+            lambda: tricubic.rows_value(table, *setup, False), 20)
+        print(f"  K2 at {n_pts} points in ray order: "
+              f"{line['ray_order_ms']:.4f} ms")
+        if n_pts == w.rays.num_rays * w.rays.num_samples:
+            keys_line, perm_line = point_order_line(
+                f"config 4's {n_pts} points", kernels, tricubic, setup,
+                grid.shape)
+            results["point_order_keys"] = {"line": keys_line}
+            results["permute_points"] = {"line": perm_line}
+        if parent is not None:
+            line["parent_ms"], line["new_ms_in_turns"] = compare_parent(
+                f"K2 at {n_pts} points", lambda: parent.run(k2), k2, 20,
+                pairs=3)
         parent_same(parent, f"K3 at {n_pts} points", lambda:
                     tricubic.rows_value_transpose(
                         ct, o_.ri, o_.wxy, o_.zi, o_.wz, o_.table_shape,
@@ -1873,7 +2192,7 @@ def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
                 n_rows * nz),
             k3_bound(ct, o_.ri, o_.wxy, o_.zi, o_.wz, o_.row_plan, nz),
             scatter=True, plain_reps=2)
-        del ct, fwd_out
+        del ct
     ends, eplan = op.ends, op.end_plan
     n_ends = ends.shape[0]
     cv = torch.from_numpy(rng.normal(size=(n_ends,)).astype(np.float32)
@@ -1927,7 +2246,7 @@ def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
     launches = dict(kernels.launches)
     print(f"  config4: {json.dumps(rec)}")
     print(f"  launches in config 4 (two solves and the metrics): {launches}")
-    for name in CUBIC_SOLVE_KERNELS:
+    for name in CUBIC_SOLVE_KERNELS + ("point_order_keys", "permute_points"):
         check(launches[name] > 0,
               f"{name} launched in config 4 ({launches[name]} times)")
     check(launches["zp_value_grad"] == 0 and launches["zp_value_grad_bwd"]
@@ -2007,6 +2326,9 @@ def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
         del za, zb
     if profile:
         profile_solve(solve)
+        if parent is not None:
+            profile_solve(lambda: parent.run(solve),
+                          "config-4 solve on the parent's kernels")
     results["config4"] = {**rec, "seconds": [secs1, secs2],
                           "plain_seconds": secs_p, "residual": r_k,
                           "plain_residual": r_p, "heldout": h_k,
@@ -2017,17 +2339,6 @@ def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
 
 
 B_MEMBERS = 8
-
-
-def touched_values(ri, zi, n_rows, nz) -> int:
-    """How many distinct table values the K x L taps of a row-gather point
-    set touch (host read, outside any timing)."""
-    touched = torch.zeros(n_rows * nz, dtype=torch.bool, device=ri.device)
-    for r, z in zip(ri.split(1 << 18), zi.split(1 << 18)):
-        flat = (r.long().clamp(0, n_rows - 1)[:, :, None] * nz
-                + z.long().clamp(0, nz - 1)[:, None, :])
-        touched[flat.reshape(-1)] = True
-    return int(touched.sum())
 
 
 def member_kernels_at(label, dev, tricubic, kernels, setup, plan, n_rows, nz,
@@ -2098,12 +2409,10 @@ def member_kernels_at(label, dev, tricubic, kernels, setup, plan, n_rows, nz,
             f"{v:.4f} ms {key[:48]}" for key, v in sorted(
                 kernel_ms_by_name(fn, 10).items(), key=lambda kv: -kv[1])))
     if parent is not None:
-        for name, pfn, fn in (
-                ("rows_value_fwd_batched", lambda: parent.k2b(
-                    tables, ri, wxy, zi, wz, xy_first), k2b),
-                ("rows_value_bwd_batched", lambda: parent.k3b(
-                    ct, plan, wxy, zi, wz, nz), k3b)):
-            p_ms, n_ms = compare_parent(f"{name} at {label}", pfn, fn, 20,
+        for name, fn in (("rows_value_fwd_batched", k2b),
+                         ("rows_value_bwd_batched", k3b)):
+            p_ms, n_ms = compare_parent(f"{name} at {label}",
+                                        lambda: parent.run(fn), fn, 20,
                                         pairs=3)
             out[name]["parent_ms"], out[name]["new_ms_in_turns"] = p_ms, n_ms
     k2_ms, k3_ms = device_ms(k2, 20), device_ms(k3, 20)
@@ -2415,10 +2724,9 @@ def phase13_enkf(dev, world, cache, boxspline, tricubic, tec, kernels,
     print(f"  sha256 of the final ensemble, mean_seq and std_seq after "
           f"{n_steps} steps: {sha}")
     if parent is not None:
-        (rp,), _ = parent.members(lambda: run(n_steps=n_steps))
+        (rp,), _ = parent.run(lambda: run(n_steps=n_steps))
         p_sha = digest(rp.ensemble, rp.mean_seq, rp.std_seq)
-        check(p_sha == sha, f"the ensemble filter on the parent's kernels "
-                            f"(K2b and K3b through their former interface): "
+        check(p_sha == sha, f"the ensemble filter on the parent's kernels: "
                             f"sha256 {p_sha}, the same")
         del rp
     res_c, _ = run(n_steps=n_steps, chunk=n_steps // 2)
@@ -2465,7 +2773,7 @@ def phase13_enkf(dev, world, cache, boxspline, tricubic, tec, kernels,
     if profile:
         profile_solve(lambda: run(n_steps=1), "ensemble filter step")
         if parent is not None:
-            profile_solve(lambda: parent.members(lambda: run(n_steps=1)),
+            profile_solve(lambda: parent.run(lambda: run(n_steps=1)),
                           "ensemble filter step on the parent's kernels")
     results["config5_enkf"] = {**rec, "seconds": [secs_a, secs_b],
                                "seconds_per_step": step,
@@ -2610,6 +2918,212 @@ def k1c_study(reps=3) -> int:
     print(f"  ray_order alone {sort_ms:.4f} ms; the wrapper (sort, pack, "
           f"trace) {wrapper_ms:.4f} ms by device_ms, {wrapper_ev:.4f} ms by "
           f"CUDA events; {n} rays on {card}")
+    return 0
+
+
+def k2_study(reps=20) -> int:
+    """``--k2-study``: what binds K2 at config 4's two bundles (650,000 and
+    330,000 points of the 65- and 33-sample bundles, a (65536, 256) table,
+    past the L2), at config 3b's 650,000 zp points (a (16384, 128) table)
+    and at two more (zp on 256^3, cubic on 128^3). Every way is held
+    bitwise to K2's generic kernel in ray order (``generic_k2``, the
+    kernel before the redesign) and timed by ``device_ms``: the generic
+    kernel; the fixed-shape kernel in ray order and over the model's
+    point order (its inputs permuted into it), each with a point's index
+    and weight rows read as 16-byte vectors (the default build) and as
+    scalars (a library built with ``K2_ROW_VECTORS=0``); the order's keys
+    and sort and the whole ``PointOrder``; and a floor: every point moved
+    into one cell, so that every tap after the first warp's hits L1.
+    Prints each shape's distinct table values and its bound, and ptxas's
+    registers for K2."""
+    from ionotomo_tpu_torch import configs, kernels
+    from ionotomo_tpu_torch.core import boxspline, tricubic
+    from ionotomo_tpu_torch.kernels import build
+    from ionotomo_tpu_torch.models import chapman
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(f"card: {card}")
+    libs = {}
+    for loads, defines in (("vector rows", ()),
+                           ("scalar rows", ("K2_ROW_VECTORS=0",))):
+        info = build.build(defines=defines)
+        libs[loads] = build.open_library(info["path"])
+        print(f"build ({loads}): built={info['built']} in "
+              f"{info['seconds']:.2f} s")
+        for line in ptxas_lines(info["log"], ("rows_value_fwd",)):
+            print(f"  ptxas ({loads}): {line}")
+    default = build.load()
+
+    def with_lib(loads, fn):
+        build._loaded["lib"] = libs[loads]
+        try:
+            return fn()
+        finally:
+            build._loaded["lib"] = default
+
+    ants, dirs = configs.make_rays(100, 100)
+    shapes = []
+    for model, n_grid, n_s in ((tricubic, 256, 65), (tricubic, 256, 33),
+                               (boxspline, 128, 65), (boxspline, 256, 65),
+                               (tricubic, 128, 65)):
+        grid = chapman.grid_enclosing_rays(ants, dirs, shape=(n_grid,) * 3,
+                                           h_min_km=0.0, device=dev)
+        rb = configs.straight_bundle(ants, dirs, n_s, dev)
+        shapes.append((model, grid, model.row_setup(
+            grid, rb.points.reshape(-1, 3))))
+    rng = np.random.default_rng(21)
+    for model, grid, setup in shapes:
+        ri, wxy, zi, wz = setup
+        xy_first = model is boxspline
+        n_rows, nz = grid.shape[0] * grid.shape[1], grid.shape[2]
+        table = torch.from_numpy(rng.normal(size=(n_rows, nz))
+                                 .astype(np.float32)).to(dev)
+        n = ri.shape[0]
+        label = (f"{'zp' if xy_first else 'cubic'} {n} points of "
+                 f"{grid.shape[0]}^3")
+        want = generic_k2(kernels, table, *setup, xy_first)
+        ms = device_ms(lambda: generic_k2(kernels, table, *setup, xy_first),
+                       reps)
+        print(f"  {label}: the generic kernel in ray order {ms:.4f} ms")
+        base = model.BASE_TRANSLATE
+        sort_ms = device_ms(lambda: kernels.point_order(ri, zi, base,
+                                                        grid.shape), 10)
+        build_ms = device_ms(lambda: model.point_order(*setup, grid.shape),
+                             10)
+        po = model.point_order(*setup, grid.shape)
+        print(f"  {label}: the point order's keys and sort {sort_ms:.4f} ms, "
+              f"the whole PointOrder {build_ms:.4f} ms")
+        for loads in libs:
+            for oname, order in (("ray order", None), ("point order", po)):
+                def k2():
+                    return tricubic.rows_value(table, *setup, xy_first,
+                                               order=order)
+                got = with_lib(loads, k2)
+                torch.cuda.synchronize()
+                check(bool(torch.equal(got, want)),
+                      f"{label}, {loads}, {oname}: bitwise")
+                ms = with_lib(loads, lambda: device_ms(k2, reps))
+                print(f"  {label}: {loads}, {oname}: {ms:.4f} ms")
+        # the floor: every point in the first point's cell
+        one = [t[:1].expand_as(t).contiguous() for t in (ri, zi)]
+        ms = device_ms(lambda: kernels.rows_value_fwd(
+            table, one[0], wxy, one[1], wz, xy_first), reps)
+        print(f"  {label}: every point in one cell: {ms:.4f} ms")
+        live = boxspline.ZP_LIVE_TRANSLATES if xy_first else 16
+        b_ms, b_by = k2_bound(*setup, n_rows, nz, live,
+                              FLOPS_K2_POINT if xy_first
+                              else FLOPS_K2_CUBIC_POINT)
+        print(f"  {label}: {touched_values(ri[:, :live], zi, n_rows, nz)} "
+              f"distinct table values of {n_rows * nz}; bound {b_ms:.4f} "
+              f"ms ({b_by}) on {card}")
+        del table, want, po, one
+        torch.cuda.empty_cache()
+    return 0
+
+
+def k1_study(reps=3) -> int:
+    """``--k1-study``: what binds K1 at bench.py's batch (262,144 rays, 64
+    steps, the 128^3 Chapman cube) and at the serving batch (62 x 10 rays,
+    64 steps, path). Every variant is held bitwise to the unpacked kernel
+    in ray order at 128 threads (the kernel before the redesign) and timed
+    by ``device_ms``: the table unpacked or z-tap-packed; the rays in their
+    own order or sorted (``kernels.ray_order``); 32-256 threads a block.
+    The packed variants read one pack made before the timing; the pack's
+    and the sort's own times are printed beside them. Then the whole call
+    (its pack and sort included) three ways at batches from 10,000 to
+    262,144 rays: unpacked in ray order at 32 threads (the wrapper's
+    small batch), packed at 64, packed and sorted at 64 (its large
+    batch); ``kernels.TRACE_ZP_RAYS_PER_SM`` is where the last starts to
+    beat the first. Prints ptxas's registers for the tracer."""
+    from ionotomo_tpu_torch import kernels
+    from ionotomo_tpu_torch.core import boxspline
+    from ionotomo_tpu_torch.core.grids import Grid3D
+    from ionotomo_tpu_torch.geometry import fermat, rays
+    from ionotomo_tpu_torch.kernels import build
+    from ionotomo_tpu_torch.models import chapman
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(f"card: {card}")
+    info = build.build()
+    print(f"build: built={info['built']} in {info['seconds']:.2f} s")
+    for line in ptxas_lines(info["log"], ("trace_leapfrog",)):
+        print(f"  ptxas: {line}")
+    grid = Grid3D.from_bounds(*BOUNDS, (N_GRID,) * 3, device=dev)
+    m = chapman.log_parametrize(chapman.chapman_field(grid))
+    coef = boxspline.prefilter(m).reshape(N_GRID * N_GRID, N_GRID)
+    kw = fermat._step_constants(FREQ_HZ, LENGTH_KM, N_STEPS)
+    packed = kernels.pack_zp_taps(coef, grid)
+    pack_ms = device_ms(lambda: kernels.pack_zp_taps(coef, grid), 20)
+    print(f"  the pack {pack_ms:.4f} ms")
+    _, ants, dirs = serving_epochs()[0]
+    batches = {"bench.py's 262144 rays": (bench_rays(262144), False),
+               "serving's 620 rays": (tuple(
+                   t.cpu().numpy() for t in rays.make_ray_batch(
+                       torch.from_numpy(ants), torch.from_numpy(dirs))),
+                   True)}
+    for label, ((o, d), path) in batches.items():
+        o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+        order = kernels.ray_order(o, d, grid)
+        print(f"  {label}: ray_order "
+              f"{device_ms(lambda: kernels.ray_order(o, d, grid), 10):.4f} "
+              f"ms")
+
+        def run(pk, order, threads):
+            return kernels.trace_leapfrog_zp_with(
+                coef, grid, o, d, N_STEPS, path, packed=pk, order=order,
+                threads=threads, **kw)
+
+        want = run(None, None, 128)
+        rows = []
+        for layout, pk in (("unpacked", None), ("packed", packed)):
+            for oname, od in (("own order", None), ("sorted", order)):
+                for threads in (32, 64, 128, 256):
+                    got = run(pk, od, threads)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, b) for a, b in zip(got, want)
+                              if b is not None),
+                          f"{label}, {layout}, {oname}, {threads}: bitwise")
+                    ms = device_ms(lambda: run(pk, od, threads),
+                                   reps if not path else 20)
+                    rows.append((ms, layout, oname, threads))
+                    print(f"  {label}: {layout:8s} {oname:9s} {threads:4d} "
+                          f"threads: {ms:.4f} ms")
+        print(f"  {label}: fastest {min(rows)}")
+
+        def call():
+            return kernels.trace_leapfrog_zp(coef, grid, o, d, N_STEPS, path,
+                                             **kw)
+
+        print(f"  {label}: the wrapper (pack, sort if any, trace) "
+              f"{device_ms(call, reps if not path else 20):.4f} ms; by "
+              f"kernel: " + "; ".join(
+                  f"{v:.4f} ms {key[:40]}" for key, v in sorted(
+                      kernel_ms_by_name(call, 3).items(),
+                      key=lambda kv: -kv[1])) + f"; on {card}")
+    # where the pack and the sort start to pay: the whole call at batches
+    # of bench.py's rays
+    o_all, d_all = (torch.from_numpy(a).to(dev) for a in bench_rays(262144))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n in (10000, 128 * sms, 256 * sms, 320 * sms, 384 * sms, 448 * sms,
+              512 * sms, 1024 * sms):
+        o, d = o_all[:n].contiguous(), d_all[:n].contiguous()
+        ways = {
+            "unpacked, ray order, 32": lambda: kernels.trace_leapfrog_zp_with(
+                coef, grid, o, d, N_STEPS, False, packed=None, order=None,
+                threads=32, **kw),
+            "packed, ray order, 64": lambda: kernels.trace_leapfrog_zp_with(
+                coef, grid, o, d, N_STEPS, False,
+                packed=kernels.pack_zp_taps(coef, grid), order=None,
+                threads=64, **kw),
+            "packed, sorted, 64": lambda: kernels.trace_leapfrog_zp_with(
+                coef, grid, o, d, N_STEPS, False,
+                packed=kernels.pack_zp_taps(coef, grid),
+                order=kernels.ray_order(o, d, grid), threads=64, **kw)}
+        print(f"  {n} rays ({n / sms:.0f} an SM), the call with its pack and "
+              f"sort: " + "; ".join(f"{k} {device_ms(f, reps):.4f} ms"
+                                    for k, f in ways.items()))
     return 0
 
 
@@ -2852,13 +3366,19 @@ def kernels_line(results) -> dict:
     """The per-kernel JSON object of a run from the phases' results."""
     from ionotomo_tpu_torch.testing import MEMBER_KERNELS
     src = "ionotomo_tpu_torch/kernels/csrc/"
-    # launches: K1, K1e and K2 in the serving run (phase 4), K3 and K1eᵀ in
-    # the config-3b solve (phase 6), KG in the probe (phase 7), K1c and the
-    # pack and key kernels it launches in config 2 (phase 9), K5 and K5ᵀ in
-    # config 4 (phase 10). Error, ms and
-    # bound: K1 at the bench shape (262144 rays x 64 steps); K1e at 2^20
-    # points (phase 2); K2, K3 and K1eᵀ at the config-3b solve's shapes
-    # (650,000 points, 20,000 endpoints); KG at (16384, 128); K1c at
+    # launches: K1, K1e and K2 in the serving run (phase 4), K1's pack in
+    # one trace of bench.py's batch (phase 3), K3
+    # and K1eᵀ in the config-3b solve (phase 6), KG in the probe (phase 7),
+    # K1c and the pack and key kernels it launches in config 2 (phase 9),
+    # K5, K5ᵀ, the point order's keys and its permute in config 4 (phase
+    # 10). Error, ms
+    # and bound: K1's call at the bench shape (262144 rays x 64 steps: the
+    # pack, the sort and the tracer), K1's pack of the 128^3 table (phase
+    # 2), the point order's keys and its permute at config 4's 650,000
+    # points (library_ms of the permute: index_select); K1e at 2^20
+    # points (phase 2); K2 (over the geometry's point order), K3 and K1eᵀ
+    # at the config-3b solve's shapes (650,000 points, 20,000 endpoints);
+    # KG at (16384, 128); K1c at
     # config 2's saturated batch (262144 rays x 128 steps: the call, the
     # sort, the pack and the tracer; the pack and the keys alone beside
     # it); K5 and K5ᵀ at
@@ -2882,6 +3402,9 @@ def kernels_line(results) -> dict:
                 **{k: results[k]["launches"] for k in CONFIG2_KERNELS},
                 "cubic_value_grad": c4["cubic_value_grad"],
                 "cubic_value_grad_bwd": c4["cubic_value_grad_bwd"],
+                "point_order_keys": c4["point_order_keys"],
+                "permute_points": c4["permute_points"],
+                "pack_zp_taps": results["bench_launches"]["pack_zp_taps"],
                 **{k: results["enkf_launches"][k] for k in MEMBER_KERNELS}}
     entries = [
         ("trace_leapfrog_zp", "trace_leapfrog_zp.cu",
@@ -2913,6 +3436,12 @@ def kernels_line(results) -> dict:
          "ionotomo_tpu/core/tricubic.py:296"),
         ("fold_member_rows", "rows_value_bwd_batched.cu",
          "ionotomo_tpu/core/tricubic.py:380"),
+        ("point_order_keys", "rows_value_fwd.cu",
+         "ionotomo_tpu/core/tricubic.py:284"),
+        ("permute_points", "rows_value_fwd.cu",
+         "ionotomo_tpu/core/tricubic.py:284"),
+        ("pack_zp_taps", "trace_leapfrog_zp.cu",
+         "ionotomo_tpu/geometry/fermat.py:204"),
     ]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2961,6 +3490,10 @@ def main() -> int:
         return k5t_study()
     if "--member-study" in args:
         return member_study()
+    if "--k2-study" in args:
+        return k2_study()
+    if "--k1-study" in args:
+        return k1_study()
     root = args[args.index("--root") + 1] if "--root" in args else None
     if "--serving-loop" in args:
         return serving_loop(root)
@@ -2997,11 +3530,11 @@ def main() -> int:
         print("  no --parent DIR: no phase holds a kernel to the parent's")
     results = {}
     phase2_kernels_vs_plain(dev, boxspline, tricubic, fermat, kernels,
-                            Grid3D, chapman, results)
+                            Grid3D, chapman, results, parent)
     phase3_throughput(dev, boxspline, fermat, kernels, Grid3D, chapman,
                       results, card, parent)
     phase4_serving(dev, boxspline, fermat, rays, tec, kernels, Grid3D, chapman,
-                   results, profile)
+                   results, profile, parent)
     phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
                            results, parent)
     phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,

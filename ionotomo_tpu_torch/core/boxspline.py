@@ -11,9 +11,13 @@ inverse along z, a truncated Neumann series of the ZP sample mask in
 
 On CUDA tensors the evaluators run the hand-written kernels: the value
 path's gather-and-contract is K2 (``core.tricubic.rows_value``, with K3
-as its transpose), value + gradient is K1e and its transpose with respect
-to the table K1eᵀ. On CPU tensors they run the plain versions in this
-module, ports of the reference's jnp code.
+as its transpose; ``point_order`` the order K2 runs a fixed point set
+in), value + gradient is K1e and its transpose with respect to the table
+K1eᵀ. On CPU tensors they run the plain versions in this module, ports of
+the reference's jnp code. ``interp_rows_with_grad_taps_ref`` is K1e's and
+K1's evaluator summed in the kernels' order, and ``pack_z_taps_ref`` and
+``interp_rows_with_grad_packed_ref`` the plain versions of K1's
+z-tap-packed table and its evaluator, bitwise equal to that twin.
 
 The transposes the linearised dTEC operator needs are written out:
 ``prefilter_transpose`` (the reference gets it from AD; autograd's would
@@ -243,6 +247,18 @@ def row_setup(grid: Grid3D, points: torch.Tensor):
             _qb_weights(w).contiguous())
 
 
+#: The translate whose row is the base cell's in every piece: (0, 0).
+BASE_TRANSLATE = 2
+
+
+def point_order(ri, wxy, zi, wz, grid_shape):
+    """K2's order of ``row_setup``'s points, by their base cell
+    (``core.tricubic.PointOrder``)."""
+    from .tricubic import build_point_order
+
+    return build_point_order(ri, wxy, zi, wz, BASE_TRANSLATE, grid_shape)
+
+
 def row_plan(ri: torch.Tensor, zi: torch.Tensor, n_rows: int):
     """The K3 plan of ``row_setup``'s pairs: the 7 live translates of each
     point, sorted within a row by the first z tap."""
@@ -283,6 +299,74 @@ def interp_rows_with_grad_ref(coef2d: torch.Tensor, grid: Grid3D,
         torch.einsum("nz,nz->n", s, dband),
     ], dim=-1)
     return value, du / grid.spacing[None, :]
+
+
+def _contract_taps(taps: torch.Tensor, w: torch.Tensor, weights,
+                   grid: Grid3D):
+    """Value (N,) and physical gradient (N, 3) from the 3 z taps (N, 7, 3)
+    of each point's 7 live rows, its z offset w (N,) and its (wxy, wu, wv)
+    (N, 7) each, in zp_eval.cuh's order: each z tap's sums over the rows
+    from zero, row by row, then the z weights, and the gradient divided by
+    the spacing last."""
+    wxy, wu, wv = weights
+    s = su = sv = 0.0
+    for k in range(ZP_LIVE_TRANSLATES):
+        s = s + wxy[:, k, None] * taps[:, k]
+        su = su + wu[:, k, None] * taps[:, k]
+        sv = sv + wv[:, k, None] * taps[:, k]
+    wz, dwz = _qb_weights(w), _qb_dweights(w)
+
+    def dot3(a, b):
+        return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+    du = torch.stack([dot3(wz, su), dot3(wz, sv), dot3(dwz, s)], dim=-1)
+    return dot3(wz, s), du / grid.spacing[None, :]
+
+
+def _live_setup(grid: Grid3D, points: torch.Tensor):
+    """The 7 live rows (N, 7), the z base (N,), its offset w and the
+    weights (wxy, wu, wv), each (N, 7), of K1's evaluator."""
+    bx, by, bz, u, v, w = _neighborhood(grid, points)
+    dx, dy, wxy, wu, wv = _xy_weights(u, v, with_grad=True)
+    live = slice(0, ZP_LIVE_TRANSLATES)
+    ri = _row_index(bx, by, dx, dy, grid)[:, live]
+    return ri, bz, w, (wxy[:, live], wu[:, live], wv[:, live])
+
+
+def interp_rows_with_grad_taps_ref(coef2d: torch.Tensor, grid: Grid3D,
+                                   points: torch.Tensor):
+    """``interp_rows_with_grad_ref`` as K1e and K1 sum it: the 7 live
+    rows' 3 z taps gathered from the table and contracted in zp_eval.cuh's
+    order (``_contract_taps``). The unpacked twin of
+    ``interp_rows_with_grad_packed_ref``."""
+    check_full_f32()
+    ri, bz, w, weights = _live_setup(grid, points)
+    z = bz[:, None] + torch.arange(-1, 2, dtype=torch.int32, device=bz.device)
+    taps = coef2d[ri.long()[:, :, None], z.long()[:, None, :]]
+    return _contract_taps(taps, w, weights, grid)
+
+
+def pack_z_taps_ref(coef2d: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K1's pack (``kernels.pack_zp_taps``): the
+    (nz−2, nx*ny, 4) table of the three z taps (b−1, b, b+1) and a zero of
+    every row at every z base b in [1, nz−2], base-major."""
+    nz = coef2d.shape[-1]
+    b = torch.arange(1, nz - 1, device=coef2d.device)
+    taps = coef2d[:, torch.stack([b - 1, b, b + 1], -1)]    # (R, nz-2, 3)
+    pad = torch.zeros(taps.shape[:2] + (1,), dtype=taps.dtype,
+                      device=taps.device)
+    return torch.cat([taps, pad], -1).permute(1, 0, 2).contiguous()
+
+
+def interp_rows_with_grad_packed_ref(packed: torch.Tensor, grid: Grid3D,
+                                     points: torch.Tensor):
+    """``interp_rows_with_grad_taps_ref`` reading the packed table
+    (``pack_z_taps_ref``) as K1 does: one 4-float entry per live row at
+    the point's z base. Bitwise equal to it."""
+    check_full_f32()
+    ri, bz, w, weights = _live_setup(grid, points)
+    taps = packed[(bz - 1).long()[:, None], ri.long()][..., :3]
+    return _contract_taps(taps, w, weights, grid)
 
 
 def interp_rows_with_grad(coef2d: torch.Tensor, grid: Grid3D,

@@ -8,7 +8,10 @@ out[n] = Σ_k wxy[n,k] Σ_l wz[n,l] · table[ri[n,k], zi[n,l]], as a
 the hand-written transpose ``_rows_value_transpose`` (its unbatched
 dense-row branch). On CUDA tensors the forward is kernel K2 and the
 backward kernel K3; on CPU tensors they are ``rows_value_ref`` and
-``rows_value_transpose_ref``.
+``rows_value_transpose_ref``. A caller that holds a point set fixed keeps
+K2's order of it (``point_order``, a ``PointOrder``: the points sorted by
+their stencil's base cell, so that a warp shares rows, with their inputs
+permuted into that order), beside K3's plan.
 
 K3 reduces each table row over the (point, row) pairs that land on it, in
 a fixed order, so the transpose is bitwise reproducible. The order is a
@@ -123,6 +126,40 @@ def rows_value_packed_ref(packed, n_members: int, table_shape, ri, wxy,
         pencil = torch.einsum("gnklm,nl->gnkm", taps, wz)
         out = torch.einsum("gnkm,nk->gnm", pencil, wxy)
     return out.transpose(1, 2).reshape(-1, ri.shape[0])[:n_members]
+
+
+@dataclasses.dataclass(frozen=True)
+class PointOrder:
+    """K2's order of a fixed point set: ``order`` (N,) int32, the point
+    each thread computes (``kernels.point_order``: the points sorted by
+    their stencil's base cell), and the set's ri, wxy, zi, wz permuted
+    into it, which K2 reads in thread order (coalesced) while its
+    stencils' rows are shared within a warp, in place of the set's own.
+    ``source`` holds the set's own four tensors, so that ``rows_value``
+    takes the order only with them. It changes no output bit."""
+
+    order: torch.Tensor
+    ri: torch.Tensor
+    wxy: torch.Tensor
+    zi: torch.Tensor
+    wz: torch.Tensor
+    source: tuple = dataclasses.field(repr=False)
+
+    def of(self, ri, wxy, zi, wz) -> bool:
+        """Whether this is the order of exactly these tensors."""
+        return all(a is b for a, b in zip(self.source, (ri, wxy, zi, wz)))
+
+
+def build_point_order(ri, wxy, zi, wz, base: int, grid_shape) -> PointOrder:
+    """The ``PointOrder`` of a point set whose stencil's base cell is row
+    ri[:, base] at z zi[:, 1]: on CUDA the key kernel, a sort and the
+    permute kernel (``kernels.permute_points``), no host read."""
+    order = kernels.point_order(ri, zi, base, grid_shape)
+    src = (ri, wxy, zi, wz)
+    if ri.is_cuda:
+        return PointOrder(order, *kernels.permute_points(order, *src), src)
+    perm = order.long()
+    return PointOrder(order, *(t[perm] for t in src), src)
 
 
 #: Pairs one K3 / K1eᵀ segment holds at most: one warp reduces one
@@ -328,7 +365,7 @@ class _RowsValue(torch.autograd.Function):
     (with respect to the table only, like the reference's)."""
 
     @staticmethod
-    def forward(ctx, table, ri, wxy, zi, wz, xy_first, plan):
+    def forward(ctx, table, ri, wxy, zi, wz, xy_first, plan, order):
         if ctx.needs_input_grad[2] or ctx.needs_input_grad[4]:
             raise NotImplementedError(
                 "rows_value: gradients with respect to the weights are not "
@@ -338,24 +375,33 @@ class _RowsValue(torch.autograd.Function):
         ctx.plan = plan
         if not table.is_cuda:
             return rows_value_ref(table, ri, wxy, zi, wz, xy_first)
-        fwd = (kernels.rows_value_fwd_batched if table.dim() == 3
-               else kernels.rows_value_fwd)
-        return fwd(table, ri, wxy, zi, wz, xy_first)
+        if table.dim() == 3:
+            return kernels.rows_value_fwd_batched(table, ri, wxy, zi, wz,
+                                                  xy_first)
+        if order is None:
+            return kernels.rows_value_fwd(table, ri, wxy, zi, wz, xy_first)
+        return kernels.rows_value_fwd(table, order.ri, order.wxy, order.zi,
+                                      order.wz, xy_first, order.order)
 
     @staticmethod
     def backward(ctx, ct):
         ri, wxy, zi, wz = ctx.saved_tensors
         table_ct = rows_value_transpose(ct, ri, wxy, zi, wz, ctx.table_shape,
                                         ctx.plan)
-        return table_ct, None, None, None, None, None, None
+        return table_ct, None, None, None, None, None, None, None
 
 
 def rows_value(table, ri, wxy, zi, wz, xy_first: bool,
-               plan: RowPlan | None = None) -> torch.Tensor:
+               plan: RowPlan | None = None,
+               order: PointOrder | None = None) -> torch.Tensor:
     """Row-gather value map, differentiable in the table. table (R, nz);
     ri (N, K) int32; wxy (N, K); zi (N, L) int32; wz (N, L) → (N,).
     Kernel K2 forward and K3 backward on CUDA (``plan``: the pairs of
-    ``ri`` sorted by row, built at the first backward if not given);
+    ``ri`` sorted by row, built at the first backward if not given;
+    ``order``: the model's ``point_order`` of exactly these tensors,
+    which K2 runs them in, reading its permuted copies, and which changes
+    no output bit; None: ray order; a batched table runs K2b and leaves
+    the order aside);
     ``rows_value_ref`` and ``rows_value_transpose_ref`` on the CPU.
 
     A member axis: table (B, R, nz) over shared indices and weights →
@@ -372,7 +418,10 @@ def rows_value(table, ri, wxy, zi, wz, xy_first: bool,
             "rows_value: a member axis on the weights alone, or on only some "
             "of ri, wxy, zi, wz, is not ported (ROADMAP.md Queue 2, the "
             "batching rule's rare cases); batch the table, or all four")
-    return _RowsValue.apply(table, ri, wxy, zi, wz, xy_first, plan)
+    if order is not None and not order.of(ri, wxy, zi, wz):
+        raise ValueError("rows_value: order is the PointOrder of other "
+                         "tensors than ri, wxy, zi, wz")
+    return _RowsValue.apply(table, ri, wxy, zi, wz, xy_first, plan, order)
 
 
 # --- the Catmull-Rom tricubic field model ---------------------------------
@@ -437,6 +486,15 @@ def row_setup(grid: Grid3D, points: torch.Tensor):
     wxy = (wx[:, :, None] * wy[:, None, :]).reshape(-1, 16)
     return (ri.contiguous(), wxy.contiguous(), idx[:, 2].contiguous(),
             _catmull_rom_weights(frac[:, 2]).contiguous())
+
+
+#: The pencil whose row is the base cell's: (ix, iy).
+BASE_TRANSLATE = 5
+
+
+def point_order(ri, wxy, zi, wz, grid_shape) -> PointOrder:
+    """K2's order of ``row_setup``'s points, by their base cell."""
+    return build_point_order(ri, wxy, zi, wz, BASE_TRANSLATE, grid_shape)
 
 
 def row_plan(ri: torch.Tensor, zi: torch.Tensor, n_rows: int) -> RowPlan:

@@ -317,7 +317,9 @@ class DtecGeometry:
     point set-up on the samples (``ri``, ``wxy``, ``zi``, ``wz``), the
     quadrature weights, the Hermite endpoints with their unit tangents,
     and on CUDA the two scatter plans (``row_plan`` for K3/K3b,
-    ``end_plan`` for K1eᵀ or K5ᵀ), each a sort of its pairs. A filter
+    ``end_plan`` for K1eᵀ or K5ᵀ), each a sort of its pairs, and K2's
+    ``point_order()``, a sort of its points built at the first unbatched
+    gather (an ensemble's K2b takes none). A filter
     that linearises about a new field every step over the same bundle
     builds this once and passes it to every ``PairedDtecLinear``.
 
@@ -353,8 +355,18 @@ class DtecGeometry:
         cuda = plans and self.ri.is_cuda
         self.row_plan = (rows.row_plan(self.ri, self.zi, self.table_shape[0])
                          if cuda else None)
+        self._order_on_cuda, self._point_order = cuda, None
         self.end_plan = (rows.endpoint_plan(grid, self.ends)
                          if cuda and self.hermite else None)
+
+    def point_order(self):
+        """K2's order of the samples (``tricubic.PointOrder``), built at
+        the first call and kept; None where the geometry builds no plans
+        (the CPU, the plain-version operators)."""
+        if self._point_order is None and self._order_on_cuda:
+            self._point_order = self.model.rows.point_order(
+                self.ri, self.wxy, self.zi, self.wz, self.grid.shape)
+        return self._point_order
 
 
 class PairedDtecLinear:
@@ -427,8 +439,9 @@ class PairedDtecLinear:
 
     def _rows(self, table: torch.Tensor) -> torch.Tensor:
         geo = self.geometry
-        return tricubic.rows_value(table, geo.ri, geo.wxy, geo.zi, geo.wz,
-                                   geo.model.xy_first)
+        return tricubic.rows_value(
+            table, geo.ri, geo.wxy, geo.zi, geo.wz, geo.model.xy_first,
+            order=geo.point_order() if table.dim() == 2 else None)
 
     def _rows_t(self, ct: torch.Tensor) -> torch.Tensor:
         geo = self.geometry
@@ -580,11 +593,22 @@ class LogNeLinear:
         ri, _, zi, _ = self.setup
         self.row_plan = (self.model.rows.row_plan(ri, zi, nx * ny)
                          if ri.is_cuda else None)
+        self._point_order = None
         self.g0 = self.apply(field_m0)
+
+    def point_order(self):
+        """K2's order of the points, built at the first unbatched gather
+        on CUDA and kept (as ``DtecGeometry.point_order``)."""
+        if self._point_order is None and self.setup[0].is_cuda:
+            self._point_order = self.model.rows.point_order(
+                *self.setup, self.grid.shape)
+        return self._point_order
 
     def apply(self, dm: torch.Tensor) -> torch.Tensor:
         t = self.model.table(dm, self.grid).contiguous()
-        out = tricubic.rows_value(t, *self.setup, self.model.xy_first)
+        out = tricubic.rows_value(
+            t, *self.setup, self.model.xy_first,
+            order=self.point_order() if t.dim() == 2 else None)
         return out.reshape(out.shape[:-1] + self.shape)
 
     def apply_t(self, y: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,16 @@
 """Launch wrappers of the hand-written CUDA kernels.
 
 - K1  ``trace_leapfrog_zp``: the leapfrog zp tracer, all steps in one launch
-  (csrc/trace_leapfrog_zp.cu);
+  (csrc/trace_leapfrog_zp.cu), for a large batch over the rays sorted
+  (``ray_order``) and the table's z taps packed first (``pack_zp_taps``,
+  same source);
 - K1e ``zp_value_grad``: zp value + physical gradient at points
   (csrc/zp_value_grad.cu);
-- K2  ``rows_value_fwd``: the row-gather value map (csrc/rows_value_fwd.cu);
+- K2  ``rows_value_fwd``: the row-gather value map, over a point order
+  where the caller keeps one (``point_order``, whose keys
+  ``point_order_keys`` makes; csrc/rows_value_fwd.cu, all three; a
+  geometry keeps the order with its inputs permuted into it by
+  ``permute_points``, ``core.tricubic.PointOrder``);
 - K3  ``rows_value_bwd``: its transpose, a deterministic segmented
   reduction over a plan of the pairs sorted by row (csrc/rows_value_bwd.cu,
   csrc/row_reduce.cuh);
@@ -53,7 +59,8 @@ launches = {"trace_leapfrog_zp": 0, "zp_value_grad": 0, "rows_value_fwd": 0,
             "trace_leapfrog_cubic": 0, "pack_z_taps": 0,
             "ray_order_keys": 0, "rows_value_fwd_batched": 0,
             "rows_value_bwd_batched": 0, "pack_members": 0,
-            "fold_member_rows": 0}
+            "fold_member_rows": 0, "point_order_keys": 0,
+            "permute_points": 0, "pack_zp_taps": 0}
 
 #: Widest table row the reduce kernels (K3, K1eᵀ) take: one row per warp
 #: in shared memory, 8 warps a block, within the 48 KB a block gets
@@ -148,13 +155,30 @@ def cubic_value_grad(field2d: torch.Tensor, grid, points: torch.Tensor):
     return _value_grad("cubic_value_grad", 2, field2d, grid, points)
 
 
+#: The shapes K2 runs with K and L fixed, the main paths' (zp: K=8, L=3,
+#: xy first; cubic: K=16, L=4, z first), as (K, L, xy_first); only these
+#: take a point order.
+K2_FIXED_SHAPES = ((8, 3, True), (16, 4, False))
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def rows_value_fwd(table: torch.Tensor, ri: torch.Tensor, wxy: torch.Tensor,
-                   zi: torch.Tensor, wz: torch.Tensor,
-                   xy_first: bool) -> torch.Tensor:
+                   zi: torch.Tensor, wz: torch.Tensor, xy_first: bool,
+                   order: torch.Tensor = None) -> torch.Tensor:
     """K2: out[n] = Σ_k wxy[n,k] Σ_l wz[n,l] table[ri[n,k], zi[n,l]].
 
     table (rows, nz) f32; ri (N, K) int32, wxy (N, K) f32 with K ≤ 16;
-    zi (N, L) int32, wz (N, L) f32 with L ≤ 4. Unbatched only."""
+    zi (N, L) int32, wz (N, L) f32 with L ≤ 4. Unbatched only. order:
+    None (ray order), or (N,) int32 with ri, wxy, zi and wz permuted into
+    it (row t is point order[t]'s, ``permute_points``): thread t computes
+    row t and writes out[order[t]], so that a warp holds neighbouring
+    stencils (``point_order``). The order needs a shape of
+    ``K2_FIXED_SHAPES`` and the four arrays 16-byte aligned, as the
+    permute makes them; other calls run K2's generic kernel. Every
+    point's output is bitwise the same in any order and either kernel."""
     name = "rows_value_fwd"
     if table.dim() != 2 or ri.dim() != 2 or zi.dim() != 2:
         raise ValueError(f"{name}: table, ri and zi must be 2-D, got "
@@ -164,19 +188,90 @@ def rows_value_fwd(table: torch.Tensor, ri: torch.Tensor, wxy: torch.Tensor,
     if not (1 <= k <= 16 and 1 <= l <= 4):
         raise ValueError(f"{name}: needs 1 <= K <= 16 and 1 <= L <= 4, got "
                          f"K={k}, L={l}")
-    dev = _check(name, [("ri", ri, torch.int32, (n, k)),
-                        ("table", table, torch.float32, tuple(table.shape)),
-                        ("wxy", wxy, torch.float32, (n, k)),
-                        ("zi", zi, torch.int32, (n, l)),
-                        ("wz", wz, torch.float32, (n, l))])
+    specs = [("ri", ri, torch.int32, (n, k)),
+             ("table", table, torch.float32, tuple(table.shape)),
+             ("wxy", wxy, torch.float32, (n, k)),
+             ("zi", zi, torch.int32, (n, l)),
+             ("wz", wz, torch.float32, (n, l))]
+    if order is not None:
+        specs.append(("order", order, torch.int32, (n,)))
+        if ((k, l, bool(xy_first)) not in K2_FIXED_SHAPES
+                or not _aligned(ri, wxy, zi, wz)):
+            raise ValueError(
+                f"{name}: a point order needs (K, L, xy_first) in "
+                f"{K2_FIXED_SHAPES} and 16-byte aligned inputs, got "
+                f"({k}, {l}, {bool(xy_first)})")
+    dev = _check(name, specs)
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     with torch.cuda.device(dev):
         _launch(name, "ionotomo_rows_value_fwd", _ptr(table), table.shape[0],
                 table.shape[1], _ptr(ri), _ptr(wxy), k, _ptr(zi), _ptr(wz),
-                l, n, int(bool(xy_first)), _ptr(out))
+                l, n, int(bool(xy_first)), _ptr(order), _ptr(out))
     return out
+
+
+def point_order_keys(ri: torch.Tensor, zi: torch.Tensor, base: int,
+                     grid_shape) -> torch.Tensor:
+    """The (N,) int32 sort keys of ``point_order``, one kernel on the card
+    (plain version: ``point_order_keys_ref``)."""
+    name = "point_order_keys"
+    n, k = ri.shape
+    l = zi.shape[1]
+    nx, ny, nz = grid_shape
+    if nx * ny * nz >= 2 ** 31:
+        raise ValueError(f"{name}: the key needs nx*ny*nz < 2^31")
+    dev = _check(name, [("ri", ri, torch.int32, (n, k)),
+                        ("zi", zi, torch.int32, (n, l))])
+    keys = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return keys
+    with torch.cuda.device(dev):
+        _launch(name, "ionotomo_point_order_keys", _ptr(ri), k, int(base),
+                _ptr(zi), l, min(1, l - 1), n, nx * ny, nz, _ptr(keys))
+    return keys
+
+
+def point_order_keys_ref(ri: torch.Tensor, zi: torch.Tensor, base: int,
+                         grid_shape) -> torch.Tensor:
+    """Plain PyTorch version of ``point_order_keys``: each point's stencil
+    base cell, the row ri[:, base] and iz from zi[:, 1] (zi[:, 0] at L =
+    1), both clamped into the table, as row·nz + iz."""
+    nx, ny, nz = grid_shape
+    r = ri[:, base].long().clamp(0, nx * ny - 1)
+    z = zi[:, min(1, zi.shape[1] - 1)].long().clamp(0, nz - 1)
+    return (r * nz + z).to(torch.int32)
+
+
+def permute_points(order: torch.Tensor, ri: torch.Tensor, wxy: torch.Tensor,
+                   zi: torch.Tensor, wz: torch.Tensor):
+    """(ri, wxy, zi, wz) of a point set permuted into ``order`` (N,) int32,
+    row t of each the input's row order[t], the bits as they are, one
+    kernel on the card (plain version: ``t[order.long()]``)."""
+    name = "permute_points"
+    n, k, l, specs = _rows_specs(name, ri, wxy, zi, wz)
+    dev = _check(name, [("order", order, torch.int32, (n,))] + specs)
+    out = [torch.empty_like(t) for t in (ri, wxy, zi, wz)]
+    if n == 0:
+        return tuple(out)
+    with torch.cuda.device(dev):
+        _launch(name, "ionotomo_permute_points", _ptr(order), n, _ptr(ri),
+                _ptr(wxy), k, _ptr(zi), _ptr(wz), l,
+                int(_aligned(ri, wxy, zi, wz, *out)), *map(_ptr, out))
+    return tuple(out)
+
+
+def point_order(ri: torch.Tensor, zi: torch.Tensor, base: int,
+                grid_shape) -> torch.Tensor:
+    """(N,) int32: the points sorted by their stencil's base cell, row
+    then z (the keys of ``point_order_keys_ref``, made on the card by
+    ``point_order_keys``), the order K2 runs a fixed point set in, so that
+    a warp holds points that share rows and sectors; ties in point order
+    (a stable sort: the same order every run). No host read."""
+    keys = (point_order_keys(ri, zi, base, grid_shape) if ri.is_cuda
+            else point_order_keys_ref(ri, zi, base, grid_shape))
+    return torch.sort(keys, stable=True).indices.to(torch.int32)
 
 
 def _rows_specs(name: str, ri, wxy, zi, wz):
@@ -267,6 +362,15 @@ def _consts(h: float, hh12: float, w_n: float, w_rhs: float, k_ne: float,
     return h, hh12, w_n, w_rhs, k_ne, tec_unit
 
 
+#: Rays an SM from which K1 sorts the rays (``ray_order``) and packs the
+#: table's z taps (``pack_zp_taps``) first. From ``chip_smoke.py
+#: --k1-study`` (NVIDIA H100 80GB HBM3, 700 W), the call with its pack and
+#: sort against the unpacked tracer in ray order at 32 threads a block:
+#: 0.1616 against 0.1568 ms at 384 rays an SM, 0.1787 against 0.1922 at
+#: 448; serving's 620 rays (5 an SM) take neither.
+TRACE_ZP_RAYS_PER_SM = 448
+
+
 def trace_leapfrog_zp(coef2d: torch.Tensor, grid, origins: torch.Tensor,
                       directions: torch.Tensor, n_steps: int, keep_path: bool,
                       **consts):
@@ -274,19 +378,73 @@ def trace_leapfrog_zp(coef2d: torch.Tensor, grid, origins: torch.Tensor,
     steps of ``h`` km. Returns (x_end (R, 3), tau (R,), path (R,
     n_steps+1, 3) with the origins first, or None without keep_path).
     The f32 constants h, hh12, w_n, w_rhs, k_ne and tec_unit are computed
-    by the caller (``geometry.fermat._step_constants``)."""
+    by the caller (``geometry.fermat._step_constants``). A batch of
+    ``TRACE_ZP_RAYS_PER_SM`` rays an SM or more is sorted (``ray_order``)
+    and traced over the table's z taps packed first (``pack_zp_taps``),
+    64 rays a block; a smaller one reads the table as it is, in its own
+    order, 32 rays a block, so that it spreads over more SMs. Each ray's
+    outputs are bitwise those of the unpacked evaluator in ray order."""
+    name = "trace_leapfrog_zp"
+    r = origins.shape[0]
+    dev = _check(name, [("origins", origins, torch.float32, (r, 3)),
+                        ("directions", directions, torch.float32, (r, 3))]
+                 + _grid_specs(name, coef2d, grid, 3))
+    per_sm = r / torch.cuda.get_device_properties(dev).multi_processor_count
+    if per_sm < TRACE_ZP_RAYS_PER_SM:
+        return trace_leapfrog_zp_with(coef2d, grid, origins, directions,
+                                      n_steps, keep_path, packed=None,
+                                      order=None, threads=32, **consts)
+    return trace_leapfrog_zp_with(
+        coef2d, grid, origins, directions, n_steps, keep_path,
+        packed=pack_zp_taps(coef2d, grid),
+        order=ray_order(origins, directions, grid), threads=64, **consts)
+
+
+def trace_leapfrog_zp_with(coef2d, grid, origins, directions, n_steps: int,
+                           keep_path: bool, *, packed, order, threads: int,
+                           **consts):
+    """K1 with its layout, ray order and block size given (as
+    ``trace_leapfrog_cubic_with``): packed, the packed table of ``coef2d``
+    (``pack_zp_taps``) or None (the unpacked evaluator); order, (R,)
+    int32 ray of each thread, or None; threads, a multiple of 32 up to
+    1024."""
     name = "trace_leapfrog_zp"
     dev, x_end, tau, path = _trace_outputs(name, 3, coef2d, grid, origins,
                                            directions, n_steps, keep_path)
-    if origins.shape[0] == 0:
-        return x_end, tau, path
     nx, ny, nz = grid.shape
+    r = origins.shape[0]
+    specs = []
+    if packed is not None:
+        specs.append(("packed", packed, torch.float32, (nz - 2, nx * ny, 4)))
+    if order is not None:
+        specs.append(("order", order, torch.int32, (r,)))
+    if specs and _check(name, specs) != dev:
+        raise ValueError(f"{name}: packed and order must be on {dev}")
+    if r == 0:
+        return x_end, tau, path
     with torch.cuda.device(dev):
-        _launch(name, "ionotomo_" + name, _ptr(coef2d), _ptr(grid.origin),
-                _ptr(grid.spacing), nx, ny, nz, _ptr(origins),
-                _ptr(directions), origins.shape[0], int(n_steps),
-                *_consts(**consts), _ptr(x_end), _ptr(tau), _ptr(path))
+        _launch(name, "ionotomo_" + name, _ptr(coef2d), _ptr(packed),
+                _ptr(grid.origin), _ptr(grid.spacing), nx, ny, nz,
+                _ptr(origins), _ptr(directions), _ptr(order), r,
+                int(n_steps), *_consts(**consts), int(threads),
+                _ptr(x_end), _ptr(tau), _ptr(path))
     return x_end, tau, path
+
+
+def pack_zp_taps(coef2d: torch.Tensor, grid) -> torch.Tensor:
+    """K1's pack: the (nz−2, nx*ny, 4) f32 table whose entry [b−1, row] is
+    the three z taps of ``row`` at z base b, (b−1, b, b+1), and a zero,
+    for b in [1, nz−2], base-major (plain version:
+    ``core.boxspline.pack_z_taps_ref``)."""
+    name = "pack_zp_taps"
+    nx, ny, nz = grid.shape
+    dev = _check(name, _grid_specs(name, coef2d, grid, 3))
+    packed = torch.empty((nz - 2, nx * ny, 4), dtype=torch.float32,
+                         device=dev)
+    with torch.cuda.device(dev):
+        _launch(name, "ionotomo_pack_zp_taps", _ptr(coef2d), nx * ny, nz,
+                _ptr(packed))
+    return packed
 
 
 #: Rays K1c holds on one SM at once (two blocks of 256 at its 96
@@ -367,11 +525,12 @@ def ray_order(origins: torch.Tensor, directions: torch.Tensor, grid
               ) -> torch.Tensor:
     """(R,) int32: the rays sorted by direction, then along the Z-order
     curve of their origins (the keys of ``ray_order_keys_ref``, made on
-    the card by ``ray_order_keys``). Consecutive rays, a warp of K1c, are then
-    parallel rays from neighbouring origins: they keep their distances at
-    every height and reach each cell base at the same step, so they share
-    table rows and cache sectors the whole way. Ties sort in no fixed
-    order: a ray's outputs do not depend on its place. No host read."""
+    the card by ``ray_order_keys``). Consecutive rays, a warp of K1 or
+    K1c, are then parallel rays from neighbouring origins: they keep
+    their distances at every height and reach each cell base at the same
+    step, so they share table rows and cache sectors the whole way. Ties
+    sort in no fixed order: a ray's outputs do not depend on its place.
+    No host read."""
     keys = (ray_order_keys(origins, directions, grid) if origins.is_cuda
             else ray_order_keys_ref(origins, directions, grid))
     return torch.sort(keys).indices.to(torch.int32)

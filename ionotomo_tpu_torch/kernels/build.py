@@ -33,10 +33,15 @@ _SIGNATURES = {
     "ionotomo_zp_value_grad": (_I, [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P,
                                     _P]),
     "ionotomo_rows_value_fwd": (_I, [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
-                                     _I, _P, _P]),
-    "ionotomo_trace_leapfrog_zp": (_I, [_P, _P, _P, _I, _I, _I, _P, _P, _I,
-                                        _I, _F, _F, _F, _F, _F, _F, _P, _P,
-                                        _P, _P]),
+                                     _I, _P, _P, _P]),
+    "ionotomo_point_order_keys": (_I, [_P, _I, _I, _P, _I, _I, _I, _I, _I,
+                                       _P, _P]),
+    "ionotomo_permute_points": (_I, [_P, _I, _P, _P, _I, _P, _P, _I, _I, _P,
+                                     _P, _P, _P, _P]),
+    "ionotomo_trace_leapfrog_zp": (_I, [_P, _P, _P, _P, _I, _I, _I, _P, _P,
+                                        _P, _I, _I, _F, _F, _F, _F, _F, _F,
+                                        _I, _P, _P, _P, _P]),
+    "ionotomo_pack_zp_taps": (_I, [_P, _I, _I, _P, _P]),
     "ionotomo_rows_value_bwd": (_I, [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P,
                                      _P, _P, _I, _I, _I, _P, _P, _P]),
     "ionotomo_zp_value_grad_bwd": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _I,
@@ -106,7 +111,7 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR, defines=()) -> dict:
     ``build_dir`` unless this exact build exists. ``defines``: extra
     ``NAME=value`` macros for nvcc (``chip_smoke.py --k5t-study`` builds
     K5ᵀ with other register budgets, ``--member-study`` K3b with other
-    scan and fold settings).
+    scan and fold settings, ``--k2-study`` K2 with scalar row loads).
 
     Returns ``{"path", "seconds", "built", "log"}``; ``log`` is nvcc's
     output (with ``-Xptxas -v``: registers, shared memory and spills per

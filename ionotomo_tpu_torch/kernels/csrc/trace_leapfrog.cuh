@@ -1,7 +1,7 @@
 // The leapfrog (velocity Verlet) bent-ray integrator with the Hermite TEC
-// quadrature, for one ray in one thread, over any field evaluator: what K1
-// (trace_leapfrog_zp.cu, the zp model) and K1c (trace_leapfrog_cubic.cu,
-// the tricubic model) share.
+// quadrature, for one ray in one thread, over any field evaluator, and the
+// launch that K1 (trace_leapfrog_zp.cu, the zp model) and K1c
+// (trace_leapfrog_cubic.cu, the tricubic model) share.
 //
 // It is ionotomo_tpu/geometry/fermat.py, _trace_impl's leapfrog branch
 // (:204-227) fused with _rhs (:61) and log_field_ne_vg: the initial
@@ -114,46 +114,11 @@ static __device__ __forceinline__ void trace_leapfrog_ray(
   tau_out[r] = tau;
 }
 
-// K1's launch: one thread per ray in ray order, 128 threads a block, over
-// a stateless evaluator.
-template <class ValueGrad>
-__global__ void trace_leapfrog_kernel(
-    const float* __restrict__ table, const float* __restrict__ origin,
-    const float* __restrict__ spacing, int nx, int ny, int nz,
-    const float* __restrict__ origins, const float* __restrict__ directions,
-    int n_rays, int n_steps, TraceConsts c, float* __restrict__ x_end,
-    float* __restrict__ tau_out, float* __restrict__ path) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
-  const TableGrid g = table_grid(table, origin, spacing, nx, ny, nz);
-  trace_leapfrog_ray(ValueGrad{}, g, c, origins, directions, r, n_steps, x_end,
-                     tau_out, path);
-}
-
-template <class ValueGrad>
-static int launch_trace_leapfrog(const float* table, const float* origin,
-                                 const float* spacing, int nx, int ny, int nz,
-                                 const float* origins, const float* directions,
-                                 int n_rays, int n_steps,
-                                 const TraceConsts& c, float* x_end,
-                                 float* tau, float* path, void* stream) {
-  const int threads = 128;
-  const int blocks = (n_rays + threads - 1) / threads;
-  trace_leapfrog_kernel<ValueGrad><<<blocks, threads, 0,
-                                     (cudaStream_t)stream>>>(
-      table, origin, spacing, nx, ny, nz, origins, directions, n_rays,
-      n_steps, c, x_end, tau, path);
-  return (int)cudaGetLastError();
-}
-
-// K1c's launch: one thread per ray, `threads` a block, over an evaluator
-// that may carry its own data (the packed table). Thread t traces ray
-// order[t] (order null: ray t) and writes that ray's outputs at its own
-// index, so an order changes which rays share a warp and nothing else.
-// K1 keeps the launch above: with the same arithmetic, no order and 128
-// threads, this one read 1-2 % slower for K1 and 3 % slower for the
-// unpacked K1c, in turns on an H100 (chip_smoke.py --parent, phases 3
-// and 9).
+// The launch of K1 and K1c: one thread per ray, `threads` a block, over
+// an evaluator that may carry its own data (the packed table). Thread t
+// traces ray order[t] (order null: ray t) and writes that ray's outputs at
+// its own index, so an order changes which rays share a warp and nothing
+// else.
 template <class ValueGrad>
 __global__ void trace_leapfrog_ordered_kernel(
     ValueGrad value_grad, const float* __restrict__ table,

@@ -123,12 +123,14 @@ static __device__ __forceinline__ void zp_translate(const TableGrid& g,
   row = ix * g.ny + iy;
 }
 
-// Value m and physical gradient dm/dx [1/km] at (px, py, pz).
-static __device__ __forceinline__ void zp_value_grad_at(
-    const TableGrid& g, float px, float py, float pz, float& val, float& gx,
-    float& gy, float& gz) {
-  ZpPoint q;
-  zp_setup(g, px, py, pz, q);
+// The contraction of a set-up point: value m and physical gradient
+// dm/dx [1/km] from the 3 z taps of each live row, which
+//   taps(row, bz, c)
+// writes into c[0..2] (T[row, bz-1], T[row, bz], T[row, bz+1]).
+template <class Taps>
+static __device__ __forceinline__ void zp_value_grad_from(
+    const TableGrid& g, const ZpPoint& q, const Taps& taps, float& val,
+    float& gx, float& gy, float& gz) {
   float s[3] = {0.0f, 0.0f, 0.0f};
   float su[3] = {0.0f, 0.0f, 0.0f};
   float sv[3] = {0.0f, 0.0f, 0.0f};
@@ -137,13 +139,13 @@ static __device__ __forceinline__ void zp_value_grad_at(
     int r;
     float wk, wu, wv;
     zp_translate(g, q, k, r, wk, wu, wv);
-    const float* row = g.coef + (size_t)r * (size_t)g.nz + (size_t)(q.bz - 1);
+    float c[3];
+    taps(r, q.bz, c);
 #pragma unroll
     for (int l = 0; l < 3; ++l) {
-      const float c = __ldg(row + l);
-      s[l] += wk * c;
-      su[l] += wu * c;
-      sv[l] += wv * c;
+      s[l] += wk * c[l];
+      su[l] += wu * c[l];
+      sv[l] += wv * c[l];
     }
   }
   val = q.wz[0] * s[0] + q.wz[1] * s[1] + q.wz[2] * s[2];
@@ -153,4 +155,42 @@ static __device__ __forceinline__ void zp_value_grad_at(
   gx = du / g.sx;
   gy = dv / g.sy;
   gz = dw / g.sz;
+}
+
+// Value m and physical gradient dm/dx [1/km] at (px, py, pz).
+static __device__ __forceinline__ void zp_value_grad_at(
+    const TableGrid& g, float px, float py, float pz, float& val, float& gx,
+    float& gy, float& gz) {
+  ZpPoint q;
+  zp_setup(g, px, py, pz, q);
+  zp_value_grad_from(
+      g, q,
+      [&](int r, int bz, float c[3]) {
+        const float* row = g.coef + (size_t)r * (size_t)g.nz + (size_t)(bz - 1);
+#pragma unroll
+        for (int l = 0; l < 3; ++l) c[l] = __ldg(row + l);
+      },
+      val, gx, gy, gz);
+}
+
+// zp_value_grad_at reading the z-tap-packed table of K1 (trace_leapfrog_
+// zp.cu, pack_zp_taps_kernel): packed[(b-1) * nx*ny + row] = (T[row, b-1],
+// T[row, b], T[row, b+1], 0) for b in [1, nz-2], so a row's 3 taps are one
+// aligned 16-byte load, one sector. The same weights and contraction, so
+// the same value and gradient bit for bit.
+static __device__ __forceinline__ void zp_value_grad_packed_at(
+    const TableGrid& g, const float4* __restrict__ packed, float px,
+    float py, float pz, float& val, float& gx, float& gy, float& gz) {
+  ZpPoint q;
+  zp_setup(g, px, py, pz, q);
+  const size_t n_rows = (size_t)g.nx * (size_t)g.ny;
+  zp_value_grad_from(
+      g, q,
+      [&](int r, int bz, float c[3]) {
+        const float4 t = __ldg(packed + (size_t)(bz - 1) * n_rows + (size_t)r);
+        c[0] = t.x;
+        c[1] = t.y;
+        c[2] = t.z;
+      },
+      val, gx, gy, gz);
 }

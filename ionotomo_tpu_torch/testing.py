@@ -1,7 +1,8 @@
 """What the port's card tests and ``chip_smoke.py`` share: the kernels each
-path must launch, and the edge-case point sets the kernels are held to
-their plain versions on."""
+path must launch, the edge-case point sets the kernels are held to
+their plain versions on, and a way to reach K2's generic kernel."""
 import numpy as np
+import torch
 
 #: kernels ``predict --bent --interp zp --quadrature hermite`` launches
 SERVING_KERNELS = ("trace_leapfrog_zp", "zp_value_grad", "rows_value_fwd")
@@ -46,3 +47,14 @@ def edge_case_points(shape, origin, spacing, n, rng):
     parts.append(nn - 1 - rng.uniform(-0.5, 1.5, (k, 3)))
     t = np.concatenate(parts, 0)
     return (np.asarray(origin) + t * np.asarray(spacing)).astype(np.float32)
+
+
+def off_boundary(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` whose data starts 4 bytes past a 16-byte boundary.
+    K2 given such inputs runs its generic kernel (one scalar load a value,
+    in ray order), whatever its shape: the reference its fixed-shape
+    kernel is held to bitwise."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out

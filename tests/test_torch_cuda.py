@@ -23,7 +23,7 @@ from ionotomo_tpu_torch.probes import gather
 
 from ionotomo_tpu_torch.testing import (CUBIC_SOLVE_KERNELS,
                                         SERVING_KERNELS, SOLVE_KERNELS,
-                                        edge_case_points)
+                                        edge_case_points, off_boundary)
 
 pytestmark = pytest.mark.cuda
 
@@ -94,6 +94,73 @@ def test_rows_value_fwd_matches_plain(dev, k, l, xy_first):
              * table[ri.long()[:, :, None], zi.long()[:, None, :]].abs()
              ).sum((1, 2))
     assert bool(((got - want).abs() <= 1e-5 * scale).all())
+
+
+def _k2_case(dev, case, model):
+    """(table, grid shape, setup) of a K2 check: the edge-case points of a
+    random 24³ table, 3000 points of one cell (a skewed row) among 1000
+    random ones, or points along a 6 × 6 × 1024 grid's z axis."""
+    rng = np.random.default_rng(12)
+    shape = (6, 6, 1024) if case == "nz1024" else (24, 24, 24)
+    grid = Grid3D.create((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), shape,
+                         device=dev)
+    n_rows, nz = shape[0] * shape[1], shape[2]
+    table = torch.from_numpy(rng.normal(size=(n_rows, nz))
+                             .astype(np.float32)).to(dev)
+    if case == "edge_case":
+        pts = edge_case_points(shape, (0.0,) * 3, (1.0,) * 3, 20000, rng)
+    else:
+        pts = rng.uniform(-1.0, np.asarray(shape, float), (1000, 3))
+        if case == "skewed_row":
+            pts = np.concatenate([pts, 7.25 + rng.uniform(0, 0.5,
+                                                          (3000, 3))])
+    pts = torch.from_numpy(pts.astype(np.float32)).to(dev)
+    return table, shape, model.row_setup(grid, pts)
+
+
+@pytest.mark.parametrize("case", ["edge_case", "skewed_row", "nz1024"])
+@pytest.mark.parametrize("model", [boxspline, tricubic],
+                         ids=["zp", "cubic"])
+def test_rows_value_fwd_in_any_order_is_bitwise(dev, case, model):
+    """K2 in ray order, over the model's point order and over a random
+    order (each with its inputs permuted into it) bitwise K2's generic
+    kernel in ray order (reached through inputs off a 16-byte boundary),
+    which is within 1e-5·Σ|w||T| of the plain version; the order's keys
+    and the permuted inputs bitwise their plain versions, each launch
+    counted; a point order on the generic kernel refused."""
+    table, shape, (ri, wxy, zi, wz) = _k2_case(dev, case, model)
+    xy_first = model is boxspline
+    want = kernels.rows_value_fwd(table, *map(off_boundary, (ri, wxy, zi,
+                                                             wz)), xy_first)
+    plain = tricubic.rows_value_ref(table, ri, wxy, zi, wz, xy_first)
+    scale = (wxy.abs()[:, :, None] * wz.abs()[:, None, :]
+             * table[ri.long()[:, :, None], zi.long()[:, None, :]].abs()
+             ).sum((1, 2))
+    assert bool(((want - plain).abs() <= 1e-5 * scale).all())
+    assert torch.equal(kernels.rows_value_fwd(table, ri, wxy, zi, wz,
+                                              xy_first), want)
+    before = dict(kernels.launches)
+    po = model.point_order(ri, wxy, zi, wz, shape)
+    for name in ("point_order_keys", "permute_points"):
+        assert kernels.launches[name] == before[name] + 1, name
+    assert torch.equal(
+        kernels.point_order_keys(ri, zi, model.BASE_TRANSLATE, shape),
+        kernels.point_order_keys_ref(ri, zi, model.BASE_TRANSLATE, shape))
+    perm = po.order.long()
+    for got, t in zip((po.ri, po.wxy, po.zi, po.wz), (ri, wxy, zi, wz)):
+        assert torch.equal(got, t[perm])
+    before = kernels.launches["rows_value_fwd"]
+    assert torch.equal(tricubic.rows_value(table, ri, wxy, zi, wz, xy_first,
+                                           order=po), want)
+    assert kernels.launches["rows_value_fwd"] == before + 1
+    rand = torch.randperm(ri.shape[0], generator=torch.Generator()
+                          .manual_seed(5)).to(torch.int32).to(dev)
+    moved = kernels.permute_points(rand, ri, wxy, zi, wz)
+    assert torch.equal(kernels.rows_value_fwd(table, *moved, xy_first, rand),
+                       want)
+    with pytest.raises(ValueError, match="a point order needs"):
+        kernels.rows_value_fwd(table, *map(off_boundary, moved), xy_first,
+                               rand)
 
 
 @pytest.mark.parametrize("keep_path", [True, False])
@@ -578,6 +645,73 @@ def test_trace_leapfrog_cubic_packed_and_ordered_is_unpacked(dev, keep_path):
     for out in (got, other):
         for a, b in zip(out, want):
             assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_rays", ["small", "below", "sorted"])
+@pytest.mark.parametrize("keep_path", [True, False])
+def test_trace_leapfrog_zp_packed_and_ordered_is_unpacked(dev, keep_path,
+                                                          n_rays):
+    """K1 as the tracer calls it (a small batch and one just below the
+    threshold as they are, one past it sorted and over the packed table)
+    against the unpacked evaluator in ray order: bitwise equal per ray,
+    also under a random order and other block sizes; the pack bitwise
+    ``pack_z_taps_ref``, each launch counted."""
+    grid, m = _world(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = {"small": 700,
+         "below": kernels.TRACE_ZP_RAYS_PER_SM * sms - 300,
+         "sorted": kernels.TRACE_ZP_RAYS_PER_SM * sms + 300}[n_rays]
+    o, d = _rays(dev, n)
+    coef = boxspline.prefilter(m).reshape(-1, grid.shape[2]).contiguous()
+    kw = fermat._step_constants(150e6, 1000.0, 40)
+    want = kernels.trace_leapfrog_zp_with(
+        coef, grid, o, d, 40, keep_path, packed=None, order=None,
+        threads=128, **kw)
+    before = dict(kernels.launches)
+    got = kernels.trace_leapfrog_zp(coef, grid, o, d, 40, keep_path, **kw)
+    added = {"pack_zp_taps": int(n_rays == "sorted"), "trace_leapfrog_zp": 1,
+             "ray_order_keys": int(n_rays == "sorted")}
+    for name, k in added.items():
+        assert kernels.launches[name] == before[name] + k, name
+    packed = kernels.pack_zp_taps(coef, grid)
+    assert torch.equal(packed, boxspline.pack_z_taps_ref(coef))
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(3)
+                          ).to(torch.int32).to(dev)
+    others = [kernels.trace_leapfrog_zp_with(
+        coef, grid, o, d, 40, keep_path, packed=pk, order=order,
+        threads=threads, **kw)
+        for pk, order, threads in ((packed, perm, 64), (None, perm, 256),
+                                   (packed, None, 32))]
+    for out in (got, *others):
+        for a, b in zip(out, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_trace_leapfrog_zp_packed_on_a_tall_grid_is_unpacked(dev):
+    """K1 on a 6 × 6 × 1024 grid (1022 z bases packed): the packed and
+    sorted call bitwise the unpacked evaluator, and within the plain
+    tracer's tolerances."""
+    grid = Grid3D.from_bounds((-400, -400, 0.0), (400, 400, 1100.0),
+                              (6, 6, 1024), device=dev)
+    m = chapman.log_parametrize(chapman.chapman_field(grid)).contiguous()
+    coef = boxspline.prefilter(m).reshape(-1, 1024).contiguous()
+    o, d = _rays(dev, 300)
+    kw = fermat._step_constants(150e6, 1000.0, 32)
+    want = kernels.trace_leapfrog_zp_with(
+        coef, grid, o, d, 32, True, packed=None, order=None, threads=128,
+        **kw)
+    packed = kernels.pack_zp_taps(coef, grid)
+    assert torch.equal(packed, boxspline.pack_z_taps_ref(coef))
+    got = kernels.trace_leapfrog_zp_with(
+        coef, grid, o, d, 32, True, packed=packed,
+        order=kernels.ray_order(o, d, grid), threads=64, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    b, t = fermat.trace_rays_ref(m, grid, o, d, 150e6, 1000.0, n_steps=32,
+                                 keep_path=True, method="leapfrog",
+                                 interp="zp")
+    assert float((got[2] - b.points).abs().max()) <= 1e-3
+    assert float(((got[1] - t).abs() / t.abs()).max()) <= 1e-5
 
 
 @pytest.mark.parametrize("keep_path", [True, False])
