@@ -12,14 +12,20 @@ GPU.
                                        # step (torch.profiler)
     python3 chip_smoke.py --parent DIR # also: hold the kernels to those of
                                        # the checkout at DIR (the commit
-                                       # before K2 and K1 were redesigned;
-                                       # any other sources are refused):
+                                       # before E was redesigned; any
+                                       # other sources are refused):
                                        # every kernel bitwise at the
                                        # phases' shapes and timed in
                                        # turns; config 4's solve, config
                                        # 5's first chunk and the ensemble
                                        # filter bitwise on the parent's
                                        # kernels
+    python3 chip_smoke.py --e-study    # only: what binds E, the endpoint
+                                       # kernels K1e and K5, at serving's
+                                       # and configs 3b, 4 and 5's
+                                       # endpoints (block size, ray or
+                                       # endpoint order; 8 x K1e against
+                                       # the batched K1e)
     python3 chip_smoke.py --k2-study   # only: what binds K2 at config 4's
                                        # two bundles and config 3b's zp
                                        # points (ray or point order,
@@ -68,7 +74,8 @@ Phases (any failed check raises, and the run exits non-zero):
 2. Each kernel against its plain PyTorch version on the card: K1e
    (zp value + gradient) and K2 (row-gather value map) at 2^20 points of
    a random 128³ table, including points outside the grid, on lattice and
-   half-lattice points and on u±v = 0, K2 over the point order bitwise K2
+   half-lattice points and on u±v = 0 (K1e's bound: the distinct values
+   its points touch), K2 over the point order bitwise K2
    in ray order; K1 (the leapfrog zp tracer) against the plain tracer on
    8192 rays of the phase-3 world, and packed and sorted bitwise the
    unpacked kernel in ray order, path on and off; K1's pack bitwise its
@@ -85,7 +92,8 @@ Phases (any failed check raises, and the run exits non-zero):
    bitwise; it must match the plain path (CPU tensors) to 1e-4·max|dTEC|;
    K1, K1e and K2 must have launched. K1's call at the serving batch
    (which packs and sorts nothing) bitwise the unpacked kernel, path on
-   and off, and timed.
+   and off, and timed; K1e at the first epoch's 1,240 endpoints against
+   its plain version, timed beside its bound.
 5. The adjoint kernels against their plain versions on the card: K3 (the
    transpose of K2) at 2^20 zp points of a random 128³ table, edge cases
    included (917,504 points: a corner row gets 131,640 of the 7 live
@@ -105,7 +113,7 @@ Phases (any failed check raises, and the run exits non-zero):
    geometry's point order, bitwise K2 in ray order), K3 and K1eᵀ alone at
    the solve's shapes against their plain versions (1e-4·max|out|, bitwise
    equal across two calls, kernel, plain, ``index_add_`` and bound ms, the
-   plans' segments); the solve three
+   plans' segments), and K1e at its 20,000 endpoints; the solve three
    times, bitwise
    equal, and within 1 % of the plain-version solve in final residual and
    held-out dTEC rms (20 × 50 rays, seed 99), beating the prior there; K2,
@@ -173,7 +181,10 @@ analytic world drifting with the wind, 1 % noise), and on it:
    table axis) and bound ms, beside 8 × the unbatched kernel, and each
    call's time by kernel; at the outer bundle the pack of the 8 tables
    and the fold of random partial rows alone, bitwise their plain
-   versions, with their bounds.
+   versions, with their bounds. The batched K1e (E over 8 members, one
+   launch) at config 5's 20,000 endpoints and at the zp edge-case
+   points: every member bitwise K1e on that member, within 1e-5·max of
+   the plain version, beside 8 launches of K1e and its bound.
 12. Config 5 through ``configs.config5``: the Kalman filter over 30
    epochs, zp, Hermite@65 with the @33 inner bundle, cg 10, in 5 chunks
    of 6. K2, K3, K1e and K1eᵀ must have launched, no member-axis kernel
@@ -182,12 +193,15 @@ analytic world drifting with the wind, 1 % noise), and on it:
    held-out dTEC rms (20 × 50 rays, seed 99, at the last epoch) below the
    prior's; the first chunk within 1 % of the filter on the plain
    versions (residuals and held-out rms). Seconds for 30 steps, steps/s,
-   the bench's metrics, row plans built.
+   the bench's metrics, row plans built; K1e at the 20,000 endpoints.
 13. The ensemble filter on the same world (``configs.config5_enkf``): 8
    members, the first 6 epochs, cg 10, inner @33, noise from a numpy
-   seed. K2b, K3b, the pack and the fold of the member axis, K1e and
-   K1eᵀ must have launched, the unbatched K2 and K3 not at all, the
-   endpoint kernels a multiple of 8 times, no plain version; two runs bitwise equal; 6 steps in one call bitwise equal to
+   seed. K2b, K3b, the pack and the fold of the member axis, the batched
+   K1e and K1eᵀ must have launched, the unbatched K2 and K3 not at all,
+   the unbatched K1e never and the batched K1e once per application of E
+   (counted around ``PairedDtecLinear._value_grad``), K1eᵀ a multiple of
+   8 times, no plain version; two runs bitwise equal; 6 steps in one
+   call bitwise equal to
    3 + 3 chained through ``ens0``/``step_offset``; the mean's held-out
    rms at epoch 5 below the prior's; spread finite and positive; one step
    within 1 % of the filter on the plain versions. Seconds a step beside
@@ -195,13 +209,16 @@ analytic world drifting with the wind, 1 % noise), and on it:
    and std_seq (with ``--parent``: equal to the same run's on the
    parent's kernels).
 
+With ``--parent``, K1e at every shape above and K5 at phases 8 and 10
+are bitwise the parent's and timed in turns with it, and the batched K1e
+against the parent's E (K1e once per member).
+
 The last lines are a JSON object of per-kernel results (each kernel's
 bound: the larger of the bytes it must move over 3.35 TB/s and its f32
 operations over 67 TFLOP/s, from this run's inputs), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits non-zero at once, before any build.
 """
-import ctypes
 import hashlib
 import json
 import subprocess
@@ -458,6 +475,20 @@ def k1_bound(boxspline, kernels, coef2d, grid, o, d, n_steps, keep_path,
                  r * n_steps * FLOPS_K1_STEP)
 
 
+def k1e_bound(boxspline, grid, points, members=1):
+    """K1e (the batched K1e with ``members``) reads each point once and
+    each distinct table value the 7 live rows' 3 z taps of its points
+    touch once, of every member's table, and writes a value and a
+    gradient per point and member; ``FLOPS_K1E_POINT`` an evaluation."""
+    ri, _, zi, _ = boxspline.row_setup(grid, points)
+    nx, ny, nz = grid.shape
+    n = points.shape[0]
+    touched = touched_values(ri[:, :boxspline.ZP_LIVE_TRANSLATES], zi,
+                             nx * ny, nz)
+    return bound(4 * members * touched + nbytes(points) + 16 * members * n,
+                 members * n * FLOPS_K1E_POINT)
+
+
 def k5_bound(tricubic, grid, points):
     """K5 reads each point once and each distinct table value its points
     touch once, and writes a value and a gradient per point."""
@@ -530,15 +561,12 @@ def index_add_call(flat, contrib, size):
 
 class Parent:
     """The kernels of the checkout at ``root`` (``--parent DIR``), the
-    commit before K2 and K1 were redesigned, built from its sources with
-    this checkout's nvcc flags. ``run(fn)`` calls fn with every kernel the
-    parent's: the entries whose C interface this checkout kept (all but
-    K2's and K1's) through this checkout's wrappers on the parent's
-    library; K2 (``k2``: no point order, one thread a point) and K1
-    (``k1``: the table unpacked, the rays in their own order, 128 threads
-    a block) through their former interface in place of this checkout's
-    wrappers; ``tricubic.rows_value`` with any point order dropped, and
-    no point order built by a geometry made meanwhile.
+    commit before E's redesign (the batched K1e, E's block sizes), built
+    from its sources with this checkout's nvcc flags. ``run(fn)`` calls fn
+    with every kernel the parent's: each entry through this checkout's
+    wrapper on the parent's library (no C interface changed), and E over a
+    member axis as the parent ran it, its K1e once per member, in place of
+    the batched K1e the parent's library lacks.
 
     ctypes cannot check a C interface, so the parent's sources are
     declared by their SHA-256, and any other checkout is refused rather
@@ -554,13 +582,13 @@ class Parent:
         "rows_value_bwd_batched.cu":
             "10788403e8f237c3a501e37d334331abaece27724ff3bcb704ca481eea7126b8",
         "rows_value_fwd.cu":
-            "681553531e0e35a92f9284d5870a19e81d65f2173f7870eb319dad9388bd15cd",
+            "7adac6a2abe49870e08aa7e29f14d84706492e2eaa283d9b822051cb603a4b8d",
         "rows_value_fwd_batched.cu":
             "33b0b3474550fda8a1440c6ad76f61290a168eeaf73dfd0074e71c7df6c48c3b",
         "trace_leapfrog_cubic.cu":
             "8b2253a0dbd13030464fac466cbeba30c8954f061a6ec84282891ddc089c45c3",
         "trace_leapfrog_zp.cu":
-            "a898a7a175462d9035e1c44606da7b5f27e4193509d1b1f810fa80859e5bafaa",
+            "14fd0ee9d2a9c1df8e7cbca6a55126f9eefa3fee1805f24971abc052b847f699",
         "vector_gather.cu":
             "5b063dbb1d5f5919831d8b77c803be933e0631505087f81e99129808358ea07b",
         "zp_value_grad.cu":
@@ -568,13 +596,8 @@ class Parent:
         "zp_value_grad_bwd.cu":
             "eb6fb1308c6193f1a528bdeb52ae7c21be3c7e667df9382c1eb590bc5e878d90",
     }
-    KEPT = ("ionotomo_zp_value_grad", "ionotomo_rows_value_bwd",
-            "ionotomo_zp_value_grad_bwd", "ionotomo_vector_gather",
-            "ionotomo_cubic_value_grad", "ionotomo_cubic_value_grad_bwd",
-            "ionotomo_trace_leapfrog_cubic", "ionotomo_pack_z_taps",
-            "ionotomo_ray_order_keys", "ionotomo_rows_value_fwd_batched",
-            "ionotomo_rows_value_bwd_batched", "ionotomo_pack_members",
-            "ionotomo_fold_member_rows", "ionotomo_cuda_error_string")
+    #: this checkout's entries the parent's library does not have
+    NEW = ("ionotomo_zp_value_grad_batched",)
 
     def __init__(self, root):
         from ionotomo_tpu_torch.kernels import build
@@ -589,13 +612,8 @@ class Parent:
                 f"{sorted(set(got.items()) ^ set(self.SOURCES.items()))})")
         info = build.build(csrc, build.BUILD_DIR / "parent")
         self.build = build
-        self.lib = build.open_library(info["path"], self.KEPT)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        k2, k1 = (self.lib.ionotomo_rows_value_fwd,
-                  self.lib.ionotomo_trace_leapfrog_zp)
-        k2.argtypes = [p, i, i, p, p, i, p, p, i, i, i, p, p]
-        k1.argtypes = [p, p, p, i, i, i, p, p, i, i] + [f] * 6 + [p] * 4
-        k2.restype = k1.restype = i
+        self.lib = build.open_library(
+            info["path"], [n for n in build._SIGNATURES if n not in self.NEW])
         print(f"  parent kernels from {csrc} (built={info['built']} in "
               f"{info['seconds']:.2f} s)")
 
@@ -603,73 +621,26 @@ class Parent:
         """fn() with the parent's kernels behind this checkout's
         wrappers."""
         from ionotomo_tpu_torch import kernels
-        from ionotomo_tpu_torch.core import boxspline, tricubic
 
         saved = self.build.load()
-        rows_value = tricubic.rows_value
-        swaps = [(kernels, "rows_value_fwd", self.k2),
-                 (kernels, "trace_leapfrog_zp", self.k1),
-                 (tricubic, "rows_value",
-                  lambda *a, order=None, **k: rows_value(*a, **k)),
-                 (tricubic, "point_order", lambda *a, **k: None),
-                 (boxspline, "point_order", lambda *a, **k: None)]
-        wrappers = [(mod, n, getattr(mod, n)) for mod, n, _ in swaps]
+        batched = kernels.zp_value_grad_batched
         self.build._loaded["lib"] = self.lib
-        for mod, n, f in swaps:
-            setattr(mod, n, f)
+        kernels.zp_value_grad_batched = self.k1e_per_member
         try:
             return fn()
         finally:
             self.build._loaded["lib"] = saved
-            for mod, n, f in wrappers:
-                setattr(mod, n, f)
+            kernels.zp_value_grad_batched = batched
 
     @staticmethod
-    def _p(t):
-        return ctypes.c_void_p(t.data_ptr()) if t is not None else None
-
-    def _stream(self):
-        return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-    def k2(self, table, ri, wxy, zi, wz, xy_first, order=None):
-        """The parent's K2 over the points in their own order (a point
-        order is not its argument; ``run`` gives ``rows_value`` none and
-        lets no geometry build one)."""
-        if order is not None:
-            raise ValueError("the parent's K2 reads the points in ray order")
-        n, k = ri.shape
-        out = torch.empty((n,), dtype=torch.float32, device=table.device)
-        if n == 0:
-            return out
-        rc = self.lib.ionotomo_rows_value_fwd(
-            self._p(table), table.shape[0], table.shape[1], self._p(ri),
-            self._p(wxy), k, self._p(zi), self._p(wz), zi.shape[1], n,
-            int(bool(xy_first)), self._p(out), self._stream())
-        if rc:
-            raise RuntimeError(f"parent K2 launch failed ({rc})")
-        return out
-
-    def k1(self, coef2d, grid, origins, directions, n_steps, keep_path,
-           **consts):
-        """The parent's K1: the unpacked table, the rays in their own
-        order, 128 threads a block."""
+    def k1e_per_member(table, grid, points, packed=None):
+        """E over a member axis as the parent runs it: K1e once per
+        member (the pack is not its input)."""
         from ionotomo_tpu_torch import kernels
 
-        _, x_end, tau, path = kernels._trace_outputs(
-            "parent K1", 3, coef2d, grid, origins, directions, n_steps,
-            keep_path)
-        r = origins.shape[0]
-        if r == 0:
-            return x_end, tau, path
-        nx, ny, nz = grid.shape
-        rc = self.lib.ionotomo_trace_leapfrog_zp(
-            self._p(coef2d), self._p(grid.origin), self._p(grid.spacing), nx,
-            ny, nz, self._p(origins), self._p(directions), r, int(n_steps),
-            *kernels._consts(**consts), self._p(x_end), self._p(tau),
-            self._p(path), self._stream())
-        if rc:
-            raise RuntimeError(f"parent K1 launch failed ({rc})")
-        return x_end, tau, path
+        vals, grads = zip(*(kernels.zp_value_grad(t, grid, points)
+                            for t in table))
+        return torch.stack(vals), torch.stack(grads)
 
 
 def _outputs(x):
@@ -844,6 +815,42 @@ def point_order_line(label, kernels, model, setup, grid_shape):
                  bound_by=pb_by, library_ms=p_lib))
 
 
+def k1e_at(label, kernels, boxspline, table, grid, pts, parent=None,
+           reps=50):
+    """K1e at one shape: against its plain version (1e-5·max|table|; the
+    gradient over the smallest spacing too), timed beside the plain
+    version and its bound (the distinct values its points touch); with a
+    parent, bitwise the parent's K1e and timed in turns with it. Returns
+    the shape's line."""
+    def k1e():
+        return kernels.zp_value_grad(table, grid, pts)
+
+    v_k, g_k = k1e()
+    v_p, g_p = boxspline.interp_rows_with_grad_ref(table, grid, pts)
+    torch.cuda.synchronize()
+    tmax = float(table.abs().max())
+    err_v = float((v_k - v_p).abs().max())
+    err_g = float((g_k - g_p).abs().max())
+    gtol = 1e-5 * tmax / float(grid.spacing.min())
+    check(bool(torch.isfinite(v_k).all() and torch.isfinite(g_k).all()),
+          f"K1e at {label}: output finite")
+    check(err_v <= 1e-5 * tmax and err_g <= gtol,
+          f"K1e at {label}: value max|err| {err_v:.3e} <= 1e-5*max|table| "
+          f"{1e-5 * tmax:.3e}, gradient {err_g:.3e} <= {gtol:.3e}")
+    ms = device_ms(k1e, reps)
+    plain = device_ms(lambda: boxspline.interp_rows_with_grad_ref(
+        table, grid, pts), 5)
+    b_ms, b_by = k1e_bound(boxspline, grid, pts)
+    print(f"  K1e at {label}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"bound {b_ms:.6f} ms ({b_by}, distinct values)")
+    line = dict(max_abs_err=err_v, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, points=pts.shape[0])
+    if parent is not None:
+        line["parent_ms"], line["new_ms_in_turns"] = compare_parent(
+            f"K1e at {label}", lambda: parent.run(k1e), k1e, reps, pairs=3)
+    return line
+
+
 def phase2_kernels_vs_plain(dev, boxspline, tricubic, fermat, kernels,
                             Grid3D, chapman, results, parent=None):
     from ionotomo_tpu_torch.testing import edge_case_points
@@ -860,31 +867,10 @@ def phase2_kernels_vs_plain(dev, boxspline, tricubic, fermat, kernels,
                                             rng)).to(dev)
 
     # K1e: zp value + physical gradient
-    v_k, g_k = kernels.zp_value_grad(table, grid, pts)
-    v_p, g_p = boxspline.interp_rows_with_grad_ref(table, grid, pts)
-    torch.cuda.synchronize()
-    err_v = float((v_k - v_p).abs().max())
-    err_g = float((g_k - g_p).abs().max())
-    check(bool(torch.isfinite(v_k).all() and torch.isfinite(g_k).all()),
-          "K1e output finite")
-    check(err_v <= 1e-5 * tmax,
-          f"K1e value max|err| {err_v:.3e} <= 1e-5*max|table| "
-          f"{1e-5 * tmax:.3e}")
-    gtol = 1e-5 * tmax / min(spacing)
-    check(err_g <= gtol,
-          f"K1e gradient max|err| {err_g:.3e} <= {gtol:.3e}")
-    ms_ev = cuda_ms(lambda: kernels.zp_value_grad(table, grid, pts), 20)
-    ms_big = device_ms(lambda: kernels.zp_value_grad(table, grid, pts), 20)
-    plain_big = cuda_ms(
-        lambda: boxspline.interp_rows_with_grad_ref(table, grid, pts), 3)
-    b_ms, b_by = bound(nbytes(table, pts, v_k, g_k),
-                       pts.shape[0] * FLOPS_K1E_POINT)
-    print(f"  K1e at {pts.shape[0]} points: kernel {ms_big:.4f} ms (events "
-          f"{ms_ev:.4f}), plain "
-          f"{plain_big:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    results["zp_value_grad"] = {"err_grad": err_g, "line": dict(
-        max_abs_err=err_v, ms=ms_big, plain_ms=plain_big, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)}
+    results["k1e_edge"] = k1e_at(f"{pts.shape[0]} edge-case points",
+                                 kernels, boxspline, table, grid, pts,
+                                 parent, reps=20)
+    v_k, _ = kernels.zp_value_grad(table, grid, pts)
 
     # K2: the zp value gather (K=8, L=3, xy-first), inputs as interp_rows
     # makes them
@@ -1222,6 +1208,12 @@ def phase4_serving(dev, boxspline, fermat, rays, tec, kernels, Grid3D,
             results["k1_serving"]["new_ms_in_turns"] = compare_parent(
                 f"K1 at the serving batch ({o.shape[0]} rays)",
                 lambda: parent.run(k1), k1, 20, pairs=3)
+    # K1e at the first epoch's endpoints, as predict_bent evaluates E
+    grid_e, coef_e, ends = serving_endpoints(dev, boxspline, fermat, rays,
+                                             tec, Grid3D, chapman)
+    results["k1e_serving"] = k1e_at(
+        f"the serving batch's {ends.shape[0]} endpoints", kernels, boxspline,
+        coef_e, grid_e, ends, parent)
     if profile:
         profile_epoch(*on_dev[0][:1], grid, *on_dev[0][1:], boxspline,
                       fermat, rays, tec, kernels)
@@ -1611,6 +1603,10 @@ def phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
             bound_by=b_by, library_ms=lib_ms)
     check(not bool(plan.counters.any() or eplan.counters.any()),
           "the solve's plan counters back at zero")
+    # K1e, E of every J, at the solve's endpoints
+    results["zp_value_grad"] = {"line": k1e_at(
+        f"the solve's {n_ends} endpoints", kernels, boxspline, table, grid,
+        op.ends, parent)}
     for name in ("rows_value_fwd", "rows_value_bwd", "zp_value_grad_bwd"):
         parent_same(parent, f"{name} at the solve's shape",
                     at_solve_shape[name][0], 20)
@@ -2217,9 +2213,15 @@ def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
           f"plain {k5_plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     results["cubic_value_grad"] = {"line": dict(
         max_abs_err=err_v, ms=k5_ms, plain_ms=k5_plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)}
-    parent_same(parent, f"K5 at the solve's {n_ends} endpoints",
-                lambda: kernels.cubic_value_grad(table, grid, ends), 50)
+        bound_by=b_by, library_ms=None, points=n_ends)}
+    if parent is not None:
+        def k5():
+            return kernels.cubic_value_grad(table, grid, ends)
+
+        results["cubic_value_grad"]["line"].update(zip(
+            ("parent_ms", "new_ms_in_turns"), compare_parent(
+                f"K5 at the solve's {n_ends} endpoints",
+                lambda: parent.run(k5), k5, 50, pairs=3)))
     # K5ᵀ adds into K3's output in Jᵀ: a K3 table of the solve's samples
     k3_table = ops[w.rays.num_samples]._rows_t(torch.from_numpy(
         rng.normal(size=(ops[w.rays.num_samples].ri.shape[0],))
@@ -2482,6 +2484,59 @@ def member_layout_kernels(label, tricubic, kernels, tables, plan, rng):
     return lines
 
 
+def batched_k1e_at(label, dev, kernels, boxspline, grid, pts, rng,
+                   parent=None, reps=50):
+    """The batched K1e with B_MEMBERS random tables at one point set, over
+    a pack made beforehand (as K2b's gather shares it in the operator):
+    every member bitwise K1e on that member's table; within
+    1e-5·max|table| (the gradient over the smallest spacing) of the plain
+    version; timed beside B launches of K1e, the plain version and its
+    bound (every member's distinct values). With a parent: bitwise the
+    parent's E, its K1e once per member, and timed in turns with it."""
+    b = B_MEMBERS
+    nx, ny, nz = grid.shape
+    tables = torch.from_numpy(rng.normal(size=(b, nx * ny, nz))
+                              .astype(np.float32)).to(dev)
+    packed = kernels.pack_members(tables.view(b, -1))
+
+    def batched():
+        return kernels.zp_value_grad_batched(tables, grid, pts, packed)
+
+    def looped():
+        return [kernels.zp_value_grad(tables[m], grid, pts)
+                for m in range(b)]
+
+    v, g = batched()
+    check(all(torch.equal(v[m], vm) and torch.equal(g[m], gm)
+              for m, (vm, gm) in enumerate(looped())),
+          f"the batched K1e at {label}: every member bitwise K1e on that "
+          f"member")
+    v_p, g_p = boxspline.interp_rows_with_grad_batched_ref(tables, grid, pts)
+    tmax = float(tables.abs().max())
+    err_v = float((v - v_p).abs().max())
+    err_g = float((g - g_p).abs().max())
+    gtol = 1e-5 * tmax / float(grid.spacing.min())
+    check(err_v <= 1e-5 * tmax and err_g <= gtol,
+          f"the batched K1e at {label}: value max|err| {err_v:.3e} <= "
+          f"1e-5*max|table|, gradient {err_g:.3e} <= {gtol:.3e}")
+    del v, g, v_p, g_p
+    ms, loop_ms = device_ms(batched, reps), device_ms(looped, reps)
+    plain = device_ms(lambda: boxspline.interp_rows_with_grad_batched_ref(
+        tables, grid, pts), 2)
+    b_ms, b_by = k1e_bound(boxspline, grid, pts, members=b)
+    print(f"  the batched K1e at {label} (B={b}): kernel {ms:.4f} ms, "
+          f"{b} x K1e {loop_ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by})")
+    line = dict(max_abs_err=err_v, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, points=pts.shape[0],
+                unbatched_ms=loop_ms / b, looped_ms=loop_ms)
+    if parent is not None:
+        line["parent_ms"], line["new_ms_in_turns"] = compare_parent(
+            f"E over {b} members at {label} (the parent: K1e per member)",
+            lambda: parent.run(batched), batched, reps, pairs=3)
+    return line
+
+
 def phase11_member_kernels(dev, world, boxspline, tricubic, tec, kernels,
                            Grid3D, results, parent=None):
     from ionotomo_tpu_torch.testing import edge_case_points
@@ -2518,8 +2573,16 @@ def phase11_member_kernels(dev, world, boxspline, tricubic, tec, kernels,
             xy_first, rng, parent)
         del setup, plan
     n_outer = world.rays.num_rays * world.rays.num_samples
+    # the batched K1e at config 5's endpoints and at the edge-case points
+    ends = tec._endpoint_tangents(world.rays.points)[0]
+    for key, label, g, p in (
+            (f"zp@{n_outer}", f"config 5's {ends.shape[0]} endpoints",
+             world.grid, ends),
+            ("zp@edge", f"the {pts.shape[0]} edge-case points", grid, pts)):
+        at[key]["zp_value_grad_batched"] = batched_k1e_at(
+            label, dev, kernels, boxspline, g, p, rng, parent)
     for name in ("rows_value_fwd_batched", "rows_value_bwd_batched",
-                 "pack_members", "fold_member_rows"):
+                 "pack_members", "fold_member_rows", "zp_value_grad_batched"):
         results[name] = {"line": at[f"zp@{n_outer}"].pop(name)
                          if name in ("pack_members", "fold_member_rows")
                          else at[f"zp@{n_outer}"][name]}
@@ -2531,7 +2594,7 @@ class PlainCalls:
     phase can show that its kernel path reached none."""
 
     NAMES = ("rows_value_ref", "rows_value_transpose_ref",
-             "interp_rows_with_grad_ref",
+             "interp_rows_with_grad_ref", "interp_rows_with_grad_batched_ref",
              "interp_rows_with_grad_transpose_ref")
 
     def __init__(self, *modules):
@@ -2555,6 +2618,27 @@ class PlainCalls:
     def __exit__(self, *exc):
         for mod, name, fn in self.saved:
             setattr(mod, name, fn)
+
+
+class MemberE:
+    """Counts E's applications to a member axis while active: calls of
+    ``PairedDtecLinear._value_grad`` with a (B, R, nz) table."""
+
+    def __init__(self, tec):
+        self.cls, self.count = tec.PairedDtecLinear, 0
+
+    def __enter__(self):
+        self.saved = fn = self.cls._value_grad
+
+        def counted(op, table, *a, **k):
+            self.count += table.dim() == 3
+            return fn(op, table, *a, **k)
+
+        self.cls._value_grad = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._value_grad = self.saved
 
 
 def timed(fn):
@@ -2609,7 +2693,9 @@ def phase12_config5(dev, world, boxspline, tricubic, tec, kernels, configs,
         return timed(lambda: configs.config5_filter(
             w, chunk=chunk, geometry_cache=cache, **kw))
 
+    kernels.reset_launches()
     (m_a, pre_a, post_a), secs_a = run()
+    results["config5_run_launches"] = dict(kernels.launches)
     (m_b, pre_b, post_b), secs_b = run()
     check(bool(torch.isfinite(m_a).all()), "filtered state finite")
     check(bool(torch.equal(m_a, m_b) and torch.equal(pre_a, pre_b)
@@ -2624,6 +2710,12 @@ def phase12_config5(dev, world, boxspline, tricubic, tec, kernels, configs,
     check(bool((post_a < pre_a).all()),
           "every step's post-update residual is below its pre-update "
           "residual")
+    # K1e, E of every step's J, at the outer bundle's endpoints
+    nx, ny, nz = w.grid.shape
+    results["k1e_config5"] = k1e_at(
+        f"config 5's {2 * w.rays.num_rays} endpoints", kernels, boxspline,
+        boxspline.prefilter(w.m_bg).reshape(nx * ny, nz), w.grid,
+        tec._endpoint_tangents(w.rays.points)[0], parent)
 
     # the first chunk on the plain versions of the kernels
     (m_k, pre_k, post_k), _ = run(n_steps=chunk)
@@ -2697,7 +2789,8 @@ def phase13_enkf(dev, world, cache, boxspline, tricubic, tec, kernels,
 
     run(n_steps=1)                                   # warm-up
     kernels.reset_launches()
-    with PlainCalls(tricubic, boxspline) as plain_calls:
+    with PlainCalls(tricubic, boxspline) as plain_calls, \
+            MemberE(tec) as e_calls:
         res_a, secs_a = run(n_steps=n_steps)
         launches = dict(kernels.launches)
     print(f"  launches in one run of {n_steps} ensemble steps: {launches}")
@@ -2708,10 +2801,14 @@ def phase13_enkf(dev, world, cache, boxspline, tricubic, tec, kernels,
     check(launches["rows_value_fwd"] == 0 and launches["rows_value_bwd"] == 0,
           "the member update launched K2b and K3b, and the unbatched K2 and "
           "K3 not once in their place")
-    check(launches["zp_value_grad"] % b == 0
-          and launches["zp_value_grad_bwd"] % b == 0,
-          f"the endpoint kernels ran once per member "
-          f"({launches['zp_value_grad']}, {launches['zp_value_grad_bwd']})")
+    check(launches["zp_value_grad"] == 0
+          and launches["zp_value_grad_batched"] == e_calls.count,
+          f"E on the member axis: the batched K1e once per application "
+          f"({launches['zp_value_grad_batched']} launches, {e_calls.count} "
+          f"applications), the unbatched K1e never")
+    check(launches["zp_value_grad_bwd"] % b == 0,
+          f"the endpoint transpose ran once per member "
+          f"({launches['zp_value_grad_bwd']})")
     check(plain_calls.count == 0, "the kernel path called no plain version")
     res_b, secs_b = run(n_steps=n_steps)
     ra, rb_ = res_a[0], res_b[0]
@@ -3214,6 +3311,154 @@ def k5t_study(reps=20) -> int:
     return 0
 
 
+def serving_endpoints(dev, boxspline, fermat, rays, tec, Grid3D, chapman):
+    """Phase 4's first serving epoch: (grid, the prefiltered zp table, the
+    1,240 endpoints of its 620 bent rays), the points at which
+    ``predict_bent`` evaluates E."""
+    grid_cpu = Grid3D.from_bounds(*BOUNDS, (N_GRID,) * 3, device="cpu")
+    grid = grid_cpu.to(dev)
+    r, ants, dirs = serving_epochs()[0]
+    m = torch.from_numpy(perturbed_log_field(grid_cpu, r, chapman)).to(dev)
+    o, dv = rays.make_ray_batch(torch.from_numpy(ants).to(dev),
+                                torch.from_numpy(dirs).to(dev))
+    rb, _ = fermat.trace_rays(m, grid, o, dv, FREQ_HZ, LENGTH_KM,
+                              n_steps=N_STEPS, keep_path=True,
+                              method="leapfrog", interp="zp")
+    ends, _ = tec._endpoint_tangents(rb.points)
+    return grid, boxspline.prefilter(m).reshape(N_GRID * N_GRID, N_GRID), ends
+
+
+def straight_endpoints(configs, chapman, tec, dev, n_grid):
+    """(grid, endpoints) of the 100 x 100 straight rays (65 samples) in the
+    n_grid^3 grid enclosing them: config 3b's and config 5's 20,000 at
+    128^3 (one geometry: both bundles are ``configs.make_rays(100,
+    100)``), config 4's at 256^3."""
+    ants, dirs = configs.make_rays(100, 100)
+    grid = chapman.grid_enclosing_rays(ants, dirs, shape=(n_grid,) * 3,
+                                       h_min_km=0.0, device=dev)
+    rb = configs.straight_bundle(ants, dirs, 65, dev)
+    return grid, tec._endpoint_tangents(rb.points)[0]
+
+
+def e_study(reps=50) -> int:
+    """``--e-study``: what binds E, the endpoint value + gradient kernels,
+    at the main paths' endpoints: K1e at serving's 1,240 (phase 4's first
+    epoch) and at config 3b's and config 5's 20,000; K5 at config 4's
+    20,000; E over 8 members at config 5's 20,000, eight launches of K1e
+    against one of the batched K1e (over a pack made beforehand, as the
+    operator shares K2b's). Each kernel at 32, 64, 128 and 256 threads a
+    block (the library built again for each through ``build.build(defines=
+    ...)``), in ray order and in endpoint order (the endpoints sorted by
+    their stencil's base cell, ``kernels.point_order`` of their row
+    set-up: the kernels read them permuted and leave their outputs in that
+    order, so the order's reads are timed without the scattered writes an
+    ordered kernel would add), every variant bitwise the default build in
+    ray order (permuted alike), timed in two passes of opposite order.
+    Each shape's bound: the distinct table values its endpoints touch (all
+    members for the batched shape), the points read and the outputs
+    written once. Prints ptxas's registers of each build."""
+    from ionotomo_tpu_torch import configs, kernels
+    from ionotomo_tpu_torch.core import boxspline, tricubic
+    from ionotomo_tpu_torch.core.grids import Grid3D
+    from ionotomo_tpu_torch.forward import tec
+    from ionotomo_tpu_torch.geometry import fermat, rays
+    from ionotomo_tpu_torch.kernels import build
+    from ionotomo_tpu_torch.models import chapman
+
+    dev = torch.device("cuda", 0)
+    print(f"card: {card_line()}")
+    sizes = (32, 64, 128, 256)
+    names = ("ZP_VALUE_GRAD_THREADS", "ZP_VALUE_GRAD_BATCHED_THREADS",
+             "CUBIC_VALUE_GRAD_THREADS")
+    libs = {}
+    for bs in sizes:
+        info = build.build(defines=tuple(f"{n}={bs}" for n in names))
+        libs[bs] = build.open_library(info["path"])
+        for kern, regs in ptxas_lines(info["log"], ("zp_value_grad_kernel",
+                                                    "zp_value_grad_batched",
+                                                    "cubic_value_grad_kernel")):
+            print(f"  ptxas, {bs} threads: {kern}: {regs}")
+    default = build.load()
+
+    def with_lib(bs, fn):
+        build._loaded["lib"] = libs[bs]
+        try:
+            return fn()
+        finally:
+            build._loaded["lib"] = default
+
+    rng = np.random.default_rng(9)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(dev)
+
+    grid_s, coef_s, ends_s = serving_endpoints(dev, boxspline, fermat, rays,
+                                               tec, Grid3D, chapman)
+    grid5, ends5 = straight_endpoints(configs, chapman, tec, dev, N_GRID)
+    grid4, ends4 = straight_endpoints(configs, chapman, tec, dev, 256)
+    tables5 = rand(B_MEMBERS, grid5.shape[0] * grid5.shape[1],
+                   grid5.shape[2])
+    packed5 = kernels.pack_members(tables5.view(B_MEMBERS, -1))
+    field4 = rand(grid4.shape[0] * grid4.shape[1], grid4.shape[2])
+
+    def perm_of(model, grid, pts):
+        ri, _, zi, _ = model.row_setup(grid, pts)
+        return kernels.point_order(ri, zi, model.BASE_TRANSLATE,
+                                   grid.shape).long()
+
+    def k1e(coef, grid):
+        return lambda pts: kernels.zp_value_grad(coef, grid, pts)
+
+    def looped(pts):
+        return [t for b in range(B_MEMBERS)
+                for t in kernels.zp_value_grad(tables5[b], grid5, pts)]
+
+    def batched(pts):
+        return kernels.zp_value_grad_batched(tables5, grid5, pts, packed5)
+
+    cases = [
+        ("K1e at serving's endpoints", k1e(coef_s, grid_s), ends_s,
+         boxspline, grid_s, k1e_bound(boxspline, grid_s, ends_s)),
+        ("K1e at config 3b's and 5's endpoints", k1e(tables5[0], grid5),
+         ends5, boxspline, grid5, k1e_bound(boxspline, grid5, ends5)),
+        ("K5 at config 4's endpoints",
+         lambda pts: kernels.cubic_value_grad(field4, grid4, pts), ends4,
+         tricubic, grid4, k5_bound(tricubic, grid4, ends4)),
+        (f"{B_MEMBERS} x K1e at config 5's endpoints", looped, ends5,
+         boxspline, grid5,
+         k1e_bound(boxspline, grid5, ends5, members=B_MEMBERS)),
+        (f"the batched K1e, {B_MEMBERS} members, at config 5's endpoints",
+         batched, ends5, boxspline, grid5,
+         k1e_bound(boxspline, grid5, ends5, members=B_MEMBERS)),
+    ]
+    for label, fn, pts, model, grid, (b_ms, b_by) in cases:
+        n, perm = pts.shape[0], perm_of(model, grid, pts)
+        orders = {"ray order": pts, "endpoint order": pts[perm].contiguous()}
+        want = [t.clone() for t in _outputs(fn(pts))]
+        torch.cuda.synchronize()
+        print(f"  {label} ({pts.shape[0]} points): bound {b_ms:.6f} ms "
+              f"({b_by})")
+        times = {}
+        for pass_ in (sizes, sizes[::-1]):
+            for bs in pass_:
+                for order, p in orders.items():
+                    got = with_lib(bs, lambda: _outputs(fn(p)))
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, w if order == "ray order"
+                                          else w[perm] if w.shape[0] == n
+                                          else w[:, perm])
+                              for a, w in zip(got, want)),
+                          f"{label}, {bs} threads, {order}: bitwise the "
+                          f"default build in ray order")
+                    times.setdefault((bs, order), []).append(with_lib(
+                        bs, lambda: device_ms(lambda: fn(p), reps)))
+        for (bs, order), t in sorted(times.items()):
+            print(f"  {label}, {bs} threads a block, {order}: "
+                  f"{', '.join(f'{x:.4f}' for x in t)} ms")
+    return 0
+
+
 def ptxas_lines(log, fragments):
     """(kernel, "Used ... registers ...") of each kernel in an nvcc -Xptxas
     -v log whose mangled name holds one of ``fragments``; the kernel named
@@ -3366,8 +3611,10 @@ def kernels_line(results) -> dict:
     """The per-kernel JSON object of a run from the phases' results."""
     from ionotomo_tpu_torch.testing import MEMBER_KERNELS
     src = "ionotomo_tpu_torch/kernels/csrc/"
-    # launches: K1, K1e and K2 in the serving run (phase 4), K1's pack in
-    # one trace of bench.py's batch (phase 3), K3
+    # launches: K1, K1e and K2 in the serving run (phase 4; K1e's
+    # launches on every main path beside it in "launches_by_path": one
+    # config-3b solve, config 5's 30 chunked steps, 6 ensemble steps),
+    # K1's pack in one trace of bench.py's batch (phase 3), K3
     # and K1eᵀ in the config-3b solve (phase 6), KG in the probe (phase 7),
     # K1c and the pack and key kernels it launches in config 2 (phase 9),
     # K5, K5ᵀ, the point order's keys and its permute in config 4 (phase
@@ -3375,8 +3622,10 @@ def kernels_line(results) -> dict:
     # and bound: K1's call at the bench shape (262144 rays x 64 steps: the
     # pack, the sort and the tracer), K1's pack of the 128^3 table (phase
     # 2), the point order's keys and its permute at config 4's 650,000
-    # points (library_ms of the permute: index_select); K1e at 2^20
-    # points (phase 2); K2 (over the geometry's point order), K3 and K1eᵀ
+    # points (library_ms of the permute: index_select); K1e at the
+    # config-3b solve's 20,000 endpoints (phase 6; "at" holds it at
+    # serving's endpoints, config 5's and phase 2's edge-case points); K2
+    # (over the geometry's point order), K3 and K1eᵀ
     # at the config-3b solve's shapes (650,000 points, 20,000 endpoints);
     # KG at (16384, 128); K1c at
     # config 2's saturated batch (262144 rays x 128 steps: the call, the
@@ -3389,7 +3638,9 @@ def kernels_line(results) -> dict:
     # of config 4's run. K2b and K3b: launches in one run of the ensemble
     # filter (phase 13), error, ms (the whole call: K2b's pack, K3b's pack
     # and fold included) and bound at config 5's outer bundle (650,000
-    # points, 8 members; phase 11); the pack (of the 8 tables) and the fold
+    # points, 8 members; phase 11), the batched K1e at its 20,000
+    # endpoints (over a pack made beforehand, as K2b's is shared); the
+    # pack (of the 8 tables) and the fold
     # (of random partial rows over that bundle's plan) alone there, with
     # their launches in the same run; "kernels_at_member_shapes" holds K2b
     # and K3b at phase 11's other shapes, each beside the unbatched
@@ -3410,6 +3661,8 @@ def kernels_line(results) -> dict:
         ("trace_leapfrog_zp", "trace_leapfrog_zp.cu",
          "ionotomo_tpu/geometry/fermat.py:204"),
         ("zp_value_grad", "zp_value_grad.cu",
+         "ionotomo_tpu/core/boxspline.py:253"),
+        ("zp_value_grad_batched", "zp_value_grad.cu",
          "ionotomo_tpu/core/boxspline.py:253"),
         ("rows_value_fwd", "rows_value_fwd.cu",
          "ionotomo_tpu/core/tricubic.py:284"),
@@ -3464,12 +3717,25 @@ def kernels_line(results) -> dict:
             at4.append({**entry(name, name + ".cu", rep[name], c4[name],
                                 line), "shape": label})
     reps = {name: (f, rep) for name, f, rep in entries}
+    k1e = {**entry("zp_value_grad", *reps["zp_value_grad"],
+                   launches["zp_value_grad"], results["zp_value_grad"]["line"]),
+           "launches_by_path": {
+               "serving": results["launches"]["zp_value_grad"],
+               "config3b_solve": results["solve_launches"]["zp_value_grad"],
+               "config5_30_steps":
+                   results["config5_run_launches"]["zp_value_grad"],
+               "enkf_6_steps": results["enkf_launches"]["zp_value_grad"],
+               "enkf_6_steps_batched":
+                   results["enkf_launches"]["zp_value_grad_batched"]},
+           "at": {k: results[k] for k in ("k1e_serving", "k1e_config5",
+                                          "k1e_edge")}}
     members = [{**entry(name, *reps[name], launches[name], line),
                 "shape": shape, "members": B_MEMBERS,
                 "unbatched_ms": line["unbatched_ms"]}
                for shape, lines in results["at_member_shapes"].items()
                for name, line in lines.items()]
-    return {"kernels": [entry(name, f, rep, launches[name],
+    return {"kernels": [k1e if name == "zp_value_grad" else
+                        entry(name, f, rep, launches[name],
                               results[name]["line"])
                         for name, f, rep in entries],
             "kernels_at_config4": at4, "kernels_at_member_shapes": members}
@@ -3484,6 +3750,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    if "--e-study" in args:
+        return e_study()
     if "--k1c-study" in args:
         return k1c_study()
     if "--k5t-study" in args:

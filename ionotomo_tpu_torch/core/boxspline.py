@@ -12,9 +12,10 @@ inverse along z, a truncated Neumann series of the ZP sample mask in
 On CUDA tensors the evaluators run the hand-written kernels: the value
 path's gather-and-contract is K2 (``core.tricubic.rows_value``, with K3
 as its transpose; ``point_order`` the order K2 runs a fixed point set
-in), value + gradient is K1e and its transpose with respect to the table
-K1eᵀ. On CPU tensors they run the plain versions in this module, ports of
-the reference's jnp code. ``interp_rows_with_grad_taps_ref`` is K1e's and
+in), value + gradient is K1e (``interp_rows_with_grad_batched``: over
+the tables of an ensemble's members, one launch) and its transpose with
+respect to the table K1eᵀ. On CPU tensors they run the plain versions in
+this module, ports of the reference's jnp code. ``interp_rows_with_grad_taps_ref`` is K1e's and
 K1's evaluator summed in the kernels' order, and ``pack_z_taps_ref`` and
 ``interp_rows_with_grad_packed_ref`` the plain versions of K1's
 z-tap-packed table and its evaluator, bitwise equal to that twin.
@@ -34,7 +35,7 @@ import torch
 from .. import kernels
 from .grids import Grid3D
 from .precision import check_full_f32
-from .tricubic import scatter_add_
+from .tricubic import check_pack, scatter_add_
 from .triquadratic import _prefilter_matrix, _qb_weights, _qb_dweights
 
 # Per-piece translate offsets (7 + zero-weight pad) and quadratic
@@ -376,6 +377,30 @@ def interp_rows_with_grad(coef2d: torch.Tensor, grid: Grid3D,
     if points.is_cuda:
         return kernels.zp_value_grad(coef2d, grid, points)
     return interp_rows_with_grad_ref(coef2d, grid, points)
+
+
+def interp_rows_with_grad_batched_ref(table: torch.Tensor, grid: Grid3D,
+                                      points: torch.Tensor):
+    """Plain PyTorch version of the batched K1e: ``interp_rows_with_grad_ref``
+    on each member's table of ``table`` (B, nx*ny, nz), stacked → value
+    (B, N), gradient (B, N, 3)."""
+    vals, grads = zip(*(interp_rows_with_grad_ref(t, grid, points)
+                        for t in table))
+    return torch.stack(vals), torch.stack(grads)
+
+
+def interp_rows_with_grad_batched(table: torch.Tensor, grid: Grid3D,
+                                  points: torch.Tensor, pack=None):
+    """``interp_rows_with_grad`` on each member's table of ``table`` (B,
+    nx*ny, nz): the batched K1e on CUDA, one launch for all members, over
+    ``pack`` (the table's ``tricubic.member_pack``, shared with K2b's
+    gather) or a pack of its own; ``interp_rows_with_grad_batched_ref`` on
+    the CPU. Member b is bitwise ``interp_rows_with_grad(table[b], ...)``
+    on either."""
+    packed = check_pack(pack, table, "interp_rows_with_grad_batched")
+    if points.is_cuda:
+        return kernels.zp_value_grad_batched(table, grid, points, packed)
+    return interp_rows_with_grad_batched_ref(table, grid, points)
 
 
 def interp_rows_with_grad_transpose_ref(grid: Grid3D, points: torch.Tensor,

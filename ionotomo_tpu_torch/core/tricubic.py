@@ -42,7 +42,10 @@ is bitwise the unbatched kernel on member b. Both read the member axis
 packed innermost (``kernels.pack_members``, plain version
 ``pack_members_ref``, its inverse ``unpack_members_ref``; K2b's gather
 over the pack ``rows_value_packed_ref``; K3b's fold of rows of several
-segments ``fold_member_rows_ref``). Batched indices loop the
+segments ``fold_member_rows_ref``). A caller that also evaluates the zp
+endpoint terms on the same table (``forward.tec.PairedDtecLinear``)
+packs it once (``member_pack``, a ``MemberPack``) and hands the pack to
+K2b and to the batched K1e. Batched indices loop the
 unbatched call, as the reference falls back to its vmapped plain
 implementation there; batched weights over an unbatched table (the
 reference: "rare; not a production path") raise NotImplementedError.
@@ -126,6 +129,41 @@ def rows_value_packed_ref(packed, n_members: int, table_shape, ri, wxy,
         pencil = torch.einsum("gnklm,nl->gnkm", taps, wz)
         out = torch.einsum("gnkm,nk->gnm", pencil, wxy)
     return out.transpose(1, 2).reshape(-1, ri.shape[0])[:n_members]
+
+
+@dataclasses.dataclass(frozen=True)
+class MemberPack:
+    """The member-innermost pack (``kernels.pack_members``) of one (B, R,
+    nz) table on the card, which K2b's gather (``rows_value``) and the
+    batched K1e (``boxspline.interp_rows_with_grad_batched``) read in
+    place of the table: made by a caller that runs both on one table, and
+    dropped with that call. ``table`` is the tensor it was packed from, so
+    that each takes the pack only with it."""
+
+    table: torch.Tensor
+    packed: torch.Tensor = dataclasses.field(repr=False)
+
+    def of(self, table) -> bool:
+        """Whether this is the pack of exactly this tensor."""
+        return self.table is table
+
+
+def member_pack(table: torch.Tensor) -> MemberPack:
+    """The ``MemberPack`` of a (B, R, nz) table on the card (one launch
+    of ``kernels.pack_members``)."""
+    return MemberPack(table, kernels.pack_members(
+        table.reshape(table.shape[0], -1)))
+
+
+def check_pack(pack, table, who: str):
+    """The packed tensor of ``pack`` (None for none), raising unless it
+    is the pack of ``table``."""
+    if pack is None:
+        return None
+    if not pack.of(table):
+        raise ValueError(f"{who}: pack is the MemberPack of another tensor "
+                         f"than the table")
+    return pack.packed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -365,7 +403,7 @@ class _RowsValue(torch.autograd.Function):
     (with respect to the table only, like the reference's)."""
 
     @staticmethod
-    def forward(ctx, table, ri, wxy, zi, wz, xy_first, plan, order):
+    def forward(ctx, table, ri, wxy, zi, wz, xy_first, plan, order, packed):
         if ctx.needs_input_grad[2] or ctx.needs_input_grad[4]:
             raise NotImplementedError(
                 "rows_value: gradients with respect to the weights are not "
@@ -377,7 +415,7 @@ class _RowsValue(torch.autograd.Function):
             return rows_value_ref(table, ri, wxy, zi, wz, xy_first)
         if table.dim() == 3:
             return kernels.rows_value_fwd_batched(table, ri, wxy, zi, wz,
-                                                  xy_first)
+                                                  xy_first, packed)
         if order is None:
             return kernels.rows_value_fwd(table, ri, wxy, zi, wz, xy_first)
         return kernels.rows_value_fwd(table, order.ri, order.wxy, order.zi,
@@ -388,12 +426,13 @@ class _RowsValue(torch.autograd.Function):
         ri, wxy, zi, wz = ctx.saved_tensors
         table_ct = rows_value_transpose(ct, ri, wxy, zi, wz, ctx.table_shape,
                                         ctx.plan)
-        return table_ct, None, None, None, None, None, None, None
+        return table_ct, None, None, None, None, None, None, None, None
 
 
 def rows_value(table, ri, wxy, zi, wz, xy_first: bool,
                plan: RowPlan | None = None,
-               order: PointOrder | None = None) -> torch.Tensor:
+               order: PointOrder | None = None,
+               pack: MemberPack | None = None) -> torch.Tensor:
     """Row-gather value map, differentiable in the table. table (R, nz);
     ri (N, K) int32; wxy (N, K); zi (N, L) int32; wz (N, L) → (N,).
     Kernel K2 forward and K3 backward on CUDA (``plan``: the pairs of
@@ -401,7 +440,8 @@ def rows_value(table, ri, wxy, zi, wz, xy_first: bool,
     ``order``: the model's ``point_order`` of exactly these tensors,
     which K2 runs them in, reading its permuted copies, and which changes
     no output bit; None: ray order; a batched table runs K2b and leaves
-    the order aside);
+    the order aside, over ``pack``, the table's ``member_pack``, where
+    the caller made one);
     ``rows_value_ref`` and ``rows_value_transpose_ref`` on the CPU.
 
     A member axis: table (B, R, nz) over shared indices and weights →
@@ -421,7 +461,8 @@ def rows_value(table, ri, wxy, zi, wz, xy_first: bool,
     if order is not None and not order.of(ri, wxy, zi, wz):
         raise ValueError("rows_value: order is the PointOrder of other "
                          "tensors than ri, wxy, zi, wz")
-    return _RowsValue.apply(table, ri, wxy, zi, wz, xy_first, plan, order)
+    return _RowsValue.apply(table, ri, wxy, zi, wz, xy_first, plan, order,
+                            check_pack(pack, table, "rows_value"))
 
 
 # --- the Catmull-Rom tricubic field model ---------------------------------

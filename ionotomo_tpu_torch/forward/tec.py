@@ -36,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from .. import constants
-from ..core import tricubic
+from ..core import boxspline, tricubic
 from ..core.field_models import field_model
 from ..core.grids import Grid3D
 from ..core.precision import check_full_f32
@@ -391,7 +391,9 @@ class PairedDtecLinear:
 
     **Member axis.** m0, δm and y may carry one leading axis (B, ...): the
     members of an ensemble over the shared geometry. Then R is kernel K2b
-    and Rᵀ kernel K3b, one launch for all members; the endpoint terms E
+    and Rᵀ kernel K3b, one launch for all members; on zp E is the batched
+    K1e, one launch too, over the member pack of the table that K2b reads
+    (``tricubic.member_pack``, made once in the application); E on cubic
     and Eᵀ (20,000 points a bundle) launch their unbatched kernels once
     per member. An operator linearised about one field also takes batched
     δm and y (the square-root anchor update applies one K to all
@@ -416,13 +418,15 @@ class PairedDtecLinear:
         self.geometry = geo
         table0 = geo.model.table(field_m0, grid).contiguous()
         lead = table0.shape[:-2]
-        self.ne = constants.K_NE * torch.exp(self._rows(table0))
+        pack = self._pack(table0)
+        self.ne = constants.K_NE * torch.exp(self._rows(table0, pack))
         ne3 = self.ne.reshape(lead + (geo.na, geo.nd, geo.n))
         if not geo.hermite:
             self.g0 = _paired_simpson_ne(ne3, geo.w, rays, geo.i0).reshape(
                 lead + (-1,))
             return
-        m_e, gm_e = self._value_grad(table0)
+        m_e, gm_e = self._value_grad(table0, pack)
+        del pack
         self.ne_e = constants.K_NE * torch.exp(m_e)
         self.slope = torch.einsum("...pd,pd->...p", gm_e, geo.t_hat)
         dnds = self.ne_e * self.slope
@@ -437,11 +441,20 @@ class PairedDtecLinear:
             raise AttributeError(name)
         return getattr(self.geometry, name)
 
-    def _rows(self, table: torch.Tensor) -> torch.Tensor:
+    def _pack(self, table: torch.Tensor):
+        """The member pack of a (B, R, nz) table on the card, which K2b
+        and the batched K1e both read: made once an application, dropped
+        with it. None for one table and on the CPU."""
+        if table.dim() == 3 and table.is_cuda:
+            return tricubic.member_pack(table)
+        return None
+
+    def _rows(self, table: torch.Tensor, pack=None) -> torch.Tensor:
         geo = self.geometry
         return tricubic.rows_value(
             table, geo.ri, geo.wxy, geo.zi, geo.wz, geo.model.xy_first,
-            order=geo.point_order() if table.dim() == 2 else None)
+            order=geo.point_order() if table.dim() == 2 else None,
+            pack=pack)
 
     def _rows_t(self, ct: torch.Tensor) -> torch.Tensor:
         geo = self.geometry
@@ -449,17 +462,19 @@ class PairedDtecLinear:
             ct.contiguous(), geo.ri, geo.wxy, geo.zi, geo.wz,
             geo.table_shape, geo.row_plan)
 
-    def _value_grad_1(self, table: torch.Tensor):
+    def _value_grad(self, table: torch.Tensor, pack=None):
+        """E: value and gradient at the endpoints. For a (B, R, nz) table:
+        all members at once on zp (the batched K1e over ``pack``), member
+        by member on cubic."""
         geo = self.geometry
-        return geo.model.rows.interp_rows_with_grad(table, geo.grid,
-                                                    geo.ends)
-
-    def _value_grad(self, table: torch.Tensor):
-        """E: value and gradient at the endpoints; member by member for a
-        (B, R, nz) table."""
+        rows = geo.model.rows
         if table.dim() == 2:
-            return self._value_grad_1(table)
-        vals, grads = zip(*(self._value_grad_1(t) for t in table))
+            return rows.interp_rows_with_grad(table, geo.grid, geo.ends)
+        if rows is boxspline:
+            return rows.interp_rows_with_grad_batched(table, geo.grid,
+                                                      geo.ends, pack)
+        vals, grads = zip(*(rows.interp_rows_with_grad(t, geo.grid, geo.ends)
+                            for t in table))
         return torch.stack(vals), torch.stack(grads)
 
     def _value_grad_t_add_(self, table, ct_value, ct_grad) -> torch.Tensor:
@@ -480,13 +495,15 @@ class PairedDtecLinear:
         check_full_f32()
         geo = self.geometry
         t = geo.model.table(dm, geo.grid).contiguous()
-        dne = self.ne * self._rows(t)
+        pack = self._pack(t)
+        dne = self.ne * self._rows(t, pack)
         lead = dne.shape[:-1]
         dne = dne.reshape(lead + (geo.na, geo.nd, geo.n))
         if not geo.hermite:
             return _paired_simpson_ne(dne, geo.w, geo.rays, geo.i0).reshape(
                 lead + (-1,))
-        dm_e, dgm_e = self._value_grad(t)
+        dm_e, dgm_e = self._value_grad(t, pack)
+        del pack
         dd = ((self.ne_e * dm_e) * self.slope
               + self.ne_e * torch.einsum("...pd,pd->...p", dgm_e, geo.t_hat))
         r = dd.shape[-1] // 2
@@ -528,7 +545,10 @@ class _PlainPairedDtecLinear(PairedDtecLinear):
 
     _plans = False
 
-    def _rows(self, table: torch.Tensor) -> torch.Tensor:
+    def _pack(self, table: torch.Tensor):
+        return None
+
+    def _rows(self, table: torch.Tensor, pack=None) -> torch.Tensor:
         geo = self.geometry
         return tricubic.rows_value_ref(table, geo.ri, geo.wxy, geo.zi,
                                        geo.wz, geo.model.xy_first)
@@ -538,10 +558,13 @@ class _PlainPairedDtecLinear(PairedDtecLinear):
         return tricubic.rows_value_transpose_ref(
             ct, geo.ri, geo.wxy, geo.zi, geo.wz, geo.table_shape)
 
-    def _value_grad_1(self, table: torch.Tensor):
+    def _value_grad(self, table: torch.Tensor, pack=None):
         geo = self.geometry
-        return geo.model.rows.interp_rows_with_grad_ref(table, geo.grid,
-                                                        geo.ends)
+        ref = geo.model.rows.interp_rows_with_grad_ref
+        if table.dim() == 2:
+            return ref(table, geo.grid, geo.ends)
+        vals, grads = zip(*(ref(t, geo.grid, geo.ends) for t in table))
+        return torch.stack(vals), torch.stack(grads)
 
     def _value_grad_t_add_(self, table, ct_value, ct_grad) -> torch.Tensor:
         geo = self.geometry

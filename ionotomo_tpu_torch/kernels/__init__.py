@@ -4,7 +4,9 @@
   (csrc/trace_leapfrog_zp.cu), for a large batch over the rays sorted
   (``ray_order``) and the table's z taps packed first (``pack_zp_taps``,
   same source);
-- K1e ``zp_value_grad``: zp value + physical gradient at points
+- K1e ``zp_value_grad``: zp value + physical gradient at points, and
+  ``zp_value_grad_batched`` the same for the tables of an ensemble's
+  members in one launch, over their member-innermost pack
   (csrc/zp_value_grad.cu);
 - K2  ``rows_value_fwd``: the row-gather value map, over a point order
   where the caller keeps one (``point_order``, whose keys
@@ -53,7 +55,8 @@ import torch
 from . import build
 
 #: Kernel launches per wrapper since the last ``reset_launches()``.
-launches = {"trace_leapfrog_zp": 0, "zp_value_grad": 0, "rows_value_fwd": 0,
+launches = {"trace_leapfrog_zp": 0, "zp_value_grad": 0,
+            "zp_value_grad_batched": 0, "rows_value_fwd": 0,
             "rows_value_bwd": 0, "zp_value_grad_bwd": 0, "vector_gather": 0,
             "cubic_value_grad": 0, "cubic_value_grad_bwd": 0,
             "trace_leapfrog_cubic": 0, "pack_z_taps": 0,
@@ -99,14 +102,18 @@ def _check(name: str, specs) -> torch.device:
     return device
 
 
-def _grid_specs(name: str, coef2d, grid, min_axis: int = 3):
-    """Specs of a field model's table and grid; the zp model needs 3
-    samples an axis, the tricubic model 2."""
+def _grid_specs(name: str, coef2d, grid, min_axis: int = 3,
+                members: int = None):
+    """Specs of a field model's table (B of them with ``members``) and
+    grid; the zp model needs 3 samples an axis, the tricubic model 2."""
     nx, ny, nz = grid.shape
     if min(grid.shape) < min_axis:
         raise ValueError(f"{name}: every grid axis needs >= {min_axis} "
                          f"samples, got {grid.shape}")
-    return [("coef2d", coef2d, torch.float32, (nx * ny, nz)),
+    table = (("coef2d", coef2d, torch.float32, (nx * ny, nz))
+             if members is None else
+             ("table", coef2d, torch.float32, (members, nx * ny, nz)))
+    return [table,
             ("grid.origin", grid.origin, torch.float32, (3,)),
             ("grid.spacing", grid.spacing, torch.float32, (3,))]
 
@@ -147,6 +154,42 @@ def zp_value_grad(coef2d: torch.Tensor, grid, points: torch.Tensor):
     """K1e: zp value (N,) and physical gradient (N, 3) [1/km] at points
     (N, 3) of the (nx*ny, nz) coefficient table ``coef2d``."""
     return _value_grad("zp_value_grad", 3, coef2d, grid, points)
+
+
+def zp_value_grad_batched(table: torch.Tensor, grid, points: torch.Tensor,
+                          packed: torch.Tensor = None):
+    """K1e over a member axis, one launch: value (B, N) and physical
+    gradient (B, N, 3) [1/km] at points (N, 3) of each of the B (nx*ny,
+    nz) coefficient tables ``table`` (B, nx*ny, nz). The kernel reads the
+    tables packed member-innermost: ``packed``, the caller's
+    ``pack_members`` of ``table.view(B, -1)`` (the pack K2b's gather of
+    the same table reads), or None to pack here. Member b is bitwise
+    ``zp_value_grad(table[b], grid, points)``."""
+    name = "zp_value_grad_batched"
+    if table.dim() != 3:
+        raise ValueError(f"{name}: table must be (B, rows, nz), got "
+                         f"{tuple(table.shape)}")
+    b, n = table.shape[0], points.shape[0]
+    nx, ny, nz = grid.shape
+    specs = ([("points", points, torch.float32, (n, 3))]
+             + _grid_specs(name, table, grid, 3, members=b))
+    if packed is not None:
+        specs.append(("packed", packed, torch.float32,
+                      (-(-b // MEMBER_GROUP), nx * ny * nz, MEMBER_GROUP)))
+    dev = _check(name, specs)
+    value = torch.empty((b, n), dtype=torch.float32, device=dev)
+    grad = torch.empty((b, n, 3), dtype=torch.float32, device=dev)
+    if n == 0 or b == 0:
+        return value, grad
+    if packed is None:
+        packed = pack_members(table.view(b, -1))
+    elif not _aligned(packed):
+        raise ValueError(f"{name}: packed must start on a 16-byte boundary")
+    with torch.cuda.device(dev):
+        _launch(name, "ionotomo_" + name, _ptr(packed), b, _ptr(grid.origin),
+                _ptr(grid.spacing), nx, ny, nz, _ptr(points), n, _ptr(value),
+                _ptr(grad))
+    return value, grad
 
 
 def cubic_value_grad(field2d: torch.Tensor, grid, points: torch.Tensor):
@@ -315,25 +358,34 @@ def pack_members(x: torch.Tensor) -> torch.Tensor:
 
 def rows_value_fwd_batched(table: torch.Tensor, ri: torch.Tensor,
                            wxy: torch.Tensor, zi: torch.Tensor,
-                           wz: torch.Tensor, xy_first: bool) -> torch.Tensor:
+                           wz: torch.Tensor, xy_first: bool,
+                           packed: torch.Tensor = None) -> torch.Tensor:
     """K2b: out[b, n] = Σ_k wxy[n,k] Σ_l wz[n,l] table[b, ri[n,k], zi[n,l]].
 
     table (B, rows, nz) f32, member-major; ri, wxy, zi, wz as for
-    ``rows_value_fwd``, shared by the members. The call packs the tables
-    member-innermost (``pack_members``) and gathers from the pack.
-    Returns (B, N); member b is bitwise ``rows_value_fwd(table[b], ...)``."""
+    ``rows_value_fwd``, shared by the members. The gather reads the tables
+    packed member-innermost: ``packed``, the caller's ``pack_members`` of
+    ``table.view(B, -1)`` (shared with the batched K1e of the same table),
+    or None to pack here. Returns (B, N); member b is bitwise
+    ``rows_value_fwd(table[b], ...)``."""
     name = "rows_value_fwd_batched"
     if table.dim() != 3:
         raise ValueError(f"{name}: table must be (B, rows, nz), got "
                          f"{tuple(table.shape)}")
     n, k, l, specs = _rows_specs(name, ri, wxy, zi, wz)
     b, rows, nz = table.shape
+    if packed is not None:
+        specs.append(("packed", packed, torch.float32,
+                      (-(-b // MEMBER_GROUP), rows * nz, MEMBER_GROUP)))
     dev = _check(name, [("table", table, torch.float32, (b, rows, nz))]
                  + specs)
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
     if n == 0 or b == 0 or rows * nz == 0:
         return out
-    packed = pack_members(table.view(b, rows * nz))
+    if packed is None:
+        packed = pack_members(table.view(b, rows * nz))
+    elif not _aligned(packed):
+        raise ValueError(f"{name}: packed must start on a 16-byte boundary")
     with torch.cuda.device(dev):
         _launch(name, "ionotomo_rows_value_fwd_batched", _ptr(packed), b,
                 rows, nz, _ptr(ri), _ptr(wxy), k, _ptr(zi), _ptr(wz), l, n,

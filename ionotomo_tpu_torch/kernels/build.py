@@ -32,6 +32,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ionotomo_zp_value_grad": (_I, [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P,
                                     _P]),
+    "ionotomo_zp_value_grad_batched": (_I, [_P, _I, _P, _P, _I, _I, _I, _P,
+                                            _I, _P, _P, _P]),
     "ionotomo_rows_value_fwd": (_I, [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
                                      _I, _P, _P, _P]),
     "ionotomo_point_order_keys": (_I, [_P, _I, _I, _P, _I, _I, _I, _I, _I,
@@ -111,7 +113,8 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR, defines=()) -> dict:
     ``build_dir`` unless this exact build exists. ``defines``: extra
     ``NAME=value`` macros for nvcc (``chip_smoke.py --k5t-study`` builds
     K5ᵀ with other register budgets, ``--member-study`` K3b with other
-    scan and fold settings, ``--k2-study`` K2 with scalar row loads).
+    scan and fold settings, ``--k2-study`` K2 with scalar row loads,
+    ``--e-study`` K1e and K5 with other block sizes).
 
     Returns ``{"path", "seconds", "built", "log"}``; ``log`` is nvcc's
     output (with ``-Xptxas -v``: registers, shared memory and spills per

@@ -16,21 +16,32 @@
 // whole nz-deep rows and contracts them against dense bands of 4 nonzeros;
 // here each thread loads only the taps it needs, so the (N, 16, nz) pencil
 // block is never built. The evaluator is cubic_eval.cuh, shared with the
-// cubic tracer K1c and the transpose K5^T.
+// cubic tracer K1c and the transpose K5^T. The block is small
+// (CUBIC_VALUE_GRAD_THREADS) so that a solve's 20,000 endpoints spread
+// over every SM (chip_smoke.py --e-study).
 //
 // Determinism: no atomics and a fixed summation order per thread, so the
 // output is bitwise identical from run to run.
 #include "cubic_eval.cuh"
 
+// Threads a block (a multiple of 32; the study builds the library again
+// with others). chip_smoke.py --e-study, NVIDIA H100 80GB HBM3, 700 W,
+// device ms at config 4's 20,000 endpoints at 32 / 64 / 128 / 256
+// threads: 0.0040 / 0.0061 / 0.0069 / 0.0056. Sorting the endpoints by
+// their base cell gained nothing.
+#ifndef CUBIC_VALUE_GRAD_THREADS
+#define CUBIC_VALUE_GRAD_THREADS 32
+#endif
+
 namespace {
 
-__global__ void cubic_value_grad_kernel(const float* __restrict__ table,
-                                        const float* __restrict__ origin,
-                                        const float* __restrict__ spacing,
-                                        int nx, int ny, int nz,
-                                        const float* __restrict__ points,
-                                        int n, float* __restrict__ value,
-                                        float* __restrict__ grad) {
+__global__ void __launch_bounds__(CUBIC_VALUE_GRAD_THREADS)
+    cubic_value_grad_kernel(const float* __restrict__ table,
+                            const float* __restrict__ origin,
+                            const float* __restrict__ spacing, int nx,
+                            int ny, int nz, const float* __restrict__ points,
+                            int n, float* __restrict__ value,
+                            float* __restrict__ grad) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const TableGrid g = table_grid(table, origin, spacing, nx, ny, nz);
@@ -52,7 +63,7 @@ extern "C" int ionotomo_cubic_value_grad(const float* table,
                                          float* value, float* grad,
                                          void* stream) {
   if (nx < 2 || ny < 2 || nz < 2) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
+  const int threads = CUBIC_VALUE_GRAD_THREADS;
   const int blocks = (n + threads - 1) / threads;
   cubic_value_grad_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       table, origin, spacing, nx, ny, nz, points, n, value, grad);

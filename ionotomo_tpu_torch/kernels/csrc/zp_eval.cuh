@@ -1,9 +1,9 @@
 // Zwart-Powell box spline (x, y) x quadratic B-spline (z): value and
 // physical gradient of the interpolated log-density at one point.
 //
-// Shared by K1 (trace_leapfrog_zp.cu), K1e (zp_value_grad.cu) and K1e^T
-// (zp_value_grad_bwd.cu). It is the per-point body of
-// ionotomo_tpu/core/boxspline.py:
+// Shared by K1 (trace_leapfrog_zp.cu), K1e and its member-axis form
+// (zp_value_grad.cu) and K1e^T (zp_value_grad_bwd.cu). It is the
+// per-point body of ionotomo_tpu/core/boxspline.py:
 // _neighborhood -> _xy_weights -> _row_index -> interp_rows_with_grad,
 // contracted xy-first as the reference does, and must stay in step with
 // the plain PyTorch version in ionotomo_tpu_torch/core/boxspline.py.
@@ -123,38 +123,73 @@ static __device__ __forceinline__ void zp_translate(const TableGrid& g,
   row = ix * g.ny + iy;
 }
 
-// The contraction of a set-up point: value m and physical gradient
-// dm/dx [1/km] from the 3 z taps of each live row, which
+// The contraction of a set-up point over M tables at once (the members of
+// an ensemble sharing one set-up): value m and physical gradient dm/dx
+// [1/km] of each from the 3 z taps of each live row, which
 //   taps(row, bz, c)
-// writes into c[0..2] (T[row, bz-1], T[row, bz], T[row, bz+1]).
-template <class Taps>
-static __device__ __forceinline__ void zp_value_grad_from(
-    const TableGrid& g, const ZpPoint& q, const Taps& taps, float& val,
-    float& gx, float& gy, float& gz) {
-  float s[3] = {0.0f, 0.0f, 0.0f};
-  float su[3] = {0.0f, 0.0f, 0.0f};
-  float sv[3] = {0.0f, 0.0f, 0.0f};
+// writes into c[0..2][m] (T_m[row, bz-1], T_m[row, bz], T_m[row, bz+1]).
+// Every member's sums are formed term for term as M = 1 forms them, so
+// member m is bitwise the single-table contraction of table m.
+template <int M, class Taps>
+static __device__ __forceinline__ void zp_value_grad_members_from(
+    const TableGrid& g, const ZpPoint& q, const Taps& taps, float (&val)[M],
+    float (&gx)[M], float (&gy)[M], float (&gz)[M]) {
+  float s[3][M], su[3][M], sv[3][M];
+#pragma unroll
+  for (int l = 0; l < 3; ++l)
+#pragma unroll
+    for (int m = 0; m < M; ++m) s[l][m] = su[l][m] = sv[l][m] = 0.0f;
 #pragma unroll
   for (int k = 0; k < 7; ++k) {
     int r;
     float wk, wu, wv;
     zp_translate(g, q, k, r, wk, wu, wv);
-    float c[3];
+    float c[3][M];
     taps(r, q.bz, c);
 #pragma unroll
-    for (int l = 0; l < 3; ++l) {
-      s[l] += wk * c[l];
-      su[l] += wu * c[l];
-      sv[l] += wv * c[l];
-    }
+    for (int l = 0; l < 3; ++l)
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        s[l][m] += wk * c[l][m];
+        su[l][m] += wu * c[l][m];
+        sv[l][m] += wv * c[l][m];
+      }
   }
-  val = q.wz[0] * s[0] + q.wz[1] * s[1] + q.wz[2] * s[2];
-  const float du = q.wz[0] * su[0] + q.wz[1] * su[1] + q.wz[2] * su[2];
-  const float dv = q.wz[0] * sv[0] + q.wz[1] * sv[1] + q.wz[2] * sv[2];
-  const float dw = q.dwz[0] * s[0] + q.dwz[1] * s[1] + q.dwz[2] * s[2];
-  gx = du / g.sx;
-  gy = dv / g.sy;
-  gz = dw / g.sz;
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    val[m] = q.wz[0] * s[0][m] + q.wz[1] * s[1][m] + q.wz[2] * s[2][m];
+    const float du =
+        q.wz[0] * su[0][m] + q.wz[1] * su[1][m] + q.wz[2] * su[2][m];
+    const float dv =
+        q.wz[0] * sv[0][m] + q.wz[1] * sv[1][m] + q.wz[2] * sv[2][m];
+    const float dw =
+        q.dwz[0] * s[0][m] + q.dwz[1] * s[1][m] + q.dwz[2] * s[2][m];
+    gx[m] = du / g.sx;
+    gy[m] = dv / g.sy;
+    gz[m] = dw / g.sz;
+  }
+}
+
+// The contraction of a set-up point over one table: taps(row, bz, c)
+// writes c[0..2] (T[row, bz-1], T[row, bz], T[row, bz+1]).
+template <class Taps>
+static __device__ __forceinline__ void zp_value_grad_from(
+    const TableGrid& g, const ZpPoint& q, const Taps& taps, float& val,
+    float& gx, float& gy, float& gz) {
+  float v[1], x[1], y[1], z[1];
+  zp_value_grad_members_from<1>(
+      g, q,
+      [&](int r, int bz, float (&c)[3][1]) {
+        float t[3];
+        taps(r, bz, t);
+#pragma unroll
+        for (int l = 0; l < 3; ++l) c[l][0] = t[l];
+      },
+      v, x, y, z);
+  val = v[0];
+  gx = x[0];
+  gy = y[0];
+  gz = z[0];
 }
 
 // Value m and physical gradient dm/dx [1/km] at (px, py, pz).

@@ -22,12 +22,14 @@ CUBIC_SOLVE_KERNELS = ("rows_value_fwd", "rows_value_bwd", "cubic_value_grad",
 KALMAN_KERNELS = SOLVE_KERNELS
 #: kernels ``ensemble_kalman_filter`` on zp with Hermite quadrature
 #: launches: the member-axis gather and scatter with the pack of their
-#: member axis and the scatter's fold, and the endpoint kernels once per
-#: member. The unbatched ``rows_value_fwd``/``rows_value_bwd`` run only
-#: outside the member update (never once per member in its place).
+#: member axis and the scatter's fold, the member-axis endpoint value +
+#: gradient (one launch for all members), and the endpoint transpose once
+#: per member. The unbatched ``rows_value_fwd``/``rows_value_bwd`` run
+#: only outside the member update (never once per member in its place),
+#: and the unbatched ``zp_value_grad`` not at all.
 MEMBER_KERNELS = ("rows_value_fwd_batched", "rows_value_bwd_batched",
-                  "pack_members", "fold_member_rows")
-ENKF_KERNELS = MEMBER_KERNELS + ("zp_value_grad", "zp_value_grad_bwd")
+                  "pack_members", "fold_member_rows", "zp_value_grad_batched")
+ENKF_KERNELS = MEMBER_KERNELS + ("zp_value_grad_bwd",)
 
 
 def edge_case_points(shape, origin, spacing, n, rng):

@@ -934,6 +934,89 @@ def test_pack_and_fold_are_bitwise_their_plain_versions(dev, n_members):
     assert torch.equal(got[:, single], out[:, single])
 
 
+@pytest.mark.parametrize("n_members", [1, 3, 8, 9])
+def test_zp_value_grad_batched_is_k1e_per_member(dev, n_members):
+    """The batched K1e, one launch over the tables' pack: member b bitwise
+    K1e on table[b] at edge-case points (in and around the grid, lattice
+    and half-lattice points, u±v = 0, the boundary cells); within
+    1e-5·max|table| (value; over the smallest spacing, gradient) of the
+    plain version; the same with the pack handed in."""
+    rng = np.random.default_rng(45)
+    shape, origin, spacing = (12, 14, 16), (-3.0, -2.0, 0.0), (0.5, 0.25,
+                                                             1.0)
+    grid = Grid3D.create(origin, spacing, shape, device=dev)
+    pts = torch.from_numpy(edge_case_points(shape, origin, spacing, 4000,
+                                            rng)).to(dev)
+    table = torch.from_numpy(rng.normal(size=(n_members, 12 * 14, 16))
+                             .astype(np.float32)).to(dev)
+    before = dict(kernels.launches)
+    v, g = kernels.zp_value_grad_batched(table, grid, pts)
+    assert kernels.launches["zp_value_grad_batched"] == \
+        before["zp_value_grad_batched"] + 1
+    assert kernels.launches["pack_members"] == before["pack_members"] + 1
+    assert kernels.launches["zp_value_grad"] == before["zp_value_grad"]
+    assert v.shape == (n_members, pts.shape[0])
+    assert g.shape == (n_members, pts.shape[0], 3)
+    for b in range(n_members):
+        v1, g1 = kernels.zp_value_grad(table[b], grid, pts)
+        assert torch.equal(v[b], v1) and torch.equal(g[b], g1)
+    vr, gr = boxspline.interp_rows_with_grad_batched_ref(table, grid, pts)
+    tol = 1e-5 * float(table.abs().max())
+    assert float((v - vr).abs().max()) <= tol
+    assert float((g - gr).abs().max()) <= tol / min(spacing)
+    packed = kernels.pack_members(table.view(n_members, -1))
+    v2, g2 = kernels.zp_value_grad_batched(table, grid, pts, packed)
+    assert torch.equal(v2, v) and torch.equal(g2, g)
+
+
+def test_member_pack_is_shared_by_k2b_and_the_batched_k1e(dev):
+    """``tricubic.member_pack`` bitwise a fresh ``pack_members`` and its
+    plain version; K2b and the batched K1e over it bitwise without it;
+    one application of the zp operator with a member axis packs the
+    tangent once and launches K2b and the batched K1e once each, the
+    unbatched K1e never, and agrees with B one-member operators within
+    1e-5·max (R and E are bitwise per member; the quadrature's sums over
+    a batch take another order in cuBLAS: 2e-6·max measured)."""
+    grid, rb, _, m_prior, _, nd = _solve_world(dev)
+    rng = np.random.default_rng(46)
+    b = 3
+    m0s = m_prior + 0.1 * torch.from_numpy(
+        rng.normal(size=(b,) + grid.shape).astype(np.float32)).to(dev)
+    xs = torch.from_numpy(rng.normal(size=(b,) + grid.shape)
+                          .astype(np.float32)).to(dev)
+    geo = tec.DtecGeometry(grid, rb, nd, 0, "hermite", "zp")
+    t = boxspline.prefilter(xs).reshape(b, -1, grid.shape[2]).contiguous()
+    pack = tricubic.member_pack(t)
+    assert torch.equal(pack.packed, kernels.pack_members(t.view(b, -1)))
+    assert torch.equal(pack.packed, tricubic.pack_members_ref(t.view(b, -1)))
+    assert torch.equal(
+        tricubic.rows_value(t, geo.ri, geo.wxy, geo.zi, geo.wz, True,
+                            pack=pack),
+        tricubic.rows_value(t, geo.ri, geo.wxy, geo.zi, geo.wz, True))
+    for got, want in zip(
+            boxspline.interp_rows_with_grad_batched(t, grid, geo.ends, pack),
+            kernels.zp_value_grad_batched(t, grid, geo.ends)):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="MemberPack of another tensor"):
+        boxspline.interp_rows_with_grad_batched(t.clone(), grid, geo.ends,
+                                                pack)
+    op = tec.dtec_paired_linear(m0s, grid, rb, nd, 0, "hermite", "zp",
+                                geometry=geo)
+    before = dict(kernels.launches)
+    jx = op.apply(xs)
+    after = {k: v - before[k] for k, v in kernels.launches.items()}
+    assert after["pack_members"] == 1
+    assert after["rows_value_fwd_batched"] == 1
+    assert after["zp_value_grad_batched"] == 1
+    assert after["zp_value_grad"] == 0
+    for m in range(b):
+        one = tec.dtec_paired_linear(m0s[m], grid, rb, nd, 0, "hermite",
+                                     "zp", geometry=geo)
+        for got, want in ((op.g0[m], one.g0), (jx[m], one.apply(xs[m]))):
+            assert float((got - want).abs().max()) <= 1e-5 * float(
+                want.abs().max())
+
+
 def test_rows_value_batched_autograd_and_stream_refusal(dev):
     """rows_value with a (B, R, nz) table: the autograd backward is K3b;
     K3b refuses a plan built on another stream."""
@@ -1029,9 +1112,9 @@ def test_kalman_filter_step_waits_for_no_sync(dev, adapt):
 
 def test_ensemble_filter_step_waits_for_no_sync_and_runs_member_kernels(dev):
     """The ensemble filter under ``set_sync_debug_mode("error")`` after a
-    first call: it launches ``ENKF_KERNELS``, the unbatched K2 and K3 not
-    at all, the endpoint kernels a multiple of B times; bitwise equal to
-    the first call, and chunked = one call bitwise."""
+    first call: it launches ``ENKF_KERNELS``, the unbatched K2, K3 and
+    K1e not at all, the endpoint transpose a multiple of B times; bitwise
+    equal to the first call, and chunked = one call bitwise."""
     from ionotomo_tpu_torch.inversion.kalman import ensemble_kalman_filter
     from ionotomo_tpu_torch.testing import ENKF_KERNELS
 
@@ -1064,7 +1147,8 @@ def test_ensemble_filter_step_waits_for_no_sync_and_runs_member_kernels(dev):
     assert all(kernels.launches[k] > 0 for k in ENKF_KERNELS)
     assert kernels.launches["rows_value_fwd"] == 0
     assert kernels.launches["rows_value_bwd"] == 0
-    assert kernels.launches["zp_value_grad"] % b == 0
+    assert kernels.launches["zp_value_grad"] == 0
+    assert kernels.launches["zp_value_grad_bwd"] % b == 0
     assert torch.equal(first.ensemble, second.ensemble)
     a = run(0, 1, init_noise=init)
     c = run(1, nt, ens0=a.ensemble, advect_first=True, m_clim=w["m_bg"],
