@@ -12,14 +12,23 @@ GPU.
                                        # step (torch.profiler)
     python3 chip_smoke.py --parent DIR # also: hold the kernels to those of
                                        # the checkout at DIR (the commit
-                                       # before E was redesigned; any
-                                       # other sources are refused):
+                                       # before KG and the permute were
+                                       # redesigned; any other sources
+                                       # are refused):
                                        # every kernel bitwise at the
                                        # phases' shapes and timed in
                                        # turns; config 4's solve, config
                                        # 5's first chunk and the ensemble
                                        # filter bitwise on the parent's
                                        # kernels
+    python3 chip_smoke.py --gather-study
+                                       # only: what binds KG at the probe's
+                                       # shapes (its kernel against the
+                                       # table in a cluster's or a CTA's
+                                       # shared memory; warm and L2
+                                       # cleared) and the point order's
+                                       # permute (by design and tile) at
+                                       # config 4's and 3b's points
     python3 chip_smoke.py --e-study    # only: what binds E, the endpoint
                                        # kernels K1e and K5, at serving's
                                        # and configs 3b, 4 and 5's
@@ -113,8 +122,9 @@ Phases (any failed check raises, and the run exits non-zero):
    geometry's point order, bitwise K2 in ray order), K3 and K1eᵀ alone at
    the solve's shapes against their plain versions (1e-4·max|out|, bitwise
    equal across two calls, kernel, plain, ``index_add_`` and bound ms, the
-   plans' segments), and K1e at its 20,000 endpoints; the solve three
-   times, bitwise
+   plans' segments), the point order's keys, sort and permute at the
+   650,000 zp points beside the permute's ``index_select`` and bound, and
+   K1e at its 20,000 endpoints; the solve three times, bitwise
    equal, and within 1 % of the plain-version solve in final residual and
    held-out dTEC rms (20 × 50 rays, seed 99), beating the prior there; K2,
    K3, K1e, K1eᵀ, the point order's keys and its permute must have
@@ -122,6 +132,9 @@ Phases (any failed check raises, and the run exits non-zero):
 7. The gather probe (``ionotomo_tpu_torch.probes.gather``): KG against
    ``torch.gather`` at (16384, 128) and (8, 128), bitwise; KG must have
    launched; its row-gather baseline (chained K5 evaluations) must run.
+   KG and ``torch.gather`` at both shapes timed warm and with the L2
+   cleared before each launch, beside KG's bound (the distinct table
+   values its indices touch).
 
 8. The tricubic kernels against their plain versions on the card: K5
    (value + gradient) and K5ᵀ (its transpose, added into a random table:
@@ -209,9 +222,9 @@ analytic world drifting with the wind, 1 % noise), and on it:
    and std_seq (with ``--parent``: equal to the same run's on the
    parent's kernels).
 
-With ``--parent``, K1e at every shape above and K5 at phases 8 and 10
-are bitwise the parent's and timed in turns with it, and the batched K1e
-against the parent's E (K1e once per member).
+With ``--parent``, KG at both of phase 7's shapes and the permute at
+phases 6 and 10 are bitwise the parent's and timed in turns with it, as
+are K1e at every shape above, K5 at phases 8 and 10 and the batched K1e.
 
 The last lines are a JSON object of per-kernel results (each kernel's
 bound: the larger of the bytes it must move over 3.35 TB/s and its f32
@@ -294,9 +307,10 @@ def whole_readings(traces, reps):
     return out
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, exclude=()) -> float:
     """Mean device time of ``fn`` in ms: the durations of the kernels (and
-    copies) it runs on the card, from torch.profiler's CUPTI trace over
+    copies) it runs on the card, those named in ``exclude`` left out (an
+    L2 flush, ``l2_flush``), from torch.profiler's CUPTI trace over
     ``reps`` calls after a warm-up. Unlike ``cuda_ms`` it does not count
     the card waiting for the host between launches, which is most of a
     small kernel's wall time here. A trace can come back empty or short of
@@ -319,7 +333,8 @@ def device_ms(fn, reps: int) -> float:
         traces.append({e.key: (e.count, e.self_device_time_total)
                        for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA
-                       and e.self_device_time_total > 0})
+                       and e.self_device_time_total > 0
+                       and e.key not in exclude})
         readings = [r for r in whole_readings(traces, reps) if r is not None]
         ms = agreed_reading(readings)
         if ms is not None:
@@ -508,6 +523,27 @@ def k5t_bound(tricubic, grid, points, cv, cg, plan):
                  + plan_stats(plan)["pairs"] * FLOPS_K5T_PAIR)
 
 
+def kg_bound(table, idx):
+    """KG reads its indices once, writes its output once and reads each
+    distinct (row, column) table value its indices touch once (counted on
+    the card with ``torch.unique``, the indices clamped as the kernel
+    clamps them)."""
+    rows, width = table.shape
+    flat = (idx.long().clamp(0, rows - 1) * width
+            + torch.arange(width, device=idx.device))
+    distinct = int(torch.unique(flat).numel())
+    return bound(2 * nbytes(idx) + 4 * distinct, 0), distinct
+
+
+def l2_flush(dev, mib=128):
+    """(fn, names): a write of a ``mib`` MiB buffer, which evicts the 50 MB
+    L2, and the names of the kernels it runs, for ``device_ms(...,
+    exclude=names)`` to time what follows it with the L2 cleared."""
+    buf = torch.empty(mib << 18, dtype=torch.float32, device=dev)
+    fn = buf.zero_
+    return fn, frozenset(kernel_ms_by_name(fn, 1))
+
+
 def check_k5t(label, tricubic, kernels, grid, pts, cv, cg, plan, table,
               parent=None, reps=20, plain_reps=2):
     """The accumulating K5ᵀ, table += Eᵀ(cv, cg), at one shape: on fresh
@@ -561,12 +597,10 @@ def index_add_call(flat, contrib, size):
 
 class Parent:
     """The kernels of the checkout at ``root`` (``--parent DIR``), the
-    commit before E's redesign (the batched K1e, E's block sizes), built
-    from its sources with this checkout's nvcc flags. ``run(fn)`` calls fn
-    with every kernel the parent's: each entry through this checkout's
-    wrapper on the parent's library (no C interface changed), and E over a
-    member axis as the parent ran it, its K1e once per member, in place of
-    the batched K1e the parent's library lacks.
+    commit before KG and the permute were redesigned, built from its
+    sources with this checkout's nvcc flags. ``run(fn)`` calls fn with
+    every kernel the parent's: each entry through this checkout's wrapper
+    on the parent's library (no C interface changed).
 
     ctypes cannot check a C interface, so the parent's sources are
     declared by their SHA-256, and any other checkout is refused rather
@@ -574,7 +608,7 @@ class Parent:
 
     SOURCES = {
         "cubic_value_grad.cu":
-            "a0373f7fbd6ab2413a6dc7e82208a702670d94d71ad07a9ddebc4675d93f0e9d",
+            "e7a491381cdfbf7886294e643e79676595109eba094861c18f65d665a0a5aa74",
         "cubic_value_grad_bwd.cu":
             "f1365e6eed27d762ff3da6e783bd8dbfb59bc6d97a9672df8144124bf5a987c8",
         "rows_value_bwd.cu":
@@ -592,12 +626,10 @@ class Parent:
         "vector_gather.cu":
             "5b063dbb1d5f5919831d8b77c803be933e0631505087f81e99129808358ea07b",
         "zp_value_grad.cu":
-            "0a827772c5413496eef619e23648122e07e02c48a4603f21db51460cbd815879",
+            "b1564e7deffe6544f3801decbe9d163022e5df8175680cdb9522da1a2203766a",
         "zp_value_grad_bwd.cu":
             "eb6fb1308c6193f1a528bdeb52ae7c21be3c7e667df9382c1eb590bc5e878d90",
     }
-    #: this checkout's entries the parent's library does not have
-    NEW = ("ionotomo_zp_value_grad_batched",)
 
     def __init__(self, root):
         from ionotomo_tpu_torch.kernels import build
@@ -612,35 +644,19 @@ class Parent:
                 f"{sorted(set(got.items()) ^ set(self.SOURCES.items()))})")
         info = build.build(csrc, build.BUILD_DIR / "parent")
         self.build = build
-        self.lib = build.open_library(
-            info["path"], [n for n in build._SIGNATURES if n not in self.NEW])
+        self.lib = build.open_library(info["path"])
         print(f"  parent kernels from {csrc} (built={info['built']} in "
               f"{info['seconds']:.2f} s)")
 
     def run(self, fn):
         """fn() with the parent's kernels behind this checkout's
         wrappers."""
-        from ionotomo_tpu_torch import kernels
-
         saved = self.build.load()
-        batched = kernels.zp_value_grad_batched
         self.build._loaded["lib"] = self.lib
-        kernels.zp_value_grad_batched = self.k1e_per_member
         try:
             return fn()
         finally:
             self.build._loaded["lib"] = saved
-            kernels.zp_value_grad_batched = batched
-
-    @staticmethod
-    def k1e_per_member(table, grid, points, packed=None):
-        """E over a member axis as the parent runs it: K1e once per
-        member (the pack is not its input)."""
-        from ionotomo_tpu_torch import kernels
-
-        vals, grads = zip(*(kernels.zp_value_grad(t, grid, points)
-                            for t in table))
-        return torch.stack(vals), torch.stack(grads)
 
 
 def _outputs(x):
@@ -763,14 +779,15 @@ def k2_order_check(label, kernels, tricubic, model, table, grid_shape,
     return order
 
 
-def point_order_line(label, kernels, model, setup, grid_shape):
+def point_order_line(label, kernels, model, setup, grid_shape, parent=None):
     """K2's point order at one point set: the key kernel bitwise its plain
     version and timed beside its bound (each point's base row and z read,
     its key written), the order (keys and ``torch.sort``), the whole
     ``PointOrder`` (and the inputs permuted), and the permute kernel alone
     beside its plain version, ``index_select`` and its bound (the inputs
-    read and written once, the order read). Returns the keys' and the
-    permute's lines."""
+    read and written once, the order read); with a parent, the permute
+    bitwise the parent's and timed in turns with it. Returns the keys'
+    and the permute's lines."""
     ri, _, zi, _ = setup
     base = model.BASE_TRANSLATE
     keys = kernels.point_order_keys(ri, zi, base, grid_shape)
@@ -797,10 +814,15 @@ def point_order_line(label, kernels, model, setup, grid_shape):
     # the permute kernel alone
     order = kernels.point_order(ri, zi, base, grid_shape)
     perm = order.long()
-    got = kernels.permute_points(order, *setup)
+
+    def permute():
+        return kernels.permute_points(order, *setup)
+
+    got = permute()
     check(all(torch.equal(a, t[perm]) for a, t in zip(got, setup)),
           f"{label}: the permuted inputs bitwise their plain version")
-    p_ms = device_ms(lambda: kernels.permute_points(order, *setup), 20)
+    del got
+    p_ms = device_ms(permute, 20)
     p_plain = device_ms(lambda: [t[perm] for t in setup], 5)
     p_lib = device_ms(lambda: [torch.index_select(t, 0, order)
                                for t in setup], 5)
@@ -808,11 +830,16 @@ def point_order_line(label, kernels, model, setup, grid_shape):
     print(f"  the permute at {label}: kernel {p_ms:.4f} ms, plain "
           f"{p_plain:.4f} ms, index_select {p_lib:.4f} ms, bound "
           f"{pb_ms:.4f} ms ({pb_by})")
+    perm_line = dict(max_abs_err=0.0, ms=p_ms, plain_ms=p_plain,
+                     bound_ms=pb_ms, bound_by=pb_by, library_ms=p_lib,
+                     points=n)
+    if parent is not None:
+        perm_line["parent_ms"], perm_line["new_ms_in_turns"] = \
+            compare_parent(f"the permute at {label}",
+                           lambda: parent.run(permute), permute, 20, pairs=3)
     return (dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
                  bound_by=b_by, library_ms=None, order_ms=sort_ms,
-                 build_ms=build_ms),
-            dict(max_abs_err=0.0, ms=p_ms, plain_ms=p_plain, bound_ms=pb_ms,
-                 bound_by=pb_by, library_ms=p_lib))
+                 build_ms=build_ms, points=n), perm_line)
 
 
 def k1e_at(label, kernels, boxspline, table, grid, pts, parent=None,
@@ -1553,6 +1580,11 @@ def phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
                            (op.ri, op.wxy, op.zi, op.wz), True, parent)
     check(bool(torch.equal(order.order, op.point_order().order)),
           "the geometry keeps the point order K2's wrapper makes")
+    keys_line, perm_line = point_order_line(
+        f"config 3b's {n_pts} zp points", kernels, boxspline,
+        (op.ri, op.wxy, op.zi, op.wz), grid.shape, parent)
+    results["point_order_keys_zp"] = {"line": keys_line}
+    results["permute_points_zp"] = {"line": perm_line}
     at_solve_shape = {
         "rows_value_fwd": (
             lambda: tricubic.rows_value(table, op.ri, op.wxy, op.zi, op.wz,
@@ -1672,7 +1704,7 @@ def phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
                         "prior_heldout": h_0, "timings_ms": timings}
 
 
-def phase7_probe(dev, gather, kernels, results):
+def phase7_probe(dev, gather, kernels, results, parent=None):
     print("phase 7: the gather probe")
     kernels.reset_launches()
     rec = gather.run(dev)
@@ -1688,16 +1720,36 @@ def phase7_probe(dev, gather, kernels, results):
           f"the probe's row-gather baseline ran on K5 "
           f"({rec['rowgather_baseline_Mpt_evals_per_sec']:.1f} M point "
           f"evaluations/s)")
-    rows, width = 16384, 128
-    table, idx = gather.probe_inputs(rows, width, dev)
-    ms = device_ms(lambda: gather.vector_gather(table, idx), 50)
-    plain_ms = device_ms(lambda: gather.vector_gather_ref(table, idx), 50)
-    b_ms, b_by = bound(3 * 4 * rows * width, 0)     # table, idx, out
-    print(f"  KG at ({rows}, {width}): kernel {ms:.4f} ms, torch.gather "
-          f"{plain_ms:.4f} ms (device time), bound {b_ms:.4f} ms ({b_by})")
-    results["vector_gather"] = {"launches": n, "line": dict(
-        max_abs_err=rec["max_abs_err"], ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=plain_ms)}
+    flush, flush_names = l2_flush(dev)
+    for rows, width in ((8, 128), (16384, 128)):
+        table, idx = gather.probe_inputs(rows, width, dev)
+
+        def kg():
+            return gather.vector_gather(table, idx)
+
+        def plain():
+            return gather.vector_gather_ref(table, idx)
+
+        ms, plain_ms = device_ms(kg, 50), device_ms(plain, 50)
+        cold_ms = device_ms(lambda: (flush(), kg()), 20, exclude=flush_names)
+        cold_plain = device_ms(lambda: (flush(), plain()), 20,
+                               exclude=flush_names)
+        (b_ms, b_by), distinct = kg_bound(table, idx)
+        print(f"  KG at ({rows}, {width}): kernel {ms:.4f} ms, torch.gather "
+              f"{plain_ms:.4f} ms; with the L2 cleared {cold_ms:.4f} ms, "
+              f"torch.gather {cold_plain:.4f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}: {distinct} distinct table values of "
+              f"{rows * width})")
+        line = dict(max_abs_err=rec["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=plain_ms,
+                    l2_cleared_ms=cold_ms, l2_cleared_library_ms=cold_plain)
+        if parent is not None:
+            line["parent_ms"], line["new_ms_in_turns"] = compare_parent(
+                f"KG at ({rows}, {width})", lambda: parent.run(kg), kg, 50,
+                pairs=3)
+        if rows == 8:
+            results["vector_gather_control"] = line
+    results["vector_gather"] = {"launches": n, "line": line}
 
 
 def check_and_time(label, kern, plain, library, bnd, scatter, reps=20,
@@ -2166,7 +2218,7 @@ def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
         if n_pts == w.rays.num_rays * w.rays.num_samples:
             keys_line, perm_line = point_order_line(
                 f"config 4's {n_pts} points", kernels, tricubic, setup,
-                grid.shape)
+                grid.shape, parent)
             results["point_order_keys"] = {"line": keys_line}
             results["permute_points"] = {"line": perm_line}
         if parent is not None:
@@ -2492,7 +2544,7 @@ def batched_k1e_at(label, dev, kernels, boxspline, grid, pts, rng,
     1e-5·max|table| (the gradient over the smallest spacing) of the plain
     version; timed beside B launches of K1e, the plain version and its
     bound (every member's distinct values). With a parent: bitwise the
-    parent's E, its K1e once per member, and timed in turns with it."""
+    parent's batched K1e and timed in turns with it."""
     b = B_MEMBERS
     nx, ny, nz = grid.shape
     tables = torch.from_numpy(rng.normal(size=(b, nx * ny, nz))
@@ -2532,7 +2584,7 @@ def batched_k1e_at(label, dev, kernels, boxspline, grid, pts, rng,
                 unbatched_ms=loop_ms / b, looped_ms=loop_ms)
     if parent is not None:
         line["parent_ms"], line["new_ms_in_turns"] = compare_parent(
-            f"E over {b} members at {label} (the parent: K1e per member)",
+            f"the batched K1e ({b} members) at {label}",
             lambda: parent.run(batched), batched, reps, pairs=3)
     return line
 
@@ -3119,6 +3171,160 @@ def k2_study(reps=20) -> int:
     return 0
 
 
+def gather_study(reps=50) -> int:
+    """``--gather-study``: what binds KG and the point order's permute.
+    Each variant is a library of its own (``build.build(defines=...)``),
+    held bitwise to the plain version and timed by ``device_ms`` in two
+    passes of opposite order beside the default build.
+
+    KG at the probe's inputs (``probe_inputs``) of (8, 128), the one-vreg
+    control, and of (4096, 128), (16384, 128) and (65536, 128): one
+    element a thread (the default), four a thread (``KG_FORCE=4``), a
+    CTA a band of 8 columns read through L1 (``KG_FORCE=2``), a band's
+    row slabs in CTAs' own shared memory (``KG_FORCE=3``) and a band held
+    by a cluster of 1, 2, 4 or 8 CTAs, read through distributed shared
+    memory (``KG_CLUSTER=C``; "not taken" where the band does not fit),
+    each warm (the 24 MB of table, indices and output stay in the L2
+    across launches) and with the L2 cleared before each launch
+    (``l2_flush``, untimed); ``torch.gather`` beside them; the bound from
+    the distinct table values the indices touch, and a floor: the
+    default kernel with idx[i, j] = i, a copy whose every sector is
+    full.
+
+    The permute at config 4's 650,000 cubic points (K = 16, L = 4) and
+    config 3b's 650,000 zp points (K = 8, L = 3), each in its point order
+    and in a random one: the default, a tile of 256 points of one array a
+    block staged through shared memory; a thread a point
+    (``PERMUTE_VARIANT=0``, the kernel before the redesign); a 16-byte
+    vector or word of one array a thread without a tile
+    (``PERMUTE_VARIANT=1``); tiles of 128 and 512 points
+    (``PERMUTE_TILE``, ``PERMUTE_THREADS=512``) and 8 loads a thread in
+    flight (``PERMUTE_LOADS=8``); ``index_select`` beside them; the bound
+    from the inputs and outputs moved once and the order read once."""
+    from ionotomo_tpu_torch import configs, kernels
+    from ionotomo_tpu_torch.core import boxspline, tricubic
+    from ionotomo_tpu_torch.kernels import build
+    from ionotomo_tpu_torch.models import chapman
+    from ionotomo_tpu_torch.probes import gather
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(f"card: {card}")
+    variants = {"default": (), "four a thread": ("KG_FORCE=4",),
+                "a band a CTA through L1": ("KG_FORCE=2",),
+                "row slabs in shared memory": ("KG_FORCE=3",),
+                **{f"band in a cluster, C={c}": (f"KG_CLUSTER={c}",)
+                   for c in (1, 2, 4, 8)},
+                "a thread a point": ("PERMUTE_VARIANT=0",),
+                "an element a thread": ("PERMUTE_VARIANT=1",),
+                "tile of 128": ("PERMUTE_TILE=128",),
+                "tile of 512": ("PERMUTE_TILE=512",),
+                "tile of 512, 512 threads": ("PERMUTE_TILE=512",
+                                             "PERMUTE_THREADS=512"),
+                "8 loads in flight": ("PERMUTE_LOADS=8",)}
+    libs = {}
+    for name, defines in variants.items():
+        info = build.build(defines=defines)
+        libs[name] = build.open_library(info["path"])
+        print(f"build ({name}): built={info['built']} in "
+              f"{info['seconds']:.2f} s")
+        for kern, regs in ptxas_lines(info["log"], (
+                "vector_gather_kernel", "vector_gather_vec4",
+                "vector_gather_band", "vector_gather_l1", "vector_gather_slab",
+                "permute_points")):
+            print(f"  ptxas ({name}): {kern}: {regs}")
+    default = build.load()
+
+    def with_lib(name, fn):
+        build._loaded["lib"] = libs[name]
+        try:
+            return fn()
+        finally:
+            build._loaded["lib"] = default
+
+    def timed_in_passes(label, names, fn, want, **kw):
+        times = {}
+        for pass_ in (names, names[::-1]):
+            for name in pass_:
+                try:
+                    got = with_lib(name, fn)
+                except RuntimeError as e:
+                    times[name] = f"not taken ({str(e)[-40:]})"
+                    continue
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in
+                          zip(_outputs(got), want)),
+                      f"{label}, {name}: bitwise the plain version")
+                times.setdefault(name, []).append(with_lib(
+                    name, lambda: device_ms(fn, reps, **kw)))
+        for name, t in times.items():
+            print(f"  {label}, {name}: " + (t if isinstance(t, str) else
+                  ", ".join(f"{x:.4f}" for x in t) + " ms"))
+
+    flush, flush_names = l2_flush(dev)
+    kg_names = list(variants)[:8]
+    for rows in (8, 4096, 16384, 65536):
+        table, idx = gather.probe_inputs(rows, 128, dev)
+        want = [gather.vector_gather_ref(table, idx)]
+        (b_ms, b_by), distinct = kg_bound(table, idx)
+        label = f"KG at ({rows}, 128)"
+        print(f"  {label}: bound {b_ms:.4f} ms ({b_by}: {distinct} "
+              f"distinct table values of {table.numel()}) on {card}")
+
+        def kg():
+            return gather.vector_gather(table, idx)
+
+        ident = torch.arange(rows, dtype=torch.int32, device=dev)[
+            :, None].expand(rows, 128).contiguous()
+        floor = device_ms(lambda: gather.vector_gather(table, ident), reps)
+        floor_cold = device_ms(lambda: (flush(), gather.vector_gather(
+            table, ident)), reps, exclude=flush_names)
+        print(f"  {label}, the floor (idx[i, j] = i, every sector full): "
+              f"warm {floor:.4f} ms, L2 cleared {floor_cold:.4f} ms")
+        timed_in_passes(f"{label}, warm", kg_names, kg, want)
+        timed_in_passes(f"{label}, L2 cleared", kg_names,
+                        lambda: (flush(), kg())[1], want,
+                        exclude=flush_names)
+        warm = device_ms(lambda: gather.vector_gather_ref(table, idx), reps)
+        cold = device_ms(lambda: (flush(), gather.vector_gather_ref(
+            table, idx)), reps, exclude=flush_names)
+        print(f"  {label}, torch.gather: warm {warm:.4f} ms, L2 cleared "
+              f"{cold:.4f} ms")
+        del table, idx, want, ident
+    del flush
+    torch.cuda.empty_cache()
+
+    ants, dirs = configs.make_rays(100, 100)
+    rb = configs.straight_bundle(ants, dirs, 65, dev)
+    perm_names = ["default"] + list(variants)[8:]
+    for model, n_grid, what in ((tricubic, 256, "config 4's cubic"),
+                                (boxspline, 128, "config 3b's zp")):
+        grid = chapman.grid_enclosing_rays(ants, dirs, shape=(n_grid,) * 3,
+                                           h_min_km=0.0, device=dev)
+        setup = model.row_setup(grid, rb.points.reshape(-1, 3))
+        n = setup[0].shape[0]
+        po = kernels.point_order(setup[0], setup[2], model.BASE_TRANSLATE,
+                                 grid.shape)
+        rand = torch.randperm(n, generator=torch.Generator().manual_seed(3)
+                              ).to(torch.int32).to(dev)
+        b_ms, b_by = bound(2 * nbytes(*setup) + nbytes(po), 0)
+        print(f"  the permute at {what} {n} points: bound {b_ms:.4f} ms "
+              f"({b_by}) on {card}")
+        for oname, order in (("point order", po), ("random order", rand)):
+            label = f"the permute at {what} points, {oname}"
+            want = [t[order.long()] for t in setup]
+            timed_in_passes(label, perm_names,
+                            lambda: kernels.permute_points(order, *setup),
+                            want)
+            ms = device_ms(lambda: [torch.index_select(t, 0, order)
+                                    for t in setup], 5)
+            print(f"  {label}, index_select: {ms:.4f} ms")
+            del want
+        del setup, po, rand
+        torch.cuda.empty_cache()
+    return 0
+
+
 def k1_study(reps=3) -> int:
     """``--k1-study``: what binds K1 at bench.py's batch (262,144 rays, 64
     steps, the 128^3 Chapman cube) and at the serving batch (62 x 10 rays,
@@ -3618,16 +3824,22 @@ def kernels_line(results) -> dict:
     # and K1eᵀ in the config-3b solve (phase 6), KG in the probe (phase 7),
     # K1c and the pack and key kernels it launches in config 2 (phase 9),
     # K5, K5ᵀ, the point order's keys and its permute in config 4 (phase
-    # 10). Error, ms
+    # 10; both per main path in "launches_by_path": one config-3b solve,
+    # config 4's run, config 5's entry point (two runs of 30 steps, the
+    # geometries built), 30 steps over built geometries, 6 ensemble
+    # steps). Error, ms
     # and bound: K1's call at the bench shape (262144 rays x 64 steps: the
     # pack, the sort and the tracer), K1's pack of the 128^3 table (phase
     # 2), the point order's keys and its permute at config 4's 650,000
-    # points (library_ms of the permute: index_select); K1e at the
+    # points (library_ms of the permute: index_select; "at" holds both at
+    # config 3b's 650,000 zp points, phase 6); K1e at the
     # config-3b solve's 20,000 endpoints (phase 6; "at" holds it at
     # serving's endpoints, config 5's and phase 2's edge-case points); K2
     # (over the geometry's point order), K3 and K1eᵀ
     # at the config-3b solve's shapes (650,000 points, 20,000 endpoints);
-    # KG at (16384, 128); K1c at
+    # KG at (16384, 128), its bound from the distinct table values
+    # its indices touch ("l2_cleared_ms": with the L2 cleared before each
+    # launch; "at" the (8, 128) control); K1c at
     # config 2's saturated batch (262144 rays x 128 steps: the call, the
     # sort, the pack and the tracer; the pack and the keys alone beside
     # it); K5 and K5ᵀ at
@@ -3734,7 +3946,29 @@ def kernels_line(results) -> dict:
                 "unbatched_ms": line["unbatched_ms"]}
                for shape, lines in results["at_member_shapes"].items()
                for name, line in lines.items()]
-    return {"kernels": [k1e if name == "zp_value_grad" else
+    by_path = {name: {"config3b_solve": results["solve_launches"][name],
+                      "config4": c4[name],
+                      "config5_entry": results["config5_launches"][name],
+                      "config5_30_steps":
+                          results["config5_run_launches"][name],
+                      "enkf_6_steps": results["enkf_launches"][name]}
+               for name in ("point_order_keys", "permute_points")}
+    extra = {
+        "zp_value_grad": k1e,
+        "vector_gather": {
+            **entry("vector_gather", *reps["vector_gather"],
+                    launches["vector_gather"],
+                    results["vector_gather"]["line"]),
+            "l2_cleared_ms": results["vector_gather"]["line"]
+            ["l2_cleared_ms"],
+            "at": {"control_8x128": results["vector_gather_control"]}},
+        **{name: {**entry(name, *reps[name], launches[name],
+                          results[name]["line"]),
+                  "launches_by_path": by_path[name],
+                  "at": {"zp_650000": results[name + "_zp"]["line"]}}
+           for name in by_path},
+    }
+    return {"kernels": [extra[name] if name in extra else
                         entry(name, f, rep, launches[name],
                               results[name]["line"])
                         for name, f, rep in entries],
@@ -3760,6 +3994,8 @@ def main() -> int:
         return member_study()
     if "--k2-study" in args:
         return k2_study()
+    if "--gather-study" in args:
+        return gather_study()
     if "--k1-study" in args:
         return k1_study()
     root = args[args.index("--root") + 1] if "--root" in args else None
@@ -3807,7 +4043,7 @@ def main() -> int:
                            results, parent)
     phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
                  chapman, priors, solvers, results, profile, parent)
-    phase7_probe(dev, gather, kernels, results)
+    phase7_probe(dev, gather, kernels, results, parent)
     phase8_cubic_kernels(dev, tricubic, fermat, rays, tec, kernels, Grid3D,
                          chapman, results, parent)
     phase9_config2(dev, fermat, rays, kernels, Grid3D, chapman, configs,

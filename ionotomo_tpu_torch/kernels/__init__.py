@@ -856,7 +856,7 @@ def cubic_value_grad_bwd(table: torch.Tensor, grid, points: torch.Tensor,
 
 def vector_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """KG: out[i, j] = table[idx[i, j], j]; table (R, W) f32, idx (M, W)
-    int32 → (M, W) f32."""
+    int32 → (M, W) f32, indices clamped into the table."""
     name = "vector_gather"
     if table.dim() != 2 or idx.dim() != 2:
         raise ValueError(f"{name}: table and idx must be 2-D, got "

@@ -22,8 +22,8 @@
 //   bundle by kernels.point_order): thread t computes point order[t] and
 //   writes out[order[t]], so a warp holds points of neighbouring stencils,
 //   which share rows and sectors in L1 and L2; the bundle keeps its inputs
-//   permuted into the order (permute_points_kernel below), so that thread
-//   t reads row t of them, coalesced. No order: ray order;
+//   permuted into the order (permute_points_tile_kernel below), so that
+//   thread t reads row t of them, coalesced. No order: ray order;
 // - the two shapes of the main paths compiled with K and L fixed, each
 //   point's index and weight rows read as 16-byte vectors (the arrays
 //   16-byte aligned, checked by the host); any other shape, or unaligned
@@ -36,6 +36,21 @@
 // Indices are clamped into the table, so a bad index cannot read outside
 // it; the callers' indices are always in range.
 //
+// The permute only moves bits, so bytes bound it: each input row read
+// once, each output row written once, the order read once (210 MB at
+// config 4's 650,000 cubic points, 117 MB at config 3b's 650,000 zp
+// points, past the 50 MB L2). A block takes a tile of 256 points of one
+// array, the arrays one after another along blockIdx.y so that one
+// array's rows at a time share the L2: it reads the tile's 256 sources
+// once, gathers their rows into shared memory (16-byte vectors where a
+// row is a multiple of 16 bytes, zp's 12-byte zi and wz rows by word;
+// four loads a thread in flight), then writes the tile out as contiguous
+// 16-byte stores, whole sectors. At config 4's points: 0.082 ms, against
+// 0.113 for a thread a point (the design before, whose 16-byte stores
+// 64 bytes apart half-filled each sector an instruction touched) and
+// 0.100 for a vector a thread without the tile (chip_smoke.py
+// --gather-study, an NVIDIA H100 80GB HBM3 at 700 W).
+//
 // Determinism: no atomics and a fixed summation order per point, so the
 // output is bitwise identical from run to run.
 #include <cuda_runtime.h>
@@ -46,6 +61,24 @@
 // rows one scalar at a time.
 #ifndef K2_ROW_VECTORS
 #define K2_ROW_VECTORS 1
+#endif
+
+// Study only (chip_smoke.py --gather-study builds a library for each):
+// PERMUTE_VARIANT 0 runs the former permute (a thread copies a point's
+// four rows), 1 one 16-byte vector or word of one array a thread without
+// a tile; PERMUTE_TILE, PERMUTE_THREADS and PERMUTE_LOADS resize the
+// tile (the default, variant 2).
+#ifndef PERMUTE_VARIANT
+#define PERMUTE_VARIANT 2
+#endif
+#ifndef PERMUTE_TILE
+#define PERMUTE_TILE 256
+#endif
+#ifndef PERMUTE_THREADS
+#define PERMUTE_THREADS 256
+#endif
+#ifndef PERMUTE_LOADS
+#define PERMUTE_LOADS 4
 #endif
 
 namespace {
@@ -220,6 +253,20 @@ __global__ void point_order_keys_kernel(const int* __restrict__ ri, int K,
   keys[i] = r * nz + z;
 }
 
+// The four arrays of a point set the permute moves, each (n, words[a])
+// 4-byte words.
+struct PermuteArrays {
+  const int* in[4];
+  int* out[4];
+  int words[4];
+};
+
+template <class T>
+__device__ __forceinline__ T pick(int a, T x0, T x1, T x2, T x3) {
+  return a == 0 ? x0 : a == 1 ? x1 : a == 2 ? x2 : x3;
+}
+
+#if PERMUTE_VARIANT == 0
 // Row t of an (n, width) array of 4-byte words from row src of another,
 // as 16-byte vectors when kVec (width a multiple of 4, the arrays 16-byte
 // aligned).
@@ -238,26 +285,133 @@ __device__ __forceinline__ void copy_row(const int* __restrict__ in,
   }
 }
 
-// A point set's ri, wxy, zi, wz permuted into a point order: row t of each
-// output is row order[t] of its input, the bits copied as they are.
+// The former kernel: a thread copies a point's four rows.
 template <bool kVecK, bool kVecL>
-__global__ void permute_points_kernel(const int* __restrict__ order, int n,
-                                      const int* __restrict__ ri,
-                                      const int* __restrict__ wxy, int K,
-                                      const int* __restrict__ zi,
-                                      const int* __restrict__ wz, int L,
-                                      int* __restrict__ ri_out,
-                                      int* __restrict__ wxy_out,
-                                      int* __restrict__ zi_out,
-                                      int* __restrict__ wz_out) {
+__global__ void permute_points_by_point_kernel(const int* __restrict__ order,
+                                               int n, PermuteArrays a) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
   const int src = __ldg(order + t);
-  copy_row<kVecK>(ri, ri_out, K, src, t);
-  copy_row<kVecK>(wxy, wxy_out, K, src, t);
-  copy_row<kVecL>(zi, zi_out, L, src, t);
-  copy_row<kVecL>(wz, wz_out, L, src, t);
+  copy_row<kVecK>(a.in[0], a.out[0], a.words[0], src, t);
+  copy_row<kVecK>(a.in[1], a.out[1], a.words[1], src, t);
+  copy_row<kVecL>(a.in[2], a.out[2], a.words[2], src, t);
+  copy_row<kVecL>(a.in[3], a.out[3], a.words[3], src, t);
 }
+#elif PERMUTE_VARIANT == 2
+constexpr int kPermuteTile = PERMUTE_TILE;
+constexpr int kPermuteThreads = PERMUTE_THREADS;
+constexpr int kLoadsInFlight = PERMUTE_LOADS;
+
+// A block tile: the rows of kPermuteTile points of array blockIdx.y
+// gathered into shared memory (their sources first, then kLoadsInFlight
+// loads a thread at once), then written out as contiguous 16-byte stores.
+__global__ void __launch_bounds__(kPermuteThreads)
+    permute_points_tile_kernel(const int* __restrict__ order, int n,
+                               PermuteArrays a, int vec) {
+  __shared__ int4 tile4[kPermuteTile * kMaxK / 4];
+  __shared__ int src[kPermuteTile];
+  int* tile = reinterpret_cast<int*>(tile4);
+  const int w = blockIdx.y;
+  const int words = pick(w, a.words[0], a.words[1], a.words[2], a.words[3]);
+  const int* in = pick(w, a.in[0], a.in[1], a.in[2], a.in[3]);
+  int* out = pick(w, a.out[0], a.out[1], a.out[2], a.out[3]);
+  const int t0 = blockIdx.x * kPermuteTile;
+  const int rows = min(kPermuteTile, n - t0);
+  const int total = rows * words;
+  for (int q = threadIdx.x; q < rows; q += kPermuteThreads)
+    src[q] = __ldg(order + t0 + q);
+  __syncthreads();
+  constexpr int kStep = kPermuteThreads * kLoadsInFlight;
+  if (vec && words % 4 == 0) {
+    const int per = words / 4;
+    const int4* in4 = reinterpret_cast<const int4*>(in);
+    for (int q0 = threadIdx.x; q0 < rows * per; q0 += kStep) {
+      int4 v[kLoadsInFlight];
+#pragma unroll
+      for (int u = 0; u < kLoadsInFlight; ++u) {
+        const int q = q0 + u * kPermuteThreads;
+        if (q < rows * per) {
+          const int r = q / per;
+          v[u] = __ldg(in4 + (size_t)src[r] * per + (q - r * per));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadsInFlight; ++u) {
+        const int q = q0 + u * kPermuteThreads;
+        if (q < rows * per) tile4[q] = v[u];
+      }
+    }
+  } else {
+    for (int q0 = threadIdx.x; q0 < total; q0 += kStep) {
+      int v[kLoadsInFlight];
+#pragma unroll
+      for (int u = 0; u < kLoadsInFlight; ++u) {
+        const int q = q0 + u * kPermuteThreads;
+        if (q < total) {
+          const int r = q / words;
+          v[u] = __ldg(in + (size_t)src[r] * words + (q - r * words));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadsInFlight; ++u) {
+        const int q = q0 + u * kPermuteThreads;
+        if (q < total) tile[q] = v[u];
+      }
+    }
+  }
+  __syncthreads();
+  int* dst = out + (size_t)t0 * words;
+  const int head = min(total, (int)(((16 - ((uintptr_t)dst & 15)) & 15) / 4));
+  const int body = (total - head) / 4;
+  for (int q = threadIdx.x; q < head; q += kPermuteThreads) dst[q] = tile[q];
+  for (int q = threadIdx.x; q < body; q += kPermuteThreads) {
+    const int* v = tile + head + 4 * q;
+    reinterpret_cast<int4*>(dst + head)[q] = make_int4(v[0], v[1], v[2], v[3]);
+  }
+  for (int q = head + 4 * body + threadIdx.x; q < total;
+       q += kPermuteThreads)
+    dst[q] = tile[q];
+}
+#else
+// Element e of row e / per of an output, row order[e / per] of the input;
+// an element is a 16-byte vector or a 4-byte word, per of them a row.
+template <int kPer, class T>
+__device__ __forceinline__ void permute_element(const int* __restrict__ order,
+                                                const T* __restrict__ in,
+                                                T* __restrict__ out, int e,
+                                                int per) {
+  const int p = kPer ? kPer : per;
+  const int row = e / p;
+  out[e] = __ldg(in + (size_t)__ldg(order + row) * p + (e - row * p));
+}
+
+// A point set's ri, wxy, zi, wz permuted into a point order, array
+// blockIdx.y; one element a thread, so a warp writes 32 neighbouring
+// elements (512 contiguous bytes in 16-byte vectors, 128 in words) and
+// reads whole rows.
+__global__ void permute_points_kernel(const int* __restrict__ order, int n,
+                                      PermuteArrays a, int vec) {
+  const int w = blockIdx.y;
+  const int words = pick(w, a.words[0], a.words[1], a.words[2], a.words[3]);
+  const int* in = pick(w, a.in[0], a.in[1], a.in[2], a.in[3]);
+  int* out = pick(w, a.out[0], a.out[1], a.out[2], a.out[3]);
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (vec && words % 4 == 0) {
+    const int per = words / 4;
+    if (e >= n * per) return;
+    const int4* in4 = reinterpret_cast<const int4*>(in);
+    int4* out4 = reinterpret_cast<int4*>(out);
+    if (per == 4) permute_element<4>(order, in4, out4, e, per);
+    else if (per == 2) permute_element<2>(order, in4, out4, e, per);
+    else if (per == 1) permute_element<1>(order, in4, out4, e, per);
+    else permute_element<0>(order, in4, out4, e, per);
+  } else {
+    if (e >= n * words) return;
+    if (words == 3) permute_element<3>(order, in, out, e, words);
+    else permute_element<0>(order, in, out, e, words);
+  }
+}
+#endif
 
 }  // namespace
 
@@ -316,22 +470,36 @@ extern "C" int ionotomo_permute_points(const int* order, int n, const void* ri,
                                        void* ri_out, void* wxy_out,
                                        void* zi_out, void* wz_out,
                                        void* stream) {
-  if (n < 1 || K < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  if (n < 1 || K < 1 || K > kMaxK || L < 1 || L > kMaxK ||
+      n > (int)(0x7fffffff / kMaxK))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const PermuteArrays a = {
+      {(const int*)ri, (const int*)wxy, (const int*)zi, (const int*)wz},
+      {(int*)ri_out, (int*)wxy_out, (int*)zi_out, (int*)wz_out},
+      {K, K, L, L}};
+#if PERMUTE_VARIANT == 0
   const bool vk = vec && K % 4 == 0, vl = vec && L % 4 == 0;
   const int blocks = (n + 255) / 256;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int *a = (const int*)ri, *b = (const int*)wxy, *c = (const int*)zi,
-            *d = (const int*)wz;
-  int *ao = (int*)ri_out, *bo = (int*)wxy_out, *co = (int*)zi_out,
-      *dout = (int*)wz_out;
   if (vk && vl)
-    permute_points_kernel<true, true><<<blocks, 256, 0, s>>>(
-        order, n, a, b, K, c, d, L, ao, bo, co, dout);
+    permute_points_by_point_kernel<true, true><<<blocks, 256, 0, s>>>(order, n,
+                                                                      a);
   else if (vk)
-    permute_points_kernel<true, false><<<blocks, 256, 0, s>>>(
-        order, n, a, b, K, c, d, L, ao, bo, co, dout);
+    permute_points_by_point_kernel<true, false><<<blocks, 256, 0, s>>>(
+        order, n, a);
   else
-    permute_points_kernel<false, false><<<blocks, 256, 0, s>>>(
-        order, n, a, b, K, c, d, L, ao, bo, co, dout);
+    permute_points_by_point_kernel<false, false><<<blocks, 256, 0, s>>>(
+        order, n, a);
+#elif PERMUTE_VARIANT == 2
+  permute_points_tile_kernel<<<dim3((n + kPermuteTile - 1) / kPermuteTile, 4),
+                               kPermuteThreads, 0, s>>>(order, n, a, vec);
+#else
+  int per = 1;  // elements of the widest array's row
+  for (int w = 0; w < 4; ++w)
+    per = max(per, vec && a.words[w] % 4 == 0 ? a.words[w] / 4 : a.words[w]);
+  const long long elems = (long long)n * per;
+  permute_points_kernel<<<dim3((unsigned)((elems + 255) / 256), 4), 256, 0,
+                          s>>>(order, n, a, vec);
+#endif
   return (int)cudaGetLastError();
 }

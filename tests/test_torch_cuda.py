@@ -384,15 +384,57 @@ def test_zp_value_grad_bwd_segments_match_plain(dev, chunk):
     assert float((a - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
-@pytest.mark.parametrize("rows,m", [(8, 8), (300, 300), (300, 77)])
-def test_vector_gather_matches_torch_gather(dev, rows, m):
-    """KG: bitwise equal to torch.gather."""
-    table, idx = gather.probe_inputs(rows, 128, dev)
-    idx = idx[:m].contiguous()
+@pytest.mark.parametrize("rows,m,width", [
+    (8, 8, 128), (300, 300, 128), (300, 77, 128), (16384, 16384, 128),
+    (300, 77, 1), (8, 300, 7), (4097, 300, 129), (4097, 300, 130),
+    (4097, 5000, 16), (60000, 3000, 8)])
+def test_vector_gather_matches_torch_gather(dev, rows, m, width):
+    """KG bitwise equal to torch.gather, one counted launch a call, at the
+    probe's width and (16384, 16384), at ragged widths, with more or
+    fewer index rows than table rows and at a tall narrow table; indices
+    out of range against torch.gather on the clamped indices."""
+    rng = np.random.default_rng(rows + m + width)
+    table = torch.from_numpy(rng.normal(size=(rows, width))
+                             .astype(np.float32)).to(dev)
+    idx = rng.integers(0, rows, (m, width)).astype(np.int32)
+    idx[0, :] = -3
+    idx[-1, ::2] = rows + 5
+    idx = torch.from_numpy(idx).to(dev)
     before = kernels.launches["vector_gather"]
     got = gather.vector_gather(table, idx)
     assert kernels.launches["vector_gather"] == before + 1
-    assert torch.equal(got, gather.vector_gather_ref(table, idx))
+    assert torch.equal(got, gather.vector_gather_ref(
+        table, idx.clamp(0, rows - 1)))
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["on", "off"])
+@pytest.mark.parametrize("n", [1, 1003])
+@pytest.mark.parametrize("order", ["sorted", "random"])
+@pytest.mark.parametrize("k,l", [(16, 4), (8, 3)])
+def test_permute_points_is_a_row_gather(dev, k, l, order, n, aligned):
+    """The permute bitwise t[order] for each of ri, wxy, zi, wz, at the
+    cubic and zp shapes, in an order sorted by random keys with ties and
+    in a random one, at one point and at a count no tile divides, with
+    inputs on and off a 16-byte boundary; one counted launch a call."""
+    rng = np.random.default_rng(k * n + l)
+    ri = torch.from_numpy(rng.integers(0, 10 ** 6, (n, k)).astype(np.int32))
+    zi = torch.from_numpy(rng.integers(0, 10 ** 6, (n, l)).astype(np.int32))
+    wxy = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32))
+    wz = torch.from_numpy(rng.normal(size=(n, l)).astype(np.float32))
+    setup = [t.to(dev) for t in (ri, wxy, zi, wz)]
+    if not aligned:
+        setup = [off_boundary(t) for t in setup]
+    if order == "sorted":
+        keys = torch.from_numpy(rng.integers(0, max(1, n // 4), n))
+        perm = torch.sort(keys, stable=True).indices
+    else:
+        perm = torch.from_numpy(rng.permutation(n))
+    perm = perm.to(torch.int32).to(dev)
+    before = kernels.launches["permute_points"]
+    got = kernels.permute_points(perm, *setup)
+    assert kernels.launches["permute_points"] == before + 1
+    for a, t in zip(got, setup):
+        assert torch.equal(a, t[perm.long()])
 
 
 def _solve_world(dev, n=20, na=8, nd=6):
