@@ -7,14 +7,16 @@ GPU.
     python3 chip_smoke.py --profile    # also: device time by kernel of
                                        # one serving epoch, one
                                        # Gauss-Newton step (and its host
-                                       # time by op), one config-4 solve,
-                                       # one filter step and one ensemble
+                                       # time by op), one config-4 solve
+                                       # (cubic, and with the zpc2 inner
+                                       # Jacobian), one filter step and one
+                                       # ensemble
                                        # step (torch.profiler)
     python3 chip_smoke.py --parent DIR # also: hold the kernels to those of
                                        # the checkout at DIR (the commit
-                                       # before KG and the permute were
-                                       # redesigned; any other sources
-                                       # are refused):
+                                       # before the zpc and triquadratic
+                                       # kernels were added; any other
+                                       # sources are refused):
                                        # every kernel bitwise at the
                                        # phases' shapes and timed in
                                        # turns; config 4's solve, config
@@ -88,12 +90,22 @@ Phases (any failed check raises, and the run exits non-zero):
    in ray order; K1 (the leapfrog zp tracer) against the plain tracer on
    8192 rays of the phase-3 world, and packed and sorted bitwise the
    unpacked kernel in ray order, path on and off; K1's pack bitwise its
-   plain version.
+   plain version. Then the zpc and triquadratic kernels: K6z and K6q
+   (value + gradient) at the 917,504 edge-case points of a random 128³
+   table and 2^20 random points of a random 256³ table, against their
+   plain versions and their twins in the kernels' order (1e-5·max|table|),
+   K6zᵀ adding into a random table at the same points (as K5ᵀ below), K2
+   at zpc's (K=8, L=4) shape over its point order bitwise the generic
+   kernel, K1z and K1q against the plain tracer on 8192 rays (1e-3 km,
+   1e-5 relative TEC), path on and off, and bitwise the unpacked kernels.
 3. Throughput of the tracer in the headline configuration of ``bench.py``:
    128³ Chapman, 262144 rays, leapfrog@64, 150 MHz, 1000 km, zp, no path;
    the trace launches K1, its pack and the sort keys once each; K1's call
    (pack, sort, trace) bitwise the unpacked kernel in ray order and timed
-   by kernel.
+   by kernel. The same for K1z (zpc, over K1c's pack) and K1q (quadratic,
+   over K1's pack), rays/s beside K1's; the rk4 trace on quadratic
+   against the plain tracer, K6q launched once a stage, and K6q timed at
+   the bench trace's points halfway.
 4. The serving slice, as ``predict --bent --interp zp --quadrature
    hermite`` runs it: ``make_ray_batch`` → ``trace_rays(keep_path=True)``
    → ``dtec_paired_q``, 62 antennas × 10 directions, 4 epochs on a 128³
@@ -176,7 +188,12 @@ Phases (any failed check raises, and the run exits non-zero):
    points: if the card's free memory does not hold it, it runs one
    Gauss-Newton step on the @33 bundle and the printed line says so); K2,
    K3, K5, K5ᵀ, the point order's keys and its permute must have
-   launched; then the same solve with
+   launched; the same solve with ``interp_inner="zpc2"`` (the
+   reference's mixed-fidelity 256³ route): K2 at (K=8, L=4) over each
+   bundle's point order, K6z and K6zᵀ at the solve's endpoints, the solve
+   twice bitwise equal (the card's version of the reference's zpc
+   determinism gate), within 1 % of the plain-version solve in residual
+   and held-out rms, below the prior; then the same solve with
    ``interp_inner="zp"`` twice: a printed finding (bitwise equal or not,
    held-out rms, seconds), not a check.
 
@@ -377,6 +394,32 @@ FLOPS_K5_POINT = 519
 FLOPS_K5T_POINT = 135
 FLOPS_K5T_PAIR = 24
 FLOPS_K1C_STEP = FLOPS_K1_STEP - FLOPS_K1E_POINT + FLOPS_K5_POINT
+# The zpc evaluator (zpc_eval.cuh): the zp xy set-up (~60) and the
+# Catmull-Rom z axis (44), 7 translates' weights (w, wu, wv: 18 each), the
+# 7 x 4 taps against them (168), the 4 z sums (32) and three divisions,
+# ~430 a point. The triquadratic evaluator (quad_eval.cuh): three axes
+# (~15 each), 9 rows x 3 taps against wz and dwz (108), over y (54) and x
+# (24) and three divisions, ~230. K6z^T: a point's set-up and its
+# cotangent's three divisions (~110) once, and per (point, translate) pair
+# the translate's weights (18) and four contributions (~36). A K1z or K1q
+# step is a K1 step with K6z or K6q in place of K1e.
+FLOPS_K6Z_POINT = 430
+FLOPS_K6Q_POINT = 230
+FLOPS_K6ZT_POINT = 110
+FLOPS_K6ZT_PAIR = 54
+# One K2 zpc point: 7 live rows x 4 taps, a multiply-add each, and the 4 z
+# multiply-adds.
+FLOPS_K2_ZPC_POINT = 7 * 4 * 2 + 4 * 2
+FLOPS_K1Z_STEP = FLOPS_K1_STEP - FLOPS_K1E_POINT + FLOPS_K6Z_POINT
+FLOPS_K1Q_STEP = FLOPS_K1_STEP - FLOPS_K1E_POINT + FLOPS_K6Q_POINT
+#: the zpc and triquadratic kernels by their wrapper: (model module name,
+#: live rows a point, flops a point, tracer, its pack, flops a step)
+NEW_MODELS = {
+    "zpc": ("zpcubic", 7, FLOPS_K6Z_POINT, "zpc_value_grad",
+            "trace_leapfrog_zpc", "pack_z_taps", FLOPS_K1Z_STEP),
+    "quadratic": ("triquadratic", 9, FLOPS_K6Q_POINT, "quad_value_grad",
+                  "trace_leapfrog_quad", "pack_zp_taps", FLOPS_K1Q_STEP),
+}
 # One ray's sort key (ray_order_keys_kernel): four quantised coordinates
 # (5-6 each), four 8-bit spreads (9 each) and the combination (6).
 OPS_RAY_KEY = 64
@@ -523,6 +566,50 @@ def k5t_bound(tricubic, grid, points, cv, cg, plan):
                  + plan_stats(plan)["pairs"] * FLOPS_K5T_PAIR)
 
 
+def k6_bound(model, live, flops, grid, points):
+    """K6z or K6q reads each point once and each distinct table value the
+    live rows' z taps of its points touch once, and writes a value and a
+    gradient per point."""
+    ri, _, zi, _ = model.row_setup(grid, points)
+    nx, ny, nz = grid.shape
+    n = points.shape[0]
+    touched = touched_values(ri[:, :live], zi, nx * ny, nz)
+    return bound(4 * touched + nbytes(points) + 16 * n, n * flops)
+
+
+def k6zt_bound(zpcubic, grid, points, cv, cg, plan):
+    """K6zᵀ adds into a table: the points and cotangents read once, and
+    each distinct cell the 7 live rows' 4 z taps touch read and written
+    once (the plan is not counted); a set-up per point and a translate's
+    contributions per pair."""
+    ri, _, zi, _ = zpcubic.row_setup(grid, points)
+    nx, ny, nz = grid.shape
+    n_bytes = (nbytes(points, cv, cg)
+               + 8 * touched_values(ri[:, :7], zi, nx * ny, nz))
+    return bound(n_bytes, points.shape[0] * FLOPS_K6ZT_POINT
+                 + plan_stats(plan)["pairs"] * FLOPS_K6ZT_PAIR)
+
+
+def trace_bound(model, live, tracer, flops_step, table, grid, o, d, n_steps,
+                keep_path, consts):
+    """A leapfrog tracer (K1z, K1q) reads its rays once and each distinct
+    table value its evaluations touch once (the live rows' z taps at each
+    of a ray's n_steps + 1 path points, the path from the kernel itself;
+    host read, outside any timing), writes x_end, tau and the path if
+    kept, and does ``flops_step`` a step."""
+    nx, ny, nz = grid.shape
+    path = tracer(table, grid, o, d, n_steps, True, **consts)[2]
+    touched = torch.zeros(nx * ny * nz, dtype=torch.bool, device=o.device)
+    for pts in path.reshape(-1, 3).split(1 << 20):
+        ri, _, zi, _ = model.row_setup(grid, pts)
+        touched[(ri[:, :live].long()[:, :, None] * nz
+                 + zi.long()[:, None, :]).reshape(-1)] = True
+    r = o.shape[0]
+    out = 16 * r + (12 * r * (n_steps + 1) if keep_path else 0)
+    return bound(4 * int(touched.sum()) + nbytes(o, d) + out,
+                 r * n_steps * flops_step)
+
+
 def kg_bound(table, idx):
     """KG reads its indices once, writes its output once and reads each
     distinct (row, column) table value its indices touch once (counted on
@@ -546,43 +633,47 @@ def l2_flush(dev, mib=128):
 
 def check_k5t(label, tricubic, kernels, grid, pts, cv, cg, plan, table,
               parent=None, reps=20, plain_reps=2):
-    """The accumulating K5ᵀ, table += Eᵀ(cv, cg), at one shape: on fresh
-    copies of ``table`` against table + the plain version (1e-4·max),
-    bitwise twice, bitwise table + (K5ᵀ into zeros), counters back at
-    zero; timed into one running table beside ``index_add_`` into a
-    running table and its bound. With a parent: bitwise the parent's
-    K5ᵀ, and both timed in turns into a running table."""
+    """The accumulating K5ᵀ, table += Eᵀ(cv, cg), at one shape
+    (``check_adding``)."""
+    return check_adding(
+        label, lambda t: kernels.cubic_value_grad_bwd(t, grid, pts, cv, cg,
+                                                      plan),
+        lambda: tricubic.interp_rows_with_grad_transpose_ref(grid, pts, cv,
+                                                             cg),
+        tricubic.value_grad_transpose_terms(grid, pts, cv, cg),
+        k5t_bound(tricubic, grid, pts, cv, cg, plan), table, plan, parent,
+        reps, plain_reps)
+
+
+def check_adding(label, add, plain, terms, bnd, table, plan, parent=None,
+                 reps=20, plain_reps=2):
+    """An accumulating transpose (K5ᵀ, K6zᵀ), ``add(t)`` adding Eᵀ into
+    the table t in place, at one shape: on fresh copies of ``table``
+    against table + the plain version (1e-4·max), bitwise twice, bitwise
+    table + (the kernel into zeros), counters back at zero; timed into one
+    running table beside ``index_add_`` of the contributions ``terms``
+    into a running table and its bound. With a parent: bitwise the
+    parent's kernel, and both timed in turns into a running table."""
     def fresh():
-        return kernels.cubic_value_grad_bwd(table.clone(), grid, pts, cv, cg,
-                                            plan)
+        return add(table.clone())
 
     running = table.clone()
-    alone = kernels.cubic_value_grad_bwd(torch.zeros_like(table), grid, pts,
-                                         cv, cg, plan)
+    alone = add(torch.zeros_like(table))
     check(bool(torch.equal(fresh(), table + alone)),
-          f"{label}: table + K5T is bitwise table + (K5T into zeros)")
+          f"{label}: table + the kernel is bitwise table + (the kernel into "
+          f"zeros)")
     del alone
     line = check_and_time(
-        label, fresh,
-        lambda: table + tricubic.interp_rows_with_grad_transpose_ref(
-            grid, pts, cv, cg),
-        index_add_call(*tricubic.value_grad_transpose_terms(grid, pts, cv,
-                                                            cg),
-                       grid.num_voxels),
-        k5t_bound(tricubic, grid, pts, cv, cg, plan), scatter=True,
-        reps=reps, plain_reps=plain_reps,
-        timed=lambda: kernels.cubic_value_grad_bwd(running, grid, pts, cv,
-                                                   cg, plan))
+        label, fresh, lambda: table + plain(),
+        index_add_call(*terms, table.numel()), bnd, scatter=True,
+        reps=reps, plain_reps=plain_reps, timed=lambda: add(running))
     check(not bool(plan.counters.any()), f"{label}: plan counters back at "
                                          f"zero")
     if parent is not None:
-        def into_running():
-            return kernels.cubic_value_grad_bwd(running, grid, pts, cv, cg,
-                                                plan)
         p_ms, n_ms = compare_parent(
-            f"{label}: K5T adding", lambda: parent.run(fresh), fresh, reps,
-            pairs=3, new_timed=into_running,
-            parent_timed=lambda: parent.run(into_running))
+            f"{label}: adding", lambda: parent.run(fresh), fresh, reps,
+            pairs=3, new_timed=lambda: add(running),
+            parent_timed=lambda: parent.run(lambda: add(running)))
         line["parent_ms"], line["new_ms_in_turns"] = p_ms, n_ms
     return line
 
@@ -597,14 +688,20 @@ def index_add_call(flat, contrib, size):
 
 class Parent:
     """The kernels of the checkout at ``root`` (``--parent DIR``), the
-    commit before KG and the permute were redesigned, built from its
-    sources with this checkout's nvcc flags. ``run(fn)`` calls fn with
+    commit before the zpc and triquadratic kernels were added, built from
+    its sources with this checkout's nvcc flags. ``run(fn)`` calls fn with
     every kernel the parent's: each entry through this checkout's wrapper
-    on the parent's library (no C interface changed).
+    on the parent's library (no C interface changed). The parent's library
+    lacks the entries in ``NEW``, which it is opened without; the kernels
+    behind them have no parent.
 
     ctypes cannot check a C interface, so the parent's sources are
     declared by their SHA-256, and any other checkout is refused rather
     than handed arguments it does not take."""
+
+    NEW = ("ionotomo_zpc_value_grad", "ionotomo_quad_value_grad",
+           "ionotomo_zpc_value_grad_bwd", "ionotomo_trace_leapfrog_zpc",
+           "ionotomo_trace_leapfrog_quad")
 
     SOURCES = {
         "cubic_value_grad.cu":
@@ -616,7 +713,7 @@ class Parent:
         "rows_value_bwd_batched.cu":
             "10788403e8f237c3a501e37d334331abaece27724ff3bcb704ca481eea7126b8",
         "rows_value_fwd.cu":
-            "7adac6a2abe49870e08aa7e29f14d84706492e2eaa283d9b822051cb603a4b8d",
+            "6783cfd657ca403f4d3996ace63b911a1ce59d402dcad4615a056c687b7fb92c",
         "rows_value_fwd_batched.cu":
             "33b0b3474550fda8a1440c6ad76f61290a168eeaf73dfd0074e71c7df6c48c3b",
         "trace_leapfrog_cubic.cu":
@@ -624,7 +721,7 @@ class Parent:
         "trace_leapfrog_zp.cu":
             "14fd0ee9d2a9c1df8e7cbca6a55126f9eefa3fee1805f24971abc052b847f699",
         "vector_gather.cu":
-            "5b063dbb1d5f5919831d8b77c803be933e0631505087f81e99129808358ea07b",
+            "e0d19a2da2d4ccef5782631ae780053fa77062ae0c19c1e7935b9ff7ee882216",
         "zp_value_grad.cu":
             "b1564e7deffe6544f3801decbe9d163022e5df8175680cdb9522da1a2203766a",
         "zp_value_grad_bwd.cu":
@@ -644,7 +741,8 @@ class Parent:
                 f"{sorted(set(got.items()) ^ set(self.SOURCES.items()))})")
         info = build.build(csrc, build.BUILD_DIR / "parent")
         self.build = build
-        self.lib = build.open_library(info["path"])
+        self.lib = build.open_library(
+            info["path"], [n for n in build._SIGNATURES if n not in self.NEW])
         print(f"  parent kernels from {csrc} (built={info['built']} in "
               f"{info['seconds']:.2f} s)")
 
@@ -745,6 +843,31 @@ def check_k1_bitwise(label, kernels, coef2d, grid, o, d, kw, n_steps,
                       if b is not None),
                   f"{label}, keep_path={keep_path}: K1, {what}, bitwise the "
                   f"unpacked kernel in ray order")
+        del want
+
+
+def check_trace_bitwise(label, kernels, name, table, grid, o, d, kw,
+                        n_steps, paths=(False, True)):
+    """A tracer (K1z, K1q) as the tracer calls it, and packed and sorted
+    whatever the batch, each bitwise the unpacked kernel in ray order
+    (one thread a ray, 128 a block), path on and off."""
+    model = next(v for v in NEW_MODELS.values() if v[4] == name)
+    call, with_ = getattr(kernels, name), getattr(kernels, name + "_with")
+    packed = getattr(kernels, model[5])(table, grid)
+    order = kernels.ray_order(o, d, grid)
+    for keep_path in paths:
+        want = with_(table, grid, o, d, n_steps, keep_path, packed=None,
+                     order=None, threads=128, **kw)
+        for what, out in (
+                ("the call", call(table, grid, o, d, n_steps, keep_path,
+                                  **kw)),
+                ("packed and sorted", with_(
+                    table, grid, o, d, n_steps, keep_path, packed=packed,
+                    order=order, threads=256, **kw))):
+            check(all(torch.equal(a, b) for a, b in zip(out, want)
+                      if b is not None),
+                  f"{label}, keep_path={keep_path}: {name}, {what}, bitwise "
+                  f"the unpacked kernel in ray order")
         del want
 
 
@@ -1060,6 +1183,246 @@ def phase3_throughput(dev, boxspline, fermat, kernels, Grid3D, chapman,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None)
     results["rays_per_s"] = rates
+
+
+def k6_at(label, kernels, model, name, table, grid, pts, reps=20,
+          plain_reps=2):
+    """K6z or K6q at one shape: bitwise twice; against its plain version
+    and against its twin in the kernel's order (1e-5·max|table| the value,
+    over the smallest spacing the gradient); timed beside the plain
+    version and its bound (the distinct values its points touch). Returns
+    the shape's line."""
+    interp = {"zpc_value_grad": "zpc", "quad_value_grad": "quadratic"}[name]
+    _, live, flops = NEW_MODELS[interp][:3]
+    kern = getattr(kernels, name)
+    (v_k, g_k), (v2, g2) = kern(table, grid, pts), kern(table, grid, pts)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(v_k, v2) and torch.equal(g_k, g2)),
+          f"{name} at {label}: bitwise equal across two calls")
+    check(bool(torch.isfinite(v_k).all() and torch.isfinite(g_k).all()),
+          f"{name} at {label}: output finite")
+    tmax = float(table.abs().max())
+    gtol = 1e-5 * tmax / float(grid.spacing.min())
+    errs = []
+    for what, ref in (("plain version", model.interp_rows_with_grad_ref),
+                      ("twin in the kernel's order",
+                       model.interp_rows_with_grad_taps_ref)):
+        v_p, g_p = ref(table, grid, pts)
+        err_v = float((v_k - v_p).abs().max())
+        err_g = float((g_k - g_p).abs().max())
+        del v_p, g_p
+        check(err_v <= 1e-5 * tmax and err_g <= gtol,
+              f"{name} at {label} against its {what}: value max|err| "
+              f"{err_v:.3e} <= 1e-5*max|table| {1e-5 * tmax:.3e}, gradient "
+              f"{err_g:.3e} <= {gtol:.3e}")
+        errs.append(err_v)
+    del v_k, g_k, v2, g2
+    ms = device_ms(lambda: kern(table, grid, pts), reps)
+    plain = device_ms(lambda: model.interp_rows_with_grad_ref(table, grid,
+                                                              pts),
+                      plain_reps)
+    b_ms, b_by = k6_bound(model, live, flops, grid, pts)
+    print(f"  {name} at {label}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"bound {b_ms:.6f} ms ({b_by}, distinct values)")
+    return dict(max_abs_err=errs[0], ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, points=pts.shape[0])
+
+
+def phase2_new_models(dev, tricubic, zpcubic, triquadratic, fermat,
+                      kernels, Grid3D, chapman, results, sizes=(N_GRID, 256),
+                      n_points=1 << 20, n_rays=8192):
+    """Phase 2 on the zpc and triquadratic models: K6z and K6q at the
+    edge-case points of a random 128³ table and at 2²⁰ random points of a
+    random 256³ table, K6zᵀ adding into a random table at the same
+    points, K2 at zpc's (8, 4) shape over its point order, K1z and K1q
+    against the plain tracer on 8192 rays (path on and off) and bitwise
+    the unpacked kernels."""
+    from ionotomo_tpu_torch.core.field_models import field_model
+    from ionotomo_tpu_torch.testing import edge_case_points
+
+    print("phase 2 (zpc, quadratic): K6z, K6q, K6zT, K2 at (8, 4), K1z and "
+          "K1q against their plain versions")
+    mods = {"zpcubic": zpcubic, "triquadratic": triquadratic}
+    rng = np.random.default_rng(21)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    origin, spacing = (-64.0, -32.0, 0.0), (1.0, 0.5, 8.0)   # dyadic: exact
+    for n_grid, where in zip(sizes, ("edge-case", "random")):
+        shape = (n_grid,) * 3
+        n_rows = n_grid * n_grid
+        grid = Grid3D.create(origin, spacing, shape, device=dev)
+        field = t(rng.normal(size=shape).astype(np.float32))
+        if where == "edge-case":
+            pts = t(edge_case_points(shape, origin, spacing, n_points, rng))
+        else:
+            hi = np.asarray(spacing) * (n_grid - 1)
+            pts = t((np.asarray(origin) + rng.uniform(0, 1, (n_points, 3))
+                     * hi).astype(np.float32))
+        tag = f"{pts.shape[0]} {where} points of a {n_grid}^3 table"
+        for interp, (mod, _, _, name, *_) in NEW_MODELS.items():
+            model = mods[mod]
+            table = field_model(interp).table(field, grid).contiguous()
+            results.setdefault(name + "_at", {})[f"{where}_{n_grid}"] = \
+                k6_at(tag, kernels, model, name, table, grid, pts)
+            if interp == "zpc" and where == "edge-case":
+                # K2 at (8, 4): zpc's value gather over its point order
+                setup = zpcubic.row_setup(grid, pts)
+                k2_order_check(f"phase 2, zpc (K=8, L=4), {tag}", kernels,
+                               tricubic, zpcubic, table, shape, setup, True)
+                err = float((tricubic.rows_value(table, *setup, True)
+                             - tricubic.rows_value_ref(table, *setup, True)
+                             ).abs().max())
+                tmax = float(table.abs().max())
+                check(err <= 1e-5 * tmax,
+                      f"K2 zpc (K=8, L=4) at {tag}: max|err| {err:.3e} <= "
+                      f"1e-5*max|table| {1e-5 * tmax:.3e} against the plain "
+                      f"version")
+                del setup
+            del table
+        # K6zᵀ adding into a random table at the same points
+        cv = t(rng.normal(size=(pts.shape[0],)).astype(np.float32))
+        cg = t(rng.normal(size=(pts.shape[0], 3)).astype(np.float32))
+        plan = zpcubic.endpoint_plan(grid, pts)
+        print_plan(f"K6zT at {tag}", plan)
+        base = t(rng.normal(size=(n_rows, n_grid)).astype(np.float32))
+        results.setdefault("zpc_value_grad_bwd_at", {})[
+            f"{where}_{n_grid}"] = check_adding(
+                f"K6zT at {tag}",
+                lambda tb: kernels.zpc_value_grad_bwd(tb, grid, pts, cv, cg,
+                                                      plan),
+                lambda: zpcubic.interp_rows_with_grad_transpose_ref(
+                    grid, pts, cv, cg),
+                zpcubic.value_grad_transpose_terms(grid, pts, cv, cg),
+                k6zt_bound(zpcubic, grid, pts, cv, cg, plan), base, plan,
+                reps=5)
+        del field, pts, cv, cg, plan, base
+        torch.cuda.empty_cache()
+
+    # K1z and K1q on 8192 rays of the phase-3 world
+    grid3 = Grid3D.from_bounds(*BOUNDS, (N_GRID,) * 3, device=dev)
+    m = chapman.log_parametrize(chapman.chapman_field(grid3)).contiguous()
+    o, d = (torch.from_numpy(a).to(dev) for a in bench_rays(n_rays, seed=1))
+    kw = fermat._step_constants(FREQ_HZ, LENGTH_KM, N_STEPS)
+    for interp, (_, _, _, _, name, _, _) in NEW_MODELS.items():
+        for keep_path in (False, True):
+            args = (m, grid3, o, d, FREQ_HZ, LENGTH_KM)
+            tkw = dict(n_steps=N_STEPS, keep_path=keep_path,
+                       method="leapfrog", interp=interp)
+            b_k, t_k = fermat.trace_rays(*args, **tkw)
+            b_p, t_p = fermat.trace_rays_ref(*args, **tkw)
+            torch.cuda.synchronize()
+            tag = f"{name} keep_path={keep_path}"
+            check(b_k.points.shape == b_p.points.shape,
+                  f"{tag} shape {tuple(b_k.points.shape)}")
+            err_x = float((b_k.points - b_p.points).abs().max())
+            err_t = float(((t_k - t_p).abs() / t_p.abs()).max())
+            check(err_x <= 1e-3, f"{tag} path max|dx| {err_x:.3e} km <= "
+                                 f"1e-3 km against the plain tracer")
+            check(err_t <= 1e-5, f"{tag} tau max rel err {err_t:.3e} <= "
+                                 f"1e-5")
+            check(bool(torch.equal(b_k.ds, b_p.ds)), f"{tag} ds equal")
+        results[name] = {"tau_rel": err_t, "line": dict(max_abs_err=err_x)}
+        table = field_model(interp).table(m, grid3).contiguous()
+        check_trace_bitwise(f"phase 2, {o.shape[0]} rays", kernels, name,
+                            table, grid3, o, d, kw, N_STEPS)
+
+
+def phase3_new_tracers(dev, fermat, kernels, Grid3D, chapman, results,
+                       card, n_rays=262144):
+    """Phase 3 on the zpc and triquadratic models: K1z and K1q at the
+    bench's configuration (262144 rays, leapfrog@64, 150 MHz) through
+    ``trace_rays``, launches counted, bitwise the unpacked kernels, timed
+    beside the plain tracer and the bound; then the rk4 trace on
+    quadratic, which runs K6q once a stage, against the plain tracer, its
+    launches counted, and K6q alone at its points."""
+    from ionotomo_tpu_torch.core import triquadratic
+    from ionotomo_tpu_torch.core.field_models import field_model
+
+    print("phase 3 (zpc, quadratic): K1z and K1q in the bench.py "
+          "configuration, and the rk4 trace on quadratic")
+    grid = Grid3D.from_bounds(*BOUNDS, (N_GRID,) * 3, device=dev)
+    m = chapman.log_parametrize(chapman.chapman_field(grid)).contiguous()
+    o, d = (torch.from_numpy(a).to(dev) for a in bench_rays(n_rays))
+    kw = fermat._step_constants(FREQ_HZ, LENGTH_KM, N_STEPS)
+    args = (m, grid, o, d, FREQ_HZ, LENGTH_KM)
+    for interp, (_, live, _, _, name, pack, fstep) in NEW_MODELS.items():
+        def run():
+            return fermat.trace_rays(*args, n_steps=N_STEPS, keep_path=False,
+                                     method="leapfrog", interp=interp)
+        kernels.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        for k in (name, pack, "ray_order_keys"):
+            check(launches[k] == 1, f"the bench's trace on {interp} "
+                                    f"launched {k} once")
+        check(bool(torch.isfinite(out[1]).all()
+                   and torch.isfinite(out[0].points).all()),
+              f"{name}: finite endpoints and TEC")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 3
+        rate = n_rays / dt
+        rows = field_model(interp).rows
+        table = field_model(interp).table(m, grid).contiguous()
+        check_trace_bitwise(f"phase 3, {n_rays} rays", kernels, name, table,
+                            grid, o, d, kw, N_STEPS, paths=(False,))
+        tracer = getattr(kernels, name)
+
+        def call():
+            return tracer(table, grid, o, d, N_STEPS, False, **kw)
+
+        ms = device_ms(call, 3)
+        ne_vg = fermat.log_field_ne_vg(
+            lambda x: rows.interp_rows_with_grad_ref(table, grid, x))
+        plain_ms = cuda_ms(lambda: fermat._trace_impl(
+            ne_vg, o, d, FREQ_HZ, LENGTH_KM, N_STEPS, False, "leapfrog"), 1)
+        b_ms, b_by = trace_bound(rows, live, tracer, fstep, table, grid, o, d,
+                                 N_STEPS, False, kw)
+        print(f"  {interp}: {rate:.1f} rays/s ({dt * 1e3:.3f} ms per call, "
+              f"prefilter included; zp {results['rays_per_s']['kernel']:.1f} "
+              f"above) on {card}; {name}'s call (pack, sort and trace) "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}); by kernel: " + "; ".join(
+                  f"{v:.4f} ms {key[:40]}" for key, v in sorted(
+                      kernel_ms_by_name(call, 3).items(),
+                      key=lambda kv: -kv[1])))
+        results[name]["line"].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by, library_ms=None)
+        results[name]["launches"] = launches[name]
+        results["rays_per_s"][interp] = rate
+
+    # rk4 on quadratic: K6q is the field evaluator of every stage
+    rk4 = dict(n_steps=N_STEPS, keep_path=False, method="rk4",
+               interp="quadratic")
+    kernels.reset_launches()
+    b_k, t_k = fermat.trace_rays(*args, **rk4)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    check(launches["quad_value_grad"] == 1 + 4 * N_STEPS,
+          f"the rk4 trace on quadratic launched K6q once a stage and once "
+          f"for p0 ({launches['quad_value_grad']} times)")
+    b_p, t_p = fermat.trace_rays_ref(*args, **rk4)
+    err_x = float((b_k.points - b_p.points).abs().max())
+    err_t = float(((t_k - t_p).abs() / t_p.abs()).max())
+    check(err_x <= 1e-3 and err_t <= 1e-5,
+          f"rk4 on quadratic at {n_rays} rays: endpoints max|dx| "
+          f"{err_x:.3e} km <= 1e-3 km, tau max rel err {err_t:.3e} <= 1e-5 "
+          f"against the plain tracer")
+    del b_k, b_p, t_k, t_p
+    # K6q alone at the rk4 trace's points halfway along the rays
+    table = triquadratic.prefilter(m).reshape(N_GRID * N_GRID, N_GRID)
+    mid = kernels.trace_leapfrog_quad(table, grid, o, d, N_STEPS, True,
+                                      **kw)[2][:, N_STEPS // 2].contiguous()
+    results["quad_value_grad"] = {
+        "launches": launches["quad_value_grad"],
+        "line": k6_at(f"the bench trace's {n_rays} points halfway",
+                      kernels, triquadratic, "quad_value_grad", table, grid,
+                      mid, reps=20, plain_reps=3)}
 
 
 def perturbed_log_field(grid, rng, chapman):
@@ -2120,6 +2483,146 @@ def kernel_launches(fn) -> dict:
             if e.device_type == DeviceType.CUDA and e.count > 0}
 
 
+def config4_zpc2(dev, w, configs, tricubic, zpcubic, tec, kernels,
+                 plain_full, results, profile=False):
+    """Config 4 with the zpc2 inner Jacobian (``interp="cubic",
+    interp_inner="zpc2"``, the reference's mixed-fidelity 256³ route):
+    K2 at zpc's (8, 4) shape over each bundle's point order, bitwise the
+    generic kernel and within 1e-4·max of its plain version, K6z and K6zᵀ
+    (adding into a K3 table) at the solve's endpoints, the kernels one Jᵀ
+    on zpc launches; then the solve through the entry point twice,
+    bitwise equal (the card's version of the reference's zpc determinism
+    gate, bench/probe_zp256.py), its kernels launched, within 1 % of the
+    plain-version solve in residual and held-out dTEC rms, and below the
+    prior on held-out rays. Returns the K2 lines by shape."""
+    grid, nd = w.grid, w.n_dirs
+    n_rows, nz = grid.shape[0] * grid.shape[1], grid.shape[2]
+    print("phase 10 (zpc2 inner Jacobian): config 4 with "
+          "interp_inner='zpc2'")
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.normal(size=grid.shape).astype(np.float32)
+                         ).to(dev)
+    table = zpcubic.prefilter(x).reshape(n_rows, nz).contiguous()
+    at = {}
+    op = None
+    for rb in (w.rays, w.rays_inner):
+        o_ = tec.dtec_paired_linear(w.m_prior, grid, rb, nd, 0, "hermite",
+                                    "zpc2")
+        if op is None:
+            op = o_
+        n_pts = o_.ri.shape[0]
+        setup = (o_.ri, o_.wxy, o_.zi, o_.wz)
+        order = k2_order_check(f"phase 10 zpc2, {n_pts} points", kernels,
+                               tricubic, zpcubic, table, grid.shape, setup,
+                               True)
+        check(bool(torch.equal(order.order, o_.point_order().order)),
+              "the zpc geometry keeps the point order K2's wrapper makes")
+
+        def k2():
+            return tricubic.rows_value(table, *setup, True, order=order)
+
+        at[f"rows_value_fwd@zpc{n_pts}"] = line = check_and_time(
+            f"K2 at {n_pts} points (K=8, L=4)", k2,
+            lambda: tricubic.rows_value_ref(table, *setup, True), None,
+            k2_bound(*setup, n_rows, nz, 7, FLOPS_K2_ZPC_POINT),
+            scatter=False, plain_reps=2)
+        line["ray_order_ms"] = device_ms(
+            lambda: tricubic.rows_value(table, *setup, True), 20)
+        print(f"  K2 at {n_pts} zpc points in ray order: "
+              f"{line['ray_order_ms']:.4f} ms")
+        del o_, order, setup
+    ends, eplan = op.ends, op.end_plan
+    n_ends = ends.shape[0]
+    print_plan(f"K6zT at the solve's {n_ends} endpoints", eplan)
+    results["zpc_value_grad"] = {"line": k6_at(
+        f"the solve's {n_ends} endpoints", kernels, zpcubic,
+        "zpc_value_grad", table, grid, ends, reps=50, plain_reps=5)}
+    cv = torch.from_numpy(rng.normal(size=(n_ends,)).astype(np.float32)
+                          ).to(dev)
+    cg = torch.from_numpy(rng.normal(size=(n_ends, 3)).astype(np.float32)
+                          ).to(dev)
+    k3_table = op._rows_t(torch.from_numpy(
+        rng.normal(size=(op.ri.shape[0],)).astype(np.float32)).to(dev))
+    results["zpc_value_grad_bwd"] = {"line": check_adding(
+        f"K6zT at the solve's {n_ends} endpoints",
+        lambda t: kernels.zpc_value_grad_bwd(t, grid, ends, cv, cg, eplan),
+        lambda: zpcubic.interp_rows_with_grad_transpose_ref(grid, ends, cv,
+                                                            cg),
+        zpcubic.value_grad_transpose_terms(grid, ends, cv, cg),
+        k6zt_bound(zpcubic, grid, ends, cv, cg, eplan), k3_table, eplan,
+        reps=50, plain_reps=5)}
+    y = torch.from_numpy(rng.normal(size=(w.rays.num_rays,))
+                         .astype(np.float32)).to(dev)
+    jt = kernel_launches(lambda: op.apply_t(y))
+    print(f"  one J^T on zpc2: {sum(jt.values())} kernel launches: "
+          + "; ".join(f"{n} x {k[:50]}" for k, n in sorted(jt.items())))
+    del op, k3_table, table, x
+    torch.cuda.empty_cache()
+
+    def solve(world, **kw):
+        t0 = time.perf_counter()
+        res = configs.config4_solve(world, interp_inner="zpc2", **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def heldout(m):
+        return configs.heldout_dtec_rms(m, grid, *w.heldout)
+
+    kernels.reset_launches()
+    za, secs_a = solve(w)
+    launches = dict(kernels.launches)
+    print(f"  launches in one zpc2-inner solve: {launches}")
+    for name in ("rows_value_fwd", "rows_value_bwd", "zpc_value_grad",
+                 "zpc_value_grad_bwd", "cubic_value_grad", "point_order_keys",
+                 "permute_points"):
+        check(launches[name] > 0,
+              f"{name} launched in the zpc2-inner solve ({launches[name]} "
+              f"times)")
+    check(launches["zp_value_grad"] == 0 and launches["zp_value_grad_bwd"]
+          == 0, "the zpc2-inner solve launched no zp kernel")
+    zb, secs_b = solve(w)
+    check(bool(torch.isfinite(za.m).all()), "zpc2-inner solve: field finite")
+    check(bool(torch.equal(za.m, zb.m)),
+          "the config-4 zpc2-inner solve is bitwise equal across two runs")
+    del zb
+    h_a, h_0 = heldout(za.m), heldout(w.m_prior)
+    if plain_full:
+        wp, plain_kw, what, res_k = w, {}, "the same schedule", za
+    else:
+        wp = w._replace(rays=w.rays_inner, rays_inner=None)
+        plain_kw = dict(progressive=False, gn_iters=1)
+        what = "one Gauss-Newton step on the @33 bundle"
+        res_k, _ = solve(wp, **plain_kw)
+    resp, secs_p = solve(wp, linearize=tec.dtec_paired_linear_ref,
+                         **plain_kw)
+    r_k, r_p = float(res_k.residual_norm), float(resp.residual_norm)
+    h_k, h_p = heldout(res_k.m), heldout(resp.m)
+    print(f"  the plain-version zpc2-inner solve ran {what}: {secs_p:.4f} s, "
+          f"residual {r_p!r}, held-out {h_p!r}")
+    check(abs(r_k - r_p) <= 1e-2 * r_p,
+          f"zpc2 inner: final whitened residual {r_k:.4f} within 1% of the "
+          f"plain solve's {r_p:.4f}")
+    check(abs(h_k - h_p) <= 1e-2 * h_p,
+          f"zpc2 inner: held-out dTEC rms {h_k:.4f} within 1% of the plain "
+          f"solve's {h_p:.4f}")
+    check(h_a < h_0, f"zpc2 inner: held-out dTEC rms {h_a:.4f} below the "
+                     f"prior's {h_0:.4f}")
+    print(f"  zpc2-inner solve: {secs_a:.4f}, {secs_b:.4f} s; residual "
+          f"{float(za.residual_norm)!r}, held-out dTEC rms {h_a!r} (prior "
+          f"{h_0!r})")
+    results["config4_zpc2"] = {
+        "seconds": [secs_a, secs_b], "plain_seconds": secs_p,
+        "residual": float(za.residual_norm), "plain_residual": r_p,
+        "heldout": h_a, "plain_heldout": h_p, "prior_heldout": h_0,
+        "plain_what": what}
+    results["config4_zpc2_launches"] = launches
+    if profile:
+        profile_solve(lambda: solve(w), "config-4 solve, zpc2 inner")
+    del za, resp, res_k
+    torch.cuda.empty_cache()
+    return at
+
+
 def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
                     profile=False, parent=None, **world_kw):
     from ionotomo_tpu_torch.testing import CUBIC_SOLVE_KERNELS
@@ -2333,6 +2836,9 @@ def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
               f"{heldout(res_p.m)!r} bitwise the solve on the parent's "
               f"kernels ({secs_pp:.4f} s)")
         del res_p
+    from ionotomo_tpu_torch.core import zpcubic
+    at_config4.update(config4_zpc2(dev, w, configs, tricubic, zpcubic, tec,
+                                   kernels, plain_full, results, profile))
     if plain_full:
         plain_kw, what = {}, "the same schedule"
         res_k = res1
@@ -3564,7 +4070,8 @@ def e_study(reps=50) -> int:
     members for the batched shape), the points read and the outputs
     written once. Prints ptxas's registers of each build."""
     from ionotomo_tpu_torch import configs, kernels
-    from ionotomo_tpu_torch.core import boxspline, tricubic
+    from ionotomo_tpu_torch.core import (boxspline, triquadratic, tricubic,
+                                         zpcubic)
     from ionotomo_tpu_torch.core.grids import Grid3D
     from ionotomo_tpu_torch.forward import tec
     from ionotomo_tpu_torch.geometry import fermat, rays
@@ -3856,7 +4363,17 @@ def kernels_line(results) -> dict:
     # (of random partial rows over that bundle's plan) alone there, with
     # their launches in the same run; "kernels_at_member_shapes" holds K2b
     # and K3b at phase 11's other shapes, each beside the unbatched
-    # kernel's ms on one member.
+    # kernel's ms on one member. K6z and K6zᵀ: launches in one config-4
+    # solve with the zpc2 inner Jacobian, error, ms and bound at its 20,000
+    # endpoints (K6zᵀ adding into a K3 table; library_ms: index_add_ into
+    # a running table), "at" phase 2's edge-case and random points; K6q:
+    # launches in the rk4 trace on quadratic at the bench's batch, error,
+    # ms and bound at that trace's points halfway, "at" phase 2's points;
+    # K1z and K1q: launches in one trace of the bench's batch, error (8192
+    # rays, phase 2), ms and bound of the call (pack, sort and trace) at
+    # the bench's batch. "kernels_at_config4" holds K2 at zpc's (8, 4)
+    # shape at the solve's two bundles, with its launches in one
+    # zpc2-inner solve.
     c4 = results["config4_launches"]
     launches = {**results["launches"],
                 **{k: results["solve_launches"][k]
@@ -3868,7 +4385,12 @@ def kernels_line(results) -> dict:
                 "point_order_keys": c4["point_order_keys"],
                 "permute_points": c4["permute_points"],
                 "pack_zp_taps": results["bench_launches"]["pack_zp_taps"],
-                **{k: results["enkf_launches"][k] for k in MEMBER_KERNELS}}
+                **{k: results["enkf_launches"][k] for k in MEMBER_KERNELS},
+                **{k: results["config4_zpc2_launches"][k]
+                   for k in ("zpc_value_grad", "zpc_value_grad_bwd")},
+                **{k: results[k]["launches"]
+                   for k in ("quad_value_grad", "trace_leapfrog_zpc",
+                             "trace_leapfrog_quad")}}
     entries = [
         ("trace_leapfrog_zp", "trace_leapfrog_zp.cu",
          "ionotomo_tpu/geometry/fermat.py:204"),
@@ -3907,6 +4429,16 @@ def kernels_line(results) -> dict:
          "ionotomo_tpu/core/tricubic.py:284"),
         ("pack_zp_taps", "trace_leapfrog_zp.cu",
          "ionotomo_tpu/geometry/fermat.py:204"),
+        ("zpc_value_grad", "zpc_value_grad.cu",
+         "ionotomo_tpu/core/zpcubic.py:108"),
+        ("zpc_value_grad_bwd", "zpc_value_grad_bwd.cu",
+         "ionotomo_tpu/core/zpcubic.py:108"),
+        ("quad_value_grad", "quad_value_grad.cu",
+         "ionotomo_tpu/core/triquadratic.py:173"),
+        ("trace_leapfrog_zpc", "trace_leapfrog_zpc.cu",
+         "ionotomo_tpu/geometry/fermat.py:204"),
+        ("trace_leapfrog_quad", "trace_leapfrog_quad.cu",
+         "ionotomo_tpu/geometry/fermat.py:204"),
     ]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3926,7 +4458,9 @@ def kernels_line(results) -> dict:
         else:
             rep = {"rows_value_fwd": "ionotomo_tpu/core/tricubic.py:284",
                    "rows_value_bwd": "ionotomo_tpu/core/tricubic.py:377"}
-            at4.append({**entry(name, name + ".cu", rep[name], c4[name],
+            # K2 at zpc's shape: its launches in one zpc2-inner solve
+            runs = results["config4_zpc2_launches"] if "@zpc" in label else c4
+            at4.append({**entry(name, name + ".cu", rep[name], runs[name],
                                 line), "shape": label})
     reps = {name: (f, rep) for name, f, rep in entries}
     k1e = {**entry("zp_value_grad", *reps["zp_value_grad"],
@@ -3955,6 +4489,11 @@ def kernels_line(results) -> dict:
                for name in ("point_order_keys", "permute_points")}
     extra = {
         "zp_value_grad": k1e,
+        **{name: {**entry(name, *reps[name], launches[name],
+                          results[name]["line"]),
+                  "at": results[name + "_at"]}
+           for name in ("zpc_value_grad", "zpc_value_grad_bwd",
+                        "quad_value_grad")},
         "vector_gather": {
             **entry("vector_gather", *reps["vector_gather"],
                     launches["vector_gather"],
@@ -4005,7 +4544,8 @@ def main() -> int:
         return plain_solves(int(args[args.index("--plain-solves") + 1]), root)
 
     from ionotomo_tpu_torch import configs, kernels
-    from ionotomo_tpu_torch.core import boxspline, tricubic
+    from ionotomo_tpu_torch.core import (boxspline, triquadratic, tricubic,
+                                         zpcubic)
     from ionotomo_tpu_torch.core.grids import Grid3D
     from ionotomo_tpu_torch.forward import tec
     from ionotomo_tpu_torch.geometry import fermat, rays
@@ -4035,8 +4575,11 @@ def main() -> int:
     results = {}
     phase2_kernels_vs_plain(dev, boxspline, tricubic, fermat, kernels,
                             Grid3D, chapman, results, parent)
+    phase2_new_models(dev, tricubic, zpcubic, triquadratic, fermat, kernels,
+                      Grid3D, chapman, results)
     phase3_throughput(dev, boxspline, fermat, kernels, Grid3D, chapman,
                       results, card, parent)
+    phase3_new_tracers(dev, fermat, kernels, Grid3D, chapman, results, card)
     phase4_serving(dev, boxspline, fermat, rays, tec, kernels, Grid3D, chapman,
                    results, profile, parent)
     phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
@@ -4078,6 +4621,13 @@ def main() -> int:
           f"{min(c4['seconds']):.4f} s (plain {c4['plain_seconds']:.4f} s), "
           f"held-out dTEC rms {c4['prior_heldout']:.4f} -> "
           f"{c4['heldout']:.4f}")
+    rz, c4z = results["rays_per_s"], results["config4_zpc2"]
+    print(f"zpc and quadratic: bench trace (leapfrog@64) {rz['zpc']:.1f} and "
+          f"{rz['quadratic']:.1f} rays/s (zp {rz['kernel']:.1f}, cubic "
+          f"{c2['rays_per_s_leapfrog64']:.1f}); config 4 with the zpc2 "
+          f"inner Jacobian {min(c4z['seconds']):.4f} s (plain "
+          f"{c4z['plain_seconds']:.4f} s), held-out dTEC rms "
+          f"{c4z['prior_heldout']:.4f} -> {c4z['heldout']:.4f}")
     c5, e5 = results["config5"], results["config5_enkf"]
     print(f"config 5: {c5['steps']} filter steps in "
           f"{min(c5['seconds']):.4f} s ({c5['steps'] / min(c5['seconds']):.2f}"

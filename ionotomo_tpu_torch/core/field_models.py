@@ -2,21 +2,24 @@
 forward operators use them.
 
 A model is the module of its row-gather evaluators (``row_setup``,
-``row_plan``, ``interp_rows``, ``interp_rows_with_grad`` with its plain
-version and its transpose, fresh or added into a table in place
-(``interp_rows_with_grad_transpose_add_``), ``endpoint_plan``), the
-contraction order of its value gather, and the linear map P from field
-samples to its (nx*ny, nz) table with the transpose Pᵀ:
+``interp_rows``, ``interp_rows_with_grad`` with its plain version and, for
+the models the operators take, ``row_plan``, ``endpoint_plan`` and the
+transpose added into a table in place,
+``interp_rows_with_grad_transpose_add_``), the contraction order of its
+value gather, and the linear map P from field samples to its (nx*ny, nz)
+table with the transpose Pᵀ, which the module owns (``prefilter`` /
+``prefilter_transpose``, given the xy order where the model has one):
 
 - ``"cubic"`` (the default everywhere): Catmull-Rom tricubic,
   ``core.tricubic``, 16 rows × 4 taps, z first; P is a free view of the
   field (a convolution kernel, no prefilter), Pᵀ too;
 - ``"zp"`` / ``"zp<order>"``: Zwart-Powell box spline ⊗ quadratic z,
-  ``core.boxspline``, 8 rows × 3 taps, xy first; P is ``prefilter`` and
-  Pᵀ ``prefilter_transpose``.
-
-Not ported yet: ``"zpc*"`` and ``"quadratic"`` (ROADMAP.md Queue 1 item
-12, kernel K6); they raise NotImplementedError.
+  ``core.boxspline``, 8 rows × 3 taps, xy first;
+- ``"zpc"`` / ``"zpc<order>"``: Zwart-Powell box spline ⊗ Catmull-Rom z,
+  ``core.zpcubic``, 8 rows × 4 taps, xy first;
+- ``"quadratic"``: triquadratic B-spline, ``core.triquadratic``, 9 rows × 3
+  taps, z first. The tracer takes it; the forward operators do not, as
+  the reference's do not (``operator_model`` raises ValueError for it).
 """
 from __future__ import annotations
 
@@ -25,49 +28,56 @@ from types import ModuleType
 
 import torch
 
-from . import boxspline, tricubic
+from . import boxspline, triquadratic, tricubic, zpcubic
 from .grids import Grid3D
 
 
 @dataclasses.dataclass(frozen=True)
 class FieldModel:
-    rows: ModuleType        # core.tricubic or core.boxspline
+    rows: ModuleType        # the module of the model's evaluators
     xy_first: bool          # contraction order of the value gather
-    order: int | None       # zp xy-prefilter Neumann order; None: no filter
+    p_args: tuple | None    # P's arguments after the field (zp/zpc: the
+                            # xy Neumann order); None: P is a view
+    operator: bool = True   # whether the forward operators take it
 
     def table(self, field_m: torch.Tensor, grid: Grid3D) -> torch.Tensor:
         """P: field samples (..., nx, ny, nz) → the (..., nx*ny, nz)
         table (leading axes, an ensemble's members, ride along)."""
         nx, ny, nz = grid.shape
         shape = field_m.shape[:-3] + (nx * ny, nz)
-        if self.order is None:
+        if self.p_args is None:
             return field_m.reshape(shape)
-        return boxspline.prefilter(field_m, self.order).reshape(shape)
+        return self.rows.prefilter(field_m, *self.p_args).reshape(shape)
 
     def table_t(self, table_ct: torch.Tensor, grid: Grid3D) -> torch.Tensor:
         """Pᵀ: a table cotangent (..., nx*ny, nz) → field cotangent."""
         ct = table_ct.reshape(table_ct.shape[:-2] + tuple(grid.shape))
-        if self.order is None:
+        if self.p_args is None:
             return ct
-        return boxspline.prefilter_transpose(ct, self.order)
-
-
-def _not_ported(interp: str, item: str):
-    return NotImplementedError(
-        f"interp={interp!r} is not ported to ionotomo_tpu_torch yet "
-        f"(ROADMAP.md {item}); the port has the tricubic model ('cubic') "
-        f"and the zp model ('zp', 'zp<order>')")
+        return self.rows.prefilter_transpose(ct, *self.p_args)
 
 
 def field_model(interp: str) -> FieldModel:
-    """The model an ``interp`` string names; raises NotImplementedError
-    for the models not ported yet and ValueError for anything else."""
+    """The model an ``interp`` string names; raises ValueError for
+    anything else."""
     if interp == "cubic":
         return FieldModel(tricubic, False, None)
     if interp.startswith("zpc"):     # before "zp": shared prefix
-        raise _not_ported(interp, "Queue 1 item 12, kernel K6")
+        return FieldModel(zpcubic, True, (zpcubic.zpc_order(interp),))
     if interp.startswith("zp"):
-        return FieldModel(boxspline, True, boxspline.zp_order(interp))
+        return FieldModel(boxspline, True, (boxspline.zp_order(interp),))
     if interp == "quadratic":
-        raise _not_ported(interp, "Queue 1 item 12, kernel K6")
+        return FieldModel(triquadratic, False, (), operator=False)
     raise ValueError(f"unknown interp: {interp!r}")
+
+
+def operator_model(interp: str) -> FieldModel:
+    """``field_model`` for the forward operators (``forward.tec``): the
+    models the reference's operators take (``cubic``, ``zp*``, ``zpc*``);
+    ValueError for ``quadratic``, as the reference raises, and for
+    anything else."""
+    model = field_model(interp)
+    if not model.operator:
+        raise ValueError(f"unknown interp: {interp!r} (the forward "
+                         f"operators take 'cubic', 'zp*' and 'zpc*')")
+    return model

@@ -8,8 +8,9 @@ loop never asks the host whether to stop: no ``.item()``, ``bool(t)`` or
 solvers take flat tensors (the reference's pytree operands are not
 needed by the port's callers).
 
-Not ported: ``subspace_eigs`` (ROADMAP.md Queue 1 item 13) and
-``spectral_preconditioner`` (skipped by design).
+Not ported: the reference's ``core/linalg.py:subspace_eigs`` (ROADMAP.md
+Queue 1, diagnostics only) and ``spectral_preconditioner`` (skipped by
+design).
 """
 from __future__ import annotations
 

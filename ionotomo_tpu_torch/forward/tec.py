@@ -6,26 +6,29 @@ Units: ray geometry in km, n_e in m^-3; TEC returned in working units of
 ``constants.TEC_SCALE`` m^-2 (1e13 = 1 mTECU).
 
 Every function takes ``interp``, the field model (``core.field_models``:
-"cubic", the default, or "zp"/"zp<order>"). The value gathers run
-through the model's ``interp_rows`` (kernel K2 on CUDA) and the Hermite
-endpoint derivatives through its ``interp_rows_with_grad`` (kernel K5 on
-cubic, K1e on zp). The gather is monolithic: the reference's chunking of
-large batches bounds a gathered pencil block that the kernels never
-build, so it is not ported.
+"cubic", the default, "zp"/"zp<order>" or "zpc"/"zpc<order>"; "quadratic"
+raises ValueError, as in the reference, whose operators do not take it).
+The value gathers run through the model's ``interp_rows`` (kernel K2 on
+CUDA) and the Hermite endpoint derivatives through its
+``interp_rows_with_grad`` (kernel K5 on cubic, K1e on zp, K6z on zpc).
+The gather is monolithic: the reference's chunking of large batches
+bounds a gathered pencil block that the kernels never build, so it is
+not ported.
 
 ``PairedDtecLinear`` is the linearised paired-dTEC operator J about a
 field m0 and its transpose, written out where the reference takes
 ``jax.linearize`` and ``jax.linear_transpose`` of ``dtec_paired_q``:
 J δm = Q(n_e(m0) ⊙ R P δm) + the Hermite endpoint terms, Jᵀ y =
 Pᵀ Rᵀ(n_e ⊙ Qᵀ y) + Pᵀ Eᵀ(endpoint cotangents), with P the model's
-table map (the prefilter on zp, the identity on cubic), R ``rows_value``
-(K2) and Rᵀ ``rows_value_transpose`` (K3), E the model's value +
-gradient (K5ᵀ or K1eᵀ as its transpose) and Q the paired quadrature. What
-depends only on the ray samples is a ``DtecGeometry``, built once per
-bundle and shared by every linearisation over it; fields, tangents and
-cotangents may carry a leading member axis (K2b, K3b). ``tec_linear_op``
-is the same operator without the antenna pairing (absolute-TEC anchor
-rows) and ``LogNeLinear`` the linear map of ``log_ne_at`` (probe rows).
+table map (the prefilter on zp and zpc, the identity on cubic), R
+``rows_value`` (K2) and Rᵀ ``rows_value_transpose`` (K3), E the model's
+value + gradient (K5ᵀ, K1eᵀ or K6zᵀ as its transpose) and Q the paired
+quadrature. What depends only on the ray samples is a ``DtecGeometry``,
+built once per bundle and shared by every linearisation over it;
+fields, tangents and cotangents may carry a leading member axis (K2b,
+K3b). ``tec_linear_op`` is the same operator without the antenna
+pairing (absolute-TEC anchor rows) and ``LogNeLinear`` the linear map
+of ``log_ne_at`` (probe rows).
 
 ``tec_linear_adjoint`` (and so ``ray_coverage``) is Pᵀ of
 ``rows_value_transpose``: kernel K3 over the model's row plan, where the
@@ -37,7 +40,7 @@ import torch
 
 from .. import constants
 from ..core import boxspline, tricubic
-from ..core.field_models import field_model
+from ..core.field_models import operator_model
 from ..core.grids import Grid3D
 from ..core.precision import check_full_f32
 from ..geometry.rays import RayBundle, simpson_weights, trapezoid_weights
@@ -68,21 +71,21 @@ def _sub_ref_t(ct: torch.Tensor, i0, axis: int) -> torch.Tensor:
 def _coef2d(field_m: torch.Tensor, grid: Grid3D, interp: str
             ) -> torch.Tensor:
     """The (nx*ny, nz) row-gather table of the chosen field model: a free
-    view of the field for "cubic", the prefiltered box-spline coefficient
-    grid for "zp"."""
-    return field_model(interp).table(field_m, grid)
+    view of the field for "cubic", the prefiltered coefficient grid for
+    "zp" and "zpc"."""
+    return operator_model(interp).table(field_m, grid)
 
 
 def _rows_of(interp: str):
     """The module of the field model's row-gather evaluators."""
-    return field_model(interp).rows
+    return operator_model(interp).rows
 
 
 def _interp_fast(field_m: torch.Tensor, grid: Grid3D, pts2d: torch.Tensor,
                  interp: str = "cubic") -> torch.Tensor:
     """Row-gather interpolation of the field at points (N, 3) under the
     selected field model, in one pass over all points."""
-    model = field_model(interp)
+    model = operator_model(interp)
     return model.rows.interp_rows(model.table(field_m, grid), grid, pts2d)
 
 
@@ -333,7 +336,7 @@ class DtecGeometry:
         check_full_f32()
         if quadrature not in ("hermite", "simpson"):
             raise ValueError(f"unknown quadrature: {quadrature!r}")
-        self.model = field_model(interp)      # raises for unported models
+        self.model = operator_model(interp)   # ValueError for quadratic
         self.grid, self.rays = grid, rays
         self.quadrature, self.interp = quadrature, interp
         self.hermite = quadrature == "hermite"
@@ -394,17 +397,18 @@ class PairedDtecLinear:
     and Rᵀ kernel K3b, one launch for all members; on zp E is the batched
     K1e, one launch too, over the member pack of the table that K2b reads
     (``tricubic.member_pack``, made once in the application); E on cubic
-    and Eᵀ (20,000 points a bundle) launch their unbatched kernels once
-    per member. An operator linearised about one field also takes batched
+    and zpc and Eᵀ (20,000 points a bundle) launch their unbatched kernels
+    once per member. An operator linearised about one field also takes batched
     δm and y (the square-root anchor update applies one K to all
     anomalies).
 
     On CUDA tensors R is ``rows_value`` (K2, K2b) and Rᵀ
     ``rows_value_transpose`` (K3, K3b) over the geometry's plan; E and Eᵀ
-    are K5 and K5ᵀ on cubic, K1e and K1eᵀ on zp. Eᵀ adds into Rᵀ's fresh
-    table in place (K5ᵀ at the touched cells only; K1eᵀ's whole table is
-    added). ``dtec_paired_linear_ref`` builds the same operator from the plain
-    versions (``*_ref``) of those, on any device.
+    are K5 and K5ᵀ on cubic, K1e and K1eᵀ on zp, K6z and K6zᵀ on zpc. Eᵀ
+    adds into Rᵀ's fresh table in place (K5ᵀ and K6zᵀ at the touched cells
+    only; K1eᵀ's whole table is added). ``dtec_paired_linear_ref``
+    builds the same operator from the plain versions (``*_ref``) of those,
+    on any device.
     """
 
     _plans = True
@@ -465,7 +469,7 @@ class PairedDtecLinear:
     def _value_grad(self, table: torch.Tensor, pack=None):
         """E: value and gradient at the endpoints. For a (B, R, nz) table:
         all members at once on zp (the batched K1e over ``pack``), member
-        by member on cubic."""
+        by member on cubic and zpc."""
         geo = self.geometry
         rows = geo.model.rows
         if table.dim() == 2:
@@ -534,7 +538,7 @@ def dtec_paired_linear(field_m0, grid, rays, num_directions, i0=0,
                        geometry: DtecGeometry = None) -> PairedDtecLinear:
     """``dtec_paired_q`` linearised about ``field_m0`` (on CUDA kernels
     K2 and K3, or K2b and K3b for a field with a member axis, with K5 and
-    K5ᵀ on cubic or K1e and K1eᵀ on zp)."""
+    K5ᵀ on cubic, K1e and K1eᵀ on zp, K6z and K6zᵀ on zpc)."""
     return PairedDtecLinear(field_m0, grid, rays, num_directions, i0,
                             quadrature, interp, geometry)
 
@@ -607,7 +611,7 @@ class LogNeLinear:
 
     def __init__(self, field_m0, grid: Grid3D, points: torch.Tensor,
                  interp: str = "cubic"):
-        self.model = field_model(interp)
+        self.model = operator_model(interp)
         self.grid = grid
         nx, ny, nz = grid.shape
         self.table_shape = (nx * ny, nz)
@@ -664,7 +668,7 @@ def tec_linear_adjoint(y: torch.Tensor, grid: Grid3D, rays: RayBundle,
     scalar contributions on the CPU. On cubic the reference writes the
     same scatter through the 64 stencil weights of ``interp_weights``; on
     zp it takes ``jax.linear_transpose``, which includes Pᵀ."""
-    model = field_model(interp)
+    model = operator_model(interp)
     r, n = rays.points.shape[:2]
     nx, ny, nz = grid.shape
     ri, wxy, zi, wz = model.rows.row_setup(grid, rays.points.reshape(-1, 3))

@@ -7,18 +7,19 @@ Appleton–Hartree index, n_e = K_NE·exp(m(x)) from the interpolated
 log-density field. The TEC path integral rides along as extra state.
 
 ``trace_rays`` with ``method="leapfrog"`` runs one kernel on CUDA
-tensors, all steps of a ray in one thread, one launch: K1 over the zp
-field model, K1c over the tricubic model (``interp="cubic"``, the
-default). Every other combination, and every CPU tensor, runs
-``_trace_impl``, the port of the reference's integrator loop (a Python
-loop in place of ``lax.scan``); on CUDA its field evaluations are kernel
-K1e (zp) or K5 (cubic). ``trace_rays_ref`` is the plain PyTorch version
-of the whole tracer. ``trace_rays_callable`` runs the same loop over a
-closed-form field.
+tensors, all steps of a ray in one thread, one launch, the field model's
+own (``_leapfrog_kernel``): K1 over zp, K1c over the tricubic model
+(``interp="cubic"``, the default), K1z over zpc and K1q over the
+triquadratic model. rk4, and every CPU tensor, runs ``_trace_impl``, the
+port of the reference's integrator loop (a Python loop in place of
+``lax.scan``); on CUDA its field evaluations are the model's value +
+gradient kernel (K1e, K5, K6z or K6q), one launch a stage.
+``trace_rays_ref`` is the plain PyTorch version of the whole tracer.
+``trace_rays_callable`` runs the same loop over a closed-form field.
 
-Not ported yet (ROADMAP.md Queue 1 item 12): ``trace_rays_split``, the
-stochastic beam trace and ``beam_noise_for_epoch``, and the ``zpc*`` and
-``quadratic`` field models.
+Not ported yet (ROADMAP.md Queue 1, the tracers still missing): the
+reference's ``trace_rays_split``, ``trace_rays_stochastic`` and
+``beam_noise_for_epoch``.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from .. import constants, kernels
-from ..core import tricubic
+from ..core import boxspline, triquadratic, tricubic, zpcubic
 from ..core.field_models import field_model
 from ..core.grids import Grid3D
 from ..device import as_tensor
@@ -74,12 +75,23 @@ def field_evaluator(field_m: torch.Tensor, grid: Grid3D,
                     interp: str = "cubic"):
     """Build the log-density ``(m, ∇m)`` evaluator for a C¹ field model,
     paying any prefilter once: ``cubic`` (Catmull-Rom tricubic, 16 row
-    gathers, kernel K5 on CUDA) or ``zp``/``zp<order>`` (Zwart-Powell box
-    spline ⊗ quadratic-z, 8 row gathers, kernel K1e). ``zpc*`` and
-    ``quadratic`` raise NotImplementedError."""
+    gathers, kernel K5 on CUDA), ``zp``/``zp<order>`` (Zwart-Powell box
+    spline ⊗ quadratic-z, 8 row gathers, kernel K1e), ``zpc``/
+    ``zpc<order>`` (Zwart-Powell ⊗ Catmull-Rom z, 8 row gathers, kernel
+    K6z) or ``quadratic`` (triquadratic B-spline, 9 row gathers, kernel
+    K6q)."""
     model = field_model(interp)
     table = model.table(field_m, grid)
     return lambda x: model.rows.interp_rows_with_grad(table, grid, x)
+
+
+def _leapfrog_kernel(model):
+    """The model's own leapfrog tracer kernel: K1 on zp, K1c on cubic, K1z
+    on zpc, K1q on quadratic (each reads its model's table)."""
+    return {boxspline: kernels.trace_leapfrog_zp,
+            tricubic: kernels.trace_leapfrog_cubic,
+            zpcubic: kernels.trace_leapfrog_zpc,
+            triquadratic: kernels.trace_leapfrog_quad}[model.rows]
 
 
 def _step_constants(frequency_hz, max_length_km, n_steps):
@@ -116,8 +128,8 @@ def trace_rays(field_m: torch.Tensor, grid: Grid3D, origins: torch.Tensor,
     Integrators: ``rk4`` (4 field evaluations per step, the accuracy
     reference) and ``leapfrog`` (velocity Verlet, one field evaluation per
     step, Hermite 4th-order TEC; leapfrog@64 is the production
-    configuration). On CUDA, leapfrog is one kernel: K1 over zp, K1c over
-    cubic.
+    configuration). On CUDA, leapfrog is one kernel, the field model's
+    (``_leapfrog_kernel``).
     """
     origins = as_tensor(origins, device=grid.device)
     directions = as_tensor(directions, device=grid.device)
@@ -125,11 +137,9 @@ def trace_rays(field_m: torch.Tensor, grid: Grid3D, origins: torch.Tensor,
         model = field_model(interp)
         table = model.table(field_m, grid).contiguous()
         c = _step_constants(frequency_hz, max_length_km, n_steps)
-        kernel = (kernels.trace_leapfrog_cubic if model.rows is tricubic
-                  else kernels.trace_leapfrog_zp)
-        x_end, tau, path = kernel(table, grid, origins.contiguous(),
-                                  directions.contiguous(), n_steps,
-                                  keep_path, **c)
+        x_end, tau, path = _leapfrog_kernel(model)(
+            table, grid, origins.contiguous(), directions.contiguous(),
+            n_steps, keep_path, **c)
         pts = path if keep_path else torch.stack([origins, x_end], dim=1)
         ds = torch.full((origins.shape[0],), c["h"], dtype=torch.float32,
                         device=origins.device)
@@ -146,7 +156,8 @@ def trace_rays_ref(field_m: torch.Tensor, grid: Grid3D,
                    max_length_km=constants.DEFAULT_MAX_LENGTH_KM,
                    n_steps: int = 128, keep_path: bool = True,
                    method: str = "rk4", interp: str = "cubic"):
-    """Plain PyTorch version of ``trace_rays`` (and so of K1 and K1c):
+    """Plain PyTorch version of ``trace_rays`` (and so of K1, K1c, K1z
+    and K1q):
     the ``_trace_impl`` loop over the field model's plain evaluator, on
     any device."""
     model = field_model(interp)

@@ -6,8 +6,8 @@ currency of the forward operators. Tensors keep their device; numpy inputs
 go to the device of the tensor beside them, or to the card when there is
 none (``device.as_tensor``).
 
-Not ported yet (ROADMAP.md Queue 1 item 5): ``inner_bundle`` and
-``calc_rays``.
+Not ported yet (ROADMAP.md Queue 1, the tracers still missing): the
+reference's ``geometry/rays.py:inner_bundle`` and ``calc_rays``.
 """
 from __future__ import annotations
 

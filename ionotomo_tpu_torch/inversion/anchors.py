@@ -27,8 +27,9 @@ kernels K2b and K3b.
 
 Randomness is fed in: ``anchors_from_field`` takes its unit-normal draws.
 
-Not ported: ``member_axis`` (the member-parallel multi-GPU filter,
-ROADMAP.md Queue 1 item 14).
+Not ported: the reference's ``member_axis`` (of
+``inversion/kalman.py:member_parallel_enkf``, the member-parallel
+multi-GPU filter; ROADMAP.md Queue 1, multi-GPU).
 """
 from __future__ import annotations
 

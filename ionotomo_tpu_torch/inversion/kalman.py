@@ -39,9 +39,10 @@ key, so chunked and single-call runs consume the same draws and agree
 bitwise.
 
 Not ported: ``spectrum_blend`` (withdrawn in the reference: measured
-neutral; the argument raises), ``member_axis``/``member_parallel_enkf``
-(multi-GPU, ROADMAP.md Queue 1 item 14) and ``update_operator_eigs``
-(item 13).
+neutral; the argument raises), the reference's
+``inversion/kalman.py:member_parallel_enkf`` with ``member_axis``
+(ROADMAP.md Queue 1, multi-GPU) and ``update_operator_eigs``
+(ROADMAP.md Queue 1, diagnostics only).
 """
 from __future__ import annotations
 
@@ -480,7 +481,8 @@ def ensemble_kalman_filter(grid: Grid3D, rays_seq: RayBundle, d_obs_seq,
     if spectrum_blend:
         raise NotImplementedError(
             "spectrum_blend is withdrawn in the reference (measured neutral) "
-            "and not ported (ROADMAP.md Queue 1 item 11)")
+            "and not ported (ROADMAP.md Queue 1, deliberately not ported: "
+            "the reference's ensemble_kalman_filter(spectrum_blend=...))")
     if anchor_update not in ("sqrt", "stochastic"):
         raise ValueError(f"unknown anchor_update: {anchor_update!r}")
     dev = grid.device

@@ -7,7 +7,8 @@ the reference builds it (circulant embedding of a closed-form kernel, or
 the von Kármán spectrum itself), and applied with ``torch.fft`` in f32 on
 the spectrum's device (cuFFT on the card).
 
-Not ported yet (ROADMAP.md Queue 1 item 9): ``fit_shell_spectrum``.
+Not ported yet (ROADMAP.md Queue 1, the solvers still missing): the
+reference's ``inversion/priors.py:fit_shell_spectrum``.
 """
 from __future__ import annotations
 

@@ -20,9 +20,10 @@ of the kernels.
 object with ``points``, ``values``, ``noise_std``) appended to the data
 vector in the order [dTEC, anchors, probes].
 
-Not ported yet: ``map_gauss_newton_robust``, ``posterior_samples``,
-``map_gauss_newton_batched`` and ``steepest_descent_map`` (Queue 1
-item 10).
+Not ported yet (ROADMAP.md Queue 1, the solvers still missing): the
+reference's ``inversion/solvers.py:map_gauss_newton_robust``,
+``posterior_samples``, ``map_gauss_newton_batched`` and
+``steepest_descent_map``.
 """
 from __future__ import annotations
 

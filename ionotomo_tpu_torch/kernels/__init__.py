@@ -38,6 +38,17 @@
   cotangent, over the one plan the members share: the cotangent packed
   member-innermost (``pack_members``), the reduce, and the fold of rows of
   several segments (``fold_member_rows``; csrc/rows_value_bwd_batched.cu).
+- K6z ``zpc_value_grad``: zpc value + physical gradient at points
+  (csrc/zpc_value_grad.cu, csrc/zpc_eval.cuh), and K6zᵀ
+  ``zpc_value_grad_bwd`` its transpose, added into a table in place over a
+  plan of occupied rows as K5ᵀ adds (csrc/zpc_value_grad_bwd.cu);
+- K6q ``quad_value_grad``: triquadratic value + physical gradient at points
+  (csrc/quad_value_grad.cu, csrc/quad_eval.cuh);
+- K1z ``trace_leapfrog_zpc`` and K1q ``trace_leapfrog_quad``: the leapfrog
+  tracer over the zpc and the triquadratic model (csrc/trace_leapfrog_zpc.cu,
+  csrc/trace_leapfrog_quad.cu), K1's call on K6z's and K6q's evaluators,
+  over K1c's z-tap pack (zpc's z stencil is the tricubic one) and K1's
+  (quadratic's is the zp one).
 
 Each wrapper checks dtype, shape, contiguity and device and raises on
 anything else (a CPU tensor included: the plain PyTorch versions live in
@@ -63,7 +74,9 @@ launches = {"trace_leapfrog_zp": 0, "zp_value_grad": 0,
             "ray_order_keys": 0, "rows_value_fwd_batched": 0,
             "rows_value_bwd_batched": 0, "pack_members": 0,
             "fold_member_rows": 0, "point_order_keys": 0,
-            "permute_points": 0, "pack_zp_taps": 0}
+            "permute_points": 0, "pack_zp_taps": 0, "zpc_value_grad": 0,
+            "quad_value_grad": 0, "zpc_value_grad_bwd": 0,
+            "trace_leapfrog_zpc": 0, "trace_leapfrog_quad": 0}
 
 #: Widest table row the reduce kernels (K3, K1eᵀ) take: one row per warp
 #: in shared memory, 8 warps a block, within the 48 KB a block gets
@@ -198,10 +211,24 @@ def cubic_value_grad(field2d: torch.Tensor, grid, points: torch.Tensor):
     return _value_grad("cubic_value_grad", 2, field2d, grid, points)
 
 
+def zpc_value_grad(coef2d: torch.Tensor, grid, points: torch.Tensor):
+    """K6z: zpc value (N,) and physical gradient (N, 3) [1/km] at points
+    (N, 3) of the (nx*ny, nz) table ``coef2d`` (``core.zpcubic.prefilter``
+    reshaped)."""
+    return _value_grad("zpc_value_grad", 3, coef2d, grid, points)
+
+
+def quad_value_grad(coef2d: torch.Tensor, grid, points: torch.Tensor):
+    """K6q: triquadratic value (N,) and physical gradient (N, 3) [1/km] at
+    points (N, 3) of the (nx*ny, nz) coefficient table ``coef2d``
+    (``core.triquadratic.prefilter`` reshaped)."""
+    return _value_grad("quad_value_grad", 3, coef2d, grid, points)
+
+
 #: The shapes K2 runs with K and L fixed, the main paths' (zp: K=8, L=3,
-#: xy first; cubic: K=16, L=4, z first), as (K, L, xy_first); only these
-#: take a point order.
-K2_FIXED_SHAPES = ((8, 3, True), (16, 4, False))
+#: xy first; zpc: K=8, L=4, xy first; cubic: K=16, L=4, z first), as (K,
+#: L, xy_first); only these take a point order.
+K2_FIXED_SHAPES = ((8, 3, True), (8, 4, True), (16, 4, False))
 
 
 def _aligned(*tensors) -> bool:
@@ -436,20 +463,84 @@ def trace_leapfrog_zp(coef2d: torch.Tensor, grid, origins: torch.Tensor,
     64 rays a block; a smaller one reads the table as it is, in its own
     order, 32 rays a block, so that it spreads over more SMs. Each ray's
     outputs are bitwise those of the unpacked evaluator in ray order."""
-    name = "trace_leapfrog_zp"
+    return _sorted_and_packed("trace_leapfrog_zp", trace_leapfrog_zp_with,
+                              pack_zp_taps, coef2d, grid, origins,
+                              directions, n_steps, keep_path, consts)
+
+
+def trace_leapfrog_zpc(coef2d: torch.Tensor, grid, origins: torch.Tensor,
+                       directions: torch.Tensor, n_steps: int,
+                       keep_path: bool, **consts):
+    """K1z: as ``trace_leapfrog_zp`` through the zpc table
+    (``core.zpcubic.prefilter`` reshaped), over K1c's pack
+    (``pack_z_taps``: zpc's z stencil is the tricubic one) where K1 packs.
+    Each ray's outputs are bitwise those of the unpacked evaluator in ray
+    order."""
+    return _sorted_and_packed("trace_leapfrog_zpc", trace_leapfrog_zpc_with,
+                              pack_z_taps, coef2d, grid, origins,
+                              directions, n_steps, keep_path, consts)
+
+
+def trace_leapfrog_quad(coef2d: torch.Tensor, grid, origins: torch.Tensor,
+                        directions: torch.Tensor, n_steps: int,
+                        keep_path: bool, **consts):
+    """K1q: as ``trace_leapfrog_zp`` through the triquadratic coefficient
+    table (``core.triquadratic.prefilter`` reshaped), over K1's pack
+    (``pack_zp_taps``: quadratic's z stencil is the zp one) where K1
+    packs. Each ray's outputs are bitwise those of the unpacked evaluator
+    in ray order."""
+    return _sorted_and_packed("trace_leapfrog_quad", trace_leapfrog_quad_with,
+                              pack_zp_taps, coef2d, grid, origins,
+                              directions, n_steps, keep_path, consts)
+
+
+def _sorted_and_packed(name, with_fn, pack, table, grid, origins,
+                       directions, n_steps, keep_path, consts):
+    """K1's call, which K1z and K1q share: from ``TRACE_ZP_RAYS_PER_SM``
+    rays an SM the rays sorted (``ray_order``) and the table's z taps
+    packed (``pack``) first, 64 rays a block; below, the table as it is in
+    ray order, 32 rays a block."""
     r = origins.shape[0]
     dev = _check(name, [("origins", origins, torch.float32, (r, 3)),
                         ("directions", directions, torch.float32, (r, 3))]
-                 + _grid_specs(name, coef2d, grid, 3))
+                 + _grid_specs(name, table, grid, 3))
     per_sm = r / torch.cuda.get_device_properties(dev).multi_processor_count
     if per_sm < TRACE_ZP_RAYS_PER_SM:
-        return trace_leapfrog_zp_with(coef2d, grid, origins, directions,
-                                      n_steps, keep_path, packed=None,
-                                      order=None, threads=32, **consts)
-    return trace_leapfrog_zp_with(
-        coef2d, grid, origins, directions, n_steps, keep_path,
-        packed=pack_zp_taps(coef2d, grid),
-        order=ray_order(origins, directions, grid), threads=64, **consts)
+        return with_fn(table, grid, origins, directions, n_steps, keep_path,
+                       packed=None, order=None, threads=32, **consts)
+    return with_fn(table, grid, origins, directions, n_steps, keep_path,
+                   packed=pack(table, grid),
+                   order=ray_order(origins, directions, grid), threads=64,
+                   **consts)
+
+
+def _trace_with(name, min_axis, pack_bases, table, grid, origins, directions,
+                n_steps, keep_path, packed, order, threads, consts):
+    """Launch a leapfrog tracer with its layout, ray order and block size
+    given: ``packed`` the (nz − pack_bases, nx*ny, 4) z-tap pack of
+    ``table`` or None, ``order`` (R,) int32 or None."""
+    dev, x_end, tau, path = _trace_outputs(name, min_axis, table, grid,
+                                           origins, directions, n_steps,
+                                           keep_path)
+    nx, ny, nz = grid.shape
+    r = origins.shape[0]
+    specs = []
+    if packed is not None:
+        specs.append(("packed", packed, torch.float32,
+                      (nz - pack_bases, nx * ny, 4)))
+    if order is not None:
+        specs.append(("order", order, torch.int32, (r,)))
+    if specs and _check(name, specs) != dev:
+        raise ValueError(f"{name}: packed and order must be on {dev}")
+    if r == 0:
+        return x_end, tau, path
+    with torch.cuda.device(dev):
+        _launch(name, "ionotomo_" + name, _ptr(table), _ptr(packed),
+                _ptr(grid.origin), _ptr(grid.spacing), nx, ny, nz,
+                _ptr(origins), _ptr(directions), _ptr(order), r,
+                int(n_steps), *_consts(**consts), int(threads),
+                _ptr(x_end), _ptr(tau), _ptr(path))
+    return x_end, tau, path
 
 
 def trace_leapfrog_zp_with(coef2d, grid, origins, directions, n_steps: int,
@@ -460,27 +551,29 @@ def trace_leapfrog_zp_with(coef2d, grid, origins, directions, n_steps: int,
     (``pack_zp_taps``) or None (the unpacked evaluator); order, (R,)
     int32 ray of each thread, or None; threads, a multiple of 32 up to
     1024."""
-    name = "trace_leapfrog_zp"
-    dev, x_end, tau, path = _trace_outputs(name, 3, coef2d, grid, origins,
-                                           directions, n_steps, keep_path)
-    nx, ny, nz = grid.shape
-    r = origins.shape[0]
-    specs = []
-    if packed is not None:
-        specs.append(("packed", packed, torch.float32, (nz - 2, nx * ny, 4)))
-    if order is not None:
-        specs.append(("order", order, torch.int32, (r,)))
-    if specs and _check(name, specs) != dev:
-        raise ValueError(f"{name}: packed and order must be on {dev}")
-    if r == 0:
-        return x_end, tau, path
-    with torch.cuda.device(dev):
-        _launch(name, "ionotomo_" + name, _ptr(coef2d), _ptr(packed),
-                _ptr(grid.origin), _ptr(grid.spacing), nx, ny, nz,
-                _ptr(origins), _ptr(directions), _ptr(order), r,
-                int(n_steps), *_consts(**consts), int(threads),
-                _ptr(x_end), _ptr(tau), _ptr(path))
-    return x_end, tau, path
+    return _trace_with("trace_leapfrog_zp", 3, 2, coef2d, grid, origins,
+                       directions, n_steps, keep_path, packed, order, threads,
+                       consts)
+
+
+def trace_leapfrog_zpc_with(coef2d, grid, origins, directions, n_steps: int,
+                            keep_path: bool, *, packed, order, threads: int,
+                            **consts):
+    """K1z with its layout, ray order and block size given: packed, K1c's
+    packed table of ``coef2d`` (``pack_z_taps``) or None."""
+    return _trace_with("trace_leapfrog_zpc", 3, 1, coef2d, grid, origins,
+                       directions, n_steps, keep_path, packed, order, threads,
+                       consts)
+
+
+def trace_leapfrog_quad_with(coef2d, grid, origins, directions,
+                             n_steps: int, keep_path: bool, *, packed, order,
+                             threads: int, **consts):
+    """K1q with its layout, ray order and block size given: packed, K1's
+    packed table of ``coef2d`` (``pack_zp_taps``) or None."""
+    return _trace_with("trace_leapfrog_quad", 3, 2, coef2d, grid, origins,
+                       directions, n_steps, keep_path, packed, order, threads,
+                       consts)
 
 
 def pack_zp_taps(coef2d: torch.Tensor, grid) -> torch.Tensor:
@@ -619,27 +712,9 @@ def trace_leapfrog_cubic_with(field2d, grid, origins, directions,
     ``field2d`` (``pack_z_taps``), which the tracer reads in its place, or
     None (the unpacked evaluator); order: (R,) int32 ray of each thread,
     or None; threads: a multiple of 32 up to 1024."""
-    name = "trace_leapfrog_cubic"
-    dev, x_end, tau, path = _trace_outputs(name, 2, field2d, grid, origins,
-                                           directions, n_steps, keep_path)
-    nx, ny, nz = grid.shape
-    r = origins.shape[0]
-    specs = []
-    if packed is not None:
-        specs.append(("packed", packed, torch.float32, (nz - 1, nx * ny, 4)))
-    if order is not None:
-        specs.append(("order", order, torch.int32, (r,)))
-    if specs and _check(name, specs) != dev:
-        raise ValueError(f"{name}: packed and order must be on {dev}")
-    if r == 0:
-        return x_end, tau, path
-    with torch.cuda.device(dev):
-        _launch(name, "ionotomo_" + name, _ptr(field2d), _ptr(packed),
-                _ptr(grid.origin), _ptr(grid.spacing), nx, ny, nz,
-                _ptr(origins), _ptr(directions), _ptr(order), r,
-                int(n_steps), *_consts(**consts), int(threads),
-                _ptr(x_end), _ptr(tau), _ptr(path))
-    return x_end, tau, path
+    return _trace_with("trace_leapfrog_cubic", 2, 1, field2d, grid, origins,
+                       directions, n_steps, keep_path, packed, order, threads,
+                       consts)
 
 
 def _plan_specs(name: str, plan, n_points):
@@ -842,14 +917,38 @@ def cubic_value_grad_bwd(table: torch.Tensor, grid, points: torch.Tensor,
     rows only (``core.tricubic.endpoint_plan``). Deterministic: no float
     atomics. Runs on the stream the plan was built on and raises on
     another."""
-    name = "cubic_value_grad_bwd"
-    if plan.live != 16 or plan.stride != 16 or plan.z0_range is None:
-        raise ValueError(f"{name}: needs a plan of occupied rows with 16 "
-                         f"live pairs a point, got live {plan.live}, stride "
-                         f"{plan.stride}, z0_range {plan.z0_range is not None}")
+    return _adding_bwd("cubic_value_grad_bwd", 2, 16, 16, table, grid,
+                       points, ct_value, ct_grad, plan)
+
+
+def zpc_value_grad_bwd(table: torch.Tensor, grid, points: torch.Tensor,
+                       ct_value: torch.Tensor, ct_grad: torch.Tensor,
+                       plan) -> torch.Tensor:
+    """K6zᵀ, accumulating as K5ᵀ: adds into ``table`` (nx*ny, nz), in
+    place, the table cotangent of K6z for a value cotangent (N,) and a
+    physical-gradient cotangent (N, 3) at points (N, 3), and returns
+    ``table``. The plan lists the flat (point, translate) pair ids n·8 +
+    t, the 7 live translates, sorted by row and cell base and cut into
+    segments, occupied rows only (``core.zpcubic.endpoint_plan``).
+    Deterministic: no float atomics. Runs on the stream the plan was built
+    on and raises on another."""
+    return _adding_bwd("zpc_value_grad_bwd", 3, 7, 8, table, grid, points,
+                       ct_value, ct_grad, plan)
+
+
+def _adding_bwd(name, min_axis, live, stride, table, grid, points, ct_value,
+                ct_grad, plan):
+    """Launch an accumulating transpose (K5ᵀ, K6zᵀ) over a plan of
+    occupied rows with ``live`` of ``stride`` pairs a point."""
+    if (plan.live != live or plan.stride != stride
+            or plan.z0_range is None):
+        raise ValueError(f"{name}: needs a plan of occupied rows with {live} "
+                         f"live pairs of {stride} a point, got live "
+                         f"{plan.live}, stride {plan.stride}, z0_range "
+                         f"{plan.z0_range is not None}")
     nx, ny, _ = grid.shape
     return _value_grad_bwd(
-        name, 2, grid, points, ct_value, ct_grad, plan, table,
+        name, min_axis, grid, points, ct_value, ct_grad, plan, table,
         after=(_ptr(plan.z0_range),),
         specs=[("plan.z0_range", plan.z0_range, torch.int32, (nx * ny, 2))])
 

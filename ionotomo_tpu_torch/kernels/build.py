@@ -67,6 +67,19 @@ _SIGNATURES = {
                                              _P, _P, _P]),
     "ionotomo_fold_member_rows": (_I, [_P, _I, _P, _I, _I, _I, _P, _P]),
     "ionotomo_pack_members": (_I, [_P, _I, ctypes.c_longlong, _P, _P]),
+    "ionotomo_zpc_value_grad": (_I, [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P,
+                                     _P]),
+    "ionotomo_quad_value_grad": (_I, [_P, _P, _P, _I, _I, _I, _P, _I, _P,
+                                      _P, _P]),
+    "ionotomo_zpc_value_grad_bwd": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _P,
+                                         _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                                         _P]),
+    "ionotomo_trace_leapfrog_zpc": (_I, [_P, _P, _P, _P, _I, _I, _I, _P, _P,
+                                         _P, _I, _I, _F, _F, _F, _F, _F, _F,
+                                         _I, _P, _P, _P, _P]),
+    "ionotomo_trace_leapfrog_quad": (_I, [_P, _P, _P, _P, _I, _I, _I, _P,
+                                          _P, _P, _I, _I, _F, _F, _F, _F, _F,
+                                          _F, _I, _P, _P, _P, _P]),
     "ionotomo_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -24,7 +24,8 @@
 // base once per operator, in one launch, over a plan of occupied rows only
 // (core/tricubic.py:endpoint_plan): no segment for an empty row, and each
 // row's least and greatest cell base, so the warp of a segment knows the
-// z span [lo, hi] its row's pairs touch. A warp reduces its segment as
+// z span [lo, hi] its row's pairs touch. A warp reduces its segment
+// (row_reduce.cuh: add_segment_into, shared with K6z^T) as
 // reduce_segment does (batches in plan order, the same scan tree, the
 // segments of a long row folded in segment order by the last of them), but
 // only over the span, and then adds the sum into the table it is given,
@@ -117,14 +118,6 @@ struct CubicPair {
   }
 };
 
-// The touched z of a row whose pairs have cell bases in [z0_lo, z0_hi]:
-// the taps base-1 .. base+2, clamped.
-__device__ __forceinline__ void row_span(const int* __restrict__ z0_range,
-                                         int row, int nz, int& lo, int& hi) {
-  lo = max(__ldg(z0_range + 2 * row) - 1, 0);
-  hi = min(__ldg(z0_range + 2 * row + 1) + 2, nz - 1);
-}
-
 // The register budget: at least this many blocks of 256 threads resident
 // on an SM (64 registers a thread). chip_smoke.py --k5t-study builds the
 // library with other values to measure it.
@@ -132,11 +125,8 @@ __device__ __forceinline__ void row_span(const int* __restrict__ z0_range,
 #define K5T_MIN_BLOCKS 4
 #endif
 
-// One used segment of the plan a warp (a warp past them returns at once):
-// reduced over its row's span in shared memory as reduce_segment reduces
-// it, then added into table (n_rows, nz), or, in a row of several
-// segments, written to partials and folded in segment order by the row's
-// last warp.
+// One used segment of the plan a warp: row_reduce::add_segment_into over
+// the row's span, added into table (n_rows, nz).
 __global__ void __launch_bounds__(256, K5T_MIN_BLOCKS)
     cubic_value_grad_bwd_kernel(
         const float* __restrict__ origin, const float* __restrict__ spacing,
@@ -145,62 +135,11 @@ __global__ void __launch_bounds__(256, K5T_MIN_BLOCKS)
         row_reduce::Plan plan, const int* __restrict__ z0_range,
         float* __restrict__ table) {
   extern __shared__ float smem[];
-  float* srow = smem + (threadIdx.x >> 5) * nz;
-  const int lane = threadIdx.x & 31;
-  const int s = blockIdx.x * row_reduce::kWarpsPerBlock + (threadIdx.x >> 5);
-  if (s >= plan.row_seg[plan.n_rows]) return;  // past the used segments
   const CubicPair pair{table_grid(nullptr, origin, spacing, nx, ny, nz),
                        points, cv, cg};
-  const int row = plan.seg_row[s];
-  const int first = plan.row_seg[row];
-  const int nseg = plan.row_seg[row + 1] - first;
-  const int beg = plan.offsets[row] + (s - first) * plan.chunk;
-  const int end = min(beg + plan.chunk, plan.offsets[row + 1]);
-  int lo, hi;
-  row_span(z0_range, row, nz, lo, hi);
-  for (int z = lo + lane; z <= hi; z += 32) srow[z] = 0.0f;
-  __syncwarp();
-
-  // batch b is reduced while the inputs of b+1 and the ids of b+2 load
-  int p_next = beg + 32 + lane < end ? plan.order[beg + 32 + lane] : -1;
-  CubicPair::In in = pair.load(beg + lane < end ? plan.order[beg + lane]
-                                                : -1);
-  for (int j0 = beg; j0 < end; j0 += 32) {
-    const int p_after = j0 + 64 + lane < end ? plan.order[j0 + 64 + lane]
-                                             : -1;
-    const CubicPair::In in_next = pair.load(p_next);
-    int z[4];
-    float c[4];
-    pair.contributions(in, z, c);
-    row_reduce::add_batch<4>(z, c, nz, srow);
-    in = in_next;
-    p_next = p_after;
-  }
-  __syncwarp();
-
-  float* dst = table + (size_t)row * (size_t)nz;
-  if (nseg == 1) {
-    for (int z = lo + lane; z <= hi; z += 32) dst[z] += srow[z];
-    return;
-  }
-  float* part = plan.partials + (size_t)s * (size_t)nz;
-  for (int z = lo + lane; z <= hi; z += 32) __stcg(part + z, srow[z]);
-  __threadfence();
-  __syncwarp();
-  int ticket = 0;
-  if (lane == 0) ticket = atomicAdd(plan.counters + row, 1);
-  ticket = __shfl_sync(row_reduce::kFullMask, ticket, 0);
-  if (ticket != nseg - 1) return;
-  __threadfence();
-  // the partial rows in segment order, as fold_partials sums them
-  const float* parts = plan.partials + (size_t)first * (size_t)nz;
-  for (int z = lo + lane; z <= hi; z += 32) {
-    float acc = 0.0f;
-    for (int k = 0; k < nseg; ++k)
-      acc += __ldcg(parts + (size_t)k * (size_t)nz + z);
-    dst[z] += acc;
-  }
-  if (lane == 0) plan.counters[row] = 0;
+  row_reduce::add_segment_into<4>(plan, z0_range, nz,
+                                  smem + (threadIdx.x >> 5) * nz, table,
+                                  pair);
 }
 
 }  // namespace

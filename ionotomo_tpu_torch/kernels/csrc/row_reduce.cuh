@@ -188,6 +188,79 @@ __device__ __forceinline__ void reduce_segment(const Plan& plan, int nz,
   if (lane == 0) plan.counters[row] = 0;
 }
 
+// reduce_segment over a plan of occupied rows, adding into the caller's
+// table rather than writing a row: the accumulating transposes K5^T
+// (cubic_value_grad_bwd.cu) and K6z^T (zpc_value_grad_bwd.cu), whose
+// pairs' 4 z taps are the Catmull-Rom stencil base-1 .. base+2 (clamped)
+// of a cell base. z0_range (n_rows, 2) holds each row's least and greatest
+// cell base, so the warp of a segment reduces and adds only the z span
+// [lo, hi] its row's pairs touch. One used segment a warp (a warp past
+// the plan's last row_seg returns at once): reduced over the span in
+// shared memory as reduce_segment reduces it, then added into table
+// (n_rows, nz), table[row, z] += sum once per touched cell, or, in a row
+// of several segments, written to partials and folded in segment order by
+// the row's last warp, which adds the fold. So each cell is rounded as
+// the table + (the sum in a zeroed table) rounds it.
+template <int L, class Pair>
+__device__ __forceinline__ void add_segment_into(
+    const Plan& plan, const int* __restrict__ z0_range, int nz, float* srow,
+    float* __restrict__ table, const Pair& pair) {
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (s >= plan.row_seg[plan.n_rows]) return;  // past the used segments
+  const int row = plan.seg_row[s];
+  const int first = plan.row_seg[row];
+  const int nseg = plan.row_seg[row + 1] - first;
+  const int beg = plan.offsets[row] + (s - first) * plan.chunk;
+  const int end = min(beg + plan.chunk, plan.offsets[row + 1]);
+  // the touched z: the taps base-1 .. base+2 of the row's bases, clamped
+  const int lo = max(__ldg(z0_range + 2 * row) - 1, 0);
+  const int hi = min(__ldg(z0_range + 2 * row + 1) + 2, nz - 1);
+  for (int z = lo + lane; z <= hi; z += 32) srow[z] = 0.0f;
+  __syncwarp();
+
+  // batch b is reduced while the inputs of b+1 and the ids of b+2 load
+  int p_next = beg + 32 + lane < end ? plan.order[beg + 32 + lane] : -1;
+  typename Pair::In in =
+      pair.load(beg + lane < end ? plan.order[beg + lane] : -1);
+  for (int j0 = beg; j0 < end; j0 += 32) {
+    const int p_after = j0 + 64 + lane < end ? plan.order[j0 + 64 + lane]
+                                             : -1;
+    const typename Pair::In in_next = pair.load(p_next);
+    int z[L];
+    float c[L];
+    pair.contributions(in, z, c);
+    add_batch<L>(z, c, nz, srow);
+    in = in_next;
+    p_next = p_after;
+  }
+  __syncwarp();
+
+  float* dst = table + (size_t)row * (size_t)nz;
+  if (nseg == 1) {
+    for (int z = lo + lane; z <= hi; z += 32) dst[z] += srow[z];
+    return;
+  }
+  float* part = plan.partials + (size_t)s * (size_t)nz;
+  for (int z = lo + lane; z <= hi; z += 32) __stcg(part + z, srow[z]);
+  __threadfence();
+  __syncwarp();
+  int ticket = 0;
+  if (lane == 0) ticket = atomicAdd(plan.counters + row, 1);
+  ticket = __shfl_sync(kFullMask, ticket, 0);
+  if (ticket != nseg - 1) return;
+  __threadfence();
+  // the partial rows in segment order, as fold_partials sums them
+  const float* parts = plan.partials + (size_t)first * (size_t)nz;
+  for (int z = lo + lane; z <= hi; z += 32) {
+    float acc = 0.0f;
+    for (int k = 0; k < nseg; ++k)
+      acc += __ldcg(parts + (size_t)k * (size_t)nz + z);
+    dst[z] += acc;
+  }
+  if (lane == 0) plan.counters[row] = 0;
+}
+
 // Members a warp reduces in one pass over its segment: one group of the
 // member-innermost layout (rows_value_fwd_batched.cu, pack_members), whose
 // kMemberGroup values of one point are two aligned float4.

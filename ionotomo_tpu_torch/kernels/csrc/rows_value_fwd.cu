@@ -6,10 +6,12 @@
 // Replaces: ionotomo_tpu/core/tricubic.py, _rows_value_impl (the unbatched
 // branch), the impl of the custom primitive rows_value_p that every
 // value gather of the JAX package binds: boxspline.interp_rows (zp: K=8
-// rows, L=3 z-taps, xy-first) and tricubic.interp_rows (cubic: K=16,
-// L=4, z-first). It is R in every J of the MAP solves and the filters
-// (forward/tec.py, PairedDtecLinear) and the value gather of
-// dtec_paired_hermite at every path sample.
+// rows, L=3 z-taps, xy-first), zpcubic.interp_rows (zpc: K=8, L=4,
+// xy-first) and tricubic.interp_rows (cubic: K=16, L=4, z-first); the
+// port's triquadratic.interp_rows (K=9, L=3, z-first, the generic kernel)
+// computes the reference's pencil sums through it too. It is R in every
+// J of the MAP solves and the filters (forward/tec.py, PairedDtecLinear)
+// and the value gather of dtec_paired_hermite at every path sample.
 //
 // Bound on the H100: a gather. A cubic point reads 16 rows x 4 taps (64
 // scalars at 16 rows of a table that at 256^3 is 64 MiB, past the 50 MB
@@ -24,7 +26,8 @@
 //   which share rows and sectors in L1 and L2; the bundle keeps its inputs
 //   permuted into the order (permute_points_tile_kernel below), so that
 //   thread t reads row t of them, coalesced. No order: ray order;
-// - the two shapes of the main paths compiled with K and L fixed, each
+// - the three shapes of the main paths (zp, zpc and cubic; boxspline,
+//   zpcubic and tricubic.interp_rows) compiled with K and L fixed, each
 //   point's index and weight rows read as 16-byte vectors (the arrays
 //   16-byte aligned, checked by the host); any other shape, or unaligned
 //   arrays, run the generic kernel, one scalar load a value, in ray order;
@@ -168,8 +171,9 @@ __device__ __forceinline__ void load_row(const T* __restrict__ p, T (&v)[kN]) {
   }
 }
 
-// The main paths' shapes, K and L fixed: zp (K=8, L=3, xy first) and
-// cubic (K=16, L=4, z first); one thread a point. Thread t reads row t of
+// The main paths' shapes, K and L fixed: zp (K=8, L=3, xy first), zpc
+// (K=8, L=4, xy first) and cubic (K=16, L=4, z first); one thread a
+// point. Thread t reads row t of
 // the inputs and writes out[order[t]] (out[t] without an order).
 template <bool kXyFirst, int kK, int kL>
 __global__ void rows_value_fwd_fixed_kernel(
@@ -417,10 +421,10 @@ __global__ void permute_points_kernel(const int* __restrict__ order, int n,
 
 // order: (n,) int32 point of each thread, with ri, wxy, zi, wz already
 // permuted into it (row t is point order[t]'s): thread t reads row t and
-// writes out[order[t]]; or null (point t). The fixed shapes (K=8, L=3, xy
-// first; K=16, L=4, z first) with the four arrays 16-byte aligned run the
-// fixed kernel; any other call runs the generic kernel and takes no
-// order.
+// writes out[order[t]]; or null (point t). The fixed shapes (K=8, L=3 or
+// 4, xy first; K=16, L=4, z first) with the four arrays 16-byte aligned
+// run the fixed kernel; any other call runs the generic kernel and takes
+// no order.
 extern "C" int ionotomo_rows_value_fwd(const float* table, int n_rows, int nz,
                                        const int* ri, const float* wxy, int K,
                                        const int* zi, const float* wz, int L,
@@ -432,6 +436,9 @@ extern "C" int ionotomo_rows_value_fwd(const float* table, int n_rows, int nz,
                        aligned16(wz);
   if (aligned && xy_first && K == 8 && L == 3)
     return (int)launch_fixed<true, 8, 3>(table, n_rows, nz, ri, wxy, zi, wz,
+                                         order, n, out, s);
+  if (aligned && xy_first && K == 8 && L == 4)
+    return (int)launch_fixed<true, 8, 4>(table, n_rows, nz, ri, wxy, zi, wz,
                                          order, n, out, s);
   if (aligned && !xy_first && K == 16 && L == 4)
     return (int)launch_fixed<false, 16, 4>(table, n_rows, nz, ri, wxy, zi,

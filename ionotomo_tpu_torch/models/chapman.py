@@ -5,8 +5,9 @@
 ``z = (h - h_peak)/H``; optional solar-zenith modulation. Fields come out
 on the grid's device.
 
-Not ported yet (ROADMAP.md Queue 1 item 1): ``terminator_cos_chi``, which
-waits for ``geometry/frames.py``.
+Not ported yet (ROADMAP.md Queue 1, host-side geometry and data): the
+reference's ``models/chapman.py:terminator_cos_chi``, which waits for
+``geometry/frames.py``.
 """
 from __future__ import annotations
 

@@ -63,8 +63,9 @@ def _jax_schedule(w, interp_inner):
     return float(r2.residual_norm), heldout, np.asarray(r2.m)
 
 
-@pytest.mark.parametrize("interp_inner", [None, "zp"],
-                         ids=["cubic", "cubic_outer_zp_inner"])
+@pytest.mark.parametrize("interp_inner", [None, "zp", "zpc2"],
+                         ids=["cubic", "cubic_outer_zp_inner",
+                              "cubic_outer_zpc2_inner"])
 def test_config4_schedule_matches_jax(world, interp_inner):
     """Residual norm and held-out dTEC rms within 1e-3 relative of the
     reference's; the solve beats the prior on held-out rays; the field

@@ -232,14 +232,70 @@ def test_linearised_operator_cubic_matches_jax(kind, quadrature):
 
 @pytest.mark.parametrize("interp", ["zpc", "quadratic"])
 def test_models_still_to_port_raise_in_every_operator(interp):
-    _, m, _, tg, tb = _bundles("straight")
+    """(The name is kept from before these models were ported.) zpc runs
+    every operator: ``dtec_paired_linear`` against the reference's
+    ``_dtec_operator`` (g0 to 2e-6·max|TEC|, J δm and Jᵀ y to 1e-4·max),
+    by the adjoint identity (1e-4), and as the plain-version operator
+    bitwise on the CPU; ``tec_linear_adjoint`` against the reference's
+    derived transpose (1e-5·max, prefilter included) and by the adjoint
+    identity of ``tec_linear``. quadratic raises ValueError in every
+    operator, as the reference does; so does an unknown model."""
+    jg, m, jb, tg, tb = _bundles("bent")
     tm = torch.from_numpy(m)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        ttec.tec_linear_adjoint(torch.ones(NA * ND), tg, tb, interp)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        ttec.dtec_paired_linear(tm, tg, tb, ND, 0, "hermite", interp)
-    with pytest.raises(ValueError, match="unknown interp"):
-        ttec.tec(tm, tg, tb, "linear")
+    rng = np.random.default_rng(37)
+    y = rng.normal(size=(NA * ND,)).astype(np.float32)
+    if interp == "quadratic":
+        for call in (
+                lambda: ttec.tec_linear_adjoint(torch.from_numpy(y), tg, tb,
+                                                interp),
+                lambda: ttec.dtec_paired_linear(tm, tg, tb, ND, 0, "hermite",
+                                                interp),
+                lambda: ttec.dtec_paired_q(tm, tg, tb, ND, 0, "hermite",
+                                           interp),
+                lambda: ttec.log_ne_at(tm, tg, tb.points, interp),
+                lambda: ttec.tec_linear_op(tm, tg, tb, "simpson", interp)):
+            with pytest.raises(ValueError, match="unknown interp"):
+                call()
+        # the reference: ValueError from its table map, or KeyError from
+        # its model lookup, whichever its operator reaches first
+        with pytest.raises((ValueError, KeyError)):
+            jtec.dtec_paired_q(jnp.asarray(m), jg, jb, ND, 0, "hermite",
+                               interp)
+        with pytest.raises(ValueError, match="unknown interp"):
+            ttec.tec(tm, tg, tb, "linear")
+        return
+    dm = rng.normal(size=m.shape).astype(np.float32)
+    japply, japplyt, jg0 = jsolvers._dtec_operator(
+        jg, jb, ND, 1, jnp.asarray(m), quadrature="hermite", interp=interp)
+    op = ttec.dtec_paired_linear(tm, tg, tb, ND, 1, "hermite", interp)
+    scale = np.abs(np.asarray(jtec.tec_q(jnp.asarray(m), jg, jb, "hermite",
+                                         interp))).max()
+    np.testing.assert_allclose(op.g0.numpy(), np.asarray(jg0), rtol=0,
+                               atol=2e-6 * scale)
+    want, want_t = np.asarray(japply(jnp.asarray(dm))), np.asarray(
+        japplyt(jnp.asarray(y)))
+    got, got_t = op.apply(torch.from_numpy(dm)), op.apply_t(
+        torch.from_numpy(y))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+    np.testing.assert_allclose(got_t.numpy(), want_t, rtol=0,
+                               atol=1e-4 * np.abs(want_t).max())
+    lhs = float(torch.dot(got.double(), torch.from_numpy(y).double()))
+    rhs = float((torch.from_numpy(dm).double() * got_t.double()).sum())
+    assert abs(lhs - rhs) <= 1e-4 * max(abs(lhs), abs(rhs))
+    ref = ttec.dtec_paired_linear_ref(tm, tg, tb, ND, 1, "hermite", interp)
+    assert torch.equal(ref.apply(torch.from_numpy(dm)), got)
+    assert torch.equal(ref.apply_t(torch.from_numpy(y)), got_t)
+    ne = (1e11 * np.exp(rng.normal(size=m.shape) * 0.3)).astype(np.float32)
+    want_t = np.asarray(jtec.tec_linear_adjoint(jnp.asarray(y), jg, jb,
+                                                interp))
+    got_t = ttec.tec_linear_adjoint(torch.from_numpy(y), tg, tb, interp)
+    np.testing.assert_allclose(got_t.numpy(), want_t, rtol=0,
+                               atol=1e-5 * np.abs(want_t).max())
+    got = ttec.tec_linear(torch.from_numpy(ne), tg, tb, interp)
+    lhs = float(torch.dot(got.double(), torch.from_numpy(y).double()))
+    rhs = float((torch.from_numpy(ne).double() * got_t.double()).sum())
+    assert abs(lhs - rhs) <= 1e-4 * max(abs(lhs), abs(rhs))
 
 
 def test_lsqr_smoothness_cubic_matches_jax():

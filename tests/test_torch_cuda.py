@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from ionotomo_tpu_torch import kernels
-from ionotomo_tpu_torch.core import boxspline, linalg, tricubic
+from ionotomo_tpu_torch.core import (boxspline, linalg, triquadratic,
+                                     tricubic, zpcubic)
 from ionotomo_tpu_torch.core.grids import Grid3D
 from ionotomo_tpu_torch.forward import tec
 from ionotomo_tpu_torch.geometry import fermat, rays
@@ -119,8 +120,8 @@ def _k2_case(dev, case, model):
 
 
 @pytest.mark.parametrize("case", ["edge_case", "skewed_row", "nz1024"])
-@pytest.mark.parametrize("model", [boxspline, tricubic],
-                         ids=["zp", "cubic"])
+@pytest.mark.parametrize("model", [boxspline, tricubic, zpcubic],
+                         ids=["zp", "cubic", "zpc"])
 def test_rows_value_fwd_in_any_order_is_bitwise(dev, case, model):
     """K2 in ray order, over the model's point order and over a random
     order (each with its inputs permuted into it) bitwise K2's generic
@@ -129,7 +130,7 @@ def test_rows_value_fwd_in_any_order_is_bitwise(dev, case, model):
     and the permuted inputs bitwise their plain versions, each launch
     counted; a point order on the generic kernel refused."""
     table, shape, (ri, wxy, zi, wz) = _k2_case(dev, case, model)
-    xy_first = model is boxspline
+    xy_first = model is not tricubic
     want = kernels.rows_value_fwd(table, *map(off_boundary, (ri, wxy, zi,
                                                              wz)), xy_first)
     plain = tricubic.rows_value_ref(table, ri, wxy, zi, wz, xy_first)
@@ -858,6 +859,192 @@ def test_cubic_solve_is_bitwise_reproducible(dev):
             linearize=tec.dtec_paired_linear_ref, **kw)
         assert abs(float(a.residual_norm) - float(plain.residual_norm)) \
             <= 1e-2 * float(plain.residual_norm)
+
+
+# --- the zpc and triquadratic models: K6z, K6zᵀ, K6q, K1z, K1q -------------
+
+
+@pytest.mark.parametrize("n", [1003, 20000])
+@pytest.mark.parametrize("model", [zpcubic, triquadratic],
+                         ids=["zpc", "quadratic"])
+def test_value_grad_k6_matches_plain(dev, model, n):
+    """K6z and K6q at a ragged count of edge-case points (in, on and
+    outside the grid, in the boundary cells): within 1e-5·max|table| of
+    the plain version (value; over min spacing the gradient) and of its
+    twin in the kernel's order, one launch each, bitwise twice."""
+    grid, m = _world(dev)
+    name = {zpcubic: "zpc_value_grad", triquadratic: "quad_value_grad"}[model]
+    table = (zpcubic.prefilter(m) if model is zpcubic
+             else triquadratic.prefilter(m)).reshape(-1, grid.shape[2])
+    pts, _ = _edge_points(dev, grid, n, 30)
+    before = kernels.launches[name]
+    v, g = model.interp_rows_with_grad(table, grid, pts)
+    v2, g2 = model.interp_rows_with_grad(table, grid, pts)
+    assert kernels.launches[name] == before + 2
+    assert torch.equal(v, v2) and torch.equal(g, g2)
+    tol = 1e-5 * float(table.abs().max())
+    for ref in (model.interp_rows_with_grad_ref,
+                model.interp_rows_with_grad_taps_ref):
+        vr, gr = ref(table, grid, pts)
+        assert float((v - vr).abs().max()) <= tol
+        assert float((g - gr).abs().max()) <= tol / float(grid.spacing.min())
+    # the value gather (K2 at the model's shape) gives the same value
+    assert float((model.interp_rows(table, grid, pts) - v).abs().max()) \
+        <= tol
+
+
+@pytest.mark.parametrize("chunk", [tricubic.SEGMENT_PAIRS, 7])
+def test_zpc_value_grad_transpose_adds_into_a_table(dev, chunk):
+    """The accumulating K6zᵀ at edge-case points and points clamped onto a
+    grid corner, over plans of segments of 256 and 7 pairs: table + Eᵀ
+    at the touched cells, rounded as table + (Eᵀ into zeros), bitwise;
+    every other cell untouched; bitwise equal across calls; within
+    1e-4·max of table + the plain version; counters back at zero; the
+    adjoint identity with K6z to 1e-4."""
+    grid, m = _world(dev)
+    pts, rng = _edge_points(dev, grid, 6000, 31)
+    corner = pts[:2000].clone()
+    corner[:, :2] = grid.origin[:2] - 50.0
+    pts = torch.cat([corner, pts]).contiguous()
+    n = pts.shape[0]
+    cv = torch.from_numpy(rng.normal(size=(n,)).astype(np.float32)).to(dev)
+    cg = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
+    ri, _, zi, _ = zpcubic.row_setup(grid, pts)
+    n_rows, nz = grid.shape[0] * grid.shape[1], grid.shape[2]
+    p = tricubic.build_row_plan(ri, n_rows, zi[:, 1], live=7, chunk=chunk,
+                                occupied_rows=True)
+    table = torch.from_numpy(rng.normal(size=(n_rows, nz))
+                             .astype(np.float32)).to(dev)
+    before = kernels.launches["zpc_value_grad_bwd"]
+    alone = zpcubic.interp_rows_with_grad_transpose_add_(
+        torch.zeros_like(table), grid, pts, cv, cg, p)
+    a = zpcubic.interp_rows_with_grad_transpose_add_(table.clone(), grid,
+                                                     pts, cv, cg, p)
+    b = kernels.zpc_value_grad_bwd(table.clone(), grid, pts, cv, cg, p)
+    assert kernels.launches["zpc_value_grad_bwd"] == before + 3
+    assert not p.counters.any()
+    assert torch.equal(a, b)
+    flat, _ = zpcubic.value_grad_transpose_terms(grid, pts, cv, cg)
+    touched = torch.zeros(n_rows * nz, dtype=torch.bool, device=dev)
+    touched[flat] = True
+    touched = touched.reshape(n_rows, nz)
+    assert torch.equal(a[touched], (table + alone)[touched])
+    assert torch.equal(a[~touched], table[~touched])
+    want = table + zpcubic.interp_rows_with_grad_transpose_ref(grid, pts,
+                                                               cv, cg)
+    assert float((a - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    coef = zpcubic.prefilter(m).reshape(n_rows, nz)
+    v, g = zpcubic.interp_rows_with_grad(coef, grid, pts)
+    lhs = float((v.double() * cv.double()).sum()
+                + (g.double() * cg.double()).sum())
+    rhs = float((alone.double() * coef.double()).sum())
+    assert abs(lhs - rhs) <= 1e-4 * max(abs(lhs), abs(rhs))
+
+
+@pytest.mark.parametrize("n_rays", ["small", "sorted"])
+@pytest.mark.parametrize("keep_path", [True, False])
+@pytest.mark.parametrize("interp", ["zpc", "quadratic"])
+def test_trace_leapfrog_k1z_k1q_packed_and_ordered_is_unpacked(
+        dev, interp, keep_path, n_rays):
+    """K1z and K1q as the tracer calls them (a small batch as it is, one
+    past K1's threshold sorted and over the packed table: K1c's pack for
+    zpc, K1's for quadratic) bitwise the unpacked evaluator in ray order,
+    also under a random order and other block sizes, each launch counted;
+    and within the plain tracer's tolerances (1e-3 km, 1e-5 relative
+    TEC)."""
+    grid, m = _world(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = {"small": 700,
+         "sorted": kernels.TRACE_ZP_RAYS_PER_SM * sms + 300}[n_rays]
+    o, d = _rays(dev, n)
+    zpc = interp == "zpc"
+    table = (zpcubic.prefilter(m) if zpc else triquadratic.prefilter(m)
+             ).reshape(-1, grid.shape[2]).contiguous()
+    name = "trace_leapfrog_zpc" if zpc else "trace_leapfrog_quad"
+    pack = "pack_z_taps" if zpc else "pack_zp_taps"
+    call, with_ = getattr(kernels, name), getattr(kernels, name + "_with")
+    kw = fermat._step_constants(150e6, 1000.0, 40)
+    want = with_(table, grid, o, d, 40, keep_path, packed=None, order=None,
+                 threads=128, **kw)
+    before = dict(kernels.launches)
+    got = fermat.trace_rays(m, grid, o, d, 150e6, 1000.0, n_steps=40,
+                            keep_path=keep_path, method="leapfrog",
+                            interp=interp)
+    sorted_ = int(n_rays == "sorted")
+    for key, k in ((name, 1), (pack, sorted_), ("ray_order_keys", sorted_)):
+        assert kernels.launches[key] == before[key] + k, key
+    direct = call(table, grid, o, d, 40, keep_path, **kw)
+    packed = getattr(kernels, pack)(table, grid)
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(3)
+                          ).to(torch.int32).to(dev)
+    others = [with_(table, grid, o, d, 40, keep_path, packed=pk, order=order,
+                    threads=threads, **kw)
+              for pk, order, threads in ((packed, perm, 64),
+                                         (None, perm, 256),
+                                         (packed, None, 32))]
+    for out in (direct, *others):
+        for a, b in zip(out, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+    assert torch.equal(got[1], want[1])
+    br, tr = fermat.trace_rays_ref(m, grid, o, d, 150e6, 1000.0, n_steps=40,
+                                   keep_path=keep_path, method="leapfrog",
+                                   interp=interp)
+    assert float((got[0].points - br.points).abs().max()) <= 1e-3
+    assert float(((got[1] - tr).abs() / tr.abs()).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("interp", ["zpc2", "quadratic"])
+def test_trace_rk4_runs_k6(dev, interp):
+    """rk4 on zpc and quadratic runs the integrator loop with K6z or K6q
+    as the field evaluator (4 launches a step and one for p0), within the
+    plain tracer's tolerances."""
+    grid, m = _world(dev)
+    o, d = _rays(dev, 200)
+    name = "zpc_value_grad" if interp == "zpc2" else "quad_value_grad"
+    kw = dict(n_steps=16, keep_path=True, method="rk4", interp=interp)
+    before = kernels.launches[name]
+    b, t = fermat.trace_rays(m, grid, o, d, 150e6, 1000.0, **kw)
+    assert kernels.launches[name] == before + 1 + 4 * 16
+    br, tr = fermat.trace_rays_ref(m, grid, o, d, 150e6, 1000.0, **kw)
+    assert float((b.points - br.points).abs().max()) <= 1e-3
+    assert float(((t - tr).abs() / tr.abs()).max()) <= 1e-5
+
+
+def test_zpc_operator_and_inner_solve_on_card(dev):
+    """The linearised operator on zpc (K2 at K=8, L=4 over the geometry's
+    point order, K3, K6z, K6zᵀ) against the plain-version operator
+    (1e-4·max) and by the adjoint identity (1e-4); map_gauss_newton on
+    cubic with the zpc2 inner Jacobian twice bitwise equal, its kernels
+    launched, within 1 % of the plain-version solve's residual."""
+    grid, rb, d_obs, m_prior, cov, nd = _solve_world(dev)
+    rng = np.random.default_rng(32)
+    x = torch.from_numpy(rng.normal(size=grid.shape).astype(np.float32)
+                         ).to(dev)
+    y = torch.from_numpy(rng.normal(size=(rb.num_rays,)).astype(np.float32)
+                         ).to(dev)
+    kernels.reset_launches()
+    op = tec.dtec_paired_linear(m_prior, grid, rb, nd, 0, "hermite", "zpc2")
+    jx, jty = op.apply(x), op.apply_t(y)
+    for name in ("rows_value_fwd", "rows_value_bwd", "zpc_value_grad",
+                 "zpc_value_grad_bwd", "point_order_keys"):
+        assert kernels.launches[name] > 0, name
+    ref = tec.dtec_paired_linear_ref(m_prior, grid, rb, nd, 0, "hermite",
+                                     "zpc2")
+    for a, b in ((jx, ref.apply(x)), (jty, ref.apply_t(y))):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    lhs = float(torch.dot(jx.double(), y.double()))
+    rhs = float((x.double() * jty.double()).sum())
+    assert abs(lhs - rhs) <= 1e-4 * max(abs(lhs), abs(rhs))
+    noise = 0.01 * float(d_obs.std())
+    kw = dict(num_directions=nd, gn_iters=2, cg_iters=8, interp_inner="zpc2")
+    a = solvers.map_gauss_newton(grid, rb, d_obs, noise, m_prior, cov, **kw)
+    b = solvers.map_gauss_newton(grid, rb, d_obs, noise, m_prior, cov, **kw)
+    assert torch.equal(a.m, b.m) and bool(torch.isfinite(a.m).all())
+    plain = solvers.map_gauss_newton(grid, rb, d_obs, noise, m_prior, cov,
+                                     linearize=tec.dtec_paired_linear_ref,
+                                     **kw)
+    assert abs(float(a.residual_norm) - float(plain.residual_norm)) \
+        <= 1e-2 * float(plain.residual_norm)
 
 
 # --- the member axis: K2b and K3b ------------------------------------------

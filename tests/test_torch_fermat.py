@@ -130,9 +130,42 @@ def test_refractive_index_matches_jax():
 
 @pytest.mark.parametrize("interp", ["quadratic", "zpc", "zpc2", "zpc3"])
 def test_unported_field_models_raise(interp):
-    jg, m = perturbed_world(n=8)
+    """The field models that raised before they were ported (the name is
+    kept from then): ``trace_rays`` on the CPU, rk4 and leapfrog, against
+    the JAX package's on a 12³ world, 24 rays, 12 steps, 150 MHz, within
+    ``test_trace_rays_matches_jax``'s bounds (5e-4 km, 2e-6 relative
+    TEC)."""
+    jg, m = perturbed_world(n=12)
     tg = convert.grid_from_numpy(jg, device="cpu")
-    o, d = (torch.from_numpy(a) for a in ray_fan(4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfermat.trace_rays(torch.from_numpy(m), tg, o, d, 150e6,
-                           n_steps=4, interp=interp)
+    o, d = ray_fan(24)
+    for method in ("rk4", "leapfrog"):
+        kw = dict(n_steps=12, keep_path=True, method=method, interp=interp)
+        jb, jt = jfermat.trace_rays(jnp.asarray(m), jg, jnp.asarray(o),
+                                    jnp.asarray(d), 150e6, 1000.0, **kw)
+        tb, tt = tfermat.trace_rays(torch.from_numpy(m), tg,
+                                    torch.from_numpy(o), torch.from_numpy(d),
+                                    150e6, 1000.0, **kw)
+        np.testing.assert_allclose(tb.points.numpy(), np.asarray(jb.points),
+                                   rtol=0, atol=5e-4)
+        np.testing.assert_allclose(tt.numpy(), np.asarray(jt), rtol=2e-6)
+
+
+@pytest.mark.parametrize("interp", ["zp", "cubic", "zpc3", "quadratic"])
+def test_cuda_leapfrog_runs_the_models_own_kernel(interp, monkeypatch):
+    """On the card, leapfrog runs one kernel, the field model's: K1 on zp,
+    K1c on cubic, K1z on zpc, K1q on quadratic (each reads its model's
+    table). The entry points are replaced by recorders, so this runs on
+    the CPU."""
+    from ionotomo_tpu_torch import kernels
+    from ionotomo_tpu_torch.core.field_models import field_model
+
+    called = []
+    names = ("trace_leapfrog_zp", "trace_leapfrog_cubic",
+             "trace_leapfrog_zpc", "trace_leapfrog_quad")
+    for name in names:
+        monkeypatch.setattr(kernels, name,
+                            lambda *a, _n=name, **k: called.append(_n))
+    tfermat._leapfrog_kernel(field_model(interp))()
+    want = {"zp": "trace_leapfrog_zp", "cubic": "trace_leapfrog_cubic",
+            "zpc3": "trace_leapfrog_zpc", "quadratic": "trace_leapfrog_quad"}
+    assert called == [want[interp]]

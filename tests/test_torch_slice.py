@@ -222,7 +222,9 @@ def test_build_flags_target_hopper_with_ieee_math():
         "rows_value_bwd.cu", "zp_value_grad_bwd.cu", "vector_gather.cu",
         "cubic_value_grad.cu", "cubic_value_grad_bwd.cu",
         "trace_leapfrog_cubic.cu", "rows_value_fwd_batched.cu",
-        "rows_value_bwd_batched.cu"}
+        "rows_value_bwd_batched.cu", "zpc_value_grad.cu",
+        "zpc_value_grad_bwd.cu", "quad_value_grad.cu",
+        "trace_leapfrog_zpc.cu", "trace_leapfrog_quad.cu"}
     assert build.BUILD_DIR.relative_to(REPO).parts[0] == "build"
 
 

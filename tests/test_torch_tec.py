@@ -132,7 +132,19 @@ def test_ne_at_matches_jax():
 
 @pytest.mark.parametrize("interp", ["zpc3", "zpc"])
 def test_unported_field_models_raise(interp):
-    _, m, _, tg, tb = _bundles("straight")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttec.dtec_paired_q(torch.from_numpy(m), tg, tb, ND, 0, "hermite",
-                           interp)
+    """The zpc models, which raised before they were ported (the name is
+    kept from then): ``dtec_paired_q`` under both quadratures on the bent
+    bundle, and ``tec_hermite``, against the JAX package, within
+    ``test_dtec_paired_q_matches_jax``'s bound (2e-6·max|TEC|)."""
+    jg, m, jb, tg, tb = _bundles("bent")
+    scale = np.abs(np.asarray(jtec.tec_q(jnp.asarray(m), jg, jb, "hermite",
+                                         interp))).max()
+    for quadrature in ("hermite", "simpson"):
+        want = np.asarray(jtec.dtec_paired_q(jnp.asarray(m), jg, jb, ND, 2,
+                                             quadrature, interp))
+        got = ttec.dtec_paired_q(torch.from_numpy(m), tg, tb, ND, 2,
+                                 quadrature, interp).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-6 * scale)
+    want = np.asarray(jtec.tec_hermite(jnp.asarray(m), jg, jb, interp))
+    got = ttec.tec_hermite(torch.from_numpy(m), tg, tb, interp).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6 * scale)
