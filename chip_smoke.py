@@ -1,7 +1,7 @@
-"""Drive the PyTorch/CUDA port's bent-ray forward paths, its MAP inversion
-paths on the zp and the tricubic field model, and its time-evolving path
-(the frozen-flow Kalman filter and the ensemble filter), on one NVIDIA
-GPU.
+"""Drive the PyTorch/CUDA port's bent-ray forward paths (leapfrog, rk4, the
+split-field and the stochastic beam trace), its MAP inversion paths on the
+zp and the tricubic field model, and its time-evolving path (the
+frozen-flow Kalman filter and the ensemble filter), on one NVIDIA GPU.
 
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # also: device time by kernel of
@@ -14,9 +14,8 @@ GPU.
                                        # step (torch.profiler)
     python3 chip_smoke.py --parent DIR # also: hold the kernels to those of
                                        # the checkout at DIR (the commit
-                                       # before the zpc and triquadratic
-                                       # kernels were added; any other
-                                       # sources are refused):
+                                       # before K1r and K1s were added;
+                                       # any other sources are refused):
                                        # every kernel bitwise at the
                                        # phases' shapes and timed in
                                        # turns; config 4's solve, config
@@ -103,9 +102,8 @@ Phases (any failed check raises, and the run exits non-zero):
    the trace launches K1, its pack and the sort keys once each; K1's call
    (pack, sort, trace) bitwise the unpacked kernel in ray order and timed
    by kernel. The same for K1z (zpc, over K1c's pack) and K1q (quadratic,
-   over K1's pack), rays/s beside K1's; the rk4 trace on quadratic
-   against the plain tracer, K6q launched once a stage, and K6q timed at
-   the bench trace's points halfway.
+   over K1's pack), rays/s beside K1's, and K6q timed at the bench
+   trace's points halfway.
 4. The serving slice, as ``predict --bent --interp zp --quadrature
    hermite`` runs it: ``make_ray_batch`` → ``trace_rays(keep_path=True)``
    → ``dtec_paired_q``, 62 antennas × 10 directions, 4 epochs on a 128³
@@ -239,9 +237,31 @@ analytic world drifting with the wind, 1 % noise), and on it:
    and std_seq (with ``--parent``: equal to the same run's on the
    parent's kernels).
 
+14. The tracers the port took last, at ``bench.py``'s configuration (a
+   128³ Chapman + perturbation world, 262,144 rays, 150 MHz, 1000 km, no
+   path): on zp, cubic, zpc and quadratic, rk4@64 through ``trace_rays``
+   launches K1r once and no K1e, K5, K6z or K6q, agrees with the
+   per-stage route it replaces (``_trace_impl`` over ``field_evaluator``,
+   with ``--parent`` on the parent's kernels) and with the plain tracer
+   on 8192 rays, path on and off (1e-3 km, 1e-5 relative TEC), is
+   bitwise the unpacked kernel in ray order, and is timed (the call by
+   kernel, the plain version, the bound at 4 evaluations a step, and the
+   per-stage route against K1r in turns on the host clock, with the
+   route's launches and device time). The split tracer K1s at
+   leapfrog@32 and rk4@64 with a single-layer background: launched once
+   with its pack and sort, bitwise the unpacked kernel, timed beside the
+   full-field cubic call; single-layer and 3 layers + curved Earth +
+   plasmasphere against ``trace_rays_split_ref`` on 8192 rays. The beam
+   noise of phase 4's first epoch (62 × 10 rays × 8 paths on zp,
+   leapfrog@64): one K1 call, against the plain route on CPU tensors,
+   bitwise a per-path loop of K1, timed beside phase 4's epoch.
+   ``calc_rays(straight_line_approx=False)`` at that geometry: K1c with
+   its path against the plain tracer.
+
 With ``--parent``, KG at both of phase 7's shapes and the permute at
 phases 6 and 10 are bitwise the parent's and timed in turns with it, as
-are K1e at every shape above, K5 at phases 8 and 10 and the batched K1e.
+are K1e at every shape above, K5 at phases 8 and 10, the batched K1e,
+and K1z and K1q at phases 2 and 3.
 
 The last lines are a JSON object of per-kernel results (each kernel's
 bound: the larger of the bytes it must move over 3.35 TB/s and its f32
@@ -420,6 +440,27 @@ NEW_MODELS = {
     "quadratic": ("triquadratic", 9, FLOPS_K6Q_POINT, "quad_value_grad",
                   "trace_leapfrog_quad", "pack_zp_taps", FLOPS_K1Q_STEP),
 }
+# K1r: four evaluations a step, each with its _rhs stage (the exp, the
+# sqrt, the divisions), counted as 4 x the model's leapfrog step; the rk4
+# tracers by field model: (tracer, its pack, the model's module, live rows
+# a point, flops a leapfrog step, its value + gradient kernel).
+RK4_TRACERS = {
+    "zp": ("trace_rk4_zp", "pack_zp_taps", "boxspline", 7, FLOPS_K1_STEP,
+           "zp_value_grad"),
+    "cubic": ("trace_rk4_cubic", "pack_z_taps", "tricubic", 16,
+              FLOPS_K1C_STEP, "cubic_value_grad"),
+    "zpc": ("trace_rk4_zpc", "pack_z_taps", "zpcubic", 7, FLOPS_K1Z_STEP,
+            "zpc_value_grad"),
+    "quadratic": ("trace_rk4_quad", "pack_zp_taps", "triquadratic", 9,
+                  FLOPS_K1Q_STEP, "quad_value_grad"),
+}
+EVALUATORS = tuple(v[5] for v in RK4_TRACERS.values())
+# K1s: K1c's step (leapfrog) or 4 of them (rk4) plus, per evaluation, the
+# single-layer background: z, two exps, the profile and its derivative.
+FLOPS_BACKGROUND = 30
+#: the pack each tracer's call reads
+TRACER_PACKS = {**{v[4]: v[5] for v in NEW_MODELS.values()},
+                **{v[0]: v[1] for v in RK4_TRACERS.values()}}
 # One ray's sort key (ray_order_keys_kernel): four quantised coordinates
 # (5-6 each), four 8-bit spreads (9 each) and the combination (6).
 OPS_RAY_KEY = 64
@@ -688,7 +729,7 @@ def index_add_call(flat, contrib, size):
 
 class Parent:
     """The kernels of the checkout at ``root`` (``--parent DIR``), the
-    commit before the zpc and triquadratic kernels were added, built from
+    commit before K1r and K1s were added, built from
     its sources with this checkout's nvcc flags. ``run(fn)`` calls fn with
     every kernel the parent's: each entry through this checkout's wrapper
     on the parent's library (no C interface changed). The parent's library
@@ -699,33 +740,43 @@ class Parent:
     declared by their SHA-256, and any other checkout is refused rather
     than handed arguments it does not take."""
 
-    NEW = ("ionotomo_zpc_value_grad", "ionotomo_quad_value_grad",
-           "ionotomo_zpc_value_grad_bwd", "ionotomo_trace_leapfrog_zpc",
-           "ionotomo_trace_leapfrog_quad")
+    NEW = ("ionotomo_trace_rk4_zp", "ionotomo_trace_rk4_cubic",
+           "ionotomo_trace_rk4_zpc", "ionotomo_trace_rk4_quad",
+           "ionotomo_trace_split")
 
     SOURCES = {
         "cubic_value_grad.cu":
             "e7a491381cdfbf7886294e643e79676595109eba094861c18f65d665a0a5aa74",
         "cubic_value_grad_bwd.cu":
-            "f1365e6eed27d762ff3da6e783bd8dbfb59bc6d97a9672df8144124bf5a987c8",
+            "ffdc7c8ce20291e6f8ec2b657f62b99c37ac6fa184175db24e361c1a1e6c954b",
+        "quad_value_grad.cu":
+            "800fec21e2b9b81d89cf9103f0668c69e085b3841a8bb98e2305316e15045fd3",
         "rows_value_bwd.cu":
             "8b89433a04e2db28da6ebddbca603d78de2def71956e78422e93094e39d52d85",
         "rows_value_bwd_batched.cu":
             "10788403e8f237c3a501e37d334331abaece27724ff3bcb704ca481eea7126b8",
         "rows_value_fwd.cu":
-            "6783cfd657ca403f4d3996ace63b911a1ce59d402dcad4615a056c687b7fb92c",
+            "81e6c5a1dcb4796668ff9d8e4220ee7843502dfc4fed5750fec47b599ac5888d",
         "rows_value_fwd_batched.cu":
             "33b0b3474550fda8a1440c6ad76f61290a168eeaf73dfd0074e71c7df6c48c3b",
         "trace_leapfrog_cubic.cu":
             "8b2253a0dbd13030464fac466cbeba30c8954f061a6ec84282891ddc089c45c3",
+        "trace_leapfrog_quad.cu":
+            "8c1450f935a71134dae14939fbd22d056e141e5cffa017ba2e1e025dd378b0f6",
         "trace_leapfrog_zp.cu":
             "14fd0ee9d2a9c1df8e7cbca6a55126f9eefa3fee1805f24971abc052b847f699",
+        "trace_leapfrog_zpc.cu":
+            "a4d6a5cd98322e3c80d6bb72b18cda976f6234f3ddf6c5ebca365f89ba8c045c",
         "vector_gather.cu":
             "e0d19a2da2d4ccef5782631ae780053fa77062ae0c19c1e7935b9ff7ee882216",
         "zp_value_grad.cu":
             "b1564e7deffe6544f3801decbe9d163022e5df8175680cdb9522da1a2203766a",
         "zp_value_grad_bwd.cu":
             "eb6fb1308c6193f1a528bdeb52ae7c21be3c7e667df9382c1eb590bc5e878d90",
+        "zpc_value_grad.cu":
+            "99c86361a62704ea322b9265f4214032b2e4f883236c0ccbc7bfcac3911703c1",
+        "zpc_value_grad_bwd.cu":
+            "7a6fd1b543f6bfa4ad0b1d92fb65a3d259f3376817553334835088be6df70c75",
     }
 
     def __init__(self, root):
@@ -847,15 +898,18 @@ def check_k1_bitwise(label, kernels, coef2d, grid, o, d, kw, n_steps,
 
 
 def check_trace_bitwise(label, kernels, name, table, grid, o, d, kw,
-                        n_steps, paths=(False, True)):
-    """A tracer (K1z, K1q) as the tracer calls it, and packed and sorted
-    whatever the batch, each bitwise the unpacked kernel in ray order
-    (one thread a ray, 128 a block), path on and off."""
-    model = next(v for v in NEW_MODELS.values() if v[4] == name)
+                        n_steps, paths=(False, True), parent=None):
+    """A tracer (K1z, K1q, K1r) as the tracer calls it, and packed and
+    sorted whatever the batch, each bitwise the unpacked kernel in ray
+    order (one thread a ray, 128 a block), path on and off; with a parent,
+    the call bitwise the parent's."""
     call, with_ = getattr(kernels, name), getattr(kernels, name + "_with")
-    packed = getattr(kernels, model[5])(table, grid)
+    packed = getattr(kernels, TRACER_PACKS[name])(table, grid)
     order = kernels.ray_order(o, d, grid)
     for keep_path in paths:
+        parent_bitwise(parent, f"{label}, keep_path={keep_path}: {name}",
+                       lambda: call(table, grid, o, d, n_steps, keep_path,
+                                    **kw))
         want = with_(table, grid, o, d, n_steps, keep_path, packed=None,
                      order=None, threads=128, **kw)
         for what, out in (
@@ -1230,7 +1284,7 @@ def k6_at(label, kernels, model, name, table, grid, pts, reps=20,
 
 def phase2_new_models(dev, tricubic, zpcubic, triquadratic, fermat,
                       kernels, Grid3D, chapman, results, sizes=(N_GRID, 256),
-                      n_points=1 << 20, n_rays=8192):
+                      n_points=1 << 20, n_rays=8192, parent=None):
     """Phase 2 on the zpc and triquadratic models: K6z and K6q at the
     edge-case points of a random 128³ table and at 2²⁰ random points of a
     random 256³ table, K6zᵀ adding into a random table at the same
@@ -1326,17 +1380,17 @@ def phase2_new_models(dev, tricubic, zpcubic, triquadratic, fermat,
         results[name] = {"tau_rel": err_t, "line": dict(max_abs_err=err_x)}
         table = field_model(interp).table(m, grid3).contiguous()
         check_trace_bitwise(f"phase 2, {o.shape[0]} rays", kernels, name,
-                            table, grid3, o, d, kw, N_STEPS)
+                            table, grid3, o, d, kw, N_STEPS, parent=parent)
 
 
 def phase3_new_tracers(dev, fermat, kernels, Grid3D, chapman, results,
-                       card, n_rays=262144):
+                       card, n_rays=262144, parent=None):
     """Phase 3 on the zpc and triquadratic models: K1z and K1q at the
     bench's configuration (262144 rays, leapfrog@64, 150 MHz) through
-    ``trace_rays``, launches counted, bitwise the unpacked kernels, timed
-    beside the plain tracer and the bound; then the rk4 trace on
-    quadratic, which runs K6q once a stage, against the plain tracer, its
-    launches counted, and K6q alone at its points."""
+    ``trace_rays``, launches counted, bitwise the unpacked kernels (and,
+    with a parent, the parent's, timed in turns with it), timed beside the
+    plain tracer and the bound; then K6q alone at the bench trace's points
+    halfway (its launches: phase 14's rk4 trace on quadratic)."""
     from ionotomo_tpu_torch.core import triquadratic
     from ionotomo_tpu_torch.core.field_models import field_model
 
@@ -1370,13 +1424,19 @@ def phase3_new_tracers(dev, fermat, kernels, Grid3D, chapman, results,
         rows = field_model(interp).rows
         table = field_model(interp).table(m, grid).contiguous()
         check_trace_bitwise(f"phase 3, {n_rays} rays", kernels, name, table,
-                            grid, o, d, kw, N_STEPS, paths=(False,))
+                            grid, o, d, kw, N_STEPS, paths=(False,),
+                            parent=parent)
         tracer = getattr(kernels, name)
 
         def call():
             return tracer(table, grid, o, d, N_STEPS, False, **kw)
 
         ms = device_ms(call, 3)
+        if parent is not None:
+            results[name]["line"]["parent_ms"], \
+                results[name]["line"]["new_ms_in_turns"] = compare_parent(
+                    f"{name} at {n_rays} rays", lambda: parent.run(call),
+                    call, 3, pairs=3)
         ne_vg = fermat.log_field_ne_vg(
             lambda x: rows.interp_rows_with_grad_ref(table, grid, x))
         plain_ms = cuda_ms(lambda: fermat._trace_impl(
@@ -1396,30 +1456,11 @@ def phase3_new_tracers(dev, fermat, kernels, Grid3D, chapman, results,
         results[name]["launches"] = launches[name]
         results["rays_per_s"][interp] = rate
 
-    # rk4 on quadratic: K6q is the field evaluator of every stage
-    rk4 = dict(n_steps=N_STEPS, keep_path=False, method="rk4",
-               interp="quadratic")
-    kernels.reset_launches()
-    b_k, t_k = fermat.trace_rays(*args, **rk4)
-    torch.cuda.synchronize()
-    launches = dict(kernels.launches)
-    check(launches["quad_value_grad"] == 1 + 4 * N_STEPS,
-          f"the rk4 trace on quadratic launched K6q once a stage and once "
-          f"for p0 ({launches['quad_value_grad']} times)")
-    b_p, t_p = fermat.trace_rays_ref(*args, **rk4)
-    err_x = float((b_k.points - b_p.points).abs().max())
-    err_t = float(((t_k - t_p).abs() / t_p.abs()).max())
-    check(err_x <= 1e-3 and err_t <= 1e-5,
-          f"rk4 on quadratic at {n_rays} rays: endpoints max|dx| "
-          f"{err_x:.3e} km <= 1e-3 km, tau max rel err {err_t:.3e} <= 1e-5 "
-          f"against the plain tracer")
-    del b_k, b_p, t_k, t_p
-    # K6q alone at the rk4 trace's points halfway along the rays
+    # K6q alone at the bench trace's points halfway along the rays
     table = triquadratic.prefilter(m).reshape(N_GRID * N_GRID, N_GRID)
     mid = kernels.trace_leapfrog_quad(table, grid, o, d, N_STEPS, True,
                                       **kw)[2][:, N_STEPS // 2].contiguous()
     results["quad_value_grad"] = {
-        "launches": launches["quad_value_grad"],
         "line": k6_at(f"the bench trace's {n_rays} points halfway",
                       kernels, triquadratic, "quad_value_grad", table, grid,
                       mid, reps=20, plain_reps=3)}
@@ -3439,6 +3480,408 @@ def phase13_enkf(dev, world, cache, boxspline, tricubic, tec, kernels,
     results["enkf_launches"] = launches
 
 
+def wall_ms(fn, reps=1) -> float:
+    """Host-clock ms of ``fn`` from a synchronised start to a synchronised
+    end (what a caller waits for, the gaps between launches included),
+    mean over ``reps`` calls; no warm-up."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+class Laps:
+    """``lap(what)`` prints the host seconds since the previous lap (or
+    since the object was made): the run's time budget, part by part."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, what: str):
+        now = time.perf_counter()
+        print(f"  [{what}: {now - self.t:.1f} s]")
+        self.t = now
+
+
+def device_launches(fn):
+    """(kernel launches, device µs) of one call of ``fn`` from a profiler
+    trace of the card's activity alone (no host operators recorded, which
+    over a call of ~40,000 operators cost seconds): every kernel on the
+    card, counted or not."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return sum(r[0] for r in rows), sum(r[1] for r in rows)
+
+
+def check_against_plain(tag, got, want, tol_x=1e-3, tol_t=1e-5):
+    """A kernel trace (RayBundle, tec) against the plain tracer's: same
+    shape, finite, path or endpoints within ``tol_x`` km, TEC within
+    ``tol_t`` relative, ds equal. Returns (max|dx|, max relative dTEC)."""
+    (b_k, t_k), (b_p, t_p) = got, want
+    torch.cuda.synchronize()
+    check(b_k.points.shape == b_p.points.shape,
+          f"{tag}: shape {tuple(b_k.points.shape)}")
+    check(bool(torch.isfinite(b_k.points).all() and torch.isfinite(t_k).all()),
+          f"{tag}: finite")
+    err_x = float((b_k.points - b_p.points).abs().max())
+    err_t = float(((t_k - t_p).abs() / t_p.abs()).max())
+    check(err_x <= tol_x and err_t <= tol_t,
+          f"{tag}: max|dx| {err_x:.3e} km <= {tol_x:g} km, tau max rel err "
+          f"{err_t:.3e} <= {tol_t:g} against the plain tracer")
+    check(bool(torch.equal(b_k.ds, b_p.ds)), f"{tag}: ds equal")
+    return err_x, err_t
+
+
+def check_paths_against_plain(tag, kernel, plain, origins):
+    """``kernel(keep_path)`` with the path kept and without, against one
+    plain run with it kept (``check_against_plain``): the plain loop's
+    ``keep_path`` only stacks what it keeps, so its endpoints are those of
+    the run without. Returns [(max|dx|, max relative dTEC)] of the two."""
+    from ionotomo_tpu_torch.geometry.rays import RayBundle
+
+    b_p, t_p = plain(True)
+    ends = RayBundle(points=torch.stack([origins, b_p.points[:, -1]], 1),
+                     ds=b_p.ds)
+    return [check_against_plain(f"{tag}, keep_path={kp}", kernel(kp), want)
+            for kp, want in ((False, (ends, t_p)), (True, (b_p, t_p)))]
+
+
+def phase14_tracers(dev, fermat, rays, kernels, Grid3D, chapman, results,
+                    card, lap, parent=None, n_rays=262144, n_check=8192):
+    """The tracers the port took last, at ``bench.py``'s configuration
+    (128³ Chapman + perturbation, 262,144 rays, 150 MHz, 1000 km, no
+    path) and at serving's geometry: K1r (rk4@64) on zp, cubic, zpc and
+    quadratic beside the per-stage route it replaces, K1s (the split
+    tracer, leapfrog@32 and rk4@64), the beam noise of one serving epoch
+    and ``calc_rays`` bent."""
+    from ionotomo_tpu_torch.core import (boxspline, triquadratic, tricubic,
+                                         zpcubic)
+    from ionotomo_tpu_torch.core.field_models import field_model
+    from ionotomo_tpu_torch.forward.tec import dtec_noise_from_beam
+
+    mods = {"boxspline": boxspline, "tricubic": tricubic,
+            "zpcubic": zpcubic, "triquadratic": triquadratic}
+    print("phase 14: K1r (rk4) on the four models, K1s (split), the beam "
+          "noise of a serving epoch, calc_rays bent")
+    grid_cpu = Grid3D.from_bounds(*BOUNDS, (N_GRID,) * 3, device="cpu")
+    grid = grid_cpu.to(dev)
+    m = torch.from_numpy(perturbed_log_field(
+        grid_cpu, np.random.default_rng(14), chapman)).to(dev)
+    o, d = (torch.from_numpy(a).to(dev) for a in bench_rays(n_rays))
+    oc, dc = (torch.from_numpy(a).to(dev) for a in bench_rays(n_check, 1))
+    kw = fermat._step_constants(FREQ_HZ, LENGTH_KM, N_STEPS)
+    rk4 = dict(n_steps=N_STEPS, keep_path=False, method="rk4")
+    stage = results.setdefault("rk4_per_stage", {})
+
+    for interp, (name, pack, mod, live, fstep, evaluator) in \
+            RK4_TRACERS.items():
+        model = field_model(interp)
+        table = model.table(m, grid).contiguous()
+
+        def per_stage():       # the parent's trace_rays(method="rk4")
+            vg = fermat.field_evaluator(m, grid, interp)
+            return fermat._trace_impl(fermat.log_field_ne_vg(vg), o, d,
+                                      FREQ_HZ, LENGTH_KM, N_STEPS, False,
+                                      "rk4")
+
+        def route():
+            return parent.run(per_stage) if parent is not None \
+                else per_stage()
+
+        def through_entry():
+            return fermat.trace_rays(m, grid, o, d, FREQ_HZ, LENGTH_KM,
+                                     interp=interp, **rk4)
+
+        kernels.reset_launches()
+        k_out = through_entry()
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        check(launches[name] == 1, f"trace_rays(method='rk4') on {interp} "
+                                   f"launched {name} once")
+        check(all(launches[e] == 0 for e in EVALUATORS),
+              f"trace_rays(method='rk4') on {interp} launched no K1e, K5, "
+              f"K6z or K6q")
+        sorted_ = launches["ray_order_keys"] == 1
+        print(f"  {name} at {n_rays} rays: pack {launches[pack]}, sort keys "
+              f"{launches['ray_order_keys']} ({'sorted and packed' if sorted_ else 'as it is'})")
+        plain = {}
+        plain_ms = wall_ms(lambda: plain.setdefault(
+            "out", fermat.trace_rays_ref(m, grid, o, d, FREQ_HZ, LENGTH_KM,
+                                         interp=interp, **rk4)))
+        errs = [check_against_plain(f"{name} at {n_rays} rays", k_out,
+                                    plain.pop("out"))]
+        del k_out
+        lap(f"K1r on {interp}: the plain tracer at {n_rays} rays")
+        errs += check_paths_against_plain(
+            f"{name} at {n_check} rays",
+            lambda kp: fermat.trace_rays(m, grid, oc, dc, FREQ_HZ, LENGTH_KM,
+                                         n_steps=N_STEPS, keep_path=kp,
+                                         method="rk4", interp=interp),
+            lambda kp: fermat.trace_rays_ref(m, grid, oc, dc, FREQ_HZ,
+                                             LENGTH_KM, n_steps=N_STEPS,
+                                             keep_path=kp, method="rk4",
+                                             interp=interp), oc)
+        lap(f"K1r on {interp}: {n_check} rays")
+        check_trace_bitwise(f"phase 14, {n_rays} rays", kernels, name,
+                            table, grid, o, d, kw, N_STEPS, paths=(False,))
+        tracer = getattr(kernels, name)
+
+        def call():
+            return tracer(table, grid, o, d, N_STEPS, False, **kw)
+
+        ms = device_ms(call, 3)
+        by_name = kernel_ms_by_name(call, 3)
+        b_ms, b_by = trace_bound(mods[mod], live, tracer, 4 * fstep, table,
+                                 grid, o, d, N_STEPS, False, kw)
+        lap(f"K1r on {interp}: bitwise, timed")
+        # the per-stage route: its launches (counted and in all) and device
+        # time from one profiled run, then its host-clock time in turns
+        kernels.reset_launches()
+        n_all, dev_us = device_launches(route)
+        s_launches = dict(kernels.launches)
+        check(s_launches[evaluator] == 1 + 4 * N_STEPS,
+              f"the per-stage rk4 route on {interp} launched {evaluator} "
+              f"1 + 4 x {N_STEPS} times")
+        check(n_all > s_launches[evaluator] and dev_us > 0,
+              f"the per-stage route's trace on {interp}: {n_all} kernels, "
+              f"{dev_us:.1f} us of device time")
+        turns = {"per_stage": [], "k1r": []}
+        for who in ("per_stage", "k1r", "k1r", "per_stage"):
+            turns[who].append(wall_ms(route if who == "per_stage"
+                                      else through_entry))
+        print(f"  {name}: the call (pack, sort, trace) {ms:.4f} ms, plain "
+              f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); by kernel: "
+              + "; ".join(f"{v:.4f} ms {k[:48]}" for k, v in sorted(
+                  by_name.items(), key=lambda kv: -kv[1])))
+        print(f"  rk4@{N_STEPS} on {interp}, {n_rays} rays, in turns on the "
+              f"host clock (synchronised, prefilter included): the per-stage "
+              f"route{' on the parent' if parent is not None else ''} "
+              f"{', '.join(f'{x:.3f}' for x in turns['per_stage'])} ms "
+              f"({s_launches[evaluator]} launches of {evaluator}, {n_all} "
+              f"kernels in all, {dev_us:.1f} us of device time); "
+              f"trace_rays through {name} "
+              f"{', '.join(f'{x:.3f}' for x in turns['k1r'])} ms on {card}")
+        stage[interp] = dict(ms=turns["per_stage"], launches=n_all,
+                             evaluator_launches=s_launches[evaluator],
+                             device_us=dev_us, k1r_ms=turns["k1r"])
+        results[name] = {"launches": launches[name], "line": dict(
+            max_abs_err=max(e[0] for e in errs), ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None),
+            "tau_rel": max(e[1] for e in errs)}
+        if interp == "quadratic":
+            # K6q on the main path: none since K1r; the route's count apart
+            results["quad_value_grad"]["launches"] = \
+                launches["quad_value_grad"]
+            results["quad_value_grad"]["route_not_a_path"] = {
+                "per_stage_rk4_quadratic": s_launches["quad_value_grad"]}
+        lap(f"K1r on {interp}: the per-stage route")
+        del table
+        torch.cuda.empty_cache()
+
+    # K1s: the split tracer, single-layer background, at the bench's batch
+    bg = chapman.background_ne_fn()
+    bg_multi = chapman.background_ne_fn(
+        layers=chapman.DEFAULT_LAYERS, curved=True, cos_chi=0.6,
+        plasmasphere_n0=1e10)
+    params = bg.kernel_params(dev)
+    pert = fermat.split_perturbation(m, grid, bg).contiguous()
+    split, split_launches = {}, {}
+    for method, steps in (("leapfrog", 32), ("rk4", N_STEPS)):
+        is_rk4 = method == "rk4"
+        c = fermat._step_constants(FREQ_HZ, LENGTH_KM, steps)
+        kws = dict(n_steps=steps, keep_path=False, method=method)
+        kernels.reset_launches()
+        b, t = fermat.trace_rays_split(m, grid, o, d, FREQ_HZ, bg, LENGTH_KM,
+                                       **kws)
+        torch.cuda.synchronize()
+        launches = split_launches[method] = dict(kernels.launches)
+        for key, k in (("trace_split", 1), ("pack_z_taps", 1),
+                       ("ray_order_keys", 1), ("cubic_value_grad", 0)):
+            check(launches[key] == k, f"trace_rays_split, {method}@{steps}: "
+                                      f"{key} launched {k} times")
+        want = kernels.trace_split_with(
+            pert, grid, o, d, steps, False, packed=None, order=None,
+            threads=128, rk4=is_rk4, background=params, **c)
+        check(bool(torch.equal(t, want[1])
+                   and torch.equal(b.points[:, -1], want[0])),
+              f"K1s {method}@{steps} at {n_rays} rays, packed and sorted, "
+              f"bitwise the unpacked kernel in ray order")
+        plain = {}
+        plain_ms = wall_ms(lambda: plain.setdefault(
+            "out", fermat.trace_rays_split_ref(m, grid, o, d, FREQ_HZ, bg,
+                                               LENGTH_KM, **kws)))
+        errs = [check_against_plain(f"K1s {method}@{steps} at {n_rays} rays",
+                                    (b, t), plain.pop("out"))]
+        del b, t, want
+        lap(f"K1s {method}@{steps}: the plain tracer at {n_rays} rays")
+        for what, bgx in (("single layer", bg),
+                          ("3 layers, curved, plasmasphere", bg_multi)):
+            errs += check_paths_against_plain(
+                f"K1s {method}@{steps} at {n_check} rays, {what}",
+                lambda kp: fermat.trace_rays_split(
+                    m, grid, oc, dc, FREQ_HZ, bgx, LENGTH_KM, n_steps=steps,
+                    keep_path=kp, method=method),
+                lambda kp: fermat.trace_rays_split_ref(
+                    m, grid, oc, dc, FREQ_HZ, bgx, LENGTH_KM, n_steps=steps,
+                    keep_path=kp, method=method), oc)
+
+        def call():
+            return kernels.trace_split(pert, grid, o, d, steps, False,
+                                       rk4=is_rk4, background=params, **c)
+
+        def as_tracer(table, g, oo, dd, n, kp, **cc):
+            return kernels.trace_split(table, g, oo, dd, n, kp, rk4=is_rk4,
+                                       background=params, **cc)
+
+        ms = device_ms(call, 3)
+        by_name = kernel_ms_by_name(call, 3)
+        entry_ms = wall_ms(lambda: fermat.trace_rays_split(
+            m, grid, o, d, FREQ_HZ, bg, LENGTH_KM, **kws), 3)
+        evals = 4 if is_rk4 else 1
+        b_ms, b_by = trace_bound(tricubic, 16, as_tracer,
+                                 evals * (FLOPS_K1C_STEP + FLOPS_BACKGROUND),
+                                 pert, grid, o, d, steps, False, c)
+        table = m.reshape(N_GRID * N_GRID, N_GRID)
+        k1c = device_ms(lambda: (kernels.trace_rk4_cubic if is_rk4 else
+                                 kernels.trace_leapfrog_cubic)(
+            table, grid, o, d, steps, False, **c), 3)
+        print(f"  K1s {method}@{steps} at {n_rays} rays: the call (pack, sort, "
+              f"trace) {ms:.4f} ms beside the full-field cubic call "
+              f"{k1c:.4f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}); by kernel: " + "; ".join(
+                  f"{v:.4f} ms {k[:48]}" for k, v in sorted(
+                      by_name.items(), key=lambda kv: -kv[1])))
+        print(f"  trace_rays_split {method}@{steps} at {n_rays} rays end to "
+              f"end (the perturbation grid formed, host clock, synchronised, "
+              f"3 calls): {entry_ms:.3f} ms a call on {card}")
+        split[method] = dict(max_abs_err=max(e[0] for e in errs), ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None, n_steps=steps, cubic_ms=k1c,
+                             entry_ms=entry_ms,
+                             tau_rel=max(e[1] for e in errs))
+        lap(f"K1s {method}@{steps}")
+    results["trace_split"] = {
+        "launches": split_launches["leapfrog"]["trace_split"],
+        "line": split["leapfrog"], "at": {"rk4_64": split["rk4"]}}
+    del pert
+    torch.cuda.empty_cache()
+
+    # the beam noise of phase 4's first epoch: 62 x 10 rays x 8 paths on zp
+    r, ants, dirs = serving_epochs()[0]
+    m_np = perturbed_log_field(grid_cpu, r, chapman)
+    m_s, a, dd = (torch.from_numpy(x).to(dev) for x in (m_np, ants, dirs))
+    n_paths = 8
+    eps_np = np.random.default_rng(14).standard_normal(
+        (n_paths - 1, a.shape[0] * dd.shape[0], 2)).astype(np.float32)
+    eps = torch.from_numpy(eps_np).to(dev)
+    kwb = dict(n_paths=n_paths, max_length_km=LENGTH_KM, n_steps=N_STEPS,
+               method="leapfrog", interp="zp")
+
+    def epoch():
+        return fermat.beam_noise_for_epoch(m_s, grid, a, dd, FREQ_HZ, eps,
+                                           **kwb)
+
+    kernels.reset_launches()
+    noise = epoch()
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    n_beam = n_paths * a.shape[0] * dd.shape[0]
+    check(launches["trace_leapfrog_zp"] == 1,
+          f"the beam noise traced its {n_beam} rays in one launch of K1")
+    print(f"  beam noise: {n_beam} rays in one K1 call, pack "
+          f"{launches['pack_zp_taps']}, sort keys "
+          f"{launches['ray_order_keys']} ("
+          f"{n_beam / torch.cuda.get_device_properties(dev).multi_processor_count:.1f}"
+          f" rays an SM, threshold {kernels.TRACE_ZP_RAYS_PER_SM})")
+    check(tuple(noise.shape) == (a.shape[0], dd.shape[0])
+          and bool(torch.isfinite(noise).all()) and bool((noise[0] == 0).all()),
+          "beam noise: (62, 10), finite, the reference antenna's row 0")
+    stoch = fermat.trace_rays_stochastic(
+        m_s, grid, *rays.make_ray_batch(a, dd), FREQ_HZ, eps, **kwb)
+    o_cpu, d_cpu = rays.make_ray_batch(torch.from_numpy(ants),
+                                       torch.from_numpy(dirs))
+    m_cpu, eps_cpu = torch.from_numpy(m_np), torch.from_numpy(eps_np)
+    stoch_p = fermat.trace_rays_stochastic(m_cpu, grid_cpu, o_cpu, d_cpu,
+                                           FREQ_HZ, eps_cpu, **kwb)
+    # beam_noise_for_epoch's plain route: the plain beam trace's spread
+    # mapped by dtec_noise_from_beam
+    noise_p = dtec_noise_from_beam(stoch_p[1], dirs.shape[0], 0)
+    mu, sd, end = (x.cpu() for x in stoch)
+    mu_p, sd_p, end_p = stoch_p
+    scale = float(mu_p.abs().max())
+    e_mu = float(((mu - mu_p).abs() / mu_p.abs()).max())
+    e_sd = float((sd - sd_p).abs().max())
+    e_end = float((end - end_p).abs().max())
+    e_noise = float((noise.cpu() - noise_p).abs().max())
+    check(e_mu <= 1e-5 and e_sd <= 2e-5 * scale and e_end <= 2e-3
+          and e_noise <= 4e-5 * scale,
+          f"beam noise against the plain route (CPU tensors): tec_mean "
+          f"{e_mu:.3e} <= 1e-5 relative, tec_std {e_sd:.3e} <= 2e-5 x "
+          f"max|tec| ({2e-5 * scale:.3e}), endpoint rms {e_end:.3e} km <= "
+          f"2e-3 km, dTEC noise {e_noise:.3e} <= 4e-5 x max|tec| (the "
+          f"tracer's 1e-5 relative on each of the paths; largest spread "
+          f"{float(sd_p.max()):.3e}, noise {float(noise_p.max()):.3e})")
+    o_s, d_s = rays.make_ray_batch(a, dd)
+    d_all = fermat.beam_directions(d_s, eps, n_paths,
+                                   (299792.458 / FREQ_HZ / LENGTH_KM) ** 0.5)
+    per_path = [fermat.trace_rays(m_s, grid, o_s, d_all[p], FREQ_HZ,
+                                  LENGTH_KM, n_steps=N_STEPS, keep_path=False,
+                                  method="leapfrog", interp="zp")
+                for p in range(n_paths)]
+    tec = torch.stack([t for _, t in per_path])
+    ends = torch.stack([b.points[:, -1] for b, _ in per_path])
+    check(bool(torch.equal(stoch[0], tec.mean(0))
+               and torch.equal(stoch[1], tec.std(0, correction=0))
+               and torch.equal(stoch[2], torch.sqrt(
+                   ((ends - ends.mean(0)[None]) ** 2).sum(-1).mean(0)))),
+          "the flattened beam trace bitwise a per-path loop of K1")
+    beam_ms = cuda_ms(epoch, 20)
+    print(f"  beam noise of one serving epoch: {beam_ms:.3f} ms (CUDA "
+          f"events, 20 calls, prefilter included) beside phase 4's "
+          f"{results['ms_per_epoch']:.3f} ms per epoch on {card}")
+    results["beam_noise"] = dict(ms=beam_ms, errors=(e_mu, e_sd, e_end,
+                                                     e_noise),
+                                 launches=launches)
+    lap("beam noise")
+
+    # calc_rays bent at the same geometry: K1c with its path
+    kernels.reset_launches()
+    rb = rays.calc_rays(a, dd, m_s, grid, FREQ_HZ, straight_line_approx=False,
+                        max_length_km=LENGTH_KM, n_samples=N_STEPS + 1)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    check(launches["trace_leapfrog_cubic"] == 1
+          and launches["pack_z_taps"] == 1,
+          "calc_rays bent launched K1c and its pack once")
+    o_s, d_s = rays.make_ray_batch(a, dd)
+    ref = fermat.trace_rays_ref(m_s, grid, o_s, d_s, FREQ_HZ, LENGTH_KM,
+                                n_steps=N_STEPS, keep_path=True,
+                                method="leapfrog", interp="cubic")
+    check(rb.points.shape == ref[0].points.shape == (o_s.shape[0],
+                                                     N_STEPS + 1, 3),
+          f"calc_rays bent: {tuple(rb.points.shape)}")
+    err = float((rb.points - ref[0].points).abs().max())
+    check(err <= 1e-3, f"calc_rays bent: path max|dx| {err:.3e} km <= 1e-3 "
+                       f"km against the plain tracer")
+    c_ms = device_ms(lambda: rays.calc_rays(
+        a, dd, m_s, grid, FREQ_HZ, straight_line_approx=False,
+        max_length_km=LENGTH_KM, n_samples=N_STEPS + 1), 20)
+    print(f"  calc_rays bent, {tuple(rb.points.shape)}: {c_ms:.4f} ms of "
+          f"device time, path max|dx| {err:.3e} km against the plain tracer")
+    results["calc_rays"] = dict(ms=c_ms, max_abs_err=err)
+    lap("calc_rays bent")
+
+
 def kernel_ms_by_name(fn, reps: int) -> dict:
     """Device ms a call of ``fn`` spends in each kernel, by name, from one
     profiler trace over ``reps`` calls after a warm-up."""
@@ -4367,13 +4810,20 @@ def kernels_line(results) -> dict:
     # solve with the zpc2 inner Jacobian, error, ms and bound at its 20,000
     # endpoints (K6zᵀ adding into a K3 table; library_ms: index_add_ into
     # a running table), "at" phase 2's edge-case and random points; K6q:
-    # launches in the rk4 trace on quadratic at the bench's batch, error,
-    # ms and bound at that trace's points halfway, "at" phase 2's points;
+    # error, ms and bound at the bench trace's points halfway, "at" phase
+    # 2's points;
     # K1z and K1q: launches in one trace of the bench's batch, error (8192
     # rays, phase 2), ms and bound of the call (pack, sort and trace) at
     # the bench's batch. "kernels_at_config4" holds K2 at zpc's (8, 4)
     # shape at the solve's two bundles, with its launches in one
-    # zpc2-inner solve.
+    # zpc2-inner solve. K6q's launches: in the rk4 trace on quadratic
+    # through trace_rays (phase 14; 0, as K1r took its place; the per-stage
+    # route's count, which no entry point takes on the card, under
+    # "route_not_a_path"). K1r on each model:
+    # launches in one rk4 trace of the bench's batch, error (8192 rays),
+    # ms and bound of the call (pack, sort and trace) at the bench's batch,
+    # rk4@64; K1s: the same for the split trace at leapfrog@32, "at" its
+    # rk4@64.
     c4 = results["config4_launches"]
     launches = {**results["launches"],
                 **{k: results["solve_launches"][k]
@@ -4390,7 +4840,9 @@ def kernels_line(results) -> dict:
                    for k in ("zpc_value_grad", "zpc_value_grad_bwd")},
                 **{k: results[k]["launches"]
                    for k in ("quad_value_grad", "trace_leapfrog_zpc",
-                             "trace_leapfrog_quad")}}
+                             "trace_leapfrog_quad", "trace_rk4_zp",
+                             "trace_rk4_cubic", "trace_rk4_zpc",
+                             "trace_rk4_quad", "trace_split")}}
     entries = [
         ("trace_leapfrog_zp", "trace_leapfrog_zp.cu",
          "ionotomo_tpu/geometry/fermat.py:204"),
@@ -4439,6 +4891,16 @@ def kernels_line(results) -> dict:
          "ionotomo_tpu/geometry/fermat.py:204"),
         ("trace_leapfrog_quad", "trace_leapfrog_quad.cu",
          "ionotomo_tpu/geometry/fermat.py:204"),
+        ("trace_rk4_zp", "trace_leapfrog_zp.cu",
+         "ionotomo_tpu/geometry/fermat.py:182"),
+        ("trace_rk4_cubic", "trace_leapfrog_cubic.cu",
+         "ionotomo_tpu/geometry/fermat.py:182"),
+        ("trace_rk4_zpc", "trace_leapfrog_zpc.cu",
+         "ionotomo_tpu/geometry/fermat.py:182"),
+        ("trace_rk4_quad", "trace_leapfrog_quad.cu",
+         "ionotomo_tpu/geometry/fermat.py:182"),
+        ("trace_split", "trace_split.cu",
+         "ionotomo_tpu/geometry/fermat.py:243"),
     ]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -4489,11 +4951,21 @@ def kernels_line(results) -> dict:
                for name in ("point_order_keys", "permute_points")}
     extra = {
         "zp_value_grad": k1e,
+        "trace_split": {**entry("trace_split", *reps["trace_split"],
+                                launches["trace_split"],
+                                results["trace_split"]["line"]),
+                        "at": results["trace_split"]["at"]},
         **{name: {**entry(name, *reps[name], launches[name],
                           results[name]["line"]),
                   "at": results[name + "_at"]}
-           for name in ("zpc_value_grad", "zpc_value_grad_bwd",
-                        "quad_value_grad")},
+           for name in ("zpc_value_grad", "zpc_value_grad_bwd")},
+        "quad_value_grad": {
+            **entry("quad_value_grad", *reps["quad_value_grad"],
+                    launches["quad_value_grad"],
+                    results["quad_value_grad"]["line"]),
+            "route_not_a_path":
+                results["quad_value_grad"]["route_not_a_path"],
+            "at": results["quad_value_grad_at"]},
         "vector_gather": {
             **entry("vector_gather", *reps["vector_gather"],
                     launches["vector_gather"],
@@ -4561,6 +5033,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
     print("phase 1: build")
+    lap = Laps()
     info = build.build()
     print(f"  built={info['built']} in {info['seconds']:.2f} s -> "
           f"{info['path'].name}")
@@ -4570,29 +5043,42 @@ def main() -> int:
     build.load()
 
     parent = Parent(parent_dir) if parent_dir else None
+    lap("phase 1, the builds")
     if parent is None:
         print("  no --parent DIR: no phase holds a kernel to the parent's")
     results = {}
     phase2_kernels_vs_plain(dev, boxspline, tricubic, fermat, kernels,
                             Grid3D, chapman, results, parent)
+    lap("phase2_kernels_vs_plain")
     phase2_new_models(dev, tricubic, zpcubic, triquadratic, fermat, kernels,
-                      Grid3D, chapman, results)
+                      Grid3D, chapman, results, parent=parent)
+    lap("phase2_new_models")
     phase3_throughput(dev, boxspline, fermat, kernels, Grid3D, chapman,
                       results, card, parent)
-    phase3_new_tracers(dev, fermat, kernels, Grid3D, chapman, results, card)
+    lap("phase3_throughput")
+    phase3_new_tracers(dev, fermat, kernels, Grid3D, chapman, results, card,
+                       parent=parent)
+    lap("phase3_new_tracers")
     phase4_serving(dev, boxspline, fermat, rays, tec, kernels, Grid3D, chapman,
                    results, profile, parent)
+    lap("phase4_serving")
     phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
                            results, parent)
+    lap("phase5_adjoint_kernels")
     phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
                  chapman, priors, solvers, results, profile, parent)
+    lap("phase6_solve")
     phase7_probe(dev, gather, kernels, results, parent)
+    lap("phase7_probe")
     phase8_cubic_kernels(dev, tricubic, fermat, rays, tec, kernels, Grid3D,
                          chapman, results, parent)
+    lap("phase8_cubic_kernels")
     phase9_config2(dev, fermat, rays, kernels, Grid3D, chapman, configs,
                    results, card, parent=parent)
+    lap("phase9_config2")
     phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
                     profile, parent)
+    lap("phase10_config4")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     world5 = configs.config5_world(device=dev)
@@ -4602,10 +5088,18 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
     phase11_member_kernels(dev, world5, boxspline, tricubic, tec, kernels,
                            Grid3D, results, parent)
+    lap("phase11_member_kernels")
     cache5 = phase12_config5(dev, world5, boxspline, tricubic, tec, kernels,
                              configs, results, profile, parent=parent)
+    lap("phase12_config5")
     phase13_enkf(dev, world5, cache5, boxspline, tricubic, tec, kernels,
                  configs, results, profile, parent=parent)
+    lap("phase13_enkf")
+    del world5, cache5
+    torch.cuda.empty_cache()
+    phase14_tracers(dev, fermat, rays, kernels, Grid3D, chapman, results,
+                    card, lap, parent=parent)
+    lap("phase14_tracers")
 
     line = kernels_line(results)
     solve, c2, c4 = results["solve"], results["config2"], results["config4"]
@@ -4628,6 +5122,14 @@ def main() -> int:
           f"inner Jacobian {min(c4z['seconds']):.4f} s (plain "
           f"{c4z['plain_seconds']:.4f} s), held-out dTEC rms "
           f"{c4z['prior_heldout']:.4f} -> {c4z['heldout']:.4f}")
+    st = results["rk4_per_stage"]
+    print("rk4@64 at 262144 rays, the per-stage route against K1r through "
+          "trace_rays (host clock, ms): " + "; ".join(
+              f"{k} {min(v['ms']):.3f} ({v['launches']} launches) -> "
+              f"{min(v['k1r_ms']):.3f}" for k, v in st.items())
+          + f"; split leapfrog@32 {results['trace_split']['line']['ms']:.4f} "
+          f"ms; beam noise of a serving epoch "
+          f"{results['beam_noise']['ms']:.3f} ms")
     c5, e5 = results["config5"], results["config5_enkf"]
     print(f"config 5: {c5['steps']} filter steps in "
           f"{min(c5['seconds']):.4f} s ({c5['steps'] / min(c5['seconds']):.2f}"

@@ -6,20 +6,22 @@ dp/ds = ∇n(x), n = sqrt(1 − KAPPA·n_e/f²) the cold-plasma
 Appleton–Hartree index, n_e = K_NE·exp(m(x)) from the interpolated
 log-density field. The TEC path integral rides along as extra state.
 
-``trace_rays`` with ``method="leapfrog"`` runs one kernel on CUDA
-tensors, all steps of a ray in one thread, one launch, the field model's
-own (``_leapfrog_kernel``): K1 over zp, K1c over the tricubic model
+``trace_rays`` runs one kernel on CUDA tensors, all steps of a ray in one
+thread, one launch, the field model's own (``_tracer_kernel``): with
+``method="leapfrog"`` K1 over zp, K1c over the tricubic model
 (``interp="cubic"``, the default), K1z over zpc and K1q over the
-triquadratic model. rk4, and every CPU tensor, runs ``_trace_impl``, the
-port of the reference's integrator loop (a Python loop in place of
-``lax.scan``); on CUDA its field evaluations are the model's value +
-gradient kernel (K1e, K5, K6z or K6q), one launch a stage.
+triquadratic model; with ``method="rk4"`` K1r over the same four. Every
+CPU tensor runs ``_trace_impl``, the port of the reference's integrator
+loop (a Python loop in place of ``lax.scan``).
 ``trace_rays_ref`` is the plain PyTorch version of the whole tracer.
 ``trace_rays_callable`` runs the same loop over a closed-form field.
 
-Not ported yet (ROADMAP.md Queue 1, the tracers still missing): the
-reference's ``trace_rays_split``, ``trace_rays_stochastic`` and
-``beam_noise_for_epoch``.
+``trace_rays_split`` traces a closed-form Chapman background plus the
+tricubic model of a gridded perturbation (kernel K1s on CUDA,
+``trace_rays_split_ref`` its plain version). ``trace_rays_stochastic``
+traces a beam of jittered rays around each ray in one tracer call, and
+``beam_noise_for_epoch`` maps its TEC spread to dTEC noise; their
+randomness is fed in (standard normals, or a ``torch.Generator``).
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ from ..core import boxspline, triquadratic, tricubic, zpcubic
 from ..core.field_models import field_model
 from ..core.grids import Grid3D
 from ..device import as_tensor
-from .rays import RayBundle
+from ..models.chapman import ChapmanBackground
+from .rays import RayBundle, make_ray_batch
 
 
 def refractive_index(ne, frequency_hz):
@@ -85,13 +88,17 @@ def field_evaluator(field_m: torch.Tensor, grid: Grid3D,
     return lambda x: model.rows.interp_rows_with_grad(table, grid, x)
 
 
-def _leapfrog_kernel(model):
-    """The model's own leapfrog tracer kernel: K1 on zp, K1c on cubic, K1z
-    on zpc, K1q on quadratic (each reads its model's table)."""
-    return {boxspline: kernels.trace_leapfrog_zp,
-            tricubic: kernels.trace_leapfrog_cubic,
-            zpcubic: kernels.trace_leapfrog_zpc,
-            triquadratic: kernels.trace_leapfrog_quad}[model.rows]
+#: Each field model's name in its tracer kernels'
+#: (``kernels.trace_<method>_<name>``).
+_TRACER_MODEL = {boxspline: "zp", tricubic: "cubic", zpcubic: "zpc",
+                 triquadratic: "quad"}
+
+
+def _tracer_kernel(model, method):
+    """The model's own tracer kernel for ``method``, one table keyed by
+    (model, method): leapfrog K1 on zp, K1c on cubic, K1z on zpc, K1q on
+    quadratic; rk4 K1r on the same four (each reads its model's table)."""
+    return getattr(kernels, f"trace_{method}_{_TRACER_MODEL[model.rows]}")
 
 
 def _step_constants(frequency_hz, max_length_km, n_steps):
@@ -128,26 +135,33 @@ def trace_rays(field_m: torch.Tensor, grid: Grid3D, origins: torch.Tensor,
     Integrators: ``rk4`` (4 field evaluations per step, the accuracy
     reference) and ``leapfrog`` (velocity Verlet, one field evaluation per
     step, Hermite 4th-order TEC; leapfrog@64 is the production
-    configuration). On CUDA, leapfrog is one kernel, the field model's
-    (``_leapfrog_kernel``).
+    configuration). On CUDA, either is one kernel, the field model's
+    (``_tracer_kernel``).
     """
     origins = as_tensor(origins, device=grid.device)
     directions = as_tensor(directions, device=grid.device)
-    if origins.is_cuda and method == "leapfrog":
+    if origins.is_cuda and method in ("leapfrog", "rk4"):
         model = field_model(interp)
+        kernel = _tracer_kernel(model, method)
         table = model.table(field_m, grid).contiguous()
         c = _step_constants(frequency_hz, max_length_km, n_steps)
-        x_end, tau, path = _leapfrog_kernel(model)(
-            table, grid, origins.contiguous(), directions.contiguous(),
-            n_steps, keep_path, **c)
-        pts = path if keep_path else torch.stack([origins, x_end], dim=1)
-        ds = torch.full((origins.shape[0],), c["h"], dtype=torch.float32,
-                        device=origins.device)
-        return RayBundle(points=pts, ds=ds), tau
+        x_end, tau, path = kernel(table, grid, origins.contiguous(),
+                                  directions.contiguous(), n_steps,
+                                  keep_path, **c)
+        return _kernel_bundle(origins, x_end, path, c["h"]), tau
     interp_vg = field_evaluator(field_m, grid, interp)
     return _trace_impl(log_field_ne_vg(interp_vg), origins, directions,
                        frequency_hz, max_length_km, n_steps, keep_path,
                        method)
+
+
+def _kernel_bundle(origins, x_end, path, h):
+    """A tracer kernel's outputs as ``_trace_impl`` returns its bundle: the
+    path, or the origins and endpoints without one."""
+    pts = path if path is not None else torch.stack([origins, x_end], dim=1)
+    ds = torch.full((origins.shape[0],), h, dtype=torch.float32,
+                    device=origins.device)
+    return RayBundle(points=pts, ds=ds)
 
 
 def trace_rays_ref(field_m: torch.Tensor, grid: Grid3D,
@@ -156,8 +170,8 @@ def trace_rays_ref(field_m: torch.Tensor, grid: Grid3D,
                    max_length_km=constants.DEFAULT_MAX_LENGTH_KM,
                    n_steps: int = 128, keep_path: bool = True,
                    method: str = "rk4", interp: str = "cubic"):
-    """Plain PyTorch version of ``trace_rays`` (and so of K1, K1c, K1z
-    and K1q):
+    """Plain PyTorch version of ``trace_rays`` (and so of K1, K1c, K1z,
+    K1q and K1r):
     the ``_trace_impl`` loop over the field model's plain evaluator, on
     any device."""
     model = field_model(interp)
@@ -237,6 +251,82 @@ def _trace_impl(ne_vg, origins, directions, frequency_hz,
     return RayBundle(points=pts, ds=ds), tau
 
 
+def split_perturbation(field_m: torch.Tensor, grid: Grid3D, background):
+    """The split tracer's perturbation table (nx*ny, nz) [m⁻³]: δ = K_NE·
+    e^m − n_e,bg at the grid points, the points from the f32 axes as
+    ``grid.axes()`` gives them, the background's value only (a
+    ``ChapmanBackground``'s ``value``: no gradient is taken)."""
+    nx, ny, nz = grid.shape
+    pts = torch.stack(torch.meshgrid(*grid.axes(), indexing="ij"),
+                      dim=-1).reshape(-1, 3)
+    ne_bg = (background.value(pts) if isinstance(background, ChapmanBackground)
+             else background(pts)[0])
+    pert = constants.K_NE * torch.exp(field_m) - ne_bg.reshape(grid.shape)
+    return pert.reshape(nx * ny, nz)
+
+
+def _split_ne_vg(pert2d, grid, background, interp_vg):
+    """The split field's evaluator: background + the perturbation's
+    tricubic value and gradient (``interp_vg``), as (nb + d, gb + gd)."""
+
+    def ne_vg(x):
+        d, gd = interp_vg(pert2d, grid, x)
+        nb, gb = background(x)
+        return nb + d, gb + gd
+
+    return ne_vg
+
+
+def trace_rays_split(field_m: torch.Tensor, grid: Grid3D, origins,
+                     directions, frequency_hz, background,
+                     max_length_km=constants.DEFAULT_MAX_LENGTH_KM,
+                     n_steps: int = 32, keep_path: bool = True,
+                     method: str = "leapfrog"):
+    """Split-field bent trace: n_e = the closed-form ``background``
+    (``models.chapman.background_ne_fn``) + the tricubic model of the
+    perturbation grid δ = K_NE·e^m − n_e,bg(grid points), formed once per
+    call (``split_perturbation``). Returns (RayBundle, tec) as
+    ``trace_rays``. On CUDA, leapfrog or rk4 is one launch of K1s, which
+    evaluates the background in closed form from its parameters (a
+    background other than a ``ChapmanBackground`` raises there); on the
+    CPU the plain ``_trace_impl`` loop."""
+    origins = as_tensor(origins, device=grid.device)
+    directions = as_tensor(directions, device=grid.device)
+    pert2d = split_perturbation(field_m, grid, background)
+    if origins.is_cuda and method in ("leapfrog", "rk4"):
+        if not isinstance(background, ChapmanBackground):
+            raise TypeError(f"trace_rays_split on CUDA evaluates the "
+                            f"background in its kernel and takes a "
+                            f"ChapmanBackground (background_ne_fn), got "
+                            f"{type(background).__name__}")
+        c = _step_constants(frequency_hz, max_length_km, n_steps)
+        x_end, tau, path = kernels.trace_split(
+            pert2d.contiguous(), grid, origins.contiguous(),
+            directions.contiguous(), n_steps, keep_path,
+            rk4=method == "rk4",
+            background=background.kernel_params(origins.device), **c)
+        return _kernel_bundle(origins, x_end, path, c["h"]), tau
+    return _trace_impl(_split_ne_vg(pert2d, grid, background,
+                                    tricubic.interp_rows_with_grad),
+                       origins, directions, frequency_hz, max_length_km,
+                       n_steps, keep_path, method)
+
+
+def trace_rays_split_ref(field_m: torch.Tensor, grid: Grid3D, origins,
+                         directions, frequency_hz, background,
+                         max_length_km=constants.DEFAULT_MAX_LENGTH_KM,
+                         n_steps: int = 32, keep_path: bool = True,
+                         method: str = "leapfrog"):
+    """Plain PyTorch version of ``trace_rays_split`` (and so of K1s): the
+    ``_trace_impl`` loop over ``tricubic.interp_rows_with_grad_ref`` of δ
+    plus the background's ``__call__``, on any device."""
+    pert2d = split_perturbation(field_m, grid, background)
+    return _trace_impl(_split_ne_vg(pert2d, grid, background,
+                                    tricubic.interp_rows_with_grad_ref),
+                       origins, directions, frequency_hz, max_length_km,
+                       n_steps, keep_path, method)
+
+
 def trace_rays_callable(ne_and_grad, origins, directions, frequency_hz,
                         max_length_km=constants.DEFAULT_MAX_LENGTH_KM,
                         n_steps: int = 128, keep_path: bool = True,
@@ -263,3 +353,103 @@ def straight_line_limit_error(field_m, grid, origins, directions,
     directions = as_tensor(directions, device=grid.device)
     straight_end = origins + max_length_km * directions
     return torch.linalg.norm(bundle.points[:, -1] - straight_end, dim=-1)
+
+
+def _standard_normals(noise, shape, device) -> torch.Tensor:
+    """``noise`` as standard normals of ``shape`` on ``device``: a tensor or
+    array of that shape as it is, or a ``torch.Generator``'s draw (on the
+    generator's device). Never global random state."""
+    if isinstance(noise, torch.Generator):
+        eps = torch.randn(shape, generator=noise, dtype=torch.float32,
+                          device=noise.device)
+        return eps.to(device)
+    eps = as_tensor(noise, device=device).to(device)
+    if tuple(eps.shape) != tuple(shape):
+        raise ValueError(f"noise must have shape {tuple(shape)}, got "
+                         f"{tuple(eps.shape)}")
+    return eps
+
+
+def beam_directions(directions, noise, n_paths: int, jitter_rad: float):
+    """The launch directions of a beam around each ray, (n_paths, R, 3):
+    path 0 the ray itself, paths 1.. its direction jittered by
+    ``jitter_rad``·ε along a transverse orthonormal basis (e1 = d × ĥ
+    normalised, ĥ = ẑ unless |d_z| ≥ 0.9, then x̂; e2 = d × e1), each
+    normalised. ``noise``: ε, standard normals of shape (n_paths − 1, R,
+    2), or a ``torch.Generator`` to draw them from."""
+    r = directions.shape[0]
+    dev = directions.device
+    helper = torch.where(directions[:, 2:3].abs() < 0.9,
+                         torch.tensor([0.0, 0.0, 1.0], device=dev),
+                         torch.tensor([1.0, 0.0, 0.0], device=dev))
+    e1 = torch.linalg.cross(directions, helper.expand_as(directions))
+    e1 = e1 / torch.linalg.norm(e1, dim=-1, keepdim=True)
+    e2 = torch.linalg.cross(directions, e1)
+    eps = (_standard_normals(noise, (n_paths - 1, r, 2), dev)
+           * np.float32(jitter_rad))
+    d_pert = (directions[None] + eps[..., 0:1] * e1[None]
+              + eps[..., 1:2] * e2[None])
+    d_all = torch.cat([directions[None], d_pert], dim=0)
+    return d_all / torch.linalg.norm(d_all, dim=-1, keepdim=True)
+
+
+def trace_rays_stochastic(field_m: torch.Tensor, grid: Grid3D, origins,
+                          directions, frequency_hz, noise, n_paths: int = 8,
+                          jitter_rad: float = None,
+                          max_length_km=constants.DEFAULT_MAX_LENGTH_KM,
+                          n_steps: int = 64, method: str = "leapfrog",
+                          interp: str = "cubic"):
+    """Beam-ensemble (stochastic) trace for the strong-turbulence regime:
+    ``n_paths`` rays per (origin, direction), the launch directions of
+    ``beam_directions`` (``noise``: standard normals (n_paths − 1, R, 2),
+    or a ``torch.Generator``; ``jitter_rad`` defaults to the Fresnel angle
+    sqrt(λ/L)). Returns (tec_mean, tec_std, endpoint_rms), each (R,): the
+    beam-averaged TEC, its population std over the paths (the chaotic
+    forward-model error bar) and the rms 3-D distance of the path
+    endpoints from their mean. All n_paths × R rays go through one
+    ``trace_rays`` call, paths outermost; every ray's outputs are those of
+    its own trace."""
+    origins = as_tensor(origins, device=grid.device)
+    directions = as_tensor(directions, device=grid.device)
+    if jitter_rad is None:
+        lam_km = 299792.458 / float(frequency_hz)      # c [km/s] / f
+        jitter_rad = float(lam_km / max_length_km) ** 0.5
+    d_all = beam_directions(directions, noise, n_paths, jitter_rad)
+    r = origins.shape[0]
+    bundle, tec = trace_rays(field_m, grid, origins.repeat(n_paths, 1),
+                             d_all.reshape(-1, 3), frequency_hz,
+                             max_length_km, n_steps=n_steps, keep_path=False,
+                             method=method, interp=interp)
+    tec_p = tec.reshape(n_paths, r)
+    ends = bundle.points[:, -1].reshape(n_paths, r, 3)
+    end_mu = ends.mean(0)
+    endpoint_rms = torch.sqrt(((ends - end_mu[None]) ** 2).sum(-1).mean(0))
+    return tec_p.mean(0), tec_p.std(0, correction=0), endpoint_rms
+
+
+def beam_noise_for_epoch(field_m: torch.Tensor, grid: Grid3D, antennas_enu,
+                         directions_enu, frequency_hz, noise,
+                         n_paths: int = 8, num_directions: int = None,
+                         i0: int = 0, jitter_rad: float = None,
+                         max_length_km=constants.DEFAULT_MAX_LENGTH_KM,
+                         n_steps: int = 64, method: str = "leapfrog",
+                         interp: str = "cubic") -> torch.Tensor:
+    """Per-(antenna, direction) dTEC observation-noise inflation from the
+    chaotic beam spread: one ``trace_rays_stochastic`` beam per (antenna ×
+    direction) ray of ``make_ray_batch``, its TEC spreads mapped to dTEC
+    noise rows by ``forward.tec.dtec_noise_from_beam``. Returns (Na, Nd) in
+    TEC working units; add it in quadrature to the instrument noise.
+    ``noise`` as for ``trace_rays_stochastic`` (the same noise, the same
+    inflation)."""
+    from ..forward.tec import dtec_noise_from_beam
+
+    dirs = as_tensor(directions_enu, device=grid.device)
+    origins, dvecs = make_ray_batch(
+        as_tensor(antennas_enu, device=grid.device), dirs)
+    _, tec_std, _ = trace_rays_stochastic(
+        field_m, grid, origins, dvecs, frequency_hz, noise,
+        n_paths=n_paths, jitter_rad=jitter_rad,
+        max_length_km=max_length_km, n_steps=n_steps, method=method,
+        interp=interp)
+    nd = dirs.shape[0] if num_directions is None else int(num_directions)
+    return dtec_noise_from_beam(tec_std, nd, i0)

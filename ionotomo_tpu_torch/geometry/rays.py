@@ -1,13 +1,13 @@
-"""Straight-line ray sampling and ray batches (port of the parts of
-``ionotomo_tpu.geometry.rays`` the bent-ray slice uses).
+"""Straight-line ray sampling, ray batches and the reference-parity
+facade (port of ``ionotomo_tpu.geometry.rays``).
 
 A ``RayBundle`` — a flat batch of rays plus quadrature geometry — is the
 currency of the forward operators. Tensors keep their device; numpy inputs
-go to the device of the tensor beside them, or to the card when there is
-none (``device.as_tensor``).
-
-Not ported yet (ROADMAP.md Queue 1, the tracers still missing): the
-reference's ``geometry/rays.py:inner_bundle`` and ``calc_rays``.
+go to the device of the tensor beside them (for bent rays, the grid's), or
+to the card when there is none (``device.as_tensor``). ``inner_bundle``
+subsamples a bundle for mixed-fidelity solves; ``calc_rays`` builds the
+(antenna × direction) rays, straight or bent through
+``geometry.fermat.trace_rays``.
 """
 from __future__ import annotations
 
@@ -65,6 +65,25 @@ def sample_straight_rays(origins, directions,
     return RayBundle(points=pts, ds=ds)
 
 
+def inner_bundle(bundle: RayBundle, n_inner: int) -> RayBundle:
+    """Coarse subsample of a uniformly-sampled bundle: every k-th sample,
+    the endpoints kept, ds × k, for (R, N, 3) and stacked (Nt, R, N, 3)
+    bundles alike (straight or bent: both are uniform in arc length).
+    Requires (N−1) divisible by (n_inner−1)."""
+    n = bundle.points.shape[-2]
+    if not 1 < n_inner < n:
+        raise ValueError(f"inner_bundle: need 1 < n_inner={n_inner} < "
+                         f"n_samples={n}")
+    stride, rem = divmod(n - 1, n_inner - 1)
+    if rem:
+        raise ValueError(
+            f"inner_bundle: n_samples-1={n - 1} not divisible by "
+            f"n_inner-1={n_inner - 1} (try n_inner in "
+            f"{[1 + (n - 1) // k for k in (2, 4) if (n - 1) % k == 0]})")
+    return RayBundle(points=bundle.points[..., ::stride, :],
+                     ds=bundle.ds * stride)
+
+
 def make_ray_batch(antennas_enu, directions_enu):
     """Cartesian product (Na,3)×(Nd,3) → flat (Na*Nd, 3) origin/dir arrays.
 
@@ -76,6 +95,35 @@ def make_ray_batch(antennas_enu, directions_enu):
     origins = torch.repeat_interleave(ants, nd, dim=0)
     directions = dirs.repeat(na, 1)
     return origins, directions
+
+
+def calc_rays(antennas_enu, directions_enu, ne_field_m=None, grid=None,
+              frequency_hz=None, straight_line_approx=True,
+              max_length_km=constants.DEFAULT_MAX_LENGTH_KM,
+              n_samples=constants.DEFAULT_N_SAMPLES,
+              method="leapfrog") -> RayBundle:
+    """The reference's facade over the ray subsystem: the (antenna ×
+    direction) product of ``make_ray_batch``, sampled straight
+    (``sample_straight_rays``) or traced bent through ``ne_field_m`` on
+    ``grid`` (``fermat.trace_rays`` with n_samples − 1 steps and the path
+    kept, on the default tricubic model: K1c on the card, K1r with
+    ``method="rk4"``). Returns a RayBundle (Na*Nd, N, 3), row-major over
+    (antenna, direction)."""
+    if straight_line_approx:
+        origins, dvecs = make_ray_batch(antennas_enu, directions_enu)
+        return sample_straight_rays(origins, dvecs, max_length_km,
+                                    n_samples)
+    if ne_field_m is None or grid is None or frequency_hz is None:
+        raise ValueError("bent rays need ne_field_m, grid, frequency_hz")
+    from .fermat import trace_rays
+
+    origins, dvecs = make_ray_batch(
+        as_tensor(antennas_enu, device=grid.device),
+        as_tensor(directions_enu, device=grid.device))
+    bundle, _ = trace_rays(ne_field_m, grid, origins, dvecs, frequency_hz,
+                           max_length_km, n_steps=n_samples - 1,
+                           keep_path=True, method=method)
+    return bundle
 
 
 def trapezoid_weights(n_samples: int, dtype=torch.float32, device=None):

@@ -48,7 +48,14 @@
   tracer over the zpc and the triquadratic model (csrc/trace_leapfrog_zpc.cu,
   csrc/trace_leapfrog_quad.cu), K1's call on K6z's and K6q's evaluators,
   over K1c's z-tap pack (zpc's z stencil is the tricubic one) and K1's
-  (quadratic's is the zp one).
+  (quadratic's is the zp one);
+- K1r ``trace_rk4_zp``, ``trace_rk4_cubic``, ``trace_rk4_zpc`` and
+  ``trace_rk4_quad``: the rk4 tracer, all steps in one launch, over each
+  model's evaluators, packs and call (in the same sources as the model's
+  leapfrog tracer; the integrator in csrc/trace_leapfrog.cuh);
+- K1s ``trace_split``: the split-field tracer, leapfrog or rk4, over a
+  closed-form Chapman background plus the tricubic model of a perturbation
+  table, K1c's pack and call (csrc/trace_split.cu).
 
 Each wrapper checks dtype, shape, contiguity and device and raises on
 anything else (a CPU tensor included: the plain PyTorch versions live in
@@ -76,7 +83,9 @@ launches = {"trace_leapfrog_zp": 0, "zp_value_grad": 0,
             "fold_member_rows": 0, "point_order_keys": 0,
             "permute_points": 0, "pack_zp_taps": 0, "zpc_value_grad": 0,
             "quad_value_grad": 0, "zpc_value_grad_bwd": 0,
-            "trace_leapfrog_zpc": 0, "trace_leapfrog_quad": 0}
+            "trace_leapfrog_zpc": 0, "trace_leapfrog_quad": 0,
+            "trace_rk4_zp": 0, "trace_rk4_cubic": 0, "trace_rk4_zpc": 0,
+            "trace_rk4_quad": 0, "trace_split": 0}
 
 #: Widest table row the reduce kernels (K3, K1eᵀ) take: one row per warp
 #: in shared memory, 8 warps a block, within the 48 KB a block gets
@@ -691,13 +700,24 @@ def trace_leapfrog_cubic(field2d: torch.Tensor, grid, origins: torch.Tensor,
     (``ray_order``) and traced 256 rays a block, a smaller one in its own
     order 64 rays a block, so that it spreads over more SMs. Each ray's
     outputs are bitwise those of the unpacked evaluator in ray order."""
-    dev = _check("trace_leapfrog_cubic",
-                 _grid_specs("trace_leapfrog_cubic", field2d, grid, 2))
+    return _cubic_call("trace_leapfrog_cubic", trace_leapfrog_cubic_with,
+                       field2d, grid, origins, directions, n_steps,
+                       keep_path, consts)
+
+
+def _cubic_call(name, with_fn, table, grid, origins, directions, n_steps,
+                keep_path, consts):
+    """K1c's call, which K1r on cubic and K1s share: the table's z taps
+    packed (``pack_z_taps``); a batch that fills the card
+    (``TRACE_CUBIC_RAYS_PER_SM`` rays an SM) sorted first (``ray_order``)
+    and traced 256 rays a block, a smaller one in its own order 64 rays a
+    block."""
+    dev = _check(name, _grid_specs(name, table, grid, 2))
     fills = origins.shape[0] >= TRACE_CUBIC_RAYS_PER_SM * \
         torch.cuda.get_device_properties(dev).multi_processor_count
-    return trace_leapfrog_cubic_with(
-        field2d, grid, origins, directions, n_steps, keep_path,
-        packed=pack_z_taps(field2d, grid),
+    return with_fn(
+        table, grid, origins, directions, n_steps, keep_path,
+        packed=pack_z_taps(table, grid),
         order=ray_order(origins, directions, grid) if fills else None,
         threads=256 if fills else 64, **consts)
 
@@ -715,6 +735,113 @@ def trace_leapfrog_cubic_with(field2d, grid, origins, directions,
     return _trace_with("trace_leapfrog_cubic", 2, 1, field2d, grid, origins,
                        directions, n_steps, keep_path, packed, order, threads,
                        consts)
+
+
+def trace_split(pert2d: torch.Tensor, grid, origins: torch.Tensor,
+                directions: torch.Tensor, n_steps: int, keep_path: bool, *,
+                rk4: bool, background: dict, **consts):
+    """K1s: trace R rays for ``n_steps`` steps (leapfrog, or rk4 with
+    ``rk4``) through n_e = the closed-form Chapman background + the
+    tricubic model of the perturbation table ``pert2d`` (nx*ny, nz) [m⁻³].
+    ``background``: the kernel's parameters
+    (``models.chapman.ChapmanBackground.kernel_params``): ``layers`` (L, 4)
+    f32 (n_peak, h_peak, scale, sensitivity) on the rays' device, and the
+    floats ``factor``, ``zc0``, ``r_earth``, ``ps_n0``, ``ps_scale``,
+    ``h_top`` and the bool ``curved``. K1c's call (``_cubic_call``): the
+    table's z taps packed, the rays sorted when the batch fills the card.
+    Returns (x_end, tau, path or None); each ray's outputs bitwise those of
+    the unpacked evaluator in ray order."""
+    return _cubic_call("trace_split", trace_split_with, pert2d, grid,
+                       origins, directions, n_steps, keep_path,
+                       dict(consts, rk4=rk4, background=background))
+
+
+def trace_split_with(pert2d, grid, origins, directions, n_steps: int,
+                     keep_path: bool, *, packed, order, threads: int,
+                     rk4: bool, background: dict, **consts):
+    """K1s with its layout, ray order and block size given (as
+    ``trace_leapfrog_cubic_with``)."""
+    name = "trace_split"
+    dev, x_end, tau, path = _trace_outputs(name, 2, pert2d, grid, origins,
+                                           directions, n_steps, keep_path)
+    layers = background["layers"]
+    if layers.dim() != 2 or layers.shape[0] < 1 or layers.shape[1] != 4:
+        raise ValueError(f"{name}: background layers must be (L >= 1, 4), "
+                         f"got {tuple(layers.shape)}")
+    nx, ny, nz = grid.shape
+    r = origins.shape[0]
+    specs = [("background.layers", layers, torch.float32,
+              tuple(layers.shape))]
+    if packed is not None:
+        specs.append(("packed", packed, torch.float32, (nz - 1, nx * ny, 4)))
+    if order is not None:
+        specs.append(("order", order, torch.int32, (r,)))
+    if _check(name, specs) != dev:
+        raise ValueError(f"{name}: layers, packed and order must be on "
+                         f"{dev}")
+    if not _aligned(layers):
+        raise ValueError(f"{name}: layers must start on a 16-byte boundary")
+    if r == 0:
+        return x_end, tau, path
+    b = background
+    with torch.cuda.device(dev):
+        _launch(name, "ionotomo_" + name, _ptr(pert2d), _ptr(packed),
+                _ptr(grid.origin), _ptr(grid.spacing), nx, ny, nz,
+                _ptr(origins), _ptr(directions), _ptr(order), r,
+                int(n_steps), int(bool(rk4)), consts["h"], consts["hh12"],
+                consts["w_n"], consts["w_rhs"], consts["tec_unit"],
+                _ptr(layers), layers.shape[0], b["factor"],
+                int(bool(b["curved"])), b["zc0"], b["r_earth"], b["ps_n0"],
+                b["ps_scale"], b["h_top"], int(threads), _ptr(x_end),
+                _ptr(tau), _ptr(path))
+    return x_end, tau, path
+
+
+def _rk4_tracer(model, policy, min_axis, pack_bases):
+    """K1r on ``model`` (``trace_rk4_<model>``, counted under that name):
+    its call and its ``_with``, those of the model's leapfrog tracer with
+    the rk4 integrator, four evaluations a step. ``policy``: the leapfrog
+    tracer's call (``_sorted_and_packed`` over its pack, or
+    ``_cubic_call``); ``min_axis``, ``pack_bases``: its ``_trace_with``
+    layout."""
+    name = "trace_rk4_" + model
+
+    def with_layout(table, grid, origins, directions, n_steps: int,
+                    keep_path: bool, *, packed, order, threads: int,
+                    **consts):
+        return _trace_with(name, min_axis, pack_bases, table, grid,
+                           origins, directions, n_steps, keep_path, packed,
+                           order, threads, consts)
+
+    def call(table, grid, origins, directions, n_steps: int,
+             keep_path: bool, **consts):
+        return policy(name, with_layout, table, grid, origins, directions,
+                      n_steps, keep_path, consts)
+
+    call.__name__, with_layout.__name__ = name, name + "_with"
+    call.__doc__ = (f"K1r on {model}: ``trace_leapfrog_{model}``'s call "
+                    f"with the rk4 integrator. Each ray's outputs are "
+                    f"bitwise those of the unpacked evaluator in ray order.")
+    with_layout.__doc__ = (f"K1r on {model} with its layout, ray order and "
+                           f"block size given (as "
+                           f"``trace_leapfrog_{model}_with``).")
+    return call, with_layout
+
+
+def _packed_by(pack):
+    """``_sorted_and_packed`` over ``pack``, as a tracer's call."""
+    return lambda name, with_fn, *args: _sorted_and_packed(
+        name, with_fn, pack, *args)
+
+
+trace_rk4_zp, trace_rk4_zp_with = _rk4_tracer(
+    "zp", _packed_by(pack_zp_taps), 3, 2)
+trace_rk4_cubic, trace_rk4_cubic_with = _rk4_tracer(
+    "cubic", _cubic_call, 2, 1)
+trace_rk4_zpc, trace_rk4_zpc_with = _rk4_tracer(
+    "zpc", _packed_by(pack_z_taps), 3, 1)
+trace_rk4_quad, trace_rk4_quad_with = _rk4_tracer(
+    "quad", _packed_by(pack_zp_taps), 3, 2)
 
 
 def _plan_specs(name: str, plan, n_points):

@@ -80,6 +80,13 @@ _SIGNATURES = {
     "ionotomo_trace_leapfrog_quad": (_I, [_P, _P, _P, _P, _I, _I, _I, _P,
                                           _P, _P, _I, _I, _F, _F, _F, _F, _F,
                                           _F, _I, _P, _P, _P, _P]),
+    **{f"ionotomo_trace_rk4_{m}": (_I, [_P, _P, _P, _P, _I, _I, _I, _P, _P,
+                                        _P, _I, _I, _F, _F, _F, _F, _F, _F,
+                                        _I, _P, _P, _P, _P])
+       for m in ("zp", "cubic", "zpc", "quad")},
+    "ionotomo_trace_split": (_I, [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I,
+                                  _I, _I, _F, _F, _F, _F, _F, _P, _I, _F, _I,
+                                  _F, _F, _F, _F, _F, _I, _P, _P, _P, _P]),
     "ionotomo_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

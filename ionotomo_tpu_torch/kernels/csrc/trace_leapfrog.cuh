@@ -1,21 +1,28 @@
-// The leapfrog (velocity Verlet) bent-ray integrator with the Hermite TEC
-// quadrature, for one ray in one thread, over any field evaluator, and the
-// launch that K1 (trace_leapfrog_zp.cu, the zp model) and K1c
-// (trace_leapfrog_cubic.cu, the tricubic model) share.
+// The bent-ray integrators for one ray in one thread, over any field
+// evaluator, and the launches the tracers share: leapfrog (velocity Verlet)
+// with the Hermite TEC quadrature (K1, K1c, K1z, K1q and K1s's leapfrog)
+// and classic rk4 (K1r, and K1s's rk4).
 //
-// It is ionotomo_tpu/geometry/fermat.py, _trace_impl's leapfrog branch
-// (:204-227) fused with _rhs (:61) and log_field_ne_vg: the initial
-// momentum p0 = n(x0) d and _rhs at the origin are computed here too. The
-// state x, p, grad n, n_e, dn_e/ds and tau stays in registers for the whole
-// integration. With a path the thread writes its n_steps+1 samples, origin
-// first, exactly as fermat.py builds `pts`.
+// They are ionotomo_tpu/geometry/fermat.py, _trace_impl's leapfrog branch
+// (:204-227) and rk4 branch (:182-202), fused with _rhs (:61): the initial
+// momentum p0 = n(x0) d is computed here too. The state stays in
+// registers for the whole integration. With a path the thread writes its
+// n_steps+1 samples, origin first, exactly as fermat.py builds `pts`.
+//
+// The integrators take an evaluator at the n_e level, as _trace_impl's
+// ne_vg: LogNe wraps a log-density evaluator as log_field_ne_vg (:46)
+// does (n_e = K_NE e^m, grad n_e = n_e grad m), and the split-field tracer
+// (trace_split.cu) gives n_e directly.
 //
 // Numerics follow the reference: the two f32 values of w = KAPPA/f^2
 // (refractive_index's f64-then-f32, and _rhs's f32 KAPPA * inv_f2) are
 // passed in separately, the over-dense clip (1 - w n_e <= 1e-6) zeroes
-// grad n, and h, h*h/12 and the TEC unit are f32. nvcc contracts a*b+c
-// into FMA where the plain PyTorch version rounds twice, so the two differ
-// in the last bits, growing over the steps (tolerances in chip_smoke.py).
+// grad n, and h, h*h/12 and the TEC unit are f32. rk4 keeps the plain
+// loop's association (x + (h/2) k1, sixth = h/6, ((k1 + 2 k2) + 2 k3) + k4
+// as a running sum in that order) and its roundings. Elsewhere nvcc
+// contracts a*b+c into FMA where the plain PyTorch version rounds twice,
+// so the two differ in the last bits, growing over the steps (tolerances
+// in chip_smoke.py).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,35 +54,56 @@ static __device__ __forceinline__ void trace_rhs(const TraceConsts& c,
   dne = gne[0] * (p[0] / pn) + gne[1] * (p[1] / pn) + gne[2] * (p[2] / pn);
 }
 
-// Ray r of the batch, all n_steps. ValueGrad is a functor
+// An evaluator at the n_e level is a functor
+//   void operator()(const TableGrid&, const TraceConsts&, const float x[3],
+//                   float& ne, float gne[3]) const
+// giving n_e [m^-3] and its physical gradient [m^-3/km] at x.
+//
+// LogNe: fermat.log_field_ne_vg over a log-density evaluator ValueGrad,
 //   void operator()(const TableGrid&, float x, float y, float z, float& m,
 //                   float& gx, float& gy, float& gz) const
-// giving the log-density m and its physical gradient [1/km]; n_e = K_NE e^m
-// and grad n_e = n_e grad m (fermat.log_field_ne_vg). path may be null.
+// giving m and its physical gradient [1/km].
 template <class ValueGrad>
-static __device__ __forceinline__ void trace_leapfrog_ray(
-    const ValueGrad& value_grad, const TableGrid& g, const TraceConsts& c,
-    const float* __restrict__ origins, const float* __restrict__ directions,
-    int r, int n_steps, float* __restrict__ x_end,
-    float* __restrict__ tau_out, float* __restrict__ path) {
-  auto ne_vg = [&](const float x[3], float& ne, float gne[3]) {
+struct LogNe {
+  ValueGrad value_grad;
+  __device__ __forceinline__ void operator()(const TableGrid& g,
+                                             const TraceConsts& c,
+                                             const float x[3], float& ne,
+                                             float gne[3]) const {
     float m, gm[3];
     value_grad(g, x[0], x[1], x[2], m, gm[0], gm[1], gm[2]);
     ne = c.k_ne * expf(m);
     gne[0] = ne * gm[0];
     gne[1] = ne * gm[1];
     gne[2] = ne * gm[2];
-  };
+  }
+};
 
+// The initial momentum p0 = n(x0) d with refractive_index's w, from n_e at
+// the origin.
+static __device__ __forceinline__ void trace_p0(const TraceConsts& c,
+                                                float ne,
+                                                const float* __restrict__ dir,
+                                                float p[3]) {
+  const float n0 = sqrtf(fmaxf(1.0f - c.w_n * ne, 1e-6f));
+#pragma unroll
+  for (int d = 0; d < 3; ++d) p[d] = n0 * dir[d];
+}
+
+// Ray r of the batch, all n_steps of leapfrog, over an n_e-level evaluator.
+// path may be null.
+template <class NeField>
+static __device__ __forceinline__ void trace_leapfrog_ray(
+    const NeField& field, const TableGrid& g, const TraceConsts& c,
+    const float* __restrict__ origins, const float* __restrict__ directions,
+    int r, int n_steps, float* __restrict__ x_end,
+    float* __restrict__ tau_out, float* __restrict__ path) {
   float x[3], p[3], gn[3], gne[3], ne, dne;
 #pragma unroll
   for (int d = 0; d < 3; ++d) x[d] = origins[3 * r + d];
 
-  // p0 = n(x0) d with refractive_index's w
-  ne_vg(x, ne, gne);
-  const float n0 = sqrtf(fmaxf(1.0f - c.w_n * ne, 1e-6f));
-#pragma unroll
-  for (int d = 0; d < 3; ++d) p[d] = n0 * directions[3 * r + d];
+  field(g, c, x, ne, gne);
+  trace_p0(c, ne, directions + 3 * r, p);
   trace_rhs(c, ne, gne, p, gn, dne);
 
   float* my_path = path ? path + (size_t)r * (size_t)(n_steps + 1) * 3 : nullptr;
@@ -95,7 +123,7 @@ static __device__ __forceinline__ void trace_leapfrog_ray(
     for (int d = 0; d < 3; ++d) x[d] = x[d] + c.h * (ph[d] / pn);
 
     float ne1, gne1[3], gn1[3], dne1;
-    ne_vg(x, ne1, gne1);
+    field(g, c, x, ne1, gne1);
     trace_rhs(c, ne1, gne1, ph, gn1, dne1);
 #pragma unroll
     for (int d = 0; d < 3; ++d) p[d] = ph[d] + half_h * gn1[d];
@@ -114,14 +142,120 @@ static __device__ __forceinline__ void trace_leapfrog_ray(
   tau_out[r] = tau;
 }
 
-// The launch of K1 and K1c: one thread per ray, `threads` a block, over
-// an evaluator that may carry its own data (the packed table). Thread t
-// traces ray order[t] (order null: ray t) and writes that ray's outputs at
-// its own index, so an order changes which rays share a warp and nothing
-// else.
-template <class ValueGrad>
-__global__ void trace_leapfrog_ordered_kernel(
-    ValueGrad value_grad, const float* __restrict__ table,
+// _rhs at a stage point without dn_e/ds (rk4 never reads it): dx/ds =
+// p/|p| into kx, dp/ds = grad n (zeroed under the over-dense clip) into kp,
+// n_e into kne. Rounded as the plain loop rounds (no contraction).
+template <class NeField>
+static __device__ __forceinline__ void trace_rk4_stage(
+    const NeField& field, const TableGrid& g, const TraceConsts& c,
+    const float x[3], const float p[3], float kx[3], float kp[3],
+    float& kne) {
+  float gne[3];
+  field(g, c, x, kne, gne);
+  const float a = __fsub_rn(1.0f, __fmul_rn(c.w_rhs, kne));
+  const bool clipped = a <= 1e-6f;
+  const float n = sqrtf(fmaxf(a, 1e-6f));
+  const float k = -0.5f * c.w_rhs / n;
+  const float pn = sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(p[0], p[0]),
+                                             __fmul_rn(p[1], p[1])),
+                                   __fmul_rn(p[2], p[2])));
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    kp[d] = clipped ? 0.0f : k * gne[d];
+    kx[d] = p[d] / pn;
+  }
+}
+
+// x + s k as the plain loop rounds it: the product, then the sum.
+static __device__ __forceinline__ float rk4_axpy(float x, float s, float k) {
+  return __fadd_rn(x, __fmul_rn(s, k));
+}
+
+// Ray r of the batch, all n_steps of rk4 (four evaluations a step), over an
+// n_e-level evaluator. The running sums sx, sp, sne hold ((k1 + 2 k2) +
+// 2 k3) + k4 as the plain loop associates it, and every update rounds its
+// product and its sum apart, as the plain loop does: contracted into FMAs,
+// the 4 x n_steps stages drift from it by ~1e-3 km at 64 steps. path may
+// be null.
+template <class NeField>
+static __device__ __forceinline__ void trace_rk4_ray(
+    const NeField& field, const TableGrid& g, const TraceConsts& c,
+    const float* __restrict__ origins, const float* __restrict__ directions,
+    int r, int n_steps, float* __restrict__ x_end,
+    float* __restrict__ tau_out, float* __restrict__ path) {
+  float x[3], p[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) x[d] = origins[3 * r + d];
+  {
+    float ne, gne[3];
+    field(g, c, x, ne, gne);
+    trace_p0(c, ne, directions + 3 * r, p);
+  }
+
+  float* my_path = path ? path + (size_t)r * (size_t)(n_steps + 1) * 3 : nullptr;
+  if (my_path) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) my_path[d] = x[d];
+  }
+
+  const float half_h = 0.5f * c.h;
+  const float sixth = c.h / 6.0f;
+  float tau = 0.0f;
+  for (int s = 0; s < n_steps; ++s) {
+    float kx[3], kp[3], kne, xs[3], ps[3], sx[3], sp[3], sne;
+    trace_rk4_stage(field, g, c, x, p, kx, kp, kne);
+    sne = kne;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      sx[d] = kx[d];
+      sp[d] = kp[d];
+      xs[d] = rk4_axpy(x[d], half_h, kx[d]);
+      ps[d] = rk4_axpy(p[d], half_h, kp[d]);
+    }
+    trace_rk4_stage(field, g, c, xs, ps, kx, kp, kne);
+    sne = rk4_axpy(sne, 2.0f, kne);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      sx[d] = rk4_axpy(sx[d], 2.0f, kx[d]);
+      sp[d] = rk4_axpy(sp[d], 2.0f, kp[d]);
+      xs[d] = rk4_axpy(x[d], half_h, kx[d]);
+      ps[d] = rk4_axpy(p[d], half_h, kp[d]);
+    }
+    trace_rk4_stage(field, g, c, xs, ps, kx, kp, kne);
+    sne = rk4_axpy(sne, 2.0f, kne);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      sx[d] = rk4_axpy(sx[d], 2.0f, kx[d]);
+      sp[d] = rk4_axpy(sp[d], 2.0f, kp[d]);
+      xs[d] = rk4_axpy(x[d], c.h, kx[d]);
+      ps[d] = rk4_axpy(p[d], c.h, kp[d]);
+    }
+    trace_rk4_stage(field, g, c, xs, ps, kx, kp, kne);
+    sne = __fadd_rn(sne, kne);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      x[d] = rk4_axpy(x[d], sixth, __fadd_rn(sx[d], kx[d]));
+      p[d] = rk4_axpy(p[d], sixth, __fadd_rn(sp[d], kp[d]));
+    }
+    tau = rk4_axpy(tau, __fmul_rn(sixth, sne), c.tec_unit);
+    if (my_path) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) my_path[3 * (s + 1) + d] = x[d];
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) x_end[3 * r + d] = x[d];
+  tau_out[r] = tau;
+}
+
+// The launches of every tracer: one thread per ray, `threads` a block,
+// over an n_e-level evaluator that may carry its own data (a packed table,
+// a background's parameters). Thread t traces ray order[t] (order null:
+// ray t) and writes that ray's outputs at its own index, so an order
+// changes which rays share a warp and nothing else.
+template <bool kRk4, class NeField>
+__global__ void trace_ordered_kernel(
+    NeField field, const float* __restrict__ table,
     const float* __restrict__ origin, const float* __restrict__ spacing,
     int nx, int ny, int nz, const float* __restrict__ origins,
     const float* __restrict__ directions, const int* __restrict__ order,
@@ -131,14 +265,18 @@ __global__ void trace_leapfrog_ordered_kernel(
   if (t >= n_rays) return;
   const int r = order ? __ldg(order + t) : t;
   const TableGrid g = table_grid(table, origin, spacing, nx, ny, nz);
-  trace_leapfrog_ray(value_grad, g, c, origins, directions, r, n_steps, x_end,
-                     tau_out, path);
+  if constexpr (kRk4)
+    trace_rk4_ray(field, g, c, origins, directions, r, n_steps, x_end,
+                  tau_out, path);
+  else
+    trace_leapfrog_ray(field, g, c, origins, directions, r, n_steps, x_end,
+                       tau_out, path);
 }
 
-// threads: a multiple of 32 up to 1024.
-template <class ValueGrad>
-static int launch_trace_leapfrog_ordered(
-    const ValueGrad& value_grad, const float* table, const float* origin,
+// threads: a multiple of 32 up to 1024; rk4 selects the integrator.
+template <class NeField>
+static int launch_trace_ordered(
+    bool rk4, const NeField& field, const float* table, const float* origin,
     const float* spacing, int nx, int ny, int nz, const float* origins,
     const float* directions, const int* order, int n_rays, int n_steps,
     const TraceConsts& c, int threads, float* x_end, float* tau_out,
@@ -146,9 +284,34 @@ static int launch_trace_leapfrog_ordered(
   if (threads < 32 || threads > 1024 || threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
   const int blocks = (n_rays + threads - 1) / threads;
-  trace_leapfrog_ordered_kernel<ValueGrad><<<blocks, threads, 0,
-                                             (cudaStream_t)stream>>>(
-      value_grad, table, origin, spacing, nx, ny, nz, origins, directions,
-      order, n_rays, n_steps, c, x_end, tau_out, path);
+  auto kernel = rk4 ? trace_ordered_kernel<true, NeField>
+                    : trace_ordered_kernel<false, NeField>;
+  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      field, table, origin, spacing, nx, ny, nz, origins, directions, order,
+      n_rays, n_steps, c, x_end, tau_out, path);
   return (int)cudaGetLastError();
+}
+
+// The entry of a log-density tracer (K1, K1c, K1z, K1q and their rk4, K1r):
+// packed, the model's z-tap pack of `table`, which the tracer reads in its
+// place (Packed's evaluator), or null (Plain's); order: (n_rays,) ray of
+// each thread, or null; threads: the block size; path may be null
+// (keep_path=False).
+template <class Plain, class Packed>
+static int trace_log_density(
+    bool rk4, const float* table, const float* packed, const float* origin,
+    const float* spacing, int nx, int ny, int nz, const float* origins,
+    const float* directions, const int* order, int n_rays, int n_steps,
+    float h, float hh12, float w_n, float w_rhs, float k_ne, float tec_unit,
+    int threads, float* x_end, float* tau, float* path, void* stream) {
+  const TraceConsts c{h, hh12, w_n, w_rhs, k_ne, tec_unit};
+  if (packed == nullptr)
+    return launch_trace_ordered(rk4, LogNe<Plain>{Plain{}}, table, origin,
+                                spacing, nx, ny, nz, origins, directions,
+                                order, n_rays, n_steps, c, threads, x_end,
+                                tau, path, stream);
+  return launch_trace_ordered(
+      rk4, LogNe<Packed>{Packed{reinterpret_cast<const float4*>(packed)}},
+      table, origin, spacing, nx, ny, nz, origins, directions, order, n_rays,
+      n_steps, c, threads, x_end, tau, path, stream);
 }

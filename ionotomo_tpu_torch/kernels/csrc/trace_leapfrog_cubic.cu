@@ -9,6 +9,11 @@
 // runs under lax.scan with the package's default field model. The table is
 // the log-density field itself: the cubic model has no prefilter.
 //
+// K1r on cubic (ionotomo_trace_rk4_cubic): the rk4 branch of _trace_impl
+// (:182-202) on the same evaluators, packs, ray order and call as K1c
+// (trace_rays(method="rk4", interp="cubic")), four evaluations a step
+// in one launch where the reference's rk4 scan makes four gathers a step.
+//
 // Bound on the H100: the field gather. Each step evaluates the field once
 // at 16 rows x 4 z taps, plus ~840 flops (~520 of weights and contraction,
 // then exp, sqrt, the divisions and the kick-drift-kick update).
@@ -161,7 +166,7 @@ extern "C" int ionotomo_ray_order_keys(const float* origins,
 // packed: the packed table of `table` (ionotomo_pack_z_taps), which the
 // tracer reads in its place; null: the tracer reads the table with the
 // unpacked evaluator. order: (n_rays,) ray of each thread, or null.
-// threads: the block size (launch_trace_leapfrog_ordered). path may be null
+// threads: the block size (launch_trace_ordered). path may be null
 // (keep_path=False).
 extern "C" int ionotomo_trace_leapfrog_cubic(
     const float* table, const float* packed, const float* origin,
@@ -170,14 +175,23 @@ extern "C" int ionotomo_trace_leapfrog_cubic(
     float h, float hh12, float w_n, float w_rhs, float k_ne, float tec_unit,
     int threads, float* x_end, float* tau, float* path, void* stream) {
   if (nx < 2 || ny < 2 || nz < 2) return (int)cudaErrorInvalidValue;
-  const TraceConsts c{h, hh12, w_n, w_rhs, k_ne, tec_unit};
-  if (packed == nullptr)
-    return launch_trace_leapfrog_ordered(
-        CubicValueGrad{}, table, origin, spacing, nx, ny, nz, origins,
-        directions, order, n_rays, n_steps, c, threads, x_end, tau, path,
-        stream);
-  return launch_trace_leapfrog_ordered(
-      CubicValueGradPacked{reinterpret_cast<const float4*>(packed)}, table,
-      origin, spacing, nx, ny, nz, origins, directions, order, n_rays,
-      n_steps, c, threads, x_end, tau, path, stream);
+  return trace_log_density<CubicValueGrad, CubicValueGradPacked>(
+      false, table, packed, origin, spacing, nx, ny, nz, origins, directions,
+      order, n_rays, n_steps, h, hh12, w_n, w_rhs, k_ne, tec_unit, threads,
+      x_end, tau, path, stream);
+}
+
+// K1r on this model: the rk4 integrator (trace_leapfrog.cuh,
+// trace_rk4_ray) over the same evaluators, arguments as above.
+extern "C" int ionotomo_trace_rk4_cubic(
+    const float* table, const float* packed, const float* origin,
+    const float* spacing, int nx, int ny, int nz, const float* origins,
+    const float* directions, const int* order, int n_rays, int n_steps,
+    float h, float hh12, float w_n, float w_rhs, float k_ne, float tec_unit,
+    int threads, float* x_end, float* tau, float* path, void* stream) {
+  if (nx < 2 || ny < 2 || nz < 2) return (int)cudaErrorInvalidValue;
+  return trace_log_density<CubicValueGrad, CubicValueGradPacked>(
+      true, table, packed, origin, spacing, nx, ny, nz, origins, directions,
+      order, n_rays, n_steps, h, hh12, w_n, w_rhs, k_ne, tec_unit, threads,
+      x_end, tau, path, stream);
 }

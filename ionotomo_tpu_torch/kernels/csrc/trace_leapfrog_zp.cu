@@ -7,6 +7,11 @@
 // interp_rows_with_grad) that trace_rays(method="leapfrog", interp="zp")
 // runs under lax.scan.
 //
+// K1r on zp (ionotomo_trace_rk4_zp): the rk4 branch of _trace_impl
+// (:182-202) on the same evaluators, packs, ray order and call as K1
+// (trace_rays(method="rk4", interp="zp")), four evaluations a step
+// in one launch where the reference's rk4 scan makes four gathers a step.
+//
 // Bound on the H100: the field gather. Each step evaluates the field once:
 // 7 live rows x 3 z-taps x 4 B = 84 B read from 7 scattered rows of the
 // (nx*ny, nz) table, plus ~470 flops (weights, exp, sqrt, two divisions,
@@ -113,7 +118,7 @@ extern "C" int ionotomo_pack_zp_taps(const float* table, int n_rows, int nz,
 // packed: the packed table of `coef` (ionotomo_pack_zp_taps), which the
 // tracer reads in its place; null: the tracer reads the table with the
 // unpacked evaluator. order: (n_rays,) ray of each thread, or null.
-// threads: the block size (launch_trace_leapfrog_ordered). path may be null
+// threads: the block size (launch_trace_ordered). path may be null
 // (keep_path=False).
 extern "C" int ionotomo_trace_leapfrog_zp(
     const float* coef, const float* packed, const float* origin,
@@ -122,13 +127,23 @@ extern "C" int ionotomo_trace_leapfrog_zp(
     float h, float hh12, float w_n, float w_rhs, float k_ne, float tec_unit,
     int threads, float* x_end, float* tau, float* path, void* stream) {
   if (nx < 3 || ny < 3 || nz < 3) return (int)cudaErrorInvalidValue;
-  const TraceConsts c{h, hh12, w_n, w_rhs, k_ne, tec_unit};
-  if (packed == nullptr)
-    return launch_trace_leapfrog_ordered(
-        ZpValueGrad{}, coef, origin, spacing, nx, ny, nz, origins, directions,
-        order, n_rays, n_steps, c, threads, x_end, tau, path, stream);
-  return launch_trace_leapfrog_ordered(
-      ZpValueGradPacked{reinterpret_cast<const float4*>(packed)}, coef,
-      origin, spacing, nx, ny, nz, origins, directions, order, n_rays,
-      n_steps, c, threads, x_end, tau, path, stream);
+  return trace_log_density<ZpValueGrad, ZpValueGradPacked>(
+      false, coef, packed, origin, spacing, nx, ny, nz, origins, directions,
+      order, n_rays, n_steps, h, hh12, w_n, w_rhs, k_ne, tec_unit, threads,
+      x_end, tau, path, stream);
+}
+
+// K1r on this model: the rk4 integrator (trace_leapfrog.cuh,
+// trace_rk4_ray) over the same evaluators, arguments as above.
+extern "C" int ionotomo_trace_rk4_zp(
+    const float* coef, const float* packed, const float* origin,
+    const float* spacing, int nx, int ny, int nz, const float* origins,
+    const float* directions, const int* order, int n_rays, int n_steps,
+    float h, float hh12, float w_n, float w_rhs, float k_ne, float tec_unit,
+    int threads, float* x_end, float* tau, float* path, void* stream) {
+  if (nx < 3 || ny < 3 || nz < 3) return (int)cudaErrorInvalidValue;
+  return trace_log_density<ZpValueGrad, ZpValueGradPacked>(
+      true, coef, packed, origin, spacing, nx, ny, nz, origins, directions,
+      order, n_rays, n_steps, h, hh12, w_n, w_rhs, k_ne, tec_unit, threads,
+      x_end, tau, path, stream);
 }

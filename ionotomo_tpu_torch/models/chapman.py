@@ -11,6 +11,8 @@ reference's ``models/chapman.py:terminator_cos_chi``, which waits for
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -132,46 +134,163 @@ def multi_chapman_field(grid: Grid3D, layers=DEFAULT_LAYERS, cos_chi=None,
                             plasmasphere_scale_km)
 
 
+@dataclasses.dataclass(frozen=True)
+class ChapmanBackground:
+    """A closed-form background field, ``background(points (R, 3) ENU km)
+    -> (n_e (R,) [m⁻³], ∇n_e (R, 3) [m⁻³/km])`` (``background_ne_fn``
+    builds it). It carries its parameters, so that the split-field
+    tracer's kernel K1s can evaluate it on the card (``kernel_params``).
+
+    ``__call__`` takes the gradient by autograd of the analytic profile
+    (the points are independent, so the gradient of the summed profile
+    is the per-point gradient the reference takes with
+    ``jax.value_and_grad`` under ``vmap``): the plain version.
+    ``value_and_grad_analytic`` is the kernel's closed form, written out in
+    its operation order."""
+
+    n_peak: float = 1.0e12
+    h_peak_km: float = 350.0
+    scale_km: float = 80.0
+    cos_chi: float | None = None
+    curved: bool = False
+    earth_radius_km: float = constants.EARTH_RADIUS_KM
+    site_height_km: float = 0.0
+    layers: tuple | None = None
+    plasmasphere_n0: float = 0.0
+    plasmasphere_scale_km: float = 1200.0
+
+    @property
+    def factor(self) -> float:
+        """The solar factor, sqrt(max(cos χ, 0.05)) in f32; 1 without
+        cos χ."""
+        return (1.0 if self.cos_chi is None
+                else float(solar_zenith_factor(self.cos_chi)))
+
+    def _altitude(self, x):
+        """(h, zc, r): the altitude of each point, and on the curved Earth
+        zc = R + h_site + z and r = |(x, y, zc)| (None on the flat one)."""
+        if not self.curved:
+            return x[:, 2], None, None
+        zc = self.earth_radius_km + self.site_height_km + x[:, 2]
+        r = torch.sqrt(x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1] + zc * zc)
+        return r - self.earth_radius_km, zc, r
+
+    def _ne(self, x):
+        h = self._altitude(x)[0]
+        if self.layers is not None:
+            return multi_chapman_ne(h, self.layers, self.cos_chi,
+                                    self.plasmasphere_n0,
+                                    self.plasmasphere_scale_km)
+        return self.factor * chapman_ne(h, self.n_peak, self.h_peak_km,
+                                        self.scale_km)
+
+    def value(self, points):
+        """n_e (R,) [m⁻³] at points (R, 3): ``__call__``'s value, bitwise
+        (the same operations), without its backward pass."""
+        return self._ne(points)
+
+    def __call__(self, points):
+        with torch.enable_grad():
+            x = points.detach().requires_grad_(True)
+            ne = self._ne(x)
+            (grad,) = torch.autograd.grad(ne.sum(), x)
+        return ne.detach(), grad
+
+    def _layer_rows(self):
+        """(n_peak, h_peak, scale, sensitivity) of each layer: the one
+        Chapman layer (sensitivity 1: it takes the solar factor as it is)
+        or the stack."""
+        if self.layers is None:
+            return ((self.n_peak, self.h_peak_km, self.scale_km, 1.0),)
+        return tuple(tuple(map(float, row[1:])) for row in self.layers)
+
+    def _plasmasphere(self):
+        """(n0, scale, h_top): the tail of a layer stack (n0 0: none)."""
+        if self.layers is None:
+            return 0.0, self.plasmasphere_scale_km, 0.0
+        h_top = max([0.0] + [float(row[2]) for row in self.layers])
+        return (float(self.plasmasphere_n0), self.plasmasphere_scale_km,
+                h_top)
+
+    def kernel_params(self, device) -> dict:
+        """What K1s reads (``kernels.trace_split``): ``layers`` (L, 4) f32
+        on ``device``, the solar factor, the curved-Earth flag and zc0 = R
+        + h_site, R, and the plasmasphere's n0, scale and h_top."""
+        n0, scale, h_top = self._plasmasphere()
+        return dict(
+            layers=torch.tensor(self._layer_rows(), dtype=torch.float32,
+                                device=device),
+            factor=self.factor, curved=bool(self.curved),
+            zc0=float(np.float32(self.earth_radius_km
+                                 + self.site_height_km)),
+            r_earth=float(self.earth_radius_km), ps_n0=n0, ps_scale=scale,
+            h_top=h_top)
+
+    def value_and_grad_analytic(self, points):
+        """The background and its gradient in K1s's closed form and
+        operation order (csrc/trace_split.cu, ChapmanBackground): per
+        layer m·n_peak·exp(½(1 − z − e^{−z})) with dn_e/dh = n_e·½(e^{−z} −
+        1)/H, m = factor^sens, summed from 0; the plasmasphere tail times
+        its sigmoid; ∇h = (x, y, zc)/r on the curved Earth, ẑ on the
+        flat one."""
+        x = points.to(torch.float32)
+        if self.curved:     # zc0 rounded to f32 first, as K1s takes it
+            zc0 = self.kernel_params("cpu")["zc0"]
+            zc = torch.tensor(zc0, dtype=torch.float32).to(x.device) + x[:, 2]
+            r = torch.sqrt(x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1] + zc * zc)
+            h = r - self.earth_radius_km
+        else:
+            h, r = x[:, 2], None
+        total = torch.zeros_like(h)
+        dtotal = torch.zeros_like(h)
+        factor = torch.tensor(self.factor, dtype=torch.float32)
+        for n_peak, h_peak, scale, sens in self._layer_rows():
+            mult = factor if sens == 1.0 else factor ** sens
+            z = (h - h_peak) / scale
+            e = torch.exp(-z)
+            nl = mult.to(h.device) * (n_peak * torch.exp(0.5 * (1.0 - z - e)))
+            total = total + nl
+            dtotal = dtotal + nl * 0.5 * (e - 1.0) / scale
+        n0, ps_scale, h_top = self._plasmasphere()
+        if n0 != 0.0:
+            dh = h - h_top
+            tail = n0 * torch.exp(-torch.clamp_min(dh, 0.0) / ps_scale)
+            s = 1.0 / (1.0 + torch.exp(-(dh / 60.0)))
+            total = total + tail * s
+            dtail = torch.where(dh > 0.0, -tail / ps_scale, 0.0)
+            dtotal = dtotal + (dtail * s + tail * (s * (1.0 - s)) / 60.0)
+        if r is None:
+            zero = torch.zeros_like(h)
+            grad = torch.stack([zero, zero, dtotal], dim=-1)
+        else:
+            grad = torch.stack([dtotal * (x[:, 0] / r),
+                                dtotal * (x[:, 1] / r),
+                                dtotal * (zc / r)], dim=-1)
+        return total, grad
+
+
 def background_ne_fn(n_peak=1.0e12, h_peak_km=350.0, scale_km=80.0,
                      cos_chi=None, curved=False, earth_radius_km=None,
                      site_height_km=0.0, layers=None,
                      plasmasphere_n0=0.0, plasmasphere_scale_km=1200.0):
-    """Closed-form background field evaluator: ``fn(points (R, 3) ENU km)
-    -> (n_e (R,) [m⁻³], ∇n_e (R, 3) [m⁻³/km])``, the gradient by autograd
-    of the analytic profile (the points are independent, so the gradient
-    of the summed profile is the per-point gradient the reference takes
-    with ``jax.value_and_grad`` under ``vmap``). Single Chapman layer by
-    default, a multi-Chapman stack with ``layers``, scalar solar-zenith
-    modulation, and the curved-Earth altitude model. Per-column cos_chi
-    maps are grid products and are refused."""
+    """Closed-form background field evaluator, a ``ChapmanBackground``:
+    ``fn(points (R, 3) ENU km) -> (n_e (R,) [m⁻³], ∇n_e (R, 3)
+    [m⁻³/km])``, the gradient by autograd of the analytic profile. Single
+    Chapman layer by default, a multi-Chapman stack with ``layers``,
+    scalar solar-zenith modulation, and the curved-Earth altitude model.
+    Per-column cos_chi maps are grid products and are refused."""
     if cos_chi is not None and torch.as_tensor(cos_chi).dim() != 0:
         raise ValueError("background_ne_fn needs scalar cos_chi; "
                          "per-column terminator maps are grid products")
-    cc = None if cos_chi is None else float(cos_chi)
-    factor = 1.0 if cc is None else float(solar_zenith_factor(cc))
-    r_earth = (constants.EARTH_RADIUS_KM if earth_radius_km is None
-               else float(earth_radius_km))
-
-    def ne_of(x):
-        if curved:
-            zc = r_earth + site_height_km + x[:, 2]
-            h = torch.sqrt(x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1]
-                           + zc * zc) - r_earth
-        else:
-            h = x[:, 2]
-        if layers is not None:
-            return multi_chapman_ne(h, layers, cc, plasmasphere_n0,
-                                    plasmasphere_scale_km)
-        return factor * chapman_ne(h, n_peak, h_peak_km, scale_km)
-
-    def fn(points):
-        with torch.enable_grad():
-            x = points.detach().requires_grad_(True)
-            ne = ne_of(x)
-            (grad,) = torch.autograd.grad(ne.sum(), x)
-        return ne.detach(), grad
-
-    return fn
+    return ChapmanBackground(
+        n_peak=n_peak, h_peak_km=h_peak_km, scale_km=scale_km,
+        cos_chi=None if cos_chi is None else float(cos_chi), curved=curved,
+        earth_radius_km=(constants.EARTH_RADIUS_KM if earth_radius_km is None
+                         else float(earth_radius_km)),
+        site_height_km=site_height_km,
+        layers=None if layers is None else tuple(map(tuple, layers)),
+        plasmasphere_n0=plasmasphere_n0,
+        plasmasphere_scale_km=plasmasphere_scale_km)
 
 
 #: Vacuum floor of the log-parametrization m = log(n_e/K_NE) ≈ -85.2

@@ -180,14 +180,16 @@ def test_trace_leapfrog_zp_matches_plain(dev, keep_path):
 
 
 def test_trace_rk4_runs_k1e_and_matches_plain(dev):
-    """rk4 on CUDA runs the integrator loop with K1e as the field
-    evaluator (4 launches per step)."""
+    """rk4 on CUDA on zp is one launch of K1r, which evaluates the field
+    in the kernel: K1e, the evaluator the per-stage loop launched 4 times
+    a step, launches no more."""
     grid, m = _world(dev)
     o, d = _rays(dev, 200)
     kw = dict(n_steps=16, keep_path=True, method="rk4", interp="zp")
-    before = kernels.launches["zp_value_grad"]
+    before = dict(kernels.launches)
     b, t = fermat.trace_rays(m, grid, o, d, 150e6, 1000.0, **kw)
-    assert kernels.launches["zp_value_grad"] == before + 1 + 4 * 16
+    assert kernels.launches["zp_value_grad"] == before["zp_value_grad"]
+    assert kernels.launches["trace_rk4_zp"] == before["trace_rk4_zp"] + 1
     br, tr = fermat.trace_rays_ref(m, grid, o, d, 150e6, 1000.0, **kw)
     assert float((b.points - br.points).abs().max()) <= 1e-3
     assert float(((t - tr).abs() / tr.abs()).max()) <= 1e-5
@@ -789,14 +791,17 @@ def test_trace_cubic_over_dense_clip_matches_plain(dev):
 
 
 def test_trace_rk4_cubic_runs_k5(dev):
-    """rk4 on cubic runs the integrator loop with K5 as the field
-    evaluator (4 launches per step and one for p0)."""
+    """rk4 on cubic is one launch of K1r, K5's evaluator inside the
+    kernel: K5, which the per-stage loop launched 4 times a step and once
+    for p0, launches no more."""
     grid, m = _world(dev)
     o, d = _rays(dev, 200)
     kw = dict(n_steps=16, keep_path=True, method="rk4", interp="cubic")
-    before = kernels.launches["cubic_value_grad"]
+    before = dict(kernels.launches)
     b, t = fermat.trace_rays(m, grid, o, d, 150e6, 1000.0, **kw)
-    assert kernels.launches["cubic_value_grad"] == before + 1 + 4 * 16
+    assert kernels.launches["cubic_value_grad"] == before["cubic_value_grad"]
+    assert (kernels.launches["trace_rk4_cubic"]
+            == before["trace_rk4_cubic"] + 1)
     br, tr = fermat.trace_rays_ref(m, grid, o, d, 150e6, 1000.0, **kw)
     assert float((b.points - br.points).abs().max()) <= 1e-3
     assert float(((t - tr).abs() / tr.abs()).max()) <= 1e-5
@@ -995,19 +1000,160 @@ def test_trace_leapfrog_k1z_k1q_packed_and_ordered_is_unpacked(
 
 @pytest.mark.parametrize("interp", ["zpc2", "quadratic"])
 def test_trace_rk4_runs_k6(dev, interp):
-    """rk4 on zpc and quadratic runs the integrator loop with K6z or K6q
-    as the field evaluator (4 launches a step and one for p0), within the
-    plain tracer's tolerances."""
+    """rk4 on zpc and quadratic is one launch of K1r over K6z's or K6q's
+    evaluator (the per-stage loop launched K6z or K6q 4 times a step and
+    once for p0; now neither), within the plain tracer's tolerances."""
     grid, m = _world(dev)
     o, d = _rays(dev, 200)
     name = "zpc_value_grad" if interp == "zpc2" else "quad_value_grad"
+    tracer = "trace_rk4_zpc" if interp == "zpc2" else "trace_rk4_quad"
     kw = dict(n_steps=16, keep_path=True, method="rk4", interp=interp)
-    before = kernels.launches[name]
+    before = dict(kernels.launches)
     b, t = fermat.trace_rays(m, grid, o, d, 150e6, 1000.0, **kw)
-    assert kernels.launches[name] == before + 1 + 4 * 16
+    assert kernels.launches[name] == before[name]
+    assert kernels.launches[tracer] == before[tracer] + 1
     br, tr = fermat.trace_rays_ref(m, grid, o, d, 150e6, 1000.0, **kw)
     assert float((b.points - br.points).abs().max()) <= 1e-3
     assert float(((t - tr).abs() / tr.abs()).max()) <= 1e-5
+
+
+RK4 = {"zp": ("trace_rk4_zp", "pack_zp_taps", "zp"),
+       "cubic": ("trace_rk4_cubic", "pack_z_taps", "cubic"),
+       "zpc": ("trace_rk4_zpc", "pack_z_taps", "zp"),
+       "quadratic": ("trace_rk4_quad", "pack_zp_taps", "zp")}
+
+
+def _sorted_batch(dev, policy):
+    """Rays a batch needs to be sorted and packed by a K1 call ("zp") or
+    by K1c's ("cubic"), and 300 more: a ragged batch."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = (kernels.TRACE_ZP_RAYS_PER_SM if policy == "zp"
+              else kernels.TRACE_CUBIC_RAYS_PER_SM)
+    return per_sm * sms + 300
+
+
+@pytest.mark.parametrize("n_rays", ["small", "sorted"])
+@pytest.mark.parametrize("keep_path", [True, False])
+@pytest.mark.parametrize("interp", sorted(RK4))
+def test_trace_rk4_packed_and_ordered_is_unpacked(dev, interp, keep_path,
+                                                  n_rays):
+    """K1r on each model as ``trace_rays(method="rk4")`` calls it (700
+    rays as they are; a ragged batch past the model's threshold sorted and
+    over the packed table), one launch and no evaluator kernel, bitwise
+    the unpacked evaluator in ray order, also under a random order and
+    other block sizes; within the plain tracer's tolerances (1e-3 km,
+    1e-5 relative TEC)."""
+    name, pack, policy = RK4[interp]
+    grid, m = _world(dev)
+    n = 700 if n_rays == "small" else _sorted_batch(dev, policy)
+    o, d = _rays(dev, n)
+    from ionotomo_tpu_torch.core.field_models import field_model
+    table = field_model(interp).table(m, grid).contiguous()
+    with_ = getattr(kernels, name + "_with")
+    kw = fermat._step_constants(150e6, 1000.0, 24)
+    want = with_(table, grid, o, d, 24, keep_path, packed=None, order=None,
+                 threads=128, **kw)
+    before = dict(kernels.launches)
+    got = fermat.trace_rays(m, grid, o, d, 150e6, 1000.0, n_steps=24,
+                            keep_path=keep_path, method="rk4", interp=interp)
+    sorted_ = int(n_rays == "sorted")
+    packs = 1 if policy == "cubic" else sorted_
+    for key, k in ((name, 1), (pack, packs), ("ray_order_keys", sorted_),
+                   ("zp_value_grad", 0), ("cubic_value_grad", 0),
+                   ("zpc_value_grad", 0), ("quad_value_grad", 0)):
+        assert kernels.launches[key] == before[key] + k, key
+    packed = getattr(kernels, pack)(table, grid)
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(3)
+                          ).to(torch.int32).to(dev)
+    others = [with_(table, grid, o, d, 24, keep_path, packed=pk, order=order,
+                    threads=threads, **kw)
+              for pk, order, threads in ((packed, perm, 64),
+                                         (None, perm, 256),
+                                         (packed, None, 32))]
+    for out in others:
+        for a, b in zip(out, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].points[:, -1], want[0])
+    br, tr = fermat.trace_rays_ref(m, grid, o, d, 150e6, 1000.0, n_steps=24,
+                                   keep_path=keep_path, method="rk4",
+                                   interp=interp)
+    assert got[0].points.shape == br.points.shape
+    assert float((got[0].points - br.points).abs().max()) <= 1e-3
+    assert float(((got[1] - tr).abs() / tr.abs()).max()) <= 1e-5
+
+
+SPLIT = {"single": {},
+         "layers_curved": dict(layers=chapman.DEFAULT_LAYERS, curved=True,
+                               cos_chi=0.6, plasmasphere_n0=1e10)}
+
+
+@pytest.mark.parametrize("n_rays", ["small", "sorted"])
+@pytest.mark.parametrize("method", ["leapfrog", "rk4"])
+@pytest.mark.parametrize("case", sorted(SPLIT))
+def test_trace_split_matches_plain(dev, case, method, n_rays):
+    """K1s (leapfrog and rk4; a single layer, and three layers on the
+    curved Earth with the solar factor and the plasmasphere) as
+    ``trace_rays_split`` calls it: one launch, its pack, the sort for a
+    batch past K1c's threshold; bitwise the unpacked evaluator in ray
+    order; against ``trace_rays_split_ref`` within 1e-3 km on the path
+    and 1e-5 relative on the TEC."""
+    grid, m = _world(dev)
+    n = 700 if n_rays == "small" else _sorted_batch(dev, "cubic")
+    o, d = _rays(dev, n)
+    bg = chapman.background_ne_fn(**SPLIT[case])
+    keep_path = n_rays == "small"
+    args = (m, grid, o, d, 150e6, bg, 1000.0)
+    kw = dict(n_steps=24, keep_path=keep_path, method=method)
+    before = dict(kernels.launches)
+    b, t = fermat.trace_rays_split(*args, **kw)
+    sorted_ = int(n_rays == "sorted")
+    for key, k in (("trace_split", 1), ("pack_z_taps", 1),
+                   ("ray_order_keys", sorted_), ("cubic_value_grad", 0)):
+        assert kernels.launches[key] == before[key] + k, key
+    pert = fermat.split_perturbation(m, grid, bg).contiguous()
+    c = fermat._step_constants(150e6, 1000.0, 24)
+    want = kernels.trace_split_with(
+        pert, grid, o, d, 24, keep_path, packed=None, order=None,
+        threads=128, rk4=method == "rk4", background=bg.kernel_params(dev),
+        **c)
+    assert torch.equal(t, want[1])
+    assert torch.equal(b.points[:, -1], want[0])
+    br, tr = fermat.trace_rays_split_ref(*args, **kw)
+    assert b.points.shape == br.points.shape
+    assert float((b.points - br.points).abs().max()) <= 1e-3
+    assert float(((t - tr).abs() / tr.abs()).max()) <= 1e-5
+
+
+def test_trace_rays_stochastic_is_a_loop_of_the_kernel(dev):
+    """The beam's n_paths × R rays in one call of K1 are bitwise the
+    per-path traces of the same kernel, whatever the order the call sorts
+    them in (8 paths of R rays, R such that the flattened batch is past
+    K1's threshold, sorted and packed, and each path below it)."""
+    grid, m = _world(dev)
+    r = _sorted_batch(dev, "zp") // 8 + 1
+    o, d = _rays(dev, r, seed=4)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    eps = torch.randn((7, r, 2), generator=gen, device=dev)
+    kw = dict(n_steps=32, method="leapfrog", interp="zp")
+    before = dict(kernels.launches)
+    mu, sd, end = fermat.trace_rays_stochastic(m, grid, o, d, 150e6, eps,
+                                               n_paths=8, **kw)
+    for key in ("trace_leapfrog_zp", "pack_zp_taps", "ray_order_keys"):
+        assert kernels.launches[key] == before[key] + 1, key
+    d_all = fermat.beam_directions(d, eps, 8, (299792.458 / 150e6
+                                               / 1000.0) ** 0.5)
+    tec, ends = [], []
+    for p in range(8):
+        b, t = fermat.trace_rays(m, grid, o, d_all[p], 150e6, 1000.0,
+                                 keep_path=False, **kw)
+        tec.append(t)
+        ends.append(b.points[:, -1])
+    tec, ends = torch.stack(tec), torch.stack(ends)
+    assert torch.equal(mu, tec.mean(0))
+    assert torch.equal(sd, tec.std(0, correction=0))
+    assert torch.equal(end, torch.sqrt(((ends - ends.mean(0)[None]) ** 2)
+                                       .sum(-1).mean(0)))
 
 
 def test_zpc_operator_and_inner_solve_on_card(dev):

@@ -165,7 +165,7 @@ def test_cuda_leapfrog_runs_the_models_own_kernel(interp, monkeypatch):
     for name in names:
         monkeypatch.setattr(kernels, name,
                             lambda *a, _n=name, **k: called.append(_n))
-    tfermat._leapfrog_kernel(field_model(interp))()
+    tfermat._tracer_kernel(field_model(interp), "leapfrog")()
     want = {"zp": "trace_leapfrog_zp", "cubic": "trace_leapfrog_cubic",
             "zpc3": "trace_leapfrog_zpc", "quadratic": "trace_leapfrog_quad"}
     assert called == [want[interp]]
