@@ -14,12 +14,13 @@ frozen-flow Kalman filter and the ensemble filter), on one NVIDIA GPU.
                                        # step (torch.profiler)
     python3 chip_smoke.py --parent DIR # also: hold the kernels to those of
                                        # the checkout at DIR (the commit
-                                       # before K1r and K1s were added;
-                                       # any other sources are refused):
-                                       # every kernel bitwise at the
-                                       # phases' shapes and timed in
-                                       # turns; config 4's solve, config
-                                       # 5's first chunk and the ensemble
+                                       # before K6zT and K1r were
+                                       # redesigned; any other sources are
+                                       # refused): every kernel bitwise at
+                                       # the phases' shapes and timed in
+                                       # turns; config 4's solves (all
+                                       # cubic and zpc2 inner), config 5's
+                                       # first chunk and the ensemble
                                        # filter bitwise on the parent's
                                        # kernels
     python3 chip_smoke.py --gather-study
@@ -53,6 +54,18 @@ frozen-flow Kalman filter and the ensemble filter), on one NVIDIA GPU.
     python3 chip_smoke.py --k5t-study  # only: K5ᵀ's register budget at
                                        # config 4's endpoints and phase 8's
                                        # shapes (a library built for each)
+    python3 chip_smoke.py --k6zt-study # only: what binds K6zT at config
+                                       # 4's endpoints and the edge-case
+                                       # points (the plan's shape, the
+                                       # first design, a task a segment,
+                                       # the task list, beside
+                                       # index_add_; a library each)
+    python3 chip_smoke.py --rk4-study  # only: what binds K1r on the four
+                                       # models at the bench's batch (how
+                                       # often rk4's stages share a cell;
+                                       # block size, register budget: a
+                                       # library each) and K1s's rk4
+                                       # under each build
     python3 chip_smoke.py --member-study
                                        # only: K2b's and K3b's calls by
                                        # kernel at config 5's bundles and
@@ -244,10 +257,12 @@ analytic world drifting with the wind, 1 % noise), and on it:
    per-stage route it replaces (``_trace_impl`` over ``field_evaluator``,
    with ``--parent`` on the parent's kernels) and with the plain tracer
    on 8192 rays, path on and off (1e-3 km, 1e-5 relative TEC), is
-   bitwise the unpacked kernel in ray order, and is timed (the call by
-   kernel, the plain version, the bound at 4 evaluations a step, and the
-   per-stage route against K1r in turns on the host clock, with the
-   route's launches and device time). The split tracer K1s at
+   bitwise the unpacked kernel in ray order, path on and off, and is
+   timed (the call by kernel, the plain version, the bound at 4
+   evaluations a step, and the per-stage route against K1r in turns on
+   the host clock, with the route's launches and device time; with
+   ``--parent`` bitwise the parent's K1r and timed in turns with its own
+   call, 64 rays a block on zp, zpc and quadratic). The split tracer K1s at
    leapfrog@32 and rk4@64 with a single-layer background: launched once
    with its pack and sort, bitwise the unpacked kernel, timed beside the
    full-field cubic call; single-layer and 3 layers + curved Earth +
@@ -261,7 +276,8 @@ analytic world drifting with the wind, 1 % noise), and on it:
 With ``--parent``, KG at both of phase 7's shapes and the permute at
 phases 6 and 10 are bitwise the parent's and timed in turns with it, as
 are K1e at every shape above, K5 at phases 8 and 10, the batched K1e,
-and K1z and K1q at phases 2 and 3.
+K1z and K1q at phases 2 and 3, K6zT at phase 2's points and config 4's
+endpoints, and K1r and K1s at phase 14.
 
 The last lines are a JSON object of per-kernel results (each kernel's
 bound: the larger of the bytes it must move over 3.35 TB/s and its f32
@@ -269,6 +285,7 @@ operations over 67 TFLOP/s, from this run's inputs), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits non-zero at once, before any build.
 """
+import ctypes
 import hashlib
 import json
 import subprocess
@@ -497,6 +514,31 @@ def plan_stats(plan):
             "busiest_segment": min(plan.chunk, busiest_row),
             "busiest_row": busiest_row,
             "empty_rows": int((counts == 0).sum())}
+
+
+def k6zt_plan_shape(plan):
+    """What K6zᵀ's warps take at a plan (host reads, outside any timing):
+    occupied rows, used segments, the longest row in pairs, the rows of
+    several segments (a ticket and a fold each), and the task list: tasks
+    of whole short rows with their pairs a task, and segments of long
+    rows."""
+    counts = torch.diff(plan.offsets)
+    nseg = torch.diff(plan.row_seg)
+    tasks = plan.tasks[:int(plan.n_tasks)]
+    groups = tasks[:, 0] < 0
+    pairs = (tasks[:, 2] - tasks[:, 1])[groups].float()
+    spans = ((tasks[:, 3] >> 16) - (tasks[:, 3] & 0xFFFF) + 1)[~groups]
+    return {"occupied_rows": int((counts > 0).sum()),
+            "segments": int(plan.row_seg[-1]),
+            "longest_row": int(counts.max()),
+            "rows_to_fold": int((nseg > 1).sum()),
+            "tasks": int(plan.n_tasks),
+            "short_row_tasks": int(groups.sum()),
+            "pairs_a_short_row_task": float(pairs.mean()) if len(pairs)
+            else 0.0,
+            "long_row_tasks": int((~groups).sum()),
+            "long_row_span_mean": float(spans.float().mean()) if len(spans)
+            else 0.0}
 
 
 def k3_bound(ct, ri, wxy, zi, wz, plan, nz):
@@ -729,20 +771,33 @@ def index_add_call(flat, contrib, size):
 
 class Parent:
     """The kernels of the checkout at ``root`` (``--parent DIR``), the
-    commit before K1r and K1s were added, built from
-    its sources with this checkout's nvcc flags. ``run(fn)`` calls fn with
-    every kernel the parent's: each entry through this checkout's wrapper
-    on the parent's library (no C interface changed). The parent's library
-    lacks the entries in ``NEW``, which it is opened without; the kernels
-    behind them have no parent.
+    commit before K6zᵀ and K1r were redesigned, built from its sources with
+    this checkout's nvcc flags. ``run(fn)`` calls fn with every kernel the
+    parent's: each entry through this checkout's wrapper on the parent's
+    library, except K6zᵀ, whose C interface this checkout changed (it
+    takes the plan's task list): its former entry is bound with its former
+    signature (``K6ZT``) and ``kernels.zpc_value_grad_bwd`` calls it as the
+    parent's wrapper did. The parent's library lacks the entries in
+    ``NEW``, which it is opened without; the kernels behind them have no
+    parent.
 
     ctypes cannot check a C interface, so the parent's sources are
     declared by their SHA-256, and any other checkout is refused rather
     than handed arguments it does not take."""
 
-    NEW = ("ionotomo_trace_rk4_zp", "ionotomo_trace_rk4_cubic",
-           "ionotomo_trace_rk4_zpc", "ionotomo_trace_rk4_quad",
-           "ionotomo_trace_split")
+    NEW = ()
+
+    # the parent's K1r call: 64 rays a block at a sorted batch on zp, zpc
+    # and quadratic (K1's), 256 on cubic (K1c's)
+    RK4_THREADS = {"zp": 64, "cubic": 256, "zpc": 64, "quadratic": 64}
+
+    # the parent's ionotomo_zpc_value_grad_bwd: the plan without its tasks
+    K6ZT = ("ionotomo_zpc_value_grad_bwd", (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int,
+                                                 ctypes.c_void_p,
+                                                 ctypes.c_void_p,
+                                                 ctypes.c_void_p]))
 
     SOURCES = {
         "cubic_value_grad.cu":
@@ -760,13 +815,15 @@ class Parent:
         "rows_value_fwd_batched.cu":
             "33b0b3474550fda8a1440c6ad76f61290a168eeaf73dfd0074e71c7df6c48c3b",
         "trace_leapfrog_cubic.cu":
-            "8b2253a0dbd13030464fac466cbeba30c8954f061a6ec84282891ddc089c45c3",
+            "3cb992ffd7bf3a7b0502518ff1fbf4fbcbb9cfb77f9500903e8f9643a49c2061",
         "trace_leapfrog_quad.cu":
-            "8c1450f935a71134dae14939fbd22d056e141e5cffa017ba2e1e025dd378b0f6",
+            "c4f9d2806c03a10eb52832fc6b6451195dc85f9c0142a000fdbdb355e08eacd9",
         "trace_leapfrog_zp.cu":
-            "14fd0ee9d2a9c1df8e7cbca6a55126f9eefa3fee1805f24971abc052b847f699",
+            "69cb38c6066953742acec246416585473b24a8de31f498924dc8fcf6127b861e",
         "trace_leapfrog_zpc.cu":
-            "a4d6a5cd98322e3c80d6bb72b18cda976f6234f3ddf6c5ebca365f89ba8c045c",
+            "0bc81f7fcf095d28cb9499172da39b4f6add1eb5dd35452050e3d5966f8f2481",
+        "trace_split.cu":
+            "7c9fca2c79c68f99f9c74d981a6918633d850419d80bdcf3e5afcb1de55da8bc",
         "vector_gather.cu":
             "e0d19a2da2d4ccef5782631ae780053fa77062ae0c19c1e7935b9ff7ee882216",
         "zp_value_grad.cu":
@@ -792,20 +849,35 @@ class Parent:
                 f"{sorted(set(got.items()) ^ set(self.SOURCES.items()))})")
         info = build.build(csrc, build.BUILD_DIR / "parent")
         self.build = build
+        name, (restype, argtypes) = self.K6ZT
         self.lib = build.open_library(
-            info["path"], [n for n in build._SIGNATURES if n not in self.NEW])
+            info["path"], [n for n in build._SIGNATURES
+                           if n not in self.NEW and n != name])
+        fn = getattr(self.lib, name)
+        fn.restype, fn.argtypes = restype, argtypes
         print(f"  parent kernels from {csrc} (built={info['built']} in "
               f"{info['seconds']:.2f} s)")
+
+    @staticmethod
+    def k6zt(table, grid, points, ct_value, ct_grad, plan):
+        """The parent's K6zᵀ wrapper: the plan of occupied rows without
+        its task list, one warp a used segment."""
+        from ionotomo_tpu_torch import kernels
+        return kernels._adding_bwd("zpc_value_grad_bwd", 3, 7, 8, table,
+                                   grid, points, ct_value, ct_grad, plan)
 
     def run(self, fn):
         """fn() with the parent's kernels behind this checkout's
         wrappers."""
-        saved = self.build.load()
+        from ionotomo_tpu_torch import kernels
+        saved, k6zt = self.build.load(), kernels.zpc_value_grad_bwd
         self.build._loaded["lib"] = self.lib
+        kernels.zpc_value_grad_bwd = self.k6zt
         try:
             return fn()
         finally:
             self.build._loaded["lib"] = saved
+            kernels.zpc_value_grad_bwd = k6zt
 
 
 def _outputs(x):
@@ -1350,7 +1422,7 @@ def phase2_new_models(dev, tricubic, zpcubic, triquadratic, fermat,
                     grid, pts, cv, cg),
                 zpcubic.value_grad_transpose_terms(grid, pts, cv, cg),
                 k6zt_bound(zpcubic, grid, pts, cv, cg, plan), base, plan,
-                reps=5)
+                parent, reps=5)
         del field, pts, cv, cg, plan, base
         torch.cuda.empty_cache()
 
@@ -1716,6 +1788,8 @@ def print_plan(name, plan):
           f"busiest segment {st['busiest_segment']} pairs, busiest row "
           f"{st['busiest_row']}, empty rows {st['empty_rows']} of "
           f"{plan.n_rows}")
+    if plan.tasks is not None:
+        print(f"  {name} task list: {k6zt_plan_shape(plan)}")
 
 
 def phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
@@ -2525,7 +2599,7 @@ def kernel_launches(fn) -> dict:
 
 
 def config4_zpc2(dev, w, configs, tricubic, zpcubic, tec, kernels,
-                 plain_full, results, profile=False):
+                 plain_full, results, profile=False, parent=None):
     """Config 4 with the zpc2 inner Jacobian (``interp="cubic",
     interp_inner="zpc2"``, the reference's mixed-fidelity 256³ route):
     K2 at zpc's (8, 4) shape over each bundle's point order, bitwise the
@@ -2535,7 +2609,9 @@ def config4_zpc2(dev, w, configs, tricubic, zpcubic, tec, kernels,
     bitwise equal (the card's version of the reference's zpc determinism
     gate, bench/probe_zp256.py), its kernels launched, within 1 % of the
     plain-version solve in residual and held-out dTEC rms, and below the
-    prior on held-out rays. Returns the K2 lines by shape."""
+    prior on held-out rays. With a parent: K6zᵀ bitwise the parent's and
+    timed in turns with it, and the solve bitwise the solve on the
+    parent's kernels. Returns the K2 lines by shape."""
     grid, nd = w.grid, w.n_dirs
     n_rows, nz = grid.shape[0] * grid.shape[1], grid.shape[2]
     print("phase 10 (zpc2 inner Jacobian): config 4 with "
@@ -2591,7 +2667,8 @@ def config4_zpc2(dev, w, configs, tricubic, zpcubic, tec, kernels,
                                                             cg),
         zpcubic.value_grad_transpose_terms(grid, ends, cv, cg),
         k6zt_bound(zpcubic, grid, ends, cv, cg, eplan), k3_table, eplan,
-        reps=50, plain_reps=5)}
+        parent, reps=50, plain_reps=5)}
+    results["zpc_value_grad_bwd"]["plan"] = k6zt_plan_shape(eplan)
     y = torch.from_numpy(rng.normal(size=(w.rays.num_rays,))
                          .astype(np.float32)).to(dev)
     jt = kernel_launches(lambda: op.apply_t(y))
@@ -2626,6 +2703,12 @@ def config4_zpc2(dev, w, configs, tricubic, zpcubic, tec, kernels,
     check(bool(torch.equal(za.m, zb.m)),
           "the config-4 zpc2-inner solve is bitwise equal across two runs")
     del zb
+    if parent is not None:
+        zp_, secs_pp = parent.run(lambda: solve(w))
+        check(bool(torch.equal(zp_.m, za.m)),
+              f"the config-4 zpc2-inner solve bitwise the solve on the "
+              f"parent's kernels ({secs_pp:.4f} s)")
+        del zp_
     h_a, h_0 = heldout(za.m), heldout(w.m_prior)
     if plain_full:
         wp, plain_kw, what, res_k = w, {}, "the same schedule", za
@@ -2879,7 +2962,8 @@ def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
         del res_p
     from ionotomo_tpu_torch.core import zpcubic
     at_config4.update(config4_zpc2(dev, w, configs, tricubic, zpcubic, tec,
-                                   kernels, plain_full, results, profile))
+                                   kernels, plain_full, results, profile,
+                                   parent))
     if plain_full:
         plain_kw, what = {}, "the same schedule"
         res_k = res1
@@ -3633,13 +3717,23 @@ def phase14_tracers(dev, fermat, rays, kernels, Grid3D, chapman, results,
                                              interp=interp), oc)
         lap(f"K1r on {interp}: {n_check} rays")
         check_trace_bitwise(f"phase 14, {n_rays} rays", kernels, name,
-                            table, grid, o, d, kw, N_STEPS, paths=(False,))
+                            table, grid, o, d, kw, N_STEPS, parent=parent)
         tracer = getattr(kernels, name)
 
         def call():
             return tracer(table, grid, o, d, N_STEPS, False, **kw)
 
         ms = device_ms(call, 3)
+        def parent_call():       # the parent's call: its pack, sort, block
+            return getattr(kernels, name + "_with")(
+                table, grid, o, d, N_STEPS, False,
+                packed=getattr(kernels, pack)(table, grid),
+                order=kernels.ray_order(o, d, grid),
+                threads=Parent.RK4_THREADS[interp], **kw)
+
+        turns_k1r = compare_parent(
+            f"{name} at {n_rays} rays", lambda: parent.run(parent_call),
+            call, 3, pairs=3) if parent is not None else None
         by_name = kernel_ms_by_name(call, 3)
         b_ms, b_by = trace_bound(mods[mod], live, tracer, 4 * fstep, table,
                                  grid, o, d, N_STEPS, False, kw)
@@ -3678,6 +3772,9 @@ def phase14_tracers(dev, fermat, rays, kernels, Grid3D, chapman, results,
             max_abs_err=max(e[0] for e in errs), ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=None),
             "tau_rel": max(e[1] for e in errs)}
+        if turns_k1r is not None:
+            results[name]["line"]["parent_ms"], \
+                results[name]["line"]["new_ms_in_turns"] = turns_k1r
         if interp == "quadratic":
             # K6q on the main path: none since K1r; the route's count apart
             results["quad_value_grad"]["launches"] = \
@@ -3712,6 +3809,12 @@ def phase14_tracers(dev, fermat, rays, kernels, Grid3D, chapman, results,
         want = kernels.trace_split_with(
             pert, grid, o, d, steps, False, packed=None, order=None,
             threads=128, rk4=is_rk4, background=params, **c)
+        for kp in (False, True):
+            parent_bitwise(parent, f"K1s {method}@{steps} at {n_rays} rays, "
+                                   f"keep_path={kp}",
+                           lambda: kernels.trace_split(
+                               pert, grid, o, d, steps, kp, rk4=is_rk4,
+                               background=params, **c))
         check(bool(torch.equal(t, want[1])
                    and torch.equal(b.points[:, -1], want[0])),
               f"K1s {method}@{steps} at {n_rays} rays, packed and sorted, "
@@ -3744,6 +3847,10 @@ def phase14_tracers(dev, fermat, rays, kernels, Grid3D, chapman, results,
                                        background=params, **cc)
 
         ms = device_ms(call, 3)
+        turns_k1s = compare_parent(
+            f"K1s {method}@{steps} at {n_rays} rays",
+            lambda: parent.run(call), call, 3, pairs=3) \
+            if parent is not None else None
         by_name = kernel_ms_by_name(call, 3)
         entry_ms = wall_ms(lambda: fermat.trace_rays_split(
             m, grid, o, d, FREQ_HZ, bg, LENGTH_KM, **kws), 3)
@@ -3769,6 +3876,9 @@ def phase14_tracers(dev, fermat, rays, kernels, Grid3D, chapman, results,
                              library_ms=None, n_steps=steps, cubic_ms=k1c,
                              entry_ms=entry_ms,
                              tau_rel=max(e[1] for e in errs))
+        if turns_k1s is not None:
+            split[method]["parent_ms"], split[method]["new_ms_in_turns"] = \
+                turns_k1s
         lap(f"K1s {method}@{steps}")
     results["trace_split"] = {
         "launches": split_launches["leapfrog"]["trace_split"],
@@ -4466,6 +4576,299 @@ def k5t_study(reps=20) -> int:
     return 0
 
 
+def k6zt_study(reps=50) -> int:
+    """``--k6zt-study``: what binds K6zᵀ, at config 4's 20,000 endpoints
+    (the zpc2-inner solve's: 10,000 start points on 100 antennas, 10,000
+    far endpoints) and at the 917,504 edge-case points of a 128³ grid.
+    For each: the plan's shape (occupied rows, used segments, the longest
+    row, the rows that need a fold, the task list); then, each into one
+    running table, timed in two passes in turns: the first design (one
+    warp a used segment, 4 blocks an SM: ``-DK6ZT_SEGMENT_CHAIN=1``), a
+    task a segment (the plan's task list with ``task_pairs=0``: one
+    16-byte load for a segment's bounds, no rows shared), the task list
+    (the default: whole short rows a warp, a long row's segment a warp),
+    rows cut into segments of 32 (another summation order, held to the
+    plain version), and ``index_add_`` of the contributions into a
+    running table. Each variant that computes the same sums bitwise the
+    default build's table + K6zᵀ. Prints ptxas's registers for each
+    build."""
+    from ionotomo_tpu_torch import configs, kernels
+    from ionotomo_tpu_torch.core import zpcubic
+    from ionotomo_tpu_torch.core.grids import Grid3D
+    from ionotomo_tpu_torch.forward import tec
+    from ionotomo_tpu_torch.kernels import build
+    from ionotomo_tpu_torch.testing import edge_case_points
+
+    dev = torch.device("cuda", 0)
+    print(f"card: {card_line()}")
+    builds = {"default": (), "first design": ("K6ZT_SEGMENT_CHAIN=1",)}
+    libs = {}
+    for label, defines in builds.items():
+        info = build.build(defines=defines)
+        libs[label] = build.open_library(info["path"])
+        for kern, regs in ptxas_lines(info["log"], ["zpc_value_grad_bwd"]):
+            print(f"  ptxas, {label}: {kern}: {regs}")
+    default = build.load()
+
+    def with_lib(label, fn):
+        build._loaded["lib"] = libs[label]
+        try:
+            return fn()
+        finally:
+            build._loaded["lib"] = default
+
+    rng = np.random.default_rng(13)
+    w = configs.config4_world(device=dev)
+    geo = tec.DtecGeometry(w.grid, w.rays, w.n_dirs, 0, "hermite", "zpc2")
+    origin, spacing = (-64.0, -32.0, 0.0), (1.0, 0.5, 8.0)
+    g128 = Grid3D.create(origin, spacing, (N_GRID,) * 3, device=dev)
+    edge = torch.from_numpy(edge_case_points((N_GRID,) * 3, origin, spacing,
+                                             1 << 20, rng)).to(dev)
+    cases = [("config 4's endpoints", w.grid, geo.ends),
+             (f"{edge.shape[0]} edge-case points of 128^3", g128, edge)]
+    del geo
+    for label, grid, pts in cases:
+        n = pts.shape[0]
+        cv = torch.from_numpy(rng.normal(size=(n,)).astype(np.float32)
+                              ).to(dev)
+        cg = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)
+                              ).to(dev)
+        plan = zpcubic.endpoint_plan(grid, pts)
+        per_seg = zpcubic.endpoint_plan(grid, pts, task_pairs=0)
+        batches = zpcubic.endpoint_plan(grid, pts, chunk=32)
+        print(f"  K6zT at {label}: {n} points, plan "
+              f"{k6zt_plan_shape(plan)}; in segments of 32 "
+              f"{k6zt_plan_shape(batches)}")
+        n_rows, nz = grid.shape[0] * grid.shape[1], grid.shape[2]
+        table = torch.from_numpy(rng.normal(size=(n_rows, nz))
+                                 .astype(np.float32)).to(dev)
+        want = kernels.zpc_value_grad_bwd(table.clone(), grid, pts, cv, cg,
+                                          plan)
+        running = table.clone()
+
+        def add(p):
+            return kernels.zpc_value_grad_bwd(running, grid, pts, cv, cg, p)
+
+        variants = [("first design, one warp a used segment", "first design",
+                     plan),
+                    ("a task a segment (one load for its bounds)",
+                     "default", per_seg),
+                    ("the task list (default)", "default", plan)]
+        for what, lib, p in variants:
+            got = with_lib(lib, lambda: kernels.zpc_value_grad_bwd(
+                table.clone(), grid, pts, cv, cg, p))
+            torch.cuda.synchronize()
+            check(bool(torch.equal(got, want)),
+                  f"K6zT at {label}, {what}: bitwise the default build")
+            del got
+        # rows cut into segments of one batch: another summation order
+        got = kernels.zpc_value_grad_bwd(table.clone(), grid, pts, cv, cg,
+                                         batches)
+        ref = table + zpcubic.interp_rows_with_grad_transpose_ref(grid, pts,
+                                                                  cv, cg)
+        err = float((got - ref).abs().max())
+        check(err <= 1e-4 * float(ref.abs().max()),
+              f"K6zT at {label}, segments of 32: max|err| {err:.3e} against "
+              f"table + the plain version (1e-4 x max)")
+        del got, ref
+        variants.append(("segments of 32 (a batch each; another order)",
+                         "default", batches))
+        terms = zpcubic.value_grad_transpose_terms(grid, pts, cv, cg)
+        lib_call = index_add_call(*terms, n_rows * nz)
+        times = {what: [] for what, _, _ in variants}
+        times["index_add_"] = []
+        for pass_ in range(2):
+            order = variants if pass_ == 0 else variants[::-1]
+            for what, lib, p in order:
+                times[what].append(with_lib(
+                    lib, lambda: device_ms(lambda: add(p), reps)))
+            times["index_add_"].append(device_ms(lib_call, reps))
+        for what, ms in times.items():
+            print(f"  K6zT at {label}, {what}: "
+                  f"{', '.join(f'{x:.4f}' for x in ms)} ms")
+        check(not bool(plan.counters.any()), f"K6zT at {label}: counters "
+                                             f"back at zero")
+        del plan, per_seg, batches, table, running, want, terms, lib_call
+        torch.cuda.empty_cache()
+    return 0
+
+
+def rk4_study(reps=3) -> int:
+    """``--rk4-study``: what binds K1r at the bench's batch (262,144 rays,
+    128³, 150 MHz, rk4@64) on zp, cubic, zpc and quadratic. First, from
+    the plain loop over the model's evaluator, how often a stage's cell
+    (its rows and z base) is the previous evaluation's: stage 2 against
+    1, 3 against 2, 4 against 3, and a step's stage 1 against the previous
+    step's stage 4. Then K1r's kernel (packed, sorted) at 64, 128 and 256
+    rays a block, built with register budgets of 1-4 blocks of 256 an SM
+    (``-DK1R_MIN_BLOCKS=n``), each bitwise the default build's output,
+    timed; and K1s's rk4@64 call beside it. Prints ptxas's registers,
+    stack and spills of K1r in every build. The parent's launch (the
+    leapfrog tracer's block, no budget) is timed against it by
+    ``--parent``."""
+    from ionotomo_tpu_torch import kernels
+    from ionotomo_tpu_torch.core import (boxspline, triquadratic, tricubic,
+                                         zpcubic)
+    from ionotomo_tpu_torch.core.field_models import field_model
+    from ionotomo_tpu_torch.core.grids import Grid3D
+    from ionotomo_tpu_torch.geometry import fermat
+    from ionotomo_tpu_torch.kernels import build
+    from ionotomo_tpu_torch.models import chapman
+
+    dev = torch.device("cuda", 0)
+    print(f"card: {card_line()}")
+    mods = {"boxspline": boxspline, "tricubic": tricubic,
+            "zpcubic": zpcubic, "triquadratic": triquadratic}
+    grid_cpu = Grid3D.from_bounds(*BOUNDS, (N_GRID,) * 3, device="cpu")
+    grid = grid_cpu.to(dev)
+    m = torch.from_numpy(perturbed_log_field(
+        grid_cpu, np.random.default_rng(14), chapman)).to(dev)
+    o, d = (torch.from_numpy(a).to(dev) for a in bench_rays(262144))
+    kw = fermat._step_constants(FREQ_HZ, LENGTH_KM, N_STEPS)
+
+    for interp in RK4_TRACERS:
+        rate = rk4_cell_reuse(fermat, mods, interp, m, grid, o, d)
+        print(f"  rk4@{N_STEPS} on {interp}, the plain loop: a stage's cell "
+              f"the previous evaluation's: stage 1 (the last step's stage "
+              f"4) {rate[0]:.4f}, stage 2 (stage 1) {rate[1]:.4f}, stage 3 "
+              f"(stage 2) {rate[2]:.4f}, stage 4 (stage 3) {rate[3]:.4f}; "
+              f"gathers a step with a cache of one cell "
+              f"{4 - sum(rate):.3f} of 4")
+        torch.cuda.empty_cache()
+
+    builds = {"default": ()}
+    for budget in range(1, 5):
+        builds[f"budget {budget}"] = (f"K1R_MIN_BLOCKS={budget}",)
+    libs = {}
+    for label, defines in builds.items():
+        info = build.build(defines=defines)
+        libs[label] = build.open_library(info["path"])
+        for kern, line in rk4_ptxas(info["log"]):
+            print(f"  ptxas, {label}: {kern}: {line}")
+    default = build.load()
+
+    def with_lib(label, fn):
+        build._loaded["lib"] = libs[label]
+        try:
+            return fn()
+        finally:
+            build._loaded["lib"] = default
+
+    for interp, (name, pack, *_rest) in RK4_TRACERS.items():
+        table = field_model(interp).table(m, grid).contiguous()
+        packed = getattr(kernels, pack)(table, grid)
+        order = kernels.ray_order(o, d, grid)
+        with_ = getattr(kernels, name + "_with")
+
+        def run(threads):
+            return with_(table, grid, o, d, N_STEPS, False, packed=packed,
+                         order=order, threads=threads, **kw)
+
+        want = run(kernels.TRACE_RK4_THREADS)
+        for label in builds:
+            for threads in (64, 128, 256):
+                got = with_lib(label, lambda: run(threads))
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, want)
+                          if b is not None),
+                      f"{name}, {label}, {threads} a block: bitwise the "
+                      f"default build")
+        del got
+        times = {}
+        for pass_ in range(2):
+            labels = list(builds) if pass_ == 0 else list(builds)[::-1]
+            for label in labels:
+                for threads in (64, 128, 256):
+                    times.setdefault((label, threads), []).append(with_lib(
+                        label, lambda: device_ms(lambda: run(threads),
+                                                 reps)))
+        for (label, threads), ms in times.items():
+            print(f"  {name} (packed, sorted; the tracer alone), {label}, "
+                  f"{threads} a block: {', '.join(f'{x:.4f}' for x in ms)} "
+                  f"ms")
+        call_ms = device_ms(lambda: getattr(kernels, name)(
+            table, grid, o, d, N_STEPS, False, **kw), reps)
+        print(f"  {name}'s call (pack, sort, trace) on the default build: "
+              f"{call_ms:.4f} ms")
+        del table, packed, want
+        torch.cuda.empty_cache()
+    # K1s's rk4, which takes the study build's budget (cubic's in the
+    # default build)
+    bg = chapman.background_ne_fn()
+    pert = fermat.split_perturbation(m, grid, bg).contiguous()
+    params = bg.kernel_params(dev)
+
+    def k1s():
+        return kernels.trace_split(pert, grid, o, d, N_STEPS, False, rk4=True,
+                                   background=params, **kw)
+
+    want = k1s()
+    times = {}
+    for pass_ in range(2):
+        for label in (list(builds) if pass_ == 0 else list(builds)[::-1]):
+            if pass_ == 0:
+                got = with_lib(label, k1s)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, want)
+                          if b is not None),
+                      f"K1s rk4@{N_STEPS}, {label}: bitwise the default "
+                      f"build")
+            times.setdefault(label, []).append(
+                with_lib(label, lambda: device_ms(k1s, reps)))
+    for label, ms in times.items():
+        print(f"  K1s rk4@{N_STEPS} at {o.shape[0]} rays (its call, 256 a "
+              f"block), {label}: {', '.join(f'{x:.4f}' for x in ms)} ms")
+    return 0
+
+
+def rk4_cell_reuse(fermat, mods, interp, m, grid, o, d, n_steps=N_STEPS):
+    """The share of rays, by rk4 stage (1-4), whose evaluation falls in the
+    cell (the model's rows and z taps) of the one before it (stage 1: the
+    last step's stage 4, or the origin's), over the plain loop with the
+    model's evaluator."""
+    _, _, mod, live, *_ = RK4_TRACERS[interp]
+    calls, prev = [0], [None]
+    hits = torch.zeros(4, dtype=torch.int64, device=o.device)
+    vg = fermat.field_evaluator(m, grid, interp)
+
+    def counted(x):
+        ri, _, zi, _ = mods[mod].row_setup(grid, x)
+        key = torch.cat([ri[:, :live], zi], 1)
+        if prev[0] is not None:
+            hits[(calls[0] - 1) % 4] += (key == prev[0]).all(1).sum()
+        prev[0], calls[0] = key, calls[0] + 1
+        return vg(x)
+
+    fermat._trace_impl(fermat.log_field_ne_vg(counted), o, d, FREQ_HZ,
+                       LENGTH_KM, n_steps, False, "rk4")
+    return (hits.double() / (o.shape[0] * n_steps)).tolist()
+
+
+def rk4_ptxas(log):
+    """(K1r kernel: its evaluator and budget, "N bytes stack frame, ...
+    Used R registers") of each rk4 kernel in an nvcc -Xptxas -v log."""
+    import re
+
+    out, name, frame = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = None
+            if "trace_rk4" in mangled:
+                ev = re.search(r"(LogNe|SplitNe)I(\d+)", mangled)
+                ev = (("K1s " if ev.group(1) == "SplitNe" else "")
+                      + mangled[ev.end():ev.end() + int(ev.group(2))]
+                      if ev else "?")
+                budget = re.findall(r"Li(\d+)E", mangled)
+                name = f"{ev} (budget {budget[-1] if budget else '?'})"
+        elif name and "stack frame" in line:
+            frame = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            out.append((name, f"{frame}; {line.split(':', 1)[1].strip()}"))
+            name, frame = None, ""
+    return out
+
+
 def serving_endpoints(dev, boxspline, fermat, rays, tec, Grid3D, chapman):
     """Phase 4's first serving epoch: (grid, the prefiltered zp table, the
     1,240 endpoints of its 620 bent rays), the points at which
@@ -5001,6 +5404,10 @@ def main() -> int:
         return k1c_study()
     if "--k5t-study" in args:
         return k5t_study()
+    if "--k6zt-study" in args:
+        return k6zt_study()
+    if "--rk4-study" in args:
+        return rk4_study()
     if "--member-study" in args:
         return member_study()
     if "--k2-study" in args:

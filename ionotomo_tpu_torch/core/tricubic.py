@@ -235,7 +235,19 @@ class RowPlan:
               chunk⌉ + min(n_rows, N·live)), (n_rows, 2) int32, the least
               and greatest z0 of each row's pairs (0, −1 in an empty row),
               from which a kernel knows the z span a row's pairs touch;
-              None in a plan where every row has a segment.
+              None in a plan where every row has a segment;
+    tasks:    in a plan given a task list (``with_tasks``), (n_seg_max, 4)
+              int32, one warp's work a row, read with one 16-byte load:
+              (row, first pair, end, lo | hi << 16) for one segment of a
+              long row (its pairs order[first:end], its row's touched z
+              span [lo, hi]), or (−1, first pair, end, 0) for whole short
+              rows, consecutive in the plan (at most ``TASK_PAIRS`` pairs,
+              their spans' sum at most nz); empty tasks (−1, 0, 0, 0) past
+              the last. None otherwise;
+    n_tasks:  with ``tasks``, (1,) int32: the tasks used;
+    task_counters: with ``tasks``, (2,) int32 zeros, the kernel's counters
+              that share out the tasks past its grid (left at zero by each
+              call).
     """
 
     order: torch.Tensor
@@ -248,6 +260,9 @@ class RowPlan:
     chunk: int
     stream: int | None
     z0_range: torch.Tensor | None = None
+    tasks: torch.Tensor | None = None
+    n_tasks: torch.Tensor | None = None
+    task_counters: torch.Tensor | None = None
 
     @property
     def n_rows(self) -> int:
@@ -318,6 +333,86 @@ def build_row_plan(ri: torch.Tensor, n_rows: int, z0: torch.Tensor = None,
                    stream=(torch.cuda.current_stream(dev).cuda_stream
                            if dev.type == "cuda" else None),
                    z0_range=z0_range)
+
+
+#: Pairs a task of whole short rows holds at most (``with_tasks``): one
+#: batch of 32 lanes, one pair a lane.
+TASK_PAIRS = 32
+
+
+def with_tasks(plan: RowPlan, nz: int, task_pairs: int = TASK_PAIRS
+               ) -> RowPlan:
+    """``plan`` (of occupied rows, pairs whose z taps are the Catmull–Rom
+    stencil base−1 .. base+2 of the cell base z0, clamped into [0, nz))
+    with its task list (``RowPlan.tasks``): a row of one segment of at most
+    ``task_pairs`` pairs is short, and consecutive short rows are taken
+    greedily into tasks of at most ``task_pairs`` pairs whose touched z
+    spans sum to at most nz; every segment of any other row is a task of
+    its own (``task_pairs=0``: every segment). The long rows' segments
+    come first, the rows of most segments first, then the short rows'
+    tasks, each kind in the plan's order. Built on the plan's
+    device with no host read: the greedy chain of group starts is the
+    orbit of the first short row under "the first short row past this
+    one's group", found by doubling."""
+    if plan.z0_range is None:
+        raise ValueError("with_tasks: needs a plan of occupied rows")
+    dev = plan.offsets.device
+    n_rows = plan.n_rows
+    off = plan.offsets.long()
+    counts = off[1:] - off[:-1]
+    lo = (plan.z0_range[:, 0].long() - 1).clamp_min(0)
+    hi = (plan.z0_range[:, 1].long() + 2).clamp_max(nz - 1)
+    short = (counts > 0) & (counts <= min(task_pairs, plan.chunk))
+    rows = torch.arange(n_rows, device=dev)
+
+    def first_at_or_past(mask):      # (n_rows + 1,); n_rows: none
+        f = torch.flip(torch.cummin(torch.flip(
+            torch.where(mask, rows, n_rows), [0]), 0).values, [0])
+        return torch.cat([f, f.new_full((1,), n_rows)])
+
+    # the group a short row r starts: rows r .. nxt[r] − 1, up to the
+    # pair and span limits and short of the next row that is not short
+    cum_p = torch.cumsum(counts, 0)
+    span = torch.where(short, hi - lo + 1, 0)
+    cum_s = torch.cumsum(span, 0)
+    nxt = torch.minimum(torch.minimum(
+        torch.searchsorted(cum_p, cum_p - counts + task_pairs, right=True),
+        torch.searchsorted(cum_s, cum_s - span + nz, right=True)),
+        first_at_or_past((counts > 0) & ~short)[:n_rows])
+    first = first_at_or_past(short)
+    jump = first[torch.cat([nxt, nxt.new_full((1,), n_rows)])]
+    starts = first[:1]
+    for _ in range((n_rows + 1).bit_length()):
+        starts = torch.cat([starts, jump[starts]])
+        jump = jump[jump]
+    is_start = torch.zeros(n_rows + 1, dtype=torch.bool, device=dev)
+    is_start[starts] = True
+    n_seg = (plan.row_seg[1:] - plan.row_seg[:-1]).long()
+    per_row = torch.where(short, is_start[:n_rows].long(), n_seg)
+    task_end = torch.cumsum(per_row, 0)
+    q = torch.arange(plan.n_seg_max, device=dev)
+    r = torch.searchsorted(task_end, q, right=True).clamp_max(n_rows - 1)
+    j = q - (task_end[r] - per_row[r])
+    used = q < task_end[-1]
+    seg_beg = off[r] + j * plan.chunk
+    long_task = torch.stack([r, seg_beg,
+                             torch.minimum(seg_beg + plan.chunk, off[r + 1]),
+                             lo[r] | (hi[r] << 16)], -1)
+    group = torch.stack([torch.full_like(r, -1), off[r], off[nxt[r]],
+                         torch.zeros_like(r)], -1)
+    empty = torch.tensor([-1, 0, 0, 0], device=dev)
+    tasks = torch.where(used[:, None],
+                        torch.where(short[r][:, None], group, long_task),
+                        empty)
+    # long rows' segments first, the rows of most segments first (their
+    # chains are the longest and their folds wait for every segment),
+    # then the short rows' tasks, then the empty ones; stable
+    rank = torch.where(used, torch.where(short[r], 0, -n_seg[r]), 1)
+    tasks = tasks[torch.sort(rank, stable=True).indices]
+    return dataclasses.replace(
+        plan, tasks=tasks.to(torch.int32).contiguous(),
+        n_tasks=task_end[-1:].to(torch.int32),
+        task_counters=torch.zeros(2, dtype=torch.int32, device=dev))
 
 
 def scatter_add_(out: torch.Tensor, flat: torch.Tensor,

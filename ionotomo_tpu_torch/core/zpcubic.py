@@ -37,9 +37,9 @@ from .boxspline import (ZP_LIVE_TRANSLATES, _apply_a_xy, _row_index,
                         _xy_weights)
 from .grids import Grid3D
 from .precision import check_full_f32
-from .tricubic import (_catmull_rom_dweights, _catmull_rom_weights, _z_band,
-                       build_point_order, build_row_plan, rows_value,
-                       scatter_add_)
+from .tricubic import (SEGMENT_PAIRS, TASK_PAIRS, _catmull_rom_dweights,
+                       _catmull_rom_weights, _z_band, build_point_order,
+                       build_row_plan, rows_value, scatter_add_, with_tasks)
 
 
 def zpc_order(interp: str) -> int:
@@ -136,13 +136,18 @@ def row_plan(ri: torch.Tensor, zi: torch.Tensor, n_rows: int):
     return build_row_plan(ri, n_rows, zi[:, 1], live=ZP_LIVE_TRANSLATES)
 
 
-def endpoint_plan(grid: Grid3D, points: torch.Tensor):
+def endpoint_plan(grid: Grid3D, points: torch.Tensor,
+                  chunk: int = SEGMENT_PAIRS, task_pairs: int = TASK_PAIRS):
     """The K6zᵀ plan of fixed points: their 7 live (point, translate)
     pairs, ids n·8 + t, sorted by table row and cell base and cut into
-    segments, occupied rows only, with each row's range of cell bases."""
+    segments of at most ``chunk``, occupied rows only, with each row's
+    range of cell bases and the task list of K6zᵀ's warps
+    (``tricubic.with_tasks``; ``task_pairs=0``: a task a segment)."""
     ri, _, zi, _ = row_setup(grid, points)
-    return build_row_plan(ri, grid.shape[0] * grid.shape[1], zi[:, 1],
-                          live=ZP_LIVE_TRANSLATES, occupied_rows=True)
+    plan = build_row_plan(ri, grid.shape[0] * grid.shape[1], zi[:, 1],
+                          live=ZP_LIVE_TRANSLATES, chunk=chunk,
+                          occupied_rows=True)
+    return with_tasks(plan, grid.shape[2], task_pairs)
 
 
 def interp_rows(coef2d: torch.Tensor, grid: Grid3D, points: torch.Tensor

@@ -40,8 +40,8 @@
   several segments (``fold_member_rows``; csrc/rows_value_bwd_batched.cu).
 - K6z ``zpc_value_grad``: zpc value + physical gradient at points
   (csrc/zpc_value_grad.cu, csrc/zpc_eval.cuh), and K6zᵀ
-  ``zpc_value_grad_bwd`` its transpose, added into a table in place over a
-  plan of occupied rows as K5ᵀ adds (csrc/zpc_value_grad_bwd.cu);
+  ``zpc_value_grad_bwd`` its transpose, added into a table in place over
+  the task list of a plan of occupied rows (csrc/zpc_value_grad_bwd.cu);
 - K6q ``quad_value_grad``: triquadratic value + physical gradient at points
   (csrc/quad_value_grad.cu, csrc/quad_eval.cuh);
 - K1z ``trace_leapfrog_zpc`` and K1q ``trace_leapfrog_quad``: the leapfrog
@@ -504,11 +504,11 @@ def trace_leapfrog_quad(coef2d: torch.Tensor, grid, origins: torch.Tensor,
 
 
 def _sorted_and_packed(name, with_fn, pack, table, grid, origins,
-                       directions, n_steps, keep_path, consts):
+                       directions, n_steps, keep_path, consts, threads=64):
     """K1's call, which K1z and K1q share: from ``TRACE_ZP_RAYS_PER_SM``
     rays an SM the rays sorted (``ray_order``) and the table's z taps
-    packed (``pack``) first, 64 rays a block; below, the table as it is in
-    ray order, 32 rays a block."""
+    packed (``pack``) first, ``threads`` rays a block; below, the table as
+    it is in ray order, 32 rays a block."""
     r = origins.shape[0]
     dev = _check(name, [("origins", origins, torch.float32, (r, 3)),
                         ("directions", directions, torch.float32, (r, 3))]
@@ -519,8 +519,8 @@ def _sorted_and_packed(name, with_fn, pack, table, grid, origins,
                        packed=None, order=None, threads=32, **consts)
     return with_fn(table, grid, origins, directions, n_steps, keep_path,
                    packed=pack(table, grid),
-                   order=ray_order(origins, directions, grid), threads=64,
-                   **consts)
+                   order=ray_order(origins, directions, grid),
+                   threads=threads, **consts)
 
 
 def _trace_with(name, min_axis, pack_bases, table, grid, origins, directions,
@@ -706,12 +706,12 @@ def trace_leapfrog_cubic(field2d: torch.Tensor, grid, origins: torch.Tensor,
 
 
 def _cubic_call(name, with_fn, table, grid, origins, directions, n_steps,
-                keep_path, consts):
+                keep_path, consts, threads=256):
     """K1c's call, which K1r on cubic and K1s share: the table's z taps
     packed (``pack_z_taps``); a batch that fills the card
     (``TRACE_CUBIC_RAYS_PER_SM`` rays an SM) sorted first (``ray_order``)
-    and traced 256 rays a block, a smaller one in its own order 64 rays a
-    block."""
+    and traced ``threads`` rays a block, a smaller one in its own order 64
+    rays a block."""
     dev = _check(name, _grid_specs(name, table, grid, 2))
     fills = origins.shape[0] >= TRACE_CUBIC_RAYS_PER_SM * \
         torch.cuda.get_device_properties(dev).multi_processor_count
@@ -719,7 +719,7 @@ def _cubic_call(name, with_fn, table, grid, origins, directions, n_steps,
         table, grid, origins, directions, n_steps, keep_path,
         packed=pack_z_taps(table, grid),
         order=ray_order(origins, directions, grid) if fills else None,
-        threads=256 if fills else 64, **consts)
+        threads=threads if fills else 64, **consts)
 
 
 def trace_leapfrog_cubic_with(field2d, grid, origins, directions,
@@ -797,10 +797,19 @@ def trace_split_with(pert2d, grid, origins, directions, n_steps: int,
     return x_end, tau, path
 
 
+#: K1r's block at a sorted batch (with the register budget each source
+#: gives its K1r: 2, 3, 2 and 4 blocks of 256 an SM on zp, cubic, zpc and
+#: quadratic). From ``chip_smoke.py --rk4-study`` (NVIDIA H100 80GB HBM3,
+#: 700 W, the tracer alone at 262,144 rays × 64 steps): 256 a block was
+#: fastest on every model at its budget, 0.1-3 % before 64 and 128.
+TRACE_RK4_THREADS = 256
+
+
 def _rk4_tracer(model, policy, min_axis, pack_bases):
     """K1r on ``model`` (``trace_rk4_<model>``, counted under that name):
     its call and its ``_with``, those of the model's leapfrog tracer with
-    the rk4 integrator, four evaluations a step. ``policy``: the leapfrog
+    the rk4 integrator, four evaluations a step, at a sorted batch
+    ``TRACE_RK4_THREADS`` rays a block. ``policy``: the leapfrog
     tracer's call (``_sorted_and_packed`` over its pack, or
     ``_cubic_call``); ``min_axis``, ``pack_bases``: its ``_trace_with``
     layout."""
@@ -816,7 +825,8 @@ def _rk4_tracer(model, policy, min_axis, pack_bases):
     def call(table, grid, origins, directions, n_steps: int,
              keep_path: bool, **consts):
         return policy(name, with_layout, table, grid, origins, directions,
-                      n_steps, keep_path, consts)
+                      n_steps, keep_path, consts,
+                      threads=TRACE_RK4_THREADS)
 
     call.__name__, with_layout.__name__ = name, name + "_with"
     call.__doc__ = (f"K1r on {model}: ``trace_leapfrog_{model}``'s call "
@@ -824,14 +834,15 @@ def _rk4_tracer(model, policy, min_axis, pack_bases):
                     f"bitwise those of the unpacked evaluator in ray order.")
     with_layout.__doc__ = (f"K1r on {model} with its layout, ray order and "
                            f"block size given (as "
-                           f"``trace_leapfrog_{model}_with``).")
+                           f"``trace_leapfrog_{model}_with``; a block of at "
+                           f"most 256, K1r's register budget's).")
     return call, with_layout
 
 
 def _packed_by(pack):
     """``_sorted_and_packed`` over ``pack``, as a tracer's call."""
-    return lambda name, with_fn, *args: _sorted_and_packed(
-        name, with_fn, pack, *args)
+    return lambda name, with_fn, *args, **kw: _sorted_and_packed(
+        name, with_fn, pack, *args, **kw)
 
 
 trace_rk4_zp, trace_rk4_zp_with = _rk4_tracer(
@@ -1056,17 +1067,31 @@ def zpc_value_grad_bwd(table: torch.Tensor, grid, points: torch.Tensor,
     physical-gradient cotangent (N, 3) at points (N, 3), and returns
     ``table``. The plan lists the flat (point, translate) pair ids n·8 +
     t, the 7 live translates, sorted by row and cell base and cut into
-    segments, occupied rows only (``core.zpcubic.endpoint_plan``).
-    Deterministic: no float atomics. Runs on the stream the plan was built
-    on and raises on another."""
-    return _adding_bwd("zpc_value_grad_bwd", 3, 7, 8, table, grid, points,
-                       ct_value, ct_grad, plan)
+    segments, occupied rows only, with its task list
+    (``core.zpcubic.endpoint_plan``, ``core.tricubic.with_tasks``): a warp
+    a task, whole short rows or one segment of a long row. Deterministic:
+    no float atomics (int counters share out the tasks past the grid).
+    Runs on the stream the plan was built on and raises on another."""
+    name = "zpc_value_grad_bwd"
+    if plan.tasks is None:
+        raise ValueError(f"{name}: needs a plan with its task list "
+                         f"(core.zpcubic.endpoint_plan)")
+    return _adding_bwd(
+        name, 3, 7, 8, table, grid, points, ct_value, ct_grad, plan,
+        after=(_ptr(plan.tasks), _ptr(plan.n_tasks),
+               _ptr(plan.task_counters)),
+        specs=[("plan.tasks", plan.tasks, torch.int32, (plan.n_seg_max, 4)),
+               ("plan.n_tasks", plan.n_tasks, torch.int32, (1,)),
+               ("plan.task_counters", plan.task_counters, torch.int32,
+                (2,))])
 
 
 def _adding_bwd(name, min_axis, live, stride, table, grid, points, ct_value,
-                ct_grad, plan):
+                ct_grad, plan, after=(), specs=()):
     """Launch an accumulating transpose (K5ᵀ, K6zᵀ) over a plan of
-    occupied rows with ``live`` of ``stride`` pairs a point."""
+    occupied rows with ``live`` of ``stride`` pairs a point; ``after``
+    and ``specs``: the kernel's arguments past the plan's z0 range, and
+    their tensors'."""
     if (plan.live != live or plan.stride != stride
             or plan.z0_range is None):
         raise ValueError(f"{name}: needs a plan of occupied rows with {live} "
@@ -1076,8 +1101,9 @@ def _adding_bwd(name, min_axis, live, stride, table, grid, points, ct_value,
     nx, ny, _ = grid.shape
     return _value_grad_bwd(
         name, min_axis, grid, points, ct_value, ct_grad, plan, table,
-        after=(_ptr(plan.z0_range),),
-        specs=[("plan.z0_range", plan.z0_range, torch.int32, (nx * ny, 2))])
+        after=(_ptr(plan.z0_range), *after),
+        specs=[("plan.z0_range", plan.z0_range, torch.int32, (nx * ny, 2)),
+               *specs])
 
 
 def vector_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -72,8 +72,8 @@ _SIGNATURES = {
     "ionotomo_quad_value_grad": (_I, [_P, _P, _P, _I, _I, _I, _P, _I, _P,
                                       _P, _P]),
     "ionotomo_zpc_value_grad_bwd": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _P,
-                                         _P, _P, _P, _P, _P, _I, _I, _P, _P,
-                                         _P]),
+                                         _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                         _I, _P, _P, _P]),
     "ionotomo_trace_leapfrog_zpc": (_I, [_P, _P, _P, _P, _I, _I, _I, _P, _P,
                                          _P, _I, _I, _F, _F, _F, _F, _F, _F,
                                          _I, _P, _P, _P, _P]),
@@ -134,7 +134,8 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR, defines=()) -> dict:
     ``NAME=value`` macros for nvcc (``chip_smoke.py --k5t-study`` builds
     K5ᵀ with other register budgets, ``--member-study`` K3b with other
     scan and fold settings, ``--k2-study`` K2 with scalar row loads,
-    ``--e-study`` K1e and K5 with other block sizes).
+    ``--e-study`` K1e and K5 with other block sizes, ``--k6zt-study`` K6zᵀ
+    as first designed, ``--rk4-study`` K1r with other register budgets).
 
     Returns ``{"path", "seconds", "built", "log"}``; ``log`` is nvcc's
     output (with ``-Xptxas -v``: registers, shared memory and spills per

@@ -261,6 +261,172 @@ __device__ __forceinline__ void add_segment_into(
   if (lane == 0) plan.counters[row] = 0;
 }
 
+// dst[z] += srow[z] for z in [lo, hi], a pass of 128 cells at a time with
+// its four loads issued before its stores (a long row's span can reach
+// nz: one round trip a pass, not one a 32 cells).
+__device__ __forceinline__ void add_span_into(const float* srow, int lo,
+                                              int hi, float* dst) {
+  const int lane = threadIdx.x & 31;
+  for (int z0 = lo + lane; z0 <= hi; z0 += 128) {
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      v[q] = z0 + 32 * q <= hi ? dst[z0 + 32 * q] : 0.0f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (z0 + 32 * q <= hi) dst[z0 + 32 * q] = v[q] + srow[z0 + 32 * q];
+  }
+}
+
+// add_segment_into's sums over a plan's task list (core/tricubic.py:
+// with_tasks), one task a warp, each read with one 16-byte load. A task
+// (x, y, z, w) is
+// - x >= 0: one segment of a long row x (more pairs than one segment or
+//   one batch hold): its pairs order[y, z) and the row's touched z span
+//   lo = w & 0xffff, hi = w >> 16. Reduced as add_segment_into reduces a
+//   segment, with the loads the fold needs (row_seg, offsets) issued
+//   beside the first batch's, and a row's last warp folding four cells a
+//   lane over four segments' loads at once;
+// - x < 0: whole short rows, consecutive in the plan: the pairs order[y,
+//   z), at most 32, one a lane. A lane learns its pair's row from
+//   contributions() (the plan's row: both come from the same clamps), the
+//   rows' z spans from their first and last lanes (the lowest tap of the
+//   least cell base, the highest of the greatest) and their places in
+//   srow from a scan of the spans. Slot off + z - lo is then increasing
+//   along the lanes and equal exactly where (row, z) is, so add_batch over
+//   the slots sums each run as it sums the row's batch alone: a run's
+//   scan tree depends only on the lanes' places in the run, and each of a
+//   row's cells adds its runs tap by tap from 0.0f. Each row's span is
+//   then added into the table cell by cell, the loads of a pass of 128
+//   slots issued before its stores.
+// Either way each cell is rounded as add_segment_into rounds it: bitwise
+// its result over the same plan. srow: nz floats, the slots of a task of
+// short rows (the plan keeps their spans' sum within nz).
+template <int L, class Pair>
+__device__ __forceinline__ void add_task_into(
+    const Plan& plan, int4 task, int nz, float* srow,
+    float* __restrict__ table, const Pair& pair) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();  // the previous task's reads of srow are done
+  if (task.x >= 0) {
+    const int row = task.x, beg = task.y, end = task.z;
+    const int lo = task.w & 0xffff, hi = task.w >> 16;
+    const int first = __ldg(plan.row_seg + row);
+    const int nseg = __ldg(plan.row_seg + row + 1) - first;
+    const int row_beg = __ldg(plan.offsets + row);
+    for (int z = lo + lane; z <= hi; z += 32) srow[z] = 0.0f;
+    __syncwarp();
+    // batch b is reduced while the inputs of b+1 and the ids of b+2 load
+    const auto id = [&](int j) {
+      return j < end ? __ldg(plan.order + j) : -1;
+    };
+    int p_next = id(beg + 32 + lane);
+    typename Pair::In in = pair.load(id(beg + lane));
+    for (int j0 = beg; j0 < end; j0 += 32) {
+      const int p_after = id(j0 + 64 + lane);
+      const typename Pair::In in_next = pair.load(p_next);
+      int z[L];
+      float c[L];
+      pair.contributions(in, z, c);
+      add_batch<L>(z, c, nz, srow);
+      in = in_next;
+      p_next = p_after;
+    }
+    __syncwarp();
+    float* dst = table + (size_t)row * (size_t)nz;
+    if (nseg == 1) {
+      add_span_into(srow, lo, hi, dst);
+      return;
+    }
+    // add_segment_into's ticket and fold, the segment's own index s; the
+    // fold takes four cells a lane and four segments' loads at once, each
+    // cell summed in segment order from 0.0f
+    const int s = first + (beg - row_beg) / plan.chunk;
+    float* part = plan.partials + (size_t)s * (size_t)nz;
+    for (int z = lo + lane; z <= hi; z += 32) __stcg(part + z, srow[z]);
+    __threadfence();
+    __syncwarp();
+    int ticket = 0;
+    if (lane == 0) ticket = atomicAdd(plan.counters + row, 1);
+    ticket = __shfl_sync(kFullMask, ticket, 0);
+    if (ticket != nseg - 1) return;
+    __threadfence();
+    const float* parts = plan.partials + (size_t)first * (size_t)nz;
+    for (int z0 = lo + lane; z0 <= hi; z0 += 128) {
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+      for (int k = 0; k < nseg; ++k) {
+        const float* p = parts + (size_t)k * (size_t)nz + z0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (z0 + 32 * q <= hi) acc[q] += __ldcg(p + 32 * q);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (z0 + 32 * q <= hi) dst[z0 + 32 * q] += acc[q];
+    }
+    if (lane == 0) plan.counters[row] = 0;
+    return;
+  }
+
+  const int n = task.z - task.y;  // <= 32
+  const bool has = lane < n;
+  int row, z[L];
+  float c[L];
+  pair.contributions(
+      pair.load(has ? __ldg(plan.order + task.y + lane) : -1), row, z, c);
+  const int prev = __shfl_up_sync(kFullMask, row, 1);
+  const bool head = has && (lane == 0 || prev != row);
+  const unsigned heads = __ballot_sync(kFullMask, head);
+  const unsigned upto = 0xffffffffu >> (31 - lane);  // lanes 0 .. lane
+  const int h = 31 - __clz(heads & upto);            // the row's first lane
+  const unsigned later = heads & ~upto;
+  const int t = later ? __ffs(later) - 2 : n - 1;    // the row's last lane
+  const int lo = __shfl_sync(kFullMask, z[0], h);
+  const int hi = __shfl_sync(kFullMask, z[L - 1], t);
+  const int span = hi - lo + 1;
+  int incl = head ? span : 0;  // inclusive scan of the rows' spans
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(kFullMask, incl, d);
+    if (lane >= d) incl += v;
+  }
+  const int total = __shfl_sync(kFullMask, incl, 31);
+  const int off_h = __shfl_sync(kFullMask, incl - span, h);
+  const int off = has ? off_h : INT_MAX;
+  int slot[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) slot[l] = has ? off + z[l] - lo : INT_MAX;
+  for (int i = lane; i < total; i += 32) srow[i] = 0.0f;
+  __syncwarp();
+  add_batch<L>(slot, c, total, srow);
+  __syncwarp();
+  for (int i0 = 0; i0 < total; i0 += 128) {
+    float* dst[4];
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = i0 + 32 * q + lane;
+      // the last lane whose row's slots start at or before slot i
+      int k = 0;
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1) {
+        const int o = __shfl_sync(kFullMask, off, k + step);
+        if (o <= i) k += step;
+      }
+      const int r = __shfl_sync(kFullMask, row, k);
+      const int zl = __shfl_sync(kFullMask, lo, k);
+      const int ok = __shfl_sync(kFullMask, off, k);
+      dst[q] = i < total ? table + (size_t)r * (size_t)nz + (zl + i - ok)
+                         : nullptr;
+      v[q] = dst[q] ? *dst[q] : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (dst[q]) *dst[q] = v[q] + srow[i0 + 32 * q + lane];
+  }
+}
+
 // Members a warp reduces in one pass over its segment: one group of the
 // member-innermost layout (rows_value_fwd_batched.cu, pack_members), whose
 // kMemberGroup values of one point are two aligned float4.

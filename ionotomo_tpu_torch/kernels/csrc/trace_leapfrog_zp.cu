@@ -133,8 +133,11 @@ extern "C" int ionotomo_trace_leapfrog_zp(
       x_end, tau, path, stream);
 }
 
-// K1r on this model: the rk4 integrator (trace_leapfrog.cuh,
-// trace_rk4_ray) over the same evaluators, arguments as above.
+// K1r on this model: the rk4 integrator (trace_leapfrog.cuh, trace_rk4_ray)
+// over the same evaluators in its own launch, 256 rays a block at a sorted
+// batch (kernels.TRACE_RK4_THREADS) with a register budget of 2 blocks of 256
+// an SM (128 registers, as at a budget of 1; 3 and 4 spill and are slower:
+// chip_smoke.py --rk4-study). Arguments as above.
 extern "C" int ionotomo_trace_rk4_zp(
     const float* coef, const float* packed, const float* origin,
     const float* spacing, int nx, int ny, int nz, const float* origins,
@@ -142,7 +145,8 @@ extern "C" int ionotomo_trace_rk4_zp(
     float h, float hh12, float w_n, float w_rhs, float k_ne, float tec_unit,
     int threads, float* x_end, float* tau, float* path, void* stream) {
   if (nx < 3 || ny < 3 || nz < 3) return (int)cudaErrorInvalidValue;
-  return trace_log_density<ZpValueGrad, ZpValueGradPacked>(
+  return trace_log_density<ZpValueGrad, ZpValueGradPacked,
+                           K1R_BUDGET(2)>(
       true, coef, packed, origin, spacing, nx, ny, nz, origins, directions,
       order, n_rays, n_steps, h, hh12, w_n, w_rhs, k_ne, tec_unit, threads,
       x_end, tau, path, stream);

@@ -132,7 +132,9 @@ struct SplitNe {
 // (ionotomo_pack_z_taps) or null (the unpacked evaluator); order: (n_rays,)
 // ray of each thread, or null; rk4: 1 for rk4, 0 for leapfrog; layers:
 // (n_layers, 4) f32 (n_peak, h_peak, scale, sensitivity), 16-byte aligned;
-// threads: the block size (launch_trace_ordered); path may be null.
+// threads: the block size (launch_trace_ordered, at most 256 for rk4);
+// path may be null. rk4 takes K1r's launch with K1r on cubic's register
+// budget, 3 blocks of 256 an SM.
 extern "C" int ionotomo_trace_split(
     const float* pert, const float* packed, const float* origin,
     const float* spacing, int nx, int ny, int nz, const float* origins,
@@ -148,11 +150,11 @@ extern "C" int ionotomo_trace_split(
                              n_layers, factor, curved, zc0, r_earth, ps_n0,
                              ps_scale, h_top};
   if (packed == nullptr)
-    return launch_trace_ordered(rk4 != 0, SplitNe<PertValueGrad>{{}, bg},
-                                pert, origin, spacing, nx, ny, nz, origins,
-                                directions, order, n_rays, n_steps, c,
-                                threads, x_end, tau, path, stream);
-  return launch_trace_ordered(
+    return launch_trace_ordered<K1R_BUDGET(3)>(
+        rk4 != 0, SplitNe<PertValueGrad>{{}, bg}, pert, origin, spacing, nx,
+        ny, nz, origins, directions, order, n_rays, n_steps, c, threads,
+        x_end, tau, path, stream);
+  return launch_trace_ordered<K1R_BUDGET(3)>(
       rk4 != 0,
       SplitNe<PertValueGradPacked>{
           {reinterpret_cast<const float4*>(packed)}, bg},

@@ -914,10 +914,8 @@ def test_zpc_value_grad_transpose_adds_into_a_table(dev, chunk):
     n = pts.shape[0]
     cv = torch.from_numpy(rng.normal(size=(n,)).astype(np.float32)).to(dev)
     cg = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
-    ri, _, zi, _ = zpcubic.row_setup(grid, pts)
     n_rows, nz = grid.shape[0] * grid.shape[1], grid.shape[2]
-    p = tricubic.build_row_plan(ri, n_rows, zi[:, 1], live=7, chunk=chunk,
-                                occupied_rows=True)
+    p = zpcubic.endpoint_plan(grid, pts, chunk=chunk)
     table = torch.from_numpy(rng.normal(size=(n_rows, nz))
                              .astype(np.float32)).to(dev)
     before = kernels.launches["zpc_value_grad_bwd"]
@@ -944,6 +942,90 @@ def test_zpc_value_grad_transpose_adds_into_a_table(dev, chunk):
                 + (g.double() * cg.double()).sum())
     rhs = float((alone.double() * coef.double()).sum())
     assert abs(lhs - rhs) <= 1e-4 * max(abs(lhs), abs(rhs))
+
+
+@pytest.fixture(scope="module")
+def first_k6zt():
+    """The library built as K6zᵀ was first designed (one warp a used
+    segment, ``row_reduce::add_segment_into``; ``-DK6ZT_SEGMENT_CHAIN=1``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA and nvcc")
+    from ionotomo_tpu_torch.kernels import build
+    return build.open_library(
+        build.build(defines=("K6ZT_SEGMENT_CHAIN=1",))["path"])
+
+
+def _k6zt_layout(dev, grid, layout, rng):
+    """Endpoints of a layout: "clustered" (start points repeated on a few
+    antennas, as a bundle's, and far endpoints), "random" (1,001) and
+    "many" (60,001) uniform, "one_row" (3,001 points over one xy cell: one
+    row of many segments)."""
+    lo = grid.origin.cpu().numpy()
+    hi = lo + grid.spacing.cpu().numpy() * (np.asarray(grid.shape) - 1)
+    if layout in ("random", "many"):
+        pts = rng.uniform(lo, hi, (1001 if layout == "random" else 60001, 3))
+    elif layout == "one_row":
+        pts = np.tile((lo + hi) / 2, (3001, 1))
+        pts[:, 2] = rng.uniform(lo[2], hi[2], 3001)
+    else:
+        ants = np.concatenate([rng.uniform(lo[:2] / 3, hi[:2] / 3, (7, 2)),
+                               np.zeros((7, 1))], 1)
+        starts = np.repeat(ants, 33, 0)
+        far = rng.uniform(lo, hi, (7 * 33, 3))
+        far[:, 2] = rng.uniform(0.8, 1.0, 7 * 33) * hi[2]
+        pts = np.concatenate([starts, far])
+    return torch.from_numpy(pts.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("chunk", [tricubic.SEGMENT_PAIRS, 7])
+@pytest.mark.parametrize("layout", ["clustered", "random", "one_row",
+                                    "many"])
+def test_zpc_value_grad_transpose_tasks_are_the_first_design(
+        dev, first_k6zt, layout, chunk):
+    """K6zᵀ over its task list (whole short rows a warp, each segment of a
+    long row a warp) bitwise the first design over the same plan (one
+    warp a used segment) and across two calls, on antenna-clustered,
+    random (an odd count) and one-row endpoints, at segments of 256 and 7
+    pairs, and 60,001 random endpoints of a 96³ grid (more tasks than
+    the grid has warps: those past it shared out by the counter); also
+    with a task a segment (``task_pairs=0``); within 1e-4·max of table +
+    the plain version; counters back at zero."""
+    from ionotomo_tpu_torch.kernels import build
+    grid, _ = _world(dev, n=96 if layout == "many" else 40)
+    rng = np.random.default_rng(41)
+    pts = _k6zt_layout(dev, grid, layout, rng)
+    n = pts.shape[0]
+    cv = torch.from_numpy(rng.normal(size=(n,)).astype(np.float32)).to(dev)
+    cg = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
+    n_rows, nz = grid.shape[0] * grid.shape[1], grid.shape[2]
+    table = torch.from_numpy(rng.normal(size=(n_rows, nz))
+                             .astype(np.float32)).to(dev)
+    plan = zpcubic.endpoint_plan(grid, pts, chunk=chunk)
+    one_a_segment = zpcubic.endpoint_plan(grid, pts, chunk=chunk,
+                                          task_pairs=0)
+    assert int(plan.n_tasks) <= int(plan.row_seg[-1])
+    assert int(one_a_segment.n_tasks) == int(plan.row_seg[-1])
+    if layout == "many":    # past the grid of 3 blocks of 8 warps an SM
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert int(plan.n_tasks) > 32 * sms
+
+    def add(p):
+        return kernels.zpc_value_grad_bwd(table.clone(), grid, pts, cv, cg, p)
+
+    a, b, c = add(plan), add(plan), add(one_a_segment)
+    default = build.load()
+    build._loaded["lib"] = first_k6zt
+    try:
+        want = add(plan)
+    finally:
+        build._loaded["lib"] = default
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, want)
+    for p in (plan, one_a_segment):
+        assert not p.counters.any() and not p.task_counters.any()
+    ref = table + zpcubic.interp_rows_with_grad_transpose_ref(grid, pts, cv,
+                                                              cg)
+    assert float((a - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
 @pytest.mark.parametrize("n_rays", ["small", "sorted"])
@@ -1023,29 +1105,32 @@ RK4 = {"zp": ("trace_rk4_zp", "pack_zp_taps", "zp"),
        "quadratic": ("trace_rk4_quad", "pack_zp_taps", "zp")}
 
 
-def _sorted_batch(dev, policy):
+def _sorted_batch(dev, policy, past=300):
     """Rays a batch needs to be sorted and packed by a K1 call ("zp") or
-    by K1c's ("cubic"), and 300 more: a ragged batch."""
+    by K1c's ("cubic"), and ``past`` more (300: a ragged batch; −1: the
+    largest batch below the threshold)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_sm = (kernels.TRACE_ZP_RAYS_PER_SM if policy == "zp"
               else kernels.TRACE_CUBIC_RAYS_PER_SM)
-    return per_sm * sms + 300
+    return per_sm * sms + past
 
 
-@pytest.mark.parametrize("n_rays", ["small", "sorted"])
+@pytest.mark.parametrize("n_rays", ["small", "below", "sorted"])
 @pytest.mark.parametrize("keep_path", [True, False])
 @pytest.mark.parametrize("interp", sorted(RK4))
 def test_trace_rk4_packed_and_ordered_is_unpacked(dev, interp, keep_path,
                                                   n_rays):
-    """K1r on each model as ``trace_rays(method="rk4")`` calls it (700
-    rays as they are; a ragged batch past the model's threshold sorted and
-    over the packed table), one launch and no evaluator kernel, bitwise
-    the unpacked evaluator in ray order, also under a random order and
-    other block sizes; within the plain tracer's tolerances (1e-3 km,
-    1e-5 relative TEC)."""
+    """K1r on each model as ``trace_rays(method="rk4")`` calls it (701
+    rays and the largest batch below the model's threshold as they are; a
+    ragged batch past it sorted and over the packed table, at K1r's
+    block), one launch and no evaluator kernel, bitwise the unpacked
+    evaluator in ray order, also under a random order and other block
+    sizes; within the plain tracer's tolerances (1e-3 km, 1e-5 relative
+    TEC)."""
     name, pack, policy = RK4[interp]
     grid, m = _world(dev)
-    n = 700 if n_rays == "small" else _sorted_batch(dev, policy)
+    n = {"small": 701, "below": _sorted_batch(dev, policy, -1),
+         "sorted": _sorted_batch(dev, policy)}[n_rays]
     o, d = _rays(dev, n)
     from ionotomo_tpu_torch.core.field_models import field_model
     table = field_model(interp).table(m, grid).contiguous()
