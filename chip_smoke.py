@@ -14,7 +14,7 @@ frozen-flow Kalman filter and the ensemble filter), on one NVIDIA GPU.
                                        # step (torch.profiler)
     python3 chip_smoke.py --parent DIR # also: hold the kernels to those of
                                        # the checkout at DIR (the commit
-                                       # before K6zT and K1r were
+                                       # before K1z and K1q were
                                        # redesigned; any other sources are
                                        # refused): every kernel bitwise at
                                        # the phases' shapes and timed in
@@ -66,6 +66,16 @@ frozen-flow Kalman filter and the ensemble filter), on one NVIDIA GPU.
                                        # block size, register budget: a
                                        # library each) and K1s's rk4
                                        # under each build
+    python3 chip_smoke.py --k1zq-study [--parent DIR]
+                                       # only: what binds K1z and K1q at
+                                       # the bench's batch (registers, the
+                                       # SASS of a step and its issue-slot
+                                       # bound, beside every tracer's;
+                                       # register budget and block size: a
+                                       # library a budget; the call's
+                                       # pieces and where sorting
+                                       # pays; with DIR the parent's
+                                       # launch)
     python3 chip_smoke.py --member-study
                                        # only: K2b's and K3b's calls by
                                        # kernel at config 5's bundles and
@@ -115,8 +125,10 @@ Phases (any failed check raises, and the run exits non-zero):
    the trace launches K1, its pack and the sort keys once each; K1's call
    (pack, sort, trace) bitwise the unpacked kernel in ray order and timed
    by kernel. The same for K1z (zpc, over K1c's pack) and K1q (quadratic,
-   over K1's pack), rays/s beside K1's, and K6q timed at the bench
-   trace's points halfway.
+   over K1's pack), rays/s beside K1's, each also one ray below its own
+   threshold (the table as it is) and at it (sorted and packed), path on
+   and off, bitwise the unpacked kernel and the parent's call; and K6q
+   timed at the bench trace's points halfway.
 4. The serving slice, as ``predict --bent --interp zp --quadrature
    hermite`` runs it: ``make_ray_batch`` → ``trace_rays(keep_path=True)``
    → ``dtec_paired_q``, 62 antennas × 10 directions, 4 epochs on a 128³
@@ -276,8 +288,9 @@ analytic world drifting with the wind, 1 % noise), and on it:
 With ``--parent``, KG at both of phase 7's shapes and the permute at
 phases 6 and 10 are bitwise the parent's and timed in turns with it, as
 are K1e at every shape above, K5 at phases 8 and 10, the batched K1e,
-K1z and K1q at phases 2 and 3, K6zT at phase 2's points and config 4's
-endpoints, and K1r and K1s at phase 14.
+K1z and K1q at phases 2 and 3 (at 262,144 rays and on either side of each
+one's threshold), K6zT at phase 2's points and config 4's endpoints, and
+K1r and K1s at phase 14.
 
 The last lines are a JSON object of per-kernel results (each kernel's
 bound: the larger of the bytes it must move over 3.35 TB/s and its f32
@@ -771,15 +784,14 @@ def index_add_call(flat, contrib, size):
 
 class Parent:
     """The kernels of the checkout at ``root`` (``--parent DIR``), the
-    commit before K6zᵀ and K1r were redesigned, built from its sources with
+    commit before K1z and K1q were redesigned, built from its sources with
     this checkout's nvcc flags. ``run(fn)`` calls fn with every kernel the
-    parent's: each entry through this checkout's wrapper on the parent's
-    library, except K6zᵀ, whose C interface this checkout changed (it
-    takes the plan's task list): its former entry is bound with its former
-    signature (``K6ZT``) and ``kernels.zpc_value_grad_bwd`` calls it as the
-    parent's wrapper did. The parent's library lacks the entries in
-    ``NEW``, which it is opened without; the kernels behind them have no
-    parent.
+    parent's, each entry through this checkout's wrapper on the parent's
+    library (no C interface changed since), and with the parent's launch of
+    every call that sorts and packs as K1 does (``SORT_AND_PACK``: K1's
+    threshold and blocks for K1z and K1q too), so that ``run(call)`` is the
+    parent's whole call. The parent's library lacks the entries in ``NEW``,
+    which it is opened without; the kernels behind them have no parent.
 
     ctypes cannot check a C interface, so the parent's sources are
     declared by their SHA-256, and any other checkout is refused rather
@@ -787,17 +799,9 @@ class Parent:
 
     NEW = ()
 
-    # the parent's K1r call: 64 rays a block at a sorted batch on zp, zpc
-    # and quadratic (K1's), 256 on cubic (K1c's)
-    RK4_THREADS = {"zp": 64, "cubic": 256, "zpc": 64, "quadratic": 64}
-
-    # the parent's ionotomo_zpc_value_grad_bwd: the plan without its tasks
-    K6ZT = ("ionotomo_zpc_value_grad_bwd", (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int,
-                                                 ctypes.c_void_p,
-                                                 ctypes.c_void_p,
-                                                 ctypes.c_void_p]))
+    # the parent's kernels.SORT_AND_PACK entries that this checkout changed
+    SORT_AND_PACK = {"trace_leapfrog_zpc": (448, 64, 32),
+                     "trace_leapfrog_quad": (448, 64, 32)}
 
     SOURCES = {
         "cubic_value_grad.cu":
@@ -815,15 +819,15 @@ class Parent:
         "rows_value_fwd_batched.cu":
             "33b0b3474550fda8a1440c6ad76f61290a168eeaf73dfd0074e71c7df6c48c3b",
         "trace_leapfrog_cubic.cu":
-            "3cb992ffd7bf3a7b0502518ff1fbf4fbcbb9cfb77f9500903e8f9643a49c2061",
+            "7a4277e5f3d08faff9c19baa34011fe2551f65f8c6b522fac174b4554af92980",
         "trace_leapfrog_quad.cu":
-            "c4f9d2806c03a10eb52832fc6b6451195dc85f9c0142a000fdbdb355e08eacd9",
+            "15a08a41a111c2970c196f100042195b3ae2701e166a0d6f7c11536eb5b1327e",
         "trace_leapfrog_zp.cu":
-            "69cb38c6066953742acec246416585473b24a8de31f498924dc8fcf6127b861e",
+            "f00d5b59a90264077ef09fa467ffa214aed6df53fd370d3d1198f321398ccaa3",
         "trace_leapfrog_zpc.cu":
-            "0bc81f7fcf095d28cb9499172da39b4f6add1eb5dd35452050e3d5966f8f2481",
+            "7181e724555eff94754c8359aa03483fe01342270a881d4f8f691f40386cfa32",
         "trace_split.cu":
-            "7c9fca2c79c68f99f9c74d981a6918633d850419d80bdcf3e5afcb1de55da8bc",
+            "15e9cddae37d0ce67fa59496701dbfd70b003c0b889c5effe6e83e9f617c0e03",
         "vector_gather.cu":
             "e0d19a2da2d4ccef5782631ae780053fa77062ae0c19c1e7935b9ff7ee882216",
         "zp_value_grad.cu":
@@ -833,7 +837,7 @@ class Parent:
         "zpc_value_grad.cu":
             "99c86361a62704ea322b9265f4214032b2e4f883236c0ccbc7bfcac3911703c1",
         "zpc_value_grad_bwd.cu":
-            "7a6fd1b543f6bfa4ad0b1d92fb65a3d259f3376817553334835088be6df70c75",
+            "8f5c547e2058e82d1e1062222bd57848a37e1c375f72c28be6c589e736d369fc",
     }
 
     def __init__(self, root):
@@ -848,36 +852,24 @@ class Parent:
                 f"commit whose C interface this script binds (differ: "
                 f"{sorted(set(got.items()) ^ set(self.SOURCES.items()))})")
         info = build.build(csrc, build.BUILD_DIR / "parent")
-        self.build = build
-        name, (restype, argtypes) = self.K6ZT
+        self.build, self.info = build, info
         self.lib = build.open_library(
-            info["path"], [n for n in build._SIGNATURES
-                           if n not in self.NEW and n != name])
-        fn = getattr(self.lib, name)
-        fn.restype, fn.argtypes = restype, argtypes
+            info["path"], [n for n in build._SIGNATURES if n not in self.NEW])
         print(f"  parent kernels from {csrc} (built={info['built']} in "
               f"{info['seconds']:.2f} s)")
 
-    @staticmethod
-    def k6zt(table, grid, points, ct_value, ct_grad, plan):
-        """The parent's K6zᵀ wrapper: the plan of occupied rows without
-        its task list, one warp a used segment."""
-        from ionotomo_tpu_torch import kernels
-        return kernels._adding_bwd("zpc_value_grad_bwd", 3, 7, 8, table,
-                                   grid, points, ct_value, ct_grad, plan)
-
     def run(self, fn):
-        """fn() with the parent's kernels behind this checkout's
-        wrappers."""
+        """fn() with the parent's kernels behind this checkout's wrappers
+        and the parent's launch of each call."""
         from ionotomo_tpu_torch import kernels
-        saved, k6zt = self.build.load(), kernels.zpc_value_grad_bwd
+        saved, launch = self.build.load(), kernels.SORT_AND_PACK
         self.build._loaded["lib"] = self.lib
-        kernels.zpc_value_grad_bwd = self.k6zt
+        kernels.SORT_AND_PACK = {**launch, **self.SORT_AND_PACK}
         try:
             return fn()
         finally:
             self.build._loaded["lib"] = saved
-            kernels.zpc_value_grad_bwd = k6zt
+            kernels.SORT_AND_PACK = launch
 
 
 def _outputs(x):
@@ -1312,12 +1304,13 @@ def phase3_throughput(dev, boxspline, fermat, kernels, Grid3D, chapman,
 
 
 def k6_at(label, kernels, model, name, table, grid, pts, reps=20,
-          plain_reps=2):
+          plain_reps=2, parent=None):
     """K6z or K6q at one shape: bitwise twice; against its plain version
     and against its twin in the kernel's order (1e-5·max|table| the value,
     over the smallest spacing the gradient); timed beside the plain
-    version and its bound (the distinct values its points touch). Returns
-    the shape's line."""
+    version and its bound (the distinct values its points touch); with a
+    parent, bitwise the parent's and timed in turns with it. Returns the
+    shape's line."""
     interp = {"zpc_value_grad": "zpc", "quad_value_grad": "quadratic"}[name]
     _, live, flops = NEW_MODELS[interp][:3]
     kern = getattr(kernels, name)
@@ -1347,6 +1340,8 @@ def k6_at(label, kernels, model, name, table, grid, pts, reps=20,
     plain = device_ms(lambda: model.interp_rows_with_grad_ref(table, grid,
                                                               pts),
                       plain_reps)
+    parent_same(parent, f"{name} at {label}", lambda: kern(table, grid, pts),
+                reps, pairs=3)
     b_ms, b_by = k6_bound(model, live, flops, grid, pts)
     print(f"  {name} at {label}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
           f"bound {b_ms:.6f} ms ({b_by}, distinct values)")
@@ -1391,7 +1386,8 @@ def phase2_new_models(dev, tricubic, zpcubic, triquadratic, fermat,
             model = mods[mod]
             table = field_model(interp).table(field, grid).contiguous()
             results.setdefault(name + "_at", {})[f"{where}_{n_grid}"] = \
-                k6_at(tag, kernels, model, name, table, grid, pts)
+                k6_at(tag, kernels, model, name, table, grid, pts,
+                      parent=parent)
             if interp == "zpc" and where == "edge-case":
                 # K2 at (8, 4): zpc's value gather over its point order
                 setup = zpcubic.row_setup(grid, pts)
@@ -1461,8 +1457,10 @@ def phase3_new_tracers(dev, fermat, kernels, Grid3D, chapman, results,
     bench's configuration (262144 rays, leapfrog@64, 150 MHz) through
     ``trace_rays``, launches counted, bitwise the unpacked kernels (and,
     with a parent, the parent's, timed in turns with it), timed beside the
-    plain tracer and the bound; then K6q alone at the bench trace's points
-    halfway (its launches: phase 14's rk4 trace on quadratic)."""
+    plain tracer and the bound; the same, path on and off, one ray below
+    each model's own threshold and at it; then K6q alone at the bench
+    trace's points halfway (its launches: phase 14's rk4 trace on
+    quadratic)."""
     from ionotomo_tpu_torch.core import triquadratic
     from ionotomo_tpu_torch.core.field_models import field_model
 
@@ -1527,6 +1525,27 @@ def phase3_new_tracers(dev, fermat, kernels, Grid3D, chapman, results,
                                      bound_by=b_by, library_ms=None)
         results[name]["launches"] = launches[name]
         results["rays_per_s"][interp] = rate
+        # one ray below the model's own threshold (the table as it is) and
+        # at it (sorted and packed): bitwise the unpacked kernel in ray
+        # order and the parent's call, path on and off, timed in turns
+        at = kernels.SORT_AND_PACK[name][0] * \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+        for n in (at - 1, at):
+            on, dn = o[:n].contiguous(), d[:n].contiguous()
+            side = "below" if n < at else "at"
+            check_trace_bitwise(f"phase 3, {n} rays ({side} {name}'s "
+                                f"threshold)", kernels, name, table, grid,
+                                on, dn, kw, N_STEPS, parent=parent)
+            if parent is not None:
+                def call_n(on=on, dn=dn):
+                    return tracer(table, grid, on, dn, N_STEPS, False, **kw)
+
+                results[name]["line"].setdefault("in_turns_by_rays", {})[
+                    n] = compare_parent(f"{name} at {n} rays ({side} its "
+                                        f"threshold)",
+                                        lambda: parent.run(call_n), call_n,
+                                        3, pairs=2)
+            del on, dn
 
     # K6q alone at the bench trace's points halfway along the rays
     table = triquadratic.prefilter(m).reshape(N_GRID * N_GRID, N_GRID)
@@ -1535,7 +1554,8 @@ def phase3_new_tracers(dev, fermat, kernels, Grid3D, chapman, results,
     results["quad_value_grad"] = {
         "line": k6_at(f"the bench trace's {n_rays} points halfway",
                       kernels, triquadratic, "quad_value_grad", table, grid,
-                      mid, reps=20, plain_reps=3)}
+                      mid, reps=20, plain_reps=3,
+                      parent=parent)}
 
 
 def perturbed_log_field(grid, rng, chapman):
@@ -2653,7 +2673,8 @@ def config4_zpc2(dev, w, configs, tricubic, zpcubic, tec, kernels,
     print_plan(f"K6zT at the solve's {n_ends} endpoints", eplan)
     results["zpc_value_grad"] = {"line": k6_at(
         f"the solve's {n_ends} endpoints", kernels, zpcubic,
-        "zpc_value_grad", table, grid, ends, reps=50, plain_reps=5)}
+        "zpc_value_grad", table, grid, ends, reps=50, plain_reps=5,
+        parent=parent)}
     cv = torch.from_numpy(rng.normal(size=(n_ends,)).astype(np.float32)
                           ).to(dev)
     cg = torch.from_numpy(rng.normal(size=(n_ends, 3)).astype(np.float32)
@@ -3724,16 +3745,9 @@ def phase14_tracers(dev, fermat, rays, kernels, Grid3D, chapman, results,
             return tracer(table, grid, o, d, N_STEPS, False, **kw)
 
         ms = device_ms(call, 3)
-        def parent_call():       # the parent's call: its pack, sort, block
-            return getattr(kernels, name + "_with")(
-                table, grid, o, d, N_STEPS, False,
-                packed=getattr(kernels, pack)(table, grid),
-                order=kernels.ray_order(o, d, grid),
-                threads=Parent.RK4_THREADS[interp], **kw)
-
         turns_k1r = compare_parent(
-            f"{name} at {n_rays} rays", lambda: parent.run(parent_call),
-            call, 3, pairs=3) if parent is not None else None
+            f"{name} at {n_rays} rays", lambda: parent.run(call), call, 3,
+            pairs=3) if parent is not None else None
         by_name = kernel_ms_by_name(call, 3)
         b_ms, b_by = trace_bound(mods[mod], live, tracer, 4 * fstep, table,
                                  grid, o, d, N_STEPS, False, kw)
@@ -4854,7 +4868,7 @@ def rk4_ptxas(log):
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             name = None
-            if "trace_rk4" in mangled:
+            if "trace_ordered_kernelILb1E" in mangled:
                 ev = re.search(r"(LogNe|SplitNe)I(\d+)", mangled)
                 ev = (("K1s " if ev.group(1) == "SplitNe" else "")
                       + mangled[ev.end():ev.end() + int(ev.group(2))]
@@ -4867,6 +4881,478 @@ def rk4_ptxas(log):
             out.append((name, f"{frame}; {line.split(':', 1)[1].strip()}"))
             name, frame = None, ""
     return out
+
+
+# The tracers whose loop the issue-slot bound counts: label -> (rk4, else
+# leapfrog; evaluator type). The evaluator fragments are the mangled type
+# names' own (length prefix included), so zp's never matches zpc's.
+TRACER_SASS = {
+    "K1 (zp)": (False, "5LogNeI17ZpValueGradPacked"),
+    "K1c (cubic)": (False, "5LogNeI20CubicValueGradPacked"),
+    "K1z (zpc)": (False, "5LogNeI18ZpcValueGradPacked"),
+    "K1q (quadratic)": (False, "5LogNeI19QuadValueGradPacked"),
+    "K1r zp": (True, "5LogNeI17ZpValueGradPacked"),
+    "K1r cubic": (True, "5LogNeI20CubicValueGradPacked"),
+    "K1r zpc": (True, "5LogNeI18ZpcValueGradPacked"),
+    "K1r quadratic": (True, "5LogNeI19QuadValueGradPacked"),
+    "K1s leapfrog": (False, "7SplitNeI19PertValueGradPacked"),
+    "K1s rk4": (True, "7SplitNeI19PertValueGradPacked"),
+}
+
+
+def tracer_kernels(funcs, rk4, ev):
+    """The mangled names in ``funcs`` of the tracer kernel that integrates
+    with rk4 (else leapfrog) over evaluator ``ev``:
+    ``trace_ordered_kernel<kRk4, kMinBlocks, NeField>``, or in a parent
+    tree whose launches were separate templates, ``trace_rk4_kernel``,
+    ``trace_leapfrog_budget_kernel`` or ``trace_ordered_kernel<NeField>``."""
+    marks = ((f"trace_ordered_kernelILb{int(rk4)}E",)
+             + (("trace_rk4_kernelI",) if rk4 else
+                ("trace_leapfrog_budget_kernelI",
+                 "trace_ordered_kernelI" + ev)))
+    return [k for k in funcs if ev in k and any(m in k for m in marks)]
+
+
+# SASS opcodes by the unit that executes them, for the counts the study
+# prints beside the issue-slot bound (every instruction takes an issue slot)
+SASS_CLASSES = {
+    "fp32": ("FFMA", "FADD", "FMUL", "FMNMX", "FSETP", "FSEL", "FRND", "FCHK",
+             "FSET", "FSWZADD"),
+    "int": ("IMAD", "IADD3", "IADD", "LEA", "LOP3", "SHF", "ISETP", "IMNMX",
+            "SEL", "IABS", "PRMT", "VIADD", "VIMNMX", "IMUL", "POPC", "FLO",
+            "BREV", "SGXT", "BMSK"),
+    "mufu": ("MUFU",),
+    "convert": ("F2I", "I2F", "F2F", "I2FP", "F2IP", "FRND"),
+    "load/store": ("LDG", "STG", "LD", "ST", "LDC", "LDS", "STS", "LDL", "STL",
+                   "ATOM", "ATOMG", "RED"),
+    "control": ("BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "WARPSYNC",
+                "BAR", "YIELD", "JMP", "BREAK", "NOP"),
+}
+
+
+def ptxas_by_kernel(log):
+    """{mangled kernel: (registers, stack bytes, spill store bytes, spill
+    load bytes)} from an nvcc -Xptxas -v log."""
+    import re
+
+    out, name, frame = {}, None, (0, 0, 0)
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "stack frame" in line:
+            frame = tuple(int(x) for x in re.findall(r"(\d+) bytes", line)[:3])
+        elif name and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            out[name] = (regs, *frame)
+            name, frame = None, (0, 0, 0)
+    return out
+
+
+def sass_functions(lib_path):
+    """{mangled kernel: [(address, instruction)]} of a built library, from
+    ``cuobjdump -sass``; a label stands for the address of the instruction
+    after it and a branch's target is kept as an address."""
+    import re
+    import shutil as _shutil
+
+    tool = _shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs, name, body, labels, pending = {}, None, [], {}, []
+    ins = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+
+    def close():
+        if name is not None:
+            resolved = []
+            for addr, text_ in body:
+                m = re.search(r"`?\((\.L_x_\d+)\)", text_)
+                if m and m.group(1) in labels:
+                    text_ = text_.replace(m.group(0),
+                                          f"0x{labels[m.group(1)]:x}")
+                resolved.append((addr, text_))
+            funcs[name] = resolved
+
+    for line in text.splitlines():
+        s = line.strip()
+        if s.startswith("Function :"):
+            close()
+            name, body, labels, pending = s.split(":", 1)[1].strip(), [], {}, []
+        elif re.match(r"^\.L_x_\d+:", s):
+            pending.append(s[:-1])
+        else:
+            m = ins.search(line)
+            if m and name is not None:
+                addr = int(m.group(1), 16)
+                for lab in pending:
+                    labels[lab] = addr
+                pending = []
+                body.append((addr, m.group(2)))
+    close()
+    return funcs
+
+
+def loop_body(instrs):
+    """The instructions of a kernel's outermost loop: from the target of
+    its longest backward branch to that branch."""
+    import re
+
+    best = None
+    for addr, text in instrs:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) <= addr:
+            span = (int(m.group(1), 16), addr)
+            if best is None or span[1] - span[0] > best[1] - best[0]:
+                best = span
+    if best is None:
+        return []
+    return [(a, t) for a, t in instrs if best[0] <= a <= best[1]]
+
+
+def executed(body):
+    """The instructions of a loop body that a step runs when no IEEE
+    division or square root takes its slow path: the stubs that a
+    predicated forward branch skips (at most 8 instructions around a call
+    of the slow path's subroutine) are left out. The path's stores are
+    predicated, and counted."""
+    import re
+
+    skipped = set()
+    for addr, text in body:
+        m = re.match(r"@!?U?P\d\s+BRA\b.*?0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) > addr:
+            span = [(a, t) for a, t in body
+                    if addr < a < int(m.group(1), 16)]
+            if len(span) <= 8 and any(t.startswith("CALL") for _, t in span):
+                skipped.update(a for a, _ in span)
+    return [(a, t) for a, t in body if a not in skipped]
+
+
+def sass_counts(body):
+    """Instructions of a loop body (NOPs left out), by class and, for MUFU,
+    by function."""
+    counts = {"all": 0, "other": 0, **{k: 0 for k in SASS_CLASSES}}
+    mufu = {}
+    for _, text in body:
+        op = text.split()
+        op = op[1] if op[0].startswith("@") else op[0]
+        base = op.split(".")[0]
+        if base == "NOP":
+            continue
+        counts["all"] += 1
+        cls = next((k for k, v in SASS_CLASSES.items() if base in v
+                    or (base.startswith("U") and base[1:] in v)), "other")
+        counts[cls] += 1
+        if base == "MUFU":
+            fn = op.split(".")[1] if "." in op else "?"
+            mufu[fn] = mufu.get(fn, 0) + 1
+    counts["mufu_by_function"] = mufu
+    return counts
+
+
+def theoretical_occupancy(regs, threads):
+    """Warps an SM can hold over its 64 at ``regs`` registers a thread and
+    ``threads`` a block (registers allocated 256 a warp; at most 32 blocks
+    and 2048 threads an SM)."""
+    warps = threads // 32
+    per_warp = -(-regs * 32 // 256) * 256
+    blocks = min(65536 // (per_warp * warps), 32, 2048 // threads)
+    return blocks * warps / 64
+
+
+def issue_bound_ms(instructions, rays, steps, clock_mhz, sms):
+    """The least time for rays × steps executions of a loop body of
+    ``instructions`` instructions a thread, at one warp instruction a clock
+    on each of an SM's 4 schedulers (32 thread instructions each)."""
+    return rays * steps * instructions / (sms * 4 * 32 * clock_mhz * 1e6) \
+        * 1e3
+
+
+def nvidia_smi(query):
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader,nounits", "--id=0"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return out.stdout.strip()
+
+
+def clocks_under(fn, seconds=2.0):
+    """(SM clock MHz, power W) samples of nvidia-smi every 100 ms while
+    ``fn`` runs back to back for ``seconds``; the sampler is stopped before
+    returning."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100", "--id=0"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+    samples = []
+    for line in out.splitlines():
+        try:
+            mhz, watts = (float(x) for x in line.split(","))
+        except ValueError:
+            continue
+        samples.append((mhz, watts))
+    return samples[2:] or samples
+
+
+def k1zq_study(parent_dir=None, reps=3) -> int:
+    """``--k1zq-study``: what binds K1z and K1q at the bench's batch
+    (262,144 rays × 64 steps, the 128³ Chapman cube, 150 MHz, 1000 km):
+    (a) ptxas's registers, stack and spills of every tracer kernel in every
+    build; (b) the issue-slot bound of every tracer's leapfrog (or rk4)
+    step: the SASS instructions a step of its loop runs (``cuobjdump
+    -sass``, the span of the loop's backward branch less the slow paths'
+    stubs, ``executed``; the loop bodies written under
+    ``build/k1zq_sass/``) × rays × steps over 132 SMs × 4 schedulers
+    × 32 lanes × the card's maximum SM clock, beside the tracer alone and
+    its theoretical occupancy; (c) the tracer alone (packed, sorted) at
+    register budgets of 0-4 blocks of 256 an SM (libraries built with
+    ``-DK1_MIN_BLOCKS=n``, 0 the compiler's registers) × 64/128/256 rays a
+    block, two passes in opposite orders, and with ``--parent DIR`` the
+    parent's launch; (d) the call's pieces (keys, sort, cast, pack,
+    tracer) and the whole call, the SM clock under the tracer, and the call
+    sorted and packed against the table as it is at 10,000 to 262,144
+    rays. Every variant is bitwise the unpacked evaluator in ray order."""
+    from ionotomo_tpu_torch import kernels
+    from ionotomo_tpu_torch.core.field_models import field_model
+    from ionotomo_tpu_torch.core.grids import Grid3D
+    from ionotomo_tpu_torch.geometry import fermat
+    from ionotomo_tpu_torch.kernels import build
+    from ionotomo_tpu_torch.models import chapman
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = float(nvidia_smi("clocks.max.sm"))
+    print(f"card: {card}; {sms} SMs, max SM clock {clock:.0f} MHz")
+    out_dir = Path(__file__).resolve().parent / "build" / "k1zq_sass"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    builds = {"default": ()}
+    for b in range(0, 5):    # 0: no budget, the compiler's registers
+        builds[f"budget {b}"] = (f"K1_MIN_BLOCKS={b}",)
+    libs, regs, loops = {}, {}, {}
+    parent = Parent(parent_dir) if parent_dir else None
+    infos = {label: build.build(defines=defines)
+             for label, defines in builds.items()}
+    if parent is not None:
+        infos["parent"] = parent.info
+    for label, info in infos.items():
+        if label != "parent":
+            libs[label] = build.open_library(info["path"])
+        by_kernel = ptxas_by_kernel(info["log"])
+        funcs = sass_functions(info["path"])
+        for tracer, (rk4, ev) in TRACER_SASS.items():
+            studied = tracer in ("K1z (zpc)", "K1q (quadratic)")
+            if label != "default" and not studied:
+                continue
+            hits = tracer_kernels(funcs, rk4, ev)
+            if len(hits) != 1:
+                print(f"  {label}: {tracer}: {len(hits)} kernels match; "
+                      f"skipped")
+                continue
+            body = loop_body(funcs[hits[0]])
+            counts = sass_counts(executed(body))
+            regs[label, tracer] = by_kernel.get(hits[0], (0, 0, 0, 0))
+            loops[label, tracer] = counts
+            (out_dir / f"{label}_{tracer}.sass".replace(" ", "_").replace(
+                ",", "").replace("'", "").replace("(", "").replace(
+                ")", "")).write_text("\n".join(f"/*{a:05x}*/ {t}"
+                                               for a, t in body))
+            r, stack, st, ld = regs[label, tracer]
+            print(f"  {label}: {tracer}: {r} registers, {stack} B stack, "
+                  f"{st}/{ld} B spill stores/loads; loop {len(body)} "
+                  f"instructions, {counts['all']} run a step ("
+                  + ", ".join(f"{k} {v}" for k, v in counts.items()
+                              if k not in ("all", "mufu_by_function") and v)
+                  + f"; MUFU {counts['mufu_by_function']})")
+    default = build.load()
+
+    def with_lib(label, fn):
+        if label == "parent":
+            return parent.run(fn)
+        build._loaded["lib"] = libs[label]
+        try:
+            return fn()
+        finally:
+            build._loaded["lib"] = default
+
+    def bound_of(label, tracer, steps, rays):
+        instr = loops[label, tracer]["all"]
+        return instr, issue_bound_ms(instr, rays, steps, clock, sms)
+
+    grid = Grid3D.from_bounds(*BOUNDS, (N_GRID,) * 3, device=dev)
+    m = chapman.log_parametrize(chapman.chapman_field(grid)).contiguous()
+    o_all, d_all = (torch.from_numpy(a).to(dev) for a in bench_rays(262144))
+    o, d = o_all, d_all
+    n_rays = o.shape[0]
+    kw = fermat._step_constants(FREQ_HZ, LENGTH_KM, N_STEPS)
+    order = kernels.ray_order(o, d, grid)
+    thread_choices = (64, 128, 256)
+
+    for interp, (_, _, _, _, name, pack, _) in NEW_MODELS.items():
+        tracer = "K1z (zpc)" if interp == "zpc" else "K1q (quadratic)"
+        table = field_model(interp).table(m, grid).contiguous()
+        packed = getattr(kernels, pack)(table, grid)
+        with_ = getattr(kernels, name + "_with")
+
+        def run(threads, pk=packed, od=order):
+            return with_(table, grid, o, d, N_STEPS, False, packed=pk,
+                         order=od, threads=threads, **kw)
+
+        want = run(128, None, None)
+        variants = [(label, t) for label in builds for t in thread_choices]
+        if parent is not None:
+            variants += [("parent", t) for t in thread_choices]
+        for label, t in variants:
+            got = with_lib(label, lambda: run(t))
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, want)
+                      if b is not None),
+                  f"{name}, {label}, {t} a block, packed and sorted: bitwise "
+                  f"the unpacked evaluator in ray order")
+        del got
+        times = {}
+        for pass_ in range(2):
+            for label, t in (variants if pass_ == 0 else variants[::-1]):
+                times.setdefault((label, t), []).append(with_lib(
+                    label, lambda: device_ms(lambda: run(t), reps)))
+        print(f"  {name}, the tracer alone (packed, sorted) at {n_rays} rays "
+              f"x {N_STEPS} steps on {card}:")
+        for (label, t), ms in times.items():
+            key = (label, tracer)
+            extra = ""
+            if key in loops:
+                instr, b_ms = bound_of(*key, N_STEPS, n_rays)
+                r = regs[key][0]
+                extra = (f"; {r} registers, occupancy "
+                         f"{theoretical_occupancy(r, t):.3f}, spills "
+                         f"{regs[key][2]}/{regs[key][3]} B; issue-slot bound "
+                         f"{b_ms:.4f} ms ({instr:.0f} instructions a step), "
+                         f"{b_ms / min(ms):.3f} of it")
+            print(f"    {label}, {t} a block: "
+                  f"{', '.join(f'{x:.4f}' for x in ms)} ms{extra}")
+        best = min(times.items(), key=lambda kv: min(kv[1]))
+        print(f"  {name}: fastest {best[0]} {min(best[1]):.4f} ms")
+
+        # (d) the call's pieces, and the call whole, at the bench's batch
+        call = getattr(kernels, name)
+        keys = kernels.ray_order_keys(o, d, grid)
+        idx = torch.sort(keys).indices
+        threads = kernels.sort_and_pack(name, n_rays, sms)[1]
+        pieces = {
+            "keys": lambda: kernels.ray_order_keys(o, d, grid),
+            "sort": lambda: torch.sort(keys),
+            "cast": lambda: idx.to(torch.int32),
+            "pack": lambda: getattr(kernels, pack)(table, grid),
+            f"tracer ({threads} a block)": lambda: run(threads)}
+        ms = {k: device_ms(f, reps * 5) for k, f in pieces.items()}
+        whole = device_ms(lambda: call(table, grid, o, d, N_STEPS, False,
+                                       **kw), reps * 5)
+        wall = cuda_ms(lambda: call(table, grid, o, d, N_STEPS, False, **kw),
+                       20)
+        print(f"  {name}'s call at {n_rays} rays: " + "; ".join(
+            f"{k} {v:.4f}" for k, v in ms.items())
+              + f" ms; their sum {sum(ms.values()):.4f}; the call "
+              f"{whole:.4f} ms of device time, {wall:.4f} ms on the stream "
+              f"(CUDA events, gaps included)")
+        samples = clocks_under(lambda: run(threads))
+        if samples:
+            mhz = sorted(s[0] for s in samples)
+            print(f"  {name}: SM clock under the tracer {mhz[0]:.0f}-"
+                  f"{mhz[-1]:.0f} MHz (median {mhz[len(mhz) // 2]:.0f}), "
+                  f"power {max(s[1] for s in samples):.1f} W at most, "
+                  f"{len(samples)} samples")
+
+        # where sorting and packing pays: the whole call at batches of the
+        # bench's rays, as it is (32 or 64 a block) or sorted and packed
+        for n in (10000, 128 * sms, 192 * sms, 256 * sms, 320 * sms,
+                  384 * sms, 448 * sms, 512 * sms, 640 * sms, 768 * sms,
+                  1024 * sms, n_rays):
+            on, dn = o_all[:n].contiguous(), d_all[:n].contiguous()
+
+            def as_is(t, on=on, dn=dn):
+                return with_(table, grid, on, dn, N_STEPS, False,
+                             packed=None, order=None, threads=t, **kw)
+
+            def sorted_packed(t, on=on, dn=dn):
+                return with_(table, grid, on, dn, N_STEPS, False,
+                             packed=getattr(kernels, pack)(table, grid),
+                             order=kernels.ray_order(on, dn, grid),
+                             threads=t, **kw)
+
+            ways = {f"as it is, {t}": (lambda t=t: as_is(t)) for t in (32, 64)}
+            ways.update({f"sorted and packed, {t}":
+                         (lambda t=t: sorted_packed(t))
+                         for t in thread_choices})
+            print(f"  {name} at {n} rays ({n / sms:.0f} an SM), the call: "
+                  + "; ".join(f"{k} {device_ms(f, reps):.4f}"
+                              for k, f in ways.items()) + " ms")
+        del table, packed, want
+        torch.cuda.empty_cache()
+
+    # (b) for the other tracers: the tracer alone at its launch beside its
+    # issue-slot bound
+    grid_cpu = Grid3D.from_bounds(*BOUNDS, (N_GRID,) * 3, device="cpu")
+    mp = torch.from_numpy(perturbed_log_field(
+        grid_cpu, np.random.default_rng(14), chapman)).to(dev)
+    others = []
+    for label, interp, world, with_name, pack, threads, steps in (
+            ("K1 (zp)", "zp", m, "trace_leapfrog_zp", "pack_zp_taps", 64,
+             N_STEPS),
+            ("K1c (cubic)", "cubic", m, "trace_leapfrog_cubic",
+             "pack_z_taps", 256, N_STEPS),
+            ("K1r zp", "zp", mp, "trace_rk4_zp", "pack_zp_taps", 256,
+             N_STEPS),
+            ("K1r cubic", "cubic", mp, "trace_rk4_cubic", "pack_z_taps", 256,
+             N_STEPS),
+            ("K1r zpc", "zpc", mp, "trace_rk4_zpc", "pack_z_taps", 256,
+             N_STEPS),
+            ("K1r quadratic", "quadratic", mp, "trace_rk4_quad",
+             "pack_zp_taps", 256, N_STEPS)):
+        table = field_model(interp).table(world, grid).contiguous()
+        packed = getattr(kernels, pack)(table, grid)
+        fn = (lambda w=getattr(kernels, with_name + "_with"), tb=table,
+              pk=packed, t=threads, s=steps: w(
+                  tb, grid, o, d, s, False, packed=pk, order=order,
+                  threads=t, **kw))
+        others.append((label, steps, threads, fn))
+    bg = chapman.background_ne_fn()
+    pert = fermat.split_perturbation(mp, grid, bg).contiguous()
+    params = bg.kernel_params(dev)
+    packed_pert = kernels.pack_z_taps(pert, grid)
+    for label, steps, rk4 in (("K1s leapfrog", 32, False),
+                              ("K1s rk4", N_STEPS, True)):
+        others.append((label, steps, 256, lambda s=steps, r=rk4:
+                       kernels.trace_split_with(
+                           pert, grid, o, d, s, False, packed=packed_pert,
+                           order=order, threads=256, rk4=r,
+                           background=params, **kw)))
+    print(f"  the issue-slot bound of every tracer's step at {n_rays} rays "
+          f"(max SM clock {clock:.0f} MHz), beside the tracer alone (packed, "
+          f"sorted) on {card}:")
+    for label, steps, threads, fn in others:
+        ms = min(device_ms(fn, reps) for _ in range(2))
+        if ("default", label) not in loops:
+            print(f"    {label}: {ms:.4f} ms (no loop found)")
+            continue
+        instr, b_ms = bound_of("default", label, steps, n_rays)
+        counts = loops["default", label]
+        r = regs["default", label][0]
+        print(f"    {label} ({steps} steps, {threads} a block): {ms:.4f} ms; "
+              f"{instr:.0f} instructions a step, issue-slot bound "
+              f"{b_ms:.4f} ms, {b_ms / ms:.3f} of it; {r} registers, "
+              f"occupancy {theoretical_occupancy(r, threads):.3f}; MUFU "
+              f"{counts['mufu_by_function']}")
+    return 0
 
 
 def serving_endpoints(dev, boxspline, fermat, rays, tec, Grid3D, chapman):
@@ -5408,6 +5894,8 @@ def main() -> int:
         return k6zt_study()
     if "--rk4-study" in args:
         return rk4_study()
+    if "--k1zq-study" in args:
+        return k1zq_study(parent_dir)
     if "--member-study" in args:
         return member_study()
     if "--k2-study" in args:

@@ -46,9 +46,10 @@
   (csrc/quad_value_grad.cu, csrc/quad_eval.cuh);
 - K1z ``trace_leapfrog_zpc`` and K1q ``trace_leapfrog_quad``: the leapfrog
   tracer over the zpc and the triquadratic model (csrc/trace_leapfrog_zpc.cu,
-  csrc/trace_leapfrog_quad.cu), K1's call on K6z's and K6q's evaluators,
-  over K1c's z-tap pack (zpc's z stencil is the tricubic one) and K1's
-  (quadratic's is the zp one);
+  csrc/trace_leapfrog_quad.cu), on K6z's and K6q's evaluators over K1c's
+  z-tap pack (zpc's z stencil is the tricubic one) and K1's (quadratic's is
+  the zp one), each with its own register budget over the packed table and
+  its own threshold and blocks in K1's call (``SORT_AND_PACK``);
 - K1r ``trace_rk4_zp``, ``trace_rk4_cubic``, ``trace_rk4_zpc`` and
   ``trace_rk4_quad``: the rk4 tracer, all steps in one launch, over each
   model's evaluators, packs and call (in the same sources as the model's
@@ -458,6 +459,43 @@ def _consts(h: float, hh12: float, w_n: float, w_rhs: float, k_ne: float,
 #: 448; serving's 620 rays (5 an SM) take neither.
 TRACE_ZP_RAYS_PER_SM = 448
 
+#: K1r's block at a sorted batch (with the register budget each source
+#: gives its K1r: 2, 3, 2 and 4 blocks of 256 an SM on zp, cubic, zpc and
+#: quadratic). From ``chip_smoke.py --rk4-study`` (NVIDIA H100 80GB HBM3,
+#: 700 W, the tracer alone at 262,144 rays × 64 steps): 256 a block was
+#: fastest on every model at its budget, 0.1-3 % before 64 and 128.
+TRACE_RK4_THREADS = 256
+
+#: The launch of each call that sorts and packs as K1 does
+#: (``_sorted_and_packed``): (rays an SM from which it sorts the rays and
+#: packs the table's z taps, its block then, its block below). K1 and K1r
+#: on zp, zpc and quadratic take K1's threshold (``--k1-study``); K1z and
+#: K1q their own, from ``chip_smoke.py --k1zq-study`` (NVIDIA H100 80GB
+#: HBM3, 700 W, the whole call at 10,000-262,144 of the bench's rays): the
+#: sorted call beat the table as it is from 384 rays an SM on both (K1z
+#: 0.1664 against 0.1892 ms, K1q 0.1806 against 0.2087; at 320, 0.1656
+#: against 0.1590 and 0.1839 against 0.1735); K1z's at 64 rays a block
+#: (within 1 % of 256 at 262,144 rays, 8 % faster at 640 an SM), K1q's at
+#: 256 (4.5 % faster than 64 at 262,144).
+SORT_AND_PACK = {
+    "trace_leapfrog_zp": (TRACE_ZP_RAYS_PER_SM, 64, 32),
+    "trace_leapfrog_zpc": (384, 64, 32),
+    "trace_leapfrog_quad": (384, 256, 32),
+    **{f"trace_rk4_{m}": (TRACE_ZP_RAYS_PER_SM, TRACE_RK4_THREADS, 32)
+       for m in ("zp", "zpc", "quad")},
+}
+
+
+def sort_and_pack(name: str, n_rays: int, n_sms: int):
+    """(sorted and packed, block size) of the call ``name`` (a key of
+    ``SORT_AND_PACK``) at ``n_rays`` rays on a card of ``n_sms`` SMs: from
+    its threshold of rays an SM the rays sorted and the table packed first,
+    below the table as it is in ray order."""
+    per_sm, threads, small = SORT_AND_PACK[name]
+    if n_rays >= per_sm * n_sms:
+        return True, threads
+    return False, small
+
 
 def trace_leapfrog_zp(coef2d: torch.Tensor, grid, origins: torch.Tensor,
                       directions: torch.Tensor, n_steps: int, keep_path: bool,
@@ -482,9 +520,9 @@ def trace_leapfrog_zpc(coef2d: torch.Tensor, grid, origins: torch.Tensor,
                        keep_path: bool, **consts):
     """K1z: as ``trace_leapfrog_zp`` through the zpc table
     (``core.zpcubic.prefilter`` reshaped), over K1c's pack
-    (``pack_z_taps``: zpc's z stencil is the tricubic one) where K1 packs.
-    Each ray's outputs are bitwise those of the unpacked evaluator in ray
-    order."""
+    (``pack_z_taps``: zpc's z stencil is the tricubic one), at its own
+    threshold and blocks (``SORT_AND_PACK``). Each ray's outputs are
+    bitwise those of the unpacked evaluator in ray order."""
     return _sorted_and_packed("trace_leapfrog_zpc", trace_leapfrog_zpc_with,
                               pack_z_taps, coef2d, grid, origins,
                               directions, n_steps, keep_path, consts)
@@ -495,32 +533,50 @@ def trace_leapfrog_quad(coef2d: torch.Tensor, grid, origins: torch.Tensor,
                         keep_path: bool, **consts):
     """K1q: as ``trace_leapfrog_zp`` through the triquadratic coefficient
     table (``core.triquadratic.prefilter`` reshaped), over K1's pack
-    (``pack_zp_taps``: quadratic's z stencil is the zp one) where K1
-    packs. Each ray's outputs are bitwise those of the unpacked evaluator
-    in ray order."""
+    (``pack_zp_taps``: quadratic's z stencil is the zp one), at its own
+    threshold and blocks (``SORT_AND_PACK``). Each ray's outputs are
+    bitwise those of the unpacked evaluator in ray order."""
     return _sorted_and_packed("trace_leapfrog_quad", trace_leapfrog_quad_with,
                               pack_zp_taps, coef2d, grid, origins,
                               directions, n_steps, keep_path, consts)
 
 
 def _sorted_and_packed(name, with_fn, pack, table, grid, origins,
-                       directions, n_steps, keep_path, consts, threads=64):
-    """K1's call, which K1z and K1q share: from ``TRACE_ZP_RAYS_PER_SM``
-    rays an SM the rays sorted (``ray_order``) and the table's z taps
-    packed (``pack``) first, ``threads`` rays a block; below, the table as
-    it is in ray order, 32 rays a block."""
+                       directions, n_steps, keep_path, consts):
+    """K1's call, which K1z, K1q and K1r on zp, zpc and quadratic share,
+    at the launch ``sort_and_pack`` gives ``name``: the rays sorted
+    (``ray_order``) and the table's z taps packed (``pack``) first, or the
+    table as it is in ray order."""
     r = origins.shape[0]
     dev = _check(name, [("origins", origins, torch.float32, (r, 3)),
                         ("directions", directions, torch.float32, (r, 3))]
                  + _grid_specs(name, table, grid, 3))
-    per_sm = r / torch.cuda.get_device_properties(dev).multi_processor_count
-    if per_sm < TRACE_ZP_RAYS_PER_SM:
+    sort, threads = sort_and_pack(
+        name, r, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if not sort:
         return with_fn(table, grid, origins, directions, n_steps, keep_path,
-                       packed=None, order=None, threads=32, **consts)
+                       packed=None, order=None, threads=threads, **consts)
     return with_fn(table, grid, origins, directions, n_steps, keep_path,
                    packed=pack(table, grid),
                    order=ray_order(origins, directions, grid),
                    threads=threads, **consts)
+
+
+#: The largest block of a tracer launched at a register budget
+#: (``csrc/trace_leapfrog.cuh``: ``kBudgetMaxThreads``): K1r, K1s's rk4, and
+#: K1z and K1q over the packed table. The others take up to 1024.
+BUDGET_MAX_THREADS = 256
+
+
+def _check_threads(name, threads, budgeted):
+    """A tracer's block size: a multiple of 32 up to 1024, or up to
+    ``BUDGET_MAX_THREADS`` where the launch is ``budgeted``."""
+    most = BUDGET_MAX_THREADS if budgeted else 1024
+    if threads < 32 or threads > most or threads % 32:
+        raise ValueError(f"{name}: threads must be a multiple of 32 from 32 "
+                         f"to {most}" + (" (its launch's register budget)"
+                                         if budgeted else "")
+                         + f", got {threads}")
 
 
 def _trace_with(name, min_axis, pack_bases, table, grid, origins, directions,
@@ -528,6 +584,9 @@ def _trace_with(name, min_axis, pack_bases, table, grid, origins, directions,
     """Launch a leapfrog tracer with its layout, ray order and block size
     given: ``packed`` the (nz − pack_bases, nx*ny, 4) z-tap pack of
     ``table`` or None, ``order`` (R,) int32 or None."""
+    _check_threads(name, threads, name.startswith("trace_rk4_") or (
+        packed is not None
+        and name in ("trace_leapfrog_zpc", "trace_leapfrog_quad")))
     dev, x_end, tau, path = _trace_outputs(name, min_axis, table, grid,
                                            origins, directions, n_steps,
                                            keep_path)
@@ -569,7 +628,8 @@ def trace_leapfrog_zpc_with(coef2d, grid, origins, directions, n_steps: int,
                             keep_path: bool, *, packed, order, threads: int,
                             **consts):
     """K1z with its layout, ray order and block size given: packed, K1c's
-    packed table of ``coef2d`` (``pack_z_taps``) or None."""
+    packed table of ``coef2d`` (``pack_z_taps``) or None; over it a block
+    of at most ``BUDGET_MAX_THREADS`` (its register budget's)."""
     return _trace_with("trace_leapfrog_zpc", 3, 1, coef2d, grid, origins,
                        directions, n_steps, keep_path, packed, order, threads,
                        consts)
@@ -579,7 +639,8 @@ def trace_leapfrog_quad_with(coef2d, grid, origins, directions,
                              n_steps: int, keep_path: bool, *, packed, order,
                              threads: int, **consts):
     """K1q with its layout, ray order and block size given: packed, K1's
-    packed table of ``coef2d`` (``pack_zp_taps``) or None."""
+    packed table of ``coef2d`` (``pack_zp_taps``) or None; over it a block
+    of at most ``BUDGET_MAX_THREADS`` (its register budget's)."""
     return _trace_with("trace_leapfrog_quad", 3, 2, coef2d, grid, origins,
                        directions, n_steps, keep_path, packed, order, threads,
                        consts)
@@ -762,6 +823,7 @@ def trace_split_with(pert2d, grid, origins, directions, n_steps: int,
     """K1s with its layout, ray order and block size given (as
     ``trace_leapfrog_cubic_with``)."""
     name = "trace_split"
+    _check_threads(name, threads, rk4)
     dev, x_end, tau, path = _trace_outputs(name, 2, pert2d, grid, origins,
                                            directions, n_steps, keep_path)
     layers = background["layers"]
@@ -797,22 +859,14 @@ def trace_split_with(pert2d, grid, origins, directions, n_steps: int,
     return x_end, tau, path
 
 
-#: K1r's block at a sorted batch (with the register budget each source
-#: gives its K1r: 2, 3, 2 and 4 blocks of 256 an SM on zp, cubic, zpc and
-#: quadratic). From ``chip_smoke.py --rk4-study`` (NVIDIA H100 80GB HBM3,
-#: 700 W, the tracer alone at 262,144 rays × 64 steps): 256 a block was
-#: fastest on every model at its budget, 0.1-3 % before 64 and 128.
-TRACE_RK4_THREADS = 256
-
-
 def _rk4_tracer(model, policy, min_axis, pack_bases):
     """K1r on ``model`` (``trace_rk4_<model>``, counted under that name):
     its call and its ``_with``, those of the model's leapfrog tracer with
     the rk4 integrator, four evaluations a step, at a sorted batch
     ``TRACE_RK4_THREADS`` rays a block. ``policy``: the leapfrog
-    tracer's call (``_sorted_and_packed`` over its pack, or
-    ``_cubic_call``); ``min_axis``, ``pack_bases``: its ``_trace_with``
-    layout."""
+    tracer's call (``_sorted_and_packed`` over its pack, at K1's
+    threshold, ``SORT_AND_PACK``; or ``_cubic_call``); ``min_axis``,
+    ``pack_bases``: its ``_trace_with`` layout."""
     name = "trace_rk4_" + model
 
     def with_layout(table, grid, origins, directions, n_steps: int,
@@ -825,8 +879,7 @@ def _rk4_tracer(model, policy, min_axis, pack_bases):
     def call(table, grid, origins, directions, n_steps: int,
              keep_path: bool, **consts):
         return policy(name, with_layout, table, grid, origins, directions,
-                      n_steps, keep_path, consts,
-                      threads=TRACE_RK4_THREADS)
+                      n_steps, keep_path, consts)
 
     call.__name__, with_layout.__name__ = name, name + "_with"
     call.__doc__ = (f"K1r on {model}: ``trace_leapfrog_{model}``'s call "
@@ -848,7 +901,8 @@ def _packed_by(pack):
 trace_rk4_zp, trace_rk4_zp_with = _rk4_tracer(
     "zp", _packed_by(pack_zp_taps), 3, 2)
 trace_rk4_cubic, trace_rk4_cubic_with = _rk4_tracer(
-    "cubic", _cubic_call, 2, 1)
+    "cubic", lambda *args: _cubic_call(*args, threads=TRACE_RK4_THREADS), 2,
+    1)
 trace_rk4_zpc, trace_rk4_zpc_with = _rk4_tracer(
     "zpc", _packed_by(pack_z_taps), 3, 1)
 trace_rk4_quad, trace_rk4_quad_with = _rk4_tracer(

@@ -248,37 +248,24 @@ static __device__ __forceinline__ void trace_rk4_ray(
   tau_out[r] = tau;
 }
 
-// The launches of every tracer: one thread per ray, `threads` a block,
-// over an n_e-level evaluator that may carry its own data (a packed table,
-// a background's parameters). Thread t traces ray order[t] (order null:
-// ray t) and writes that ray's outputs at its own index, so an order
-// changes which rays share a warp and nothing else. trace_ordered_kernel
-// integrates with leapfrog, trace_rk4_kernel with rk4.
-template <class NeField>
-__global__ void trace_ordered_kernel(
-    NeField field, const float* __restrict__ table,
-    const float* __restrict__ origin, const float* __restrict__ spacing,
-    int nx, int ny, int nz, const float* __restrict__ origins,
-    const float* __restrict__ directions, const int* __restrict__ order,
-    int n_rays, int n_steps, TraceConsts c, float* __restrict__ x_end,
-    float* __restrict__ tau_out, float* __restrict__ path) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_rays) return;
-  const int r = order ? __ldg(order + t) : t;
-  const TableGrid g = table_grid(table, origin, spacing, nx, ny, nz);
-  trace_leapfrog_ray(field, g, c, origins, directions, r, n_steps, x_end,
-                     tau_out, path);
-}
+// The launch of every tracer: one thread per ray, `threads` a block, over
+// an n_e-level evaluator that may carry its own data (a packed table, a
+// background's parameters). Thread t traces ray order[t] (order null: ray
+// t) and writes that ray's outputs at its own index, so an order changes
+// which rays share a warp and nothing else. kRk4 selects the integrator
+// (rk4, else leapfrog). kMinBlocks > 0 bounds the launch at
+// kBudgetMaxThreads a block with the registers of kMinBlocks such blocks
+// an SM (65536 / (kBudgetMaxThreads * kMinBlocks) a thread): the budget
+// each source names for its model (K1R_BUDGET, chip_smoke.py --rk4-study;
+// K1_BUDGET, --k1zq-study). kMinBlocks = 0 sets no bound
+// (__launch_bounds__(0, 0) emits none) and the compiler picks the
+// registers: K1's, K1c's and K1s's leapfrog.
+constexpr int kBudgetMaxThreads = 256;
 
-// K1r's launch: at most kRk4MaxThreads a block and the registers of
-// kMinBlocks such blocks an SM (65536 / (kRk4MaxThreads * kMinBlocks) a
-// thread), the budget each source that launches rk4 names for its model
-// (chip_smoke.py --rk4-study).
-constexpr int kRk4MaxThreads = 256;
-
-template <class NeField, int kMinBlocks>
-__global__ void __launch_bounds__(kRk4MaxThreads, kMinBlocks)
-    trace_rk4_kernel(
+template <bool kRk4, int kMinBlocks, class NeField>
+__global__ void __launch_bounds__(kMinBlocks > 0 ? kBudgetMaxThreads : 0,
+                                  kMinBlocks)
+    trace_ordered_kernel(
         NeField field, const float* __restrict__ table,
         const float* __restrict__ origin, const float* __restrict__ spacing,
         int nx, int ny, int nz, const float* __restrict__ origins,
@@ -289,9 +276,22 @@ __global__ void __launch_bounds__(kRk4MaxThreads, kMinBlocks)
   if (t >= n_rays) return;
   const int r = order ? __ldg(order + t) : t;
   const TableGrid g = table_grid(table, origin, spacing, nx, ny, nz);
-  trace_rk4_ray(field, g, c, origins, directions, r, n_steps, x_end,
-                tau_out, path);
+  if constexpr (kRk4)
+    trace_rk4_ray(field, g, c, origins, directions, r, n_steps, x_end,
+                  tau_out, path);
+  else
+    trace_leapfrog_ray(field, g, c, origins, directions, r, n_steps, x_end,
+                       tau_out, path);
 }
+
+// A study build's register budget for K1z's and K1q's leapfrog over the
+// packed table (-DK1_MIN_BLOCKS=n, chip_smoke.py --k1zq-study), else the
+// model's own.
+#ifdef K1_MIN_BLOCKS
+#define K1_BUDGET(model_default) (K1_MIN_BLOCKS)
+#else
+#define K1_BUDGET(model_default) (model_default)
+#endif
 
 // A study build's register budget for every model's K1r
 // (-DK1R_MIN_BLOCKS=n, chip_smoke.py --rk4-study), else the model's own.
@@ -301,32 +301,24 @@ __global__ void __launch_bounds__(kRk4MaxThreads, kMinBlocks)
 #define K1R_BUDGET(model_default) (model_default)
 #endif
 
-// threads: a multiple of 32 up to 1024 (up to kRk4MaxThreads for rk4); rk4
-// selects the integrator, kRk4Budget rk4's register budget (blocks of
-// kRk4MaxThreads an SM; 0, a caller that launches leapfrog only: rk4 is an
-// invalid value).
-template <int kRk4Budget = 0, class NeField>
+// threads: a multiple of 32 up to 1024, up to kBudgetMaxThreads at a
+// budget; kRk4 the integrator, kBudget its register budget as
+// trace_ordered_kernel takes it.
+template <bool kRk4, int kBudget, class NeField>
 static int launch_trace_ordered(
-    bool rk4, const NeField& field, const float* table, const float* origin,
+    const NeField& field, const float* table, const float* origin,
     const float* spacing, int nx, int ny, int nz, const float* origins,
     const float* directions, const int* order, int n_rays, int n_steps,
     const TraceConsts& c, int threads, float* x_end, float* tau_out,
     float* path, void* stream) {
-  if (threads < 32 || threads > 1024 || threads % 32 != 0)
+  constexpr int kMaxThreads = kBudget > 0 ? kBudgetMaxThreads : 1024;
+  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
   const int blocks = (n_rays + threads - 1) / threads;
-  auto kernel = trace_ordered_kernel<NeField>;
-  if (rk4) {
-    if constexpr (kRk4Budget > 0) {
-      if (threads > kRk4MaxThreads) return (int)cudaErrorInvalidValue;
-      kernel = trace_rk4_kernel<NeField, kRk4Budget>;
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
-  }
-  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      field, table, origin, spacing, nx, ny, nz, origins, directions, order,
-      n_rays, n_steps, c, x_end, tau_out, path);
+  trace_ordered_kernel<kRk4, kBudget, NeField>
+      <<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          field, table, origin, spacing, nx, ny, nz, origins, directions,
+          order, n_rays, n_steps, c, x_end, tau_out, path);
   return (int)cudaGetLastError();
 }
 
@@ -334,23 +326,27 @@ static int launch_trace_ordered(
 // packed, the model's z-tap pack of `table`, which the tracer reads in its
 // place (Packed's evaluator), or null (Plain's); order: (n_rays,) ray of
 // each thread, or null; threads: the block size; path may be null
-// (keep_path=False); kRk4Budget: K1r's register budget, as
-// launch_trace_ordered takes it (K1r's entries name theirs).
-template <class Plain, class Packed, int kRk4Budget = 0>
+// (keep_path=False); kRk4 the integrator, kBudget its register budget (the
+// entries name theirs; 0: the compiler's registers). Over the unpacked
+// table leapfrog keeps the compiler's registers: the wrappers read the
+// table as it is only at batches too small to fill the card
+// (kernels.SORT_AND_PACK), where a budget that fills the card costs each
+// ray's latency.
+template <bool kRk4, int kBudget, class Plain, class Packed>
 static int trace_log_density(
-    bool rk4, const float* table, const float* packed, const float* origin,
+    const float* table, const float* packed, const float* origin,
     const float* spacing, int nx, int ny, int nz, const float* origins,
     const float* directions, const int* order, int n_rays, int n_steps,
     float h, float hh12, float w_n, float w_rhs, float k_ne, float tec_unit,
     int threads, float* x_end, float* tau, float* path, void* stream) {
   const TraceConsts c{h, hh12, w_n, w_rhs, k_ne, tec_unit};
   if (packed == nullptr)
-    return launch_trace_ordered<kRk4Budget>(
-        rk4, LogNe<Plain>{Plain{}}, table, origin, spacing, nx, ny, nz,
-        origins, directions, order, n_rays, n_steps, c, threads, x_end, tau,
-        path, stream);
-  return launch_trace_ordered<kRk4Budget>(
-      rk4, LogNe<Packed>{Packed{reinterpret_cast<const float4*>(packed)}},
-      table, origin, spacing, nx, ny, nz, origins, directions, order, n_rays,
+    return launch_trace_ordered<kRk4, kRk4 ? kBudget : 0>(
+        LogNe<Plain>{Plain{}}, table, origin, spacing, nx, ny, nz, origins,
+        directions, order, n_rays, n_steps, c, threads, x_end, tau, path,
+        stream);
+  return launch_trace_ordered<kRk4, kBudget>(
+      LogNe<Packed>{Packed{reinterpret_cast<const float4*>(packed)}}, table,
+      origin, spacing, nx, ny, nz, origins, directions, order, n_rays,
       n_steps, c, threads, x_end, tau, path, stream);
 }

@@ -175,8 +175,9 @@ extern "C" int ionotomo_trace_leapfrog_cubic(
     float h, float hh12, float w_n, float w_rhs, float k_ne, float tec_unit,
     int threads, float* x_end, float* tau, float* path, void* stream) {
   if (nx < 2 || ny < 2 || nz < 2) return (int)cudaErrorInvalidValue;
-  return trace_log_density<CubicValueGrad, CubicValueGradPacked>(
-      false, table, packed, origin, spacing, nx, ny, nz, origins, directions,
+  return trace_log_density<false, 0, CubicValueGrad,
+                           CubicValueGradPacked>(
+      table, packed, origin, spacing, nx, ny, nz, origins, directions,
       order, n_rays, n_steps, h, hh12, w_n, w_rhs, k_ne, tec_unit, threads,
       x_end, tau, path, stream);
 }
@@ -193,9 +194,9 @@ extern "C" int ionotomo_trace_rk4_cubic(
     float h, float hh12, float w_n, float w_rhs, float k_ne, float tec_unit,
     int threads, float* x_end, float* tau, float* path, void* stream) {
   if (nx < 2 || ny < 2 || nz < 2) return (int)cudaErrorInvalidValue;
-  return trace_log_density<CubicValueGrad, CubicValueGradPacked,
-                           K1R_BUDGET(3)>(
-      true, table, packed, origin, spacing, nx, ny, nz, origins, directions,
+  return trace_log_density<true, K1R_BUDGET(3), CubicValueGrad,
+                           CubicValueGradPacked>(
+      table, packed, origin, spacing, nx, ny, nz, origins, directions,
       order, n_rays, n_steps, h, hh12, w_n, w_rhs, k_ne, tec_unit, threads,
       x_end, tau, path, stream);
 }

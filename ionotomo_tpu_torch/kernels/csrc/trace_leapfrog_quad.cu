@@ -14,19 +14,27 @@
 // (trace_rays(method="rk4", interp="quadratic")), four evaluations a step
 // in one launch where the reference's rk4 scan makes four gathers a step.
 //
-// Bound on the H100: the field gather, as K1's. Each step evaluates the
-// field once: 9 rows x 3 z taps, plus ~510 flops.
+// Bound on the H100: its instructions and their latency. A step runs ~350
+// SASS instructions (chip_smoke.py --k1zq-study: ten IEEE divisions, two
+// square roots and an exp, the three axes' weights, 9 one-sector loads),
+// so the bench's 262,144 rays x 64 steps take at least ~0.18 ms at one warp
+// instruction a clock on each of the card's 528 schedulers; the tracer
+// runs at ~0.30 ms, latency in the way: successive steps of one ray depend
+// on each other, so only other rays in flight hide a step's loads.
 //
-// Design: K1's (trace_leapfrog_zp.cu), on the evaluator of quad_eval.cuh:
-// - quadratic's z stencil is the zp one (b-1, b, b+1 of the nearest base
-//   b, clamped to [1, nz-2]), so the z-tap-packed table is K1's
-//   (pack_zp_taps in trace_leapfrog_zp.cu): a step makes 9 one-sector
-//   loads;
-// - the wrapper (kernels.trace_leapfrog_quad) packs and sorts the rays
-//   (kernels.ray_order) from kernels.TRACE_ZP_RAYS_PER_SM rays an SM, as
-//   K1 does; a smaller batch reads the table as it is, in ray order, 32
-//   rays a block;
-// - one thread per ray, the integrator of trace_leapfrog.cuh. The packed
+// Design (chip_smoke.py --k1zq-study):
+// - the leapfrog over the packed table takes a register budget of 4
+//   blocks of 256 an SM (K1_BUDGET(4): 64 registers, the most rays in
+//   flight): of the budgets 0-4 the fastest, 256 rays a block; the table
+//   as it is (a small batch) keeps the compiler's 71 registers, which a
+//   budget would cut at the cost of each ray's latency;
+// - the wrapper (kernels.trace_leapfrog_quad) packs the table with K1's
+//   pack_zp_taps (quadratic's z stencil is the zp one: a step makes 9
+//   one-sector loads) and sorts the rays (kernels.ray_order) from its own
+//   threshold of rays an SM, at its own block (kernels.SORT_AND_PACK); a
+//   smaller batch reads the table as it is, in ray order, 32 rays a block;
+// - one thread per ray, the integrator of trace_leapfrog.cuh (two rays a
+//   thread, interleaved, was slower: PERF.md). The packed
 //   and the unpacked evaluator weigh and sum alike, so every ray's output
 //   is bitwise what the unpacked kernel gives in ray order.
 //
@@ -66,8 +74,9 @@ extern "C" int ionotomo_trace_leapfrog_quad(
     float h, float hh12, float w_n, float w_rhs, float k_ne, float tec_unit,
     int threads, float* x_end, float* tau, float* path, void* stream) {
   if (nx < 3 || ny < 3 || nz < 3) return (int)cudaErrorInvalidValue;
-  return trace_log_density<QuadValueGrad, QuadValueGradPacked>(
-      false, coef, packed, origin, spacing, nx, ny, nz, origins, directions,
+  return trace_log_density<false, K1_BUDGET(4), QuadValueGrad,
+                           QuadValueGradPacked>(
+      coef, packed, origin, spacing, nx, ny, nz, origins, directions,
       order, n_rays, n_steps, h, hh12, w_n, w_rhs, k_ne, tec_unit, threads,
       x_end, tau, path, stream);
 }
@@ -84,9 +93,9 @@ extern "C" int ionotomo_trace_rk4_quad(
     float h, float hh12, float w_n, float w_rhs, float k_ne, float tec_unit,
     int threads, float* x_end, float* tau, float* path, void* stream) {
   if (nx < 3 || ny < 3 || nz < 3) return (int)cudaErrorInvalidValue;
-  return trace_log_density<QuadValueGrad, QuadValueGradPacked,
-                           K1R_BUDGET(4)>(
-      true, coef, packed, origin, spacing, nx, ny, nz, origins, directions,
+  return trace_log_density<true, K1R_BUDGET(4), QuadValueGrad,
+                           QuadValueGradPacked>(
+      coef, packed, origin, spacing, nx, ny, nz, origins, directions,
       order, n_rays, n_steps, h, hh12, w_n, w_rhs, k_ne, tec_unit, threads,
       x_end, tau, path, stream);
 }

@@ -127,8 +127,9 @@ extern "C" int ionotomo_trace_leapfrog_zp(
     float h, float hh12, float w_n, float w_rhs, float k_ne, float tec_unit,
     int threads, float* x_end, float* tau, float* path, void* stream) {
   if (nx < 3 || ny < 3 || nz < 3) return (int)cudaErrorInvalidValue;
-  return trace_log_density<ZpValueGrad, ZpValueGradPacked>(
-      false, coef, packed, origin, spacing, nx, ny, nz, origins, directions,
+  return trace_log_density<false, 0, ZpValueGrad,
+                           ZpValueGradPacked>(
+      coef, packed, origin, spacing, nx, ny, nz, origins, directions,
       order, n_rays, n_steps, h, hh12, w_n, w_rhs, k_ne, tec_unit, threads,
       x_end, tau, path, stream);
 }
@@ -145,9 +146,9 @@ extern "C" int ionotomo_trace_rk4_zp(
     float h, float hh12, float w_n, float w_rhs, float k_ne, float tec_unit,
     int threads, float* x_end, float* tau, float* path, void* stream) {
   if (nx < 3 || ny < 3 || nz < 3) return (int)cudaErrorInvalidValue;
-  return trace_log_density<ZpValueGrad, ZpValueGradPacked,
-                           K1R_BUDGET(2)>(
-      true, coef, packed, origin, spacing, nx, ny, nz, origins, directions,
+  return trace_log_density<true, K1R_BUDGET(2), ZpValueGrad,
+                           ZpValueGradPacked>(
+      coef, packed, origin, spacing, nx, ny, nz, origins, directions,
       order, n_rays, n_steps, h, hh12, w_n, w_rhs, k_ne, tec_unit, threads,
       x_end, tau, path, stream);
 }

@@ -13,21 +13,34 @@
 // (trace_rays(method="rk4", interp="zpc")), four evaluations a step
 // in one launch where the reference's rk4 scan makes four gathers a step.
 //
-// Bound on the H100: the field gather, as K1's. Each step evaluates the
-// field once: 7 live rows x 4 z taps, plus ~500 flops (weights, exp,
-// sqrt, two divisions, the kick-drift-kick update). Successive steps of
-// one ray depend on each other, so only other rays in flight hide a
-// step's loads.
+// Bound on the H100: its instructions, not its gather. A step runs ~500
+// SASS instructions (chip_smoke.py --k1zq-study counts the loop: ten IEEE
+// divisions and two square roots, each a MUFU with its refinement and
+// slow-path check, an exp, the zp weights of 7 translates, 7 one-sector
+// loads of the packed table), so the bench's 262,144 rays x 64 steps take
+// at least ~0.25 ms at one warp instruction a clock on each of the card's
+// 528 schedulers; the tracer runs at ~0.35 ms. Successive steps of one ray
+// depend on each other, so only other rays in flight hide a step's
+// latency.
 //
-// Design: K1's (trace_leapfrog_zp.cu), on the evaluator of zpc_eval.cuh:
-// - zpc's z stencil is the tricubic one (clamp(b-1), b, b+1, clamp(b+2) of
-//   the floor base b), so the z-tap-packed table is K1c's (pack_z_taps in
-//   trace_leapfrog_cubic.cu): a step makes 7 one-sector loads;
-// - the wrapper (kernels.trace_leapfrog_zpc) packs and sorts the rays
-//   (kernels.ray_order) from kernels.TRACE_ZP_RAYS_PER_SM rays an SM, as
-//   K1 does (zpc gathers zp's 7 rows); a smaller batch reads the table as
-//   it is, in ray order, 32 rays a block;
-// - one thread per ray, the integrator of trace_leapfrog.cuh. The packed
+// Design (chip_smoke.py --k1zq-study):
+// - the evaluator of zpc_eval.cuh forms the zp translates' weights from
+//   the tables as constants of the code (zp_eval.cuh:
+//   zp_translate_unrolled: no term of a zero coefficient, no constant-bank
+//   loads, integer lattice offsets) and addresses the packed rows with
+//   unsigned offsets: 612 -> 496 instructions a step (519 at
+//   the budget below, its spills), bitwise;
+// - the leapfrog over the packed table takes a register budget of 4
+//   blocks of 256 an SM (K1_BUDGET(4): 64 registers): of the budgets 0-4
+//   (0: the compiler's 77) the fastest at the bench's batch; the table as
+//   it is (a small batch) keeps the compiler's registers;
+// - the wrapper (kernels.trace_leapfrog_zpc) packs the table with K1c's
+//   pack_z_taps (zpc's z stencil is the tricubic one: a step makes 7
+//   one-sector loads) and sorts the rays (kernels.ray_order) from its own
+//   threshold of rays an SM, at its own block (kernels.SORT_AND_PACK); a
+//   smaller batch reads the table as it is, in ray order, 32 rays a block;
+// - one thread per ray, the integrator of trace_leapfrog.cuh (two rays a
+//   thread, interleaved, was no faster: PERF.md). The packed
 //   and the unpacked evaluator weigh and sum alike, so every ray's output
 //   is bitwise what the unpacked kernel gives in ray order.
 //
@@ -67,8 +80,9 @@ extern "C" int ionotomo_trace_leapfrog_zpc(
     float h, float hh12, float w_n, float w_rhs, float k_ne, float tec_unit,
     int threads, float* x_end, float* tau, float* path, void* stream) {
   if (nx < 3 || ny < 3 || nz < 3) return (int)cudaErrorInvalidValue;
-  return trace_log_density<ZpcValueGrad, ZpcValueGradPacked>(
-      false, coef, packed, origin, spacing, nx, ny, nz, origins, directions,
+  return trace_log_density<false, K1_BUDGET(4), ZpcValueGrad,
+                           ZpcValueGradPacked>(
+      coef, packed, origin, spacing, nx, ny, nz, origins, directions,
       order, n_rays, n_steps, h, hh12, w_n, w_rhs, k_ne, tec_unit, threads,
       x_end, tau, path, stream);
 }
@@ -85,9 +99,9 @@ extern "C" int ionotomo_trace_rk4_zpc(
     float h, float hh12, float w_n, float w_rhs, float k_ne, float tec_unit,
     int threads, float* x_end, float* tau, float* path, void* stream) {
   if (nx < 3 || ny < 3 || nz < 3) return (int)cudaErrorInvalidValue;
-  return trace_log_density<ZpcValueGrad, ZpcValueGradPacked,
-                           K1R_BUDGET(2)>(
-      true, coef, packed, origin, spacing, nx, ny, nz, origins, directions,
+  return trace_log_density<true, K1R_BUDGET(2), ZpcValueGrad,
+                           ZpcValueGradPacked>(
+      coef, packed, origin, spacing, nx, ny, nz, origins, directions,
       order, n_rays, n_steps, h, hh12, w_n, w_rhs, k_ne, tec_unit, threads,
       x_end, tau, path, stream);
 }

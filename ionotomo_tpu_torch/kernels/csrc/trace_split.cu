@@ -149,15 +149,18 @@ extern "C" int ionotomo_trace_split(
   const ChapmanBackground bg{reinterpret_cast<const float4*>(layers),
                              n_layers, factor, curved, zc0, r_earth, ps_n0,
                              ps_scale, h_top};
-  if (packed == nullptr)
-    return launch_trace_ordered<K1R_BUDGET(3)>(
-        rk4 != 0, SplitNe<PertValueGrad>{{}, bg}, pert, origin, spacing, nx,
-        ny, nz, origins, directions, order, n_rays, n_steps, c, threads,
-        x_end, tau, path, stream);
-  return launch_trace_ordered<K1R_BUDGET(3)>(
-      rk4 != 0,
-      SplitNe<PertValueGradPacked>{
-          {reinterpret_cast<const float4*>(packed)}, bg},
-      pert, origin, spacing, nx, ny, nz, origins, directions, order, n_rays,
-      n_steps, c, threads, x_end, tau, path, stream);
+  auto launch = [&](const auto& field) {
+    return rk4 != 0
+               ? launch_trace_ordered<true, K1R_BUDGET(3)>(
+                     field, pert, origin, spacing, nx, ny, nz, origins,
+                     directions, order, n_rays, n_steps, c, threads, x_end,
+                     tau, path, stream)
+               : launch_trace_ordered<false, 0>(
+                     field, pert, origin, spacing, nx, ny, nz, origins,
+                     directions, order, n_rays, n_steps, c, threads, x_end,
+                     tau, path, stream);
+  };
+  if (packed == nullptr) return launch(SplitNe<PertValueGrad>{{}, bg});
+  return launch(SplitNe<PertValueGradPacked>{
+      {reinterpret_cast<const float4*>(packed)}, bg});
 }

@@ -22,28 +22,73 @@
 
 // Canonical piece 3 (u+v > 0, u-v > 0) of boxspline._ZP_CW, as the
 // reference's _CW3 (6 monomials x 8 translates), _CU3 and _CV3 (d/du and
-// d/dv over the monomials 1, u, v), _DX3 and _DY3. Exact rationals /16.
-// tests/test_torch_slice.py checks these against the port's numpy tables.
-static __constant__ float kZpCW3[6][8] = {
-    {0.125f, 0.125f, 0.5f, 0.125f, 0.0f, 0.125f, 0.0f, 0.0f},
-    {-0.5f, 0.0f, 0.0f, 0.0f, 0.0f, 0.5f, 0.0f, 0.0f},
-    {0.0f, -0.5f, 0.0f, 0.5f, 0.0f, 0.0f, 0.0f, 0.0f},
-    {0.5f, -0.25f, -0.5f, -0.25f, 0.25f, 0.0f, 0.25f, 0.0f},
-    {0.0f, 0.5f, 0.0f, -0.5f, -0.5f, 0.0f, 0.5f, 0.0f},
-    {0.0f, 0.25f, -0.5f, 0.25f, 0.25f, -0.5f, 0.25f, 0.0f},
+// d/dv over the monomials 1, u, v), and _DX3 and _DY3 (zp_dxy's axes 0
+// and 1). Exact rationals /16. Each is read as a constant of the code where
+// the translate is known as the code is made (zp_translate_unrolled), and
+// copied into constant memory for the rest (kZp). tests/test_torch_slice.py
+// checks them against the port's numpy tables.
+static __host__ __device__ __forceinline__ constexpr float zp_cw3(int c,
+                                                                 int k) {
+  constexpr float t[6][8] = {
+      {0.125f, 0.125f, 0.5f, 0.125f, 0.0f, 0.125f, 0.0f, 0.0f},
+      {-0.5f, 0.0f, 0.0f, 0.0f, 0.0f, 0.5f, 0.0f, 0.0f},
+      {0.0f, -0.5f, 0.0f, 0.5f, 0.0f, 0.0f, 0.0f, 0.0f},
+      {0.5f, -0.25f, -0.5f, -0.25f, 0.25f, 0.0f, 0.25f, 0.0f},
+      {0.0f, 0.5f, 0.0f, -0.5f, -0.5f, 0.0f, 0.5f, 0.0f},
+      {0.0f, 0.25f, -0.5f, 0.25f, 0.25f, -0.5f, 0.25f, 0.0f},
+  };
+  return t[c][k];
+}
+static __host__ __device__ __forceinline__ constexpr float zp_cu3(int c,
+                                                                 int k) {
+  constexpr float t[3][8] = {
+      {-0.5f, 0.0f, 0.0f, 0.0f, 0.0f, 0.5f, 0.0f, 0.0f},
+      {1.0f, -0.5f, -1.0f, -0.5f, 0.5f, 0.0f, 0.5f, 0.0f},
+      {0.0f, 0.5f, 0.0f, -0.5f, -0.5f, 0.0f, 0.5f, 0.0f},
+  };
+  return t[c][k];
+}
+static __host__ __device__ __forceinline__ constexpr float zp_cv3(int c,
+                                                                 int k) {
+  constexpr float t[3][8] = {
+      {0.0f, -0.5f, 0.0f, 0.5f, 0.0f, 0.0f, 0.0f, 0.0f},
+      {0.0f, 0.5f, 0.0f, -0.5f, -0.5f, 0.0f, 0.5f, 0.0f},
+      {0.0f, 0.5f, -1.0f, 0.5f, 0.5f, -1.0f, 0.5f, 0.0f},
+  };
+  return t[c][k];
+}
+static __host__ __device__ __forceinline__ constexpr int zp_dxy(int axis,
+                                                               int k) {
+  constexpr int t[2][8] = {{-1, 0, 0, 0, 1, 1, 1, 0},
+                           {0, -1, 0, 1, -1, 0, 1, 0}};
+  return t[axis][k];
+}
+
+// The same tables in constant memory, for a translate chosen at run time
+// (zp_translate: K1e^T and K6z^T index it so).
+struct ZpTables {
+  float cw3[6][8];
+  float cu3[3][8];
+  float cv3[3][8];
+  float dx3[8];
+  float dy3[8];
 };
-static __constant__ float kZpCU3[3][8] = {
-    {-0.5f, 0.0f, 0.0f, 0.0f, 0.0f, 0.5f, 0.0f, 0.0f},
-    {1.0f, -0.5f, -1.0f, -0.5f, 0.5f, 0.0f, 0.5f, 0.0f},
-    {0.0f, 0.5f, 0.0f, -0.5f, -0.5f, 0.0f, 0.5f, 0.0f},
-};
-static __constant__ float kZpCV3[3][8] = {
-    {0.0f, -0.5f, 0.0f, 0.5f, 0.0f, 0.0f, 0.0f, 0.0f},
-    {0.0f, 0.5f, 0.0f, -0.5f, -0.5f, 0.0f, 0.5f, 0.0f},
-    {0.0f, 0.5f, -1.0f, 0.5f, 0.5f, -1.0f, 0.5f, 0.0f},
-};
-static __constant__ float kZpDX3[8] = {-1.f, 0.f, 0.f, 0.f, 1.f, 1.f, 1.f, 0.f};
-static __constant__ float kZpDY3[8] = {0.f, -1.f, 0.f, 1.f, -1.f, 0.f, 1.f, 0.f};
+
+static __host__ __device__ constexpr ZpTables zp_tables() {
+  ZpTables t{};
+  for (int k = 0; k < 8; ++k) {
+    for (int c = 0; c < 6; ++c) t.cw3[c][k] = zp_cw3(c, k);
+    for (int c = 0; c < 3; ++c) {
+      t.cu3[c][k] = zp_cu3(c, k);
+      t.cv3[c][k] = zp_cv3(c, k);
+    }
+    t.dx3[k] = (float)zp_dxy(0, k);
+    t.dy3[k] = (float)zp_dxy(1, k);
+  }
+  return t;
+}
+
+static __constant__ ZpTables kZp = zp_tables();
 
 // boxspline._neighborhood on one axis: clamped nearest-lattice base and
 // signed offset.
@@ -107,17 +152,49 @@ static __device__ __forceinline__ void zp_translate(const TableGrid& g,
                                                     float& wu, float& wv) {
   wk = 0.0f;
 #pragma unroll
-  for (int c = 0; c < 6; ++c) wk += q.mon[c] * kZpCW3[c][k];
+  for (int c = 0; c < 6; ++c) wk += q.mon[c] * kZp.cw3[c][k];
   float wuc = 0.0f, wvc = 0.0f;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    wuc += q.mon[c] * kZpCU3[c][k];
-    wvc += q.mon[c] * kZpCV3[c][k];
+    wuc += q.mon[c] * kZp.cu3[c][k];
+    wvc += q.mon[c] * kZp.cv3[c][k];
   }
   wu = q.a11 * wuc + q.a21 * wvc;
   wv = q.a12 * wuc + q.a11 * wvc;
-  const int dx = (int)(q.a11 * kZpDX3[k] + q.a21 * kZpDY3[k]);
-  const int dy = (int)(q.a12 * kZpDX3[k] + q.a11 * kZpDY3[k]);
+  const int dx = (int)(q.a11 * kZp.dx3[k] + q.a21 * kZp.dy3[k]);
+  const int dy = (int)(q.a12 * kZp.dx3[k] + q.a11 * kZp.dy3[k]);
+  const int ix = min(max(q.bx + dx, 0), g.nx - 1);
+  const int iy = min(max(q.by + dy, 0), g.ny - 1);
+  row = ix * g.ny + iy;
+}
+
+// zp_translate for translate k of an unrolled loop (k known where the code
+// is made), bitwise its result with fewer instructions: the tables are
+// read as constants of the code (zp_cw3, zp_cu3, zp_cv3, zp_dxy), a term of
+// a zero coefficient is not formed (each sum starts at +0 and can never
+// reach -0, so adding a zero leaves it as it is), every coefficient is a
+// power of two or zero (so a product is exact and contracting it into an
+// FMA changes nothing), and the lattice offsets are integer sums of the
+// piece map's entries (ia: a11, a12, a21 as ints, each -1, 0 or 1, whose
+// float sum zp_translate truncates exactly). K6z and K1z and K1r on zpc
+// take it; K1, K1e and K1r on zp keep zp_translate.
+static __device__ __forceinline__ void zp_translate_unrolled(
+    const TableGrid& g, const ZpPoint& q, const int (&ia)[3], int k,
+    int& row, float& wk, float& wu, float& wv) {
+  wk = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 6; ++c)
+    if (zp_cw3(c, k) != 0.0f) wk += q.mon[c] * zp_cw3(c, k);
+  float wuc = 0.0f, wvc = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    if (zp_cu3(c, k) != 0.0f) wuc += q.mon[c] * zp_cu3(c, k);
+    if (zp_cv3(c, k) != 0.0f) wvc += q.mon[c] * zp_cv3(c, k);
+  }
+  wu = q.a11 * wuc + q.a21 * wvc;
+  wv = q.a12 * wuc + q.a11 * wvc;
+  const int dx = ia[0] * zp_dxy(0, k) + ia[2] * zp_dxy(1, k);
+  const int dy = ia[1] * zp_dxy(0, k) + ia[0] * zp_dxy(1, k);
   const int ix = min(max(q.bx + dx, 0), g.nx - 1);
   const int iy = min(max(q.by + dy, 0), g.ny - 1);
   row = ix * g.ny + iy;

@@ -10,9 +10,9 @@
 // step with the plain PyTorch version in
 // ionotomo_tpu_torch/core/zpcubic.py.
 //
-// The xy half is the zp model's set-up (zp_eval.cuh: zp_setup and
-// zp_translate, with rintf, the clamp order and the skipped 8th
-// translate); the z half is the tricubic model's floor-based 4-tap axis
+// The xy half is the zp model's set-up (zp_eval.cuh: zp_setup, with rintf
+// and the clamp order, and zp_translate_unrolled, the 8th translate
+// skipped); the z half is the tricubic model's floor-based 4-tap axis
 // (cubic_eval.cuh: cubic_axis). zp_setup also sets up a quadratic z axis,
 // which nothing here reads (the compiler drops it).
 //
@@ -68,11 +68,12 @@ static __device__ __forceinline__ void zpc_value_grad_from(
   float s[4], su[4], sv[4];
 #pragma unroll
   for (int l = 0; l < 4; ++l) s[l] = su[l] = sv[l] = 0.0f;
+  const int ia[3] = {(int)p.q.a11, (int)p.q.a12, (int)p.q.a21};
 #pragma unroll
   for (int k = 0; k < 7; ++k) {
     int r;
     float wk, wu, wv;
-    zp_translate(g, p.q, k, r, wk, wu, wv);
+    zp_translate_unrolled(g, p.q, ia, k, r, wk, wu, wv);
     float c[4];
     taps(r, c);
 #pragma unroll
@@ -128,7 +129,8 @@ static __device__ __forceinline__ void zpc_value_grad_packed_at(
   zpc_value_grad_from(
       g, p,
       [&](int r, float c[4]) {
-        const float4 t = __ldg(slab + r);
+        // r >= 0: an unsigned offset spares the address its sign extension
+        const float4 t = __ldg(slab + (unsigned)r);
         c[0] = t.x;
         c[1] = t.y;
         c[2] = t.z;

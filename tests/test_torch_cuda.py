@@ -1028,27 +1028,29 @@ def test_zpc_value_grad_transpose_tasks_are_the_first_design(
     assert float((a - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
-@pytest.mark.parametrize("n_rays", ["small", "sorted"])
+@pytest.mark.parametrize("n_rays", ["small", "below", "above", "sorted"])
 @pytest.mark.parametrize("keep_path", [True, False])
 @pytest.mark.parametrize("interp", ["zpc", "quadratic"])
 def test_trace_leapfrog_k1z_k1q_packed_and_ordered_is_unpacked(
         dev, interp, keep_path, n_rays):
-    """K1z and K1q as the tracer calls them (a small batch as it is, one
-    past K1's threshold sorted and over the packed table: K1c's pack for
-    zpc, K1's for quadratic) bitwise the unpacked evaluator in ray order,
-    also under a random order and other block sizes, each launch counted;
-    and within the plain tracer's tolerances (1e-3 km, 1e-5 relative
-    TEC)."""
+    """K1z and K1q as the tracer calls them, each at its own threshold and
+    blocks (``kernels.SORT_AND_PACK``): 700 rays and one ray below the
+    threshold as they are; one ray above it and a ragged batch 300 past it
+    sorted and over the packed table (K1c's pack for zpc, K1's for
+    quadratic); each bitwise the unpacked evaluator in ray order, also
+    under a random order and other block sizes, each launch counted; and
+    within the plain tracer's tolerances (1e-3 km, 1e-5 relative TEC)."""
     grid, m = _world(dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n = {"small": 700,
-         "sorted": kernels.TRACE_ZP_RAYS_PER_SM * sms + 300}[n_rays]
-    o, d = _rays(dev, n)
     zpc = interp == "zpc"
-    table = (zpcubic.prefilter(m) if zpc else triquadratic.prefilter(m)
-             ).reshape(-1, grid.shape[2]).contiguous()
     name = "trace_leapfrog_zpc" if zpc else "trace_leapfrog_quad"
     pack = "pack_z_taps" if zpc else "pack_zp_taps"
+    at = kernels.SORT_AND_PACK[name][0] * sms
+    n = {"small": 700, "below": at - 1, "above": at + 1,
+         "sorted": at + 300}[n_rays]
+    o, d = _rays(dev, n)
+    table = (zpcubic.prefilter(m) if zpc else triquadratic.prefilter(m)
+             ).reshape(-1, grid.shape[2]).contiguous()
     call, with_ = getattr(kernels, name), getattr(kernels, name + "_with")
     kw = fermat._step_constants(150e6, 1000.0, 40)
     want = with_(table, grid, o, d, 40, keep_path, packed=None, order=None,
@@ -1057,7 +1059,8 @@ def test_trace_leapfrog_k1z_k1q_packed_and_ordered_is_unpacked(
     got = fermat.trace_rays(m, grid, o, d, 150e6, 1000.0, n_steps=40,
                             keep_path=keep_path, method="leapfrog",
                             interp=interp)
-    sorted_ = int(n_rays == "sorted")
+    sorted_ = int(n_rays in ("above", "sorted"))
+    assert kernels.sort_and_pack(name, n, sms)[0] == bool(sorted_)
     for key, k in ((name, 1), (pack, sorted_), ("ray_order_keys", sorted_)):
         assert kernels.launches[key] == before[key] + k, key
     direct = call(table, grid, o, d, 40, keep_path, **kw)
@@ -1078,6 +1081,34 @@ def test_trace_leapfrog_k1z_k1q_packed_and_ordered_is_unpacked(
                                    interp=interp)
     assert float((got[0].points - br.points).abs().max()) <= 1e-3
     assert float(((got[1] - tr).abs() / tr.abs()).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("interp", ["zpc", "quadratic"])
+def test_trace_leapfrog_k1z_k1q_refuse_a_block_past_their_budget(dev,
+                                                                 interp):
+    """Over the packed table K1z and K1q launch at a register budget of
+    blocks of at most 256: a block of 512 is refused with a ValueError
+    that names the limit, and nothing is launched; over the table as it
+    is, 512 a block launches and is bitwise 128 a block."""
+    grid, m = _world(dev)
+    o, d = _rays(dev, 300)
+    zpc = interp == "zpc"
+    name = "trace_leapfrog_zpc" if zpc else "trace_leapfrog_quad"
+    pack = "pack_z_taps" if zpc else "pack_zp_taps"
+    table = (zpcubic.prefilter(m) if zpc else triquadratic.prefilter(m)
+             ).reshape(-1, grid.shape[2]).contiguous()
+    with_ = getattr(kernels, name + "_with")
+    kw = fermat._step_constants(150e6, 1000.0, 8)
+    packed = getattr(kernels, pack)(table, grid)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="from 32 to 256"):
+        with_(table, grid, o, d, 8, False, packed=packed, order=None,
+              threads=512, **kw)
+    assert kernels.launches == before
+    wide, want = (with_(table, grid, o, d, 8, False, packed=None, order=None,
+                        threads=t, **kw) for t in (512, 128))
+    assert torch.equal(wide[0], want[0]) and torch.equal(wide[1], want[1])
+    assert kernels.launches[name] == before[name] + 2
 
 
 @pytest.mark.parametrize("interp", ["zpc2", "quadratic"])

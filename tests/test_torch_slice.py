@@ -195,21 +195,25 @@ def test_rows_value_wrapper_bounds_k_and_l():
 
 
 def test_cuda_tables_equal_the_ports_tables():
-    """zp_eval.cuh bakes the canonical-piece tables in as __constant__
-    data; they must be the port's (and so the reference's) tables."""
+    """zp_eval.cuh defines the canonical-piece tables once, in ``zp_cw3``,
+    ``zp_cu3``, ``zp_cv3`` and ``zp_dxy`` (read as constants of the code by
+    ``zp_translate_unrolled``; ``zp_tables`` copies them into the constant
+    memory that ``zp_translate`` reads); they must be the port's (and so
+    the reference's) tables."""
     src = (build.CSRC / "zp_eval.cuh").read_text()
 
-    def table(name):
-        body = re.search(name + r"\[[^=]*=\s*\{(.*?)\};", src, re.S).group(1)
+    def table(fn):
+        body = re.search(fn + r"\(int \w+,\s*int k\) \{\s*constexpr \w+ "
+                         r"t[^=]*=\s*\{(.*?)\};", src, re.S).group(1)
         return np.asarray([float(x.rstrip("f"))
-                           for x in re.findall(r"-?\d+\.\d*f?", body)],
+                           for x in re.findall(r"-?\d+(?:\.\d*)?f?", body)],
                           np.float32)
 
-    np.testing.assert_array_equal(table("kZpCW3"), tbox._CW3.ravel())
-    np.testing.assert_array_equal(table("kZpCU3"), tbox._CU3.ravel())
-    np.testing.assert_array_equal(table("kZpCV3"), tbox._CV3.ravel())
-    np.testing.assert_array_equal(table("kZpDX3"), tbox._DX3)
-    np.testing.assert_array_equal(table("kZpDY3"), tbox._DY3)
+    np.testing.assert_array_equal(table("zp_cw3"), tbox._CW3.ravel())
+    np.testing.assert_array_equal(table("zp_cu3"), tbox._CU3.ravel())
+    np.testing.assert_array_equal(table("zp_cv3"), tbox._CV3.ravel())
+    np.testing.assert_array_equal(table("zp_dxy"),
+                                  np.concatenate([tbox._DX3, tbox._DY3]))
     assert not np.any(tbox._CW3[:, 7]) and not np.any(tbox._CU3[:, 7])
 
 
