@@ -14,7 +14,7 @@ frozen-flow Kalman filter and the ensemble filter), on one NVIDIA GPU.
                                        # step (torch.profiler)
     python3 chip_smoke.py --parent DIR # also: hold the kernels to those of
                                        # the checkout at DIR (the commit
-                                       # before K1z and K1q were
+                                       # before K1s and K6z were
                                        # redesigned; any other sources are
                                        # refused): every kernel bitwise at
                                        # the phases' shapes and timed in
@@ -36,7 +36,9 @@ frozen-flow Kalman filter and the ensemble filter), on one NVIDIA GPU.
                                        # and configs 3b, 4 and 5's
                                        # endpoints (block size, ray or
                                        # endpoint order; 8 x K1e against
-                                       # the batched K1e)
+                                       # the batched K1e), and K6z beside
+                                       # its launch floor at 1 to 2^20
+                                       # points
     python3 chip_smoke.py --k2-study   # only: what binds K2 at config 4's
                                        # two bundles and config 3b's zp
                                        # points (ray or point order,
@@ -67,15 +69,15 @@ frozen-flow Kalman filter and the ensemble filter), on one NVIDIA GPU.
                                        # library each) and K1s's rk4
                                        # under each build
     python3 chip_smoke.py --k1zq-study [--parent DIR]
-                                       # only: what binds K1z and K1q at
-                                       # the bench's batch (registers, the
-                                       # SASS of a step and its issue-slot
-                                       # bound, beside every tracer's;
-                                       # register budget and block size: a
-                                       # library a budget; the call's
-                                       # pieces and where sorting
-                                       # pays; with DIR the parent's
-                                       # launch)
+                                       # only: what binds K1z, K1q and
+                                       # K1s at the bench's batch
+                                       # (registers, the SASS of a step
+                                       # and its issue-slot bound, beside
+                                       # every tracer's; register budget
+                                       # and block size: a library a
+                                       # budget; the call's pieces and
+                                       # where sorting pays; with DIR the
+                                       # parent's launch)
     python3 chip_smoke.py --member-study
                                        # only: K2b's and K3b's calls by
                                        # kernel at config 5's bundles and
@@ -784,24 +786,28 @@ def index_add_call(flat, contrib, size):
 
 class Parent:
     """The kernels of the checkout at ``root`` (``--parent DIR``), the
-    commit before K1z and K1q were redesigned, built from its sources with
+    commit before K1s and K6z were redesigned, built from its sources with
     this checkout's nvcc flags. ``run(fn)`` calls fn with every kernel the
     parent's, each entry through this checkout's wrapper on the parent's
-    library (no C interface changed since), and with the parent's launch of
-    every call that sorts and packs as K1 does (``SORT_AND_PACK``: K1's
-    threshold and blocks for K1z and K1q too), so that ``run(call)`` is the
-    parent's whole call. The parent's library lacks the entries in ``NEW``,
-    which it is opened without; the kernels behind them have no parent.
+    library, with the parent's launch of every call that sorts and packs
+    (``SORT_AND_PACK``) and K1s over its one background form, the general
+    one (``split_form``), so that ``run(call)`` is the parent's whole call.
+    The parent's library lacks the entries in ``NEW``, which it is opened
+    without; the kernels behind them have no parent.
 
     ctypes cannot check a C interface, so the parent's sources are
     declared by their SHA-256, and any other checkout is refused rather
     than handed arguments it does not take."""
 
-    NEW = ()
+    NEW = ("ionotomo_trace_split_layer",)
 
     # the parent's kernels.SORT_AND_PACK entries that this checkout changed
-    SORT_AND_PACK = {"trace_leapfrog_zpc": (448, 64, 32),
-                     "trace_leapfrog_quad": (448, 64, 32)}
+    # (K1s's leapfrog took K1c's call: packed always, sorted from 512 rays
+    # an SM at 256 a block, 64 below) and the other module attributes
+    # behind its calls
+    SORT_AND_PACK = {"trace_split": (512, 256, 64)}
+    KERNELS = {"SPLIT_PACKED_RAYS_PER_SM": 0,
+               "split_form": lambda background: "general"}
 
     SOURCES = {
         "cubic_value_grad.cu":
@@ -819,15 +825,15 @@ class Parent:
         "rows_value_fwd_batched.cu":
             "33b0b3474550fda8a1440c6ad76f61290a168eeaf73dfd0074e71c7df6c48c3b",
         "trace_leapfrog_cubic.cu":
-            "7a4277e5f3d08faff9c19baa34011fe2551f65f8c6b522fac174b4554af92980",
+            "0d0688e3bcf98ac0e3b8c230ff3e0a4dd39e7a3141c333cc72cf3b29747a150c",
         "trace_leapfrog_quad.cu":
-            "15a08a41a111c2970c196f100042195b3ae2701e166a0d6f7c11536eb5b1327e",
+            "fd0da91eb2f104bb6fb605b3d1f085c1dd6e0bd9d765ea165d8ad1090f7f12ce",
         "trace_leapfrog_zp.cu":
-            "f00d5b59a90264077ef09fa467ffa214aed6df53fd370d3d1198f321398ccaa3",
+            "70f00ed2bf84a597ada93c24ee66deafafa23d7b40e2e297d623f4e78af7f500",
         "trace_leapfrog_zpc.cu":
-            "7181e724555eff94754c8359aa03483fe01342270a881d4f8f691f40386cfa32",
+            "36ffa013cc5104dfb2f5939f0bcf053a28df6d5e514eb9e572614dc13e58ea1c",
         "trace_split.cu":
-            "15e9cddae37d0ce67fa59496701dbfd70b003c0b889c5effe6e83e9f617c0e03",
+            "31a0c34eacff832017507266607b2586a33da43adf367b173269dd1899c84ee4",
         "vector_gather.cu":
             "e0d19a2da2d4ccef5782631ae780053fa77062ae0c19c1e7935b9ff7ee882216",
         "zp_value_grad.cu":
@@ -862,14 +868,18 @@ class Parent:
         """fn() with the parent's kernels behind this checkout's wrappers
         and the parent's launch of each call."""
         from ionotomo_tpu_torch import kernels
-        saved, launch = self.build.load(), kernels.SORT_AND_PACK
+        swap = {"SORT_AND_PACK": {**kernels.SORT_AND_PACK,
+                                  **self.SORT_AND_PACK}, **self.KERNELS}
+        saved = self.build.load(), {k: getattr(kernels, k) for k in swap}
         self.build._loaded["lib"] = self.lib
-        kernels.SORT_AND_PACK = {**launch, **self.SORT_AND_PACK}
+        for k, v in swap.items():
+            setattr(kernels, k, v)
         try:
             return fn()
         finally:
-            self.build._loaded["lib"] = saved
-            kernels.SORT_AND_PACK = launch
+            self.build._loaded["lib"] = saved[0]
+            for k, v in saved[1].items():
+                setattr(kernels, k, v)
 
 
 def _outputs(x):
@@ -3806,6 +3816,12 @@ def phase14_tracers(dev, fermat, rays, kernels, Grid3D, chapman, results,
         plasmasphere_n0=1e10)
     params = bg.kernel_params(dev)
     pert = fermat.split_perturbation(m, grid, bg).contiguous()
+    params_multi = bg_multi.kernel_params(dev)
+    pert_multi = fermat.split_perturbation(m, grid, bg_multi).contiguous()
+    check(kernels.split_form(params) == "layer"
+          and kernels.split_form(params_multi) == "general",
+          "K1s: the single layer takes the one-layer form, 3 layers + "
+          "curved + plasmasphere the general one")
     split, split_launches = {}, {}
     for method, steps in (("leapfrog", 32), ("rk4", N_STEPS)):
         is_rk4 = method == "rk4"
@@ -3822,17 +3838,28 @@ def phase14_tracers(dev, fermat, rays, kernels, Grid3D, chapman, results,
                                       f"{key} launched {k} times")
         want = kernels.trace_split_with(
             pert, grid, o, d, steps, False, packed=None, order=None,
-            threads=128, rk4=is_rk4, background=params, **c)
-        for kp in (False, True):
-            parent_bitwise(parent, f"K1s {method}@{steps} at {n_rays} rays, "
-                                   f"keep_path={kp}",
-                           lambda: kernels.trace_split(
-                               pert, grid, o, d, steps, kp, rk4=is_rk4,
-                               background=params, **c))
+            threads=128, rk4=is_rk4, background=params, form="general", **c)
+        # the parent's: both backgrounds, sorted and packed at the bench's
+        # batch, and below the sort's threshold (384 rays an SM: packed in
+        # ray order; n_check rays: the leapfrog's table as it is)
+        n_mid = 384 * torch.cuda.get_device_properties(
+            dev).multi_processor_count
+        for what, pt, pm in (("single layer", pert, params),
+                             ("3 layers, curved, plasmasphere", pert_multi,
+                              params_multi)):
+            for oo, dd, kp in ((o, d, False), (o, d, True),
+                               (o[:n_mid], d[:n_mid], True), (oc, dc, True)):
+                parent_bitwise(
+                    parent, f"K1s {method}@{steps}, {what}, {oo.shape[0]} "
+                            f"rays, keep_path={kp}",
+                    lambda: kernels.trace_split(pt, grid, oo, dd, steps, kp,
+                                                rk4=is_rk4, background=pm,
+                                                **c))
         check(bool(torch.equal(t, want[1])
                    and torch.equal(b.points[:, -1], want[0])),
-              f"K1s {method}@{steps} at {n_rays} rays, packed and sorted, "
-              f"bitwise the unpacked kernel in ray order")
+              f"K1s {method}@{steps} at {n_rays} rays, one-layer form, "
+              f"packed and sorted, bitwise the unpacked general form in ray "
+              f"order")
         plain = {}
         plain_ms = wall_ms(lambda: plain.setdefault(
             "out", fermat.trace_rays_split_ref(m, grid, o, d, FREQ_HZ, bg,
@@ -3860,11 +3887,21 @@ def phase14_tracers(dev, fermat, rays, kernels, Grid3D, chapman, results,
             return kernels.trace_split(table, g, oo, dd, n, kp, rk4=is_rk4,
                                        background=params, **cc)
 
+        def call_multi():
+            return kernels.trace_split(pert_multi, grid, o, d, steps, False,
+                                       rk4=is_rk4, background=params_multi,
+                                       **c)
+
         ms = device_ms(call, 3)
-        turns_k1s = compare_parent(
-            f"K1s {method}@{steps} at {n_rays} rays",
-            lambda: parent.run(call), call, 3, pairs=3) \
-            if parent is not None else None
+        turns_k1s = turns_multi = None
+        if parent is not None:
+            turns_k1s = compare_parent(
+                f"K1s {method}@{steps} at {n_rays} rays",
+                lambda: parent.run(call), call, 3, pairs=3)
+            turns_multi = compare_parent(
+                f"K1s {method}@{steps} at {n_rays} rays, 3 layers, curved, "
+                f"plasmasphere", lambda: parent.run(call_multi), call_multi,
+                3, pairs=3)
         by_name = kernel_ms_by_name(call, 3)
         entry_ms = wall_ms(lambda: fermat.trace_rays_split(
             m, grid, o, d, FREQ_HZ, bg, LENGTH_KM, **kws), 3)
@@ -3893,6 +3930,8 @@ def phase14_tracers(dev, fermat, rays, kernels, Grid3D, chapman, results,
         if turns_k1s is not None:
             split[method]["parent_ms"], split[method]["new_ms_in_turns"] = \
                 turns_k1s
+            split[method]["general_form_in_turns"] = dict(
+                zip(("parent_ms", "new_ms"), turns_multi))
         lap(f"K1s {method}@{steps}")
     results["trace_split"] = {
         "launches": split_launches["leapfrog"]["trace_split"],
@@ -4870,9 +4909,17 @@ def rk4_ptxas(log):
             name = None
             if "trace_ordered_kernelILb1E" in mangled:
                 ev = re.search(r"(LogNe|SplitNe)I(\d+)", mangled)
-                ev = (("K1s " if ev.group(1) == "SplitNe" else "")
-                      + mangled[ev.end():ev.end() + int(ev.group(2))]
-                      if ev else "?")
+                if ev is None:
+                    ev = "?"
+                elif ev.group(1) == "SplitNe":
+                    rest = mangled[ev.end() + int(ev.group(2)):]
+                    n = re.match(r"(\d+)", rest)
+                    bg = (rest[len(n.group(1)):len(n.group(1))
+                               + int(n.group(1))] if n else "?")
+                    ev = (f"K1s {mangled[ev.end():ev.end() + int(ev.group(2))]}"
+                          f" over {bg}")
+                else:
+                    ev = mangled[ev.end():ev.end() + int(ev.group(2))]
                 budget = re.findall(r"Li(\d+)E", mangled)
                 name = f"{ev} (budget {budget[-1] if budget else '?'})"
         elif name and "stack frame" in line:
@@ -4895,9 +4942,15 @@ TRACER_SASS = {
     "K1r cubic": (True, "5LogNeI20CubicValueGradPacked"),
     "K1r zpc": (True, "5LogNeI18ZpcValueGradPacked"),
     "K1r quadratic": (True, "5LogNeI19QuadValueGradPacked"),
-    "K1s leapfrog": (False, "7SplitNeI19PertValueGradPacked"),
-    "K1s rk4": (True, "7SplitNeI19PertValueGradPacked"),
+    "K1s leapfrog": (False, "7SplitNeI19PertValueGradPacked12ChapmanLayerE"),
+    "K1s rk4": (True, "7SplitNeI19PertValueGradPacked12ChapmanLayerE"),
+    "K1s leapfrog, general": (
+        False, "7SplitNeI19PertValueGradPacked17ChapmanBackgroundE"),
+    "K1s rk4, general": (
+        True, "7SplitNeI19PertValueGradPacked17ChapmanBackgroundE"),
 }
+#: the tracers whose register budget --k1zq-study sweeps
+BUDGET_STUDIED = ("K1z (zpc)", "K1q (quadratic)", "K1s leapfrog", "K1s rk4")
 
 
 def tracer_kernels(funcs, rk4, ev):
@@ -5103,6 +5156,137 @@ def clocks_under(fn, seconds=2.0):
     return samples[2:] or samples
 
 
+def call_pieces(name, kernels, grid, o, d, pack, tracer_label, tracer,
+                call, reps):
+    """A sorting and packing call's pieces at one batch, each by its own
+    device time (the ray order's keys, their sort and its cast to int32,
+    the pack, the tracer), and the whole call by device time and on the
+    stream (CUDA events, the gaps between kernels included)."""
+    keys = kernels.ray_order_keys(o, d, grid)
+    idx = torch.sort(keys).indices
+    pieces = {"keys": lambda: kernels.ray_order_keys(o, d, grid),
+              "sort": lambda: torch.sort(keys),
+              "cast": lambda: idx.to(torch.int32),
+              "pack": pack, tracer_label: tracer}
+    ms = {k: device_ms(f, reps * 5) for k, f in pieces.items()}
+    whole = device_ms(call, reps * 5)
+    wall = cuda_ms(call, 20)
+    print(f"  {name}'s call at {o.shape[0]} rays: " + "; ".join(
+        f"{k} {v:.4f}" for k, v in ms.items())
+          + f" ms; their sum {sum(ms.values()):.4f}; the call "
+          f"{whole:.4f} ms of device time, {wall:.4f} ms on the stream "
+          f"(CUDA events, gaps included)")
+    return ms, whole
+
+
+def k1s_sweep(builds, with_lib, loops, regs, bound_of, grid, mp, o_all,
+              d_all, order, sms, card, reps):
+    """--k1zq-study's K1s: the split tracer on the single-layer background
+    (``background_ne_fn()``, the one-layer form) over the perturbation of
+    phase 14's world at the bench's 262,144 rays, leapfrog@32 and rk4@64:
+    the tracer alone (packed, sorted) in each build (register budgets 0-4
+    of both integrators) × 64/128/256 a block, and the general form in the
+    default build, each bitwise the unpacked general form in ray order,
+    two passes in opposite orders; then, in the fastest leapfrog build, the
+    call's pieces and where sorting and packing pays: sorted and packed,
+    packed in ray order, or the table as it is, at 10,000-262,144 rays."""
+    from ionotomo_tpu_torch import kernels
+    from ionotomo_tpu_torch.geometry import fermat
+    from ionotomo_tpu_torch.models import chapman
+
+    bg = chapman.background_ne_fn()
+    pert = fermat.split_perturbation(mp, grid, bg).contiguous()
+    params = bg.kernel_params(grid.origin.device)
+    packed = kernels.pack_z_taps(pert, grid)
+    n_rays = o_all.shape[0]
+    fastest = {}
+    for method, steps in (("leapfrog", 32), ("rk4", N_STEPS)):
+        rk4 = method == "rk4"
+        kw = fermat._step_constants(FREQ_HZ, LENGTH_KM, steps)
+        tracer = f"K1s {method}"
+
+        def run(threads, form=None, pk=packed, od=order, o=o_all, d=d_all):
+            return kernels.trace_split_with(
+                pert, grid, o, d, steps, False, packed=pk, order=od,
+                threads=threads, rk4=rk4, background=params, form=form, **kw)
+
+        want = run(128, "general", None, None)
+        variants = [(label, t, "layer") for label in builds
+                    for t in (64, 128, 256)]
+        variants += [("default", t, "general") for t in (64, 128, 256)]
+        for label, t, form in variants:
+            got = with_lib(label, lambda: run(t, form))
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, want)
+                      if b is not None),
+                  f"K1s {method}@{steps}, {label}, {t} a block, {form} "
+                  f"form, packed and sorted: bitwise the unpacked general "
+                  f"form in ray order")
+        del got
+        times = {}
+        for pass_ in range(2):
+            for label, t, form in (variants if pass_ == 0
+                                   else variants[::-1]):
+                times.setdefault((label, t, form), []).append(with_lib(
+                    label, lambda: device_ms(lambda: run(t, form), reps)))
+        print(f"  K1s {method}@{steps}, the tracer alone (packed, sorted) at "
+              f"{n_rays} rays on {card}:")
+        for (label, t, form), ms in times.items():
+            key = (label, tracer + (", general" if form == "general" else ""))
+            extra = ""
+            if key in loops:
+                instr, b_ms = bound_of(*key, steps, n_rays)
+                r = regs[key][0]
+                extra = (f"; {r} registers, occupancy "
+                         f"{theoretical_occupancy(r, t):.3f}, spills "
+                         f"{regs[key][2]}/{regs[key][3]} B; issue-slot bound "
+                         f"{b_ms:.4f} ms ({instr:.0f} instructions a step), "
+                         f"{b_ms / min(ms):.3f} of it")
+            print(f"    {label}, {t} a block, {form} form: "
+                  f"{', '.join(f'{x:.4f}' for x in ms)} ms{extra}")
+        best = min(times.items(), key=lambda kv: min(kv[1]))
+        fastest[method] = best[0]
+        print(f"  K1s {method}@{steps}: fastest {best[0]} {min(best[1]):.4f} "
+              f"ms")
+
+    # leapfrog@32 in its fastest build: the call's pieces, and where
+    # sorting and packing pays
+    label, threads, _ = fastest["leapfrog"]
+    kw = fermat._step_constants(FREQ_HZ, LENGTH_KM, 32)
+
+    def trace(o, d, pk, od, t):
+        return kernels.trace_split_with(
+            pert, grid, o, d, 32, False, packed=pk, order=od, threads=t,
+            rk4=False, background=params, **kw)
+
+    print(f"  K1s leapfrog@32 in the build '{label}':")
+    with_lib(label, lambda: call_pieces(
+        "trace_split (leapfrog@32)", kernels, grid, o_all, d_all,
+        lambda: kernels.pack_z_taps(pert, grid),
+        f"tracer ({threads} a block)",
+        lambda: trace(o_all, d_all, packed, order, threads),
+        lambda: kernels.trace_split(pert, grid, o_all, d_all, 32, False,
+                                    rk4=False, background=params, **kw),
+        reps))
+    for n in (10000, 64 * sms, 128 * sms, 192 * sms, 256 * sms, 320 * sms,
+              384 * sms, 448 * sms, 512 * sms, 640 * sms, 768 * sms,
+              1024 * sms, n_rays):
+        on, dn = o_all[:n].contiguous(), d_all[:n].contiguous()
+        ways = {f"as it is, {t}": (lambda t=t: trace(on, dn, None, None, t))
+                for t in (32, 64)}
+        ways.update({f"packed in ray order, {t}": (
+            lambda t=t: trace(on, dn, kernels.pack_z_taps(pert, grid), None,
+                              t)) for t in (32, 64, 128)})
+        ways.update({f"sorted and packed, {t}": (
+            lambda t=t: trace(on, dn, kernels.pack_z_taps(pert, grid),
+                              kernels.ray_order(on, dn, grid), t))
+            for t in (64, 128, 256)})
+        print(f"  K1s leapfrog@32 at {n} rays ({n / sms:.0f} an SM), the "
+              f"call: " + "; ".join(
+                  f"{k} {with_lib(label, lambda: device_ms(f, reps)):.4f}"
+                  for k, f in ways.items()) + " ms")
+
+
 def k1zq_study(parent_dir=None, reps=3) -> int:
     """``--k1zq-study``: what binds K1z and K1q at the bench's batch
     (262,144 rays × 64 steps, the 128³ Chapman cube, 150 MHz, 1000 km):
@@ -5138,7 +5322,7 @@ def k1zq_study(parent_dir=None, reps=3) -> int:
 
     builds = {"default": ()}
     for b in range(0, 5):    # 0: no budget, the compiler's registers
-        builds[f"budget {b}"] = (f"K1_MIN_BLOCKS={b}",)
+        builds[f"budget {b}"] = (f"K1_MIN_BLOCKS={b}", f"K1R_MIN_BLOCKS={b}")
     libs, regs, loops = {}, {}, {}
     parent = Parent(parent_dir) if parent_dir else None
     infos = {label: build.build(defines=defines)
@@ -5151,8 +5335,7 @@ def k1zq_study(parent_dir=None, reps=3) -> int:
         by_kernel = ptxas_by_kernel(info["log"])
         funcs = sass_functions(info["path"])
         for tracer, (rk4, ev) in TRACER_SASS.items():
-            studied = tracer in ("K1z (zpc)", "K1q (quadratic)")
-            if label != "default" and not studied:
+            if label != "default" and tracer not in BUDGET_STUDIED:
                 continue
             hits = tracer_kernels(funcs, rk4, ev)
             if len(hits) != 1:
@@ -5244,26 +5427,12 @@ def k1zq_study(parent_dir=None, reps=3) -> int:
         print(f"  {name}: fastest {best[0]} {min(best[1]):.4f} ms")
 
         # (d) the call's pieces, and the call whole, at the bench's batch
-        call = getattr(kernels, name)
-        keys = kernels.ray_order_keys(o, d, grid)
-        idx = torch.sort(keys).indices
         threads = kernels.sort_and_pack(name, n_rays, sms)[1]
-        pieces = {
-            "keys": lambda: kernels.ray_order_keys(o, d, grid),
-            "sort": lambda: torch.sort(keys),
-            "cast": lambda: idx.to(torch.int32),
-            "pack": lambda: getattr(kernels, pack)(table, grid),
-            f"tracer ({threads} a block)": lambda: run(threads)}
-        ms = {k: device_ms(f, reps * 5) for k, f in pieces.items()}
-        whole = device_ms(lambda: call(table, grid, o, d, N_STEPS, False,
-                                       **kw), reps * 5)
-        wall = cuda_ms(lambda: call(table, grid, o, d, N_STEPS, False, **kw),
-                       20)
-        print(f"  {name}'s call at {n_rays} rays: " + "; ".join(
-            f"{k} {v:.4f}" for k, v in ms.items())
-              + f" ms; their sum {sum(ms.values()):.4f}; the call "
-              f"{whole:.4f} ms of device time, {wall:.4f} ms on the stream "
-              f"(CUDA events, gaps included)")
+        call_pieces(name, kernels, grid, o, d,
+                    lambda: getattr(kernels, pack)(table, grid),
+                    f"tracer ({threads} a block)", lambda: run(threads),
+                    lambda: getattr(kernels, name)(table, grid, o, d, N_STEPS,
+                                                   False, **kw), reps)
         samples = clocks_under(lambda: run(threads))
         if samples:
             mhz = sorted(s[0] for s in samples)
@@ -5299,11 +5468,14 @@ def k1zq_study(parent_dir=None, reps=3) -> int:
         del table, packed, want
         torch.cuda.empty_cache()
 
-    # (b) for the other tracers: the tracer alone at its launch beside its
-    # issue-slot bound
     grid_cpu = Grid3D.from_bounds(*BOUNDS, (N_GRID,) * 3, device="cpu")
     mp = torch.from_numpy(perturbed_log_field(
         grid_cpu, np.random.default_rng(14), chapman)).to(dev)
+    k1s_sweep(builds, with_lib, loops, regs, bound_of, grid, mp, o_all,
+              d_all, order, sms, card, reps)
+
+    # (b) for the other tracers: the tracer alone at its launch beside its
+    # issue-slot bound
     others = []
     for label, interp, world, with_name, pack, threads, steps in (
             ("K1 (zp)", "zp", m, "trace_leapfrog_zp", "pack_zp_taps", 64,
@@ -5329,13 +5501,19 @@ def k1zq_study(parent_dir=None, reps=3) -> int:
     pert = fermat.split_perturbation(mp, grid, bg).contiguous()
     params = bg.kernel_params(dev)
     packed_pert = kernels.pack_z_taps(pert, grid)
-    for label, steps, rk4 in (("K1s leapfrog", 32, False),
-                              ("K1s rk4", N_STEPS, True)):
-        others.append((label, steps, 256, lambda s=steps, r=rk4:
-                       kernels.trace_split_with(
+    for label, steps, rk4, form in (
+            ("K1s leapfrog", 32, False, "layer"),
+            ("K1s rk4", N_STEPS, True, "layer"),
+            ("K1s leapfrog, general", 32, False, "general"),
+            ("K1s rk4, general", N_STEPS, True, "general")):
+        threads = kernels.TRACE_RK4_THREADS if rk4 else \
+            kernels.SORT_AND_PACK["trace_split"][1]
+        others.append((label, steps, threads, lambda s=steps, r=rk4, f=form,
+                       t=threads: kernels.trace_split_with(
                            pert, grid, o, d, s, False, packed=packed_pert,
-                           order=order, threads=256, rk4=r,
-                           background=params, **kw)))
+                           order=order, threads=t, rk4=r, background=params,
+                           form=f, **fermat._step_constants(
+                               FREQ_HZ, LENGTH_KM, s))))
     print(f"  the issue-slot bound of every tracer's step at {n_rays} rays "
           f"(max SM clock {clock:.0f} MHz), beside the tracer alone (packed, "
           f"sorted) on {card}:")
@@ -5501,7 +5679,67 @@ def e_study(reps=50) -> int:
         for (bs, order), t in sorted(times.items()):
             print(f"  {label}, {bs} threads a block, {order}: "
                   f"{', '.join(f'{x:.4f}' for x in t)} ms")
+    k6z_floor(dev, configs, chapman, tec, zpcubic, kernels, reps)
     return 0
+
+
+def k6z_floor(dev, configs, chapman, tec, zpcubic, kernels, reps):
+    """--e-study's K6z: its kernel against its launch floor, the same
+    launch built with an empty body (a library built with
+    ``-DK6Z_LAUNCH_FLOOR=1``), at 1, 1,240 and 20,000 of config 4's
+    endpoints, the 917,504 edge-case points of a 128³ table and 2²⁰ random
+    points of a 256³ table; in two passes of opposite order, beside the
+    bound."""
+    from ionotomo_tpu_torch.core.grids import Grid3D
+    from ionotomo_tpu_torch.kernels import build
+    from ionotomo_tpu_torch.testing import edge_case_points
+
+    floor = build.open_library(build.build(
+        defines=("K6Z_LAUNCH_FLOOR=1",))["path"])
+    default = build.load()
+
+    def with_lib(lib, fn):
+        build._loaded["lib"] = lib
+        try:
+            return fn()
+        finally:
+            build._loaded["lib"] = default
+
+    rng = np.random.default_rng(15)
+    grid4, ends4 = straight_endpoints(configs, chapman, tec, dev, 256)
+    table4 = torch.from_numpy(rng.normal(size=(256 * 256, 256)).astype(
+        np.float32)).to(dev)
+    origin, spacing = (-64.0, -32.0, 0.0), (1.0, 0.5, 8.0)
+    grid_e = Grid3D.create(origin, spacing, (N_GRID,) * 3, device=dev)
+    table_e = torch.from_numpy(rng.normal(size=(N_GRID * N_GRID, N_GRID))
+                               .astype(np.float32)).to(dev)
+    pts_e = torch.from_numpy(edge_case_points(
+        (N_GRID,) * 3, origin, spacing, 1 << 20, rng).astype(np.float32)
+    ).to(dev)
+    grid_r = Grid3D.create(origin, spacing, (256,) * 3, device=dev)
+    hi = np.asarray(spacing) * 255
+    pts_r = torch.from_numpy((np.asarray(origin) + rng.uniform(
+        0, 1, (1 << 20, 3)) * hi).astype(np.float32)).to(dev)
+    for label, table, grid, pts in (
+            ("1 of config 4's endpoints", table4, grid4, ends4[:1]),
+            ("1,240 of config 4's endpoints", table4, grid4, ends4[:1240]),
+            ("config 4's 20,000 endpoints", table4, grid4, ends4),
+            ("917,504 edge-case points, 128^3", table_e, grid_e, pts_e),
+            ("2^20 random points, 256^3", table4, grid_r, pts_r)):
+        def fn():
+            return kernels.zpc_value_grad(table, grid, pts)
+
+        times = {"kernel": [], "floor": []}
+        for turn in (("kernel", "floor"), ("floor", "kernel")):
+            for who in turn:
+                times[who].append(with_lib(default if who == "kernel"
+                                           else floor,
+                                           lambda: device_ms(fn, reps)))
+        b_ms, b_by = k6_bound(zpcubic, 7, FLOPS_K6Z_POINT, grid, pts)
+        print(f"  K6z at {label} ({pts.shape[0]} points): kernel "
+              f"{', '.join(f'{x:.4f}' for x in times['kernel'])} ms, its "
+              f"launch floor {', '.join(f'{x:.4f}' for x in times['floor'])}"
+              f" ms, bound {b_ms:.6f} ms ({b_by})")
 
 
 def ptxas_lines(log, fragments):

@@ -56,7 +56,9 @@
   leapfrog tracer; the integrator in csrc/trace_leapfrog.cuh);
 - K1s ``trace_split``: the split-field tracer, leapfrog or rk4, over a
   closed-form Chapman background plus the tricubic model of a perturbation
-  table, K1c's pack and call (csrc/trace_split.cu).
+  table, in two forms of the background (one flat layer, or general),
+  over K1c's pack: its leapfrog at its own call, its rk4 at K1c's
+  (csrc/trace_split.cu).
 
 Each wrapper checks dtype, shape, contiguity and device and raises on
 anything else (a CPU tensor included: the plain PyTorch versions live in
@@ -476,14 +478,30 @@ TRACE_RK4_THREADS = 256
 #: 0.1664 against 0.1892 ms, K1q 0.1806 against 0.2087; at 320, 0.1656
 #: against 0.1590 and 0.1839 against 0.1735); K1z's at 64 rays a block
 #: (within 1 % of 256 at 262,144 rays, 8 % faster at 640 an SM), K1q's at
-#: 256 (4.5 % faster than 64 at 262,144).
+#: 256 (4.5 % faster than 64 at 262,144). K1s's leapfrog (``trace_split``)
+#: sorts from 768 rays an SM at 128 a block and below packs in ray order at
+#: 64 (``SPLIT_PACKED_RAYS_PER_SM``), from the same study at leapfrog@32
+#: over the one-layer form: sorted beat packed in ray order from 768 rays
+#: an SM (0.1797 against 0.1867 ms; at 640, 0.1687 against 0.1631), 128 a
+#: block within 2 % of 64 and 256.
 SORT_AND_PACK = {
     "trace_leapfrog_zp": (TRACE_ZP_RAYS_PER_SM, 64, 32),
     "trace_leapfrog_zpc": (384, 64, 32),
     "trace_leapfrog_quad": (384, 256, 32),
     **{f"trace_rk4_{m}": (TRACE_ZP_RAYS_PER_SM, TRACE_RK4_THREADS, 32)
        for m in ("zp", "zpc", "quad")},
+    "trace_split": (768, 128, 64),
 }
+
+#: Rays an SM from which K1s's leapfrog call packs the perturbation's z
+#: taps when it does not sort (``trace_split``); below, it reads the table
+#: as it is, ``SPLIT_AS_IS_THREADS`` a block. From ``chip_smoke.py
+#: --k1zq-study`` (NVIDIA H100 80GB HBM3, 700 W, leapfrog@32): packed in
+#: ray order 0.0965 ms against 0.1227 as it is at 192 rays an SM, 0.0933
+#: against 0.0898 at 128; at 10,000 rays as it is, 32 a block, 0.0776
+#: against 64's 0.0874.
+SPLIT_PACKED_RAYS_PER_SM = 192
+SPLIT_AS_IS_THREADS = 32
 
 
 def sort_and_pack(name: str, n_rays: int, n_sms: int):
@@ -564,7 +582,8 @@ def _sorted_and_packed(name, with_fn, pack, table, grid, origins,
 
 #: The largest block of a tracer launched at a register budget
 #: (``csrc/trace_leapfrog.cuh``: ``kBudgetMaxThreads``): K1r, K1s's rk4, and
-#: K1z and K1q over the packed table. The others take up to 1024.
+#: K1z, K1q and K1s's leapfrog over the packed table. The others take up
+#: to 1024.
 BUDGET_MAX_THREADS = 256
 
 
@@ -768,7 +787,7 @@ def trace_leapfrog_cubic(field2d: torch.Tensor, grid, origins: torch.Tensor,
 
 def _cubic_call(name, with_fn, table, grid, origins, directions, n_steps,
                 keep_path, consts, threads=256):
-    """K1c's call, which K1r on cubic and K1s share: the table's z taps
+    """K1c's call, which K1r on cubic and K1s's rk4 share: the table's z taps
     packed (``pack_z_taps``); a batch that fills the card
     (``TRACE_CUBIC_RAYS_PER_SM`` rays an SM) sorted first (``ray_order``)
     and traced ``threads`` rays a block, a smaller one in its own order 64
@@ -806,24 +825,61 @@ def trace_split(pert2d: torch.Tensor, grid, origins: torch.Tensor,
     tricubic model of the perturbation table ``pert2d`` (nx*ny, nz) [m⁻³].
     ``background``: the kernel's parameters
     (``models.chapman.ChapmanBackground.kernel_params``): ``layers`` (L, 4)
-    f32 (n_peak, h_peak, scale, sensitivity) on the rays' device, and the
-    floats ``factor``, ``zc0``, ``r_earth``, ``ps_n0``, ``ps_scale``,
-    ``h_top`` and the bool ``curved``. K1c's call (``_cubic_call``): the
-    table's z taps packed, the rays sorted when the batch fills the card.
-    Returns (x_end, tau, path or None); each ray's outputs bitwise those of
-    the unpacked evaluator in ray order."""
-    return _cubic_call("trace_split", trace_split_with, pert2d, grid,
-                       origins, directions, n_steps, keep_path,
-                       dict(consts, rk4=rk4, background=background))
+    f32 (n_peak, h_peak, scale, sensitivity) on the rays' device and their
+    host copy ``rows``, and the floats ``factor``, ``zc0``, ``r_earth``,
+    ``ps_n0``, ``ps_scale``, ``h_top`` and the bool ``curved``; the kernel
+    takes its form (``split_form``). Leapfrog takes its own call: from
+    ``SORT_AND_PACK["trace_split"]``'s rays an SM the rays sorted and the
+    table's z taps packed, from ``SPLIT_PACKED_RAYS_PER_SM`` the table
+    packed in ray order, below it the table as it is; rk4 takes K1c's call
+    (``_cubic_call``). Returns (x_end, tau, path or None); each ray's
+    outputs bitwise those of the unpacked evaluator in ray order."""
+    consts = dict(consts, rk4=rk4, background=background)
+    if rk4:
+        return _cubic_call("trace_split", trace_split_with, pert2d, grid,
+                           origins, directions, n_steps, keep_path, consts)
+    name = "trace_split"
+    dev = _check(name, _grid_specs(name, pert2d, grid, 2))
+    r, sms = origins.shape[0], \
+        torch.cuda.get_device_properties(dev).multi_processor_count
+    sort, threads = sort_and_pack(name, r, sms)
+    pack = sort or r >= SPLIT_PACKED_RAYS_PER_SM * sms
+    return trace_split_with(
+        pert2d, grid, origins, directions, n_steps, keep_path,
+        packed=pack_z_taps(pert2d, grid) if pack else None,
+        order=ray_order(origins, directions, grid) if sort else None,
+        threads=threads if pack else SPLIT_AS_IS_THREADS, **consts)
+
+
+def split_form(background: dict) -> str:
+    """The form of K1s's background (``csrc/trace_split.cu``) that
+    ``background`` (``ChapmanBackground.kernel_params``) takes: "layer",
+    one layer of sensitivity 1 over the flat Earth without a plasmasphere
+    (``background_ne_fn()`` and its cos χ variants), its parameters passed
+    as numbers; else "general", the layers read from ``layers``. Decided
+    from the host's copy of the parameters (``rows``), so no read of the
+    card."""
+    rows = background["rows"]
+    one = (len(rows) == 1 and rows[0][3] == 1.0
+           and not background["curved"] and background["ps_n0"] == 0.0)
+    return "layer" if one else "general"
 
 
 def trace_split_with(pert2d, grid, origins, directions, n_steps: int,
                      keep_path: bool, *, packed, order, threads: int,
-                     rk4: bool, background: dict, **consts):
+                     rk4: bool, background: dict, form: str = None,
+                     **consts):
     """K1s with its layout, ray order and block size given (as
-    ``trace_leapfrog_cubic_with``)."""
+    ``trace_leapfrog_cubic_with``), over the background's own form
+    (``split_form``) or the ``form`` given: "general" takes any
+    background, "layer" only one that ``split_form`` calls so."""
     name = "trace_split"
-    _check_threads(name, threads, rk4)
+    form = split_form(background) if form is None else form
+    if form not in ("layer", "general") or (
+            form == "layer" and split_form(background) != "layer"):
+        raise ValueError(f"{name}: no form {form!r} for this background")
+    # rk4, and leapfrog over the packed table (K1S_BUDGET), at a budget
+    _check_threads(name, threads, rk4 or packed is not None)
     dev, x_end, tau, path = _trace_outputs(name, 2, pert2d, grid, origins,
                                            directions, n_steps, keep_path)
     layers = background["layers"]
@@ -846,15 +902,21 @@ def trace_split_with(pert2d, grid, origins, directions, n_steps: int,
     if r == 0:
         return x_end, tau, path
     b = background
+    head = (_ptr(pert2d), _ptr(packed), _ptr(grid.origin),
+            _ptr(grid.spacing), nx, ny, nz, _ptr(origins), _ptr(directions),
+            _ptr(order), r, int(n_steps), int(bool(rk4)), consts["h"],
+            consts["hh12"], consts["w_n"], consts["w_rhs"],
+            consts["tec_unit"])
+    if form == "layer":
+        n_peak, h_peak, scale, _ = b["rows"][0]
+        mid = (n_peak, h_peak, scale, b["factor"])
+    else:
+        mid = (_ptr(layers), layers.shape[0], b["factor"],
+               int(bool(b["curved"])), b["zc0"], b["r_earth"], b["ps_n0"],
+               b["ps_scale"], b["h_top"])
+    entry = "ionotomo_trace_split" + ("_layer" if form == "layer" else "")
     with torch.cuda.device(dev):
-        _launch(name, "ionotomo_" + name, _ptr(pert2d), _ptr(packed),
-                _ptr(grid.origin), _ptr(grid.spacing), nx, ny, nz,
-                _ptr(origins), _ptr(directions), _ptr(order), r,
-                int(n_steps), int(bool(rk4)), consts["h"], consts["hh12"],
-                consts["w_n"], consts["w_rhs"], consts["tec_unit"],
-                _ptr(layers), layers.shape[0], b["factor"],
-                int(bool(b["curved"])), b["zc0"], b["r_earth"], b["ps_n0"],
-                b["ps_scale"], b["h_top"], int(threads), _ptr(x_end),
+        _launch(name, entry, *head, *mid, int(threads), _ptr(x_end),
                 _ptr(tau), _ptr(path))
     return x_end, tau, path
 

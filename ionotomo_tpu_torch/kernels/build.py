@@ -87,6 +87,9 @@ _SIGNATURES = {
     "ionotomo_trace_split": (_I, [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I,
                                   _I, _I, _F, _F, _F, _F, _F, _P, _I, _F, _I,
                                   _F, _F, _F, _F, _F, _I, _P, _P, _P, _P]),
+    "ionotomo_trace_split_layer": (_I, [_P, _P, _P, _P, _I, _I, _I, _P, _P,
+                                        _P, _I, _I, _I, _F, _F, _F, _F, _F,
+                                        _F, _F, _F, _F, _I, _P, _P, _P, _P]),
     "ionotomo_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -134,8 +137,9 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR, defines=()) -> dict:
     ``NAME=value`` macros for nvcc (``chip_smoke.py --k5t-study`` builds
     K5ᵀ with other register budgets, ``--member-study`` K3b with other
     scan and fold settings, ``--k2-study`` K2 with scalar row loads,
-    ``--e-study`` K1e and K5 with other block sizes, ``--k6zt-study`` K6zᵀ
-    as first designed, ``--rk4-study`` K1r with other register budgets).
+    ``--e-study`` K1e and K5 with other block sizes and K6z's launch with
+    an empty body, ``--k6zt-study`` K6zᵀ as first designed, ``--rk4-study``
+    K1r with other register budgets, ``--k1zq-study`` K1z, K1q and K1s).
 
     Returns ``{"path", "seconds", "built", "log"}``; ``log`` is nvcc's
     output (with ``-Xptxas -v``: registers, shared memory and spills per

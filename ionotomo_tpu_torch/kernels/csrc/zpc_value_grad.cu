@@ -19,11 +19,23 @@
 // never built; the evaluator is zpc_eval.cuh, shared with the tracer K1z
 // and the transpose K6z^T. 32 threads a block, the size chip_smoke.py
 // --e-study measured best for K1e and K5 at 20,000 endpoints, so that
-// the points spread over every SM.
+// the points spread over every SM. Kept after measurement (chip_smoke.py
+// --e-study, NVIDIA H100 80GB HBM3, 700 W): at config 4's 20,000
+// endpoints it takes 0.0027-0.0028 ms, of which 0.0012 is the launch floor
+// of its grid (the launch built with -DK6Z_LAUNCH_FLOOR=1, an empty
+// body); a point spread over 4 lanes of a warp, each summing one z tap
+// over the 7 translates, took 0.0029-0.0031, over 8 lanes, a translate
+// each, 0.0056-0.0060. 4 lanes won only at a million points (0.1705
+// against 0.1798-0.1820 at 2^20 random points of 256^3), a size no path
+// evaluates.
 //
 // Determinism: no atomics and a fixed summation order per thread, so the
 // output is bitwise identical from run to run.
 #include "zpc_eval.cuh"
+
+#ifndef K6Z_LAUNCH_FLOOR
+#define K6Z_LAUNCH_FLOOR 0
+#endif
 
 namespace {
 
@@ -34,6 +46,7 @@ __global__ void __launch_bounds__(32)
                           int nz, const float* __restrict__ points, int n,
                           float* __restrict__ value,
                           float* __restrict__ grad) {
+  if (K6Z_LAUNCH_FLOOR) return;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const TableGrid g = table_grid(coef, origin, spacing, nx, ny, nz);

@@ -214,12 +214,15 @@ class ChapmanBackground:
 
     def kernel_params(self, device) -> dict:
         """What K1s reads (``kernels.trace_split``): ``layers`` (L, 4) f32
-        on ``device``, the solar factor, the curved-Earth flag and zc0 = R
-        + h_site, R, and the plasmasphere's n0, scale and h_top."""
+        on ``device`` and ``rows``, the same (n_peak, h_peak, scale,
+        sensitivity) on the host, the solar factor, the curved-Earth flag
+        and zc0 = R + h_site, R, and the plasmasphere's n0, scale and
+        h_top."""
         n0, scale, h_top = self._plasmasphere()
+        rows = tuple(tuple(map(float, row)) for row in self._layer_rows())
         return dict(
-            layers=torch.tensor(self._layer_rows(), dtype=torch.float32,
-                                device=device),
+            layers=torch.tensor(rows, dtype=torch.float32, device=device),
+            rows=rows,
             factor=self.factor, curved=bool(self.curved),
             zc0=float(np.float32(self.earth_radius_km
                                  + self.site_height_km)),

@@ -898,6 +898,27 @@ def test_value_grad_k6_matches_plain(dev, model, n):
         <= tol
 
 
+@pytest.mark.parametrize("n", [1, 1240, 20000, 131072])
+def test_zpc_value_grad_kept_design_is_one_thread_a_point(dev, n):
+    """K6z as kept: one thread a point, so a point's value and gradient do
+    not depend on the launch it is in. At edge-case points from 1 to past
+    config 4's 20,000: bitwise the same points evaluated in ragged chunks
+    (33, 1000 and the rest) and in reverse order."""
+    grid, m = _world(dev)
+    table = zpcubic.prefilter(m).reshape(-1, grid.shape[2])
+    pts, _ = _edge_points(dev, grid, n, 31)
+    n = pts.shape[0]
+    v, g = kernels.zpc_value_grad(table, grid, pts)
+    a = min(33, n)
+    b = min(1000, n - a)
+    parts = [kernels.zpc_value_grad(table, grid, c.contiguous())
+             for c in torch.split(pts, [a, b, n - a - b]) if c.shape[0]]
+    assert torch.equal(torch.cat([a for a, _ in parts]), v)
+    assert torch.equal(torch.cat([b for _, b in parts]), g)
+    vr, gr = kernels.zpc_value_grad(table, grid, pts.flip(0).contiguous())
+    assert torch.equal(vr.flip(0), v) and torch.equal(gr.flip(0), g)
+
+
 @pytest.mark.parametrize("chunk", [tricubic.SEGMENT_PAIRS, 7])
 def test_zpc_value_grad_transpose_adds_into_a_table(dev, chunk):
     """The accumulating K6zᵀ at edge-case points and points clamped onto a
@@ -1137,12 +1158,15 @@ RK4 = {"zp": ("trace_rk4_zp", "pack_zp_taps", "zp"),
 
 
 def _sorted_batch(dev, policy, past=300):
-    """Rays a batch needs to be sorted and packed by a K1 call ("zp") or
-    by K1c's ("cubic"), and ``past`` more (300: a ragged batch; −1: the
-    largest batch below the threshold)."""
+    """Rays a batch needs to be sorted and packed by a K1 call ("zp"), by
+    K1c's ("cubic") or by K1s's leapfrog ("split"), or to be packed in ray
+    order by K1s's leapfrog ("split_packed"), and ``past`` more (300: a
+    ragged batch; −1: the largest batch below the threshold)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_sm = (kernels.TRACE_ZP_RAYS_PER_SM if policy == "zp"
-              else kernels.TRACE_CUBIC_RAYS_PER_SM)
+    per_sm = {"zp": kernels.TRACE_ZP_RAYS_PER_SM,
+              "cubic": kernels.TRACE_CUBIC_RAYS_PER_SM,
+              "split": kernels.SORT_AND_PACK["trace_split"][0],
+              "split_packed": kernels.SPLIT_PACKED_RAYS_PER_SM}[policy]
     return per_sm * sms + past
 
 
@@ -1204,18 +1228,23 @@ SPLIT = {"single": {},
                                cos_chi=0.6, plasmasphere_n0=1e10)}
 
 
-@pytest.mark.parametrize("n_rays", ["small", "sorted"])
+@pytest.mark.parametrize("n_rays", ["small", "packed", "sorted"])
 @pytest.mark.parametrize("method", ["leapfrog", "rk4"])
 @pytest.mark.parametrize("case", sorted(SPLIT))
 def test_trace_split_matches_plain(dev, case, method, n_rays):
     """K1s (leapfrog and rk4; a single layer, and three layers on the
     curved Earth with the solar factor and the plasmasphere) as
-    ``trace_rays_split`` calls it: one launch, its pack, the sort for a
-    batch past K1c's threshold; bitwise the unpacked evaluator in ray
-    order; against ``trace_rays_split_ref`` within 1e-3 km on the path
-    and 1e-5 relative on the TEC."""
+    ``trace_rays_split`` calls it: one launch; leapfrog at its own call
+    (the table as it is for a small batch, packed from
+    ``SPLIT_PACKED_RAYS_PER_SM`` rays an SM, sorted too past its
+    ``SORT_AND_PACK`` threshold), rk4 at K1c's (packed, sorted past K1c's
+    threshold); bitwise the unpacked general form in ray order; against
+    ``trace_rays_split_ref`` within 1e-3 km on the path and 1e-5 relative
+    on the TEC."""
     grid, m = _world(dev)
-    n = 700 if n_rays == "small" else _sorted_batch(dev, "cubic")
+    policy = "cubic" if method == "rk4" else "split"
+    n = {"small": 700, "packed": _sorted_batch(dev, "split_packed"),
+         "sorted": _sorted_batch(dev, policy)}[n_rays]
     o, d = _rays(dev, n)
     bg = chapman.background_ne_fn(**SPLIT[case])
     keep_path = n_rays == "small"
@@ -1224,7 +1253,8 @@ def test_trace_split_matches_plain(dev, case, method, n_rays):
     before = dict(kernels.launches)
     b, t = fermat.trace_rays_split(*args, **kw)
     sorted_ = int(n_rays == "sorted")
-    for key, k in (("trace_split", 1), ("pack_z_taps", 1),
+    packed = int(method == "rk4" or n_rays != "small")
+    for key, k in (("trace_split", 1), ("pack_z_taps", packed),
                    ("ray_order_keys", sorted_), ("cubic_value_grad", 0)):
         assert kernels.launches[key] == before[key] + k, key
     pert = fermat.split_perturbation(m, grid, bg).contiguous()
@@ -1232,13 +1262,48 @@ def test_trace_split_matches_plain(dev, case, method, n_rays):
     want = kernels.trace_split_with(
         pert, grid, o, d, 24, keep_path, packed=None, order=None,
         threads=128, rk4=method == "rk4", background=bg.kernel_params(dev),
-        **c)
+        form="general", **c)
     assert torch.equal(t, want[1])
     assert torch.equal(b.points[:, -1], want[0])
     br, tr = fermat.trace_rays_split_ref(*args, **kw)
     assert b.points.shape == br.points.shape
     assert float((b.points - br.points).abs().max()) <= 1e-3
     assert float(((t - tr).abs() / tr.abs()).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("layout", ["sorted", "packed", "as_is"])
+@pytest.mark.parametrize("method", ["leapfrog", "rk4"])
+@pytest.mark.parametrize("cos_chi", [None, 0.4])
+def test_trace_split_one_layer_form_is_the_general_form(dev, cos_chi,
+                                                        method, layout):
+    """K1s's one-layer background (``ChapmanLayer``: ``background_ne_fn()``
+    and a cos χ variant) bitwise its general form (``ChapmanBackground``)
+    on the same single layer, path kept, over the packed table in the ray
+    order, over it in ray order, and over the table as it is; the
+    one-layer form refused for a background it does not describe."""
+    grid, m = _world(dev)
+    n = 700
+    o, d = _rays(dev, n, seed=5)
+    bg = chapman.background_ne_fn(cos_chi=cos_chi)
+    params = bg.kernel_params(dev)
+    assert kernels.split_form(params) == "layer"
+    pert = fermat.split_perturbation(m, grid, bg).contiguous()
+    c = fermat._step_constants(150e6, 1000.0, 24)
+    packed = (None if layout == "as_is"
+              else kernels.pack_z_taps(pert, grid))
+    order = kernels.ray_order(o, d, grid) if layout == "sorted" else None
+    out = {form: kernels.trace_split_with(
+        pert, grid, o, d, 24, True, packed=packed, order=order, threads=64,
+        rk4=method == "rk4", background=params, form=form, **c)
+        for form in ("layer", "general")}
+    for a, b in zip(out["layer"], out["general"]):
+        assert torch.equal(a, b)
+    multi = chapman.background_ne_fn(layers=chapman.DEFAULT_LAYERS)
+    with pytest.raises(ValueError, match="no form 'layer'"):
+        kernels.trace_split_with(
+            pert, grid, o, d, 24, False, packed=packed, order=order,
+            threads=64, rk4=method == "rk4",
+            background=multi.kernel_params(dev), form="layer", **c)
 
 
 def test_trace_rays_stochastic_is_a_loop_of_the_kernel(dev):

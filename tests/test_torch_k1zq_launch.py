@@ -98,7 +98,8 @@ def test_the_ordered_plain_tracer_matches_jax(world, interp):
 def test_each_call_sorts_and_packs_from_its_own_threshold(name):
     """``sort_and_pack``: the table as it is, at the small block, one ray
     below the threshold of rays an SM; sorted and packed at the call's
-    block from it. K1 and K1r on zp, zpc and quadratic keep K1's launch."""
+    block from it. K1 and K1r on zp, zpc and quadratic keep K1's launch
+    (K1z, K1q and K1s's leapfrog have their own)."""
     per_sm, threads, small = kernels.SORT_AND_PACK[name]
     assert 32 <= small <= threads <= 256 and per_sm >= 1
     for sms in (1, 132):
@@ -107,7 +108,8 @@ def test_each_call_sorts_and_packs_from_its_own_threshold(name):
         assert kernels.sort_and_pack(name, per_sm * sms, sms) == \
             (True, threads)
         assert kernels.sort_and_pack(name, 0, sms) == (False, small)
-    if not name.startswith(("trace_leapfrog_zpc", "trace_leapfrog_quad")):
+    if not name.startswith(("trace_leapfrog_zpc", "trace_leapfrog_quad",
+                            "trace_split")):
         threads_k1 = 64 if name == "trace_leapfrog_zp" else \
             kernels.TRACE_RK4_THREADS
         assert (per_sm, threads, small) == (kernels.TRACE_ZP_RAYS_PER_SM,
