@@ -56,3 +56,20 @@ def fourier_modes_from_numpy(ks, phases, amp, device=None) -> FourierModes:
     return FourierModes.from_arrays(field_from_numpy(ks, device),
                                     field_from_numpy(phases, device),
                                     float(amp))
+
+
+#: The dtypes of an online filter's state (``inversion.online``).
+_ONLINE_STATE_DTYPES = {"m": np.float32, "ensemble": np.float32,
+                        "t": np.int64, "wind_kmps": np.float64,
+                        "dt_s": np.float64, "r_scale": np.float64}
+
+
+def online_state_from_numpy(state) -> dict:
+    """An online filter's ``state_dict`` from the JAX package
+    (``OnlineKalman`` or ``OnlineEnsembleKalman``: any mapping whose
+    values ``np.asarray`` reads) as the numpy dict the port's
+    ``load_state`` takes. The keys are the same in both packages; the
+    field or ensemble stays float32 and the scalars keep their float64,
+    so the carried state is bit for bit the reference's."""
+    return {k: np.asarray(v, _ONLINE_STATE_DTYPES.get(k))
+            for k, v in state.items()}

@@ -1,5 +1,5 @@
-"""Matrix-free Krylov solvers (port of ``cg`` and ``lsqr`` from
-``ionotomo_tpu.core.linalg``).
+"""Matrix-free Krylov solvers and the randomized top eigenpairs (port of
+``cg``, ``lsqr`` and ``subspace_eigs`` from ``ionotomo_tpu.core.linalg``).
 
 The reference's rules hold: a fixed trip count with masked convergence.
 Once a system converges its updates are frozen by ``torch.where``, so the
@@ -8,15 +8,16 @@ loop never asks the host whether to stop: no ``.item()``, ``bool(t)`` or
 solvers take flat tensors (the reference's pytree operands are not
 needed by the port's callers).
 
-Not ported: the reference's ``core/linalg.py:subspace_eigs`` (ROADMAP.md
-Queue 1, diagnostics only) and ``spectral_preconditioner`` (skipped by
-design).
+Not ported: the reference's ``spectral_preconditioner`` (skipped by
+design: the reference measured deflation of truncated CG as harmful).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import torch
+
+from .precision import check_full_f32
 
 
 class SolveInfo(NamedTuple):
@@ -168,3 +169,33 @@ def lsqr(aop: Callable, atop: Callable, b: torch.Tensor,
     atr_final = norm(atop(b - aop(x)) - (damp * damp) * x)
     return x, SolveInfo(iterations=it, residual_norm=atr_final,
                         converged=done)
+
+
+def subspace_eigs(matvec: Callable, n: int, k: int, z: torch.Tensor,
+                  iters: int = 2, oversample: int = 8):
+    """Top-k approximate eigenpairs of an SPD operator by randomized block
+    subspace iteration (Halko-Martinsson-Tropp).
+
+    ``matvec`` maps an (n, p) block to the operator applied to each of its
+    columns (one batched application), p = k + ``oversample``. ``z``: the
+    (n, p) start block, standard normals (the reference draws it from its
+    key). Returns (U (n, k) orthonormal columns, lam (k,) descending).
+    Each iteration costs one block application and one QR of the
+    tall-skinny block; the Rayleigh-Ritz step is a (p, p) symmetric eig.
+    The block products run in full f32 (``check_full_f32``).
+    """
+    p = k + oversample
+    if tuple(z.shape) != (n, p):
+        raise ValueError(f"subspace_eigs: start block of shape {(n, p)} "
+                         f"needed, got {tuple(z.shape)}")
+    check_full_f32()
+    q, _ = torch.linalg.qr(z)
+    for _ in range(iters):
+        q, _ = torch.linalg.qr(matvec(q))
+    aq = matvec(q)
+    t = q.T @ aq
+    t = 0.5 * (t + t.T)
+    lam_all, s = torch.linalg.eigh(t)              # ascending
+    lam = lam_all.flip(0)[:k]
+    u = (q @ s).flip(1)[:, :k]
+    return u, lam

@@ -34,3 +34,10 @@ def as_tensor(x, dtype=torch.float32, device=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(dtype)
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=resolve(device))
+
+
+def host(x) -> np.ndarray:
+    """``x`` (a tensor on any device, or array-like) as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

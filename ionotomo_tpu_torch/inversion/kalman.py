@@ -38,11 +38,13 @@ step ``step_offset + t`` where the reference folds that step into its
 key, so chunked and single-call runs consume the same draws and agree
 bitwise.
 
+``update_operator_eigs`` is the serving layer's spectrum diagnostic of
+the update operator, one batched application of J and Jᵀ a block.
+
 Not ported: ``spectrum_blend`` (withdrawn in the reference: measured
-neutral; the argument raises), the reference's
+neutral; the argument raises) and the reference's
 ``inversion/kalman.py:member_parallel_enkf`` with ``member_axis``
-(ROADMAP.md Queue 1, multi-GPU) and ``update_operator_eigs``
-(ROADMAP.md Queue 1, diagnostics only).
+(ROADMAP.md Queue 1, multi-GPU).
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core import linalg
 from ..core.grids import Grid3D
 from ..device import as_tensor
 from ..forward import tec as tec_mod
@@ -172,6 +175,47 @@ def _innov_noise_scale_sq(nu, s_diag, v_diag, n_iter: int = 8):
         den = torch.sum(a * v)
         rho2 = torch.clamp(num / torch.clamp_min(den, 1e-20), 1e-2, 1e4)
     return rho2
+
+
+def update_operator_eigs(grid: Grid3D, rays: RayBundle, noise_std, m_lin,
+                         cov: GPCovariance, num_directions: int, z,
+                         rank: int = 16, i0: int = 0, power_iters: int = 2,
+                         oversample: int = 8, quadrature: str = "hermite",
+                         interp: str = "cubic"):
+    """Top-``rank`` eigenpairs of the filter/MAP update operator
+    I + C^{1/2} Jᵀ C_d⁻¹ J C^{1/2}, linearised at ``m_lin``: a spectrum
+    diagnostic (``core.linalg.subspace_eigs``). The decay of ``lam`` is
+    the effective number of data-dominated directions per update and λ₁
+    the system's condition number, the quantities that size ``cg_iters``.
+    ``z``: the (n_voxels, rank + oversample) start block of standard
+    normals. Not a preconditioner (the reference measured deflating these
+    directions in truncated CG as harmful).
+
+    The block's columns go through the operator as one member axis:
+    C^{1/2} by batched FFTs, J and Jᵀ by ``PairedDtecLinear`` with a
+    leading axis (K2b and K3b on the card). Cost: ``power_iters + 1``
+    block applications.
+    """
+    dev = grid.device
+    nd = int(num_directions)
+    na = rays.points.shape[0] // nd
+    cd = torch.broadcast_to(torch.as_tensor(noise_std, dtype=torch.float32,
+                                            device=dev),
+                            (na, nd)).reshape(-1) ** 2
+    inv_cd = 1.0 / cd
+    op = tec_mod.dtec_paired_linear(as_tensor(m_lin, device=dev), grid, rays,
+                                    nd, i0, quadrature, interp)
+
+    def matvec(u):
+        p = u.shape[1]
+        v = cov.apply_sqrt(u.T.reshape((p,) + grid.shape))
+        w = op.apply(v) * inv_cd
+        back = cov.apply_sqrt(op.apply_t(w)).reshape(p, -1)
+        return u + back.T
+
+    return linalg.subspace_eigs(matvec, grid.num_voxels, rank,
+                                as_tensor(z, device=dev), iters=power_iters,
+                                oversample=oversample)
 
 
 class KalmanResult(NamedTuple):

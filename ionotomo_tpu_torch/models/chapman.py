@@ -4,10 +4,6 @@
 ``n_e(h) = N_peak * exp(0.5 * (1 - z - exp(-z)))`` with
 ``z = (h - h_peak)/H``; optional solar-zenith modulation. Fields come out
 on the grid's device.
-
-Not ported yet (ROADMAP.md Queue 1, host-side geometry and data): the
-reference's ``models/chapman.py:terminator_cos_chi``, which waits for
-``geometry/frames.py``.
 """
 from __future__ import annotations
 
@@ -43,6 +39,21 @@ def altitude_field(grid: Grid3D, earth_radius_km=None, site_height_km=0.0):
     r2 = (x[:, None, None] ** 2 + y[None, :, None] ** 2)
     zc = r_earth + site_height_km + z[None, None, :]
     return torch.sqrt(r2 + zc * zc) - r_earth
+
+
+def terminator_cos_chi(grid: Grid3D, enu_frame, mjd) -> torch.Tensor:
+    """Per-column solar-zenith cosine map, (nx, ny, 1) float32 on the
+    grid's device: the horizontally varying day/night input for wide
+    grids, ready to pass as ``cos_chi`` to the field functions. The axes
+    are the grid's float32 axes, the geometry float64 numpy
+    (``geometry.frames.solar_cos_zenith_field``)."""
+    from ..geometry import frames
+    ax = _axis(grid, 0).cpu().numpy().astype(np.float64)
+    ay = _axis(grid, 1).cpu().numpy().astype(np.float64)
+    cc = frames.solar_cos_zenith_field(mjd, enu_frame,
+                                       ax[:, None], ay[None, :])
+    return torch.as_tensor(np.asarray(cc[..., None], np.float32),
+                           device=grid.device)
 
 
 def solar_zenith_factor(cos_chi, floor=0.05):

@@ -30,6 +30,14 @@ KALMAN_KERNELS = SOLVE_KERNELS
 MEMBER_KERNELS = ("rows_value_fwd_batched", "rows_value_bwd_batched",
                   "pack_members", "fold_member_rows", "zp_value_grad_batched")
 ENKF_KERNELS = MEMBER_KERNELS + ("zp_value_grad_bwd",)
+#: kernels the streaming service (``serving.EpochService``) launches at
+#: ``EngineConfig``'s defaults (cubic, Hermite) with adaptive R: the
+#: point filter's gather, scatter and endpoint kernels, the point order
+#: each epoch's new geometry builds, and the member-axis gather (with its
+#: pack) that pushes the adaptive-R probes through J as one batch
+SERVICE_KERNELS = CUBIC_SOLVE_KERNELS + ("point_order_keys", "permute_points",
+                                         "rows_value_fwd_batched",
+                                         "pack_members")
 
 
 def edge_case_points(shape, origin, spacing, n, rng):
