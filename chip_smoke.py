@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port's bent-ray forward paths (leapfrog, rk4, the
 split-field and the stochastic beam trace), its MAP inversion paths on the
 zp and the tricubic field model, its time-evolving path (the frozen-flow
-Kalman filter and the ensemble filter) and its streaming service
-(``serving.EpochService``), on one NVIDIA GPU.
+Kalman filter and the ensemble filter), its streaming service
+(``serving.EpochService``) and its batch inversion
+(``inversion.pipeline.InversionPipeline``), on one NVIDIA GPU.
 
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # also: device time by kernel of
@@ -15,6 +16,14 @@ Kalman filter and the ensemble filter) and its streaming service
                                        # step (torch.profiler)
     python3 chip_smoke.py --service    # only: the build and phase 15, the
                                        # streaming service
+    python3 chip_smoke.py --invert     # only: the build and phase 16, the
+                                       # batch inversion (with --profile:
+                                       # one snapshot solve profiled)
+    python3 chip_smoke.py --theta-study
+                                       # only: phase 16's estimate_profile
+                                       # solve by depth of CG and of
+                                       # Gauss-Newton, on the card, the
+                                       # CPU, and the CPU in float64
     python3 chip_smoke.py --parent DIR # also: hold the kernels to those of
                                        # the checkout at DIR (the commit
                                        # before K1s and K6z were
@@ -311,6 +320,25 @@ analytic world drifting with the wind, 1 % noise), and on it:
    restart at 3; one epoch with beam noise (8 paths, K1c) and the
    spectrum diagnostic (K2b, K3b), a sounding file, then another epoch;
    three epochs with ``interp="zp"`` (K1e, K1eᵀ).
+16. The batch inversion (``InversionPipeline``) at full width: ``data.
+   synth``'s defaults over 8 timesteps, built in memory (no h5py there),
+   on ``EngineConfig``'s 128³ grid with the ``invert`` CLI's defaults
+   (map_gauss_newton, gn 2, cg 40, cubic, Hermite@129, von Kármán 80
+   km). The default snapshot mode over the 8 timesteps (seconds a
+   timestep, rays/s, residual, held-out dTEC rms over 20 of the array's
+   antennas toward 50 other directions against the prior's at every
+   timestep; K2, K3, K5, K5ᵀ and the point order must have launched),
+   then each other mode once (robust_gn, steepest, lsqr_smoothness,
+   batched_gn on 4 timesteps, kalman in 2 chunks, enkf with 8 members on
+   4, posterior_samples=8, bent with retrace_every 1, beam noise of 8
+   paths, the GCV and evidence prior selection, estimate_profile with
+   slant anchors of the truth), each finite and below the prior's
+   held-out rms, each launching its kernels; kill and resume after
+   timestep 4 of 8 in the snapshot and Kalman modes with the Solution's
+   SHA-256 equal; one snapshot solve on the card against the same solve
+   on the CPU, with K2 and K3 rounded to bfloat16 as controls; K2b with
+   its pack and K3b with its fold at B = 8 over the snapshot geometry's
+   79,980 points against their plain versions (``kernels_at_invert``).
 
 With ``--parent``, KG at both of phase 7's shapes and the permute at
 phases 6 and 10 are bitwise the parent's and timed in turns with it, as
@@ -359,6 +387,27 @@ def check(ok: bool, what: str):
     print(f"  ok: {what}")
 
 
+class Timing(float):
+    """A time in ms that says how it was taken, in ``by``: "profiler" (the
+    durations of the kernels in a torch.profiler trace: device time),
+    "cuda_events" (CUDA events around the calls: the gaps between
+    launches included, an upper bound on device time) or "host_clock"
+    (the host's clock around synchronised calls)."""
+
+    def __new__(cls, ms, by: str):
+        t = super().__new__(cls, ms)
+        t.by = by
+        return t
+
+
+def timed_by(line) -> dict:
+    """How each time of a kernel's line was taken (``Timing.by``), for
+    its row of the ``kernels`` line."""
+    return {k: getattr(line[k], "by", "not recorded")
+            for k in ("ms", "plain_ms", "library_ms")
+            if line.get(k) is not None}
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` in ms (CUDA events), after a warm-up."""
     fn()
@@ -370,7 +419,7 @@ def cuda_ms(fn, reps: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return Timing(start.elapsed_time(end) / reps, "cuda_events")
 
 
 def agreed_reading(readings, tol=0.1):
@@ -462,7 +511,9 @@ def device_ms(fn, reps: int, exclude=()) -> float:
     after the first trace): one short of it by a lost record's share is
     set aside and another trace taken (``plausible_readings``). After
     eight traces without an agreeing pair the largest reading is taken and
-    a line says so."""
+    a line says so. Where every trace came back empty, the CUDA-event time
+    is taken, and a line says so. The result is a ``Timing`` that says
+    which of the two it is."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -484,18 +535,23 @@ def device_ms(fn, reps: int, exclude=()) -> float:
             events_ms = cuda_ms(fn, reps)
         ms = agreed_reading(plausible_readings(traces, reps, events_ms))
         if ms is not None:
-            return ms
+            return Timing(ms, "profiler")
     readings = [r for r in whole_readings(traces, reps) if r is not None]
     if not readings:
-        raise RuntimeError("torch.profiler recorded no device time in eight "
-                           "traces")
+        # a CUPTI trace can come back empty: seen eight times in a row for
+        # the plain pack of the service's 2 tables after 14 phases of
+        # tracing, where every earlier run had read it
+        ms = cuda_ms(fn, reps)
+        print(f"  note: torch.profiler recorded no device time in eight "
+              f"traces; CUDA events taken, {ms:.4f} ms")
+        return Timing(ms, "cuda_events")
     kept = plausible_readings(traces, reps, events_ms)
     print(f"  note: no two profiler traces in a row agreed, {readings}"
           + (f" (CUDA events {events_ms:.4f} ms; "
              f"{len(readings) - len(kept)} set aside as short)"
              if events_ms is not None else "")
           + "; the largest is taken")
-    return max(readings)
+    return Timing(max(readings), "profiler")
 
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, f32 FLOP/s outside
@@ -3707,7 +3763,7 @@ def wall_ms(fn, reps=1) -> float:
     for _ in range(reps):
         fn()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / reps
+    return Timing((time.perf_counter() - t0) * 1e3 / reps, "host_clock")
 
 
 class Laps:
@@ -4216,9 +4272,9 @@ def service_class():
     return MemoryService
 
 
-def service_dir(name) -> Path:
-    """An empty directory under the checkout's ``build/service``."""
-    d = Path(__file__).resolve().parent / "build" / "service" / name
+def service_dir(name, under="service") -> Path:
+    """An empty directory under the checkout's ``build/<under>``."""
+    d = Path(__file__).resolve().parent / "build" / under / name
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
     return d
@@ -4423,9 +4479,9 @@ def sync(dev):
         torch.cuda.synchronize()
 
 
-def profile_service_epoch(svc, watch, name):
-    """One epoch of the service under torch.profiler: host wall, device
-    busy time, launches, busy share and the top kernels."""
+def profile_call(label, fn):
+    """One call of ``fn`` under torch.profiler: host wall, device busy
+    time, launches, busy share and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4433,8 +4489,7 @@ def profile_service_epoch(svc, watch, name):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        arrive(watch, [name])
-        check(svc.process_available() == 1, "the profiled epoch assimilated")
+        fn()
         torch.cuda.synchronize()
         wall_ms_ = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.key, e.self_device_time_total, e.count)
@@ -4443,7 +4498,7 @@ def profile_service_epoch(svc, watch, name):
                    and e.self_device_time_total > 0), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3
     n = sum(r[2] for r in rows)
-    print(f"  profiled epoch ({name}): wall {wall_ms_:.3f} ms (profiler on),"
+    print(f"  profiled {label}: wall {wall_ms_:.3f} ms (profiler on),"
           f" device busy {busy_ms:.3f} ms in {n} launches, busy share "
           f"{busy_ms / wall_ms_:.3f}; top kernels:")
     for key, us, count in rows[:12]:
@@ -4451,6 +4506,14 @@ def profile_service_epoch(svc, watch, name):
     return {"wall_ms": wall_ms_, "busy_ms": busy_ms, "launches": n,
             "busy_share": busy_ms / wall_ms_,
             "top": [[k[:90], us / 1e3, c] for k, us, c in rows[:12]]}
+
+
+def profile_service_epoch(svc, watch, name):
+    """One epoch of the service under torch.profiler (``profile_call``)."""
+    def epoch():
+        arrive(watch, [name])
+        check(svc.process_available() == 1, "the profiled epoch assimilated")
+    return profile_call(f"epoch ({name})", epoch)
 
 
 def phase15_service(dev, kernels, results, n_epochs=SERVICE_EPOCHS,
@@ -4762,6 +4825,344 @@ def phase15_service(dev, kernels, results, n_epochs=SERVICE_EPOCHS,
         "profile": prof, "plain_s_per_epoch": plain_s,
         "enkf_ms_per_epoch": ens_s * 1e3, "enkf_sha256": sha,
         "extra_ms": x_ms, "zp_ms_per_epoch": z_ms, "card": card}
+
+
+#: Phase 16, the batch inversion: timesteps of the default-mode run, and
+#: the limits of one snapshot solve on the card against the same solve on
+#: the CPU (relative L2 of the field over the update, relative held-out
+#: dTEC rms), set from the readings on an NVIDIA H100 80GB HBM3 at 700 W
+#: (PERF.md): sound 1.8e-3 and 2.7e-3; K2's output in bfloat16 3.2e-2 and
+#: 1.1e-2, K3's 1.0e-1 and 2.8e-2. The field limit sits 5.7 x above the
+#: sound reading and 3.2 x below the nearer control; the held-out limit
+#: 3.7 x above the sound reading, with K2's control just past it (so the
+#: field limit is the one that must fail a wrong kernel).
+INVERT_TIMES = 8
+INVERT_FIELD_LIMIT = 1e-2
+INVERT_HELDOUT_LIMIT = 1e-2
+
+
+def invert_world(dev):
+    """``data.synth`` at its defaults (62 antennas x 10 directions, 150 MHz,
+    30 s cadence, a 64^3 drifting turbulent truth) over ``INVERT_TIMES``
+    timesteps, in memory, with the truth's wind on the DataPack; and the
+    held-out rays: 20 of the array's antennas (drawn, seed 99) toward 50
+    other directions around the phase centre (seed 99), with the truth's
+    dTEC over them at each timestep (generalisation to new directions, as
+    phase 15's held-out rays)."""
+    from ionotomo_tpu_torch.data import synth
+    from ionotomo_tpu_torch.data.datapack import DataPack
+    from ionotomo_tpu_torch.forward import tec
+    from ionotomo_tpu_torch.geometry import rays
+
+    n_times = INVERT_TIMES
+    dp, truth = synth.generate_example_datapack(n_times=n_times, seed=0,
+                                                device=dev)
+    dp.wind_kmps = truth["wind_kmps"]
+    pick = np.sort(np.random.default_rng(99).choice(dp.shape[0], 20,
+                                                    replace=False))
+    ants = dp.antennas_enu()[pick].astype(np.float32)
+    pc = synth.zenith_phase_center(dp.array, dp.times.mean())
+    ho = DataPack(dp.array, synth.choose_directions(pc, 50, seed=99),
+                  dp.times)
+    dirs = torch.as_tensor(ho.directions_enu().astype(np.float32),
+                           device=dev)
+    bundles, want = [], []
+    for t in range(n_times):
+        o, d = rays.make_ray_batch(torch.as_tensor(ants, device=dev), dirs[t])
+        rb = rays.sample_straight_rays(o, d)
+        bundles.append(rb)
+        want.append(tec.dtec_paired(torch.as_tensor(truth["m"][t], device=dev),
+                                    truth["grid"], rb, 50, 0))
+    truth["heldout"] = (bundles, want)
+    return dp, truth
+
+
+def invert_heldout(m, grid, truth, t, cfg) -> float:
+    """rms of (the field's dTEC − the truth's) over timestep t's held-out
+    rays, through the pipeline's forward model."""
+    from ionotomo_tpu_torch.forward import tec
+    bundles, want = truth["heldout"]
+    m = torch.as_tensor(np.asarray(m), device=grid.device)
+    pred = tec.dtec_paired_q(m, grid, bundles[t], 50, 0, cfg.rays.quadrature,
+                             cfg.rays.interp)
+    return float(torch.sqrt(torch.mean((pred - want[t]) ** 2)))
+
+
+def invert_config(name, *argv, shape=None):
+    """The config of ``python -m ionotomo_tpu_torch invert`` with ``argv``
+    on the 128^3 grid of ``EngineConfig`` (``shape`` shrinks it for a CPU
+    rehearsal), writing its checkpoints and metrics under
+    ``build/invert/<name>``."""
+    from ionotomo_tpu_torch import __main__ as cli
+    root = service_dir(name, under="invert")
+    grid = str((shape or (128,))[0])
+    args = cli.parser().parse_args(
+        ["invert", "in.h5", "--out", "out.h5", "--grid", grid,
+         "--checkpoint-dir", str(root / "ckpt"),
+         "--metrics", str(root / "metrics.jsonl"), *argv])
+    return cli.invert_config(args)
+
+
+def solution_digest(sol) -> str:
+    """SHA-256 of a Solution's field and diagnostics."""
+    h = hashlib.sha256(np.ascontiguousarray(sol.m).tobytes())
+    for k in sorted(sol.diagnostics):
+        h.update(np.ascontiguousarray(sol.diagnostics[k]).tobytes())
+    return h.hexdigest()
+
+
+#: Phase 16's modes beside the default: (name, CLI arguments, timesteps,
+#: the kernels the mode must launch beside the default mode's, anchors).
+INVERT_MODES = (
+    ("robust_gn", ("--solver", "robust_gn"), 1, (), None),
+    ("steepest", ("--solver", "steepest"), 1,
+     ("rows_value_fwd_batched", "pack_members"), None),
+    ("lsqr_smoothness", ("--solver", "lsqr_smoothness"), 1, (), None),
+    ("batched_gn", ("--solver", "batched_gn"), 4, (), None),
+    ("kalman", ("--solver", "kalman", "--kalman-chunk", "4"), 8, (), None),
+    ("enkf", ("--solver", "enkf", "--kalman-chunk", "2"), 4,
+     ("rows_value_fwd_batched", "rows_value_bwd_batched", "pack_members"),
+     None),
+    ("posterior_samples", ("--posterior-samples", "8"), 1,
+     ("rows_value_fwd_batched", "rows_value_bwd_batched", "pack_members"),
+     None),
+    ("bent_retrace", ("--bent", "--retrace-every", "1"), 1,
+     ("trace_leapfrog_cubic",), None),
+    ("beam_noise", ("--beam-noise", "8"), 1, ("trace_leapfrog_cubic",), None),
+    ("auto_prior_gcv", ("--auto-prior", "gcv"), 1,
+     ("rows_value_fwd_batched", "rows_value_bwd_batched", "pack_members"),
+     None),
+    ("auto_prior_evidence", ("--auto-prior", "evidence"), 1,
+     ("rows_value_fwd_batched", "rows_value_bwd_batched", "pack_members"),
+     None),
+    ("estimate_profile", ("--estimate-profile",), 1, (), "slant"),
+)
+INVERT_PATH_KERNELS = ("rows_value_fwd", "rows_value_bwd", "cubic_value_grad",
+                       "cubic_value_grad_bwd", "point_order_keys",
+                       "permute_points")
+
+
+def slant_truth_anchors(dev, pipe, truth):
+    """Slant absolute-TEC anchors of the truth at timestep 0
+    (``anchors.anchors_from_field``): 3 receivers inside the array's
+    footprint x 5 elevations (15-75 deg), random azimuths (seed 1), noise
+    0.5 % of the mean TEC (drawn, seed 2)."""
+    from ionotomo_tpu_torch.inversion import anchors
+
+    rng = np.random.default_rng(1)
+    xy = pipe.datapack.array.enu[:, :2]
+    rec = rng.uniform(0.5 * xy.min(0), 0.5 * xy.max(0), (3, 2))
+    el = np.tile(np.deg2rad([15.0, 25.0, 40.0, 60.0, 75.0]), 3)
+    bundle = anchors.slant_bundle(pipe.grid, np.repeat(rec, 5, 0),
+                                  rng.uniform(0, 2 * np.pi, 15), el)
+    m = torch.as_tensor(truth["m"][0], device=dev)
+    clean = anchors.anchors_from_field(m, truth["grid"], bundle, 0.0)
+    noise = 0.005 * float(torch.mean(clean.values))
+    draws = np.random.default_rng(2).normal(size=15).astype(np.float32)
+    return anchors.anchors_from_field(m, truth["grid"], bundle, noise,
+                                      noise=draws)
+
+
+def phase16_invert(dev, kernels, results, profile, shape=None):
+    """The batch inversion (``inversion.pipeline.InversionPipeline``) at
+    full width: ``data.synth``'s defaults over ``INVERT_TIMES`` timesteps in
+    memory (the card's machine has no h5py), the 128^3 grid and the
+    ``invert`` CLI's defaults (map_gauss_newton, gn 2, cg 40, Hermite@129,
+    cubic, von Karman 80 km). The default snapshot mode over every
+    timestep (seconds a timestep, rays/s, residual, held-out dTEC rms
+    against the prior's, the launches of its kernels), each other mode
+    once, kill and resume in the snapshot and Kalman modes (the Solution's
+    SHA-256), one snapshot solve on the card against the CPU from the same
+    inputs with bfloat16 controls, and K2b, its pack, K3b and its fold at
+    B = 8 over the snapshot geometry's points (``kernels_at_invert``).
+    ``shape`` shrinks the grid for a rehearsal on the CPU."""
+    from ionotomo_tpu_torch.core import tricubic
+    from ionotomo_tpu_torch.device import host
+    from ionotomo_tpu_torch.forward import tec
+    from ionotomo_tpu_torch.inversion.pipeline import InversionPipeline
+
+    cuda = dev.type == "cuda"
+    print("phase 16: the batch inversion (InversionPipeline, 128^3 cubic, "
+          "the invert CLI's defaults)")
+    t0 = time.perf_counter()
+    n_times = INVERT_TIMES
+    dp, truth = invert_world(dev)
+    na, _, nd = dp.shape
+    print(f"  world: {na} antennas x {nd} directions x {n_times} timesteps "
+          f"(30 s cadence, {dp.frequency_hz / 1e6:g} MHz), made in memory in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def pack(k):
+        sub = dp.select(times=list(range(k)))
+        sub.wind_kmps = dp.wind_kmps
+        return sub
+
+    cfg = invert_config("default", shape=shape)
+    print(f"  config: grid {cfg.grid.shape}, {cfg.rays.interp}, "
+          f"{cfg.rays.quadrature}@{cfg.rays.n_samples}, gn "
+          f"{cfg.solver.gn_iters}, cg {cfg.solver.cg_iters}, prior "
+          f"{cfg.prior.kind} sigma {cfg.prior.sigma} L "
+          f"{cfg.prior.length_scale_km} km")
+    pipe = InversionPipeline(dp, cfg, device=dev)
+    prior = pipe.m_prior
+    kernels.reset_launches()
+    sync(dev)
+    t1 = time.perf_counter()
+    sol = pipe.run(resume=False)
+    sync(dev)
+    run_s = time.perf_counter() - t1
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    print(f"  launches in the default-mode run ({n_times} timesteps): "
+          f"{launches}")
+    if cuda:
+        for k in INVERT_PATH_KERNELS:
+            check(launches.get(k, 0) > 0, f"{k} launched on the invert path "
+                                          f"({launches.get(k, 0)} times)")
+    recs = [r for r in pipe.metrics.read_all() if "timestep" in r]
+    check([r["timestep"] for r in recs] == list(range(n_times))
+          and sol.m.shape[0] == n_times and np.isfinite(sol.m).all(),
+          f"{n_times} finite timesteps, one metrics record each")
+    secs = [r["seconds"] for r in recs]
+    rays_s = [r["rays_per_sec"] for r in recs]
+    h_post = [invert_heldout(sol.m[t], pipe.grid, truth, t, cfg)
+              for t in range(n_times)]
+    h_prior = [invert_heldout(host(prior), pipe.grid, truth, t, cfg)
+               for t in range(n_times)]
+    check(all(a < b for a, b in zip(h_post, h_prior)),
+          "held-out dTEC rms below the prior's at every timestep: "
+          + ", ".join(f"{a:.2f} < {b:.2f}" for a, b in zip(h_post, h_prior)))
+    card = card_line() if cuda else "cpu"
+    print(f"  snapshot mode ({card}): {run_s:.3f} s for {n_times} timesteps "
+          f"(host clock, the run's set-up and checkpoints included); the "
+          f"solve's seconds a timestep median {np.median(secs):.4f}, first "
+          f"{secs[0]:.4f}, max {max(secs):.4f}; rays/s median "
+          f"{np.median(rays_s):.1f}; residual "
+          + ", ".join(f"{r['residual']:.1f}" for r in recs))
+    out = {"timesteps": n_times, "run_s": run_s, "seconds": secs,
+           "rays_per_s": float(np.median(rays_s)),
+           "residual": [r["residual"] for r in recs],
+           "heldout": h_post, "heldout_prior": h_prior,
+           "launches": launches, "card": card, "modes": {}}
+
+    # kill and resume: the default run's checkpoint after timestep 4 (of
+    # 8) in a new directory, resumed by a new pipeline
+    half = n_times // 2
+
+    def resumed(name, argv, full_cfg, full_sol):
+        c = invert_config(name, *argv, shape=shape)
+        Path(c.runtime.checkpoint_dir).mkdir(parents=True)
+        shutil.copy(Path(full_cfg.runtime.checkpoint_dir)
+                    / f"ckpt_{half:08d}.npz", c.runtime.checkpoint_dir)
+        again = InversionPipeline(dp, c, device=dev).run(resume=True)
+        a, b = solution_digest(full_sol), solution_digest(again)
+        check(a == b, f"{name}: stopped after timestep {half} and resumed, "
+                      f"the Solution's SHA-256 equals the uninterrupted "
+                      f"run's ({a[:16]})")
+        return a
+
+    out["resume_sha256"] = {"snapshot": resumed("snapshot_resumed", (), cfg,
+                                                sol)}
+
+    # every other mode once
+    for name, argv, k, need, anchors in INVERT_MODES:
+        c = invert_config(name, *argv, shape=shape)
+        sub = pack(min(k, n_times))
+        kernels.reset_launches()
+        sync(dev)
+        t1 = time.perf_counter()
+        p = InversionPipeline(sub, c, device=dev)
+        a = slant_truth_anchors(dev, p, truth) if anchors else None
+        s = p.run(resume=False, anchors=a)
+        sync(dev)
+        secs_m = time.perf_counter() - t1
+        got = {kk: v for kk, v in kernels.launches.items() if v}
+        last = s.m.shape[0] - 1
+        h = invert_heldout(s.m[last], p.grid, truth, last, c)
+        hp = invert_heldout(host(p._m_prior0), p.grid, truth, last, c)
+        check(np.isfinite(s.m).all() and h < hp,
+              f"{name}: finite, held-out dTEC rms {h:.2f} below the prior's "
+              f"{hp:.2f} at timestep {last}")
+        if cuda:
+            for kk in need:
+                check(got.get(kk, 0) > 0, f"{name}: {kk} launched "
+                                          f"({got.get(kk, 0)} times)")
+        events = [r for r in p.metrics.read_all() if "event" in r
+                  and r["event"] not in ("chunk",)]
+        print(f"  {name} ({k} timestep(s)): {secs_m:.3f} s (host clock, "
+              f"set-up included), held-out {h:.2f} (prior {hp:.2f}); "
+              f"launches {got}" + ("; events " + json.dumps(
+                  [{kk: v for kk, v in e.items() if kk != "t_wall"}
+                   for e in events])[:600] if events else ""))
+        out["modes"][name] = {"timesteps": k, "seconds": secs_m,
+                              "heldout": h, "heldout_prior": hp,
+                              "launches": got}
+        if name == "kalman":
+            out["resume_sha256"]["kalman"] = resumed(
+                "kalman_resumed", argv, c, s) if k == n_times else None
+
+    # the slice's kernels at its new shapes: K2b with its pack and K3b
+    # with its fold at B = 8 over timestep 0's geometry
+    geo = tec.DtecGeometry(pipe.grid, pipe.rays_for_time(0), nd, pipe.i0,
+                           cfg.rays.quadrature, cfg.rays.interp)
+    n_pts = geo.ri.shape[0]
+    print(f"  the snapshot geometry: {n_pts} points, {geo.ends.shape[0]} "
+          f"endpoints")
+    out["at"] = (member_kernels_at(
+        f"the snapshot's {n_pts} points", dev, tricubic, kernels,
+        (geo.ri, geo.wxy, geo.zi, geo.wz), geo.row_plan,
+        *geo.table_shape, geo.model.xy_first, np.random.default_rng(16),
+        layout=True) if cuda else {})
+    del geo
+    if profile and cuda:
+        out["profile"] = profile_call("snapshot solve",
+                                      lambda: pipe.solve_snapshot(0))
+
+    # one snapshot solve on the card against the CPU from the same inputs,
+    # with the controls: K2 or K3 rounded to bfloat16
+    cpu = torch.device("cpu")
+    t1 = time.perf_counter()
+    m_cpu, _ = InversionPipeline(pack(1), invert_config(
+        "cpu", shape=shape), device=cpu).solve_snapshot(0)
+    cpu_s = time.perf_counter() - t1
+    ref = m_cpu.numpy()
+    # one timestep's grid and prior (the grid encloses the rays of
+    # every timestep a DataPack holds)
+    card_pipe = InversionPipeline(pack(1), invert_config(
+        "card", shape=shape), device=dev)
+    pri = host(card_pipe.m_prior)
+
+    def reading(field):
+        got = host(field)
+        rel = float(np.linalg.norm((got - ref).astype(np.float64))
+                    / np.linalg.norm((ref - pri).astype(np.float64)))
+        hk = invert_heldout(got, card_pipe.grid, truth, 0, cfg)
+        hc = invert_heldout(ref, card_pipe.grid, truth, 0, cfg)
+        return rel, abs(hk - hc) / hc, hk, hc
+
+    sound = reading(card_pipe.solve_snapshot(0)[0])
+    ctrl = {}
+    if cuda:
+        for kname in ("rows_value_fwd", "rows_value_bwd"):
+            with rounded_to_bf16(kernels, kname):
+                ctrl[kname] = reading(card_pipe.solve_snapshot(0)[0])
+    rel, dh, hk, hc = sound
+    print(f"  one snapshot solve on the card against the CPU ({cpu_s:.1f}"
+          f" s there): relative L2 of the field over the update "
+          f"{rel:.3e}, held-out dTEC rms {hk:.4f} against {hc:.4f} "
+          f"(relative {dh:.3e}); controls: " + "; ".join(
+              f"{k} in bfloat16 {r:.3e}, {d:.3e}"
+              for k, (r, d, _, _) in ctrl.items()))
+    check(rel <= INVERT_FIELD_LIMIT and dh <= INVERT_HELDOUT_LIMIT,
+          f"card against CPU: field within {INVERT_FIELD_LIMIT:.0e} "
+          f"({rel:.3e}), held-out within {INVERT_HELDOUT_LIMIT:.0e} "
+          f"({dh:.3e})")
+    for kname, (r, d, _, _) in ctrl.items():
+        check(r > INVERT_FIELD_LIMIT, f"control, {kname} in bfloat16: "
+              f"field's relative L2 {r:.3e} past the limit "
+              f"{INVERT_FIELD_LIMIT:.0e} (held-out {d:.3e})")
+    out.update(card_vs_cpu=list(sound), controls=ctrl, cpu_s=cpu_s,
+               limits=[INVERT_FIELD_LIMIT, INVERT_HELDOUT_LIMIT])
+    results["invert"] = out
 
 
 def kernel_ms_by_name(fn, reps: int) -> dict:
@@ -6753,7 +7154,8 @@ def kernels_line(results) -> dict:
 
     def entry(name, f, rep, n, line):
         return {"name": name, "route": "cuda", "source": src + f,
-                "replaces": rep, "launches": n, **{k: line[k] for k in keys}}
+                "replaces": rep, "launches": n, **{k: line[k] for k in keys},
+                "timed_by": timed_by(line)}
 
     at4 = []
     for label, line in results["at_config4"].items():
@@ -6837,13 +7239,35 @@ def kernels_line(results) -> dict:
                    entry(name, f, rep, launches[name], results[name]["line"])
                    for name, f, rep in entries]
     # the service's launches (phase 15: the 110-epoch stream at the
-    # defaults, counted from 0 just before it and read just after)
+    # defaults, counted from 0 just before it and read just after), and
+    # the batch inversion's (phase 16: the default snapshot mode over its
+    # timesteps, and each other mode's run)
+    inv = results["invert"]
+    by_mode = {name: m["launches"] for name, m in inv["modes"].items()}
     for e in kernel_list:
-        e.setdefault("launches_by_path", {})["service_110_epochs"] = \
-            service["launches"].get(e["name"], 0)
+        paths = e.setdefault("launches_by_path", {})
+        paths["service_110_epochs"] = service["launches"].get(e["name"], 0)
+        paths[f"invert_{inv['timesteps']}_snapshots"] = \
+            inv["launches"].get(e["name"], 0)
+        paths["invert_modes"] = {mode: got[e["name"]]
+                                 for mode, got in by_mode.items()
+                                 if got.get(e["name"])}
+    # "kernels_at_invert": K2b with its pack and K3b with its fold at B = 8
+    # over the snapshot geometry's points (phase 16), with their launches
+    # summed over the inversion modes that run them (by mode beside)
+    at_invert = [{**entry(name, *reps[name],
+                          sum(got.get(name, 0) for got in by_mode.values()),
+                          line),
+                  "shape": "invert", "members": B_MEMBERS,
+                  "launches_by_mode": {mode: got[name]
+                                       for mode, got in by_mode.items()
+                                       if got.get(name)}}
+                 for name, line in inv["at"].items()
+                 if name in reps]
     return {"kernels": kernel_list,
             "kernels_at_config4": at4, "kernels_at_member_shapes": members,
-            "kernels_at_service": at_service}
+            "kernels_at_service": at_service,
+            "kernels_at_invert": at_invert}
 
 
 def service_only() -> int:
@@ -6861,6 +7285,154 @@ def service_only() -> int:
     lap = Laps()
     phase15_service(dev, kernels, {})
     lap("phase15_service")
+    return 0
+
+
+def invert_only(profile=False) -> int:
+    """``--invert``: the build and phase 16 alone (the batch inversion in
+    every mode; ~1-2 min on an H100)."""
+    from ionotomo_tpu_torch import kernels
+    from ionotomo_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    print(f"card: {card_line()}")
+    info = build.build()
+    print(f"  built={info['built']} in {info['seconds']:.2f} s")
+    build.load()
+    lap = Laps()
+    phase16_invert(dev, kernels, {}, profile=profile)
+    lap("phase16_invert")
+    return 0
+
+
+#: ``--theta-study``'s Gauss-Newton schedules of the estimate_profile
+#: mode's joint (θ, δm) solve: (cg, gn); the mode runs cg 40 (the invert
+#: CLI's default) and gn 4 (the pipeline's least).
+THETA_CARD_RUNS = ((5, 4), (10, 4), (20, 4), (40, 4), (80, 4), (40, 1),
+                   (40, 2), (40, 3))
+THETA_CPU_RUNS = ((40, 4),)
+THETA_F64_RUNS = ((40, 1), (40, 4))
+
+
+def theta_solve(pipe, anchors, cg_iters, gn_iters):
+    """The joint (θ, δm) solve of ``pipe._estimate_profile`` (its
+    arguments, the single flat Chapman layer) at another depth: θ̂ as
+    (N_peak, h_peak km, H km), the residual after each Gauss-Newton step,
+    the CG iterations of each, and the seconds."""
+    from ionotomo_tpu_torch.device import host
+    from ionotomo_tpu_torch.inversion.profile import (
+        ProfileParams, chapman_log_field, map_gauss_newton_profile)
+
+    p, sc = pipe.config.physics, pipe.config.solver
+    ants, d0, noise0, _ = pipe._padded_data(0)
+    theta0 = ProfileParams.create(n_peak=p.chapman_n_peak,
+                                  h_peak_km=p.chapman_h_peak_km,
+                                  scale_km=p.chapman_scale_km,
+                                  device=pipe.device)
+    sync(pipe.device)
+    t0 = time.perf_counter()
+    res = map_gauss_newton_profile(
+        pipe.grid, pipe.rays_for_time(0, antennas=ants), d0, noise0, theta0,
+        sc.profile_sigma, pipe.cov, num_directions=pipe.directions.shape[1],
+        anchors=anchors, i0=pipe.i0, gn_iters=gn_iters, cg_iters=cg_iters,
+        quadrature=pipe.config.rays.quadrature,
+        interp=pipe.config.rays.interp,
+        field_builder=lambda t: chapman_log_field(
+            pipe.grid, ProfileParams(t[0], t[1], t[2]),
+            curved=bool(p.curved_earth)))
+    sync(pipe.device)
+    theta = [float(res.theta.n_peak), float(res.theta.h_peak_km),
+             float(res.theta.scale_km)]
+    return dict(theta=theta, residual=host(res.info[0]).tolist(),
+                cg=host(res.info[1]).tolist(),
+                seconds=time.perf_counter() - t0)
+
+
+def theta_study() -> int:
+    """``--theta-study``: why phase 16's estimate_profile mode returns an
+    unphysical θ̂ (a negative scale height) at the invert CLI's cg 40. The
+    mode's joint solve, on phase 16's world (timestep 0, the truth's slant
+    anchors, 128^3 cubic Hermite@129), through ``theta_solve``: on the
+    card at every schedule of ``THETA_CARD_RUNS`` (the depth of CG, then
+    the Gauss-Newton steps at cg 40), on the CPU (the plain versions of
+    the kernels) at ``THETA_CPU_RUNS``, then on the CPU in float64 at
+    ``THETA_F64_RUNS``: for that last part every ``torch.float32`` that the
+    port names is rebound to float64, and the pipeline, its grid, prior,
+    data and anchors are made again under it (the study's last step; the
+    process ends after it). If f32 rounding in CG set θ̂, the float64
+    solve would part from the card's; if the Gauss-Newton iteration does,
+    the two agree and θ̂ moves with the number of steps. The pipeline's
+    own ``_estimate_profile`` is run once on the card and must equal
+    ``theta_solve`` at (cg 40, gn 4) bit for bit."""
+    from ionotomo_tpu_torch.geometry.rays import RayBundle
+    from ionotomo_tpu_torch.inversion.anchors import TecAnchors
+    from ionotomo_tpu_torch.inversion.pipeline import InversionPipeline
+    from ionotomo_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    print(f"card: {card_line()}")
+    info = build.build()
+    print(f"  built={info['built']} in {info['seconds']:.2f} s")
+    build.load()
+    dp, truth = invert_world(dev)
+    sub = dp.select(times=[0])
+    sub.wind_kmps = dp.wind_kmps
+    cfg = invert_config("theta", "--estimate-profile")
+    pipe = InversionPipeline(sub, cfg, device=dev)
+    anchors = slant_truth_anchors(dev, pipe, truth)
+    print(f"  world: {sub.shape[0]} antennas x {sub.shape[2]} directions, "
+          f"timestep 0, {len(anchors.values)} slant anchors; grid "
+          f"{tuple(pipe.grid.shape)}, prior theta (N_peak, h_peak, H) = "
+          f"({cfg.physics.chapman_n_peak:g}, {cfg.physics.chapman_h_peak_km}"
+          f", {cfg.physics.chapman_scale_km}), sigma "
+          f"{cfg.solver.profile_sigma}")
+    rows = {}
+
+    def show(where, cg, gn, r):
+        rows[f"{where} cg {cg} gn {gn}"] = r
+        n, h, H = r["theta"]
+        print(f"  {where:>12s} cg {cg:3d} gn {gn}: N_peak {n:.6e}, h_peak "
+              f"{h:.3f} km, H {H:.3f} km; residual by step "
+              + ", ".join(f"{v:.3f}" for v in r["residual"])
+              + f"; CG iterations {r['cg']}; {r['seconds']:.2f} s")
+
+    pipe._estimate_profile(anchors)
+    mode = pipe.metrics.read_all()[-1]
+    for cg, gn in THETA_CARD_RUNS:
+        show("card f32", cg, gn, theta_solve(pipe, anchors, cg, gn))
+    want = rows["card f32 cg 40 gn 4"]["theta"]
+    got = [mode["n_peak"], mode["h_peak_km"], mode["scale_km"]]
+    check(got == want, f"the pipeline's estimate_profile equals theta_solve "
+                       f"at cg 40, gn 4 ({got})")
+    cpu = torch.device("cpu")
+    host_pipe = InversionPipeline(sub, invert_config("theta_cpu",
+                                                     "--estimate-profile"),
+                                  device=cpu)
+
+    def on_cpu(dtype):
+        return TecAnchors(
+            rays=RayBundle(anchors.rays.points.to(cpu, dtype),
+                           anchors.rays.ds.to(cpu, dtype)),
+            values=anchors.values.to(cpu, dtype),
+            noise_std=torch.as_tensor(anchors.noise_std).to(cpu, dtype))
+    for cg, gn in THETA_CPU_RUNS:
+        show("cpu f32", cg, gn,
+             theta_solve(host_pipe, on_cpu(torch.float32), cg, gn))
+    torch.float32 = torch.float64
+    torch.set_default_dtype(torch.float64)
+    f64_pipe = InversionPipeline(sub, invert_config("theta_f64",
+                                                    "--estimate-profile"),
+                                 device=cpu)
+    check(f64_pipe.m_prior.dtype == torch.float64
+          and f64_pipe.grid.spacing.dtype == torch.float64,
+          "the float64 pipeline's grid and prior are float64")
+    for cg, gn in THETA_F64_RUNS:
+        show("cpu f64", cg, gn,
+             theta_solve(f64_pipe, on_cpu(torch.float64), cg, gn))
+    Path("chiprun_out").mkdir(exist_ok=True)
+    Path("chiprun_out/theta_study.json").write_text(json.dumps(rows))
     return 0
 
 
@@ -6900,6 +7472,10 @@ def main() -> int:
         return plain_solves(int(args[args.index("--plain-solves") + 1]), root)
     if "--service" in args:
         return service_only()
+    if "--theta-study" in args:
+        return theta_study()
+    if "--invert" in args:
+        return invert_only(profile)
 
     from ionotomo_tpu_torch import configs, kernels
     from ionotomo_tpu_torch.core import (boxspline, triquadratic, tricubic,
@@ -6989,6 +7565,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase15_service(dev, kernels, results)
     lap("phase15_service")
+    torch.cuda.empty_cache()
+    phase16_invert(dev, kernels, results, profile=profile)
+    lap("phase16_invert")
 
     line = kernels_line(results)
     solve, c2, c4 = results["solve"], results["config2"], results["config4"]
@@ -7034,6 +7613,15 @@ def main() -> int:
           f"filter step median {sv['step_ms'][0]:.1f} ms; geometry "
           f"{sv['geometry_ms']:.3f} ms an epoch; ensemble epoch "
           f"{sv['enkf_ms_per_epoch']:.1f} ms")
+    iv = results["invert"]
+    print(f"invert: {iv['timesteps']} snapshot solves at 128^3 cubic "
+          f"(gn 2, cg 40), median {np.median(iv['seconds']):.4f} s a "
+          f"timestep, {iv['rays_per_s']:.1f} rays/s, held-out dTEC rms at "
+          f"the last timestep {iv['heldout'][-1]:.2f} against the prior's "
+          f"{iv['heldout_prior'][-1]:.2f}; modes: " + ", ".join(
+              f"{k} {m['seconds']:.2f} s" for k, m in iv["modes"].items())
+          + "; card against CPU: field "
+          f"{iv['card_vs_cpu'][0]:.3e}, held-out {iv['card_vs_cpu'][1]:.3e}")
     print(json.dumps(line))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

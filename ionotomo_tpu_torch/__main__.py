@@ -1,16 +1,19 @@
-"""Command-line interface of the port: the streaming service.
+"""Command-line interface of the port: simulate, invert, info, serve.
 
+  python -m ionotomo_tpu_torch simulate --out obs.h5 [--antennas 50 ...]
+  python -m ionotomo_tpu_torch invert obs.h5 --out solution.h5 [--solver ...]
+  python -m ionotomo_tpu_torch info obs.h5|solution.h5
   python -m ionotomo_tpu_torch serve IN_DIR OUT_DIR [--solver enkf] ...
-      [--device cpu]
 
-The ``serve`` subcommand of the reference's CLI (``ionotomo_tpu serve``),
-with its arguments and defaults, and ``--device`` (the card unless named).
-The reference's other subcommands (``simulate``, ``invert``, ``predict``,
-``info``) are not ported yet (ROADMAP.md Queue 1).
+The reference CLI's subcommands (``ionotomo_tpu``) with their arguments
+and defaults; ``simulate``, ``invert`` and ``serve`` take ``--device``
+(the card unless named; ``cpu`` runs the plain PyTorch versions). The
+reference's ``predict`` is not ported yet (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 
@@ -74,6 +77,155 @@ def serve_config(args):
     )
 
 
+def cmd_simulate(args):
+    from .data.synth import generate_example_datapack
+    from .device import host
+
+    dp, truth = generate_example_datapack(
+        n_antennas=args.antennas, n_directions=args.directions,
+        n_times=args.times, mjd0=args.mjd0, grid_shape=(args.grid,) * 3,
+        noise_tecu=args.noise_tecu, turbulence_amp=args.turbulence,
+        seed=args.seed, curved_earth=args.curved_earth, device=args.device)
+    dp.save(args.out)
+    print(f"wrote {args.out}: dtec shape {dp.shape}, "
+          f"ref antenna {dp.array.labels[dp.ref_antenna]}")
+    if args.truth_out:
+        from .inversion.solution import Solution
+        Solution(truth["grid"], truth["m"]).save(args.truth_out)
+        print(f"wrote ground truth to {args.truth_out}")
+    if args.ionosonde_out:
+        import numpy as np
+        from .data import ionosonde as iono
+        grid = truth["grid"]
+        o = host(grid.origin).astype(np.float64)
+        span = host(grid.spacing).astype(np.float64) * (
+            np.asarray(grid.shape) - 1)
+        # stations in the central half of the footprint so every probe
+        # stays inside the grid (out-of-grid probes are refused)
+        rng = np.random.default_rng(args.seed + 1)
+        xy = np.stack([rng.uniform(o[a] + 0.25 * span[a],
+                                   o[a] + 0.75 * span[a],
+                                   args.ionosonde_stations)
+                       for a in (0, 1)], -1)
+        probes = iono.bottomside_probes(truth["m"], grid, xy,
+                                        noise_log=args.ionosonde_noise,
+                                        seed=args.seed + 1)
+        iono.probes_to_npz(args.ionosonde_out, probes)
+        print(f"wrote {int(probes.values.shape[0])} synthetic ionosonde "
+              f"probe(s) from {args.ionosonde_stations} station(s) to "
+              f"{args.ionosonde_out}")
+
+
+def invert_config(args):
+    """The ``EngineConfig`` an ``invert`` command line describes."""
+    from .config import (EngineConfig, GridConfig, PhysicsConfig,
+                         PriorConfig, RayConfig, RuntimeConfig,
+                         SolverConfig)
+
+    return EngineConfig(
+        physics=PhysicsConfig(apriori_model=args.apriori_model,
+                              curved_earth=args.curved_earth,
+                              time_varying_clim=args.time_varying_clim),
+        grid=GridConfig(shape=(args.grid,) * 3),
+        rays=RayConfig(bent=args.bent, n_samples=args.samples,
+                       quadrature=args.quadrature,
+                       interp=args.interp,
+                       interp_inner=args.interp_inner,
+                       inner_samples=args.inner_samples,
+                       n_steps=args.n_steps,
+                       retrace_every=args.retrace_every,
+                       beam_noise=args.beam_noise),
+        prior=PriorConfig(sigma=args.prior_sigma,
+                          length_scale_km=_prior_length(args.prior_length),
+                          kind=args.prior_kind,
+                          auto_select=args.auto_prior,
+                          fit_noise=args.fit_noise),
+        solver=SolverConfig(solver=args.solver, gn_iters=args.gn_iters,
+                            cg_iters=args.cg_iters,
+                            warm_start=args.warm_start,
+                            kalman_chunk=args.kalman_chunk,
+                            kalman_fade=args.fade,
+                            estimate_profile=args.estimate_profile,
+                            enkf_spectrum_blend=args.enkf_spectrum_blend,
+                            enkf_shard=args.enkf_shard,
+                            wind_adapt_iters=args.wind_adapt,
+                            wind_shear=args.wind_shear,
+                            posterior_samples=args.posterior_samples,
+                            noise_adapt_every=args.noise_adapt,
+                            diag_spectrum_every=args.diag_spectrum),
+        runtime=RuntimeConfig(checkpoint_dir=args.checkpoint_dir,
+                              metrics_path=args.metrics),
+    )
+
+
+def cmd_invert(args):
+    from .data.datapack import DataPack
+    from .inversion.pipeline import InversionPipeline
+
+    dp = DataPack.load(args.datapack)
+    if args.auto_flag:
+        from .data.selection import flag_outliers
+        n = flag_outliers(dp, threshold=args.auto_flag)
+        print(f"auto-flagged {n} outlier sample(s) "
+              f"(threshold {args.auto_flag} median steps)")
+    pipe = InversionPipeline(dp, invert_config(args), device=args.device)
+    anchors = None
+    if args.vtec_anchors:
+        from .inversion.anchors import anchors_from_npz
+        anchors = anchors_from_npz(pipe.grid, args.vtec_anchors)
+    probes = None
+    if args.ionosonde:
+        from .data.ionosonde import probes_from_npz
+        probes = probes_from_npz(pipe.grid, args.ionosonde)
+    sol = pipe.run(resume=args.resume, anchors=anchors,
+                   anchor_mode=args.anchor_mode, probes=probes)
+    sol.save(args.out)
+    print(f"wrote {args.out}: {sol.num_times} timestep(s), "
+          f"grid {sol.grid.shape}")
+    for rec in pipe.metrics.read_all():
+        rec.pop("t_wall", None)
+        print("  ", json.dumps(rec))
+
+
+def cmd_info(args):
+    import h5py
+
+    with h5py.File(args.path, "r") as f:
+        if "dtec" in f:
+            print(f"DataPack: {args.path}")
+            print(f"  antennas: {f['antennas/itrs_km'].shape[0]}  "
+                  f"times: {f['times/mjd'].shape[0]}  "
+                  f"directions: {f['directions/radec'].shape[0]}")
+            print(f"  ref antenna index: {f.attrs['ref_antenna']}  "
+                  f"frequency: {f.attrs['frequency_hz']/1e6:.1f} MHz")
+            d = f["dtec"][:]
+            print(f"  dtec range [{d.min():.3f}, {d.max():.3f}] "
+                  f"(working units), flagged "
+                  f"{100.0 * f['flags'][:].mean():.1f}%")
+        elif "m" in f:
+            print(f"Solution: {args.path}")
+            print(f"  timesteps: {f['m'].shape[0]}  "
+                  f"grid: {tuple(int(s) for s in f['grid/shape'][:])}")
+            if f.attrs.get("config"):
+                print(f"  config: {f.attrs['config'][:160]}...")
+        elif any(k.startswith("sol") and isinstance(f[k], h5py.Group)
+                 for k in f):
+            print(f"h5parm: {args.path}")
+            for ss_name in (k for k in f
+                            if k.startswith("sol")
+                            and isinstance(f[k], h5py.Group)):
+                ss = f[ss_name]
+                soltabs = [k for k in ss
+                           if isinstance(ss[k], h5py.Group)]
+                na = ss["antenna"].shape[0] if "antenna" in ss else "?"
+                nd = ss["source"].shape[0] if "source" in ss else "?"
+                print(f"  {ss_name}: antennas {na}, sources {nd}, "
+                      f"soltabs {soltabs}")
+            print("  load with DataPack.from_h5parm(path)")
+        else:
+            print("unrecognised file")
+
+
 def cmd_serve(args):
     from .serving import EpochService
 
@@ -91,6 +243,170 @@ def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m ionotomo_tpu_torch",
                                 description=__doc__.splitlines()[0])
     sub = p.add_subparsers(dest="cmd", required=True)
+    device_help = ("torch device (default: the card, cuda; 'cpu' runs the "
+                   "plain PyTorch versions)")
+
+    s = sub.add_parser("simulate", help="generate a synthetic DataPack")
+    s.add_argument("--out", required=True)
+    s.add_argument("--truth-out", default=None)
+    s.add_argument("--antennas", type=int, default=50)
+    s.add_argument("--directions", type=int, default=10)
+    s.add_argument("--times", type=int, default=1)
+    s.add_argument("--mjd0", type=float, default=58000.45)
+    s.add_argument("--grid", type=int, default=64)
+    s.add_argument("--noise-tecu", type=float, default=1e-3)
+    s.add_argument("--turbulence", type=float, default=0.3)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--curved-earth", action="store_true",
+                   help="build the truth world with curved-Earth "
+                        "geometry (true altitudes + solar terminator)")
+    s.add_argument("--ionosonde-out", default=None,
+                   help="also write synthetic bottomside ionosonde "
+                        "soundings of the truth world to this npz "
+                        "(the invert --ionosonde schema; name it "
+                        "*.sounding.npz and drop it in a serve watch "
+                        "directory to stream it)")
+    s.add_argument("--ionosonde-stations", type=int, default=2,
+                   help="number of synthetic sounder stations")
+    s.add_argument("--ionosonde-noise", type=float, default=0.05,
+                   help="log-space (≈relative) sounding noise")
+    s.add_argument("--device", default=None, help=device_help)
+    s.set_defaults(fn=cmd_simulate)
+
+    i = sub.add_parser("invert", help="invert a DataPack to a Solution")
+    i.add_argument("datapack")
+    i.add_argument("--out", required=True)
+    i.add_argument("--grid", type=int, default=64)
+    i.add_argument("--samples", type=int, default=129)
+    i.add_argument("--bent", action="store_true")
+    i.add_argument("--n-steps", type=int, default=64,
+                   help="bent-ray integrator steps (solver-grade: 64)")
+    i.add_argument("--retrace-every", type=int, default=0,
+                   help="bent only: re-trace rays through the iterate "
+                        "every N GN iterations (0 = frozen at prior)")
+    i.add_argument("--beam-noise", type=int, default=0, metavar="P",
+                   help="strong-turbulence error bar: trace a P-path "
+                        "stochastic Fresnel beam per ray each epoch and "
+                        "inflate C_d in quadrature with the chaotic dTEC "
+                        "spread (0 = off)")
+    i.add_argument("--enkf-spectrum-blend", type=float, default=0.0,
+                   help="enkf: adaptive spectral gain weight (0=off; not "
+                        "ported: any other value raises)")
+    i.add_argument("--enkf-shard", choices=("rays", "members"),
+                   default="rays",
+                   help="enkf multi-device axis: 'rays' (one device) or "
+                        "'members' (multi-GPU, not ported: raises)")
+    i.add_argument("--kalman-chunk", type=int, default=8,
+                   help="kalman: timesteps per chunk / checkpoint")
+    i.add_argument("--solver", default="map_gauss_newton",
+                   choices=["map_gauss_newton", "lsqr_smoothness",
+                            "steepest", "batched_gn", "robust_gn",
+                            "kalman", "enkf"])
+    i.add_argument("--gn-iters", type=int, default=2)
+    i.add_argument("--cg-iters", type=int, default=40)
+    i.add_argument("--posterior-samples", type=int, default=0,
+                   metavar="N",
+                   help="snapshot modes: draw N linearised-posterior RTO "
+                        "samples per timestep (one batched CG) and store "
+                        "the per-voxel std in the solution "
+                        "(diagnostics/std_seq)")
+    i.add_argument("--noise-adapt", type=int, default=0, metavar="N",
+                   help="kalman/enkf: adaptive R, re-fit a common noise "
+                        "rescaling every N-th chunk boundary by exact "
+                        "evidence on that epoch's innovation "
+                        "(checkpointed)")
+    i.add_argument("--diag-spectrum", type=int, default=0, metavar="N",
+                   help="kalman/enkf: log the update operator's top-rank "
+                        "spectrum (condition-number bound kappa_bound) "
+                        "as an update_spectrum metrics event every N-th "
+                        "chunk boundary")
+    i.add_argument("--estimate-profile", action="store_true",
+                   help="MAP-estimate the profile parameters from "
+                        "timestep-0 data + the --vtec-anchors rows "
+                        "before solving (anchors required; slant "
+                        "geometry recommended): the Chapman (N_peak, "
+                        "h_peak, H), or with --apriori-model "
+                        "multi_chapman the per-layer E/F1/F2 parameters")
+    i.add_argument("--fade", type=float, default=1.0,
+                   help="kalman/enkf: per-step pull toward the "
+                        "climatology (1.0 = pure frozen flow; <1 "
+                        "enables the clim pull)")
+    i.add_argument("--time-varying-clim", action="store_true",
+                   help="kalman/enkf: recompute the climatological "
+                        "fade-pull target per epoch from the epoch's "
+                        "solar zenith; needs --fade < 1")
+    i.add_argument("--quadrature", default="hermite",
+                   choices=["simpson", "hermite"],
+                   help="straight-ray operator quadrature rule")
+    i.add_argument("--interp", default="cubic", type=_interp_arg,
+                   help="C1 field model for every interpolation (tracer "
+                        "and operators): cubic, zp[<order>], zpc[<order>]")
+    i.add_argument("--inner-samples", type=int, default=0,
+                   help="mixed-fidelity solves: the linear solve's "
+                        "Jacobian from a coarse subsample at this many "
+                        "samples; needs (samples-1) %% (inner-samples-1) "
+                        "== 0")
+    i.add_argument("--interp-inner", default="", type=_interp_arg_opt,
+                   help="mixed field-model fidelity: the linear solve's "
+                        "Jacobian on this model, residuals on --interp")
+    i.add_argument("--warm-start", action="store_true",
+                   help="snapshot GN modes: carry the whitened Krylov "
+                        "solution across GN iterations / IRLS rounds / "
+                        "re-trace calls")
+    i.add_argument("--wind-shear", action="store_true",
+                   help="kalman/enkf: rigid + linear-in-height vertical "
+                        "shear drift state")
+    i.add_argument("--wind-adapt", type=int, default=0, metavar="N",
+                   help="kalman/enkf: online wind tracking, N "
+                        "innovation-GN refinements of the wind per epoch")
+    i.add_argument("--prior-sigma", type=float, default=0.3)
+    i.add_argument("--prior-length", type=float, nargs="+", default=[80.0],
+                   metavar="L",
+                   help="prior correlation length [km]: one value "
+                        "(isotropic) or three (Lx Ly Lz)")
+    i.add_argument("--prior-kind", default="von_karman")
+    i.add_argument("--apriori-model", default="chapman",
+                   choices=["chapman", "multi_chapman"],
+                   help="a-priori n_e: single Chapman layer or the "
+                        "E/F1/F2 stack")
+    i.add_argument("--auto-flag", type=float, default=0.0, metavar="K",
+                   help="flag samples whose epoch-to-epoch jump exceeds "
+                        "K median steps before inverting "
+                        "(data/selection.flag_outliers; 0 = off)")
+    i.add_argument("--vtec-anchors", default=None,
+                   help="npz with points_xy (A,2; ENU km), values_tecu "
+                        "(A,), noise_tecu (scalar): external absolute "
+                        "vertical-TEC constraints")
+    i.add_argument("--anchor-mode", default="sequential",
+                   choices=["sequential", "joint"])
+    i.add_argument("--ionosonde", default=None,
+                   help="npz with points_enu (P,3; ENU km), ne_m3 (P,), "
+                        "noise_frac (scalar): ionosonde point-density "
+                        "observations")
+    i.add_argument("--curved-earth", action="store_true",
+                   help="evaluate the a-priori profile at true altitude "
+                        "above the curved Earth with a per-column solar "
+                        "factor")
+    i.add_argument("--auto-prior", nargs="?", const="gcv", default=False,
+                   choices=["gcv", "evidence"],
+                   help="select (sigma, L, kind) from the data at set-up: "
+                        "'gcv' (generalised cross-validation; the "
+                        "bare-flag default) or 'evidence' (marginal "
+                        "likelihood)")
+    i.add_argument("--fit-noise", action="store_true",
+                   help="with --auto-prior evidence: also fit a common "
+                        "noise-std rescaling rho and scale the run's "
+                        "noise by rho*")
+    i.add_argument("--checkpoint-dir", default="checkpoints")
+    i.add_argument("--metrics", default="metrics.jsonl")
+    i.add_argument("--resume", action="store_true")
+    i.add_argument("--device", default=None, help=device_help)
+    i.set_defaults(fn=cmd_invert)
+
+    n = sub.add_parser("info", help="describe a DataPack/Solution file")
+    n.add_argument("path")
+    n.set_defaults(fn=cmd_info)
+
     v = sub.add_parser("serve", help="streaming service: watch a "
                                      "directory for DataPack epochs "
                                      "(and *.sounding.npz ionosonde "
@@ -151,9 +467,7 @@ def parser() -> argparse.ArgumentParser:
     v.add_argument("--poll-s", type=float, default=2.0)
     v.add_argument("--max-epochs", type=int, default=None,
                    help="stop after N epochs (default: run forever)")
-    v.add_argument("--device", default=None,
-                   help="torch device of the service (default: the card, "
-                        "cuda; 'cpu' runs the plain PyTorch versions)")
+    v.add_argument("--device", default=None, help=device_help)
     v.set_defaults(fn=cmd_serve)
     return p
 

@@ -271,3 +271,21 @@ class EngineConfig:
                       if "profile_sigma" in raw["solver"] else {})}),
             runtime=RuntimeConfig(**raw["runtime"]),
         )
+
+
+def resumable(config: EngineConfig, cfg_json: str) -> bool:
+    """Whether state saved under the config JSON ``cfg_json`` may be
+    resumed under ``config``: every field but the runtime ones (paths,
+    logging cadence) must match, and fields added since take their
+    defaults (a round trip through ``EngineConfig``). An empty JSON (state
+    saved without one) matches; one that does not parse does not."""
+    if not cfg_json:
+        return True
+    try:
+        theirs = json.loads(EngineConfig.from_json(cfg_json).to_json())
+        mine = json.loads(config.to_json())
+    except (ValueError, KeyError, TypeError):
+        return False
+    theirs.pop("runtime", None)
+    mine.pop("runtime", None)
+    return theirs == mine

@@ -1,7 +1,8 @@
 """Carry the JAX package's state across to the port.
 
 The engine's "weights" are a grid spec, a log-density field and a prior
-covariance. They cross as numpy arrays, so this module needs neither
+covariance; a run's state is a pipeline checkpoint or an online filter's
+state. They cross as numpy arrays, so this module needs neither
 package's arrays to be of any particular type: anything ``np.asarray``
 reads will do. They land on the card unless ``device`` names another
 (``device.resolve``).
@@ -72,4 +73,27 @@ def online_state_from_numpy(state) -> dict:
     field or ensemble stays float32 and the scalars keep their float64,
     so the carried state is bit for bit the reference's."""
     return {k: np.asarray(v, _ONLINE_STATE_DTYPES.get(k))
+            for k, v in state.items()}
+
+
+#: The dtypes of a pipeline checkpoint's arrays (``inversion.pipeline``):
+#: the fields and residual histories float32, the wind and the noise
+#: scale float64, as both packages write them.
+_PIPELINE_STATE_DTYPES = {"m_seq": np.float32, "m_std": np.float32,
+                          "kalman_pre": np.float32,
+                          "kalman_post": np.float32,
+                          "enkf_ensemble": np.float32,
+                          "enkf_std": np.float32, "wind_kmps": np.float64,
+                          "noise_scale": np.float64}
+
+
+def pipeline_checkpoint_from_numpy(state) -> dict:
+    """A batch-inversion checkpoint's state (the JAX package's
+    ``InversionPipeline`` or the port's: any mapping whose values
+    ``np.asarray`` reads, such as ``utils.checkpoint.load_checkpoint``'s)
+    as the numpy dict the port's ``run(resume=True)`` continues from. The
+    keys are the same in both packages; unknown keys pass through. With
+    its step and config JSON saved by ``utils.checkpoint.save_checkpoint``
+    into the run's ``checkpoint_dir``, either package resumes it."""
+    return {k: np.asarray(v, _PIPELINE_STATE_DTYPES.get(k))
             for k, v in state.items()}

@@ -1,2 +1,3 @@
 """Host-side observation data: arrays, DataPacks, h5parm, synthetic
-worlds and ionosonde probes (port of ``ionotomo_tpu.data``)."""
+worlds, ionosonde probes and antenna/facet selection (port of
+``ionotomo_tpu.data``)."""

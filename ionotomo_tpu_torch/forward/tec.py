@@ -533,6 +533,29 @@ class PairedDtecLinear:
         return geo.model.table_t(table_ct, geo.grid)
 
 
+def dtec_paired_over(field_m: torch.Tensor, geometry: DtecGeometry
+                     ) -> torch.Tensor:
+    """``dtec_paired`` (Simpson) of ``field_m`` over a prepared Simpson
+    ``DtecGeometry``, the forward alone: (..., Na·Nd) for a field (...,
+    *grid.shape). A leading member axis is one K2b launch on the card,
+    over its member pack. Equals the ``g0`` of the operator linearised
+    about the same field over the same geometry."""
+    geo = geometry
+    if geo.hermite:
+        raise ValueError("dtec_paired_over needs a Simpson geometry")
+    table = geo.model.table(field_m, geo.grid).contiguous()
+    lead = table.shape[:-2]
+    batched = table.dim() == 3
+    m = tricubic.rows_value(
+        table, geo.ri, geo.wxy, geo.zi, geo.wz, geo.model.xy_first,
+        order=None if batched else geo.point_order(),
+        pack=tricubic.member_pack(table) if batched and table.is_cuda
+        else None)
+    ne = constants.K_NE * torch.exp(m).reshape(lead + (geo.na, geo.nd, geo.n))
+    return _paired_simpson_ne(ne, geo.w, geo.rays, geo.i0).reshape(
+        lead + (-1,))
+
+
 def dtec_paired_linear(field_m0, grid, rays, num_directions, i0=0,
                        quadrature: str = "hermite", interp: str = "cubic",
                        geometry: DtecGeometry = None) -> PairedDtecLinear:

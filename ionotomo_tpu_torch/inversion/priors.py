@@ -5,10 +5,8 @@ applied by FFT (port of ``laplacian`` and ``GPCovariance`` from
 The covariance's spectrum is built once on the host in numpy, exactly as
 the reference builds it (circulant embedding of a closed-form kernel, or
 the von Kármán spectrum itself), and applied with ``torch.fft`` in f32 on
-the spectrum's device (cuFFT on the card).
-
-Not ported yet (ROADMAP.md Queue 1, the solvers still missing): the
-reference's ``inversion/priors.py:fit_shell_spectrum``.
+the spectrum's device (cuFFT on the card). ``fit_shell_spectrum`` fits
+the stationary isotropic spectrum of sample fields.
 """
 from __future__ import annotations
 
@@ -183,3 +181,55 @@ class GPCovariance:
         noise is an argument (torch's generators cannot reproduce
         ``jax.random`` streams; tests draw it with numpy)."""
         return self.apply_sqrt(noise)
+
+
+def fit_shell_spectrum(anomalies: torch.Tensor, grid: Grid3D,
+                       n_bins: int = 48, ddof: int = 1) -> torch.Tensor:
+    """Isotropic (shell-averaged) covariance spectrum from sample fields.
+
+    ``anomalies``: (n, nx, ny, nz) zero-mean sample fields (e.g. ensemble
+    deviations from their mean). Returns an rfftn-layout spectrum ``S``
+    such that ``GPCovariance(spectrum=S, ...)`` is the best *stationary
+    isotropic* approximation of the samples' covariance: the periodogram
+    ``|F a|² / (n−ddof)·N`` is averaged over log-spaced shells of physical
+    |k| (multiplicity-weighted for the rfft half-spectrum) and broadcast
+    back per mode. Shell averaging pools thousands of modes per estimate,
+    so even an 8-member ensemble yields a low-variance spectrum. The shell
+    sums are ``tricubic.scatter_add_``'s, the same on every run.
+    """
+    from ..core.tricubic import scatter_add_
+
+    n = anomalies.shape[0]
+    nx, ny, nz = anomalies.shape[1:]
+    n_tot = nx * ny * nz
+    dev = anomalies.device
+    f = torch.fft.rfftn(anomalies, dim=_DIMS)
+    p = torch.sum(torch.abs(f) ** 2, dim=0) / (max(n - ddof, 1) * n_tot)
+
+    sp = grid.spacing.to(torch.float32)
+
+    def _freqs(nn, d):
+        i = torch.arange(nn, device=dev)
+        return torch.where(i <= nn // 2, i, i - nn) / (nn * d)
+    fx = _freqs(nx, sp[0])
+    fy = _freqs(ny, sp[1])
+    fz = torch.arange(nz // 2 + 1, device=dev) / (nz * sp[2])
+    kmag = 2 * torch.pi * torch.sqrt(fx[:, None, None] ** 2
+                                     + fy[None, :, None] ** 2
+                                     + fz[None, None, :] ** 2)
+    dims = torch.tensor([nx, ny, nz], dtype=torch.float32, device=dev)
+    kmin = 2 * torch.pi * torch.min(1.0 / (dims * sp))
+    kmax = torch.max(kmag)
+    edges = torch.exp(torch.linspace(float(torch.log(0.999 * kmin)),
+                                     float(torch.log(1.001 * kmax)), n_bins,
+                                     device=dev))
+    bins = torch.searchsorted(edges, kmag.reshape(-1))    # 0 = DC only
+
+    w = torch.from_numpy(_rfft_multiplicity(nx, ny, nz)).to(dev).reshape(-1)
+    num = scatter_add_(torch.zeros(n_bins + 1, device=dev), bins,
+                       p.reshape(-1) * w)
+    den = scatter_add_(torch.zeros(n_bins + 1, device=dev), bins, w)
+    shell = num / torch.clamp_min(den, 1e-30)
+    s = shell[bins].reshape(kmag.shape)
+    s[0, 0, 0] = 0.0
+    return s

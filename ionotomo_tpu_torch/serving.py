@@ -34,8 +34,8 @@ Contract (the reference's):
 Randomness (the ensemble's draws, the adaptive-R probes, the beam noise,
 the spectrum diagnostic's start block) comes from a CPU
 ``torch.Generator`` seeded from (``seed``, a constant for each use, the
-persisted global epoch index), and the draws move to the service's device
-afterwards: a restarted service draws the same numbers without storing
+persisted global epoch index) by ``utils.draws``, and the draws move to
+the service's device afterwards: a restarted service draws the same numbers without storing
 any generator state, and a service on the card draws what one on the CPU
 does. The reference keys the same uses by its PRNG keys, so the two
 packages agree on the services that draw nothing (the point filter
@@ -55,7 +55,7 @@ import time
 import numpy as np
 import torch
 
-from .config import EngineConfig
+from .config import EngineConfig, resumable
 from .core.grids import Grid3D
 from .data.datapack import DataPack
 from .device import as_tensor, host, resolve
@@ -65,29 +65,17 @@ from .inversion.priors import GPCovariance
 from .inversion.solution import Solution
 from .models import chapman
 from .utils import checkpoint as ckpt_mod
+from .utils.draws import (DRAW_ENKF_ANCHOR, DRAW_ENKF_INIT, DRAW_ENKF_OBS,
+                          DRAW_ENKF_PROCESS, DRAW_SPECTRUM, normals)
 
-#: The constants that key each use of the service's random draws: with
-#: the seed and the global epoch index they seed one CPU generator.
+#: The constants that key the service's own draws (with the seed and the
+#: global epoch index; ``utils.draws`` keys the uses it shares with the
+#: batch pipeline).
 DRAW_ADAPT_R = 0xADA0       # adaptive-R probes (the reference's key)
 DRAW_BEAM = 0xBEA11         # beam-noise jitter (the reference's key)
-DRAW_SPECTRUM = 0x5EC7      # the spectrum diagnostic's start block
-DRAW_ENKF_INIT = 0x7FFFFFFF  # the initial ensemble (the reference's slot)
-DRAW_ENKF_OBS = 0xE0B5      # the members' perturbed observations
-DRAW_ENKF_PROCESS = 0xE9C0  # additive process noise
-DRAW_ENKF_ANCHOR = 0xEA2C   # perturbed anchor values
 
 #: Adaptive-R probes per epoch (the reference's ``stats_probes``).
 STATS_PROBES = 2
-
-
-def normals(seed: int, use: int, index: int, shape) -> torch.Tensor:
-    """Standard normals of ``shape`` from a CPU ``torch.Generator`` seeded
-    from (``seed``, ``use``, ``index``) through numpy's ``SeedSequence``:
-    the same numbers on every run and every device."""
-    state = np.random.SeedSequence([int(seed), int(use), int(index)]
-                                   ).generate_state(1, np.uint64)[0]
-    g = torch.Generator().manual_seed(int(state))
-    return torch.randn(tuple(shape), generator=g, dtype=torch.float32)
 
 
 class EpochService:
@@ -197,7 +185,7 @@ class EpochService:
         self.last_mjd = None if np.isnan(lm) else lm
         cfg_json = bytes(state.pop("__config__", np.zeros(0, np.uint8))
                          ).rstrip(b"\x00").decode()
-        if cfg_json and not self._config_compatible(cfg_json):
+        if not resumable(self.config, cfg_json):
             raise ValueError(
                 "state.npz in the output directory was produced under a "
                 "different engine configuration — resuming would silently "
@@ -272,18 +260,6 @@ class EpochService:
                 cov_fp = dict(type=type(cov).__name__)
         return json.dumps(dict(update_clim=self._probe_update_clim,
                                cov=cov_fp), sort_keys=True)
-
-    def _config_compatible(self, cfg_json: str) -> bool:
-        """Every non-runtime field must match (defaults fill fields added
-        since)."""
-        try:
-            theirs = json.loads(EngineConfig.from_json(cfg_json).to_json())
-            mine = json.loads(self.config.to_json())
-        except (ValueError, KeyError, TypeError):
-            return False
-        theirs.pop("runtime", None)
-        mine.pop("runtime", None)
-        return theirs == mine
 
     # --- setup -----------------------------------------------------------
 

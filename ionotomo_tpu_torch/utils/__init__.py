@@ -1,1 +1,2 @@
-"""Host-side utilities (port of ``ionotomo_tpu.utils``): checkpoints."""
+"""Host-side utilities (port of ``ionotomo_tpu.utils``): checkpoints, the
+JSONL metrics stream and the keyed random draws."""

@@ -485,6 +485,34 @@ def test_linear_operator_matches_plain_on_card(dev):
         assert abs(lhs - rhs) <= 1e-4 * max(abs(lhs), abs(rhs))
 
 
+def test_dtec_paired_over_on_card_is_the_linearisation_g0(dev):
+    """``tec.dtec_paired_over`` on cubic Simpson (steepest's objectives):
+    one field and a member axis of 3 bit for bit the ``g0`` of the
+    operator linearised about them over the same geometry, the member axis
+    one K2b launch with its pack; within 1e-4·max of the CPU forward (the
+    tolerance of the operator tests)."""
+    grid, rb, _, m_prior, _, nd = _solve_world(dev)
+    geo = tec.DtecGeometry(grid, rb, nd, 0, "simpson", "cubic")
+    rng = np.random.default_rng(13)
+    ms = m_prior[None] + 0.2 * torch.from_numpy(
+        rng.normal(size=(3,) + grid.shape).astype(np.float32)).to(dev)
+    one = tec.dtec_paired_over(ms[0], geo)
+    assert torch.equal(one, tec.dtec_paired_linear(
+        ms[0], grid, rb, nd, 0, "simpson", "cubic", geometry=geo).g0)
+    before = dict(kernels.launches)
+    batched = tec.dtec_paired_over(ms, geo)
+    torch.cuda.synchronize()
+    for name in ("rows_value_fwd_batched", "pack_members"):
+        assert kernels.launches[name] == before[name] + 1
+    assert torch.equal(batched, tec.dtec_paired_linear(
+        ms, grid, rb, nd, 0, "simpson", "cubic", geometry=geo).g0)
+    cpu_geo = tec.DtecGeometry(grid.to("cpu"), rays.RayBundle(
+        rb.points.cpu(), rb.ds.cpu()), nd, 0, "simpson", "cubic")
+    want = tec.dtec_paired_over(ms.cpu(), cpu_geo)
+    assert float((batched.cpu() - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+
+
 def test_small_solve_is_bitwise_reproducible(dev):
     """map_gauss_newton on the kernels, twice: bitwise equal m, every
     kernel of the path launched, and close to the plain-version solve."""

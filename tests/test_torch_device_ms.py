@@ -10,6 +10,7 @@ taken: two traces that lost the same half of their records agree with
 each other, and must not be taken. Below the lower share the host sets the
 event time, and the reading stands.
 """
+import json
 import sys
 
 import numpy as np
@@ -118,7 +119,44 @@ def test_device_ms_retakes_short_traces(monkeypatch):
     monkeypatch.setattr(chip_smoke, "cuda_ms",
                         lambda fn, reps: timed.append(reps) or 1.09)
     ms = chip_smoke.device_ms(lambda: None, 20)
-    assert ms == pytest.approx(1.086)
+    assert ms == pytest.approx(1.086) and ms.by == "profiler"
     assert len(taken) == 4 and timed == [20]
     np.testing.assert_allclose(
         chip_smoke.whole_readings(script[:2], 20), [0.5245, 0.5245])
+
+
+def test_device_ms_takes_cuda_events_when_every_trace_is_empty(monkeypatch,
+                                                              capsys):
+    """Eight empty traces (CUPTI recorded no device time, seen once for a
+    plain pack after 14 phases of tracing): the CUDA-event time is taken
+    and a line says so, and the time says how it was taken (its row of
+    the kernels line carries that, ``timed_by``)."""
+    taken, timed = [], []
+
+    class Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            taken.append({})
+
+        def key_averages(self):
+            return []
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda fn, reps: timed.append(reps) or 0.131)
+    ms = chip_smoke.device_ms(lambda: None, 20)
+    assert ms == pytest.approx(0.131) and ms.by == "cuda_events"
+    assert len(taken) == 8 and timed == [20]
+    assert "no device time in eight traces" in capsys.readouterr().out
+    line = dict(ms=chip_smoke.Timing(0.2, "profiler"), plain_ms=ms,
+                library_ms=None)
+    assert chip_smoke.timed_by(line) == {"ms": "profiler",
+                                         "plain_ms": "cuda_events"}
+    assert json.loads(json.dumps(line)) == {"ms": 0.2, "plain_ms": 0.131,
+                                            "library_ms": None}
