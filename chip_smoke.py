@@ -2,8 +2,9 @@
 split-field and the stochastic beam trace), its MAP inversion paths on the
 zp and the tricubic field model, its time-evolving path (the frozen-flow
 Kalman filter and the ensemble filter), its streaming service
-(``serving.EpochService``) and its batch inversion
-(``inversion.pipeline.InversionPipeline``), on one NVIDIA GPU.
+(``serving.EpochService``), its batch inversion
+(``inversion.pipeline.InversionPipeline``) and its forward prediction with
+Faraday rotation (``predict``), on one NVIDIA GPU.
 
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # also: device time by kernel of
@@ -19,6 +20,9 @@ Kalman filter and the ensemble filter), its streaming service
     python3 chip_smoke.py --invert     # only: the build and phase 16, the
                                        # batch inversion (with --profile:
                                        # one snapshot solve profiled)
+    python3 chip_smoke.py --predict    # only: the build and phase 17,
+                                       # predict (with --profile: one
+                                       # timestep of each form profiled)
     python3 chip_smoke.py --theta-study
                                        # only: phase 16's estimate_profile
                                        # solve by depth of CG and of
@@ -339,6 +343,29 @@ analytic world drifting with the wind, 1 % noise), and on it:
    on the CPU, with K2 and K3 rounded to bfloat16 as controls; K2b with
    its pack and K3b with its fold at B = 8 over the snapshot geometry's
    79,980 points against their plain versions (``kernels_at_invert``).
+17. ``predict`` (``__main__.predict``, what the CLI's ``predict`` runs
+   between its file reads and writes) at its defaults (cubic,
+   Hermite@129, 1000 km) on phase 16's world and the 128³ Solution of a
+   snapshot ``InversionPipeline`` run over it at the ``invert`` CLI's
+   defaults, in memory, in four forms (``testing.PREDICT_FORMS``):
+   straight; straight with RM; bent at leapfrog@64 with RM; bent on zp
+   with RM. Each: the host clock a timestep (3 calls of 8 timesteps after
+   a warm-up), rays/s, launches a timestep (its kernels must have
+   launched), finite, the dRM's reference-antenna row exactly 0, two
+   calls bitwise equal; the straight residual rms below 0.6 × the
+   observed, bent within 5 % of max|dTEC| of straight; the card against
+   the CPU on 2 timesteps (dTEC within 1e-4·max|dTEC|, RM per ray within
+   1e-4·max|RM|) with K2 rounded to bfloat16 as a control that both
+   readings must catch. The sky screens on a 62 × 40 synth DataPack on
+   64³ (hyperparameters fitted on 30 directions at 150 steps, the 10
+   held out below 0.8 × the per-antenna mean's error, two runs bitwise,
+   card against CPU: means within 1e-3·max|dTEC|, hyperparameters 1e-3
+   relative); the structure function of the predicted phases (β > 0);
+   ``checked`` on the card (a NaN raises; a checked timestep bitwise the
+   unchecked); with ``--profile`` one timestep of each form profiled;
+   K2 in ray order at the straight (79,980) and bent (40,300) bundles'
+   points, K5 at the 1,240 endpoints and K1c with its path at 620 rays ×
+   64 steps against their plain versions (``kernels_at_predict``).
 
 With ``--parent``, KG at both of phase 7's shapes and the permute at
 phases 6 and 10 are bitwise the parent's and timed in turns with it, as
@@ -5165,6 +5192,379 @@ def phase16_invert(dev, kernels, results, profile, shape=None):
     results["invert"] = out
 
 
+#: Phase 17 (``predict``): the timesteps held card against CPU, and the
+#: limits: the straight prediction's residual rms against the observed
+#: (``tests/test_cli.py:66``), bent against straight as a share of
+#: max|dTEC| (``tests/test_cli.py:84``), the card against the CPU (dTEC
+#: of max|dTEC|, RM per ray of max|RM|: dRM is a difference of nearly
+#: equal numbers), the screens' held-out error against the per-antenna
+#: mean's (``tests/test_screens.py:27``), their means card against CPU
+#: (of max|dTEC|) and their fitted hyperparameters (relative). The dTEC
+#: limit is 1e-4, not 1e-2: the card reads 2e-7 to 9e-7 of the CPU, and
+#: K2 in bfloat16 moves the dTEC by 3.3e-3 (NVIDIA H100 80GB HBM3,
+#: 700.00 W), which 1e-2 would let through.
+PREDICT_CPU_TIMES = 2
+PREDICT_RESIDUAL_LIMIT = 0.6
+PREDICT_BENT_LIMIT = 0.05
+PREDICT_DTEC_LIMIT = 1e-4
+PREDICT_RM_LIMIT = 1e-4
+SCREEN_HELDOUT_LIMIT = 0.8
+SCREEN_MEAN_LIMIT = 1e-3
+SCREEN_FIT_LIMIT = 1e-3
+PREDICT_REPS = 3
+
+
+def predict_rm_per_ray(cli, rm, sol, arrays, frequency_hz, b_fn, kw, t, dev):
+    """RM per ray at timestep ``t`` over the bundle of a ``predict`` form
+    (``kw``) on ``dev``: what ``predict``'s dRM differences."""
+    from ionotomo_tpu_torch.device import host
+
+    grid = sol.grid.to(dev)
+    m_t = torch.as_tensor(sol.m[t], device=dev)
+    rb = cli.predict_rays(
+        m_t, grid, torch.as_tensor(arrays["antennas_enu"], device=dev),
+        torch.as_tensor(arrays["directions_enu"][t], device=dev),
+        frequency_hz, kw.get("bent", False), interp=kw.get("interp", "cubic"))
+    return host(rm.rotation_measure(m_t, grid, rb, b_fn))
+
+
+def predict_kernels_at(dev, sol, dp, kernels):
+    """The kernels of ``predict``'s path alone at the shapes a timestep
+    gives them (timestep 0 of phase 17's world), each against its plain
+    version: K2 in ray order (``interp_rows``' one-shot gather) at the
+    straight bundle's 62·10·129 points and at the bent bundle's 62·10·65,
+    K5 at the straight bundle's 1,240 endpoints and K1c with its path at
+    620 rays × 64 steps. Returns {kernel@shape: line}."""
+    from ionotomo_tpu_torch.core import tricubic
+    from ionotomo_tpu_torch.forward import tec
+    from ionotomo_tpu_torch.geometry import fermat, rays
+
+    arrays = dp.to_device_arrays()
+    grid = sol.grid.to(dev)
+    m = torch.as_tensor(sol.m[0], device=dev).contiguous()
+    table = m.reshape(-1, grid.shape[2])
+    o, d = rays.make_ray_batch(
+        torch.as_tensor(arrays["antennas_enu"], device=dev),
+        torch.as_tensor(arrays["directions_enu"][0], device=dev))
+    c = fermat._step_constants(dp.frequency_hz, LENGTH_KM, N_STEPS)
+    kw = dict(n_steps=N_STEPS, keep_path=True, method="leapfrog")
+    bent = fermat.trace_rays(m, grid, o, d, dp.frequency_hz, LENGTH_KM, **kw)
+    straight = rays.sample_straight_rays(o, d, LENGTH_KM)
+    out = {}
+
+    def k2_at(label, rb):
+        setup = tricubic.row_setup(grid, rb.points.reshape(-1, 3))
+        n = setup[0].shape[0]
+        return check_and_time(
+            f"K2 in ray order at the {label} bundle's {n} points",
+            lambda: kernels.rows_value_fwd(table, *setup, False),
+            lambda: tricubic.rows_value_ref(table, *setup, False), None,
+            k2_bound(*setup, *table.shape, 16, FLOPS_K2_CUBIC_POINT),
+            scatter=False) | {"points": n}
+
+    out["rows_value_fwd@straight"] = k2_at("straight", straight)
+    out["rows_value_fwd@bent"] = k2_at("bent", bent[0])
+    ends = tec._endpoint_tangents(straight.points)[0].contiguous()
+    out["cubic_value_grad"] = check_k5(
+        f"K5 at the straight bundle's {ends.shape[0]} endpoints", tricubic,
+        kernels, table, grid, ends)
+    plain = fermat.trace_rays_ref(m, grid, o, d, dp.frequency_hz, LENGTH_KM,
+                                  interp="cubic", **kw)
+    err_x, err_t = check_against_plain(
+        f"K1c with its path at {o.shape[0]} rays x {N_STEPS} steps", bent,
+        plain)
+    del plain
+
+    def k1c():
+        return kernels.trace_leapfrog_cubic(table, grid, o, d, N_STEPS, True,
+                                            **c)
+
+    ms = device_ms(k1c, 20)
+    plain_ms = cuda_ms(lambda: fermat.trace_rays_ref(
+        m, grid, o, d, dp.frequency_hz, LENGTH_KM, interp="cubic", **kw), 1)
+    b_ms, b_by = trace_bound(tricubic, 16, kernels.trace_leapfrog_cubic,
+                             FLOPS_K1C_STEP, table, grid, o, d, N_STEPS, True,
+                             c)
+    print(f"  K1c with its path at {o.shape[0]} rays x {N_STEPS} steps (the "
+          f"call: pack and trace): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, bound {b_ms:.4f} ms ({b_by})")
+    out["trace_leapfrog_cubic"] = dict(
+        max_abs_err=err_x, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, tau_rel=err_t, rays=o.shape[0])
+    return out
+
+
+def phase17_predict(dev, kernels, results, profile, shape=None):
+    """``predict`` at full width (``__main__.predict``, what the CLI's
+    ``predict`` runs between its file reads and writes): phase 16's world
+    (``data.synth``'s defaults, 62 antennas × 10 directions × 8 timesteps,
+    150 MHz) and the 128^3 Solution of a snapshot ``InversionPipeline``
+    run over it at the ``invert`` CLI's defaults, in memory; ``predict``
+    at its defaults in four forms (``testing.PREDICT_FORMS``: straight;
+    straight with RM; bent at leapfrog@64 with RM; bent on zp with RM),
+    each timed per timestep on the host clock after a warm-up, with its
+    launches, finite, the dRM's reference row 0, twice bitwise; the
+    straight residual and bent against straight within the reference's
+    CLI bounds; the card against the CPU on 2 timesteps with a bfloat16
+    control; the sky screens on a 62 × 40 synth DataPack on 64^3 (held
+    out, hyperparameters, card against CPU); the structure function of
+    the predicted phases; ``checked`` on the card; and the path's kernels
+    alone at its shapes (``kernels_at_predict``). ``shape`` shrinks the
+    Solution's grid for a rehearsal on the CPU."""
+    from ionotomo_tpu_torch import __main__ as cli
+    from ionotomo_tpu_torch.data import synth
+    from ionotomo_tpu_torch.data.datapack import DataPack
+    from ionotomo_tpu_torch.forward import rm
+    from ionotomo_tpu_torch.inversion import screens
+    from ionotomo_tpu_torch.inversion.pipeline import InversionPipeline
+    from ionotomo_tpu_torch.inversion.solution import Solution
+    from ionotomo_tpu_torch.models.geomagnetic import dipole_b_enu_fn
+    from ionotomo_tpu_torch.testing import PREDICT_FORMS
+    from ionotomo_tpu_torch.utils.debugging import checked
+    from ionotomo_tpu_torch.utils.diagnostics import (fit_structure_exponent,
+                                                      phase_structure_function)
+
+    cuda = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    print("phase 17: predict at its defaults (cubic, Hermite@129, 1000 km; "
+          "bent leapfrog@64) on phase 16's world")
+    t0 = time.perf_counter()
+    dp, _ = invert_world(dev)
+    sol = InversionPipeline(dp, invert_config("predict", shape=shape),
+                            device=dev).run(resume=False)
+    na, nt, nd = dp.shape
+    n_rays = na * nd
+    print(f"  the Solution: {nt} snapshot solves on {sol.grid.shape}, world "
+          f"and solves {time.perf_counter() - t0:.2f} s")
+    card = card_line() if cuda else "cpu"
+    out = {"timesteps": nt, "rays": n_rays, "card": card, "forms": {}}
+    preds = {}
+    for form, (kw, need) in PREDICT_FORMS.items():
+        first = cli.predict(dp, sol, device=dev, **kw)
+        secs = []
+        for rep in range(PREDICT_REPS):
+            if rep == 0:
+                kernels.reset_launches()
+            sync(dev)
+            t1 = time.perf_counter()
+            p = cli.predict(dp, sol, device=dev, **kw)
+            sync(dev)
+            secs.append(time.perf_counter() - t1)
+            if rep == 0:
+                launches = {k: v for k, v in kernels.launches.items() if v}
+        same = np.array_equal(first.dtec, p.dtec) and (
+            p.drm is None or np.array_equal(first.drm, p.drm))
+        check(same, f"{form}: two calls bitwise equal")
+        check(bool(np.isfinite(p.dtec).all()) and (
+            p.drm is None or (bool(np.isfinite(p.drm).all())
+                              and bool((p.drm[dp.ref_antenna] == 0).all()))),
+              f"{form}: finite" + (", the dRM's reference-antenna row "
+                                   "exactly 0" if p.drm is not None else ""))
+        if cuda:
+            for k in need:
+                check(launches.get(k, 0) > 0, f"{form}: {k} launched "
+                                              f"({launches.get(k, 0)} times)")
+        s = float(np.median(secs))
+        per_t = {k: v / nt for k, v in launches.items()}
+        print(f"  {form}: {s / nt * 1e3:.3f} ms a timestep (host clock, "
+              f"median of {PREDICT_REPS} calls of {nt} timesteps after a "
+              f"warm-up; least {min(secs) / nt * 1e3:.3f}), "
+              f"{n_rays * nt / s:.1f} rays/s; observed rms "
+              f"{p.observed_rms:.2f}, residual rms {p.residual_rms:.2f}; "
+              f"launches a timestep {per_t}")
+        preds[form] = p
+        out["forms"][form] = {
+            "ms_per_timestep": s / nt * 1e3, "seconds": secs,
+            "rays_per_s": n_rays * nt / s, "launches": launches,
+            "launches_per_timestep": per_t, "observed_rms": p.observed_rms,
+            "residual_rms": p.residual_rms}
+    st = preds["straight"]
+    check(st.residual_rms < PREDICT_RESIDUAL_LIMIT * st.observed_rms,
+          f"straight: residual rms {st.residual_rms:.2f} below "
+          f"{PREDICT_RESIDUAL_LIMIT} x the observed {st.observed_rms:.2f}")
+    scale = float(np.abs(st.dtec).max())
+    bent_err = {f: float(np.abs(preds[f].dtec - st.dtec).max()) / scale
+                for f in ("bent_rm", "bent_zp_rm")}
+    check(bent_err["bent_rm"] < PREDICT_BENT_LIMIT,
+          f"bent (cubic) against straight: max|diff| {bent_err['bent_rm']:.4f}"
+          f" of max|dTEC| below {PREDICT_BENT_LIMIT} (bent on zp: "
+          f"{bent_err['bent_zp_rm']:.4f})")
+    out["bent_vs_straight"] = bent_err
+
+    # the card against the CPU on the first timesteps, RM per ray and the
+    # dTEC, with K2 rounded to bfloat16 as a control
+    k = PREDICT_CPU_TIMES
+    sub = dp.select(times=list(range(k)))
+    sol_k = Solution(sol.grid, sol.m[:k])
+    sol_cpu = Solution(sol.grid.to(cpu), sol.m[:k])
+    arrays = sub.to_device_arrays()
+    b_fns = {d.type: dipole_b_enu_fn(dp.array.enu_frame, device=d)
+             for d in (dev, cpu)}
+
+    def rms_per_ray(d, s, kw):
+        return [predict_rm_per_ray(cli, rm, s, arrays, dp.frequency_hz,
+                                   b_fns[d.type], kw, t, d)
+                for t in range(k)] if kw.get("rm") else None
+
+    t1 = time.perf_counter()
+    ref = {form: (cli.predict(sub, sol_cpu, device=cpu, **kw),
+                  rms_per_ray(cpu, sol_cpu, kw))
+           for form, (kw, _) in PREDICT_FORMS.items()}
+    cpu_s = time.perf_counter() - t1
+
+    def reading(form):
+        kw = PREDICT_FORMS[form][0]
+        p_cpu, r_cpu = ref[form]
+        p = cli.predict(sub, sol_k, device=dev, **kw)
+        e_dtec = float(np.abs(p.dtec - p_cpu.dtec).max()
+                       / np.abs(p_cpu.dtec).max())
+        if r_cpu is None:
+            return e_dtec, None
+        r = rms_per_ray(dev, sol_k, kw)
+        e_rm = float(max(np.abs(a - b).max() for a, b in zip(r, r_cpu))
+                     / max(np.abs(b).max() for b in r_cpu))
+        return e_dtec, e_rm
+
+    sound = {form: reading(form) for form in PREDICT_FORMS}
+    ctrl = None
+    if cuda:
+        with rounded_to_bf16(kernels, "rows_value_fwd"):
+            ctrl = reading("straight_rm")
+    print(f"  the card against the CPU on {k} timesteps ({cpu_s:.1f} s "
+          f"there for the four forms): " + "; ".join(
+              f"{f} dTEC {e:.3e}" + (f", RM {r:.3e}" if r is not None
+                                     else "") for f, (e, r) in sound.items())
+          + (f"; control, K2 in bfloat16 (straight_rm): dTEC {ctrl[0]:.3e}, "
+             f"RM {ctrl[1]:.3e}" if ctrl else ""))
+    for f, (e, r) in sound.items():
+        check(e <= PREDICT_DTEC_LIMIT and (r is None or r <= PREDICT_RM_LIMIT),
+              f"card against CPU, {f}: dTEC within {PREDICT_DTEC_LIMIT:g} of "
+              f"max|dTEC| ({e:.3e})" + (f", RM per ray within "
+                                        f"{PREDICT_RM_LIMIT:g} of max|RM| "
+                                        f"({r:.3e})" if r is not None else ""))
+    if ctrl:
+        check(ctrl[0] > PREDICT_DTEC_LIMIT and ctrl[1] > PREDICT_RM_LIMIT,
+              f"control, K2 in bfloat16: dTEC {ctrl[0]:.3e} and RM "
+              f"{ctrl[1]:.3e} past their limits")
+    out.update(card_vs_cpu=sound, control=ctrl, cpu_s=cpu_s,
+               limits=[PREDICT_DTEC_LIMIT, PREDICT_RM_LIMIT])
+
+    # the sky screens: 62 antennas x 40 directions x 1 timestep on 64^3;
+    # 30 directions fitted, 10 held out. The kernel's hyperparameters are
+    # fitted on the 30 (``fit_screen_hyperparameters``, 150 steps) and
+    # passed to ``fit_screen``, the reference's workflow: its default
+    # kernel (sigma the pooled std, zero mean) does worse on this world
+    # than each antenna's mean, in either package (printed)
+    sdp, _ = synth.generate_example_datapack(n_directions=40,
+                                             grid_shape=(64, 64, 64),
+                                             device=dev)
+    train = sdp.select(directions=list(range(30)))
+    held = sdp.directions[30:]
+
+    def screen_run(d, data=train):
+        sync(d)
+        t = time.perf_counter()
+        fitted = screens.fit_screen_hyperparameters(data, 0, device=d)
+        params = {k: float(v) for k, v in fitted.params().items()}
+        fit_s = time.perf_counter()
+        mean, var = screens.predict_screen(
+            screens.fit_screen(data, 0, kernel=fitted, device=d), held)
+        mean, var = mean.cpu().numpy(), var.cpu().numpy()
+        end = time.perf_counter()
+        return mean, var, params, fit_s - t, end - fit_s
+
+    scr, scr2, scr_cpu = screen_run(dev), screen_run(dev), screen_run(cpu)
+    default = screens.predict_screen(screens.fit_screen(train, 0, device=dev),
+                                     held)[0].cpu().numpy()
+    truth = sdp.dtec[:, 0, 30:]
+
+    def heldout(mean):
+        return float(np.abs(mean - truth).mean())
+
+    err_gp, err_default = heldout(scr[0]), heldout(default)
+    err_mean = heldout(train.dtec[:, 0, :].mean(axis=1, keepdims=True))
+    sscale = float(np.abs(sdp.dtec).max())
+    e_mean = float(np.abs(scr[0] - scr_cpu[0]).max()) / sscale
+    e_fit = max(abs(scr[2][p] - scr_cpu[2][p]) / abs(scr_cpu[2][p])
+                for p in scr[2])
+    # how far the CPU's own fit moves when its input moves by one f32
+    # rounding (3 draws): the conditioning the comparison sits on
+    rng = np.random.default_rng(17)
+    spread = 0.0
+    for _ in range(3):
+        moved = sdp.select(directions=list(range(30)))
+        moved.dtec = moved.dtec.astype(np.float32).astype(np.float64) * (
+            1 + 6e-8 * rng.choice([-1.0, 1.0], moved.dtec.shape))
+        spread = max(spread, max(abs(v - scr_cpu[2][p]) / abs(scr_cpu[2][p])
+                                 for p, v in screen_run(cpu, moved)[2].items()))
+    print(f"  screens (62 x 40 on 64^3, 30 fitted, 10 held out): "
+          f"hyperparameters (150 steps) {scr[3]:.2f} s, fit and held-out "
+          f"prediction {scr[4] * 1e3:.1f} ms on the card (CPU "
+          f"{scr_cpu[3]:.2f} s, {scr_cpu[4] * 1e3:.1f} ms); held-out error "
+          f"{err_gp:.3f} against the per-antenna mean's {err_mean:.3f} (the "
+          f"default kernel's {err_default:.3f}); fitted {scr[2]} (CPU "
+          f"{scr_cpu[2]}); the CPU fit's own spread under one f32 rounding "
+          f"of its input {spread:.3e}")
+    check(err_gp < SCREEN_HELDOUT_LIMIT * err_mean,
+          f"screens: held-out error {err_gp:.3f} below "
+          f"{SCREEN_HELDOUT_LIMIT} x the per-antenna mean's {err_mean:.3f}")
+    check(np.array_equal(scr[0], scr2[0]) and np.array_equal(scr[1], scr2[1])
+          and scr[2] == scr2[2], "screens: two runs on the card bitwise "
+                                 "equal")
+    check(e_mean <= SCREEN_MEAN_LIMIT and e_fit <= SCREEN_FIT_LIMIT,
+          f"screens, card against CPU: means within {SCREEN_MEAN_LIMIT:g} "
+          f"of max|dTEC| ({e_mean:.3e}), hyperparameters within "
+          f"{SCREEN_FIT_LIMIT:g} relative ({e_fit:.3e})")
+    out["screens"] = {"heldout": err_gp, "heldout_mean_predictor": err_mean,
+                      "heldout_default_kernel": err_default,
+                      "card_vs_cpu": [e_mean, e_fit], "cpu_fit_spread": spread,
+                      "fitted": scr[2], "fitted_cpu": scr_cpu[2],
+                      "hyper_s": scr[3], "fit_predict_ms": scr[4] * 1e3}
+
+    # the structure function of the straight prediction's phases
+    pdp = DataPack(dp.array, dp.directions, dp.times, dtec=st.dtec,
+                   flags=dp.flags, noise_std=dp.noise_std,
+                   ref_antenna=dp.ref_antenna, frequency_hz=dp.frequency_hz,
+                   frame_model=dp.frame_model)
+    b, dd, n = phase_structure_function(pdp)
+    beta, c_amp, r_diff = fit_structure_exponent(b, dd)
+    check(bool(np.isfinite(dd[n > 0]).all()) and beta > 0,
+          f"structure function of the predicted phases: finite, beta "
+          f"{beta:.3f} > 0 (C {c_amp:.3e}, r_diff {r_diff:.1f} km)")
+    out["structure"] = {"beta": beta, "c": c_amp, "r_diff_km": r_diff}
+
+    # the NaN-check mode: a NaN made on the device raises; a checked
+    # predict of one timestep is bitwise the unchecked one
+    try:
+        checked(torch.log)(torch.tensor([1.0, -1.0], device=dev))
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    check(raised is not None and "primitive: log" in raised,
+          f"checked on {dev.type}: a NaN made there raises ({raised!r})")
+    one = dp.select(times=[0])
+    sol1 = Solution(sol.grid, sol.m[:1])
+    kw = PREDICT_FORMS["straight_rm"][0]
+    plain = cli.predict(one, sol1, device=dev, **kw)
+    t1 = time.perf_counter()
+    got = checked(cli.predict)(one, sol1, device=dev, **kw)
+    checked_s = time.perf_counter() - t1
+    check(np.array_equal(got.dtec, plain.dtec)
+          and np.array_equal(got.drm, plain.drm),
+          f"checked predict (straight, RM, one timestep): bitwise the "
+          f"unchecked call ({checked_s:.2f} s checked)")
+    out["checked_s"] = checked_s
+
+    if profile and cuda:
+        out["profile"] = {
+            form: profile_call(f"predict {form}, one timestep",
+                               lambda kw=kw: cli.predict(one, sol1, device=dev,
+                                                         **kw))
+            for form, (kw, _) in PREDICT_FORMS.items()}
+    out["at"] = predict_kernels_at(dev, sol, dp, kernels) if cuda else {}
+    results["predict"] = out
+
+
 def kernel_ms_by_name(fn, reps: int) -> dict:
     """Device ms a call of ``fn`` spends in each kernel, by name, from one
     profiler trace over ``reps`` calls after a warm-up."""
@@ -7252,6 +7652,13 @@ def kernels_line(results) -> dict:
         paths["invert_modes"] = {mode: got[e["name"]]
                                  for mode, got in by_mode.items()
                                  if got.get(e["name"])}
+    # phase 17: each predict form's launches over the world's 8 timesteps
+    # (counted from 0 just before the form's first timed call)
+    pv = results["predict"]
+    for e in kernel_list:
+        e["launches_by_path"]["predict"] = {
+            form: f["launches"][e["name"]] for form, f in pv["forms"].items()
+            if f["launches"].get(e["name"])}
     # "kernels_at_invert": K2b with its pack and K3b with its fold at B = 8
     # over the snapshot geometry's points (phase 16), with their launches
     # summed over the inversion modes that run them (by mode beside)
@@ -7264,10 +7671,30 @@ def kernels_line(results) -> dict:
                                        if got.get(name)}}
                  for name, line in inv["at"].items()
                  if name in reps]
+    # "kernels_at_predict": K2 in ray order at the straight and the bent
+    # bundle's points, K5 at the endpoints, K1c with its path at 620 rays
+    # x 64 steps (phase 17), each with its launches a timestep in the form
+    # that gives it that shape (K2 at the straight shape: straight with
+    # RM, one gather for the dTEC and one for RM; at the bent shape: bent
+    # with RM, likewise; K5: straight; K1c: bent with RM)
+    forms = {"rows_value_fwd@straight": "straight_rm",
+             "rows_value_fwd@bent": "bent_rm",
+             "cubic_value_grad": "straight",
+             "trace_leapfrog_cubic": "bent_rm"}
+    at_predict = []
+    for label, line in pv["at"].items():
+        name = label.split("@")[0]
+        per_t = pv["forms"][forms[label]]["launches_per_timestep"]
+        at_predict.append({**entry(name, *reps[name],
+                                   pv["forms"][forms[label]]["launches"]
+                                   .get(name, 0), line),
+                           "shape": label, "form": forms[label],
+                           "launches_per_timestep": per_t.get(name, 0)})
     return {"kernels": kernel_list,
             "kernels_at_config4": at4, "kernels_at_member_shapes": members,
             "kernels_at_service": at_service,
-            "kernels_at_invert": at_invert}
+            "kernels_at_invert": at_invert,
+            "kernels_at_predict": at_predict}
 
 
 def service_only() -> int:
@@ -7303,6 +7730,26 @@ def invert_only(profile=False) -> int:
     lap = Laps()
     phase16_invert(dev, kernels, {}, profile=profile)
     lap("phase16_invert")
+    return 0
+
+
+def predict_only(profile=False) -> int:
+    """``--predict``: the build and phase 17 alone (``predict`` in its four
+    forms, the screens, the structure function, the NaN-check mode and
+    the path's kernels at its shapes; with --profile one timestep of each
+    form profiled)."""
+    from ionotomo_tpu_torch import kernels
+    from ionotomo_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    print(f"card: {card_line()}")
+    info = build.build()
+    print(f"  built={info['built']} in {info['seconds']:.2f} s")
+    build.load()
+    lap = Laps()
+    phase17_predict(dev, kernels, {}, profile=profile)
+    lap("phase17_predict")
     return 0
 
 
@@ -7476,6 +7923,8 @@ def main() -> int:
         return theta_study()
     if "--invert" in args:
         return invert_only(profile)
+    if "--predict" in args:
+        return predict_only(profile)
 
     from ionotomo_tpu_torch import configs, kernels
     from ionotomo_tpu_torch.core import (boxspline, triquadratic, tricubic,
@@ -7568,6 +8017,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase16_invert(dev, kernels, results, profile=profile)
     lap("phase16_invert")
+    torch.cuda.empty_cache()
+    phase17_predict(dev, kernels, results, profile=profile)
+    lap("phase17_predict")
 
     line = kernels_line(results)
     solve, c2, c4 = results["solve"], results["config2"], results["config4"]
@@ -7622,6 +8074,15 @@ def main() -> int:
               f"{k} {m['seconds']:.2f} s" for k, m in iv["modes"].items())
           + "; card against CPU: field "
           f"{iv['card_vs_cpu'][0]:.3e}, held-out {iv['card_vs_cpu'][1]:.3e}")
+    pv = results["predict"]
+    print(f"predict: {pv['timesteps']} timesteps of {pv['rays']} rays at "
+          f"128^3, ms a timestep " + ", ".join(
+              f"{k} {v['ms_per_timestep']:.3f}" for k, v in pv["forms"].items())
+          + "; card against CPU: " + ", ".join(
+              f"{k} {e:.2e}" + (f"/{r:.2e}" if r is not None else "")
+              for k, (e, r) in pv["card_vs_cpu"].items())
+          + f"; screens held-out {pv['screens']['heldout']:.3f} against "
+          f"{pv['screens']['heldout_mean_predictor']:.3f}")
     print(json.dumps(line))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

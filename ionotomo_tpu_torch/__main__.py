@@ -1,20 +1,28 @@
-"""Command-line interface of the port: simulate, invert, info, serve.
+"""Command-line interface of the port: simulate, invert, predict, info,
+serve.
 
   python -m ionotomo_tpu_torch simulate --out obs.h5 [--antennas 50 ...]
   python -m ionotomo_tpu_torch invert obs.h5 --out solution.h5 [--solver ...]
+  python -m ionotomo_tpu_torch predict solution.h5 obs.h5 --out pred.h5 [--rm]
   python -m ionotomo_tpu_torch info obs.h5|solution.h5
   python -m ionotomo_tpu_torch serve IN_DIR OUT_DIR [--solver enkf] ...
 
 The reference CLI's subcommands (``ionotomo_tpu``) with their arguments
-and defaults; ``simulate``, ``invert`` and ``serve`` take ``--device``
-(the card unless named; ``cpu`` runs the plain PyTorch versions). The
-reference's ``predict`` is not ported yet (ROADMAP.md Queue 1).
+and defaults; ``simulate``, ``invert``, ``predict`` and ``serve`` take
+``--device`` (the card unless named; ``cpu`` runs the plain PyTorch
+versions). The arithmetic of ``invert``, ``predict`` and ``serve`` is
+callable without files (``invert_config``, ``predict``,
+``serve_config``).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
+from typing import NamedTuple
+
+import numpy as np
+import torch
 
 
 def _interp_arg_opt(value):
@@ -185,6 +193,137 @@ def cmd_invert(args):
     for rec in pipe.metrics.read_all():
         rec.pop("t_wall", None)
         print("  ", json.dumps(rec))
+
+
+class Prediction(NamedTuple):
+    """What ``predict`` returns: the predicted dTEC (Na, Nt, Nd), the
+    differential Faraday RM (Na, Nt, Nd; None without ``rm``), and the
+    rms of the observed dTEC and of the residual over unflagged samples
+    (working units)."""
+
+    dtec: np.ndarray
+    drm: np.ndarray | None
+    observed_rms: float
+    residual_rms: float
+
+
+def predict_rays(m_t, grid, antennas, directions, frequency_hz,
+                 bent=False, samples=129, max_length=1000.0, n_steps=64,
+                 interp="cubic"):
+    """One timestep's (antenna x direction) bundle: straight, sampled at
+    ``samples`` points, or bent, traced through ``m_t`` by the leapfrog
+    tracer with its path (K1c on cubic, K1 on zp on the card)."""
+    from .geometry import fermat, rays as rays_mod
+
+    origins, dvecs = rays_mod.make_ray_batch(antennas, directions)
+    if bent:
+        # bent bundle + paired quadrature (cancellation-free), the
+        # same forward the inversion pipeline uses, not tau-minus-tau
+        rb, _ = fermat.trace_rays(m_t, grid, origins, dvecs, frequency_hz,
+                                  max_length, n_steps=n_steps,
+                                  keep_path=True, method="leapfrog",
+                                  interp=interp)
+        return rb
+    return rays_mod.sample_straight_rays(origins, dvecs,
+                                         max_length_km=max_length,
+                                         n_samples=samples)
+
+
+def predict(dp, sol, samples=129, quadrature="hermite", interp="cubic",
+            max_length=1000.0, bent=False, n_steps=64, rm=False,
+            device=None) -> Prediction:
+    """Forward-model a Solution onto a DataPack's geometry, one timestep
+    at a time on ``device`` (the card unless named): the predicted dTEC
+    (``tec.dtec_paired_q``) and, with ``rm``, the differential Faraday RM
+    of the same bundle (``rm.drm``, dipole B; its n_e gathered on cubic
+    whatever ``interp`` is, as in the reference). A one-timestep solution
+    broadcasts over the DataPack's timesteps."""
+    from .device import host, resolve
+    from .forward import tec as tec_mod
+
+    dev = resolve(device)
+    dev_arrays = dp.to_device_arrays()
+    ants = torch.as_tensor(dev_arrays["antennas_enu"], device=dev)
+    dirs = torch.as_tensor(dev_arrays["directions_enu"], device=dev)
+    i0 = dev_arrays["ref_antenna"]
+    na, nt, nd = dp.shape
+    grid = sol.grid.to(dev)
+    if sol.num_times == nt:
+        m_seq = sol.m
+    elif sol.num_times == 1:
+        m_seq = np.broadcast_to(sol.m[0], (nt,) + sol.m.shape[1:])
+    else:
+        raise SystemExit(
+            f"solution has {sol.num_times} timesteps but the datapack has "
+            f"{nt}; select matching times or use a single-timestep "
+            f"solution (which broadcasts)")
+    b_fn = drm_fn = None
+    if rm:
+        from .forward.rm import drm as drm_fn
+        from .models.geomagnetic import dipole_b_enu_fn
+        b_fn = dipole_b_enu_fn(dp.array.enu_frame, device=dev)
+    pred, drm_out = [], []
+    for t in range(nt):
+        m_t = torch.as_tensor(np.array(m_seq[t], np.float32), device=dev)
+        rb = predict_rays(m_t, grid, ants, dirs[t], dp.frequency_hz, bent,
+                          samples, max_length, n_steps, interp)
+        pred.append(tec_mod.dtec_paired_q(m_t, grid, rb, nd, i0, quadrature,
+                                          interp))
+        if rm:
+            # same bundle as the dTEC: bent RM along bent paths
+            drm_out.append(drm_fn(m_t, grid, rb, b_fn, nd, i0))
+    pred = host(torch.stack(pred, 1))
+    drm_out = host(torch.stack(drm_out, 1)) if rm else None
+    ok = ~dp.flags
+    res = (pred - dp.dtec)[ok]
+    obs = dp.dtec[ok]
+    return Prediction(pred, drm_out, float(np.sqrt(np.mean(obs**2))),
+                      float(np.sqrt(np.mean(res**2))))
+
+
+def cmd_predict(args):
+    """Forward-model a saved Solution onto a DataPack's geometry, the
+    serving-side workflow (``predict``): residual stats against the
+    observed dtec, and an output DataPack (or h5parm) holding the
+    predictions, with the dRM appended as dataset ``drm``."""
+    from .data.datapack import DataPack
+    from .inversion.solution import Solution
+
+    dp = DataPack.load(args.datapack)
+    sol = Solution.load(args.solution, device=args.device)
+    na, nt, nd = dp.shape
+    p = predict(dp, sol, samples=args.samples, quadrature=args.quadrature,
+                interp=args.interp, max_length=args.max_length,
+                bent=args.bent, n_steps=args.n_steps, rm=args.rm,
+                device=args.device)
+    print(f"predicted {na}x{nt}x{nd} dTEC "
+          f"({'bent' if args.bent else 'straight'} rays)")
+    print(f"  observed rms {p.observed_rms:.2f}, residual rms "
+          f"{p.residual_rms:.2f} (working units, unflagged)")
+    out = DataPack(dp.array, dp.directions, dp.times, dtec=p.dtec,
+                   flags=dp.flags, noise_std=dp.noise_std,
+                   ref_antenna=dp.ref_antenna,
+                   frequency_hz=dp.frequency_hz,
+                   frame_model=dp.frame_model)
+    if args.h5parm:
+        if args.rm:
+            raise SystemExit(
+                "--h5parm with --rm is not supported: differential RM has "
+                "no losoto soltab representation here and a stray root "
+                "dataset would break pipeline consumers — write a "
+                "DataPack file (drop --h5parm) for RM output")
+        out.to_h5parm(args.out)
+        print(f"wrote {args.out} (losoto h5parm tec000 soltab — feed "
+              f"straight back to the LOFAR calibration pipeline)")
+    else:
+        out.save(args.out)
+        print(f"wrote {args.out}")
+    if args.rm:
+        import h5py
+        with h5py.File(args.out, "a") as f:
+            f.create_dataset("drm", data=p.drm)
+        print(f"  + differential Faraday RM (rad/m^2) in dataset 'drm', "
+              f"range [{p.drm.min():.3f}, {p.drm.max():.3f}]")
 
 
 def cmd_info(args):
@@ -402,6 +541,29 @@ def parser() -> argparse.ArgumentParser:
     i.add_argument("--resume", action="store_true")
     i.add_argument("--device", default=None, help=device_help)
     i.set_defaults(fn=cmd_invert)
+
+    q = sub.add_parser("predict", help="forward-model a Solution onto a "
+                                       "DataPack's geometry")
+    q.add_argument("solution")
+    q.add_argument("datapack")
+    q.add_argument("--out", required=True)
+    q.add_argument("--samples", type=int, default=129)
+    q.add_argument("--quadrature", default="hermite",
+                   choices=["simpson", "hermite"],
+                   help="straight-ray prediction quadrature (matches the "
+                        "inversion operator default)")
+    q.add_argument("--interp", default="cubic", type=_interp_arg,
+                   help="C1 field model (see invert --interp)")
+    q.add_argument("--max-length", type=float, default=1000.0)
+    q.add_argument("--bent", action="store_true")
+    q.add_argument("--n-steps", type=int, default=64)
+    q.add_argument("--rm", action="store_true",
+                   help="also write differential Faraday RM (dipole B)")
+    q.add_argument("--h5parm", action="store_true",
+                   help="write the prediction as a losoto h5parm "
+                        "(tec000 soltab) instead of a DataPack file")
+    q.add_argument("--device", default=None, help=device_help)
+    q.set_defaults(fn=cmd_predict)
 
     n = sub.add_parser("info", help="describe a DataPack/Solution file")
     n.add_argument("path")

@@ -38,6 +38,22 @@ ENKF_KERNELS = MEMBER_KERNELS + ("zp_value_grad_bwd",)
 SERVICE_KERNELS = CUBIC_SOLVE_KERNELS + ("point_order_keys", "permute_points",
                                          "rows_value_fwd_batched",
                                          "pack_members")
+#: ``predict``'s forms (``__main__.predict``) as the card tests and
+#: ``chip_smoke.py`` run them at its defaults (cubic, Hermite@129, 1000
+#: km, leapfrog@64): the keyword arguments of each and the kernels it must
+#: launch. The dTEC gathers through K2 and its Hermite endpoints through
+#: the model's value + gradient (K5 on cubic, K1e on zp); a bent bundle
+#: is traced by the model's leapfrog tracer (K1c, which packs the table's
+#: z taps, or K1); RM gathers n_e through K2 on cubic on every model.
+PREDICT_FORMS = {
+    "straight": ({}, ("rows_value_fwd", "cubic_value_grad")),
+    "straight_rm": ({"rm": True}, ("rows_value_fwd", "cubic_value_grad")),
+    "bent_rm": ({"bent": True, "rm": True},
+                ("trace_leapfrog_cubic", "pack_z_taps", "rows_value_fwd",
+                 "cubic_value_grad")),
+    "bent_zp_rm": ({"bent": True, "interp": "zp", "rm": True},
+                   ("trace_leapfrog_zp", "zp_value_grad", "rows_value_fwd")),
+}
 
 
 def edge_case_points(shape, origin, spacing, n, rng):

@@ -1739,3 +1739,77 @@ def test_ensemble_filter_step_waits_for_no_sync_and_runs_member_kernels(dev):
             step_offset=1)
     assert torch.equal(second.ensemble, c.ensemble)
     assert torch.isfinite(second.std_seq).all()
+
+
+@pytest.fixture(scope="module")
+def predict_world():
+    """A small ``predict`` world: ``data.synth`` at 8 antennas x 4
+    directions x 2 timesteps on 16³ (the DataPack on the host, its truth
+    as the Solution, the grid on the CPU)."""
+    from ionotomo_tpu_torch.data.synth import generate_example_datapack
+    from ionotomo_tpu_torch.inversion.solution import Solution
+
+    dp, truth = generate_example_datapack(
+        n_antennas=8, n_directions=4, n_times=2, grid_shape=(16, 16, 16),
+        n_samples=33, device="cpu")
+    return dp, Solution(truth["grid"], truth["m"])
+
+
+@pytest.mark.parametrize("form", ["straight", "straight_rm", "bent_rm",
+                                  "bent_zp_rm"])
+def test_predict_on_card_matches_cpu(dev, predict_world, form):
+    """``predict`` on the card against the same call on the CPU: dTEC
+    within 1e-3·max|dTEC|, dRM within 1e-4·max|RM| of the rays of
+    timestep 0 (RM, not dRM: dRM is a difference of nearly equal
+    numbers), the form's kernels launched, two calls bitwise equal."""
+    from ionotomo_tpu_torch import __main__ as cli
+    from ionotomo_tpu_torch.forward import rm
+    from ionotomo_tpu_torch.models.geomagnetic import dipole_b_enu_fn
+    from ionotomo_tpu_torch.testing import PREDICT_FORMS
+
+    dp, sol = predict_world
+    kw, launched = PREDICT_FORMS[form]
+    kw = dict(kw, samples=33, n_steps=32)
+    kernels.reset_launches()
+    got = cli.predict(dp, sol, device=dev, **kw)
+    assert all(kernels.launches[k] > 0 for k in launched), kernels.launches
+    again = cli.predict(dp, sol, device=dev, **kw)
+    want = cli.predict(dp, sol, device="cpu", **kw)
+    assert np.array_equal(got.dtec, again.dtec)
+    scale = np.abs(want.dtec).max()
+    assert np.abs(got.dtec - want.dtec).max() <= 1e-3 * scale
+    if kw.get("rm"):
+        assert np.array_equal(got.drm, again.drm)
+        a = dp.to_device_arrays()
+        m0 = torch.from_numpy(sol.m[0])
+        rb = cli.predict_rays(m0, sol.grid, torch.from_numpy(
+            a["antennas_enu"]), torch.from_numpy(a["directions_enu"][0]),
+            dp.frequency_hz, kw.get("bent", False), 33, n_steps=32,
+            interp=kw.get("interp", "cubic"))
+        rm_max = float(rm.rotation_measure(
+            m0, sol.grid, rb, dipole_b_enu_fn(dp.array.enu_frame,
+                                              device="cpu")).abs().max())
+        assert np.abs(got.drm - want.drm).max() <= 1e-4 * rm_max
+        assert (got.drm[dp.ref_antenna] == 0).all()
+
+
+def test_checked_on_card(dev):
+    """``utils.debugging.checked`` on the card: a NaN made there raises
+    with the operation's name, an out-of-bounds index tensor raises
+    before it launches (no device assert), and on clean input the checked
+    call returns the unchecked result bitwise."""
+    from ionotomo_tpu_torch.utils.debugging import checked
+
+    with pytest.raises(FloatingPointError, match="primitive: log"):
+        checked(torch.log)(torch.tensor([1.0, -1.0], device=dev))
+    x = torch.arange(3.0, device=dev)
+    with pytest.raises(IndexError, match="out-of-bounds indexing"):
+        checked(lambda v, i: v[i])(x, torch.tensor([5], device=dev))
+    grid, m = _world(dev)
+    o, d = _rays(dev, 40)
+    rb = rays.sample_straight_rays(o, d, 1000.0, 65)
+
+    def f(field):
+        return tec.dtec_paired_q(field, grid, rb, 8, 0, "hermite", "cubic")
+
+    assert torch.equal(checked(f)(m), f(m))
