@@ -3,8 +3,9 @@ split-field and the stochastic beam trace), its MAP inversion paths on the
 zp and the tricubic field model, its time-evolving path (the frozen-flow
 Kalman filter and the ensemble filter), its streaming service
 (``serving.EpochService``), its batch inversion
-(``inversion.pipeline.InversionPipeline``) and its forward prediction with
-Faraday rotation (``predict``), on one NVIDIA GPU.
+(``inversion.pipeline.InversionPipeline``), its forward prediction with
+Faraday rotation (``predict``) and its multi-device layer (``parallel/``,
+its shards in turn on the card), on one NVIDIA GPU.
 
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # also: device time by kernel of
@@ -23,6 +24,8 @@ Faraday rotation (``predict``), on one NVIDIA GPU.
     python3 chip_smoke.py --predict    # only: the build and phase 17,
                                        # predict (with --profile: one
                                        # timestep of each form profiled)
+    python3 chip_smoke.py --sharded    # only: the build and phase 18, the
+                                       # multi-device layer
     python3 chip_smoke.py --theta-study
                                        # only: phase 16's estimate_profile
                                        # solve by depth of CG and of
@@ -366,6 +369,15 @@ analytic world drifting with the wind, 1 % noise), and on it:
    K2 in ray order at the straight (79,980) and bent (40,300) bundles'
    points, K5 at the 1,240 endpoints and K1c with its path at 620 rays ×
    64 steps against their plain versions (``kernels_at_predict``).
+18. The multi-device layer with S shards in turn on the one card
+   (``phase18_sharded``; arithmetic, not a multi-card speed): K7 and K7ᵀ
+   over 8 x-shards at config 4's world, 917,504 edge-case points and 2²⁰
+   points of 512³ (K7 summed bitwise K5, K7ᵀ bitwise its plain version,
+   the halo exchange exact; ``kernels_at_sharded``), the sharded-grid
+   J/Jᵀ and LSQR (K7's main path, its launches), ``trace_rays_sharded``
+   bitwise the integrator over K5, the ray mesh's snapshot solve and
+   filter chunk, ``member_parallel_enkf`` over 2 and 8 groups, the
+   pipeline with ``mesh=``.
 
 With ``--parent``, KG at both of phase 7's shapes and the permute at
 phases 6 and 10 are bitwise the parent's and timed in turns with it, as
@@ -990,7 +1002,10 @@ class Parent:
     declared by their SHA-256, and any other checkout is refused rather
     than handed arguments it does not take."""
 
-    NEW = ("ionotomo_trace_split_layer",)
+    NEW = ("ionotomo_trace_split_layer", "ionotomo_cubic_sharded_value",
+           "ionotomo_cubic_sharded_value_grad",
+           "ionotomo_cubic_sharded_value_bwd",
+           "ionotomo_cubic_sharded_value_grad_bwd")
 
     # the parent's kernels.SORT_AND_PACK entries that this checkout changed
     # (K1s's leapfrog took K1c's call: packed always, sorted from 512 rays
@@ -3234,16 +3249,17 @@ B_MEMBERS = 8
 
 
 def member_kernels_at(label, dev, tricubic, kernels, setup, plan, n_rows, nz,
-                      xy_first, rng, parent=None, layout=False):
+                      xy_first, rng, parent=None, layout=False, b=B_MEMBERS):
     """K2b and K3b at one point set with B_MEMBERS members: against the
     plain versions (1e-4·max), member by member bitwise against K2 and
     K3, K3b bitwise twice; device ms of each call (its pack and fold
     included), the plain version, the one-call form, the bound, B x the
     unbatched kernel, and each call's time by kernel. With a parent: both
     bitwise the parent's and timed in turns with it. ``layout``: also the
-    pack and the fold alone against their plain versions (their lines)."""
+    pack and the fold alone against their plain versions (their lines).
+    ``b``: the members (B_MEMBERS unless given)."""
     ri, wxy, zi, wz = setup
-    n, b = ri.shape[0], B_MEMBERS
+    n = ri.shape[0]
     k, l = ri.shape[1], zi.shape[1]
     tables = torch.from_numpy(rng.normal(size=(b, n_rows, nz))
                               .astype(np.float32)).to(dev)
@@ -7410,6 +7426,890 @@ def plain_solves(n, root=None) -> int:
     return 0
 
 
+
+# --- phase 18: the multi-device layer, S shards on one card -----------------
+
+#: Phase 18's shard counts: the x-sharded grid and the member groups (8),
+#: the ray mesh (4: 62 antennas pad to 64), the pipeline's mesh (2: no
+#: padding, so its runs and the meshless ones solve the same problem).
+GRID_SHARDS = 8
+RAY_SHARDS = 4
+PIPE_SHARDS = 2
+#: the sharded solves against the unsharded ones: the reference's dry-run
+#: parity bound (``__graft_entry__.py``), of max|m|, which holds at its
+#: schedule (gn 1, cg 8; a 2-step filter at cg 4) only
+SHARDED_SOLVE_LIMIT = 3e-5
+#: at the production schedules, each limit set between the sound run's
+#: reading and a planted fault's (``planted_fault``; both readings are
+#: checked in every run and written down in PERF.md): config 5's filter
+#: chunk on the ray mesh, of the unsharded filter's update (the snapshot
+#: solve is held to phase 16's INVERT_FIELD_LIMIT and
+#: INVERT_HELDOUT_LIMIT); the pipeline on a 2-device mesh, of the meshless
+#: run's departure from the prior
+SHARDED_FILTER_LIMIT = 1e-3
+SHARDED_PIPE_LIMIT = 1e-2
+#: the faults planted in the controls: the first shard left out of every
+#: ``psum`` (a dropped Jᵀ table, a lost member group, a lost x-shard; the
+#: last ray shard may hold only padding, which weighs nothing),
+#: and the first two ray shards' values swapped where the per-shard values
+#: are gathered in ray order
+FAULTS = ("dropped_shard", "swapped_gather")
+#: The names of K7 and K7ᵀ's wrappers, and the reference lines they replace.
+K7_KERNELS = {
+    "cubic_sharded_value": ("cubic_sharded.cu",
+                            "ionotomo_tpu/parallel/grid_sharding.py:138"),
+    "cubic_sharded_value_grad": ("cubic_sharded.cu",
+                                 "ionotomo_tpu/parallel/grid_sharding.py:164"),
+    "cubic_sharded_value_bwd": ("cubic_sharded_bwd.cu",
+                                "ionotomo_tpu/parallel/grid_sharding.py:138"),
+    "cubic_sharded_value_grad_bwd": (
+        "cubic_sharded_bwd.cu", "ionotomo_tpu/parallel/grid_sharding.py:164"),
+}
+
+
+def k7_bound(tricubic, grid, pts, owners, grad):
+    """K7 over all shards: every shard reads every point (12 B) and writes
+    every output (4 B, 16 with the gradient), and reads each distinct value
+    its owned points' taps touch once; an evaluation an owned point."""
+    n = pts.shape[0]
+    touched = sum(distinct_taps(tricubic, grid, pts[own]) for own in owners)
+    return bound(len(owners) * (12 + (16 if grad else 4)) * n + 4 * touched,
+                 n * FLOPS_K5_POINT)
+
+
+def k7t_bound(tricubic, grid, pts, owners, grad):
+    """K7ᵀ over all shards: each owned point's position and cotangents read
+    once (12 + 4 B, 12 + 16 with the gradient), each distinct cell its taps
+    touch read and written once (the plan is not counted); a set-up an
+    owned point and 16 pairs' contributions."""
+    n_own = sum(int(own.sum()) for own in owners)
+    touched = sum(distinct_taps(tricubic, grid, pts[own]) for own in owners)
+    return bound((12 + (16 if grad else 4)) * n_own + 8 * touched,
+                 n_own * (FLOPS_K5T_POINT + 16 * FLOPS_K5T_PAIR))
+
+
+def owners_of(gs, sf, grid, pts):
+    """Each shard's ownership mask of the points (host side of the
+    bound)."""
+    from ionotomo_tpu_torch.core import tricubic
+    base = tricubic._neighborhood(grid, pts)[0][:, 0, 1]
+    return [(base >= sf.x0(s)) & (base < sf.x0(s) + sf.loc)
+            for s in range(sf.n_shards)]
+
+
+def k7_at(label, gs, kernels, tricubic, sf, grid, table, pts, gen,
+          reps=10, plain_reps=2, full=True):
+    """K7 and K7ᵀ at one point set over the shards of ``sf``: the shards'
+    K7 (value, and value + gradient) summed in shard order bitwise equal
+    to K5 on the whole table, each shard within 1e-6·max|table| of its
+    plain version; K7ᵀ of both entries into a random slab bitwise its
+    plain version and the same twice; device ms summed over the shards
+    (and per shard by CUDA events), the plain versions', the bound;
+    K7ᵀ beside ``index_add_`` of its owned entries' contributions into the
+    slab. ``full``: time the value entries too (else the gradient ones
+    only). Returns the lines by wrapper name."""
+    cuda = pts.is_cuda
+    n = pts.shape[0]
+    s_n = sf.n_shards
+    v, g = gs._eval_shards(sf, grid, pts, True)
+    vv = gs._eval_shards(sf, grid, pts, False)
+    owners = owners_of(gs, sf, grid, pts)
+    check(bool((sum(o.long() for o in owners) == 1).all()),
+          f"{label}: every one of {n} points has exactly one owner")
+    if cuda:
+        v5, g5 = kernels.cubic_value_grad(table, grid, pts)
+        check(bool(torch.equal(v, v5) and torch.equal(g, g5)
+                   and torch.equal(vv, v5)),
+              f"{label}: K7 (value; value + gradient) summed over {s_n} "
+              f"shards bitwise equal to K5 on the whole table")
+    scale = float(table.abs().max())
+    errs = {"cubic_sharded_value": 0.0, "cubic_sharded_value_grad": 0.0}
+    for s in range(s_n):
+        rv, rg = gs.sharded_value_grad_ref(sf.slab2d(s), grid, sf.x0(s),
+                                           sf.loc, pts)
+        kv, kg = gs._shard_eval(sf.slab2d(s), grid, sf.x0(s), sf.loc, pts,
+                                True)
+        kvv = gs._shard_eval(sf.slab2d(s), grid, sf.x0(s), sf.loc, pts,
+                             False)
+        errs["cubic_sharded_value"] = max(errs["cubic_sharded_value"],
+                                          float((kvv - rv).abs().max()))
+        errs["cubic_sharded_value_grad"] = max(
+            errs["cubic_sharded_value_grad"], float((kv - rv).abs().max()),
+            float((kg - rg).abs().max()) * float(grid.spacing.min()))
+        del rv, rg, kv, kg, kvv
+    for name, e in errs.items():
+        check(e <= 1e-6 * scale, f"{label}: {name} per shard within "
+                                 f"1e-6*max|table| of its plain version "
+                                 f"({e:.3e})")
+    plans = [gs.sharded_plan(grid, pts, sf.x0(s), sf.loc)
+             for s in range(s_n)]
+    cv = torch.randn(n, generator=gen, device=pts.device)
+    cg = torch.randn((n, 3), generator=gen, device=pts.device)
+    slabs = [torch.randn(p.slab_cells, generator=gen, device=pts.device)
+             for p in plans]
+    for grad, name in ((False, "cubic_sharded_value_bwd"),
+                       (True, "cubic_sharded_value_grad_bwd")):
+        c = cg if grad else None
+        same = True
+        for p, base in zip(plans, slabs):
+            a = gs._shard_transpose_add_(base.clone(), p, grid, cv, c)
+            b = gs._shard_transpose_add_(base.clone(), p, grid, cv, c)
+            want = gs.sharded_transpose_ref(base.clone(), p, grid, cv, c)
+            same &= bool(torch.equal(a, want) and torch.equal(a, b))
+        check(same, f"{label}: {name} into a random slab bitwise its plain "
+                    f"version at all {s_n} shards, and twice alike")
+    lines = {}
+    if not cuda:
+        return lines
+    cells = [torch.repeat_interleave(p.cells.long(),
+                                     (p.starts[1:] - p.starts[:-1]).long())
+             for p in plans]
+    running = [s.clone() for s in slabs]
+    kinds = [("cubic_sharded_value_grad", True, False),
+             ("cubic_sharded_value_grad_bwd", True, True)]
+    if full:
+        kinds = [("cubic_sharded_value", False, False),
+                 ("cubic_sharded_value_bwd", False, True)] + kinds
+    for name, grad, bwd in kinds:
+        if not bwd:
+            fn = getattr(kernels, name)
+
+            def one(s, fn=fn):
+                return fn(sf.slab2d(s), grid, sf.x0(s), sf.loc, pts)
+
+            def plain_one(s, grad=grad):
+                ref = (gs.sharded_value_grad_ref if grad
+                       else gs.sharded_value_ref)
+                return ref(sf.slab2d(s), grid, sf.x0(s), sf.loc, pts)
+            library = None
+            bnd = k7_bound(tricubic, grid, pts, owners, grad)
+        else:
+            c = cg if grad else None
+
+            def one(s, c=c):
+                return gs._shard_transpose_add_(running[s], plans[s], grid,
+                                                cv, c)
+
+            def plain_one(s, c=c):
+                return gs.sharded_transpose_ref(running[s].clone(), plans[s],
+                                                grid, cv, c)
+            terms = [gs._entry_terms(p, grid, cv, c) for p in plans]
+            bufs = [torch.zeros(p.slab_cells, device=pts.device)
+                    for p in plans]
+
+            def library(terms=terms, bufs=bufs):
+                for b, f, t in zip(bufs, cells, terms):
+                    b.index_add_(0, f, t)
+            bnd = k7t_bound(tricubic, grid, pts, owners, grad)
+        ms = device_ms(lambda: [one(s) for s in range(s_n)], reps)
+        per_shard = [cuda_ms(lambda s=s: one(s), reps) for s in range(s_n)]
+        plain_ms = device_ms(lambda: [plain_one(s) for s in range(s_n)],
+                             plain_reps)
+        lib_ms = device_ms(library, reps) if library is not None else None
+        b_ms, b_by = bnd
+        print(f"  {label}: {name} over {s_n} shards {ms:.4f} ms (per shard, "
+              f"CUDA events: " + ", ".join(f"{x:.4f}" for x in per_shard)
+              + f"), plain {plain_ms:.4f} ms, "
+              + (f"index_add_ {lib_ms:.4f} ms, " if lib_ms is not None
+                 else "")
+              + f"bound {b_ms:.4f} ms ({b_by})")
+        lines[name] = dict(max_abs_err=errs.get(name, 0.0), ms=ms,
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=lib_ms, ms_per_shard=per_shard,
+                           points=n, shards=s_n)
+    return lines
+
+
+@contextlib.contextmanager
+def planted_fault(kind):
+    """A control: the multi-device layer with one fault planted (one of
+    ``FAULTS``), so that a comparison's limit can be shown to fail a wrong
+    shard."""
+    from ionotomo_tpu_torch.parallel import grid_sharding as gs
+    from ionotomo_tpu_torch.parallel import sharding as sm
+
+    saved = {(sm, "psum"): sm.psum, (gs, "psum"): gs.psum,
+             (sm, "_cat_rays"): sm._cat_rays}
+    if kind == "dropped_shard":
+        def psum(tensors, device=None, orig=sm.psum):
+            tensors = list(tensors)
+            return orig(tensors[1:] or tensors, device)
+        sm.psum = gs.psum = psum
+    elif kind == "swapped_gather":
+        def cat(xs, device, orig=sm._cat_rays):
+            xs = list(xs)
+            xs[0], xs[1] = xs[1], xs[0]
+            return orig(xs, device)
+        sm._cat_rays = cat
+    else:
+        raise ValueError(kind)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def control(out, label, sound, limit, reading, kinds=FAULTS):
+    """The two readings of one limit: the sound run's (``sound``, checked
+    by the caller) and, for each planted fault, ``reading()`` under it,
+    which must exceed the limit. Records both in ``out["controls"]``."""
+    faults = {}
+    for kind in kinds:
+        with planted_fault(kind):
+            try:
+                faults[kind] = float(reading())
+            except Exception as exc:    # a fault may also break the solve
+                print(f"  {label} under {kind}: {type(exc).__name__}: {exc}")
+                faults[kind] = float("inf")
+    # a NaN fails the limit as it fails the sound run's check
+    check(sound <= limit and not any(v <= limit for v in faults.values()),
+          f"{label}: the limit {limit:g} lies between the sound run's "
+          f"reading {sound:.3e} and the planted faults' ("
+          + ", ".join(f"{k} {v:.3e}" for k, v in faults.items()) + ")")
+    out.setdefault("controls", {})[label] = dict(sound=sound, limit=limit,
+                                                 faults=faults)
+
+
+def sharded_reading(got, want, prior, heldout):
+    """A sharded solve against the unsharded one as phase 16 holds the
+    card to the CPU: the relative L2 of the difference over the unsharded
+    update, and (with ``heldout``, a field's held-out dTEC rms) the
+    relative difference of the held-out rms."""
+    from ionotomo_tpu_torch.device import host
+
+    g, w, p = host(got), host(want), host(prior)
+    rel = float(np.linalg.norm((g - w).astype(np.float64))
+                / np.linalg.norm((w - p).astype(np.float64)))
+    if heldout is None:
+        return rel, 0.0
+    hg, hw = heldout(got), heldout(want)
+    return rel, abs(hg - hw) / hw if hw else 0.0
+
+
+def phase18_sharded(dev, kernels, results, small=False):
+    """The multi-device layer (``parallel/``) at full width with its S
+    shards in turn on one card (an arithmetic check, not a multi-card
+    speed; ``small``: a CPU rehearsal at toy sizes, the kernels' checks
+    left out):
+
+    1. K7 and K7ᵀ at config 4's 256³ world over 8 shards (its 650,000
+       bundle points, its 20,000 endpoints), at 917,504 edge-case points
+       (shard seams, the x edges, outside) and at 2²⁰ random points of a
+       512³ field: K7 summed over the shards bitwise K5, K7ᵀ bitwise its
+       plain version, the halo exchange exact against slices of the field;
+       times per shard and summed, the bound, the plain versions',
+       ``index_add_``'s; the exchange's and ``psum``'s times;
+    2. the Hermite dTEC J and Jᵀ on the x-sharded grid
+       (``ShardedGridDtecLinear``) at config 4's bundle against the
+       unsharded ``PairedDtecLinear``, then 20 LSQR iterations of the
+       absolute Hermite TEC on each (the main path of K7 and K7ᵀ, its
+       launches counted);
+    3. ``trace_rays_sharded`` (cubic leapfrog) bitwise against the plain
+       integrator over K5 and against K1c: config 2's 6,200 rays @128,
+       262,144 rays @64, and 6,200 rays on a 2 × 4 grid × ray mesh;
+    4. the ray mesh (4 shards, 62 antennas padded to 64): phase 16's
+       snapshot solve and config 5's first chunk through the
+       mixed-fidelity wind-adaptive filter, each against the unsharded
+       one on the same padded rays (within 3e-5 of max|m| at the
+       reference dry run's schedule; at the production schedule as phase
+       16 holds the card to the CPU) and bitwise across two calls;
+    5. ``member_parallel_enkf`` on config 5's ensemble (8 members, 6
+       epochs) over 2 and 8 groups against the unsharded filter;
+    6. ``InversionPipeline`` with ``mesh=`` in the kalman and the
+       member-parallel enkf modes against the pipeline without one."""
+    from ionotomo_tpu_torch import configs
+    from ionotomo_tpu_torch.core import linalg, tricubic
+    from ionotomo_tpu_torch.core.grids import Grid3D
+    from ionotomo_tpu_torch.forward import tec
+    from ionotomo_tpu_torch.geometry import fermat, rays
+    from ionotomo_tpu_torch.device import host
+    from ionotomo_tpu_torch.inversion import kalman, solvers
+    from ionotomo_tpu_torch.inversion.pipeline import InversionPipeline
+    from ionotomo_tpu_torch.models import chapman
+    from ionotomo_tpu_torch.parallel import grid_sharding as gs
+    from ionotomo_tpu_torch.parallel import sharding as sm
+    from ionotomo_tpu_torch.testing import edge_case_points
+
+    cuda = dev.type == "cuda"
+    card = card_line() if cuda else "cpu"
+
+    def clock(fn):
+        """(fn(), host seconds) on the card; (fn(), 0.0) in a rehearsal."""
+        return timed(fn) if cuda else (fn(), 0.0)
+
+    print(f"phase 18: the multi-device layer, shards in turn on one device "
+          f"({card}; arithmetic, not a multi-card speed)")
+    out = {"card": card, "at": {}}
+    gen = torch.Generator(device=dev).manual_seed(18)
+    mesh8 = gs.grid_mesh([dev] * GRID_SHARDS)
+    t0 = time.perf_counter()
+
+    # 1. K7 and K7ᵀ at their shapes
+    shape4 = (32, 32, 32) if small else (256, 256, 256)
+    w4 = configs.config4_world(
+        shape=shape4, device=dev,
+        **(dict(n_ants=10, n_dirs=10, n_modes=16, trace_steps=32)
+           if small else {}))
+    grid4 = w4.grid
+    print(f"  config 4's world {shape4}: {w4.rays.num_rays} rays x "
+          f"{w4.rays.num_samples} samples ({time.perf_counter() - t0:.2f} s)")
+    sf4 = gs.shard_field(mesh8, w4.m_prior)
+    loc = sf4.loc
+    ring = torch.cat([w4.m_prior[-2:], w4.m_prior, w4.m_prior[:2]])
+    check(all(torch.equal(sf4.ext[s], ring[s * loc:s * loc + loc + 4])
+              for s in range(GRID_SHARDS)),
+          f"halo exchange over {GRID_SHARDS} shards (loc {loc}) exact "
+          f"against slices of the field, the ring wrapped at the edges")
+    table4 = w4.m_prior.reshape(-1, shape4[2])
+    pts4 = w4.rays.points.reshape(-1, 3)
+    ends4, _ = tec._endpoint_tangents(w4.rays.points)
+    if cuda:
+        out["halo_exchange_ms"] = cuda_ms(lambda: gs._exchange_halos(sf4),
+                                          20)
+        outs = [gs._shard_eval(sf4.slab2d(s), grid4, sf4.x0(s), loc, pts4,
+                               True) for s in range(GRID_SHARDS)]
+        out["psum_ms"] = cuda_ms(lambda: (sm.psum([o[0] for o in outs]),
+                                          sm.psum([o[1] for o in outs])), 20)
+        print(f"  halo exchange {out['halo_exchange_ms']:.4f} ms, psum of the "
+              f"8 shards' K7 outputs at {pts4.shape[0]} points "
+              f"{out['psum_ms']:.4f} ms (CUDA events)")
+        del outs
+    out["at"]["config4_points"] = k7_at(
+        f"config 4's {pts4.shape[0]} bundle points", gs, kernels, tricubic,
+        sf4, grid4, table4, pts4, gen)
+    out["at"]["config4_ends"] = k7_at(
+        f"config 4's {ends4.shape[0]} endpoints", gs, kernels, tricubic, sf4,
+        grid4, table4, ends4, gen)
+    rng = np.random.default_rng(18)
+    o4, s4 = grid4.origin.cpu().numpy(), grid4.spacing.cpu().numpy()
+    edge = edge_case_points(shape4, o4, s4, 4096 if small else 1 << 20,
+                            rng)                          # 917,504 points
+    # the first of its uniform points moved onto every x-plane (every
+    # shard seam among them) and beyond both x edges
+    xs = np.concatenate([np.repeat(o4[0] + s4[0] * np.arange(shape4[0]), 2),
+                         [o4[0] - 100.0, o4[0] + s4[0] * shape4[0] + 100.0]])
+    edge[:xs.shape[0], 0] = xs
+    edge = torch.from_numpy(edge).to(dev)
+    n_edge = edge.shape[0]
+    out["at"]["edge"] = k7_at(f"{n_edge} edge-case points of {shape4} (on "
+                              f"every x-plane, outside the grid)", gs,
+                              kernels, tricubic, sf4, grid4, table4, edge,
+                              gen, full=False)
+    del edge
+    shape5 = (64, 64, 64) if small else (512, 512, 512)
+    grid5 = Grid3D.from_bounds((-400.0, -400.0, 0.0), (400.0, 400.0, 1100.0),
+                               shape5, device=dev)
+    f5 = torch.randn(shape5, generator=gen, device=dev)
+    sf5 = gs.shard_field(mesh8, f5)
+    n_rand = 4096 if small else 1 << 20
+    lo, hi = grid5.origin - 30.0, grid5.upper() + 30.0
+    rnd = lo + (hi - lo) * torch.rand((n_rand, 3), generator=gen, device=dev)
+    out["at"]["random_512"] = k7_at(
+        f"{n_rand} random points of a {shape5} field", gs, kernels,
+        tricubic, sf5, grid5, f5.reshape(-1, shape5[2]), rnd, gen,
+        full=False)
+    del sf5, f5, rnd
+    torch.cuda.empty_cache() if cuda else None
+    print(f"  [K7 and K7ᵀ: {time.perf_counter() - t0:.1f} s]")
+
+    # 2. J, Jᵀ and LSQR on the x-sharded grid against the unsharded operator
+    t1 = time.perf_counter()
+    # linearised about the truth: about the horizontally uniform Chapman
+    # prior the paired dTEC is a near-cancellation (~0), against which no
+    # relative bound means anything
+    op_sh = gs.ShardedGridDtecLinear(mesh8, gs.shard_field(mesh8, w4.m_true),
+                                     grid4, w4.rays, w4.n_dirs, 0)
+    op_un = tec.dtec_paired_linear(w4.m_true, grid4, w4.rays, w4.n_dirs, 0,
+                                   "hermite", "cubic")
+    v = torch.randn(shape4, generator=gen, device=dev)
+    y = torch.randn(op_un.g0.shape, generator=gen, device=dev)
+    for what, a, b, lim in (("g0", op_sh.g0, op_un.g0, 3e-6),
+                            ("J", op_sh.apply(v), op_un.apply(v), 3e-6),
+                            ("Jᵀ", op_sh.apply_t(y), op_un.apply_t(y),
+                             2e-5)):
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        check(err <= lim, f"sharded-grid Hermite dTEC {what} within {lim:g} "
+                          f"of max|unsharded| ({err:.3e})")
+        out[f"grid_{what}_rel_err"] = err
+    # the reference test's solve: the absolute-TEC operator (here the
+    # Hermite one, whose endpoint terms run K7's gradient entries) and a
+    # right-hand side of a 2 % excess over its own forward, the same for
+    # both; the paired operator's near-cancellations make its 20-step
+    # LSQR amplify f32 differences past the bound
+    op_sh = gs.ShardedGridDtecLinear(mesh8, op_sh.sf, grid4, w4.rays,
+                                     None, None)
+    op_un = tec.tec_linear_op(w4.m_true, grid4, w4.rays, "hermite", "cubic")
+    r_sh = r_un = 0.02 * op_un.g0
+    zeros = torch.zeros(grid4.num_voxels, device=dev)
+
+    def lsqr(op, r):
+        return linalg.lsqr(lambda x: op.apply(x.reshape(shape4)),
+                           lambda z: op.apply_t(z).reshape(-1), r, zeros,
+                           damp=1e-3, max_iters=20)[0]
+
+    if cuda:
+        kernels.reset_launches()
+    dm_sh, secs_sh = clock(lambda: lsqr(op_sh, r_sh))
+    launches = dict(kernels.launches) if cuda else {}
+    if cuda:
+        for name in K7_KERNELS:
+            check(launches[name] > 0, f"{name} launched in the sharded-grid "
+                                      f"LSQR ({launches[name]} times)")
+    dm_un, secs_un = clock(lambda: lsqr(op_un, r_un))
+    err = float((dm_sh - dm_un).abs().max())
+    scale = float(dm_un.abs().max())
+    check(err < 2e-3 * scale, f"LSQR (20 iterations) on the x-sharded grid "
+                              f"within 2e-3 of max|dm| of the unsharded one "
+                              f"({err:.3e} / {scale:.3e})")
+    control(out, "grid_lsqr", err / scale, 2e-3,
+            lambda: float((lsqr(op_sh, r_sh) - dm_un).abs().max()) / scale,
+            ("dropped_shard",))
+    out["lsqr"] = dict(seconds_sharded=secs_sh, seconds_unsharded=secs_un,
+                       err=err, scale=scale)
+    out["launches"] = {k: launches.get(k, 0) for k in K7_KERNELS}
+    if cuda:
+        out["apply_ms"] = {
+            "J_sharded": cuda_ms(lambda: op_sh.apply(v), 5),
+            "J_unsharded": cuda_ms(lambda: op_un.apply(v), 5),
+            "Jt_sharded": cuda_ms(lambda: op_sh.apply_t(y), 5),
+            "Jt_unsharded": cuda_ms(lambda: op_un.apply_t(y), 5)}
+    print(f"  sharded-grid LSQR {secs_sh:.3f} s against {secs_un:.3f} s "
+          f"unsharded (host clock); launches {out['launches']}; J/Jᵀ ms "
+          f"{out.get('apply_ms')}")
+    del op_sh, op_un, dm_sh, dm_un, v, y, sf4, w4
+    torch.cuda.empty_cache() if cuda else None
+    print(f"  [J, Jᵀ, LSQR: {time.perf_counter() - t1:.1f} s]")
+
+    # 3. the sharded tracer
+    t1 = time.perf_counter()
+    shape2 = (32, 32, 32) if small else (128, 128, 128)
+    grid2 = Grid3D.from_bounds((-400, -400, 0.0), (400, 400, 1100.0), shape2,
+                               device=dev)
+    m2 = chapman.log_parametrize(chapman.chapman_field(grid2)).contiguous()
+    table2 = m2.reshape(-1, shape2[2])
+    sf2 = gs.shard_field(mesh8, m2)
+    mesh24 = gs.grid_ray_mesh(2, 4, [dev] * 8)
+    sf24 = gs.shard_field(mesh24, m2)
+    out["trace"] = {}
+    cases = (("config2_6200@128", configs.make_rays(62, 100), 128, mesh8,
+              sf2, False),
+             ("262144@64", configs.make_rays(512, 512), 64, mesh8, sf2,
+              False),
+             ("grid2_x_rays4_6200@128", configs.make_rays(62, 100), 128,
+              mesh24, sf24, True))
+    for name, (ants, dirs), steps, mesh, sf, by_rays in cases:
+        if small:
+            ants, dirs, steps = ants[:8], dirs[:4], 8
+        o, d = rays.make_ray_batch(torch.from_numpy(ants).to(dev),
+                                   torch.from_numpy(dirs).to(dev))
+        kw = dict(keep_path=False, method="leapfrog")
+        sh, s_sh = clock(lambda: gs.trace_rays_sharded(
+            mesh, sf, grid2, o, d, FREQ_HZ, LENGTH_KM, n_steps=steps,
+            rays_sharded=by_rays, **kw))
+
+        def whole(x):       # K5, or in a rehearsal its twin in K5's order
+            if x.is_cuda:
+                return kernels.cubic_value_grad(table2, grid2, x)
+            return tricubic.interp_rows_with_grad_taps_ref(table2, grid2, x)
+        k5, s_k5 = clock(lambda: fermat._trace_impl(
+            fermat.log_field_ne_vg(whole), o, d, FREQ_HZ, LENGTH_KM, steps,
+            False, "leapfrog"))
+        check(bool(torch.equal(sh[0].points, k5[0].points)
+                   and torch.equal(sh[1], k5[1])),
+              f"trace_rays_sharded {name} ({o.shape[0]} rays) bitwise the "
+              f"plain integrator over "
+              + ("K5" if cuda else "the plain evaluator"))
+        k1c, s_k1c = clock(lambda: fermat.trace_rays(
+            m2, grid2, o, d, FREQ_HZ, LENGTH_KM, n_steps=steps, **kw))
+        err_x, err_t = check_against_plain(f"K1c against the sharded trace "
+                                           f"{name}", k1c, sh)
+        out["trace"][name] = dict(rays=o.shape[0], steps=steps,
+                                  seconds_sharded=s_sh, seconds_k5=s_k5,
+                                  seconds_k1c=s_k1c, k1c_err_x=err_x,
+                                  k1c_err_tau=err_t)
+        print(f"  trace {name}: sharded {s_sh:.3f} s, over K5 {s_k5:.3f} s, "
+              f"K1c {s_k1c:.4f} s (host clock)")
+    del sf2, sf24, m2
+    print(f"  [traces: {time.perf_counter() - t1:.1f} s]")
+
+    # 4a. the ray mesh: phase 16's snapshot solve
+    t1 = time.perf_counter()
+    if small:
+        from ionotomo_tpu_torch.data import synth
+        dp, truth = synth.generate_example_datapack(
+            n_antennas=6, n_directions=4, n_times=3, grid_shape=(16, 16, 16),
+            device=dev)
+        dp.wind_kmps = truth["wind_kmps"]
+        truth = None
+    else:
+        dp, truth = invert_world(dev)
+    sub = dp.select(times=[0])
+    sub.wind_kmps = dp.wind_kmps
+    mesh4 = sm.ray_mesh([dev] * RAY_SHARDS)
+    cfg = invert_config("sharded", shape=(16,) * 3 if small else None)
+    pipe = InversionPipeline(sub, cfg, device=dev, mesh=mesh4)
+    nd = pipe.directions.shape[1]
+    ants, d_t, noise, na = pipe._padded_data(0)
+    rb = pipe.rays_for_time(0, antennas=ants)
+    srb = pipe._shard(rb)
+    check(ants.shape[0] % RAY_SHARDS == 0 and ants.shape[0] >= na,
+          f"{na} antennas padded to {ants.shape[0]} for {RAY_SHARDS} shards")
+
+    def solve(bundle, **sched):
+        if not sched:                   # the invert CLI's: gn 2, cg 40
+            return pipe._solve_once(bundle, d_t, noise, pipe.m_prior, nd).m
+        return solvers.map_gauss_newton(
+            pipe.grid, bundle, d_t, noise, pipe.m_prior, pipe.cov,
+            num_directions=nd, i0=pipe.i0, quadrature=cfg.rays.quadrature,
+            interp=cfg.rays.interp, **sched).m
+
+    dry = dict(gn_iters=1, cg_iters=8)  # the reference dry run's schedule
+    a, b = solve(srb, **dry), solve(rb, **dry)
+    err, scale = float((a - b).abs().max()), float(b.abs().max())
+    check(err <= SHARDED_SOLVE_LIMIT * scale,
+          f"the ray-sharded snapshot solve at the reference dry run's "
+          f"schedule (gn 1, cg 8) within {SHARDED_SOLVE_LIMIT:g} of max|m| "
+          f"of the unsharded one on the same padded problem ({err:.3e} / "
+          f"{scale:.3e})")
+    control(out, "snapshot_dry", err / scale, SHARDED_SOLVE_LIMIT,
+            lambda: float((solve(srb, **dry) - b).abs().max()) / scale)
+    m_a, s_a = clock(lambda: solve(srb))
+    m_b = solve(srb)
+    check(bool(torch.equal(m_a, m_b)), "the ray-sharded snapshot solve is "
+                                       "bitwise the same across two calls")
+    m_u, s_u = clock(lambda: solve(rb))
+    rel, dh = sharded_reading(m_a, m_u, pipe.m_prior,
+                              lambda m: invert_heldout(
+                                  host(m), pipe.grid, truth, 0, cfg)
+                              if truth is not None else 0.0)
+    check(rel <= INVERT_FIELD_LIMIT and dh <= INVERT_HELDOUT_LIMIT,
+          f"at the invert CLI's schedule (gn 2, cg 40) the ray-sharded "
+          f"solve against the unsharded one as phase 16 holds the card to "
+          f"the CPU: field within {INVERT_FIELD_LIMIT:.0e} of the update "
+          f"({rel:.3e}), held-out rms within {INVERT_HELDOUT_LIMIT:.0e} "
+          f"({dh:.3e})")
+    control(out, "snapshot_cli", rel, INVERT_FIELD_LIMIT,
+            lambda: sharded_reading(solve(srb), m_u, pipe.m_prior, None)[0])
+    out["snapshot"] = dict(seconds_sharded=s_a, seconds_unsharded=s_u,
+                           dry_err=err, dry_scale=scale, rel_update=rel,
+                           heldout_rel=dh, antennas=na,
+                           padded=int(ants.shape[0]))
+    if cuda:        # what the ray-sharded Jᵀ adds: one table a shard
+        tables = [torch.randn(pipe.grid.shape, generator=gen, device=dev)
+                  for _ in range(RAY_SHARDS)]
+        out["snapshot"]["table_psum_ms"] = cuda_ms(lambda: sm.psum(tables),
+                                                   20)
+        del tables
+    print(f"  snapshot solve on {RAY_SHARDS} ray shards {s_a:.3f} s against "
+          f"{s_u:.3f} s unsharded (host clock); the psum of {RAY_SHARDS} "
+          f"Jᵀ tables {out['snapshot'].get('table_psum_ms', 0.0):.4f} ms "
+          f"(CUDA events)")
+    del pipe, srb, rb
+    print(f"  [snapshot: {time.perf_counter() - t1:.1f} s]")
+
+    # 4b, 5: config 5's world
+    t1 = time.perf_counter()
+    w5 = configs.config5_world(
+        device=dev, **(dict(shape=(16, 16, 16), n_ants=8, n_dirs=6, nt=6,
+                            n_modes=16, trace_steps=16, heldout=(3, 4, 99))
+                       if small else {}))
+    n_steps = 6
+
+    def seq(b):
+        return configs._expand_steps(b, n_steps)
+
+    def sm_steps(rs, steps):
+        """The first ``steps`` steps of a stacked (sharded) bundle."""
+        if isinstance(rs, sm.ShardedRayBundle):
+            return rs.map(lambda b: rays.RayBundle(b.points[:steps],
+                                                   b.ds[:steps]))
+        return rays.RayBundle(rs.points[:steps], rs.ds[:steps])
+
+    srs = sm.shard_rays(mesh4, seq(w5.rays), ray_axis=1)
+    srs_in = sm.shard_rays(mesh4, seq(w5.rays_inner), ray_axis=1)
+
+    def kf(rs, rs_in, steps=n_steps, **sched):
+        kw = {"cg_iters": 10, **sched}
+        return kalman.kalman_filter(
+            w5.grid, sm_steps(rs, steps), w5.d_seq[:steps], w5.noise,
+            w5.m_bg, w5.cov, w5.wind, w5.dt_s, num_directions=w5.n_dirs,
+            rays_inner_seq=sm_steps(rs_in, steps), interp="zp",
+            wind_adapt_iters=1, **kw).m_seq
+
+    # the reference dry run's filter: 2 steps, cg 4, fade 0.9
+    dry = dict(steps=2, cg_iters=4, fade=0.9)
+    a = kf(srs, srs_in, **dry)
+    b = kf(seq(w5.rays), seq(w5.rays_inner), **dry)
+    err, scale = float((a - b).abs().max()), float(b.abs().max())
+    check(err <= SHARDED_SOLVE_LIMIT * scale,
+          f"the mixed-fidelity wind-adaptive filter at the reference dry "
+          f"run's schedule (2 steps, cg 4) on {RAY_SHARDS} ray shards within "
+          f"{SHARDED_SOLVE_LIMIT:g} of max|m| of the unsharded one "
+          f"({err:.3e} / {scale:.3e})")
+    control(out, "filter_dry", err / scale, SHARDED_SOLVE_LIMIT,
+            lambda: float((kf(srs, srs_in, **dry) - b).abs().max()) / scale)
+    k_a, s_a = clock(lambda: kf(srs, srs_in))
+    check(bool(torch.equal(k_a, kf(srs, srs_in))),
+          "the ray-sharded filter is bitwise the same across two calls")
+    k_u, s_u = clock(lambda: kf(seq(w5.rays), seq(w5.rays_inner)))
+    rel, _ = sharded_reading(k_a, k_u, w5.m_bg[None], None)
+    check(rel <= SHARDED_FILTER_LIMIT,
+          f"config 5's first chunk ({n_steps} steps, cg 10, mixed fidelity, "
+          f"wind adaptation) on {RAY_SHARDS} ray shards within "
+          f"{SHARDED_FILTER_LIMIT:.0e} of the update of the unsharded filter "
+          f"({rel:.3e})")
+    control(out, "filter_chunk", rel, SHARDED_FILTER_LIMIT,
+            lambda: sharded_reading(kf(srs, srs_in), k_u, w5.m_bg[None],
+                                    None)[0])
+    out["kalman"] = dict(seconds_sharded=s_a, seconds_unsharded=s_u,
+                         dry_err=err, dry_scale=scale, rel_update=rel)
+    print(f"  filter on {RAY_SHARDS} ray shards {s_a:.3f} s against "
+          f"{s_u:.3f} s unsharded (host clock)")
+
+    # 5. the member-parallel ensemble
+    b = B_MEMBERS
+    init, obs = configs.enkf_noise(w5, b, n_steps, seed=0)
+    en_kw = dict(num_directions=w5.n_dirs, cg_iters=10, interp="zp",
+                 n_members=b, obs_noise=obs, m_clim=w5.m_bg,
+                 rays_inner_seq=seq(w5.rays_inner))
+    ens0 = kalman.initial_ensemble(w5.grid, w5.cov, w5.m_bg, init)
+    args = (w5.grid, seq(w5.rays), w5.d_seq[:n_steps], w5.noise, w5.m_bg,
+            w5.cov, w5.wind, w5.dt_s)
+    base, s_base = clock(lambda: kalman.ensemble_kalman_filter(
+        *args, ens0=ens0, **en_kw))
+    scale = float((base.ensemble - w5.m_bg[None]).abs().max())
+    out["enkf"] = {}
+    for groups in (2, 8):
+        mesh = sm.member_mesh([dev] * groups)
+        if cuda:
+            kernels.reset_launches()
+        res, secs = clock(lambda: kalman.member_parallel_enkf(
+            mesh, *args, ens0=sm.member_sharding(mesh)(ens0), **en_kw))
+        got = dict(kernels.launches) if cuda else {}
+        if cuda:
+            for k in ("rows_value_fwd_batched", "rows_value_bwd_batched",
+                      "pack_members"):
+                check(got[k] > 0, f"{k} launched by the {groups} groups of "
+                                  f"{b // groups} ({got[k]} times)")
+        def reading(res):
+            """The largest difference from the unsharded filter, over
+            max(the ensemble's departure, 1)."""
+            return max(float((getattr(res, k) if k != "ensemble"
+                              else res.ensemble.gather()).sub(
+                                  getattr(base, k)).abs().max())
+                       for k in ("mean_seq", "std_seq", "ensemble")
+                       ) / max(scale, 1.0)
+        err = reading(res)
+        check(err < 2e-3, f"member_parallel_enkf over {groups} groups "
+                          f"within 2e-3 of the ensemble's departure "
+                          f"{scale:.3e} of the unsharded filter ({err:.3e})")
+        if groups == 2:
+            control(out, "enkf_members", err, 2e-3,
+                    lambda: reading(kalman.member_parallel_enkf(
+                        mesh, *args, ens0=sm.member_sharding(mesh)(ens0),
+                        **en_kw)), ("dropped_shard",))
+        out["enkf"][f"groups_{groups}"] = dict(seconds=secs, err=err,
+                                               launches=got)
+        print(f"  member_parallel_enkf over {groups} groups of {b // groups} "
+              f"{secs:.3f} s against {s_base:.3f} s unsharded (host clock)")
+    out["enkf"]["seconds_unsharded"] = s_base
+    if cuda:
+        # the shapes the 8 groups of 1 give K2b, K3b, the pack and the
+        # fold: config 5's two bundles at B = 1, held against the plain
+        # versions (their launches are the 8-group run's)
+        rng = np.random.default_rng(181)
+        nx, ny, nz = w5.grid.shape
+        out["enkf"]["at_b1"] = {}
+        for name, rb in (("outer", w5.rays), ("inner", w5.rays_inner)):
+            geo = tec.DtecGeometry(w5.grid, rb, w5.n_dirs, 0, "hermite",
+                                   "zp")
+            out["enkf"]["at_b1"][f"zp@{geo.ri.shape[0]}"] = member_kernels_at(
+                f"config 5's {name} bundle, B = 1", dev, tricubic, kernels,
+                (geo.ri, geo.wxy, geo.zi, geo.wz), geo.row_plan, nx * ny, nz,
+                True, rng, layout=rb is w5.rays, b=1)
+            del geo
+    del w5, base
+    torch.cuda.empty_cache() if cuda else None
+    print(f"  [config 5 on meshes: {time.perf_counter() - t1:.1f} s]")
+
+    # 6. the pipeline with mesh=
+    t1 = time.perf_counter()
+    sub3 = dp.select(times=[0, 1, 2])
+    sub3.wind_kmps = dp.wind_kmps
+    mesh2 = sm.ray_mesh([dev] * PIPE_SHARDS)
+    out["pipeline"] = {}
+    for mode, argv, kinds in (
+            ("kalman", ("--solver", "kalman", "--kalman-chunk", "3"), FAULTS),
+            ("enkf_members", ("--solver", "enkf", "--enkf-shard",
+                              "members", "--kalman-chunk", "3"),
+             ("dropped_shard",))):
+        sols, secs = [], []
+
+        def run(tag, mesh):
+            c = invert_config(f"pipe_{mode}_{tag}", *argv,
+                              shape=(16,) * 3 if small else None)
+            p = InversionPipeline(sub3, c, device=dev, mesh=mesh)
+            return clock(lambda: p.run(resume=False)), p
+
+        for tag, mesh in (("mesh", mesh2), ("none", None)):
+            (sol, s), p = run(tag, mesh)
+            sols.append(sol)
+            secs.append(s)
+        prior = p.m_prior.cpu().numpy()
+        delta = float(np.abs(sols[1].m - prior).max())
+        diff = float(np.abs(sols[0].m - sols[1].m).max())
+        check(diff < SHARDED_PIPE_LIMIT * delta
+              and np.isfinite(sols[0].m).all(),
+              f"the pipeline in {mode} mode on a {PIPE_SHARDS}-device mesh "
+              f"within {SHARDED_PIPE_LIMIT:g} of the departure of the "
+              f"meshless run ({diff:.3e} / {delta:.3e})")
+        control(out, f"pipeline_{mode}", diff / delta, SHARDED_PIPE_LIMIT,
+                lambda: float(np.abs(run("fault", mesh2)[0][0].m
+                                     - sols[1].m).max()) / delta, kinds)
+        out["pipeline"][mode] = dict(seconds_mesh=secs[0],
+                                     seconds_none=secs[1], diff=diff,
+                                     delta=delta)
+        print(f"  pipeline {mode}: with the mesh {secs[0]:.2f} s, without "
+              f"{secs[1]:.2f} s (host clock)")
+    print(f"  [pipelines: {time.perf_counter() - t1:.1f} s]")
+    results["sharded"] = out
+    return out
+
+
+def sharded_only() -> int:
+    """``--sharded``: the build and phase 18 alone (the multi-device layer
+    with its shards on the one card)."""
+    from ionotomo_tpu_torch import kernels
+    from ionotomo_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    print(f"card: {card_line()}")
+    info = build.build()
+    print(f"  built={info['built']} in {info['seconds']:.2f} s")
+    for line in info["log"].splitlines():
+        if "sharded" in line and ("registers" in line or "spill" in line):
+            print(f"  ptxas: {line.strip()}")
+    build.load()
+    lap = Laps()
+    results = {}
+    phase18_sharded(dev, kernels, results)
+    lap("phase18_sharded")
+    main, at = sharded_kernel_entries(results)
+    print(json.dumps({"kernels": main, "kernels_at_sharded": at}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def sharded_kernel_entries(results):
+    """(rows, rows at other shapes) of K7 and K7ᵀ for the kernels line:
+    launches in the sharded-grid LSQR at config 4 (phase 18's main path),
+    error, ms (summed over the 8 shards, and per shard), bound and plain
+    ms at config 4's bundle points (the value entries) and endpoints (the
+    gradient entries), ``index_add_`` of the owned entries for K7ᵀ; the
+    other shapes are "kernels_at_sharded"."""
+    sh = results["sharded"]
+    src = "ionotomo_tpu_torch/kernels/csrc/"
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+
+    def row(name, line, shape):
+        f, rep = K7_KERNELS[name]
+        return {"name": name, "route": "cuda", "source": src + f,
+                "replaces": rep, "launches": sh["launches"][name],
+                **{k: line[k] for k in keys}, "timed_by": timed_by(line),
+                "ms_per_shard": line["ms_per_shard"],
+                "points": line["points"], "shards": line["shards"],
+                "shape": shape}
+    main = [row(name, sh["at"][shape][name], shape)
+            for name in K7_KERNELS
+            for shape in (("config4_ends",) if "grad" in name
+                          else ("config4_points",))]
+    at = [row(name, line, shape) for shape, lines in sh["at"].items()
+          for name, line in lines.items()
+          if shape != ("config4_ends" if "grad" in name
+                       else "config4_points")]
+    # K2b, K3b, the pack and the fold at the member groups' B = 1 (config
+    # 5's two bundles), with their launches in the 8-group run
+    sources = {name: (f, rep) for name, f, rep in KERNEL_ENTRIES}
+    got = sh["enkf"]["groups_8"]["launches"]
+    for shape, lines in sh["enkf"].get("at_b1", {}).items():
+        for name, line in lines.items():
+            f, rep = sources[name]
+            at.append({"name": name, "route": "cuda", "source": src + f,
+                       "replaces": rep, "launches": got.get(name, 0),
+                       **{k: line[k] for k in keys},
+                       "timed_by": timed_by(line), "shape": shape,
+                       "members": 1, "groups": 8})
+    return main, at
+
+
+#: Each kernel of the kernels line: its wrapper's name, its source in
+#: ionotomo_tpu_torch/kernels/csrc and the reference line it replaces.
+KERNEL_ENTRIES = [
+    ("trace_leapfrog_zp", "trace_leapfrog_zp.cu",
+     "ionotomo_tpu/geometry/fermat.py:204"),
+    ("zp_value_grad", "zp_value_grad.cu",
+     "ionotomo_tpu/core/boxspline.py:253"),
+    ("zp_value_grad_batched", "zp_value_grad.cu",
+     "ionotomo_tpu/core/boxspline.py:253"),
+    ("rows_value_fwd", "rows_value_fwd.cu",
+     "ionotomo_tpu/core/tricubic.py:284"),
+    ("rows_value_bwd", "rows_value_bwd.cu",
+     "ionotomo_tpu/core/tricubic.py:377"),
+    ("zp_value_grad_bwd", "zp_value_grad_bwd.cu",
+     "ionotomo_tpu/core/boxspline.py:253"),
+    ("vector_gather", "vector_gather.cu", "bench/probe_gather.py:21"),
+    ("trace_leapfrog_cubic", "trace_leapfrog_cubic.cu",
+     "ionotomo_tpu/geometry/fermat.py:204"),
+    ("pack_z_taps", "trace_leapfrog_cubic.cu",
+     "ionotomo_tpu/geometry/fermat.py:204"),
+    ("ray_order_keys", "trace_leapfrog_cubic.cu",
+     "ionotomo_tpu/geometry/fermat.py:204"),
+    ("cubic_value_grad", "cubic_value_grad.cu",
+     "ionotomo_tpu/core/tricubic.py:529"),
+    ("cubic_value_grad_bwd", "cubic_value_grad_bwd.cu",
+     "ionotomo_tpu/core/tricubic.py:529"),
+    ("rows_value_fwd_batched", "rows_value_fwd_batched.cu",
+     "ionotomo_tpu/core/tricubic.py:296"),
+    ("rows_value_bwd_batched", "rows_value_bwd_batched.cu",
+     "ionotomo_tpu/core/tricubic.py:380"),
+    ("pack_members", "rows_value_fwd_batched.cu",
+     "ionotomo_tpu/core/tricubic.py:296"),
+    ("fold_member_rows", "rows_value_bwd_batched.cu",
+     "ionotomo_tpu/core/tricubic.py:380"),
+    ("point_order_keys", "rows_value_fwd.cu",
+     "ionotomo_tpu/core/tricubic.py:284"),
+    ("permute_points", "rows_value_fwd.cu",
+     "ionotomo_tpu/core/tricubic.py:284"),
+    ("pack_zp_taps", "trace_leapfrog_zp.cu",
+     "ionotomo_tpu/geometry/fermat.py:204"),
+    ("zpc_value_grad", "zpc_value_grad.cu",
+     "ionotomo_tpu/core/zpcubic.py:108"),
+    ("zpc_value_grad_bwd", "zpc_value_grad_bwd.cu",
+     "ionotomo_tpu/core/zpcubic.py:108"),
+    ("quad_value_grad", "quad_value_grad.cu",
+     "ionotomo_tpu/core/triquadratic.py:173"),
+    ("trace_leapfrog_zpc", "trace_leapfrog_zpc.cu",
+     "ionotomo_tpu/geometry/fermat.py:204"),
+    ("trace_leapfrog_quad", "trace_leapfrog_quad.cu",
+     "ionotomo_tpu/geometry/fermat.py:204"),
+    ("trace_rk4_zp", "trace_leapfrog_zp.cu",
+     "ionotomo_tpu/geometry/fermat.py:182"),
+    ("trace_rk4_cubic", "trace_leapfrog_cubic.cu",
+     "ionotomo_tpu/geometry/fermat.py:182"),
+    ("trace_rk4_zpc", "trace_leapfrog_zpc.cu",
+     "ionotomo_tpu/geometry/fermat.py:182"),
+    ("trace_rk4_quad", "trace_leapfrog_quad.cu",
+     "ionotomo_tpu/geometry/fermat.py:182"),
+    ("trace_split", "trace_split.cu",
+     "ionotomo_tpu/geometry/fermat.py:243"),
+]
+
 def kernels_line(results) -> dict:
     """The per-kernel JSON object of a run from the phases' results."""
     from ionotomo_tpu_torch.testing import MEMBER_KERNELS
@@ -7490,65 +8390,7 @@ def kernels_line(results) -> dict:
                              "trace_leapfrog_quad", "trace_rk4_zp",
                              "trace_rk4_cubic", "trace_rk4_zpc",
                              "trace_rk4_quad", "trace_split")}}
-    entries = [
-        ("trace_leapfrog_zp", "trace_leapfrog_zp.cu",
-         "ionotomo_tpu/geometry/fermat.py:204"),
-        ("zp_value_grad", "zp_value_grad.cu",
-         "ionotomo_tpu/core/boxspline.py:253"),
-        ("zp_value_grad_batched", "zp_value_grad.cu",
-         "ionotomo_tpu/core/boxspline.py:253"),
-        ("rows_value_fwd", "rows_value_fwd.cu",
-         "ionotomo_tpu/core/tricubic.py:284"),
-        ("rows_value_bwd", "rows_value_bwd.cu",
-         "ionotomo_tpu/core/tricubic.py:377"),
-        ("zp_value_grad_bwd", "zp_value_grad_bwd.cu",
-         "ionotomo_tpu/core/boxspline.py:253"),
-        ("vector_gather", "vector_gather.cu", "bench/probe_gather.py:21"),
-        ("trace_leapfrog_cubic", "trace_leapfrog_cubic.cu",
-         "ionotomo_tpu/geometry/fermat.py:204"),
-        ("pack_z_taps", "trace_leapfrog_cubic.cu",
-         "ionotomo_tpu/geometry/fermat.py:204"),
-        ("ray_order_keys", "trace_leapfrog_cubic.cu",
-         "ionotomo_tpu/geometry/fermat.py:204"),
-        ("cubic_value_grad", "cubic_value_grad.cu",
-         "ionotomo_tpu/core/tricubic.py:529"),
-        ("cubic_value_grad_bwd", "cubic_value_grad_bwd.cu",
-         "ionotomo_tpu/core/tricubic.py:529"),
-        ("rows_value_fwd_batched", "rows_value_fwd_batched.cu",
-         "ionotomo_tpu/core/tricubic.py:296"),
-        ("rows_value_bwd_batched", "rows_value_bwd_batched.cu",
-         "ionotomo_tpu/core/tricubic.py:380"),
-        ("pack_members", "rows_value_fwd_batched.cu",
-         "ionotomo_tpu/core/tricubic.py:296"),
-        ("fold_member_rows", "rows_value_bwd_batched.cu",
-         "ionotomo_tpu/core/tricubic.py:380"),
-        ("point_order_keys", "rows_value_fwd.cu",
-         "ionotomo_tpu/core/tricubic.py:284"),
-        ("permute_points", "rows_value_fwd.cu",
-         "ionotomo_tpu/core/tricubic.py:284"),
-        ("pack_zp_taps", "trace_leapfrog_zp.cu",
-         "ionotomo_tpu/geometry/fermat.py:204"),
-        ("zpc_value_grad", "zpc_value_grad.cu",
-         "ionotomo_tpu/core/zpcubic.py:108"),
-        ("zpc_value_grad_bwd", "zpc_value_grad_bwd.cu",
-         "ionotomo_tpu/core/zpcubic.py:108"),
-        ("quad_value_grad", "quad_value_grad.cu",
-         "ionotomo_tpu/core/triquadratic.py:173"),
-        ("trace_leapfrog_zpc", "trace_leapfrog_zpc.cu",
-         "ionotomo_tpu/geometry/fermat.py:204"),
-        ("trace_leapfrog_quad", "trace_leapfrog_quad.cu",
-         "ionotomo_tpu/geometry/fermat.py:204"),
-        ("trace_rk4_zp", "trace_leapfrog_zp.cu",
-         "ionotomo_tpu/geometry/fermat.py:182"),
-        ("trace_rk4_cubic", "trace_leapfrog_cubic.cu",
-         "ionotomo_tpu/geometry/fermat.py:182"),
-        ("trace_rk4_zpc", "trace_leapfrog_zpc.cu",
-         "ionotomo_tpu/geometry/fermat.py:182"),
-        ("trace_rk4_quad", "trace_leapfrog_quad.cu",
-         "ionotomo_tpu/geometry/fermat.py:182"),
-        ("trace_split", "trace_split.cu",
-         "ionotomo_tpu/geometry/fermat.py:243"),
-    ]
+    entries = KERNEL_ENTRIES
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
@@ -7638,6 +8480,10 @@ def kernels_line(results) -> dict:
     kernel_list = [extra[name] if name in extra else
                    entry(name, f, rep, launches[name], results[name]["line"])
                    for name, f, rep in entries]
+    # K7 and K7ᵀ (phase 18: the x-sharded grid's main path, the LSQR at
+    # config 4 on 8 shards of the one card)
+    sharded_rows, at_sharded = sharded_kernel_entries(results)
+    kernel_list += sharded_rows
     # the service's launches (phase 15: the 110-epoch stream at the
     # defaults, counted from 0 just before it and read just after), and
     # the batch inversion's (phase 16: the default snapshot mode over its
@@ -7694,7 +8540,8 @@ def kernels_line(results) -> dict:
             "kernels_at_config4": at4, "kernels_at_member_shapes": members,
             "kernels_at_service": at_service,
             "kernels_at_invert": at_invert,
-            "kernels_at_predict": at_predict}
+            "kernels_at_predict": at_predict,
+            "kernels_at_sharded": at_sharded}
 
 
 def service_only() -> int:
@@ -7925,6 +8772,8 @@ def main() -> int:
         return invert_only(profile)
     if "--predict" in args:
         return predict_only(profile)
+    if "--sharded" in args:
+        return sharded_only()
 
     from ionotomo_tpu_torch import configs, kernels
     from ionotomo_tpu_torch.core import (boxspline, triquadratic, tricubic,
@@ -8020,6 +8869,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase17_predict(dev, kernels, results, profile=profile)
     lap("phase17_predict")
+    torch.cuda.empty_cache()
+    phase18_sharded(dev, kernels, results)
+    lap("phase18_sharded")
 
     line = kernels_line(results)
     solve, c2, c4 = results["solve"], results["config2"], results["config4"]
@@ -8083,6 +8935,17 @@ def main() -> int:
               for k, (e, r) in pv["card_vs_cpu"].items())
           + f"; screens held-out {pv['screens']['heldout']:.3f} against "
           f"{pv['screens']['heldout_mean_predictor']:.3f}")
+    sh = results["sharded"]
+    print(f"sharded ({GRID_SHARDS} grid shards, {RAY_SHARDS} ray shards, "
+          f"member groups of 2 and 8, in turn on the one card): LSQR "
+          f"{sh['lsqr']['seconds_sharded']:.3f} s against "
+          f"{sh['lsqr']['seconds_unsharded']:.3f} s; snapshot solve "
+          f"{sh['snapshot']['seconds_sharded']:.3f} s against "
+          f"{sh['snapshot']['seconds_unsharded']:.3f} s; filter chunk "
+          f"{sh['kalman']['seconds_sharded']:.3f} s against "
+          f"{sh['kalman']['seconds_unsharded']:.3f} s; ensemble over 8 "
+          f"groups {sh['enkf']['groups_8']['seconds']:.3f} s against "
+          f"{sh['enkf']['seconds_unsharded']:.3f} s (host clock)")
     print(json.dumps(line))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,9 @@ layout (``core/``, ``models/``, ``geometry/``, ``forward/``,
 ``inversion/``, ``data/``, ``utils/``, ``plotting/``) and its function
 names and signatures, with torch tensors in and out, so every counterpart
 is found by path. Nothing here imports ``jax``. The commonly used names
-are re-exported here, as the reference re-exports them, but for its
-multi-device ``parallel`` package and ``member_parallel_enkf``, which the
-port has not taken (one device); ``plotting`` is imported on its own
+are re-exported here, as the reference re-exports them, the multi-device
+``parallel`` package (``grid_sharding``, ``sharding``) and
+``member_parallel_enkf`` included; ``plotting`` is imported on its own
 (matplotlib).
 
 The hot primitives are hand-written CUDA kernels for Hopper
@@ -50,7 +50,8 @@ from .geometry.rays import (RayBundle, calc_rays,             # noqa: E402,F401
                             inner_bundle)
 from .inversion.kalman import (kalman_filter,                 # noqa: E402,F401
                                ensemble_kalman_filter,
-                               initial_ensemble)
+                               initial_ensemble,
+                               member_parallel_enkf)
 from .inversion.online import (OnlineKalman,                  # noqa: E402,F401
                                OnlineEnsembleKalman)
 from .inversion.empirical_bayes import (log_marginal_family,  # noqa: E402,F401
@@ -81,3 +82,4 @@ from .models.frozen_flow import (advect_periodic,             # noqa: E402,F401
                                  frozen_flow_sequence)
 from .models.turbulence import (turbulent_log_perturbation,   # noqa: E402,F401
                                 turbulent_realizations)
+from .parallel import grid_sharding, sharding                 # noqa: E402,F401

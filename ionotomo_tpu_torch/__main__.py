@@ -433,8 +433,10 @@ def parser() -> argparse.ArgumentParser:
                         "ported: any other value raises)")
     i.add_argument("--enkf-shard", choices=("rays", "members"),
                    default="rays",
-                   help="enkf multi-device axis: 'rays' (one device) or "
-                        "'members' (multi-GPU, not ported: raises)")
+                   help="enkf multi-device axis over the pipeline's mesh: "
+                        "'rays' (the bundles sharded) or 'members' (the "
+                        "ensemble sharded, kalman.member_parallel_enkf); "
+                        "without a mesh both run on one device")
     i.add_argument("--kalman-chunk", type=int, default=8,
                    help="kalman: timesteps per chunk / checkpoint")
     i.add_argument("--solver", default="map_gauss_newton",

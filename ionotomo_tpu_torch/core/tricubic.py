@@ -50,8 +50,11 @@ unbatched call, as the reference falls back to its vmapped plain
 implementation there; batched weights over an unbatched table (the
 reference: "rare; not a production path") raise NotImplementedError.
 
-Not ported yet: gradients with respect to the weights, and the
-reference's sharded-gather plumbing.
+Not ported yet: gradients with respect to the weights. The reference's
+sharded-gather plumbing (``_sharded_take``: the output sharding of a
+gather over sharded indices, which JAX's sharding-in-types asks for) has
+no counterpart to need: a ray-sharded operator gathers shard by shard
+over each shard's own points (``parallel.sharding``).
 """
 from __future__ import annotations
 

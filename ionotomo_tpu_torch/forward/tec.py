@@ -156,7 +156,11 @@ def dtec_paired_from_log_values(m_values: torch.Tensor, rays: RayBundle,
 
 def tec(field_m: torch.Tensor, grid: Grid3D, rays: RayBundle,
         interp: str = "cubic") -> torch.Tensor:
-    """TEC per ray, (R,), in TEC_SCALE working units (Simpson)."""
+    """TEC per ray, (R,), in TEC_SCALE working units (Simpson); over a
+    ray-sharded bundle, the sharded operator's forward."""
+    if _sharded(rays, None):
+        return _sharded_forward(field_m, grid, rays, None, None, "simpson",
+                                interp)
     m = _interp_fast(field_m, grid, rays.points.reshape(-1, 3), interp)
     return tec_from_log_values(m, rays)
 
@@ -295,7 +299,12 @@ def dtec_paired_hermite(field_m: torch.Tensor, grid: Grid3D,
 
 def dtec_paired_q(field_m, grid, rays, num_directions, i0=0,
                   quadrature: str = "simpson", interp: str = "cubic"):
-    """Paired dTEC under the named quadrature ("simpson" or "hermite")."""
+    """Paired dTEC under the named quadrature ("simpson" or "hermite");
+    over a ray-sharded bundle, the sharded operator's forward."""
+    if _sharded(rays, None):
+        return _sharded_forward(field_m, grid, rays, num_directions, i0,
+                                quadrature, interp).reshape(
+            field_m.shape[:-3] + (-1, num_directions))
     if quadrature == "hermite":
         return dtec_paired_hermite(field_m, grid, rays, num_directions, i0,
                                    interp)
@@ -389,8 +398,10 @@ class PairedDtecLinear:
     n_e at m0 on the samples and endpoints, δm_e and ∇δm_e the tangent's
     value and gradient there (E on t). What depends only on the samples
     is a ``DtecGeometry`` (built here unless given: ``geometry=``); what
-    depends on m0 (n_e, the endpoint slopes, g0) is built here. An
-    application is P, one gather or scatter and the quadrature.
+    depends on m0 (n_e, the endpoint slopes, g0) is built here (from m0's
+    table ``table0`` where the caller made it already: the shards of a
+    ray-sharded operator share one). An application is P, one gather or
+    scatter and the quadrature.
 
     **Member axis.** m0, δm and y may carry one leading axis (B, ...): the
     members of an ensemble over the shared geometry. Then R is kernel K2b
@@ -416,11 +427,12 @@ class PairedDtecLinear:
     def __init__(self, field_m0: torch.Tensor, grid: Grid3D,
                  rays: RayBundle, num_directions, i0=0,
                  quadrature: str = "hermite", interp: str = "cubic",
-                 geometry: DtecGeometry = None):
+                 geometry: DtecGeometry = None, table0=None):
         geo = geometry or DtecGeometry(grid, rays, num_directions, i0,
                                        quadrature, interp, self._plans)
         self.geometry = geo
-        table0 = geo.model.table(field_m0, grid).contiguous()
+        if table0 is None:
+            table0 = geo.model.table(field_m0, grid).contiguous()
         lead = table0.shape[:-2]
         pack = self._pack(table0)
         self.ne = constants.K_NE * torch.exp(self._rows(table0, pack))
@@ -543,17 +555,70 @@ def dtec_paired_over(field_m: torch.Tensor, geometry: DtecGeometry
     geo = geometry
     if geo.hermite:
         raise ValueError("dtec_paired_over needs a Simpson geometry")
+    if _sharded(None, geo):
+        from ..parallel.sharding import sharded_dtec_forward
+        return sharded_dtec_forward(field_m, geo)
     table = geo.model.table(field_m, geo.grid).contiguous()
     lead = table.shape[:-2]
+    ne = _ne_over(table, geo).reshape(lead + (geo.na, geo.nd, geo.n))
+    return _paired_simpson_ne(ne, geo.w, geo.rays, geo.i0).reshape(
+        lead + (-1,))
+
+
+def _ne_over(table: torch.Tensor, geo: DtecGeometry) -> torch.Tensor:
+    """n_e (..., R·N) at a geometry's samples of a (R, nz) table, or of a
+    (B, R, nz) one (one K2b launch on the card, over its member pack)."""
     batched = table.dim() == 3
     m = tricubic.rows_value(
         table, geo.ri, geo.wxy, geo.zi, geo.wz, geo.model.xy_first,
         order=None if batched else geo.point_order(),
         pack=tricubic.member_pack(table) if batched and table.is_cuda
         else None)
-    ne = constants.K_NE * torch.exp(m).reshape(lead + (geo.na, geo.nd, geo.n))
-    return _paired_simpson_ne(ne, geo.w, geo.rays, geo.i0).reshape(
-        lead + (-1,))
+    return constants.K_NE * torch.exp(m)
+
+
+def _dnds_over(table: torch.Tensor, geo: DtecGeometry) -> torch.Tensor:
+    """The path derivative n_e·(∇m·t̂) (..., 2R) at a Hermite geometry's
+    endpoints of a (R, nz) table, or member by member of a (B, R, nz)
+    one."""
+    if table.dim() == 3:
+        return torch.stack([_dnds_over(t, geo) for t in table])
+    m_e, gm_e = geo.model.rows.interp_rows_with_grad(table, geo.grid,
+                                                     geo.ends)
+    return (constants.K_NE * torch.exp(m_e)) * torch.einsum(
+        "pd,pd->p", gm_e, geo.t_hat)
+
+
+def _sharded_forward(field_m, grid, rays, num_directions, i0, quadrature,
+                     interp):
+    """The forward alone over a ray-sharded bundle, over a geometry that
+    builds no plans."""
+    from ..parallel.sharding import sharded_dtec_forward
+    return sharded_dtec_forward(field_m, dtec_geometry(
+        grid, rays, num_directions, i0, quadrature, interp, plans=False))
+
+
+def _sharded(rays, geometry) -> bool:
+    """A ray-sharded bundle (``parallel.sharding.ShardedRayBundle``) or
+    its geometry."""
+    if geometry is not None:
+        return not isinstance(geometry, DtecGeometry)
+    return not isinstance(rays, RayBundle)
+
+
+def dtec_geometry(grid: Grid3D, rays, num_directions, i0=0,
+                  quadrature: str = "hermite", interp: str = "cubic",
+                  plans: bool = True):
+    """The geometry of a bundle, keyed on its type: a ``DtecGeometry``,
+    or for a ray-sharded bundle the ``parallel.sharding.
+    ShardedDtecGeometry`` (one geometry a shard), so that no solver
+    branches on sharding."""
+    if _sharded(rays, None):
+        from ..parallel.sharding import ShardedDtecGeometry
+        return ShardedDtecGeometry(grid, rays, num_directions, i0,
+                                   quadrature, interp, plans)
+    return DtecGeometry(grid, rays, num_directions, i0, quadrature, interp,
+                        plans)
 
 
 def dtec_paired_linear(field_m0, grid, rays, num_directions, i0=0,
@@ -561,7 +626,12 @@ def dtec_paired_linear(field_m0, grid, rays, num_directions, i0=0,
                        geometry: DtecGeometry = None) -> PairedDtecLinear:
     """``dtec_paired_q`` linearised about ``field_m0`` (on CUDA kernels
     K2 and K3, or K2b and K3b for a field with a member axis, with K5 and
-    K5ᵀ on cubic, K1e and K1eᵀ on zp, K6z and K6zᵀ on zpc)."""
+    K5ᵀ on cubic, K1e and K1eᵀ on zp, K6z and K6zᵀ on zpc); over a
+    ray-sharded bundle, ``parallel.sharding.ShardedPairedDtecLinear``."""
+    if _sharded(rays, geometry):
+        from ..parallel.sharding import ShardedPairedDtecLinear
+        return ShardedPairedDtecLinear(field_m0, grid, rays, num_directions,
+                                       i0, quadrature, interp, geometry)
     return PairedDtecLinear(field_m0, grid, rays, num_directions, i0,
                             quadrature, interp, geometry)
 
@@ -608,6 +678,11 @@ def dtec_paired_linear_ref(field_m0, grid, rays, num_directions, i0=0,
                            ) -> PairedDtecLinear:
     """Plain PyTorch version of ``dtec_paired_linear``: the same operator
     built from the ``*_ref`` primitives, on any device."""
+    if _sharded(rays, geometry):
+        from ..parallel.sharding import ShardedPairedDtecLinear
+        return ShardedPairedDtecLinear(field_m0, grid, rays, num_directions,
+                                       i0, quadrature, interp, geometry,
+                                       part_cls=_PlainPairedDtecLinear)
     return _PlainPairedDtecLinear(field_m0, grid, rays, num_directions, i0,
                                   quadrature, interp, geometry)
 

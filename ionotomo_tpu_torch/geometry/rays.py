@@ -69,7 +69,11 @@ def inner_bundle(bundle: RayBundle, n_inner: int) -> RayBundle:
     """Coarse subsample of a uniformly-sampled bundle: every k-th sample,
     the endpoints kept, ds × k, for (R, N, 3) and stacked (Nt, R, N, 3)
     bundles alike (straight or bent: both are uniform in arc length).
-    Requires (N−1) divisible by (n_inner−1)."""
+    Requires (N−1) divisible by (n_inner−1). A ray-sharded bundle
+    (``parallel.sharding.ShardedRayBundle``) is subsampled shard by
+    shard."""
+    if not isinstance(bundle, RayBundle):
+        return bundle.map(lambda b: inner_bundle(b, n_inner))
     n = bundle.points.shape[-2]
     if not 1 < n_inner < n:
         raise ValueError(f"inner_bundle: need 1 < n_inner={n_inner} < "

@@ -27,9 +27,10 @@ kernels K2b and K3b.
 
 Randomness is fed in: ``anchors_from_field`` takes its unit-normal draws.
 
-Not ported: the reference's ``member_axis`` (of
-``inversion/kalman.py:member_parallel_enkf``, the member-parallel
-multi-GPU filter; ROADMAP.md Queue 1, multi-GPU).
+The reference's ``member_axis`` (its pmean of the ensemble mean inside
+``inversion/kalman.py:member_parallel_enkf``) is the square-root updates'
+``mean=``: the member-parallel filter passes each group the whole
+ensemble's mean.
 """
 from __future__ import annotations
 
@@ -237,8 +238,8 @@ def linear_map_step(grid: Grid3D, m_k: torch.Tensor, cov: GPCovariance,
 
 def _tec_linearize(grid, rays, quadrature, interp, geometry=None):
     if geometry is None:
-        geometry = tec_mod.DtecGeometry(grid, rays, None, None, quadrature,
-                                        interp)
+        geometry = tec_mod.dtec_geometry(grid, rays, None, None, quadrature,
+                                         interp)
     return lambda m: tec_mod.tec_linear_op(m, grid, rays, quadrature, interp,
                                            geometry)
 
@@ -262,7 +263,7 @@ def anchor_map_step(grid: Grid3D, m_k: torch.Tensor, cov: GPCovariance,
 
 def linear_sqrt_update(grid: Grid3D, ens: torch.Tensor, cov: GPCovariance,
                        linearize, values, inv_cd, cg_iters: int,
-                       cg_tol: float = 1e-5) -> torch.Tensor:
+                       cg_tol: float = 1e-5, mean=None) -> torch.Tensor:
     """Deterministic (square-root / ensemble-adjustment) update of an
     ensemble (B, ...) for any linearisable observation operator.
 
@@ -276,8 +277,13 @@ def linear_sqrt_update(grid: Grid3D, ens: torch.Tensor, cov: GPCovariance,
     For tiny ensembles this removes the O(1/√n) sampling noise the
     stochastic perturbed-observation update injects through K εᵢ. The
     B + 1 gain applications (the mean's and the anomalies') are one
-    batched CG. Returns the updated ensemble."""
-    m_bar = ens.mean(0)
+    batched CG. Returns the updated ensemble.
+
+    ``mean``: the whole ensemble's mean when ``ens`` is one group of a
+    member-parallel ensemble (``kalman.member_parallel_enkf``; the
+    reference's pmean under ``member_axis``): every group then linearises
+    at it and updates it alike, beside its own anomalies."""
+    m_bar = ens.mean(0) if mean is None else mean
     op = linearize(m_bar)
     d = ens - m_bar[None]
     r = torch.cat([(values - op.g0)[None], -op.apply(d)])
@@ -288,13 +294,14 @@ def linear_sqrt_update(grid: Grid3D, ens: torch.Tensor, cov: GPCovariance,
 def anchor_sqrt_update(grid: Grid3D, ens: torch.Tensor, cov: GPCovariance,
                        rays: RayBundle, values, inv_cd, cg_iters: int,
                        cg_tol: float = 1e-5, quadrature: str = "simpson",
-                       interp: str = "cubic", geometry=None) -> torch.Tensor:
+                       interp: str = "cubic", geometry=None,
+                       mean=None) -> torch.Tensor:
     """Square-root anchored ensemble update: ``linear_sqrt_update`` with
-    the absolute-TEC operator."""
+    the absolute-TEC operator (``mean``: see there)."""
     return linear_sqrt_update(grid, ens, cov,
                               _tec_linearize(grid, rays, quadrature, interp,
                                              geometry),
-                              values, inv_cd, cg_iters, cg_tol)
+                              values, inv_cd, cg_iters, cg_tol, mean)
 
 
 def _probe_setup(grid, probes, cov, interp):
@@ -341,8 +348,8 @@ def assimilate_anchors(grid: Grid3D, m_prior: torch.Tensor,
     ``m_prior`` over the Gauss-Newton steps."""
     values = anchors.values
     inv_cd = inv_variance(anchors.noise_std, values)
-    geometry = tec_mod.DtecGeometry(grid, anchors.rays, None, None,
-                                    quadrature, interp)
+    geometry = tec_mod.dtec_geometry(grid, anchors.rays, None, None,
+                                     quadrature, interp)
     m = m_prior
     for _ in range(gn_iters):
         m = anchor_map_step(grid, m, cov, anchors.rays, values, inv_cd,

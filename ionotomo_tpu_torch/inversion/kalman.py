@@ -41,13 +41,22 @@ bitwise.
 ``update_operator_eigs`` is the serving layer's spectrum diagnostic of
 the update operator, one batched application of J and Jᵀ a block.
 
+Multiple devices. Both filters take a ray-sharded bundle sequence
+(``parallel.sharding.ShardedRayBundle`` with the ray axis at 1): every
+step's geometry is then the sharded one (``tec.dtec_geometry``) and the
+operator ``parallel.sharding.ShardedPairedDtecLinear``.
+``member_parallel_enkf`` splits the ensemble into S groups, one a device
+of a member mesh, each carried end to end by its device; the ensemble's
+mean and spread (and the residual mean) are pmeans of the groups'
+moments in group order, and each group takes its rows of the globally
+drawn noise, so the sharded filter consumes the same numbers.
+
 Not ported: ``spectrum_blend`` (withdrawn in the reference: measured
-neutral; the argument raises) and the reference's
-``inversion/kalman.py:member_parallel_enkf`` with ``member_axis``
-(ROADMAP.md Queue 1, multi-GPU).
+neutral; the argument raises).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -58,6 +67,8 @@ from ..device import as_tensor
 from ..forward import tec as tec_mod
 from ..geometry.rays import RayBundle
 from ..models.frozen_flow import advect_periodic, advect_periodic_tangents
+from ..parallel.sharding import (MEMBER_AXIS, Sharded, on_device, pmean,
+                                 split)
 from .anchors import (anchor_map_step, anchor_sqrt_update, inv_variance,
                       whitened_gain)
 from .priors import GPCovariance
@@ -89,16 +100,32 @@ class _Geometries:
         self.keep_all = cache is not None
         self.cache = {} if cache is None else cache
 
-    def get(self, rays_seq: RayBundle, t: int, interp: str):
-        rays_t = RayBundle(points=rays_seq.points[t], ds=rays_seq.ds[t])
+    def get(self, rays_seq, t: int, interp: str, device=None):
+        """Step t's geometry (of a ``RayBundle`` or a ray-sharded
+        ``ShardedRayBundle`` sequence), on ``device`` where a member group
+        of the member-parallel filter lives on another than the rays'."""
         grid, nd, i0, quadrature = self.args
-        key = (rays_t.points.data_ptr(), tuple(rays_t.points.shape),
-               rays_t.ds.data_ptr(), nd, i0, quadrature, interp, self.plans)
+        if isinstance(rays_seq, RayBundle):
+            rays_t = RayBundle(points=rays_seq.points[t], ds=rays_seq.ds[t])
+            bundles, first = (rays_t,), rays_seq
+        else:
+            rays_t = rays_seq.step(t)
+            bundles, first = rays_t.shards, rays_seq.shards[0]
+        key = (tuple((b.points.data_ptr(), tuple(b.points.shape),
+                      b.ds.data_ptr()) for b in bundles),
+               nd, i0, quadrature, interp, self.plans)
+        moved = device is not None and device != grid.device
+        if moved:
+            key = key + (str(device),)
         geo = self.cache.get(key)
         if geo is None:
-            geo = tec_mod.DtecGeometry(grid, rays_t, nd, i0, quadrature,
-                                       interp, self.plans)
-            if self.keep_all or rays_seq.points.stride(0) == 0:
+            if moved:
+                grid = grid.to(device)
+                rays_t = RayBundle(points=rays_t.points.to(device),
+                                   ds=rays_t.ds.to(device))
+            geo = tec_mod.dtec_geometry(grid, rays_t, nd, i0, quadrature,
+                                        interp, self.plans)
+            if self.keep_all or first.points.stride(0) == 0:
                 self.cache[key] = geo
         return geo
 
@@ -279,8 +306,8 @@ def _setup(grid, d_obs_seq, noise_std, m0, m_clim, wind_kmps,
             torch.as_tensor(anchors.noise_std, dtype=torch.float32,
                             device=dev), anchors.values.shape[-1:]).reshape(-1)
         a_inv_cd = inv_variance(anchors.noise_std, anchors.values)
-        anchor_geo = tec_mod.DtecGeometry(grid, anchors.rays, None, None,
-                                          quadrature, interp)
+        anchor_geo = tec_mod.dtec_geometry(grid, anchors.rays, None, None,
+                                           quadrature, interp)
     inner_model = interp_inner or interp
     linearize = linearize or tec_mod.dtec_paired_linear
     geos = _Geometries(grid, num_directions, i0, quadrature,
@@ -475,7 +502,7 @@ def ensemble_kalman_filter(grid: Grid3D, rays_seq: RayBundle, d_obs_seq,
                            wind_adapt_horizontal: bool = True,
                            innov_stats: bool = False,
                            interp_inner: str = None, linearize=None,
-                           geometry_cache: dict = None
+                           geometry_cache: dict = None, member_axis=None
                            ) -> EnsembleKalmanResult:
     """Ensemble variant: time-propagated posterior uncertainty.
 
@@ -521,6 +548,10 @@ def ensemble_kalman_filter(grid: Grid3D, rays_seq: RayBundle, d_obs_seq,
     noise-scale-squared MLEs; diag(H P_f Hᵀ) is the spread of the member
     forwards the updates already compute. ``linearize``,
     ``geometry_cache``: as in ``kalman_filter``.
+
+    ``member_axis``: internal, set by ``member_parallel_enkf`` to its
+    member mesh: the members are carried in groups, one a device (the
+    result's ``ensemble`` is then a ``parallel.sharding.Sharded``).
     """
     if spectrum_blend:
         raise NotImplementedError(
@@ -542,10 +573,11 @@ def ensemble_kalman_filter(grid: Grid3D, rays_seq: RayBundle, d_obs_seq,
             raise ValueError("ensemble_kalman_filter needs ens0 or "
                              "init_noise")
         ens0 = initial_ensemble(grid, cov, m0, init_noise)
-    ens = as_tensor(ens0, device=dev)
-    if ens.shape[0] != n_members:
-        raise ValueError(f"the ensemble has {ens.shape[0]} members, "
+    if ens0.shape[0] != n_members:
+        raise ValueError(f"the ensemble has {ens0.shape[0]} members, "
                          f"n_members={n_members}")
+    groups = _Groups(member_axis, n_members, dev)
+    ens = groups.place(ens0)
     obs_noise = as_tensor(obs_noise, device=dev)
     if process_sigma and process_noise is None:
         raise ValueError("process_sigma > 0 needs process_noise")
@@ -557,6 +589,8 @@ def ensemble_kalman_filter(grid: Grid3D, rays_seq: RayBundle, d_obs_seq,
     adapt = wind_adapt_iters > 0
     wind = s.wind
     shift = wind * dt_s
+    rep = _Replicas(grid, cov, anchor_cov, anchors, s.anchor_geo, quadrature,
+                    interp)
     mean_seq, std_seq, pre_seq, wind_hist, q_seq = [], [], [], [], []
     for t in range(nt):
         tg = step_offset + t
@@ -569,65 +603,235 @@ def ensemble_kalman_filter(grid: Grid3D, rays_seq: RayBundle, d_obs_seq,
             # refined on the (noiseless) ensemble mean; drift is a bulk
             # property, not per-member
             wind = _wind_innovation_refine(
-                grid, ens.mean(0), geo, d_t, cd_t, clim, wind, dt_s, fade,
-                wind_adapt_iters, wind_adapt_damping, s.wind_mask,
+                grid, groups.mean(ens), geo, d_t, cd_t, clim, wind, dt_s,
+                fade, wind_adapt_iters, wind_adapt_damping, s.wind_mask,
                 s.linearize)
-        if is_first:
-            ens_pred = ens
-        else:
-            m_adv = advect_periodic(ens, grid, wind * dt_s if adapt
-                                    else shift)
-            ens_pred = fade * m_adv + (1 - fade) * clim
+        preds = []
+        for (lo, hi), e in zip(groups.rows, ens):
+            d = e.device
+            if is_first:
+                preds.append(e)
+                continue
+            m_adv = advect_periodic(e, rep.grid(d), on_device(
+                wind * dt_s if adapt else shift, d))
+            p = fade * m_adv + (1 - fade) * on_device(clim, d)
             if process_sigma:
-                ens_pred = ens_pred + process_sigma * cov.apply_sqrt(
-                    as_tensor(process_noise[tg], device=dev))
+                p = p + process_sigma * rep.cov(d).apply_sqrt(
+                    as_tensor(process_noise[tg][lo:hi], device=d))
+            preds.append(p)
         # multiplicative covariance inflation about the ensemble mean, a
         # forecast-ensemble control
         infl_t = 1.0 if is_first else inflation
-        ens_mean = ens_pred.mean(0)
-        ens_pred = ens_mean[None] + infl_t * (ens_pred - ens_mean[None])
+        ens_mean = groups.mean(preds)
+        preds = [on_device(ens_mean, p.device)[None]
+                 + infl_t * (p - on_device(ens_mean, p.device)[None])
+                 for p in preds]
         if anchors is not None:
             a_t = s.a_vals_seq[t]
-            kw = dict(quadrature=quadrature, interp=interp,
-                      geometry=s.anchor_geo)
-            if anchor_update == "sqrt":
-                ens_pred = anchor_sqrt_update(
-                    grid, ens_pred, anchor_cov, anchors.rays, a_t,
-                    s.a_inv_cd, anchor_cg_iters, cg_tol, **kw)
-            else:
-                # each member's prediction against its own perturbed
-                # anchor values: one batched MAP step
-                eps_a = as_tensor(anchor_noise[tg], device=dev) \
-                    * s.a_noise[None]
-                ens_pred = anchor_map_step(
-                    grid, ens_pred, anchor_cov, anchors.rays,
-                    a_t[None] + eps_a, s.a_inv_cd, anchor_cg_iters, cg_tol,
-                    **kw)
-        # the members' randomise-then-optimise updates, as one batch
-        eps = obs_noise[tg] * sqrt_cd[None, :]
-        op = _linearize_at(s, ens_pred, geo)
-        g0s = op.g0                                        # (B, Na·Nd)
-        op_c = op
-        if s.mixed:
-            op_c = _linearize_at(s, ens_pred, s.geos.get(
-                rays_seq if rays_inner_seq is None else rays_inner_seq, t,
-                s.inner_model))
-        r = d_t[None] + eps - g0s
-        ens = ens_pred + whitened_gain(cov, op_c, r, inv_cd, cg_iters,
-                                       cg_tol)
-        pres = torch.linalg.norm((d_t[None] - g0s) / sqrt_cd, dim=-1)
-        mean_seq.append(ens.mean(0))
-        std_seq.append(ens.std(0, correction=0))
-        pre_seq.append(pres.mean())
+            m_bar = groups.mean(preds) if groups.devices else None
+            for k, ((lo, hi), p) in enumerate(zip(groups.rows, preds)):
+                d = p.device
+                kw = dict(quadrature=quadrature, interp=interp,
+                          geometry=rep.anchor_geo(d))
+                if anchor_update == "sqrt":
+                    preds[k] = anchor_sqrt_update(
+                        rep.grid(d), p, rep.anchor_cov(d),
+                        rep.anchor_rays(d), on_device(a_t, d),
+                        on_device(s.a_inv_cd, d), anchor_cg_iters, cg_tol,
+                        mean=None if m_bar is None else on_device(m_bar, d),
+                        **kw)
+                else:
+                    # each member's prediction against its own perturbed
+                    # anchor values: one batched MAP step
+                    eps_a = as_tensor(anchor_noise[tg][lo:hi], device=d) \
+                        * on_device(s.a_noise, d)[None]
+                    preds[k] = anchor_map_step(
+                        rep.grid(d), p, rep.anchor_cov(d),
+                        rep.anchor_rays(d), on_device(a_t, d)[None] + eps_a,
+                        on_device(s.a_inv_cd, d), anchor_cg_iters, cg_tol,
+                        **kw)
+        # the members' randomise-then-optimise updates, a batch a group,
+        # over the step's geometries on the group's device (built once a
+        # step and device)
+        geos_t = {(id(rays_seq), interp, dev): geo}
+
+        def geo_on(which, model, d):
+            key = (id(which), model, d)
+            if key not in geos_t:
+                geos_t[key] = s.geos.get(which, t, model, d)
+            return geos_t[key]
+
+        new, pres, g0s = [], [], []
+        for (lo, hi), p in zip(groups.rows, preds):
+            d = p.device
+            d_d, sqrt_d = on_device(d_t, d), on_device(sqrt_cd, d)
+            eps = on_device(obs_noise[tg][lo:hi], d) * sqrt_d[None, :]
+            op = _linearize_at(s, p, geo_on(rays_seq, interp, d))
+            op_c = op
+            if s.mixed:
+                op_c = _linearize_at(s, p, geo_on(
+                    rays_seq if rays_inner_seq is None else rays_inner_seq,
+                    s.inner_model, d))
+            r = d_d[None] + eps - op.g0
+            new.append(p + whitened_gain(rep.cov(d), op_c, r,
+                                         on_device(inv_cd, d), cg_iters,
+                                         cg_tol))
+            pres.append(torch.linalg.norm((d_d[None] - op.g0) / sqrt_d,
+                                          dim=-1))
+            g0s.append(op.g0)                              # (B, Na·Nd)
+        ens = new
+        mu = groups.mean(ens)
+        mean_seq.append(mu)
+        std_seq.append(groups.std(ens, mu))
+        pre_seq.append(groups.scalar_mean(pres))
         wind_hist.append(wind)
         if innov_stats:
             # the ensemble's own innovation consistency: ν about the
             # forecast-mean forward, hph from the member forwards' spread
-            mu_g = g0s.mean(0)
-            hph = g0s.std(0, correction=0) ** 2
+            mu_g = groups.mean(g0s)
+            hph = groups.std(g0s, mu_g) ** 2
             q_seq.append(_innov_noise_scale_sq(d_t - mu_g, hph, cd_t))
     return EnsembleKalmanResult(
         mean_seq=torch.stack(mean_seq), std_seq=torch.stack(std_seq),
-        residuals=torch.stack(pre_seq), ensemble=ens,
+        residuals=torch.stack(pre_seq), ensemble=groups.result(ens),
         wind_seq=torch.stack(wind_hist) if adapt else None,
         innov_q=torch.stack(q_seq) if innov_stats else None)
+
+
+class _Groups:
+    """The ensemble as the filter carries it: one batch (B, ...) on the
+    grid's device, or, under ``member_axis`` (a member mesh), S groups of
+    B/S members, group k on the mesh's device k. ``mean``/``std`` reduce
+    over all members: the batch's own ``mean(0)``/``std(0)``, or over
+    groups the pmeans of the groups' moments in group order on the grid's
+    device (the reference's pmeans under its member axis)."""
+
+    def __init__(self, member_axis, n_members: int, device):
+        self.devices = None if member_axis is None else member_axis.devices
+        self.device = device
+        n = 1 if self.devices is None else len(self.devices)
+        b = n_members // n
+        self.rows = [(k * b, (k + 1) * b) for k in range(n)]
+
+    def place(self, ens0):
+        if self.devices is None:
+            return [as_tensor(ens0, device=self.device)]
+        if not isinstance(ens0, Sharded):
+            ens0 = split(as_tensor(ens0, device=self.device), self.devices)
+        return [on_device(e, d) for e, d in zip(ens0.shards, self.devices)]
+
+    def result(self, ens):
+        return ens[0] if self.devices is None else Sharded(tuple(ens))
+
+    def mean(self, parts):
+        if self.devices is None:
+            return parts[0].mean(0)
+        return pmean([p.mean(0) for p in parts], self.device)
+
+    def std(self, parts, mu):
+        if self.devices is None:
+            return parts[0].std(0, correction=0)
+        # the biased std about the whole ensemble's mean
+        return torch.sqrt(pmean(
+            [((p - on_device(mu, p.device)[None]) ** 2).mean(0)
+             for p in parts], self.device))
+
+    def scalar_mean(self, parts):
+        if self.devices is None:
+            return parts[0].mean()
+        return pmean([p.mean() for p in parts], self.device)
+
+
+class _Replicas:
+    """What a member group needs on its device, copied there once (the
+    originals where the device is the grid's): the grid, the prior and the
+    anchors' covariance, the anchor rays and their geometry."""
+
+    def __init__(self, grid, cov, anchor_cov, anchors, anchor_geo,
+                 quadrature, interp):
+        self.home = grid.device
+        self.base = dict(grid=grid, cov=cov, anchor_cov=anchor_cov,
+                         anchor_rays=None if anchors is None
+                         else anchors.rays, anchor_geo=anchor_geo)
+        self.args = (quadrature, interp)
+        self.cache = {}
+
+    def _get(self, name, device):
+        x = self.base[name]
+        if x is None or device == self.home:
+            return x
+        key = (name, str(device))
+        if key not in self.cache:
+            if name == "grid":
+                y = x.to(device)
+            elif name in ("cov", "anchor_cov"):
+                y = dataclasses.replace(x, spectrum=x.spectrum.to(device))
+            elif name == "anchor_rays":
+                y = RayBundle(points=x.points.to(device), ds=x.ds.to(device))
+            else:
+                y = tec_mod.DtecGeometry(self.grid(device),
+                                         self.anchor_rays(device), None,
+                                         None, *self.args)
+            self.cache[key] = y
+        return self.cache[key]
+
+    def grid(self, device):
+        return self._get("grid", device)
+
+    def cov(self, device):
+        return self._get("cov", device)
+
+    def anchor_cov(self, device):
+        return self._get("anchor_cov", device)
+
+    def anchor_rays(self, device):
+        return self._get("anchor_rays", device)
+
+    def anchor_geo(self, device):
+        return self._get("anchor_geo", device)
+
+
+def member_parallel_enkf(mesh, grid: Grid3D, rays_seq: RayBundle, d_obs_seq,
+                         noise_std, m0, cov: GPCovariance, wind_kmps, dt_s,
+                         *, ens0, n_members: int = 8, **kwargs):
+    """Member-parallel EnKF over the mesh's 'members' axis
+    (``parallel.member_mesh``): the ensemble is split into S groups, one a
+    device, and each device carries its n_members/S members end to end:
+    advection, anchoring and the whole batched Krylov member update,
+    including the grid-sized FFT covariance applications that ray
+    sharding cannot split (they are per member, not per ray). Cross-device
+    traffic a step: the grid-sized pmeans of the ensemble mean and spread
+    (one more for the inflation's centring, one for the square-root
+    anchor update's mean) and the scalar residual mean, in group order.
+
+    Randomness: the draws (``obs_noise``, ``process_noise``,
+    ``anchor_noise``) are made at global shape and each group takes its
+    rows, so the sharded filter consumes exactly the unsharded one's
+    numbers.
+
+    Requirements, as the reference's: ``ens0`` is required (build it with
+    ``initial_ensemble``; a tensor, or a ``parallel.sharding.Sharded``
+    from ``member_sharding``); ``n_members`` must divide by the mesh size
+    (members are not padded: a phantom member would bias the mean);
+    ``spectrum_blend`` is unsupported. Every other keyword is
+    ``ensemble_kalman_filter``'s. The result's ``ensemble`` is a
+    ``Sharded`` of the groups."""
+    if MEMBER_AXIS not in mesh.axis_names:
+        raise ValueError(f"mesh has axes {mesh.axis_names}; build it with "
+                         "parallel.member_mesh()")
+    n_dev = mesh.shape[MEMBER_AXIS]
+    if n_members % n_dev:
+        raise ValueError(f"n_members={n_members} must divide the "
+                         f"'{MEMBER_AXIS}' mesh size {n_dev} (members are "
+                         "not padded)")
+    if ens0 is None or ens0.shape[0] != n_members:
+        raise ValueError("member_parallel_enkf requires ens0 with "
+                         f"n_members={n_members} rows (use "
+                         "initial_ensemble)")
+    if kwargs.get("spectrum_blend", 0.0):
+        raise ValueError("spectrum_blend is unsupported under member "
+                         "sharding (shell fit is not member-axis aware)")
+    return ensemble_kalman_filter(grid, rays_seq, d_obs_seq, noise_std, m0,
+                                  cov, wind_kmps, dt_s, ens0=ens0,
+                                  n_members=n_members, member_axis=mesh,
+                                  **kwargs)

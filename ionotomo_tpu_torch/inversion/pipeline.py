@@ -12,9 +12,20 @@ their loops; the host orchestrates set-up, checkpointing and logging.
     pipe = InversionPipeline(datapack, config)   # device: the card
     sol = pipe.run(resume=True)
 
-One device: the reference's ray mesh, its whole-antenna padding and its
-member-parallel ensemble (``enkf_shard="members"``, which raises here)
-are the multi-GPU slice's (ROADMAP.md Queue 1 item 8). A snapshot solve
+The mesh (``parallel.sharding``): the pipeline attaches ``ray_mesh()``
+when it runs on the card and more than one card is visible, as the
+reference attaches one over its devices, and takes an explicit ``mesh=``
+(S shards on one device, as the tests and ``chip_smoke.py`` run them).
+With a mesh, the antennas are padded to a multiple of its size (whole
+antennas: the last repeated, observations 0, noise 1e6, logged once as a
+``ray_sharding_padded`` event), and the snapshot solves and the filters'
+chunks run on ray-sharded bundles (``parallel.sharding.ShardedRayBundle``,
+the operators ``ShardedPairedDtecLinear``); ``solver.enkf_shard=
+"members"`` runs the ensemble filter member-parallel instead
+(``kalman.member_parallel_enkf``, the bundles whole). The prior selection,
+the profile estimate, the posterior draws, the batched mode and the
+chunk-boundary diagnostics take the padded bundle whole on the first
+device. Without a mesh nothing is padded or sharded. A snapshot solve
 builds the geometry of its bundle once and drops it after the solve; the
 filters build one per step of a chunk (``kalman._Geometries``).
 
@@ -52,7 +63,9 @@ from ..utils.draws import (DRAW_ENKF_ANCHOR, DRAW_ENKF_INIT, DRAW_ENKF_OBS,
                            rademacher)
 from ..utils.metrics import MetricsWriter
 from . import solvers
-from .kalman import ensemble_kalman_filter, kalman_filter
+from ..parallel import sharding as shard_mod
+from .kalman import (ensemble_kalman_filter, initial_ensemble, kalman_filter,
+                     member_parallel_enkf)
 from .model_selection import DRAW_GCV
 from .priors import GPCovariance
 from .solution import Solution
@@ -66,11 +79,18 @@ DRAW_POSTERIOR_PRIOR = 1000004  # posterior draws: the prior perturbations
 
 class InversionPipeline:
     """Drives a full reconstruction from a DataPack on ``device`` (the card
-    unless named)."""
+    unless named). ``mesh``: the device mesh the rays shard over (default:
+    ``ray_mesh()`` when the device is a card and more than one is visible,
+    else none)."""
 
     def __init__(self, datapack: DataPack, config: EngineConfig = None,
-                 device=None):
+                 device=None, mesh=None):
         self.device = resolve(device)
+        if mesh is None and self.device.type == "cuda" \
+                and torch.cuda.device_count() > 1:
+            mesh = shard_mod.ray_mesh()
+        self.mesh = mesh
+        self._na_padded = None        # lazy; see _padded_na
         self.datapack = datapack
         self.config = config or EngineConfig()
         self.metrics = MetricsWriter(self.config.runtime.metrics_path)
@@ -367,33 +387,75 @@ class InversionPipeline:
         k = self.config.rays.inner_samples
         return rays_mod.inner_bundle(bundle, k) if k > 0 else None
 
-    def _chunk_arrays(self, c0: int, c1: int):
+    # --- sharding ------------------------------------------------------------
+
+    def _padded_na(self, na: int) -> int:
+        """Smallest Na' ≥ Na divisible by the mesh size: every shard holds
+        whole antennas. Rays are padded in whole-antenna blocks (the last
+        antenna repeated, observations zero with noise 1e6, a weight of
+        ~1e-12 in every C_d⁻¹ misfit). Depends only on (Na, mesh): computed
+        and logged once."""
+        if self.mesh is None:
+            return na
+        if self._na_padded is None:
+            k = self.mesh.size
+            na_p = shard_mod.pad_to_multiple(na, k)
+            self._na_padded = na_p
+            if na_p != na:
+                self.metrics.write(dict(event="ray_sharding_padded",
+                                        na=na, na_padded=na_p, devices=k))
+        return self._na_padded
+
+    def _shard(self, bundle):
+        """The bundle's ray axis sharded over the mesh (callers pad whole
+        antennas first, so the ray count divides the mesh size); the
+        bundle itself without a mesh."""
+        if self.mesh is None:
+            return bundle
+        assert bundle.num_rays % self.mesh.size == 0
+        return shard_mod.shard_rays(self.mesh, bundle)
+
+    def _chunk_arrays(self, c0: int, c1: int, shard: bool = True):
         """The filters' per-timestep arrays for timesteps [c0, c1): (rays
         with a leading time axis, their inner bundle or None, d (n, Na,
-        Nd), noise (n, Na, Nd))."""
+        Nd), noise (n, Na, Nd)), padded, the rays sharded along axis 1
+        over the mesh unless ``shard=False`` (the member-parallel ensemble
+        shards its members instead)."""
         per = [self._padded_data(t) for t in range(c0, c1)]
         bundles = [self.rays_for_time(t, antennas=per[i][0])
                    for i, t in enumerate(range(c0, c1))]
         rays_seq = rays_mod.RayBundle(
             points=torch.stack([b.points for b in bundles]),
             ds=torch.stack([b.ds for b in bundles]))
+        if self.mesh is not None and shard:
+            rays_seq = shard_mod.shard_rays(self.mesh, rays_seq, ray_axis=1)
         d = torch.stack([p[1] for p in per])
         noise = torch.stack([p[2] for p in per])
         return rays_seq, self._inner(rays_seq), d, noise
 
     def _padded_data(self, t: int):
-        """(antennas, d_t, noise_t, na) for timestep t on the device (the
-        reference's whole-antenna padding for a ray mesh is the identity on
-        one device). With ``rays.beam_noise > 0`` the noise is inflated in
-        quadrature with the epoch's chaotic beam spread."""
+        """(antennas, d_t, noise_t, na_real) for timestep t on the device,
+        with the whole-antenna padding of ``_padded_na`` under a mesh.
+        With ``rays.beam_noise > 0`` the noise is inflated in quadrature
+        with the epoch's chaotic beam spread."""
+        na, nd = self.d_obs.shape[0], self.directions.shape[1]
+        na_p = self._padded_na(na)
         ants = as_tensor(self.antennas, device=self.device)
         d_t = as_tensor(np.asarray(self.d_obs[:, t, :]), device=self.device)
         noise = as_tensor(np.asarray(self.noise_std[:, t, :]),
                           device=self.device)
+        if na_p != na:
+            pad = na_p - na
+            ants = torch.cat([ants, ants[-1:].expand(pad, 3)])
+            d_t = torch.cat([d_t, torch.zeros((pad, nd), dtype=d_t.dtype,
+                                              device=d_t.device)])
+            noise = torch.cat([noise, torch.full((pad, nd), 1e6,
+                                                 dtype=noise.dtype,
+                                                 device=noise.device)])
         if self.config.rays.beam_noise > 0:
             infl = self._beam_inflation(t, ants)
             noise = torch.sqrt(noise * noise + infl * infl)
-        return ants, d_t, noise, self.d_obs.shape[0]
+        return ants, d_t, noise, na
 
     def _beam_inflation(self, t: int, ants):
         """Strong-turbulence observation-noise inflation for timestep t:
@@ -473,14 +535,15 @@ class InversionPipeline:
         self._sync()
         t0 = time.perf_counter()
         if not retrace:
-            rb = self.rays_for_time(t, antennas=ants)
+            rb = self._shard(self.rays_for_time(t, antennas=ants))
             res = self._solve_once(rb, d_t, noise, m_start, nd, m0=m0)
             retraces = 0
         else:
             m_k, prev_res, res = m_start, float("inf"), None
             done_iters, retraces, u_carry = 0, 0, None
             while done_iters < sc.gn_iters:
-                rb = self.rays_for_time(t, m_field=m_k, antennas=ants)
+                rb = self._shard(self.rays_for_time(t, m_field=m_k,
+                                                    antennas=ants))
                 if done_iters > 0:
                     retraces += 1
                 n_iters = min(rc.retrace_every, sc.gn_iters - done_iters)
@@ -786,11 +849,17 @@ class InversionPipeline:
         by the global timestep, so chunked, resumed and single-chunk runs
         are identical."""
         sc, rt = self.config.solver, self.config.runtime
-        if sc.enkf_shard == "members":
-            raise NotImplementedError(
-                "enkf_shard='members' (the reference's member_parallel_enkf) "
-                "shards the ensemble across devices and is not ported: "
-                "multi-GPU, ROADMAP.md Queue 1 item 8; use enkf_shard='rays'")
+        member_mode = self.mesh is not None and sc.enkf_shard == "members"
+        if member_mode:
+            # member parallelism: each device owns enkf_members / S members
+            # end to end (kalman.member_parallel_enkf); the rays stay
+            # whole, the ensemble axis shards
+            m_mesh = shard_mod.member_mesh(self.mesh.devices)
+            if sc.enkf_members % m_mesh.size:
+                raise ValueError(
+                    f"enkf_shard='members' needs enkf_members "
+                    f"({sc.enkf_members}) divisible by the device count "
+                    f"({m_mesh.size})")
         nt = self.d_obs.shape[1]
         chunk = max(1, sc.kalman_chunk)
         dt_s, wind, noise_scale = self._filter_start(state, nt)
@@ -804,7 +873,14 @@ class InversionPipeline:
         ens = (as_tensor(state["enkf_ensemble"], device=self.device)
                if state is not None and start_t > 0
                and "enkf_ensemble" in state else None)
-        n_rows = self.d_obs.shape[0] * self.directions.shape[1]
+        if member_mode:
+            if ens is None:
+                ens = initial_ensemble(
+                    self.grid, self.cov, self.m_prior, self.draw_normals(
+                        DRAW_ENKF_INIT, 0, (b,) + tuple(self.grid.shape)))
+            ens = shard_mod.member_sharding(m_mesh)(ens)
+        n_rows = (self._padded_na(self.d_obs.shape[0])
+                  * self.directions.shape[1])
         t0 = time.perf_counter()
         for c0 in range(start_t, nt, chunk):
             c1 = min(c0 + chunk, nt)
@@ -812,7 +888,7 @@ class InversionPipeline:
                      if mean_list else self.m_prior)
             noise_scale = self._chunk_events(c0, chunk, m_lin, noise_scale)
             rays_seq, inner_seq, d_chunk, noise_chunk = \
-                self._chunk_arrays(c0, c1)
+                self._chunk_arrays(c0, c1, shard=not member_mode)
             steps = range(c0, c1)
             draws = dict(obs_noise=torch.stack([
                 self.draw_normals(DRAW_ENKF_OBS, t, (b, n_rows))
@@ -832,7 +908,10 @@ class InversionPipeline:
                                       (b, self.anchors.values.shape[-1]))
                     for t in steps])
             # the chunk's draws are indexed from its first step
-            res = ensemble_kalman_filter(
+            filter_fn = (
+                (lambda *a, **kw: member_parallel_enkf(m_mesh, *a, **kw))
+                if member_mode else ensemble_kalman_filter)
+            res = filter_fn(
                 self.grid, rays_seq, d_chunk, noise_chunk * noise_scale,
                 self.m_prior, self.cov, wind, dt_s, n_members=b,
                 process_sigma=sc.enkf_process_sigma,
@@ -852,7 +931,8 @@ class InversionPipeline:
                 {"m_seq": np.stack(mean_list),
                  "enkf_std": np.stack(std_list),
                  "kalman_pre": np.asarray(pre),
-                 "enkf_ensemble": host(ens), "wind_kmps": wind,
+                 "enkf_ensemble": host(ens.gather() if member_mode
+                                       else ens), "wind_kmps": wind,
                  "noise_scale": noise_scale},
                 self.config.to_json())
             self.metrics.write(dict(solver="enkf", event="chunk",

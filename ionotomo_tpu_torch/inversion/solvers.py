@@ -124,9 +124,9 @@ def _geometries(grid: Grid3D, rays: RayBundle, num_directions: int, i0: int,
     operators take no plans)."""
     plans = linearize is not tec_mod.dtec_paired_linear_ref
     return _SolveGeometries(
-        tec_mod.DtecGeometry(grid, rays, num_directions, i0, quadrature,
-                             interp, plans),
-        None if anchors is None else tec_mod.DtecGeometry(
+        tec_mod.dtec_geometry(grid, rays, num_directions, i0, quadrature,
+                              interp, plans),
+        None if anchors is None else tec_mod.dtec_geometry(
             grid, anchors.rays, None, None, quadrature, interp, plans))
 
 
@@ -487,8 +487,8 @@ def steepest_descent_map(grid: Grid3D, rays: RayBundle, d_obs, noise_std,
     inv_var = 1.0 / torch.broadcast_to(torch.as_tensor(
         noise_std, dtype=torch.float32, device=dev), d.shape) ** 2
     d, inv_var = d.reshape(-1), inv_var.reshape(-1)
-    geo = tec_mod.DtecGeometry(grid, rays, num_directions, i0, "simpson",
-                               "cubic")
+    geo = tec_mod.dtec_geometry(grid, rays, num_directions, i0, "simpson",
+                                "cubic")
 
     def objective(ms):
         g = tec_mod.dtec_paired_over(ms, geo)

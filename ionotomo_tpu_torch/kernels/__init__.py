@@ -59,6 +59,16 @@
   table, in two forms of the background (one flat layer, or general),
   over K1c's pack: its leapfrog at its own call, its rk4 at K1c's
   (csrc/trace_split.cu).
+- K7  ``cubic_sharded_value`` and ``cubic_sharded_value_grad``: the
+  tricubic value (and physical gradient) at points over one x-slab of a
+  field sharded along x, with its halos, zero where the shard does not
+  own the point (csrc/cubic_sharded.cu, on cubic_eval.cuh);
+- K7ᵀ ``cubic_sharded_value_bwd`` and ``cubic_sharded_value_grad_bwd``:
+  their transposes added into the slab over a plan
+  (``parallel.grid_sharding.sharded_plan``), each entry's weights
+  recomputed from its point's position: each occupied cell's entries
+  summed by a fixed pairwise tree, one thread a block of 64 entries, then
+  one thread a cell over its blocks' sums (csrc/cubic_sharded_bwd.cu).
 
 Each wrapper checks dtype, shape, contiguity and device and raises on
 anything else (a CPU tensor included: the plain PyTorch versions live in
@@ -88,7 +98,9 @@ launches = {"trace_leapfrog_zp": 0, "zp_value_grad": 0,
             "quad_value_grad": 0, "zpc_value_grad_bwd": 0,
             "trace_leapfrog_zpc": 0, "trace_leapfrog_quad": 0,
             "trace_rk4_zp": 0, "trace_rk4_cubic": 0, "trace_rk4_zpc": 0,
-            "trace_rk4_quad": 0, "trace_split": 0}
+            "trace_rk4_quad": 0, "trace_split": 0,
+            "cubic_sharded_value": 0, "cubic_sharded_value_grad": 0,
+            "cubic_sharded_value_bwd": 0, "cubic_sharded_value_grad_bwd": 0}
 
 #: Widest table row the reduce kernels (K3, K1eᵀ) take: one row per warp
 #: in shared memory, 8 warps a block, within the 48 KB a block gets
@@ -1242,3 +1254,118 @@ def vector_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         _launch(name, "ionotomo_vector_gather", _ptr(table), r, w, _ptr(idx),
                 m, _ptr(out))
     return out
+
+
+def _sharded_specs(name, slab2d, grid, x0: int, loc: int, points):
+    nx, ny, nz = grid.shape
+    n = points.shape[0]
+    if min(grid.shape) < 2 or not (2 <= loc and 0 <= x0 and x0 + loc <= nx):
+        raise ValueError(f"{name}: needs every grid axis >= 2 and a shard "
+                         f"of >= 2 planes inside the grid, got "
+                         f"{grid.shape}, x0={x0}, loc={loc}")
+    return n, _check(name, [
+        ("slab2d", slab2d, torch.float32, ((loc + 4) * ny, nz)),
+        ("grid.origin", grid.origin, torch.float32, (3,)),
+        ("grid.spacing", grid.spacing, torch.float32, (3,)),
+        ("points", points, torch.float32, (n, 3))])
+
+
+def cubic_sharded_value(slab2d: torch.Tensor, grid, x0: int, loc: int,
+                        points: torch.Tensor) -> torch.Tensor:
+    """K7: the tricubic value (N,) at points (N, 3) of the shard of x-planes
+    [x0, x0 + loc) of the global ``grid``, from its slab ((loc + 4)·ny, nz)
+    (the shard's planes with 2 halo planes on either side), 0 where the
+    shard does not own the point. The owner's value is bitwise K5's on the
+    whole table."""
+    name = "cubic_sharded_value"
+    n, dev = _sharded_specs(name, slab2d, grid, x0, loc, points)
+    value = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return value
+    nx, ny, nz = grid.shape
+    with torch.cuda.device(dev):
+        _launch(name, "ionotomo_" + name, _ptr(slab2d), _ptr(grid.origin),
+                _ptr(grid.spacing), nx, ny, nz, int(x0), int(loc),
+                _ptr(points), n, _ptr(value))
+    return value
+
+
+def cubic_sharded_value_grad(slab2d: torch.Tensor, grid, x0: int, loc: int,
+                             points: torch.Tensor):
+    """K7 with the gradient: value (N,) and physical gradient (N, 3)
+    [1/km], as ``cubic_sharded_value``; the owner's are bitwise K5's."""
+    name = "cubic_sharded_value_grad"
+    n, dev = _sharded_specs(name, slab2d, grid, x0, loc, points)
+    value = torch.empty((n,), dtype=torch.float32, device=dev)
+    grad = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    if n == 0:
+        return value, grad
+    nx, ny, nz = grid.shape
+    with torch.cuda.device(dev):
+        _launch(name, "ionotomo_" + name, _ptr(slab2d), _ptr(grid.origin),
+                _ptr(grid.spacing), nx, ny, nz, int(x0), int(loc),
+                _ptr(points), n, _ptr(value), _ptr(grad))
+    return value, grad
+
+
+def _sharded_plan_specs(name, plan, slab, grid, n_points):
+    return [("slab", slab, torch.float32, (plan.slab_cells,)),
+            ("plan.order", plan.order, torch.int32, (plan.order.shape[0],)),
+            ("plan.cells", plan.cells, torch.int32, (plan.n_cells,)),
+            ("plan.cell_blocks", plan.cell_blocks, torch.int32,
+             (plan.n_cells + 1,)),
+            ("plan.blocks", plan.blocks, torch.int32, (plan.n_blocks + 1,)),
+            ("plan.own", plan.own, torch.int32, (plan.own.shape[0],)),
+            ("plan.points", plan.points, torch.float32, (n_points, 3)),
+            ("grid.origin", grid.origin, torch.float32, (3,)),
+            ("grid.spacing", grid.spacing, torch.float32, (3,))]
+
+
+def _sharded_plan_args(plan, grid):
+    """The plan's pointers and counts and the grid as K7ᵀ takes them, and
+    the call's scratch for the blocks' partial sums."""
+    partial = torch.empty(max(plan.n_blocks, 1), dtype=torch.float32,
+                          device=plan.order.device)
+    nx, ny, nz = grid.shape
+    return (_ptr(plan.order), _ptr(plan.cells), _ptr(plan.cell_blocks),
+            plan.n_cells, _ptr(plan.blocks), plan.n_blocks, _ptr(plan.own),
+            _ptr(plan.points), _ptr(grid.origin), _ptr(grid.spacing), nx, ny,
+            nz), partial
+
+
+def cubic_sharded_value_bwd(slab: torch.Tensor, plan, grid,
+                            ct_value: torch.Tensor) -> torch.Tensor:
+    """K7ᵀ of the value, accumulating: slab ((loc + 4)·ny·nz,) += the
+    transpose of K7's value for the cotangent (N,), in place, over the
+    shard's ``parallel.grid_sharding.ShardPlan`` of the global ``grid``
+    (each entry's weights recomputed from its point's position); returns
+    ``slab``. Only the plan's cells are read and written. Bitwise its
+    plain version (``grid_sharding.sharded_transpose_ref``); no float
+    atomics."""
+    name = "cubic_sharded_value_bwd"
+    n = ct_value.shape[0]
+    dev = _check(name, [("ct_value", ct_value, torch.float32, (n,))]
+                 + _sharded_plan_specs(name, plan, slab, grid, n))
+    with torch.cuda.device(dev):
+        args, partial = _sharded_plan_args(plan, grid)
+        _launch(name, "ionotomo_" + name, *args, _ptr(ct_value),
+                _ptr(partial), _ptr(slab))
+    return slab
+
+
+def cubic_sharded_value_grad_bwd(slab: torch.Tensor, plan, grid,
+                                 ct_value: torch.Tensor,
+                                 ct_grad: torch.Tensor) -> torch.Tensor:
+    """K7ᵀ of the value and gradient, accumulating, as
+    ``cubic_sharded_value_bwd``, for a value cotangent (N,) and a
+    physical-gradient cotangent (N, 3)."""
+    name = "cubic_sharded_value_grad_bwd"
+    n = ct_value.shape[0]
+    dev = _check(name, [("ct_value", ct_value, torch.float32, (n,)),
+                        ("ct_grad", ct_grad, torch.float32, (n, 3))]
+                 + _sharded_plan_specs(name, plan, slab, grid, n))
+    with torch.cuda.device(dev):
+        args, partial = _sharded_plan_args(plan, grid)
+        _launch(name, "ionotomo_" + name, *args, _ptr(ct_value),
+                _ptr(ct_grad), _ptr(partial), _ptr(slab))
+    return slab

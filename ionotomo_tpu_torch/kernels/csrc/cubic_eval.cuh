@@ -2,7 +2,8 @@
 // physical gradient of the interpolated log-density at one point.
 //
 // Shared by K1c (trace_leapfrog_cubic.cu, over the z-tap-packed table),
-// K5 (cubic_value_grad.cu) and K5^T (cubic_value_grad_bwd.cu). It is the
+// K5 (cubic_value_grad.cu), K5^T (cubic_value_grad_bwd.cu) and K7
+// (cubic_sharded.cu, over an x-slab with halos). It is the
 // per-point body of
 // ionotomo_tpu/core/tricubic.py:
 // _neighborhood -> _catmull_rom_weights/_dweights -> interp_rows_with_grad,
@@ -55,24 +56,25 @@ static __device__ __forceinline__ void cubic_axis(float p, float o, float s,
   a.dw[3] = 0.5f * (3.0f * u2 - 2.0f * u);
 }
 
-// Value m and physical gradient dm/dx [1/km] at (px, py, pz): 16 pencils x
-// 4 taps, 64 loads. The 16 z-contracted pencils are folded into the y sums
-// of their x index as they are formed, so no more than one pencil row of
-// partial sums is live.
-static __device__ __forceinline__ void cubic_value_grad_at(
-    const TableGrid& g, float px, float py, float pz, float& val, float& gx,
-    float& gy, float& gz) {
-  CubicAxis ax, ay, az;
-  cubic_axis(px, g.ox, g.sx, g.nx, ax);
-  cubic_axis(py, g.oy, g.sy, g.ny, ay);
-  cubic_axis(pz, g.oz, g.sz, g.nz, az);
+// Value m and physical gradient dm/dx [1/km] of set-up axes: 16 pencils x
+// 4 taps, 64 loads, the pencil of x index i read at table row
+// (i + x_shift) * ny + j. x_shift is 0 for a whole table; an x-slab of a
+// sharded field (K7, cubic_sharded.cu) passes HALO - x0, so the stencil is
+// set up in the global index space and read from the slab. The 16
+// z-contracted pencils are folded into the y sums of their x index as they
+// are formed, so no more than one pencil row of partial sums is live.
+static __device__ __forceinline__ void cubic_value_grad_axes(
+    const TableGrid& g, const CubicAxis& ax, const CubicAxis& ay,
+    const CubicAxis& az, int x_shift, float& val, float& gx, float& gy,
+    float& gz) {
   float v = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     float czy = 0.0f, czy_dy = 0.0f, czy_dz = 0.0f;
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
-      const float* row = g.coef + (size_t)(ax.i[a] * g.ny + ay.i[b]) * (size_t)g.nz;
+      const size_t r = (size_t)((ax.i[a] + x_shift) * g.ny + ay.i[b]);
+      const float* row = g.coef + r * (size_t)g.nz;
       float cz = 0.0f, cz_d = 0.0f;
 #pragma unroll
       for (int l = 0; l < 4; ++l) {
@@ -93,6 +95,18 @@ static __device__ __forceinline__ void cubic_value_grad_at(
   gx = dx / g.sx;
   gy = dy / g.sy;
   gz = dz / g.sz;
+}
+
+// Value m and physical gradient dm/dx [1/km] at (px, py, pz) of the whole
+// (nx*ny, nz) table.
+static __device__ __forceinline__ void cubic_value_grad_at(
+    const TableGrid& g, float px, float py, float pz, float& val, float& gx,
+    float& gy, float& gz) {
+  CubicAxis ax, ay, az;
+  cubic_axis(px, g.ox, g.sx, g.nx, ax);
+  cubic_axis(py, g.oy, g.sy, g.ny, ay);
+  cubic_axis(pz, g.oz, g.sz, g.nz, az);
+  cubic_value_grad_axes(g, ax, ay, az, 0, val, gx, gy, gz);
 }
 
 // The packed evaluator's contraction: cubic_value_grad_at's loops and

@@ -1813,3 +1813,159 @@ def test_checked_on_card(dev):
         return tec.dtec_paired_q(field, grid, rb, 8, 0, "hermite", "cubic")
 
     assert torch.equal(checked(f)(m), f(m))
+
+
+# --- the multi-device layer: K7, K7ᵀ and the sharded paths, S shards on
+# --- one card -----------------------------------------------------------
+
+
+def _sharded_points(dev, grid, n, seed):
+    """Random points in and around the grid, the edge cases of
+    ``edge_case_points`` and points on every x-plane (every shard seam)
+    and beyond both x edges."""
+    from ionotomo_tpu_torch.testing import edge_case_points
+
+    rng = np.random.default_rng(seed)
+    o, s = grid.origin.cpu().numpy(), grid.spacing.cpu().numpy()
+    up = o + s * (np.asarray(grid.shape) - 1)
+    xs = o[0] + s[0] * np.arange(grid.shape[0])
+    seams = np.stack([np.concatenate([np.repeat(xs, 4), [o[0] - 500.0,
+                                                         up[0] + 500.0]]),
+                      rng.uniform(o[1] - 50, up[1] + 50, 4 * len(xs) + 2),
+                      rng.uniform(o[2] - 50, up[2] + 50, 4 * len(xs) + 2)],
+                     -1)
+    pts = np.concatenate([
+        rng.uniform(o - 60, up + 60, (n, 3)),
+        edge_case_points(grid.shape, o, s, n, rng), seams])
+    return torch.from_numpy(pts.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("n_shards", [2, 8])
+def test_cubic_sharded_sums_to_k5_bitwise(dev, n_shards):
+    """K7 value and value + gradient over S shards of one card, summed in
+    shard order, equal K5 on the whole table bit for bit (one owner a
+    point); each shard within 1e-6·max|table| of its plain version."""
+    from ionotomo_tpu_torch.parallel import grid_sharding as gs
+
+    grid, m = _world(dev, n=32)
+    pts = _sharded_points(dev, grid, 4000, 5)
+    mesh = gs.grid_mesh([dev] * n_shards)
+    sf = gs.shard_field(mesh, m)
+    before = kernels.launches["cubic_sharded_value_grad"]
+    v, g = gs._eval_shards(sf, grid, pts, True)
+    assert kernels.launches["cubic_sharded_value_grad"] == before + n_shards
+    vv = gs._eval_shards(sf, grid, pts, False)
+    v5, g5 = kernels.cubic_value_grad(m.reshape(-1, 32), grid, pts)
+    assert torch.equal(v, v5) and torch.equal(g, g5) and torch.equal(vv, v5)
+    tol = 1e-6 * float(m.abs().max())
+    for s in range(n_shards):
+        kv, kg = kernels.cubic_sharded_value_grad(sf.slab2d(s), grid,
+                                                  sf.x0(s), sf.loc, pts)
+        rv, rg = gs.sharded_value_grad_ref(sf.slab2d(s), grid, sf.x0(s),
+                                           sf.loc, pts)
+        assert float((kv - rv).abs().max()) <= tol
+        assert float((kg - rg).abs().max()) <= tol / float(grid.spacing.min())
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_cubic_sharded_transpose_is_its_plain_version(dev, grad):
+    """K7ᵀ adding into a random slab equals its plain version (the same
+    pairwise tree in passes) bit for bit, at every shard of 8 (the edge
+    shards hold the clamped outside points), twice alike; the sharded
+    autograd gradient within 2e-6 of the plain K5ᵀ."""
+    from ionotomo_tpu_torch.parallel import grid_sharding as gs
+
+    grid, m = _world(dev, n=32)
+    pts = _sharded_points(dev, grid, 4000, 6)
+    n = pts.shape[0]
+    g = torch.Generator(device=dev).manual_seed(0)
+    cv = torch.randn(n, generator=g, device=dev)
+    cg = torch.randn((n, 3), generator=g, device=dev) if grad else None
+    mesh = gs.grid_mesh([dev] * 8)
+    sf = gs.shard_field(mesh, m)
+    name = ("cubic_sharded_value_grad_bwd" if grad
+            else "cubic_sharded_value_bwd")
+    for s in range(8):
+        plan = gs.sharded_plan(grid, pts, sf.x0(s), sf.loc)
+        base = torch.randn(plan.slab_cells, generator=g, device=dev)
+        before = kernels.launches[name]
+        got = gs._shard_transpose_add_(base.clone(), plan, grid, cv, cg)
+        again = gs._shard_transpose_add_(base.clone(), plan, grid, cv, cg)
+        assert kernels.launches[name] == before + 2
+        want = gs.sharded_transpose_ref(base.clone(), plan, grid, cv, cg)
+        assert torch.equal(got, want) and torch.equal(got, again)
+    f = m.clone().requires_grad_(True)
+    sf = gs.shard_field(mesh, f)
+    if grad:
+        val, gr = gs.interp_sharded_with_grad(mesh, sf, grid, pts)
+        loss = torch.dot(val, cv) + torch.sum(gr * cg)
+    else:
+        loss = torch.dot(gs.interp_sharded(mesh, sf, grid, pts), cv)
+    (got,) = torch.autograd.grad(loss, f)
+    want = tricubic.interp_rows_with_grad_transpose_ref(
+        grid, pts, cv, cg if grad else torch.zeros((n, 3), device=dev))
+    assert float((got.reshape(-1, 32) - want).abs().max()) \
+        <= 2e-6 * float(want.abs().max())
+
+
+def test_ray_sharded_operator_on_card(dev):
+    """The ray-sharded Hermite operator over 4 shards of one card: J
+    bitwise the unsharded operator's (the per-sample values gathered in
+    ray order, the quadrature whole), Jᵀ within 3e-6 of its largest
+    entry; two calls of Jᵀ alike."""
+    from ionotomo_tpu_torch.parallel import sharding as sm
+
+    grid, m = _world(dev)
+    o, d = _rays(dev, 64)
+    rb = rays.sample_straight_rays(o, d, n_samples=33)
+    srb = sm.shard_rays(sm.ray_mesh([dev] * 4), rb)
+    op = tec.dtec_paired_linear(m, grid, rb, 8, 0, "hermite", "cubic")
+    sop = tec.dtec_paired_linear(m, grid, srb, 8, 0, "hermite", "cubic")
+    g = torch.Generator(device=dev).manual_seed(1)
+    v = torch.randn(grid.shape, generator=g, device=dev)
+    w = torch.randn(64, generator=g, device=dev)
+    assert torch.equal(op.g0, sop.g0) and torch.equal(op.apply(v),
+                                                      sop.apply(v))
+    jt, ref = sop.apply_t(w), op.apply_t(w)
+    assert torch.equal(jt, sop.apply_t(w))
+    assert float((jt - ref).abs().max()) <= 3e-6 * float(ref.abs().max())
+
+
+def test_member_groups_of_one_run_the_member_kernels(dev):
+    """The member-parallel filter with 4 members over 4 groups of one
+    card: each group's update runs K2b and K3b (and their pack) at B = 1;
+    the filter within 2e-3 of the ensemble's departure of the unsharded
+    one, twice alike."""
+    from ionotomo_tpu_torch.inversion.kalman import (ensemble_kalman_filter,
+                                                     initial_ensemble,
+                                                     member_parallel_enkf)
+    from ionotomo_tpu_torch.parallel import sharding as sm
+
+    w = _filter_world(dev)
+    b, nt = 4, w["d_seq"].shape[0]
+    rng = np.random.default_rng(45)
+    init = torch.from_numpy(rng.normal(size=(b,) + w["grid"].shape)
+                            .astype(np.float32)).to(dev)
+    obs = torch.from_numpy(rng.normal(size=(nt, b, w["d_seq"][0].numel()))
+                           .astype(np.float32)).to(dev)
+    args = (w["grid"], w["rays"], w["d_seq"], w["noise"], w["m_bg"],
+            w["cov"], w["wind"], 30.0)
+    kw = dict(num_directions=w["nd"], obs_noise=obs, n_members=b,
+              cg_iters=4, interp="cubic", inflation=1.1)
+    base = ensemble_kalman_filter(*args, init_noise=init, **kw)
+    ens0 = initial_ensemble(w["grid"], w["cov"], w["m_bg"], init)
+    mesh = sm.member_mesh([dev] * 4)
+    kernels.reset_launches()
+    got = member_parallel_enkf(mesh, *args, ens0=ens0, **kw)
+    torch.cuda.synchronize()
+    for k in ("rows_value_fwd_batched", "rows_value_bwd_batched",
+              "pack_members"):
+        assert kernels.launches[k] > 0, k
+    assert kernels.launches["rows_value_fwd"] == 0
+    again = member_parallel_enkf(mesh, *args, ens0=ens0, **kw)
+    assert torch.equal(got.ensemble.gather(), again.ensemble.gather())
+    scale = float((base.ensemble - w["m_bg"][None]).abs().max())
+    assert float((got.ensemble.gather() - base.ensemble).abs().max()) \
+        < 2e-3 * max(scale, 1.0)
+    assert float((got.mean_seq - base.mean_seq).abs().max()) \
+        < 2e-3 * max(scale, 1.0)

@@ -528,8 +528,18 @@ def test_mismatched_checkpoint_is_refused_runtime_change_accepted(tmp_path):
 
 
 def test_enkf_member_sharding_raises(tmp_path):
-    pipe = port_pipe(tmp_path, 2, solver="enkf", enkf_shard="members")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    """``enkf_shard="members"`` over a mesh whose size does not divide
+    the members raises, as the reference's pipeline does (the
+    member-parallel runs themselves: tests/test_torch_multichip.py)."""
+    from ionotomo_tpu_torch.parallel.sharding import ray_mesh
+
+    jdp = world(2)[0]
+    tc = configs(tmp_path, solver="enkf", enkf_shard="members",
+                 enkf_members=2)[1]
+    pipe = tpipeline.InversionPipeline(
+        port_datapack(jdp), tc, device="cpu",
+        mesh=ray_mesh([torch.device("cpu")] * 3))
+    with pytest.raises(ValueError, match="divisible by the device count"):
         pipe.run(resume=False)
 
 

@@ -228,7 +228,8 @@ def test_build_flags_target_hopper_with_ieee_math():
         "trace_leapfrog_cubic.cu", "rows_value_fwd_batched.cu",
         "rows_value_bwd_batched.cu", "zpc_value_grad.cu",
         "zpc_value_grad_bwd.cu", "quad_value_grad.cu",
-        "trace_leapfrog_zpc.cu", "trace_leapfrog_quad.cu", "trace_split.cu"}
+        "trace_leapfrog_zpc.cu", "trace_leapfrog_quad.cu", "trace_split.cu",
+        "cubic_sharded.cu", "cubic_sharded_bwd.cu"}
     assert build.BUILD_DIR.relative_to(REPO).parts[0] == "build"
 
 
