@@ -396,6 +396,7 @@ import contextlib
 import ctypes
 import dataclasses
 import hashlib
+import importlib
 import json
 import shutil
 import subprocess
@@ -418,6 +419,48 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
          "--id=0"], capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip()
+
+
+@contextlib.contextmanager
+def card_clocks(label):
+    """The card's SM and memory clocks [MHz], temperature [°C] and power
+    draw [W], sampled by nvidia-smi every 100 ms while the body runs; the
+    least, median and greatest of each printed ("not measured" where
+    nvidia-smi gave no sample). The sampler is stopped on the way out."""
+    keys = ("clocks.sm", "clocks.mem", "temperature.gpu", "power.draw")
+    try:
+        proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=" + ",".join(keys),
+             "--format=csv,noheader,nounits", "--id=0", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    except OSError:
+        proc = None
+    try:
+        yield
+    finally:
+        text = ""
+        if proc is not None:
+            proc.terminate()
+            try:
+                text = proc.communicate(timeout=10)[0]
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                text = proc.communicate()[0]
+        rows = []
+        for line in text.splitlines():
+            try:
+                rows.append([float(x) for x in line.split(",")])
+            except ValueError:
+                continue
+        rows = [r for r in rows if len(r) == len(keys)]
+        if not rows:
+            print(f"  card clocks during {label}: not measured")
+        else:
+            cols = np.array(rows).T
+            print(f"  card clocks during {label} ({len(rows)} samples, "
+                  f"least/median/greatest): " + "; ".join(
+                      f"{k} {c.min():g}/{np.median(c):g}/{c.max():g}"
+                      for k, c in zip(keys, cols)))
 
 
 def check(ok: bool, what: str):
@@ -989,33 +1032,38 @@ def index_add_call(flat, contrib, size):
 
 class Parent:
     """The kernels of the checkout at ``root`` (``--parent DIR``), the
-    commit before K1s and K6z were redesigned, built from its sources with
+    commit before K7 and K7ᵀ were redesigned, built from its sources with
     this checkout's nvcc flags. ``run(fn)`` calls fn with every kernel the
     parent's, each entry through this checkout's wrapper on the parent's
-    library, with the parent's launch of every call that sorts and packs
-    (``SORT_AND_PACK``) and K1s over its one background form, the general
-    one (``split_form``), so that ``run(call)`` is the parent's whole call.
-    The parent's library lacks the entries in ``NEW``, which it is opened
-    without; the kernels behind them have no parent.
+    library, so that ``run(call)`` is the parent's whole call, for every
+    kernel whose C interface this checkout kept. The entries in
+    ``CHANGED`` took another interface here, so the library is opened
+    without them (a call to one under ``run`` raises); the parent's own
+    package (``package``, loaded from ``root`` under another name, its
+    wrappers and plans on this library) calls them as the parent did. The
+    parent's library lacks the entries in ``NEW``, which it is opened
+    without; the kernels behind them have no parent. ``SORT_AND_PACK``
+    holds the parent's entries of ``kernels.SORT_AND_PACK`` that this
+    checkout changed and ``KERNELS`` the other module attributes behind
+    its calls; ``run`` swaps them in.
 
     ctypes cannot check a C interface, so the parent's sources are
     declared by their SHA-256, and any other checkout is refused rather
     than handed arguments it does not take."""
 
-    NEW = ("ionotomo_trace_split_layer", "ionotomo_cubic_sharded_value",
-           "ionotomo_cubic_sharded_value_grad",
-           "ionotomo_cubic_sharded_value_bwd",
-           "ionotomo_cubic_sharded_value_grad_bwd")
-
-    # the parent's kernels.SORT_AND_PACK entries that this checkout changed
-    # (K1s's leapfrog took K1c's call: packed always, sorted from 512 rays
-    # an SM at 256 a block, 64 below) and the other module attributes
-    # behind its calls
-    SORT_AND_PACK = {"trace_split": (512, 256, 64)}
-    KERNELS = {"SPLIT_PACKED_RAYS_PER_SM": 0,
-               "split_form": lambda background: "general"}
+    NEW = ()
+    CHANGED = ("ionotomo_cubic_sharded_value",
+               "ionotomo_cubic_sharded_value_grad",
+               "ionotomo_cubic_sharded_value_bwd",
+               "ionotomo_cubic_sharded_value_grad_bwd")
+    SORT_AND_PACK = {}
+    KERNELS = {}
 
     SOURCES = {
+        "cubic_sharded.cu":
+            "b7abbf86f460654d18fd7c71278d53a891051f5f775ae71454f0998d4c8dfaec",
+        "cubic_sharded_bwd.cu":
+            "a392669e2229cee4ee0a64ab4ae30c8731b1e892c24df86a157c00f7a8d93c83",
         "cubic_value_grad.cu":
             "e7a491381cdfbf7886294e643e79676595109eba094861c18f65d665a0a5aa74",
         "cubic_value_grad_bwd.cu":
@@ -1039,7 +1087,7 @@ class Parent:
         "trace_leapfrog_zpc.cu":
             "36ffa013cc5104dfb2f5939f0bcf053a28df6d5e514eb9e572614dc13e58ea1c",
         "trace_split.cu":
-            "31a0c34eacff832017507266607b2586a33da43adf367b173269dd1899c84ee4",
+            "f1149b7f5e66142e68583e3ebda462c338a567ae8534aa53768fdf1e9eee113a",
         "vector_gather.cu":
             "e0d19a2da2d4ccef5782631ae780053fa77062ae0c19c1e7935b9ff7ee882216",
         "zp_value_grad.cu":
@@ -1047,7 +1095,7 @@ class Parent:
         "zp_value_grad_bwd.cu":
             "eb6fb1308c6193f1a528bdeb52ae7c21be3c7e667df9382c1eb590bc5e878d90",
         "zpc_value_grad.cu":
-            "99c86361a62704ea322b9265f4214032b2e4f883236c0ccbc7bfcac3911703c1",
+            "10bb527cee3092ef9da662aee2cf772568fad3a8e92800040a2f4a6f3e35759f",
         "zpc_value_grad_bwd.cu":
             "8f5c547e2058e82d1e1062222bd57848a37e1c375f72c28be6c589e736d369fc",
     }
@@ -1055,7 +1103,8 @@ class Parent:
     def __init__(self, root):
         from ionotomo_tpu_torch.kernels import build
 
-        csrc = Path(root) / "ionotomo_tpu_torch" / "kernels" / "csrc"
+        self.root = Path(root)
+        csrc = self.root / "ionotomo_tpu_torch" / "kernels" / "csrc"
         got = {f.name: hashlib.sha256(f.read_bytes()).hexdigest()
                for f in csrc.glob("*.cu")}
         if got != self.SOURCES:
@@ -1066,9 +1115,43 @@ class Parent:
         info = build.build(csrc, build.BUILD_DIR / "parent")
         self.build, self.info = build, info
         self.lib = build.open_library(
-            info["path"], [n for n in build._SIGNATURES if n not in self.NEW])
+            info["path"], [n for n in build._SIGNATURES
+                           if n not in self.NEW + self.CHANGED])
+        for name in self.CHANGED:
+            setattr(self.lib, name, self._refused(name))
+        self._package = None
         print(f"  parent kernels from {csrc} (built={info['built']} in "
               f"{info['seconds']:.2f} s)")
+
+    @staticmethod
+    def _refused(name):
+        def call(*args):
+            raise RuntimeError(f"{name}: the parent's entry takes another C "
+                               f"interface; call it through "
+                               f"Parent.package()")
+        return call
+
+    def package(self):
+        """The parent's ``ionotomo_tpu_torch``, loaded from ``root`` as
+        ``parent_ionotomo_tpu_torch`` (its own modules, wrappers and
+        plans), its kernels on the parent's library opened with the
+        parent's own C signatures."""
+        if self._package is None:
+            import importlib
+            import importlib.util
+
+            name = "parent_ionotomo_tpu_torch"
+            pkg = self.root / "ionotomo_tpu_torch"
+            spec = importlib.util.spec_from_file_location(
+                name, pkg / "__init__.py",
+                submodule_search_locations=[str(pkg)])
+            module = importlib.util.module_from_spec(spec)
+            sys.modules[name] = module
+            spec.loader.exec_module(module)
+            pbuild = importlib.import_module(name + ".kernels.build")
+            pbuild._loaded["lib"] = pbuild.open_library(self.info["path"])
+            self._package = module
+        return self._package
 
     def run(self, fn):
         """fn() with the parent's kernels behind this checkout's wrappers
@@ -7435,6 +7518,9 @@ def plain_solves(n, root=None) -> int:
 GRID_SHARDS = 8
 RAY_SHARDS = 4
 PIPE_SHARDS = 2
+#: parent/new pairs of the sharded-grid LSQR timed in turns on the host
+#: clock (it is host-bound: its spread is the host's)
+LSQR_PAIRS = 10
 #: the sharded solves against the unsharded ones: the reference's dry-run
 #: parity bound (``__graft_entry__.py``), of max|m|, which holds at its
 #: schedule (gn 1, cg 8; a 2-step filter at cg 4) only
@@ -7467,13 +7553,18 @@ K7_KERNELS = {
 }
 
 
-def k7_bound(tricubic, grid, pts, owners, grad):
-    """K7 over all shards: every shard reads every point (12 B) and writes
-    every output (4 B, 16 with the gradient), and reads each distinct value
-    its owned points' taps touch once; an evaluation an owned point."""
+def k7_bound(tricubic, grid, pts, owners, grad, ordered=True):
+    """K7 over all shards: every shard writes every output (4 B, 16 with
+    the gradient) and reads each distinct value its owned points' taps
+    touch once; over the shards' orders (the main path's form) each owned
+    point (12 B) and its index (4 B) are read once and each shard's mask
+    (a bit a point), one-shot every shard reads every point (12 B); an
+    evaluation an owned point."""
     n = pts.shape[0]
+    s_n = len(owners)
     touched = sum(distinct_taps(tricubic, grid, pts[own]) for own in owners)
-    return bound(len(owners) * (12 + (16 if grad else 4)) * n + 4 * touched,
+    reads = (16 * n + s_n * 4 * -(-n // 32)) if ordered else s_n * 12 * n
+    return bound(reads + s_n * (16 if grad else 4) * n + 4 * touched,
                  n * FLOPS_K5_POINT)
 
 
@@ -7498,39 +7589,49 @@ def owners_of(gs, sf, grid, pts):
 
 
 def k7_at(label, gs, kernels, tricubic, sf, grid, table, pts, gen,
-          reps=10, plain_reps=2, full=True):
+          reps=10, plain_reps=2, full=True, parent=None):
     """K7 and K7ᵀ at one point set over the shards of ``sf``: the shards'
     K7 (value, and value + gradient) summed in shard order bitwise equal
-    to K5 on the whole table, each shard within 1e-6·max|table| of its
-    plain version; K7ᵀ of both entries into a random slab bitwise its
+    to K5 on the whole table, one-shot and over a ``ShardedPoints``'
+    orders (the main path's form), each shard within 1e-6·max|table| of
+    its plain version; K7ᵀ of both entries into a random slab bitwise its
     plain version and the same twice; device ms summed over the shards
-    (and per shard by CUDA events), the plain versions', the bound;
-    K7ᵀ beside ``index_add_`` of its owned entries' contributions into the
-    slab. ``full``: time the value entries too (else the gradient ones
-    only). Returns the lines by wrapper name."""
+    (and per shard by CUDA events), the one-shot K7's, the plain
+    versions', the bound (K7's over the orders, and the one-shot form's
+    apart); K7ᵀ beside ``index_add_`` of its owned entries' contributions
+    into the slab. ``full``: time the value entries too (else the
+    gradient ones only). ``parent``: K7 and K7ᵀ of the parent's package
+    (its wrappers and plans on its library) bitwise equal and timed in
+    turns. Returns the lines by wrapper name."""
     cuda = pts.is_cuda
     n = pts.shape[0]
     s_n = sf.n_shards
+    kept = gs.ShardedPoints(sf.mesh, grid, pts)
     v, g = gs._eval_shards(sf, grid, pts, True)
     vv = gs._eval_shards(sf, grid, pts, False)
+    ov, og = kept.eval(sf, True)
+    ovv = kept.eval(sf, False)
     owners = owners_of(gs, sf, grid, pts)
     check(bool((sum(o.long() for o in owners) == 1).all()),
           f"{label}: every one of {n} points has exactly one owner")
     if cuda:
         v5, g5 = kernels.cubic_value_grad(table, grid, pts)
-        check(bool(torch.equal(v, v5) and torch.equal(g, g5)
-                   and torch.equal(vv, v5)),
-              f"{label}: K7 (value; value + gradient) summed over {s_n} "
-              f"shards bitwise equal to K5 on the whole table")
+        check(all(torch.equal(a, v5) for a in (v, vv, ov, ovv))
+              and torch.equal(g, g5) and torch.equal(og, g5),
+              f"{label}: K7 (value; value + gradient; one-shot and over "
+              f"the shards' orders) summed over {s_n} shards bitwise equal "
+              f"to K5 on the whole table")
+    del v, g, vv, ov, og, ovv
+    orders = kept.orders()
     scale = float(table.abs().max())
     errs = {"cubic_sharded_value": 0.0, "cubic_sharded_value_grad": 0.0}
     for s in range(s_n):
         rv, rg = gs.sharded_value_grad_ref(sf.slab2d(s), grid, sf.x0(s),
                                            sf.loc, pts)
         kv, kg = gs._shard_eval(sf.slab2d(s), grid, sf.x0(s), sf.loc, pts,
-                                True)
+                                True, orders[s])
         kvv = gs._shard_eval(sf.slab2d(s), grid, sf.x0(s), sf.loc, pts,
-                             False)
+                             False, orders[s])
         errs["cubic_sharded_value"] = max(errs["cubic_sharded_value"],
                                           float((kvv - rv).abs().max()))
         errs["cubic_sharded_value_grad"] = max(
@@ -7541,8 +7642,16 @@ def k7_at(label, gs, kernels, tricubic, sf, grid, table, pts, gen,
         check(e <= 1e-6 * scale, f"{label}: {name} per shard within "
                                  f"1e-6*max|table| of its plain version "
                                  f"({e:.3e})")
-    plans = [gs.sharded_plan(grid, pts, sf.x0(s), sf.loc)
-             for s in range(s_n)]
+    plans = kept.plans()
+    n_entries = sum(p.order.shape[0] for p in plans)
+    n_tasks = sum(p.n_tasks for p in plans)
+    print(f"  {label}: K7ᵀ's {n_entries} entries (by shard "
+          f"{[p.order.shape[0] for p in plans]}) in {n_tasks} tasks (lanes "
+          f"filled {n_entries / max(32 * n_tasks, 1):.3f}), "
+          f"{sum(p.big_cell.shape[0] for p in plans)} cells of more than "
+          f"32 entries in {sum(p.n_sub for p in plans)} subtrees, most "
+          f"{max(int((p.starts[1:] - p.starts[:-1]).max()) if p.n_cells else 0 for p in plans)} "
+          f"entries a cell")
     cv = torch.randn(n, generator=gen, device=pts.device)
     cg = torch.randn((n, 3), generator=gen, device=pts.device)
     slabs = [torch.randn(p.slab_cells, generator=gen, device=pts.device)
@@ -7561,6 +7670,30 @@ def k7_at(label, gs, kernels, tricubic, sf, grid, table, pts, gen,
     lines = {}
     if not cuda:
         return lines
+    pgs = pplans = None
+    if parent is not None:
+        pgs = importlib.import_module(parent.package().__name__
+                                      + ".parallel.grid_sharding")
+        pplans = [pgs.sharded_plan(grid, pts, sf.x0(s), sf.loc)
+                  for s in range(s_n)]
+        same = {}
+        for grad in (False, True):
+            c = cg if grad else None
+            same[grad] = all(
+                all(torch.equal(a, b) for a, b in zip(
+                    _outputs(gs._shard_eval(sf.slab2d(s), grid, sf.x0(s),
+                                            sf.loc, pts, grad, orders[s])),
+                    _outputs(pgs._shard_eval(sf.slab2d(s), grid, sf.x0(s),
+                                             sf.loc, pts, grad))))
+                and torch.equal(
+                    gs._shard_transpose_add_(slabs[s].clone(), plans[s],
+                                             grid, cv, c),
+                    pgs._shard_transpose_add_(slabs[s].clone(), pplans[s],
+                                              grid, cv, c))
+                for s in range(s_n))
+        check(same[False] and same[True],
+              f"{label}: K7 and K7ᵀ (value; value + gradient) at all {s_n} "
+              f"shards bitwise the parent's")
     cells = [torch.repeat_interleave(p.cells.long(),
                                      (p.starts[1:] - p.starts[:-1]).long())
              for p in plans]
@@ -7570,17 +7703,38 @@ def k7_at(label, gs, kernels, tricubic, sf, grid, table, pts, gen,
     if full:
         kinds = [("cubic_sharded_value", False, False),
                  ("cubic_sharded_value_bwd", False, True)] + kinds
+    with card_clocks(f"{label}'s timings"):
+        _k7_times(lines, kinds, label, gs, kernels, tricubic, sf, grid, pts,
+                  owners, orders, plans, slabs, running, cells, cv, cg, errs,
+                  reps, plain_reps, pgs, pplans)
+    return lines
+
+
+def _k7_times(lines, kinds, label, gs, kernels, tricubic, sf, grid, pts,
+              owners, orders, plans, slabs, running, cells, cv, cg, errs,
+              reps, plain_reps, pgs, pplans):
+    """``k7_at``'s timings, into ``lines``."""
+    n, s_n = pts.shape[0], sf.n_shards
     for name, grad, bwd in kinds:
+        one_shot = parent_one = None
         if not bwd:
             fn = getattr(kernels, name)
 
             def one(s, fn=fn):
+                return fn(sf.slab2d(s), grid, sf.x0(s), sf.loc, pts,
+                          orders[s])
+
+            def one_shot(s, fn=fn):
                 return fn(sf.slab2d(s), grid, sf.x0(s), sf.loc, pts)
 
             def plain_one(s, grad=grad):
                 ref = (gs.sharded_value_grad_ref if grad
                        else gs.sharded_value_ref)
                 return ref(sf.slab2d(s), grid, sf.x0(s), sf.loc, pts)
+            if pgs is not None:
+                def parent_one(s, grad=grad):
+                    return pgs._shard_eval(sf.slab2d(s), grid, sf.x0(s),
+                                           sf.loc, pts, grad)
             library = None
             bnd = k7_bound(tricubic, grid, pts, owners, grad)
         else:
@@ -7593,6 +7747,10 @@ def k7_at(label, gs, kernels, tricubic, sf, grid, table, pts, gen,
             def plain_one(s, c=c):
                 return gs.sharded_transpose_ref(running[s].clone(), plans[s],
                                                 grid, cv, c)
+            if pgs is not None:
+                def parent_one(s, c=c):
+                    return pgs._shard_transpose_add_(running[s], pplans[s],
+                                                     grid, cv, c)
             terms = [gs._entry_terms(p, grid, cv, c) for p in plans]
             bufs = [torch.zeros(p.slab_cells, device=pts.device)
                     for p in plans]
@@ -7601,7 +7759,10 @@ def k7_at(label, gs, kernels, tricubic, sf, grid, table, pts, gen,
                 for b, f, t in zip(bufs, cells, terms):
                     b.index_add_(0, f, t)
             bnd = k7t_bound(tricubic, grid, pts, owners, grad)
-        ms = device_ms(lambda: [one(s) for s in range(s_n)], reps)
+
+        def call(one=one):
+            return [one(s) for s in range(s_n)]
+        ms = device_ms(call, reps)
         per_shard = [cuda_ms(lambda s=s: one(s), reps) for s in range(s_n)]
         plain_ms = device_ms(lambda: [plain_one(s) for s in range(s_n)],
                              plain_reps)
@@ -7617,7 +7778,200 @@ def k7_at(label, gs, kernels, tricubic, sf, grid, table, pts, gen,
                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                            library_ms=lib_ms, ms_per_shard=per_shard,
                            points=n, shards=s_n)
+        if one_shot is not None:
+            lines[name]["one_shot_ms"] = device_ms(
+                lambda: [one_shot(s) for s in range(s_n)], reps)
+            lines[name]["one_shot_bound_ms"] = k7_bound(
+                tricubic, grid, pts, owners, grad, ordered=False)[0]
+            print(f"  {label}: {name} one-shot (the points' order) "
+                  f"{lines[name]['one_shot_ms']:.4f} ms, bound "
+                  f"{lines[name]['one_shot_bound_ms']:.4f} ms")
+        base = slabs if bwd else None
+
+        def fresh(fn):
+            """Every shard's output of fn, flat; a transpose into a copy
+            of its random slab."""
+            outs = [fn(s) if base is None else fn_into(fn, s)
+                    for s in range(s_n)]
+            return [t for o in outs for t in _outputs(o)]
+
+        def fn_into(fn, s):
+            saved = running[s]
+            running[s] = base[s].clone()
+            try:
+                return fn(s)
+            finally:
+                running[s] = saved
+        if parent_one is not None:
+            p_ms, n_ms = compare_parent(
+                f"{label}: {name} over {s_n} shards",
+                lambda: fresh(parent_one), lambda: fresh(one), reps,
+                new_timed=call,
+                parent_timed=lambda: [parent_one(s) for s in range(s_n)])
+            lines[name]["parent_ms"], lines[name]["new_ms_in_turns"] = (
+                p_ms, n_ms)
     return lines
+
+
+def with_attr(module, attr, value, fn):
+    """fn() with module.attr set to value."""
+    saved = getattr(module, attr)
+    setattr(module, attr, value)
+    try:
+        return fn()
+    finally:
+        setattr(module, attr, saved)
+
+
+#: ``--k7-study``'s sweep: uniform random points over the 8 shards of a
+#: 256³ field, from 8 to 1,024 points a shard an SM of an H100 (132)
+K7_STUDY_POINTS = tuple(8 * 132 * k for k in (8, 16, 32, 64, 128, 256, 512,
+                                              1024))
+#: the thresholds set to force a path: K7's four lanes or one, K7ᵀ's one
+#: task a warp or two
+FORCE_FOUR, FORCE_ONE = 1 << 30, -1
+FORCE_SINGLE, FORCE_PAIR = 1 << 30, 0
+#: the thresholds (K7_QUAD_POINTS_PER_SM, K7T_PAIR_TASKS_PER_SM) before
+#: the sweep placed them, held against the module's at config 4's shapes
+K7_RULES_BEFORE = (64, 256)
+
+
+def k7_rules_in_turns(label, sf, grid, pts, gen, quad, pair, reps=10):
+    """At points over the shards of ``sf``: K7's value over the shards'
+    orders built with ``kernels.K7_QUAD_POINTS_PER_SM`` at quad[0] against
+    quad[1], and K7ᵀ (value; value + gradient) over plans built with
+    ``K7T_PAIR_TASKS_PER_SM`` at pair[0] against pair[1]; each pair
+    bitwise equal and timed in turns (device ms summed over the shards,
+    the first setting in the parent's place). Returns the readings and
+    each shard's owned points and tasks an SM."""
+    from ionotomo_tpu_torch import kernels
+    from ionotomo_tpu_torch.parallel import grid_sharding as gs
+
+    dev = pts.device
+    n = pts.shape[0]
+    shards = range(sf.n_shards)
+    sms = kernels.sm_count(dev)
+    cv = torch.randn(n, generator=gen, device=dev)
+    cg = torch.randn((n, 3), generator=gen, device=dev)
+
+    def orders(quad):
+        return with_attr(kernels, "K7_QUAD_POINTS_PER_SM", quad, lambda: [
+            gs.shard_order(grid, pts, sf.x0(s), sf.loc) for s in shards])
+
+    def k7(orders):
+        return lambda: [kernels.cubic_sharded_value(
+            sf.slab2d(s), grid, sf.x0(s), sf.loc, pts, orders[s])
+            for s in shards]
+
+    def plans(pair):
+        return with_attr(kernels, "K7T_PAIR_TASKS_PER_SM", pair, lambda: [
+            gs.sharded_plan(grid, pts, sf.x0(s), sf.loc) for s in shards])
+
+    def k7t(plans, c, into=None):
+        return [gs._shard_transpose_add_(
+            torch.zeros(p.slab_cells, device=dev) if into is None
+            else into[s], p, grid, cv, c) for s, p in enumerate(plans)]
+
+    a, b = orders(quad[0]), orders(quad[1])
+    row = {"owned_per_sm": [o.index.shape[0] / sms for o in a],
+           "lanes": [[o.lanes for o in a], [o.lanes for o in b]]}
+    row["k7_value_ms"] = compare_parent(
+        f"{label}: K7 value, lanes {row['lanes'][0]} (as parent) against "
+        f"{row['lanes'][1]}", k7(a), k7(b), reps)
+    del a, b
+    a, b = plans(pair[0]), plans(pair[1])
+    row["tasks_per_sm"] = [p.n_tasks / sms for p in a]
+    row["tasks_per_warp"] = [[p.tasks_per_warp for p in a],
+                             [p.tasks_per_warp for p in b]]
+    running = [torch.zeros(p.slab_cells, device=dev) for p in a]
+    for c, key in ((None, "k7t_value_ms"), (cg, "k7t_value_grad_ms")):
+        row[key] = compare_parent(
+            f"{label}: K7ᵀ {key[4:-3]}, tasks a warp "
+            f"{row['tasks_per_warp'][0]} (as parent) against "
+            f"{row['tasks_per_warp'][1]}",
+            lambda c=c: k7t(a, c), lambda c=c: k7t(b, c), reps,
+            new_timed=lambda c=c: k7t(b, c, running),
+            parent_timed=lambda c=c: k7t(a, c, running))
+    print(f"  {label}: owned points a shard an SM "
+          + ", ".join(f"{x:.0f}" for x in row["owned_per_sm"])
+          + "; tasks a shard an SM "
+          + ", ".join(f"{x:.0f}" for x in row["tasks_per_sm"]))
+    return row
+
+
+def k7_study(dev, rules=None):
+    """``--k7-study``: where K7's lanes a point and K7ᵀ's tasks a warp
+    cross over, by ``k7_rules_in_turns``: over the 8 shards of a random
+    256³ field at uniform random points of each size in
+    ``K7_STUDY_POINTS``, four lanes against one and one task a warp
+    against two; then at config 4's bundle points and endpoints over its
+    8 shards, the thresholds ``rules`` ((K7_QUAD_POINTS_PER_SM,
+    K7T_PAIR_TASKS_PER_SM), another setting) against the module's.
+    Returns the readings by point set."""
+    from ionotomo_tpu_torch import configs, kernels
+    from ionotomo_tpu_torch.core.grids import Grid3D
+    from ionotomo_tpu_torch.forward import tec
+    from ionotomo_tpu_torch.parallel import grid_sharding as gs
+
+    shape = (256, 256, 256)
+    grid = Grid3D.from_bounds((-400.0, -400.0, 0.0), (400.0, 400.0, 1100.0),
+                              shape, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    mesh = gs.grid_mesh([dev] * GRID_SHARDS)
+    sf = gs.shard_field(mesh, torch.randn(shape, generator=gen, device=dev))
+    out = {}
+    for n in K7_STUDY_POINTS:
+        pts = grid.origin + (grid.upper() - grid.origin) * torch.rand(
+            (n, 3), generator=gen, device=dev)
+        out[n] = k7_rules_in_turns(
+            f"K7 study, {n} uniform points", sf, grid, pts, gen,
+            (FORCE_FOUR, FORCE_ONE), (FORCE_SINGLE, FORCE_PAIR))
+    del sf
+    if rules is not None:
+        w4 = configs.config4_world(shape=shape, device=dev)
+        sf4 = gs.shard_field(mesh, w4.m_prior)
+        ends, _ = tec._endpoint_tangents(w4.rays.points)
+        now = (kernels.K7_QUAD_POINTS_PER_SM, kernels.K7T_PAIR_TASKS_PER_SM)
+        for key, pts in (("config4_points", w4.rays.points.reshape(-1, 3)),
+                         ("config4_ends", ends)):
+            out[key] = k7_rules_in_turns(
+                f"K7 study, config 4's {pts.shape[0]} {key[8:]}, the "
+                f"thresholds {rules} against {now}", sf4, w4.grid, pts, gen,
+                (rules[0], now[0]), (rules[1], now[1]))
+    return out
+
+
+def profile_by_kernel(label, fn, top=12):
+    """One call of fn under torch.profiler, after the caller's warm-up:
+    its device time by kernel ({name: [launches, us]}, the total under
+    "all"), the largest printed, and its host time by op printed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = {e.key: [e.count, e.self_device_time_total]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+    total = sum(us for _, us in rows.values())
+    print(f"  profiled {label}: {total:.1f} us of device time in "
+          f"{sum(n for n, _ in rows.values())} launches")
+    for key, (count, us) in sorted(rows.items(), key=lambda r: -r[1][1])[
+            :top]:
+        print(f"    {us:10.1f} us {count:5d}x  {key[:100]}")
+    host = sorted(((e.key, e.self_cpu_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0), key=lambda r: -r[1])
+    print(f"  its host time by op (profiler on, "
+          f"{sum(r[1] for r in host):.1f} us in all):")
+    for key, us, count in host[:8]:
+        print(f"    {us:10.1f} us {count:5d}x  {key[:100]}")
+    rows["all"] = [sum(n for n, _ in rows.values()), total]
+    return rows
 
 
 @contextlib.contextmanager
@@ -7687,11 +8041,14 @@ def sharded_reading(got, want, prior, heldout):
     return rel, abs(hg - hw) / hw if hw else 0.0
 
 
-def phase18_sharded(dev, kernels, results, small=False):
+def phase18_sharded(dev, kernels, results, small=False, profile=False,
+                    parent=None):
     """The multi-device layer (``parallel/``) at full width with its S
     shards in turn on one card (an arithmetic check, not a multi-card
     speed; ``small``: a CPU rehearsal at toy sizes, the kernels' checks
-    left out):
+    left out; ``parent``: K7, K7ᵀ and the LSQR held bitwise to the
+    parent's package and timed in turns with it; ``profile``: the LSQR's
+    device time by kernel, the parent's beside it):
 
     1. K7 and K7ᵀ at config 4's 256³ world over 8 shards (its 650,000
        bundle points, its 20,000 endpoints), at 917,504 edge-case points
@@ -7775,12 +8132,13 @@ def phase18_sharded(dev, kernels, results, small=False):
               f"8 shards' K7 outputs at {pts4.shape[0]} points "
               f"{out['psum_ms']:.4f} ms (CUDA events)")
         del outs
+    k7_kw = dict(parent=parent)
     out["at"]["config4_points"] = k7_at(
         f"config 4's {pts4.shape[0]} bundle points", gs, kernels, tricubic,
-        sf4, grid4, table4, pts4, gen)
+        sf4, grid4, table4, pts4, gen, **k7_kw)
     out["at"]["config4_ends"] = k7_at(
         f"config 4's {ends4.shape[0]} endpoints", gs, kernels, tricubic, sf4,
-        grid4, table4, ends4, gen)
+        grid4, table4, ends4, gen, **k7_kw)
     rng = np.random.default_rng(18)
     o4, s4 = grid4.origin.cpu().numpy(), grid4.spacing.cpu().numpy()
     edge = edge_case_points(shape4, o4, s4, 4096 if small else 1 << 20,
@@ -7795,7 +8153,7 @@ def phase18_sharded(dev, kernels, results, small=False):
     out["at"]["edge"] = k7_at(f"{n_edge} edge-case points of {shape4} (on "
                               f"every x-plane, outside the grid)", gs,
                               kernels, tricubic, sf4, grid4, table4, edge,
-                              gen, full=False)
+                              gen, full=False, **k7_kw)
     del edge
     shape5 = (64, 64, 64) if small else (512, 512, 512)
     grid5 = Grid3D.from_bounds((-400.0, -400.0, 0.0), (400.0, 400.0, 1100.0),
@@ -7808,7 +8166,7 @@ def phase18_sharded(dev, kernels, results, small=False):
     out["at"]["random_512"] = k7_at(
         f"{n_rand} random points of a {shape5} field", gs, kernels,
         tricubic, sf5, grid5, f5.reshape(-1, shape5[2]), rnd, gen,
-        full=False)
+        full=False, **k7_kw)
     del sf5, f5, rnd
     torch.cuda.empty_cache() if cuda else None
     print(f"  [K7 and K7ᵀ: {time.perf_counter() - t0:.1f} s]")
@@ -7854,8 +8212,9 @@ def phase18_sharded(dev, kernels, results, small=False):
     launches = dict(kernels.launches) if cuda else {}
     if cuda:
         for name in K7_KERNELS:
-            check(launches[name] > 0, f"{name} launched in the sharded-grid "
-                                      f"LSQR ({launches[name]} times)")
+            check(launches[name] > 0 and launches[name] % GRID_SHARDS == 0,
+                  f"{name} launched in the sharded-grid LSQR, once a shard "
+                  f"a call ({launches[name]} times)")
     dm_un, secs_un = clock(lambda: lsqr(op_un, r_un))
     err = float((dm_sh - dm_un).abs().max())
     scale = float(dm_un.abs().max())
@@ -7877,6 +8236,35 @@ def phase18_sharded(dev, kernels, results, small=False):
     print(f"  sharded-grid LSQR {secs_sh:.3f} s against {secs_un:.3f} s "
           f"unsharded (host clock); launches {out['launches']}; J/Jᵀ ms "
           f"{out.get('apply_ms')}")
+    op_p = None
+    if cuda and parent is not None:
+        pgs = importlib.import_module(parent.package().__name__
+                                      + ".parallel.grid_sharding")
+        op_p = pgs.ShardedGridDtecLinear(mesh8, op_sh.sf, grid4, w4.rays,
+                                         None, None)
+        check(bool(torch.equal(lsqr(op_p, r_sh), dm_sh)),
+              "the sharded-grid LSQR bitwise the parent's")
+        turns = {"parent": [], "new": []}
+        for i in range(LSQR_PAIRS):
+            for who in (("new", "parent") if i % 2 == 0
+                        else ("parent", "new")):
+                turns[who].append(timed(lambda: lsqr(
+                    op_sh if who == "new" else op_p, r_sh))[1])
+        out["lsqr"]["seconds_in_turns"] = turns
+        out["lsqr"]["median_in_turns"] = {
+            who: float(np.median(t)) for who, t in turns.items()}
+        print(f"  sharded-grid LSQR in turns, {LSQR_PAIRS} pairs (host "
+              f"clock): " + "; ".join(
+                  f"{who} median {np.median(t):.4f} s, {min(t):.4f}-"
+                  f"{max(t):.4f} ({', '.join(f'{x:.4f}' for x in t)})"
+                  for who, t in turns.items()))
+    if cuda and profile:
+        out["lsqr"]["profile"] = {"new": profile_by_kernel(
+            "the sharded-grid LSQR", lambda: lsqr(op_sh, r_sh))}
+        if op_p is not None:
+            out["lsqr"]["profile"]["parent"] = profile_by_kernel(
+                "the parent's sharded-grid LSQR", lambda: lsqr(op_p, r_sh))
+    del op_p
     del op_sh, op_un, dm_sh, dm_un, v, y, sf4, w4
     torch.cuda.empty_cache() if cuda else None
     print(f"  [J, Jᵀ, LSQR: {time.perf_counter() - t1:.1f} s]")
@@ -8177,9 +8565,12 @@ def phase18_sharded(dev, kernels, results, small=False):
     return out
 
 
-def sharded_only() -> int:
+def sharded_only(parent_dir=None, profile=False, study=False) -> int:
     """``--sharded``: the build and phase 18 alone (the multi-device layer
-    with its shards on the one card)."""
+    with its shards on the one card); with ``--parent DIR`` K7, K7ᵀ and the
+    LSQR held to the parent's and timed in turns, with ``--profile`` the
+    LSQR's device time by kernel, with ``--k7-study`` first the sweep of
+    ``k7_study``."""
     from ionotomo_tpu_torch import kernels
     from ionotomo_tpu_torch.kernels import build
 
@@ -8188,13 +8579,19 @@ def sharded_only() -> int:
     print(f"card: {card_line()}")
     info = build.build()
     print(f"  built={info['built']} in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "sharded" in line and ("registers" in line or "spill" in line):
-            print(f"  ptxas: {line.strip()}")
+    for kernel, (regs, stack, spill_st, spill_ld) in ptxas_by_kernel(
+            info["log"]).items():
+        if "sharded" in kernel:
+            print(f"  ptxas: {kernel}: {regs} registers, stack {stack} B, "
+                  f"spills {spill_st}/{spill_ld} B")
     build.load()
+    parent = Parent(parent_dir) if parent_dir else None
     lap = Laps()
     results = {}
-    phase18_sharded(dev, kernels, results)
+    if study:
+        results["k7_study"] = k7_study(dev, K7_RULES_BEFORE)
+        lap("k7_study")
+    phase18_sharded(dev, kernels, results, profile=profile, parent=parent)
     lap("phase18_sharded")
     main, at = sharded_kernel_entries(results)
     print(json.dumps({"kernels": main, "kernels_at_sharded": at}))
@@ -8224,7 +8621,10 @@ def sharded_kernel_entries(results):
                 **{k: line[k] for k in keys}, "timed_by": timed_by(line),
                 "ms_per_shard": line["ms_per_shard"],
                 "points": line["points"], "shards": line["shards"],
-                "shape": shape}
+                "shape": shape,
+                **{k: line[k] for k in ("one_shot_ms", "parent_ms",
+                                        "new_ms_in_turns", "variants")
+                   if k in line}}
     main = [row(name, sh["at"][shape][name], shape)
             for name in K7_KERNELS
             for shape in (("config4_ends",) if "grad" in name
@@ -8773,7 +9173,7 @@ def main() -> int:
     if "--predict" in args:
         return predict_only(profile)
     if "--sharded" in args:
-        return sharded_only()
+        return sharded_only(parent_dir, profile, "--k7-study" in args)
 
     from ionotomo_tpu_torch import configs, kernels
     from ionotomo_tpu_torch.core import (boxspline, triquadratic, tricubic,
@@ -8870,7 +9270,7 @@ def main() -> int:
     phase17_predict(dev, kernels, results, profile=profile)
     lap("phase17_predict")
     torch.cuda.empty_cache()
-    phase18_sharded(dev, kernels, results)
+    phase18_sharded(dev, kernels, results, profile=profile, parent=parent)
     lap("phase18_sharded")
 
     line = kernels_line(results)

@@ -62,13 +62,16 @@
 - K7  ``cubic_sharded_value`` and ``cubic_sharded_value_grad``: the
   tricubic value (and physical gradient) at points over one x-slab of a
   field sharded along x, with its halos, zero where the shard does not
-  own the point (csrc/cubic_sharded.cu, on cubic_eval.cuh);
+  own the point, one-shot in the points' order or over the shard's order
+  (``parallel.grid_sharding.ShardOrder``: the owned points in cell order,
+  the zeros written apart; csrc/cubic_sharded.cu, on cubic_eval.cuh);
 - K7ᵀ ``cubic_sharded_value_bwd`` and ``cubic_sharded_value_grad_bwd``:
   their transposes added into the slab over a plan
   (``parallel.grid_sharding.sharded_plan``), each entry's weights
-  recomputed from its point's position: each occupied cell's entries
-  summed by a fixed pairwise tree, one thread a block of 64 entries, then
-  one thread a cell over its blocks' sums (csrc/cubic_sharded_bwd.cu).
+  formed from its point's u (kept in the plan): each occupied cell's entries
+  summed by a fixed pairwise tree, a warp a task of at most 32 entries
+  (whole cells, or an aligned subtree of a larger cell whose last warp
+  sums its subtrees), one launch (csrc/cubic_sharded_bwd.cu).
 
 Each wrapper checks dtype, shape, contiguity and device and raises on
 anything else (a CPU tensor included: the plain PyTorch versions live in
@@ -1256,81 +1259,155 @@ def vector_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _sharded_specs(name, slab2d, grid, x0: int, loc: int, points):
+def _sharded_specs(name, slab2d, grid, x0: int, loc: int, points, order):
     nx, ny, nz = grid.shape
     n = points.shape[0]
     if min(grid.shape) < 2 or not (2 <= loc and 0 <= x0 and x0 + loc <= nx):
         raise ValueError(f"{name}: needs every grid axis >= 2 and a shard "
                          f"of >= 2 planes inside the grid, got "
                          f"{grid.shape}, x0={x0}, loc={loc}")
-    return n, _check(name, [
-        ("slab2d", slab2d, torch.float32, ((loc + 4) * ny, nz)),
-        ("grid.origin", grid.origin, torch.float32, (3,)),
-        ("grid.spacing", grid.spacing, torch.float32, (3,)),
-        ("points", points, torch.float32, (n, 3))])
+    specs = [("slab2d", slab2d, torch.float32, ((loc + 4) * ny, nz)),
+             ("grid.origin", grid.origin, torch.float32, (3,)),
+             ("grid.spacing", grid.spacing, torch.float32, (3,))]
+    if order is None:
+        specs.append(("points", points, torch.float32, (n, 3)))
+    else:   # the kernel reads the order's copy of the owned points only
+        if order.n != n:
+            raise ValueError(f"{name}: an order of {order.n} points for "
+                             f"{n} points")
+        n_own = order.index.shape[0]
+        specs += [("order.index", order.index, torch.int32, (n_own,)),
+                  ("order.points", order.points, torch.float32, (n_own, 3)),
+                  ("order.mask", order.mask, torch.int32, (-(-n // 32),))]
+    return n, _check(name, specs)
+
+
+#: K7's ordered form takes four lanes a point for the value at up to this
+#: many owned points an SM, one above; the value + gradient always takes
+#: four (faster at config 4's bundle and endpoints). ``chip_smoke.py
+#: --k7-study`` on an NVIDIA H100 80GB HBM3 at 700 W: over uniform points
+#: four lanes beat one up to 256 owned points a shard an SM and lose from
+#: 512, so the crossover is placed between them; at config 4's shapes
+#: this threshold beat 64. ``grid_sharding.shard_order`` applies the rule
+#: once per order.
+K7_QUAD_POINTS_PER_SM = 384
+
+
+_SMS = {}
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device, read once."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
+def k7_lanes(n_own: int, sms: int) -> int:
+    """The lanes a point of K7's ordered value over n_own owned points on
+    a card of ``sms`` SMs."""
+    return 4 if n_own <= K7_QUAD_POINTS_PER_SM * sms else 1
+
+
+def _sharded_args(slab2d, grid, x0, loc, points, order):
+    """K7's arguments: the slab and grid, then the points and the order
+    (one-shot: the points in their order, no order; else the owned points
+    in the order, their indices and the ownership mask)."""
+    nx, ny, nz = grid.shape
+    head = (_ptr(slab2d), _ptr(grid.origin), _ptr(grid.spacing), nx, ny, nz,
+            int(x0), int(loc))
+    n = points.shape[0]
+    if order is None:
+        return head + (_ptr(points), n, None, 0, None)
+    return head + (_ptr(order.points), n, _ptr(order.index),
+                   order.index.shape[0], _ptr(order.mask))
 
 
 def cubic_sharded_value(slab2d: torch.Tensor, grid, x0: int, loc: int,
-                        points: torch.Tensor) -> torch.Tensor:
+                        points: torch.Tensor, order=None) -> torch.Tensor:
     """K7: the tricubic value (N,) at points (N, 3) of the shard of x-planes
     [x0, x0 + loc) of the global ``grid``, from its slab ((loc + 4)·ny, nz)
     (the shard's planes with 2 halo planes on either side), 0 where the
     shard does not own the point. The owner's value is bitwise K5's on the
-    whole table."""
+    whole table. ``order``: the points' ``grid_sharding.ShardOrder`` over
+    this shard (its owned points evaluated in cell order); None: one-shot,
+    in the points' order."""
     name = "cubic_sharded_value"
-    n, dev = _sharded_specs(name, slab2d, grid, x0, loc, points)
+    n, dev = _sharded_specs(name, slab2d, grid, x0, loc, points, order)
     value = torch.empty((n,), dtype=torch.float32, device=dev)
     if n == 0:
         return value
-    nx, ny, nz = grid.shape
     with torch.cuda.device(dev):
-        _launch(name, "ionotomo_" + name, _ptr(slab2d), _ptr(grid.origin),
-                _ptr(grid.spacing), nx, ny, nz, int(x0), int(loc),
-                _ptr(points), n, _ptr(value))
+        _launch(name, "ionotomo_" + name,
+                *_sharded_args(slab2d, grid, x0, loc, points, order),
+                order.lanes if order is not None else 0, _ptr(value))
     return value
 
 
 def cubic_sharded_value_grad(slab2d: torch.Tensor, grid, x0: int, loc: int,
-                             points: torch.Tensor):
+                             points: torch.Tensor, order=None):
     """K7 with the gradient: value (N,) and physical gradient (N, 3)
     [1/km], as ``cubic_sharded_value``; the owner's are bitwise K5's."""
     name = "cubic_sharded_value_grad"
-    n, dev = _sharded_specs(name, slab2d, grid, x0, loc, points)
+    n, dev = _sharded_specs(name, slab2d, grid, x0, loc, points, order)
     value = torch.empty((n,), dtype=torch.float32, device=dev)
     grad = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n == 0:
         return value, grad
-    nx, ny, nz = grid.shape
     with torch.cuda.device(dev):
-        _launch(name, "ionotomo_" + name, _ptr(slab2d), _ptr(grid.origin),
-                _ptr(grid.spacing), nx, ny, nz, int(x0), int(loc),
-                _ptr(points), n, _ptr(value), _ptr(grad))
+        _launch(name, "ionotomo_" + name,
+                *_sharded_args(slab2d, grid, x0, loc, points, order),
+                _ptr(value), _ptr(grad))
     return value, grad
 
 
+#: K7ᵀ takes two tasks a warp at this many tasks an SM or more (their
+#: loads in flight together, at the registers of one), one below, where
+#: the warps are too few to fill the card. ``chip_smoke.py --k7-study`` on
+#: an NVIDIA H100 80GB HBM3 at 700 W: over uniform points one task a warp
+#: beats two up to 32 tasks a shard an SM and two beat one from 64 (the
+#: value gaining up to 23 %, the value + gradient within 3 % between 128
+#: and 256), so the crossover is placed between 32 and 64; at config 4's
+#: shapes this threshold beat 256. ``grid_sharding.sharded_plan`` applies
+#: the rule once per plan.
+K7T_PAIR_TASKS_PER_SM = 64
+
+
+def k7t_tasks(n_tasks: int, sms: int) -> int:
+    """The tasks a warp of K7ᵀ over a plan of n_tasks tasks on a card of
+    ``sms`` SMs."""
+    return 2 if n_tasks >= K7T_PAIR_TASKS_PER_SM * sms else 1
+
+
 def _sharded_plan_specs(name, plan, slab, grid, n_points):
+    """Specs of what K7ᵀ reads of a ``grid_sharding.ShardPlan``; raises
+    unless the current stream is the one the plan was built on (calls on
+    two streams would share its counters and scratch)."""
+    if plan.counters.is_cuda and (torch.cuda.current_stream(
+            plan.counters.device).cuda_stream != plan.stream):
+        raise ValueError(f"{name}: the plan was built on another CUDA "
+                         f"stream; build one on the stream of this call")
+    n_big = plan.counters.shape[0]
     return [("slab", slab, torch.float32, (plan.slab_cells,)),
-            ("plan.order", plan.order, torch.int32, (plan.order.shape[0],)),
+            ("plan.entry", plan.entry, torch.int32, (plan.entry.shape[0],)),
             ("plan.cells", plan.cells, torch.int32, (plan.n_cells,)),
-            ("plan.cell_blocks", plan.cell_blocks, torch.int32,
-             (plan.n_cells + 1,)),
-            ("plan.blocks", plan.blocks, torch.int32, (plan.n_blocks + 1,)),
-            ("plan.own", plan.own, torch.int32, (plan.own.shape[0],)),
-            ("plan.points", plan.points, torch.float32, (n_points, 3)),
-            ("grid.origin", grid.origin, torch.float32, (3,)),
+            ("plan.tasks", plan.tasks, torch.int32, (plan.n_tasks, 4)),
+            ("plan.big_cell", plan.big_cell, torch.int32, (n_big,)),
+            ("plan.big_sub", plan.big_sub, torch.int32, (n_big + 1,)),
+            ("plan.counters", plan.counters, torch.int32, (n_big,)),
+            ("plan.partial", plan.partial, torch.float32,
+             (max(plan.n_sub, 1),)),
+            ("plan.u", plan.u, torch.float32, (n_points, 4)),
             ("grid.spacing", grid.spacing, torch.float32, (3,))]
 
 
 def _sharded_plan_args(plan, grid):
-    """The plan's pointers and counts and the grid as K7ᵀ takes them, and
-    the call's scratch for the blocks' partial sums."""
-    partial = torch.empty(max(plan.n_blocks, 1), dtype=torch.float32,
-                          device=plan.order.device)
-    nx, ny, nz = grid.shape
-    return (_ptr(plan.order), _ptr(plan.cells), _ptr(plan.cell_blocks),
-            plan.n_cells, _ptr(plan.blocks), plan.n_blocks, _ptr(plan.own),
-            _ptr(plan.points), _ptr(grid.origin), _ptr(grid.spacing), nx, ny,
-            nz), partial
+    """The plan's pointers and count and the grid's spacing as K7ᵀ takes
+    them."""
+    return (_ptr(plan.entry), _ptr(plan.cells), _ptr(plan.tasks),
+            plan.n_tasks, _ptr(plan.big_cell), _ptr(plan.big_sub),
+            _ptr(plan.counters), _ptr(plan.u), _ptr(grid.spacing))
 
 
 def cubic_sharded_value_bwd(slab: torch.Tensor, plan, grid,
@@ -1338,18 +1415,21 @@ def cubic_sharded_value_bwd(slab: torch.Tensor, plan, grid,
     """K7ᵀ of the value, accumulating: slab ((loc + 4)·ny·nz,) += the
     transpose of K7's value for the cotangent (N,), in place, over the
     shard's ``parallel.grid_sharding.ShardPlan`` of the global ``grid``
-    (each entry's weights recomputed from its point's position); returns
-    ``slab``. Only the plan's cells are read and written. Bitwise its
-    plain version (``grid_sharding.sharded_transpose_ref``); no float
-    atomics."""
+    (each entry's weights formed from its point's u, which the plan
+    keeps); returns
+    ``slab``. Only the plan's cells are read and written; a plan with no
+    entry launches nothing. Bitwise its plain version
+    (``grid_sharding.sharded_transpose_ref``); no float atomics."""
     name = "cubic_sharded_value_bwd"
     n = ct_value.shape[0]
     dev = _check(name, [("ct_value", ct_value, torch.float32, (n,))]
                  + _sharded_plan_specs(name, plan, slab, grid, n))
+    if plan.n_tasks == 0:
+        return slab
     with torch.cuda.device(dev):
-        args, partial = _sharded_plan_args(plan, grid)
-        _launch(name, "ionotomo_" + name, *args, _ptr(ct_value),
-                _ptr(partial), _ptr(slab))
+        _launch(name, "ionotomo_" + name, *_sharded_plan_args(plan, grid),
+                _ptr(ct_value), plan.tasks_per_warp, _ptr(plan.partial),
+                _ptr(slab))
     return slab
 
 
@@ -1364,8 +1444,10 @@ def cubic_sharded_value_grad_bwd(slab: torch.Tensor, plan, grid,
     dev = _check(name, [("ct_value", ct_value, torch.float32, (n,)),
                         ("ct_grad", ct_grad, torch.float32, (n, 3))]
                  + _sharded_plan_specs(name, plan, slab, grid, n))
+    if plan.n_tasks == 0:
+        return slab
     with torch.cuda.device(dev):
-        args, partial = _sharded_plan_args(plan, grid)
-        _launch(name, "ionotomo_" + name, *args, _ptr(ct_value),
-                _ptr(ct_grad), _ptr(partial), _ptr(slab))
+        _launch(name, "ionotomo_" + name, *_sharded_plan_args(plan, grid),
+                _ptr(ct_value), _ptr(ct_grad), plan.tasks_per_warp,
+                _ptr(plan.partial), _ptr(slab))
     return slab

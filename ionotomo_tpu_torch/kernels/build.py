@@ -91,15 +91,15 @@ _SIGNATURES = {
                                         _P, _I, _I, _I, _F, _F, _F, _F, _F,
                                         _F, _F, _F, _F, _I, _P, _P, _P, _P]),
     "ionotomo_cubic_sharded_value": (_I, [_P, _P, _P, _I, _I, _I, _I, _I,
-                                          _P, _I, _P, _P]),
+                                          _P, _I, _P, _I, _P, _I, _P, _P]),
     "ionotomo_cubic_sharded_value_grad": (_I, [_P, _P, _P, _I, _I, _I, _I,
-                                               _I, _P, _I, _P, _P, _P]),
-    "ionotomo_cubic_sharded_value_bwd": (_I, [_P, _P, _P, _I, _P, _I, _P,
-                                              _P, _P, _P, _I, _I, _I, _P,
-                                              _P, _P, _P]),
-    "ionotomo_cubic_sharded_value_grad_bwd": (_I, [_P, _P, _P, _I, _P, _I,
-                                                   _P, _P, _P, _P, _I, _I,
-                                                   _I, _P, _P, _P, _P, _P]),
+                                               _I, _P, _I, _P, _I, _P, _P,
+                                               _P, _P]),
+    "ionotomo_cubic_sharded_value_bwd": (_I, [_P, _P, _P, _I, _P, _P, _P,
+                                              _P, _P, _P, _I, _P, _P, _P]),
+    "ionotomo_cubic_sharded_value_grad_bwd": (_I, [_P, _P, _P, _I, _P, _P,
+                                                   _P, _P, _P, _P, _P, _I,
+                                                   _P, _P, _P]),
     "ionotomo_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

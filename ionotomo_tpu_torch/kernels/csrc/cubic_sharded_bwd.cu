@@ -18,111 +18,107 @@
 //                       + cgy * (wx_a * dwy_b)
 //                   c = s * wz_l + (cgz * wxy) * dwz_l,
 //                   wxy = wx_a * wy_b,  cg* = cg / spacing
-// The weights are recomputed from the point's position for each entry, as
-// K5^T forms them in its body: u = t - base of tricubic._neighborhood,
-// then the one weight of each axis the entry needs, in
-// _catmull_rom_weights' and _catmull_rom_dweights' operation order (a
-// first launch writing each owned point's 24 weights to scratch measured
-// slower on the main path's shapes). Each product, sum and quotient
-// is rounded on its own (__fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn,
-// never contracted to an fma), so the plain PyTorch version
+// The weights are formed for each entry from its point's u (u = t - base
+// of tricubic._neighborhood, which the plan keeps: 16 bytes a point, one
+// load), the one weight of each axis the entry needs, in
+// _catmull_rom_weights' and _catmull_rom_dweights' operation order (u
+// read from the plan measured faster than u formed from the point's
+// position, and a first launch writing each owned point's 24 weights to
+// scratch slower, on the main path's shapes). The four weights of an
+// axis differ in their coefficients only, so a lane forms its tap's
+// weight from selected coefficients with no branch on the tap (the lanes
+// of a warp hold different taps); a coefficient of -1 or 1 and an added -0 are
+// exact, so each weight is the plain version's. Each product, sum and
+// quotient is rounded on its own (__fmul_rn / __fadd_rn / __fdiv_rn, never
+// contracted to an fma), so the plain PyTorch version
 // (parallel/grid_sharding.py:sharded_transpose_ref), which does the same
 // operations one tensor op at a time, forms the same numbers.
 //
-// Design: plan and reduce, as K3 and K5^T are, without float atomics. The
-// plan (grid_sharding.py:sharded_plan, built once per point set and shard,
-// on the shard's device) lists the owned points (own (N_own,)) and every
-// (owned point, tap) entry e = j * 64 + 16a + 4b + l sorted by its slab
-// cell, stable, so a cell's entries are in entry order; cells (U,) are the
-// occupied cells, and each cell's entries are cut into blocks of at most
-// 2^b (SHARD_BLOCK) from its first. A cell's sum is a fixed pairwise tree
-// over its entries in plan order (a binary counter: two partial sums of
-// 2^k entries merge as soon as both exist, what is left merges from the
-// right), formed in two launches of one entry point: one thread a block
-// forms the tree of its entries, then one thread a cell the tree of its
-// blocks' sums, and adds it into the slab, slab[cell] = slab[cell] + sum.
-// A block of 2^b entries is one of the tree's aligned subtrees, so the two
-// passes form the one tree, and the plain version forms it in log2(most
-// entries a cell) passes over all entries at once: the two agree bit for
-// bit. The blocks bound a thread's serial chain where many stencils meet
-// one cell (a corner where points outside the grid are clamped: ~10^5
-// entries).
+// Summation: the plan (grid_sharding.py:sharded_plan, built once per point
+// set and shard, on the shard's device) lists every (owned point, tap)
+// entry, as point * 64 + 16a + 4b + l, sorted by its slab cell, stable,
+// so a cell's entries are in entry order. A cell's sum
+// is a fixed pairwise tree over its entries in plan order: at level k the
+// entry of rank r, r = 0 mod 2^(k+1), takes the partial sum of rank
+// r + 2^k when r + 2^k < size. The plain version forms it one level at a
+// time over all entries at once; here levels 0-4 are shuffles inside a
+// warp, and the levels above them the same rule over the cell's aligned
+// 32-entry subtree sums, so the two agree bit for bit.
+//
+// Design (a warp a task, shuffles, no float atomics): the plan's task list
+// gives each warp at most 32 consecutive entries, lane i entry i, so the
+// reads of the plan are coalesced and every lane forms its term at once.
+// A task is either whole cells of at most 32 entries, packed greedily (a
+// bit a lane marks the first entry of each cell), whose first lanes add
+// their cell's sum into the slab, slab[c] = slab[c] + sum; or one aligned
+// 32-entry subtree of a larger cell (the pile-ups where an antenna's rays
+// share their first sample, the corner where points outside the grid
+// clamp: ~10^5 entries), whose sum goes to scratch. The warp that finishes
+// a large cell last (an int atomicAdd on the cell's counter after a
+// __threadfence, as in row_reduce.cuh) forms the levels above 4 over its
+// subtree sums, 32 a round, adds the cell's sum into the slab and puts the
+// counter back to zero: an integer atomic decides who sums, never the
+// order of the float adds. The large cells' tasks come first, the cells
+// of most subtrees first, so their last warps start early. A warp takes
+// one task, or two in a row (tasks_per_warp), whose loads it issues
+// before it sums any. One launch.
 //
 // Bound on the H100: bytes. The function reads each owned point's
 // cotangents once and reads and writes each touched cell once; the kernel
-// also reads the plan (4 B an entry) and the entry's point (12 B), and
-// recomputes the entry's weights and product. A cell whose entries are
-// many (a stencil clamped at a grid edge or corner, where points outside
-// the grid pile up) is one thread's serial chain: the kernel is simple
-// first.
+// also reads the plan (4 B an entry) and gathers each entry's u (16 B)
+// and cotangents, and forms the entry's weights and product.
 #include <cuda_runtime.h>
 
-#ifndef CUBIC_SHARDED_BWD_THREADS
-#define CUBIC_SHARDED_BWD_THREADS 128
+#ifndef CUBIC_SHARDED_BWD_WARPS
+#define CUBIC_SHARDED_BWD_WARPS 8
 #endif
 
 namespace {
 
-// Deep enough for 2^32 entries a cell.
-constexpr int kStack = 33;
+constexpr unsigned kFull = 0xffffffffu;
+// Subtree sums of a large cell one lane loads at once in a round.
+constexpr int kRoundLoads = 8;
 
-// The global grid: origin and spacing [km] (device pointers) and shape.
+// Each point's u and a pad (N, 4), and the grid's spacing [km].
 struct Geom {
-  const float* __restrict__ points;
-  const float* __restrict__ origin;
+  const float* __restrict__ u;
   const float* __restrict__ spacing;
-  int nx, ny, nz;
 };
 
-// u of one axis: tricubic._neighborhood's t, clamped, less its base.
-__device__ __forceinline__ float axis_u(float p, float o, float s, int n) {
-  float t = __fdiv_rn(__fsub_rn(p, o), s);
-  t = fminf(fmaxf(t, 0.0f), (float)(n - 1));
-  const float base = fminf(fmaxf(floorf(t), 0.0f), (float)(n - 2));
-  return __fsub_rn(t, base);
-}
-
-// The Catmull-Rom weight of offset k - 1 at u (tricubic._catmull_rom_weights).
+// The Catmull-Rom weight of offset k - 1 at u (tricubic._catmull_rom_weights:
+// 0.5 * ((A u3 + B u2) + C) with (A, B, C) = (-1, 2, -u), (3, -5, 2),
+// (-3, 4, u), (1, -1, -0)).
 __device__ __forceinline__ float cr_w(float u, int k) {
   const float u2 = __fmul_rn(u, u);
   const float u3 = __fmul_rn(u2, u);
-  float q;
-  if (k == 0)
-    q = __fsub_rn(__fadd_rn(-u3, __fmul_rn(2.0f, u2)), u);
-  else if (k == 1)
-    q = __fadd_rn(__fsub_rn(__fmul_rn(3.0f, u3), __fmul_rn(5.0f, u2)), 2.0f);
-  else if (k == 2)
-    q = __fadd_rn(__fadd_rn(__fmul_rn(-3.0f, u3), __fmul_rn(4.0f, u2)), u);
-  else
-    q = __fsub_rn(u3, u2);
-  return __fmul_rn(0.5f, q);
+  const float a = k == 0 ? -1.0f : k == 1 ? 3.0f : k == 2 ? -3.0f : 1.0f;
+  const float b = k == 0 ? 2.0f : k == 1 ? -5.0f : k == 2 ? 4.0f : -1.0f;
+  const float c = k == 0 ? -u : k == 1 ? 2.0f : k == 2 ? u : -0.0f;
+  return __fmul_rn(
+      0.5f, __fadd_rn(__fadd_rn(__fmul_rn(a, u3), __fmul_rn(b, u2)), c));
 }
 
-// Its d/du (tricubic._catmull_rom_dweights).
+// Its d/du (tricubic._catmull_rom_dweights: 0.5 * ((A u2 + B u) + C) with
+// (A, B, C) = (-3, 4, -1), (9, -10, -0), (-9, 8, 1), (3, -2, -0)).
 __device__ __forceinline__ float cr_dw(float u, int k) {
   const float u2 = __fmul_rn(u, u);
-  float q;
-  if (k == 0)
-    q = __fsub_rn(__fadd_rn(__fmul_rn(-3.0f, u2), __fmul_rn(4.0f, u)), 1.0f);
-  else if (k == 1)
-    q = __fsub_rn(__fmul_rn(9.0f, u2), __fmul_rn(10.0f, u));
-  else if (k == 2)
-    q = __fadd_rn(__fadd_rn(__fmul_rn(-9.0f, u2), __fmul_rn(8.0f, u)), 1.0f);
-  else
-    q = __fsub_rn(__fmul_rn(3.0f, u2), __fmul_rn(2.0f, u));
-  return __fmul_rn(0.5f, q);
+  const float a = k == 0 ? -3.0f : k == 1 ? 9.0f : k == 2 ? -9.0f : 3.0f;
+  const float b = k == 0 ? 4.0f : k == 1 ? -10.0f : k == 2 ? 8.0f : -2.0f;
+  const float c = k == 0 ? -1.0f : k == 2 ? 1.0f : -0.0f;
+  return __fmul_rn(
+      0.5f, __fadd_rn(__fadd_rn(__fmul_rn(a, u2), __fmul_rn(b, u)), c));
 }
 
 // The u of each axis at point n.
 __device__ __forceinline__ void point_u(const Geom& g, int n, float& ux,
                                         float& uy, float& uz) {
-  const float* p = g.points + 3 * (size_t)n;
-  ux = axis_u(__ldg(p + 0), __ldg(g.origin + 0), __ldg(g.spacing + 0), g.nx);
-  uy = axis_u(__ldg(p + 1), __ldg(g.origin + 1), __ldg(g.spacing + 1), g.ny);
-  uz = axis_u(__ldg(p + 2), __ldg(g.origin + 2), __ldg(g.spacing + 2), g.nz);
+  const float4 q = __ldg(reinterpret_cast<const float4*>(g.u) + n);
+  ux = q.x;
+  uy = q.y;
+  uz = q.z;
 }
 
-// An entry's contribution, its weights formed from its point's position.
+// An entry's contribution, its weights formed from its point's u.
 struct ValueEntry {
   Geom g;
   const float* __restrict__ cv;
@@ -159,114 +155,199 @@ struct ValueGradEntry {
   }
 };
 
-// The pairwise tree of a run of values, as a binary counter: value(i) for
-// i in [0, n) in order; two partial sums of 2^k values merge as soon as
-// both exist, and what is left merges from the right. Its result is the
-// plain version's tree (sharded_transpose_ref's passes) over the run.
-template <class Value>
-__device__ __forceinline__ float tree_sum(int n, const Value& value) {
-  float stack[kStack];
-  int top = 0;
-  for (int i = 0; i < n; ++i) {
-    stack[top++] = value(i);
-    for (unsigned k = (unsigned)i + 1u; (k & 1u) == 0u; k >>= 1) {
-      stack[top - 2] = __fadd_rn(stack[top - 2], stack[top - 1]);
-      --top;
-    }
+// Levels 0-4 of the pairwise tree over the lanes: the lane of rank r in
+// its run of `size` lanes takes the value of rank r + 2^k at level k when
+// r = 0 mod 2^(k+1) and r + 2^k < size. Rank 0 ends with the run's sum.
+__device__ __forceinline__ float warp_levels(float v, int rank, int size) {
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const int step = 1 << k;
+    const float other = __shfl_down_sync(kFull, v, step);
+    if ((rank & (2 * step - 1)) == 0 && rank + step < size)
+      v = __fadd_rn(v, other);
   }
-  float acc = stack[top - 1];
-  for (int q = top - 2; q >= 0; --q) acc = __fadd_rn(stack[q], acc);
-  return acc;
+  return v;
 }
 
-// Pass 1, one thread a block of at most 2^b entries of one cell (the
-// plan's blocks start at each cell's first entry and every 2^b entries
-// after it): the tree of its entries into partial[block].
-template <class Entry>
-__global__ void __launch_bounds__(CUBIC_SHARDED_BWD_THREADS)
-    block_sums_kernel(const int* __restrict__ order,
-                      const int* __restrict__ blocks, int n_blocks,
-                      const int* __restrict__ own, Entry entry,
-                      float* __restrict__ partial) {
-  const int blk = blockIdx.x * blockDim.x + threadIdx.x;
-  if (blk >= n_blocks) return;
-  const int begin = __ldg(blocks + blk);
-  partial[blk] = tree_sum(__ldg(blocks + blk + 1) - begin, [&](int i) {
-    const int e = __ldg(order + begin + i);
-    return entry(__ldg(own + (e >> 6)), e & 63);
-  });
+// The levels above 4 of a large cell's tree over its n subtree sums in
+// buf (scratch other warps wrote: read through L2): the same rule over
+// aligned groups of 32, a round a group of 32 at a time, each round's sums
+// written back in place at the group's index (a group's index is below
+// every index a later group of the round reads), until one is left. The
+// whole warp calls it; lane 0 returns the sum.
+__device__ float large_cell_sum(float* buf, int n, int lane) {
+  while (n > 32) {
+    const int groups = (n + 31) >> 5;
+    for (int g0 = 0; g0 < groups; g0 += kRoundLoads) {
+      float x[kRoundLoads];
+#pragma unroll
+      for (int q = 0; q < kRoundLoads; ++q) {
+        const int i = (g0 + q) * 32 + lane;
+        x[q] = i < n ? __ldcg(buf + i) : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < kRoundLoads; ++q)
+        x[q] = warp_levels(x[q], lane, n - (g0 + q) * 32);
+      __syncwarp();  // every lane's loads of the round are done
+      if (lane == 0) {
+#pragma unroll
+        for (int q = 0; q < kRoundLoads; ++q)
+          if (g0 + q < groups) __stcg(buf + g0 + q, x[q]);
+      }
+      __syncwarp();
+    }
+    n = groups;
+  }
+  return warp_levels(lane < n ? __ldcg(buf + lane) : 0.0f, lane, n);
 }
 
-// Pass 2, one thread an occupied cell: the tree of its blocks' sums, which
-// is the tree of its entries (the blocks are the tree's aligned subtrees
-// of 2^b leaves), added into the slab.
-__global__ void __launch_bounds__(CUBIC_SHARDED_BWD_THREADS)
-    cell_sums_kernel(const int* __restrict__ cells,
-                     const int* __restrict__ cell_blocks, int n_cells,
-                     const float* __restrict__ partial,
-                     float* __restrict__ slab) {
-  const int u = blockIdx.x * blockDim.x + threadIdx.x;
-  if (u >= n_cells) return;
-  const int first = __ldg(cell_blocks + u);
-  const float acc = tree_sum(__ldg(cell_blocks + u + 1) - first,
-                             [&](int i) { return partial[first + i]; });
-  const int c = __ldg(cells + u);
-  slab[c] = __fadd_rn(slab[c], acc);
-}
-
+// The plan's task list and large cells (grid_sharding.py:sharded_plan).
+// A task (int4): x, y its entries [x, y) in plan order; for whole cells
+// z >= 0 the first cell's index among the occupied cells and w a bit a
+// lane, set where the lane's entry is a cell's first; for a subtree of a
+// large cell z = -1 - l, l the large cell, and w the subtree's index j
+// (its entries are the cell's ranks 32j .. 32j + 31).
 struct Plan {
-  const int* order;
-  const int* cells;
-  const int* cell_blocks;
-  int n_cells;
-  const int* blocks;
-  int n_blocks;
-  const int* own;
+  const int* __restrict__ entry;     // (M,) point * 64 + tap
+  const int* __restrict__ cells;
+  const int4* __restrict__ tasks;
+  int n_tasks;
+  const int* __restrict__ big_cell;  // (L,) each large cell's slab cell
+  const int* __restrict__ big_sub;   // (L + 1,) its first subtree sum
+  int* counters;                     // (L,) at zero, left at zero
 };
 
+// A task's subtree of large cell l (task.z = -1 - l) done: its sum v
+// (lane 0's) to scratch, and the warp that completes the cell sums it.
+__device__ __forceinline__ void subtree_done(const Plan& p, int4 task,
+                                             float v, float* partial,
+                                             float* slab, int lane) {
+  const int l = -1 - task.z;
+  const int first = __ldg(p.big_sub + l);
+  const int n_sub = __ldg(p.big_sub + l + 1) - first;
+  if (lane == 0) {
+    __stcg(partial + first + task.w, v);
+    __threadfence();
+  }
+  int ticket = 0;
+  if (lane == 0) ticket = atomicAdd(p.counters + l, 1);
+  ticket = __shfl_sync(kFull, ticket, 0);
+  if (ticket != n_sub - 1) return;
+  __threadfence();
+  const float sum = large_cell_sum(partial + first, n_sub, lane);
+  if (lane == 0) {
+    const int c = __ldg(p.big_cell + l);
+    slab[c] = __fadd_rn(slab[c], sum);
+    p.counters[l] = 0;
+  }
+}
+
+// A warp takes kTasks consecutive tasks and issues all their loads before
+// it sums any: the tasks, each lane's entry and its point's u and
+// cotangents, and, for a lane that begins a whole cell, the cell's slab
+// value (no other warp touches that cell). Each task's chain (task ->
+// entry -> u -> term -> tree -> slab) is latency; two tasks a warp keep
+// more loads in flight but fewer warps resident (the plan picks,
+// kernels.k7t_tasks).
+template <class Entry, int kTasks>
+__global__ void __launch_bounds__(32 * CUBIC_SHARDED_BWD_WARPS)
+    cubic_sharded_bwd_kernel(Plan p, Entry entry, float* partial,
+                             float* __restrict__ slab) {
+  const int lane = threadIdx.x & 31;
+  const int q0 =
+      (blockIdx.x * CUBIC_SHARDED_BWD_WARPS + (threadIdx.x >> 5)) * kTasks;
+  if (q0 >= p.n_tasks) return;  // a whole warp
+  int4 task[kTasks];
+  float v[kTasks], old[kTasks];
+  int cell[kTasks];
+#pragma unroll
+  for (int k = 0; k < kTasks; ++k)
+    task[k] = q0 + k < p.n_tasks ? __ldg(p.tasks + q0 + k)
+                                 : make_int4(0, 0, 0, 0);
+#pragma unroll
+  for (int k = 0; k < kTasks; ++k) {
+    const int n = task[k].y - task[k].x;
+    const unsigned heads = (unsigned)task[k].w;
+    cell[k] = -1;
+    old[k] = 0.0f;
+    if (task[k].z >= 0 && lane < n && ((heads >> lane) & 1u)) {
+      cell[k] = __ldg(p.cells + task[k].z +
+                      __popc(heads & ((1u << lane) - 1u)));
+      old[k] = slab[cell[k]];
+    }
+    v[k] = 0.0f;
+    if (lane < n) {
+      const int e = __ldg(p.entry + task[k].x + lane);
+      v[k] = entry(e >> 6, e & 63);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kTasks; ++k) {
+    const int n = task[k].y - task[k].x;
+    if (n == 0) continue;  // past the last task: the whole warp
+    if (task[k].z < 0) {   // a subtree of a large cell
+      subtree_done(p, task[k], warp_levels(v[k], lane, n), partial, slab,
+                   lane);
+      continue;
+    }
+    const unsigned heads = (unsigned)task[k].w;
+    const unsigned upto = kFull >> (31 - lane);  // lanes 0 .. lane
+    const int h = 31 - __clz(heads & upto);      // the cell's first lane
+    const unsigned later = heads & ~upto;
+    const int end = later ? __ffs(later) - 1 : n;
+    const float sum = warp_levels(v[k], lane - h, end - h);
+    if (cell[k] >= 0) slab[cell[k]] = __fadd_rn(old[k], sum);
+  }
+}
+
 template <class Entry>
-int launch(const Plan& p, Entry entry, float* partial, float* slab,
-           void* stream) {
-  if (p.n_cells < 0 || p.n_blocks < p.n_cells)
+int launch(const Plan& p, Entry entry, int tasks_per_warp, float* partial,
+           float* slab, void* stream) {
+  if (p.n_tasks < 1) return (int)cudaErrorInvalidValue;
+  const int per_block = CUBIC_SHARDED_BWD_WARPS * tasks_per_warp;
+  const int blocks = (p.n_tasks + per_block - 1) / per_block;
+  const int threads = 32 * CUBIC_SHARDED_BWD_WARPS;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (tasks_per_warp == 1)
+    cubic_sharded_bwd_kernel<Entry, 1>
+        <<<blocks, threads, 0, s>>>(p, entry, partial, slab);
+  else if (tasks_per_warp == 2)
+    cubic_sharded_bwd_kernel<Entry, 2>
+        <<<blocks, threads, 0, s>>>(p, entry, partial, slab);
+  else
     return (int)cudaErrorInvalidValue;
-  if (p.n_cells == 0) return (int)cudaSuccess;
-  const int threads = CUBIC_SHARDED_BWD_THREADS;
-  block_sums_kernel<Entry><<<(p.n_blocks + threads - 1) / threads, threads,
-                             0, (cudaStream_t)stream>>>(
-      p.order, p.blocks, p.n_blocks, p.own, entry, partial);
-  cell_sums_kernel<<<(p.n_cells + threads - 1) / threads, threads, 0,
-                     (cudaStream_t)stream>>>(p.cells, p.cell_blocks,
-                                             p.n_cells, partial, slab);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// slab += K7^T(cv) over the plan: order (M,) entry ids; cells (U,) and
-// cell_blocks (U + 1,) each occupied cell and where its blocks begin;
-// blocks (NB + 1,) where each block's entries begin (and M); own (N_own,)
-// point ids; points (N, 3); origin, spacing (3,) and nx, ny, nz the global
-// grid; cv (N,); partial (NB,) scratch; slab ((loc + 4) * ny * nz,), read
-// and written at the plan's cells only.
+// slab += K7^T(cv) over the plan: entry (M,) the entries, point * 64 +
+// tap, in plan order; cells (U,) the occupied cells; tasks (n_tasks, 4)
+// the task list; big_cell (L,), big_sub (L + 1,) and counters (L,) at zero
+// (left at zero) the large cells; u (N, 4) each point's u and a pad;
+// spacing (3,) the global grid's; cv (N,); tasks_per_warp 1 or 2; partial
+// (big_sub[L],) scratch; slab ((loc + 4) * ny * nz,), read and written at
+// the plan's cells only.
 extern "C" int ionotomo_cubic_sharded_value_bwd(
-    const int* order, const int* cells, const int* cell_blocks, int n_cells,
-    const int* blocks, int n_blocks, const int* own, const float* points,
-    const float* origin, const float* spacing, int nx, int ny, int nz,
-    const float* cv, float* partial, float* slab, void* stream) {
-  const Plan p{order, cells, cell_blocks, n_cells, blocks, n_blocks, own};
-  const Geom g{points, origin, spacing, nx, ny, nz};
-  return launch(p, ValueEntry{g, cv}, partial, slab, stream);
+    const int* entry, const int* cells, const int* tasks, int n_tasks,
+    const int* big_cell, const int* big_sub, int* counters, const float* u,
+    const float* spacing, const float* cv, int tasks_per_warp,
+    float* partial, float* slab, void* stream) {
+  const Plan p{entry,    cells,    reinterpret_cast<const int4*>(tasks),
+               n_tasks,  big_cell, big_sub, counters};
+  return launch(p, ValueEntry{Geom{u, spacing}, cv}, tasks_per_warp, partial,
+                slab, stream);
 }
 
 // slab += K7^T(cv, cg) over the plan, as above; cg (N, 3) the
 // physical-gradient cotangent.
 extern "C" int ionotomo_cubic_sharded_value_grad_bwd(
-    const int* order, const int* cells, const int* cell_blocks, int n_cells,
-    const int* blocks, int n_blocks, const int* own, const float* points,
-    const float* origin, const float* spacing, int nx, int ny, int nz,
-    const float* cv, const float* cg, float* partial, float* slab,
-    void* stream) {
-  const Plan p{order, cells, cell_blocks, n_cells, blocks, n_blocks, own};
-  const Geom g{points, origin, spacing, nx, ny, nz};
-  return launch(p, ValueGradEntry{g, cv, cg}, partial, slab, stream);
+    const int* entry, const int* cells, const int* tasks, int n_tasks,
+    const int* big_cell, const int* big_sub, int* counters, const float* u,
+    const float* spacing, const float* cv, const float* cg,
+    int tasks_per_warp, float* partial, float* slab, void* stream) {
+  const Plan p{entry,    cells,    reinterpret_cast<const int4*>(tasks),
+               n_tasks,  big_cell, big_sub, counters};
+  return launch(p, ValueGradEntry{Geom{u, spacing}, cv, cg}, tasks_per_warp,
+                partial, slab, stream);
 }

@@ -19,14 +19,19 @@ is clamped in the global index space before ownership is decided.
 The per-shard evaluation is kernel K7 on CUDA (``kernels.
 cubic_sharded_value``, ``cubic_sharded_value_grad``), ``sharded_value_ref``
 and ``sharded_value_grad_ref`` on the CPU; exactly one shard owns each
-point, so the shards' sum is bitwise K5's on the whole field. Its
-transpose with respect to the slab is K7ᵀ over a ``ShardPlan`` (the
-owned points' (point, tap) entries sorted by slab cell, built once per
-point set and shard; each entry's weights recomputed from its point),
+point, so the shards' sum is bitwise K5's on the whole field. A point set
+evaluated many times (a ``ShardedPoints``) is evaluated over each shard's
+``ShardOrder``, its owned points sorted by base cell (``shard_order``,
+built at the first evaluation); a one-shot evaluation (the tracer's
+steps) runs in the points' order. Its transpose with respect to the slab
+is K7ᵀ over a ``ShardPlan`` (the owned points' (point, tap) entries
+sorted by slab cell and cut into a warp's tasks, built once per point set
+and shard; each entry's weights recomputed from its point),
 ``sharded_transpose_ref`` on the CPU, bitwise equal to it; the halo
 exchange's adjoint adds each halo's cotangent back into the neighbour
 that sent it, in a fixed order. A ``ShardedPoints`` holds a point set
-over the shards with its plans, for any field sharded on the mesh.
+over the shards with its orders and plans, for any field sharded on the
+mesh.
 
 ``interp_sharded`` and ``interp_sharded_with_grad`` are
 ``torch.autograd.Function``s whose backward is K7ᵀ plus the halo adjoint.
@@ -233,12 +238,81 @@ def sharded_value_ref(slab2d, grid: Grid3D, x0: int, loc: int, points):
     return sharded_value_grad_ref(slab2d, grid, x0, loc, points)[0]
 
 
-def _shard_eval(slab2d, grid, x0, loc, points, grad: bool):
-    """K7 on CUDA, its plain version on the CPU."""
+@dataclasses.dataclass(frozen=True)
+class ShardOrder:
+    """A point set's owned points over one shard in a locality order, as
+    K7's ordered form takes them: ``index`` (N_own,) int32 the owned point
+    ids sorted by base cell ((x − x0)·ny + y)·nz + z, stable (K2's
+    ``PointOrder`` sorts by cell alike); ``points`` (N_own, 3) the points
+    in that order; ``mask`` (⌈N/32⌉,) int32 a bit a point, set where the
+    shard owns it (bit i % 32 of word i // 32); ``n`` the N points;
+    ``lanes`` K7's lanes a point for the value (``kernels.k7_lanes`` on
+    CUDA; 1 on the CPU, where it is not read)."""
+
+    index: torch.Tensor
+    points: torch.Tensor
+    mask: torch.Tensor
+    n: int
+    lanes: int
+
+
+def shard_order(grid: Grid3D, points: torch.Tensor, x0: int, loc: int
+                ) -> ShardOrder:
+    """The ``ShardOrder`` of points (N, 3) over the shard of planes [x0,
+    x0 + loc): one stable sort of the owned points' base cells on the
+    points' device."""
+    _, ny, nz = grid.shape
+    dev = points.device
+    n = points.shape[0]
+    base = tricubic._neighborhood(grid, points)[0][:, :, 1].long()
+    owned = (base[:, 0] >= x0) & (base[:, 0] < x0 + loc)
+    own = torch.nonzero(owned).reshape(-1)
+    b = base[own]
+    key = ((b[:, 0] - x0) * ny + b[:, 1]) * nz + b[:, 2]
+    index = own[torch.sort(key, stable=True).indices]
+    bits = torch.zeros(-(-n // 32) * 32, dtype=torch.int64, device=dev)
+    bits[:n] = owned.long()
+    words = (bits.view(-1, 32)
+             << torch.arange(32, device=dev, dtype=torch.int64)).sum(1)
+    lanes = (kernels.k7_lanes(index.shape[0], kernels.sm_count(dev))
+             if points.is_cuda else 1)
+    return ShardOrder(index=index.to(torch.int32),
+                      points=points[index].contiguous(),
+                      mask=_as_int32_bits(words), n=n, lanes=lanes)
+
+
+def _as_int32_bits(words: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2³²) as the int32 of the same 32 bits."""
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def sharded_value_grad_ordered_ref(slab2d, grid: Grid3D, x0: int, loc: int,
+                                   order: ShardOrder):
+    """Plain PyTorch version of K7's ordered form: the owned points
+    evaluated in the order (``sharded_value_grad_ref``'s arithmetic, a
+    point at a time, so each output is its own), written at their indices
+    into zeros."""
+    taps, frac, _ = _owned_taps(slab2d, grid, x0, loc, order.points)
+    v, g = tricubic._contract_taps(taps, frac, grid)
+    value = torch.zeros(order.n, dtype=torch.float32, device=v.device)
+    grad = torch.zeros((order.n, 3), dtype=torch.float32, device=v.device)
+    index = order.index.long()
+    value[index] = v
+    grad[index] = g
+    return value, grad
+
+
+def _shard_eval(slab2d, grid, x0, loc, points, grad: bool, order=None):
+    """K7 on CUDA (over ``order``, a ``ShardOrder`` of the points, where
+    given), its plain version on the CPU."""
     if points.is_cuda:
         fn = (kernels.cubic_sharded_value_grad if grad
               else kernels.cubic_sharded_value)
-        return fn(slab2d, grid, x0, loc, points.contiguous())
+        return fn(slab2d, grid, x0, loc, points.contiguous(), order)
+    if order is not None:
+        v, g = sharded_value_grad_ordered_ref(slab2d, grid, x0, loc, order)
+        return (v, g) if grad else v
     fn = sharded_value_grad_ref if grad else sharded_value_ref
     return fn(slab2d, grid, x0, loc, points)
 
@@ -258,44 +332,142 @@ class ShardPlan:
     int32 the owned point ids; ``order`` (M,) int32 the (owned point, tap)
     entries j·64 + 16a + 4b + l sorted by slab cell, stable; ``cells``
     (U,) int32 the occupied cells, ``starts`` (U + 1,) int32 where each
-    one's entries begin; ``blocks`` (NB + 1,) int32 where each block of
-    at most ``SHARD_BLOCK`` entries of one cell begins (a cell's from its
-    first entry; M last), ``cell_blocks`` (U + 1,) int32 each cell's first
-    block; ``levels`` the pairwise tree's depth (⌈log2⌉ of the most
-    entries a cell); ``slab_cells`` the slab's (loc + 4)·ny·nz."""
+    one's entries begin; ``levels`` the pairwise tree's depth (⌈log2⌉ of
+    the most entries a cell); ``slab_cells`` the slab's (loc + 4)·ny·nz.
+
+    K7ᵀ's task list (``_task_list``), a warp's work each, ``WARP_TASK``
+    entries at most: ``tasks`` (T, 4) int32, (first entry, end, u, bits)
+    for whole cells of at most ``WARP_TASK`` entries packed greedily in
+    plan order (u the first cell's index, bit i set where entry first + i
+    begins a cell), (first entry, end, −1 − l, j) for the aligned subtree
+    j (ranks 32j .. 32j + 31) of large cell l; the large cells' tasks
+    first, the cells of most subtrees first. ``big_cell`` (L,) int32 each
+    large cell's slab cell, ``big_sub`` (L + 1,) int32 where its subtree
+    sums begin in the call's scratch (``n_sub`` in all), ``counters`` (L,)
+    int32 zeros, which the kernel counts its warps on and leaves at zero;
+    ``partial`` (max(n_sub, 1),) f32 the kernel's scratch for the subtree
+    sums; ``tasks_per_warp`` 1 or 2 (``kernels.k7t_tasks`` on CUDA);
+    ``stream`` the CUDA stream the plan was built on (None on the CPU):
+    K7ᵀ takes the plan only there, so no two calls share its counters and
+    scratch. What the kernel reads in place of order → own → the point's
+    position: ``entry`` (M,) int32 each entry as point·64 + tap in plan
+    order, ``u`` (N, 4) f32 each point's ``tricubic._neighborhood`` frac
+    and a zero (one 16-byte load)."""
 
     points: torch.Tensor
     own: torch.Tensor
     order: torch.Tensor
     cells: torch.Tensor
     starts: torch.Tensor
-    blocks: torch.Tensor
-    cell_blocks: torch.Tensor
+    tasks: torch.Tensor
+    big_cell: torch.Tensor
+    big_sub: torch.Tensor
+    counters: torch.Tensor
+    n_sub: int
+    partial: torch.Tensor
+    tasks_per_warp: int
+    stream: object
     levels: int
     slab_cells: int
+    entry: torch.Tensor
+    u: torch.Tensor
 
     @property
     def n_cells(self) -> int:
         return self.cells.shape[0]
 
     @property
-    def n_blocks(self) -> int:
-        return self.blocks.shape[0] - 1
+    def n_tasks(self) -> int:
+        return self.tasks.shape[0]
 
 
-#: The entries of one cell a K7ᵀ thread sums in its first pass (a power
-#: of two: a block is one of the pairwise tree's aligned subtrees).
-SHARD_BLOCK = 64
+#: The entries of a K7ᵀ task, a warp's lanes: a cell of at most this many
+#: is one task's, a larger one is cut into aligned subtrees of this many.
+WARP_TASK = 32
+
+
+def _task_list(counts: torch.Tensor, starts: torch.Tensor):
+    """K7ᵀ's tasks over cells of ``counts`` (U,) entries beginning at
+    ``starts`` (U + 1,), int64: (tasks (T, 4) int32, big (L,) the large
+    cells' indices, big_sub (L + 1,) int32, n_sub, most entries a cell).
+    Built on their device; the greedy packing's chain of group starts is
+    the orbit of the first small cell under "the first small cell past
+    this one's group", found by doubling (``core.tricubic.with_tasks``
+    packs K6zᵀ's rows alike). Reads one (4,) tensor back to the host."""
+    dev = counts.device
+    n_cells = counts.shape[0]
+    cell = torch.arange(n_cells, device=dev)
+    small = counts <= WARP_TASK
+    large = ~small
+
+    def first_at_or_past(mask):      # (n_cells + 1,); n_cells: none
+        f = torch.flip(torch.cummin(torch.flip(
+            torch.where(mask, cell, n_cells), [0]), 0).values, [0])
+        return torch.cat([f, f.new_full((1,), n_cells)])
+
+    # the group a small cell u starts: cells u .. nxt[u] − 1, as many as
+    # fit in a task, short of the next large cell
+    nxt = torch.minimum(
+        torch.searchsorted(starts[1:], starts[:-1] + WARP_TASK, right=True),
+        first_at_or_past(large)[:n_cells])
+    first_small = first_at_or_past(small)
+    jump = first_small[torch.cat([nxt, nxt.new_full((1,), n_cells)])]
+    heads = first_small[:1]
+    for _ in range((n_cells + 1).bit_length()):
+        heads = torch.cat([heads, jump[heads]])
+        jump = jump[jump]
+    is_start = torch.zeros(n_cells + 1, dtype=torch.bool, device=dev)
+    is_start[heads] = True
+    is_start = is_start[:n_cells]
+    n_sub_of = torch.where(large, (counts + WARP_TASK - 1) // WARP_TASK, 0)
+    group = torch.cumsum(is_start, 0) - 1
+    rank = torch.cumsum(large, 0) - 1
+    most, n_groups, n_large, n_sub = torch.stack([
+        counts.max(), is_start.sum(), large.sum(),
+        n_sub_of.sum()]).tolist()
+    # whole cells: a task a group, its cells' first entries as bits
+    g_cell = torch.zeros(n_groups + 1, dtype=torch.int64, device=dev)
+    g_cell.scatter_(0, torch.where(is_start, group, n_groups), cell)
+    g_cell = g_cell[:n_groups]
+    start_of = torch.cummax(torch.where(is_start, cell, 0), 0).values
+    bit = (starts[:-1] - starts[start_of]).clamp(0, WARP_TASK - 1)
+    bits = torch.zeros(n_groups + 1, dtype=torch.int64, device=dev)
+    bits.index_add_(0, torch.where(small, group[start_of], n_groups),
+                    torch.where(small, torch.ones_like(bit) << bit, 0))
+    whole = torch.stack([starts[g_cell], starts[nxt[g_cell]], g_cell,
+                         _as_int32_bits(bits[:n_groups]).long()], -1)
+    # large cells: a task an aligned subtree, the cells of most subtrees
+    # first (their last warps sum the most), stable
+    big = torch.zeros(n_large + 1, dtype=torch.int64, device=dev)
+    big.scatter_(0, torch.where(large, rank, n_large), cell)
+    big = big[:n_large]
+    per_big = n_sub_of[big]
+    big_sub = torch.zeros(n_large + 1, dtype=torch.int64, device=dev)
+    big_sub[1:] = torch.cumsum(per_big, 0)
+    l_of = torch.repeat_interleave(torch.arange(n_large, device=dev),
+                                   per_big, output_size=n_sub)
+    j = torch.arange(n_sub, device=dev) - big_sub[l_of]
+    beg = starts[big[l_of]] + WARP_TASK * j
+    sub = torch.stack([beg, torch.minimum(beg + WARP_TASK,
+                                          starts[big[l_of] + 1]),
+                       -1 - l_of, j], -1)
+    sub = sub[torch.sort(-per_big[l_of], stable=True).indices]
+    tasks = torch.cat([sub, whole]).to(torch.int32).contiguous()
+    return tasks, big, big_sub.to(torch.int32), n_sub, most
 
 
 def sharded_plan(grid: Grid3D, points: torch.Tensor, x0: int, loc: int
                  ) -> ShardPlan:
     """Build the K7ᵀ plan of points (N, 3) over the shard of planes [x0,
     x0 + loc): one stable sort of the owned (point, tap) entries by slab
-    cell on the points' device, and one read of the counts on the host."""
+    cell and the task list (``_task_list``) on the points' device, and one
+    read of its counts on the host."""
     _, ny, nz = grid.shape
     dev = points.device
-    idx, _ = tricubic._neighborhood(grid, points)
+    if points.shape[0] >= 1 << 25:
+        raise ValueError(f"sharded_plan: {points.shape[0]} points; an entry "
+                         f"id point·64 + tap must fit in int32")
+    idx, frac = tricubic._neighborhood(grid, points)
     base_x = idx[:, 0, 1]
     own = torch.nonzero((base_x >= x0) & (base_x < x0 + loc)).reshape(-1)
     idx = idx[own].long()
@@ -306,22 +478,34 @@ def sharded_plan(grid: Grid3D, points: torch.Tensor, x0: int, loc: int
     cells, counts = torch.unique_consecutive(srt.values, return_counts=True)
     starts = torch.zeros(cells.shape[0] + 1, dtype=torch.int64, device=dev)
     starts[1:] = torch.cumsum(counts, 0)
-    n_blk = (counts + SHARD_BLOCK - 1) // SHARD_BLOCK
-    cell_blocks = torch.zeros_like(starts)
-    cell_blocks[1:] = torch.cumsum(n_blk, 0)
-    cell_of = torch.repeat_interleave(
-        torch.arange(cells.shape[0], device=dev), n_blk)
-    k = torch.arange(cell_of.shape[0], device=dev) - cell_blocks[cell_of]
-    blocks = torch.cat([starts[cell_of] + k * SHARD_BLOCK, starts[-1:]])
-    most = int(counts.max()) if counts.numel() else 1
+    if counts.numel():
+        tasks, big, big_sub, n_sub, most = _task_list(counts, starts)
+    else:
+        tasks = torch.zeros((0, 4), dtype=torch.int32, device=dev)
+        big = torch.zeros(0, dtype=torch.int64, device=dev)
+        big_sub = torch.zeros(1, dtype=torch.int32, device=dev)
+        n_sub, most = 0, 1
     return ShardPlan(points=points, own=own.to(torch.int32),
                      order=srt.indices.to(torch.int32),
                      cells=cells.to(torch.int32),
-                     starts=starts.to(torch.int32),
-                     blocks=blocks.to(torch.int32),
-                     cell_blocks=cell_blocks.to(torch.int32),
+                     starts=starts.to(torch.int32), tasks=tasks,
+                     big_cell=cells[big].to(torch.int32), big_sub=big_sub,
+                     counters=torch.zeros(big.shape[0], dtype=torch.int32,
+                                          device=dev),
+                     n_sub=n_sub,
+                     partial=torch.empty(max(n_sub, 1), dtype=torch.float32,
+                                         device=dev),
+                     tasks_per_warp=(kernels.k7t_tasks(
+                         tasks.shape[0], kernels.sm_count(dev))
+                         if points.is_cuda else 1),
+                     stream=(torch.cuda.current_stream(dev).cuda_stream
+                             if points.is_cuda else None),
                      levels=max(most - 1, 0).bit_length(),
-                     slab_cells=(loc + 2 * HALO) * ny * nz)
+                     slab_cells=(loc + 2 * HALO) * ny * nz,
+                     entry=(own[srt.indices >> 6] << 6
+                            | srt.indices & 63).to(torch.int32),
+                     u=torch.cat([frac, torch.zeros_like(frac[:, :1])],
+                                 1))
 
 
 def _entry_terms(plan: ShardPlan, grid: Grid3D, ct_value, ct_grad):
@@ -357,7 +541,9 @@ def sharded_transpose_ref(slab: torch.Tensor, plan: ShardPlan, grid: Grid3D,
     the kernel's pairwise tree, formed in ``plan.levels`` passes over all
     entries at once (at level k an entry of rank r ≡ 0 mod 2^(k+1) in its
     cell absorbs the entry 2^k after it, when there is one), so the result
-    is bitwise K7ᵀ's on every device."""
+    is bitwise K7ᵀ's on every device (the kernel forms levels 0-4 by
+    shuffles in a warp and the levels above over a large cell's subtree
+    sums)."""
     if plan.order.shape[0] == 0:
         return slab
     v = _entry_terms(plan, grid, ct_value, ct_grad)
@@ -392,21 +578,31 @@ def _shard_transpose_add_(slab, plan, grid, ct_value, ct_grad=None):
 
 class ShardedPoints:
     """A fixed point set (N, 3) over the grid shards of a mesh (at ray
-    index r of a 2-D mesh): the points on each shard's device and each
-    shard's K7ᵀ plan, built at the first transpose and kept. It depends on
-    the grid and the mesh, not on a field: passed in place of the points,
-    it serves every field sharded on that mesh, so a solve that
-    evaluates and transposes at the same points many times sorts them
-    once."""
+    index r of a 2-D mesh): the points on each shard's device, each
+    shard's K7 order (``shard_order``, built at the first evaluation
+    unless ``ordered`` is False) and K7ᵀ plan (built at the first
+    transpose), kept. It depends on the grid and the mesh, not on a field:
+    passed in place of the points, it serves every field sharded on that
+    mesh, so a solve that evaluates and transposes at the same points many
+    times sorts them once. A one-shot evaluation (``ordered=False``: the
+    tracer's steps, points passed as a tensor) runs K7 in the points'
+    order, where a sort would cost more than it saves."""
 
     def __init__(self, mesh: Mesh, grid: Grid3D, points: torch.Tensor,
-                 r: int = 0):
-        self.grid, self.points = grid, points
+                 r: int = 0, ordered: bool = True):
+        self.grid, self.points, self.ordered = grid, points, ordered
         self.devices = _grid_devices(mesh, r)
         self.loc = grid.shape[0] // len(self.devices)
         self.local = [on_device(points, d).contiguous() for d in self.devices]
         self.grids = [_on_grid(grid, d) for d in self.devices]
-        self._plans = None
+        self._orders = self._plans = None
+
+    def orders(self):
+        if self._orders is None:
+            self._orders = [shard_order(g, p, s * self.loc, self.loc)
+                            for s, (g, p) in enumerate(zip(self.grids,
+                                                           self.local))]
+        return self._orders
 
     def plans(self):
         if self._plans is None:
@@ -422,8 +618,10 @@ class ShardedPoints:
                 and sf.shape == tuple(int(v) for v in self.grid.shape)), (
             f"a field of {sf.shape} in shards of {sf.loc} planes against "
             f"points set up for {self.grid.shape} in shards of {self.loc}")
+        orders = self.orders() if self.ordered else [None] * len(self.local)
         outs = [_shard_eval(on_device(sf.slab2d(s), dev), self.grids[s],
-                            s * self.loc, self.loc, self.local[s], grad)
+                            s * self.loc, self.loc, self.local[s], grad,
+                            orders[s])
                 for s, dev in enumerate(self.devices)]
         dev = self.points.device
         if not grad:
@@ -444,8 +642,9 @@ class ShardedPoints:
 def _eval_shards(sf: ShardedField, grid: Grid3D, points, grad: bool,
                  r: int = 0):
     """Every grid shard's K7 at points (the shards of ray index r on a
-    2-D mesh), added in shard order on the points' device."""
-    return ShardedPoints(sf.mesh, grid, points, r).eval(sf, grad)
+    2-D mesh), one-shot, added in shard order on the points' device."""
+    return ShardedPoints(sf.mesh, grid, points, r, ordered=False).eval(
+        sf, grad)
 
 
 def _zero_slabs(sf: ShardedField):
@@ -478,7 +677,7 @@ class _InterpSharded(torch.autograd.Function):
 
 def _points(sf: ShardedField, grid: Grid3D, points) -> ShardedPoints:
     return (points if isinstance(points, ShardedPoints)
-            else ShardedPoints(sf.mesh, grid, points))
+            else ShardedPoints(sf.mesh, grid, points, ordered=False))
 
 
 def interp_sharded(mesh: Mesh, field_sharded: ShardedField, grid: Grid3D,

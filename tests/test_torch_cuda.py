@@ -1840,31 +1840,95 @@ def _sharded_points(dev, grid, n, seed):
     return torch.from_numpy(pts.astype(np.float32)).to(dev)
 
 
+@pytest.mark.parametrize("lanes", [None, 1, 4])
 @pytest.mark.parametrize("n_shards", [2, 8])
-def test_cubic_sharded_sums_to_k5_bitwise(dev, n_shards):
+def test_cubic_sharded_sums_to_k5_bitwise(dev, n_shards, lanes,
+                                          monkeypatch):
     """K7 value and value + gradient over S shards of one card, summed in
     shard order, equal K5 on the whole table bit for bit (one owner a
-    point); each shard within 1e-6·max|table| of its plain version."""
+    point), one-shot and over a ``ShardedPoints``' orders (the owned
+    points in cell order; the value at the lanes a point
+    ``kernels.k7_lanes`` picks, and at one and four by its threshold),
+    one launch a shard either way; each shard's ordered form bitwise its
+    one-shot form, and within 1e-6·max|table| of its plain version."""
     from ionotomo_tpu_torch.parallel import grid_sharding as gs
 
+    if lanes is not None:
+        monkeypatch.setattr(kernels, "K7_QUAD_POINTS_PER_SM",
+                            -1 if lanes == 1 else 1 << 30)
     grid, m = _world(dev, n=32)
     pts = _sharded_points(dev, grid, 4000, 5)
     mesh = gs.grid_mesh([dev] * n_shards)
     sf = gs.shard_field(mesh, m)
-    before = kernels.launches["cubic_sharded_value_grad"]
-    v, g = gs._eval_shards(sf, grid, pts, True)
-    assert kernels.launches["cubic_sharded_value_grad"] == before + n_shards
-    vv = gs._eval_shards(sf, grid, pts, False)
+    kept = gs.ShardedPoints(mesh, grid, pts)
+    if lanes is not None:
+        assert all(o.lanes == lanes for o in kept.orders())
     v5, g5 = kernels.cubic_value_grad(m.reshape(-1, 32), grid, pts)
-    assert torch.equal(v, v5) and torch.equal(g, g5) and torch.equal(vv, v5)
+    for shards in (gs.ShardedPoints(mesh, grid, pts, ordered=False), kept):
+        before = kernels.launches["cubic_sharded_value_grad"]
+        v, g = shards.eval(sf, True)
+        assert (kernels.launches["cubic_sharded_value_grad"]
+                == before + n_shards)
+        before = kernels.launches["cubic_sharded_value"]
+        vv = shards.eval(sf, False)
+        assert kernels.launches["cubic_sharded_value"] == before + n_shards
+        assert (torch.equal(v, v5) and torch.equal(g, g5)
+                and torch.equal(vv, v5))
     tol = 1e-6 * float(m.abs().max())
-    for s in range(n_shards):
+    for s, order in enumerate(kept.orders()):
         kv, kg = kernels.cubic_sharded_value_grad(sf.slab2d(s), grid,
                                                   sf.x0(s), sf.loc, pts)
+        ov, og = kernels.cubic_sharded_value_grad(sf.slab2d(s), grid,
+                                                  sf.x0(s), sf.loc, pts,
+                                                  order)
+        assert torch.equal(ov, kv) and torch.equal(og, kg)
+        assert torch.equal(kernels.cubic_sharded_value(
+            sf.slab2d(s), grid, sf.x0(s), sf.loc, pts, order), kv)
         rv, rg = gs.sharded_value_grad_ref(sf.slab2d(s), grid, sf.x0(s),
                                            sf.loc, pts)
         assert float((kv - rv).abs().max()) <= tol
         assert float((kg - rg).abs().max()) <= tol / float(grid.spacing.min())
+
+
+@pytest.mark.parametrize("tasks", [None, 1, 2])
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("case", ["pileup", "corner", "empty", "sizes"])
+def test_cubic_sharded_transpose_at_the_task_cases(dev, case, grad, tasks,
+                                                   monkeypatch):
+    """K7ᵀ at the task list's cases (``tests/test_torch_k7_tasks.py``: a
+    pile-up of 100 rays sharing a point at z = 0, the clamped corner of
+    ≥ 10⁴ entries in one cell, a shard that owns nothing, cells of 1, 32,
+    33, 64 and 65 entries), at the tasks a warp ``kernels.k7t_tasks``
+    picks and at 1 and 2 by its threshold, bitwise its plain version,
+    twice alike, one launch a call (none where the shard owns nothing),
+    its large cells' counters left at zero."""
+    from ionotomo_tpu_torch.parallel import grid_sharding as gs
+
+    from .test_torch_k7_tasks import GRID, point_set
+
+    if tasks is not None:
+        monkeypatch.setattr(kernels, "K7T_PAIR_TASKS_PER_SM",
+                            1 << 30 if tasks == 1 else 0)
+
+    pts, x0, loc = point_set(case)
+    grid = GRID.to(dev)
+    pts = torch.from_numpy(pts.astype(np.float32)).to(dev)
+    n = pts.shape[0]
+    g = torch.Generator(device=dev).manual_seed(7)
+    cv = torch.randn(n, generator=g, device=dev)
+    cg = torch.randn((n, 3), generator=g, device=dev) if grad else None
+    plan = gs.sharded_plan(grid, pts, x0, loc)
+    assert tasks is None or plan.tasks_per_warp == tasks
+    base = torch.randn(plan.slab_cells, generator=g, device=dev)
+    name = ("cubic_sharded_value_grad_bwd" if grad
+            else "cubic_sharded_value_bwd")
+    before = kernels.launches[name]
+    got = gs._shard_transpose_add_(base.clone(), plan, grid, cv, cg)
+    again = gs._shard_transpose_add_(base.clone(), plan, grid, cv, cg)
+    assert kernels.launches[name] == before + (0 if case == "empty" else 2)
+    want = gs.sharded_transpose_ref(base.clone(), plan, grid, cv, cg)
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert not bool(plan.counters.any())
 
 
 @pytest.mark.parametrize("grad", [False, True])

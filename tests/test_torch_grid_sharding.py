@@ -11,7 +11,7 @@ crash the ROADMAP records).
 
 Also here: the halo exchange against slices of the whole field, the sum
 of the shards' K7 bitwise the plain K5 twin, K7ᵀ's plain version bitwise
-a numpy walk of the kernel's binary-counter tree, the linearised sharded
+a numpy walk of the kernel over its task list, the linearised sharded
 operator (``ShardedGridDtecLinear``) against the port's unsharded one,
 and the guards (cubic only, nx divisible, loc ≥ HALO, no CUDA device with
 ``devices=None``).
@@ -37,6 +37,8 @@ from ionotomo_tpu_torch.core import tricubic as ttricubic
 from ionotomo_tpu_torch.forward import tec as ttec
 from ionotomo_tpu_torch.geometry import rays as trays
 from ionotomo_tpu_torch.parallel import grid_sharding as gs
+
+from .test_torch_k7_tasks import kernel_walk
 
 torch.set_num_threads(2)
 
@@ -380,32 +382,15 @@ def test_shards_sum_to_the_whole_table_evaluator_bitwise():
     assert torch.equal(v, wv) and torch.equal(g, wg)
 
 
-def tree_sum(values):
-    """K7ᵀ's binary counter over a run of float32 values: two partial sums
-    of 2^k values merge as soon as both exist, the rest from the right."""
-    stack = []
-    for i, x in enumerate(values):
-        stack.append(np.float32(x))
-        k = i + 1
-        while k % 2 == 0:
-            b, a = stack.pop(), stack.pop()
-            stack.append(np.float32(a + b))
-            k //= 2
-    acc = stack[-1]
-    for q in range(len(stack) - 2, -1, -1):
-        acc = np.float32(stack[q] + acc)
-    return acc
-
-
 @pytest.mark.parametrize("grad", [False, True])
 def test_transpose_plain_version_is_the_kernels_tree(grad):
     """``sharded_transpose_ref`` (the plain K7ᵀ) equals a numpy walk of
-    the kernel's two passes bit for bit: the binary-counter tree of each
-    block of at most ``SHARD_BLOCK`` entries of a cell, then the tree of a
-    cell's block sums, added into the slab (outside points clamp onto the
-    edges, so cells of many blocks occur); and the shards' slabs, through
-    the halo adjoint, are the transpose of the sharded value map (against
-    the plain K5ᵀ)."""
+    the kernel over the plan's task list bit for bit (``kernel_walk``: a
+    warp's shuffle levels over each task, then a large cell's levels over
+    its 32-entry subtree sums, added into the slab; outside points clamp
+    onto the edges, so cells of many subtrees occur); and the shards'
+    slabs, through the halo adjoint, are the transpose of the sharded
+    value map (against the plain K5ᵀ)."""
     jgrid, _, grid, tf = world()
     rng = np.random.default_rng(11)
     corner = rng.uniform((-400, -400, -300), (-250, -250, -100), (300, 3))
@@ -421,16 +406,10 @@ def test_transpose_plain_version_is_the_kernels_tree(grad):
                                 .astype(np.float32))
         got = gs.sharded_transpose_ref(base.clone(), plan, grid, cv, cg)
         terms = gs._entry_terms(plan, grid, cv, cg).numpy()
-        want = base.numpy().copy()
-        blk, cb = plan.blocks.numpy(), plan.cell_blocks.numpy()
-        partial = [tree_sum(terms[blk[b]:blk[b + 1]])
-                   for b in range(plan.n_blocks)]
-        for u, c in enumerate(plan.cells.numpy()):
-            acc = tree_sum(partial[cb[u]:cb[u + 1]])
-            want[c] = np.float32(want[c] + acc)
+        want = kernel_walk(plan, terms, base.numpy())
         assert np.array_equal(got.numpy(), want)
-        # the first shard owns the clamped corner: cells of many blocks
-        assert x0 != 0 or plan.n_blocks > plan.n_cells
+        # the first shard owns the clamped corner: cells of many subtrees
+        assert x0 != 0 or plan.n_sub > plan.big_cell.shape[0]
     mesh = gs.grid_mesh(CPU8)
     f = tf.clone().requires_grad_(True)
     sf = gs.shard_field(mesh, f)
