@@ -20,7 +20,8 @@ its shards in turn on the card), on one NVIDIA GPU.
                                        # streaming service
     python3 chip_smoke.py --invert     # only: the build and phase 16, the
                                        # batch inversion (with --profile:
-                                       # one snapshot solve profiled)
+                                       # one snapshot solve profiled;
+                                       # --parent DIR as below)
     python3 chip_smoke.py --predict    # only: the build and phase 17,
                                        # predict (with --profile: one
                                        # timestep of each form profiled)
@@ -33,9 +34,10 @@ its shards in turn on the card), on one NVIDIA GPU.
                                        # CPU, and the CPU in float64
     python3 chip_smoke.py --parent DIR # also: hold the kernels to those of
                                        # the checkout at DIR (the commit
-                                       # before K1s and K6z were
-                                       # redesigned; any other sources are
-                                       # refused): every kernel bitwise at
+                                       # before K3b's fold and the batched
+                                       # K1e were redesigned; any other
+                                       # sources are refused): every
+                                       # kernel bitwise at
                                        # the phases' shapes and timed in
                                        # turns; config 4's solves (all
                                        # cubic and zpc2 inner), config 5's
@@ -97,12 +99,18 @@ its shards in turn on the card), on one NVIDIA GPU.
                                        # budget; the call's pieces and
                                        # where sorting pays; with DIR the
                                        # parent's launch)
-    python3 chip_smoke.py --member-study
+    python3 chip_smoke.py --member-study [--parent DIR]
                                        # only: K2b's and K3b's calls by
                                        # kernel at config 5's bundles and
-                                       # the zp edge-case points, and both
-                                       # built with other scan, fold and
-                                       # register settings
+                                       # the zp edge-case points, both
+                                       # built with other scan and
+                                       # register settings; K3b's fold by
+                                       # its grid; the batched K1e by
+                                       # lanes a point, block size and
+                                       # translate form at 1,240, 20,000
+                                       # and 917,504 points, beside its
+                                       # launch floor (with DIR: the
+                                       # parent's fold and K1e in turns)
     python3 chip_smoke.py --plain-solves N [--root DIR]
                                        # only: config 4's plain-version
                                        # solve N times for the package of
@@ -255,10 +263,13 @@ analytic world drifting with the wind, 1 % noise), and on it:
    table axis) and bound ms, beside 8 × the unbatched kernel, and each
    call's time by kernel; at the outer bundle the pack of the 8 tables
    and the fold of random partial rows alone, bitwise their plain
-   versions, with their bounds. The batched K1e (E over 8 members, one
-   launch) at config 5's 20,000 endpoints and at the zp edge-case
-   points: every member bitwise K1e on that member, within 1e-5·max of
-   the plain version, beside 8 launches of K1e and its bound.
+   versions, with their bounds (the fold over the z spans K3b's reduce
+   writes there; with ``--parent`` the fold alone at every shape, bitwise
+   the parent's and in turns). The batched K1e (E over 8 members, one
+   launch) at 1,240 and 20,000 of config 5's endpoints and at the zp
+   edge-case points: every member bitwise K1e on that member, within
+   1e-5·max of the plain version, beside 8 launches of K1e and its
+   bound.
 12. Config 5 through ``configs.config5``: the Kalman filter over 30
    epochs, zp, Hermite@65 with the @33 inner bundle, cg 10, in 5 chunks
    of 6. K2, K3, K1e and K1eᵀ must have launched, no member-axis kernel
@@ -514,25 +525,99 @@ def agreed_reading(readings, tol=0.1):
     return max(a, b) if abs(a - b) <= tol * max(a, b) else None
 
 
-def whole_readings(traces, reps):
+def whole_readings(traces, reps, launches=None):
     """Per-call ms of each profiler trace with its lost records made good.
     A trace is ``{kernel name: (records, summed µs)}`` over ``reps`` equal
     calls. Records get lost whole (seen: 17 of 20 launches of one kernel in
     most traces, two or three of five ``index_add_`` calls) while the
     durations of those that remain are right, so a kernel counts its mean
-    duration times its launches a call, the most records any trace holds
-    over ``reps``, rounded: a stray record (a first-use copy) rounds to
-    none. A trace with no kernel left reads None."""
+    duration times its launches a call: the most records any trace holds
+    over ``reps``, rounded (a stray record, a first-use copy, rounds to
+    none). Where every trace lost the same share of a call's records (seen:
+    2 of 8 in every trace of K7's 8 shard launches, which read ¾), those
+    counts fall short, so ``launches``, the launches each trace's calls
+    made (``call_launches``: sources that lose no record), sets the call's
+    whole count: where it is greater, each kernel's count is raised in
+    proportion. A trace with no kernel left reads None."""
     names = {name for t in traces for name in t}
     per_call = {name: round(max(t.get(name, (0, 0.0))[0] for t in traces)
                             / reps) for name in names}
     out = []
-    for t in traces:
+    for i, t in enumerate(traces):
         kept = [(n, us, per_call[name]) for name, (n, us) in t.items()
                 if per_call[name] > 0 and n > 0]
-        out.append(sum(us / n * k for n, us, k in kept) / 1e3
-                   if kept else None)
+        if not kept:
+            out.append(None)
+            continue
+        counted = sum(k for _, _, k in kept)
+        whole = None if launches is None else launches[i] / reps
+        scale = whole / counted if whole and whole > counted else 1.0
+        out.append(sum(us / n * k for n, us, k in kept) * scale / 1e3)
     return out
+
+
+#: The calls of the CUDA runtime (cuda*) and of CUDA's lower API (cu*)
+#: that put work on the card, one launch, copy or fill each. The profiler
+#: records them on the host (its CPU activity), so they are counted
+#: whether or not the card's record of the work comes back.
+RUNTIME_LAUNCHES = frozenset({
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+    "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
+    "cudaMemcpy2DAsync", "cudaMemset2DAsync"})
+#: The launch counters of every package of kernels in this process beside
+#: this checkout's ``kernels.launches`` (``Parent.package`` adds the
+#: parent's).
+LAUNCH_COUNTERS = []
+
+
+def port_launches() -> int:
+    """The launches every wrapper of the port's kernels has counted."""
+    from ionotomo_tpu_torch import kernels
+    return sum(sum(c.values()) for c in [kernels.launches] + LAUNCH_COUNTERS)
+
+
+_RUNTIME_SEES_PORT = []
+
+
+def runtime_sees_port() -> bool:
+    """Whether the profiler's runtime records hold the port's launches
+    (made through its own library, not PyTorch's), found once by tracing
+    one launch of ``pack_members``."""
+    if not _RUNTIME_SEES_PORT:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        from ionotomo_tpu_torch import kernels
+
+        x = torch.ones((1, 1), device="cuda")
+        kernels.pack_members(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            kernels.pack_members(x)
+            torch.cuda.synchronize()
+        _RUNTIME_SEES_PORT.append(runtime_records(prof.key_averages(),
+                                                  DeviceType) > 0)
+        print(f"  the profiler's runtime records "
+              f"{'hold' if _RUNTIME_SEES_PORT[0] else 'lack'} the port's "
+              f"launches")
+    return _RUNTIME_SEES_PORT[0]
+
+
+def runtime_records(events, device_type) -> int:
+    """The runtime records (``RUNTIME_LAUNCHES``) among a trace's
+    ``key_averages``."""
+    return sum(e.count for e in events if e.device_type == device_type.CPU
+               and e.key in RUNTIME_LAUNCHES)
+
+
+def call_launches(port, runtime, excluded=0) -> int:
+    """The launches a trace's calls made: the port's wrappers' count
+    ``port`` and the runtime records (which hold the port's own where
+    ``runtime_sees_port``; asked only where both counts are not 0), less
+    the ``excluded`` kernels' launches."""
+    if port and runtime and runtime_sees_port():
+        port = 0
+    return port + runtime - excluded
 
 
 #: A profiler reading of a call that launches one kernel once is retaken
@@ -552,14 +637,15 @@ TRACE_HOST_BOUND_SHARE = 0.25
 TRACE_EVENTS_FLOOR_MS = 0.2
 
 
-def plausible_readings(traces, reps, events_ms=None):
-    """The readings of ``traces`` (``whole_readings``) that may be taken:
-    all of them, except for a call of one kernel (``one_kernel``) whose
-    CUDA-event time ``events_ms`` is at least
-    ``TRACE_EVENTS_FLOOR_MS``, where a reading between
-    ``TRACE_HOST_BOUND_SHARE`` and ``TRACE_SHARE_OF_EVENTS`` of it is set
-    aside (it lost records that no other trace kept)."""
-    readings = [r for r in whole_readings(traces, reps) if r is not None]
+def plausible_readings(traces, reps, events_ms=None, launches=None):
+    """The readings of ``traces`` (``whole_readings``, over the calls'
+    ``launches`` where known) that may be taken: all of them, except for
+    a call of one kernel (``one_kernel``) whose CUDA-event time
+    ``events_ms`` is at least ``TRACE_EVENTS_FLOOR_MS``, where a reading
+    between ``TRACE_HOST_BOUND_SHARE`` and ``TRACE_SHARE_OF_EVENTS`` of it
+    is set aside (it lost records that no other trace kept)."""
+    readings = [r for r in whole_readings(traces, reps, launches)
+                if r is not None]
     if events_ms is None or not one_kernel(traces, reps) \
             or events_ms < TRACE_EVENTS_FLOOR_MS:
         return readings
@@ -587,7 +673,10 @@ def device_ms(fn, reps: int, exclude=()) -> float:
     the card waiting for the host between launches, which is most of a
     small kernel's wall time here. A trace can come back empty or short of
     records, so every trace is read with its lost records made good
-    (``whole_readings``), and traces are taken until two in a row agree
+    (``whole_readings``, over the launches its calls made: the port's
+    wrappers' counters read before and after the ``reps`` calls, and the
+    trace's runtime records for PyTorch's own kernels and copies), and
+    traces are taken until two in a row agree
     within 10 % (``agreed_reading``). For a call of one kernel the
     readings are also held to its CUDA-event time (``cuda_ms``, taken once
     after the first trace): one short of it by a lost record's share is
@@ -601,24 +690,31 @@ def device_ms(fn, reps: int, exclude=()) -> float:
 
     fn()
     torch.cuda.synchronize()
-    traces, events_ms = [], None
+    traces, launches, events_ms = [], [], None
     for _ in range(8):
+        before = port_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+        port = port_launches() - before
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0]
         traces.append({e.key: (e.count, e.self_device_time_total)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA
-                       and e.self_device_time_total > 0
-                       and e.key not in exclude})
+                       for e in kernels if e.key not in exclude})
+        launches.append(call_launches(
+            port, runtime_records(events, DeviceType),
+            sum(e.count for e in kernels if e.key in exclude)))
         if events_ms is None and one_kernel(traces, reps):
             events_ms = cuda_ms(fn, reps)
-        ms = agreed_reading(plausible_readings(traces, reps, events_ms))
+        ms = agreed_reading(plausible_readings(traces, reps, events_ms,
+                                               launches))
         if ms is not None:
             return Timing(ms, "profiler")
-    readings = [r for r in whole_readings(traces, reps) if r is not None]
+    readings = [r for r in whole_readings(traces, reps, launches)
+                if r is not None]
     if not readings:
         # a CUPTI trace can come back empty: seen eight times in a row for
         # the plain pack of the service's 2 tables after 14 phases of
@@ -627,7 +723,7 @@ def device_ms(fn, reps: int, exclude=()) -> float:
         print(f"  note: torch.profiler recorded no device time in eight "
               f"traces; CUDA events taken, {ms:.4f} ms")
         return Timing(ms, "cuda_events")
-    kept = plausible_readings(traces, reps, events_ms)
+    kept = plausible_readings(traces, reps, events_ms, launches)
     print(f"  note: no two profiler traces in a row agreed, {readings}"
           + (f" (CUDA events {events_ms:.4f} ms; "
              f"{len(readings) - len(kept)} set aside as short)"
@@ -1032,15 +1128,16 @@ def index_add_call(flat, contrib, size):
 
 class Parent:
     """The kernels of the checkout at ``root`` (``--parent DIR``), the
-    commit before K7 and K7ᵀ were redesigned, built from its sources with
-    this checkout's nvcc flags. ``run(fn)`` calls fn with every kernel the
-    parent's, each entry through this checkout's wrapper on the parent's
-    library, so that ``run(call)`` is the parent's whole call, for every
-    kernel whose C interface this checkout kept. The entries in
-    ``CHANGED`` took another interface here, so the library is opened
-    without them (a call to one under ``run`` raises); the parent's own
-    package (``package``, loaded from ``root`` under another name, its
-    wrappers and plans on this library) calls them as the parent did. The
+    commit before K3b's fold and the batched K1e were redesigned, built
+    from its sources with this checkout's nvcc flags. ``run(fn)`` calls fn
+    with every kernel the parent's, each entry through this checkout's
+    wrapper on the parent's library, so that ``run(call)`` is the parent's
+    whole call, for every kernel whose C interface this checkout kept. The
+    entries in ``CHANGED`` took another interface here, so the library is
+    opened without them; the parent's own package (``package``, loaded
+    from ``root`` under another name, its wrappers and plans on this
+    library) calls them as the parent did, and ``run`` puts its wrappers
+    of them (``WRAPPERS``) in place of this checkout's. The
     parent's library lacks the entries in ``NEW``, which it is opened
     without; the kernels behind them have no parent. ``SORT_AND_PACK``
     holds the parent's entries of ``kernels.SORT_AND_PACK`` that this
@@ -1052,18 +1149,17 @@ class Parent:
     than handed arguments it does not take."""
 
     NEW = ()
-    CHANGED = ("ionotomo_cubic_sharded_value",
-               "ionotomo_cubic_sharded_value_grad",
-               "ionotomo_cubic_sharded_value_bwd",
-               "ionotomo_cubic_sharded_value_grad_bwd")
+    CHANGED = ("ionotomo_rows_value_bwd_batched", "ionotomo_fold_member_rows",
+               "ionotomo_zp_value_grad_batched")
+    WRAPPERS = ("rows_value_bwd_batched", "zp_value_grad_batched")
     SORT_AND_PACK = {}
     KERNELS = {}
 
     SOURCES = {
         "cubic_sharded.cu":
-            "b7abbf86f460654d18fd7c71278d53a891051f5f775ae71454f0998d4c8dfaec",
+            "8fd06f5e4e2390a0fcf59ec4bb9671a1412b208e0ca4323c68bf8afccf1a4f89",
         "cubic_sharded_bwd.cu":
-            "a392669e2229cee4ee0a64ab4ae30c8731b1e892c24df86a157c00f7a8d93c83",
+            "ea79ceccf40848c6fbf698db4ce2748a8c60ff970b77853825b682b833f07013",
         "cubic_value_grad.cu":
             "e7a491381cdfbf7886294e643e79676595109eba094861c18f65d665a0a5aa74",
         "cubic_value_grad_bwd.cu":
@@ -1150,15 +1246,20 @@ class Parent:
             spec.loader.exec_module(module)
             pbuild = importlib.import_module(name + ".kernels.build")
             pbuild._loaded["lib"] = pbuild.open_library(self.info["path"])
+            LAUNCH_COUNTERS.append(
+                importlib.import_module(name + ".kernels").launches)
             self._package = module
         return self._package
 
     def run(self, fn):
         """fn() with the parent's kernels behind this checkout's wrappers
-        and the parent's launch of each call."""
+        (the parent's own wrappers of ``CHANGED``) and the parent's launch
+        of each call."""
         from ionotomo_tpu_torch import kernels
+        pk = importlib.import_module(self.package().__name__ + ".kernels")
         swap = {"SORT_AND_PACK": {**kernels.SORT_AND_PACK,
-                                  **self.SORT_AND_PACK}, **self.KERNELS}
+                                  **self.SORT_AND_PACK}, **self.KERNELS,
+                **{w: getattr(pk, w) for w in self.WRAPPERS}}
         saved = self.build.load(), {k: getattr(kernels, k) for k in swap}
         self.build._loaded["lib"] = self.lib
         for k, v in swap.items():
@@ -1526,12 +1627,31 @@ def phase2_kernels_vs_plain(dev, boxspline, tricubic, fermat, kernels,
           "K1's pack bitwise its plain version")
     p_ms = device_ms(lambda: kernels.pack_zp_taps(coef3, grid3), 20)
     p_plain = device_ms(lambda: boxspline.pack_z_taps_ref(coef3), 5)
+    b = torch.arange(1, N_GRID - 1, device=dev)
+    take = take_pack(coef3, torch.stack([b - 1, b, b + 1,
+                                         torch.full_like(b, -1)], -1))
+    check(bool(torch.equal(take(), packed)),
+          "K1's pack as one torch.take: bitwise the kernel's")
+    lib_ms = device_ms(take, 20)
     b_ms, b_by = bound(nbytes(coef3, packed), 0)
     print(f"  K1's pack of the 128^3 table: kernel {p_ms:.4f} ms, plain "
-          f"{p_plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+          f"{p_plain:.4f} ms, one torch.take {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
     results["pack_zp_taps"] = {"line": dict(
         max_abs_err=0.0, ms=p_ms, plain_ms=p_plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)}
+        bound_by=b_by, library_ms=lib_ms)}
+
+
+def take_pack(table2d, z):
+    """One PyTorch call of a z-tap pack (K1's, K1c's): ``torch.take`` of
+    the flat (rows, nz) table, a zero appended, at the pack's index
+    (bases, rows, taps), made beforehand from ``z`` (bases, taps), the z
+    of each tap at each base (−1: the zero)."""
+    rows, nz = table2d.shape
+    flat = torch.cat([table2d.reshape(-1), table2d.new_zeros(1)])
+    r = torch.arange(rows, device=table2d.device)[None, :, None] * nz
+    idx = torch.where(z[:, None, :] < 0, rows * nz, r + z[:, None, :])
+    return lambda: torch.take(flat, idx)
 
 
 def phase3_throughput(dev, boxspline, fermat, kernels, Grid3D, chapman,
@@ -2837,24 +2957,33 @@ def phase9_config2(dev, fermat, rays, kernels, Grid3D, chapman, configs,
     # the two kernels K1c's call launches before the tracer, at the
     # saturated batch, against their plain versions
     from ionotomo_tpu_torch.core import tricubic
-    for name, kern, plain, n_bytes, n_ops in (
+    b = torch.arange(N_GRID - 1, device=dev)
+    take = take_pack(table.reshape(N_GRID * N_GRID, N_GRID), torch.stack(
+        [(b - 1).clamp_min(0), b, b + 1, (b + 2).clamp_max(N_GRID - 1)], -1))
+    for name, kern, plain, library, n_bytes, n_ops in (
             ("pack_z_taps", lambda: kernels.pack_z_taps(table, grid),
-             lambda: tricubic.pack_z_taps_ref(table),
+             lambda: tricubic.pack_z_taps_ref(table), take,
              nbytes(table) + 16 * (N_GRID - 1) * N_GRID * N_GRID, 0),
             ("ray_order_keys", lambda: kernels.ray_order_keys(o2, d2, grid),
-             lambda: kernels.ray_order_keys_ref(o2, d2, grid),
+             lambda: kernels.ray_order_keys_ref(o2, d2, grid), None,
              nbytes(o2, d2) + 4 * n_rays, n_rays * OPS_RAY_KEY)):
         got, want = kern(), plain()
         err = float((got - want).abs().max())
         check(torch.equal(got, want), f"{name} at {n_rays} rays: bitwise "
                                       f"its plain version")
+        if library is not None:
+            check(torch.equal(library(), got),
+                  f"{name} as one torch.take: bitwise the kernel's")
         k_ms, p_ms = device_ms(kern, 20), device_ms(plain, 5)
+        lib_ms = device_ms(library, 20) if library is not None else None
         nb_ms, nb_by = bound(n_bytes, n_ops)
         print(f"  {name} at {n_rays} rays: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, bound {nb_ms:.4f} ms ({nb_by})")
+              f"{p_ms:.4f} ms, one PyTorch call "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+              f"{nb_ms:.4f} ms ({nb_by})")
         results[name] = {"line": dict(
             max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=nb_ms,
-            bound_by=nb_by, library_ms=None), "launches": launches[name]}
+            bound_by=nb_by, library_ms=lib_ms), "launches": launches[name]}
         del got, want
     results["trace_leapfrog_cubic"]["tau_rel"] = errs[n_rays][1]
     results["trace_leapfrog_cubic"]["launches"] = \
@@ -3417,7 +3546,10 @@ def member_kernels_at(label, dev, tricubic, kernels, setup, plan, n_rows, nz,
         out[name]["unbatched_ms"] = one
     if layout:
         out.update(member_layout_kernels(label, tricubic, kernels, tables,
-                                         plan, rng))
+                                         plan, zi, rng, parent))
+    elif parent is not None:
+        out["rows_value_bwd_batched"]["fold"] = fold_line(
+            label, tricubic, kernels, plan, zi, b, nz, rng, parent)
     torch.cuda.empty_cache()
     return out
 
@@ -3447,40 +3579,94 @@ def pack_members_line(label, tricubic, kernels, tables):
               0), scatter=False)
 
 
-def member_layout_kernels(label, tricubic, kernels, tables, plan, rng):
+def member_layout_kernels(label, tricubic, kernels, tables, plan, zi, rng,
+                          parent=None):
     """The two kernels K2b's and K3b's calls launch beside the gather and
     the reduce, alone at the call's shapes: the pack of the tables
     (bitwise its plain version; one call: a transposing copy) and the fold
-    of random partial rows (bitwise its plain version; no one call)."""
+    (``fold_line``)."""
     b, _, nz = tables.shape
-    lines = {"pack_members": pack_members_line(label, tricubic, kernels,
-                                               tables)}
+    return {"pack_members": pack_members_line(label, tricubic, kernels,
+                                              tables),
+            "fold_member_rows": fold_line(label, tricubic, kernels, plan, zi,
+                                          b, nz, rng, parent)}
+
+
+def fold_line(label, tricubic, kernels, plan, zi, b, nz, rng, parent=None):
+    """K3b's fold alone over a point set's plan, ``b`` members: random
+    partial rows inside the z spans K3b's reduce writes there
+    (``segment_spans_ref`` of the plan and the points' taps zi), NaN
+    outside (never read), bitwise its plain version; with a parent, the
+    parent's fold of the same rows with +0.0 outside the spans (what the
+    parent's reduce left there) bitwise the new one, timed in turns. Its
+    bound: each member's spans read and its rows of several segments
+    written once, 4 B (sum of spans + rows x nz) a member (the first
+    design's, whole partial rows read, kept as ``full_row_bound_ms``). One
+    PyTorch call of the same sum: ``index_add_`` along dim 1 of those
+    segments' partial rows (+0.0 outside the spans, gathered beforehand)
+    into a (B, rows, nz) buffer of those rows, and its ``zero_`` first;
+    the scatter back into the table is not in it. Returns its line."""
+    dev = zi.device
+    spans = tricubic.segment_spans_ref(plan, zi, nz)
+    nseg = plan.row_seg[1:] - plan.row_seg[:-1]
+    multi = nseg > 1
+    seg_row = plan.seg_row.long()
+    in_multi = multi[seg_row.clamp(max=plan.n_rows - 1)] & (
+        seg_row < plan.n_rows)
+    z = torch.arange(nz, device=dev)
+    covered = in_multi[:, None] & (spans[:, :1] <= z) & (z <= spans[:, 1:])
     parts = torch.from_numpy(rng.normal(size=(b, plan.n_seg_max, nz))
-                             .astype(np.float32)).to(tables.device)
-    base = torch.zeros_like(tables)
+                             .astype(np.float32)).to(dev)
+    zeros = torch.where(covered, parts, 0.0)
+    nans = torch.where(covered, parts, float("nan"))
+    del parts
+    base = torch.zeros((b, plan.n_rows, nz), dtype=torch.float32,
+                       device=dev)
     running = base.clone()
 
     def fold():
-        return kernels.fold_member_rows(parts, plan, base.clone())
+        return kernels.fold_member_rows(nans, plan, base.clone(), spans)
 
     def plain_fold():
-        return tricubic.fold_member_rows_ref(parts, plan, base.clone())
+        return tricubic.fold_member_rows_ref(nans, plan, base.clone(), spans)
     check(bool(torch.equal(fold(), plain_fold())),
           f"fold_member_rows at {label}: bitwise its plain version")
-    nseg = plan.row_seg[1:] - plan.row_seg[:-1]
-    multi = nseg > 1
-    folded = int(nseg[multi].sum())
     n_multi = int(multi.sum())
+    folded = int(nseg[multi].sum())
+    segs = torch.nonzero(in_multi).squeeze(1)
+    span_sum = int((spans[segs, 1] - spans[segs, 0] + 1).clamp_min(0).sum())
     print(f"  {n_multi} rows of several segments hold {folded} of the "
           f"{int(plan.row_seg[-1])} segments (busiest row "
-          f"{int(nseg.max())})")
-    lines["fold_member_rows"] = check_and_time(
+          f"{int(nseg.max())}); their spans {span_sum} of "
+          f"{folded * nz} z cells, {span_sum / max(folded, 1):.1f} a "
+          f"segment; the fold's list {int(plan.n_multi[0])} of "
+          f"{plan.multi_rows.shape[0]} listed")
+    rank = torch.cumsum(multi, 0) - 1
+    dest = rank[seg_row[segs]]
+    src = zeros[:, segs].contiguous()
+    rows = torch.empty((b, n_multi, nz), dtype=torch.float32, device=dev)
+    line = check_and_time(
         f"fold_member_rows at {label} ({n_multi} rows, {folded} segments)",
-        fold, plain_fold, None,
-        bound(4 * b * nz * (folded + n_multi), b * nz * folded),
+        fold, plain_fold, lambda: rows.zero_().index_add_(1, dest, src),
+        bound(4 * b * (span_sum + n_multi * nz), b * span_sum),
         scatter=False, plain_reps=2,
-        timed=lambda: kernels.fold_member_rows(parts, plan, running))
-    return lines
+        timed=lambda: kernels.fold_member_rows(nans, plan, running, spans))
+    line["full_row_bound_ms"] = bound(4 * b * nz * (folded + n_multi),
+                                      b * nz * folded)[0]
+    line.update(rows=n_multi, segments=folded, span_cells=span_sum)
+    if parent is not None:
+        pk = importlib.import_module(parent.package().__name__ + ".kernels")
+        line["parent_ms"], line["new_ms_in_turns"] = compare_parent(
+            f"fold_member_rows at {label}",
+            lambda: parent.run(lambda: pk.fold_member_rows(
+                zeros, plan, base.clone())),
+            lambda: kernels.fold_member_rows(zeros, plan, base.clone(),
+                                             spans), 20, pairs=3,
+            new_timed=lambda: kernels.fold_member_rows(zeros, plan, running,
+                                                       spans),
+            parent_timed=lambda: pk.fold_member_rows(zeros, plan, running))
+    del zeros, nans, src, rows, base, running
+    return line
 
 
 def batched_k1e_at(label, dev, kernels, boxspline, grid, pts, rng,
@@ -3523,12 +3709,15 @@ def batched_k1e_at(label, dev, kernels, boxspline, grid, pts, rng,
     plain = device_ms(lambda: boxspline.interp_rows_with_grad_batched_ref(
         tables, grid, pts), 2)
     b_ms, b_by = k1e_bound(boxspline, grid, pts, members=b)
-    print(f"  the batched K1e at {label} (B={b}): kernel {ms:.4f} ms, "
-          f"{b} x K1e {loop_ms:.4f} ms, plain {plain:.4f} ms, bound "
-          f"{b_ms:.6f} ms ({b_by})")
+    lanes = kernels.zp_batched_lanes(
+        pts.shape[0] * -(-b // kernels.MEMBER_GROUP), kernels.sm_count(dev))
+    print(f"  the batched K1e at {label} (B={b}, {lanes} lanes a point, "
+          f"{kernels.ZP_BATCHED_THREADS} threads a block): kernel "
+          f"{ms:.4f} ms, {b} x K1e {loop_ms:.4f} ms, plain {plain:.4f} ms, "
+          f"bound {b_ms:.6f} ms ({b_by})")
     line = dict(max_abs_err=err_v, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, points=pts.shape[0],
-                unbatched_ms=loop_ms / b, looped_ms=loop_ms)
+                unbatched_ms=loop_ms / b, looped_ms=loop_ms, lanes=lanes)
     if parent is not None:
         line["parent_ms"], line["new_ms_in_turns"] = compare_parent(
             f"the batched K1e ({b} members) at {label}",
@@ -3575,10 +3764,12 @@ def phase11_member_kernels(dev, world, boxspline, tricubic, tec, kernels,
     # the batched K1e at config 5's endpoints and at the edge-case points
     ends = tec._endpoint_tangents(world.rays.points)[0]
     for key, label, g, p in (
+            ("zp@1240", "1,240 of config 5's endpoints", world.grid,
+             ends[:1240].contiguous()),
             (f"zp@{n_outer}", f"config 5's {ends.shape[0]} endpoints",
              world.grid, ends),
             ("zp@edge", f"the {pts.shape[0]} edge-case points", grid, pts)):
-        at[key]["zp_value_grad_batched"] = batched_k1e_at(
+        at.setdefault(key, {})["zp_value_grad_batched"] = batched_k1e_at(
             label, dev, kernels, boxspline, g, p, rng, parent)
     for name in ("rows_value_fwd_batched", "rows_value_bwd_batched",
                  "pack_members", "fold_member_rows", "zp_value_grad_batched"):
@@ -5089,7 +5280,8 @@ def slant_truth_anchors(dev, pipe, truth):
                                       noise=draws)
 
 
-def phase16_invert(dev, kernels, results, profile, shape=None):
+def phase16_invert(dev, kernels, results, profile, shape=None,
+                   parent=None):
     """The batch inversion (``inversion.pipeline.InversionPipeline``) at
     full width: ``data.synth``'s defaults over ``INVERT_TIMES`` timesteps in
     memory (the card's machine has no h5py), the 128^3 grid and the
@@ -5100,8 +5292,11 @@ def phase16_invert(dev, kernels, results, profile, shape=None):
     once, kill and resume in the snapshot and Kalman modes (the Solution's
     SHA-256), one snapshot solve on the card against the CPU from the same
     inputs with bfloat16 controls, and K2b, its pack, K3b and its fold at
-    B = 8 over the snapshot geometry's points (``kernels_at_invert``).
-    ``shape`` shrinks the grid for a rehearsal on the CPU."""
+    B = 8 over the snapshot geometry's points (``kernels_at_invert``;
+    with a ``parent``, K3b, its fold and K2b bitwise the parent's and timed
+    in turns, and with ``profile`` the snapshot solve profiled on the
+    parent's kernels too). ``shape`` shrinks the grid for a rehearsal on
+    the CPU."""
     from ionotomo_tpu_torch.core import tricubic
     from ionotomo_tpu_torch.device import host
     from ionotomo_tpu_torch.forward import tec
@@ -5237,11 +5432,15 @@ def phase16_invert(dev, kernels, results, profile, shape=None):
         f"the snapshot's {n_pts} points", dev, tricubic, kernels,
         (geo.ri, geo.wxy, geo.zi, geo.wz), geo.row_plan,
         *geo.table_shape, geo.model.xy_first, np.random.default_rng(16),
-        layout=True) if cuda else {})
+        parent, layout=True) if cuda else {})
     del geo
     if profile and cuda:
         out["profile"] = profile_call("snapshot solve",
                                       lambda: pipe.solve_snapshot(0))
+        if parent is not None:
+            out["profile_parent"] = profile_call(
+                "snapshot solve on the parent's kernels",
+                lambda: parent.run(lambda: pipe.solve_snapshot(0)))
 
     # one snapshot solve on the card against the CPU from the same inputs,
     # with the controls: K2 or K3 rounded to bfloat16
@@ -7189,7 +7388,8 @@ def e_study(reps=50) -> int:
     against one of the batched K1e (over a pack made beforehand, as the
     operator shares K2b's). Each kernel at 32, 64, 128 and 256 threads a
     block (the library built again for each through ``build.build(defines=
-    ...)``), in ray order and in endpoint order (the endpoints sorted by
+    ...)``; the batched K1e at its own rule's, which ``--member-study``
+    sweeps), in ray order and in endpoint order (the endpoints sorted by
     their stencil's base cell, ``kernels.point_order`` of their row
     set-up: the kernels read them permuted and leave their outputs in that
     order, so the order's reads are timed without the scattered writes an
@@ -7210,8 +7410,7 @@ def e_study(reps=50) -> int:
     dev = torch.device("cuda", 0)
     print(f"card: {card_line()}")
     sizes = (32, 64, 128, 256)
-    names = ("ZP_VALUE_GRAD_THREADS", "ZP_VALUE_GRAD_BATCHED_THREADS",
-             "CUBIC_VALUE_GRAD_THREADS")
+    names = ("ZP_VALUE_GRAD_THREADS", "CUBIC_VALUE_GRAD_THREADS")
     libs = {}
     for bs in sizes:
         info = build.build(defines=tuple(f"{n}={bs}" for n in names))
@@ -7377,20 +7576,40 @@ def ptxas_lines(log, fragments):
     return out
 
 
-def member_study(reps=10) -> int:
-    """``--member-study``: what K2b's and K3b's calls spend, kernel by
-    kernel, at config 5's two bundles and the zp edge-case points (8
-    members), and both built six more ways through ``build.build(defines=
-    ...)``: K3b's scan without its cut-off at the longest run
-    (``K3B_FULL_SCAN``: all five steps, as K3 takes them), its fold with 8
-    or 32 rows a block (``K3B_FOLD_ROWS``, 1 by default) or in blocks of
-    128 threads (``K3B_FOLD_THREADS``, 256 by default), its reduce's
-    registers set for 4 blocks an SM (``K3B_MIN_BLOCKS``), and K2b's
-    gather's for 3 (``K2B_MIN_BLOCKS``; the defaults leave the compiler
-    its choice); each build's K2b and K3b bitwise the default build's.
-    Prints ptxas's registers of the member kernels."""
+#: ``--member-study``'s sweep of the fold's grid: blocks an SM.
+FOLD_STUDY_BLOCKS = (4, 8, 16, 64)
+#: ... and of the batched K1e: lanes a point and threads a block, and
+#: the uniform points of config 5's grid that place the lanes' crossovers.
+K1EB_STUDY_LANES = (4, 8)
+K1EB_STUDY_THREADS = (32, 64, 128, 256)
+K1EB_STUDY_POINTS = (2500, 5000, 10000, 20000, 40000, 80000, 160000,
+                     320000, 640000)
+
+
+def member_study(parent_dir=None, reps=10) -> int:
+    """``--member-study [--parent DIR]``: what K2b's, K3b's and the
+    batched K1e's calls spend, kernel by kernel. (1) K2b and K3b at config
+    5's two bundles and the zp edge-case points (8 members), by kernel,
+    and both built three more ways through ``build.build(defines=...)``:
+    K3b's scan without its cut-off at the longest run (``K3B_FULL_SCAN``:
+    all five steps, as K3 takes them), its reduce's registers set for 4
+    blocks an SM (``K3B_MIN_BLOCKS``), K2b's gather's for 3
+    (``K2B_MIN_BLOCKS``; the defaults leave the compiler its choice); each
+    build's K2b and K3b bitwise the default build's. (2) K3b's fold alone
+    over each bundle's spans (``fold_line``; with DIR bitwise the parent's
+    and in turns with it) and at ``FOLD_STUDY_BLOCKS`` blocks an SM
+    (``kernels.FOLD_BLOCKS_PER_SM``), in two passes of opposite order. (3) The batched K1e at 1,240 and 20,000 of
+    config 5's endpoints and the 917,504 edge-case points: every lanes a
+    point and threads a block of ``K1EB_STUDY_LANES`` x
+    ``K1EB_STUDY_THREADS`` (the rule's threshold forced), the rule's launch
+    with an empty body (``K1EB_LAUNCH_FLOOR=1``: the launch floor) and,
+    with DIR, the parent's kernel; then each lanes at the rule's threads
+    at ``K1EB_STUDY_POINTS`` uniform points of config 5's grid, which
+    place the rule's crossovers; all bitwise the rule's, in two passes of
+    opposite order, beside the bound. Prints ptxas's registers of the
+    member kernels."""
     from ionotomo_tpu_torch import configs, kernels
-    from ionotomo_tpu_torch.core import boxspline
+    from ionotomo_tpu_torch.core import boxspline, tricubic
     from ionotomo_tpu_torch.core.grids import Grid3D
     from ionotomo_tpu_torch.forward import tec
     from ionotomo_tpu_torch.kernels import build
@@ -7398,19 +7617,19 @@ def member_study(reps=10) -> int:
 
     dev = torch.device("cuda", 0)
     print(f"card: {card_line()}")
+    parent = Parent(parent_dir) if parent_dir else None
     variants = {"default": (), "full scan": ("K3B_FULL_SCAN=1",),
-                "fold 8 rows a block": ("K3B_FOLD_ROWS=8",),
-                "fold 32 rows a block": ("K3B_FOLD_ROWS=32",),
-                "fold 128 threads": ("K3B_FOLD_THREADS=128",),
                 "reduce 4 blocks": ("K3B_MIN_BLOCKS=4",),
-                "gather 3 blocks": ("K2B_MIN_BLOCKS=3",)}
+                "gather 3 blocks": ("K2B_MIN_BLOCKS=3",),
+                "K1e launch floor": ("K1EB_LAUNCH_FLOOR=1",)}
     libs = {}
     for label, defines in variants.items():
         info = build.build(defines=defines)
         libs[label] = build.open_library(info["path"])
         for name, used in ptxas_lines(info["log"], (
                 "rows_value_bwd_batched_kernel", "fold_member_rows_kernel",
-                "rows_value_fwd_batched_kernel", "pack_members_kernel")):
+                "rows_value_fwd_batched_kernel", "pack_members_kernel",
+                "zp_value_grad_batched_kernel")):
             print(f"  ptxas, {label}: {name}: {used}")
     default = build.load()
 
@@ -7431,6 +7650,7 @@ def member_study(reps=10) -> int:
         cases.append((f"config 5's {name}", (geo.ri, geo.wxy, geo.zi,
                                              geo.wz), geo.row_plan, nx * ny,
                       nz))
+    ends = tec._endpoint_tangents(w.rays.points)[0]
     shape = (N_GRID,) * 3
     origin, spacing = (-64.0, -32.0, 0.0), (1.0, 0.5, 8.0)
     grid = Grid3D.create(origin, spacing, shape, device=dev)
@@ -7441,6 +7661,8 @@ def member_study(reps=10) -> int:
                   boxspline.row_plan(setup[0], setup[2], N_GRID * N_GRID),
                   N_GRID * N_GRID, N_GRID))
     b = B_MEMBERS
+    k3b_variants = ("default", "full scan", "reduce 4 blocks",
+                    "gather 3 blocks")
     for label, (ri, wxy, zi, wz), plan, n_rows, nz_ in cases:
         print_plan(f"K3b at {label}", plan)
         tables = torch.from_numpy(rng.normal(size=(b, n_rows, nz_))
@@ -7459,7 +7681,7 @@ def member_study(reps=10) -> int:
                       f"{v:.4f} ms {k[:48]}" for k, v in
                       sorted(by.items(), key=lambda kv: -kv[1])))
             want = fn()
-            for variant in variants:
+            for variant in k3b_variants:
                 got = with_lib(variant, fn)
                 torch.cuda.synchronize()
                 check(bool(torch.equal(got, want)),
@@ -7468,8 +7690,89 @@ def member_study(reps=10) -> int:
                 ms = with_lib(variant, lambda: device_ms(fn, reps))
                 print(f"  {name} at {label}, {variant}: {ms:.4f} ms")
             del want, got
-        del tables, ct
+        fold_line(label, tricubic, kernels, plan, zi, b, nz_, rng, parent)
+        spans = tricubic.segment_spans_ref(plan, zi, nz_)
+        parts = torch.from_numpy(rng.normal(size=(b, plan.n_seg_max, nz_))
+                                 .astype(np.float32)).to(dev)
+        out = torch.zeros((b, n_rows, nz_), dtype=torch.float32, device=dev)
+
+        def fold():
+            return kernels.fold_member_rows(parts, plan, out, spans)
+        want = fold().clone()
+        times = {}
+        for pass_ in (FOLD_STUDY_BLOCKS, FOLD_STUDY_BLOCKS[::-1]):
+            for blocks in pass_:
+                def at(fn):
+                    return with_attr(kernels, "FOLD_BLOCKS_PER_SM", blocks,
+                                     fn)
+                check(bool(torch.equal(at(fold), want)),
+                      f"the fold at {label}, {blocks} blocks an SM: bitwise")
+                times.setdefault(blocks, []).append(
+                    at(lambda: device_ms(fold, reps)))
+        for blocks, t in times.items():
+            print(f"  the fold at {label}, a grid of {blocks} blocks an SM: "
+                  f"{', '.join(f'{x:.4f}' for x in t)} ms")
+        del tables, ct, parts, out, want
         torch.cuda.empty_cache()
+
+    tables5 = torch.from_numpy(rng.normal(size=(b, nx * ny, nz))
+                               .astype(np.float32)).to(dev)
+    packed5 = kernels.pack_members(tables5.view(b, -1))
+    table_e = torch.from_numpy(rng.normal(size=(b, N_GRID * N_GRID, N_GRID))
+                               .astype(np.float32)).to(dev)
+    packed_e = kernels.pack_members(table_e.view(b, -1))
+    sms = kernels.sm_count(dev)
+    lo = w.grid.origin.cpu().numpy()
+    hi = lo + w.grid.spacing.cpu().numpy() * (np.asarray(w.grid.shape) - 1)
+    uniform = torch.from_numpy((lo + rng.uniform(0, 1, (K1EB_STUDY_POINTS[
+        -1], 3)) * (hi - lo)).astype(np.float32)).to(dev)
+    shapes = [("1,240 of config 5's endpoints", tables5, packed5, w.grid,
+               ends[:1240].contiguous()),
+              ("config 5's 20,000 endpoints", tables5, packed5, w.grid, ends),
+              ("the 917,504 edge-case points", table_e, packed_e, grid, pts)]
+    shapes += [(f"{n} uniform points of config 5's grid", tables5, packed5,
+                w.grid, uniform[:n]) for n in K1EB_STUDY_POINTS]
+    for label, tables, packed, g, p_ in shapes:
+        def k1e():
+            return kernels.zp_value_grad_batched(tables, g, p_, packed)
+
+        def forced(lanes, threads, lib="default"):
+            return lambda: with_lib(lib, lambda: with_attr(
+                kernels, "ZP_BATCHED_EIGHT_LANES_PER_SM",
+                1 << 30 if lanes == 8 else 0,
+                lambda: with_attr(kernels, "ZP_BATCHED_THREADS", threads,
+                                  k1e)))
+        rule = kernels.zp_batched_lanes(p_.shape[0], sms)
+        sweep = "uniform" not in label
+        forms = {f"{lanes} lanes, {threads} threads": forced(lanes, threads)
+                 for lanes in K1EB_STUDY_LANES
+                 for threads in (K1EB_STUDY_THREADS if sweep
+                                 else (kernels.ZP_BATCHED_THREADS,))}
+        if parent is not None and sweep:
+            forms["the parent's"] = lambda: parent.run(k1e)
+        want = [t.clone() for t in k1e()]
+        torch.cuda.synchronize()
+        for form, fn in forms.items():
+            got = fn()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, c) for a, c in zip(got, want)),
+                  f"the batched K1e at {label}, {form}: bitwise the rule's")
+        if sweep:
+            forms["the launch floor (the rule's grid, an empty body)"] = \
+                forced(rule, kernels.ZP_BATCHED_THREADS, "K1e launch floor")
+        b_ms, b_by = k1e_bound(boxspline, g, p_, members=b)
+        print(f"  the batched K1e at {label}: the rule's {rule} lanes, "
+              f"{kernels.ZP_BATCHED_THREADS} threads; bound {b_ms:.6f} ms "
+              f"({b_by})")
+        times = {}
+        names = list(forms)
+        for pass_ in (names, names[::-1]):
+            for form in pass_:
+                times.setdefault(form, []).append(device_ms(forms[form],
+                                                            50))
+        for form, t in times.items():
+            print(f"  the batched K1e at {label}, {form}: "
+                  f"{', '.join(f'{x:.4f}' for x in t)} ms")
     return 0
 
 
@@ -8847,8 +9150,15 @@ def kernels_line(results) -> dict:
                           results["config5_run_launches"][name],
                       "enkf_6_steps": results["enkf_launches"][name]}
                for name in ("point_order_keys", "permute_points")}
+    fold = results["fold_member_rows"]["line"]
     extra = {
         "zp_value_grad": k1e,
+        # the fold's bound over the spans it reads, the first design's
+        # (whole partial rows) beside it
+        "fold_member_rows": {
+            **entry("fold_member_rows", *reps["fold_member_rows"],
+                    launches["fold_member_rows"], fold),
+            "full_row_bound_ms": fold["full_row_bound_ms"]},
         "trace_split": {**entry("trace_split", *reps["trace_split"],
                                 launches["trace_split"],
                                 results["trace_split"]["line"]),
@@ -8962,9 +9272,9 @@ def service_only() -> int:
     return 0
 
 
-def invert_only(profile=False) -> int:
-    """``--invert``: the build and phase 16 alone (the batch inversion in
-    every mode; ~1-2 min on an H100)."""
+def invert_only(profile=False, parent_dir=None) -> int:
+    """``--invert [--parent DIR]``: the build and phase 16 alone (the
+    batch inversion in every mode; ~1-2 min on an H100)."""
     from ionotomo_tpu_torch import kernels
     from ionotomo_tpu_torch.kernels import build
 
@@ -8975,7 +9285,8 @@ def invert_only(profile=False) -> int:
     print(f"  built={info['built']} in {info['seconds']:.2f} s")
     build.load()
     lap = Laps()
-    phase16_invert(dev, kernels, {}, profile=profile)
+    phase16_invert(dev, kernels, {}, profile=profile,
+                   parent=Parent(parent_dir) if parent_dir else None)
     lap("phase16_invert")
     return 0
 
@@ -9152,7 +9463,7 @@ def main() -> int:
     if "--k1zq-study" in args:
         return k1zq_study(parent_dir)
     if "--member-study" in args:
-        return member_study()
+        return member_study(parent_dir)
     if "--k2-study" in args:
         return k2_study()
     if "--gather-study" in args:
@@ -9169,7 +9480,7 @@ def main() -> int:
     if "--theta-study" in args:
         return theta_study()
     if "--invert" in args:
-        return invert_only(profile)
+        return invert_only(profile, parent_dir)
     if "--predict" in args:
         return predict_only(profile)
     if "--sharded" in args:
@@ -9264,7 +9575,7 @@ def main() -> int:
     phase15_service(dev, kernels, results)
     lap("phase15_service")
     torch.cuda.empty_cache()
-    phase16_invert(dev, kernels, results, profile=profile)
+    phase16_invert(dev, kernels, results, profile=profile, parent=parent)
     lap("phase16_invert")
     torch.cuda.empty_cache()
     phase17_predict(dev, kernels, results, profile=profile)

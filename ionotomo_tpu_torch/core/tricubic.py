@@ -42,7 +42,8 @@ is bitwise the unbatched kernel on member b. Both read the member axis
 packed innermost (``kernels.pack_members``, plain version
 ``pack_members_ref``, its inverse ``unpack_members_ref``; K2b's gather
 over the pack ``rows_value_packed_ref``; K3b's fold of rows of several
-segments ``fold_member_rows_ref``). A caller that also evaluates the zp
+segments ``fold_member_rows_ref`` over the z spans its reduce writes,
+``segment_spans_ref``). A caller that also evaluates the zp
 endpoint terms on the same table (``forward.tec.PairedDtecLinear``)
 packs it once (``member_pack``, a ``MemberPack``) and hands the pack to
 K2b and to the batched K1e. Batched indices loop the
@@ -250,7 +251,13 @@ class RowPlan:
     n_tasks:  with ``tasks``, (1,) int32: the tasks used;
     task_counters: with ``tasks``, (2,) int32 zeros, the kernel's counters
               that share out the tasks past its grid (left at zero by each
-              call).
+              call);
+    multi_rows: (min(n_rows, ⌊N·live / (chunk + 1)⌋),) int32, the rows of
+              several segments in order, n_rows past the last: the rows
+              K3b's fold (``kernels.fold_member_rows``) takes. A row of
+              several segments holds more than ``chunk`` pairs, so the
+              length bounds their count and no host read sizes the list;
+    n_multi:  (1,) int32, how many rows ``multi_rows`` lists.
     """
 
     order: torch.Tensor
@@ -266,6 +273,8 @@ class RowPlan:
     tasks: torch.Tensor | None = None
     n_tasks: torch.Tensor | None = None
     task_counters: torch.Tensor | None = None
+    multi_rows: torch.Tensor | None = None
+    n_multi: torch.Tensor | None = None
 
     @property
     def n_rows(self) -> int:
@@ -328,6 +337,13 @@ def build_row_plan(ri: torch.Tensor, n_rows: int, z0: torch.Tensor = None,
     seg_row = torch.searchsorted(
         seg_end, torch.arange(n_seg_max, dtype=torch.int32, device=dev),
         right=True, out_int32=True)
+    # the rows of several segments: the j-th is the first row past j of
+    # them, as seg_row finds each segment's row
+    multi_end = torch.cumsum(n_seg > 1, 0, dtype=torch.int32)
+    multi_rows = torch.searchsorted(
+        multi_end, torch.arange(min(n_rows, n * live // (chunk + 1)),
+                                dtype=torch.int32, device=dev),
+        right=True, out_int32=True)
     return RowPlan(order=ids.reshape(-1)[perm].to(torch.int32),
                    offsets=offsets, row_seg=row_seg, seg_row=seg_row,
                    counters=torch.zeros(n_rows, dtype=torch.int32,
@@ -335,7 +351,8 @@ def build_row_plan(ri: torch.Tensor, n_rows: int, z0: torch.Tensor = None,
                    stride=stride, live=live, chunk=chunk,
                    stream=(torch.cuda.current_stream(dev).cuda_stream
                            if dev.type == "cuda" else None),
-                   z0_range=z0_range)
+                   z0_range=z0_range, multi_rows=multi_rows,
+                   n_multi=multi_end[-1:].clone())
 
 
 #: Pairs a task of whole short rows holds at most (``with_tasks``): one
@@ -464,19 +481,51 @@ def transpose_terms(ct, ri, wxy, zi, wz, table_shape):
         ct.shape[:-1] + (-1,))
 
 
+def segment_spans_ref(plan: RowPlan, zi: torch.Tensor, nz: int
+                      ) -> torch.Tensor:
+    """Plain version of the z spans K3b's reduce writes beside the partial
+    rows: (n_seg_max, 2) int32, each segment's least and greatest z tap
+    inside [0, nz) over its pairs' taps zi (N, L) (the clamped ones
+    included), (2³¹ − 1, −1) where none lies inside (and past the plan's
+    last segment)."""
+    dev = plan.order.device
+    n_pairs = plan.order.shape[0]
+    j = torch.arange(n_pairs, dtype=torch.int64, device=dev)
+    row = torch.searchsorted(plan.offsets[1:].long(), j, right=True)
+    seg = (plan.row_seg[row].long()
+           + (j - plan.offsets[row].long()) // plan.chunk)
+    taps = zi.long()[plan.order.long() // plan.stride]         # (P, L)
+    inside = (taps >= 0) & (taps < nz)
+    seg = seg[:, None].expand_as(taps)[inside]
+    lo = torch.full((plan.n_seg_max,), 2 ** 31 - 1, dtype=torch.int64,
+                    device=dev)
+    hi = torch.full((plan.n_seg_max,), -1, dtype=torch.int64, device=dev)
+    lo.scatter_reduce_(0, seg, taps[inside], "amin")
+    hi.scatter_reduce_(0, seg, taps[inside], "amax")
+    return torch.stack([lo, hi], -1).to(torch.int32)
+
+
 def fold_member_rows_ref(partials: torch.Tensor, plan: RowPlan,
-                         out: torch.Tensor) -> torch.Tensor:
+                         out: torch.Tensor, spans: torch.Tensor
+                         ) -> torch.Tensor:
     """Plain version of ``kernels.fold_member_rows``, in place: for every
-    row of several segments and every member, out[b, r] = Σ partials[b,
-    s] over r's segments s, summed in segment order from 0.0; rows of one
-    segment are left as they are. Reads the busiest row's segment count
-    on the host."""
+    row of several segments, every member b and every z, out[b, r, z] =
+    Σ partials[b, s, z] over r's segments s whose span spans[s] = (lo, hi)
+    covers z (lo ≤ z ≤ hi), summed in segment order from 0.0, and 0.0
+    where none does (what lies outside a span is never read); rows of one
+    segment are left as they are. Reads the busiest row's segment count on
+    the host."""
     first = plan.row_seg[:-1].long()
     nseg = plan.row_seg[1:].long() - first
+    nz = out.shape[-1]
+    z = torch.arange(nz, device=out.device)
     acc = torch.zeros_like(out)
     for k in range(int(nseg.max())):
-        term = partials[:, (first + k).clamp(max=plan.n_seg_max - 1)]
-        acc = torch.where((k < nseg)[None, :, None], acc + term, acc)
+        s = (first + k).clamp(max=plan.n_seg_max - 1)
+        sp = spans[s].long()
+        covers = ((k < nseg)[:, None] & (sp[:, :1] <= z)
+                  & (z <= sp[:, 1:]))                       # (rows, nz)
+        acc = torch.where(covers[None], acc + partials[:, s], acc)
     return out.copy_(torch.where((nseg > 1)[None, :, None], acc, out))
 
 

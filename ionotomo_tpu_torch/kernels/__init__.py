@@ -6,7 +6,8 @@
   same source);
 - K1e ``zp_value_grad``: zp value + physical gradient at points, and
   ``zp_value_grad_batched`` the same for the tables of an ensemble's
-  members in one launch, over their member-innermost pack
+  members in one launch, over their member-innermost pack, 8 or 4 lanes
+  a point by ``zp_batched_lanes``
   (csrc/zp_value_grad.cu);
 - K2  ``rows_value_fwd``: the row-gather value map, over a point order
   where the caller keeps one (``point_order``, whose keys
@@ -36,8 +37,10 @@
   both);
 - K3b ``rows_value_bwd_batched``: K3 over a leading member axis of the
   cotangent, over the one plan the members share: the cotangent packed
-  member-innermost (``pack_members``), the reduce, and the fold of rows of
-  several segments (``fold_member_rows``; csrc/rows_value_bwd_batched.cu).
+  member-innermost (``pack_members``), the reduce (a row of several
+  segments leaves each segment's z span of its partial rows), and the fold
+  of the plan's list of rows of several segments over those spans
+  (``fold_member_rows``; csrc/rows_value_bwd_batched.cu).
 - K6z ``zpc_value_grad``: zpc value + physical gradient at points
   (csrc/zpc_value_grad.cu, csrc/zpc_eval.cuh), and K6zᵀ
   ``zpc_value_grad_bwd`` its transpose, added into a table in place over
@@ -225,11 +228,33 @@ def zp_value_grad_batched(table: torch.Tensor, grid, points: torch.Tensor,
         packed = pack_members(table.view(b, -1))
     elif not _aligned(packed):
         raise ValueError(f"{name}: packed must start on a 16-byte boundary")
+    lanes = zp_batched_lanes(n * -(-b // MEMBER_GROUP), sm_count(dev))
     with torch.cuda.device(dev):
         _launch(name, "ionotomo_" + name, _ptr(packed), b, _ptr(grid.origin),
-                _ptr(grid.spacing), nx, ny, nz, _ptr(points), n, _ptr(value),
-                _ptr(grad))
+                _ptr(grid.spacing), nx, ny, nz, _ptr(points), n, lanes,
+                ZP_BATCHED_THREADS, _ptr(value), _ptr(grad))
     return value, grad
+
+
+#: Threads a block of the batched K1e.
+ZP_BATCHED_THREADS = 128
+#: The batched K1e takes 8 lanes a point (a member each) up to this many
+#: points an SM, else 4 (two members each). More lanes cut each lane's
+#: chain of members and fill an idle card, but each repeats the point's
+#: set-up, and the lanes' registers (48 at 8 lanes, 64 at 4) decide how
+#: many warps the card holds. ``chip_smoke.py --member-study`` (NVIDIA
+#: H100 80GB HBM3, 700 W, 128 threads a block), 1 / 2 / 4 / 8 lanes: 8
+#: fastest at 1,240 endpoints and 2,500 and 5,000 uniform points (9-38
+#: points an SM), 4 from 10,000 (76 an SM) to 640,000 and at the 917,504
+#: edge-case points; 2 tie 4 at 20,000 and read 10 % faster at 40,000
+#: uniform points; 1 never fastest.
+ZP_BATCHED_EIGHT_LANES_PER_SM = 48
+
+
+def zp_batched_lanes(n_items: int, sms: int) -> int:
+    """The lanes a point of the batched K1e over n_items (points times
+    groups of 8 members) on a card of ``sms`` SMs."""
+    return 8 if n_items <= ZP_BATCHED_EIGHT_LANES_PER_SM * sms else 4
 
 
 def cubic_value_grad(field2d: torch.Tensor, grid, points: torch.Tensor):
@@ -1059,12 +1084,14 @@ def rows_value_bwd_batched(ct: torch.Tensor, plan, wxy: torch.Tensor,
     zi[n,l]] += ct[b,n]·wxy[n,k]·wz[n,l] over the one ``plan`` the members
     share. ct (B, N) f32; wxy, zi, wz as for ``rows_value_bwd``. Three
     launches: the cotangent packed member-innermost (``pack_members``), the
-    reduce (every row of one segment written), and ``fold_member_rows``
-    (the rows of several segments, each member's partial rows summed in
-    segment order). Deterministic: no float atomics; member b is bitwise
-    ``rows_value_bwd(ct[b], plan, ...)``. Leaves the plan's counters alone,
-    but runs on the stream the plan was built on and raises on another, as
-    K3 does."""
+    reduce (every row of one segment written; a row of several leaves each
+    segment's partial rows inside the segment's z span, and the span), and
+    ``fold_member_rows`` (the rows of several segments, each member's
+    spans summed in segment order; not launched where the plan's pairs are
+    too few for any row to have several). Deterministic: no float
+    atomics; member b is bitwise ``rows_value_bwd(ct[b], plan, ...)``.
+    Leaves the plan's counters alone, but runs on the stream the plan was
+    built on and raises on another, as K3 does."""
     name = "rows_value_bwd_batched"
     if ct.dim() != 2 or wxy.dim() != 2 or zi.dim() != 2:
         raise ValueError(f"{name}: ct, wxy and zi must be 2-D, got "
@@ -1088,37 +1115,58 @@ def rows_value_bwd_batched(ct: torch.Tensor, plan, wxy: torch.Tensor,
                  + _plan_specs(name, plan, n))
     out = torch.empty((b, n_rows, nz), dtype=torch.float32, device=dev)
     ctp = pack_members(ct) if n > 0 else ct     # no pair reads ct then
+    spans = torch.empty((plan.n_seg_max, 2), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         ptrs, partials = _plan_args(plan, nz, dev, members=b)
         _launch(name, "ionotomo_rows_value_bwd_batched", _ptr(ctp), b, n,
                 _ptr(wxy), k, _ptr(zi), _ptr(wz), l, nz, *ptrs[:4], n_rows,
-                plan.n_seg_max, plan.chunk, _ptr(partials), _ptr(out))
-    return fold_member_rows(partials.view(b, plan.n_seg_max, nz), plan, out)
+                plan.n_seg_max, plan.chunk, _ptr(partials), _ptr(spans),
+                _ptr(out))
+    return fold_member_rows(partials.view(b, plan.n_seg_max, nz), plan, out,
+                            spans)
 
 
-def fold_member_rows(partials: torch.Tensor, plan, out: torch.Tensor
-                     ) -> torch.Tensor:
+#: Blocks of K3b's fold an SM, up to the plan's bound on its rows of
+#: several segments: the grid strides the plan's list of them.
+#: ``chip_smoke.py --member-study`` (NVIDIA H100 80GB HBM3, 700 W), at
+#: config 5's outer / inner bundle: 8 blocks an SM 0.0193 / 0.0098 ms, 64
+#: 0.0188 / 0.0111.
+FOLD_BLOCKS_PER_SM = 8
+
+
+def fold_member_rows(partials: torch.Tensor, plan, out: torch.Tensor,
+                     spans: torch.Tensor) -> torch.Tensor:
     """K3b's second pass, in place: for every row r of several segments
-    in ``plan`` and every member b, out[b, r] = the partial rows
-    partials[b, s] of r's segments s summed in segment order from 0.0
-    (rows of one segment are left as they are). partials (B, n_seg_max,
-    nz), out (B, n_rows, nz) f32; returns ``out`` (plain version:
-    ``core.tricubic.fold_member_rows_ref``)."""
+    in ``plan`` (``plan.multi_rows``), every member b and every z,
+    out[b, r, z] = the partial rows partials[b, s, z] of r's segments s
+    whose z span spans[s] = (lo, hi) covers z, summed in segment order from
+    0.0, and 0.0 where none does (rows of one segment are left as they
+    are; a partial row is read only inside its span). partials (B,
+    n_seg_max, nz), out (B, n_rows, nz) f32, spans (n_seg_max, 2) int32;
+    returns ``out`` (plain version: ``core.tricubic.fold_member_rows_ref``).
+    A plan whose rows all fit in one segment launches nothing."""
     name = "fold_member_rows"
     if partials.dim() != 3 or out.dim() != 3:
         raise ValueError(f"{name}: partials and out must be 3-D, got "
                          f"{partials.dim()}, {out.dim()}")
     b, _, nz = out.shape
+    listed = plan.multi_rows.shape[0]
     dev = _check(name, [("partials", partials, torch.float32,
                          (b, plan.n_seg_max, nz)),
                         ("out", out, torch.float32, (b, plan.n_rows, nz)),
+                        ("spans", spans, torch.int32, (plan.n_seg_max, 2)),
                         ("plan.row_seg", plan.row_seg, torch.int32,
-                         (plan.n_rows + 1,))])
-    if b == 0 or nz == 0:
+                         (plan.n_rows + 1,)),
+                        ("plan.multi_rows", plan.multi_rows, torch.int32,
+                         (listed,)),
+                        ("plan.n_multi", plan.n_multi, torch.int32, (1,))])
+    if b == 0 or nz == 0 or listed == 0:
         return out
+    blocks = min(listed, FOLD_BLOCKS_PER_SM * sm_count(dev))
     with torch.cuda.device(dev):
-        _launch(name, "ionotomo_fold_member_rows", _ptr(plan.row_seg),
-                plan.n_rows, _ptr(partials), b, plan.n_seg_max, nz,
+        _launch(name, "ionotomo_fold_member_rows", _ptr(plan.multi_rows),
+                _ptr(plan.n_multi), listed, _ptr(plan.row_seg), plan.n_rows,
+                _ptr(spans), _ptr(partials), b, plan.n_seg_max, nz, blocks,
                 _ptr(out))
     return out
 

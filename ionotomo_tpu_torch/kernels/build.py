@@ -33,7 +33,7 @@ _SIGNATURES = {
     "ionotomo_zp_value_grad": (_I, [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P,
                                     _P]),
     "ionotomo_zp_value_grad_batched": (_I, [_P, _I, _P, _P, _I, _I, _I, _P,
-                                            _I, _P, _P, _P]),
+                                            _I, _I, _I, _P, _P, _P]),
     "ionotomo_rows_value_fwd": (_I, [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
                                      _I, _P, _P, _P]),
     "ionotomo_point_order_keys": (_I, [_P, _I, _I, _P, _I, _I, _I, _I, _I,
@@ -64,8 +64,9 @@ _SIGNATURES = {
                                              _P, _I, _I, _I, _P, _P]),
     "ionotomo_rows_value_bwd_batched": (_I, [_P, _I, _I, _P, _I, _P, _P, _I,
                                              _I, _P, _P, _P, _P, _I, _I, _I,
-                                             _P, _P, _P]),
-    "ionotomo_fold_member_rows": (_I, [_P, _I, _P, _I, _I, _I, _P, _P]),
+                                             _P, _P, _P, _P]),
+    "ionotomo_fold_member_rows": (_I, [_P, _P, _I, _P, _I, _P, _P, _I, _I,
+                                       _I, _I, _P, _P]),
     "ionotomo_pack_members": (_I, [_P, _I, ctypes.c_longlong, _P, _P]),
     "ionotomo_zpc_value_grad": (_I, [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P,
                                      _P]),
@@ -146,7 +147,8 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR, defines=()) -> dict:
     ``build_dir`` unless this exact build exists. ``defines``: extra
     ``NAME=value`` macros for nvcc (``chip_smoke.py --k5t-study`` builds
     K5ᵀ with other register budgets, ``--member-study`` K3b with other
-    scan and fold settings, ``--k2-study`` K2 with scalar row loads,
+    scan and register settings and the batched K1e's launch with an empty
+    body, ``--k2-study`` K2 with scalar row loads,
     ``--e-study`` K1e and K5 with other block sizes and K6z's launch with
     an empty body, ``--k6zt-study`` K6zᵀ as first designed, ``--rk4-study``
     K1r with other register budgets, ``--k1zq-study`` K1z, K1q and K1s).

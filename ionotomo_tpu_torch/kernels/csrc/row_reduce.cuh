@@ -521,13 +521,19 @@ __device__ __forceinline__ void add_batch_members(
 // kMemberGroup) * nz floats of shared memory. The pairs' ids and
 // member-invariant inputs are loaded once a pass and the batch's z runs
 // found once for the group (add_batch_members). A row of one segment is
-// written here; a row of several writes every member's partial row to
-// partials (n_members, n_seg_max, nz), which fold_member_rows sums in a
-// second launch: no ticket, so no warp folds a skewed row's segments for
-// all members alone. Each member's sums run in reduce_segment's order
-// (batches in order, the same scan tree, then segments in order), so
-// member b of the result is bitwise what reduce_segment makes of member
-// b alone. Pair is a functor with
+// written here. A row of several writes, for every member, only the span
+// of its partial row that its pairs touch: the least and greatest z tap
+// the warp added (inside [0, nz), so the clamped taps too), found by a
+// warp min and max and stored in spans[s] (INT_MAX, -1 where no tap lies
+// in the table). fold_member_rows sums those spans in a second launch: no
+// ticket, so no warp folds a skewed row's segments for all members alone.
+// Outside its span a partial row would hold +0.0 (srow starts at +0.0, and
+// a running sum from +0.0 is never -0.0 in round to nearest), which adds
+// nothing to any sum: so leaving it unwritten and unread changes no bit.
+// Each member's sums run in reduce_segment's order (batches in order, the
+// same scan tree, then segments in order), so member b of the result is
+// bitwise what reduce_segment makes of member b alone. Pair is a functor
+// with
 //   In load(int p, int b0) const          start the loads of flat pair p
 //                                         for members b0 .. b0+7
 //                                         (p < 0: no pair);
@@ -536,7 +542,7 @@ __device__ __forceinline__ void add_batch_members(
 template <int L, class Pair>
 __device__ __forceinline__ void reduce_segment_members(
     const Plan& plan, int nz, int n_members, float* srow,
-    float* __restrict__ out, const Pair& pair) {
+    float* __restrict__ out, int2* __restrict__ spans, const Pair& pair) {
   const int lane = threadIdx.x & 31;
   const int s = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (s >= plan.n_seg_max) return;
@@ -551,6 +557,7 @@ __device__ __forceinline__ void reduce_segment_members(
     const int tb = min(kMemberGroup, n_members - b0);
     for (int z = lane; z < tb * nz; z += 32) srow[z] = 0.0f;
     __syncwarp();
+    int lo = INT_MAX, hi = -1;  // the taps this lane added
     int p_next = beg + 32 + lane < end ? plan.order[beg + 32 + lane] : -1;
     typename Pair::In in =
         pair.load(beg + lane < end ? plan.order[beg + lane] : -1, b0);
@@ -561,87 +568,126 @@ __device__ __forceinline__ void reduce_segment_members(
       int z[L];
       float c[kMemberGroup][L];
       pair.contributions(in, z, c);
+#pragma unroll
+      for (int l = 0; l < L; ++l)
+        if (z[l] >= 0 && z[l] < nz) {
+          lo = min(lo, z[l]);
+          hi = max(hi, z[l]);
+        }
       add_batch_members<L>(z, c, tb, nz, srow);
       in = in_next;
       p_next = p_after;
     }
     __syncwarp();
-    float* dst = nseg == 1
-                     ? out + ((size_t)b0 * plan.n_rows + row) * (size_t)nz
-                     : plan.partials +
-                           ((size_t)b0 * plan.n_seg_max + s) * (size_t)nz;
-    const size_t stride =
-        (size_t)(nseg == 1 ? plan.n_rows : plan.n_seg_max) * (size_t)nz;
-    for (int m = 0; m < tb; ++m)
-      for (int z = lane; z < nz; z += 32) {
-        if (nseg == 1)
+    if (nseg == 1) {
+      float* dst = out + ((size_t)b0 * plan.n_rows + row) * (size_t)nz;
+      const size_t stride = (size_t)plan.n_rows * (size_t)nz;
+      for (int m = 0; m < tb; ++m)
+        for (int z = lane; z < nz; z += 32)
           dst[m * stride + z] = srow[m * nz + z];
-        else
+    } else {
+      lo = __reduce_min_sync(kFullMask, lo);
+      hi = __reduce_max_sync(kFullMask, hi);
+      if (b0 == 0 && lane == 0) spans[s] = make_int2(lo, hi);
+      float* dst =
+          plan.partials + ((size_t)b0 * plan.n_seg_max + s) * (size_t)nz;
+      const size_t stride = (size_t)plan.n_seg_max * (size_t)nz;
+      for (int m = 0; m < tb; ++m)
+        for (int z = lo + lane; z <= hi; z += 32)
           __stcg(dst + m * stride + z, srow[m * nz + z]);
-      }
+    }
     __syncwarp();
   }
 }
 
-#ifndef K3B_FOLD_THREADS
-#define K3B_FOLD_THREADS 256
-#endif
-#ifndef K3B_FOLD_ROWS
-#define K3B_FOLD_ROWS 1
-#endif
-// Threads of one fold_member_rows block, and the consecutive rows it
-// takes.
-constexpr int kFoldThreads = K3B_FOLD_THREADS;
-constexpr int kFoldRows = K3B_FOLD_ROWS;
-static_assert(kFoldRows <= kFoldThreads, "a thread reads each row's count");
+// Threads of one fold_member_rows block: z cells of a row, each thread
+// one z of a group of members; the blocks an SM its register budget is
+// set for (48 registers: the compiler's own choice took 128, and 1-2
+// rows an SM); the segments whose loads a thread issues together
+// (chip_smoke.py --member-study, NVIDIA H100 80GB HBM3, 700 W: 4 read
+// 2-24 % slower at config 5's bundles).
+constexpr int kFoldThreads = 128;
+constexpr int kFoldMinBlocks = 8;
+constexpr int kFoldUnroll = 2;
 
-// The second pass of reduce_segment_members. A block takes kFoldRows
-// consecutive rows, reads their segment counts, and folds each row of
-// several segments in turn (a row of one segment was written by the first
-// pass): for every member, the row's partial rows summed in segment order
-// into out (n_members, n_rows, nz), each element from 0.0f as
-// fold_partials sums it (so bitwise fold_partials' result). The block's
-// threads share the row's n_members * nz elements, four a thread at once,
-// so a skewed row is folded by a block and not by one warp. One row a
-// block: blocks of 8 or 32 rows fold their rows' load chains one after
-// another and read 1.5-2.6 x slower at config 5 (chip_smoke.py
-// --member-study), though most blocks then find a row of one segment.
+// The second pass of reduce_segment_members, over the plan's list of the
+// rows of several segments (core/tricubic.py: RowPlan.multi_rows, built
+// with the plan on the device; n_multi of them). A block takes the listed
+// rows blockIdx.x, blockIdx.x + gridDim.x, ... (a block past the count
+// does nothing), so the grid is sized by the host from a bound and no
+// block is spent on a row of one segment. In a row, blockIdx.y picks
+// kFoldThreads z cells and blockIdx.z a group of kMemberGroup members, a
+// thread one z cell of the group's members: it tests whether a segment's span covers
+// its z once for all of them, and loads their partials at once. Each
+// element sums, in segment order from 0.0f, the partial rows of the
+// segments whose span covers it, and is 0.0f where none does: bitwise the
+// sum of the whole partial rows that fold_partials forms, since outside
+// its span a partial row is +0.0 (reduce_segment_members), and each
+// element of the row is written. The spans of 32 segments are read by the
+// 32 lanes at once and handed round by shuffles, and the loads of
+// kFoldUnroll segments are issued together, so a row costs a chain of
+// four dependent reads (its list entry, its segments, their spans, their
+// partials) and many rows are in flight at once. The first two designs,
+// 4 elements a thread over 256-thread blocks (spans through shared memory
+// with two barriers, then by shuffles), held 2-4 rows an SM (53 and 96
+// registers) and read 0.035-0.040 ms at config 5's 650,000 points against
+// this one's 0.018-0.019; 4 or 2 members a thread read 10 % and 50 %
+// slower there (only a skewed row, the zp edge-case points' corner row of
+// 515 segments, gains from the shorter chains of 2: 0.159 against 0.213).
+// Bound: bytes, each member's spans read and its rows written once, 4 B
+// (sum of spans + rows * nz) a member.
 __device__ __forceinline__ void fold_member_rows(
-    const int* __restrict__ row_seg, int n_rows, const float* partials,
-    int n_members, int n_seg_max, int nz, float* __restrict__ out) {
-  __shared__ int s_first[kFoldRows], s_nseg[kFoldRows];
-  const int r0 = blockIdx.x * kFoldRows;
-  if (threadIdx.x < kFoldRows) {
-    const int r = r0 + threadIdx.x;
-    const int first = r < n_rows ? row_seg[r] : 0;
-    s_first[threadIdx.x] = first;
-    s_nseg[threadIdx.x] = r < n_rows ? row_seg[r + 1] - first : 0;
-  }
-  __syncthreads();
-  const int items = n_members * nz;
-  for (int j = 0; j < kFoldRows; ++j) {
-    const int nseg = s_nseg[j];
-    if (nseg < 2) continue;  // uniform over the block
-    const int row = r0 + j, first = s_first[j];
-    for (int i0 = threadIdx.x; i0 < items; i0 += 4 * kFoldThreads) {
-      size_t src[4], dst[4];
+    const int* __restrict__ multi_rows, const int* __restrict__ n_multi,
+    const int* __restrict__ row_seg, const int2* __restrict__ spans,
+    const float* partials, int n_members, int n_rows, int n_seg_max, int nz,
+    float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int count = __ldg(n_multi);
+  const int z = blockIdx.y * kFoldThreads + threadIdx.x;
+  const int b0 = blockIdx.z * kMemberGroup;
+  const int tb = min(kMemberGroup, n_members - b0);
+  const bool has = z < nz;
+  const size_t in_stride = (size_t)n_seg_max * nz;
+  const size_t out_stride = (size_t)n_rows * nz;
+  const float* pz = partials + (size_t)b0 * in_stride + (has ? z : 0);
+  float* oz = out + (size_t)b0 * out_stride + (has ? z : 0);
+  for (int j = blockIdx.x; j < count; j += gridDim.x) {  // uniform
+    const int row = __ldg(multi_rows + j);
+    const int first = __ldg(row_seg + row);
+    const int nseg = __ldg(row_seg + row + 1) - first;
+    const float* base = pz + (size_t)first * nz;
+    float acc[kMemberGroup];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = min(i0 + q * kFoldThreads, items - 1);
-        const int m = i / nz, z = i - m * nz;
-        src[q] = ((size_t)m * n_seg_max + first) * (size_t)nz + z;
-        dst[q] = ((size_t)m * n_rows + row) * (size_t)nz + z;
+    for (int m = 0; m < kMemberGroup; ++m) acc[m] = 0.0f;
+    for (int k0 = 0; k0 < nseg; k0 += 32) {
+      const int tile = min(32, nseg - k0);
+      const int2 mine = lane < tile ? __ldg(spans + first + k0 + lane)
+                                    : make_int2(INT_MAX, -1);
+      for (int k = 0; k < tile; k += kFoldUnroll) {
+        float v[kFoldUnroll][kMemberGroup];
+        bool in[kFoldUnroll];
+#pragma unroll
+        for (int u = 0; u < kFoldUnroll; ++u) {
+          // lanes past the tile hold the empty span, so k + u < 32 does
+          const int lo = __shfl_sync(kFullMask, mine.x, (k + u) & 31);
+          const int hi = __shfl_sync(kFullMask, mine.y, (k + u) & 31);
+          in[u] = has && k + u < tile && lo <= z && z <= hi;
+          const float* p = base + (size_t)(k0 + k + u) * nz;
+#pragma unroll
+          for (int m = 0; m < kMemberGroup; ++m)
+            v[u][m] = in[u] && m < tb ? __ldcg(p + m * in_stride) : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < kFoldUnroll; ++u)
+#pragma unroll
+          for (int m = 0; m < kMemberGroup; ++m)
+            if (in[u]) acc[m] += v[u][m];
       }
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-      for (int k = 0; k < nseg; ++k) {
+    }
+    if (has) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          acc[q] += __ldcg(partials + src[q] + (size_t)k * (size_t)nz);
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (i0 + q * kFoldThreads < items) out[dst[q]] = acc[q];
+      for (int m = 0; m < kMemberGroup; ++m)
+        if (m < tb) oz[m * out_stride + (size_t)row * nz] = acc[m];
     }
   }
 }

@@ -177,7 +177,7 @@ static __device__ __forceinline__ void zp_translate(const TableGrid& g,
 // FMA changes nothing), and the lattice offsets are integer sums of the
 // piece map's entries (ia: a11, a12, a21 as ints, each -1, 0 or 1, whose
 // float sum zp_translate truncates exactly). K6z and K1z and K1r on zpc
-// take it; K1, K1e and K1r on zp keep zp_translate.
+// and the batched K1e take it; K1, K1e and K1r on zp keep zp_translate.
 static __device__ __forceinline__ void zp_translate_unrolled(
     const TableGrid& g, const ZpPoint& q, const int (&ia)[3], int k,
     int& row, float& wk, float& wu, float& wv) {
@@ -206,8 +206,9 @@ static __device__ __forceinline__ void zp_translate_unrolled(
 //   taps(row, bz, c)
 // writes into c[0..2][m] (T_m[row, bz-1], T_m[row, bz], T_m[row, bz+1]).
 // Every member's sums are formed term for term as M = 1 forms them, so
-// member m is bitwise the single-table contraction of table m.
-template <int M, class Taps>
+// member m is bitwise the single-table contraction of table m. UNROLLED:
+// each translate by zp_translate_unrolled (bitwise zp_translate's).
+template <int M, bool UNROLLED = false, class Taps>
 static __device__ __forceinline__ void zp_value_grad_members_from(
     const TableGrid& g, const ZpPoint& q, const Taps& taps, float (&val)[M],
     float (&gx)[M], float (&gy)[M], float (&gz)[M]) {
@@ -216,11 +217,15 @@ static __device__ __forceinline__ void zp_value_grad_members_from(
   for (int l = 0; l < 3; ++l)
 #pragma unroll
     for (int m = 0; m < M; ++m) s[l][m] = su[l][m] = sv[l][m] = 0.0f;
+  const int ia[3] = {(int)q.a11, (int)q.a12, (int)q.a21};
 #pragma unroll
   for (int k = 0; k < 7; ++k) {
     int r;
     float wk, wu, wv;
-    zp_translate(g, q, k, r, wk, wu, wv);
+    if (UNROLLED)
+      zp_translate_unrolled(g, q, ia, k, r, wk, wu, wv);
+    else
+      zp_translate(g, q, k, r, wk, wu, wv);
     float c[3][M];
     taps(r, q.bz, c);
 #pragma unroll

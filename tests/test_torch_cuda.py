@@ -1494,9 +1494,11 @@ def test_rows_value_bwd_batched_takes_the_widest_rows(dev):
 @pytest.mark.parametrize("n_members", [1, 3, 8, 11])
 def test_pack_and_fold_are_bitwise_their_plain_versions(dev, n_members):
     """The member-innermost pack of K2b and K3b, and K3b's fold of rows of
-    several segments (over the skewed row's plan, random partial rows):
+    several segments (over the skewed row's plan, random partial rows
+    with random z spans: some empty, some whole rows, some at z = 0 and
+    nz − 1; NaN outside every span, which the fold must not read):
     bitwise their plain versions; the fold leaves rows of one segment as
-    they were."""
+    they were and launches once."""
     rng = np.random.default_rng(44)
     x = torch.from_numpy(rng.normal(size=(n_members, 1000))
                          .astype(np.float32)).to(dev)
@@ -1506,31 +1508,53 @@ def test_pack_and_fold_are_bitwise_their_plain_versions(dev, n_members):
     _, ri, _, zi, _, shape = _segment_case("boundaries", 8, 3)
     plan = tricubic.build_row_plan(torch.from_numpy(ri).to(dev), shape[0],
                                    torch.from_numpy(zi[:, 0]).to(dev))
-    parts = torch.from_numpy(rng.normal(size=(n_members, plan.n_seg_max,
-                                              shape[1]))
-                             .astype(np.float32)).to(dev)
+    nz = shape[1]
+    lo = rng.integers(0, nz, plan.n_seg_max)
+    hi = lo + rng.integers(-2, nz, plan.n_seg_max)      # some empty
+    hi = np.minimum(hi, nz - 1)
+    lo[::7], hi[::7] = 0, nz - 1
+    spans_np = np.stack([lo, hi], -1).astype(np.int32)
+    covered = ((np.arange(nz) >= lo[:, None])
+               & (np.arange(nz) <= hi[:, None]))
+    parts_np = rng.normal(size=(n_members, plan.n_seg_max, nz)).astype(
+        np.float32)
+    parts_np[:, ~covered] = np.nan
+    parts = torch.from_numpy(parts_np).to(dev)
+    spans = torch.from_numpy(spans_np).to(dev)
     out = torch.from_numpy(rng.normal(size=(n_members,) + tuple(shape))
                            .astype(np.float32)).to(dev)
-    got = kernels.fold_member_rows(parts, plan, out.clone())
+    before = kernels.launches["fold_member_rows"]
+    got = kernels.fold_member_rows(parts, plan, out.clone(), spans)
+    assert kernels.launches["fold_member_rows"] == before + 1
     assert torch.equal(got, tricubic.fold_member_rows_ref(parts, plan,
-                                                          out.clone()))
+                                                          out.clone(), spans))
+    assert not torch.isnan(got).any()
     single = (plan.row_seg[1:] - plan.row_seg[:-1]) == 1
     assert torch.equal(got[:, single], out[:, single])
 
 
+@pytest.mark.parametrize("lanes", [4, 8])
 @pytest.mark.parametrize("n_members", [1, 3, 8, 9])
-def test_zp_value_grad_batched_is_k1e_per_member(dev, n_members):
-    """The batched K1e, one launch over the tables' pack: member b bitwise
-    K1e on table[b] at edge-case points (in and around the grid, lattice
-    and half-lattice points, u±v = 0, the boundary cells); within
-    1e-5·max|table| (value; over the smallest spacing, gradient) of the
-    plain version; the same with the pack handed in."""
+def test_zp_value_grad_batched_is_k1e_per_member(dev, n_members, lanes,
+                                                 monkeypatch):
+    """The batched K1e, one launch over the tables' pack, at each number
+    of lanes a point its rule can pick (8 or 4, reached through the
+    rule's threshold): member b bitwise K1e on table[b] at edge-case points (in
+    and around the grid, lattice and half-lattice points, u±v = 0, the
+    boundary cells); within 1e-5·max|table| (value; over the smallest
+    spacing, gradient) of the plain version; the same with the pack
+    handed in."""
     rng = np.random.default_rng(45)
     shape, origin, spacing = (12, 14, 16), (-3.0, -2.0, 0.0), (0.5, 0.25,
                                                              1.0)
     grid = Grid3D.create(origin, spacing, shape, device=dev)
     pts = torch.from_numpy(edge_case_points(shape, origin, spacing, 4000,
                                             rng)).to(dev)
+    sms = kernels.sm_count(dev)
+    items = pts.shape[0] * -(-n_members // 8)
+    monkeypatch.setattr(kernels, "ZP_BATCHED_EIGHT_LANES_PER_SM",
+                        1 << 30 if lanes == 8 else 0)
+    assert kernels.zp_batched_lanes(items, sms) == lanes
     table = torch.from_numpy(rng.normal(size=(n_members, 12 * 14, 16))
                              .astype(np.float32)).to(dev)
     before = dict(kernels.launches)

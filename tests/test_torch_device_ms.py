@@ -9,6 +9,10 @@ and ``TRACE_SHARE_OF_EVENTS`` of that time is set aside and another trace
 taken: two traces that lost the same half of their records agree with
 each other, and must not be taken. Below the lower share the host sets the
 event time, and the reading stands.
+
+Where every trace lost the same share of a call's records, the call's
+launches come from sources that lose none (the wrappers' counters, the
+runtime records on the host), and each kernel's count is raised to them.
 """
 import json
 import sys
@@ -160,3 +164,96 @@ def test_device_ms_takes_cuda_events_when_every_trace_is_empty(monkeypatch,
                                          "plain_ms": "cuda_events"}
     assert json.loads(json.dumps(line)) == {"ms": 0.2, "plain_ms": 0.131,
                                             "library_ms": None}
+
+
+def test_an_eight_launch_call_that_lost_two_records_a_call_reads_whole():
+    """K7's value over 8 shards, every trace keeping 6 of each call's 8
+    records: read ¾ from the records alone, whole over the launches the
+    calls made; a call that lost nothing, or whose launches are not known,
+    reads as before, and a count below the records' lowers nothing."""
+    us = 12.5
+    lost = [{"k7": (6 * 20, 6 * 20 * us)}, {"k7": (6 * 20, 6 * 20 * us)}]
+    np.testing.assert_allclose(chip_smoke.whole_readings(lost, 20),
+                               [6 * us / 1e3] * 2)
+    np.testing.assert_allclose(
+        chip_smoke.whole_readings(lost, 20, [160, 160]), [8 * us / 1e3] * 2)
+    assert chip_smoke.agreed_reading(chip_smoke.plausible_readings(
+        lost, 20, None, [160, 160])) == pytest.approx(8 * us / 1e3)
+    whole = [{"k7": (160, 160 * us)}]
+    np.testing.assert_allclose(chip_smoke.whole_readings(whole, 20, [160]),
+                               [8 * us / 1e3])
+    np.testing.assert_allclose(chip_smoke.whole_readings(whole, 20, [100]),
+                               [8 * us / 1e3])
+    # two kernels a call, one of each lost in every trace: both raised
+    two = [{"a": (20, 20 * 10.0), "b": (40, 40 * 30.0)}]
+    np.testing.assert_allclose(chip_smoke.whole_readings(two, 20, [80]),
+                               [(10.0 + 2 * 30.0) * 4 / 3 / 1e3])
+
+
+def test_a_one_kernel_call_reads_as_before():
+    one = [trace(0.3), trace(0.3)]
+    np.testing.assert_allclose(chip_smoke.whole_readings(one, 20, [20, 20]),
+                               chip_smoke.whole_readings(one, 20))
+    assert chip_smoke.agreed_reading(chip_smoke.plausible_readings(
+        one, 20, 0.31, [20, 20])) == pytest.approx(0.3)
+
+
+@pytest.mark.parametrize("sees", [True, False])
+def test_the_launches_of_a_call(monkeypatch, sees):
+    """The port's counted launches and the runtime records, counted once
+    whether or not the runtime records hold the port's launches; the L2
+    flush's launches left out; no probe where one count is 0."""
+    asked = []
+    monkeypatch.setattr(chip_smoke, "runtime_sees_port",
+                        lambda: asked.append(1) or sees)
+    assert chip_smoke.call_launches(160, 0) == 160
+    assert chip_smoke.call_launches(0, 60, 20) == 40 and not asked
+    got = chip_smoke.call_launches(60, 100 if sees else 40)
+    assert got == (100 if sees else 100) and asked
+
+
+class _CpuEvent(_Event):
+    def __init__(self, key, count):
+        super().__init__(key, count, 0.0)
+        self.device_type = DeviceType.CPU
+
+
+@pytest.mark.parametrize("who", ["port", "pytorch"])
+def test_device_ms_reads_an_eight_launch_call_whole(monkeypatch, who):
+    """``device_ms`` over a scripted profiler whose every trace kept 6 of
+    each call's 8 records: the port's kernel (its wrappers count 8
+    launches a call) and PyTorch's (the trace holds 8 runtime records a
+    call) both read 8 launches' time, where they read ¾ before."""
+    us = 12.5
+    counted = [0]
+    calls = []
+
+    class Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            calls.clear()
+            return self
+
+        def __exit__(self, *exc):
+            pass
+
+        def key_averages(self):
+            n = len(calls)
+            out = [_Event("k", 6 * n, 6 * n * us)]
+            if who == "pytorch":
+                out.append(_CpuEvent("cudaLaunchKernel", 8 * n))
+            return out
+
+    def fn():
+        calls.append(1)
+        if who == "port":
+            counted[0] += 8
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(chip_smoke, "port_launches", lambda: counted[0])
+    monkeypatch.setattr(chip_smoke, "runtime_sees_port", lambda: True)
+    ms = chip_smoke.device_ms(fn, 20)
+    assert ms == pytest.approx(8 * us / 1e3) and ms.by == "profiler"

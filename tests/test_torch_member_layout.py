@@ -184,33 +184,66 @@ def _emulate_k3(plan, ct, wxy, zi, wz, nz):
     return out
 
 
-def _emulate_k3b(plan, ct, wxy, zi, wz, nz):
+def _span(z, nz):
+    """The least and greatest z tap inside [0, nz) of a batch's lanes, as
+    the reduce's warp min and max find them (INT_MAX, -1 where none)."""
+    inside = z[(z >= 0) & (z < nz)]
+    return (int(inside.min()), int(inside.max())) if inside.size \
+        else (NO_PAIR, -1)
+
+
+def _fold_spans(parts, spans, nz):
+    """The span fold (``row_reduce.cuh:fold_member_rows``): each element
+    sums, in segment order from 0.0f, the partial rows whose span covers
+    it; 0.0f where none does; nothing outside a span is read."""
+    acc = np.zeros(parts.shape[1:], np.float32)
+    z = np.arange(nz)
+    for p, (lo, hi) in zip(parts, spans):
+        covers = (lo <= z) & (z <= hi)
+        acc = np.where(covers, acc + np.where(covers, p, 0.0), acc)
+    return acc.astype(np.float32)
+
+
+def _emulate_k3b(plan, ct, wxy, zi, wz, nz, full_rows=False):
     """K3b as rows_value_bwd_batched.cu runs it: the cotangent read from
     its pack, groups of 8 members a pass, rows of one segment written by
-    the reduce, the others written by the fold from the partials."""
+    the reduce; a row of several segments leaves each segment's span of
+    its partial rows (NaN outside, never read) and the span, and the fold
+    sums the spans. ``full_rows``: the first design's whole partial rows
+    and fold. Returns (out, partials, spans)."""
     order, stride = plan.order.numpy(), plan.stride
     b = ct.shape[0]
     ctp = ttri.pack_members_ref(torch.from_numpy(ct)).numpy()
     out = np.full((b, plan.n_rows, nz), np.nan, np.float32)
     partials = np.full((b, plan.n_seg_max, nz), np.nan, np.float32)
+    spans = np.tile(np.array([NO_PAIR, -1], np.int64), (plan.n_seg_max, 1))
     for r, s, nseg, beg, end in _segments(plan):
         for b0 in range(0, b, 8):
             tb = min(8, b - b0)
             srows = np.zeros((tb, nz), np.float32)
+            lo, hi = NO_PAIR, -1
             for j0 in range(beg, end, LANES):
                 z, c = _batch(order, j0, end,
                               lambda n: ctp[b0 // 8, n][..., :tb], wxy, zi,
                               wz, stride)
+                blo, bhi = _span(z, nz)
+                lo, hi = min(lo, blo), max(hi, bhi)
                 _add_batch_members(z, c, nz, srows)
-            (out[b0:b0 + tb, r] if nseg == 1
-             else partials[b0:b0 + tb, s])[:] = srows
+            if nseg == 1:
+                out[b0:b0 + tb, r] = srows
+            elif full_rows:
+                partials[b0:b0 + tb, s] = srows
+            else:
+                spans[s] = lo, hi
+                partials[b0:b0 + tb, s, lo:hi + 1] = srows[:, lo:hi + 1]
     row_seg = plan.row_seg.numpy()
     for r in range(plan.n_rows):                      # the fold launch
         first, nseg = row_seg[r], row_seg[r + 1] - row_seg[r]
         if nseg > 1:
-            out[:, r] = _fold(np.moveaxis(partials[:, first:first + nseg],
-                                          1, 0))
-    return out
+            parts = np.moveaxis(partials[:, first:first + nseg], 1, 0)
+            out[:, r] = (_fold(parts) if full_rows else
+                         _fold_spans(parts, spans[first:first + nseg], nz))
+    return out, partials, spans
 
 
 def _transpose_case(case, k, l, n_members, seed=320, n=160, n_rows=24,
@@ -244,7 +277,7 @@ def test_k3b_emulation_is_k3_per_member_and_matches_jax(case, n_members, k,
                                torch.from_numpy(zi[:, 0]), chunk=64)
     nseg = (plan.row_seg[1:] - plan.row_seg[:-1]).numpy()
     assert nseg.max() > 2 and (nseg == 1).any()
-    got = _emulate_k3b(plan, ct, wxy, zi, wz, shape[1])
+    got = _emulate_k3b(plan, ct, wxy, zi, wz, shape[1])[0]
     for b in range(n_members):
         np.testing.assert_array_equal(
             got[b], _emulate_k3(plan, ct[b], wxy, zi, wz, shape[1]))
@@ -257,25 +290,105 @@ def test_k3b_emulation_is_k3_per_member_and_matches_jax(case, n_members, k,
                                atol=1e-5 * np.abs(want).max())
 
 
+def _fold_case(n_members, l=3, k=8, n_rows=24, nz=10, chunk=64, seed=331):
+    """Inputs whose plan (chunk 64) has: row 0, a pile-up of 8 z0 runs of
+    64 pairs each, one segment a run, so consecutive spans overlap by
+    L − 1; row 5, 20 points with taps clamped at z = 0 ([0, 0, 1]) and
+    at nz − 1 ([nz−2, nz−1, nz−1]) in three segments; rows 1-15 with one
+    segment each; rows 16-23 empty."""
+    rng = np.random.default_rng(seed)
+    pile = np.zeros((64, k), np.int32)
+    z0_pile = np.arange(64) // 8
+    clamp = np.full((20, k), 5, np.int32)
+    rest = rng.integers(1, 16, (50, k)).astype(np.int32)
+    rest[rest == 5] = 6
+    ri = np.concatenate([pile, clamp, rest])
+    zi = np.concatenate([
+        z0_pile[:, None] + np.arange(l),
+        np.where(np.arange(20)[:, None] < 10, [0, 0, 1],
+                 [nz - 2, nz - 1, nz - 1]),
+        rng.integers(0, nz - l + 1, (50, 1)) + np.arange(l)]
+    ).astype(np.int32)
+    n = ri.shape[0]
+    wxy = rng.normal(size=(n, k)).astype(np.float32)
+    wz = rng.normal(size=(n, l)).astype(np.float32)
+    ct = rng.normal(size=(n_members, n)).astype(np.float32)
+    plan = ttri.build_row_plan(torch.from_numpy(ri), n_rows,
+                               torch.from_numpy(zi[:, 0]), chunk=chunk)
+    return plan, ct, wxy, zi, wz, nz
+
+
 @pytest.mark.parametrize("n_members", [3, 11])
 def test_fold_of_rows_of_several_segments_is_the_emulated_fold(n_members):
-    """``fold_member_rows_ref`` (the plain version of K3b's second pass)
-    sums each member's partial rows of a row of several segments in
-    segment order from 0.0, bitwise the emulation, and leaves the rows of
-    one segment alone."""
-    _, ri, _, zi, _, (n_rows, nz) = _transpose_case("skewed", 8, 3,
-                                                    n_members)
-    plan = ttri.build_row_plan(torch.from_numpy(ri), n_rows,
-                               torch.from_numpy(zi[:, 0]), chunk=64)
-    rng = np.random.default_rng(330)
-    partials = rng.normal(size=(n_members, plan.n_seg_max, nz)).astype(
-        np.float32)
-    before = rng.normal(size=(n_members, n_rows, nz)).astype(np.float32)
-    got = ttri.fold_member_rows_ref(torch.from_numpy(partials), plan,
-                                    torch.from_numpy(before.copy())).numpy()
+    """The span fold is bitwise the first design's fold of whole partial
+    rows at every row of several segments (a pile-up row whose spans
+    overlap by L − 1, a row with taps clamped at z = 0 and at nz − 1),
+    and the rows of one segment, empty ones too, are the reduce's; the
+    reduce's spans are ``segment_spans_ref``'s, and ``fold_member_rows_ref``
+    over them, reading partial rows that are NaN outside their spans, is
+    bitwise the emulated fold and leaves the rows of one segment alone."""
+    l = 3
+    plan, ct, wxy, zi, wz, nz = _fold_case(n_members, l)
+    nseg = (plan.row_seg[1:] - plan.row_seg[:-1]).numpy()
+    counts = np.diff(plan.offsets.numpy())
+    assert nseg[0] == 8 and nseg[5] == 3 and (nseg[1:16] == 1).sum() == 14
+    assert (counts[16:] == 0).all() and (nseg[16:] == 1).all()
+    span_out, partials, spans = _emulate_k3b(plan, ct, wxy, zi, wz, nz)
+    full_out = _emulate_k3b(plan, ct, wxy, zi, wz, nz, full_rows=True)[0]
+    np.testing.assert_array_equal(span_out, full_out)
+    multi = np.flatnonzero(nseg > 1)
     row_seg = plan.row_seg.numpy()
-    for r in range(n_rows):
-        first, nseg = row_seg[r], row_seg[r + 1] - row_seg[r]
-        want = (before[:, r] if nseg == 1 else _fold(np.moveaxis(
-            partials[:, first:first + nseg], 1, 0)))
+    segs = np.concatenate([np.arange(row_seg[r], row_seg[r + 1])
+                           for r in multi])
+    np.testing.assert_array_equal(
+        ttri.segment_spans_ref(plan, torch.from_numpy(zi), nz).numpy()[segs],
+        spans[segs])
+    pile = spans[row_seg[0]:row_seg[1]]
+    assert ((pile[:-1, 1] - pile[1:, 0] + 1) == l - 1).all()
+    assert spans[segs, 0].min() == 0 and spans[segs, 1].max() == nz - 1
+    rng = np.random.default_rng(332)
+    before = rng.normal(size=span_out.shape).astype(np.float32)
+    got = ttri.fold_member_rows_ref(
+        torch.from_numpy(partials), plan, torch.from_numpy(before.copy()),
+        torch.from_numpy(spans.astype(np.int32))).numpy()
+    for r in range(plan.n_rows):
+        want = before[:, r] if nseg[r] == 1 else span_out[:, r]
         np.testing.assert_array_equal(got[:, r], want)
+
+
+@pytest.mark.parametrize("case", ["fold", "skewed", "scattered_z"])
+def test_the_rows_of_several_segments_are_listed_in_order(case, monkeypatch):
+    """``RowPlan.multi_rows``: exactly the rows of several segments, in
+    order, then n_rows to the list's end; ``n_multi`` their count; the
+    list as long as min(n_rows, ⌊N·live / (chunk + 1)⌋), a bound on their
+    count; built with no tensor read on the host (every way a tensor
+    reaches the host raises while the plan is built)."""
+    if case == "fold":
+        _, ct, wxy, zi, wz, nz = _fold_case(3)
+        ri = np.concatenate([np.zeros((64, 8), np.int32),
+                             np.full((20, 8), 5, np.int32),
+                             np.random.default_rng(331).integers(
+                                 1, 16, (50, 8)).astype(np.int32)])
+        n_rows = 24
+    else:
+        _, ri, _, zi, _, (n_rows, nz) = _transpose_case(case, 8, 3, 3)
+    args = (torch.from_numpy(ri), n_rows, torch.from_numpy(zi[:, 0]))
+
+    def read(*_args, **_kw):
+        raise AssertionError("host read while the plan is built")
+
+    for name in ("item", "__bool__", "__float__", "__int__", "__index__",
+                 "tolist", "numpy"):
+        monkeypatch.setattr(torch.Tensor, name, read)
+    plan = ttri.build_row_plan(*args, chunk=64)
+    monkeypatch.undo()
+    nseg = (plan.row_seg[1:] - plan.row_seg[:-1]).numpy()
+    multi = np.flatnonzero(nseg > 1)
+    listed = plan.multi_rows.numpy()
+    assert plan.multi_rows.dtype == torch.int32
+    assert listed.shape == (min(n_rows, ri.size // 65),)
+    assert len(multi) >= 1 and int(plan.n_multi[0]) == len(multi)
+    np.testing.assert_array_equal(listed[:len(multi)], multi)
+    assert (listed[len(multi):] == n_rows).all()
+    assert torch.equal(plan.multi_rows,
+                       ttri.build_row_plan(*args, chunk=64).multi_rows)
