@@ -57,9 +57,12 @@ its shards in turn on the card), on one NVIDIA GPU.
                                        # and configs 3b, 4 and 5's
                                        # endpoints (block size, ray or
                                        # endpoint order; 8 x K1e against
-                                       # the batched K1e), and K6z beside
+                                       # the batched K1e), K6z beside
                                        # its launch floor at 1 to 2^20
-                                       # points
+                                       # points, and K6q beside its
+                                       # launch floor at 1,240 to 2^20
+                                       # (with --parent DIR: in turns
+                                       # with the parent's)
     python3 chip_smoke.py --k2-study   # only: what binds K2 at config 4's
                                        # two bundles and config 3b's zp
                                        # points (ray or point order,
@@ -576,6 +579,22 @@ def port_launches() -> int:
     return sum(sum(c.values()) for c in [kernels.launches] + LAUNCH_COUNTERS)
 
 
+def launched(name: str) -> int:
+    """The launches of the wrapper ``name``, this checkout's and any
+    parent package's (whose wrappers ``Parent.run`` puts in place)."""
+    from ionotomo_tpu_torch import kernels
+    return sum(c.get(name, 0) for c in [kernels.launches] + LAUNCH_COUNTERS)
+
+
+def reset_all_launches() -> None:
+    """Every wrapper's launch counter to 0, the parent package's too."""
+    from ionotomo_tpu_torch import kernels
+    kernels.reset_launches()
+    for c in LAUNCH_COUNTERS:
+        for name in c:
+            c[name] = 0
+
+
 _RUNTIME_SEES_PORT = []
 
 
@@ -812,8 +831,9 @@ TRACER_PACKS = {**{v[4]: v[5] for v in NEW_MODELS.values()},
 # One ray's sort key (ray_order_keys_kernel): four quantised coordinates
 # (5-6 each), four 8-bit spreads (9 each) and the combination (6).
 OPS_RAY_KEY = 64
-# One point's row-major sort key (point_order_keys_kernel): two clamps and
-# the row * nz + z (6).
+# One point's row-major sort key as the set-up's rows hold it: two clamps
+# and the row * nz + z (6); the bound keeps this definition, though the
+# kernel recomputes the base cell from the points.
 OPS_POINT_KEY = 6
 # What config 2's call of the cubic tracer launches at a batch that fills
 # the card: the sort keys, the pack and the tracer.
@@ -1128,7 +1148,7 @@ def index_add_call(flat, contrib, size):
 
 class Parent:
     """The kernels of the checkout at ``root`` (``--parent DIR``), the
-    commit before K3b's fold and the batched K1e were redesigned, built
+    commit before the point order's keys and K6q were redesigned, built
     from its sources with this checkout's nvcc flags. ``run(fn)`` calls fn
     with every kernel the parent's, each entry through this checkout's
     wrapper on the parent's library, so that ``run(call)`` is the parent's
@@ -1137,7 +1157,10 @@ class Parent:
     opened without them; the parent's own package (``package``, loaded
     from ``root`` under another name, its wrappers and plans on this
     library) calls them as the parent did, and ``run`` puts its wrappers
-    of them (``WRAPPERS``) in place of this checkout's. The
+    of them (``WRAPPERS``) in place of this checkout's, and each field
+    model's ``point_order`` (``POINT_ORDER_MODELS``) by one that builds the
+    parent's order (its keys read from the set-up's rows) into this
+    checkout's ``PointOrder``. The
     parent's library lacks the entries in ``NEW``, which it is opened
     without; the kernels behind them have no parent. ``SORT_AND_PACK``
     holds the parent's entries of ``kernels.SORT_AND_PACK`` that this
@@ -1149,9 +1172,9 @@ class Parent:
     than handed arguments it does not take."""
 
     NEW = ()
-    CHANGED = ("ionotomo_rows_value_bwd_batched", "ionotomo_fold_member_rows",
-               "ionotomo_zp_value_grad_batched")
-    WRAPPERS = ("rows_value_bwd_batched", "zp_value_grad_batched")
+    CHANGED = ("ionotomo_point_order_keys",)
+    WRAPPERS = ()
+    POINT_ORDER_MODELS = ("boxspline", "tricubic", "zpcubic")
     SORT_AND_PACK = {}
     KERNELS = {}
 
@@ -1169,7 +1192,7 @@ class Parent:
         "rows_value_bwd.cu":
             "8b89433a04e2db28da6ebddbca603d78de2def71956e78422e93094e39d52d85",
         "rows_value_bwd_batched.cu":
-            "10788403e8f237c3a501e37d334331abaece27724ff3bcb704ca481eea7126b8",
+            "d2ee71fe6ce7842b061af73b44af546f1411e1758dbc2452bad76d2593e7c7ae",
         "rows_value_fwd.cu":
             "81e6c5a1dcb4796668ff9d8e4220ee7843502dfc4fed5750fec47b599ac5888d",
         "rows_value_fwd_batched.cu":
@@ -1187,7 +1210,7 @@ class Parent:
         "vector_gather.cu":
             "e0d19a2da2d4ccef5782631ae780053fa77062ae0c19c1e7935b9ff7ee882216",
         "zp_value_grad.cu":
-            "b1564e7deffe6544f3801decbe9d163022e5df8175680cdb9522da1a2203766a",
+            "12f7563e18fccf8ef0056214b83c81daaba628df02b008b5210c8bce8b801027",
         "zp_value_grad_bwd.cu":
             "eb6fb1308c6193f1a528bdeb52ae7c21be3c7e667df9382c1eb590bc5e878d90",
         "zpc_value_grad.cu":
@@ -1251,25 +1274,47 @@ class Parent:
             self._package = module
         return self._package
 
+    def point_order(self, model):
+        """The parent's ``point_order`` of the field model ``model`` (a
+        module of ``ionotomo_tpu_torch.core``) under this checkout's
+        signature: the parent's keys, sort and permute, as this checkout's
+        ``PointOrder`` of the same set-up."""
+        from ionotomo_tpu_torch.core import tricubic
+
+        pmod = importlib.import_module(
+            f"{self.package().__name__}.core.{model.__name__.split('.')[-1]}")
+
+        def point_order(grid, points, ri, wxy, zi, wz):
+            po = pmod.point_order(ri, wxy, zi, wz, grid.shape)
+            return tricubic.PointOrder(po.order, po.ri, po.wxy, po.zi,
+                                       po.wz, (ri, wxy, zi, wz))
+        return point_order
+
     def run(self, fn):
         """fn() with the parent's kernels behind this checkout's wrappers
-        (the parent's own wrappers of ``CHANGED``) and the parent's launch
-        of each call."""
+        (the parent's own wrappers of ``CHANGED`` and its point orders)
+        and the parent's launch of each call."""
         from ionotomo_tpu_torch import kernels
         pk = importlib.import_module(self.package().__name__ + ".kernels")
-        swap = {"SORT_AND_PACK": {**kernels.SORT_AND_PACK,
-                                  **self.SORT_AND_PACK}, **self.KERNELS,
-                **{w: getattr(pk, w) for w in self.WRAPPERS}}
-        saved = self.build.load(), {k: getattr(kernels, k) for k in swap}
+        swaps = [(kernels, k, v) for k, v in {
+            "SORT_AND_PACK": {**kernels.SORT_AND_PACK, **self.SORT_AND_PACK},
+            **self.KERNELS,
+            **{w: getattr(pk, w) for w in self.WRAPPERS}}.items()]
+        for name in self.POINT_ORDER_MODELS:
+            model = importlib.import_module("ionotomo_tpu_torch.core."
+                                            + name)
+            swaps.append((model, "point_order", self.point_order(model)))
+        saved = self.build.load(), [(m, k, getattr(m, k))
+                                    for m, k, _ in swaps]
         self.build._loaded["lib"] = self.lib
-        for k, v in swap.items():
-            setattr(kernels, k, v)
+        for m, k, v in swaps:
+            setattr(m, k, v)
         try:
             return fn()
         finally:
             self.build._loaded["lib"] = saved[0]
-            for k, v in saved[1].items():
-                setattr(kernels, k, v)
+            for m, k, v in saved[1]:
+                setattr(m, k, v)
 
 
 def _outputs(x):
@@ -1399,14 +1444,23 @@ def generic_k2(kernels, table, ri, wxy, zi, wz, xy_first):
                                                              wz)), xy_first)
 
 
-def k2_order_check(label, kernels, tricubic, model, table, grid_shape,
+def k2_order_check(label, kernels, tricubic, model, table, grid, points,
                    setup, xy_first, parent=None):
-    """K2 over the model's point order (its inputs permuted into it), and
-    in ray order, each bitwise K2's generic kernel in ray order
-    (``generic_k2``); returns the order (a ``tricubic.PointOrder``). With
-    a parent, K2 over the order bitwise the parent's K2."""
+    """K2 over the model's point order of ``setup`` (``row_setup(grid,
+    points)``; its inputs permuted into it), and in ray order, each bitwise
+    K2's generic kernel in ray order (``generic_k2``); returns the order (a
+    ``tricubic.PointOrder``). Rows made up without points (``points``
+    None) take the order of the rows' own keys. With a parent, K2 over the
+    order bitwise the parent's K2."""
     ri, wxy, zi, wz = setup
-    order = model.point_order(ri, wxy, zi, wz, grid_shape)
+    if points is None:
+        o = torch.sort(kernels.point_order_keys_ref(
+            ri, zi, model.BASE_TRANSLATE, grid.shape), stable=True
+        ).indices.to(torch.int32)
+        order = tricubic.PointOrder(o, *kernels.permute_points(o, *setup),
+                                    setup)
+    else:
+        order = model.point_order(grid, points, ri, wxy, zi, wz)
     want = generic_k2(kernels, table, ri, wxy, zi, wz, xy_first)
     got = tricubic.rows_value(table, ri, wxy, zi, wz, xy_first, order=order)
     in_ray_order = tricubic.rows_value(table, ri, wxy, zi, wz, xy_first)
@@ -1420,40 +1474,122 @@ def k2_order_check(label, kernels, tricubic, model, table, grid_shape,
     return order
 
 
-def point_order_line(label, kernels, model, setup, grid_shape, parent=None):
-    """K2's point order at one point set: the key kernel bitwise its plain
-    version and timed beside its bound (each point's base row and z read,
-    its key written), the order (keys and ``torch.sort``), the whole
-    ``PointOrder`` (and the inputs permuted), and the permute kernel alone
-    beside its plain version, ``index_select`` and its bound (the inputs
-    read and written once, the order read); with a parent, the permute
-    bitwise the parent's and timed in turns with it. Returns the keys'
-    and the permute's lines."""
+def order_tensors(po):
+    """A ``PointOrder``'s order and permuted inputs."""
+    return po.order, po.ri, po.wxy, po.zi, po.wz
+
+
+_FLOORS = {}
+
+
+def floor_library():
+    """The library built with every launch-floor define of the kernels
+    this checkout redesigned last (``POINT_KEYS_LAUNCH_FLOOR``,
+    ``K6Q_LAUNCH_FLOOR``: their launches with an empty body), built once
+    a process."""
+    from ionotomo_tpu_torch.kernels import build
+
+    if "lib" not in _FLOORS:
+        info = build.build(defines=("POINT_KEYS_LAUNCH_FLOOR=1",
+                                    "K6Q_LAUNCH_FLOOR=1"))
+        _FLOORS["lib"] = build.open_library(info["path"])
+        print(f"  launch-floor library (built={info['built']} in "
+              f"{info['seconds']:.2f} s)")
+    return _FLOORS["lib"]
+
+
+def with_library(lib, fn):
+    """fn() with every wrapper on the library ``lib``."""
+    from ionotomo_tpu_torch.kernels import build
+
+    saved = build.load()
+    build._loaded["lib"] = lib
+    try:
+        return fn()
+    finally:
+        build._loaded["lib"] = saved
+
+
+def floor_in_turns(fn, reps, pairs=2):
+    """fn()'s device ms and its launch floor's (fn on ``floor_library``),
+    in turns (kernel, floor, floor, kernel, ...): (kernel ms, floor ms)
+    lists."""
+    floor = floor_library()
+    t = {"kernel": [], "floor": []}
+    for i in range(pairs):
+        for who in (("kernel", "floor") if i % 2 == 0
+                    else ("floor", "kernel")):
+            t[who].append(device_ms(fn, reps) if who == "kernel"
+                          else with_library(floor,
+                                            lambda: device_ms(fn, reps)))
+    return t["kernel"], t["floor"]
+
+
+def point_order_line(label, kernels, model, grid, points, setup,
+                     parent=None):
+    """K2's point order at one point set: the key kernel (from the points)
+    bitwise the key the set-up's rows hold (``point_order_keys_ref``) and
+    its plain version, timed beside its launch floor (in turns), its plain
+    version and its bound (each point's base row and z read, its key
+    written: 12 B a point; the points it reads make 16 B a point), the
+    order (keys and ``torch.sort``), the whole ``PointOrder`` (and the
+    inputs permuted), and the permute kernel alone beside its plain
+    version, ``index_select`` and its bound (the inputs read and written
+    once, the order read); with a parent, the keys, the ``PointOrder``
+    and the permute bitwise the parent's (its keys from the rows), the
+    keys and the permute timed in turns with it. Returns the keys' and
+    the permute's lines."""
     ri, _, zi, _ = setup
-    base = model.BASE_TRANSLATE
-    keys = kernels.point_order_keys(ri, zi, base, grid_shape)
-    check(bool(torch.equal(keys, kernels.point_order_keys_ref(
-        ri, zi, base, grid_shape))), f"{label}: the point order's keys "
-                                     f"bitwise their plain version")
+    base, rule, shape = model.BASE_TRANSLATE, model.POINT_RULE, grid.shape
     n = ri.shape[0]
-    ms = device_ms(lambda: kernels.point_order_keys(ri, zi, base,
-                                                    grid_shape), 20)
-    plain = device_ms(lambda: kernels.point_order_keys_ref(ri, zi, base,
-                                                           grid_shape), 5)
-    sort_ms = device_ms(lambda: kernels.point_order(ri, zi, base,
-                                                   grid_shape), 20)
-    build_ms = device_ms(lambda: model.point_order(*setup, grid_shape), 20)
+
+    def keys_fn():
+        return kernels.point_order_keys(points, grid, rule)
+
+    keys = keys_fn()
+    want = kernels.point_order_keys_ref(ri, zi, base, shape)
+    check(bool(torch.equal(keys, want)),
+          f"{label}: the point order's keys from the points bitwise the "
+          f"keys of the set-up's rows")
+    check(bool(torch.equal(kernels.point_order_keys_plain(
+        points, grid, model.base_cell), want)),
+          f"{label}: the keys' plain version bitwise the keys of the "
+          f"set-up's rows")
+    del keys, want
+    ms = device_ms(keys_fn, 20)
+    k_turns, f_turns = floor_in_turns(keys_fn, 20)
+    plain = device_ms(lambda: kernels.point_order_keys_plain(
+        points, grid, model.base_cell), 5)
+    sort_ms = device_ms(lambda: kernels.point_order(points, grid, rule,
+                                                    model.base_cell), 20)
+    build_ms = device_ms(lambda: model.point_order(grid, points, *setup), 20)
     b_ms, b_by = bound(12 * n, n * OPS_POINT_KEY)
-    print(f"  point order at {label}: the keys {ms:.4f} ms (plain "
-          f"{plain:.4f} ms, bound {b_ms:.4f} ms, {b_by}); keys and sort "
-          f"{sort_ms:.4f} ms; with K2's inputs permuted into it "
-          f"{build_ms:.4f} ms, by kernel: " + "; ".join(
+    pb_ms = bound(16 * n, n * OPS_POINT_KEY)[0]
+    print(f"  point order at {label}: the keys {ms:.4f} ms (in turns with "
+          f"its launch floor {', '.join(f'{x:.4f}' for x in k_turns)} vs "
+          f"{', '.join(f'{x:.4f}' for x in f_turns)}; plain {plain:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}; read from the points "
+          f"{pb_ms:.4f}); keys and sort {sort_ms:.4f} ms; with K2's inputs "
+          f"permuted into it {build_ms:.4f} ms, by kernel: " + "; ".join(
               f"{v:.4f} ms {key[:40]}" for key, v in sorted(
                   kernel_ms_by_name(lambda: model.point_order(
-                      *setup, grid_shape), 5).items(),
+                      grid, points, *setup), 5).items(),
                   key=lambda kv: -kv[1])))
+    keys_line = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=None, order_ms=sort_ms,
+                     build_ms=build_ms, points=n, points_bound_ms=pb_ms,
+                     kernel_ms_in_turns=k_turns, floor_ms=f_turns)
+    if parent is not None:
+        pk = importlib.import_module(parent.package().__name__ + ".kernels")
+        keys_line["parent_ms"], keys_line["new_ms_in_turns"] = \
+            compare_parent(f"the keys at {label} (the parent's from the "
+                           f"rows)", lambda: pk.point_order_keys(
+                               ri, zi, base, shape), keys_fn, 20, pairs=3)
+        parent_bitwise(parent, f"the PointOrder at {label}",
+                       lambda: order_tensors(model.point_order(
+                           grid, points, *setup)))
     # the permute kernel alone
-    order = kernels.point_order(ri, zi, base, grid_shape)
+    order = kernels.point_order(points, grid, rule, model.base_cell)
     perm = order.long()
 
     def permute():
@@ -1478,9 +1614,7 @@ def point_order_line(label, kernels, model, setup, grid_shape, parent=None):
         perm_line["parent_ms"], perm_line["new_ms_in_turns"] = \
             compare_parent(f"the permute at {label}",
                            lambda: parent.run(permute), permute, 20, pairs=3)
-    return (dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                 bound_by=b_by, library_ms=None, order_ms=sort_ms,
-                 build_ms=build_ms, points=n), perm_line)
+    return keys_line, perm_line
 
 
 def k1e_at(label, kernels, boxspline, table, grid, pts, parent=None,
@@ -1576,10 +1710,10 @@ def phase2_kernels_vs_plain(dev, boxspline, tricubic, fermat, kernels,
           f"K2 cubic-shape max|err| {err_c:.3e} <= 1e-5*max|table|*K")
     # the point order at 2^20 edge-case points, and on the random rows
     order = k2_order_check("phase 2, zp", kernels, tricubic, boxspline,
-                           table, shape, (ri, wxy, zi, wz), True, parent)
+                           table, grid, pts, (ri, wxy, zi, wz), True, parent)
     k2_order_check("phase 2, cubic shape on random rows", kernels, tricubic,
-                   tricubic, table, shape, (ri_c, wxy_c, zi_c, wz_c), False,
-                   parent)
+                   tricubic, table, grid, None, (ri_c, wxy_c, zi_c, wz_c),
+                   False, parent)
     ms_big = device_ms(
         lambda: kernels.rows_value_fwd(table, ri, wxy, zi, wz, True), 20)
     ms_ord = device_ms(lambda: tricubic.rows_value(
@@ -1727,9 +1861,10 @@ def k6_at(label, kernels, model, name, table, grid, pts, reps=20,
     """K6z or K6q at one shape: bitwise twice; against its plain version
     and against its twin in the kernel's order (1e-5·max|table| the value,
     over the smallest spacing the gradient); timed beside the plain
-    version and its bound (the distinct values its points touch); with a
-    parent, bitwise the parent's and timed in turns with it. Returns the
-    shape's line."""
+    version and its bound (the distinct values its points touch), K6q
+    also in turns with its launch floor (the same grid with an empty
+    body); with a parent, bitwise the parent's and timed in turns with it.
+    Returns the shape's line."""
     interp = {"zpc_value_grad": "zpc", "quad_value_grad": "quadratic"}[name]
     _, live, flops = NEW_MODELS[interp][:3]
     kern = getattr(kernels, name)
@@ -1759,13 +1894,27 @@ def k6_at(label, kernels, model, name, table, grid, pts, reps=20,
     plain = device_ms(lambda: model.interp_rows_with_grad_ref(table, grid,
                                                               pts),
                       plain_reps)
-    parent_same(parent, f"{name} at {label}", lambda: kern(table, grid, pts),
-                reps, pairs=3)
     b_ms, b_by = k6_bound(model, live, flops, grid, pts)
     print(f"  {name} at {label}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
           f"bound {b_ms:.6f} ms ({b_by}, distinct values)")
-    return dict(max_abs_err=errs[0], ms=ms, plain_ms=plain, bound_ms=b_ms,
+    line = dict(max_abs_err=errs[0], ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, points=pts.shape[0])
+    if name == "quad_value_grad":
+        k_turns, f_turns = floor_in_turns(lambda: kern(table, grid, pts),
+                                          reps)
+        print(f"  K6q at {label}: in turns with its launch floor "
+              f"{', '.join(f'{x:.4f}' for x in k_turns)} vs "
+              f"{', '.join(f'{x:.4f}' for x in f_turns)} ms")
+        line.update(kernel_ms_in_turns=k_turns, floor_ms=f_turns)
+
+    def call():       # the wrapper Parent.run puts in place
+        return getattr(kernels, name)(table, grid, pts)
+
+    if parent is not None:
+        line["parent_ms"], line["new_ms_in_turns"] = compare_parent(
+            f"{name} at {label}", lambda: parent.run(call), call, reps,
+            pairs=3)
+    return line
 
 
 def phase2_new_models(dev, tricubic, zpcubic, triquadratic, fermat,
@@ -1811,7 +1960,8 @@ def phase2_new_models(dev, tricubic, zpcubic, triquadratic, fermat,
                 # K2 at (8, 4): zpc's value gather over its point order
                 setup = zpcubic.row_setup(grid, pts)
                 k2_order_check(f"phase 2, zpc (K=8, L=4), {tag}", kernels,
-                               tricubic, zpcubic, table, shape, setup, True)
+                               tricubic, zpcubic, table, grid, pts, setup,
+                               True)
                 err = float((tricubic.rows_value(table, *setup, True)
                              - tricubic.rows_value_ref(table, *setup, True)
                              ).abs().max())
@@ -2261,9 +2411,10 @@ def phase5_adjoint_kernels(dev, boxspline, tricubic, kernels, Grid3D,
     table = t(np.random.default_rng(55).normal(size=(n_rows, n_grid))
               .astype(np.float32))
     k2_order_check(f"phase 5, zp, {n} edge-case points", kernels, tricubic,
-                   boxspline, table, shape, (ri, wxy, zi, wz), True, parent)
+                   boxspline, table, grid, pts, (ri, wxy, zi, wz), True,
+                   parent)
     k2_order_check(f"phase 5, cubic, {n} edge-case points", kernels,
-                   tricubic, tricubic, table, shape,
+                   tricubic, tricubic, table, grid, pts,
                    tricubic.row_setup(grid, pts), False, parent)
     del table
     ct = t(rng.normal(size=(n,)).astype(np.float32))
@@ -2493,13 +2644,13 @@ def phase6_solve(dev, boxspline, tricubic, fermat, rays, tec, kernels,
     print_plan("K3 at the solve", plan)
     print_plan("K1eT at the solve", eplan)
     order = k2_order_check("phase 6, the solve's points", kernels,
-                           tricubic, boxspline, table, grid.shape,
+                           tricubic, boxspline, table, op.grid, op.points,
                            (op.ri, op.wxy, op.zi, op.wz), True, parent)
     check(bool(torch.equal(order.order, op.point_order().order)),
           "the geometry keeps the point order K2's wrapper makes")
     keys_line, perm_line = point_order_line(
-        f"config 3b's {n_pts} zp points", kernels, boxspline,
-        (op.ri, op.wxy, op.zi, op.wz), grid.shape, parent)
+        f"config 3b's {n_pts} zp points", kernels, boxspline, op.grid,
+        op.points, (op.ri, op.wxy, op.zi, op.wz), parent)
     results["point_order_keys_zp"] = {"line": keys_line}
     results["permute_points_zp"] = {"line": perm_line}
     at_solve_shape = {
@@ -3078,8 +3229,8 @@ def config4_zpc2(dev, w, configs, tricubic, zpcubic, tec, kernels,
         n_pts = o_.ri.shape[0]
         setup = (o_.ri, o_.wxy, o_.zi, o_.wz)
         order = k2_order_check(f"phase 10 zpc2, {n_pts} points", kernels,
-                               tricubic, zpcubic, table, grid.shape, setup,
-                               True)
+                               tricubic, zpcubic, table, o_.grid, o_.points,
+                               setup, True)
         check(bool(torch.equal(order.order, o_.point_order().order)),
               "the zpc geometry keeps the point order K2's wrapper makes")
 
@@ -3274,8 +3425,8 @@ def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
         print_plan(f"K3 at {n_pts} points", o_.row_plan)
         setup = (o_.ri, o_.wxy, o_.zi, o_.wz)
         order = k2_order_check(f"phase 10, {n_pts} points", kernels,
-                               tricubic, tricubic, table, grid.shape, setup,
-                               False, parent)
+                               tricubic, tricubic, table, o_.grid, o_.points,
+                               setup, False, parent)
         check(bool(torch.equal(order.order, o_.point_order().order)),
               "the geometry keeps the point order K2's wrapper makes")
 
@@ -3293,8 +3444,8 @@ def phase10_config4(dev, tricubic, rays, tec, kernels, configs, results,
               f"{line['ray_order_ms']:.4f} ms")
         if n_pts == w.rays.num_rays * w.rays.num_samples:
             keys_line, perm_line = point_order_line(
-                f"config 4's {n_pts} points", kernels, tricubic, setup,
-                grid.shape, parent)
+                f"config 4's {n_pts} points", kernels, tricubic, o_.grid,
+                o_.points, setup, parent)
             results["point_order_keys"] = {"line": keys_line}
             results["permute_points"] = {"line": perm_line}
         if parent is not None:
@@ -3655,16 +3806,16 @@ def fold_line(label, tricubic, kernels, plan, zi, b, nz, rng, parent=None):
                                       b * nz * folded)[0]
     line.update(rows=n_multi, segments=folded, span_cells=span_sum)
     if parent is not None:
-        pk = importlib.import_module(parent.package().__name__ + ".kernels")
+        def fold_zeros():
+            return kernels.fold_member_rows(zeros, plan, base.clone(), spans)
+
+        def fold_running():
+            return kernels.fold_member_rows(zeros, plan, running, spans)
+
         line["parent_ms"], line["new_ms_in_turns"] = compare_parent(
-            f"fold_member_rows at {label}",
-            lambda: parent.run(lambda: pk.fold_member_rows(
-                zeros, plan, base.clone())),
-            lambda: kernels.fold_member_rows(zeros, plan, base.clone(),
-                                             spans), 20, pairs=3,
-            new_timed=lambda: kernels.fold_member_rows(zeros, plan, running,
-                                                       spans),
-            parent_timed=lambda: pk.fold_member_rows(zeros, plan, running))
+            f"fold_member_rows at {label}", lambda: parent.run(fold_zeros),
+            fold_zeros, 20, pairs=3, new_timed=fold_running,
+            parent_timed=lambda: parent.run(fold_running))
     del zeros, nans, src, rows, base, running
     return line
 
@@ -4240,9 +4391,9 @@ def phase14_tracers(dev, fermat, rays, kernels, Grid3D, chapman, results,
         lap(f"K1r on {interp}: bitwise, timed")
         # the per-stage route: its launches (counted and in all) and device
         # time from one profiled run, then its host-clock time in turns
-        kernels.reset_launches()
+        reset_all_launches()
         n_all, dev_us = device_launches(route)
-        s_launches = dict(kernels.launches)
+        s_launches = {evaluator: launched(evaluator)}
         check(s_launches[evaluator] == 1 + 4 * N_STEPS,
               f"the per-stage rk4 route on {interp} launched {evaluator} "
               f"1 + 4 x {N_STEPS} times")
@@ -4699,13 +4850,15 @@ def geometry_build_ms(dev, svc, packs, names, tec, rays):
     return float(np.median(out)), geo
 
 
-def service_kernels_at(geo, field, tricubic, kernels, probes, rng):
+def service_kernels_at(geo, field, tricubic, kernels, probes, rng,
+                       parent=None):
     """Every kernel of the service's path, alone at the shapes an epoch
     gives it, against its plain version (``geo``: an epoch's geometry;
     ``field``: the service's state): K2 over the geometry's point order,
     the order's keys and permute, K3 of a random cotangent, K5 at the
     endpoints and K5ᵀ adding into a K3 table there, and K2b with its pack
-    over the adaptive-R probes' member axis (``probes`` random tables).
+    over the adaptive-R probes' member axis (``probes`` random tables);
+    with a parent, the keys and the permute in turns with the parent's.
     Returns {kernel name: line}."""
     grid, (n_rows, nz) = geo.grid, geo.table_shape
     setup, xy = (geo.ri, geo.wxy, geo.zi, geo.wz), geo.model.xy_first
@@ -4719,8 +4872,8 @@ def service_kernels_at(geo, field, tricubic, kernels, probes, rng):
                                 ).to(table.device)
 
     out = {}
-    order = k2_order_check(label, kernels, tricubic, tricubic, table,
-                           grid.shape, setup, xy)
+    order = k2_order_check(label, kernels, tricubic, tricubic, table, grid,
+                           geo.points, setup, xy)
     check(bool(torch.equal(order.order, geo.point_order().order)),
           "the service's geometry keeps the point order K2's wrapper makes")
     out["rows_value_fwd"] = check_and_time(
@@ -4730,7 +4883,7 @@ def service_kernels_at(geo, field, tricubic, kernels, probes, rng):
         k2_bound(*setup, n_rows, nz, k, FLOPS_K2_CUBIC_POINT),
         scatter=False)
     out["point_order_keys"], out["permute_points"] = point_order_line(
-        label, kernels, tricubic, setup, grid.shape)
+        label, kernels, tricubic, grid, geo.points, setup, parent)
     ct, plan = randn(n), geo.row_plan
 
     def k3():
@@ -4835,7 +4988,7 @@ def profile_service_epoch(svc, watch, name):
 
 def phase15_service(dev, kernels, results, n_epochs=SERVICE_EPOCHS,
                     warmup=SERVICE_WARMUP, shape=None, n_cpu=3,
-                    enkf_epochs=6, solver=None):
+                    enkf_epochs=6, solver=None, parent=None):
     """The streaming epoch service (``serving.EpochService``) at
     ``EngineConfig``'s defaults with adaptive R over ``n_epochs`` epochs of
     the synthetic stream, driven through ``process_available`` as a user
@@ -4933,7 +5086,8 @@ def phase15_service(dev, kernels, results, n_epochs=SERVICE_EPOCHS,
     print(f"  an epoch's geometry (point set-up, two row plans, point "
           f"order): {geo_ms:.3f} ms (median of 5, host clock, synchronised)")
     at = (service_kernels_at(geo, svc.filter.m, tricubic, kernels,
-                             serving.STATS_PROBES, np.random.default_rng(15))
+                             serving.STATS_PROBES, np.random.default_rng(15),
+                             parent)
           if dev.type == "cuda" else {})
     del geo
     h_prior = heldout_rms(svc.filter.m_clim, svc.grid, truth, n_epochs - 1,
@@ -6049,10 +6203,10 @@ def k2_study(reps=20) -> int:
         grid = chapman.grid_enclosing_rays(ants, dirs, shape=(n_grid,) * 3,
                                            h_min_km=0.0, device=dev)
         rb = configs.straight_bundle(ants, dirs, n_s, dev)
-        shapes.append((model, grid, model.row_setup(
-            grid, rb.points.reshape(-1, 3))))
+        pts = rb.points.reshape(-1, 3)
+        shapes.append((model, grid, pts, model.row_setup(grid, pts)))
     rng = np.random.default_rng(21)
-    for model, grid, setup in shapes:
+    for model, grid, pts, setup in shapes:
         ri, wxy, zi, wz = setup
         xy_first = model is boxspline
         n_rows, nz = grid.shape[0] * grid.shape[1], grid.shape[2]
@@ -6065,12 +6219,11 @@ def k2_study(reps=20) -> int:
         ms = device_ms(lambda: generic_k2(kernels, table, *setup, xy_first),
                        reps)
         print(f"  {label}: the generic kernel in ray order {ms:.4f} ms")
-        base = model.BASE_TRANSLATE
-        sort_ms = device_ms(lambda: kernels.point_order(ri, zi, base,
-                                                        grid.shape), 10)
-        build_ms = device_ms(lambda: model.point_order(*setup, grid.shape),
+        sort_ms = device_ms(lambda: kernels.point_order(
+            pts, grid, model.POINT_RULE, model.base_cell), 10)
+        build_ms = device_ms(lambda: model.point_order(grid, pts, *setup),
                              10)
-        po = model.point_order(*setup, grid.shape)
+        po = model.point_order(grid, pts, *setup)
         print(f"  {label}: the point order's keys and sort {sort_ms:.4f} ms, "
               f"the whole PointOrder {build_ms:.4f} ms")
         for loads in libs:
@@ -6231,10 +6384,11 @@ def gather_study(reps=50) -> int:
                                 (boxspline, 128, "config 3b's zp")):
         grid = chapman.grid_enclosing_rays(ants, dirs, shape=(n_grid,) * 3,
                                            h_min_km=0.0, device=dev)
-        setup = model.row_setup(grid, rb.points.reshape(-1, 3))
+        pts = rb.points.reshape(-1, 3)
+        setup = model.row_setup(grid, pts)
         n = setup[0].shape[0]
-        po = kernels.point_order(setup[0], setup[2], model.BASE_TRANSLATE,
-                                 grid.shape)
+        po = kernels.point_order(pts, grid, model.POINT_RULE,
+                                 model.base_cell)
         rand = torch.randperm(n, generator=torch.Generator().manual_seed(3)
                               ).to(torch.int32).to(dev)
         b_ms, b_by = bound(2 * nbytes(*setup) + nbytes(po), 0)
@@ -7380,7 +7534,7 @@ def straight_endpoints(configs, chapman, tec, dev, n_grid):
     return grid, tec._endpoint_tangents(rb.points)[0]
 
 
-def e_study(reps=50) -> int:
+def e_study(parent_dir=None, reps=50) -> int:
     """``--e-study``: what binds E, the endpoint value + gradient kernels,
     at the main paths' endpoints: K1e at serving's 1,240 (phase 4's first
     epoch) and at config 3b's and config 5's 20,000; K5 at config 4's
@@ -7390,14 +7544,16 @@ def e_study(reps=50) -> int:
     block (the library built again for each through ``build.build(defines=
     ...)``; the batched K1e at its own rule's, which ``--member-study``
     sweeps), in ray order and in endpoint order (the endpoints sorted by
-    their stencil's base cell, ``kernels.point_order`` of their row
-    set-up: the kernels read them permuted and leave their outputs in that
+    their stencil's base cell, ``kernels.point_order``: the kernels read
+    them permuted and leave their outputs in that
     order, so the order's reads are timed without the scattered writes an
     ordered kernel would add), every variant bitwise the default build in
     ray order (permuted alike), timed in two passes of opposite order.
     Each shape's bound: the distinct table values its endpoints touch (all
     members for the batched shape), the points read and the outputs
-    written once. Prints ptxas's registers of each build."""
+    written once. Prints ptxas's registers of each build. Then K6z
+    against its launch floor (``k6z_floor``) and K6q at four shapes
+    (``k6q_shapes``; with DIR, in turns with the parent's)."""
     from ionotomo_tpu_torch import configs, kernels
     from ionotomo_tpu_torch.core import (boxspline, triquadratic, tricubic,
                                          zpcubic)
@@ -7444,9 +7600,8 @@ def e_study(reps=50) -> int:
     field4 = rand(grid4.shape[0] * grid4.shape[1], grid4.shape[2])
 
     def perm_of(model, grid, pts):
-        ri, _, zi, _ = model.row_setup(grid, pts)
-        return kernels.point_order(ri, zi, model.BASE_TRANSLATE,
-                                   grid.shape).long()
+        return kernels.point_order(pts, grid, model.POINT_RULE,
+                                   model.base_cell).long()
 
     def k1e(coef, grid):
         return lambda pts: kernels.zp_value_grad(coef, grid, pts)
@@ -7498,7 +7653,93 @@ def e_study(reps=50) -> int:
             print(f"  {label}, {bs} threads a block, {order}: "
                   f"{', '.join(f'{x:.4f}' for x in t)} ms")
     k6z_floor(dev, configs, chapman, tec, zpcubic, kernels, reps)
+    k6q_shapes(dev, kernels, triquadratic, fermat, Grid3D, chapman, reps,
+               Parent(parent_dir) if parent_dir else None)
     return 0
+
+
+def same_sass_as_parent(parent):
+    """With a parent: every kernel that this checkout's library and the
+    parent's both hold (a kernel that this checkout changed took another
+    name: the keys' arguments, K6q's kernel) is the same SASS, instruction
+    for instruction; K1q and K1r on quadratic (the kernels over
+    ``QuadValueGrad``, whose ``quad_contract`` this checkout cut into
+    ``quad_plane``, ``quad_add_plane`` and ``quad_finish``) among them.
+    A kernel in an anonymous namespace is named with a hash of its build;
+    the names are compared without it."""
+    import re
+
+    from ionotomo_tpu_torch.kernels import build
+
+    def by_name(path):
+        funcs = sass_functions(path)
+        out = {re.sub(r"_[0-9a-f]{8}(?=_)", "_#", k): v
+               for k, v in funcs.items()}
+        check(len(out) == len(funcs), f"{path}: the kernels' names without "
+              f"their build's hash are distinct")
+        return out
+
+    new = by_name(build.build()["path"])
+    old = by_name(parent.info["path"])
+    common = sorted(set(new) & set(old))
+    differ = [k for k in common
+              if [t for _, t in new[k]] != [t for _, t in old[k]]]
+    quad = [k for k in common if "QuadValueGrad" in k]
+    print(f"  SASS against the parent's: {len(common)} kernels in both, "
+          f"{len(differ)} differ ({', '.join(k[:60] for k in differ)}); "
+          f"only the parent's: {sorted(set(old) - set(new))}, only this "
+          f"checkout's: {sorted(set(new) - set(old))}")
+    check(len(quad) >= 2 and not differ,
+          f"the SASS of the {len(common)} kernels in both libraries the "
+          f"parent's, the {len(quad)} K1q and K1r kernels on quadratic "
+          f"among them")
+
+
+def k6q_shapes(dev, kernels, triquadratic, fermat, Grid3D, chapman, reps,
+               parent=None):
+    """--e-study's K6q (``k6_at``: bitwise, against its plain version, in
+    turns with its launch floor, beside its bound; with a parent, bitwise
+    the parent's and in turns with it) at the bench trace's 262,144 points
+    halfway along the rays of the 128³ Chapman world, their first 1,240,
+    the 917,504 edge-case points of a random 128³ table and 2²⁰ random
+    points of a random 256³ one. With a parent, first
+    ``same_sass_as_parent``."""
+    from ionotomo_tpu_torch.testing import edge_case_points
+
+    print("K6q (--e-study)")
+    if parent is not None:
+        same_sass_as_parent(parent)
+    rng = np.random.default_rng(16)
+    grid3 = Grid3D.from_bounds(*BOUNDS, (N_GRID,) * 3, device=dev)
+    m = chapman.log_parametrize(chapman.chapman_field(grid3)).contiguous()
+    table3 = triquadratic.prefilter(m).reshape(N_GRID * N_GRID, N_GRID)
+    o, d = (torch.from_numpy(a).to(dev) for a in bench_rays(262144))
+    kw = fermat._step_constants(FREQ_HZ, LENGTH_KM, N_STEPS)
+    mid = kernels.trace_leapfrog_quad(table3, grid3, o, d, N_STEPS, True,
+                                      **kw)[2][:, N_STEPS // 2].contiguous()
+    del o, d
+    origin, spacing = (-64.0, -32.0, 0.0), (1.0, 0.5, 8.0)
+
+    def rand_table(n_grid):
+        return torch.from_numpy(rng.normal(size=(n_grid * n_grid, n_grid))
+                                .astype(np.float32)).to(dev)
+
+    grid_e = Grid3D.create(origin, spacing, (N_GRID,) * 3, device=dev)
+    pts_e = torch.from_numpy(edge_case_points(
+        (N_GRID,) * 3, origin, spacing, 1 << 20, rng)).to(dev)
+    grid_r = Grid3D.create(origin, spacing, (256,) * 3, device=dev)
+    hi = np.asarray(spacing) * 255
+    pts_r = torch.from_numpy((np.asarray(origin) + rng.uniform(
+        0, 1, (1 << 20, 3)) * hi).astype(np.float32)).to(dev)
+    shapes = [("the bench trace's 262,144 points halfway", table3, grid3,
+               mid),
+              ("1,240 of them", table3, grid3, mid[:1240].contiguous()),
+              ("917,504 edge-case points, 128^3", rand_table(N_GRID), grid_e,
+               pts_e),
+              ("2^20 random points, 256^3", rand_table(256), grid_r, pts_r)]
+    for label, table, grid, pts in shapes:
+        k6_at(label, kernels, triquadratic, "quad_value_grad", table, grid,
+              pts, reps, plain_reps=2, parent=parent)
 
 
 def k6z_floor(dev, configs, chapman, tec, zpcubic, kernels, reps):
@@ -9451,7 +9692,7 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     if "--e-study" in args:
-        return e_study()
+        return e_study(parent_dir)
     if "--k1c-study" in args:
         return k1c_study()
     if "--k5t-study" in args:
@@ -9572,7 +9813,7 @@ def main() -> int:
                     card, lap, parent=parent)
     lap("phase14_tracers")
     torch.cuda.empty_cache()
-    phase15_service(dev, kernels, results)
+    phase15_service(dev, kernels, results, parent=parent)
     lap("phase15_service")
     torch.cuda.empty_cache()
     phase16_invert(dev, kernels, results, profile=profile, parent=parent)

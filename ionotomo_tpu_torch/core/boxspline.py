@@ -144,17 +144,26 @@ def zp_order(interp: str) -> int:
         f"unknown zp interp spec {interp!r} (use 'zp' or 'zp<order>=2>')")
 
 
+def base_cell(grid: Grid3D, points: torch.Tensor):
+    """The index-space query t (N, 3), clamped into the grid, and the
+    nearest lattice point (N, 3) f32, rounded half to even and clamped to
+    [1, n−2]; ``_neighborhood``'s and the point order's key's
+    (``kernels.point_order_keys``, rule ``POINT_RULE``)."""
+    t = grid.world_to_index(points)
+    shape = torch.tensor(grid.shape, dtype=torch.float32, device=t.device)
+    t = torch.minimum(torch.maximum(t, torch.zeros_like(shape)), shape - 1.0)
+    return t, torch.minimum(torch.maximum(torch.round(t),
+                                          torch.ones_like(shape)),
+                            shape - 2.0)
+
+
 def _neighborhood(grid: Grid3D, points: torch.Tensor):
     """Nearest-lattice setup: (N,) base per axis + signed offsets.
 
     Returns (bx, by, bz (N,) int32 clamped; u, v, w (N,) signed fractional
     offsets, in [−1/2, 1/2] inside and up to ±1 in the boundary cells).
     """
-    t = grid.world_to_index(points)
-    shape = torch.tensor(grid.shape, dtype=torch.float32, device=t.device)
-    t = torch.minimum(torch.maximum(t, torch.zeros_like(shape)), shape - 1.0)
-    base = torch.minimum(torch.maximum(torch.round(t),
-                                       torch.ones_like(shape)), shape - 2.0)
+    t, base = base_cell(grid, points)
     frac = t - base
     b = base.to(torch.int32)
     return b[:, 0], b[:, 1], b[:, 2], frac[:, 0], frac[:, 1], frac[:, 2]
@@ -250,14 +259,17 @@ def row_setup(grid: Grid3D, points: torch.Tensor):
 
 #: The translate whose row is the base cell's in every piece: (0, 0).
 BASE_TRANSLATE = 2
+#: ``base_cell``'s rule in the key kernel (``kernels.POINT_RULES``).
+POINT_RULE = "zp"
 
 
-def point_order(ri, wxy, zi, wz, grid_shape):
-    """K2's order of ``row_setup``'s points, by their base cell
+def point_order(grid: Grid3D, points, ri, wxy, zi, wz):
+    """K2's order of ``row_setup(grid, points)``, by their base cell
     (``core.tricubic.PointOrder``)."""
     from .tricubic import build_point_order
 
-    return build_point_order(ri, wxy, zi, wz, BASE_TRANSLATE, grid_shape)
+    return build_point_order(grid, points, POINT_RULE, base_cell, ri, wxy,
+                             zi, wz)
 
 
 def row_plan(ri: torch.Tensor, zi: torch.Tensor, n_rows: int):

@@ -192,11 +192,16 @@ class PointOrder:
         return all(a is b for a, b in zip(self.source, (ri, wxy, zi, wz)))
 
 
-def build_point_order(ri, wxy, zi, wz, base: int, grid_shape) -> PointOrder:
-    """The ``PointOrder`` of a point set whose stencil's base cell is row
-    ri[:, base] at z zi[:, 1]: on CUDA the key kernel, a sort and the
-    permute kernel (``kernels.permute_points``), no host read."""
-    order = kernels.point_order(ri, zi, base, grid_shape)
+def build_point_order(grid: Grid3D, points, rule: str, cell, ri, wxy, zi,
+                      wz) -> PointOrder:
+    """The ``PointOrder`` of the set-up (ri, wxy, zi, wz) of points (N, 3),
+    sorted by each point's stencil base cell, which the key recomputes
+    from the points as the model's set-up does (``cell``, its
+    ``base_cell``; on the card the key kernel's ``rule``): the row
+    ri[:, base] at z zi[:, 1] of the set-up, bit for bit. On CUDA the key
+    kernel, a sort and the permute kernel (``kernels.permute_points``), no
+    host read."""
+    order = kernels.point_order(points.contiguous(), grid, rule, cell)
     src = (ri, wxy, zi, wz)
     if ri.is_cuda:
         return PointOrder(order, *kernels.permute_points(order, *src), src)
@@ -637,16 +642,25 @@ def _catmull_rom_dweights(u: torch.Tensor) -> torch.Tensor:
     return torch.stack([w0, w1, w2, w3], dim=-1)
 
 
-def _neighborhood(grid: Grid3D, points: torch.Tensor):
-    """Per-axis neighbour indices and fractional offsets of points (N, 3):
-    idx (N, 3, 4) int32 clamped voxel indices, frac (N, 3) in [0, 1]. The
-    query is clamped into the grid (constant extrapolation outside) and
-    the base to [0, n−2], so edge points repeat rows and taps."""
+def base_cell(grid: Grid3D, points: torch.Tensor):
+    """The index-space query t (N, 3), clamped into the grid (constant
+    extrapolation outside), and the stencil's base cell (N, 3) f32, its
+    floor clamped to [0, n−2]; ``_neighborhood``'s and the point order's
+    key's (``kernels.point_order_keys``, rule ``POINT_RULE``)."""
     t = grid.world_to_index(points)
     shape = torch.tensor(grid.shape, dtype=torch.float32, device=t.device)
     t = torch.minimum(torch.maximum(t, torch.zeros_like(shape)), shape - 1.0)
-    base = torch.minimum(torch.maximum(torch.floor(t),
-                                       torch.zeros_like(shape)), shape - 2.0)
+    return t, torch.minimum(torch.maximum(torch.floor(t),
+                                          torch.zeros_like(shape)),
+                            shape - 2.0)
+
+
+def _neighborhood(grid: Grid3D, points: torch.Tensor):
+    """Per-axis neighbour indices and fractional offsets of points (N, 3):
+    idx (N, 3, 4) int32 clamped voxel indices, frac (N, 3) in [0, 1]. The
+    query is clamped into the grid and the base to [0, n−2]
+    (``base_cell``), so edge points repeat rows and taps."""
+    t, base = base_cell(grid, points)
     frac = t - base
     offsets = torch.arange(-1, 3, dtype=torch.int32, device=t.device)
     idx = base.to(torch.int32)[..., None] + offsets            # (N, 3, 4)
@@ -678,11 +692,14 @@ def row_setup(grid: Grid3D, points: torch.Tensor):
 
 #: The pencil whose row is the base cell's: (ix, iy).
 BASE_TRANSLATE = 5
+#: ``base_cell``'s rule in the key kernel (``kernels.POINT_RULES``).
+POINT_RULE = "cubic"
 
 
-def point_order(ri, wxy, zi, wz, grid_shape) -> PointOrder:
-    """K2's order of ``row_setup``'s points, by their base cell."""
-    return build_point_order(ri, wxy, zi, wz, BASE_TRANSLATE, grid_shape)
+def point_order(grid: Grid3D, points, ri, wxy, zi, wz) -> PointOrder:
+    """K2's order of ``row_setup(grid, points)``, by their base cell."""
+    return build_point_order(grid, points, POINT_RULE, base_cell, ri, wxy,
+                             zi, wz)
 
 
 def row_plan(ri: torch.Tensor, zi: torch.Tensor, n_rows: int) -> RowPlan:

@@ -82,21 +82,32 @@ def prefilter_transpose(coef: torch.Tensor, order: int = 2) -> torch.Tensor:
     return acc
 
 
-def _neighborhood(grid: Grid3D, points: torch.Tensor):
-    """xy: the nearest-lattice ZP set-up (box spline contract); z: the
-    floor-based 4-tap Catmull–Rom stencil (tricubic contract). Returns (bx,
-    by (N,) int32; u, v (N,) signed xy offsets; zi (N, 4) int32 clamped z
-    taps; fz (N,) z cell fraction in [0, 1])."""
+def base_cell(grid: Grid3D, points: torch.Tensor):
+    """The index-space query t (N, 3), clamped into the grid, and the
+    stencil's base cell (N, 3) f32: x and y the nearest lattice point,
+    rounded half to even and clamped to [1, n−2] (box spline), z the floor
+    clamped to [0, nz−2] (tricubic); ``_neighborhood``'s and the point
+    order's key's (``kernels.point_order_keys``, rule ``POINT_RULE``)."""
     t = grid.world_to_index(points)
     shape = torch.tensor(grid.shape, dtype=torch.float32, device=t.device)
     t = torch.minimum(torch.maximum(t, torch.zeros_like(shape)), shape - 1.0)
     bxy = torch.minimum(torch.maximum(torch.round(t[:, :2]),
                                       torch.ones_like(shape[:2])),
                         shape[:2] - 2.0)
+    bz = torch.clamp(torch.floor(t[:, 2]), 0.0, grid.shape[2] - 2.0)
+    return t, torch.cat([bxy, bz[:, None]], dim=1)
+
+
+def _neighborhood(grid: Grid3D, points: torch.Tensor):
+    """xy: the nearest-lattice ZP set-up (box spline contract); z: the
+    floor-based 4-tap Catmull–Rom stencil (tricubic contract). Returns (bx,
+    by (N,) int32; u, v (N,) signed xy offsets; zi (N, 4) int32 clamped z
+    taps; fz (N,) z cell fraction in [0, 1])."""
+    t, base = base_cell(grid, points)
+    bxy, bz = base[:, :2], base[:, 2]
     u = t[:, 0] - bxy[:, 0]
     v = t[:, 1] - bxy[:, 1]
     nz = grid.shape[2]
-    bz = torch.clamp(torch.floor(t[:, 2]), 0.0, nz - 2.0)
     fz = t[:, 2] - bz
     zi = (bz.to(torch.int32)[:, None]
           + torch.arange(-1, 3, dtype=torch.int32, device=t.device)[None, :])
@@ -120,12 +131,15 @@ def row_setup(grid: Grid3D, points: torch.Tensor):
 #: The translate whose row is the base cell's in every piece: (0, 0), as
 #: the box spline's.
 BASE_TRANSLATE = 2
+#: ``base_cell``'s rule in the key kernel (``kernels.POINT_RULES``).
+POINT_RULE = "zpc"
 
 
-def point_order(ri, wxy, zi, wz, grid_shape):
-    """K2's order of ``row_setup``'s points, by their base cell (row
+def point_order(grid: Grid3D, points, ri, wxy, zi, wz):
+    """K2's order of ``row_setup(grid, points)``, by their base cell (row
     ri[:, 2], z the cell base zi[:, 1]; ``core.tricubic.PointOrder``)."""
-    return build_point_order(ri, wxy, zi, wz, BASE_TRANSLATE, grid_shape)
+    return build_point_order(grid, points, POINT_RULE, base_cell, ri, wxy,
+                             zi, wz)
 
 
 def row_plan(ri: torch.Tensor, zi: torch.Tensor, n_rows: int):

@@ -359,8 +359,9 @@ class DtecGeometry:
         weights = trapezoid_weights if self.hermite else simpson_weights
         self.w = weights(self.n, torch.float32, rays.points.device)
         rows = self.model.rows
-        self.ri, self.wxy, self.zi, self.wz = rows.row_setup(
-            grid, rays.points.reshape(-1, 3))
+        self.points = rays.points.reshape(-1, 3)
+        self.ri, self.wxy, self.zi, self.wz = rows.row_setup(grid,
+                                                             self.points)
         self.ends = self.t_hat = None
         if self.hermite:
             self.ends, self.t_hat = _endpoint_tangents(rays.points)
@@ -377,7 +378,7 @@ class DtecGeometry:
         (the CPU, the plain-version operators)."""
         if self._point_order is None and self._order_on_cuda:
             self._point_order = self.model.rows.point_order(
-                self.ri, self.wxy, self.zi, self.wz, self.grid.shape)
+                self.grid, self.points, self.ri, self.wxy, self.zi, self.wz)
         return self._point_order
 
 
@@ -714,7 +715,8 @@ class LogNeLinear:
         nx, ny, nz = grid.shape
         self.table_shape = (nx * ny, nz)
         self.shape = tuple(points.shape[:-1])
-        self.setup = self.model.rows.row_setup(grid, points.reshape(-1, 3))
+        self.points = points.reshape(-1, 3)
+        self.setup = self.model.rows.row_setup(grid, self.points)
         ri, _, zi, _ = self.setup
         self.row_plan = (self.model.rows.row_plan(ri, zi, nx * ny)
                          if ri.is_cuda else None)
@@ -726,7 +728,7 @@ class LogNeLinear:
         on CUDA and kept (as ``DtecGeometry.point_order``)."""
         if self._point_order is None and self.setup[0].is_cuda:
             self._point_order = self.model.rows.point_order(
-                *self.setup, self.grid.shape)
+                self.grid, self.points, *self.setup)
         return self._point_order
 
     def apply(self, dm: torch.Tensor) -> torch.Tensor:

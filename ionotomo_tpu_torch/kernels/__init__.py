@@ -334,32 +334,58 @@ def rows_value_fwd(table: torch.Tensor, ri: torch.Tensor, wxy: torch.Tensor,
     return out
 
 
-def point_order_keys(ri: torch.Tensor, zi: torch.Tensor, base: int,
-                     grid_shape) -> torch.Tensor:
-    """The (N,) int32 sort keys of ``point_order``, one kernel on the card
-    (plain version: ``point_order_keys_ref``)."""
+#: The rules by which a field model's set-up places a point's stencil
+#: base cell (``csrc/rows_value_fwd.cu:PointRule``), each the rule of a
+#: model's ``base_cell`` and named by its ``POINT_RULE``: "cubic" floors
+#: all three axes into [0, n−2] (``core.tricubic``), "zp" rounds half to
+#: even all three into [1, n−2] (``core.boxspline``), "zpc" rounds x and y
+#: as zp and floors z as cubic (``core.zpcubic``).
+POINT_RULES = ("cubic", "zp", "zpc")
+
+
+def point_order_keys(points: torch.Tensor, grid, rule: str) -> torch.Tensor:
+    """The (N,) int32 sort keys of ``point_order``: each point's stencil
+    base cell (bx, by, bz) under the model's ``rule`` (``POINT_RULES``),
+    recomputed from the points (N, 3) as the model's set-up computes it,
+    as (bx·ny + by)·nz + bz; one kernel on the card (plain version:
+    ``point_order_keys_plain`` over the model's ``base_cell``; oracle:
+    ``point_order_keys_ref`` of the set-up's own rows)."""
     name = "point_order_keys"
-    n, k = ri.shape
-    l = zi.shape[1]
-    nx, ny, nz = grid_shape
+    n = points.shape[0]
+    nx, ny, nz = grid.shape
     if nx * ny * nz >= 2 ** 31:
         raise ValueError(f"{name}: the key needs nx*ny*nz < 2^31")
-    dev = _check(name, [("ri", ri, torch.int32, (n, k)),
-                        ("zi", zi, torch.int32, (n, l))])
+    dev = _check(name, [("points", points, torch.float32, (n, 3)),
+                        ("grid.origin", grid.origin, torch.float32, (3,)),
+                        ("grid.spacing", grid.spacing, torch.float32, (3,))])
     keys = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return keys
     with torch.cuda.device(dev):
-        _launch(name, "ionotomo_point_order_keys", _ptr(ri), k, int(base),
-                _ptr(zi), l, min(1, l - 1), n, nx * ny, nz, _ptr(keys))
+        _launch(name, "ionotomo_point_order_keys", _ptr(points), n,
+                _ptr(grid.origin), _ptr(grid.spacing), nx, ny, nz,
+                POINT_RULES.index(rule), _ptr(keys))
     return keys
+
+
+def point_order_keys_plain(points: torch.Tensor, grid, base_cell
+                           ) -> torch.Tensor:
+    """Plain PyTorch version of ``point_order_keys``: the base cell that
+    the model's own ``base_cell(grid, points)`` gives, each axis into [0,
+    n−1] as the set-up's row and z tap are, as (bx·ny + by)·nz + bz."""
+    base = base_cell(grid, points)[1]
+    b = [base[:, d].to(torch.int32).long().clamp(0, grid.shape[d] - 1)
+         for d in range(3)]
+    _, ny, nz = grid.shape
+    return ((b[0] * ny + b[1]) * nz + b[2]).to(torch.int32)
 
 
 def point_order_keys_ref(ri: torch.Tensor, zi: torch.Tensor, base: int,
                          grid_shape) -> torch.Tensor:
-    """Plain PyTorch version of ``point_order_keys``: each point's stencil
-    base cell, the row ri[:, base] and iz from zi[:, 1] (zi[:, 0] at L =
-    1), both clamped into the table, as row·nz + iz."""
+    """The keys as the set-up's own rows hold them, the oracle of
+    ``point_order_keys`` and ``point_order_keys_plain``: each point's
+    stencil base cell, the row ri[:, base] and iz from zi[:, 1] (zi[:, 0]
+    at L = 1), both clamped into the table, as row·nz + iz."""
     nx, ny, nz = grid_shape
     r = ri[:, base].long().clamp(0, nx * ny - 1)
     z = zi[:, min(1, zi.shape[1] - 1)].long().clamp(0, nz - 1)
@@ -384,15 +410,16 @@ def permute_points(order: torch.Tensor, ri: torch.Tensor, wxy: torch.Tensor,
     return tuple(out)
 
 
-def point_order(ri: torch.Tensor, zi: torch.Tensor, base: int,
-                grid_shape) -> torch.Tensor:
-    """(N,) int32: the points sorted by their stencil's base cell, row
-    then z (the keys of ``point_order_keys_ref``, made on the card by
-    ``point_order_keys``), the order K2 runs a fixed point set in, so that
-    a warp holds points that share rows and sectors; ties in point order
-    (a stable sort: the same order every run). No host read."""
-    keys = (point_order_keys(ri, zi, base, grid_shape) if ri.is_cuda
-            else point_order_keys_ref(ri, zi, base, grid_shape))
+def point_order(points: torch.Tensor, grid, rule: str, base_cell
+                ) -> torch.Tensor:
+    """(N,) int32: the points (N, 3) sorted by their stencil's base cell
+    as the model places it (its ``POINT_RULE`` and ``base_cell``), row
+    then z (``point_order_keys`` on the card, ``point_order_keys_plain``
+    on the CPU), the order K2 runs a fixed point set in, so that a warp
+    holds points that share rows and sectors; ties in point order (a
+    stable sort: the same order every run). No host read."""
+    keys = (point_order_keys(points, grid, rule) if points.is_cuda
+            else point_order_keys_plain(points, grid, base_cell))
     return torch.sort(keys, stable=True).indices.to(torch.int32)
 
 

@@ -36,8 +36,8 @@ _SIGNATURES = {
                                             _I, _I, _I, _P, _P, _P]),
     "ionotomo_rows_value_fwd": (_I, [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
                                      _I, _P, _P, _P]),
-    "ionotomo_point_order_keys": (_I, [_P, _I, _I, _P, _I, _I, _I, _I, _I,
-                                       _P, _P]),
+    "ionotomo_point_order_keys": (_I, [_P, _I, _P, _P, _I, _I, _I, _I, _P,
+                                       _P]),
     "ionotomo_permute_points": (_I, [_P, _I, _P, _P, _I, _P, _P, _I, _I, _P,
                                      _P, _P, _P, _P]),
     "ionotomo_trace_leapfrog_zp": (_I, [_P, _P, _P, _P, _I, _I, _I, _P, _P,

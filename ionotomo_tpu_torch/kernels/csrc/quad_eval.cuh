@@ -3,11 +3,13 @@
 // its prefiltered coefficients.
 //
 // Shared by K1q (trace_leapfrog_quad.cu, over the z-tap-packed table of
-// K1) and K6q (quad_value_grad.cu). It is the per-point body of
-// ionotomo_tpu/core/triquadratic.py: _neighborhood -> _qb_weights/
-// _qb_dweights -> interp_rows_with_grad (:173-207), contracted z first
-// over each of the 9 rows, then over y, then over x, as the reference
-// does, and must stay in step with the plain PyTorch version in
+// K1) and K6q (quad_value_grad.cu, which runs quad_contract's pieces,
+// quad_plane, quad_add_plane and quad_finish, over three lanes a point).
+// It is the per-point body of ionotomo_tpu/core/triquadratic.py:
+// _neighborhood ->
+// _qb_weights/_qb_dweights -> interp_rows_with_grad (:173-207), contracted
+// z first over each of the 9 rows, then over y, then over x, as the
+// reference does, and must stay in step with the plain PyTorch version in
 // ionotomo_tpu_torch/core/triquadratic.py.
 //
 // Drift traps this code keeps as the reference has them:
@@ -47,10 +49,63 @@ static __device__ __forceinline__ void quad_axis(float p, float o, float s,
   a.dw[2] = u + 0.5f;
 }
 
-// The contraction: taps(a, b, c) writes c[0..2], the table at row
-// (ax.b + a - 1, ay.b + b - 1) and z taps az.b - 1 .. az.b + 1. Each
-// row's z sums from zero, tap by tap; then y, then x, each a running sum
-// from zero; the gradient divided by the spacing last.
+// One x plane a (rows ax.b + a - 1) of the contraction: taps(a, b, c)
+// writes c[0..2], the table at row (ax.b + a - 1, ay.b + b - 1) and z taps
+// az.b - 1 .. az.b + 1. Each row's z sums from zero, tap by tap; then the
+// plane's sums over y, czy, czy_dy and czy_dz, each from zero.
+template <class Taps>
+static __device__ __forceinline__ void quad_plane(const QuadAxis& ay,
+                                                  const QuadAxis& az,
+                                                  const Taps& taps, int a,
+                                                  float& czy, float& czy_dy,
+                                                  float& czy_dz) {
+  czy = 0.0f;
+  czy_dy = 0.0f;
+  czy_dz = 0.0f;
+#pragma unroll
+  for (int b = 0; b < 3; ++b) {
+    float c[3];
+    taps(a, b, c);
+    float cz = 0.0f, cz_d = 0.0f;
+#pragma unroll
+    for (int l = 0; l < 3; ++l) {
+      cz += c[l] * az.w[l];
+      cz_d += c[l] * az.dw[l];
+    }
+    czy += cz * ay.w[b];
+    czy_dy += cz * ay.dw[b];
+    czy_dz += cz_d * ay.w[b];
+  }
+}
+
+// Plane a's terms of the sums over x (czy, czy_dy and czy_dz from
+// quad_plane): v, dx, dy and dz each a running sum from 0.0f over a = 0,
+// 1, 2.
+static __device__ __forceinline__ void quad_add_plane(
+    const QuadAxis& ax, int a, float czy, float czy_dy, float czy_dz,
+    float& v, float& dx, float& dy, float& dz) {
+  v += czy * ax.w[a];
+  dx += czy * ax.dw[a];
+  dy += czy_dy * ax.w[a];
+  dz += czy_dz * ax.w[a];
+}
+
+// The value and the gradient, divided by the spacing last.
+static __device__ __forceinline__ void quad_finish(const TableGrid& g,
+                                                   float v, float dx,
+                                                   float dy, float dz,
+                                                   float& val, float& gx,
+                                                   float& gy, float& gz) {
+  val = v;
+  gx = dx / g.sx;
+  gy = dy / g.sy;
+  gz = dz / g.sz;
+}
+
+// The contraction of one lane a point, plane by plane: each plane's sums
+// (quad_plane), then its terms of the sums over x (quad_add_plane). K6q's
+// three lanes run the same pieces, a plane a lane, so its sums are these
+// bit for bit.
 template <class Taps>
 static __device__ __forceinline__ void quad_contract(
     const TableGrid& g, const QuadAxis& ax, const QuadAxis& ay,
@@ -59,30 +114,11 @@ static __device__ __forceinline__ void quad_contract(
   float v = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    float czy = 0.0f, czy_dy = 0.0f, czy_dz = 0.0f;
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      float c[3];
-      taps(a, b, c);
-      float cz = 0.0f, cz_d = 0.0f;
-#pragma unroll
-      for (int l = 0; l < 3; ++l) {
-        cz += c[l] * az.w[l];
-        cz_d += c[l] * az.dw[l];
-      }
-      czy += cz * ay.w[b];
-      czy_dy += cz * ay.dw[b];
-      czy_dz += cz_d * ay.w[b];
-    }
-    v += czy * ax.w[a];
-    dx += czy * ax.dw[a];
-    dy += czy_dy * ax.w[a];
-    dz += czy_dz * ax.w[a];
+    float czy, czy_dy, czy_dz;
+    quad_plane(ay, az, taps, a, czy, czy_dy, czy_dz);
+    quad_add_plane(ax, a, czy, czy_dy, czy_dz, v, dx, dy, dz);
   }
-  val = v;
-  gx = dx / g.sx;
-  gy = dy / g.sy;
-  gz = dz / g.sz;
+  quad_finish(g, v, dx, dy, dz, val, gx, gy, gz);
 }
 
 // Value m and physical gradient dm/dx [1/km] at (px, py, pz): 9 rows x 3

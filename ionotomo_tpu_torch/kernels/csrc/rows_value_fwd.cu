@@ -21,9 +21,13 @@
 //
 // Design:
 // - a point order (point_order_keys_kernel below, sorted once per ray
-//   bundle by kernels.point_order): thread t computes point order[t] and
-//   writes out[order[t]], so a warp holds points of neighbouring stencils,
-//   which share rows and sectors in L1 and L2; the bundle keeps its inputs
+//   bundle by kernels.point_order; the key is each point's stencil base
+//   cell, recomputed from the points, 12 B a point read coalesced, by the
+//   model's own rule, not read from the set-up's index rows, whose base
+//   column costs a 32-byte sector a point for 4 useful bytes): thread t
+//   computes point order[t] and writes out[order[t]], so a warp holds
+//   points of neighbouring stencils, which share rows and sectors in L1
+//   and L2; the bundle keeps its inputs
 //   permuted into the order (permute_points_tile_kernel below), so that
 //   thread t reads row t of them, coalesced. No order: ray order;
 // - the three shapes of the main paths (zp, zpc and cubic; boxspline,
@@ -82,6 +86,13 @@
 #endif
 #ifndef PERMUTE_LOADS
 #define PERMUTE_LOADS 4
+#endif
+
+// Study only (chip_smoke.py builds a library with
+// -DPOINT_KEYS_LAUNCH_FLOOR=1): the key kernel's launch with an empty
+// body, its launch floor.
+#ifndef POINT_KEYS_LAUNCH_FLOOR
+#define POINT_KEYS_LAUNCH_FLOOR 0
 #endif
 
 namespace {
@@ -243,18 +254,93 @@ cudaError_t launch_fixed(const float* table, int n_rows, int nz,
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-// The sort key of a point for kernels.point_order: its stencil's base
-// cell, (ix, iy) from the row ri[n, base] and iz from the z tap zi[n, zc],
-// as row * nz + iz.
-__global__ void point_order_keys_kernel(const int* __restrict__ ri, int K,
-                                        int base, const int* __restrict__ zi,
-                                        int L, int zc, int n, int n_rows,
-                                        int nz, int* __restrict__ keys) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int r = clampi(ri[(size_t)i * K + base], n_rows - 1);
-  const int z = clampi(zi[(size_t)i * L + zc], nz - 1);
-  keys[i] = r * nz + z;
+// The rules by which a field model's set-up places a point's stencil base
+// cell (kernels.POINT_RULES), each a model's base_cell, which its set-up
+// and the plain key share: cubic floors all three axes into [0, n-2]
+// (core/tricubic.py); zp rounds half to even all three into [1, n-2]
+// (core/boxspline.py); zpc rounds x and y as zp and floors z as cubic
+// (core/zpcubic.py).
+enum PointRule { kRuleCubic = 0, kRuleZp = 1, kRuleZpc = 2 };
+
+constexpr int kKeyThreads = 256;
+
+// One axis of a point's base cell as the model's set-up computes it:
+// t = (p - o) / s, an IEEE subtraction and division (Grid3D.world_to_index;
+// never a reciprocal), clamped to [0, n-1], then rintf (round half to
+// even, torch.round) or floorf, clamped to [lo, n-2], and into [0, n-1]
+// as the key's row and z tap are. A NaN t stays NaN through the set-up's
+// clamps (torch.maximum and minimum propagate it) and the card converts
+// it to 0, so it is 0 here.
+__device__ __forceinline__ int base_cell(float p, float o, float s, int n,
+                                         bool nearest) {
+  float t = __fdiv_rn(__fsub_rn(p, o), s);
+  if (t != t) return 0;
+  t = fminf(fmaxf(t, 0.0f), (float)(n - 1));
+  const float b = fminf(fmaxf(nearest ? rintf(t) : floorf(t),
+                              nearest ? 1.0f : 0.0f),
+                        (float)(n - 2));
+  return clampi((int)b, n - 1);
+}
+
+// A grid and a rule (PointRule) as the key kernel reads them.
+struct KeyGrid {
+  float o[3], s[3];
+  int nx, ny, nz;
+  bool near_xy, near_z;
+};
+
+__device__ __forceinline__ KeyGrid key_grid(const float* __restrict__ origin,
+                                            const float* __restrict__ spacing,
+                                            int nx, int ny, int nz,
+                                            int rule) {
+  KeyGrid g;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    g.o[d] = __ldg(origin + d);
+    g.s[d] = __ldg(spacing + d);
+  }
+  g.nx = nx;
+  g.ny = ny;
+  g.nz = nz;
+  g.near_xy = rule != kRuleCubic;
+  g.near_z = rule == kRuleZp;
+  return g;
+}
+
+// The sort key of the point (x, y, z): its stencil's base cell (bx, by,
+// bz) under the rule, as (bx * ny + by) * nz + bz, the row and z tap the
+// set-up writes into ri and zi.
+__device__ __forceinline__ int point_key(const KeyGrid& g, float x, float y,
+                                         float z) {
+  const int bx = base_cell(x, g.o[0], g.s[0], g.nx, g.near_xy);
+  const int by = base_cell(y, g.o[1], g.s[1], g.ny, g.near_xy);
+  const int bz = base_cell(z, g.o[2], g.s[2], g.nz, g.near_z);
+  return (bx * g.ny + by) * g.nz + bz;
+}
+
+// One point a thread: a warp reads its 32 consecutive points, 384
+// contiguous bytes (whole sectors), in three loads a thread, and writes
+// their 32 keys, 128 contiguous bytes. Bound: 16 B a point moved and ~60
+// instructions (three IEEE divisions); chip_smoke.py --k2-study on an
+// NVIDIA H100 80GB HBM3 at 700 W: 0.0044-0.0047 ms at config 4's 650,000
+// cubic points (the keys read from ri and zi: 0.0194), 0.0017-0.0018 at
+// 79,980; two points a thread by 8-byte loads 0.0043-0.0044 and 0.0020,
+// four by 16-byte loads 0.0048-0.0052 and 0.0024, a block's tile through
+// shared memory 0.0057-0.0063 and 0.0021.
+__global__ void __launch_bounds__(kKeyThreads)
+    point_order_keys_kernel(const float* __restrict__ points,
+                            const float* __restrict__ origin,
+                            const float* __restrict__ spacing, int nx,
+                            int ny, int nz, int rule, int n,
+                            int* __restrict__ keys) {
+#if POINT_KEYS_LAUNCH_FLOOR
+  return;
+#endif
+  const size_t i = (size_t)blockIdx.x * kKeyThreads + threadIdx.x;
+  if (i >= (size_t)n) return;
+  const KeyGrid g = key_grid(origin, spacing, nx, ny, nz, rule);
+  const float* p = points + 3 * i;
+  keys[i] = point_key(g, __ldg(p), __ldg(p + 1), __ldg(p + 2));
 }
 
 // The four arrays of a point set the permute moves, each (n, words[a])
@@ -456,15 +542,20 @@ extern "C" int ionotomo_rows_value_fwd(const float* table, int n_rows, int nz,
   return (int)cudaGetLastError();
 }
 
-// keys: (n,) int32, row * nz + iz (rows * nz < 2^31).
-extern "C" int ionotomo_point_order_keys(const int* ri, int K, int base,
-                                         const int* zi, int L, int zc, int n,
-                                         int n_rows, int nz, int* keys,
+// keys: (n,) int32, (bx * ny + by) * nz + bz of each of the points (n, 3)
+// under the rule (PointRule; nx * ny * nz < 2^31), the grid's origin and
+// spacing two (3,) device vectors.
+extern "C" int ionotomo_point_order_keys(const float* points, int n,
+                                         const float* origin,
+                                         const float* spacing, int nx, int ny,
+                                         int nz, int rule, int* keys,
                                          void* stream) {
-  if (n < 1 || base < 0 || base >= K || zc < 0 || zc >= L)
+  if (n < 1 || nx < 1 || ny < 1 || nz < 1 || rule < kRuleCubic ||
+      rule > kRuleZpc)
     return (int)cudaErrorInvalidValue;
-  point_order_keys_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      ri, K, base, zi, L, zc, n, n_rows, nz, keys);
+  point_order_keys_kernel<<<(n + kKeyThreads - 1) / kKeyThreads,
+                            kKeyThreads, 0, (cudaStream_t)stream>>>(
+      points, origin, spacing, nx, ny, nz, rule, n, keys);
   return (int)cudaGetLastError();
 }
 

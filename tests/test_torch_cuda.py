@@ -116,7 +116,7 @@ def _k2_case(dev, case, model):
             pts = np.concatenate([pts, 7.25 + rng.uniform(0, 0.5,
                                                           (3000, 3))])
     pts = torch.from_numpy(pts.astype(np.float32)).to(dev)
-    return table, shape, model.row_setup(grid, pts)
+    return table, grid, pts, model.row_setup(grid, pts)
 
 
 @pytest.mark.parametrize("case", ["edge_case", "skewed_row", "nz1024"])
@@ -129,7 +129,8 @@ def test_rows_value_fwd_in_any_order_is_bitwise(dev, case, model):
     which is within 1e-5·Σ|w||T| of the plain version; the order's keys
     and the permuted inputs bitwise their plain versions, each launch
     counted; a point order on the generic kernel refused."""
-    table, shape, (ri, wxy, zi, wz) = _k2_case(dev, case, model)
+    table, grid, pts, (ri, wxy, zi, wz) = _k2_case(dev, case, model)
+    shape = grid.shape
     xy_first = model is not tricubic
     want = kernels.rows_value_fwd(table, *map(off_boundary, (ri, wxy, zi,
                                                              wz)), xy_first)
@@ -141,11 +142,11 @@ def test_rows_value_fwd_in_any_order_is_bitwise(dev, case, model):
     assert torch.equal(kernels.rows_value_fwd(table, ri, wxy, zi, wz,
                                               xy_first), want)
     before = dict(kernels.launches)
-    po = model.point_order(ri, wxy, zi, wz, shape)
+    po = model.point_order(grid, pts, ri, wxy, zi, wz)
     for name in ("point_order_keys", "permute_points"):
         assert kernels.launches[name] == before[name] + 1, name
     assert torch.equal(
-        kernels.point_order_keys(ri, zi, model.BASE_TRANSLATE, shape),
+        kernels.point_order_keys(pts, grid, model.POINT_RULE),
         kernels.point_order_keys_ref(ri, zi, model.BASE_TRANSLATE, shape))
     perm = po.order.long()
     for got, t in zip((po.ri, po.wxy, po.zi, po.wz), (ri, wxy, zi, wz)):
@@ -162,6 +163,72 @@ def test_rows_value_fwd_in_any_order_is_bitwise(dev, case, model):
     with pytest.raises(ValueError, match="a point order needs"):
         kernels.rows_value_fwd(table, *map(off_boundary, moved), xy_first,
                                rand)
+
+
+@pytest.mark.parametrize("grid_case", ["dyadic_12x9x7", "non_dyadic_40x36x33",
+                                       "config_128"])
+@pytest.mark.parametrize("model", [boxspline, tricubic, zpcubic],
+                         ids=["zp", "cubic", "zpc"])
+def test_point_order_keys_from_the_points_are_the_set_up_rows(dev, model,
+                                                              grid_case):
+    """The key kernel, which reads the points, bitwise the key the model's
+    set-up holds in its rows (``point_order_keys_ref`` of ``row_setup`` on
+    the card) and its plain version, at edge-case points (lattice nodes,
+    halves, outside every side, the boundary cells) with NaN and infinite
+    coordinates, a ragged count; the points off a 16-byte boundary give
+    the same keys; one launch a call."""
+    shape, origin, spacing = {
+        "dyadic_12x9x7": ((12, 9, 7), (-96.0, -40.0, 0.0), (16.0, 8.0, 32.0)),
+        "non_dyadic_40x36x33": ((40, 36, 33), (-151.3, 7.7, 60.1),
+                                (9.7, 13.1, 41.3)),
+        "config_128": ((128, 128, 128), (-400.0, -400.0, 0.0),
+                       (800 / 127, 800 / 127, 1100 / 127))}[grid_case]
+    rng = np.random.default_rng(44)
+    grid = Grid3D.create(origin, spacing, shape, device=dev)
+    odd = (np.asarray(origin) + np.array(
+        [[np.nan, 1.0, 1.0], [1.0, np.nan, 1.0], [1.0, 1.0, np.nan],
+         [np.inf, 1.0, -np.inf], [-np.inf, np.inf, 2.0]])
+        * np.asarray(spacing)).astype(np.float32)
+    pts = torch.from_numpy(np.concatenate([
+        edge_case_points(shape, origin, spacing, 70001, rng), odd])).to(dev)
+    ri, _, zi, _ = model.row_setup(grid, pts)
+    want = kernels.point_order_keys_ref(ri, zi, model.BASE_TRANSLATE, shape)
+    before = kernels.launches["point_order_keys"]
+    got = kernels.point_order_keys(pts, grid, model.POINT_RULE)
+    assert kernels.launches["point_order_keys"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(kernels.point_order_keys_plain(pts, grid,
+                                                      model.base_cell), want)
+    assert torch.equal(kernels.point_order_keys(
+        off_boundary(pts), grid, model.POINT_RULE), want)
+
+
+@pytest.mark.parametrize("n", [1, 7, 1240, 20000, 100003])
+def test_quad_value_grad_three_lanes_are_bitwise(dev, n):
+    """K6q (three lanes a point, ten points a warp) at edge-case points,
+    whole and ragged warps: within 1e-5·max|table| of the plain version
+    (the gradient over the smallest spacing); each point's output bitwise
+    the same wherever its warp places it (the points reversed, and each
+    of the first 40 alone) and on a table off a 16-byte boundary; one
+    launch a call."""
+    grid, m = _world(dev)
+    table = triquadratic.prefilter(m).reshape(-1, grid.shape[2])
+    pts, _ = _edge_points(dev, grid, n, 33)
+    pts = pts[:n].contiguous()
+    before = kernels.launches["quad_value_grad"]
+    v0, g0 = kernels.quad_value_grad(table, grid, pts)
+    assert kernels.launches["quad_value_grad"] == before + 1
+    tol = 1e-5 * float(table.abs().max())
+    vr, gr = triquadratic.interp_rows_with_grad_ref(table, grid, pts)
+    assert float((v0 - vr).abs().max()) <= tol
+    assert float((g0 - gr).abs().max()) <= tol / float(grid.spacing.min())
+    v, g = kernels.quad_value_grad(table, grid, pts.flip(0).contiguous())
+    assert torch.equal(v.flip(0), v0) and torch.equal(g.flip(0), g0)
+    for i in range(min(n, 40)):
+        v, g = kernels.quad_value_grad(table, grid, pts[i:i + 1].contiguous())
+        assert torch.equal(v, v0[i:i + 1]) and torch.equal(g, g0[i:i + 1])
+    v, g = kernels.quad_value_grad(off_boundary(table), grid, pts)
+    assert torch.equal(v, v0) and torch.equal(g, g0)
 
 
 @pytest.mark.parametrize("keep_path", [True, False])

@@ -86,7 +86,9 @@ def test_build_point_order_on_the_cpu_is_a_numpy_sort_and_gather(model):
     key = (np.clip(ri[:, model.BASE_TRANSLATE], 0, n_rows - 1).astype(
         np.int64) * nz + np.clip(zi[:, min(1, zi.shape[1] - 1)], 0, nz - 1))
     perm = np.argsort(key, kind="stable")
-    po = tricubic.build_point_order(*setup, model.BASE_TRANSLATE, shape)
+    po = tricubic.build_point_order(grid, torch.from_numpy(pts),
+                                    model.POINT_RULE, model.base_cell,
+                                    *setup)
     assert np.array_equal(po.order.numpy(), perm.astype(np.int32))
     for got, t in zip((po.ri, po.wxy, po.zi, po.wz), (ri, wxy, zi, wz)):
         assert got.is_contiguous()

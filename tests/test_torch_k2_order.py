@@ -58,21 +58,27 @@ def _setup(world, model, points):
                  for t in world[3][model])
 
 
+def _points(world, points):
+    return torch.from_numpy(world[2][POINTS[points]])
+
+
 @pytest.mark.parametrize("points", list(POINTS))
 @pytest.mark.parametrize("model", list(MODELS))
 def test_point_order_is_a_repeatable_permutation_by_its_keys(world, model,
                                                              points):
     mod, _ = MODELS[model]
+    grid, pts = world[0], _points(world, points)
     ri, wxy, zi, wz = _setup(world, model, points)
     base = mod.BASE_TRANSLATE
-    order = kernels.point_order(ri, zi, base, SHAPE)
+    order = kernels.point_order(pts, grid, mod.POINT_RULE, mod.base_cell)
     assert order.dtype == torch.int32
     assert sorted(order.tolist()) == list(range(ri.shape[0]))
-    assert torch.equal(order, kernels.point_order(ri, zi, base, SHAPE))
+    assert torch.equal(order, kernels.point_order(pts, grid, mod.POINT_RULE,
+                                                  mod.base_cell))
     key = kernels.point_order_keys_ref(ri, zi, base, SHAPE)
     assert bool((torch.diff(key[order.long()]) >= 0).all())
     # the model's order, its inputs permuted
-    po = mod.point_order(ri, wxy, zi, wz, SHAPE)
+    po = mod.point_order(grid, pts, ri, wxy, zi, wz)
     assert torch.equal(po.order, order) and po.of(ri, wxy, zi, wz)
     perm = order.long()
     for got, t in zip((po.ri, po.wxy, po.zi, po.wz), (ri, wxy, zi, wz)):
@@ -105,15 +111,18 @@ def test_ordered_gather_scattered_back_is_bitwise_and_matches_jax(
         world, model, points):
     table = world[1]
     mod, xy_first = MODELS[model]
+    grid, pts = world[0], _points(world, points)
     ri, wxy, zi, wz = _setup(world, model, points)
     want = ttri.rows_value_ref(table, ri, wxy, zi, wz, xy_first)
-    perm = kernels.point_order(ri, zi, mod.BASE_TRANSLATE, SHAPE).long()
+    perm = kernels.point_order(pts, grid, mod.POINT_RULE,
+                               mod.base_cell).long()
     got = torch.empty_like(want)
     got[perm] = ttri.rows_value_ref(table, ri[perm], wxy[perm], zi[perm],
                                     wz[perm], xy_first)
     assert torch.equal(got, want)
     # the CPU dispatch takes the plain version and leaves the order aside
-    po = ttri.build_point_order(ri, wxy, zi, wz, mod.BASE_TRANSLATE, SHAPE)
+    po = ttri.build_point_order(grid, pts, mod.POINT_RULE, mod.base_cell,
+                                ri, wxy, zi, wz)
     assert torch.equal(ttri.rows_value(table, ri, wxy, zi, wz, xy_first,
                                        order=po), want)
     j = np.asarray(jtri.rows_value(*(jnp.asarray(a.numpy()) for a in
@@ -133,7 +142,8 @@ def test_rows_value_takes_only_the_order_of_its_own_points(world, model):
     mod, xy_first = MODELS[model]
     table = world[1]
     ri, wxy, zi, wz = _setup(world, model, "edge_case")
-    po = mod.point_order(ri, wxy, zi, wz, SHAPE)
+    po = mod.point_order(world[0], _points(world, "edge_case"), ri, wxy, zi,
+                         wz)
     assert torch.equal(ttri.rows_value(table, ri, wxy, zi, wz, xy_first,
                                        order=po),
                        ttri.rows_value_ref(table, ri, wxy, zi, wz, xy_first))
