@@ -26,7 +26,11 @@ its shards in turn on the card), on one NVIDIA GPU.
                                        # predict (with --profile: one
                                        # timestep of each form profiled)
     python3 chip_smoke.py --sharded    # only: the build and phase 18, the
-                                       # multi-device layer
+                                       # multi-device layer (with
+                                       # --depth-study: the profile
+                                       # estimate and GCV on the ray mesh
+                                       # by depth of CG, against data
+                                       # moved by 1e-7)
     python3 chip_smoke.py --theta-study
                                        # only: phase 16's estimate_profile
                                        # solve by depth of CG and of
@@ -4174,6 +4178,26 @@ def phase13_enkf(dev, world, cache, boxspline, tricubic, tec, kernels,
           f"{n_steps} steps in one call are bitwise equal to "
           f"{n_steps // 2} + {n_steps // 2} chained through ens0 and "
           f"step_offset")
+    # the adaptive spectral gain (spectrum_blend 0.5): finite, live, and
+    # a chunked run bitwise one call
+    t1 = time.perf_counter()
+    (bl,), _ = run(n_steps=n_steps, spectrum_blend=0.5)
+    bl_c, _ = run(n_steps=n_steps, chunk=n_steps // 2, spectrum_blend=0.5)
+    upd = float(torch.linalg.norm(ra.mean_seq[-1] - w.m_bg))
+    moved = float(torch.linalg.norm(bl.mean_seq[-1] - ra.mean_seq[-1])) / upd
+    check(bool(torch.isfinite(bl.ensemble).all()
+               and torch.isfinite(bl.mean_seq).all()),
+          "spectrum_blend 0.5: the final ensemble and the means finite")
+    check(not torch.equal(bl.mean_seq, ra.mean_seq) and moved > 0,
+          f"spectrum_blend 0.5 changes the filter: the last mean moved by "
+          f"{moved:.3e} of blend 0's update")
+    check(bool(torch.equal(bl.ensemble, bl_c[-1].ensemble)
+               and torch.equal(bl.mean_seq, torch.cat(
+                   [r.mean_seq for r in bl_c]))),
+          f"spectrum_blend 0.5: {n_steps} steps in one call bitwise "
+          f"{n_steps // 2} + {n_steps // 2} chained")
+    blend_s = time.perf_counter() - t1
+    print(f"  [spectrum_blend 0.5, one call and chained: {blend_s:.1f} s]")
     spread = ra.std_seq[-1]
     check(bool(torch.isfinite(spread).all()) and float(spread.min()) >= 0
           and float(spread.mean()) > 0,
@@ -4218,7 +4242,8 @@ def phase13_enkf(dev, world, cache, boxspline, tricubic, tec, kernels,
                                "point_seconds_per_step": point_step,
                                "heldout": h_m, "prior_heldout": h_0,
                                "plain_step_seconds": secs_p,
-                               "sha256": sha}
+                               "sha256": sha, "blend_moved": moved,
+                               "blend_seconds": blend_s}
     results["enkf_launches"] = launches
 
 
@@ -8078,6 +8103,20 @@ SHARDED_SOLVE_LIMIT = 3e-5
 #: run's departure from the prior
 SHARDED_FILTER_LIMIT = 1e-3
 SHARDED_PIPE_LIMIT = 1e-2
+#: the pipeline's other ray-mesh call sites (§6b) on the 4-shard mesh
+#: against the meshless pipeline on the same padded rays: each mode's
+#: scores (GCV's, the evidence tables over their spread across the
+#: candidates, θ̂ and the profile's residual each, the spectrum, the
+#: noise-adaptation tables), relative (the fields, the posterior std and
+#: the batched fields are held to SHARDED_PIPE_LIMIT, as §6 holds the
+#: pipeline's)
+SHARDED_SCORE_LIMIT = 1e-2
+#: the profile estimate, which §6b holds at cg 3 (past that, f32
+#: roundoff, which the shard order changes, decides where its undamped
+#: Gauss-Newton goes on this world): θ̂ and the field, relative as above
+#: (set from the readings on an NVIDIA H100 80GB HBM3 at 700 W: sound
+#: 1.3e-6 and 2.9e-6, the planted faults' 7.5e-2 and 5.2e-4 and past)
+SHARDED_DRY_LIMIT = 1e-4
 #: the faults planted in the controls: the first shard left out of every
 #: ``psum`` (a dropped Jᵀ table, a lost member group, a lost x-shard; the
 #: last ray shard may hold only padding, which weighs nothing),
@@ -8585,14 +8624,401 @@ def sharded_reading(got, want, prior, heldout):
     return rel, abs(hg - hw) / hw if hw else 0.0
 
 
+@contextlib.contextmanager
+def recorded_calls(entries):
+    """Each solver entry (module, name) wrapped to record its calls: the
+    yielded list gets (name, the bundle handed in, args, kwargs, result)
+    of every call, in order; ``replay(call)`` calls the original entry
+    again with the recorded arguments."""
+    calls, saved = [], []
+    for mod, name in entries:
+        fn = getattr(mod, name)
+
+        def wrapped(grid, rays, *args, _fn=fn, _name=name, **kwargs):
+            res = _fn(grid, rays, *args, **kwargs)
+            calls.append((_name, rays, (grid,) + args, kwargs, res))
+            return res
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrapped)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def replay(entries, call, **changes):
+    """The original of ``call``'s entry on its recorded arguments, with
+    ``changes`` to its keyword arguments."""
+    fn = {name: getattr(mod, name) for mod, name in entries}[call[0]]
+    grid, *args = call[2]
+    return fn(grid, call[1], *args, **{**call[3], **changes})
+
+
+#: where each kernel of a ray-sharded operator's path takes its point
+#: count: the index of the wrapper's argument whose axis 0 counts points
+#: (K2, K2b: ri; K3, K3b: wxy; K5, K5ᵀ: the points)
+SHARD_KERNELS = {"rows_value_fwd": 1, "rows_value_bwd": 2,
+                 "cubic_value_grad": 2, "cubic_value_grad_bwd": 2,
+                 "rows_value_fwd_batched": 1, "rows_value_bwd_batched": 2}
+
+
+@contextlib.contextmanager
+def launch_sizes(kernels):
+    """Each wrapper of ``SHARD_KERNELS`` wrapped to count its launches by
+    the point count of the call: yields {name: {points: launches}}."""
+    sizes = {k: {} for k in SHARD_KERNELS}
+    saved = {k: getattr(kernels, k) for k in SHARD_KERNELS}
+    for k, i in SHARD_KERNELS.items():
+        def wrapped(*args, _fn=saved[k], _k=k, _i=i, **kwargs):
+            n = int(args[_i].shape[0])
+            sizes[_k][n] = sizes[_k].get(n, 0) + 1
+            return _fn(*args, **kwargs)
+        setattr(kernels, k, wrapped)
+    try:
+        yield sizes
+    finally:
+        for k, fn in saved.items():
+            setattr(kernels, k, fn)
+
+
+def rel_max(got, want) -> float:
+    """max|got − want| / max|want| (numpy or tensors)."""
+    from ionotomo_tpu_torch.device import host
+    g = np.asarray(host(got) if torch.is_tensor(got) else got, np.float64)
+    w = np.asarray(host(want) if torch.is_tensor(want) else want, np.float64)
+    return float(np.abs(g - w).max() / np.abs(w).max())
+
+
+def rel_each(got, want) -> float:
+    """max over elements of |got − want| / |want|."""
+    g, w = (np.asarray(x, np.float64).ravel() for x in (got, want))
+    return float(np.max(np.abs(g - w) / np.abs(w)))
+
+
+def rel_spread(got, want) -> float:
+    """max|got − want| over the spread of ``want`` (max − min): a
+    log-evidence table's differences against those that pick its
+    winner."""
+    g, w = (np.asarray(x, np.float64) for x in (got, want))
+    return float(np.abs(g - w).max() / (w.max() - w.min()))
+
+
+def field_reading(got, want, prior) -> float:
+    """max|got − want| over want's largest departure from the prior, as
+    §6 holds the pipeline's fields."""
+    from ionotomo_tpu_torch.device import host
+    g, w, p = (np.asarray(host(x) if torch.is_tensor(x) else x)
+               for x in (got, want, prior))
+    return float(np.abs(g - w).max() / np.abs(w - p).max())
+
+
+def profile_theta(res):
+    """θ̂ of a ``ProfileResult`` as a flat array, then its residual."""
+    from ionotomo_tpu_torch.device import host
+    t = res.theta
+    flat = ([t.log_n_peak, t.h_peak_km, t.scale_km]
+            if hasattr(t, "log_n_peak") else list(t))
+    return np.array([float(x) for x in flat] + [float(res.residual_norm)])
+
+
+def evidence_table(fit):
+    """The log-evidence table of a ``fit_hyperparameters`` result."""
+    return fit[3] if len(fit) == 5 else fit[2]
+
+
+def padded_pipeline(shards):
+    """``InversionPipeline`` without a mesh whose antennas are padded to
+    a multiple of ``shards``, as a run on a mesh of ``shards`` pads them,
+    so that both solve the same problem (GCV's row count and the
+    evidence's noise determinant count the padded rows)."""
+    from ionotomo_tpu_torch.inversion.pipeline import InversionPipeline
+    from ionotomo_tpu_torch.parallel.sharding import pad_to_multiple
+
+    class Padded(InversionPipeline):
+        def _padded_na(self, na: int) -> int:
+            return pad_to_multiple(na, shards)
+    return Padded
+
+
+def pipeline_mesh_modes(dev, kernels, dp, truth, mesh, small, clock, out,
+                        depth_study=False):
+    """§6b of phase 18: the pipeline's call sites beyond the snapshot
+    solve and the filters' chunks on the ray mesh (``mesh``, 62 antennas
+    padded to 64), each mode run by the invert CLI's arguments at full
+    width, against the meshless pipeline on the same padded rays. Every
+    call of the mode's solver entries is recorded (``recorded_calls``):
+    the meshed run's must take a ``ShardedRayBundle``; its scores and
+    fields are held to the meshless run's; each limit's control replays
+    the meshed run's first recorded call under each planted fault. The
+    launches of K2, K3, K5, K5ᵀ (and K2b, K3b with a member axis) are
+    counted by their calls' point counts: a shard's, a multiple of the
+    shard count, and never the whole bundle's."""
+    from ionotomo_tpu_torch.inversion import (empirical_bayes, kalman,
+                                              model_selection, profile,
+                                              solvers)
+    from ionotomo_tpu_torch.inversion import pipeline as pipeline_mod
+    from ionotomo_tpu_torch.parallel import sharding as sm
+
+    cuda = dev.type == "cuda"
+    shards = mesh.size
+    Padded = padded_pipeline(shards)
+    snapshot = (solvers, "map_gauss_newton")
+    dry = (SHARDED_DRY_LIMIT, SHARDED_DRY_LIMIT)
+    held = (SHARDED_SCORE_LIMIT, SHARDED_PIPE_LIMIT)
+    # name: (CLI arguments, timesteps, the score's entry, the field's
+    # entry, member axis, slant anchors, the score's and the field's
+    # limits). The profile estimate runs at cg 3, the depth of its CPU
+    # parity tests: its undamped Gauss-Newton diverges on this world at
+    # cg 10 and 20 (PERF.md §7), and at cg 40 data moved by 1e-7 part θ̂
+    # as far as the shard order does (1e-2 to 1e-1). GCV runs at the
+    # reference dry run's cg 8: at cg 40 moved data move its scores as far
+    # as the shard order does (~8e-2). Both readings: ``--sharded
+    # --depth-study`` (``depth_finding``). A CPU rehearsal (``small``) runs
+    # every mode at cg 3, the parity tests' depth: its 32 data rows put
+    # GCV's tr S near n, where even cg 8 parts the scores by 5 %.
+    modes = {
+        "estimate_profile": (("--estimate-profile", "--cg-iters", "3"), 1,
+                             (profile, "map_gauss_newton_profile"), snapshot,
+                             False, True, dry),
+        "auto_prior_gcv": (("--auto-prior", "gcv", "--cg-iters", "8"), 1,
+                           (model_selection, "select_prior"), snapshot,
+                           True, False, held),
+        "auto_prior_evidence": (("--auto-prior", "evidence"), 1,
+                                (empirical_bayes, "fit_hyperparameters"),
+                                snapshot, True, False, held),
+        "posterior_samples": (("--posterior-samples", "8"), 1,
+                              (solvers, "posterior_samples"), snapshot, True,
+                              False, (SHARDED_PIPE_LIMIT,) * 2),
+        "kalman_events": (("--solver", "kalman", "--kalman-chunk", "1",
+                           "--noise-adapt", "1", "--diag-spectrum", "1"), 2,
+                          (empirical_bayes, "log_marginal_family"),
+                          (pipeline_mod, "kalman_filter"), True, False, held),
+        "batched_gn": (("--solver", "batched_gn"), 2,
+                       (solvers, "map_gauss_newton_batched"), None, False,
+                       False, held),
+    }
+    spectrum = (kalman, "update_operator_eigs")
+    res_out = {}
+    for name, (argv, nt, score_at, field_at, members, anchored,
+               (score_limit, field_limit)) in modes.items():
+        t0 = time.perf_counter()
+        sub = dp.select(times=list(range(nt)))
+        sub.wind_kmps = dp.wind_kmps
+        entries = [score_at] + ([field_at] if field_at else []) + (
+            [spectrum] if name == "kalman_events" else [])
+
+        def run(cls, tag, mesh_arg, sizes=None):
+            c = invert_config(f"mesh_{name}_{tag}", *argv, *(
+                ("--cg-iters", "3") if small else ()),
+                shape=(16,) * 3 if small else None)
+            with recorded_calls(entries) as calls:
+                def go():
+                    p = cls(sub, c, device=dev, mesh=mesh_arg)
+                    a = (slant_truth_anchors(dev, p, truth) if anchored
+                         else None)
+                    return p, p.run(resume=False, anchors=a)
+                (p, sol), secs = clock(go)
+            return p, sol, calls, secs
+
+        p_u, sol_u, calls_u, s_u = run(Padded, "none", None)
+        before = dict(kernels.launches)
+        with launch_sizes(kernels) as sizes:
+            p_m, sol_m, calls_m, s_m = run(
+                pipeline_mod.InversionPipeline, "mesh", mesh)
+        counted = {k: kernels.launches[k] - before[k] for k in sizes}
+        prior = p_u._m_prior0
+        # every call on the mesh took a sharded bundle
+        sharded = all(isinstance(c[1], sm.ShardedRayBundle)
+                      and len(c[1].shards) == shards for c in calls_m)
+        check(sharded and [c[0] for c in calls_m] == [c[0] for c in calls_u]
+              and calls_m,
+              f"{name}: each of its {len(calls_m)} solver calls on the mesh "
+              f"took a ShardedRayBundle of {shards} shards ("
+              + ", ".join(sorted({c[0] for c in calls_m})) + ")")
+        # a shard's rays and samples (the batched mode's bundle is (Nt,
+        # R, N, 3)); K5 and K5ᵀ run at the rays' two endpoints
+        r_s, n_s = calls_m[0][1].shards[0].points.shape[-3:-1]
+        launched = {}
+        if cuda:
+            want = ["rows_value_fwd", "rows_value_bwd", "cubic_value_grad",
+                    "cubic_value_grad_bwd"] + (
+                ["rows_value_fwd_batched", "rows_value_bwd_batched"]
+                if members else [])
+            for k in want:
+                at = sizes[k]
+                per = 2 * r_s if k.startswith("cubic") else r_s * n_s
+                n, whole = at.get(per, 0), at.get(per * shards, 0)
+                launched[k] = dict(shard=n, whole=whole, counter=counted[k])
+                check(n > 0 and n % shards == 0 and whole == 0
+                      and sum(at.values()) == counted[k],
+                      f"{name}: {k} launched {n} times at a shard's points "
+                      f"(a multiple of {shards}) and never at the whole "
+                      f"bundle's ({dict(sorted(at.items()))}; its counter "
+                      f"{counted[k]})")
+        # the readings and their controls
+        readings = {}
+
+        def hold(label, sound, limit, reading):
+            readings[label] = sound
+            check(sound <= limit, f"{name}: {label} {sound:.3e} within "
+                                  f"{limit:g} of the meshless pipeline")
+            control(out, f"mesh_{name}_{label}", sound, limit, reading)
+
+        first_m = [c for c in calls_m if c[0] == score_at[1]]
+        first_u = [c for c in calls_u if c[0] == score_at[1]]
+        if name == "estimate_profile":
+            hold("theta", rel_each(profile_theta(first_m[0][4]),
+                                   profile_theta(first_u[0][4])),
+                 score_limit,
+                 lambda: rel_each(profile_theta(replay(entries, first_m[0])),
+                                  profile_theta(first_u[0][4])))
+        elif name == "auto_prior_gcv":
+            (_, params, sc_m), (_, params_u, sc_u) = (first_m[0][4],
+                                                      first_u[0][4])
+            check(params == params_u and int(np.argmin(sc_m))
+                  == int(np.argmin(sc_u)),
+                  f"{name}: the same candidate chosen ({params})")
+            grid, d0, noise0, m0, cands = first_m[0][2]
+            hold("scores", rel_max(sc_m, sc_u), score_limit,
+                 lambda: rel_max(model_selection.select_prior(
+                     grid, first_m[0][1], d0, noise0, m0, cands[:2],
+                     **first_m[0][3])[2], sc_u[:2]))
+        elif name == "auto_prior_evidence":
+            for fm, fu in zip(first_m, first_u):
+                check(fm[4][:2] == fu[4][:2], f"{name}: the kind "
+                      f"{fm[3]['kind']} picks the same (σ*, L*) "
+                      f"{fm[4][:2]}")
+            ev_m, ev_u = (next(r for r in p.metrics.read_all()
+                               if r.get("event") == "prior_auto_selected")
+                          for p in (p_m, p_u))
+            check(ev_m["chosen"] == ev_u["chosen"],
+                  f"{name}: the same candidate chosen ({ev_m['chosen']})")
+            hold("tables", max(rel_spread(evidence_table(fm[4]),
+                                          evidence_table(fu[4]))
+                               for fm, fu in zip(first_m, first_u)),
+                 score_limit,
+                 lambda: rel_spread(evidence_table(replay(
+                     entries, first_m[0],
+                     length_scales=first_m[0][3]["length_scales"][:1])),
+                     evidence_table(first_u[0][4])[:1]))
+        elif name == "posterior_samples":
+            hold("std", rel_max(first_m[0][4][2], first_u[0][4][2]),
+                 score_limit,
+                 lambda: rel_max(replay(entries, first_m[0])[2],
+                                 first_u[0][4][2]))
+        elif name == "kalman_events":
+            rho_m, rho_u = ([r["rho"] for r in p.metrics.read_all()
+                             if r.get("event") == "noise_adapted"]
+                            for p in (p_m, p_u))
+            check(rho_m == rho_u and rho_m,
+                  f"{name}: the same noise-scale corrections {rho_m}")
+            hold("noise_tables", max(rel_spread(fm[4][0], fu[4][0])
+                                     for fm, fu in zip(first_m, first_u)),
+                 score_limit,
+                 lambda: rel_spread(replay(entries, first_m[0])[0],
+                                    first_u[0][4][0]))
+            eig_m = [c for c in calls_m if c[0] == spectrum[1]]
+            eig_u = [c for c in calls_u if c[0] == spectrum[1]]
+            check(len(eig_m) == len(eig_u) == nt,
+                  f"{name}: a spectrum event a chunk ({len(eig_m)})")
+            hold("spectrum", max(rel_max(em[4][1], eu[4][1])
+                                 for em, eu in zip(eig_m, eig_u)),
+                 score_limit,
+                 lambda: rel_max(replay(entries, eig_m[0])[1], eig_u[0][4][1]))
+        # the fields: the mode's solution, its field entry's first call
+        field_m = first_m if field_at is None else [
+            c for c in calls_m if c[0] == field_at[1]]
+        field_u = first_u if field_at is None else [
+            c for c in calls_u if c[0] == field_at[1]]
+
+        def field_of(res):
+            return res.m_seq if hasattr(res, "m_seq") else res.m
+        hold("field", field_reading(sol_m.m, sol_u.m, prior)
+             if np.isfinite(sol_m.m).all() else float("inf"),
+             field_limit,
+             lambda: field_reading(field_of(replay(entries, field_m[0])),
+                                   field_of(field_u[0][4]), prior))
+        secs = time.perf_counter() - t0
+        res_out[name] = dict(readings=readings, seconds=secs,
+                             seconds_mesh=s_m, seconds_none=s_u,
+                             launches=launched, calls=len(calls_m))
+        print(f"  {name} on {shards} ray shards: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in readings.items())
+            + f"; the meshed run {s_m:.2f} s, the meshless {s_u:.2f} s "
+            f"(host clock); [{name}: {secs:.1f} s]")
+        if depth_study and name in DEPTH_STUDY:
+            res_out[f"{name}_depth"] = depth_finding(
+                name, entries, first_m[0], first_u[0], clock)
+        del p_u, p_m, calls_u, calls_m
+        torch.cuda.empty_cache() if cuda else None
+    return res_out
+
+
+#: ``--depth-study``'s modes: (the CG depths, the one §6b holds the mode
+#: at first, then deeper to the invert CLI's 40; the reading that parts
+#: a result from the meshless one; the candidate a result picks)
+DEPTH_STUDY = {
+    "estimate_profile": ((3, 5, 10, 20, 40),
+                         lambda a, b: rel_each(profile_theta(a),
+                                               profile_theta(b)), None),
+    "auto_prior_gcv": ((8, 40), lambda a, b: rel_max(a[2], b[2]),
+                       lambda r: int(np.argmin(r[2]))),
+}
+#: ``depth_finding``'s draws of moved data
+DEPTH_DRAWS = 5
+
+
+def depth_finding(name, entries, call_m, call_u, clock):
+    """``--depth-study`` (printed, not held): why §6b holds ``name`` at a
+    reduced CG depth. At each of its ``DEPTH_STUDY`` depths the meshed
+    run's first call of the mode's entry and the meshless run's are
+    replayed, and the meshless one again on data moved by 1e-7 relative
+    (a few f32 ulps; ``DEPTH_DRAWS`` draws, seeds 23, 24, ...), each
+    result read against the meshless one by the mode's reading. Where
+    the moved data part the results as far as the mesh does, the
+    truncated f32 CG's roundoff decides them at that depth, and neither
+    reading is a fault."""
+    depths, reading, pick = DEPTH_STUDY[name]
+    fn = {n: getattr(mod, n) for mod, n in entries}[call_u[0]]
+    grid, d0, *rest = call_u[2]
+    moved = []
+    for seed in range(23, 23 + DEPTH_DRAWS):
+        g = torch.Generator(device=d0.device).manual_seed(seed)
+        moved.append(d0 * (1.0 + 1e-7 * torch.randn(
+            d0.shape, generator=g, device=d0.device)))
+    rows = []
+    for cg in depths:
+        r_m, s_m = clock(lambda: replay(entries, call_m, cg_iters=cg))
+        r_u, s_u = clock(lambda: replay(entries, call_u, cg_iters=cg))
+        r_p = [fn(grid, call_u[1], d, *rest,
+                  **{**call_u[3], "cg_iters": cg}) for d in moved]
+        row = dict(cg=cg, mesh=reading(r_m, r_u),
+                   moved=[reading(r, r_u) for r in r_p],
+                   seconds_mesh=s_m, seconds_none=s_u)
+        if pick is not None:
+            row["picks"] = [pick(r) for r in [r_u, r_m] + r_p]
+        rows.append(row)
+        print(f"  {name} at cg {cg} (a finding, not held): the mesh "
+              f"{row['mesh']:.3e} from the meshless result, data moved by "
+              f"1e-7 relative (each draw) "
+              + ", ".join(f"{x:.3e}" for x in row["moved"])
+              + (f"; candidates picked (meshless, mesh, moved) "
+                 f"{row['picks']}" if pick else "")
+              + f"; {s_m:.2f} s on the mesh, {s_u:.2f} s without (host "
+              f"clock)")
+    return rows
+
+
 def phase18_sharded(dev, kernels, results, small=False, profile=False,
-                    parent=None):
+                    parent=None, depth_study=False):
     """The multi-device layer (``parallel/``) at full width with its S
     shards in turn on one card (an arithmetic check, not a multi-card
     speed; ``small``: a CPU rehearsal at toy sizes, the kernels' checks
     left out; ``parent``: K7, K7ᵀ and the LSQR held bitwise to the
     parent's package and timed in turns with it; ``profile``: the LSQR's
-    device time by kernel, the parent's beside it):
+    device time by kernel, the parent's beside it; ``depth_study``: §6b's
+    ``depth_finding`` after the profile estimate and GCV):
 
     1. K7 and K7ᵀ at config 4's 256³ world over 8 shards (its 650,000
        bundle points, its 20,000 endpoints), at 917,504 edge-case points
@@ -8618,7 +9044,12 @@ def phase18_sharded(dev, kernels, results, small=False, profile=False,
     5. ``member_parallel_enkf`` on config 5's ensemble (8 members, 6
        epochs) over 2 and 8 groups against the unsharded filter;
     6. ``InversionPipeline`` with ``mesh=`` in the kalman and the
-       member-parallel enkf modes against the pipeline without one."""
+       member-parallel enkf modes against the pipeline without one; then
+       (``pipeline_mesh_modes``) on §4's 4-shard mesh at full width the
+       profile estimate, GCV and evidence prior selection, posterior
+       draws, the Kalman filter's noise-adaptation and spectrum events
+       and the batched mode, each against the meshless pipeline on the
+       same padded rays, its kernels counted at a shard's points."""
     from ionotomo_tpu_torch import configs
     from ionotomo_tpu_torch.core import linalg, tricubic
     from ionotomo_tpu_torch.core.grids import Grid3D
@@ -8873,9 +9304,10 @@ def phase18_sharded(dev, kernels, results, small=False, profile=False,
             n_antennas=6, n_directions=4, n_times=3, grid_shape=(16, 16, 16),
             device=dev)
         dp.wind_kmps = truth["wind_kmps"]
-        truth = None
+        anchor_truth, truth = truth, None
     else:
         dp, truth = invert_world(dev)
+        anchor_truth = truth
     sub = dp.select(times=[0])
     sub.wind_kmps = dp.wind_kmps
     mesh4 = sm.ray_mesh([dev] * RAY_SHARDS)
@@ -9105,16 +9537,25 @@ def phase18_sharded(dev, kernels, results, small=False, profile=False,
         print(f"  pipeline {mode}: with the mesh {secs[0]:.2f} s, without "
               f"{secs[1]:.2f} s (host clock)")
     print(f"  [pipelines: {time.perf_counter() - t1:.1f} s]")
+
+    # 6b. the pipeline's other ray-mesh call sites, on §4's mesh
+    t1 = time.perf_counter()
+    out["pipeline_modes"] = pipeline_mesh_modes(
+        dev, kernels, dp, anchor_truth, mesh4, small, clock, out,
+        depth_study)
+    print(f"  [pipeline modes on the ray mesh: "
+          f"{time.perf_counter() - t1:.1f} s]")
     results["sharded"] = out
     return out
 
 
-def sharded_only(parent_dir=None, profile=False, study=False) -> int:
+def sharded_only(parent_dir=None, profile=False, study=False,
+                 depth_study=False) -> int:
     """``--sharded``: the build and phase 18 alone (the multi-device layer
     with its shards on the one card); with ``--parent DIR`` K7, K7ᵀ and the
     LSQR held to the parent's and timed in turns, with ``--profile`` the
     LSQR's device time by kernel, with ``--k7-study`` first the sweep of
-    ``k7_study``."""
+    ``k7_study``, with ``--depth-study`` §6b's ``depth_finding``."""
     from ionotomo_tpu_torch import kernels
     from ionotomo_tpu_torch.kernels import build
 
@@ -9135,7 +9576,8 @@ def sharded_only(parent_dir=None, profile=False, study=False) -> int:
     if study:
         results["k7_study"] = k7_study(dev, K7_RULES_BEFORE)
         lap("k7_study")
-    phase18_sharded(dev, kernels, results, profile=profile, parent=parent)
+    phase18_sharded(dev, kernels, results, profile=profile, parent=parent,
+                    depth_study=depth_study)
     lap("phase18_sharded")
     main, at = sharded_kernel_entries(results)
     print(json.dumps({"kernels": main, "kernels_at_sharded": at}))
@@ -9725,7 +10167,8 @@ def main() -> int:
     if "--predict" in args:
         return predict_only(profile)
     if "--sharded" in args:
-        return sharded_only(parent_dir, profile, "--k7-study" in args)
+        return sharded_only(parent_dir, profile, "--k7-study" in args,
+                            "--depth-study" in args)
 
     from ionotomo_tpu_torch import configs, kernels
     from ionotomo_tpu_torch.core import (boxspline, triquadratic, tricubic,

@@ -1,5 +1,7 @@
-"""Matrix-free Krylov solvers and the randomized top eigenpairs (port of
-``cg``, ``lsqr`` and ``subspace_eigs`` from ``ionotomo_tpu.core.linalg``).
+"""Matrix-free Krylov solvers, the randomized top eigenpairs and the
+spectral preconditioner built from them (port of ``cg``, ``lsqr``,
+``subspace_eigs`` and ``spectral_preconditioner`` from
+``ionotomo_tpu.core.linalg``).
 
 The reference's rules hold: a fixed trip count with masked convergence.
 Once a system converges its updates are frozen by ``torch.where``, so the
@@ -8,8 +10,6 @@ loop never asks the host whether to stop: no ``.item()``, ``bool(t)`` or
 solvers take flat tensors (the reference's pytree operands are not
 needed by the port's callers).
 
-Not ported: the reference's ``spectral_preconditioner`` (skipped by
-design: the reference measured deflation of truncated CG as harmful).
 """
 from __future__ import annotations
 
@@ -199,3 +199,29 @@ def subspace_eigs(matvec: Callable, n: int, k: int, z: torch.Tensor,
     lam = lam_all.flip(0)[:k]
     u = (q @ s).flip(1)[:, :k]
     return u, lam
+
+
+def spectral_preconditioner(u: torch.Tensor, lam: torch.Tensor,
+                            floor: float = 1.0) -> Callable:
+    """SPD preconditioner M⁻¹ = I + U (1/λ − 1) Uᵀ from approximate top
+    eigenpairs of an identity-plus-PSD operator (``subspace_eigs``), for
+    ``cg(preconditioner=...)``.
+
+    On span(U) the preconditioned spectrum collapses to ~1; off it, M⁻¹
+    acts as the identity, so PCG convergence is governed by λ_{k+1}
+    instead of λ_1. An application is two (k × n) GEMVs in full f32
+    (``check_full_f32``: a reduced-precision product would not apply M⁻¹
+    consistently SPD). ``floor`` guards the inverse against tiny or
+    negative Ritz values (the operators here are I + PSD, so true
+    eigenvalues are ≥ 1). Deflating a truncation-regularised solve was
+    measured harmful in the reference: use it for solves run to
+    convergence."""
+    check_full_f32()
+    scale = 1.0 / torch.clamp_min(lam, floor) - 1.0      # (k,)
+
+    def apply(v):
+        flat = v.reshape(-1)
+        coeff = u.T @ flat                               # (k,)
+        return (flat + u @ (scale * coeff)).reshape(v.shape)
+
+    return apply

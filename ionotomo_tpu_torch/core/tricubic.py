@@ -46,13 +46,16 @@ segments ``fold_member_rows_ref`` over the z spans its reduce writes,
 ``segment_spans_ref``). A caller that also evaluates the zp
 endpoint terms on the same table (``forward.tec.PairedDtecLinear``)
 packs it once (``member_pack``, a ``MemberPack``) and hands the pack to
-K2b and to the batched K1e. Batched indices loop the
-unbatched call, as the reference falls back to its vmapped plain
-implementation there; batched weights over an unbatched table (the
-reference: "rare; not a production path") raise NotImplementedError.
+K2b and to the batched K1e. A member axis on the indices or weights (all
+four, or only some) loops the unbatched call over the members, as the
+reference falls back to its vmapped plain implementation there.
 
-Not ported yet: gradients with respect to the weights. The reference's
-sharded-gather plumbing (``_sharded_take``: the output sharding of a
+Derivatives: reverse mode in the table is K3 (K3b); forward mode in the
+table (``torch.func.jvp``) is K2 (K2b) of the tangent table, as the
+reference binds the primitive again. Derivatives in the weights, which
+the reference takes by derived AD through its plain implementation, go
+through ``rows_value_ref`` and autograd. The reference's sharded-gather
+plumbing (``_sharded_take``: the output sharding of a
 gather over sharded indices, which JAX's sharding-in-types asks for) has
 no counterpart to need: a ray-sharded operator gathers shard by shard
 over each shard's own points (``parallel.sharding``).
@@ -62,6 +65,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.autograd import forward_ad
 
 from .. import kernels
 from .grids import Grid3D
@@ -552,17 +556,14 @@ def rows_value_transpose(ct, ri, wxy, zi, wz, table_shape,
 
 class _RowsValue(torch.autograd.Function):
     """``rows_value_p`` with its hand-written transpose as the backward
-    (with respect to the table only, like the reference's)."""
+    (with respect to the table only, like the reference's), and its
+    forward-mode rule: the tangent of a table tangent is ``rows_value`` of
+    it, K2 (or K2b) again on the card, as the reference binds the
+    primitive again. ``rows_value`` sends weight derivatives to the plain
+    twin before this."""
 
     @staticmethod
-    def forward(ctx, table, ri, wxy, zi, wz, xy_first, plan, order, packed):
-        if ctx.needs_input_grad[2] or ctx.needs_input_grad[4]:
-            raise NotImplementedError(
-                "rows_value: gradients with respect to the weights are not "
-                "ported (the reference falls back to its derived AD there)")
-        ctx.save_for_backward(ri, wxy, zi, wz)
-        ctx.table_shape = tuple(table.shape[-2:])
-        ctx.plan = plan
+    def forward(table, ri, wxy, zi, wz, xy_first, plan, order, packed):
         if not table.is_cuda:
             return rows_value_ref(table, ri, wxy, zi, wz, xy_first)
         if table.dim() == 3:
@@ -574,11 +575,35 @@ class _RowsValue(torch.autograd.Function):
                                       order.wz, xy_first, order.order)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        table, ri, wxy, zi, wz, xy_first, plan, order, _ = inputs
+        ctx.save_for_backward(ri, wxy, zi, wz)
+        ctx.save_for_forward(ri, wxy, zi, wz)
+        ctx.table_shape = tuple(table.shape[-2:])
+        ctx.plan, ctx.order, ctx.xy_first = plan, order, xy_first
+
+    @staticmethod
     def backward(ctx, ct):
         ri, wxy, zi, wz = ctx.saved_tensors
         table_ct = rows_value_transpose(ct, ri, wxy, zi, wz, ctx.table_shape,
                                         ctx.plan)
         return table_ct, None, None, None, None, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, d_table, *_):
+        # through apply, not forward: under torch.func.jvp the tangent and
+        # the saved tensors are wrappers without storage, which apply
+        # unwraps before the kernel reads them
+        ri, wxy, zi, wz = ctx.saved_tensors
+        return _RowsValue.apply(d_table.contiguous(), ri, wxy, zi, wz,
+                                ctx.xy_first, None, ctx.order, None)
+
+
+def _has_derivative(x: torch.Tensor) -> bool:
+    """x needs a gradient (reverse mode) or carries a tangent (forward
+    mode: ``torch.func.jvp``, ``torch.autograd.forward_ad``)."""
+    return ((x.requires_grad and torch.is_grad_enabled())
+            or forward_ad.unpack_dual(x).tangent is not None)
 
 
 def rows_value(table, ri, wxy, zi, wz, xy_first: bool,
@@ -594,25 +619,33 @@ def rows_value(table, ri, wxy, zi, wz, xy_first: bool,
     no output bit; None: ray order; a batched table runs K2b and leaves
     the order aside, over ``pack``, the table's ``member_pack``, where
     the caller made one);
-    ``rows_value_ref`` and ``rows_value_transpose_ref`` on the CPU.
+    ``rows_value_ref`` and ``rows_value_transpose_ref`` on the CPU. A
+    tangent of the table alone (``torch.func.jvp``) is K2 of the tangent.
+
+    Weights that need a gradient or carry a tangent: ``rows_value_ref``,
+    on the card as well (value and derivative; no K2 launch), by design,
+    differentiated by autograd in every argument, as the reference's jvp
+    rule falls back to derived AD through its plain implementation. No
+    main path reaches this case.
 
     A member axis: table (B, R, nz) over shared indices and weights →
-    (B, N), kernels K2b and K3b. Indices and weights with a leading axis
-    too (each (B, N, ·)) loop the unbatched call over it, with table[b] or
-    the one shared table. Batched weights over shared indices raise."""
-    if ri.dim() == 3 and zi.dim() == 3:
+    (B, N), kernels K2b and K3b. A leading member axis on any of ri, wxy,
+    zi, wz (each (B, N, ·) where it has one) loops the unbatched call over
+    the members, with table[b] or the one shared table, as the reference
+    vmaps its plain implementation there."""
+    lead = [x.shape[0] for x in (ri, wxy, zi, wz) if x.dim() == 3]
+    if lead:
+        def member(x, b):
+            return x[b] if x.dim() == 3 else x
         return torch.stack([
-            rows_value(table[b] if table.dim() == 3 else table, ri[b],
-                       wxy[b], zi[b], wz[b], xy_first)
-            for b in range(ri.shape[0])])
-    if not (ri.dim() == zi.dim() == wxy.dim() == wz.dim() == 2):
-        raise NotImplementedError(
-            "rows_value: a member axis on the weights alone, or on only some "
-            "of ri, wxy, zi, wz, is not ported (ROADMAP.md Queue 2, the "
-            "batching rule's rare cases); batch the table, or all four")
+            rows_value(member(table, b), member(ri, b), member(wxy, b),
+                       member(zi, b), member(wz, b), xy_first)
+            for b in range(lead[0])])
     if order is not None and not order.of(ri, wxy, zi, wz):
         raise ValueError("rows_value: order is the PointOrder of other "
                          "tensors than ri, wxy, zi, wz")
+    if _has_derivative(wxy) or _has_derivative(wz):
+        return rows_value_ref(table, ri, wxy, zi, wz, xy_first)
     return _RowsValue.apply(table, ri, wxy, zi, wz, xy_first, plan, order,
                             check_pack(pack, table, "rows_value"))
 

@@ -39,6 +39,11 @@ class RayBundle:
     def num_samples(self) -> int:
         return self.points.shape[1]
 
+    def step(self, t: int) -> "RayBundle":
+        """Step t of a stacked bundle (points (Nt, R, N, 3), ds (Nt, R)),
+        as ``parallel.sharding.ShardedRayBundle.step`` of a sharded one."""
+        return RayBundle(points=self.points[t], ds=self.ds[t])
+
 
 def _pair(a, b):
     """Two float32 tensors on one device: the first tensor's, else the

@@ -51,8 +51,10 @@ mean and spread (and the residual mean) are pmeans of the groups'
 moments in group order, and each group takes its rows of the globally
 drawn noise, so the sharded filter consumes the same numbers.
 
-Not ported: ``spectrum_blend`` (withdrawn in the reference: measured
-neutral; the argument raises).
+``spectrum_blend`` (the ensemble filter; experimental, off by default,
+measured neutral in the reference) refits each step's update covariance
+from the prediction ensemble: the shell-averaged spectrum of its
+anomalies (``priors.fit_shell_spectrum``) blended with the prior's.
 """
 from __future__ import annotations
 
@@ -71,7 +73,11 @@ from ..parallel.sharding import (MEMBER_AXIS, Sharded, on_device, pmean,
                                  split)
 from .anchors import (anchor_map_step, anchor_sqrt_update, inv_variance,
                       whitened_gain)
-from .priors import GPCovariance
+from .priors import GPCovariance, fit_shell_spectrum
+
+#: shells of ``spectrum_blend``'s fit of the prediction anomalies
+#: (``priors.fit_shell_spectrum``'s ``n_bins``; the reference's default)
+SPECTRUM_BINS = 48
 
 
 def initial_ensemble(grid: Grid3D, cov: GPCovariance, m0: torch.Tensor,
@@ -105,11 +111,10 @@ class _Geometries:
         ``ShardedRayBundle`` sequence), on ``device`` where a member group
         of the member-parallel filter lives on another than the rays'."""
         grid, nd, i0, quadrature = self.args
+        rays_t = rays_seq.step(t)
         if isinstance(rays_seq, RayBundle):
-            rays_t = RayBundle(points=rays_seq.points[t], ds=rays_seq.ds[t])
             bundles, first = (rays_t,), rays_seq
         else:
-            rays_t = rays_seq.step(t)
             bundles, first = rays_t.shards, rays_seq.shards[0]
         key = (tuple((b.points.data_ptr(), tuple(b.points.shape),
                       b.ds.data_ptr()) for b in bundles),
@@ -225,7 +230,7 @@ def update_operator_eigs(grid: Grid3D, rays: RayBundle, noise_std, m_lin,
     """
     dev = grid.device
     nd = int(num_directions)
-    na = rays.points.shape[0] // nd
+    na = rays.num_rays // nd
     cd = torch.broadcast_to(torch.as_tensor(noise_std, dtype=torch.float32,
                                             device=dev),
                             (na, nd)).reshape(-1) ** 2
@@ -520,6 +525,16 @@ def ensemble_kalman_filter(grid: Grid3D, rays_seq: RayBundle, d_obs_seq,
     to counter); ``process_sigma`` adds C^{1/2}-correlated process noise
     per step.
 
+    Adaptive spectral gain (``spectrum_blend`` ∈ [0, 1], experimental,
+    default 0 = off; measured neutral in every regime the reference tried:
+    dTEC's information is anisotropic and non-stationary in k-space, which
+    a shell-isotropic fit projects away): each step's update covariance is
+    ``(1 − blend)·cov.spectrum + blend·fit_shell_spectrum(anomalies,
+    n_bins=SPECTRUM_BINS)``, the anomalies those of the inflated
+    prediction ensemble about its mean, fitted after inflation and before
+    the anchor and data updates. It depends only on the carried ensemble,
+    so chunked runs stay bit-identical.
+
     The draws, unit normals indexed by the **global** step
     ``step_offset + t`` (pass the same arrays to every chunk):
     ``obs_noise`` (Nt_total, B, Na·Nd), scaled here by sqrt(C_d);
@@ -553,11 +568,6 @@ def ensemble_kalman_filter(grid: Grid3D, rays_seq: RayBundle, d_obs_seq,
     member mesh: the members are carried in groups, one a device (the
     result's ``ensemble`` is then a ``parallel.sharding.Sharded``).
     """
-    if spectrum_blend:
-        raise NotImplementedError(
-            "spectrum_blend is withdrawn in the reference (measured neutral) "
-            "and not ported (ROADMAP.md Queue 1, deliberately not ported: "
-            "the reference's ensemble_kalman_filter(spectrum_blend=...))")
     if anchor_update not in ("sqrt", "stochastic"):
         raise ValueError(f"unknown anchor_update: {anchor_update!r}")
     dev = grid.device
@@ -626,6 +636,17 @@ def ensemble_kalman_filter(grid: Grid3D, rays_seq: RayBundle, d_obs_seq,
         preds = [on_device(ens_mean, p.device)[None]
                  + infl_t * (p - on_device(ens_mean, p.device)[None])
                  for p in preds]
+        cov_t = None
+        if spectrum_blend > 0.0:
+            # adaptive spectral gain: this step's update covariance is the
+            # stationary isotropic fit of the inflated prediction
+            # anomalies, blended with the static prior spectrum (one
+            # group: member_parallel_enkf refuses the blend)
+            s_fit = fit_shell_spectrum(preds[0] - ens_mean[None], grid,
+                                       n_bins=SPECTRUM_BINS)
+            cov_t = dataclasses.replace(
+                cov, spectrum=(1.0 - spectrum_blend) * cov.spectrum
+                + spectrum_blend * s_fit)
         if anchors is not None:
             a_t = s.a_vals_seq[t]
             m_bar = groups.mean(preds) if groups.devices else None
@@ -673,7 +694,8 @@ def ensemble_kalman_filter(grid: Grid3D, rays_seq: RayBundle, d_obs_seq,
                     rays_seq if rays_inner_seq is None else rays_inner_seq,
                     s.inner_model, d))
             r = d_d[None] + eps - op.g0
-            new.append(p + whitened_gain(rep.cov(d), op_c, r,
+            new.append(p + whitened_gain(rep.cov(d) if cov_t is None
+                                         else cov_t, op_c, r,
                                          on_device(inv_cd, d), cg_iters,
                                          cg_tol))
             pres.append(torch.linalg.norm((d_d[None] - op.g0) / sqrt_d,
@@ -813,7 +835,8 @@ def member_parallel_enkf(mesh, grid: Grid3D, rays_seq: RayBundle, d_obs_seq,
     ``initial_ensemble``; a tensor, or a ``parallel.sharding.Sharded``
     from ``member_sharding``); ``n_members`` must divide by the mesh size
     (members are not padded: a phantom member would bias the mean);
-    ``spectrum_blend`` is unsupported. Every other keyword is
+    ``spectrum_blend`` is refused, as in the reference (the shell fit is
+    not member-axis aware). Every other keyword is
     ``ensemble_kalman_filter``'s. The result's ``ensemble`` is a
     ``Sharded`` of the groups."""
     if MEMBER_AXIS not in mesh.axis_names:

@@ -18,16 +18,18 @@ reference attaches one over its devices, and takes an explicit ``mesh=``
 (S shards on one device, as the tests and ``chip_smoke.py`` run them).
 With a mesh, the antennas are padded to a multiple of its size (whole
 antennas: the last repeated, observations 0, noise 1e6, logged once as a
-``ray_sharding_padded`` event), and the snapshot solves and the filters'
-chunks run on ray-sharded bundles (``parallel.sharding.ShardedRayBundle``,
-the operators ``ShardedPairedDtecLinear``); ``solver.enkf_shard=
-"members"`` runs the ensemble filter member-parallel instead
-(``kalman.member_parallel_enkf``, the bundles whole). The prior selection,
-the profile estimate, the posterior draws, the batched mode and the
-chunk-boundary diagnostics take the padded bundle whole on the first
-device. Without a mesh nothing is padded or sharded. A snapshot solve
-builds the geometry of its bundle once and drops it after the solve; the
-filters build one per step of a chunk (``kalman._Geometries``).
+``ray_sharding_padded`` event), and every bundle a solver takes is
+ray-sharded (``parallel.sharding.ShardedRayBundle``, the operators
+``ShardedPairedDtecLinear``), at the reference's seven call sites: the
+snapshot solves, the profile estimate, both prior selections, the
+posterior draws, the filters' chunks and their noise-adaptation and
+spectrum events, and the batched mode's stacked sequence (sharded along
+its ray axis 1, as the filters' chunks). ``solver.enkf_shard="members"``
+runs the ensemble filter member-parallel instead
+(``kalman.member_parallel_enkf``, its bundles whole). Without a mesh
+nothing is padded or sharded. A snapshot solve builds the geometry of its
+bundle once and drops it after the solve; the filters build one per step
+of a chunk (``kalman._Geometries``).
 
 Randomness (beam-noise jitter, posterior draws, the ensemble's draws, the
 spectrum diagnostic's start block, the GCV probes) is drawn by
@@ -240,7 +242,7 @@ class InversionPipeline:
                     grid, ProfileParams(t[0], t[1], t[2]), curved=curved)
         nd = self.directions.shape[1]
         ants, d0, noise0, _ = self._padded_data(0)
-        rb = self.rays_for_time(0, antennas=ants)
+        rb = self._shard(self.rays_for_time(0, antennas=ants))
         res = map_gauss_newton_profile(
             grid, rb, d0, noise0, theta0, sigma, self.cov,
             num_directions=nd, anchors=anchors, i0=self.i0,
@@ -270,14 +272,15 @@ class InversionPipeline:
         self.metrics.write(ev)
 
     def _straight_bundle_0(self):
-        """Timestep 0's data and its straight rays (prior selection)."""
+        """Timestep 0's data and its straight rays, sharded over the mesh
+        (the prior selections)."""
         ants, d0, noise0, _ = self._padded_data(0)
         origins, dvecs = rays_mod.make_ray_batch(
             ants, as_tensor(self.directions[0], device=self.device))
         rb = rays_mod.sample_straight_rays(
             origins, dvecs, max_length_km=self.config.physics.max_length_km,
             n_samples=self.config.rays.n_samples)
-        return rb, d0, noise0
+        return self._shard(rb), d0, noise0
 
     def _auto_select_prior(self):
         """Data-driven prior hyperparameters at set-up, scored on timestep-0
@@ -586,8 +589,8 @@ class InversionPipeline:
         sc, rc = self.config.solver, self.config.rays
         nd = self.directions.shape[1]
         ants, d_t, noise, _ = self._padded_data(t)
-        rb = self.rays_for_time(t, m_field=(m_field if rc.bent else None),
-                                antennas=ants)
+        rb = self._shard(self.rays_for_time(
+            t, m_field=(m_field if rc.bent else None), antennas=ants))
         n_data = d_t.numel() + (0 if self.anchors is None
                                 else self.anchors.values.numel())
         eps = self.draw_normals(DRAW_POSTERIOR_DATA, t, (n_samples, n_data))
@@ -610,7 +613,7 @@ class InversionPipeline:
 
         nd = self.directions.shape[1]
         ants, d_t, noise, _ = self._padded_data(t)
-        rb = self.rays_for_time(t, antennas=ants)
+        rb = self._shard(self.rays_for_time(t, antennas=ants))
         cov1 = GPCovariance.create(self.grid, sigma=1.0,
                                    length_scale=self.cov.length_scale,
                                    kind=self.cov.kind)
@@ -636,7 +639,7 @@ class InversionPipeline:
         sc = self.config.solver
         nd = self.directions.shape[1]
         ants, _, noise, _ = self._padded_data(t)
-        rb = self.rays_for_time(t, antennas=ants)
+        rb = self._shard(self.rays_for_time(t, antennas=ants))
         rank = min(sc.diag_spectrum_rank, self.grid.num_voxels)
         z = self.draw_normals(DRAW_SPECTRUM, t,
                               (self.grid.num_voxels, rank + 8))
@@ -960,6 +963,8 @@ class InversionPipeline:
         rays_seq = rays_mod.RayBundle(
             points=torch.stack([b.points for b in bundles]),
             ds=torch.stack([b.ds for b in bundles]))
+        if self.mesh is not None:
+            rays_seq = shard_mod.shard_rays(self.mesh, rays_seq, ray_axis=1)
         d_seq = torch.stack([p[1] for p in per_t])
         noise_seq = torch.stack([p[2] for p in per_t])
         self._sync()

@@ -432,7 +432,9 @@ def map_gauss_newton_batched(grid: Grid3D, rays_seq: RayBundle, d_obs_seq,
 
     rays_seq: RayBundle with a leading time axis (points (Nt, R, N, 3),
     ds (Nt, R)); d_obs_seq (Nt, Na, Nd); noise_std broadcastable to
-    d_obs_seq. ``rays_inner_seq``: mixed-fidelity solves (same leading
+    d_obs_seq; or a ray-sharded sequence (``parallel.sharding.
+    ShardedRayBundle`` with the ray axis at 1), each epoch then solved on
+    its shards. ``rays_inner_seq``: mixed-fidelity solves (same leading
     axis). Returns the InversionResult with each field stacked along time.
     """
     d_seq = torch.as_tensor(d_obs_seq, dtype=torch.float32,
@@ -441,12 +443,9 @@ def map_gauss_newton_batched(grid: Grid3D, rays_seq: RayBundle, d_obs_seq,
         noise_std, dtype=torch.float32, device=d_seq.device), d_seq.shape)
     out = []
     for t in range(d_seq.shape[0]):
-        inner = (None if rays_inner_seq is None else
-                 RayBundle(points=rays_inner_seq.points[t],
-                           ds=rays_inner_seq.ds[t]))
+        inner = None if rays_inner_seq is None else rays_inner_seq.step(t)
         out.append(map_gauss_newton(
-            grid, RayBundle(points=rays_seq.points[t], ds=rays_seq.ds[t]),
-            d_seq[t], noise_seq[t], m_prior, cov,
+            grid, rays_seq.step(t), d_seq[t], noise_seq[t], m_prior, cov,
             num_directions=num_directions, i0=i0, gn_iters=gn_iters,
             cg_iters=cg_iters, cg_tol=cg_tol, quadrature=quadrature,
             interp=interp, rays_inner=inner, warm_start=warm_start,

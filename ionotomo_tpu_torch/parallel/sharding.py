@@ -302,9 +302,7 @@ class ShardedRayBundle:
     def step(self, t: int) -> "ShardedRayBundle":
         if self.ray_axis != 1:
             raise ValueError("step() needs a stacked (Nt, R, N, 3) bundle")
-        return ShardedRayBundle(tuple(RayBundle(points=b.points[t],
-                                                ds=b.ds[t])
-                                      for b in self.shards), 0)
+        return ShardedRayBundle(tuple(b.step(t) for b in self.shards), 0)
 
     def map(self, fn) -> "ShardedRayBundle":
         """``fn`` applied to each shard's bundle."""

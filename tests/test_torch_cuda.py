@@ -1716,6 +1716,110 @@ def test_rows_value_batched_autograd_and_stream_refusal(dev):
     torch.cuda.synchronize()
 
 
+def _rows_ad_case(dev, k, l, n=3000, rows_n=300, nz=20, b=None, seed=44):
+    """rows_value's arguments (table, ri, wxy, zi, wz) and a tangent of
+    each float one on the card, every index in range; with ``b``, each
+    argument also with a leading member axis of b (``(plain, batched)``
+    pairs)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(dev)
+
+    def draw(lead=()):
+        return (rng.normal(size=lead + (rows_n, nz)).astype(np.float32),
+                rng.integers(0, rows_n, lead + (n, k)).astype(np.int32),
+                rng.normal(size=lead + (n, k)).astype(np.float32),
+                (rng.integers(0, nz - l + 1, lead + (n, 1))
+                 + np.arange(l)).astype(np.int32),
+                rng.normal(size=lead + (n, l)).astype(np.float32))
+    one = tuple(map(t, draw()))
+    tans = tuple(map(t, (draw()[i] for i in (0, 2, 4))))
+    return one, tans, (None if b is None else tuple(map(t, draw((b,)))))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_rows_value_table_jvp_launches_k2(dev, batched):
+    """``torch.func.jvp`` with a tangent of the table alone: the primal and
+    the tangent each one K2 launch (K2b for a (B, R, nz) table), the
+    tangent bitwise ``rows_value`` of the tangent table on the card and
+    within 1e-5·max of the CPU plain twin's."""
+    (table, ri, wxy, zi, wz), (dt, _, _), _ = _rows_ad_case(dev, 8, 3)
+    if batched:
+        table = torch.stack([table, 2.0 * table, -table])
+        dt = torch.stack([dt, -dt, 0.5 * dt])
+    name = "rows_value_fwd_batched" if batched else "rows_value_fwd"
+    before = kernels.launches[name]
+    out, tan = torch.func.jvp(
+        lambda tb: tricubic.rows_value(tb, ri, wxy, zi, wz, True),
+        (table,), (dt,))
+    assert kernels.launches[name] == before + 2
+    assert torch.equal(tan, tricubic.rows_value(dt, ri, wxy, zi, wz, True))
+    cpu = [x.cpu() for x in (dt, ri, wxy, zi, wz)]
+    want = tricubic.rows_value_ref(*cpu, True)
+    assert float((tan.cpu() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("k,l,xy_first", [(8, 3, True), (16, 4, False)],
+                         ids=["zp", "cubic"])
+def test_rows_value_weight_derivatives_match_the_plain_twin(dev, k, l,
+                                                            xy_first):
+    """Weights that need a gradient or carry a tangent: the plain twin and
+    autograd on the card against the same on the CPU (reverse mode in
+    table, wxy, wz; ``torch.func.jvp`` with weight and mixed tangents),
+    within 1e-5·max; no K2 or K3 launch (the reference's derived-AD
+    fallback has no kernel)."""
+    args, (dt, dwxy, dwz), _ = _rows_ad_case(dev, k, l)
+    rng = np.random.default_rng(45)
+    ct = torch.from_numpy(rng.normal(size=args[1].shape[0])
+                          .astype(np.float32)).to(dev)
+
+    def grads(on):
+        a = [x.to(on) for x in args]
+        leaves = [a[i].clone().requires_grad_(True) for i in (0, 2, 4)]
+        out = tricubic.rows_value(leaves[0], a[1], leaves[1], a[3],
+                                  leaves[2], xy_first)
+        return torch.autograd.grad(out, leaves, ct.to(on))
+
+    def jvps(on):
+        a = [x.to(on) for x in args]
+        fn = (lambda tb, p, q: tricubic.rows_value(tb, a[1], p, a[3], q,
+                                                   xy_first))
+        mixed = torch.func.jvp(fn, (a[0], a[2], a[4]),
+                               tuple(x.to(on) for x in (dt, dwxy, dwz)))
+        weights = torch.func.jvp(lambda p: fn(a[0], p, a[4]), (a[2],),
+                                 (dwxy.to(on),))
+        return (*mixed, *weights)
+
+    before = {n: kernels.launches[n] for n in ("rows_value_fwd",
+                                               "rows_value_bwd")}
+    on_card = grads(dev) + jvps(dev)
+    assert all(kernels.launches[n] == before[n] for n in before)
+    for got, want in zip(on_card, grads("cpu") + jvps("cpu")):
+        assert got.is_cuda
+        assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+
+
+@pytest.mark.parametrize("in_axes", [
+    (None, None, 0, None, 0), (0, None, 0, None, None), (None, 0, None, 0, None),
+    (0, 0, 0, 0, 0)], ids=lambda a: "".join("b" if x == 0 else "." for x in a))
+def test_rows_value_partial_batching_matches_the_plain_twin(dev, in_axes):
+    """A member axis of B = 3 on some of (table, ri, wxy, zi, wz): one K2
+    launch a member on the card, within 1e-5·max of the CPU plain twin
+    member by member."""
+    one, _, many = _rows_ad_case(dev, 16, 4, b=3)
+    args = tuple(m if ax == 0 else o for o, m, ax in zip(one, many, in_axes))
+    before = kernels.launches["rows_value_fwd"]
+    got = tricubic.rows_value(*args, False)
+    assert kernels.launches["rows_value_fwd"] == before + 3
+    for b in range(3):
+        want = tricubic.rows_value_ref(
+            *((a[b] if ax == 0 else a).cpu() for a, ax in zip(args, in_axes)),
+            False)
+        assert float((got[b].cpu() - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+
+
 def _filter_world(dev, nt=2, n=16, na=5, nd=4, seed=43):
     """A small time-evolving world on the card, every input a CUDA tensor
     (so a filter call copies nothing from the host)."""

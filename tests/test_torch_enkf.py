@@ -52,7 +52,9 @@ def jax_draws(key, shape, n_rows, n_anchors=9, nt=NT, b=B):
     return init, np.stack(process), np.stack(obs), np.stack(anchor)
 
 
-def run_both(key_seed, jkw=None, tkw=None, **kw):
+def run_both(key_seed, jkw=None, tkw=None, jax_too=True, **kw):
+    """The reference's filter and the port's on the same draws (the
+    reference's result None unless ``jax_too``)."""
     w, p = world()
     key = jax.random.key(key_seed)
     n_rows = int(np.prod(w["d_seq"].shape[1:]))
@@ -60,7 +62,7 @@ def run_both(key_seed, jkw=None, tkw=None, **kw):
     jwind, twind = kw.pop("jwind", w["wind"]), kw.pop("twind", p["wind"])
     jres = jenkf(w["grid"], w["rays_seq"], w["d_seq"], w["noise"], w["m_bg"],
                  w["cov"], jwind, w["dt_s"], w["n_dirs"], key, n_members=B,
-                 **kw, **(jkw or {}))
+                 **kw, **(jkw or {})) if jax_too else None
     tkw = dict(tkw or {})
     if kw.get("process_sigma"):
         tkw["process_noise"] = torch.from_numpy(process)
@@ -184,14 +186,69 @@ def test_enkf_chunked_run_equals_one_call_bitwise():
     assert torch.equal(one.ensemble, again.ensemble)
 
 
+@pytest.mark.parametrize("blend", [0.5, 1.0])
+def test_enkf_spectrum_blend_matches_jax(blend):
+    """The adaptive spectral gain: each step's update covariance blends the
+    prior spectrum with the shell fit of the inflated prediction
+    anomalies, against the reference with its draws; the knob is live
+    (blend 0 differs by more than the tolerance)."""
+    jres, tres = run_both(5, cg_iters=4, interp="zp", inflation=1.2,
+                          spectrum_blend=blend)
+    assert_same_enkf(jres, tres)
+    _, plain = run_both(5, cg_iters=4, interp="zp", inflation=1.2,
+                        jax_too=False)
+    w, _ = world()
+    bg = np.asarray(w["m_bg"])
+    jm = np.asarray(jres.mean_seq[-1])
+    assert l2(plain.mean_seq[-1].numpy() - tres.mean_seq[-1].numpy()) \
+        > 1e-2 * l2(jm - bg)
+
+
+def test_enkf_spectrum_blend_chunked_run_equals_one_call_bitwise():
+    """With the spectral gain (blend 1.0) the fit depends only on the
+    carried ensemble: 3 steps in one call and 1 + 2 chained agree bit
+    for bit, as ``tests/test_kalman.py``'s adaptive-gain test asks of the
+    reference; ``member_parallel_enkf`` refuses the knob, as the
+    reference does."""
+    from ionotomo_tpu_torch.inversion.kalman import member_parallel_enkf
+    from ionotomo_tpu_torch.parallel import sharding as sm
+
+    w, p = world()
+    init, _, obs, _ = jax_draws(jax.random.key(6), w["grid"].shape,
+                                int(np.prod(w["d_seq"].shape[1:])))
+    kw = dict(n_members=B, cg_iters=4, interp="zp", inflation=1.2,
+              spectrum_blend=1.0, geometry_cache={})
+
+    def run(t0, t1, **more):
+        return tenkf(
+            p["grid"], trays.RayBundle(p["rays_seq"].points[t0:t1],
+                                       p["rays_seq"].ds[t0:t1]),
+            p["d_seq"][t0:t1], p["noise"], p["m_bg"], p["cov"], p["wind"],
+            p["dt_s"], p["n_dirs"], torch.from_numpy(obs), **kw, **more)
+
+    one = run(0, NT, init_noise=torch.from_numpy(init))
+    a = run(0, 1, init_noise=torch.from_numpy(init))
+    b = run(1, NT, ens0=a.ensemble, advect_first=True, m_clim=p["m_bg"],
+            step_offset=1)
+    assert torch.isfinite(one.mean_seq).all()
+    assert torch.equal(one.ensemble, b.ensemble)
+    assert torch.equal(one.mean_seq, torch.cat([a.mean_seq, b.mean_seq]))
+    assert torch.equal(one.std_seq, torch.cat([a.std_seq, b.std_seq]))
+    mesh = sm.member_mesh([torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="spectrum_blend"):
+        member_parallel_enkf(
+            mesh, p["grid"], p["rays_seq"], p["d_seq"], p["noise"],
+            p["m_bg"], p["cov"], p["wind"], p["dt_s"], ens0=one.ensemble,
+            n_members=B, num_directions=p["n_dirs"],
+            obs_noise=torch.from_numpy(obs), spectrum_blend=0.5)
+
+
 def test_enkf_refuses_what_is_not_ported_or_not_fed():
     _, p = world()
     args = (p["grid"], p["rays_seq"], p["d_seq"], p["noise"], p["m_bg"],
             p["cov"], p["wind"], p["dt_s"], p["n_dirs"],
             torch.zeros((NT, B, 24)))
     init = torch.zeros((B,) + p["grid"].shape)
-    with pytest.raises(NotImplementedError, match="spectrum_blend"):
-        tenkf(*args, n_members=B, init_noise=init, spectrum_blend=0.5)
     with pytest.raises(ValueError, match="ens0 or init_noise"):
         tenkf(*args, n_members=B)
     with pytest.raises(ValueError, match="n_members"):

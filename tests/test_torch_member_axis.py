@@ -95,7 +95,8 @@ def test_rows_value_member_axis_backward_matches_jax_vjp(k, l, xy_first):
 
 def test_rows_value_batching_rule_other_cases():
     """Batched indices and weights loop the unbatched call (with the
-    table batched or shared); a member axis on the weights alone raises."""
+    table batched or shared); a member axis on the weights alone matches
+    ``jax.vmap`` of the reference with the same in_axes."""
     tables, ri, wxy, zi, wz, _ = _member_inputs(8, 3, 202)
     ri = np.clip(ri, 0, tables.shape[1] - 1)
     zi = np.clip(zi, 0, tables.shape[2] - 1)
@@ -114,10 +115,15 @@ def test_rows_value_batching_rule_other_cases():
         np.testing.assert_array_equal(
             shared[b].numpy(),
             ttri.rows_value(torch.from_numpy(tables[0]), *args, True).numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttri.rows_value(torch.from_numpy(tables[0]), torch.from_numpy(ri),
-                        wxyb, torch.from_numpy(zi), torch.from_numpy(wz),
-                        True)
+    got = ttri.rows_value(torch.from_numpy(tables[0]), torch.from_numpy(ri),
+                          wxyb, torch.from_numpy(zi), torch.from_numpy(wz),
+                          True)
+    want = np.asarray(jax.vmap(
+        lambda a: jtri.rows_value(jnp.asarray(tables[0]), jnp.asarray(ri), a,
+                                  jnp.asarray(zi), jnp.asarray(wz),
+                                  xy_first=True))(jnp.asarray(wxyb.numpy())))
+    assert got.shape == want.shape == (B, ri.shape[0])
+    assert _rel_err(got, want) <= 1e-5
 
 
 @SHAPES
