@@ -4,8 +4,9 @@ zp and the tricubic field model, its time-evolving path (the frozen-flow
 Kalman filter and the ensemble filter), its streaming service
 (``serving.EpochService``), its batch inversion
 (``inversion.pipeline.InversionPipeline``), its forward prediction with
-Faraday rotation (``predict``) and its multi-device layer (``parallel/``,
-its shards in turn on the card), on one NVIDIA GPU.
+Faraday rotation (``predict``), its multi-device layer (``parallel/``,
+its shards in turn on the card) and its eight examples
+(``ionotomo_tpu_torch.examples``), on one NVIDIA GPU.
 
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # also: device time by kernel of
@@ -31,6 +32,9 @@ its shards in turn on the card), on one NVIDIA GPU.
                                        # estimate and GCV on the ray mesh
                                        # by depth of CG, against data
                                        # moved by 1e-7)
+    python3 chip_smoke.py --examples   # only: the build and phase 19, the
+                                       # eight examples at their default
+                                       # sizes, card against CPU
     python3 chip_smoke.py --theta-study
                                        # only: phase 16's estimate_profile
                                        # solve by depth of CG and of
@@ -396,6 +400,17 @@ analytic world drifting with the wind, 1 % noise), and on it:
    bitwise the integrator over K5, the ray mesh's snapshot solve and
    filter chunk, ``member_parallel_enkf`` over 2 and 8 groups, the
    pipeline with ``mesh=``.
+19. The port's eight examples (``ionotomo_tpu_torch.examples``) at their
+   own default sizes, ``plots=False`` (``invert_synthetic`` also with
+   ``--bent``; its h5 files not written and ``real_data_workflow``'s
+   DataPack held in memory: no h5py there; ``sharded_grid`` on 8 shards
+   of the card): each one's result, host seconds and launches by kernel,
+   its kernels launched and no plain twin called, the claims of its
+   printed comparisons, the card against its own run on the CPU quantity
+   by quantity (``EXAMPLES``) and the profile workflows at cg 3 within
+   1e-3; K1r and K1c against the plain tracer at ``bent_retrace``'s 30
+   MHz inputs; ``sharded_grid`` against its meshless run, the limit
+   between the sound reading and a dropped shard's.
 
 With ``--parent``, KG at both of phase 7's shapes and the permute at
 phases 6 and 10 are bitwise the parent's and timed in turns with it, as
@@ -9549,6 +9564,388 @@ def phase18_sharded(dev, kernels, results, small=False, profile=False,
     return out
 
 
+#: Phase 19: the port's eight examples (``ionotomo_tpu_torch.examples``)
+#: at their own default sizes. Each entry: the kernels its path must
+#: launch on the card, and the quantities held card against CPU, each
+#: with its limit, relative. The limits: 1e-4 where no Krylov loop of
+#: many f32 steps stands between the inputs and the number, 1e-3 for the
+#: rmse and spreads behind one. Where the number is decided by rounding
+#: (ROADMAP Queue 3, "f32 Krylov depth") the limit lies past what the
+#: port's own CPU run reads when its inputs move by 1e-6 relative, and
+#: the profile solves are held tightly at a shallow depth instead
+#: (``EXAMPLE_SHALLOW``). Measured (NVIDIA H100 80GB HBM3, 700.00 W, card
+#: against CPU / the CPU's own run under 1e-6 of input): kalman's post
+#: residuals 7.5e-2 / 9.4e-2 and pre 1.8e-2 / 1.7e-2; bent_retrace's
+#: frozen rmse (gn 4, cg 30 on frozen paths) 4.6e-2 / 1.9e-2 (4e-2 across
+#: 1e-7 to 1e-6), its last re-trace 1.1e-2 under 1e-7; the ionosonde
+#: joint rms 3.0e-2 / 7e-2.
+EXAMPLE_ROW_KERNELS = ("rows_value_fwd", "rows_value_bwd",
+                       "cubic_value_grad", "cubic_value_grad_bwd",
+                       "point_order_keys", "permute_points")
+#: the posterior draws and the ensemble: every member solve through the
+#: member-axis gather and scatter (never the unbatched K3), E member by
+#: member on cubic
+EXAMPLE_MEMBER_KERNELS = ("rows_value_fwd", "cubic_value_grad",
+                          "cubic_value_grad_bwd", "point_order_keys",
+                          "permute_points", "rows_value_fwd_batched",
+                          "rows_value_bwd_batched", "pack_members",
+                          "fold_member_rows")
+EXAMPLES = {
+    "invert_synthetic": dict(
+        kernels=EXAMPLE_ROW_KERNELS,
+        limits={"rmse_posterior": 1e-3, "rmse_covered_posterior": 1e-3,
+                "covered_fraction": 1e-4, "residual": 5e-2}),
+    "invert_synthetic --bent": dict(
+        kernels=EXAMPLE_ROW_KERNELS + ("trace_leapfrog_cubic",),
+        limits={"rmse_posterior": 1e-3, "rmse_covered_posterior": 1e-3,
+                "covered_fraction": 1e-4, "residual": 5e-2}),
+    "kalman_tracking": dict(
+        kernels=EXAMPLE_ROW_KERNELS,
+        limits={"rmse": 1e-3, "rmse_background": 1e-4, "pre": 5e-2,
+                "post": 0.25, "wind": 3e-2}),
+    "bent_retrace": dict(
+        kernels=("trace_rk4_cubic",) + EXAMPLE_ROW_KERNELS,
+        limits={"rmse_prior": 1e-4, "rmse_frozen": 0.1,
+                "rmse_retraced": 3e-2, "residual_retraced": 3e-2}),
+    "uncertainty": dict(
+        kernels=EXAMPLE_MEMBER_KERNELS,
+        limits={"cover_fraction": 2e-3, "enkf_spread": 1e-3}),
+    "profile_estimation": dict(
+        kernels=EXAMPLE_ROW_KERNELS,
+        limits={"n_peak": 2e-2, "h_peak_km": 5e-3, "scale_km": 2e-2,
+                "rms_prior": 1e-4, "rms_fixed": 1e-3,
+                "rms_parametric": 5e-2}),
+    "ionosonde_probes": dict(
+        kernels=EXAMPLE_ROW_KERNELS,
+        limits={"probe_z_min": 1e-4, "probe_z_max": 1e-4, "rms_prior": 1e-4,
+                "rms_assimilated": 1e-3, "n_peak": 2e-2, "h_peak_km": 5e-3,
+                "scale_km": 2e-2, "rms_joint": 0.35}),
+    "real_data_workflow": dict(
+        kernels=EXAMPLE_ROW_KERNELS,
+        limits={"vtec_mean": 1e-4, "anchor_error": 1e-2}),
+    "sharded_grid": dict(
+        kernels=("cubic_sharded_value", "cubic_sharded_value_grad",
+                 "cubic_sharded_value_bwd"),
+        limits={"tec_mean": 1e-5, "residual_before": 1e-5,
+                "residual_after": 1e-3}),
+}
+#: the profile workflows' joint solve at this CG depth, card against CPU
+#: (and in the tests against the JAX examples) within 1e-3
+EXAMPLE_SHALLOW = 3
+EXAMPLE_SHALLOW_LIMIT = 1e-3
+#: ``sharded_grid`` on GRID_SHARDS shards of the one card against its
+#: meshless run on the same grid and rays: the mean TEC of the bent trace,
+#: the LSQR's residual after, and its update over max|update| (set
+#: between the sound run's reading, 5.8e-5 on the card and 1.0e-5 on the
+#: CPU, and the dropped shard's, 0.32)
+EXAMPLE_SHARDED_LIMIT = 1e-3
+
+
+def example_claims(name, r):
+    """The example's printed comparisons, as the JAX example's run shows
+    them: (holds, what) each."""
+    if name.startswith("invert_synthetic"):
+        return [(r["rmse_posterior"] < r["rmse_prior"],
+                 f"posterior rmse {r['rmse_posterior']:.4f} below the "
+                 f"prior's {r['rmse_prior']:.4f}"),
+                (r["rmse_covered_posterior"] < r["rmse_covered_prior"],
+                 f"ray-covered rmse {r['rmse_covered_posterior']:.4f} below "
+                 f"the prior's {r['rmse_covered_prior']:.4f}")]
+    if name == "kalman_tracking":
+        return [(all(b < a for a, b in zip(r["pre"], r["post"])),
+                 "every step's whitened residual falls: " + ", ".join(
+                     f"{a:.1f} -> {b:.1f}" for a, b in zip(r["pre"],
+                                                            r["post"]))),
+                (all(e < b for e, b in zip(r["rmse"], r["rmse_background"])),
+                 "the filtered rmse below the static background's every "
+                 "step: " + ", ".join(f"{e:.4f} < {b:.4f}" for e, b in
+                                      zip(r["rmse"], r["rmse_background"])))]
+    if name == "bent_retrace":
+        return [(r["rmse_frozen"] < r["rmse_prior"],
+                 f"frozen rmse {r['rmse_frozen']:.4f} below the prior's "
+                 f"{r['rmse_prior']:.4f}"),
+                (max(r["rmse_retraced"]) < r["rmse_prior"],
+                 "every re-traced rmse below the prior's"),
+                (min(r["rmse_retraced"][1:]) < r["rmse_retraced"][0],
+                 f"re-tracing lowers the rmse from "
+                 f"{r['rmse_retraced'][0]:.4f} to "
+                 f"{min(r['rmse_retraced'][1:]):.4f} (the frozen "
+                 f"linearisation's {r['rmse_frozen']:.4f} is decided by "
+                 f"rounding to ~5 %)")]
+    if name == "uncertainty":
+        s = r["enkf_spread"]
+        return [(r["cover_fraction"] >= 0.99,
+                 f"|mean - truth| <= 2 std on "
+                 f"{100 * r['cover_fraction']:.1f} % of voxels (>= 99 %)"),
+                (all(b > a for a, b in zip(s, s[1:])),
+                 "the inflated ensemble's spread grows every step: "
+                 + ", ".join(f"{v:.4f}" for v in s))]
+    if name == "profile_estimation":
+        return [(r["rms_parametric"] < r["rms_fixed"] < r["rms_prior"],
+                 f"profile rms parametric {r['rms_parametric']:.3f} < fixed "
+                 f"{r['rms_fixed']:.3f} < prior {r['rms_prior']:.3f}"),
+                (350.0 < r["h_peak_km"] <= 390.0,
+                 f"h_peak moved from the guess's 350 toward the truth's 380: "
+                 f"{r['h_peak_km']:.1f} km")]
+    if name == "ionosonde_probes":
+        return [(r["probe_rows"] == 24, f"{r['probe_rows']} probe rows"),
+                (r["rms_joint"] < r["rms_assimilated"] < r["rms_prior"],
+                 f"log-profile rms joint {r['rms_joint']:.3f} < after the "
+                 f"probes {r['rms_assimilated']:.3f} < the prior's "
+                 f"{r['rms_prior']:.3f}"),
+                (375.0 < r["h_peak_km"] < 395.0,
+                 f"F2 h_peak moved from 350 toward 385: "
+                 f"{r['h_peak_km']:.1f} km")]
+    if name == "real_data_workflow":
+        return [(r["datapack_shape"] == (14, 1, 8)
+                 and r["vtec_shape"] == (28, 28),
+                 f"DataPack {r['datapack_shape']}, VTEC map "
+                 f"{r['vtec_shape']}"),
+                (r["anchor_error"] < 0.1,
+                 f"absolute-VTEC error at the anchor columns "
+                 f"{100 * r['anchor_error']:.2f} % (under 10 %)")]
+    if name == "sharded_grid":
+        return [(r["residual_after"] < 0.05 * r["residual_before"],
+                 f"the LSQR residual falls {r['residual_before']:.2f} -> "
+                 f"{r['residual_after']:.2f} in {r['iterations']} "
+                 f"iterations")]
+    raise KeyError(name)
+
+
+def example_call(name, dev, out, cg_iters=None):
+    """One example's ``run`` on ``dev`` at its default size, no plots,
+    nothing written that needs h5py (``invert_synthetic`` without its h5
+    files, ``real_data_workflow`` with its DataPack in memory);
+    ``sharded_grid`` on GRID_SHARDS shards of ``dev``."""
+    from ionotomo_tpu_torch.examples import (bent_retrace, invert_synthetic,
+                                             ionosonde_probes,
+                                             kalman_tracking,
+                                             profile_estimation,
+                                             real_data_workflow,
+                                             sharded_grid, uncertainty)
+    depth = {} if cg_iters is None else {"cg_iters": cg_iters}
+    out = str(out)
+    if name.startswith("invert_synthetic"):
+        return invert_synthetic.run(out, bent=name.endswith("--bent"),
+                                    device=dev, plots=False, save_h5=False)
+    if name == "kalman_tracking":
+        return kalman_tracking.run(out, device=dev, plots=False)
+    if name == "bent_retrace":
+        return bent_retrace.run(out, device=dev, plots=False)
+    if name == "uncertainty":
+        return uncertainty.run(out, device=dev, plots=False)
+    if name == "profile_estimation":
+        return profile_estimation.run(device=dev, plots=False, **depth)
+    if name == "ionosonde_probes":
+        return ionosonde_probes.run(out, device=dev, plots=False, **depth)
+    if name == "real_data_workflow":
+        return real_data_workflow.run(out, device=dev, plots=False,
+                                      h5parm=False)
+    if name == "sharded_grid":
+        return sharded_grid.run(GRID_SHARDS, device=dev, plots=False)
+    raise KeyError(name)
+
+
+def example_numbers(r) -> dict:
+    """The printed numbers of a result dict (the pipeline's records as
+    their residuals and estimated wind; no path, tensor or host time)."""
+    out = {}
+    for k, v in r.items():
+        if k == "records":
+            out["residual"] = [x["residual"] for x in v if "residual" in x]
+            wind = [x["wind_kmps"] for x in v if "wind_kmps" in x]
+            if wind:
+                out["wind"] = wind[0][:2]
+        elif isinstance(v, (int, float, tuple, list)) and \
+                not isinstance(v, bool):
+            out[k] = v
+    return out
+
+
+def rel_reading(got, want) -> float:
+    """max |got − want| / |want| over the elements (0 where both are 0)."""
+    g = np.atleast_1d(np.asarray(got, np.float64))
+    w = np.atleast_1d(np.asarray(want, np.float64))
+    return float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-30)))
+
+
+class PlainTwins:
+    """Counts the calls of the kernels' plain versions while active, by
+    name (``PlainCalls``' names, the member-axis and sharded twins and the
+    plain tracer), with ``rows_value_ref``'s calls for weights that need a
+    derivative apart (``by_design``: no kernel takes that case)."""
+
+    TWINS = (("core.tricubic", PlainCalls.NAMES + (
+                 "rows_value_packed_ref", "fold_member_rows_ref",
+                 "pack_members_ref", "interp_rows_with_grad_taps_ref",
+                 "interp_rows_with_grad_packed_ref")),
+             ("core.boxspline", PlainCalls.NAMES),
+             ("parallel.grid_sharding", (
+                 "sharded_value_ref", "sharded_value_grad_ref",
+                 "sharded_value_grad_ordered_ref", "sharded_transpose_ref")),
+             ("geometry.fermat", ("trace_rays_ref",)),
+             ("forward.tec", ("dtec_paired_linear_ref",)))
+
+    def __init__(self):
+        self.calls, self.by_design, self.saved = {}, 0, []
+
+    def __enter__(self):
+        for mod_name, names in self.TWINS:
+            mod = importlib.import_module(f"ionotomo_tpu_torch.{mod_name}")
+            for name in names:
+                fn = getattr(mod, name, None)
+                if fn is None:
+                    continue
+                self.saved.append((mod, name, fn))
+
+                def counted(*a, _fn=fn, _name=f"{mod_name}.{name}", **k):
+                    if _name.endswith("rows_value_ref") and any(
+                            torch.is_tensor(x) and x.requires_grad
+                            for x in a[2:5:2]):
+                        self.by_design += 1
+                    else:
+                        self.calls[_name] = self.calls.get(_name, 0) + 1
+                    return _fn(*a, **k)
+
+                setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def phase19_examples(dev, kernels, results, cpu=True):
+    """The port's eight examples (``ionotomo_tpu_torch.examples``), each
+    through its ``run`` at its own default size with ``plots=False``
+    (``invert_synthetic`` also ``--bent``): the result, the host seconds
+    (synchronised) and the launches by kernel; its kernels launched and
+    no plain twin called; its claims; the card against the same run on
+    the CPU, quantity by quantity (``EXAMPLES``), and the profile
+    workflows' joint solve at cg ``EXAMPLE_SHALLOW``; K1r (the example's
+    rk4) and K1c (leapfrog) against the plain tracer at
+    ``bent_retrace``'s 30 MHz inputs; ``sharded_grid`` on GRID_SHARDS
+    shards of the card against its meshless run, its limit between the
+    sound reading and a dropped shard's. It measures no speed: these are
+    the shipped configurations, 20³-32³ and at most 300 rays."""
+    cuda = dev.type == "cuda"
+    print("phase 19: the examples (ionotomo_tpu_torch.examples) at their "
+          "default sizes")
+    t_phase = time.perf_counter()
+    out = {}
+    for name, spec in EXAMPLES.items():
+        where = name.replace(" --", "_")
+        reset_all_launches()
+        with PlainTwins() as plain:
+            sync(dev)
+            t0 = time.perf_counter()
+            r = example_call(name, dev, service_dir(where, "examples/card"))
+            sync(dev)
+            secs = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        nums = example_numbers(r)
+        print(f"  {name}: {secs:.2f} s (host clock, synchronised); "
+              f"{json.dumps(nums)}")
+        print(f"    launches: {launches}")
+        row = {"seconds": secs, "launches": launches, "result": nums,
+               "plain_by_design": plain.by_design}
+        if cuda:
+            for k in spec["kernels"]:
+                check(launches.get(k, 0) > 0,
+                      f"{name}: {k} launched ({launches.get(k, 0)} times)")
+            check(not plain.calls,
+                  f"{name}: no plain twin called where a kernel exists "
+                  f"({plain.calls or 'none'}; rows_value_ref for weights "
+                  f"that need a derivative, plain by design: "
+                  f"{plain.by_design})")
+        for ok, what in example_claims(name, r):
+            check(ok, f"{name}: {what}")
+        if cpu:
+            t1 = time.perf_counter()
+            c = example_numbers(example_call(
+                name, torch.device("cpu"),
+                service_dir(where, "examples/cpu")))
+            readings = {k: rel_reading(nums[k], c[k])
+                        for k in spec["limits"]}
+            row["cpu_seconds"] = time.perf_counter() - t1
+            row["card_vs_cpu"] = readings
+            print(f"    the same run on the CPU: {row['cpu_seconds']:.2f} s")
+            for k, lim in spec["limits"].items():
+                check(readings[k] <= lim,
+                      f"{name}: {k} on the card within {lim:g} of the CPU "
+                      f"run ({readings[k]:.3e}; card {nums[k]}, CPU {c[k]})")
+        out[name] = row
+
+    if cpu:
+        for name in ("profile_estimation", "ionosonde_probes"):
+            keys = ("n_peak", "h_peak_km", "scale_km",
+                    "rms_parametric" if name == "profile_estimation"
+                    else "rms_joint")
+            a, b = (example_numbers(example_call(
+                name, d, service_dir(name, f"examples/shallow_{d.type}"),
+                cg_iters=EXAMPLE_SHALLOW)) for d in (dev,
+                                                     torch.device("cpu")))
+            readings = {k: rel_reading(a[k], b[k]) for k in keys}
+            out[name]["card_vs_cpu_shallow"] = readings
+            for k in keys:
+                check(readings[k] <= EXAMPLE_SHALLOW_LIMIT,
+                      f"{name} at cg {EXAMPLE_SHALLOW}: {k} on the card "
+                      f"within {EXAMPLE_SHALLOW_LIMIT:g} of the CPU "
+                      f"({readings[k]:.3e})")
+
+    # K1r, the example's rk4, and K1c against the plain tracer at
+    # bent_retrace's 30 MHz inputs, with the path kept and without
+    from ionotomo_tpu_torch.examples import bent_retrace
+    from ionotomo_tpu_torch.geometry import fermat
+
+    w = bent_retrace.world(dev)
+    o, d = w["origins"], w["directions"]
+    out["trace_30mhz"] = {}
+    for method, kernel in (("rk4", "trace_rk4_cubic"),
+                           ("leapfrog", "trace_leapfrog_cubic")):
+        kw = dict(n_steps=bent_retrace.N_STEPS, method=method)
+
+        def traced(keep_path, fn=fermat.trace_rays, kw=kw):
+            return fn(w["m_true"], w["grid"], o, d, 30e6,
+                      bent_retrace.LENGTH_KM, keep_path=keep_path, **kw)
+
+        reset_all_launches()
+        errs = check_paths_against_plain(
+            f"{kernel} at 30 MHz ({o.shape[0]} rays, {method}@"
+            f"{bent_retrace.N_STEPS})", traced,
+            lambda kp: traced(kp, fermat.trace_rays_ref), o) if cuda else []
+        if cuda:
+            check(launched(kernel) > 0, f"{kernel} launched at 30 MHz")
+        b_k, _ = traced(True)
+        bend = float((b_k.points[:, -1] - (o + bent_retrace.LENGTH_KM * d))
+                     .norm(dim=-1).max())
+        print(f"  {kernel} at 30 MHz: endpoints up to {bend:.1f} km from "
+              f"the straight line's")
+        out["trace_30mhz"][kernel] = {"errors": errs, "bend_km": bend}
+
+    # sharded_grid against its meshless run on the same grid and rays
+    def sharded_reading():
+        a = example_call("sharded_grid", dev, None)
+        return max(rel_reading(a["tec_mean"], ref["tec_mean"]),
+                   rel_reading(a["residual_after"], ref["residual_after"]),
+                   float((a["dm"] - ref["dm"]).abs().max()) / scale)
+
+    from ionotomo_tpu_torch.examples import sharded_grid
+    ref = sharded_grid.run(GRID_SHARDS, device=dev, meshless=True)
+    scale = float(ref["dm"].abs().max())
+    sound = sharded_reading()
+    check(sound <= EXAMPLE_SHARDED_LIMIT,
+          f"sharded_grid on {GRID_SHARDS} shards of the card against its "
+          f"meshless run: {sound:.3e} <= {EXAMPLE_SHARDED_LIMIT:g}")
+    control(out, "sharded_grid", sound, EXAMPLE_SHARDED_LIMIT,
+            sharded_reading, ("dropped_shard",))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  seconds by example (card): " + ", ".join(
+        f"{k} {v['seconds']:.2f}" for k, v in out.items()
+        if isinstance(v, dict) and "seconds" in v))
+    results["examples"] = out
+
+
 def sharded_only(parent_dir=None, profile=False, study=False,
                  depth_study=False) -> int:
     """``--sharded``: the build and phase 18 alone (the multi-device layer
@@ -9937,6 +10334,32 @@ def kernels_line(results) -> dict:
             "kernels_at_sharded": at_sharded}
 
 
+def examples_only() -> int:
+    """``--examples``: the build and phase 19 alone (the eight examples at
+    their default sizes, card against CPU)."""
+    from ionotomo_tpu_torch import kernels
+    from ionotomo_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    print(f"card: {card_line()}")
+    info = build.build()
+    print(f"  built={info['built']} in {info['seconds']:.2f} s")
+    build.load()
+    lap = Laps()
+    results = {}
+    phase19_examples(dev, kernels, results)
+    lap("phase19_examples")
+    print(json.dumps({"launches_by_example": {
+        k: v["launches"] for k, v in results["examples"].items()
+        if isinstance(v, dict) and "launches" in v}}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def service_only() -> int:
     """``--service``: the build and phase 15 alone (the streaming service;
     ~1-2 min on an H100)."""
@@ -10169,6 +10592,8 @@ def main() -> int:
     if "--sharded" in args:
         return sharded_only(parent_dir, profile, "--k7-study" in args,
                             "--depth-study" in args)
+    if "--examples" in args:
+        return examples_only()
 
     from ionotomo_tpu_torch import configs, kernels
     from ionotomo_tpu_torch.core import (boxspline, triquadratic, tricubic,
@@ -10267,8 +10692,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase18_sharded(dev, kernels, results, profile=profile, parent=parent)
     lap("phase18_sharded")
+    torch.cuda.empty_cache()
+    phase19_examples(dev, kernels, results)
+    lap("phase19_examples")
 
     line = kernels_line(results)
+    line["launches_by_example"] = {
+        k: v["launches"] for k, v in results["examples"].items()
+        if isinstance(v, dict) and "launches" in v}
     solve, c2, c4 = results["solve"], results["config2"], results["config4"]
     print(f"rays/s: kernel {results['rays_per_s']['kernel']:.1f}, plain "
           f"{results['rays_per_s']['plain']:.1f}; serving "
